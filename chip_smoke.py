@@ -1,0 +1,486 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port's main path on one CUDA card.
+
+    python3 chip_smoke.py [--layers 9] [--seed 0]
+
+One daemon pulls checkpoints back to source (``file://``) into device
+memory through the port's device sink, as a seed peer does for every task:
+
+1. device   — the card's name, count, power limit; no CUDA card is an error
+2. sink     — a seeded buffer written into ``DeviceIngest`` as shuffled
+              pieces; the host-to-device copy rate from pinned and from
+              pageable memory, and the pinning time
+3. manifest — the Llama-3-8B tensor layout (widths as published, depth cut
+              to ``--layers``) in a safetensors-style file, pulled with a
+              shard manifest: every tensor must land on the card as bf16
+              with its published shape and the origin's bytes
+4. file     — the same file pulled whole as uint8 shards, then with no
+              device sink, then with neither sink nor digest (what the
+              device leg and the finalize digest each add)
+5. prefetch — eight seeded 256 MiB shards through ``ShardPrefetcher``
+
+Each phase prints one line. The port ports no kernel (the JAX package has
+no Pallas kernel; its device work is ``jax.device_put``, which here is
+copy-engine work), so the kernel line lists none. The last line is the
+JSON verdict; any failed check exits non-zero before it.
+"""
+
+from __future__ import annotations
+
+import argparse
+import asyncio
+import hashlib
+import json
+import os
+import shutil
+import struct
+import subprocess
+import sys
+import tempfile
+import threading
+import time
+import zlib
+
+import numpy as np
+import torch
+
+from dragonfly2_tpu_torch.common.metrics import REGISTRY
+from dragonfly2_tpu_torch.common.piece import compute_piece_size
+from dragonfly2_tpu_torch.daemon.config import DaemonConfig
+from dragonfly2_tpu_torch.daemon.daemon import Daemon
+from dragonfly2_tpu_torch.idl.messages import (DeviceSink, DownloadRequest,
+                                               ShardInfo, ShardManifest,
+                                               UrlMeta)
+from dragonfly2_tpu_torch.tpu.data import ShardPrefetcher
+from dragonfly2_tpu_torch.tpu.hbm_sink import DeviceIngest
+
+# meta-llama/Meta-Llama-3-8B config.json
+LLAMA3_8B = {"hidden": 4096, "intermediate": 14336, "kv_heads": 8,
+             "head_dim": 128, "vocab": 128256, "layers": 32}
+SAFETENSORS_DTYPES = {"BF16": "bfloat16", "F16": "float16",
+                      "F32": "float32", "I8": "int8", "U8": "uint8",
+                      "I32": "int32"}
+PREFETCH_SHARDS = 8
+PREFETCH_SHARD_BYTES = 256 << 20
+KERNELS_NOTE = ("the JAX package has no Pallas kernel; its device work on "
+                "this path is jax.device_put, which the port does as "
+                "pinned-memory copies on a CUDA stream (copy engines)")
+
+
+class CheckFailed(Exception):
+    pass
+
+
+def check(cond: bool, what: str) -> None:
+    if not cond:
+        raise CheckFailed(what)
+
+
+def emit(phase: str, record: dict) -> None:
+    print(f"{phase}: {json.dumps(record)}", flush=True)
+
+
+def seeded_bytes(rng: np.random.Generator, n: int) -> np.ndarray:
+    """``n`` seeded random bytes (drawn as uint64 words: several times
+    faster than ``Generator.bytes``)."""
+    words = rng.integers(0, np.iinfo(np.uint64).max, size=-(-n // 8),
+                         dtype=np.uint64, endpoint=True)
+    return words.view(np.uint8)[:n]
+
+
+def llama_layout(layers: int) -> list[tuple[str, list[int]]]:
+    """Tensor names and shapes of Llama-3-8B in the published (Hugging
+    Face) layout: the embedding and ``layers`` decoder layers, plus the
+    final norm and ``lm_head`` when all 32 layers are asked for."""
+    h, i = LLAMA3_8B["hidden"], LLAMA3_8B["intermediate"]
+    kv = LLAMA3_8B["kv_heads"] * LLAMA3_8B["head_dim"]
+    out = [("model.embed_tokens.weight", [LLAMA3_8B["vocab"], h])]
+    for n in range(layers):
+        p = f"model.layers.{n}."
+        out += [(p + "self_attn.q_proj.weight", [h, h]),
+                (p + "self_attn.k_proj.weight", [kv, h]),
+                (p + "self_attn.v_proj.weight", [kv, h]),
+                (p + "self_attn.o_proj.weight", [h, h]),
+                (p + "mlp.gate_proj.weight", [i, h]),
+                (p + "mlp.up_proj.weight", [i, h]),
+                (p + "mlp.down_proj.weight", [h, i]),
+                (p + "input_layernorm.weight", [h]),
+                (p + "post_attention_layernorm.weight", [h])]
+    if layers == LLAMA3_8B["layers"]:        # the whole model
+        out += [("model.norm.weight", [h]),
+                ("lm_head.weight", [LLAMA3_8B["vocab"], h])]
+    return out
+
+
+def safetensors_header(layout: list[tuple[str, list[int]]]
+                       ) -> tuple[bytes, int]:
+    """(8-byte length + JSON header padded to 8 bytes, tensor bytes)."""
+    entries, off = {}, 0
+    for name, shape in layout:
+        nbytes = int(np.prod(shape)) * 2
+        entries[name] = {"dtype": "BF16", "shape": shape,
+                         "data_offsets": [off, off + nbytes]}
+        off += nbytes
+    raw = json.dumps(entries, separators=(",", ":")).encode()
+    raw += b" " * (-len(raw) % 8)
+    return struct.pack("<Q", len(raw)) + raw, off
+
+
+def manifest_from_file(path: str) -> ShardManifest:
+    """The shard manifest a user builds from a safetensors header."""
+    with open(path, "rb") as f:
+        n = struct.unpack("<Q", f.read(8))[0]
+        header = json.loads(f.read(n))
+    base = 8 + n
+    return ShardManifest(shards=[
+        ShardInfo(name=name, range_start=base + e["data_offsets"][0],
+                  range_size=e["data_offsets"][1] - e["data_offsets"][0],
+                  dtype=SAFETENSORS_DTYPES[e["dtype"]], shape=e["shape"])
+        for name, e in header.items() if name != "__metadata__"])
+
+
+def hbm_counters() -> dict:
+    """The sink's cumulative ``df_hbm_*`` counters and histogram."""
+    transfers = REGISTRY.counter("df_hbm_transfers_total",
+                                 labels=("result",))
+    _, seconds, n = REGISTRY.histogram("df_hbm_transfer_seconds").snapshot()
+    return {
+        "df_hbm_staged_bytes_total":
+            REGISTRY.counter("df_hbm_staged_bytes_total").value(),
+        "df_hbm_transfers_total_ok": transfers.value("ok"),
+        "df_hbm_transfers_total_fail": transfers.value("fail"),
+        "df_hbm_transfer_seconds_count": n,
+        "df_hbm_transfer_seconds_sum": seconds,
+    }
+
+
+def hbm_metrics(before: dict) -> dict:
+    """This phase's ``df_hbm_*`` increments (counters, histogram) and the
+    gauges as read after it."""
+    out = {k: v - before[k] for k, v in hbm_counters().items()}
+    out["df_hbm_transfer_queue_depth"] = REGISTRY.gauge(
+        "df_hbm_transfer_queue_depth").value()
+    out["df_hbm_done_fraction"] = REGISTRY.gauge(
+        "df_hbm_done_fraction").value()
+    return out
+
+
+def timed_upload(src: torch.Tensor, device: torch.device
+                 ) -> tuple[float, torch.Tensor]:
+    """One host-to-device copy of the whole buffer, timed to completion
+    with CUDA events (after a 1 MiB warm-up copy); returns (GB/s, copy)."""
+    dst = torch.empty(src.numel(), dtype=torch.uint8, device=device)
+    dst[:1 << 20].copy_(src[:1 << 20])
+    torch.cuda.synchronize(device)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    dst.copy_(src, non_blocking=True)
+    end.record()
+    end.synchronize()
+    return src.numel() / 1e9 / (start.elapsed_time(end) / 1e3), dst
+
+
+def overlap_efficiency(spans: list[tuple[float, float]],
+                       t_dl_end: float) -> float:
+    """Fraction of device-copy time that ran before the download's last
+    byte landed (1.0 = every copy hidden behind the download)."""
+    total = sum(e - s for s, e in spans)
+    if total <= 0:
+        return 0.0
+    return sum(max(0.0, min(e, t_dl_end) - s) for s, e in spans) / total
+
+
+async def pull(daemon: Daemon, url: str, meta: UrlMeta, sink: DeviceSink,
+               manifest: ShardManifest | None = None) -> dict:
+    """One task through the daemon's file-task path; returns the sink's
+    result and the run's timings."""
+    t0 = time.monotonic()
+    task_id = None
+    async for resp in daemon.ptm.start_file_task(DownloadRequest(
+            url=url, url_meta=meta, device_sink=sink, timeout_s=1200.0,
+            shard_manifest=manifest)):
+        task_id = resp.task_id or task_id
+    t_dl_end = time.monotonic()
+    conductor = daemon.ptm.conductor(task_id)
+    ingest = conductor.device_ingest
+    check(ingest is not None, f"{url}: device sink was not live")
+    out = await asyncio.to_thread(ingest.result, 1200.0)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    return {"task_id": task_id, "out": out, "wall": wall,
+            "download_s": t_dl_end - t0,
+            "overlap": overlap_efficiency(list(ingest.transfer_spans),
+                                          t_dl_end),
+            "transfers": len(ingest.transfer_spans),
+            "pin_s": ingest.pin_seconds,
+            "piece_size": conductor.piece_size,
+            "pieces": conductor.total_pieces}
+
+
+def phase_device() -> str:
+    if not torch.cuda.is_available() or torch.cuda.device_count() == 0:
+        print("chip_smoke: no CUDA device found; this smoke runs only on a "
+              "CUDA card", file=sys.stderr)
+        sys.exit(2)
+    name = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    emit("phase 1 device", {"name": name,
+                            "count": torch.cuda.device_count(),
+                            "torch": torch.__version__,
+                            "cuda": torch.version.cuda})
+    print(smi, flush=True)
+    return name
+
+
+def phase_sink(buf: np.ndarray, seed: int, device: torch.device
+               ) -> torch.Tensor:
+    """Returns the input on the card (uploaded from pageable memory), the
+    reference later phases compare against."""
+    n = buf.size
+    before = hbm_counters()
+    piece = compute_piece_size(n)
+    order = np.random.default_rng(seed + 1).permutation(-(-n // piece))
+    t0 = time.monotonic()
+    ingest = DeviceIngest(n, devices=[device])
+    t_built = time.monotonic()
+    view = memoryview(buf)
+    for p in order:
+        ingest.write(int(p) * piece, view[int(p) * piece:(int(p) + 1) * piece])
+    t_written = time.monotonic()
+    (out,) = ingest.result(timeout=600)
+    torch.cuda.synchronize(device)
+    t_done = time.monotonic()
+    check(out.device == device, "sink result is not on the card")
+    pinned_gbps, _ = timed_upload(ingest.host, device)
+    del ingest, _
+    pageable_gbps, ref = timed_upload(torch.from_numpy(buf), device)
+    check(torch.equal(out, ref), "sink bytes differ from the input")
+    del out
+    emit("phase 2 sink", {
+        "bytes": n, "pieces": len(order), "piece_size": piece,
+        "pin_s": t_built - t0, "write_s": t_written - t_built,
+        "result_s": t_done - t_written,
+        "h2d_pinned_gbps": pinned_gbps, "h2d_pageable_gbps": pageable_gbps,
+        "bytes_equal": True,
+        **hbm_metrics(before)})
+    return ref
+
+
+async def phase_daemon(workdir: str, path: str, digest: str,
+                       header: bytes, ref: torch.Tensor,
+                       layout: list[tuple[str, list[int]]],
+                       device: torch.device) -> None:
+    daemon = Daemon(DaemonConfig(workdir=os.path.join(workdir, "daemon"),
+                                 hostname="chip-smoke"))
+    await daemon.start()
+    url = "file://" + path
+    size = os.path.getsize(path)
+    try:
+        # manifest mode: one typed, shaped tensor per named tensor
+        before = hbm_counters()
+        manifest = manifest_from_file(path)
+        run = await pull(daemon, url, UrlMeta(digest=digest),
+                         DeviceSink(enabled=True), manifest)
+        tensors = run["out"]
+        check(len(tensors) == len(layout),
+              f"{len(tensors)} tensors, want {len(layout)}")
+        base = len(header)
+        shapes = dict(layout)
+        for info in manifest.shards:
+            t = tensors[info.name]
+            check(t.device == device, f"{info.name} on {t.device}")
+            check(t.dtype == torch.bfloat16, f"{info.name} is {t.dtype}")
+            check(list(t.shape) == shapes[info.name],
+                  f"{info.name} shape {list(t.shape)}")
+            lo = info.range_start - base
+            check(torch.equal(t.reshape(-1).view(torch.uint8),
+                              ref[lo:lo + info.range_size]),
+                  f"{info.name} bytes differ from the origin")
+        emit("phase 3 manifest", {
+            "file_bytes": size, "tensors_verified": len(tensors),
+            "tensors": len(layout), "device": str(device),
+            "dtype": "bfloat16", "wall_s": run["wall"],
+            "download_s": run["download_s"],
+            "gbps": size / 1e9 / run["wall"],
+            "ingest_overlap_efficiency": run["overlap"],
+            "transfers": run["transfers"], "pin_s": run["pin_s"],
+            "piece_size": run["piece_size"], "pieces": run["pieces"],
+            **hbm_metrics(before)})
+        task_id = run["task_id"]
+        del tensors, run
+        await daemon.ptm.delete_task(task_id)
+
+        # whole-file mode: uint8 shards, the auto pipeline_shards rule
+        before = hbm_counters()
+        run = await pull(daemon, url, UrlMeta(digest=digest),
+                         DeviceSink(enabled=True))
+        arrays = run["out"]
+        check(all(a.device == device for a in arrays),
+              "a whole-file shard is not on the card")
+        flat = torch.cat(arrays)
+        hdr = torch.frombuffer(bytearray(header), dtype=torch.uint8)
+        check(torch.equal(flat[:base].cpu(), hdr), "header bytes differ")
+        check(torch.equal(flat[base:size], ref), "tensor bytes differ")
+        check(not flat[size:].any().item(), "pad bytes are not zero")
+        emit("phase 4 file", {
+            "file_bytes": size, "bytes_equal": True,
+            "device_shards": len(arrays), "wall_s": run["wall"],
+            "download_s": run["download_s"],
+            "gbps": size / 1e9 / run["wall"],
+            "ingest_overlap_efficiency": run["overlap"],
+            "transfers": run["transfers"], "pin_s": run["pin_s"],
+            "piece_size": run["piece_size"], "pieces": run["pieces"],
+            **hbm_metrics(before)})
+        task_id = run["task_id"]
+        del arrays, flat, run
+        torch.cuda.empty_cache()
+        await daemon.ptm.delete_task(task_id)
+
+        # the same pull with no device sink (what the device leg adds), and
+        # with neither sink nor digest (what the finalize sha256 adds)
+        for what, meta in (("no sink", UrlMeta(digest=digest)),
+                           ("no sink, no digest", UrlMeta())):
+            t0 = time.monotonic()
+            async for resp in daemon.ptm.start_file_task(DownloadRequest(
+                    url=url, url_meta=meta, timeout_s=1200.0)):
+                task_id = resp.task_id or task_id
+            wall = time.monotonic() - t0
+            emit(f"phase 4 file, {what}", {"file_bytes": size, "wall_s": wall,
+                                           "gbps": size / 1e9 / wall})
+            await daemon.ptm.delete_task(task_id)
+    finally:
+        await daemon.stop()
+
+
+def phase_prefetch(workdir: str, seed: int, device: torch.device) -> None:
+    rng = np.random.default_rng(seed + 2)
+    urls, refs = [], []
+    for i in range(PREFETCH_SHARDS):
+        data = seeded_bytes(rng, PREFETCH_SHARD_BYTES)
+        path = os.path.join(workdir, f"shard-{i:05d}.tar")
+        with open(path, "wb") as f:
+            f.write(memoryview(data))
+            os.fsync(f.fileno())
+        urls.append("file://" + path)
+        refs.append(torch.from_numpy(data).to(device))
+    boot: dict = {}
+    ready = threading.Event()
+    stop = threading.Event()
+
+    def daemon_thread() -> None:
+        async def main() -> None:
+            daemon = Daemon(DaemonConfig(
+                workdir=os.path.join(workdir, "prefetch-daemon"),
+                hostname="chip-smoke-pf"))
+            await daemon.start()
+            boot["daemon"] = daemon
+            boot["loop"] = asyncio.get_running_loop()
+            ready.set()
+            try:
+                while not stop.is_set():
+                    await asyncio.sleep(0.05)
+            finally:
+                await daemon.stop()
+
+        asyncio.run(main())
+
+    t = threading.Thread(target=daemon_thread, name="smoke-daemon",
+                         daemon=True)
+    t.start()
+    try:
+        check(ready.wait(timeout=120), "prefetch daemon did not start")
+        before = hbm_counters()
+        pf = ShardPrefetcher(boot["daemon"], urls, depth=2,
+                             loop=boot["loop"])
+        t0 = time.monotonic()
+        got = 0
+        for i, arrays in enumerate(pf):
+            check(all(a.device == device for a in arrays),
+                  f"shard {i} is not on the card")
+            flat = torch.cat(arrays)
+            check(torch.equal(flat[:PREFETCH_SHARD_BYTES], refs[i]),
+                  f"shard {i} bytes differ (or arrived out of order)")
+            got += 1
+        elapsed = time.monotonic() - t0
+        check(got == PREFETCH_SHARDS, f"{got} shards, want {PREFETCH_SHARDS}")
+        left = boot["daemon"].ptm.storage_mgr.tasks()
+        check(not left, f"{len(left)} shard tasks left in storage")
+    finally:
+        stop.set()
+        t.join(timeout=120)
+    emit("phase 5 prefetch", {
+        "shards": got, "shard_bytes": PREFETCH_SHARD_BYTES, "depth": 2,
+        "in_order_bytes_equal": True, "elapsed_s": elapsed,
+        "shards_per_s": got / elapsed,
+        "gbps": got * PREFETCH_SHARD_BYTES / 1e9 / elapsed,
+        **hbm_metrics(before)})
+
+
+def run_phases(layers: int, seed: int, device: torch.device) -> None:
+    """Phases 2-5 on ``device``; raises CheckFailed on a failed check."""
+    layout = llama_layout(layers)
+    header, nbytes = safetensors_header(layout)
+    workdir = tempfile.mkdtemp(prefix="chip-smoke-")
+    try:
+        buf = seeded_bytes(np.random.default_rng(seed), nbytes)
+        ref = phase_sink(buf, seed, device)
+        path = os.path.join(workdir, "model-00001-of-00004.safetensors")
+        # host-side ceilings of the pull, one pass each over the bytes:
+        # the finalize digest (sha256), the piece digests (crc32) and the
+        # origin file write
+        t0 = time.monotonic()
+        sha = hashlib.sha256(header)
+        sha.update(buf)
+        t1 = time.monotonic()
+        zlib.crc32(buf)
+        t2 = time.monotonic()
+        with open(path, "wb") as f:
+            f.write(header)
+            f.write(memoryview(buf))
+            os.fsync(f.fileno())    # set-up: no write-back during the pulls
+        t3 = time.monotonic()
+        emit("host", {"bytes": nbytes, "sha256_gbps": nbytes / 1e9 / (t1 - t0),
+                      "crc32_gbps": nbytes / 1e9 / (t2 - t1),
+                      "file_write_fsync_gbps": nbytes / 1e9 / (t3 - t2),
+                      "cpus": os.cpu_count()})
+        del buf
+        asyncio.run(phase_daemon(workdir, path, "sha256:" + sha.hexdigest(),
+                                 header, ref, layout, device))
+        os.unlink(path)
+        del ref
+        phase_prefetch(workdir, seed, device)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--layers", type=int, default=9,
+                    help="decoder layers of Llama-3-8B to include (32 = "
+                         "the whole model)")
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+    if not 0 <= args.layers <= LLAMA3_8B["layers"]:
+        ap.error(f"--layers must be 0..{LLAMA3_8B['layers']}")
+    t_start = time.monotonic()
+    name = phase_device()
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    try:
+        run_phases(args.layers, args.seed, device)
+    except CheckFailed as exc:
+        print(f"chip_smoke: check failed: {exc}", file=sys.stderr)
+        sys.exit(1)
+    print(json.dumps({"kernels": [], "reason": KERNELS_NOTE,
+                      "total_s": time.monotonic() - t_start}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

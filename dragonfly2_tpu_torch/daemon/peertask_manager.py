@@ -1,0 +1,153 @@
+"""PeerTaskManager: one conductor per task, the file-task façade, and the
+completed-task fast path.
+
+Counterpart of ``dragonfly2_tpu/daemon/peertask_manager.py`` cut to the
+back-source file task.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import logging
+from typing import Any, AsyncIterator
+
+from ..common import ids
+from ..common.errors import Code, DFError
+from ..idl.messages import DownloadRequest, DownloadResponse, TaskType, UrlMeta
+from ..storage.manager import StorageManager
+from .conductor import PeerTaskConductor
+from .piece_manager import PieceManager
+
+log = logging.getLogger("df.core.peertask")
+
+
+class PeerTaskManager:
+    def __init__(self, *, storage_mgr: StorageManager, piece_mgr: PieceManager,
+                 hostname: str, host_ip: str,
+                 device_sink_builder: Any = None, is_seed: bool = False):
+        self.storage_mgr = storage_mgr
+        self.piece_mgr = piece_mgr
+        self.hostname = hostname
+        self.host_ip = host_ip
+        self.device_sink_builder = device_sink_builder
+        self.is_seed = is_seed
+        self._conductors: dict[str, PeerTaskConductor] = {}
+        self._lock = asyncio.Lock()
+
+    def _task_id(self, url: str, meta: UrlMeta) -> str:
+        return ids.task_id(
+            url, tag=meta.tag, application=meta.application, digest=meta.digest,
+            piece_range=meta.range,
+            filtered_query_params=list(meta.filtered_query_params or []))
+
+    async def get_or_create_conductor(
+            self, url: str, meta: UrlMeta, *,
+            task_type: TaskType = TaskType.STANDARD,
+            disable_back_source: bool = False,
+            device_sink_factory: Any = None,
+            shard_manifest: Any = None) -> PeerTaskConductor:
+        """Join the live conductor for this task, or start one."""
+        task_id = self._task_id(url, meta)
+        async with self._lock:
+            conductor = self._conductors.get(task_id)
+            if (conductor is not None
+                    and conductor.state != PeerTaskConductor.FAILED):
+                return conductor
+            conductor = PeerTaskConductor(
+                task_id=task_id,
+                peer_id=ids.peer_id(self.hostname, self.host_ip,
+                                    seed=self.is_seed),
+                url=url, url_meta=meta, storage_mgr=self.storage_mgr,
+                piece_mgr=self.piece_mgr,
+                disable_back_source=disable_back_source, task_type=task_type,
+                device_sink_factory=device_sink_factory,
+                shard_manifest=shard_manifest)
+            self._conductors[task_id] = conductor
+            conductor.start()
+            return conductor
+
+    def conductor(self, task_id: str) -> PeerTaskConductor | None:
+        return self._conductors.get(task_id)
+
+    async def start_file_task(
+            self, req: DownloadRequest) -> AsyncIterator[DownloadResponse]:
+        """Download ``req.url``; yields progress frames and a final
+        ``done`` frame, and raises the task's DFError on failure."""
+        meta = req.url_meta or UrlMeta()
+        if meta.shards:
+            raise DFError(Code.INVALID_ARGUMENT,
+                          "requested shard subsets are not supported; "
+                          "pull the whole manifest")
+        task_id = self._task_id(req.url, meta)
+
+        # reuse fast path: the completed task is already on disk
+        reuse = self.storage_mgr.find_completed_task(task_id)
+        if reuse is not None:
+            if req.output:
+                await asyncio.to_thread(reuse.store_to, req.output)
+            length = reuse.md.content_length
+            yield DownloadResponse(task_id=task_id, peer_id="reused",
+                                   completed_length=length,
+                                   content_length=length, done=True,
+                                   output=req.output)
+            return
+
+        device_factory = None
+        if req.device_sink is not None and req.device_sink.enabled \
+                and self.device_sink_builder is not None:
+            device_factory = self.device_sink_builder(req.device_sink)
+
+        conductor = await self.get_or_create_conductor(
+            req.url, meta, task_type=req.task_type,
+            disable_back_source=req.disable_back_source,
+            device_sink_factory=device_factory,
+            shard_manifest=req.shard_manifest)
+        q = conductor.subscribe()
+        try:
+            while True:
+                timeout = req.timeout_s if req.timeout_s > 0 else None
+                try:
+                    event = await asyncio.wait_for(q.get(), timeout)
+                except asyncio.TimeoutError:
+                    raise DFError(Code.DEADLINE_EXCEEDED,
+                                  f"download timed out after {req.timeout_s}s") from None
+                if event["type"] == "piece":
+                    yield DownloadResponse(
+                        task_id=conductor.task_id, peer_id=conductor.peer_id,
+                        completed_length=event["completed"],
+                        content_length=event["total"])
+                elif event["type"] == "shard":
+                    # one progress frame per shard whose bytes all verified
+                    yield DownloadResponse(
+                        task_id=conductor.task_id, peer_id=conductor.peer_id,
+                        completed_length=conductor.completed_length,
+                        content_length=conductor.content_length,
+                        shard=event["name"], shard_src=event["src"],
+                        shards_ready=event["ready"],
+                        shards_total=event["total"])
+                elif event["type"] == "done":
+                    if not event.get("success"):
+                        raise DFError(Code(event.get("code") or Code.UNKNOWN),
+                                      event.get("message", "download failed"))
+                    if req.output:
+                        await asyncio.to_thread(conductor.storage.store_to,
+                                                req.output)
+                    yield DownloadResponse(
+                        task_id=conductor.task_id, peer_id=conductor.peer_id,
+                        completed_length=conductor.completed_length,
+                        content_length=conductor.content_length,
+                        done=True, output=req.output)
+                    return
+        finally:
+            conductor.unsubscribe(q)
+
+    async def delete_task(self, task_id: str) -> bool:
+        conductor = self._conductors.pop(task_id, None)
+        if conductor is not None and not conductor.done_event.is_set():
+            conductor.cancel()
+        return self.storage_mgr.delete_task(task_id)
+
+    async def shutdown(self) -> None:
+        for conductor in list(self._conductors.values()):
+            if not conductor.done_event.is_set():
+                conductor.cancel()

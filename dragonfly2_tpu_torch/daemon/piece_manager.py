@@ -1,0 +1,211 @@
+"""PieceManager: moves a whole task from its origin into storage.
+
+Counterpart of the back-source half of
+``dragonfly2_tpu/daemon/piece_manager.py``: ``download_source`` cuts the
+origin stream into pieces, either as one stream or as a work queue of
+contiguous piece groups read in parallel, and hands each piece to the
+conductor to land.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import collections
+import logging
+import time
+from typing import TYPE_CHECKING
+
+from ..common.errors import Code, DFError
+from ..common.piece import (INGEST_DMA_UNIT_BYTES, Range, parse_http_range,
+                            piece_count, piece_range)
+from ..source import SourceRequest, client_for
+from ..source import download as source_download
+from .config import DownloadConfig
+
+if TYPE_CHECKING:  # pragma: no cover
+    from .conductor import PeerTaskConductor
+
+log = logging.getLogger("df.core.piece")
+
+_SOURCE_ATTEMPTS = 3
+_SOURCE_BACKOFF_S = 0.5
+
+
+async def _open_source(req: SourceRequest):
+    """Open an origin stream, retrying transient failures with exponential
+    backoff. Only the OPEN retries: pieces already landed from a stream
+    that died midway are deduped at landing."""
+    for attempt in range(_SOURCE_ATTEMPTS):
+        try:
+            return await source_download(req)
+        except DFError as exc:
+            transient = exc.code in (Code.SOURCE_ERROR, Code.UNAVAILABLE,
+                                     Code.DEADLINE_EXCEEDED)
+            if not transient or attempt == _SOURCE_ATTEMPTS - 1:
+                raise
+            log.info("origin open failed (%s); retrying", exc.message)
+            await asyncio.sleep(_SOURCE_BACKOFF_S * 2 ** attempt)
+
+
+class _PieceCutter:
+    """Cuts an origin byte stream into per-piece buffers and lands each one
+    as it fills. ``want(num, rel)`` returns the next piece's size; <= 0
+    stops consuming (origin over-delivery, or the group bound)."""
+
+    def __init__(self, conductor, *, start_num: int, start_rel: int, want):
+        self.conductor = conductor
+        self.want = want
+        self.num = start_num
+        self.rel = start_rel
+        self.cur: bytearray | None = None
+        self.filled = 0
+        self.t0 = time.monotonic()
+
+    async def feed(self, chunk) -> None:
+        coff = 0
+        while coff < len(chunk):
+            if self.cur is None:
+                want = self.want(self.num, self.rel)
+                if want <= 0:
+                    return
+                self.cur = bytearray(want)
+                self.filled = 0
+            take = min(len(self.cur) - self.filled, len(chunk) - coff)
+            self.cur[self.filled:self.filled + take] = \
+                chunk[coff:coff + take]
+            self.filled += take
+            coff += take
+            if self.filled == len(self.cur):
+                await self._land(bytes(self.cur))
+                self.cur = None
+
+    async def _land(self, data: bytes) -> None:
+        cost = int((time.monotonic() - self.t0) * 1000)
+        await self.conductor.on_piece_from_source(self.num, self.rel,
+                                                  data, cost)
+        self.num += 1
+        self.rel += len(data)
+        self.t0 = time.monotonic()
+
+    async def flush_tail(self) -> None:
+        """Origin ended short of the expected piece size: land what came
+        (single-stream semantics; group streams treat short as an error)."""
+        if self.cur is not None and self.filled:
+            await self._land(bytes(self.cur[:self.filled]))
+            self.cur = None
+
+
+class PieceManager:
+    def __init__(self, cfg: DownloadConfig):
+        self.cfg = cfg
+
+    async def download_source(self, conductor: "PeerTaskConductor") -> None:
+        """Fetch the conductor's full content (or sub-range) from the origin."""
+        client = client_for(conductor.url)
+        header = dict(conductor.url_meta.header or {})
+        probe = SourceRequest(url=conductor.url, header=header)
+        total = await client.content_length(probe)
+        ranged = await client.supports_range(probe)
+        if total < 0:
+            raise DFError(Code.SOURCE_ERROR,
+                          "origin did not report a content length")
+
+        # resolve a requested sub-range against the real total: the
+        # conductor then stores ONLY the range, at range-relative offsets
+        if conductor.url_meta.range and conductor.content_range is None:
+            if not ranged:
+                raise DFError(Code.SOURCE_RANGE_UNSUPPORTED,
+                              "origin cannot serve the requested range")
+            try:
+                conductor.content_range = parse_http_range(
+                    conductor.url_meta.range, total)
+            except ValueError as exc:
+                raise DFError(Code.INVALID_ARGUMENT, str(exc)) from None
+        req = SourceRequest(url=conductor.url, header=header,
+                            range=conductor.content_range)
+        effective = (conductor.content_range.length
+                     if conductor.content_range is not None else total)
+
+        piece_size = conductor.set_content_info(effective)
+        n = piece_count(effective, piece_size)
+        if (ranged and self.cfg.back_source_parallelism > 1
+                and effective >= self.cfg.back_source_group_min_bytes):
+            await self._download_piece_groups(conductor, req, effective,
+                                              piece_size, n)
+        elif n:
+            await self._download_stream(conductor, req, piece_size)
+
+    async def _download_stream(self, conductor, req: SourceRequest,
+                               piece_size: int) -> None:
+        """One origin stream, cut into pieces as bytes arrive."""
+        resp = await _open_source(req)
+        total = conductor.content_length
+        # offsets are range-relative: the task stores just its range
+        cutter = _PieceCutter(
+            conductor, start_num=0, start_rel=0,
+            want=lambda _num, rel: min(piece_size, total - rel))
+        async for chunk in resp.chunks:
+            await cutter.feed(chunk)
+        # origin ended short of the expected size: land what came
+        await cutter.flush_tail()
+
+    async def _download_piece_groups(self, conductor, req: SourceRequest,
+                                     total: int, piece_size: int,
+                                     n: int) -> None:
+        """Work-queue of contiguous piece groups: each worker streams the
+        next unclaimed group (parallel range reads).
+
+        Dynamic claiming instead of a static per-worker partition makes
+        coverage advance front to back, so device-sink shards complete
+        progressively and their host-to-device copies overlap the download;
+        with static quarters every worker finishes at once and every copy
+        fires after the last byte."""
+        workers = min(self.cfg.back_source_parallelism, n)
+        # one copy unit per group: big enough that per-request origin
+        # overhead is noise, small enough that groups never span sink
+        # shards. The tail stretch (last ~2 rounds of the worker pool)
+        # halves the group size so streams finish staggered and the tail
+        # copies overlap too.
+        group_pieces = max(1, min(INGEST_DMA_UNIT_BYTES // piece_size,
+                                  -(-n // workers)))
+        bounds: list[tuple[int, int]] = []
+        first = 0
+        while first < n:
+            size = group_pieces
+            if n - first <= 2 * workers * group_pieces and group_pieces > 1:
+                size = max(1, group_pieces // 2)
+            bounds.append((first, min(first + size, n)))
+            first = bounds[-1][1]
+        queue = collections.deque(bounds)
+        base = req.range.start if req.range else 0
+
+        async def group(first: int, last: int) -> None:
+            g_off, _ = piece_range(first, piece_size, total)
+            g_end_off, g_end_len = piece_range(last - 1, piece_size, total)
+            sub = SourceRequest(
+                url=req.url, header=dict(req.header),
+                range=Range(base + g_off, g_end_off + g_end_len - g_off),
+                timeout_s=req.timeout_s)
+            resp = await _open_source(sub)
+            cutter = _PieceCutter(
+                conductor, start_num=first, start_rel=g_off,
+                want=lambda num, _rel: (piece_range(num, piece_size,
+                                                    total)[1]
+                                        if num < last else 0))
+            async for chunk in resp.chunks:
+                await cutter.feed(chunk)
+            if cutter.num != last:
+                raise DFError(Code.CLIENT_BACK_SOURCE_ERROR,
+                              f"short origin range read: group stopped at "
+                              f"piece {cutter.num}/{last}")
+
+        async def worker() -> None:
+            while queue:
+                first, last = queue.popleft()
+                await group(first, last)
+
+        results = await asyncio.gather(*(worker() for _ in range(workers)),
+                                       return_exceptions=True)
+        errs = [r for r in results if isinstance(r, BaseException)]
+        if errs:
+            raise errs[0]
