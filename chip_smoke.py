@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py [--layers 9] [--seed 0]
 
-One daemon pulls checkpoints back to source (``file://``) into device
-memory through the port's device sink, as a seed peer does for every task:
+Daemons pull checkpoints into device memory through the port's device
+sink: back to source (``file://``), as a seed peer does for every task,
+and then from peers, as the P2P path does:
 
 1. device   — the card's name, count, power limit; no CUDA card is an error
 2. sink     — a seeded buffer written into ``DeviceIngest`` as shuffled
@@ -18,6 +19,15 @@ memory through the port's device sink, as a seed peer does for every task:
               device sink, then with neither sink nor digest (what the
               device leg and the finalize digest each add)
 5. prefetch — eight seeded 256 MiB shards through ``ShardPrefetcher``
+6. p2p      — the same file through the P2P path: a scheduler and a seed
+              daemon (back-source, no sink) in a spawned child process that
+              never touches CUDA; in this process leecher A pulls with the
+              manifest and leecher B, started when A holds about half of
+              its pieces, pulls whole-file, both with back-source disabled
+              and a device sink on the card. Every tensor and byte must
+              equal the origin's, every byte must come from peers, the
+              origin must be read exactly once (a counting ``file://``
+              source in the child), and B must take pieces from A
 
 Each phase prints one line. The port ports no kernel (the JAX package has
 no Pallas kernel; its device work is ``jax.device_put``, which here is
@@ -31,6 +41,7 @@ import argparse
 import asyncio
 import hashlib
 import json
+import multiprocessing
 import os
 import shutil
 import struct
@@ -44,13 +55,19 @@ import zlib
 import numpy as np
 import torch
 
+from dragonfly2_tpu_torch import source
 from dragonfly2_tpu_torch.common.metrics import REGISTRY
 from dragonfly2_tpu_torch.common.piece import compute_piece_size
-from dragonfly2_tpu_torch.daemon.config import DaemonConfig
+from dragonfly2_tpu_torch.daemon.config import DaemonConfig, SchedulerConfig
 from dragonfly2_tpu_torch.daemon.daemon import Daemon
 from dragonfly2_tpu_torch.idl.messages import (DeviceSink, DownloadRequest,
                                                ShardInfo, ShardManifest,
                                                UrlMeta)
+from dragonfly2_tpu_torch.scheduler.config import SchedulerConfig as \
+    SchedCfg
+from dragonfly2_tpu_torch.scheduler.config import SeedPeerAddr
+from dragonfly2_tpu_torch.scheduler.server import Scheduler
+from dragonfly2_tpu_torch.source.file_client import FileSourceClient
 from dragonfly2_tpu_torch.tpu.data import ShardPrefetcher
 from dragonfly2_tpu_torch.tpu.hbm_sink import DeviceIngest
 
@@ -412,6 +429,8 @@ def phase_prefetch(workdir: str, seed: int, device: torch.device) -> None:
     finally:
         stop.set()
         t.join(timeout=120)
+        for url in urls:
+            os.unlink(url[len("file://"):])
     emit("phase 5 prefetch", {
         "shards": got, "shard_bytes": PREFETCH_SHARD_BYTES, "depth": 2,
         "in_order_bytes_equal": True, "elapsed_s": elapsed,
@@ -420,8 +439,250 @@ def phase_prefetch(workdir: str, seed: int, device: torch.device) -> None:
         **hbm_metrics(before)})
 
 
+# ---------------------------------------------------------------- phase 6
+
+class CountingFileClient(FileSourceClient):
+    """``file://`` origin that counts the bytes it serves."""
+
+    def __init__(self) -> None:
+        self.bytes_read = 0
+
+    async def download(self, req):
+        resp = await super().download(req)
+        inner = resp.chunks
+
+        async def counted():
+            async for chunk in inner:
+                self.bytes_read += len(chunk)
+                yield chunk
+        resp.chunks = counted()
+        return resp
+
+
+def p2p_child(workdir: str, conn) -> None:
+    """Phase 6's scheduler and seed daemon, in a spawned process that never
+    touches CUDA: it sends the scheduler's address, serves until the
+    parent asks, then sends the origin bytes read, the seed's back-source
+    time and the scheduler's rulings."""
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""     # before any CUDA call
+    asyncio.run(_p2p_child(workdir, conn))
+
+
+async def _p2p_child(workdir: str, conn) -> None:
+    origin = CountingFileClient()
+    source.register_client("file", origin)
+    seed = Daemon(DaemonConfig(workdir=os.path.join(workdir, "seed"),
+                               hostname="smoke-seed", is_seed=True,
+                               listen_ip="127.0.0.1", host_ip="127.0.0.1",
+                               device="cpu"))
+    await seed.start()
+    sched = Scheduler(SchedCfg(listen_ip="127.0.0.1", seed_peers=[
+        SeedPeerAddr(host_id=seed.host_info().id, ip="127.0.0.1",
+                     rpc_port=seed.rpc.port,
+                     download_port=seed.upload_server.port)]))
+    await sched.start()
+    seed_s: dict = {}
+    served = REGISTRY.counter("df_upload_bytes_total")
+
+    async def watch_seed() -> None:
+        """The seed's pull: when its last piece landed, when it finished
+        (the finalize sha256 between them)."""
+        while not seed.ptm._conductors:
+            await asyncio.sleep(0.01)
+        (c,) = seed.ptm._conductors.values()
+        q = c.subscribe()
+        try:
+            while True:
+                event = await q.get()
+                now = time.time() - c.start_ms / 1000
+                if event["type"] == "piece" \
+                        and event["completed"] == event["total"]:
+                    seed_s["landed"] = now
+                elif event["type"] == "done":
+                    seed_s["done"] = now
+                    return
+        finally:
+            c.unsubscribe(q)
+
+    watcher = asyncio.get_running_loop().create_task(watch_seed())
+    try:
+        conn.send({"scheduler": sched.address})
+        await asyncio.to_thread(conn.recv)      # the parent is done
+        conn.send({"origin_bytes_read": origin.bytes_read,
+                   "seed_back_source_s": seed_s.get("done"),
+                   "seed_landed_s": seed_s.get("landed"),
+                   "seed_upload_bytes": served.value(),
+                   "seed_state": [c.state for c in
+                                  seed.ptm._conductors.values()],
+                   "rulings": sched.service.rulings})
+    finally:
+        watcher.cancel()
+        await seed.stop()
+        await sched.stop()
+
+
+async def _leecher_pull(daemon: Daemon, url: str, meta: UrlMeta,
+                        manifest: ShardManifest | None, box: dict) -> dict:
+    """One leecher's pull with back-source disabled; ``box`` exposes the
+    conductor while the pull runs."""
+    t0 = time.monotonic()
+    task_id = None
+    t_landed = None
+    async for resp in daemon.ptm.start_file_task(DownloadRequest(
+            url=url, url_meta=meta, device_sink=DeviceSink(enabled=True),
+            disable_back_source=True, timeout_s=1200.0,
+            shard_manifest=manifest)):
+        task_id = resp.task_id or task_id
+        if "conductor" not in box and task_id:
+            box["conductor"] = daemon.ptm.conductor(task_id)
+        if (t_landed is None and not resp.done
+                and resp.completed_length == resp.content_length):
+            t_landed = time.monotonic()     # the last piece landed
+    t_dl_end = time.monotonic()
+    conductor = daemon.ptm.conductor(task_id)
+    ingest = conductor.device_ingest
+    check(ingest is not None, f"{daemon.hostname}: device sink was not live")
+    out = await asyncio.to_thread(ingest.result, 1200.0)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    spans = list(ingest.transfer_spans)
+    return {"out": out, "conductor": conductor, "wall": wall, "t0": t0,
+            "download_s": t_dl_end - t0,
+            "landed_s": (t_landed or t_dl_end) - t0,
+            "overlap": overlap_efficiency(spans, t_dl_end),
+            "copy_s": sum(e - b for b, e in spans),
+            "transfers": len(spans)}
+
+
+async def _leechers(workdir: str, sched_addr: str, url: str, digest: str,
+                    manifest: ShardManifest) -> tuple[dict, dict]:
+    def daemon(name: str) -> Daemon:
+        return Daemon(DaemonConfig(
+            workdir=os.path.join(workdir, name), hostname=f"smoke-{name}",
+            listen_ip="127.0.0.1", host_ip="127.0.0.1",
+            scheduler=SchedulerConfig(addresses=[sched_addr])))
+
+    a, b = daemon("leecher-a"), daemon("leecher-b")
+    await a.start()
+    await b.start()
+    try:
+        meta = UrlMeta(digest=digest)
+        box_a: dict = {}
+        pull_a = asyncio.get_running_loop().create_task(
+            _leecher_pull(a, url, meta, manifest, box_a))
+        # B starts once A holds about half of its pieces
+        while True:
+            c = box_a.get("conductor")
+            if pull_a.done() or (c is not None and c.total_pieces > 0
+                                 and 2 * len(c.ready) >= c.total_pieces):
+                break
+            await asyncio.sleep(0.01)
+        b_start_pieces = len(c.ready) if c is not None else -1
+        served0 = REGISTRY.counter("df_upload_bytes_total").value()
+        run_b = await _leecher_pull(b, url, meta, None, {})
+        run_a = await pull_a
+        run_b["a_pieces_at_start"] = b_start_pieces
+        run_a["upload_bytes"] = \
+            REGISTRY.counter("df_upload_bytes_total").value() - served0
+        run_a["peer_id"] = run_a["conductor"].peer_id
+        return run_a, run_b
+    finally:
+        await a.stop()
+        await b.stop()
+
+
+def phase_p2p(workdir: str, path: str, digest: str, header: bytes,
+              ref: torch.Tensor, layout: list[tuple[str, list[int]]],
+              device: torch.device) -> None:
+    size = os.path.getsize(path)
+    # the seed's copy and the two leechers' copies beside the origin
+    free = shutil.disk_usage(workdir).free
+    need = 3 * size + (1 << 30)
+    check(free >= need, f"phase 6 needs {need} bytes of free disk for the "
+                        f"seed's and two leechers' copies, {free} free")
+    manifest = manifest_from_file(path)
+    before = hbm_counters()
+    ctx = multiprocessing.get_context("spawn")
+    parent_conn, child_conn = ctx.Pipe()
+    child = ctx.Process(target=p2p_child, name="smoke-p2p-child",
+                        args=(os.path.join(workdir, "p2p"), child_conn))
+    child.start()
+    try:
+        check(parent_conn.poll(300), "phase 6 child did not start")
+        sched_addr = parent_conn.recv()["scheduler"]
+        run_a, run_b = asyncio.run(_leechers(
+            os.path.join(workdir, "p2p"), sched_addr, "file://" + path,
+            digest, manifest))
+        parent_conn.send("stop")
+        check(parent_conn.poll(300), "phase 6 child did not report")
+        stats = parent_conn.recv()
+    finally:
+        child.join(timeout=120)
+        if child.is_alive():
+            child.terminate()
+            child.join(timeout=30)
+    check(child.exitcode == 0, f"phase 6 child exited {child.exitcode}")
+    # leecher A: every named tensor on the card, bf16, the origin's bytes
+    tensors = run_a["out"]
+    base = len(header)
+    shapes = dict(layout)
+    check(len(tensors) == len(layout),
+          f"A: {len(tensors)} tensors, want {len(layout)}")
+    for info in manifest.shards:
+        t = tensors[info.name]
+        check(t.device == device and t.dtype == torch.bfloat16
+              and list(t.shape) == shapes[info.name],
+              f"A: {info.name} is {t.dtype} {list(t.shape)} on {t.device}")
+        lo = info.range_start - base
+        check(torch.equal(t.reshape(-1).view(torch.uint8),
+                          ref[lo:lo + info.range_size]),
+              f"A: {info.name} bytes differ from the origin")
+    # leecher B: the whole file on the card
+    arrays = run_b["out"]
+    check(all(x.device == device for x in arrays), "B: a shard is off card")
+    flat = torch.cat(arrays)
+    hdr = torch.frombuffer(bytearray(header), dtype=torch.uint8)
+    check(torch.equal(flat[:base].cpu(), hdr), "B: header bytes differ")
+    check(torch.equal(flat[base:size], ref), "B: tensor bytes differ")
+    del tensors, arrays, flat
+    lines = {}
+    for name, run in (("A", run_a), ("B", run_b)):
+        c = run["conductor"]
+        check(c.traffic_p2p == size and c.traffic_source == 0,
+              f"{name}: traffic_p2p {c.traffic_p2p}, traffic_source "
+              f"{c.traffic_source}, file {size}")
+        lines[name] = {
+            "mode": "manifest" if name == "A" else "file",
+            "started_s": run["t0"] - run_a["t0"],
+            "time_to_ready_s": run["wall"], "download_s": run["download_s"],
+            "landed_s": run["landed_s"],
+            "finalize_s": run["download_s"] - run["landed_s"],
+            "gbps": size / 1e9 / run["wall"],
+            "pieces_per_parent": dict(c.pieces_by_parent),
+            "ingest_overlap_efficiency": run["overlap"],
+            "copy_s": run["copy_s"], "transfers": run["transfers"],
+            "traffic_p2p": c.traffic_p2p,
+            "traffic_source": c.traffic_source,
+            "piece_size": c.piece_size, "pieces": c.total_pieces}
+    from_a = run_b["conductor"].pieces_by_parent.get(run_a["peer_id"], 0)
+    check(from_a > 0, "B took no piece from A")
+    check(stats["origin_bytes_read"] == size,
+          f"origin read {stats['origin_bytes_read']} bytes, file {size}")
+    for name in ("A", "B"):
+        emit(f"phase 6 p2p, leecher {name}", lines[name])
+    emit("phase 6 p2p, seed and scheduler", {
+        "file_bytes": size, "seed_back_source_s": stats["seed_back_source_s"],
+        "seed_landed_s": stats["seed_landed_s"],
+        "seed_upload_bytes": stats["seed_upload_bytes"],
+        "leecher_upload_bytes": run_a["upload_bytes"],
+        "origin_bytes_read": stats["origin_bytes_read"],
+        "rulings": stats["rulings"], "b_pieces_from_a": from_a,
+        "a_pieces_when_b_started": run_b["a_pieces_at_start"],
+        **hbm_metrics(before)})
+
+
 def run_phases(layers: int, seed: int, device: torch.device) -> None:
-    """Phases 2-5 on ``device``; raises CheckFailed on a failed check."""
+    """Phases 2-6 on ``device``; raises CheckFailed on a failed check."""
     layout = llama_layout(layers)
     header, nbytes = safetensors_header(layout)
     workdir = tempfile.mkdtemp(prefix="chip-smoke-")
@@ -448,11 +709,11 @@ def run_phases(layers: int, seed: int, device: torch.device) -> None:
                       "file_write_fsync_gbps": nbytes / 1e9 / (t3 - t2),
                       "cpus": os.cpu_count()})
         del buf
-        asyncio.run(phase_daemon(workdir, path, "sha256:" + sha.hexdigest(),
-                                 header, ref, layout, device))
-        os.unlink(path)
-        del ref
+        digest = "sha256:" + sha.hexdigest()
+        asyncio.run(phase_daemon(workdir, path, digest, header, ref, layout,
+                                 device))
         phase_prefetch(workdir, seed, device)
+        phase_p2p(workdir, path, digest, header, ref, layout, device)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 

@@ -1,8 +1,11 @@
 """PyTorch/CUDA port of the dragonfly2_tpu data plane.
 
-This slice carries one daemon pulling a task back to source (``file://``)
-into device memory through ``tpu.hbm_sink.DeviceIngest``, in whole-file and
-manifest mode, with ``tpu.data.ShardPrefetcher`` on top. Module paths mirror
-``dragonfly2_tpu`` so each counterpart is found by path; the package imports
-torch, numpy and the standard library only.
+The port so far carries a daemon pulling a task back to source
+(``file://``) into device memory through ``tpu.hbm_sink.DeviceIngest``, in
+whole-file and manifest mode, with ``tpu.data.ShardPrefetcher`` on top; and
+the P2P piece path: a scheduler places leecher daemons on parents (a seed
+it triggers, or other leechers), and pieces from the parents' upload
+servers land in the leechers' device sinks. Module paths mirror
+``dragonfly2_tpu`` so each counterpart is found by path; the package
+imports torch, numpy and the standard library only.
 """

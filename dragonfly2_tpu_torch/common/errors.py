@@ -62,3 +62,9 @@ class DFError(Exception):
 
     def __repr__(self) -> str:  # pragma: no cover - debug aid
         return f"DFError({self.code.name}, {self.message!r})"
+
+    @staticmethod
+    def wrap(exc: BaseException, default: Code = Code.UNKNOWN) -> "DFError":
+        if isinstance(exc, DFError):
+            return exc
+        return DFError(default, f"{type(exc).__name__}: {exc}")

@@ -1,0 +1,57 @@
+"""Token-bucket rate limiting (async).
+
+Counterpart of ``TokenBucket`` in ``dragonfly2_tpu/common/rate.py``: the
+upload server's per-daemon serve rate limit.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import time
+
+
+class TokenBucket:
+    """Classic token bucket. ``rate`` tokens/second, ``burst`` capacity.
+    ``rate <= 0`` means unlimited. Writers are on one event loop."""
+
+    def __init__(self, rate: float, burst: float | None = None):
+        self.rate = float(rate)
+        self.burst = float(burst) if burst is not None else max(self.rate, 1.0)
+        self._tokens = self.burst
+        self._last = time.monotonic()
+
+    def _refill(self) -> None:
+        now = time.monotonic()
+        if self.rate > 0:
+            self._tokens = min(self.burst,
+                               self._tokens + (now - self._last) * self.rate)
+        self._last = now
+
+    def reserve(self, n: float) -> float:
+        """Take ``n`` tokens (going negative if needed); return seconds to
+        wait."""
+        if self.rate <= 0:
+            return 0.0
+        self._refill()
+        self._tokens -= n
+        if self._tokens >= 0:
+            return 0.0
+        return -self._tokens / self.rate
+
+    def refund(self, n: float) -> None:
+        """Hand back ``n`` reserved tokens whose bytes were never moved."""
+        if self.rate <= 0:
+            return
+        self._refill()
+        self._tokens = min(self.burst, self._tokens + n)
+
+    async def acquire(self, n: float) -> None:
+        # an oversized request (a 16 MiB piece against a small burst) pays
+        # the full wait instead of deadlocking
+        delay = self.reserve(n)
+        if delay > 0:
+            try:
+                await asyncio.sleep(delay)
+            except asyncio.CancelledError:
+                self.refund(n)
+                raise

@@ -1,1 +1,2 @@
-"""The daemon: back-source conductor, piece manager, task manager."""
+"""The daemon: task conductor, back-source and P2P piece paths, upload
+and RPC servers, scheduler session."""

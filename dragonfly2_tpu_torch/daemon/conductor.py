@@ -1,10 +1,13 @@
 """PeerTaskConductor: the per-(task, peer) download state machine.
 
-Counterpart of ``dragonfly2_tpu/daemon/conductor.py`` cut to the
-back-source rung: pull the task from its origin (``piece_manager``), land
-and verify each piece in storage, stage it into the device sink, track
-manifest shards as they complete, broadcast progress to subscribers, and
-finalize with the digest checks.
+Counterpart of ``dragonfly2_tpu/daemon/conductor.py`` (reference
+``client/daemon/peer/peertask_conductor.go``): register with the
+scheduler, pull the pieces from parent peers (``piece_engine``) or, when
+P2P has nothing for the task, back to source (``piece_manager``); land and
+verify each piece in storage, stage it into the device sink, track
+manifest shards as they complete, broadcast progress to subscribers,
+finalize with the digest checks, and only then close the scheduler
+session with the task's ``PeerResult``.
 """
 
 from __future__ import annotations
@@ -17,7 +20,7 @@ from typing import Any
 from ..common import digest as digestlib
 from ..common.errors import Code, DFError
 from ..common.piece import Range, compute_piece_size, piece_count
-from ..idl.messages import TaskType, UrlMeta
+from ..idl.messages import PieceInfo, PieceResult, TaskType, UrlMeta
 from ..storage.io_executor import run_io
 from ..storage.manager import StorageManager
 from ..storage.metadata import TaskMetadata
@@ -32,7 +35,8 @@ class PeerTaskConductor:
 
     def __init__(self, *, task_id: str, peer_id: str, url: str,
                  url_meta: UrlMeta | None, storage_mgr: StorageManager,
-                 piece_mgr: Any, content_range: Range | None = None,
+                 piece_mgr: Any, scheduler: Any = None,
+                 content_range: Range | None = None,
                  disable_back_source: bool = False,
                  task_type: TaskType = TaskType.STANDARD,
                  device_sink_factory: Any = None,
@@ -41,8 +45,11 @@ class PeerTaskConductor:
         self.peer_id = peer_id
         self.url = url
         self.url_meta = url_meta or UrlMeta()
+        # the scheduler may refine this at register (application table)
+        self.resolved_priority = int(self.url_meta.priority)
         self.storage_mgr = storage_mgr
         self.piece_mgr = piece_mgr
+        self.scheduler = scheduler
         self.content_range = content_range
         self.disable_back_source = disable_back_source
         self.task_type = task_type
@@ -65,6 +72,9 @@ class PeerTaskConductor:
         self.piece_size = 0
         self.total_pieces = -1
         self.completed_length = 0
+        self.traffic_p2p = 0          # bytes from peers
+        self.traffic_source = 0       # bytes from origin
+        self.pieces_by_parent: dict[str, int] = {}   # P2P pieces per parent
         self.start_ms = int(time.time() * 1000)
 
         self.storage: TaskStorage | None = None
@@ -72,8 +82,11 @@ class PeerTaskConductor:
         self.ready: set[int] = set()          # piece numbers landed
         self._landing: set[int] = set()       # pieces mid-write (dedup race)
         self.done_event = asyncio.Event()
+        self._piece_cond = asyncio.Condition()
         self._subscribers: list[asyncio.Queue] = []
         self._run_task: asyncio.Task | None = None
+        self._p2p_engine: Any = None
+        self._session: Any = None      # scheduler PeerSession once registered
         self.log = logging.LoggerAdapter(
             log, {"task": task_id[:12], "peer": peer_id[-12:]})
 
@@ -86,13 +99,27 @@ class PeerTaskConductor:
             self.state = self.RUNNING
             self._run_task = asyncio.get_running_loop().create_task(self._run())
 
+    def set_p2p_engine(self, engine: Any) -> None:
+        self._p2p_engine = engine
+
     async def _run(self) -> None:
+        """The ladder (reference ``conductor.py:203-272``): register; pull
+        P2P when the scheduler answered; back to source when P2P could not
+        finish and back-source is allowed; finalize; then close the
+        session, so the PeerResult carries the real outcome."""
         try:
-            if self.disable_back_source:
-                raise DFError(Code.CLIENT_BACK_SOURCE_ERROR,
-                              "no P2P path and back-source disabled")
-            self.log.info("back-source: %s", self.url)
-            await self.piece_mgr.download_source(self)
+            used_p2p = False
+            if self.scheduler is not None:
+                self._session = await self._register()
+                if self._session is not None and self._p2p_engine is not None:
+                    used_p2p = await self._p2p_engine.pull(self,
+                                                           self._session)
+            if not used_p2p:
+                if self.disable_back_source:
+                    raise DFError(Code.CLIENT_BACK_SOURCE_ERROR,
+                                  "no P2P path and back-source disabled")
+                self.log.info("back-source: %s", self.url)
+                await self.piece_mgr.download_source(self)
             await self._finish_success()
         except asyncio.CancelledError:
             await self._finish_fail(Code.CLIENT_CONTEXT_CANCELED, "canceled")
@@ -101,11 +128,30 @@ class PeerTaskConductor:
         except Exception as exc:  # noqa: BLE001
             self.log.exception("task failed")
             await self._finish_fail(Code.UNKNOWN, str(exc))
+        finally:
+            if self._session is not None:
+                await self._session.close(success=self.state == self.SUCCESS)
+
+    async def _register(self):
+        """Register with the scheduler; None means "go to origin" (the
+        reference's fallback ladder: register failed or NeedBackSource)."""
+        try:
+            return await self.scheduler.register(self)
+        except DFError as exc:
+            if exc.code in (Code.UNAVAILABLE, Code.DEADLINE_EXCEEDED,
+                            Code.SCHED_NEED_BACK_SOURCE):
+                self.log.info("register: %s; no P2P", exc.message)
+                return None
+            raise
+        except Exception as exc:  # noqa: BLE001 - scheduler unreachable
+            self.log.warning("scheduler unreachable (%s); no P2P", exc)
+            return None
 
     def _ingest_to_device(self, offset: int, data) -> None:
         """Stage one piece into the device sink; a failure disables the
         sink for the rest of the task (best-effort contract: the download
-        still finishes to disk)."""
+        still finishes to disk). The one copy of the write-or-disable
+        sequence: origin and peer landings both stage through here."""
         if self.device_ingest is None:
             return
         try:
@@ -168,15 +214,17 @@ class PeerTaskConductor:
     # content metadata + piece arrival (called by the piece manager)
     # ------------------------------------------------------------------
 
-    def set_content_info(self, content_length: int) -> int:
+    def set_content_info(self, content_length: int,
+                         piece_size: int = 0) -> int:
         """Fix piece geometry; register storage + device sink. Returns the
         piece size. ``content_length`` is the EFFECTIVE length this task
         stores (the sub-range length for ranged tasks — piece offsets are
-        range-relative). Safe to call more than once with identical values."""
+        range-relative); ``piece_size`` is a parent's, when the geometry
+        comes from the swarm. Safe to call more than once."""
         if self.piece_size:
             return self.piece_size
         self.content_length = content_length
-        self.piece_size = compute_piece_size(content_length)
+        self.piece_size = piece_size or compute_piece_size(content_length)
         self.total_pieces = piece_count(content_length, self.piece_size)
         md = TaskMetadata(
             task_id=self.task_id, task_type=self.task_type, url=self.url,
@@ -184,7 +232,7 @@ class PeerTaskConductor:
             content_length=content_length,
             total_piece_count=self.total_pieces,
             piece_size=self.piece_size, digest=self.url_meta.digest,
-            priority=int(self.url_meta.priority),
+            priority=self.resolved_priority,
             qos_class=self.url_meta.qos_class)
         self.storage = self.storage_mgr.register_task(md)
         self._init_shards()
@@ -218,12 +266,108 @@ class PeerTaskConductor:
         # write() is a memcpy + enqueue; the copy runs on the sink's own
         # thread and is never awaited here
         self._ingest_to_device(offset, data)
-        self.ready.add(num)
-        self.completed_length += len(data)
+        async with self._piece_cond:
+            self.ready.add(num)
+            self.completed_length += len(data)
+            self.traffic_source += len(data)
+            self._piece_cond.notify_all()
         self._note_shard_progress(offset, len(data))
         self._publish({"type": "piece", "num": num, "size": len(data),
                        "completed": self.completed_length,
                        "total": self.content_length})
+        if self._session is not None:
+            # a back-source peer announces its pieces so the scheduler can
+            # make it a parent
+            now = int(time.time() * 1000)
+            await self._session.report_piece(PieceResult(
+                task_id=self.task_id, src_peer_id=self.peer_id,
+                dst_peer_id="", success=True,
+                piece_info=PieceInfo(piece_num=num, range_start=offset,
+                                     range_size=len(data),
+                                     download_cost_ms=cost_ms),
+                begin_ms=now - cost_ms, end_ms=now,
+                finished_count=len(self.ready)))
+
+    def pieces_remaining(self) -> int:
+        """Pieces still to land (-1 = unknown geometry)."""
+        if self.total_pieces < 0:
+            return -1
+        return self.total_pieces - len(self.ready)
+
+    async def on_span_from_peer(self, parent_id: str,
+                                pieces: list[PieceInfo], data,
+                                cost_ms_per_piece: int,
+                                ) -> tuple[list[int], list[int], list[int]]:
+        """Land a contiguous downloaded span in one storage pass (digest
+        verification fused with the write) and one condition round.
+
+        ``pieces`` are contiguous ascending; ``data`` holds their bytes
+        from ``pieces[0].range_start``. Returns ``(placed, corrupt,
+        raced)`` piece-number lists. ``raced`` pieces are claimed by an
+        in-flight endgame duplicate whose outcome is unknown: the caller
+        reports them neither done nor corrupt (the racer's report settles
+        them). Pieces that already landed appear in none of the lists.
+        The caller may recycle ``data`` as soon as this returns: the
+        storage write and the device sink's staging copy are done.
+        """
+        if self.storage is None:
+            raise DFError(Code.CLIENT_STORAGE_ERROR,
+                          "span before content info")
+        base = pieces[0].range_start
+        raced = [p.piece_num for p in pieces if p.piece_num in self._landing]
+        claim = [p for p in pieces
+                 if p.piece_num not in self.ready
+                 and p.piece_num not in self._landing]
+        if not claim:
+            return [], [], raced
+        for p in claim:             # claimed before the await below
+            self._landing.add(p.piece_num)
+        try:
+            spec = [(p.piece_num, p.range_start, p.range_size, p.digest)
+                    for p in claim]
+            metas, corrupt = await run_io(
+                self.storage.write_span, spec, data, base=base,
+                cost_ms=cost_ms_per_piece, source=parent_id)
+        finally:
+            for p in claim:
+                self._landing.discard(p.piece_num)
+        by_num = {p.piece_num: p for p in claim}
+        placed = [m.num for m in metas if m.num not in self.ready]
+        if self.device_ingest is not None:
+            view = memoryview(data)
+            try:
+                for n in placed:
+                    p = by_num[n]
+                    lo = p.range_start - base
+                    self._ingest_to_device(p.range_start,
+                                           view[lo:lo + p.range_size])
+            finally:
+                view.release()
+        events = []
+        counted = []
+        async with self._piece_cond:
+            for n in placed:
+                if n in self.ready:
+                    # an endgame duplicate landed it during the awaits
+                    # above; the winner already counted it
+                    continue
+                counted.append(n)
+                self.pieces_by_parent[parent_id] = \
+                    self.pieces_by_parent.get(parent_id, 0) + 1
+                size = by_num[n].range_size
+                self.ready.add(n)
+                self.completed_length += size
+                self.traffic_p2p += size
+                events.append({"type": "piece", "num": n, "size": size,
+                               "completed": self.completed_length,
+                               "total": self.content_length})
+            self._piece_cond.notify_all()
+        for n in counted:
+            p = by_num[n]
+            self._note_shard_progress(p.range_start, p.range_size)
+        for ev in events:
+            self._publish(ev)
+        return counted, corrupt, raced
 
     # ------------------------------------------------------------------
     # finalize
@@ -315,8 +459,11 @@ class PeerTaskConductor:
                        "completed": self.completed_length,
                        "total": self.content_length})
         self.done_event.set()
-        self.log.info("task success: %d bytes, %d pieces",
-                      self.completed_length, len(self.ready))
+        async with self._piece_cond:
+            self._piece_cond.notify_all()
+        self.log.info("task success: %d bytes, %d pieces (p2p=%d src=%d)",
+                      self.completed_length, len(self.ready),
+                      self.traffic_p2p, self.traffic_source)
 
     async def _finish_fail(self, code: Code, message: str) -> None:
         if self.state in (self.SUCCESS, self.FAILED):

@@ -1,8 +1,13 @@
-"""Daemon bootstrap: storage, piece manager, task manager, device sinks.
+"""Daemon bootstrap: storage, piece engine, servers, device sinks.
 
-Counterpart of ``dragonfly2_tpu/daemon/daemon.py`` for a daemon with no
-scheduler: every task goes back to source, as a seed peer's tasks do. The
-RPC, upload and scheduler surfaces wait for later slices.
+Counterpart of ``dragonfly2_tpu/daemon/daemon.py`` (reference
+``client/daemon/daemon.go``): the upload server (pieces over HTTP), the
+peer RPC server on TCP and the local API on a unix socket, the scheduler
+connector, the P2P engine factory and the device-sink builder. With
+scheduler addresses, a task registers and pulls from parents; without,
+it goes back to source as a seed peer's tasks do. TLS, the health plane,
+PEX, relay, QoS, the flight recorder, the announcer, GC and the proxy
+wait for later slices.
 """
 
 from __future__ import annotations
@@ -10,21 +15,41 @@ from __future__ import annotations
 import logging
 import os
 import socket
+import tempfile
 
 import torch
 
 from ..common.errors import Code, DFError
 from ..common.piece import INGEST_DMA_UNIT_BYTES
-from ..idl.messages import DeviceSink
+from ..idl.messages import DeviceSink, Host, HostType
+from ..rpc.client import ChannelPool
+from ..rpc.server import RPCServer
 from ..storage.manager import StorageManager
 from ..tpu import topology
 from ..tpu.hbm_sink import DeviceIngest
 from ..tpu.mesh import cuda_devices
 from .config import DaemonConfig
 from .peertask_manager import PeerTaskManager
+from .piece_downloader import PieceDownloader
+from .piece_engine import PIECE_TIMEOUT_S, PieceEngine
 from .piece_manager import PieceManager
+from .rpcserver import DaemonService, build_service
+from .scheduler_session import SchedulerConnector
+from .upload_server import UploadServer
 
 log = logging.getLogger("df.core.daemon")
+
+
+def _local_ip() -> str:
+    """The outbound interface's address (a UDP connect sends nothing)."""
+    try:
+        s = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+        s.connect(("10.255.255.255", 1))
+        ip = s.getsockname()[0]
+        s.close()
+        return ip
+    except OSError:
+        return "127.0.0.1"
 
 
 def _default_workdir() -> str:
@@ -39,21 +64,34 @@ class Daemon:
                              f"got {cfg.device!r}")
         self.cfg = cfg
         self.hostname = cfg.hostname or socket.gethostname()
-        self.host_ip = cfg.host_ip or "127.0.0.1"
+        self.host_ip = cfg.host_ip or _local_ip()
         self.workdir = cfg.workdir or _default_workdir()
-        # the bounded runtime probe at construction (the reference's
-        # topology.detect() does the same): it is what lets
-        # ensure_runtime_alive() admit the first device sink
-        status, payload = topology.probe_cuda_devices()
-        if status == "timeout":
-            log.warning("CUDA runtime did not answer the probe; device sink "
-                        "unavailable")
-        elif status == "error":
-            log.warning("CUDA runtime probe failed: %s", payload)
+        # the bounded runtime probe at construction (inside detect(), as
+        # in the reference): it is what lets ensure_runtime_alive() admit
+        # the first device sink
+        self.topology = topology.detect()
         self.storage_mgr = StorageManager(
             os.path.join(self.workdir, "data", "tasks"))
         self.piece_mgr = PieceManager(cfg.download)
+        self.upload_server = UploadServer(
+            self.storage_mgr, port=cfg.upload.port, host=cfg.listen_ip)
+        self.scheduler: SchedulerConnector | None = None
         self.ptm: PeerTaskManager | None = None
+        self.rpc: RPCServer | None = None
+        self.local_rpc: RPCServer | None = None
+        self.unix_sock = ""
+        self._downloader: PieceDownloader | None = None
+        self._peer_channels: ChannelPool | None = None
+
+    def host_info(self) -> Host:
+        return Host(
+            id=f"{self.hostname}-{self.host_ip}",
+            ip=self.host_ip, hostname=self.hostname,
+            port=self.rpc.port if self.rpc else 0,
+            download_port=self.upload_server.port,
+            type=HostType.SUPER_SEED if self.cfg.is_seed else HostType.NORMAL,
+            os=os.uname().sysname.lower(), platform=os.uname().machine,
+            topology=self.topology)
 
     def devices(self) -> list[torch.device]:
         """The sink's devices: every CUDA device, or the one CPU device
@@ -86,23 +124,69 @@ class Daemon:
             spd = spec.pipeline_shards
             if spd <= 0:
                 # auto: one shard per copy unit, at most 32 per device; the
-                # overlap comes from back-source's front-to-back work queue
-                # completing these units progressively
+                # overlap comes from the pieces completing these units
+                # progressively
                 per_dev = -(-content_length // len(devices))
                 spd = max(1, min(32, per_dev // INGEST_DMA_UNIT_BYTES))
             return DeviceIngest(content_length, devices=devices,
                                 dtype=spec.dtype, shards_per_device=spd)
         return factory
 
+    def _engine(self) -> PieceEngine:
+        return PieceEngine(
+            downloader=self._downloader, channel_pool=self._peer_channels,
+            slice_name=self.topology.slice_name)
+
     async def start(self) -> None:
+        await self.upload_server.start()
+        self._peer_channels = ChannelPool()
+        self._downloader = PieceDownloader(timeout_s=PIECE_TIMEOUT_S)
         self.ptm = PeerTaskManager(
             storage_mgr=self.storage_mgr, piece_mgr=self.piece_mgr,
             hostname=self.hostname, host_ip=self.host_ip,
+            p2p_engine_factory=self._engine,
             device_sink_builder=self.device_sink_builder,
             is_seed=self.cfg.is_seed)
-        log.info("daemon up: host=%s ip=%s device=%s workdir=%s",
-                 self.hostname, self.host_ip, self.cfg.device, self.workdir)
+        svc = DaemonService(
+            self.ptm, upload_addr=f"{self.host_ip}:{self.upload_server.port}")
+        # peer-facing TCP server: bind the listen address, advertise host_ip
+        self.rpc = RPCServer(f"{self.cfg.listen_ip}:{self.cfg.rpc_port}")
+        for sdef in build_service(svc):
+            self.rpc.register(sdef)
+        await self.rpc.start()
+        # the connector needs the resolved rpc/upload ports for register
+        if self.cfg.scheduler.addresses:
+            self.scheduler = SchedulerConnector(
+                self.cfg.scheduler.addresses, self.host_info())
+        self.ptm.scheduler = self.scheduler
+        # local API over a unix socket
+        sock = self.cfg.unix_sock or os.path.join(self.workdir, "dfdaemon.sock")
+        if len(sock) > 100:
+            # past the kernel's unix-socket path limit: a short temp path
+            sock = os.path.join(tempfile.mkdtemp(prefix="df-"), "d.sock")
+        os.makedirs(os.path.dirname(sock) or ".", exist_ok=True)
+        self.local_rpc = RPCServer(f"unix:{sock}")
+        for sdef in build_service(svc):
+            self.local_rpc.register(sdef)
+        await self.local_rpc.start()
+        self.unix_sock = sock
+        log.info("daemon up: host=%s ip=%s rpc=%s upload=%d device=%s "
+                 "schedulers=%s workdir=%s", self.hostname, self.host_ip,
+                 self.rpc.port, self.upload_server.port, self.cfg.device,
+                 self.cfg.scheduler.addresses, self.workdir)
 
     async def stop(self) -> None:
         if self.ptm is not None:
             await self.ptm.shutdown()
+        if self.local_rpc is not None:
+            await self.local_rpc.stop(0.2)
+        if self.rpc is not None:
+            await self.rpc.stop(0.2)
+        await self.upload_server.stop()
+        if self._downloader is not None:
+            await self._downloader.close()
+        if self._peer_channels is not None:
+            await self._peer_channels.close()
+        if self.scheduler is not None:
+            await self.scheduler.leave_host()
+            await self.scheduler.close()

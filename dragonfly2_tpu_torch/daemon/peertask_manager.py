@@ -2,7 +2,9 @@
 completed-task fast path.
 
 Counterpart of ``dragonfly2_tpu/daemon/peertask_manager.py`` cut to the
-back-source file task.
+file task: each conductor gets the daemon's scheduler connector and a
+fresh P2P engine, so it registers, pulls from parents, and goes back to
+source only when P2P cannot finish.
 """
 
 from __future__ import annotations
@@ -13,7 +15,8 @@ from typing import Any, AsyncIterator
 
 from ..common import ids
 from ..common.errors import Code, DFError
-from ..idl.messages import DownloadRequest, DownloadResponse, TaskType, UrlMeta
+from ..idl.messages import (DownloadRequest, DownloadResponse, TaskStat,
+                            TaskType, UrlMeta)
 from ..storage.manager import StorageManager
 from .conductor import PeerTaskConductor
 from .piece_manager import PieceManager
@@ -23,12 +26,15 @@ log = logging.getLogger("df.core.peertask")
 
 class PeerTaskManager:
     def __init__(self, *, storage_mgr: StorageManager, piece_mgr: PieceManager,
-                 hostname: str, host_ip: str,
+                 hostname: str, host_ip: str, scheduler: Any = None,
+                 p2p_engine_factory: Any = None,
                  device_sink_builder: Any = None, is_seed: bool = False):
         self.storage_mgr = storage_mgr
         self.piece_mgr = piece_mgr
         self.hostname = hostname
         self.host_ip = host_ip
+        self.scheduler = scheduler
+        self.p2p_engine_factory = p2p_engine_factory
         self.device_sink_builder = device_sink_builder
         self.is_seed = is_seed
         self._conductors: dict[str, PeerTaskConductor] = {}
@@ -58,10 +64,12 @@ class PeerTaskManager:
                 peer_id=ids.peer_id(self.hostname, self.host_ip,
                                     seed=self.is_seed),
                 url=url, url_meta=meta, storage_mgr=self.storage_mgr,
-                piece_mgr=self.piece_mgr,
+                piece_mgr=self.piece_mgr, scheduler=self.scheduler,
                 disable_back_source=disable_back_source, task_type=task_type,
                 device_sink_factory=device_sink_factory,
                 shard_manifest=shard_manifest)
+            if self.p2p_engine_factory is not None:
+                conductor.set_p2p_engine(self.p2p_engine_factory())
             self._conductors[task_id] = conductor
             conductor.start()
             return conductor
@@ -140,6 +148,23 @@ class PeerTaskManager:
                     return
         finally:
             conductor.unsubscribe(q)
+
+    async def stat_task(self, task_id: str) -> TaskStat:
+        ts = self.storage_mgr.get(task_id)
+        if ts is None:
+            conductor = self._conductors.get(task_id)
+            if conductor is None:
+                raise DFError(Code.NOT_FOUND, f"task {task_id[:12]} not found")
+            return TaskStat(id=task_id, state=conductor.state,
+                            content_length=conductor.content_length,
+                            total_piece_count=conductor.total_pieces)
+        md = ts.md
+        return TaskStat(id=task_id, type=md.task_type,
+                        content_length=md.content_length,
+                        total_piece_count=md.total_piece_count,
+                        state="success" if md.success else
+                              ("done" if md.done else "running"),
+                        has_available_peer=md.done and md.success)
 
     async def delete_task(self, task_id: str) -> bool:
         conductor = self._conductors.pop(task_id, None)

@@ -1,0 +1,449 @@
+"""P2P piece engine: pulls a task's pieces from parent peers.
+
+Counterpart of ``dragonfly2_tpu/daemon/piece_engine.py`` (reference
+``client/daemon/peer/peertask_conductor.go`` P2P half —
+``pullPiecesWithP2P`` :544, ``receivePeerPacket`` :659, the piece workers
+:976-1010 — plus ``peertask_piecetask_synchronizer.go``: one
+``SyncPieceTasks`` bidi stream per parent feeding the dispatcher). The
+flight recorder, relay spans, verdict ledger, content-store placement and
+sharded-task piece classes are left out.
+
+``pull`` returns:
+  * True  — every piece landed via P2P (the conductor verifies and
+    finalizes);
+  * False — fall back to origin: NeedBackSource from the scheduler, no
+    parents within the schedule timeout, or all parents gone without
+    replacement;
+and raises DFError for hard failures.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import logging
+import random
+import time
+from typing import TYPE_CHECKING
+
+from ..common.bufpool import POOL
+from ..common.errors import Code, DFError
+from ..common.metrics import REGISTRY
+from ..idl.messages import (PeerAddr, PeerPacket, PieceInfo, PieceResult,
+                            PieceTaskRequest, SizeScope)
+from ..rpc.client import ChannelPool, ServiceClient
+from .piece_dispatcher import ENDGAME_PIECES, Dispatch, PieceDispatcher
+from .piece_downloader import PieceDownloader
+
+if TYPE_CHECKING:  # pragma: no cover
+    from .conductor import PeerTaskConductor
+    from .scheduler_session import PeerSession
+
+log = logging.getLogger("df.flow.engine")
+
+DAEMON_SERVICE = "df.daemon.Daemon"
+
+# reference daemon config defaults
+PIECE_PARALLELISM = 4       # piece download workers per task
+SCHEDULE_TIMEOUT_S = 30.0   # max wait for a usable peer packet
+PIECE_TIMEOUT_S = 60.0      # per-piece deadline
+
+_p2p_pieces = REGISTRY.counter("df_p2p_piece_total",
+                               "pieces fetched from peers", ("result",))
+
+
+class _Synchronizer:
+    """One SyncPieceTasks stream against one parent daemon."""
+
+    def __init__(self, engine: "PieceEngine", conductor: "PeerTaskConductor",
+                 parent: PeerAddr):
+        self.engine = engine
+        self.conductor = conductor
+        self.parent = parent
+        self.task: asyncio.Task | None = None
+        self.stream = None              # live SyncPieceTasks stream
+        self._seen: set[int] = set()    # piece nums this parent announced
+
+    def start(self) -> None:
+        self.task = asyncio.get_running_loop().create_task(self._run())
+
+    def _request(self) -> PieceTaskRequest:
+        return PieceTaskRequest(
+            task_id=self.conductor.task_id,
+            src_peer_id=self.conductor.peer_id,
+            dst_peer_id=self.parent.peer_id, start_num=0, limit=1 << 20,
+            src_slice=self.engine.slice_name)
+
+    def exhausted(self) -> bool:
+        """The parent announced every piece: pinging reveals nothing."""
+        total = self.conductor.total_pieces
+        return total >= 0 and len(self._seen) >= total
+
+    async def ping(self) -> None:
+        """Starvation signal: ask the parent for more work."""
+        stream = self.stream
+        if self.exhausted() or stream is None:
+            return
+        try:
+            await stream.write(self._request())
+        except Exception:  # noqa: BLE001 - stream may be closing
+            pass
+
+    async def _run(self) -> None:
+        addr = f"{self.parent.ip}:{self.parent.rpc_port}"
+        try:
+            stream = self.engine.peer_client(addr).stream_stream(
+                "SyncPieceTasks")
+            self.stream = stream
+            await stream.write(self._request())
+            try:
+                while True:
+                    packet = await stream.read()
+                    if packet is None:
+                        break
+                    await self._on_packet(packet)
+            finally:
+                self.stream = None
+                stream.cancel()
+        except asyncio.CancelledError:
+            raise
+        except Exception as exc:  # noqa: BLE001 - parent went away
+            log.debug("sync with %s ended: %s", self.parent.peer_id, exc)
+            await self.engine.dispatcher.remove_parent(self.parent.peer_id)
+
+    async def _on_packet(self, packet) -> None:
+        if packet.content_length >= 0 and self.conductor.piece_size == 0:
+            self.conductor.set_content_info(packet.content_length,
+                                            packet.piece_size)
+        if self.conductor.piece_size == 0:
+            return    # the parent does not know the geometry yet
+        dst_addr = (packet.dst_addr
+                    or f"{self.parent.ip}:{self.parent.download_port}")
+        await self.engine.dispatcher.add_parent(
+            self.parent.peer_id, dst_addr, is_seed=self.parent.is_seed,
+            link=self.parent.link)
+        for p in packet.piece_infos or []:
+            self._seen.add(p.piece_num)
+        infos = [p for p in (packet.piece_infos or [])
+                 if p.piece_num not in self.conductor.ready]
+        if infos:
+            await self.engine.dispatcher.announce(self.parent.peer_id, infos)
+
+    def stop(self) -> None:
+        if self.task is not None:
+            self.task.cancel()
+
+
+class PieceEngine:
+    def __init__(self, *, downloader: PieceDownloader | None = None,
+                 channel_pool: ChannelPool | None = None,
+                 slice_name: str = ""):
+        self.slice_name = slice_name    # advertised on piece sync requests
+        self.downloader = downloader or PieceDownloader(
+            timeout_s=PIECE_TIMEOUT_S)
+        self._own_downloader = downloader is None
+        # the channel pool may be daemon-wide so parent connections persist
+        self._channels = (channel_pool if channel_pool is not None
+                          else ChannelPool())
+        self._own_channels = channel_pool is None
+        self.dispatcher = PieceDispatcher()
+        self._synchronizers: dict[str, _Synchronizer] = {}
+        self._current_parents: dict[str, PeerAddr] = {}  # latest assignment
+        self._need_back_source = False
+        self._first_parent = asyncio.Event()
+        self._last_ping = 0.0
+        # starvation-ping pacing: jittered base, exponential while pings
+        # produce no new announcements, reset on progress
+        self._ping_base = 0.1 * random.uniform(0.9, 1.5)
+        self._ping_interval = self._ping_base
+        self._announced_at_ping = -1
+
+    def peer_client(self, addr: str) -> ServiceClient:
+        return ServiceClient(self._channels.get(addr), DAEMON_SERVICE)
+
+    # ------------------------------------------------------------------
+
+    async def pull(self, conductor: "PeerTaskConductor",
+                   session: "PeerSession") -> bool:
+        result = session.result
+        try:
+            if result.size_scope == SizeScope.EMPTY:
+                conductor.set_content_info(0)
+                return True
+            if (result.size_scope == SizeScope.SMALL
+                    and result.single_piece is not None
+                    and result.single_piece.piece_info is not None):
+                if await self._pull_single(conductor, session,
+                                           result.single_piece):
+                    return True
+                # fall through to the normal path: the scheduler may help
+            return await self._pull_normal(conductor, session)
+        finally:
+            await self._teardown()
+
+    async def _pull_single(self, conductor, session, single) -> bool:
+        info: PieceInfo = single.piece_info
+        if session.result.content_length >= 0:
+            conductor.set_content_info(session.result.content_length,
+                                       session.result.piece_size)
+        else:
+            conductor.set_content_info(info.range_size)
+        parent = self.dispatcher.parents.get(single.dst_peer_id) or \
+            await self.dispatcher.add_parent(single.dst_peer_id,
+                                             single.dst_addr)
+        return await self._download_one(conductor, session,
+                                        Dispatch([info], parent),
+                                        track=False)
+
+    async def _pull_normal(self, conductor, session) -> bool:
+        if session.result.content_length >= 0:
+            conductor.set_content_info(session.result.content_length,
+                                       session.result.piece_size)
+        loop = asyncio.get_running_loop()
+        packet_task = loop.create_task(
+            self._consume_packets(conductor, session))
+        workers = [loop.create_task(self._worker(conductor, session))
+                   for _ in range(PIECE_PARALLELISM)]
+        try:
+            # a parent must show up within the schedule timeout
+            try:
+                await asyncio.wait_for(self._first_parent.wait(),
+                                       SCHEDULE_TIMEOUT_S)
+            except asyncio.TimeoutError:
+                log.info("no parents within %.1fs; back-source",
+                         SCHEDULE_TIMEOUT_S)
+                return False
+            while True:
+                if self._need_back_source:
+                    return False
+                remaining = conductor.pieces_remaining()
+                if remaining == 0:
+                    return True
+                # endgame: duplicate-request racing for the task's tail
+                self.dispatcher.endgame = 0 <= remaining <= ENDGAME_PIECES
+                if not self.dispatcher.has_live_parent():
+                    # parents gone: give the scheduler a grace period to
+                    # re-assign, then fall back to origin
+                    try:
+                        await asyncio.wait_for(self._wait_parent_change(),
+                                               SCHEDULE_TIMEOUT_S)
+                    except asyncio.TimeoutError:
+                        log.info("parents exhausted; back-source for the "
+                                 "rest")
+                        return False
+                    continue
+                # progress tick: piece arrivals notify the conductor's cond
+                try:
+                    await asyncio.wait_for(self._piece_tick(conductor), 0.25)
+                except asyncio.TimeoutError:
+                    pass
+        finally:
+            # close the dispatcher before cancelling the workers: a worker
+            # parked in get() then leaves through the closed path, and no
+            # cancelled waiter can hold the condition lock close() needs
+            await self.dispatcher.close()
+            packet_task.cancel()
+            for w in workers:
+                w.cancel()
+            await asyncio.gather(packet_task, *workers,
+                                 return_exceptions=True)
+
+    @staticmethod
+    async def _piece_tick(conductor) -> None:
+        async with conductor._piece_cond:
+            await conductor._piece_cond.wait()
+
+    async def _wait_parent_change(self) -> None:
+        cond = self.dispatcher._cond
+        async with cond:
+            while (not self.dispatcher.has_live_parent()
+                   and not self._need_back_source):
+                await cond.wait()
+
+    # ------------------------------------------------------------------
+
+    async def _consume_packets(self, conductor, session) -> None:
+        """Apply scheduler parent assignments as they arrive."""
+        while True:
+            packet: PeerPacket = await session.packets.get()
+            code = Code(packet.code or 0)
+            if code == Code.SCHED_NEED_BACK_SOURCE:
+                self._need_back_source = True
+                self._first_parent.set()
+                async with self.dispatcher._cond:
+                    self.dispatcher._cond.notify_all()
+                return
+            if code in (Code.SCHED_PEER_GONE, Code.SCHED_REREGISTER,
+                        Code.SCHED_TASK_STATUS_ERROR, Code.UNAVAILABLE):
+                # the stream ended or the scheduler lost us: workers drain
+                # what they have, the main loop decides on fallback
+                self._first_parent.set()
+                continue
+            parents = list(packet.candidate_peers or [])
+            if packet.main_peer is not None:
+                parents.insert(0, packet.main_peer)
+            for parent in parents:
+                if parent.peer_id == conductor.peer_id:
+                    continue
+                await self.dispatcher.add_parent(
+                    parent.peer_id, f"{parent.ip}:{parent.download_port}",
+                    resurrect=True, is_seed=parent.is_seed, link=parent.link)
+                self._current_parents[parent.peer_id] = parent
+                sync = self._synchronizers.get(parent.peer_id)
+                if sync is None or (sync.task is not None
+                                    and sync.task.done()):
+                    sync = _Synchronizer(self, conductor, parent)
+                    self._synchronizers[parent.peer_id] = sync
+                    sync.start()
+            if parents:
+                # the packet is the scheduler's current assignment: parents
+                # it dropped release their upload slot server-side, so stop
+                # pulling from them
+                assigned = {p.peer_id for p in parents}
+                for peer_id in list(self._synchronizers):
+                    if peer_id not in assigned:
+                        self._synchronizers.pop(peer_id).stop()
+                        self._current_parents.pop(peer_id, None)
+                        await self.dispatcher.remove_parent(peer_id)
+                self._first_parent.set()
+
+    async def _worker(self, conductor, session) -> None:
+        while True:
+            d = await self.dispatcher.get(timeout=0.1)
+            if d is None:
+                if self.dispatcher.closed:
+                    return
+                await self._maybe_ping()
+                continue
+            await self._download_one(conductor, session, d)
+
+    async def _maybe_ping(self) -> None:
+        if not self.dispatcher.starving():
+            return
+        now = time.monotonic()
+        if now - self._last_ping < self._ping_interval:
+            return
+        self._last_ping = now
+        announced = sum(p.announced
+                        for p in self.dispatcher.parents.values())
+        if announced > self._announced_at_ping:
+            self._ping_interval = self._ping_base      # progress: re-arm
+        else:
+            self._ping_interval = min(self._ping_interval * 1.7, 1.2)
+        self._announced_at_ping = announced
+        for sync in list(self._synchronizers.values()):
+            await sync.ping()
+        # resurrect dead sync streams of parents the scheduler still
+        # assigns: a stream that failed at setup otherwise stays dead until
+        # the scheduler pushes a new packet
+        for peer_id, parent in list(self._current_parents.items()):
+            sync = self._synchronizers.get(peer_id)
+            if (sync is None or sync.task is None or not sync.task.done()
+                    or self.dispatcher.hard_removed(peer_id)):
+                continue
+            await self.dispatcher.add_parent(
+                peer_id, f"{parent.ip}:{parent.download_port}",
+                resurrect=True, is_seed=parent.is_seed, link=parent.link)
+            fresh = _Synchronizer(self, sync.conductor, parent)
+            self._synchronizers[peer_id] = fresh
+            fresh.start()
+
+    async def _download_one(self, conductor, session, d: Dispatch, *,
+                            track: bool = True) -> bool:
+        """Fetch one dispatch, land it, report each piece. ``track``:
+        report the outcome to the dispatcher (False for the single-piece
+        path, which bypasses it). Returns whether every piece landed."""
+        t0 = int(time.time() * 1000)
+        try:
+            buf, cost = await self.downloader.download_span(
+                dst_addr=d.parent.addr, task_id=conductor.task_id,
+                src_peer_id=conductor.peer_id, pieces=d.pieces)
+        except DFError as exc:
+            if exc.code == Code.CLIENT_PEER_BUSY:
+                # backpressure, not failure: requeue without a report (a
+                # busy seed must not land on the blocklist)
+                _p2p_pieces.labels("busy").inc()
+                if track:
+                    await self.dispatcher.report_busy(
+                        d, retry_after_ms=getattr(exc, "retry_after_ms", 0))
+                return False
+            _p2p_pieces.labels("fail").inc()
+            log.debug("pieces %s from %s failed: %s",
+                      [p.piece_num for p in d.pieces],
+                      d.parent.peer_id[-12:], exc)
+            fcode = getattr(exc, "fail_code", "") or "stall"
+            if track:
+                await self.dispatcher.report(d, ok=False)
+                if d.parent.removed:
+                    # permanently removed: its sync stream dies too
+                    sync = self._synchronizers.get(d.parent.peer_id)
+                    if sync is not None:
+                        sync.stop()
+            for info in d.pieces:
+                await session.report_piece(self._piece_result(
+                    conductor, info, d.parent.peer_id, t0, ok=False,
+                    code=exc.code, fail_code=fcode))
+            return False
+        per_piece_cost = max(1, cost // len(d.pieces))
+        try:
+            # one landing hop for the whole span: storage write + verify
+            # off the loop, the device sink's staging copy inline
+            placed, corrupt, raced = await conductor.on_span_from_peer(
+                d.parent.peer_id, d.pieces, buf, per_piece_cost)
+        finally:
+            # landing, the sink's staging copy included, has completed
+            POOL.release(buf)
+        corrupt_set, raced_set = set(corrupt), set(raced)
+        for info in d.pieces:
+            if info.piece_num in corrupt_set:
+                _p2p_pieces.labels("corrupt").inc()
+                log.warning("piece %d from %s: digest mismatch (requeued)",
+                            info.piece_num, d.parent.peer_id[-12:])
+                await session.report_piece(self._piece_result(
+                    conductor, info, d.parent.peer_id, t0, ok=False,
+                    code=Code.CLIENT_DIGEST_MISMATCH, fail_code="corrupt"))
+                continue
+            if info.piece_num in raced_set:
+                # an endgame racer is mid-landing: its own report settles
+                # the piece
+                continue
+            _p2p_pieces.labels("ok").inc()
+            await session.report_piece(self._piece_result(
+                conductor, info, d.parent.peer_id, t0, ok=True,
+                cost_ms=per_piece_cost, finished=len(conductor.ready)))
+        if track:
+            await self.dispatcher.report(
+                d, ok=True, cost_ms=cost,
+                # a raced piece must not be marked done (the racer may yet
+                # fail verification): leaving it out requeues it
+                completed=[info.piece_num for info in d.pieces
+                           if info.piece_num not in corrupt_set
+                           and info.piece_num not in raced_set])
+        return not corrupt_set
+
+    @staticmethod
+    def _piece_result(conductor, info: PieceInfo, parent_id: str, t0: int, *,
+                      ok: bool, cost_ms: int = 0, code: Code = Code.OK,
+                      finished: int = 0, fail_code: str = "") -> PieceResult:
+        reported = PieceInfo(piece_num=info.piece_num,
+                             range_start=info.range_start,
+                             range_size=info.range_size, digest=info.digest,
+                             download_cost_ms=cost_ms)
+        return PieceResult(
+            task_id=conductor.task_id, src_peer_id=conductor.peer_id,
+            dst_peer_id=parent_id, piece_info=reported, begin_ms=t0,
+            end_ms=t0 + cost_ms, success=ok, code=int(code),
+            fail_code=fail_code, finished_count=finished)
+
+    # ------------------------------------------------------------------
+
+    async def _teardown(self) -> None:
+        for sync in self._synchronizers.values():
+            sync.stop()
+        await asyncio.gather(
+            *(s.task for s in self._synchronizers.values() if s.task),
+            return_exceptions=True)
+        await self.dispatcher.close()
+        if self._own_channels:
+            await self._channels.close()
+        if self._own_downloader:
+            await self.downloader.close()

@@ -1,0 +1,203 @@
+"""Daemon RPC services.
+
+Counterpart of ``dragonfly2_tpu/daemon/rpcserver.py`` (reference
+``client/daemon/rpcserver/rpcserver.go``): the local API (``Download``
+server stream, ``StatTask``, ``DeleteTask``), the peer API
+(``GetPieceTasks`` and the ``SyncPieceTasks`` bidi stream) and the
+seeder's ``ObtainSeeds``. A seed announces every piece to every child, as
+the reference's seeds do; its super-seed rationing, ``ImportTask`` and
+``ExportTask`` wait for a later slice.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import logging
+from typing import AsyncIterator
+
+from ..common.errors import Code, DFError
+from ..idl.messages import (DeleteTaskRequest, DownloadRequest, Empty,
+                            ObtainSeedsRequest, PiecePacket, PieceSeed,
+                            PieceTaskRequest, StatTaskDaemonRequest, TaskStat,
+                            UrlMeta)
+from ..rpc.server import ServiceDef
+from .peertask_manager import PeerTaskManager
+
+log = logging.getLogger("df.rpc.daemon")
+
+DAEMON_SERVICE = "df.daemon.Daemon"
+SEEDER_SERVICE = "df.daemon.Seeder"
+
+
+class DaemonService:
+    """Wire handlers; delegation to PeerTaskManager + storage."""
+
+    def __init__(self, ptm: PeerTaskManager, *, upload_addr: str = ""):
+        self.ptm = ptm
+        self.upload_addr = upload_addr
+
+    # -- local API -----------------------------------------------------
+
+    async def download(self, request: DownloadRequest,
+                       context) -> AsyncIterator:
+        if request.recursive:
+            raise DFError(Code.INVALID_ARGUMENT,
+                          "recursive downloads are not supported")
+        async for resp in self.ptm.start_file_task(request):
+            yield resp
+
+    async def stat_task(self, request: StatTaskDaemonRequest,
+                        context) -> TaskStat:
+        task_id = request.task_id or self.ptm._task_id(
+            request.url, request.url_meta or UrlMeta())
+        return await self.ptm.stat_task(task_id)
+
+    async def delete_task(self, request: DeleteTaskRequest, context) -> Empty:
+        task_id = request.task_id or self.ptm._task_id(
+            request.url, request.url_meta or UrlMeta())
+        await self.ptm.delete_task(task_id)
+        return Empty()
+
+    # -- peer API ------------------------------------------------------
+
+    def _storage_for(self, task_id: str):
+        ts = self.ptm.storage_mgr.get(task_id)
+        if ts is None:
+            conductor = self.ptm.conductor(task_id)
+            if conductor is not None:
+                ts = conductor.storage
+        return ts
+
+    def _packet(self, request: PieceTaskRequest, ts,
+                infos: list) -> PiecePacket:
+        md = ts.md
+        return PiecePacket(task_id=request.task_id,
+                           dst_peer_id=request.dst_peer_id,
+                           dst_addr=self.upload_addr, piece_infos=infos,
+                           total_piece_count=md.total_piece_count,
+                           content_length=md.content_length,
+                           piece_size=md.piece_size,
+                           progress=len(md.pieces))
+
+    async def get_piece_tasks(self, request: PieceTaskRequest,
+                              context) -> PiecePacket:
+        ts = self._storage_for(request.task_id)
+        if ts is None:
+            raise DFError(Code.NOT_FOUND,
+                          f"task {request.task_id[:12]} unknown")
+        return self._packet(request, ts, [
+            p.to_info() for p in ts.piece_infos(request.start_num,
+                                                request.limit)])
+
+    @staticmethod
+    def _drain(q: asyncio.Queue, first) -> list:
+        """One awaited event plus everything already queued behind it:
+        under load, announcements batch into one packet per wakeup."""
+        events = [first]
+        while True:
+            try:
+                events.append(q.get_nowait())
+            except asyncio.QueueEmpty:
+                return events
+
+    async def sync_piece_tasks(self, request_iter,
+                               context) -> AsyncIterator:
+        """Bidi: each request asks for piece metadata; responses stream as
+        pieces land (pushed on arrival for running tasks, batched per
+        wakeup). ``sent`` lives across requests on one stream: follow-up
+        requests are starvation pings, and answering each with the full
+        list again would flood a starving swarm."""
+        sent: set[int] = set()
+        first_packet = True
+        async for request in request_iter:
+            conductor = self.ptm.conductor(request.task_id)
+            # subscribe before the snapshot: a piece landing while the
+            # snapshot is on the wire is then announced by its event
+            q = (conductor.subscribe() if conductor is not None
+                 and not conductor.done_event.is_set() else None)
+            try:
+                packet = await self.get_piece_tasks(request, context)
+                packet.piece_infos = [p for p in packet.piece_infos or []
+                                      if p.piece_num not in sent]
+                sent.update(p.piece_num for p in packet.piece_infos)
+                if packet.piece_infos or first_packet:
+                    first_packet = False
+                    yield packet
+                if q is None:
+                    continue
+                # live task: push updates until done
+                done = False
+                while not done:
+                    nums: list[int] = []
+                    for event in self._drain(q, await q.get()):
+                        if (event["type"] == "piece"
+                                and event["num"] not in sent):
+                            sent.add(event["num"])
+                            nums.append(event["num"])
+                        elif event["type"] == "done":
+                            done = True
+                    ts = self._storage_for(request.task_id)
+                    if ts is None:
+                        break
+                    if done:
+                        # the final geometry and every piece not sent yet
+                        infos = [p.to_info() for p in ts.piece_infos()
+                                 if p.num not in sent]
+                        sent.update(p.piece_num for p in infos)
+                        yield self._packet(request, ts, infos)
+                    elif nums:
+                        yield self._packet(request, ts, [
+                            ts.md.pieces[n].to_info() for n in nums
+                            if n in ts.md.pieces])
+            finally:
+                if q is not None:
+                    conductor.unsubscribe(q)
+
+    # -- seeder API ----------------------------------------------------
+
+    async def obtain_seeds(self, request: ObtainSeedsRequest,
+                           context) -> AsyncIterator:
+        """Trigger a seed download and stream its piece announcements
+        (the scheduler's seed-peer client consumes them)."""
+        conductor = await self.ptm.get_or_create_conductor(
+            request.url, request.url_meta or UrlMeta())
+        q = conductor.subscribe()
+        try:
+            if conductor.storage is not None:      # pieces already landed
+                for p in conductor.storage.piece_infos():
+                    yield PieceSeed(peer_id=conductor.peer_id,
+                                    piece_info=p.to_info(),
+                                    content_length=conductor.content_length,
+                                    total_piece_count=conductor.total_pieces)
+            while True:
+                event = await q.get()
+                if event["type"] == "piece":
+                    meta = conductor.storage.md.pieces.get(event["num"])
+                    if meta is not None:
+                        yield PieceSeed(
+                            peer_id=conductor.peer_id,
+                            piece_info=meta.to_info(),
+                            content_length=conductor.content_length,
+                            total_piece_count=conductor.total_pieces)
+                elif event["type"] == "done":
+                    if not event.get("success"):
+                        raise DFError(Code(event.get("code") or Code.UNKNOWN),
+                                      event.get("message", "seed failed"))
+                    yield PieceSeed(peer_id=conductor.peer_id, done=True,
+                                    content_length=conductor.content_length,
+                                    total_piece_count=conductor.total_pieces)
+                    return
+        finally:
+            conductor.unsubscribe(q)
+
+
+def build_service(svc: DaemonService) -> list[ServiceDef]:
+    d = ServiceDef(DAEMON_SERVICE)
+    d.unary_stream("Download", svc.download)
+    d.unary_unary("StatTask", svc.stat_task)
+    d.unary_unary("DeleteTask", svc.delete_task)
+    d.unary_unary("GetPieceTasks", svc.get_piece_tasks)
+    d.stream_stream("SyncPieceTasks", svc.sync_piece_tasks)
+    s = ServiceDef(SEEDER_SERVICE)
+    s.unary_stream("ObtainSeeds", svc.obtain_seeds)
+    return [d, s]

@@ -1,0 +1,277 @@
+"""Scheduler connector: the daemon's client side of the scheduler service.
+
+Counterpart of ``dragonfly2_tpu/daemon/scheduler_session.py`` (reference
+``client/daemon/peer/peertask_conductor.go`` register :249 and the
+``ReportPieceResult`` stream :340, :659): one connector per daemon, one
+``PeerSession`` per running task. The session owns the bidi report
+stream: piece results go up, ``PeerPacket`` parent assignments come down
+into a queue the P2P engine consumes. Registration walks the scheduler
+hash ring: a dead member is demoted for a while and the next one tried
+before the conductor is sent to origin.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import logging
+import time
+from typing import TYPE_CHECKING
+
+from ..common.errors import Code, DFError
+from ..common.metrics import REGISTRY
+from ..common.retry import Retrier, RetryPolicy
+from ..idl.messages import (Host, LeaveHostRequest, PeerPacket, PeerResult,
+                            PieceResult, RegisterPeerTaskRequest,
+                            RegisterResult)
+from ..rpc.balancer import HashRing
+from ..rpc.client import Channel, RPCError, ServiceClient
+
+if TYPE_CHECKING:  # pragma: no cover
+    from .conductor import PeerTaskConductor
+
+log = logging.getLogger("df.flow.schedsess")
+
+SCHEDULER_SERVICE = "df.scheduler.Scheduler"
+
+_report_dropped = REGISTRY.counter(
+    "df_sched_report_dropped_total",
+    "piece results dropped because the scheduler report stream died")
+
+# terminal PeerResult: one retry with backoff before giving up
+_REPORT_RETRY = RetryPolicy(max_attempts=2, base_s=0.3, max_s=1.0,
+                            budget_s=8.0)
+
+# register failures that mean "this scheduler, not this task": the ladder
+# moves to the next ring member instead of going to origin
+_FAILOVER_CODES = (Code.UNAVAILABLE, Code.DEADLINE_EXCEEDED)
+
+# reference daemon SchedulerConfig defaults
+REGISTER_TIMEOUT_S = 10.0
+FAILOVER_N = 3          # ring members tried per register
+DEMOTE_S = 30.0         # sticky demotion window of a dead member
+
+
+class PeerSession:
+    """A registered (task, peer) against one scheduler."""
+
+    _EOF = object()
+
+    def __init__(self, client: ServiceClient, result: RegisterResult,
+                 conductor: "PeerTaskConductor"):
+        self.client = client
+        self.result = result
+        self.conductor = conductor
+        self.task_id = conductor.task_id
+        self.peer_id = conductor.peer_id
+        self.packets: asyncio.Queue[PeerPacket] = asyncio.Queue()
+        self._stream = None
+        self._out: asyncio.Queue = asyncio.Queue()
+        self._writer: asyncio.Task | None = None
+        self._reader: asyncio.Task | None = None
+        self._closed = False
+        self._peer_result_sent = False
+
+    async def open_report_stream(self) -> None:
+        """Open the bidi piece-result stream; an empty first report asks
+        the scheduler for the initial parent assignment."""
+        self._stream = self.client.stream_stream("ReportPieceResult")
+        await self._stream.write(PieceResult(
+            task_id=self.task_id, src_peer_id=self.peer_id, success=True,
+            code=int(Code.OK)))
+        loop = asyncio.get_running_loop()
+        self._reader = loop.create_task(self._read_loop())
+        self._writer = loop.create_task(self._write_loop())
+
+    async def _write_loop(self) -> None:
+        """Sole owner of the stream's write half: piece workers enqueue."""
+        try:
+            while True:
+                item = await self._out.get()
+                if item is self._EOF:
+                    await self._stream.done_writing()
+                    return
+                await self._stream.write(item)
+        except asyncio.CancelledError:
+            raise
+        except Exception as exc:  # noqa: BLE001 - stream went away
+            log.debug("report write loop ended: %s", exc)
+
+    async def _read_loop(self) -> None:
+        try:
+            while True:
+                packet = await self._stream.read()
+                if packet is None:
+                    break
+                self.packets.put_nowait(packet)
+        except DFError as exc:
+            # scheduler-side verdicts reach the engine as a synthetic
+            # packet, so its one consume loop sees them
+            self.packets.put_nowait(PeerPacket(
+                task_id=self.task_id, src_peer_id=self.peer_id,
+                code=int(exc.code)))
+        except Exception as exc:  # noqa: BLE001 - stream teardown races
+            if not self._closed:
+                log.debug("report stream reader ended: %s", exc)
+        finally:
+            self.packets.put_nowait(PeerPacket(
+                task_id=self.task_id, src_peer_id=self.peer_id,
+                code=int(Code.UNAVAILABLE)))
+
+    async def report_piece(self, result: PieceResult) -> None:
+        if self._stream is None or self._closed:
+            return
+        if self._writer is not None and self._writer.done():
+            # the scheduler went away: count the drop instead of queueing
+            # into the void
+            _report_dropped.inc()
+            return
+        self._out.put_nowait(result)
+
+    @staticmethod
+    async def _drain_task(task: asyncio.Task | None, timeout: float) -> None:
+        if task is None or task.done():
+            return
+        try:
+            await asyncio.wait_for(asyncio.shield(task), timeout)
+        except (asyncio.TimeoutError, Exception):  # noqa: BLE001
+            task.cancel()
+            await asyncio.gather(task, return_exceptions=True)
+
+    async def close(self, *, success: bool) -> None:
+        """Half-close the report stream (queued results drain first), then
+        send the terminal PeerResult. Called after finalize, so the result
+        carries the real outcome."""
+        if self._closed:
+            return
+        self._closed = True
+        conductor = self.conductor
+        if self._stream is not None:
+            self._out.put_nowait(self._EOF)
+            await self._drain_task(self._writer, 5.0)
+            await self._drain_task(self._reader, 5.0)
+            self._stream.cancel()
+        if conductor is None or self._peer_result_sent:
+            return
+        self._peer_result_sent = True
+        result = PeerResult(
+            task_id=self.task_id, peer_id=self.peer_id,
+            url=conductor.url, success=success,
+            traffic=conductor.traffic_p2p,
+            cost_ms=int(time.time() * 1000) - conductor.start_ms,
+            code=int(conductor.fail_code),
+            total_piece_count=conductor.total_pieces,
+            content_length=conductor.content_length)
+        try:
+            # the outer Retrier is the only retry layer (one-attempt client)
+            once = ServiceClient(self.client.channel, SCHEDULER_SERVICE,
+                                 max_attempts=1)
+            await Retrier(_REPORT_RETRY).run(
+                lambda: once.unary("ReportPeerResult", result, timeout=5.0),
+                retryable=lambda exc: not isinstance(exc, DFError)
+                or exc.code in _FAILOVER_CODES)
+        except Exception as exc:  # noqa: BLE001
+            log.debug("ReportPeerResult failed: %s", exc)
+
+
+class SchedulerConnector:
+    """Daemon-wide scheduler client; conductor-facing ``register`` entry.
+
+    ``register`` tries the hashed scheduler, then the next ring members
+    (``FAILOVER_N`` in all) before raising UNAVAILABLE; a transport-dead
+    member is demoted for ``DEMOTE_S`` so later tasks skip it. Scheduler
+    verdicts (NeedBackSource, Forbidden) propagate from whichever member
+    answered."""
+
+    def __init__(self, addresses: list[str], host: Host):
+        self.addresses = list(addresses)
+        self.host = host
+        self._ring = HashRing(self.addresses)
+        self._channels: dict[str, Channel] = {}
+        self._demoted: dict[str, float] = {}   # addr -> monotonic revive time
+
+    def _alive(self, addr: str) -> bool:
+        until = self._demoted.get(addr)
+        if until is None:
+            return True
+        if time.monotonic() >= until:
+            self._demoted.pop(addr, None)     # probe window: eligible again
+            return True
+        return False
+
+    def demote(self, addr: str) -> None:
+        self._demoted[addr] = time.monotonic() + DEMOTE_S
+        log.info("scheduler %s demoted for %.1fs", addr, DEMOTE_S)
+
+    def revive(self, addr: str) -> None:
+        if self._demoted.pop(addr, None) is not None:
+            log.info("scheduler %s revived", addr)
+
+    def _candidates(self, key: str) -> list[str]:
+        """Failover order for ``key``: live ring members first, demoted
+        ones last (a dead scheduler still beats silently going to
+        origin)."""
+        cands = self._ring.pick_n(key, FAILOVER_N)
+        live = [a for a in cands if self._alive(a)]
+        return live + [a for a in cands if a not in live]
+
+    def _client_at(self, addr: str, *, max_attempts: int = 3) -> ServiceClient:
+        ch = self._channels.get(addr)
+        if ch is None:
+            ch = self._channels[addr] = Channel(addr)
+        return ServiceClient(ch, SCHEDULER_SERVICE, max_attempts=max_attempts)
+
+    async def register(self, conductor: "PeerTaskConductor") -> PeerSession:
+        cands = self._candidates(conductor.task_id)
+        if not cands:
+            raise DFError(Code.UNAVAILABLE, "no scheduler addresses")
+        request = RegisterPeerTaskRequest(
+            url=conductor.url, url_meta=conductor.url_meta,
+            task_id=conductor.task_id, peer_id=conductor.peer_id,
+            peer_host=self.host)
+        last_exc: BaseException | None = None
+        for addr in cands:
+            # one attempt per member: retrying a dead address in place
+            # only delays the healthy one clockwise of it
+            client = self._client_at(addr, max_attempts=1)
+            try:
+                result: RegisterResult = await client.unary(
+                    "RegisterPeerTask", request,
+                    timeout=REGISTER_TIMEOUT_S)
+            except DFError as exc:
+                if exc.code not in _FAILOVER_CODES:
+                    raise          # a verdict, not a dead scheduler
+                last_exc = exc
+            except (RPCError, OSError, asyncio.TimeoutError) as exc:
+                last_exc = exc
+            else:
+                self.revive(addr)
+                if int(result.resolved_priority) != 0:
+                    conductor.resolved_priority = int(
+                        result.resolved_priority)
+                session = PeerSession(self._client_at(addr), result,
+                                      conductor)
+                await session.open_report_stream()
+                return session
+            self.demote(addr)
+            log.warning("register on %s failed (%s); trying next ring "
+                        "member", addr, last_exc)
+        raise DFError(
+            Code.UNAVAILABLE,
+            f"all {len(cands)} scheduler ring members unreachable "
+            f"(last: {last_exc})")
+
+    async def leave_host(self) -> None:
+        cands = self._candidates(self.host.id)
+        if not cands:
+            return
+        try:
+            await self._client_at(cands[0], max_attempts=1).unary(
+                "LeaveHost", LeaveHostRequest(host_id=self.host.id),
+                timeout=3.0)
+        except Exception as exc:  # noqa: BLE001 - best effort on shutdown
+            log.debug("LeaveHost failed: %s", exc)
+
+    async def close(self) -> None:
+        for ch in self._channels.values():
+            await ch.close()
+        self._channels.clear()

@@ -1,9 +1,13 @@
 """The wire messages this slice uses.
 
 Counterpart of ``dragonfly2_tpu/idl/messages.py``: same class names, same
-field names, same defaults, so one field dict builds either package's
-message. ``DeviceSink`` describes a device-memory placement target for a
-download; ``ShardManifest`` names the tensors of a sharded checkpoint.
+field names in the same order, same defaults, so one field dict builds
+either package's message and ``dumps`` gives both the same bytes. The
+slice carries the daemon's download messages, the scheduler's register /
+report / announce / leave / stat messages, the peer piece-sync messages
+and the seed trigger. ``TopologyInfo`` carries the host's position for
+link classification; ``DeviceSink`` describes a device-memory placement
+target; ``ShardManifest`` names the tensors of a sharded checkpoint.
 """
 
 from __future__ import annotations
@@ -11,6 +15,13 @@ from __future__ import annotations
 import enum
 
 from .base import message
+
+
+class SizeScope(enum.IntEnum):
+    NORMAL = 0   # many pieces, full P2P
+    SMALL = 1    # exactly one piece: skip piece sync, single parent
+    TINY = 2     # <=128 KiB: content returned inline in register result
+    EMPTY = 3    # zero bytes
 
 
 class TaskType(enum.IntEnum):
@@ -27,6 +38,37 @@ class Priority(enum.IntEnum):
     LEVEL4 = 4
     LEVEL5 = 5
     LEVEL6 = 6  # lowest
+
+
+# The QoS service-class vocabulary a register resolves against.
+PRIORITY_CLASSES = ("critical", "standard", "bulk")
+DEFAULT_PRIORITY_CLASS = "standard"
+
+# numeric Priority a class resolves to when the request carries none
+CLASS_DEFAULT_PRIORITY = {"critical": 0, "standard": 0, "bulk": 6}
+
+
+def resolve_class(qos_class: str) -> str:
+    """Clamp a wire-supplied class onto the vocabulary ("" and unknown
+    strings resolve to the default class, never an error)."""
+    return qos_class if qos_class in PRIORITY_CLASSES \
+        else DEFAULT_PRIORITY_CLASS
+
+
+class HostType(enum.IntEnum):
+    NORMAL = 0       # ordinary peer
+    SUPER_SEED = 1   # seed peer, first to back-source
+    STRONG_SEED = 2
+    WEAK_SEED = 3
+
+
+class LinkType(enum.IntEnum):
+    """Locality class between two hosts, best to worst."""
+
+    LOCAL = 0  # same host
+    ICI = 1    # same TPU slice: wired inter-chip interconnect
+    DCN = 2    # same zone, data-center network between slices/hosts
+    WAN = 3    # cross-zone / unknown
 
 
 @message
@@ -48,12 +90,93 @@ class UrlMeta:
 
 
 @message
+class TopologyInfo:
+    """Where a host sits: slice, chip coordinates, zone, pod."""
+
+    slice_name: str = ""             # "" = not on an accelerator slice
+    worker_index: int = -1
+    ici_coords: tuple | None = None  # chip-mesh coords of this host's chips
+    num_chips: int = 0
+    zone: str = ""                   # cloud zone (DCN domain)
+    cluster_id: int = 0
+    pod: str = ""                    # explicit pod identity; "" = slice
+
+
+@message
+class CPUStat:
+    logical_count: int = 0
+    percent: float = 0.0
+
+
+@message
+class MemoryStat:
+    total: int = 0
+    available: int = 0
+    used_percent: float = 0.0
+
+
+@message
+class NetworkStat:
+    download_rate: int = 0       # bytes/s current
+    download_rate_limit: int = 0
+    upload_rate: int = 0
+    upload_rate_limit: int = 0
+
+
+@message
+class DiskStat:
+    total: int = 0
+    free: int = 0
+    used_percent: float = 0.0
+
+
+@message
+class Host:
+    """A daemon instance's identity + address, carried in every register."""
+
+    id: str = ""
+    ip: str = ""
+    hostname: str = ""
+    port: int = 0                  # peer RPC port
+    download_port: int = 0         # piece upload (HTTP) port
+    type: HostType = HostType.NORMAL
+    os: str = ""
+    platform: str = ""
+    topology: TopologyInfo | None = None
+    cpu: CPUStat | None = None
+    memory: MemoryStat | None = None
+    network: NetworkStat | None = None
+    disk: DiskStat | None = None
+    # 0 = "auto": the scheduler applies its per-host-type default
+    concurrent_upload_limit: int = 0
+    build_version: str = ""
+    quarantined: bool = False      # the daemon flagged its own bit-rot
+
+
+@message
 class PieceInfo:
     piece_num: int = 0
     range_start: int = 0
     range_size: int = 0
     digest: str = ""               # per-piece "crc32:..." / "md5:..."
     download_cost_ms: int = 0      # filled by downloader when reporting
+
+
+@message
+class PiecePacket:
+    """Answer to "which pieces does peer X have"; carries the address to
+    fetch them from."""
+
+    task_id: str = ""
+    dst_peer_id: str = ""
+    dst_addr: str = ""             # "ip:download_port" to fetch pieces from
+    piece_infos: list[PieceInfo] | None = None
+    total_piece_count: int = -1    # -1: unknown yet
+    content_length: int = -1
+    piece_size: int = 0
+    extend_attribute: dict | None = None
+    progress: int = -1             # pieces landed at the holder
+    relay_nums: list[int] | None = None
 
 
 @message
@@ -92,6 +215,167 @@ class DeviceSink:
     pipeline_shards: int = 0       # copy units per device; 0 = auto (~32MiB each)
 
 
+# ---------------------------------------------------------------- scheduler
+
+@message
+class RegisterPeerTaskRequest:
+    url: str = ""
+    url_meta: UrlMeta | None = None
+    task_id: str = ""
+    peer_id: str = ""
+    peer_host: Host | None = None
+    is_migrating: bool = False
+
+
+@message
+class SinglePiece:
+    dst_peer_id: str = ""
+    dst_addr: str = ""
+    piece_info: PieceInfo | None = None
+
+
+@message
+class RegisterResult:
+    task_id: str = ""
+    size_scope: SizeScope = SizeScope.NORMAL
+    direct_content: bytes = b""           # TINY: whole file inline
+    single_piece: SinglePiece | None = None  # SMALL
+    content_length: int = -1
+    piece_size: int = 0
+    resolved_priority: Priority = Priority.LEVEL0
+    assigned_shards: list[str] | None = None
+    scheduler_epoch: int = 0
+
+
+@message
+class HostLoad:
+    cpu_ratio: float = 0.0
+    mem_ratio: float = 0.0
+    disk_ratio: float = 0.0
+
+
+@message
+class PieceResult:
+    """Peer -> scheduler, one per finished/failed piece (the report stream)."""
+
+    task_id: str = ""
+    src_peer_id: str = ""           # downloader
+    dst_peer_id: str = ""           # parent it fetched from ("" = back-source)
+    piece_info: PieceInfo | None = None
+    begin_ms: int = 0
+    end_ms: int = 0
+    success: bool = False
+    code: int = 0                   # errors.Code
+    fail_code: str = ""             # corrupt | stall | timeout | refused
+    relayed: bool = False
+    host_load: HostLoad | None = None
+    finished_count: int = 0         # pieces this peer now holds
+
+
+@message
+class PeerAddr:
+    peer_id: str = ""
+    ip: str = ""
+    rpc_port: int = 0
+    download_port: int = 0
+    link: LinkType = LinkType.DCN   # scheduler-computed locality to the child
+    is_seed: bool = False           # seed host: the dispatcher ranks it last
+
+
+@message
+class PeerPacket:
+    """Scheduler -> peer: current parent assignment set."""
+
+    task_id: str = ""
+    src_peer_id: str = ""
+    parallel_count: int = 4
+    main_peer: PeerAddr | None = None
+    candidate_peers: list[PeerAddr] | None = None
+    code: int = 0                   # e.g. SCHED_NEED_BACK_SOURCE
+    advisory: bool = False          # adds parents without pruning
+
+
+@message
+class PeerResult:
+    """Final report when a peer's task ends."""
+
+    task_id: str = ""
+    peer_id: str = ""
+    src_ip: str = ""
+    url: str = ""
+    success: bool = False
+    traffic: int = 0                # bytes downloaded P2P
+    cost_ms: int = 0
+    code: int = 0
+    total_piece_count: int = 0
+    content_length: int = -1
+    flight_summary: dict | None = None
+
+
+PULSE_VERSION = 1
+
+
+@message
+class PulseDigest:
+    """A daemon's health counters piggybacked on ``AnnounceHost``."""
+
+    v: int = PULSE_VERSION
+    seq: int = 0
+    flight_tasks: int = 0
+    flight_evicted: int = 0
+    served_rungs: dict | None = None
+    loop_lag_max_ms: float = 0.0
+    loop_stalls: int = 0
+    slo_breaches: int = 0
+    corrupt_verdicts: int = 0
+    shunned_parents: int = 0
+    self_quarantined: bool = False
+    qos_state: str = "normal"
+    qos_shed: int = 0
+    storage_tasks: int = 0
+
+
+@message
+class AnnounceHostRequest:
+    host: Host | None = None
+    interval_s: float = 30.0
+    pulse: PulseDigest | None = None
+
+
+@message
+class AnnounceHostResponse:
+    scheduler_epoch: int = 0
+
+
+@message
+class LeaveHostRequest:
+    host_id: str = ""
+
+
+@message
+class LeavePeerRequest:
+    task_id: str = ""
+    peer_id: str = ""
+
+
+@message
+class StatTaskRequest:
+    task_id: str = ""
+
+
+@message
+class TaskStat:
+    id: str = ""
+    type: TaskType = TaskType.STANDARD
+    content_length: int = -1
+    total_piece_count: int = -1
+    state: str = ""
+    peer_count: int = 0
+    has_available_peer: bool = False
+
+
+# ---------------------------------------------------------------- daemon
+
 @message
 class DownloadRequest:
     url: str = ""
@@ -127,3 +411,50 @@ class DownloadResponse:
     shard_src: str = ""
     shards_ready: int = 0
     shards_total: int = 0
+
+
+@message
+class PieceTaskRequest:
+    task_id: str = ""
+    src_peer_id: str = ""           # requester
+    dst_peer_id: str = ""           # owner being asked
+    start_num: int = 0
+    limit: int = 32
+    src_slice: str = ""             # requester's slice
+
+
+@message
+class StatTaskDaemonRequest:
+    url: str = ""
+    url_meta: UrlMeta | None = None
+    task_id: str = ""
+    local_only: bool = False
+
+
+@message
+class DeleteTaskRequest:
+    url: str = ""
+    url_meta: UrlMeta | None = None
+    task_id: str = ""
+
+
+@message
+class ObtainSeedsRequest:
+    url: str = ""
+    url_meta: UrlMeta | None = None
+    task_id: str = ""
+
+
+@message
+class PieceSeed:
+    peer_id: str = ""
+    host_id: str = ""
+    piece_info: PieceInfo | None = None
+    done: bool = False
+    content_length: int = -1
+    total_piece_count: int = -1
+
+
+@message
+class Empty:
+    pass

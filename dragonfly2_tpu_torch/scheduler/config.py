@@ -1,0 +1,51 @@
+"""Scheduler configuration + cluster constants.
+
+Counterpart of ``dragonfly2_tpu/scheduler/config.py`` cut to the
+deployment settings (listeners, the static seed-peer list); the limits the
+register -> schedule -> report path honours are the reference's defaults,
+as constants (reference ``scheduler/config/config.go`` +
+``constants.go``). The relay-tree shaping
+is off (``relay_fanout`` 0, the reference's default exact path) and the
+control plane's extras (quarantine, federation, shard affinity, fleet
+pulse, state store, ML evaluator) wait for later slices.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+# the candidate set doubles the reference's 4: piece availability flows
+# only along parent->child sync streams, so the candidate limit is the
+# mesh's information fan-in
+CANDIDATE_PARENT_LIMIT = 8
+FILTER_PARENT_LIMIT = 15
+
+# reference scheduler/config/constants.go:63-71
+DEFAULT_BACK_SOURCE_CONCURRENT = 200
+RETRY_BACK_SOURCE_LIMIT = 4      # failed reports before NeedBackSource
+# scheduler-wide cap on concurrent back-source peers across all tasks,
+# counted per priority class
+BACK_SOURCE_TOTAL = 200
+
+PEER_TTL_S = 24 * 3600.0
+TASK_TTL_S = 24 * 3600.0
+HOST_TTL_S = 6 * 3600.0
+PEER_GC_INTERVAL_S = 60.0
+
+
+@dataclass
+class SeedPeerAddr:
+    """A seed daemon the scheduler may trigger."""
+
+    host_id: str = ""
+    ip: str = "127.0.0.1"
+    rpc_port: int = 0
+    download_port: int = 0
+
+
+@dataclass
+class SchedulerConfig:
+    listen_ip: str = "0.0.0.0"
+    advertise_ip: str = "127.0.0.1"
+    port: int = 0                          # 0 = ephemeral
+    seed_peers: list[SeedPeerAddr] = field(default_factory=list)

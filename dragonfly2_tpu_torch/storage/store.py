@@ -2,8 +2,10 @@
 
 Counterpart of ``dragonfly2_tpu/storage/store.py`` ``TaskStorage`` without
 the native library, the content-addressed store and ranged sub-tasks.
-Pieces are written at their offsets with per-piece digest verification;
-reads feed the device sink and the final output. Each call opens the data
+Pieces are written at their offsets with per-piece digest verification,
+one at a time (``write_piece``) or as a downloaded span in one pass
+(``write_span``); reads feed the device sink, the upload server and the
+final output. Each call opens the data
 file for itself, so a task destroyed mid-IO fails the call cleanly instead
 of writing into a reused descriptor.
 """
@@ -87,6 +89,71 @@ class TaskStorage:
             self.md.access_time = time.time()
         return meta
 
+    def write_span(self, pieces: list[tuple[int, int, int, str]], data,
+                   *, base: int | None = None, cost_ms: int = 0,
+                   source: str = "") -> tuple[list[PieceMeta], list[int]]:
+        """Land a contiguous downloaded span in one pass.
+
+        ``pieces``: ``(num, offset, size, digest)`` in ascending offset
+        order; ``data[i]`` is content offset ``base + i`` (``base``
+        defaults to the first piece's offset). Returns ``(landed_metas,
+        corrupt_nums)``. A digest-mismatched piece's bytes hit the file
+        but are never recorded, so the region stays absent (never served,
+        rewritten by the retry) and its groupmates land normally. Pieces
+        already recorded (endgame duplicates) are not rewritten.
+        """
+        if base is None:
+            base = pieces[0][1]
+        mv = memoryview(data)
+        with self._lock:
+            fresh = [p for p in pieces if p[0] not in self.md.pieces]
+        # contiguous runs: one covering the span unless a recorded
+        # duplicate splits it
+        runs: list[list[tuple[int, int, int, str]]] = []
+        for p in fresh:
+            if runs and runs[-1][-1][1] + runs[-1][-1][2] == p[1]:
+                runs[-1].append(p)
+            else:
+                runs.append([p])
+        metas: list[PieceMeta] = []
+        corrupt: list[int] = []
+        try:
+            for run in runs:
+                lo = run[0][1] - base
+                run_view = mv[lo:lo + sum(p[2] for p in run)]
+                try:
+                    fd = os.open(self._data_path, os.O_WRONLY)
+                    try:
+                        _pwrite_all(fd, run_view, run[0][1])
+                    finally:
+                        os.close(fd)
+                except OSError as exc:
+                    raise DFError(Code.CLIENT_STORAGE_ERROR,
+                                  f"span write @{run[0][1]} failed: "
+                                  f"{exc}") from None
+                pos = 0
+                for num, off, size, dg in run:
+                    piece_view = run_view[pos:pos + size]
+                    pos += size
+                    if dg:
+                        if not digestlib.verify(dg, piece_view):
+                            corrupt.append(num)
+                            continue
+                    else:
+                        dg = digestlib.for_bytes(digestlib.PIECE_ALGO,
+                                                 piece_view)
+                    metas.append(PieceMeta(num=num, start=off, size=size,
+                                           digest=dg, cost_ms=cost_ms,
+                                           source=source))
+                run_view.release()
+        finally:
+            mv.release()
+        with self._lock:
+            for meta in metas:
+                self.md.pieces.setdefault(meta.num, meta)
+            self.md.access_time = time.time()
+        return metas, corrupt
+
     def mark_done(self, *, success: bool, content_length: int | None = None,
                   total_piece_count: int | None = None) -> None:
         with self._lock:
@@ -118,9 +185,41 @@ class TaskStorage:
         self.md.access_time = time.time()
         return data
 
-    def piece_infos(self) -> list[PieceMeta]:
+    def read_range(self, start: int, length: int) -> bytes:
+        try:
+            fd = os.open(self._data_path, os.O_RDONLY)
+            try:
+                return _pread_all(fd, length, start)
+            finally:
+                os.close(fd)
+        except OSError as exc:
+            raise DFError(Code.CLIENT_STORAGE_ERROR,
+                          f"range read @{start}+{length} failed: "
+                          f"{exc}") from None
+
+    def has_range(self, start: int, length: int) -> bool:
+        """True if stored pieces fully cover [start, start+length)."""
+        end = start + length
+        covered = start
         with self._lock:
-            return [self.md.pieces[n] for n in sorted(self.md.pieces)]
+            spans = sorted((p.start, p.start + p.size)
+                           for p in self.md.pieces.values())
+        for s, e in spans:
+            if s > covered:
+                return False
+            if e > covered:
+                covered = e
+            if covered >= end:
+                return True
+        return covered >= end
+
+    def piece_infos(self, start_num: int = 0,
+                    limit: int = 0) -> list[PieceMeta]:
+        with self._lock:
+            nums = sorted(n for n in self.md.pieces if n >= start_num)
+            if limit > 0:
+                nums = nums[:limit]
+            return [self.md.pieces[n] for n in nums]
 
     def store_to(self, output_path: str) -> None:
         """Land the completed content at ``output_path``: hardlink when

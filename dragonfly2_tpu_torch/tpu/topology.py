@@ -1,21 +1,30 @@
-"""The CUDA runtime probe: is the accelerator answering, and how many cards.
+"""Host topology: the CUDA runtime probe, where this host sits, and link
+classification.
 
-Counterpart of the probe half of ``dragonfly2_tpu/tpu/topology.py``
-(``probe_jax_devices``, ``runtime_wedged``, ``ensure_runtime_alive``). A
+Counterpart of ``dragonfly2_tpu/tpu/topology.py``. The probe half
+(``probe_cuda_devices``, ``runtime_wedged``, ``ensure_runtime_alive``): a
 distribution daemon must come up and serve from disk even while the
 accelerator runtime is sick, so the probe runs on a daemon thread under a
 time bound, a timed-out probe is remembered host-wide for a while, and the
 device-sink factory asks a non-blocking question before it touches CUDA.
+The link half (``detect``, ``link_type``, ``classify`` and the score
+tables) is the reference's: hosts carry a slice name, chip coordinates
+and a zone, and the scheduler derives a ``LinkType`` (LOCAL > ICI > DCN >
+WAN) from them. On a GPU host ``detect`` fills the card count and a slice
+name from the CUDA probe; the link tiers are the reference's, unchanged.
 """
 
 from __future__ import annotations
 
+import functools
 import hashlib
 import logging
 import os
 import tempfile
 import threading
 import time
+
+from ..idl.messages import LinkType, TopologyInfo
 
 log = logging.getLogger("df.tpu.topology")
 
@@ -140,3 +149,133 @@ def ensure_runtime_alive() -> bool:
         threading.Thread(target=_reprobe, name="df-topo-reprobe",
                          daemon=True).start()
     return False
+
+
+@functools.lru_cache(maxsize=1)
+def detect() -> TopologyInfo:
+    """Best-effort detection of this host's position.
+
+    Environment injection wins, with the reference's precedence:
+    ``TPU_SLICE_NAME``, ``DF_POD_ID``, ``DF_ZONE`` (else ``CLOUD_ZONE``,
+    else ``DF_DEFAULT_ZONE``, else "local"), ``TPU_WORKER_ID`` and
+    ``DF_ICI_COORDS`` ("0,1,2"; malformed values degrade to None). The
+    CUDA probe fills the card count and, when no slice is named, a slice
+    name of "<card name>-<count>"; a host with no card stays slice-less.
+    """
+    slice_name = os.environ.get("TPU_SLICE_NAME", "")
+    pod = os.environ.get("DF_POD_ID", "")
+    zone = os.environ.get("DF_ZONE", os.environ.get("CLOUD_ZONE", ""))
+    try:
+        worker = int(os.environ.get("TPU_WORKER_ID", "-1"))
+    except ValueError:
+        worker = -1
+    coords = None
+    coords_env = os.environ.get("DF_ICI_COORDS", "")
+    if coords_env:
+        try:
+            coords = tuple(int(x) for x in coords_env.split(","))
+        except ValueError:
+            coords = None
+    num_chips = 0
+    status, payload = probe_cuda_devices()
+    if status == "timeout":
+        log.warning("accelerator runtime did not answer the topology probe;"
+                    " running topology-less (device sink unavailable)")
+    elif status == "ok":
+        num_chips, first, total = payload
+        if first is not None:
+            if not slice_name:
+                import torch
+                slice_name = f"{torch.cuda.get_device_name(first)}-{total}"
+            if worker < 0:
+                worker = 0
+    # status == "error": torch absent or CUDA init raised — silent
+    if not zone:
+        zone = os.environ.get("DF_DEFAULT_ZONE", "local")
+    return TopologyInfo(slice_name=slice_name, worker_index=worker,
+                        ici_coords=coords, num_chips=num_chips, zone=zone,
+                        pod=pod)
+
+
+def pod_id(t: TopologyInfo | None) -> str:
+    """The host's pod identity: an explicit ``pod`` wins, else the slice
+    (one slice == one pod); "" = no pod."""
+    if t is None:
+        return ""
+    return t.pod or t.slice_name
+
+
+def same_pod(a: TopologyInfo | None, b: TopologyInfo | None) -> bool:
+    pa, pb = pod_id(a), pod_id(b)
+    return bool(pa) and pa == pb
+
+
+def link_type(a: TopologyInfo | None, b: TopologyInfo | None,
+              *, same_host: bool = False) -> LinkType:
+    """Classify the best link between two hosts' positions."""
+    if same_host:
+        return LinkType.LOCAL
+    if a is None or b is None:
+        return LinkType.WAN
+    if a.slice_name and a.slice_name == b.slice_name:
+        return LinkType.ICI
+    if a.zone and a.zone == b.zone:
+        return LinkType.DCN
+    return LinkType.WAN
+
+
+class LinkClass:
+    """One classified (child, parent) pair: the link tier, whether the
+    bytes stay in one pod, the DCN distance between the pods (0 same pod,
+    1 pod-crossing in one zone, 2 cross-zone or unknown) and the chip-mesh
+    distance (meaningful only for ICI)."""
+
+    __slots__ = ("link", "same_pod", "dcn_hops", "ici")
+
+    def __init__(self, link: LinkType, same_pod_: bool, dcn_hops: int,
+                 ici: int):
+        self.link = link
+        self.same_pod = same_pod_
+        self.dcn_hops = dcn_hops
+        self.ici = ici
+
+
+def classify(a: TopologyInfo | None, b: TopologyInfo | None,
+             *, same_host: bool = False) -> LinkClass:
+    """``link_type`` plus the pod tier."""
+    lt = link_type(a, b, same_host=same_host)
+    sp = same_host or same_pod(a, b)
+    if sp:
+        dcn = 0
+    elif lt in (LinkType.LOCAL, LinkType.ICI, LinkType.DCN):
+        dcn = 1
+    else:
+        dcn = 2
+    hops = ici_hops(a, b) if a is not None and b is not None else 1 << 16
+    return LinkClass(lt, sp, dcn, hops)
+
+
+def ici_hops(a: TopologyInfo, b: TopologyInfo) -> int:
+    """Manhattan distance in the chip mesh; large when unknown."""
+    if (not a.ici_coords or not b.ici_coords
+            or len(a.ici_coords) != len(b.ici_coords)):
+        return 1 << 16
+    return int(sum(abs(int(x) - int(y))
+                   for x, y in zip(a.ici_coords, b.ici_coords)))
+
+
+# relative bandwidth expectations per link class, used by evaluator scoring
+LINK_BANDWIDTH_SCORE = {
+    LinkType.LOCAL: 1.0,
+    LinkType.ICI: 0.9,
+    LinkType.DCN: 0.4,
+    LinkType.WAN: 0.1,
+}
+
+# the pinned link-tier names, best to worst
+LINK_TIER_NAMES = {
+    LinkType.LOCAL: "local",
+    LinkType.ICI: "ici",
+    LinkType.DCN: "dcn",
+    LinkType.WAN: "wan",
+}

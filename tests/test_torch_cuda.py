@@ -15,11 +15,15 @@ import numpy as np
 import pytest
 import torch
 
-from dragonfly2_tpu_torch.daemon.config import DaemonConfig
+from dragonfly2_tpu_torch.daemon.config import DaemonConfig, SchedulerConfig
 from dragonfly2_tpu_torch.daemon.daemon import Daemon
 from dragonfly2_tpu_torch.idl.messages import (DeviceSink, DownloadRequest,
                                                ShardInfo, ShardManifest,
                                                UrlMeta)
+from dragonfly2_tpu_torch.scheduler.config import SchedulerConfig as \
+    SchedCfg
+from dragonfly2_tpu_torch.scheduler.config import SeedPeerAddr
+from dragonfly2_tpu_torch.scheduler.server import Scheduler
 from dragonfly2_tpu_torch.tpu.hbm_sink import DeviceIngest
 
 
@@ -135,3 +139,56 @@ def test_daemon_pull_lands_on_card(cuda, tmp_path):
     flat = torch.cat(out["f"])
     assert all(a.device == cuda for a in out["f"])
     assert flat[:len(raw)].cpu().numpy().tobytes() == raw
+
+
+@pytest.mark.gpu
+def test_p2p_pull_from_a_seed_lands_on_card(cuda, tmp_path):
+    """Two daemons and a scheduler: the leecher, with back-source off,
+    takes every piece from the seed's upload server into cuda:0."""
+    raw = _seeded(24 << 20, seed=5)
+    path = tmp_path / "ckpt.bin"
+    path.write_bytes(raw)
+    manifest = ShardManifest(shards=[
+        ShardInfo(name="w", range_start=0, range_size=16 << 20,
+                  dtype="bfloat16", shape=[2048, 4096]),
+        ShardInfo(name="b", range_start=(16 << 20) + 64,
+                  range_size=4 << 20, dtype="float32", shape=[1 << 20])])
+
+    async def main():
+        seed = Daemon(DaemonConfig(workdir=str(tmp_path / "seed"),
+                                   hostname="seed", is_seed=True,
+                                   listen_ip="127.0.0.1",
+                                   host_ip="127.0.0.1"))
+        await seed.start()
+        sched = Scheduler(SchedCfg(listen_ip="127.0.0.1", seed_peers=[
+            SeedPeerAddr(host_id=seed.host_info().id, ip="127.0.0.1",
+                         rpc_port=seed.rpc.port,
+                         download_port=seed.upload_server.port)]))
+        await sched.start()
+        leecher = Daemon(DaemonConfig(
+            workdir=str(tmp_path / "leecher"), hostname="leecher",
+            listen_ip="127.0.0.1", host_ip="127.0.0.1",
+            scheduler=SchedulerConfig(addresses=[sched.address])))
+        await leecher.start()
+        try:
+            task_id = None
+            async for r in leecher.ptm.start_file_task(DownloadRequest(
+                    url=f"file://{path}", disable_back_source=True,
+                    device_sink=DeviceSink(enabled=True),
+                    shard_manifest=manifest, timeout_s=120)):
+                task_id = r.task_id
+            c = leecher.ptm.conductor(task_id)
+            assert c.traffic_p2p == len(raw) and c.traffic_source == 0
+            return await asyncio.to_thread(c.device_ingest.result, 60)
+        finally:
+            await leecher.stop()
+            await sched.stop()
+            await seed.stop()
+
+    out = asyncio.run(asyncio.wait_for(main(), 180))
+    for info, dtype in zip(manifest.shards, (torch.bfloat16, torch.float32)):
+        t = out[info.name]
+        assert t.device == cuda and t.dtype == dtype
+        assert list(t.shape) == list(info.shape)
+        got = t.reshape(-1).view(torch.uint8).cpu().numpy().tobytes()
+        assert got == raw[info.range_start:info.range_start + info.range_size]
