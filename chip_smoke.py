@@ -28,21 +28,41 @@ and then from peers, as the P2P path does:
               equal the origin's, every byte must come from peers, the
               origin must be read exactly once (a counting ``file://``
               source in the child), and B must take pieces from A
+7. trainer  — the learned-scheduler loop: a scheduler (``algorithm="ml"``,
+              records kept) rules over a staged cluster until its records
+              ring holds 50,000 rows (decisions and piece outcomes, 64:512
+              as in BENCH_pr19's datagen) and its topology store a
+              1024-host, 8192-link snapshot; the announcer uploads both to
+              a trainer on the card, which fits the MLP (600 epochs) and
+              the GNN (60 epochs). A refit must give the same bytes; the
+              MLP blob binds into the scheduler's evaluator, which then
+              rules with the model (garbage and NaN blobs are refused);
+              ``ModelInfer`` answers with the bound version; and MLPs
+              fitted on the card on BENCH_pr19's datagen rows
+              (``tests/data/pr19_datagen_rows.jsonl``, seeds 0-15) must
+              beat the heuristic's replay regret of 0.1379 on average
 
-Each phase prints one line. The port ports no kernel (the JAX package has
-no Pallas kernel; its device work is ``jax.device_put``, which here is
-copy-engine work), so the kernel line lists none. The last line is the
-JSON verdict; any failed check exits non-zero before it.
+Each phase prints its lines. The port ports no kernel (the JAX package has
+no Pallas kernel; its device work is ``jax.device_put``, copy-engine work
+here, and the trainer's XLA ops, torch ops here), so the kernel line lists
+none. The last line is the JSON verdict; any failed check exits non-zero
+before it.
 """
 
 from __future__ import annotations
+
+import os
+
+# deterministic cuBLAS (the trainer's fits) needs this before the first
+# cuBLAS call of the process
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 import argparse
 import asyncio
 import hashlib
 import json
 import multiprocessing
-import os
+import random
 import shutil
 import struct
 import subprocess
@@ -61,15 +81,27 @@ from dragonfly2_tpu_torch.common.piece import compute_piece_size
 from dragonfly2_tpu_torch.daemon.config import DaemonConfig, SchedulerConfig
 from dragonfly2_tpu_torch.daemon.daemon import Daemon
 from dragonfly2_tpu_torch.idl.messages import (DeviceSink, DownloadRequest,
-                                               ShardInfo, ShardManifest,
+                                               Host, HostType,
+                                               ModelInferRequest, PieceInfo,
+                                               PieceResult, ShardInfo,
+                                               ShardManifest, TopologyInfo,
                                                UrlMeta)
+from dragonfly2_tpu_torch.rpc.client import Channel, ServiceClient
 from dragonfly2_tpu_torch.scheduler.config import SchedulerConfig as \
     SchedCfg
 from dragonfly2_tpu_torch.scheduler.config import SeedPeerAddr
+from dragonfly2_tpu_torch.scheduler.decision_ledger import (
+    replay_decisions, replay_regret)
+from dragonfly2_tpu_torch.scheduler.records import MAX_BUFFERED_ROWS
+from dragonfly2_tpu_torch.scheduler.resource import PeerState
 from dragonfly2_tpu_torch.scheduler.server import Scheduler
 from dragonfly2_tpu_torch.source.file_client import FileSourceClient
 from dragonfly2_tpu_torch.tpu.data import ShardPrefetcher
 from dragonfly2_tpu_torch.tpu.hbm_sink import DeviceIngest
+from dragonfly2_tpu_torch.trainer import (features, models, params_io,
+                                          pipeline, serving, training)
+from dragonfly2_tpu_torch.trainer.server import Trainer, TrainerConfig
+from dragonfly2_tpu_torch.trainer.service import TRAINER_SERVICE
 
 # meta-llama/Meta-Llama-3-8B config.json
 LLAMA3_8B = {"hidden": 4096, "intermediate": 14336, "kv_heads": 8,
@@ -81,7 +113,26 @@ PREFETCH_SHARDS = 8
 PREFETCH_SHARD_BYTES = 256 << 20
 KERNELS_NOTE = ("the JAX package has no Pallas kernel; its device work on "
                 "this path is jax.device_put, which the port does as "
-                "pinned-memory copies on a CUDA stream (copy engines)")
+                "pinned-memory copies on a CUDA stream (copy engines), and "
+                "the trainer's XLA ops (bf16-operand matmuls, GELU, "
+                "gathers, segment sums, AdamW), which the port runs as "
+                "torch ops")
+
+# phase 7: one full records ring (scheduler/records.py), decision to
+# piece-outcome rows as in BENCH_pr19's datagen, and the GNN's largest
+# buckets (trainer/features.py _NODE_BUCKETS, _EDGE_BUCKETS)
+RING_ROWS = MAX_BUFFERED_ROWS
+DECISION_ROWS, OUTCOME_ROWS = 64, 512
+GNN_HOSTS = features._NODE_BUCKETS[-1]
+GNN_LINKS = features._EDGE_BUCKETS[-1]
+RING_EPOCHS = pipeline.DEFAULT_EPOCHS
+GNN_EPOCHS = 60                          # training.train_gnn's default
+HEURISTIC_REGRET = 0.1379                # BENCH_pr19.json regret.heuristic
+FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                       "data", "pr19_datagen_rows.jsonl")
+PROFILE_STEPS = 200
+BIND_RULINGS = 256
+REGRET_SEEDS = range(16)
 
 
 class CheckFailed(Exception):
@@ -681,8 +732,355 @@ def phase_p2p(workdir: str, path: str, digest: str, header: bytes,
         **hbm_metrics(before)})
 
 
+# ---------------------------------------------------------------- phase 7
+
+def _staged_cluster(sched: Scheduler, rng: np.random.Generator) -> dict:
+    """A seeded cluster in the scheduler's resource model: 64 hosts on 8
+    slices in 2 zones (4 of them seeds), 32 tasks of 64 pieces with 16
+    running peers each. Returns the hidden truth the piece costs are drawn
+    from: each host's upload bandwidth (bytes/s)."""
+    hosts = []
+    for i in range(64):
+        slice_no = i // 8
+        msg = Host(id=f"smoke-host-{i:02d}", ip=f"10.0.{slice_no}.{i}",
+                   hostname=f"h{i}", port=9000, download_port=8000,
+                   type=HostType.STRONG_SEED if i % 16 == 0
+                   else HostType.NORMAL,
+                   topology=TopologyInfo(
+                       slice_name=f"slice-{slice_no}", worker_index=i % 8,
+                       ici_coords=(i % 8 // 4, i % 4), num_chips=4,
+                       zone=f"zone-{slice_no % 2}"),
+                   concurrent_upload_limit=int(rng.choice([4, 8, 16])))
+        hosts.append(sched.resource.store_host(msg))
+    tasks = []
+    for t in range(32):
+        task = sched.resource.get_or_create_task(f"{t:064x}",
+                                                 f"file:///blob-{t}")
+        task.set_content_info(64 * (4 << 20), 4 << 20, 64)
+        for k, h in enumerate(rng.choice(64, 16, replace=False)):
+            peer = sched.resource.get_or_create_peer(
+                f"smoke-peer-{t:02d}-{k:02d}", task, hosts[int(h)])
+            peer.transit(PeerState.RUNNING)
+            peer.finished_pieces.update(int(n) for n in rng.choice(
+                64, int(rng.integers(1, 65)), replace=False))
+        tasks.append(task)
+    return {"tasks": tasks,
+            "bw": {h.id: 10 ** rng.uniform(7.5, 9.5) for h in hosts}}
+
+
+def _piece_cost_ms(truth: dict, child, parent,
+                   rng: np.random.Generator) -> float:
+    """The hidden link model: the parent's bandwidth, shared by its
+    uploads, times a locality factor, with log-normal noise."""
+    a, b = child.host.msg.topology, parent.host.msg.topology
+    link = (1.0 if a.slice_name == b.slice_name
+            else 0.5 if a.zone == b.zone else 0.2)
+    bw = truth["bw"][parent.host.id] * link / (
+        1 + parent.host.concurrent_upload_count)
+    return float((4 << 20) / bw * 1e3 * rng.lognormal(0.0, 0.3))
+
+
+def fill_ring(sched: Scheduler, seed: int) -> dict:
+    """Rule over the staged cluster until the records ring holds
+    ``RING_ROWS`` rows: every ruling is a real ``find_parents`` (its
+    decision row reaches the records through the decision ledger), and the
+    pieces fetched under it are reported to the records' ``on_piece``."""
+    rng = np.random.default_rng(seed)
+    truth = _staged_cluster(sched, rng)
+    records = sched.service.records
+    n_dec = RING_ROWS * DECISION_ROWS // (DECISION_ROWS + OUTCOME_ROWS)
+    per, extra = divmod(RING_ROWS - n_dec, n_dec)
+    for d in range(n_dec):
+        task = truth["tasks"][d % len(truth["tasks"])]
+        peers = list(task.peers.values())
+        child = peers[int(rng.integers(len(peers)))]
+        for p in peers:       # upload load moves between rulings
+            p.host.concurrent_upload_count = int(rng.integers(
+                0, p.host.upload_limit))
+        parents = sched.scheduling.find_parents(child)
+        check(len(parents) > 0, f"ruling {d} offered no parent")
+        for _ in range(per + (d < extra)):
+            parent = parents[int(rng.integers(min(3, len(parents))))]
+            num = int(rng.integers(64))
+            records.on_piece(child, PieceResult(
+                task_id=task.id, src_peer_id=child.id,
+                dst_peer_id=parent.id, success=True,
+                piece_info=PieceInfo(
+                    piece_num=num, range_start=num * (4 << 20),
+                    range_size=4 << 20,
+                    download_cost_ms=_piece_cost_ms(truth, child, parent,
+                                                    rng))))
+            parent.host.observe_upload(True)
+            child.finished_pieces.add(num)
+    rows = records.drain()
+    records.requeue(rows)          # a copy of the ring, left in place
+    return {"rows": rows, "decisions": n_dec, "pieces": len(rows) - n_dec,
+            "truth": truth}
+
+
+def fill_topology(sched: Scheduler, seed: int) -> None:
+    """``GNN_LINKS`` probed links among ``GNN_HOSTS`` hosts (slices of 32):
+    tens of microseconds inside a slice, DCN-class RTTs across."""
+    rng = np.random.default_rng(seed + 1)
+    pairs: set = set()
+    for h in range(GNN_HOSTS):           # every host in the graph
+        pairs.add((h, (h + 1) % GNN_HOSTS))
+    while len(pairs) < GNN_LINKS:
+        a, b = (int(v) for v in rng.integers(0, GNN_HOSTS, 2))
+        if a != b:
+            pairs.add((a, b))
+    for a, b in sorted(pairs):
+        rtt = (rng.uniform(10, 40) if a // 32 == b // 32
+               else 10 ** rng.uniform(2.3, 3.7))
+        sched.topo.record(f"pod-host-{a:04d}", f"pod-host-{b:04d}", int(rtt))
+
+
+def profile_mlp_steps(rows: list[dict], device: torch.device) -> dict:
+    """``PROFILE_STEPS`` steps of the MLP fit (512-row batches of the ring's
+    folds), timed alone and then under ``torch.profiler``: the host time
+    per step, the device's busy share, the kernels per step and the
+    kernels that took the device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    folds, _ = pipeline.training_rows(rows)
+    data = features.records_to_arrays(folds)
+    x = torch.from_numpy(data["x"]).to(device)
+    y = torch.from_numpy(data["y"]).to(device)
+    idx = torch.from_numpy(np.random.default_rng(0).integers(
+        0, len(data["y"]), (PROFILE_STEPS, 512))).to(device)
+    with training.fit_numerics():
+        model = models.init_mlp(torch.Generator().manual_seed(0)).to(device)
+        step = models.make_train_step(models.mlp_loss,
+                                      models.make_optimizer(model))
+
+        def steps() -> float:
+            torch.cuda.synchronize(device)
+            t0 = time.monotonic()
+            for s in range(PROFILE_STEPS):
+                step(model, {"x": x.index_select(0, idx[s]),
+                             "y": y.index_select(0, idx[s])})
+            torch.cuda.synchronize(device)
+            return time.monotonic() - t0
+
+        steps()                                          # warm-up
+        wall = steps()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            wall_profiled = steps()
+    # device events, less the user-annotation ranges (the optimizer's
+    # step is one) that span the kernels they cover
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)
+               and not e.name.startswith("Optimizer.")]
+    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+    by_name: dict = {}
+    for e in kernels:
+        by_name[e.name[:60]] = by_name.get(e.name[:60], 0) \
+            + e.time_range.elapsed_us()
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return {"steps": PROFILE_STEPS,
+            "host_ms_per_step": wall / PROFILE_STEPS * 1e3,
+            "host_ms_per_step_profiled": wall_profiled / PROFILE_STEPS * 1e3,
+            "device_busy_ms_per_step": busy_us / 1e3 / PROFILE_STEPS,
+            "device_idle_share": (1 - busy_us / 1e6 / wall_profiled)
+            if busy_us else None,
+            "kernels_per_step": len(kernels) / PROFILE_STEPS,
+            "top_kernels_ms_per_step": {k: v / 1e3 / PROFILE_STEPS
+                                        for k, v in top}}
+
+
+def _nan_blob(blob: bytes) -> bytes:
+    params, meta = params_io.deserialize_params(blob)
+    params["layers"][1]["w"][0, 0] = np.nan
+    return params_io.serialize_params(params, meta)
+
+
+async def _trainer_loop(workdir: str, seed: int, device: torch.device
+                        ) -> dict:
+    trainer = Trainer(TrainerConfig(
+        listen_ip="127.0.0.1", data_dir=os.path.join(workdir, "spool"),
+        device=str(device)))
+    await trainer.start()
+    sched = Scheduler(SchedCfg(listen_ip="127.0.0.1", algorithm="ml",
+                               trainer_address=trainer.address),
+                      rng=random.Random(seed))
+    await sched.start()
+    channel = Channel(trainer.address)
+    out: dict = {}
+    try:
+        t0 = time.monotonic()
+        ring = fill_ring(sched, seed)
+        fill_topology(sched, seed)
+        topo_rows = sched.topo.snapshot_rows()
+        out["fill_s"] = time.monotonic() - t0
+        check(len(ring["rows"]) == RING_ROWS
+              and sched.service.records.piece_row_count() == ring["pieces"],
+              f"ring holds {len(ring['rows'])} rows, want {RING_ROWS}")
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.monotonic()
+        check(await sched.announcer.upload_once(), "nothing was uploaded")
+        out["upload_s"] = time.monotonic() - t0
+        out["peak_bytes"] = torch.cuda.max_memory_allocated(device)
+        out["upload"] = sched.announcer.last_upload
+        out["ring"] = ring
+        out["topo_rows"] = topo_rows
+        out["mlp"] = trainer.service.latest[features.MLP_MODEL_NAME]
+        out["gnn"] = trainer.service.latest[features.GNN_MODEL_NAME]
+        check(out["upload"]["model_version"] == out["mlp"][1]["version"],
+              "Train answered with another version than the MLP's")
+
+        # bind the fitted MLP, rule with it, refuse bad blobs
+        ann, ev = sched.announcer, sched.scheduling.evaluator
+        check(await ann.bind_model(out["mlp"][0]), "the MLP blob did not bind")
+        rng = np.random.default_rng(seed + 2)
+        tasks = ring["truth"]["tasks"]
+        for r in range(BIND_RULINGS):
+            peers = list(tasks[r % len(tasks)].peers.values())
+            sched.scheduling.find_parents(peers[int(rng.integers(len(peers)))])
+        # each ruling's row carries the model's total and the heuristic's
+        # (base_total): how often the model's top pick is another parent
+        rows = sched.ledger.snapshot(limit=BIND_RULINGS)["decisions"]
+        out["top_pick_differs"] = sum(
+            r["candidates"][0] is not max(
+                r["candidates"], key=lambda c: c.get("base_total", c["total"]))
+            for r in rows if r["candidates"])
+        out["health"] = ev.health()
+        check(out["health"]["scored"] > 0
+              and out["health"]["fallbacks"] == 0,
+              f"the bound model did not rule: {out['health']}")
+        out["rulings"] = len(rows)
+        good = out["mlp"][1]["version"]
+        garbage = np.random.default_rng(seed + 3).bytes(4096)
+        for name, blob in (("garbage", garbage),
+                           ("nan", _nan_blob(out["mlp"][0]))):
+            check(not await ann.bind_model(blob), f"{name} blob was bound")
+            check(params_io.version_of(blob) in ann.refused,
+                  f"{name} blob refusal not journaled")
+        check(ev.health()["version"] == good,
+              "a refused blob replaced the serving model")
+        out["refused"] = dict(ann.refused)
+        probe = [list(map(float, r["features"]))
+                 for r in ring["rows"][:64] if r.get("kind") == "piece"]
+        resp = await ServiceClient(channel, TRAINER_SERVICE).unary(
+            "ModelInfer", ModelInferRequest(features=probe))
+        check(resp.model_version == good
+              and resp.outputs == ev.infer(probe),
+              "ModelInfer disagrees with the bound model")
+        out["model_infer_rows"] = len(probe)
+    finally:
+        await channel.close()
+        await sched.stop()
+        await trainer.stop()
+    return out
+
+
+def phase_trainer(workdir: str, seed: int, device: torch.device) -> None:
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    t_phase = time.monotonic()
+    loop = asyncio.run(_trainer_loop(workdir, seed, device))
+    ring, upload = loop["ring"], loop["upload"]
+    mlp_blob, mlp = loop["mlp"]
+    gnn_blob, gnn = loop["gnn"]
+    mlp_steps = mlp["epochs"] * max(1, mlp["rows"] // min(512, mlp["rows"]))
+    emit("phase 7 trainer, ring upload", {
+        "rows": len(ring["rows"]), "decision_rows": ring["decisions"],
+        "piece_rows": ring["pieces"],
+        "topology_rows": upload["topology_rows"],
+        "compressed_bytes": upload["compressed_bytes"],
+        "fill_s": loop["fill_s"], "upload_and_fit_s": loop["upload_s"],
+        "peak_device_bytes": loop["peak_bytes"], "card": smi})
+    # determinism: the same rows and seed, fitted again on the card
+    t0 = time.monotonic()
+    refit = pipeline.train_decision_model(ring["rows"], device=device)
+    refit_s = time.monotonic() - t0
+    regnn = training.train_gnn(loop["topo_rows"], device=device)
+    check(refit is not None and refit[0] == mlp_blob,
+          f"MLP refit version {refit[1]['version'] if refit else None} != "
+          f"{mlp['version']}: the fit is not deterministic on the card")
+    check(regnn is not None and regnn[0] == gnn_blob,
+          f"GNN refit version {regnn[1]['version'] if regnn else None} != "
+          f"{gnn['version']}: the segment sums are not deterministic (K1)")
+    emit("phase 7 trainer, mlp fit", {
+        "fold_rows": mlp["rows"], "supervision": mlp["supervision"],
+        "record_rows": mlp["record_rows"], "epochs": mlp["epochs"],
+        "steps": mlp_steps, "fit_s": mlp["train_seconds"],
+        "steps_per_s": mlp_steps / mlp["train_seconds"],
+        "first_epoch_loss": mlp["first_epoch_loss"],
+        "final_loss": mlp["final_loss"], "version": mlp["version"],
+        "refit_version": refit[1]["version"], "refit_s": refit_s})
+    emit("phase 7 trainer, gnn fit", {
+        "nodes": gnn["nodes"], "edges": gnn["edges"], "epochs": gnn["epochs"],
+        "steps": gnn["epochs"], "fit_s": gnn["train_seconds"],
+        "steps_per_s": gnn["epochs"] / gnn["train_seconds"],
+        "first_epoch_loss": gnn["first_epoch_loss"],
+        "final_loss": gnn["final_loss"], "version": gnn["version"],
+        "refit_version": regnn[1]["version"],
+        "refit_s": regnn[1]["train_seconds"]})
+    check(mlp["final_loss"] < mlp["first_epoch_loss"]
+          and gnn["final_loss"] < gnn["first_epoch_loss"],
+          "a fit did not lower its loss")
+    emit("phase 7 trainer, mlp step profile",
+         profile_mlp_steps(ring["rows"], device))
+    emit("phase 7 trainer, bind and rule", {
+        "health": loop["health"], "rulings": loop["rulings"],
+        "top_pick_differs_from_heuristic": loop["top_pick_differs"],
+        "refused": loop["refused"],
+        "model_infer_rows": loop["model_infer_rows"]})
+    # learned vs heuristic on BENCH_pr19's datagen rows. One fit's replay
+    # regret moves with the last bit of the arithmetic: the fit is chaotic
+    # on these 170 unnormalized rows (on the CPU, changing the seed-7
+    # initial weights by one ulp gave regrets from 0.039 to 0.145), so the
+    # claim is held on the recipe's mean over REGRET_SEEDS fits. Seed 7,
+    # BENCH_pr19's, is one of them and is printed on its own.
+    with open(FIXTURE) as f:
+        rows = [json.loads(line) for line in f]
+    fits = {}
+    for s in REGRET_SEEDS:
+        fitted = pipeline.train_decision_model(rows, seed=s, device=device)
+        check(fitted is not None, f"seed {s}: the fixture fit gave no model")
+        infer = serving.make_mlp_infer(fitted[0])
+        fits[s] = (fitted, infer, replay_regret(
+            rows, ("default", "ml"), infer)["evaluators"])
+    (blob, metrics), infer, regret = fits[7]
+    again = pipeline.train_decision_model(rows, seed=7, device=device)
+    check(again[0] == blob, "the fixture fit is not deterministic on the "
+                            "card")
+    replay = replay_decisions(rows, ("default", "ml"), infer)
+    check(replay["logged_choice_agreement"]["default"] == 1.0,
+          "the heuristic replay does not reproduce the logged choices")
+    heuristic = regret["default"]["mean_regret"]
+    check(round(heuristic, 4) == HEURISTIC_REGRET,
+          f"heuristic regret {heuristic} != {HEURISTIC_REGRET} (BENCH_pr19)")
+    learned = {s: r["ml"]["mean_regret"] for s, (_, _, r) in fits.items()}
+    mean = sum(learned.values()) / len(learned)
+    check(mean < heuristic,
+          f"mean learned regret {mean} over seeds {list(learned)} does not "
+          f"beat the heuristic's {heuristic}")
+    emit("phase 7 trainer, learned vs heuristic", {
+        "fold_rows": metrics["rows"], "seed_7": {
+            "version": metrics["version"], "fit_s": metrics["train_seconds"],
+            "final_loss": metrics["final_loss"],
+            "regret": {k: v["mean_regret"] for k, v in regret.items()},
+            "best_pick_rate": {k: v["best_pick_rate"]
+                               for k, v in regret.items()},
+            "logged_choice_agreement": replay["logged_choice_agreement"],
+            "flip_rate":
+                replay["pairs"]["default_vs_ml"]["choice_flip_rate"]},
+        "heuristic_regret": heuristic,
+        "learned_regret_by_seed": learned,
+        "learned_regret_mean": mean,
+        "seeds_beating_heuristic": sum(v < heuristic
+                                       for v in learned.values()),
+        "phase_s": time.monotonic() - t_phase})
+    print(smi, flush=True)
+
+
 def run_phases(layers: int, seed: int, device: torch.device) -> None:
-    """Phases 2-6 on ``device``; raises CheckFailed on a failed check."""
+    """Phases 2-7 on ``device``; raises CheckFailed on a failed check."""
     layout = llama_layout(layers)
     header, nbytes = safetensors_header(layout)
     workdir = tempfile.mkdtemp(prefix="chip-smoke-")
@@ -714,6 +1112,8 @@ def run_phases(layers: int, seed: int, device: torch.device) -> None:
                                  device))
         phase_prefetch(workdir, seed, device)
         phase_p2p(workdir, path, digest, header, ref, layout, device)
+        del ref
+        phase_trainer(workdir, seed, device)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 

@@ -4,10 +4,11 @@ Counterpart of ``dragonfly2_tpu/idl/messages.py``: same class names, same
 field names in the same order, same defaults, so one field dict builds
 either package's message and ``dumps`` gives both the same bytes. The
 slice carries the daemon's download messages, the scheduler's register /
-report / announce / leave / stat messages, the peer piece-sync messages
-and the seed trigger. ``TopologyInfo`` carries the host's position for
-link classification; ``DeviceSink`` describes a device-memory placement
-target; ``ShardManifest`` names the tensors of a sharded checkpoint.
+report / announce / leave / stat messages, the peer piece-sync messages,
+the seed trigger, and the trainer's ``Train`` / ``ModelInfer`` messages.
+``TopologyInfo`` carries the host's position for link classification;
+``DeviceSink`` describes a device-memory placement target;
+``ShardManifest`` names the tensors of a sharded checkpoint.
 """
 
 from __future__ import annotations
@@ -458,3 +459,37 @@ class PieceSeed:
 @message
 class Empty:
     pass
+
+
+# ---------------------------------------------------------------- trainer service
+
+@message
+class TrainRequest:
+    """Client-stream chunk: schedulers upload gzip'd JSONL datasets for
+    model fitting."""
+
+    hostname: str = ""
+    ip: str = ""
+    cluster_id: int = 0
+    dataset: str = ""               # "download" | "networktopology"
+    chunk: bytes = b""
+    done: bool = False
+
+
+@message
+class TrainResponse:
+    ok: bool = True
+    message: str = ""
+    model_version: str = ""
+
+
+@message
+class ModelInferRequest:
+    model_name: str = "bandwidth_mlp"
+    features: list[list] | None = None   # batch of feature rows
+
+
+@message
+class ModelInferResponse:
+    outputs: list[float] | None = None
+    model_version: str = ""

@@ -6,9 +6,11 @@ evaluator_base.go:28-46``): a weighted sum of piece progress 0.2, upload
 success 0.2, free upload slots 0.15, host type 0.15 and fabric locality
 0.30 (the reference's IDC + location weights, computed from pod
 coordinates: LOCAL > ICI > DCN > WAN), and the ``IsBadNode`` Z-score
-outlier ejection (``evaluator.go:93``). The ``nt`` (measured RTT), ``ml``
-and plugin evaluators are not ported: ``make_evaluator`` refuses them
-rather than scoring with the heuristic under their name.
+outlier ejection (``evaluator.go:93``). ``make_evaluator("ml")`` gives
+the learned ``evaluator_ml.MLEvaluator`` behind this heuristic floor. The
+``nt`` (measured RTT) and plugin evaluators are not ported:
+``make_evaluator`` refuses them rather than scoring with the heuristic
+under their name.
 """
 
 from __future__ import annotations
@@ -49,6 +51,13 @@ def weighted_total(terms: dict) -> float:
     for name, weight in SCORE_TERMS:
         total += weight * terms[name]
     return total
+
+
+def rtt_locality_score(rtt_us: float) -> float:
+    """Measured-RTT locality mapping of the offline decision replay's
+    ``nt`` column: <=50us (ICI neighborhood) ~1.0, 10ms ~0.1 (reference
+    ``evaluator_network_topology.go:30-57``)."""
+    return max(0.05, min(1.0, 50.0 / max(rtt_us, 50.0) + 0.05))
 
 
 class Evaluator:
@@ -135,8 +144,12 @@ class Evaluator:
 
 
 def make_evaluator(algorithm: str) -> Evaluator:
+    if algorithm == "ml":
+        # no model at boot: a bound one replaces the heuristic floor
+        from .evaluator_ml import MLEvaluator
+        return MLEvaluator()
     if algorithm != "default":
         raise ValueError(f"evaluator algorithm {algorithm!r} is not "
                          "available; this package has the 'default' "
-                         "heuristic only")
+                         "heuristic and 'ml'")
     return Evaluator()

@@ -130,6 +130,10 @@ class Peer:
         self.report_fail_count = 0                # failed piece reports
         self.blocked_parents: dict[str, float] = {}   # parent id -> expiry
         self.last_offer_ids: set[str] = set()     # parents last pushed to peer
+        # newest decision-ledger ruling that named parents for this child;
+        # stamped by Scheduling._emit_decision, carried onto every
+        # kind=piece record row as the outcome->decision join key
+        self.last_decision_id = ""
         self.packet_sink = None                   # set by the report stream
         # resolved download priority (idl.Priority numeric: 0 = highest).
         # Set at register: explicit request value, else the manager-fed

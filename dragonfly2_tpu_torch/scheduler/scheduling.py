@@ -4,10 +4,17 @@ Counterpart of ``dragonfly2_tpu/scheduler/scheduling.py`` (reference
 ``scheduler/scheduling/scheduling.go``: ``FindCandidateParents`` :385 and
 ``filterCandidateParents`` :500-570 — blocklist, same-peer, DAG-cycle,
 bad-node and free-upload-slot checks) on the exact path: no quarantine,
-federation, shard affinity, relay-tree shaping, QoS preemption or
-decision ledger. The candidate pool is shuffled with ``rng`` (the module
-``random`` by default, as in the reference), so a caller that passes a
-seeded ``random.Random`` gets the reference's choices for the same seed.
+federation, shard affinity, relay-tree shaping or QoS preemption. The
+candidate pool is shuffled with ``rng`` (the module ``random`` by
+default, as in the reference), so a caller that passes a seeded
+``random.Random`` gets the reference's choices for the same seed.
+
+``decision_sink`` is the decision ledger's hook: armed, every ruling emits
+one ``kind=decision`` row (candidates with their per-term decomposition
+and scoring-time feature rows, exclusions, the chosen offer) and stamps
+``decision_id`` on the child. It observes only: the ranking key is
+``explain()["total"]``, bit-identical to ``evaluate()``, and the rng is
+never touched, so the offer is the same armed or not.
 """
 
 from __future__ import annotations
@@ -34,8 +41,13 @@ class Scheduling:
                  rng: random.Random | None = None):
         self.evaluator = evaluator
         self.rng = rng if rng is not None else random
+        # decision ledger hook: callable(row dict), one kind=decision row
+        # per find/refresh ruling; None skips all ledger work
+        self.decision_sink = None
+        self._decision_seq = 0
 
-    def filter_candidates(self, child: Peer) -> list[Peer]:
+    def filter_candidates(self, child: Peer,
+                          excluded: list | None = None) -> list[Peer]:
         """All legal parents for ``child``, pre-scoring. The pool is
         sampled in random order (reference ``LoadRandomPeers``,
         ``scheduling.go:511``) so children do not herd onto the same
@@ -60,10 +72,10 @@ class Scheduling:
             if parent.stream_gone and not parent.is_done():
                 # mid-download peer whose report stream died: almost
                 # certainly a dead process
-                self._trace(child, parent, "stream-gone")
+                self._trace(child, parent, "stream-gone", excluded)
                 continue
             if child.is_blocked(parent.id):
-                self._trace(child, parent, "blocklist")
+                self._trace(child, parent, "blocklist", excluded)
                 continue
             if not parent.has_content() and parent.is_done():
                 # finished-but-empty (failed) peers serve nothing; running
@@ -73,21 +85,25 @@ class Scheduling:
             # a parent this child already holds keeps its edge (and slot)
             if (parent.host.free_upload_slots() <= 0
                     and parent.id not in child.last_offer_ids):
-                self._trace(child, parent, "no-slots")
+                self._trace(child, parent, "no-slots", excluded)
                 continue
             if self.evaluator.is_bad_node(parent):
-                self._trace(child, parent, "bad-node")
+                self._trace(child, parent, "bad-node", excluded)
                 continue
             if parent.id in cycle_blocked:
-                self._trace(child, parent, "cycle")
+                self._trace(child, parent, "cycle", excluded)
                 continue
             out.append(parent)
         return out
 
     @staticmethod
-    def _trace(child: Peer, parent: Peer, reason: str) -> None:
-        """One exclusion: counted always, logged only at DEBUG."""
+    def _trace(child: Peer, parent: Peer, reason: str,
+               excluded: list | None) -> None:
+        """One exclusion: counted always, kept for the decision row when
+        the ledger is armed, logged only at DEBUG."""
         _filter_excluded.labels(reason).inc()
+        if excluded is not None:
+            excluded.append((parent, reason))
         if log.isEnabledFor(logging.DEBUG):
             log.debug("filter %s: parent %s excluded (%s)",
                       child.id[-12:], parent.id[-12:], reason)
@@ -114,23 +130,93 @@ class Scheduling:
         return self._decide(child, "refresh")
 
     def _decide(self, child: Peer, decision_kind: str) -> list[Peer]:
-        """Filter, score (stable sort, best first), choose."""
-        candidates = self.filter_candidates(child)
-        if not candidates:
-            return []
+        """Filter, score (stable sort, best first), choose; with the sink
+        armed, rank by ``explain()["total"]`` (== ``evaluate()``) and emit
+        the ruling's decision row."""
+        sink = self.decision_sink
+        excluded: list | None = [] if sink is not None else None
+        candidates = self.filter_candidates(child, excluded)
         total = child.task.total_piece_count
-        scored = sorted(
-            candidates,
-            key=lambda p: self.evaluator.evaluate(
-                child, p, total_piece_count=total),
-            reverse=True)
-        limit = CANDIDATE_PARENT_LIMIT
+        explained: list[tuple[Peer, dict]] = []
+        prev_offer = set(child.last_offer_ids)
+        if not candidates:
+            offer: list[Peer] = []
+        else:
+            if sink is None:
+                scored = sorted(
+                    candidates,
+                    key=lambda p: self.evaluator.evaluate(
+                        child, p, total_piece_count=total),
+                    reverse=True)
+            else:
+                explained = [(p, self.evaluator.explain(
+                    child, p, total_piece_count=total)) for p in candidates]
+                explained.sort(key=lambda pe: pe[1]["total"], reverse=True)
+                scored = [p for p, _ in explained]
+            limit = CANDIDATE_PARENT_LIMIT
+            if decision_kind == "refresh":
+                kept = [p for p in scored if p.id in prev_offer]
+                fresh = [p for p in scored if p.id not in prev_offer]
+                offer = self._ensure_holder(scored, (kept + fresh)[:limit])
+            else:
+                offer = self._ensure_holder(scored, scored[:limit])
+        if sink is not None:
+            self._emit_decision(child, decision_kind, explained,
+                                excluded or [], offer, prev_offer, total)
+        return offer
+
+    def _emit_decision(self, child: Peer, decision_kind: str,
+                       explained: list, excluded: list, offer: list[Peer],
+                       prev_offer: set, total: int) -> None:
+        self._decision_seq += 1
+        decision_id = f"d{self._decision_seq:08d}.{child.id[-12:]}"
+        candidates = []
+        for rank, (p, ex) in enumerate(explained, 1):
+            terms = ex["terms"]
+            # the exact scoring-time feature row (trainer layout:
+            # evaluator_ml.parent_feature_row), rebuilt from the terms
+            # explain() already computed
+            cand = {
+                "peer_id": p.id,
+                "host_id": p.host.id,
+                "rank": rank,
+                "total": ex["total"],
+                "terms": terms,
+                "features": [terms["piece"], terms["upload_success"],
+                             terms["free_upload"], terms["host_type"],
+                             terms["locality"],
+                             float(len(p.finished_pieces)),
+                             float(p.host.concurrent_upload_count)],
+            }
+            for key in ("substituted", "base_total", "link_tier",
+                        "cross_pod"):
+                if key in ex:
+                    cand[key] = ex[key]
+            candidates.append(cand)
+        row = {
+            "kind": "decision",
+            "decision_id": decision_id,
+            "decision_kind": decision_kind,
+            "task_id": child.task.id,
+            "peer_id": child.id,
+            "host_id": child.host.id,
+            "qos_class": child.qos_class,
+            "tenant": child.tenant,
+            "total_piece_count": total,
+            "evaluator": type(self.evaluator).__name__,
+            "candidates": candidates,
+            "excluded": [{"peer_id": p.id, "host_id": p.host.id,
+                          "reason": reason} for p, reason in excluded],
+            "chosen": [p.id for p in offer],
+        }
         if decision_kind == "refresh":
-            prev = child.last_offer_ids
-            kept = [p for p in scored if p.id in prev]
-            fresh = [p for p in scored if p.id not in prev]
-            return self._ensure_holder(scored, (kept + fresh)[:limit])
-        return self._ensure_holder(scored, scored[:limit])
+            row["kept"] = [p.id for p in offer if p.id in prev_offer]
+            row["fresh"] = [p.id for p in offer if p.id not in prev_offer]
+        if offer:
+            # join key for outcome rows: records.on_piece stamps each
+            # piece row with the child's newest ruling
+            child.last_decision_id = decision_id
+        self.decision_sink(row)
 
     def build_packet(self, child: Peer, parents: list[Peer]) -> PeerPacket:
         def addr(p: Peer) -> PeerAddr:

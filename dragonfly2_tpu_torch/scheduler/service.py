@@ -12,9 +12,11 @@ whose upload slots are full, the scheduler retries on a short interval and
 rules NeedBackSource only when patience runs out or nothing can feed the
 child (``_schedule_with_patience``).
 
-Left out, for later slices: the cluster view, download records and
-decision ledger, quarantine, federation, shard affinity, tenant quotas,
-QoS preemption, fleet pulse, content re-announce, preheat and the probes.
+Download records (``records``: piece, failed-piece and peer rows, the
+trainer's dataset) are written where the reference writes them. Left out,
+for later slices: the cluster view, quarantine, federation, shard
+affinity, tenant quotas, QoS preemption, fleet pulse, content re-announce,
+preheat and the probes.
 """
 
 from __future__ import annotations
@@ -62,10 +64,12 @@ class SchedulerService:
     REFRESH_INTERVAL_S = 0.5
 
     def __init__(self, resource: Resource, scheduling: Scheduling,
-                 seed_client: SeedPeerClient):
+                 seed_client: SeedPeerClient, *, records=None):
         self.resource = resource
         self.scheduling = scheduling
         self.seed_client = seed_client
+        # scheduler/records.DownloadRecords, or None (no dataset kept)
+        self.records = records
         self._seed_tasks: set[asyncio.Task] = set()
         # boot epoch, echoed on register/announce so daemons can tell a
         # restarted scheduler
@@ -362,6 +366,8 @@ class SchedulerService:
                 parent = task.peers.get(result.dst_peer_id)
                 if parent is not None:
                     parent.host.observe_upload(True)
+            if self.records is not None and result.piece_info is not None:
+                self.records.on_piece(peer, result)
             if len(peer.finished_pieces) == 1:
                 # this peer just became a usable parent: top up every child
                 # still short on parents now
@@ -378,6 +384,9 @@ class SchedulerService:
             if parent is not None:
                 parent.host.observe_upload(False)
             peer.block_parent(result.dst_peer_id)
+        if self.records is not None:
+            # failed pieces get rows too (success=False, typed fail_code)
+            self.records.on_piece_fail(peer, result)
         # losing a parent: offer a fresh assignment (or the origin)
         await self._reschedule(peer)
 
@@ -436,6 +445,8 @@ class SchedulerService:
         # slots free up (the peer stays a piece-holder vertex)
         task.set_parents(peer.id, [])
         peer.last_offer_ids = set()
+        if self.records is not None:
+            self.records.on_peer(peer, result)
         return Empty()
 
     # ------------------------------------------------------------------

@@ -1,0 +1,54 @@
+"""Trainer bootstrap: storage + RPC service.
+
+Counterpart of ``dragonfly2_tpu/trainer/server.py`` (reference
+``trainer/trainer.go:187`` New/Serve) without the manager link: fitted
+models stay in the service until the model registry is ported. ``device``
+is where fits run: the first CUDA card by default (an error when there is
+none), ``"cpu"`` only when named.
+"""
+
+from __future__ import annotations
+
+import logging
+from dataclasses import dataclass
+
+from ..rpc.server import RPCServer
+from .service import TrainerService, build_service
+from .storage import TrainerStorage
+
+log = logging.getLogger("df.trainer.server")
+
+
+@dataclass
+class TrainerConfig:
+    listen_ip: str = "0.0.0.0"
+    advertise_ip: str = "127.0.0.1"
+    port: int = 0                       # 0 = ephemeral
+    data_dir: str = ""                  # dataset spool; "" = ./trainer-data
+    device: str = "cuda"                # where fits run
+
+
+class Trainer:
+    def __init__(self, cfg: TrainerConfig):
+        self.cfg = cfg
+        self.storage = TrainerStorage(cfg.data_dir or "./trainer-data")
+        self.service: TrainerService | None = None
+        self.rpc: RPCServer | None = None
+        self.port: int | None = None
+
+    @property
+    def address(self) -> str:
+        return f"{self.cfg.advertise_ip}:{self.port}"
+
+    async def start(self) -> None:
+        self.service = TrainerService(self.storage, device=self.cfg.device)
+        self.rpc = RPCServer(f"{self.cfg.listen_ip}:{self.cfg.port}")
+        self.rpc.register(build_service(self.service))
+        await self.rpc.start()
+        self.port = self.rpc.port
+        log.info("trainer up on %s (spool=%s, device=%s)", self.address,
+                 self.storage.base_dir, self.service.device)
+
+    async def stop(self) -> None:
+        if self.rpc is not None:
+            await self.rpc.stop(0.5)

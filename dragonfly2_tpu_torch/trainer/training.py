@@ -1,0 +1,189 @@
+"""Training runs: fit the MLP/GNN on uploaded scheduler records.
+
+Counterpart of ``dragonfly2_tpu/trainer/training.py``: minibatch AdamW
+over ``models.make_train_step`` on one explicit device (default: the first
+CUDA card; the CPU only when named), with npz serialization and
+content-addressed versioning.
+
+Same (rows, seed) gives the same blob bytes, hence the same
+``version_of``: the rollout path dedupes on it. The fit therefore runs
+under ``fit_numerics`` (deterministic algorithms, full-f32 matmuls), the
+data order is ``np.random.default_rng(seed)``'s as in the reference, and
+wall time and version stay out of the serialized meta. The initial weights
+come from ``torch.Generator().manual_seed(seed)``: torch cannot draw
+``jax.random``'s numbers, so a port blob's version differs from the
+reference's for the same seed.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import logging
+import threading
+import time
+
+import numpy as np
+import torch
+
+from ..tpu.mesh import cuda_devices
+from . import features, models
+from .params_io import serialize_params, version_of
+
+log = logging.getLogger("df.trainer.training")
+
+MLP_MODEL_NAME = features.MLP_MODEL_NAME
+GNN_MODEL_NAME = features.GNN_MODEL_NAME
+
+# the flags fit_numerics sets are process-wide; fits hold this lock so a
+# fit finishing in one thread cannot restore them under another's
+_NUMERICS_LOCK = threading.Lock()
+
+
+@contextlib.contextmanager
+def fit_numerics():
+    """Deterministic algorithms and full-f32 matmuls (no TF32) for one fit,
+    with the process's previous settings restored afterwards."""
+    with _NUMERICS_LOCK:
+        det = torch.are_deterministic_algorithms_enabled()
+        warn_only = torch.is_deterministic_algorithms_warn_only_enabled()
+        precision = torch.get_float32_matmul_precision()
+        torch.use_deterministic_algorithms(True)
+        torch.set_float32_matmul_precision("highest")
+        try:
+            yield
+        finally:
+            torch.use_deterministic_algorithms(det, warn_only=warn_only)
+            torch.set_float32_matmul_precision(precision)
+
+
+def resolve_device(device) -> torch.device:
+    """``None`` or ``"cuda"`` = the first CUDA card (raises when there is
+    none); anything else names a device."""
+    if device is None or device == "cuda":
+        return cuda_devices()[0]
+    return torch.device(device)
+
+
+def _generator(seed: int) -> torch.Generator:
+    return torch.Generator().manual_seed(int(seed))
+
+
+def _finish(model, metrics: dict, t0: float) -> tuple[bytes, dict]:
+    data_bytes = serialize_params(models.params_to_numpy(model), metrics)
+    # version + wall clock ride in the RETURNED metrics only: the
+    # serialized meta is a function of (rows, seed) alone
+    metrics["version"] = version_of(data_bytes)
+    metrics["train_seconds"] = time.monotonic() - t0
+    return data_bytes, metrics
+
+
+def train_mlp(rows: list[dict], *, epochs: int = 40, batch_size: int = 512,
+              lr: float = 1e-3, seed: int = 0, device=None
+              ) -> tuple[bytes, dict] | None:
+    """Fit the parent-goodness MLP on download-record rows.
+
+    Returns (model_bytes, metrics) or None when the rows hold no usable
+    feature/label pairs."""
+    dev = resolve_device(device)
+    data = features.records_to_arrays(rows)
+    if data is None or data["x"].shape[0] < 8:
+        return None
+    n = data["x"].shape[0]
+    rng = np.random.default_rng(seed)
+    bs = min(batch_size, n)
+    # static batch shape: pad the epoch to a multiple of bs via wraparound
+    steps_per_epoch = max(1, n // bs)
+    first_loss = last_loss = None
+    t0 = time.monotonic()
+    with fit_numerics():
+        model = models.init_mlp(_generator(seed)).to(dev)
+        step = models.make_train_step(models.mlp_loss,
+                                      models.make_optimizer(model, lr))
+        # the rows go to the device once; each epoch uploads its batch
+        # indices (the reference's order) and the steps index on the device
+        x = torch.from_numpy(data["x"]).to(dev)
+        y = torch.from_numpy(data["y"]).to(dev)
+        for _ in range(epochs):
+            order = rng.permutation(n)
+            idx = np.empty((steps_per_epoch, bs), np.int64)
+            for s in range(steps_per_epoch):
+                part = order[(s * bs) % n:(s * bs) % n + bs]
+                if part.size < bs:
+                    part = np.concatenate([part, order[:bs - part.size]])
+                idx[s] = part
+            idx_dev = torch.from_numpy(idx).to(dev)
+            for s in range(steps_per_epoch):
+                batch = {"x": x.index_select(0, idx_dev[s]),
+                         "y": y.index_select(0, idx_dev[s])}
+                loss = step(model, batch)
+            loss_f = float(loss)
+            if first_loss is None:
+                first_loss = loss_f
+            last_loss = loss_f
+    metrics = {
+        "model": MLP_MODEL_NAME,
+        "rows": int(n),
+        "epochs": epochs,
+        "seed": int(seed),
+        "first_epoch_loss": first_loss,
+        "final_loss": last_loss,
+        "feature_dim": features.FEATURE_DIM,
+        "feature_names": list(features.PARENT_FEATURES),
+        "schema_version": features.FEATURE_SCHEMA_VERSION,
+        "devices": 1,
+    }
+    blob, metrics = _finish(model, metrics, t0)
+    log.info("mlp fit: rows=%d loss %.4f -> %.4f (%.1fs on %s)",
+             n, first_loss, last_loss, metrics["train_seconds"], dev)
+    return blob, metrics
+
+
+def graph_batch(graph: dict, device: torch.device) -> dict:
+    """A ``features.topology_to_graph`` batch as tensors on ``device``."""
+    out = {}
+    for k, v in graph.items():
+        if k == "host_ids":
+            continue
+        dtype = torch.int64 if k in ("edge_src", "edge_dst") else None
+        t = torch.from_numpy(np.ascontiguousarray(v))
+        out[k] = t.to(device=device, dtype=dtype)
+    return out
+
+
+def train_gnn(topo_rows: list[dict], *, epochs: int = 60, lr: float = 1e-3,
+              seed: int = 0, device=None) -> tuple[bytes, dict] | None:
+    """Fit the host-graph GNN on topology snapshot rows (bandwidth
+    imputation for unprobed links)."""
+    dev = resolve_device(device)
+    graph = features.topology_to_graph(topo_rows)
+    if graph is None or float(graph["edge_mask"].sum()) < 4:
+        return None
+    first_loss = last_loss = None
+    t0 = time.monotonic()
+    with fit_numerics():
+        batch = graph_batch(graph, dev)
+        model = models.init_gnn(_generator(seed)).to(dev)
+        step = models.make_train_step(models.gnn_loss,
+                                      models.make_optimizer(model, lr))
+        for _ in range(epochs):
+            loss_f = float(step(model, batch))
+            if first_loss is None:
+                first_loss = loss_f
+            last_loss = loss_f
+    metrics = {
+        "model": GNN_MODEL_NAME,
+        "edges": int(graph["edge_mask"].sum()),
+        "nodes": int(len(graph["host_ids"])),
+        "node_features": list(features.NODE_FEATURES),
+        "schema_version": features.FEATURE_SCHEMA_VERSION,
+        "epochs": epochs,
+        "seed": int(seed),
+        "first_epoch_loss": first_loss,
+        "final_loss": last_loss,
+        "devices": 1,
+    }
+    blob, metrics = _finish(model, metrics, t0)
+    log.info("gnn fit: edges=%d loss %.4f -> %.4f (%.1fs on %s)",
+             metrics["edges"], first_loss, last_loss,
+             metrics["train_seconds"], dev)
+    return blob, metrics

@@ -1,4 +1,4 @@
-"""The port's device sink and daemon on a CUDA card.
+"""The port's device sink, daemon and trainer on a CUDA card.
 
 Every test here needs a card: each is marked ``gpu`` and skips (from the
 ``cuda`` fixture, never at import) where none is present. The file imports
@@ -10,6 +10,9 @@ installed::
 
 import asyncio
 import hashlib
+import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -25,6 +28,7 @@ from dragonfly2_tpu_torch.scheduler.config import SchedulerConfig as \
 from dragonfly2_tpu_torch.scheduler.config import SeedPeerAddr
 from dragonfly2_tpu_torch.scheduler.server import Scheduler
 from dragonfly2_tpu_torch.tpu.hbm_sink import DeviceIngest
+from dragonfly2_tpu_torch.trainer import features, training
 
 
 @pytest.fixture
@@ -192,3 +196,90 @@ def test_p2p_pull_from_a_seed_lands_on_card(cuda, tmp_path):
         assert list(t.shape) == list(info.shape)
         got = t.reshape(-1).view(torch.uint8).cpu().numpy().tobytes()
         assert got == raw[info.range_start:info.range_start + info.range_size]
+
+
+def _mlp_rows(seed: int, n: int) -> list[dict]:
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(size=(n, features.FEATURE_DIM)) * [1, 1, 1, 1, 1, 64, 4]
+    cost = 10 ** rng.uniform(0, 3, n)
+    return [{"kind": "piece", "features": row.tolist(),
+             "label": features.label_from_cost(4 << 20, float(c))}
+            for row, c in zip(x, cost)]
+
+
+def _topo_rows(seed: int, hosts: int, links: int) -> list[dict]:
+    rng = np.random.default_rng(seed)
+    pairs = set()
+    while len(pairs) < links:
+        a, b = (int(v) for v in rng.integers(0, hosts, 2))
+        if a != b:
+            pairs.add((a, b))
+    # every host appears, so the graph fills the 1024-node bucket
+    return [{"src": f"host-{a:04d}", "dst": f"host-{b:04d}",
+             "avg_rtt_us": float(10 ** rng.uniform(1, 4)), "count": 3}
+            for a, b in sorted(pairs)]
+
+
+@pytest.mark.gpu
+def test_mlp_fits_on_card_are_byte_identical(cuda):
+    rows = _mlp_rows(0, 6000)
+    a = training.train_mlp(rows, epochs=20, seed=3, device=cuda)
+    b = training.train_mlp(rows, epochs=20, seed=3)       # default: cuda:0
+    assert a[0] == b[0] and a[1]["version"] == b[1]["version"]
+    assert a[1]["final_loss"] < a[1]["first_epoch_loss"]
+    assert not torch.are_deterministic_algorithms_enabled()
+
+
+@pytest.mark.gpu
+def test_gnn_fits_on_card_are_byte_identical_at_the_largest_buckets(cuda):
+    topo = _topo_rows(1, 1024, 8192)
+    a = training.train_gnn(topo, seed=5, device=cuda)
+    b = training.train_gnn(topo, seed=5, device=cuda)
+    assert a[1]["nodes"] == 1024 and a[1]["edges"] == 8192
+    assert a[0] == b[0]
+    assert a[1]["final_loss"] < a[1]["first_epoch_loss"]
+
+
+def _learnable_rows(seed: int, n: int) -> list[dict]:
+    """Labels that depend on the features, with noise: a fit converges to
+    the noise floor, where a run's last bits no longer move its loss."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(size=(n, features.FEATURE_DIM))
+    y = 0.2 + 0.5 * x[:, 0] + 0.2 * x[:, 4] * x[:, 1] + rng.normal(0, 0.1, n)
+    return [{"features": a.tolist(), "label": float(b)}
+            for a, b in zip(x, y)]
+
+
+@pytest.mark.gpu
+def test_card_and_cpu_fits_agree(cuda):
+    """Same rows, same seed (the same initial weights: the generator is on
+    the CPU): the final losses agree within 1 %."""
+    rows = _learnable_rows(2, 3000)
+    on_card = training.train_mlp(rows, epochs=40, seed=1, device=cuda)[1]
+    on_cpu = training.train_mlp(rows, epochs=40, seed=1, device="cpu")[1]
+    assert abs(on_card["final_loss"] - on_cpu["final_loss"]) <= \
+        0.01 * on_cpu["final_loss"]
+    topo = _topo_rows(3, 256, 2048)
+    g_card = training.train_gnn(topo, seed=2, device=cuda)[1]
+    g_cpu = training.train_gnn(topo, seed=2, device="cpu")[1]
+    assert abs(g_card["final_loss"] - g_cpu["final_loss"]) <= \
+        0.01 * g_cpu["final_loss"]
+
+
+@pytest.mark.gpu
+def test_fit_without_a_visible_card_raises(cuda):
+    """With the card hidden, ``train_mlp(device=None)`` raises rather than
+    fitting on the CPU."""
+    code = ("from dragonfly2_tpu_torch.trainer import training\n"
+            "try:\n"
+            "    training.train_mlp([{'features': [0.0] * 7, 'label': 0.5}]"
+            " * 16, epochs=1)\n"
+            "except RuntimeError as exc:\n"
+            "    print('raised:', exc)\n")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=root, capture_output=True,
+        text=True, timeout=120,
+        env=dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=root))
+    assert proc.returncode == 0, proc.stderr
+    assert "raised: no CUDA device" in proc.stdout

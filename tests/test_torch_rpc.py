@@ -70,6 +70,8 @@ def _plain(rng: np.random.Generator, ftype, depth: int = 0):
         return [int(x) for x in rng.integers(0, 16, 3)]
     if ftype is dict:
         return {f"k{i}": int(rng.integers(100)) for i in range(3)}
+    if ftype is list:       # an untyped row, as ModelInferRequest.features
+        return [float(x) for x in rng.normal(size=int(rng.integers(0, 9)))]
     if origin is list:
         (elem,) = typing.get_args(ftype)
         return [_plain(rng, elem, depth + 1)

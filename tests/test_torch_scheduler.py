@@ -30,6 +30,7 @@ from dragonfly2_tpu_torch.scheduler import config as port_config
 from dragonfly2_tpu_torch.scheduler import resource as port_resource
 from dragonfly2_tpu_torch.scheduler.evaluator import (Evaluator,
                                                       make_evaluator)
+from dragonfly2_tpu_torch.scheduler.evaluator_ml import MLEvaluator
 from dragonfly2_tpu_torch.scheduler.scheduling import Scheduling
 from dragonfly2_tpu_torch.tpu import topology as port_topology
 
@@ -185,8 +186,14 @@ def test_scheduling_matches_reference(seed):
 
 @pytest.mark.parametrize("algorithm", ["ml", "nt", "plugin:x"])
 def test_make_evaluator_refuses_what_is_not_ported(algorithm):
-    with pytest.raises(ValueError):
-        make_evaluator(algorithm)
+    """``nt`` and plugins are refused; ``ml`` is ported (the learned
+    evaluator behind the heuristic floor, unbound until a model lands)."""
+    if algorithm == "ml":
+        ev = make_evaluator(algorithm)
+        assert type(ev) is MLEvaluator and ev.infer is None
+    else:
+        with pytest.raises(ValueError):
+            make_evaluator(algorithm)
     assert type(make_evaluator("default")) is Evaluator
 
 
