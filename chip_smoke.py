@@ -41,6 +41,21 @@ and then from peers, as the P2P path does:
               fitted on the card on BENCH_pr19's datagen rows
               (``tests/data/pr19_datagen_rows.jsonl``, seeds 0-15) must
               beat the heuristic's replay regret of 0.1379 on average
+8. deploy   — the port deployed from its launchers (``python -m
+              dragonfly2_tpu_torch.tools.<name>``): a manager (sqlite in the
+              workdir), a seed daemon that registers with it, a trainer
+              attached to it and fitting on the card, and a scheduler
+              (``--algorithm ml``, records kept) that finds the seed through
+              it. The origin is the Llama-3-8B layout's last tensors,
+              ``lm_head.weight`` and ``model.norm.weight`` (bf16, widths as
+              published, 1,050,681,344 tensor bytes). Leecher A, in this
+              process, knows only the manager and pulls with a manifest
+              device sink on the card; leecher B, a launcher process that
+              also knows only the manager, serves a ``dfget`` CLI pull. A's
+              tensors and ``dfget``'s file must equal the origin, only the
+              seed may read the origin, the scheduler's uploads must reach
+              the trainer, whose fit the registry lists and the scheduler
+              binds, and every process must exit cleanly on SIGTERM
 
 Each phase prints its lines. The port ports no kernel (the JAX package has
 no Pallas kernel; its device work is ``jax.device_put``, copy-engine work
@@ -59,17 +74,21 @@ os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 import argparse
 import asyncio
+import datetime
 import hashlib
 import json
 import multiprocessing
 import random
+import re
 import shutil
+import signal
 import struct
 import subprocess
 import sys
 import tempfile
 import threading
 import time
+import urllib.request
 import zlib
 
 import numpy as np
@@ -133,6 +152,16 @@ FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
 PROFILE_STEPS = 200
 BIND_RULINGS = 256
 REGRET_SEEDS = range(16)
+
+# phase 8: the launchers' processes run from this checkout; the scheduler
+# uploads its records and polls the registry on a few seconds' cadence, so
+# the loop closes inside the phase
+ROOT = os.path.dirname(os.path.abspath(__file__))
+DEPLOY_UPLOAD_S = 5.0
+DEPLOY_REFRESH_S = 2.0
+DEPLOY_BOOT_S = 120.0
+DEPLOY_LOOP_S = 120.0
+DEPLOY_STOP_S = 10.0
 
 
 class CheckFailed(Exception):
@@ -1079,8 +1108,327 @@ def phase_trainer(workdir: str, seed: int, device: torch.device) -> None:
     print(smi, flush=True)
 
 
+# ---------------------------------------------------------------- phase 8
+
+def deploy_layout() -> list[tuple[str, list[int]]]:
+    """The Llama-3-8B layout's last tensors, the bulk of the published
+    checkpoint's last file."""
+    h = LLAMA3_8B["hidden"]
+    return [("lm_head.weight", [LLAMA3_8B["vocab"], h]),
+            ("model.norm.weight", [h])]
+
+
+def log_time(line: str) -> float:
+    """Unix time of a service log line (``common/logging`` format)."""
+    return datetime.datetime.strptime(
+        line[:23], "%Y-%m-%d %H:%M:%S,%f").timestamp()
+
+
+class Launched:
+    """One launcher process of phase 8; its stdout and stderr go to a log
+    file the phase reads lines from."""
+
+    def __init__(self, workdir: str, name: str, module: str,
+                 args: list[str]):
+        self.name = name
+        self.log_path = os.path.join(workdir, f"{name}.log")
+        self._log = open(self.log_path, "w")
+        self.t0 = time.monotonic()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", f"dragonfly2_tpu_torch.tools.{module}",
+             *args], stdout=self._log, stderr=subprocess.STDOUT, cwd=ROOT,
+            env=dict(os.environ, PYTHONPATH=ROOT, PYTHONUNBUFFERED="1"))
+        self.up_s = None
+
+    def text(self) -> str:
+        with open(self.log_path, errors="replace") as f:
+            return f.read()
+
+    def lines(self, needle: str) -> list[str]:
+        return [ln for ln in self.text().splitlines() if needle in ln]
+
+    def wait_line(self, needle: str, timeout: float) -> str:
+        deadline = time.monotonic() + timeout
+        while True:
+            found = self.lines(needle)
+            if found:
+                return found[0]
+            check(self.proc.poll() is None,
+                  f"{self.name} exited {self.proc.returncode} before "
+                  f"{needle!r}: {self.text()[-2000:]}")
+            check(time.monotonic() < deadline,
+                  f"{self.name}: no {needle!r} in {timeout:.0f} s: "
+                  f"{self.text()[-2000:]}")
+            time.sleep(0.1)
+
+    def wait_up(self, needle: str) -> str:
+        line = self.wait_line(needle, DEPLOY_BOOT_S)
+        self.up_s = time.monotonic() - self.t0
+        return line
+
+    def stop(self) -> int | None:
+        """SIGTERM; the return code, or None when it outlived the limit
+        (then it is killed)."""
+        try:
+            if self.proc.poll() is None:
+                self.proc.send_signal(signal.SIGTERM)
+            try:
+                return self.proc.wait(timeout=DEPLOY_STOP_S)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait(timeout=30)
+                return None
+        finally:
+            self._log.close()
+
+
+def rest_get(port: int, route: str):
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{route}",
+                                timeout=10) as r:
+        return json.loads(r.read())
+
+
+def write_json(path: str, obj: dict) -> str:
+    with open(path, "w") as f:
+        json.dump(obj, f)
+    return path
+
+
+async def _deploy_leecher_a(workdir: str, mgr_addr: str, sched_addr: str,
+                            url: str, digest: str,
+                            manifest: ShardManifest) -> dict:
+    """Leecher A: knows only the manager; pulls with a manifest sink."""
+    a = Daemon(DaemonConfig(
+        workdir=os.path.join(workdir, "leecher-a"), hostname="deploy-a",
+        listen_ip="127.0.0.1", host_ip="127.0.0.1",
+        manager_addresses=[mgr_addr]))
+    await a.start()
+    try:
+        check(a.scheduler is not None
+              and a.scheduler.addresses == [sched_addr],
+              f"A found {a.scheduler and a.scheduler.addresses} through "
+              f"the manager, want [{sched_addr}]")
+        run = await _leecher_pull(a, url, UrlMeta(digest=digest), manifest,
+                                  {})
+        c = run["conductor"]
+        run["traffic"] = (c.traffic_p2p, c.traffic_source)
+        return run
+    finally:
+        await a.stop()
+
+
+def _task_success(line: str) -> tuple[int, int]:
+    """(p2p, src) bytes of a conductor's ``task success`` log line."""
+    m = re.search(r"\(p2p=(\d+) src=(\d+)\)", line)
+    check(m is not None, f"unparsed: {line}")
+    return int(m.group(1)), int(m.group(2))
+
+
+def phase_deploy(workdir: str, seed: int, device: torch.device) -> None:
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    t_phase = time.monotonic()
+    d = os.path.join(workdir, "deploy")
+    os.makedirs(d)
+    layout = deploy_layout()
+    header, nbytes = safetensors_header(layout)
+    size = len(header) + nbytes
+    # the origin, the seed's copy, A's, B's and dfget's output
+    free = shutil.disk_usage(d).free
+    need = 5 * size + (1 << 30)
+    check(free >= need, f"phase 8 needs {need} bytes of free disk, {free} "
+                        f"free")
+    buf = seeded_bytes(np.random.default_rng(seed + 8), nbytes)
+    path = os.path.join(d, "model-00004-of-00004.safetensors")
+    sha = hashlib.sha256(header)
+    sha.update(buf)
+    with open(path, "wb") as f:
+        f.write(header)
+        f.write(memoryview(buf))
+        os.fsync(f.fileno())
+    ref = torch.from_numpy(buf).to(device)
+    del buf
+    url, digest = "file://" + path, "sha256:" + sha.hexdigest()
+    manifest = manifest_from_file(path)
+    procs: list[Launched] = []
+    rcs: dict = {}
+    out: dict = {}
+    try:
+        mgr = Launched(d, "manager", "manager", [
+            "--listen-ip", "127.0.0.1", "--db", os.path.join(d, "m.db"),
+            "--workdir", os.path.join(d, "manager")])
+        procs.append(mgr)
+        m = re.search(r"grpc=(\S+) rest=:?(\d+)", mgr.wait_up("manager up:"))
+        mgr_addr, rest = m.group(1), int(m.group(2))
+        seed_d = Launched(d, "seed", "daemon", ["--config", write_json(
+            os.path.join(d, "seed.json"), {
+                "workdir": os.path.join(d, "seed"), "hostname": "deploy-seed",
+                "is_seed": True, "host_ip": "127.0.0.1",
+                "listen_ip": "127.0.0.1", "manager_addresses": [mgr_addr]})])
+        procs.append(seed_d)
+        seed_line = seed_d.wait_up("daemon up:")
+        seed_rpc = int(re.search(r"rpc=(\d+)", seed_line).group(1))
+        trainer = Launched(d, "trainer", "trainer", [
+            "--listen-ip", "127.0.0.1", "--manager", mgr_addr,
+            "--data-dir", os.path.join(d, "trainer")])
+        procs.append(trainer)
+        trainer_addr = trainer.wait_up("trainer up:").split()[-1]
+        sched = Launched(d, "scheduler", "scheduler", [
+            "--config", write_json(os.path.join(d, "scheduler.json"), {
+                "listen_ip": "127.0.0.1", "advertise_ip": "127.0.0.1",
+                "train_upload_interval_s": DEPLOY_UPLOAD_S,
+                "model_refresh_interval_s": DEPLOY_REFRESH_S}),
+            "--manager", mgr_addr, "--algorithm", "ml",
+            "--trainer", trainer_addr,
+            "--records-dir", os.path.join(d, "records")])
+        procs.append(sched)
+        sched_addr = sched.wait_up("scheduler up:").split()[-1]
+        sched_port = int(sched_addr.rsplit(":", 1)[1])
+        check(" seeds=1)" in sched.wait_line("scheduler up on", 10),
+              "the scheduler did not adopt the seed from the manager")
+
+        # registration, as the manager's REST lists it
+        scheds = rest_get(rest, "/api/v1/schedulers")
+        seeds = rest_get(rest, "/api/v1/seed-peers")
+        check([(s["port"], s["state"]) for s in scheds]
+              == [(sched_port, "active")], f"REST schedulers: {scheds}")
+        check([(s["port"], s["state"]) for s in seeds]
+              == [(seed_rpc, "active")], f"REST seed peers: {seeds}")
+
+        # leecher A in this process: discovery through the manager only
+        run_a = asyncio.run(_deploy_leecher_a(d, mgr_addr, sched_addr, url,
+                                              digest, manifest))
+        tensors, base, shapes = run_a["out"], len(header), dict(layout)
+        check(len(tensors) == len(layout),
+              f"A: {len(tensors)} tensors, want {len(layout)}")
+        for info in manifest.shards:
+            t = tensors[info.name]
+            check(t.device == device and t.dtype == torch.bfloat16
+                  and list(t.shape) == shapes[info.name],
+                  f"A: {info.name} is {t.dtype} {list(t.shape)} on "
+                  f"{t.device}")
+            lo = info.range_start - base
+            check(torch.equal(t.reshape(-1).view(torch.uint8),
+                              ref[lo:lo + info.range_size]),
+                  f"A: {info.name} bytes differ from the origin")
+        del tensors, run_a["out"]
+        check(run_a["traffic"] == (size, 0),
+              f"A: (traffic_p2p, traffic_source) {run_a['traffic']}, "
+              f"file {size}")
+
+        # leecher B, a launcher process, serves the dfget CLI
+        sock = os.path.join(d, "b.sock")
+        leech_b = Launched(d, "leecher-b", "daemon", ["--config", write_json(
+            os.path.join(d, "leecher-b.json"), {
+                "workdir": os.path.join(d, "leecher-b"),
+                "hostname": "deploy-b", "host_ip": "127.0.0.1",
+                "listen_ip": "127.0.0.1", "unix_sock": sock,
+                "manager_addresses": [mgr_addr]})])
+        procs.append(leech_b)
+        b_line = leech_b.wait_up("daemon up:")
+        check(f"schedulers=['{sched_addr}']" in b_line,
+              f"B did not find the scheduler through the manager: {b_line}")
+        target = os.path.join(d, "out.safetensors")
+        t0 = time.monotonic()
+        got = subprocess.run(
+            [sys.executable, "-m", "dragonfly2_tpu_torch.tools.dfget", url,
+             "-O", target, "--daemon-sock", sock, "--digest", digest,
+             "--quiet"], cwd=ROOT, capture_output=True, text=True,
+            timeout=600, env=dict(os.environ, PYTHONPATH=ROOT))
+        dfget_s = time.monotonic() - t0
+        check(got.returncode == 0, f"dfget exited {got.returncode}: "
+                                   f"{got.stderr[-2000:]}")
+        h = hashlib.sha256()
+        with open(target, "rb") as f:
+            while chunk := f.read(1 << 24):
+                h.update(chunk)
+        check(h.hexdigest() == sha.hexdigest(),
+              "dfget's output differs from the origin")
+        os.unlink(target)
+        b_traffic = _task_success(leech_b.wait_line("task success:", 30))
+        check(b_traffic == (size, 0),
+              f"B: (p2p, src) {b_traffic}, file {size}")
+        # only the seed read the origin, once and whole
+        check(len(seed_d.lines("back-source:")) == 1
+              and [_task_success(ln) for ln in seed_d.lines("task success:")]
+              == [(0, size)],
+              f"the seed's origin reads: {seed_d.lines('task success:')}")
+        check(not leech_b.lines("back-source:"), "B read the origin")
+
+        # the learned loop: upload -> fit on the card -> registry -> bind.
+        # It has closed when the registry's newest version is bound and
+        # an upload made after both pulls was answered, or none came while
+        # one could have: the upload loop sleeps an interval after each
+        # answered upload, and an answer waits for the fit
+        t_pulls = time.time()
+        deadline = time.monotonic() + DEPLOY_LOOP_S
+        while True:
+            models = rest_get(rest, "/api/v1/models?name=bandwidth_mlp")
+            late = [log_time(ln)
+                    for ln in trainer.lines("dataset upload from")
+                    if log_time(ln) > t_pulls]
+            answered = bool(late) and any(
+                log_time(ln) >= late[0]
+                for ln in sched.lines("records uploaded:"))
+            fit_s = max((e["metrics"]["train_seconds"] for e in models),
+                        default=0.0)
+            quiet = time.time() > t_pulls + 2 * DEPLOY_UPLOAD_S + 2 * fit_s
+            if models and (answered or (quiet and not late)):
+                latest = max(models, key=lambda e: e["id"])
+                if sched.lines(f"ml evaluator now serving bandwidth_mlp@"
+                               f"{latest['version']} "):
+                    break
+            check(time.monotonic() < deadline,
+                  f"no published model bound in {DEPLOY_LOOP_S:.0f} s: "
+                  f"registry {models}; scheduler "
+                  f"{sched.lines('now serving')}; trainer "
+                  f"{trainer.text()[-1500:]}")
+            time.sleep(0.5)
+        received = [log_time(ln)
+                    for ln in trainer.lines("dataset upload from")]
+        fits = []
+        for e in sorted(models, key=lambda e: e["id"]):
+            (reg,) = mgr.lines(f"model registered: bandwidth_mlp@"
+                               f"{e['version']} ")
+            before = [t for t in received if t <= log_time(reg)]
+            check(bool(before), f"{e['version']}: no upload before it")
+            bound = sched.lines(f"ml evaluator now serving bandwidth_mlp@"
+                                f"{e['version']} ")
+            fits.append({
+                "version": e["version"], "fold_rows": e["metrics"]["rows"],
+                "record_rows": e["metrics"].get("record_rows"),
+                "supervision": e["metrics"].get("supervision"),
+                "train_seconds": e["metrics"]["train_seconds"],
+                "upload_to_publish_s": log_time(reg) - before[-1],
+                "publish_to_bind_s": (log_time(bound[0]) - log_time(reg)
+                                      if bound else None),
+                "blob_bytes": e["size"]})
+        out = {"bound_version": latest["version"],
+               "uploads_received": len(received), "fits": fits}
+        for p in (sched, seed_d, leech_b):
+            check("manager attach failed" not in p.text(),
+                  f"{p.name} logged a failed manager attach")
+    finally:
+        for p in reversed(procs):
+            rcs[p.name] = p.stop()
+    check(all(rc == 0 for rc in rcs.values()),
+          f"return codes after SIGTERM: {rcs}")
+    emit("phase 8 deploy", {
+        "file_bytes": size, "tensors": len(layout),
+        "start_s": {p.name: p.up_s for p in procs},
+        "a_time_to_ready_s": run_a["wall"],
+        "a_download_s": run_a["download_s"],
+        "a_gbps": size / 1e9 / run_a["wall"],
+        "a_pieces_per_parent": dict(run_a["conductor"].pieces_by_parent),
+        "dfget_s": dfget_s, "dfget_gbps": size / 1e9 / dfget_s,
+        **out, "return_codes": rcs,
+        "phase_s": time.monotonic() - t_phase, "card": smi})
+
+
 def run_phases(layers: int, seed: int, device: torch.device) -> None:
-    """Phases 2-7 on ``device``; raises CheckFailed on a failed check."""
+    """Phases 2-8 on ``device``; raises CheckFailed on a failed check."""
     layout = llama_layout(layers)
     header, nbytes = safetensors_header(layout)
     workdir = tempfile.mkdtemp(prefix="chip-smoke-")
@@ -1113,7 +1461,12 @@ def run_phases(layers: int, seed: int, device: torch.device) -> None:
         phase_prefetch(workdir, seed, device)
         phase_p2p(workdir, path, digest, header, ref, layout, device)
         del ref
+        # phase 6's copies and the origin are not needed again: their disk
+        # goes to phase 8's
+        shutil.rmtree(os.path.join(workdir, "p2p"), ignore_errors=True)
+        os.unlink(path)
         phase_trainer(workdir, seed, device)
+        phase_deploy(workdir, seed, device)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 

@@ -5,7 +5,10 @@ The port so far carries a daemon pulling a task back to source
 whole-file and manifest mode, with ``tpu.data.ShardPrefetcher`` on top; and
 the P2P piece path: a scheduler places leecher daemons on parents (a seed
 it triggers, or other leechers), and pieces from the parents' upload
-servers land in the leechers' device sinks. Module paths mirror
-``dragonfly2_tpu`` so each counterpart is found by path; the package
-imports torch, numpy and the standard library only.
+servers land in the leechers' device sinks; the learned loop, a trainer
+that fits the scheduler's parent-quality model on the card; and the
+manager with its model registry, through which a deployment started from
+the launchers in ``tools`` registers, discovers and closes that loop.
+Module paths mirror ``dragonfly2_tpu`` so each counterpart is found by
+path; the package imports torch, numpy and the standard library only.
 """

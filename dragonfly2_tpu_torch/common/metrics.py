@@ -1,14 +1,16 @@
-"""Minimal prometheus-style metrics registry (counter, gauge, histogram).
+"""Minimal prometheus-style metrics registry with text exposition.
 
-Counterpart of ``dragonfly2_tpu/common/metrics.py`` without the text
-exposition (this slice serves no /metrics port). The registry's get-or-make
-returns the existing metric for a same-kind, same-label name, so a reader
-finds the ``df_hbm_*`` series by name.
+Counterpart of ``dragonfly2_tpu/common/metrics.py``: counters, gauges and
+histograms, exposed in Prometheus text format 0.0.4 (the manager's
+``/metrics``). The registry's get-or-make returns the existing metric for
+a same-kind, same-label name, so a reader finds the ``df_hbm_*`` series by
+name.
 """
 
 from __future__ import annotations
 
 import threading
+from typing import Iterable
 
 
 class _Metric:
@@ -36,6 +38,10 @@ class Counter(_Metric):
 
     def value(self, *labels: str) -> float:
         return self._values.get(tuple(labels), 0.0)
+
+    def _samples(self) -> Iterable[tuple[tuple[str, ...], str, float]]:
+        for k, v in list(self._values.items()):
+            yield k, "", v
 
 
 
@@ -71,6 +77,10 @@ class Gauge(_Metric):
 
     def value(self, *labels: str) -> float:
         return self._values.get(tuple(labels), 0.0)
+
+    def _samples(self) -> Iterable[tuple[tuple[str, ...], str, float]]:
+        for k, v in list(self._values.items()):
+            yield k, "", v
 
 
 
@@ -109,6 +119,16 @@ class Histogram(_Metric):
 
     def snapshot(self, *labels: str) -> tuple[list[int], float, int]:
         return self._values.get(tuple(labels), ([0] * len(self.buckets), 0.0, 0))
+
+    def _samples(self) -> Iterable[tuple[tuple[str, ...], str, float]]:
+        for k, (counts, total, n) in list(self._values.items()):
+            acc = 0
+            for b, c in zip(self.buckets, counts):
+                acc += c
+                yield k + (str(b),), "_bucket", float(acc)
+            yield k + ("+Inf",), "_bucket", float(n)
+            yield k, "_sum", total
+            yield k, "_count", float(n)
 
 
 class _HistChild:
@@ -156,6 +176,29 @@ class Registry:
                 raise TypeError(f"metric {name} re-registered with labels "
                                 f"{tuple(labels)} != {m.label_names}")
             return m
+
+    def expose(self) -> str:
+        """Prometheus text exposition (label values escaped per the format)."""
+
+        def esc(val: str) -> str:
+            return val.replace("\\", "\\\\").replace('"', '\\"').replace("\n", "\\n")
+
+        with self._lock:
+            metrics = list(self._metrics.values())
+        out: list[str] = []
+        for m in metrics:
+            out.append(f"# HELP {m.name} {m.help}")
+            out.append(f"# TYPE {m.name} {m.kind}")
+            extra = ("le",) if isinstance(m, Histogram) else ()
+            for label_vals, suffix, v in m._samples():
+                names = m.label_names + extra if suffix == "_bucket" else m.label_names
+                if names and label_vals:
+                    pairs = ",".join(f'{k}="{esc(str(val))}"'
+                                     for k, val in zip(names, label_vals))
+                    out.append(f"{m.name}{suffix}{{{pairs}}} {v}")
+                else:
+                    out.append(f"{m.name}{suffix} {v}")
+        return "\n".join(out) + "\n"
 
 
 REGISTRY = Registry()

@@ -5,13 +5,17 @@ Counterpart of ``dragonfly2_tpu/daemon/daemon.py`` (reference
 peer RPC server on TCP and the local API on a unix socket, the scheduler
 connector, the P2P engine factory and the device-sink builder. With
 scheduler addresses, a task registers and pulls from parents; without,
-it goes back to source as a seed peer's tasks do. TLS, the health plane,
-PEX, relay, QoS, the flight recorder, the announcer, GC and the proxy
-wait for later slices.
+it goes back to source as a seed peer's tasks do. With manager addresses
+and no static scheduler, the daemon finds its schedulers through the
+manager and keeps tracking that set; a seed daemon also registers itself
+as a seed peer and keeps alive. TLS, the health plane, PEX, relay, QoS,
+the flight recorder, the announcer, the prober, GC and the proxy wait
+for later slices.
 """
 
 from __future__ import annotations
 
+import asyncio
 import logging
 import os
 import socket
@@ -19,10 +23,13 @@ import tempfile
 
 import torch
 
+from ..common.dfpath import DFPath
 from ..common.errors import Code, DFError
 from ..common.piece import INGEST_DMA_UNIT_BYTES
-from ..idl.messages import DeviceSink, Host, HostType
+from ..idl.messages import (DeviceSink, GetSchedulersRequest, Host, HostType,
+                            RegisterSeedPeerRequest)
 from ..rpc.client import ChannelPool
+from ..rpc.manager_link import ManagerLink
 from ..rpc.server import RPCServer
 from ..storage.manager import StorageManager
 from ..tpu import topology
@@ -52,11 +59,6 @@ def _local_ip() -> str:
         return "127.0.0.1"
 
 
-def _default_workdir() -> str:
-    return os.environ.get("DF_WORKDIR",
-                          os.path.expanduser("~/.dragonfly2-tpu-torch"))
-
-
 class Daemon:
     def __init__(self, cfg: DaemonConfig):
         if cfg.device not in ("cuda", "cpu"):
@@ -65,17 +67,19 @@ class Daemon:
         self.cfg = cfg
         self.hostname = cfg.hostname or socket.gethostname()
         self.host_ip = cfg.host_ip or _local_ip()
-        self.workdir = cfg.workdir or _default_workdir()
+        self.paths = DFPath(cfg.workdir) if cfg.workdir else DFPath()
         # the bounded runtime probe at construction (inside detect(), as
         # in the reference): it is what lets ensure_runtime_alive() admit
         # the first device sink
         self.topology = topology.detect()
         self.storage_mgr = StorageManager(
-            os.path.join(self.workdir, "data", "tasks"))
+            os.path.join(self.paths.data_dir, "tasks"))
         self.piece_mgr = PieceManager(cfg.download)
         self.upload_server = UploadServer(
             self.storage_mgr, port=cfg.upload.port, host=cfg.listen_ip)
         self.scheduler: SchedulerConnector | None = None
+        self.manager: ManagerLink | None = None
+        self._sched_refresh: asyncio.Task | None = None
         self.ptm: PeerTaskManager | None = None
         self.rpc: RPCServer | None = None
         self.local_rpc: RPCServer | None = None
@@ -158,9 +162,11 @@ class Daemon:
         if self.cfg.scheduler.addresses:
             self.scheduler = SchedulerConnector(
                 self.cfg.scheduler.addresses, self.host_info())
+        elif self.cfg.manager_addresses:
+            await self._attach_manager()
         self.ptm.scheduler = self.scheduler
         # local API over a unix socket
-        sock = self.cfg.unix_sock or os.path.join(self.workdir, "dfdaemon.sock")
+        sock = self.cfg.unix_sock or self.paths.daemon_sock()
         if len(sock) > 100:
             # past the kernel's unix-socket path limit: a short temp path
             sock = os.path.join(tempfile.mkdtemp(prefix="df-"), "d.sock")
@@ -170,12 +176,77 @@ class Daemon:
             self.local_rpc.register(sdef)
         await self.local_rpc.start()
         self.unix_sock = sock
-        log.info("daemon up: host=%s ip=%s rpc=%s upload=%d device=%s "
-                 "schedulers=%s workdir=%s", self.hostname, self.host_ip,
-                 self.rpc.port, self.upload_server.port, self.cfg.device,
-                 self.cfg.scheduler.addresses, self.workdir)
+        log.info("daemon up: host=%s ip=%s rpc=%s upload=%d sock=%s "
+                 "seed=%s device=%s schedulers=%s workdir=%s",
+                 self.hostname, self.host_ip, self.rpc.port,
+                 self.upload_server.port, sock, self.cfg.is_seed,
+                 self.cfg.device,
+                 self.scheduler.addresses if self.scheduler else [],
+                 self.paths.workdir)
+
+    async def _discover_schedulers(self) -> list[str]:
+        resp = await self.manager.get_schedulers(GetSchedulersRequest(
+            hostname=self.hostname, ip=self.host_ip, topology=self.topology))
+        return [f"{s.ip}:{s.port}" for s in (resp.schedulers or [])]
+
+    async def _attach_manager(self) -> None:
+        """Discover schedulers through the manager; a seed daemon also
+        registers itself as a seed peer and keeps alive. A failed attach
+        leaves the daemon back-source only until the refresh loop finds a
+        scheduler, as the reference does."""
+        self.manager = ManagerLink(self.cfg.manager_addresses)
+        try:
+            if self.cfg.is_seed:
+                await self.manager.register_seed_peer(RegisterSeedPeerRequest(
+                    hostname=self.hostname, ip=self.host_ip,
+                    port=self.rpc.port,
+                    download_port=self.upload_server.port,
+                    seed_peer_cluster_id=1, topology=self.topology))
+                self.manager.start_keepalive(source_type="seed_peer",
+                                             hostname=self.hostname,
+                                             ip=self.host_ip,
+                                             port=self.rpc.port)
+            addrs = await self._discover_schedulers()
+            if addrs:
+                self.scheduler = SchedulerConnector(addrs, self.host_info())
+            else:
+                log.info("manager knows no active schedulers; back-source "
+                         "only until the refresh loop finds one")
+        except Exception as exc:  # noqa: BLE001 - manager optional
+            log.warning("manager attach failed (%s); back-source only", exc)
+        if self.cfg.scheduler.refresh_interval_s > 0:
+            self._sched_refresh = asyncio.get_running_loop().create_task(
+                self._scheduler_refresh_loop())
+
+    async def _scheduler_refresh_loop(self) -> None:
+        """Track the manager's scheduler set: a replaced scheduler reaches
+        the ring, and a daemon that booted before any scheduler
+        registered leaves back-source-only the moment one appears. An
+        empty or failed fetch keeps the last known set."""
+        while True:
+            await asyncio.sleep(self.cfg.scheduler.refresh_interval_s)
+            try:
+                addrs = await self._discover_schedulers()
+            except Exception as exc:  # noqa: BLE001 - manager flaky is fine
+                log.debug("scheduler refresh failed: %s", exc)
+                continue
+            if not addrs:
+                continue
+            if self.scheduler is None:
+                self.scheduler = SchedulerConnector(addrs, self.host_info())
+                self.ptm.scheduler = self.scheduler
+                log.info("schedulers appeared: %s", addrs)
+            elif set(addrs) != set(self.scheduler.addresses):
+                log.info("scheduler set changed: %s -> %s",
+                         self.scheduler.addresses, addrs)
+                self.scheduler.update_addresses(addrs)
 
     async def stop(self) -> None:
+        if self._sched_refresh is not None:
+            self._sched_refresh.cancel()
+            await asyncio.gather(self._sched_refresh, return_exceptions=True)
+        if self.manager is not None:
+            await self.manager.close()
         if self.ptm is not None:
             await self.ptm.shutdown()
         if self.local_rpc is not None:

@@ -188,6 +188,28 @@ class SchedulerConnector:
         self._ring = HashRing(self.addresses)
         self._channels: dict[str, Channel] = {}
         self._demoted: dict[str, float] = {}   # addr -> monotonic revive time
+        self._close_tasks: set[asyncio.Task] = set()
+
+    def update_addresses(self, addresses: list[str]) -> None:
+        """Adopt a refreshed scheduler set (the manager's): new addresses
+        join the hash ring; removed ones leave it and their channels
+        close, and sessions riding them take the conductor's reschedule
+        ladder. New tasks hash onto the new ring at once."""
+        want = set(addresses)
+        have = set(self.addresses)
+        if want == have:
+            return
+        for addr in want - have:
+            self._ring.add(addr)
+        for addr in have - want:
+            self._ring.remove(addr)
+            self._demoted.pop(addr, None)
+            ch = self._channels.pop(addr, None)
+            if ch is not None:
+                t = asyncio.get_running_loop().create_task(ch.close())
+                self._close_tasks.add(t)
+                t.add_done_callback(self._close_tasks.discard)
+        self.addresses = list(addresses)
 
     def _alive(self, addr: str) -> bool:
         until = self._demoted.get(addr)

@@ -5,10 +5,12 @@ field names in the same order, same defaults, so one field dict builds
 either package's message and ``dumps`` gives both the same bytes. The
 slice carries the daemon's download messages, the scheduler's register /
 report / announce / leave / stat messages, the peer piece-sync messages,
-the seed trigger, and the trainer's ``Train`` / ``ModelInfer`` messages.
-``TopologyInfo`` carries the host's position for link classification;
-``DeviceSink`` describes a device-memory placement target;
-``ShardManifest`` names the tensors of a sharded checkpoint.
+the seed trigger, the trainer's ``Train`` / ``ModelInfer`` messages, and
+the manager's registration, discovery, keepalive, model-registry and
+application-list messages. ``TopologyInfo`` carries the host's position
+for link classification; ``DeviceSink`` describes a device-memory
+placement target; ``ShardManifest`` names the tensors of a sharded
+checkpoint.
 """
 
 from __future__ import annotations
@@ -461,6 +463,100 @@ class Empty:
     pass
 
 
+# ---------------------------------------------------------------- manager service
+
+@message
+class SchedulerEntity:
+    id: int = 0
+    hostname: str = ""
+    ip: str = ""
+    port: int = 0
+    state: str = "inactive"         # active | inactive
+    scheduler_cluster_id: int = 0
+    features: list[str] | None = None
+    topology: TopologyInfo | None = None
+
+
+@message
+class SeedPeerEntity:
+    id: int = 0
+    hostname: str = ""
+    ip: str = ""
+    port: int = 0
+    download_port: int = 0
+    object_storage_port: int = 0
+    type: str = "super"
+    state: str = "inactive"
+    seed_peer_cluster_id: int = 0
+    topology: TopologyInfo | None = None
+
+
+@message
+class ClusterConfig:
+    """Scheduler-cluster tunables served via dynconfig."""
+
+    candidate_parent_limit: int = 4
+    filter_parent_limit: int = 15
+    job_rate_limit: int = 10
+    seed_peer_load_limit: int = 300
+    peer_load_limit: int = 50
+    piece_parallel_count: int = 4
+
+
+@message
+class GetSchedulersRequest:
+    hostname: str = ""
+    ip: str = ""
+    topology: TopologyInfo | None = None
+    version: str = ""
+
+
+@message
+class GetSchedulersResponse:
+    schedulers: list[SchedulerEntity] | None = None
+    cluster_config: ClusterConfig | None = None
+
+
+@message
+class GetSeedPeersRequest:
+    cluster_id: int = 0
+
+
+@message
+class GetSeedPeersResponse:
+    seed_peers: list[SeedPeerEntity] | None = None
+
+
+@message
+class KeepAliveRequest:
+    source_type: str = ""           # "scheduler" | "seed_peer"
+    hostname: str = ""
+    ip: str = ""
+    port: int = 0                   # instance identity is (hostname, ip, port)
+    cluster_id: int = 0
+
+
+@message
+class RegisterSchedulerRequest:
+    hostname: str = ""
+    ip: str = ""
+    port: int = 0
+    scheduler_cluster_id: int = 0
+    topology: TopologyInfo | None = None
+
+
+@message
+class RegisterSeedPeerRequest:
+    hostname: str = ""
+    ip: str = ""
+    port: int = 0
+    download_port: int = 0
+    object_storage_port: int = 0
+    type: str = "super"
+    seed_peer_cluster_id: int = 0
+    topology: TopologyInfo | None = None
+
+
 # ---------------------------------------------------------------- trainer service
 
 @message
@@ -493,3 +589,59 @@ class ModelInferRequest:
 class ModelInferResponse:
     outputs: list[float] | None = None
     model_version: str = ""
+
+
+# ---------------------------------------------------------------- model registry
+
+@message
+class ModelEntity:
+    """A versioned trained model (reference ``manager/models/model.go:36``)."""
+
+    id: int = 0
+    name: str = ""                  # bandwidth_mlp | topology_gnn
+    version: str = ""               # content hash of the blob
+    state: str = "active"
+    scheduler_cluster_id: int = 0
+    metrics: dict | None = None     # loss curve, rows, train time...
+    data: bytes = b""               # npz param archive ("" in listings)
+    created_at: float = 0.0
+
+
+@message
+class CreateModelRequest:
+    name: str = ""
+    version: str = ""
+    scheduler_cluster_id: int = 0
+    metrics: dict | None = None
+    data: bytes = b""
+
+
+@message
+class GetModelRequest:
+    name: str = ""
+    version: str = ""               # "" = latest active version
+    scheduler_cluster_id: int = 0
+    if_none_match: str = ""         # client's current version: matching
+                                    # reply omits the blob (poll cheaply)
+
+
+@message
+class GetModelResponse:
+    model: ModelEntity | None = None
+
+
+@message
+class ApplicationEntry:
+    """One manager-registered application with its download priority
+    (reference ``manager/models/application.go:24`` Priority JSONMap —
+    the scheduler's CalculatePriority consults this when a request
+    carries no explicit priority)."""
+
+    name: str = ""
+    url: str = ""
+    priority: Priority = Priority.LEVEL0
+
+
+@message
+class ListApplicationsResponse:
+    applications: list[ApplicationEntry] | None = None

@@ -185,10 +185,14 @@ class _Call:
         conn.writer.write(wire.frame(wire.HEADER, self.header))
         self._conn = conn
 
-    async def _send(self, kind: int, payload: bytes = b"") -> None:
+    async def _send(self, kind: int, payload: bytes = b"", *,
+                    end: bool = False) -> None:
         conn = await self._ensure_open()
+        data = wire.frame(kind, payload)
+        if end:
+            data += wire.frame(wire.END, b"")
         try:
-            conn.writer.write(wire.frame(kind, payload))
+            conn.writer.write(data)
             await self._bounded(conn.writer.drain())
         except ConnectionError as exc:
             self._fail_conn()
@@ -196,6 +200,13 @@ class _Call:
 
     async def write(self, msg: Any) -> None:
         await self._send(wire.MESSAGE, dumps(msg))
+
+    async def write_only(self, msg: Any) -> None:
+        """The call's one request and its END in a single write: a server
+        that answers before an END sent later has arrived closes the
+        connection, and the END's write would then fail the call."""
+        self._sent_end = True
+        await self._send(wire.MESSAGE, dumps(msg), end=True)
 
     async def done_writing(self) -> None:
         if not self._sent_end:
@@ -318,8 +329,7 @@ class ServiceClient:
             c = _Call(self.channel, self.service, method, wire.UNARY_UNARY,
                       timeout)
             try:
-                await c.write(request)
-                await c.done_writing()
+                await c.write_only(request)
                 resp = await c.read()
                 if resp is None:
                     raise RPCError("INTERNAL", f"{c.what}: no response")
@@ -386,8 +396,7 @@ class _StreamIter:
         """Like __anext__ but returns None at end of stream."""
         if not self._sent:
             self._sent = True
-            await self.call.write(self._request)
-            await self.call.done_writing()
+            await self.call.write_only(self._request)
         return await self.call.read()
 
 

@@ -12,7 +12,9 @@ plus a context; a DFError raised anywhere reaches the caller as
 ``DF:<code>:<text>`` and is raised again there with the same code. The
 transport is ``rpc/wire.py``'s frames over asyncio streams, on TCP or a
 unix socket. A caller that closes or cancels its call ends the request
-iterator and cancels the handler, as grpc does.
+iterator and cancels the handler, as grpc does. Every server also answers
+``df.health.Health/Check`` (reference ``pkg/rpc/health``), which ``dfget``
+asks before it hands a download to a daemon.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from typing import AsyncIterator, Awaitable, Callable
 
 from ..common.errors import Code, DFError
 from ..idl.base import dumps, loads
+from ..idl.messages import Empty
 from . import wire
 
 log = logging.getLogger("df.rpc.server")
@@ -73,6 +76,10 @@ class _Protocol(Exception):
     """The peer broke the framing; the connection is dropped."""
 
 
+async def _health_check(request, context) -> Empty:
+    return Empty()
+
+
 class RPCServer:
     """One server hosting many ServiceDefs on one address: "ip:port",
     "ip:0" (ephemeral; the port is ``.port`` after ``start``) or
@@ -85,6 +92,9 @@ class RPCServer:
         self._server: asyncio.base_events.Server | None = None
         self._conns: set[asyncio.Task] = set()
         self._busy: set[asyncio.Task] = set()     # connections mid-call
+        health = ServiceDef("df.health.Health")
+        health.unary_unary("Check", _health_check)
+        self.register(health)
 
     def register(self, service: ServiceDef) -> None:
         self._services[service.name] = service

@@ -1,13 +1,15 @@
-"""Scheduler announcer: ship records to the trainer, bind models back.
+"""Scheduler announcer: ship records to the trainer, pull models back.
 
-Counterpart of the upload half of ``dragonfly2_tpu/scheduler/announcer.py``
-(reference ``scheduler/announcer/announcer.go:142-235``): the interval loop
-that gzips the download and networktopology datasets and streams them to
-the trainer's ``Train`` RPC. The refresh half, which pulls fitted models
-from the manager's registry, waits for the manager; until then a blob binds
-through ``bind_model``, which keeps the reference's refusal discipline
-(garbage bytes, stale schema, non-finite weights: refused, journaled, and
-the evaluator keeps its current model or its heuristic floor).
+Counterpart of ``dragonfly2_tpu/scheduler/announcer.py`` (reference
+``scheduler/announcer/announcer.go:142-235``): the interval loop that
+gzips the download and networktopology datasets and streams them to the
+trainer's ``Train`` RPC, and the refresh loop that pulls the latest fitted
+``bandwidth_mlp`` from the manager's registry into the ``ml`` evaluator
+and the ``topology_gnn`` into the topology store's imputer. A blob also
+binds directly through ``bind_model``. Both keep the reference's refusal
+discipline (garbage bytes, stale schema, non-finite weights: refused,
+journaled, and the evaluator keeps its current model or its heuristic
+floor).
 """
 
 from __future__ import annotations
@@ -20,12 +22,12 @@ import socket
 import time
 
 from ..common.metrics import REGISTRY
-from ..idl.messages import TrainRequest
+from ..idl.messages import GetModelRequest, TrainRequest
 from ..rpc.client import Channel, ServiceClient
-from ..trainer.features import MLP_MODEL_NAME
+from ..trainer.features import GNN_MODEL_NAME, MLP_MODEL_NAME
 from ..trainer.params_io import version_of
-from ..trainer.serving import make_mlp_infer
-from .config import CLUSTER_ID, TRAIN_UPLOAD_INTERVAL_S
+from ..trainer.serving import make_gnn_impute, make_mlp_infer
+from .config import CLUSTER_ID
 from .evaluator_ml import MLEvaluator
 
 log = logging.getLogger("df.sched.announcer")
@@ -45,25 +47,31 @@ _refused_total = REGISTRY.counter(
 
 
 class SchedulerAnnouncer:
-    """Owned by ``Scheduler``; the upload loop runs when the scheduler has
-    a ``trainer_address`` and records."""
+    """Owned by ``Scheduler``; both loops are optional and independent:
+    the records upload needs a ``trainer_address`` and records, the model
+    refresh the manager link."""
 
     def __init__(self, scheduler):
         self.scheduler = scheduler
         self._tasks: list[asyncio.Task] = []
         self._trainer_channel: Channel | None = None
-        self.model_version = ""        # newest MLP version seen (bound OR
-        self.model_bound_at = 0.0      # refused); wall clock of the bind
-        self.model_metrics: dict = {}  # meta of the bound MLP
+        self.model_version = ""        # newest MLP version seen (served OR
+        self.gnn_version = ""          # refused): the if_none_match cursor
+        self.model_bound_at = 0.0      # wall clock of the last MLP bind
+        self.model_metrics: dict = {}  # metrics of the served MLP
         self.refused: dict[str, str] = {}   # version -> bind refusal reason
         self._last_topo_key = 0        # hash of last uploaded topo snapshot
         self.last_upload: dict = {}    # rows / bytes of the last upload
 
     def start(self) -> None:
+        loop = asyncio.get_running_loop()
         if self.scheduler.cfg.trainer_address and \
                 self.scheduler.service.records is not None:
-            self._tasks.append(asyncio.get_running_loop().create_task(
-                self._upload_loop()))
+            self._tasks.append(loop.create_task(self._upload_loop()))
+        # the refresh feeds both the ml evaluator (MLP) and the topology
+        # store's imputer (GNN)
+        if self.scheduler.manager is not None:
+            self._tasks.append(loop.create_task(self._refresh_loop()))
 
     def _evaluator(self) -> MLEvaluator | None:
         ev = self.scheduler.scheduling.evaluator
@@ -78,7 +86,7 @@ class SchedulerAnnouncer:
 
     async def _upload_loop(self) -> None:
         while True:
-            await asyncio.sleep(TRAIN_UPLOAD_INTERVAL_S)
+            await asyncio.sleep(self.scheduler.cfg.train_upload_interval_s)
             try:
                 await self.upload_once()
             except asyncio.CancelledError:
@@ -146,19 +154,57 @@ class SchedulerAnnouncer:
                  resp.model_version or "(no new model)")
         return True
 
-    # -- model binding -------------------------------------------------
+    # -- model refresh and binding -------------------------------------
+
+    async def _refresh_loop(self) -> None:
+        while True:
+            try:
+                await self.refresh_model_once()
+            except asyncio.CancelledError:
+                raise
+            except Exception as exc:  # noqa: BLE001 - registry may be away
+                log.debug("model refresh failed: %s", exc)
+            await asyncio.sleep(self.scheduler.cfg.model_refresh_interval_s)
+
+    async def refresh_model_once(self) -> bool:
+        """Pull the latest models from the manager's registry; True when a
+        new MLP version now serves. The GNN rides the same refresh into
+        the topology store's imputer."""
+        manager = self.scheduler.manager
+        if manager is None:
+            return False
+        try:
+            # independent: a bad GNN artifact must not starve the MLP
+            await self._refresh_gnn_once()
+        except Exception as exc:  # noqa: BLE001
+            log.warning("topology gnn refresh failed: %s", exc)
+        if self._evaluator() is None:
+            return False
+        resp = await manager.get_model(GetModelRequest(
+            name=MLP_MODEL_NAME,
+            scheduler_cluster_id=CLUSTER_ID,
+            if_none_match=self.model_version))
+        model = resp.model
+        if model is None or model.version == self.model_version \
+                or not model.data:
+            return False
+        return await self._bind(model.version, model.data,
+                                dict(model.metrics or {}))
 
     async def bind_model(self, blob: bytes) -> bool:
         """Bind a ``bandwidth_mlp`` blob into the ml evaluator; True when
-        a new version now serves. A blob refused at bind time (garbage
-        bytes, stale feature schema, non-finite weights) leaves the
-        evaluator as it was — worst case on its heuristic floor — and is
-        journaled in ``refused``."""
+        a new version now serves."""
+        return await self._bind(version_of(blob), blob, None)
+
+    async def _bind(self, version: str, blob: bytes,
+                    metrics: dict | None) -> bool:
+        """A blob refused at bind time (garbage bytes, stale feature
+        schema, non-finite weights) leaves the evaluator as it was (worst
+        case on its heuristic floor); its version is remembered, so the
+        registry poll skips refetching it, and the reason journaled in
+        ``refused``. ``metrics``: the registry's, else the blob's meta."""
         evaluator = self._evaluator()
-        if evaluator is None:
-            return False
-        version = version_of(blob)
-        if version == self.model_version:
+        if evaluator is None or version == self.model_version:
             return False
         try:
             # deserialize + probe off the loop: a bind must not stall
@@ -173,10 +219,38 @@ class SchedulerAnnouncer:
         evaluator.infer = infer
         self.model_version = version
         self.model_bound_at = time.time()
-        self.model_metrics = dict(infer.meta, version=version)
+        self.model_metrics = (metrics if metrics is not None
+                              else dict(infer.meta, version=version))
         _rollouts_total.labels(MLP_MODEL_NAME).inc()
         log.info("ml evaluator now serving %s@%s (final_loss=%s)",
-                 MLP_MODEL_NAME, version, infer.meta.get("final_loss"))
+                 MLP_MODEL_NAME, version,
+                 self.model_metrics.get("final_loss"))
+        return True
+
+    async def _refresh_gnn_once(self) -> bool:
+        resp = await self.scheduler.manager.get_model(GetModelRequest(
+            name=GNN_MODEL_NAME,
+            scheduler_cluster_id=CLUSTER_ID,
+            if_none_match=self.gnn_version))
+        model = resp.model
+        if model is None or model.version == self.gnn_version \
+                or not model.data:
+            return False
+        try:
+            impute = await asyncio.to_thread(make_gnn_impute, model.data)
+        except ValueError as exc:
+            # stale NODE_FEATURES layout and the like: remembered, so the
+            # poll skips refetching it until the trainer's next refit
+            self.gnn_version = model.version
+            self._remember_refusal(model.version, str(exc))
+            _refused_total.labels(GNN_MODEL_NAME).inc()
+            log.warning("topology gnn %s refused: %s", model.version, exc)
+            return False
+        self.scheduler.topo.bind_imputer(impute)
+        self.gnn_version = model.version
+        _rollouts_total.labels(GNN_MODEL_NAME).inc()
+        log.info("topology store now imputing with %s@%s",
+                 model.name, model.version)
         return True
 
     def _remember_refusal(self, version: str, reason: str) -> None:
@@ -198,6 +272,7 @@ class SchedulerAnnouncer:
                                   "schema_version")
                         if k in self.model_metrics},
             "refused": dict(self.refused),
+            "gnn_version": self.gnn_version,
         }
         ev = self._evaluator()
         if ev is not None:

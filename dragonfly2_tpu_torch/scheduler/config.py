@@ -1,14 +1,15 @@
 """Scheduler configuration + cluster constants.
 
 Counterpart of ``dragonfly2_tpu/scheduler/config.py`` cut to the
-deployment settings (listeners, the static seed-peer list, the evaluator
-algorithm, the records directory and the trainer's address); the limits
-the register -> schedule -> report path honours are the reference's
-defaults, as constants (reference ``scheduler/config/config.go`` +
-``constants.go``). The relay-tree shaping is off (``relay_fanout`` 0, the
-reference's default exact path) and the control plane's extras
-(quarantine, federation, shard affinity, fleet pulse, state store, the
-manager link) wait for later slices.
+deployment settings (listeners, the static seed-peer list,
+the evaluator algorithm, the manager and trainer addresses, the records
+directory) and the learned loop's cadences; the limits the register ->
+schedule -> report path honours are the reference's defaults, as
+constants (reference ``scheduler/config/config.go`` + ``constants.go``).
+The relay-tree shaping is off (``relay_fanout`` 0, the reference's
+default exact path) and the control plane's extras (quarantine,
+federation, shard affinity, fleet pulse, state store, tracing) wait for
+later slices.
 """
 
 from __future__ import annotations
@@ -33,8 +34,7 @@ TASK_TTL_S = 24 * 3600.0
 HOST_TTL_S = 6 * 3600.0
 PEER_GC_INTERVAL_S = 60.0
 
-CLUSTER_ID = 1                   # scheduler cluster, carried on uploads
-TRAIN_UPLOAD_INTERVAL_S = 60.0   # records -> trainer cadence
+CLUSTER_ID = 1                   # scheduler cluster: registration, uploads
 
 
 @dataclass
@@ -52,7 +52,11 @@ class SchedulerConfig:
     listen_ip: str = "0.0.0.0"
     advertise_ip: str = "127.0.0.1"
     port: int = 0                          # 0 = ephemeral
-    seed_peers: list[SeedPeerAddr] = field(default_factory=list)
     algorithm: str = "default"             # default | ml
+    seed_peers: list[SeedPeerAddr] = field(default_factory=list)
+    manager_addresses: list[str] = field(default_factory=list)
     trainer_address: str = ""              # records upload target
+    keepalive_interval_s: float = 30.0
     records_dir: str = ""                  # download-record JSONL ("" = memory-only)
+    train_upload_interval_s: float = 60.0  # records -> trainer cadence
+    model_refresh_interval_s: float = 60.0  # manager -> ml evaluator cadence

@@ -1,12 +1,14 @@
 """Scheduler bootstrap: wire resource, scheduling, seed client, GC, RPC.
 
 Counterpart of ``dragonfly2_tpu/scheduler/server.py`` (reference
-``scheduler/scheduler.go`` ``New``/``Serve``) for a standalone scheduler
-with a static seed-peer list: the decision ledger always observes the
-rulings; download records are kept when ``records_dir`` or
-``trainer_address`` is set, and the announcer uploads them to the trainer.
-No manager, quarantine, federation, shard affinity, state store or fleet
-pulse.
+``scheduler/scheduler.go`` ``New``/``Serve``): the decision ledger always
+observes the rulings; download records are kept when ``records_dir`` or
+``trainer_address`` is set, and the announcer uploads them to the
+trainer. With ``manager_addresses`` the scheduler registers with the
+manager, keeps alive, adopts the manager's seed peers when none are
+configured, refreshes the application priority table, and the announcer
+pulls fitted models from the registry. No quarantine, federation, shard
+affinity, state store, fleet pulse or tenant table.
 """
 
 from __future__ import annotations
@@ -14,10 +16,15 @@ from __future__ import annotations
 import asyncio
 import logging
 import random
+import socket
 
+from ..idl.messages import RegisterSchedulerRequest
+from ..rpc.manager_link import ManagerLink
 from ..rpc.server import RPCServer
+from ..tpu import topology
 from .announcer import SchedulerAnnouncer
-from .config import PEER_GC_INTERVAL_S, SchedulerConfig
+from .config import (CLUSTER_ID, PEER_GC_INTERVAL_S, SchedulerConfig,
+                     SeedPeerAddr)
 from .decision_ledger import DecisionLedger
 from .evaluator import make_evaluator
 from .records import DownloadRecords
@@ -47,9 +54,11 @@ class Scheduler:
         self.service = SchedulerService(self.resource, self.scheduling,
                                         self.seed_client, records=records)
         self.announcer = SchedulerAnnouncer(self)
+        self.manager: ManagerLink | None = None
         self.rpc: RPCServer | None = None
         self.port: int | None = None
         self._gc: asyncio.Task | None = None
+        self._app_refresh: asyncio.Task | None = None
 
     @property
     def address(self) -> str:
@@ -60,10 +69,66 @@ class Scheduler:
         self.rpc.register(build_service(self.service))
         await self.rpc.start()
         self.port = self.rpc.port
+        if self.cfg.manager_addresses:
+            await self._attach_manager()
         self._gc = asyncio.get_running_loop().create_task(self._gc_loop())
         self.announcer.start()
-        log.info("scheduler up on %s (algorithm=%s, seeds=%d)", self.address,
-                 self.cfg.algorithm, len(self.seed_client.seed_peers))
+        log.info("scheduler up on %s (cluster=%d, algorithm=%s, seeds=%d)",
+                 self.address, CLUSTER_ID, self.cfg.algorithm,
+                 len(self.seed_client.seed_peers))
+
+    async def _attach_manager(self) -> None:
+        """Register with the manager, keep alive, and adopt its seed-peer
+        set when none is configured statically. A failed attach leaves
+        the scheduler running standalone, as the reference does."""
+        hostname = socket.gethostname()
+        self.manager = ManagerLink(
+            self.cfg.manager_addresses,
+            keepalive_interval_s=self.cfg.keepalive_interval_s)
+        try:
+            # the device probe can take seconds on a cold runtime: off-loop
+            topo = await asyncio.to_thread(topology.detect)
+            await self.manager.register_scheduler(RegisterSchedulerRequest(
+                hostname=hostname, ip=self.cfg.advertise_ip, port=self.port,
+                scheduler_cluster_id=CLUSTER_ID,
+                topology=topo))
+            self.manager.start_keepalive(source_type="scheduler",
+                                         hostname=hostname,
+                                         ip=self.cfg.advertise_ip,
+                                         cluster_id=CLUSTER_ID,
+                                         port=self.port)
+            if not self.cfg.seed_peers:
+                resp = await self.manager.get_seed_peers()
+                seeds = [SeedPeerAddr(host_id=f"{e.hostname}-{e.ip}",
+                                      ip=e.ip, rpc_port=e.port,
+                                      download_port=e.download_port)
+                         for e in (resp.seed_peers or [])]
+                if seeds:
+                    await self.seed_client.close()
+                    self.seed_client = SeedPeerClient(self.resource, seeds)
+                    self.service.seed_client = self.seed_client
+        except Exception as exc:  # noqa: BLE001 - manager optional at boot
+            log.warning("manager attach failed (%s); running standalone", exc)
+            return
+        # a failed first fetch of the optional applications table must
+        # neither mark the attach failed nor stop the refresh
+        self._app_refresh = asyncio.get_running_loop().create_task(
+            self._app_refresh_loop())
+
+    async def _refresh_applications(self) -> None:
+        """Pull the application priority table into the service (reference
+        dynconfig.GetApplications feeding ``Peer.CalculatePriority``)."""
+        resp = await self.manager.list_applications()
+        self.service.applications = {
+            e.name: int(e.priority) for e in (resp.applications or [])}
+
+    async def _app_refresh_loop(self) -> None:
+        while True:
+            try:
+                await self._refresh_applications()
+            except Exception as exc:  # noqa: BLE001 - manager flaky is fine
+                log.debug("application refresh failed: %s", exc)
+            await asyncio.sleep(self.cfg.keepalive_interval_s * 6)
 
     async def _gc_loop(self) -> None:
         while True:
@@ -77,7 +142,12 @@ class Scheduler:
                 log.debug("resource gc evicted %d", n)
 
     async def stop(self) -> None:
+        if self._app_refresh is not None:
+            self._app_refresh.cancel()
+            await asyncio.gather(self._app_refresh, return_exceptions=True)
         await self.announcer.stop()
+        if self.manager is not None:
+            await self.manager.close()
         if self._gc is not None:
             self._gc.cancel()
             await asyncio.gather(self._gc, return_exceptions=True)

@@ -76,6 +76,9 @@ class SchedulerService:
         self.epoch = int(time.time())
         # rulings made: offers, refreshes and back-source verdicts
         self.rulings = 0
+        # application -> priority (the manager's table, refreshed by the
+        # server); consulted when a register carries no explicit priority
+        self.applications: dict[str, int] = {}
 
     # ------------------------------------------------------------------
     # RegisterPeerTask
@@ -146,12 +149,15 @@ class SchedulerService:
     def _resolve_priority(self, url_meta, *,
                           qos_class: str = "standard") -> int:
         """Reference ``Peer.CalculatePriority``: an explicit request value
-        wins; LEVEL0 (unset) falls through to the QoS class's default (the
-        reference consults the manager's application table in between;
-        there is no manager here)."""
+        wins; LEVEL0 (unset) falls through to the manager's application
+        table, then to the QoS class's default."""
         if url_meta is not None \
                 and int(url_meta.priority) != int(Priority.LEVEL0):
             return int(url_meta.priority)
+        if url_meta is not None and url_meta.application:
+            prio = self.applications.get(url_meta.application)
+            if prio is not None:
+                return int(prio)
         return CLASS_DEFAULT_PRIORITY.get(qos_class, int(Priority.LEVEL0))
 
     @staticmethod

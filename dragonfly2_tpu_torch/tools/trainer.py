@@ -1,0 +1,69 @@
+"""Trainer launcher: ``python -m dragonfly2_tpu_torch.tools.trainer``.
+
+Counterpart of ``dragonfly2_tpu/tools/trainer.py`` (reference
+``cmd/trainer``): config from YAML or JSON (``--config``), DF_* env
+overrides and flags; SIGINT or SIGTERM shuts down cleanly. Fits run on
+the first CUDA card unless the config names ``"device": "cpu"``; with no
+card the launcher exits non-zero.
+"""
+
+from __future__ import annotations
+
+import argparse
+import asyncio
+import signal
+import sys
+
+from ..common import logging as dflog
+from ..common.config import env_overrides, load_config
+from ..trainer.server import Trainer, TrainerConfig
+from . import add_debug_arg, refuse_unported
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="df-trainer")
+    p.add_argument("--config", default="", help="YAML/JSON config file")
+    p.add_argument("--port", type=int, default=0)
+    p.add_argument("--listen-ip", default="")
+    p.add_argument("--data-dir", default="")
+    p.add_argument("--manager", action="append", default=[],
+                   help="manager address (repeatable)")
+    add_debug_arg(p)
+    p.add_argument("--verbose", "-v", action="store_true")
+    return p
+
+
+async def serve(cfg: TrainerConfig) -> None:
+    trainer = Trainer(cfg)
+    await trainer.start()
+    print(f"trainer up: {trainer.address}", flush=True)
+    stop = asyncio.Event()
+    loop = asyncio.get_running_loop()
+    for sig in (signal.SIGINT, signal.SIGTERM):
+        loop.add_signal_handler(sig, stop.set)
+    await stop.wait()
+    await trainer.stop()
+
+
+def main(argv: list[str] | None = None) -> int:
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    refuse_unported(parser, {
+        "--debug-port": (args.debug_port, "the debug HTTP surface")})
+    dflog.setup("DEBUG" if args.verbose else "INFO")
+    overrides: dict = env_overrides()
+    if args.port:
+        overrides["port"] = args.port
+    if args.listen_ip:
+        overrides["listen_ip"] = args.listen_ip
+    if args.data_dir:
+        overrides["data_dir"] = args.data_dir
+    if args.manager:
+        overrides["manager_addresses"] = args.manager
+    cfg = load_config(TrainerConfig, args.config or None, overrides)
+    asyncio.run(serve(cfg))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

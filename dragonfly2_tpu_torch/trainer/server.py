@@ -1,17 +1,19 @@
-"""Trainer bootstrap: storage + RPC service.
+"""Trainer bootstrap: storage + RPC service + manager link.
 
 Counterpart of ``dragonfly2_tpu/trainer/server.py`` (reference
-``trainer/trainer.go:187`` New/Serve) without the manager link: fitted
-models stay in the service until the model registry is ported. ``device``
-is where fits run: the first CUDA card by default (an error when there is
-none), ``"cpu"`` only when named.
+``trainer/trainer.go:187`` New/Serve): the dataset storage, the ``Train``
+sink, and the manager connection the fitted models are published through
+(none without ``manager_addresses``: models then stay in the service).
+``device`` is where fits run: the first CUDA card by default (an error
+when there is none), ``"cpu"`` only when named.
 """
 
 from __future__ import annotations
 
 import logging
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
+from ..rpc.manager_link import ManagerLink
 from ..rpc.server import RPCServer
 from .service import TrainerService, build_service
 from .storage import TrainerStorage
@@ -25,6 +27,7 @@ class TrainerConfig:
     advertise_ip: str = "127.0.0.1"
     port: int = 0                       # 0 = ephemeral
     data_dir: str = ""                  # dataset spool; "" = ./trainer-data
+    manager_addresses: list[str] = field(default_factory=list)
     device: str = "cuda"                # where fits run
 
 
@@ -32,6 +35,7 @@ class Trainer:
     def __init__(self, cfg: TrainerConfig):
         self.cfg = cfg
         self.storage = TrainerStorage(cfg.data_dir or "./trainer-data")
+        self.manager: ManagerLink | None = None
         self.service: TrainerService | None = None
         self.rpc: RPCServer | None = None
         self.port: int | None = None
@@ -41,7 +45,10 @@ class Trainer:
         return f"{self.cfg.advertise_ip}:{self.port}"
 
     async def start(self) -> None:
-        self.service = TrainerService(self.storage, device=self.cfg.device)
+        if self.cfg.manager_addresses:
+            self.manager = ManagerLink(self.cfg.manager_addresses)
+        self.service = TrainerService(self.storage, device=self.cfg.device,
+                                      manager=self.manager)
         self.rpc = RPCServer(f"{self.cfg.listen_ip}:{self.cfg.port}")
         self.rpc.register(build_service(self.service))
         await self.rpc.start()
@@ -50,5 +57,7 @@ class Trainer:
                  self.storage.base_dir, self.service.device)
 
     async def stop(self) -> None:
+        if self.manager is not None:
+            await self.manager.close()
         if self.rpc is not None:
             await self.rpc.stop(0.5)

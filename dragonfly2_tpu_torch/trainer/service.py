@@ -5,8 +5,10 @@ Counterpart of ``dragonfly2_tpu/trainer/service.py`` (reference
 receives gzip'd datasets keyed by (hostname, ip), lands them in
 ``trainer/storage``, and on stream close fits the models
 (``trainer/pipeline.py`` for the MLP, ``trainer/training.py`` for the
-GNN) on the service's device, in a worker thread. The manager's model
-registry is not ported yet, so fitted models stay in ``latest``.
+GNN) on the service's device, in a worker thread, and publishes each
+fitted model to the manager's model registry (``CreateModel``) when the
+service has a manager link; the latest fit of each model also stays in
+``latest``.
 
 ``ModelInfer`` serves the latest fitted MLP for parity with the
 reference's Triton client surface; schedulers bind the blob and score
@@ -20,8 +22,8 @@ import logging
 
 from ..common.errors import Code, DFError
 from ..common.metrics import REGISTRY
-from ..idl.messages import (ModelInferRequest, ModelInferResponse,
-                            TrainResponse)
+from ..idl.messages import (CreateModelRequest, ModelInferRequest,
+                            ModelInferResponse, TrainResponse)
 from ..rpc.server import ServiceDef
 from . import pipeline, serving, training
 from .storage import TrainerStorage
@@ -47,16 +49,20 @@ MIN_FIT_ROWS = 32
 
 
 class TrainerService:
-    def __init__(self, storage: TrainerStorage, *, device=None):
+    def __init__(self, storage: TrainerStorage, *, device=None,
+                 manager=None):
         """``device``: where fits run (default: the first CUDA card; raises
-        when there is none). Resolved here, not in the fit's worker
-        thread."""
+        when there is none), resolved here, not in the fit's worker
+        thread. ``manager``: a ManagerLink fitted models are published
+        through; None keeps them local."""
         self.storage = storage
         self.device = training.resolve_device(device)
+        self.manager = manager
         self.latest: dict[str, tuple[bytes, dict]] = {}   # name -> (blob, metrics)
         self._infer_cache: dict[str, object] = {}         # name -> callable
         self._spool_lock = asyncio.Lock()        # guards spool append/snapshot
         self._fit_lock = asyncio.Lock()          # serializes model fitting
+        self._spool_clusters: set[int] = set()   # clusters feeding the spool
 
     # -- Train (client-stream) -----------------------------------------
 
@@ -85,6 +91,8 @@ class TrainerService:
                     uploader[1], bytes(buf))
             log.info("dataset upload from %s@%s (cluster %d): %s",
                      uploader[0], uploader[1], cluster_id, got or "empty")
+            if cluster_id:
+                self._spool_clusters.add(cluster_id)
             snap = await self._snapshot()
         version = ""
         if snap is not None:
@@ -93,7 +101,7 @@ class TrainerService:
             except BaseException:
                 # the snapshot cleared the spools; a failed fit (bad rows,
                 # OOM) puts the rows back, or the dataset would be lost
-                rows, topo_rows = snap
+                rows, topo_rows, _ = snap
                 async with self._spool_lock:
                     if rows:
                         await asyncio.to_thread(
@@ -118,17 +126,24 @@ class TrainerService:
         fit_gnn = len(topo_rows) >= 4
         if not fit_mlp and not fit_gnn:
             return None
+        # a model fit on one cluster's rows belongs to that cluster; a
+        # mixed spool gives a global model (cluster 0)
+        clusters = self._spool_clusters
+        cluster_id = next(iter(clusters)) if len(clusters) == 1 else 0
         if fit_mlp:
             await asyncio.to_thread(self.storage.clear, "download")
         if fit_gnn:
             await asyncio.to_thread(self.storage.clear, "networktopology")
-        return (rows if fit_mlp else None, topo_rows if fit_gnn else None)
+        if fit_mlp and fit_gnn:
+            self._spool_clusters = set()
+        return (rows if fit_mlp else None,
+                topo_rows if fit_gnn else None, cluster_id)
 
     async def _fit(self, snap) -> str:
         """Fit on a snapshot (serialized by ``_fit_lock``, uploads not
         blocked). Returns the MLP version (the one schedulers serve); the
         GNN's when only the GNN fit."""
-        rows, topo_rows = snap
+        rows, topo_rows, cluster_id = snap
         async with self._fit_lock:
             # the MLP fits through the pipeline's supervision policy:
             # decision-outcome folds when the uploaded records carry
@@ -154,9 +169,22 @@ class TrainerService:
                     metrics.get("train_seconds", 0.0))
                 self.latest[name] = (blob, metrics)
                 self._infer_cache.pop(name, None)
+                await self._publish(name, blob, metrics, cluster_id)
         if mlp is not None:
             return mlp[1]["version"]
         return gnn[1]["version"] if gnn is not None else ""
+
+    async def _publish(self, name: str, blob: bytes, metrics: dict,
+                       cluster_id: int) -> None:
+        if self.manager is None:
+            return
+        try:
+            await self.manager.create_model(CreateModelRequest(
+                name=name, version=metrics["version"], data=blob,
+                metrics=metrics, scheduler_cluster_id=cluster_id))
+        except Exception as exc:  # noqa: BLE001 - registry may be down
+            log.warning("model %s@%s not registered: %s", name,
+                        metrics["version"], exc)
 
     # -- ModelInfer (parity surface) -----------------------------------
 

@@ -23,12 +23,14 @@ from dragonfly2_tpu_torch.daemon.daemon import Daemon
 from dragonfly2_tpu_torch.idl.messages import (DeviceSink, DownloadRequest,
                                                ShardInfo, ShardManifest,
                                                UrlMeta)
+from dragonfly2_tpu_torch.manager import Manager, ManagerConfig
 from dragonfly2_tpu_torch.scheduler.config import SchedulerConfig as \
     SchedCfg
 from dragonfly2_tpu_torch.scheduler.config import SeedPeerAddr
 from dragonfly2_tpu_torch.scheduler.server import Scheduler
 from dragonfly2_tpu_torch.tpu.hbm_sink import DeviceIngest
 from dragonfly2_tpu_torch.trainer import features, training
+from dragonfly2_tpu_torch.trainer.server import Trainer, TrainerConfig
 
 
 @pytest.fixture
@@ -283,3 +285,39 @@ def test_fit_without_a_visible_card_raises(cuda):
         env=dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=root))
     assert proc.returncode == 0, proc.stderr
     assert "raised: no CUDA device" in proc.stdout
+
+
+@pytest.mark.gpu
+def test_trainer_on_card_publishes_and_scheduler_binds_it(cuda, tmp_path):
+    """A trainer on the card, attached to a manager, publishes its fit;
+    the scheduler's refresh binds the registry's version, which is the
+    trainer's."""
+    async def main():
+        mgr = Manager(ManagerConfig(listen_ip="127.0.0.1"))
+        await mgr.start()
+        trainer = Trainer(TrainerConfig(
+            listen_ip="127.0.0.1", data_dir=str(tmp_path / "spool"),
+            manager_addresses=[mgr.address]))
+        await trainer.start()
+        sched = Scheduler(SchedCfg(listen_ip="127.0.0.1", algorithm="ml",
+                                   trainer_address=trainer.address,
+                                   manager_addresses=[mgr.address]))
+        await sched.start()
+        try:
+            assert trainer.service.device == cuda
+            for row in _mlp_rows(4, 256):
+                sched.service.records._append(row)
+            assert await sched.announcer.upload_once()
+            _, metrics = trainer.service.latest[features.MLP_MODEL_NAME]
+            (listed,) = mgr.store.models(name=features.MLP_MODEL_NAME)
+            assert listed["version"] == metrics["version"]
+            assert await sched.announcer.refresh_model_once()
+            assert sched.announcer.model_version == metrics["version"]
+            assert sched.scheduling.evaluator.infer.version == \
+                metrics["version"]
+        finally:
+            await sched.stop()
+            await trainer.stop()
+            await mgr.stop()
+
+    asyncio.run(asyncio.wait_for(main(), 120))

@@ -234,6 +234,49 @@ def test_four_call_kinds_and_error_codes(transport):
         shutil.rmtree(sock_dir, ignore_errors=True)
 
 
+def test_unary_request_and_its_end_leave_in_one_write(monkeypatch):
+    """A server that has answered a unary call before the caller's END
+    arrived closes the connection; an END written after the request
+    then failed the call with "Connection lost" (seen as ``dfget``'s
+    health check failing against a live daemon). The request and its END
+    leave in one write, for unary and server-stream calls."""
+    writes: list[bytes] = []
+    opened = Channel._open
+
+    async def recording_open(self):
+        conn = await opened(self)
+        write = conn.writer.write
+
+        def record(data):
+            writes.append(bytes(data))
+            return write(data)
+        conn.writer.write = record
+        return conn
+
+    monkeypatch.setattr(Channel, "_open", recording_open)
+    end = wire.frame(wire.END)
+
+    async def main():
+        ended = asyncio.Event()
+        srv, dial = await _serve("127.0.0.1:0", ended)
+        ch = Channel(dial)
+        c = ServiceClient(ch, "test.Echo", max_attempts=1)
+        try:
+            for _ in range(3):
+                writes.clear()
+                got = await c.unary("Unary", port_msg.PieceInfo(piece_num=4))
+                assert got.piece_num == 5
+                assert writes[-1].endswith(end) and len(writes[-1]) > len(end)
+            writes.clear()
+            assert [p.piece_num async for p in c.unary_stream(
+                "ServerStream", port_msg.PieceInfo(piece_num=2))] == [0, 1]
+            assert writes[-1].endswith(end) and len(writes[-1]) > len(end)
+        finally:
+            await ch.close()
+            await srv.stop()
+    asyncio.run(asyncio.wait_for(main(), LIMIT_S))
+
+
 def test_cancelled_server_stream_ends_the_handler():
     """A caller that half-closed and then goes away mid-stream (the
     scheduler dropping a seed trigger) ends the server's generator."""
