@@ -56,6 +56,20 @@ and then from peers, as the P2P path does:
               seed may read the origin, the scheduler's uploads must reach
               the trainer, whose fit the registry lists and the scheduler
               binds, and every process must exit cleanly on SIGTERM
+9. sharded  — run after phase 6, on its origin file: the checkpoint as two
+              pipeline stages (the embedding and the first half of the
+              layers; the rest), each pulled by two replicas. A scheduler
+              and a seed run in a spawned child as in phase 6; four
+              leecher daemons in this process, one pod, back-source
+              disabled, each with a manifest sink on the card and
+              ``UrlMeta.shards`` naming its stage's tensors, start
+              together. Each must land exactly its stage's tensors with
+              the origin's bytes, dtypes and shapes; each stage's pair
+              must be assigned disjoint shares covering the stage; the
+              origin must be read once, by the seed, and no leecher may
+              read it; storage must stay warm partials holding only needed
+              pieces; no swap piece may fall back to the tree; and each
+              leecher's tree and swap bytes must add up to its stage
 
 Each phase prints its lines. The port ports no kernel (the JAX package has
 no Pallas kernel; its device work is ``jax.device_put``, copy-engine work
@@ -74,6 +88,7 @@ os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 import argparse
 import asyncio
+import dataclasses
 import datetime
 import hashlib
 import json
@@ -594,7 +609,13 @@ async def _p2p_child(workdir: str, conn) -> None:
                    "seed_upload_bytes": served.value(),
                    "seed_state": [c.state for c in
                                   seed.ptm._conductors.values()],
-                   "rulings": sched.service.rulings})
+                   "rulings": sched.service.rulings,
+                   "excluded": {
+                       reason: REGISTRY.counter(
+                           "df_sched_filter_excluded_total",
+                           labels=("reason",)).value(reason)
+                       for reason in ("stream-gone", "blocklist",
+                                      "no-slots", "bad-node", "cycle")}})
     finally:
         watcher.cancel()
         await seed.stop()
@@ -623,7 +644,8 @@ async def _leecher_pull(daemon: Daemon, url: str, meta: UrlMeta,
     ingest = conductor.device_ingest
     check(ingest is not None, f"{daemon.hostname}: device sink was not live")
     out = await asyncio.to_thread(ingest.result, 1200.0)
-    torch.cuda.synchronize()
+    # off the loop: other daemons of this process may still be pulling
+    await asyncio.to_thread(torch.cuda.synchronize)
     wall = time.monotonic() - t0
     spans = list(ingest.transfer_spans)
     return {"out": out, "conductor": conductor, "wall": wall, "t0": t0,
@@ -759,6 +781,221 @@ def phase_p2p(workdir: str, path: str, digest: str, header: bytes,
         "rulings": stats["rulings"], "b_pieces_from_a": from_a,
         "a_pieces_when_b_started": run_b["a_pieces_at_start"],
         **hbm_metrics(before)})
+
+
+# ---------------------------------------------------------------- phase 9
+
+SHARDED_POD = "smoke-pod"
+
+
+def pipeline_stages(layout: list[tuple[str, list[int]]]
+                    ) -> list[list[str]]:
+    """Two pipeline stages of the layout: the embedding and the first half
+    of the decoder layers; the rest (and the final norm and head when the
+    layout has them)."""
+    layers = sum(1 for name, _ in layout
+                 if name.endswith(".input_layernorm.weight"))
+    split = layers // 2
+
+    def stage(name: str) -> int:
+        if name == "model.embed_tokens.weight":
+            return 0
+        if name.startswith("model.layers."):
+            return int(int(name.split(".")[2]) >= split)
+        return 1
+    stages: list[list[str]] = [[], []]
+    for name, _ in layout:
+        stages[stage(name)].append(name)
+    return stages
+
+
+def shard_class_bytes(conductor) -> dict:
+    """Bytes of the leecher's tracked shards landed per supply class,
+    from its own pieces (``df_shard_bytes_total`` sums every leecher of
+    the process)."""
+    tracker = conductor.shard_tracker
+    out = {"tree": 0, "swap": 0}
+    for num in conductor.ready:
+        meta = conductor.storage.md.pieces[num]
+        cls = "swap" if num in conductor.swap_piece_nums else "tree"
+        out[cls] += tracker.shard_bytes_in(meta.start, meta.start + meta.size)
+    return out
+
+
+async def _replicas(workdir: str, sched_addr: str, url: str,
+                    manifest: ShardManifest,
+                    stages: list[list[str]]) -> dict[str, dict]:
+    names = {"A0": 0, "A1": 0, "B0": 1, "B1": 1}
+    daemons = {n: Daemon(DaemonConfig(
+        workdir=os.path.join(workdir, n), hostname=f"smoke-{n.lower()}",
+        listen_ip="127.0.0.1", host_ip="127.0.0.1",
+        scheduler=SchedulerConfig(addresses=[sched_addr])))
+        for n in names}
+    for d in daemons.values():
+        # one pod (what DF_POD_ID names for a daemon process of its own)
+        d.topology = dataclasses.replace(d.topology, pod=SHARDED_POD)
+        await d.start()
+    lags: list[float] = []
+
+    async def watch_loop() -> None:
+        """The event loop's lag: the four daemons share it."""
+        while True:
+            t = time.monotonic()
+            await asyncio.sleep(0.01)
+            lags.append(time.monotonic() - t - 0.01)
+
+    watcher = asyncio.get_running_loop().create_task(watch_loop())
+    try:
+        runs = await asyncio.gather(*(
+            _leecher_pull(daemons[n], url,
+                          UrlMeta(shards=",".join(stages[st])), manifest, {})
+            for n, st in names.items()))
+        return {n: {**run, "stage": names[n]}
+                for n, run in zip(names, runs)}, lags
+    finally:
+        watcher.cancel()
+        for d in daemons.values():
+            await d.stop()
+
+
+def phase_sharded(workdir: str, path: str, header: bytes, ref: torch.Tensor,
+                  layout: list[tuple[str, list[int]]],
+                  device: torch.device) -> None:
+    size = os.path.getsize(path)
+    # the seed's whole copy and four warm partials (each stage twice)
+    free = shutil.disk_usage(workdir).free
+    need = 3 * size + (1 << 30)
+    check(free >= need, f"phase 9 needs {need} bytes of free disk for the "
+                        f"seed's copy and four partials, {free} free")
+    manifest = manifest_from_file(path)
+    shards = {s.name: s for s in manifest.shards}
+    stages = pipeline_stages(layout)
+    check(all(stages), "phase 9 needs a layout with two stages")
+    stage_bytes = [sum(shards[n].range_size for n in st) for st in stages]
+    shard_bytes = REGISTRY.counter("df_shard_bytes_total", labels=("src",))
+    fallbacks = REGISTRY.counter("df_shard_fallback_total")
+    p2p_pieces = REGISTRY.counter("df_p2p_piece_total", labels=("result",))
+    before = {"tree": shard_bytes.value("tree"),
+              "swap": shard_bytes.value("swap"),
+              **{k: p2p_pieces.value(k) for k in ("ok", "busy", "fail")},
+              "fallback": fallbacks.value(),
+              "upload": REGISTRY.counter("df_upload_bytes_total").value()}
+    ctx = multiprocessing.get_context("spawn")
+    parent_conn, child_conn = ctx.Pipe()
+    child = ctx.Process(target=p2p_child, name="smoke-sharded-child",
+                        args=(os.path.join(workdir, "sharded"), child_conn))
+    child.start()
+    try:
+        check(parent_conn.poll(300), "phase 9 child did not start")
+        sched_addr = parent_conn.recv()["scheduler"]
+        runs, lags = asyncio.run(_replicas(
+            os.path.join(workdir, "sharded"), sched_addr, "file://" + path,
+            manifest, stages))
+        parent_conn.send("stop")
+        check(parent_conn.poll(300), "phase 9 child did not report")
+        stats = parent_conn.recv()
+    finally:
+        child.join(timeout=120)
+        if child.is_alive():
+            child.terminate()
+            child.join(timeout=30)
+    check(child.exitcode == 0, f"phase 9 child exited {child.exitcode}")
+    base = len(header)
+    shapes = dict(layout)
+    lines = {}
+    assigned: dict[int, list[list[str]]] = {0: [], 1: []}
+    for name, run in runs.items():
+        st, c = run["stage"], run["conductor"]
+        want = stages[st]
+        tensors = run["out"]
+        check(list(tensors) == want,
+              f"{name}: {len(tensors)} tensors, want its stage's "
+              f"{len(want)}")
+        for tname in want:
+            info, t = shards[tname], tensors[tname]
+            check(t.device == device and t.dtype == torch.bfloat16
+                  and list(t.shape) == shapes[tname],
+                  f"{name}: {tname} is {t.dtype} {list(t.shape)} on "
+                  f"{t.device}")
+            lo = info.range_start - base
+            check(torch.equal(t.reshape(-1).view(torch.uint8),
+                              ref[lo:lo + info.range_size]),
+                  f"{name}: {tname} bytes differ from the origin")
+        check(c.affinity_shards is not None
+              and set(c.affinity_shards) <= set(want),
+              f"{name}: assigned_shards {c.affinity_shards} not a subset "
+              f"of its request")
+        assigned[st].append(list(c.affinity_shards))
+        check(c.traffic_source == 0,
+              f"{name}: read {c.traffic_source} bytes from the origin")
+        md = c.storage.md
+        check(not md.done, f"{name}: a subset's storage was marked done")
+        check(set(md.pieces) <= c.needed_pieces,
+              f"{name}: storage holds pieces outside its needed set")
+        by_class = shard_class_bytes(c)
+        check(by_class["tree"] + by_class["swap"] == stage_bytes[st],
+              f"{name}: tree {by_class['tree']} + swap {by_class['swap']} "
+              f"!= stage bytes {stage_bytes[st]}")
+        ingest = c.device_ingest
+        seed_pieces = sum(v for k, v in c.pieces_by_parent.items()
+                          if k.endswith("seed"))
+        lines[name] = {
+            "stage": st, "tensors": len(tensors),
+            "stage_bytes": stage_bytes[st],
+            "started_s": run["t0"] - min(r["t0"] for r in runs.values()),
+            "time_to_ready_s": run["wall"], "download_s": run["download_s"],
+            "assigned_shards": len(c.affinity_shards),
+            "assigned_at_register":
+                len(c._session.result.assigned_shards or ()),
+            "requested_shards": len(want),
+            "tree_bytes": by_class["tree"], "swap_bytes": by_class["swap"],
+            "pieces_from_seed": seed_pieces,
+            "pieces_from_replicas": sum(c.pieces_by_parent.values())
+            - seed_pieces,
+            "needed_pieces": len(c.needed_pieces),
+            "swap_pieces": len(c.swap_piece_nums),
+            "fallbacks": len(c.fallback_pieces),
+            "pin_s": ingest.pin_seconds, "pinned_bytes": ingest.pinned_bytes,
+            "staged_bytes": ingest.host.numel(),
+            "ingest_overlap_efficiency": run["overlap"],
+            "traffic_p2p": c.traffic_p2p,
+            "traffic_source": c.traffic_source}
+        del tensors
+    fell_back = fallbacks.value() - before["fallback"]
+    metric = {k: shard_bytes.value(k) - before[k] for k in ("tree", "swap")}
+    fetches = {k: p2p_pieces.value(k) - before[k]
+               for k in ("ok", "busy", "fail")}
+    ends = [r["t0"] + r["wall"] for r in runs.values()]
+    for name in runs:
+        emit(f"phase 9 sharded, leecher {name}", lines[name])
+    emit("phase 9 sharded, pod", {
+        "file_bytes": size, "stage_bytes": stage_bytes,
+        "makespan_s": max(ends) - min(r["t0"] for r in runs.values()),
+        "seed_upload_bytes": stats["seed_upload_bytes"],
+        "seed_uplink_ratio": stats["seed_upload_bytes"] / size,
+        "replica_upload_bytes":
+            REGISTRY.counter("df_upload_bytes_total").value()
+            - before["upload"],
+        "origin_bytes_read": stats["origin_bytes_read"],
+        "seed_back_source_s": stats["seed_back_source_s"],
+        "seed_landed_s": stats["seed_landed_s"],
+        "df_shard_bytes_total": metric,
+        "df_shard_fallback_total": fell_back,
+        "df_p2p_piece_total": fetches,
+        "loop_lag_max_s": max(lags, default=0.0),
+        "loop_lag_over_100ms_s": sum(x for x in lags if x > 0.1),
+        "rulings": stats["rulings"],
+        "parents_excluded": stats["excluded"], "free_disk_bytes": free})
+    for st, pair in assigned.items():
+        check(len(pair) == 2 and not set(pair[0]) & set(pair[1])
+              and sorted(pair[0] + pair[1]) == sorted(stages[st]),
+              f"stage {st}: the pair's assignments are not disjoint shares "
+              f"covering the stage: {pair}")
+    check(stats["origin_bytes_read"] == size,
+          f"origin read {stats['origin_bytes_read']} bytes, file {size}")
+    check(fell_back == 0, f"{fell_back} swap pieces fell back to the tree")
+    check(metric["tree"] + metric["swap"] == 2 * sum(stage_bytes),
+          f"df_shard_bytes_total moved {metric}, want twice the tensors")
 
 
 # ---------------------------------------------------------------- phase 7
@@ -1428,7 +1665,7 @@ def phase_deploy(workdir: str, seed: int, device: torch.device) -> None:
 
 
 def run_phases(layers: int, seed: int, device: torch.device) -> None:
-    """Phases 2-8 on ``device``; raises CheckFailed on a failed check."""
+    """Phases 2-9 on ``device``; raises CheckFailed on a failed check."""
     layout = llama_layout(layers)
     header, nbytes = safetensors_header(layout)
     workdir = tempfile.mkdtemp(prefix="chip-smoke-")
@@ -1460,10 +1697,12 @@ def run_phases(layers: int, seed: int, device: torch.device) -> None:
                                  device))
         phase_prefetch(workdir, seed, device)
         phase_p2p(workdir, path, digest, header, ref, layout, device)
-        del ref
-        # phase 6's copies and the origin are not needed again: their disk
-        # goes to phase 8's
+        # phase 6's copies are not needed again: their disk goes to
+        # phase 9's, and phase 9's and the origin's to phase 8's
         shutil.rmtree(os.path.join(workdir, "p2p"), ignore_errors=True)
+        phase_sharded(workdir, path, header, ref, layout, device)
+        del ref
+        shutil.rmtree(os.path.join(workdir, "sharded"), ignore_errors=True)
         os.unlink(path)
         phase_trainer(workdir, seed, device)
         phase_deploy(workdir, seed, device)

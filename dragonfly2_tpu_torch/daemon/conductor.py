@@ -4,10 +4,22 @@ Counterpart of ``dragonfly2_tpu/daemon/conductor.py`` (reference
 ``client/daemon/peer/peertask_conductor.go``): register with the
 scheduler, pull the pieces from parent peers (``piece_engine``) or, when
 P2P has nothing for the task, back to source (``piece_manager``); land and
-verify each piece in storage, stage it into the device sink, track
+verify each piece in storage, stage it into the device sink (built on a
+thread, since pinning its staging buffer takes seconds), track
 manifest shards as they complete, broadcast progress to subscribers,
 finalize with the digest checks, and only then close the scheduler
 session with the task's ``PeerResult``.
+
+A requested shard subset (``requested_shards``) narrows the download to
+the pieces covering those shards (``needed_pieces``). The scheduler's
+shard-affinity ruling (``RegisterResult.assigned_shards``) splits them
+into tree-class pieces this peer fetches and swap-class pieces its
+co-located replicas supply (``set_affinity``). A finished subset stays a
+warm partial in storage, never marked done; a joiner that needs more
+widens the live download (``widen_to_whole_file``) until the download
+commits to finishing (``_finishing``). The reference's flight-recorder
+events have no counterpart here; the ``df_shard_*`` metrics and the
+published ``shard`` events stand in their place.
 """
 
 from __future__ import annotations
@@ -19,6 +31,7 @@ from typing import Any
 
 from ..common import digest as digestlib
 from ..common.errors import Code, DFError
+from ..common.metrics import REGISTRY
 from ..common.piece import Range, compute_piece_size, piece_count
 from ..idl.messages import PieceInfo, PieceResult, TaskType, UrlMeta
 from ..storage.io_executor import run_io
@@ -27,6 +40,25 @@ from ..storage.metadata import TaskMetadata
 from ..storage.store import TaskStorage
 
 log = logging.getLogger("df.core.conductor")
+
+# sharded-task delivery (common/sharding.py): per-shard readiness and
+# tree-vs-swap byte attribution
+_shard_ready = REGISTRY.counter(
+    "df_shard_ready_total", "manifest shards whose bytes all verified, "
+    "by supply path (tree = this host's assigned fetch subset, swap = "
+    "co-located replicas over P2P)", ("src",))
+_shard_ready_s = REGISTRY.histogram(
+    "df_shard_ready_seconds", "time from task start to each shard "
+    "becoming ready",
+    buckets=(0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0, 60.0,
+             120.0, 300.0))
+_shard_fallbacks = REGISTRY.counter(
+    "df_shard_fallback_total", "swap-class pieces re-pulled from the "
+    "tree after the bounded swap hold expired (the swap partner died "
+    "or stalled)")
+_shard_bytes = REGISTRY.counter(
+    "df_shard_bytes_total", "bytes landed into manifest shards, by the "
+    "piece's supply class", ("src",))
 
 
 class PeerTaskConductor:
@@ -40,7 +72,8 @@ class PeerTaskConductor:
                  disable_back_source: bool = False,
                  task_type: TaskType = TaskType.STANDARD,
                  device_sink_factory: Any = None,
-                 shard_manifest: Any = None):
+                 shard_manifest: Any = None,
+                 requested_shards: list[str] | None = None):
         self.task_id = task_id
         self.peer_id = peer_id
         self.url = url
@@ -55,15 +88,35 @@ class PeerTaskConductor:
         self.task_type = task_type
         self.device_sink_factory = device_sink_factory
         # sharded-task delivery (common/sharding.py): the manifest's shard
-        # table and — once piece geometry is known (_init_shards) — the
-        # tracker that turns verified piece landings into shard readiness.
-        # Ranged requests keep the whole-file path: a manifest's offsets
-        # are content-absolute and a sub-range task's are range-relative.
+        # table, the subset this host needs, and — once piece geometry is
+        # known (_init_shards) — the tracker that turns verified piece
+        # landings into shard readiness. Ranged requests keep the
+        # whole-file path: a manifest's offsets are content-absolute and
+        # a sub-range task's are range-relative.
         shards = getattr(shard_manifest, "shards", shard_manifest)
         self.shard_manifest = (list(shards) if shards
                                and content_range is None
                                and not self.url_meta.range else None)
+        self.requested_shards = (list(requested_shards)
+                                 if requested_shards else None)
         self.shard_tracker: Any = None
+        # piece numbers this download needs (None = all): the requested
+        # subset's coverage — the dispatcher, the back-source holes and
+        # the finish check all read this
+        self.needed_pieces: set[int] | None = None
+        # scheduler shard affinity: the requested shards this peer fetches
+        # from the tree; pieces of every OTHER requested shard are
+        # swap-class, held off the seed for the swap hold so co-located
+        # replicas supply them (piece_dispatcher.SWAP_HOLD_S)
+        self.affinity_shards: list[str] | None = None
+        self.swap_piece_nums: set[int] = set()
+        self._swap_shard_names: set[str] = set()
+        self.fallback_pieces: set[int] = set()   # swap pieces the tree served
+        # completion commit point: set SYNCHRONOUSLY with the final
+        # needed-coverage check (engine loop, back-source loop, finalize).
+        # A widen that loses this race is refused, so a finishing subset
+        # can never be widened into "incomplete"
+        self._finishing = False
 
         self.state = self.PENDING
         self.fail_code = Code.OK
@@ -79,9 +132,14 @@ class PeerTaskConductor:
 
         self.storage: TaskStorage | None = None
         self.device_ingest: Any = None
+        self._sink_build: asyncio.Task | None = None
+        self._staged: set[int] = set()        # pieces written to the sink
         self.ready: set[int] = set()          # piece numbers landed
         self._landing: set[int] = set()       # pieces mid-write (dedup race)
         self.done_event = asyncio.Event()
+        # set once storage exists (geometry known) or the task ended: a
+        # sibling's piece sync waits on it instead of answering NOT_FOUND
+        self.storage_ready = asyncio.Event()
         self._piece_cond = asyncio.Condition()
         self._subscribers: list[asyncio.Queue] = []
         self._run_task: asyncio.Task | None = None
@@ -111,6 +169,10 @@ class PeerTaskConductor:
             used_p2p = False
             if self.scheduler is not None:
                 self._session = await self._register()
+                if self._session is not None:
+                    assigned = self._session.result.assigned_shards
+                    if assigned is not None:
+                        self.set_affinity(list(assigned))
                 if self._session is not None and self._p2p_engine is not None:
                     used_p2p = await self._p2p_engine.pull(self,
                                                            self._session)
@@ -147,7 +209,7 @@ class PeerTaskConductor:
             self.log.warning("scheduler unreachable (%s); no P2P", exc)
             return None
 
-    def _ingest_to_device(self, offset: int, data) -> None:
+    def _ingest_to_device(self, num: int, offset: int, data) -> None:
         """Stage one piece into the device sink; a failure disables the
         sink for the rest of the task (best-effort contract: the download
         still finishes to disk). The one copy of the write-or-disable
@@ -156,6 +218,7 @@ class PeerTaskConductor:
             return
         try:
             self.device_ingest.write(offset, data)
+            self._staged.add(num)
         except Exception:
             self.log.exception("device ingest write failed; disabling sink")
             self.device_ingest.close()
@@ -176,26 +239,144 @@ class PeerTaskConductor:
         try:
             sharding.validate_manifest(self.shard_manifest,
                                        self.content_length)
+            tracker = sharding.ShardTracker(self.shard_manifest,
+                                            self.requested_shards)
         except ValueError:
             self.log.exception("bad shard manifest; whole-file fallback")
             self.shard_manifest = None
+            self.requested_shards = None
             return
-        self.shard_tracker = sharding.ShardTracker(self.shard_manifest)
-        self.log.info("sharded task: %d shards", self.shard_tracker.total)
+        self.shard_tracker = tracker
+        if self.requested_shards is not None and self.total_pieces >= 0:
+            self.needed_pieces = tracker.needed_pieces(self.piece_size,
+                                                       self.total_pieces)
+        self._classify_affinity()
+        self.log.info("sharded task: %d/%d shards requested (%s pieces "
+                      "needed, %d swap-class)", tracker.total,
+                      len(self.shard_manifest),
+                      "all" if self.needed_pieces is None
+                      else len(self.needed_pieces),
+                      len(self.swap_piece_nums))
 
-    def _note_shard_progress(self, offset: int, size: int) -> None:
-        """One verified piece landed: publish any shard it completed."""
+    def set_affinity(self, names: list[str]) -> None:
+        """Scheduler shard-affinity ruling: these requested shards are
+        THIS peer's to fetch from the tree; the rest arrive by swap."""
+        self.affinity_shards = names
+        self._classify_affinity()
+
+    def _classify_affinity(self) -> None:
+        tracker = self.shard_tracker
+        if tracker is None or self.affinity_shards is None \
+                or self.piece_size <= 0:
+            return
+        from ..common.sharding import pieces_for_shards
+        mine = set(self.affinity_shards)
+        self._swap_shard_names = {s.name for s in tracker.shards
+                                  if s.name not in mine}
+        swap = pieces_for_shards(
+            [s for s in tracker.shards if s.name in self._swap_shard_names],
+            self.piece_size, self.total_pieces)
+        tree = pieces_for_shards(
+            [s for s in tracker.shards if s.name in mine],
+            self.piece_size, self.total_pieces)
+        # a boundary piece shared by a tree shard and a swap shard is
+        # tree-class: this host must fetch it anyway, and holding it back
+        # would stall the tree shard behind the swap window
+        self.swap_piece_nums = swap - tree
+
+    def pieces_remaining(self) -> int:
+        """Pieces still to land before this download is DONE — the
+        requested subset's count for sharded tasks, total otherwise
+        (-1 = unknown geometry)."""
+        if self.total_pieces < 0:
+            return -1
+        if self.needed_pieces is not None:
+            return len(self.needed_pieces - self.ready)
+        return self.total_pieces - len(self.ready)
+
+    def needed_piece_nums(self, total: int) -> list[int]:
+        """Sorted piece numbers this task needs out of ``total`` — the
+        back-source hole universe (piece_manager.download_source)."""
+        if self.needed_pieces is not None:
+            return sorted(n for n in self.needed_pieces if n < total)
+        return list(range(total))
+
+    def _note_shard_progress(self, num: int, offset: int, size: int,
+                             replay: bool = False) -> None:
+        """One verified piece landed: advance shard coverage and publish
+        any shard it completed. ``replay`` (the widen path re-feeding
+        landed pieces into a fresh tracker) skips the byte counter: those
+        bytes were counted, with their true class, when they landed."""
         tracker = self.shard_tracker
         if tracker is None:
             return
+        if not replay:
+            # only the bytes INSIDE tracked shards count: manifest gaps
+            # and the non-shard halves of boundary pieces must not
+            # inflate the tree/swap split
+            in_shards = tracker.shard_bytes_in(offset, offset + size)
+            if in_shards:
+                swap = num in self.swap_piece_nums
+                _shard_bytes.labels("swap" if swap else "tree").inc(
+                    in_shards)
         t = time.time() * 1000 - self.start_ms
         for name in tracker.on_span(offset, offset + size, t):
-            self._publish({"type": "shard", "name": name, "src": "tree",
-                           "bytes": tracker.shard_for(name).range_size,
+            shard = tracker.shard_for(name)
+            src = "swap" if name in self._swap_shard_names else "tree"
+            _shard_ready.labels(src).inc()
+            _shard_ready_s.observe(max(t, 0.0) / 1000.0)
+            self._publish({"type": "shard", "name": name, "src": src,
+                           "bytes": shard.range_size,
                            "ready": len(tracker.ready),
                            "total": tracker.total})
 
+    def note_shard_fallback(self, num: int, parent_id: str) -> None:
+        """A swap-class piece is being served by the TREE after its swap
+        hold expired (engine hook): counted once per piece."""
+        if num in self.fallback_pieces:
+            return
+        self.fallback_pieces.add(num)
+        _shard_fallbacks.inc()
+        self.log.info("swap piece %d falls back to the tree (%s)", num,
+                      parent_id[-12:])
+
+    def widen_to_whole_file(self) -> bool:
+        """A joiner needs shards (or the whole file) outside this subset
+        download: widen to the full piece set mid-flight. Landed coverage
+        is replayed into a full-manifest tracker, so nothing re-fetches.
+        Returns False once this download has COMMITTED to finishing
+        (``_finishing``): the caller then starts a fresh conductor over
+        the same task storage, which adopts the landed pieces and fetches
+        only the gap. Runs on the event loop, so the refusal check and the
+        mutation are atomic with respect to the commit points."""
+        if self.requested_shards is None:
+            return True
+        if self._finishing or self.done_event.is_set():
+            return False
+        self.log.info("sharded task widened to the whole file by a joiner")
+        self.requested_shards = None
+        self.needed_pieces = None
+        self.swap_piece_nums = set()
+        self._swap_shard_names = set()
+        if (self.shard_tracker is not None and self.piece_size > 0
+                and self.shard_manifest):
+            from ..common.sharding import ShardTracker
+            fresh = ShardTracker(self.shard_manifest)
+            fresh.ready.update(self.shard_tracker.ready)
+            self.shard_tracker = fresh
+            if self.storage is not None:
+                for num in sorted(self.ready):
+                    meta = self.storage.md.pieces.get(num)
+                    if meta is not None:
+                        self._note_shard_progress(num, meta.start,
+                                                  meta.size, replay=True)
+        if self._p2p_engine is not None:
+            self._p2p_engine.apply_shard_state(self)
+        return True
+
     def _device_shard_specs(self) -> list[tuple] | None:
+        """The device sink's specs: the requested shards only (the whole
+        manifest when none were requested)."""
         tracker = self.shard_tracker
         if tracker is None:
             return None
@@ -235,14 +416,91 @@ class PeerTaskConductor:
             priority=self.resolved_priority,
             qos_class=self.url_meta.qos_class)
         self.storage = self.storage_mgr.register_task(md)
+        self.storage_ready.set()
         self._init_shards()
         if (self.device_sink_factory is not None and content_length > 0
-                and self.device_ingest is None):
-            try:
-                self.device_ingest = self._make_device_ingest(content_length)
-            except Exception:  # device sink is best-effort
-                self.log.exception("device sink init failed; continuing to disk")
+                and self._sink_build is None):
+            # pinning the staging buffer takes about a second per 4 GiB,
+            # which would stall every task on this event loop: the sink is
+            # built on a thread, and pieces landed meanwhile are staged
+            # from storage once it is up
+            self._sink_build = asyncio.get_running_loop().create_task(
+                self._build_device_ingest(content_length))
         return self.piece_size
+
+    async def _build_device_ingest(self, content_length: int) -> None:
+        try:
+            ingest = await asyncio.to_thread(self._make_device_ingest,
+                                             content_length)
+        except Exception:  # device sink is best-effort
+            self.log.exception("device sink init failed; continuing to disk")
+            return
+        if self.state == self.FAILED:     # failed while it was built
+            ingest.close()
+            return
+        self.device_ingest = ingest
+        await self._stage_backlog()
+
+    async def _stage_backlog(self) -> None:
+        """Stage, from storage, the landed pieces the sink has not seen:
+        those that landed while it was being built, and those adopted from
+        storage."""
+        for num in sorted(self.ready - self._staged):
+            meta = self.storage.md.pieces.get(num)
+            if meta is None:
+                continue
+            data = await run_io(self.storage.read_piece, num)
+            if self.device_ingest is None:
+                return
+            if num not in self._staged:
+                self._ingest_to_device(num, meta.start, data)
+
+    async def place_from_store(self, infos: list[PieceInfo]) -> set[int]:
+        """Land any of ``infos`` that THIS task's storage already holds (a
+        finished subset's warm partial, or an earlier attempt's pieces)
+        without touching the wire. Their bytes verified when they first
+        landed; the device sink takes them from storage
+        (``_stage_backlog``). Returns the piece numbers landed, so the
+        engine never dispatches a pull for them."""
+        if self.storage is None:
+            return set()
+        placed: set[int] = set()
+        reports: list[PieceResult] = []
+        for info in infos:
+            num = info.piece_num
+            meta = self.storage.md.pieces.get(num)
+            if meta is None or num in self.ready or num in self._landing:
+                continue
+            async with self._piece_cond:
+                if num in self.ready or num in self._landing:
+                    continue
+                self.ready.add(num)
+                self.completed_length += meta.size
+                self._piece_cond.notify_all()
+            placed.add(num)
+            self._note_shard_progress(num, meta.start, meta.size)
+            self._publish({"type": "piece", "num": num, "size": meta.size,
+                           "completed": self.completed_length,
+                           "total": self.content_length})
+            if self._session is not None:
+                # announce the placement so the scheduler counts this
+                # daemon a holder, as a back-source landing does (dst "")
+                now = int(time.time() * 1000)
+                reports.append(PieceResult(
+                    task_id=self.task_id, src_peer_id=self.peer_id,
+                    dst_peer_id="", success=True,
+                    piece_info=PieceInfo(piece_num=num,
+                                         range_start=meta.start,
+                                         range_size=meta.size,
+                                         digest=meta.digest),
+                    begin_ms=now, end_ms=now,
+                    finished_count=len(self.ready)))
+        if reports:
+            # concurrently: a warm partial adopts hundreds of pieces, and
+            # one sequential round trip each would stall the gap fetch
+            await asyncio.gather(*(self._session.report_piece(r)
+                                   for r in reports))
+        return placed
 
     async def on_piece_from_source(self, num: int, offset: int, data: bytes,
                                    cost_ms: int) -> None:
@@ -265,13 +523,13 @@ class PeerTaskConductor:
             return
         # write() is a memcpy + enqueue; the copy runs on the sink's own
         # thread and is never awaited here
-        self._ingest_to_device(offset, data)
+        self._ingest_to_device(num, offset, data)
         async with self._piece_cond:
             self.ready.add(num)
             self.completed_length += len(data)
             self.traffic_source += len(data)
             self._piece_cond.notify_all()
-        self._note_shard_progress(offset, len(data))
+        self._note_shard_progress(num, offset, len(data))
         self._publish({"type": "piece", "num": num, "size": len(data),
                        "completed": self.completed_length,
                        "total": self.content_length})
@@ -287,12 +545,6 @@ class PeerTaskConductor:
                                      download_cost_ms=cost_ms),
                 begin_ms=now - cost_ms, end_ms=now,
                 finished_count=len(self.ready)))
-
-    def pieces_remaining(self) -> int:
-        """Pieces still to land (-1 = unknown geometry)."""
-        if self.total_pieces < 0:
-            return -1
-        return self.total_pieces - len(self.ready)
 
     async def on_span_from_peer(self, parent_id: str,
                                 pieces: list[PieceInfo], data,
@@ -332,14 +584,27 @@ class PeerTaskConductor:
             for p in claim:
                 self._landing.discard(p.piece_num)
         by_num = {p.piece_num: p for p in claim}
-        placed = [m.num for m in metas if m.num not in self.ready]
+        landed = {m.num for m in metas}
+        # claimed pieces neither landed nor corrupt were ALREADY on disk,
+        # recorded by an earlier conductor over this same task storage:
+        # verified when they first landed, so they count as placed here
+        # (left out, the peer would report them done meshside while this
+        # conductor never reached its needed set)
+        on_disk = sorted(n for n in by_num
+                         if n not in landed and n not in corrupt
+                         and n not in self.ready)
+        placed = [m.num for m in metas if m.num not in self.ready] + on_disk
         if self.device_ingest is not None:
+            # an on-disk piece's copy in this span was never digest-checked:
+            # the sink takes the verified bytes from storage at finish
             view = memoryview(data)
             try:
                 for n in placed:
+                    if n in on_disk:
+                        continue
                     p = by_num[n]
                     lo = p.range_start - base
-                    self._ingest_to_device(p.range_start,
+                    self._ingest_to_device(n, p.range_start,
                                            view[lo:lo + p.range_size])
             finally:
                 view.release()
@@ -364,7 +629,7 @@ class PeerTaskConductor:
             self._piece_cond.notify_all()
         for n in counted:
             p = by_num[n]
-            self._note_shard_progress(p.range_start, p.range_size)
+            self._note_shard_progress(n, p.range_start, p.range_size)
         for ev in events:
             self._publish(ev)
         return counted, corrupt, raced
@@ -438,15 +703,34 @@ class PeerTaskConductor:
                           f"shard digest mismatch: {bad}")
 
     async def _finish_success(self) -> None:
-        if self.total_pieces >= 0 and len(self.ready) < self.total_pieces:
+        # a requested subset finishes when ITS pieces are all in; the
+        # task's storage then stays a warm PARTIAL (never marked done):
+        # peers see exactly the pieces it holds, a later request for other
+        # shards adopts them (place_from_store), and the completed-task
+        # reuse path can never serve the partial file as whole content
+        self._finishing = True      # widen refused from here on
+        subset_done = (self.needed_pieces is not None
+                       and self.total_pieces >= 0
+                       and len(self.ready) < self.total_pieces
+                       and not (self.needed_pieces - self.ready))
+        if (self.total_pieces >= 0 and len(self.ready) < self.total_pieces
+                and not subset_done):
             raise DFError(Code.CLIENT_STORAGE_ERROR,
                           f"incomplete: {len(self.ready)}/{self.total_pieces} pieces")
         await self._verify_shard_digests()
-        await self._verify_digest()
-        if self.storage is not None:
-            await run_io(self.storage.mark_done, success=True,
-                         content_length=self.content_length,
-                         total_piece_count=self.total_pieces)
+        if subset_done:
+            if self.storage is not None:
+                await run_io(self.storage.persist)
+        else:
+            await self._verify_digest()
+            if self.storage is not None:
+                await run_io(self.storage.mark_done, success=True,
+                             content_length=self.content_length,
+                             total_piece_count=self.total_pieces)
+        if self._sink_build is not None:
+            await self._sink_build
+        if self.device_ingest is not None:
+            await self._stage_backlog()
         if self.device_ingest is not None:
             try:
                 self.device_ingest.flush()   # enqueue-only, non-blocking
@@ -482,6 +766,7 @@ class PeerTaskConductor:
         self._publish({"type": "done", "success": False, "code": int(code),
                        "message": message})
         self.done_event.set()
+        self.storage_ready.set()
         self.log.warning("task failed: %s %s", code.name, message)
 
     async def wait_done(self, timeout: float | None = None) -> bool:

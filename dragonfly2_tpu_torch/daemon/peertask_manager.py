@@ -5,6 +5,13 @@ Counterpart of ``dragonfly2_tpu/daemon/peertask_manager.py`` cut to the
 file task: each conductor gets the daemon's scheduler connector and a
 fresh P2P engine, so it registers, pulls from parents, and goes back to
 source only when P2P cannot finish.
+
+A request that names shards (``UrlMeta.shards``) runs a requested-subset
+download. The shard names stay out of the task id, so every host pulling
+any subset of one file joins one swarm. A joiner whose needs the live
+subset download does not cover widens it to the whole file; when that
+download has already committed to finishing, a fresh conductor over the
+same task storage adopts the landed pieces and fetches only the gap.
 """
 
 from __future__ import annotations
@@ -15,6 +22,7 @@ from typing import Any, AsyncIterator
 
 from ..common import ids
 from ..common.errors import Code, DFError
+from ..common.sharding import parse_shard_names
 from ..idl.messages import (DownloadRequest, DownloadResponse, TaskStat,
                             TaskType, UrlMeta)
 from ..storage.manager import StorageManager
@@ -54,10 +62,12 @@ class PeerTaskManager:
             shard_manifest: Any = None) -> PeerTaskConductor:
         """Join the live conductor for this task, or start one."""
         task_id = self._task_id(url, meta)
+        requested_shards = None
+        if meta.shards:
+            requested_shards = parse_shard_names(meta.shards) or None
         async with self._lock:
-            conductor = self._conductors.get(task_id)
-            if (conductor is not None
-                    and conductor.state != PeerTaskConductor.FAILED):
+            conductor = self._join_existing(task_id, requested_shards)
+            if conductor is not None:
                 return conductor
             conductor = PeerTaskConductor(
                 task_id=task_id,
@@ -67,12 +77,45 @@ class PeerTaskManager:
                 piece_mgr=self.piece_mgr, scheduler=self.scheduler,
                 disable_back_source=disable_back_source, task_type=task_type,
                 device_sink_factory=device_sink_factory,
-                shard_manifest=shard_manifest)
+                shard_manifest=shard_manifest,
+                requested_shards=requested_shards)
             if self.p2p_engine_factory is not None:
                 conductor.set_p2p_engine(self.p2p_engine_factory())
             self._conductors[task_id] = conductor
             conductor.start()
             return conductor
+
+    def _join_existing(self, task_id: str,
+                       requested_shards: list[str] | None,
+                       ) -> PeerTaskConductor | None:
+        """The live conductor this request may share (called under the
+        manager lock), or None to start a fresh one."""
+        conductor = self._conductors.get(task_id)
+        if conductor is None or conductor.state == PeerTaskConductor.FAILED:
+            return None
+        if self._subset_gap(conductor, requested_shards):
+            # the joiner needs shards (or the whole file) the live subset
+            # download would never fetch: widen it so its done_event
+            # covers both. A finished (or finishing: widen refuses)
+            # subset download can't grow: a fresh conductor over the same
+            # task storage adopts its pieces and fetches only the gap.
+            if (conductor.done_event.is_set()
+                    or not conductor.widen_to_whole_file()):
+                return None
+        return conductor
+
+    @staticmethod
+    def _subset_gap(conductor: PeerTaskConductor,
+                    requested_shards: list[str] | None) -> bool:
+        """True when ``conductor`` is a requested-subset download that
+        does NOT cover this request's needs (other shards, or the whole
+        file)."""
+        if conductor.requested_shards is None:
+            return False
+        if requested_shards is None:
+            return True
+        return bool(set(requested_shards)
+                    - set(conductor.requested_shards))
 
     def conductor(self, task_id: str) -> PeerTaskConductor | None:
         return self._conductors.get(task_id)
@@ -82,10 +125,6 @@ class PeerTaskManager:
         """Download ``req.url``; yields progress frames and a final
         ``done`` frame, and raises the task's DFError on failure."""
         meta = req.url_meta or UrlMeta()
-        if meta.shards:
-            raise DFError(Code.INVALID_ARGUMENT,
-                          "requested shard subsets are not supported; "
-                          "pull the whole manifest")
         task_id = self._task_id(req.url, meta)
 
         # reuse fast path: the completed task is already on disk

@@ -1,8 +1,11 @@
 """Piece dispatcher: picks the next (piece, parent) pair for a worker.
 
-Counterpart of ``dragonfly2_tpu/daemon/piece_dispatcher.py`` without the
-sharded-task piece classes (requested subsets and the swap hold wait for
-a later slice). Reference ``client/daemon/peer/piece_dispatcher.go`` scores
+Counterpart of ``dragonfly2_tpu/daemon/piece_dispatcher.py``, with the
+sharded-task piece classes (``set_shard_state``: pieces outside the
+requested subset are never dispatched, and swap-class pieces wait out
+``SWAP_HOLD_S`` before a seed may serve them). Unlike the reference, a
+download in an affinity split takes equally rare pieces oldest first. Reference
+``client/daemon/peer/piece_dispatcher.go`` scores
 parents by observed per-byte piece latency with epsilon-random exploration
 (``DefaultPieceDispatcherRandomRatio``), so fast ICI-local parents win the
 steady state while new parents still get probed.
@@ -172,6 +175,14 @@ ENDGAME_PIECES = 2   # remaining-piece count at which duplicate racing is allowe
 # (kept tiny: each duplicate is a full extra transfer — on CPU-bound hosts
 # racing the whole tail measurably SLOWS the wave; this is stall insurance
 # for the final pieces, not a parallelism strategy)
+# Sharded-task swap hold: a swap-class piece (assigned to a co-located
+# replica's tree fetch) whose only usable holders are SEEDS waits this
+# long for the replica to land and announce it. Pulling it from the tree
+# at once would re-fetch every byte affinity deduped. Bounded, so a dead
+# partner costs one extra tree fetch (df_shard_fallback_total), never a
+# wedge.
+SWAP_HOLD_S = 1.5
+
 
 class Dispatch:
     """One unit of work handed to a worker: one or more CONTIGUOUS pieces
@@ -215,6 +226,12 @@ class PieceDispatcher:
         # knows few undone pieces while hundreds remain
         self.endgame = False
         self._seed_hold_expiry: float | None = None   # see _pick seed grace
+        # sharded tasks (set_shard_state): pieces this download needs at
+        # all (None = every piece) and the swap-class subset held off
+        # seed parents for SWAP_HOLD_S
+        self.needed: set[int] | None = None
+        self.swap_nums: set[int] = set()
+        self.swap_hold_s = SWAP_HOLD_S
 
     # ------------------------------------------------------------------
     # feeding: parents + announced pieces
@@ -293,6 +310,20 @@ class PieceDispatcher:
             if notify:
                 self._cond.notify_all()
 
+    def set_shard_state(self, needed: set[int] | None,
+                        swap_nums: set[int]) -> None:
+        """Sharded-task piece classes (engine.apply_shard_state): pieces
+        outside ``needed`` are never dispatched (their announcements are
+        kept: a widen may need them later), ``swap_nums`` wait out the
+        swap hold before a seed may serve them. Plain assignment (no
+        condition round): workers re-pick within their bounded 0.5 s
+        wake, and a mid-flight widen only ADDS dispatchable pieces."""
+        self.needed = set(needed) if needed is not None else None
+        self.swap_nums = set(swap_nums)
+
+    def _dispatchable(self, num: int) -> bool:
+        return self.needed is None or num in self.needed
+
     async def close(self) -> None:
         # already-closed short-circuit BEFORE touching the lock: teardown
         # calls close() more than once (engine finally + _teardown), and a
@@ -327,12 +358,25 @@ class PieceDispatcher:
         for ps in self._pieces.values():
             if ps.inflight:
                 continue
+            if not self._dispatchable(ps.info.piece_num):
+                continue
             all_states = [self.parents[h] for h in ps.holders
                           if h in self.parents
                           and not self.parents[h].ejected]
             holders = [h for h in all_states if not h.is_busy()]
             if not holders:
                 continue
+            if (ps.info.piece_num in self.swap_nums
+                    and all(h.is_seed for h in holders)):
+                # swap-class piece with only the tree to serve it: wait out
+                # the swap hold for the owning replica's copy; the expiry
+                # rides the worker wake scan like the seed grace
+                if now - ps.first_seen < self.swap_hold_s:
+                    expiry = ps.first_seen + self.swap_hold_s
+                    if (self._seed_hold_expiry is None
+                            or expiry < self._seed_hold_expiry):
+                        self._seed_hold_expiry = expiry
+                    continue
 
             def _is_local(h) -> bool:
                 return not h.is_seed and LINK_TIER.get(h.link, 1) == 0
@@ -378,8 +422,16 @@ class PieceDispatcher:
             rarity = min(len(c[1]) for c in candidates)
             tied = [c for c in candidates if len(c[1]) == rarity]
             top_tier = min(best_tier(c) for c in tied)
-            ps, holders = random.choice(
-                [c for c in tied if best_tier(c) == top_tier])
+            tied = [c for c in tied if best_tier(c) == top_tier]
+            if self.swap_nums:
+                # an affinity split: partners hold this download's tree
+                # pieces off the seed, each from when they first saw it,
+                # so the oldest goes first (replicas' tree sets are
+                # disjoint already; a random pick let one piece wait past
+                # the partner's swap hold)
+                ps, holders = min(tied, key=lambda c: c[0].first_seen)
+            else:
+                ps, holders = random.choice(tied)
         if len(holders) > 1 and random.random() < self.explore_ratio:
             # exploration probes MESH capacity; the seed's latency is already
             # known territory (and every random pick of it costs scarce
@@ -402,6 +454,12 @@ class PieceDispatcher:
         def usable(cand) -> bool:
             if (cand is None or cand is ps or cand.inflight
                     or parent.peer_id not in cand.holders):
+                return False
+            if not self._dispatchable(cand.info.piece_num):
+                return False
+            if parent.is_seed and cand.info.piece_num in self.swap_nums:
+                # grouping must not drag a swap-class piece onto the seed
+                # past its hold: it dispatches alone once the hold runs out
                 return False
             # don't drag a piece onto a WORSE link than its own best free
             # holder offers — grouping must not bypass the tier preference
@@ -446,6 +504,8 @@ class PieceDispatcher:
         for ps in self._pieces.values():
             if not ps.fetching:
                 continue   # normal path will take it
+            if not self._dispatchable(ps.info.piece_num):
+                continue
             # ONE racer per piece, and only against a fetch that has been
             # in flight a while: uncapped immediate racing turns every slow
             # tail piece into a duplicate from every idle worker — bounded
@@ -456,6 +516,14 @@ class PieceDispatcher:
             alts = [self.parents[h] for h in ps.holders - ps.fetching
                     if h in self.parents and not self.parents[h].ejected
                     and not self.parents[h].is_busy()]
+            if ps.info.piece_num in self.swap_nums:
+                # racers for a swap-class piece come only from mates: the
+                # in-flight fetch IS a live partner serving it, and a
+                # duplicate on the SEED would re-fetch over the tree the
+                # bytes affinity deduped. A wedged mate still exits via
+                # the failure path, after which the normal pick
+                # seed-serves past the hold.
+                alts = [h for h in alts if not h.is_seed]
             if not alts:
                 continue
             parent = min(alts, key=ParentState.rank)
@@ -619,6 +687,8 @@ class PieceDispatcher:
         that's backpressure working, and pinging through it would turn
         every 503 into an announcement flood."""
         for ps in self._pieces.values():
+            if not self._dispatchable(ps.info.piece_num):
+                continue    # unneeded pieces must not mask starvation
             if ps.inflight:
                 return False
             for h in ps.holders:
@@ -628,7 +698,9 @@ class PieceDispatcher:
         return True
 
     def pending_count(self) -> int:
-        return len(self._pieces)
+        if self.needed is None:
+            return len(self._pieces)
+        return sum(1 for n in self._pieces if n in self.needed)
 
     def has_live_parent(self) -> bool:
         return any(not p.ejected for p in self.parents.values())

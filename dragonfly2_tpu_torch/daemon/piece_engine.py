@@ -4,12 +4,16 @@ Counterpart of ``dragonfly2_tpu/daemon/piece_engine.py`` (reference
 ``client/daemon/peer/peertask_conductor.go`` P2P half —
 ``pullPiecesWithP2P`` :544, ``receivePeerPacket`` :659, the piece workers
 :976-1010 — plus ``peertask_piecetask_synchronizer.go``: one
-``SyncPieceTasks`` bidi stream per parent feeding the dispatcher). The
-flight recorder, relay spans, verdict ledger, content-store placement and
-sharded-task piece classes are left out.
+``SyncPieceTasks`` bidi stream per parent feeding the dispatcher), with
+the sharded-task piece classes (``apply_shard_state``: the needed subset
+and the swap-class pieces held off the seed; a scheduler packet that
+carries ``assigned_shards`` re-rules them mid-pull). Announced pieces this
+task's storage already holds are placed from disk before dispatch. The
+flight recorder, relay spans, verdict ledger and the content store are
+left out.
 
 ``pull`` returns:
-  * True  — every piece landed via P2P (the conductor verifies and
+  * True  — every NEEDED piece landed (the conductor verifies and
     finalizes);
   * False — fall back to origin: NeedBackSource from the scheduler, no
     parents within the schedule timeout, or all parents gone without
@@ -114,6 +118,7 @@ class _Synchronizer:
         if packet.content_length >= 0 and self.conductor.piece_size == 0:
             self.conductor.set_content_info(packet.content_length,
                                             packet.piece_size)
+            self.engine.apply_shard_state(self.conductor)
         if self.conductor.piece_size == 0:
             return    # the parent does not know the geometry yet
         dst_addr = (packet.dst_addr
@@ -125,6 +130,12 @@ class _Synchronizer:
             self._seen.add(p.piece_num)
         infos = [p for p in (packet.piece_infos or [])
                  if p.piece_num not in self.conductor.ready]
+        if infos:
+            # pieces already on this task's disk (a warm partial) are
+            # placed locally: the dispatcher never queues a pull for them
+            placed = await self.conductor.place_from_store(infos)
+            if placed:
+                infos = [p for p in infos if p.piece_num not in placed]
         if infos:
             await self.engine.dispatcher.announce(self.parent.peer_id, infos)
 
@@ -156,9 +167,26 @@ class PieceEngine:
         self._ping_base = 0.1 * random.uniform(0.9, 1.5)
         self._ping_interval = self._ping_base
         self._announced_at_ping = -1
+        self._shards_applied = False
 
     def peer_client(self, addr: str) -> ServiceClient:
         return ServiceClient(self._channels.get(addr), DAEMON_SERVICE)
+
+    def apply_shard_state(self, conductor) -> None:
+        """Push the conductor's sharded-task piece classes into the
+        dispatcher once geometry is known: the needed subset (pieces
+        outside it are never dispatched) and the swap-class set (held
+        off seed parents for the swap hold). Idempotent; re-applied on
+        widen."""
+        if conductor.shard_tracker is None or conductor.piece_size <= 0:
+            return
+        if (self._shards_applied
+                and self.dispatcher.needed == conductor.needed_pieces
+                and self.dispatcher.swap_nums == conductor.swap_piece_nums):
+            return
+        self._shards_applied = True
+        self.dispatcher.set_shard_state(conductor.needed_pieces,
+                                        conductor.swap_piece_nums)
 
     # ------------------------------------------------------------------
 
@@ -198,6 +226,7 @@ class PieceEngine:
         if session.result.content_length >= 0:
             conductor.set_content_info(session.result.content_length,
                                        session.result.piece_size)
+        self.apply_shard_state(conductor)
         loop = asyncio.get_running_loop()
         packet_task = loop.create_task(
             self._consume_packets(conductor, session))
@@ -217,6 +246,11 @@ class PieceEngine:
                     return False
                 remaining = conductor.pieces_remaining()
                 if remaining == 0:
+                    # done = every NEEDED piece landed. The commit flag is
+                    # set in the same synchronous block as the coverage
+                    # check: a widen either ran before it (and this check
+                    # saw the widened set) or is refused after it
+                    conductor._finishing = True
                     return True
                 # endgame: duplicate-request racing for the task's tail
                 self.dispatcher.endgame = 0 <= remaining <= ENDGAME_PIECES
@@ -278,6 +312,11 @@ class PieceEngine:
                 # what they have, the main loop decides on fallback
                 self._first_parent.set()
                 continue
+            if packet.assigned_shards is not None:
+                # a shard re-ruling: the group grew after this peer
+                # registered, so its tree share shrank
+                conductor.set_affinity(list(packet.assigned_shards))
+                self.apply_shard_state(conductor)
             parents = list(packet.candidate_peers or [])
             if packet.main_peer is not None:
                 parents.insert(0, packet.main_peer)
@@ -352,6 +391,13 @@ class PieceEngine:
         """Fetch one dispatch, land it, report each piece. ``track``:
         report the outcome to the dispatcher (False for the single-piece
         path, which bypasses it). Returns whether every piece landed."""
+        if conductor.swap_piece_nums and d.parent.is_seed:
+            # a swap-class piece riding the SEED: its swap hold expired
+            # (the partner died or stalled) and the tree covers the hole
+            for info in d.pieces:
+                if info.piece_num in conductor.swap_piece_nums:
+                    conductor.note_shard_fallback(info.piece_num,
+                                                  d.parent.peer_id)
         t0 = int(time.time() * 1000)
         try:
             buf, cost = await self.downloader.download_span(

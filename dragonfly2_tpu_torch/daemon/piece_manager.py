@@ -1,10 +1,12 @@
-"""PieceManager: moves a whole task from its origin into storage.
+"""PieceManager: moves a task's needed pieces from its origin into storage.
 
 Counterpart of the back-source half of
 ``dragonfly2_tpu/daemon/piece_manager.py``: ``download_source`` cuts the
 origin stream into pieces, either as one stream or as a work queue of
 contiguous piece groups read in parallel, and hands each piece to the
-conductor to land.
+conductor to land. Pieces the task's storage already holds are adopted
+first, and the origin is asked only for the holes of the NEEDED set (the
+pieces covering a requested shard subset, or every piece).
 """
 
 from __future__ import annotations
@@ -128,16 +130,46 @@ class PieceManager:
 
         piece_size = conductor.set_content_info(effective)
         n = piece_count(effective, piece_size)
-        if (ranged and self.cfg.back_source_parallelism > 1
-                and effective >= self.cfg.back_source_group_min_bytes):
-            await self._download_piece_groups(conductor, req, effective,
-                                              piece_size, n)
-        elif n:
-            await self._download_stream(conductor, req, piece_size)
+        # warm adoption BEFORE any origin byte moves: pieces this task
+        # already holds on disk (a finished subset's warm partial) land
+        # without a transfer, and the origin is asked only for the holes
+        if conductor.storage is not None and conductor.storage.md.pieces:
+            await conductor.place_from_store(
+                [m.to_info() for m in
+                 list(conductor.storage.md.pieces.values())])
+        # Looped: a joiner may WIDEN the needed set mid-fetch
+        # (conductor.widen_to_whole_file), so the holes are re-derived
+        # after each round; the commit flag is set in the same
+        # synchronous block as the final emptiness check, so a widen can
+        # never slip between "covered" and finalize
+        prev_missing: list[int] | None = None
+        while True:
+            missing = [i for i in conductor.needed_piece_nums(n)
+                       if i not in conductor.ready]
+            if not missing:
+                conductor._finishing = True
+                break
+            if missing == prev_missing:
+                # a round moved nothing: surface it instead of spinning
+                raise DFError(Code.SOURCE_ERROR,
+                              f"origin round landed none of "
+                              f"{len(missing)} missing pieces")
+            prev_missing = missing
+            if (ranged and self.cfg.back_source_parallelism > 1
+                    and (len(missing) < n
+                         or effective
+                         >= self.cfg.back_source_group_min_bytes)):
+                # the piece-group path also fills holes: its range reads
+                # skip everything already landed or not needed
+                await self._download_piece_groups(conductor, req, effective,
+                                                  piece_size, missing)
+            else:
+                await self._download_stream(conductor, req, piece_size)
 
     async def _download_stream(self, conductor, req: SourceRequest,
                                piece_size: int) -> None:
-        """One origin stream, cut into pieces as bytes arrive."""
+        """One origin stream of the whole content, cut into pieces as
+        bytes arrive (pieces already landed are deduped at landing)."""
         resp = await _open_source(req)
         total = conductor.content_length
         # offsets are range-relative: the task stores just its range
@@ -151,31 +183,40 @@ class PieceManager:
 
     async def _download_piece_groups(self, conductor, req: SourceRequest,
                                      total: int, piece_size: int,
-                                     n: int) -> None:
-        """Work-queue of contiguous piece groups: each worker streams the
-        next unclaimed group (parallel range reads).
+                                     missing: list[int]) -> None:
+        """Work-queue of contiguous piece groups over the MISSING pieces:
+        each worker streams the next unclaimed group (parallel range
+        reads). Pieces outside ``missing`` split the runs, so the origin
+        only ever serves the holes.
 
         Dynamic claiming instead of a static per-worker partition makes
         coverage advance front to back, so device-sink shards complete
         progressively and their host-to-device copies overlap the download;
         with static quarters every worker finishes at once and every copy
         fires after the last byte."""
-        workers = min(self.cfg.back_source_parallelism, n)
+        m = len(missing)
+        workers = min(self.cfg.back_source_parallelism, m)
         # one copy unit per group: big enough that per-request origin
         # overhead is noise, small enough that groups never span sink
         # shards. The tail stretch (last ~2 rounds of the worker pool)
         # halves the group size so streams finish staggered and the tail
         # copies overlap too.
         group_pieces = max(1, min(INGEST_DMA_UNIT_BYTES // piece_size,
-                                  -(-n // workers)))
+                                  -(-m // workers)))
         bounds: list[tuple[int, int]] = []
-        first = 0
-        while first < n:
+        idx = 0
+        while idx < m:
             size = group_pieces
-            if n - first <= 2 * workers * group_pieces and group_pieces > 1:
+            if m - idx <= 2 * workers * group_pieces and group_pieces > 1:
                 size = max(1, group_pieces // 2)
-            bounds.append((first, min(first + size, n)))
-            first = bounds[-1][1]
+            # clip the group to the contiguous run starting here: a group
+            # must be one origin Range, and held pieces break the run
+            end = idx + 1
+            while end < min(idx + size, m) \
+                    and missing[end] == missing[end - 1] + 1:
+                end += 1
+            bounds.append((missing[idx], missing[end - 1] + 1))
+            idx = end
         queue = collections.deque(bounds)
         base = req.range.start if req.range else 0
 

@@ -22,6 +22,7 @@ from ..idl.messages import (DeleteTaskRequest, DownloadRequest, Empty,
                             UrlMeta)
 from ..rpc.server import ServiceDef
 from .peertask_manager import PeerTaskManager
+from .scheduler_session import REGISTER_TIMEOUT_S
 
 log = logging.getLogger("df.rpc.daemon")
 
@@ -111,6 +112,18 @@ class DaemonService:
         first_packet = True
         async for request in request_iter:
             conductor = self.ptm.conductor(request.task_id)
+            if conductor is not None and conductor.storage is None:
+                # a running task that does not know its geometry yet (a
+                # replica registered together with this child): answer once
+                # it does. NOT_FOUND would make the child drop a parent
+                # that is about to hold the pieces it swaps for. A task
+                # that learns nothing in a register's time (torn down
+                # before it knew) is answered NOT_FOUND below
+                try:
+                    await asyncio.wait_for(conductor.storage_ready.wait(),
+                                           REGISTER_TIMEOUT_S)
+                except asyncio.TimeoutError:
+                    pass
             # subscribe before the snapshot: a piece landing while the
             # snapshot is on the wire is then announced by its event
             q = (conductor.subscribe() if conductor is not None

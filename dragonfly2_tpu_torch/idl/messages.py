@@ -296,6 +296,10 @@ class PeerPacket:
     candidate_peers: list[PeerAddr] | None = None
     code: int = 0                   # e.g. SCHED_NEED_BACK_SOURCE
     advisory: bool = False          # adds parents without pruning
+    # port-only: a changed shard-affinity ruling for a sharded peer whose
+    # group grew after it registered (the reference rules only at
+    # register). None = no ruling; older decoders ignore the key
+    assigned_shards: list[str] | None = None
 
 
 @message

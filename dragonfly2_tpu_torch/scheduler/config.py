@@ -7,9 +7,9 @@ directory) and the learned loop's cadences; the limits the register ->
 schedule -> report path honours are the reference's defaults, as
 constants (reference ``scheduler/config/config.go`` + ``constants.go``).
 The relay-tree shaping is off (``relay_fanout`` 0, the reference's
-default exact path) and the control plane's extras (quarantine,
-federation, shard affinity, fleet pulse, state store, tracing) wait for
-later slices.
+default exact path); shard affinity is on by default, as in the
+reference; the control plane's other extras (quarantine, federation,
+fleet pulse, state store, tracing) wait for later slices.
 """
 
 from __future__ import annotations
@@ -60,3 +60,9 @@ class SchedulerConfig:
     records_dir: str = ""                  # download-record JSONL ("" = memory-only)
     train_upload_interval_s: float = 60.0  # records -> trainer cadence
     model_refresh_interval_s: float = 60.0  # manager -> ml evaluator cadence
+    # sharded-checkpoint shard affinity (scheduler/shard_affinity.py): at
+    # register, a request carrying UrlMeta.shards gets the disjoint
+    # tree-fetch subset of its shards (RegisterResult.assigned_shards,
+    # decision_kind=shard); disabled, every daemon tree-fetches its whole
+    # requested set. Parent scoring is untouched either way.
+    shard_affinity_enabled: bool = True

@@ -3,8 +3,9 @@
 Counterpart of ``dragonfly2_tpu/scheduler/resource.py`` (reference
 ``scheduler/resource/``): the per-task piece-holder DAG over peers, the
 peer and task state machines with validated transitions, host upload-slot
-accounting, and TTL GC. The federation eviction hooks and the state-size
-accounting of the control-plane observatory are left out.
+accounting, and TTL GC, with the eviction hooks the shard-affinity view
+forgets departed hosts and tasks through. The state-size accounting of
+the control-plane observatory is left out.
 """
 
 from __future__ import annotations
@@ -147,6 +148,12 @@ class Peer:
         # unary report, and a live peer re-opens a stream (both clear it) —
         # but offers and coverage must stop counting the peer meanwhile.
         self.stream_gone = False
+        # sharded register: the shards this peer requested, its current
+        # shard-affinity ruling, and whether a changed ruling still waits
+        # for the report stream to open (SchedulerService._rerule_partners)
+        self.shard_request: list[str] | None = None
+        self.assigned_shards: list[str] | None = None
+        self.shard_push_pending = False
         self.created_at = time.time()
         self.updated_at = self.created_at
 
@@ -354,6 +361,10 @@ class Resource:
     def __init__(self):
         self.tasks: dict[str, Task] = {}
         self.hosts: dict[str, Host] = {}
+        # eviction hooks: a host or task leaving the resource model must
+        # also leave the views that remember it (shard affinity)
+        self.on_host_evict = None      # callable(host_id)
+        self.on_task_evict = None      # callable(task_id)
 
     # -- lookups -------------------------------------------------------
 
@@ -403,6 +414,8 @@ class Resource:
         """Remove the host and every peer on it; returns orphaned children's
         peers so the service can reschedule them."""
         self.hosts.pop(host_id, None)
+        if self.on_host_evict is not None:
+            self.on_host_evict(host_id)
         orphaned: list[Peer] = []
         for task in self.tasks.values():
             gone = [p for p in task.peers.values() if p.host.id == host_id]
@@ -429,9 +442,13 @@ class Resource:
                     evicted += 1
             if not task.peers and now - task.updated_at > TASK_TTL_S:
                 del self.tasks[task.id]
+                if self.on_task_evict is not None:
+                    self.on_task_evict(task.id)
                 evicted += 1
         for host in list(self.hosts.values()):
             if now - host.updated_at > HOST_TTL_S:
                 del self.hosts[host.id]
+                if self.on_host_evict is not None:
+                    self.on_host_evict(host.id)
                 evicted += 1
         return evicted

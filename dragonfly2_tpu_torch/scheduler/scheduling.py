@@ -4,7 +4,11 @@ Counterpart of ``dragonfly2_tpu/scheduler/scheduling.py`` (reference
 ``scheduler/scheduling/scheduling.go``: ``FindCandidateParents`` :385 and
 ``filterCandidateParents`` :500-570 — blocklist, same-peer, DAG-cycle,
 bad-node and free-upload-slot checks) on the exact path: no quarantine,
-federation, shard affinity, relay-tree shaping or QoS preemption. The
+federation, relay-tree shaping or QoS preemption. The ``sharded`` arm
+(``shard_affinity.ShardAffinity``) rules sharded registers' tree-fetch
+subsets and never touches parent scoring; unlike the reference, its swap
+partners are exempt from the DAG-cycle exclusion, since two replicas that
+swap shards must each be the other's parent. The
 candidate pool is shuffled with ``rng`` (the module ``random`` by
 default, as in the reference), so a caller that passes a seeded
 ``random.Random`` gets the reference's choices for the same seed.
@@ -38,13 +42,28 @@ _filter_excluded = REGISTRY.counter(
 
 class Scheduling:
     def __init__(self, evaluator: Evaluator, *,
-                 rng: random.Random | None = None):
+                 rng: random.Random | None = None, sharded=None):
         self.evaluator = evaluator
         self.rng = rng if rng is not None else random
+        # shard-affinity arm; None = no shard rulings, every daemon
+        # fetches its whole requested set from the tree
+        self.sharded = sharded
         # decision ledger hook: callable(row dict), one kind=decision row
         # per find/refresh ruling; None skips all ledger work
         self.decision_sink = None
         self._decision_seq = 0
+
+    def shard_assignment(self, child: Peer,
+                         requested: list[str]) -> list[str] | None:
+        """Sharded-task register hook: the disjoint tree-fetch subset of
+        ``requested`` ruled for this peer (``decision_kind=shard`` rides
+        the affinity's own ledger sink). None while the arm is disabled
+        — the daemon then treats every requested shard as tree-class."""
+        if self.sharded is None or not requested:
+            return None
+        return self.sharded.assign(
+            task_id=child.task.id, peer_id=child.id, host_id=child.host.id,
+            topology=child.host.msg.topology, requested=requested)
 
     def filter_candidates(self, child: Peer,
                           excluded: list | None = None) -> list[Peer]:
@@ -87,14 +106,28 @@ class Scheduling:
                     and parent.id not in child.last_offer_ids):
                 self._trace(child, parent, "no-slots", excluded)
                 continue
-            if self.evaluator.is_bad_node(parent):
+            if (self.evaluator.is_bad_node(parent)
+                    and not self._swap_partners(child, parent)):
                 self._trace(child, parent, "bad-node", excluded)
                 continue
-            if parent.id in cycle_blocked:
+            if (parent.id in cycle_blocked
+                    and not self._swap_partners(child, parent)):
                 self._trace(child, parent, "cycle", excluded)
                 continue
             out.append(parent)
         return out
+
+    def _swap_partners(self, child: Peer, parent: Peer) -> bool:
+        """Co-located replicas requesting a shard in common feed each
+        other by swap, so neither the DAG's cycle rule nor a bad-node
+        blip (one slow piece among a partner's last 20) drops one from the
+        other's offer: a child that loses its partner refetches every
+        swap piece from the seed once the swap hold ends. The edge that
+        closes a cycle stays out of the DAG (``Task.set_parents`` skips
+        it), only the offer carries it."""
+        return self.sharded is not None and self.sharded.swap_partners(
+            child.task.id, child.host.id, child.host.msg.topology,
+            parent.host.id, parent.host.msg.topology)
 
     @staticmethod
     def _trace(child: Peer, parent: Peer, reason: str,

@@ -7,8 +7,10 @@ observes the rulings; download records are kept when ``records_dir`` or
 trainer. With ``manager_addresses`` the scheduler registers with the
 manager, keeps alive, adopts the manager's seed peers when none are
 configured, refreshes the application priority table, and the announcer
-pulls fitted models from the registry. No quarantine, federation, shard
-affinity, state store, fleet pulse or tenant table.
+pulls fitted models from the registry. Shard affinity
+(``shard_affinity_enabled``) rules sharded registers with the ledger as
+its sink and forgets evicted hosts and tasks. No quarantine, federation,
+state store, fleet pulse or tenant table.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from .resource import Resource
 from .scheduling import Scheduling
 from .seed_client import SeedPeerClient
 from .service import SchedulerService, build_service
+from .shard_affinity import ShardAffinity
 from .topology_store import TopologyStore
 
 log = logging.getLogger("df.sched.server")
@@ -51,6 +54,14 @@ class Scheduler:
         # kind=decision rows into records (when kept) for the outcome join
         self.ledger = DecisionLedger(records=records)
         self.scheduling.decision_sink = self.ledger.on_decision
+        # sharded-checkpoint shard affinity: disjoint tree-fetch subsets
+        # ruled at register for requests carrying UrlMeta.shards
+        self.sharded = None
+        if cfg.shard_affinity_enabled:
+            self.sharded = ShardAffinity(sink=self.ledger.on_decision)
+            self.scheduling.sharded = self.sharded
+            self.resource.on_host_evict = self.sharded.forget_host
+            self.resource.on_task_evict = self.sharded.drop_task
         self.service = SchedulerService(self.resource, self.scheduling,
                                         self.seed_client, records=records)
         self.announcer = SchedulerAnnouncer(self)

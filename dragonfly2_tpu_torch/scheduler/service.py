@@ -12,11 +12,20 @@ whose upload slots are full, the scheduler retries on a short interval and
 rules NeedBackSource only when patience runs out or nothing can feed the
 child (``_schedule_with_patience``).
 
+A register that names shards (``UrlMeta.shards``) gets its disjoint
+tree-fetch subset (``RegisterResult.assigned_shards``) from the shard
+affinity arm, ruled as it arrives, as the reference rules it. Unlike the
+reference, which leaves an earlier replica with the ruling of its own
+register (the first of a group is ruled solo and tree-fetches
+everything), the port then rules the group's earlier members again and
+pushes each changed ruling on the member's report stream
+(``PeerPacket.assigned_shards``).
+
 Download records (``records``: piece, failed-piece and peer rows, the
 trainer's dataset) are written where the reference writes them. Left out,
-for later slices: the cluster view, quarantine, federation, shard
-affinity, tenant quotas, QoS preemption, fleet pulse, content re-announce,
-preheat and the probes.
+for later slices: the cluster view, quarantine, federation, tenant
+quotas, QoS preemption, fleet pulse, content re-announce, preheat and the
+probes.
 """
 
 from __future__ import annotations
@@ -28,6 +37,7 @@ from typing import AsyncIterator
 
 from ..common.errors import Code, DFError
 from ..common.metrics import REGISTRY
+from ..common.sharding import parse_shard_names
 from ..idl.messages import (CLASS_DEFAULT_PRIORITY, PRIORITY_CLASSES,
                             AnnounceHostRequest, AnnounceHostResponse,
                             Empty, LeaveHostRequest, LeavePeerRequest,
@@ -117,12 +127,23 @@ class SchedulerService:
                 and not task.has_available_peer()):
             self._fire_seed_trigger(task, req.url_meta)
 
+        assigned = None
+        if req.url_meta is not None and req.url_meta.shards:
+            # sharded task: this peer's disjoint tree-fetch subset of its
+            # requested shards; the rest arrive by swap from co-located
+            # replicas. None (arm disabled) leaves the field off the wire
+            names = parse_shard_names(req.url_meta.shards)
+            assigned = self.scheduling.shard_assignment(peer, names)
+            if assigned is not None:
+                peer.shard_request, peer.assigned_shards = names, assigned
+                self._rerule_partners(peer)
         scope = task.size_scope()
         result = RegisterResult(task_id=task.id, size_scope=SizeScope.NORMAL,
                                 content_length=task.content_length,
                                 piece_size=task.piece_size,
                                 resolved_priority=Priority(resolved_priority),
-                                scheduler_epoch=self.epoch)
+                                scheduler_epoch=self.epoch,
+                                assigned_shards=assigned)
         if scope == SizeScope.EMPTY:
             result.size_scope = SizeScope.EMPTY
         elif scope == SizeScope.SMALL:
@@ -132,6 +153,34 @@ class SchedulerService:
                 result.single_piece = single
         _registers.labels(result.size_scope.name).inc()
         return result
+
+    def _rerule_partners(self, peer: Peer) -> None:
+        """``peer``'s register grew its group: rule each earlier sharded
+        member of the task in that group again, and push a ruling that
+        changed. A member whose report stream is not open yet gets it as
+        the stream's first packet."""
+        group = self.scheduling.sharded.group_of
+        mine = group(peer.host.msg.topology)
+        for other in list(peer.task.peers.values()):
+            if (other is peer or other.shard_request is None
+                    or other.is_done() or other.stream_gone
+                    or group(other.host.msg.topology) != mine):
+                continue
+            assigned = self.scheduling.shard_assignment(other,
+                                                        other.shard_request)
+            if assigned == other.assigned_shards:
+                continue
+            other.assigned_shards = assigned
+            if other.packet_sink is not None:
+                other.packet_sink.put_nowait(self._ruling_packet(other))
+            else:
+                other.shard_push_pending = True
+
+    @staticmethod
+    def _ruling_packet(peer: Peer) -> PeerPacket:
+        return PeerPacket(task_id=peer.task.id, src_peer_id=peer.id,
+                          advisory=True,
+                          assigned_shards=list(peer.assigned_shards))
 
     def _single_piece_parent(self, child: Peer) -> SinglePiece | None:
         info = child.task.pieces.get(0)
@@ -188,6 +237,9 @@ class SchedulerService:
         sink: asyncio.Queue[PeerPacket | None] = asyncio.Queue()
         peer.packet_sink = sink
         peer.stream_gone = False      # live again: a fresh report stream
+        if peer.shard_push_pending:
+            peer.shard_push_pending = False
+            sink.put_nowait(self._ruling_packet(peer))
 
         async def consume() -> None:
             try:

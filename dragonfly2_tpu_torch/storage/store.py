@@ -12,6 +12,7 @@ of writing into a reused descriptor.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import shutil
 import threading
@@ -51,6 +52,7 @@ class TaskStorage:
         self.dir = task_dir
         self.md = metadata
         self._lock = threading.Lock()
+        self._save_lock = threading.Lock()     # one metadata save at a time
         self._data_path = os.path.join(task_dir, DATA_FILE)
         os.makedirs(task_dir, exist_ok=True)
         if not os.path.exists(self._data_path):
@@ -163,7 +165,27 @@ class TaskStorage:
                 self.md.total_piece_count = total_piece_count
             self.md.done = True
             self.md.success = success
-            self.md.save(self.dir)
+        self._save()
+
+    def persist(self) -> None:
+        """Save the metadata without marking the task done: a finished
+        shard subset stays a warm partial that peers read piece by piece
+        and a later request adopts, never whole content."""
+        self._save()
+
+    def _save(self) -> None:
+        """Save a snapshot of the metadata. Its fsync waits behind the
+        data file's write-back (seconds after a multi-GB pull), so it runs
+        outside ``_lock``: the upload server's ``has_range`` takes that
+        lock on the event loop, which would stall every serve meanwhile.
+        The snapshot is taken inside ``_save_lock``, so saves reach the
+        disk in the order of their snapshots: a later state is never
+        overwritten by an earlier one."""
+        with self._save_lock:
+            with self._lock:
+                snap = dataclasses.replace(self.md,
+                                           pieces=dict(self.md.pieces))
+            snap.save(self.dir)
 
     def read_piece(self, num: int) -> bytes:
         meta = self.md.pieces.get(num)

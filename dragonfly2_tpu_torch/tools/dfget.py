@@ -3,8 +3,11 @@
 Counterpart of ``dragonfly2_tpu/tools/dfget.py`` (reference ``cmd/dfget``
 + ``client/dfget/dfget.go``): ``Download`` through the daemon's local
 socket, daemon spawn on demand, and the direct-from-source fallback with
-digest check. Origins are ``file://``; recursive downloads, shard subsets,
-tenants and QoS classes are not ported yet and their flags exit non-zero.
+digest check. ``--shard-manifest`` with ``--shards`` pulls only the
+pieces covering the named shards and prints one ready line per shard,
+marked ``(tree)`` or ``(swap)`` by its supply path. Origins are
+``file://``; recursive downloads, tenants and QoS classes are not ported
+yet and their flags exit non-zero.
 
 Usage:
     python -m dragonfly2_tpu_torch.tools.dfget URL -O /path/out [options]
@@ -14,6 +17,7 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import json
 import os
 import subprocess
 import sys
@@ -24,7 +28,8 @@ from ..common.dfpath import DFPath
 from ..common.errors import Code, DFError
 from ..common.piece import parse_http_range
 from ..common.unit import format_bytes
-from ..idl.messages import DownloadRequest, Empty, Priority, UrlMeta
+from ..idl.messages import (DownloadRequest, Empty, Priority, ShardInfo,
+                            ShardManifest, UrlMeta)
 from ..rpc.client import Channel, ServiceClient
 from ..source import SourceRequest, client_for
 from . import refuse_unported
@@ -82,7 +87,25 @@ def _meta(args) -> UrlMeta:
     return UrlMeta(digest=args.digest, tag=args.tag, range=args.range_,
                    application=args.application, header=header or None,
                    filtered_query_params=args.filter or None,
-                   priority=Priority(args.priority))
+                   priority=Priority(args.priority), shards=args.shards)
+
+
+def _load_shard_manifest(path: str) -> ShardManifest | None:
+    """Parse a shard-manifest JSON file into the wire ShardManifest.
+    Accepts ``{"shards": [...]}`` or a bare list of shard objects."""
+    if not path:
+        return None
+    with open(path, encoding="utf-8") as f:
+        raw = json.load(f)
+    entries = raw.get("shards", raw) if isinstance(raw, dict) else raw
+    shards = [ShardInfo(name=e["name"],
+                        range_start=int(e["range_start"]),
+                        range_size=int(e["range_size"]),
+                        dtype=e.get("dtype", "uint8"),
+                        shape=list(e["shape"]) if e.get("shape") else None,
+                        digest=e.get("digest", ""))
+              for e in entries]
+    return ShardManifest(shards=shards)
 
 
 async def _daemon_alive(sock: str) -> bool:
@@ -109,12 +132,22 @@ def _spawn_daemon(sock: str) -> None:
 
 
 async def download_via_daemon(sock: str, args, *, progress=None) -> None:
+    t0 = time.monotonic()
     ch = Channel(f"unix:{sock}")
     try:
         client = ServiceClient(ch, "df.daemon.Daemon")
         req = DownloadRequest(url=args.url, output=os.path.abspath(args.output),
-                              url_meta=_meta(args), timeout_s=args.timeout)
+                              url_meta=_meta(args), timeout_s=args.timeout,
+                              shard_manifest=_load_shard_manifest(
+                                  args.shard_manifest))
         async for resp in client.unary_stream("Download", req):
+            if resp.shard and not args.quiet:
+                # per-shard ready line: the shard's bytes all verified
+                print(f"\rdfget: shard {resp.shard} ready "
+                      f"[{resp.shards_ready}/{resp.shards_total}] "
+                      f"({resp.shard_src}) at "
+                      f"{time.monotonic() - t0:.3f}s          ")
+                continue
             if progress and not resp.done:
                 progress(resp.completed_length, resp.content_length)
             if resp.done and progress:
@@ -200,10 +233,13 @@ async def run(args) -> int:
 def main(argv: list[str] | None = None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
+    if args.shards and not args.shard_manifest:
+        # without the manifest the daemon cannot map names to byte ranges,
+        # and downloading the whole checkpoint is what the flag avoids
+        parser.error("--shards requires --shard-manifest (the daemon "
+                     "needs the shard table to subset the download)")
     refuse_unported(parser, {
         "--recursive": (args.recursive, "recursive downloads"),
-        "--shards": (args.shards, "shard subsets"),
-        "--shard-manifest": (args.shard_manifest, "shard subsets"),
         "--tenant": (args.tenant, "tenant quotas"),
         "--qos-class": (args.qos_class, "QoS classes")})
     try:

@@ -6,7 +6,12 @@ Counterpart of ``dragonfly2_tpu/tpu/hbm_sink.py``. Design:
 - Pieces are copied into a preallocated host staging tensor at their
   content offsets. When the sink's devices are CUDA devices the staging
   tensor is pinned (page-locked), so the host-to-device copies are DMA by
-  the copy engines and run asynchronously to the host.
+  the copy engines and run asynchronously to the host. In manifest mode
+  the staging tensor holds only the named shards' byte ranges, packed
+  back to back: pinned pages are committed up front (and the host
+  allocator rounds each block up), so staging the whole content for a
+  shard subset would pin the whole file. Bytes outside every named
+  range are skipped.
 - The content is split into byte shards. The moment every byte of a shard
   is present, that shard's index is enqueued to one worker thread that owns
   every host-to-device copy. ``write()`` never waits on a copy: the landing
@@ -28,6 +33,7 @@ distribution is the P2P fabric's job.
 
 from __future__ import annotations
 
+import bisect
 import logging
 import queue
 import threading
@@ -147,7 +153,9 @@ class DeviceIngest:
         ``shard_specs`` switches the sink to MANIFEST mode: each entry is
         ``(name, start, size[, dtype, shape])``, a named byte range that is
         copied the moment its bytes are covered (ranges may be uneven, need
-        not cover the content, and gaps are never copied). ``result()`` then
+        not cover the content, and gaps are neither staged nor copied:
+        ``pinned_bytes`` is the specs' bytes, and writes outside every
+        spec are skipped). ``result()`` then
         returns ``{name: tensor}``, each viewed as the spec's dtype (the
         sink default when "") and reshaped to the spec's shape when given.
         Devices are assigned round-robin per spec. Incompatible with
@@ -195,6 +203,21 @@ class DeviceIngest:
             # overlap scan order: (start, end, index) sorted by start
             self._spec_order = sorted(
                 (sp[1], sp[1] + sp[2], i) for i, sp in enumerate(specs))
+            # staged segments: the specs' ranges merged where they touch,
+            # each (content start, content end, staging offset)
+            segments: list[list[int]] = []
+            for st, en, _i in self._spec_order:
+                if segments and st <= segments[-1][1]:
+                    segments[-1][1] = max(segments[-1][1], en)
+                else:
+                    segments.append([st, en])
+            self._segments: list[tuple[int, int, int]] = []
+            staged = 0
+            for st, en in segments:
+                self._segments.append((st, en, staged))
+                staged += en - st
+            self._seg_starts = [seg[0] for seg in self._segments]
+            self.staged_length = staged
         else:
             n = len(self.devices) * self.shards_per_device
             self.n_shards = n
@@ -203,15 +226,28 @@ class DeviceIngest:
             padded = -(-content_length // (n * itemsize)) * (n * itemsize)
             self.padded_length = padded
             self.shard_bytes = padded // n
+            self.staged_length = padded
         # pinned staging only for CUDA devices; a failed pin raises (a
         # pageable buffer would make every copy a synchronous bounce)
         pin = any(d.type == "cuda" for d in self.devices)
-        t0 = time.monotonic()
-        self.host = torch.empty(self.padded_length, dtype=torch.uint8,
-                                pin_memory=pin)
-        self.pin_seconds = time.monotonic() - t0 if pin else 0.0
+        # pinned bytes as the host allocator hands them out: it rounds each
+        # block up, so the count is read from its own statistics, around
+        # an allocation no other sink's overlaps (CUDA pins one buffer at
+        # a time anyway). torch reports no statistics before its own CUDA
+        # initialization, which a pinned allocation alone does not run
+        if pin:
+            torch.cuda.init()
+        with _PIN_LOCK:
+            handed0 = _pinned_handed_out() if pin else 0
+            t0 = time.monotonic()
+            self.host = torch.empty(self.staged_length, dtype=torch.uint8,
+                                    pin_memory=pin)
+            self.pin_seconds = time.monotonic() - t0 if pin else 0.0
+            self.pinned_bytes = (_pinned_handed_out() - handed0
+                                 if pin else 0)
         self._host_np = self.host.numpy()
-        self._host_np[content_length:] = 0      # the pad tail is zeros
+        if self._specs is None:
+            self._host_np[content_length:] = 0  # the pad tail is zeros
         self._coverage = CoverageMap()
         self._shard_arrays: list[Any | None] = [None] * n
         self._shard_events: list[Any | None] = [None] * n
@@ -255,11 +291,8 @@ class DeviceIngest:
         end = offset + len(data)
         if end > self.content_length:
             raise ValueError(f"write beyond content: {end} > {self.content_length}")
-        self._host_np[offset:end] = np.frombuffer(data, dtype=np.uint8)
-        self._coverage.add(offset, end)
-        _hbm_bytes.inc(len(data))
-        _hbm_done.set(self.done_fraction())
         if self._specs is not None:
+            self._write_segments(offset, end, data)
             # manifest mode: enqueue every named range this span touches
             # (a piece straddling a shard boundary can complete two)
             for s, e, idx in self._spec_order:
@@ -269,10 +302,45 @@ class DeviceIngest:
                     break
                 self._maybe_enqueue(idx)
             return
+        self._host_np[offset:end] = np.frombuffer(data, dtype=np.uint8)
+        self._coverage.add(offset, end)
+        _hbm_bytes.inc(len(data))
+        _hbm_done.set(self.done_fraction())
         first = offset // self.shard_bytes
         last = (end - 1) // self.shard_bytes
         for shard in range(first, min(last + 1, self.n_shards)):
             self._maybe_enqueue(shard)
+
+    def _write_segments(self, offset: int, end: int, data) -> None:
+        """Manifest mode: stage the parts of ``[offset, end)`` that fall
+        inside a staged segment; the rest (manifest gaps, shards outside
+        the sink's specs) is skipped."""
+        src = np.frombuffer(data, dtype=np.uint8)
+        staged = 0
+        i = max(bisect.bisect_right(self._seg_starts, offset) - 1, 0)
+        for seg_start, seg_end, base in self._segments[i:]:
+            if seg_start >= end:
+                break
+            lo, hi = max(offset, seg_start), min(end, seg_end)
+            if lo >= hi:
+                continue
+            self._host_np[base + lo - seg_start:base + hi - seg_start] = \
+                src[lo - offset:hi - offset]
+            self._coverage.add(lo, hi)
+            staged += hi - lo
+        if staged:
+            _hbm_bytes.inc(staged)
+            _hbm_done.set(self.done_fraction())
+
+    def _host_view(self, shard: int) -> torch.Tensor:
+        """The staging bytes of one shard (manifest mode: inside its
+        segment)."""
+        s, e = self._shard_range(shard)
+        if self._specs is not None:
+            i = bisect.bisect_right(self._seg_starts, s) - 1
+            seg_start, _seg_end, base = self._segments[i]
+            s, e = base + s - seg_start, base + e - seg_start
+        return self.host[s:e]
 
     def _shard_range(self, shard: int) -> tuple[int, int]:
         if self._specs is not None:
@@ -330,14 +398,13 @@ class DeviceIngest:
             if shard is None:            # shutdown sentinel
                 return
             try:
-                s, e = self._shard_range(shard)
                 if self._specs is not None:
                     name, _s, _size, sdtype, shape = self._specs[shard]
                     device = self.devices[shard % len(self.devices)]
                 else:
                     name, sdtype, shape = None, self.dtype, None
                     device = self.devices[shard // self.shards_per_device]
-                view = self.host[s:e]
+                view = self._host_view(shard)
                 t0 = time.monotonic()
                 if self._device_put is not None:
                     raw, event = self._device_put(view, device), None
@@ -388,7 +455,8 @@ class DeviceIngest:
     # ------------------------------------------------------------------
 
     def done_fraction(self) -> float:
-        return self._coverage.covered_bytes() / self.padded_length
+        """Covered share of the staged bytes."""
+        return self._coverage.covered_bytes() / self.staged_length
 
     def drain(self, timeout: float | None = None) -> None:
         """Block the CALLING thread (use ``asyncio.to_thread`` from async
@@ -442,6 +510,19 @@ class DeviceIngest:
         if self._specs is not None:
             return {sp[0]: arrays[i] for i, sp in enumerate(self._specs)}
         return arrays
+
+
+_PIN_LOCK = threading.Lock()
+
+
+def _pinned_handed_out() -> int:
+    """Bytes of pinned host blocks torch's host allocator has ever handed
+    out. Unlike the bytes checked out now, this only grows: the same
+    allocation call may take back blocks whose copies have finished (a
+    1-byte ``Tensor.item()`` buffer, say), which would skew a difference
+    of the current count, as it did by one byte on the H100 host."""
+    return int(torch.cuda.host_memory_stats().get(
+        "active_bytes.allocated", 0))
 
 
 def _indexed(device: torch.device) -> torch.device:

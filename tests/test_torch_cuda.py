@@ -64,6 +64,41 @@ def test_whole_file_shuffled_pieces(cuda):
 
 
 @pytest.mark.gpu
+def test_subset_sink_pins_only_requested_bytes(cuda):
+    """A sink built with a shard subset pins the specs' bytes, rounded up
+    as the host allocator rounds a block (the next power of two), not the
+    content, and returns CUDA tensors of the requested shards. A 1-byte
+    pinned buffer of ``Tensor.item()``, returned to the allocator during
+    the sink's allocation, must not show in its count."""
+    raw = _seeded(48 << 20, seed=6)
+    specs = [("w", 8 << 20, 3 << 20, "bfloat16", [1024, 1536]),
+             ("b", (8 << 20) + (3 << 20), 4 * 1000, "float32", [1000]),
+             ("t", 40 << 20, (1 << 20) + 123, "uint8", None)]
+    staged = (3 << 20) + 4000 + (1 << 20) + 123
+    # what came before the sink on the card: Tensor.item() calls and a
+    # pinned block of the same size, used for a copy and freed
+    x = torch.ones(4, dtype=torch.uint8, device=cuda)
+    x[0].item(), x.float().sum().item()
+    h = torch.empty(staged, dtype=torch.uint8, pin_memory=True)
+    h.to(cuda, non_blocking=True)
+    torch.cuda.synchronize()
+    del h
+    ingest = DeviceIngest(len(raw), devices=[cuda], shard_specs=specs)
+    assert ingest.host.is_pinned() and ingest.host.numel() == staged
+    assert ingest.pinned_bytes == 1 << (staged - 1).bit_length() == 8 << 20
+    piece = 4 << 20
+    for off in range(0, len(raw), piece):        # a widened download
+        ingest.write(off, raw[off:off + piece])
+    out = ingest.result(timeout=60)
+    assert list(out) == ["w", "b", "t"]
+    for name, start, size, _dt, _shape in specs:
+        t = out[name]
+        assert t.device == cuda
+        assert t.reshape(-1).view(torch.uint8).cpu().numpy().tobytes() \
+            == raw[start:start + size]
+
+
+@pytest.mark.gpu
 def test_manifest_dtypes_shapes_and_bytes(cuda):
     raw = _seeded(1 << 20, seed=2)
     specs = [("w", 0, 4096 * 2, "bfloat16", [64, 64]),

@@ -212,6 +212,54 @@ def test_full_stack_from_clis(tmp_path):
     assert codes == [0] * len(services), [s.text() for s in services]
 
 
+def test_dfget_shard_subset_from_a_launched_daemon(tmp_path):
+    """``dfget --shards --shard-manifest`` through a launched daemon with
+    no scheduler: one ``(tree)`` ready line per requested shard, the
+    requested range's bytes in the output, and only the covering piece
+    taken from the origin."""
+    piece = 4 << 20
+    blob = np.random.default_rng(5).integers(
+        0, 256, 3 * piece, dtype=np.uint8).tobytes()
+    origin = tmp_path / "ckpt.bin"
+    origin.write_bytes(blob)
+    manifest = tmp_path / "m.json"
+    manifest.write_text(json.dumps({"shards": [
+        {"name": f"s{i}", "range_start": i * piece, "range_size": piece}
+        for i in range(3)]}))
+    sock = str(tmp_path / "d.sock")
+    cfg = tmp_path / "d.json"
+    cfg.write_text(json.dumps({
+        "workdir": str(tmp_path / "d"), "host_ip": "127.0.0.1",
+        "listen_ip": "127.0.0.1", "hostname": "shards-cli",
+        "unix_sock": sock, "device": "cpu"}))
+    daemon = Service("daemon", "--config", str(cfg))
+    try:
+        daemon.wait_line("daemon up:")
+        out = tmp_path / "out.bin"
+        rc = subprocess.run(
+            [PY, "-m", "dragonfly2_tpu_torch.tools.dfget",
+             "file://" + str(origin), "-O", str(out), "--daemon-sock", sock,
+             "--shard-manifest", str(manifest), "--shards", "s1"],
+            env=_env(), cwd=REPO, capture_output=True, text=True,
+            timeout=BOOT_S)
+        assert rc.returncode == 0, rc.stderr[-2000:]
+        ready = [ln for ln in rc.stdout.splitlines() if " ready " in ln]
+        assert len(ready) == 1, rc.stdout
+        assert "shard s1 ready [1/1] (tree)" in ready[0], ready
+        assert out.read_bytes()[piece:2 * piece] == blob[piece:2 * piece]
+        done = daemon.wait_line("task success:")
+        assert f"{piece} bytes, 1 pieces (p2p=0 src={piece})" in done, done
+    finally:
+        assert daemon.stop() == 0, daemon.text()
+
+
+def test_dfget_shards_without_manifest_exits_2(capsys):
+    with pytest.raises(SystemExit) as exc:
+        dfget_cli.main(["u", "-O", "o", "--shards", "a"])
+    assert exc.value.code == 2
+    assert "--shards requires --shard-manifest" in capsys.readouterr().err
+
+
 # ---------------------------------------------------------------- flags
 
 PARSERS = [(manager_cli, ref_manager_cli), (scheduler_cli, ref_scheduler_cli),
@@ -246,9 +294,8 @@ def test_launcher_flags_match_reference(port, ref):
     (daemon_cli, ["--tracing-jsonl", "x.jsonl"], "tracing"),
     (daemon_cli, ["--tracing-otlp", "http://c:4318"], "tracing"),
     (dfget_cli, ["u", "-O", "o", "--recursive"], "recursive"),
-    (dfget_cli, ["u", "-O", "o", "--shards", "a"], "shard subsets"),
-    (dfget_cli, ["u", "-O", "o", "--shard-manifest", "m.json"],
-     "--shard-manifest"),
+    (dfget_cli, ["u", "-O", "o", "-r"], "recursive"),
+    (trainer_cli, ["--debug-port", "-1"], "--debug-port"),
     (dfget_cli, ["u", "-O", "o", "--tenant", "t"], "tenant"),
     (dfget_cli, ["u", "-O", "o", "--qos-class", "bulk"], "QoS"),
 ])

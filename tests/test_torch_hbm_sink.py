@@ -194,6 +194,66 @@ class TestDeviceIngestManifest:
                 == content[start:start + size]
 
 
+    # a requested subset of a six-tensor manifest: two adjacent specs
+    # (one staged segment), one apart, gaps and unrequested tensors between
+    SUBSET = [("emb", 0, 64 * 32 * 2, "bfloat16", [64, 32]),
+              ("norm", 4096, 32 * 2, "bfloat16", [32]),
+              ("q8", 6001, 777, "int8", None)]
+    UNREQUESTED = [(4160, 5000), (5000, 5384), (7000, 7300)]
+
+    @pytest.mark.parametrize("seed", [0, 1, 2])
+    def test_parity_subset_specs(self, seed):
+        """A subset-spec sink fed only the pieces covering its specs (the
+        requested-subset pull) against the reference's subset-spec sink:
+        same names, bytes, dtypes and shapes; staging holds only the
+        specs' bytes."""
+        content, order = _seeded_pieces(8000, 333, seed)
+        covering = [(o, n) for o, n in order
+                    if any(o < s + z and s < o + n
+                           for _nm, s, z, _d, _sh in self.SUBSET)]
+        ours = DeviceIngest(len(content), devices=CPU8,
+                            shard_specs=self.SUBSET)
+        theirs = ref_sink.DeviceIngest(len(content), devices=jax.devices(),
+                                       shard_specs=self.SUBSET)
+        assert ours.host.numel() == 4096 + 64 + 777 < len(content)
+        assert ours.pinned_bytes == 0            # CPU staging: no pin
+        for off, n in covering:
+            ours.write(off, content[off:off + n])
+            theirs.write(off, content[off:off + n])
+        assert ours.done_fraction() == 1.0
+        got, want = ours.result(timeout=30), theirs.result(timeout=30)
+        assert list(got) == list(want) == ["emb", "norm", "q8"]
+        for name, start, size, _dtype, _shape in self.SUBSET:
+            assert str(got[name].dtype) == f"torch.{want[name].dtype}"
+            assert tuple(got[name].shape) == tuple(want[name].shape)
+            assert _torch_bytes(got[name]) == _jax_bytes(want[name]) \
+                == content[start:start + size]
+
+    def test_widen_pieces_outside_specs_are_skipped(self):
+        """After a widen the download lands every piece, the sink still
+        holds only its specs: pieces outside them are skipped without
+        error or out-of-bounds write, as the reference's sink lands them
+        without naming them."""
+        content, order = _seeded_pieces(8000, 333, 7)
+        ours = DeviceIngest(len(content), devices=[CPU],
+                            shard_specs=self.SUBSET)
+        theirs = ref_sink.DeviceIngest(len(content), devices=jax.devices(),
+                                       shard_specs=self.SUBSET)
+        for start, end in self.UNREQUESTED:      # outside every spec
+            ours.write(start, content[start:end])
+        assert ours.done_fraction() == 0.0
+        for off, n in order:
+            ours.write(off, content[off:off + n])
+            theirs.write(off, content[off:off + n])
+        got, want = ours.result(timeout=30), theirs.result(timeout=30)
+        assert list(got) == list(want)
+        for name, start, size, _dtype, _shape in self.SUBSET:
+            assert _torch_bytes(got[name]) == _jax_bytes(want[name]) \
+                == content[start:start + size]
+        with pytest.raises(ValueError, match="beyond content"):
+            ours.write(7990, bytes(20))
+
+
 class TestDeviceIngest:
     def test_shards_land_on_all_devices(self):
         content = np.random.default_rng(0).integers(
