@@ -55,7 +55,11 @@ and then from peers, as the P2P path does:
               tensors and ``dfget``'s file must equal the origin, only the
               seed may read the origin, the scheduler's uploads must reach
               the trainer, whose fit the registry lists and the scheduler
-              binds, and every process must exit cleanly on SIGTERM
+              binds, and every process must exit cleanly on SIGTERM. The
+              daemons' RTT probers report to the scheduler: its topology
+              snapshot must reach 4 measured links among the seed, A and
+              B, its upload must carry them, and the registry must list a
+              ``topology_gnn`` the trainer fitted on the card from them
 9. sharded  — run after phase 6, on its origin file: the checkpoint as two
               pipeline stages (the embedding and the first half of the
               layers; the rest), each pulled by two replicas. A scheduler
@@ -69,7 +73,24 @@ and then from peers, as the P2P path does:
               origin must be read once, by the seed, and no leecher may
               read it; storage must stay warm partials holding only needed
               pieces; no swap piece may fall back to the tree; and each
-              leecher's tree and swap bytes must add up to its stage
+              leecher's tree and swap bytes must add up to its stage.
+              Then one stage-0 replica restarts: a fresh daemon on its
+              workdir reloads and re-verifies its warm partial and pulls
+              its stage again, landing every tensor on the card from disk
+              with no byte from the origin or a peer
+10. nt       — run after phase 8, on its origin: a scheduler with
+              ``algorithm="nt"`` (records kept) in this process, a seed in
+              a spawned child, two leechers here whose RTT probers report
+              before they pull with manifest sinks on the card. Every
+              candidate of a ruling between probed hosts must carry
+              ``substituted: {locality: rtt}`` and the store's RTT, the
+              tensors must equal the origin, and the origin must be read
+              once, by the seed. Then one ruling's cost over phase 7's
+              1,024-host topology with a GNN imputer fitted on the card
+
+Before phase 3 the native storage library (``dfnative.cc``, built with
+g++ at first use) must load: the pulls land crc32c piece digests, and the
+host line reports its crc32c rate beside zlib's crc32.
 
 Each phase prints its lines. The port ports no kernel (the JAX package has
 no Pallas kernel; its device work is ``jax.device_put``, copy-engine work
@@ -130,6 +151,7 @@ from dragonfly2_tpu_torch.scheduler.records import MAX_BUFFERED_ROWS
 from dragonfly2_tpu_torch.scheduler.resource import PeerState
 from dragonfly2_tpu_torch.scheduler.server import Scheduler
 from dragonfly2_tpu_torch.source.file_client import FileSourceClient
+from dragonfly2_tpu_torch.storage import native
 from dragonfly2_tpu_torch.tpu.data import ShardPrefetcher
 from dragonfly2_tpu_torch.tpu.hbm_sink import DeviceIngest
 from dragonfly2_tpu_torch.trainer import (features, models, params_io,
@@ -177,6 +199,10 @@ DEPLOY_REFRESH_S = 2.0
 DEPLOY_BOOT_S = 120.0
 DEPLOY_LOOP_S = 120.0
 DEPLOY_STOP_S = 10.0
+# the trainer fits the GNN from 4 topology rows or more
+# (trainer/service.py); about two probe rounds (20 s each) bound the wait
+DEPLOY_PROBE_LINKS = 4
+DEPLOY_PROBE_S = 50.0
 
 
 class CheckFailed(Exception):
@@ -249,6 +275,15 @@ def manifest_from_file(path: str) -> ShardManifest:
                   range_size=e["data_offsets"][1] - e["data_offsets"][0],
                   dtype=SAFETENSORS_DTYPES[e["dtype"]], shape=e["shape"])
         for name, e in header.items() if name != "__metadata__"])
+
+
+def check_crc32c(md, who: str) -> None:
+    """Every piece the pull landed carries a crc32c digest (the native
+    library's), as the reference's do when its library is built."""
+    bad = sorted(n for n, p in md.pieces.items()
+                 if not p.digest.startswith("crc32c:"))
+    check(bool(md.pieces) and not bad,
+          f"{who}: pieces without a crc32c digest: {bad[:8]}")
 
 
 def hbm_counters() -> dict:
@@ -423,6 +458,7 @@ async def phase_daemon(workdir: str, path: str, digest: str,
             "piece_size": run["piece_size"], "pieces": run["pieces"],
             **hbm_metrics(before)})
         task_id = run["task_id"]
+        check_crc32c(daemon.storage_mgr.get(task_id).md, "phase 3")
         del tensors, run
         await daemon.ptm.delete_task(task_id)
 
@@ -448,6 +484,7 @@ async def phase_daemon(workdir: str, path: str, digest: str,
             "piece_size": run["piece_size"], "pieces": run["pieces"],
             **hbm_metrics(before)})
         task_id = run["task_id"]
+        check_crc32c(daemon.storage_mgr.get(task_id).md, "phase 4")
         del arrays, flat, run
         torch.cuda.empty_cache()
         await daemon.ptm.delete_task(task_id)
@@ -753,6 +790,7 @@ def phase_p2p(workdir: str, path: str, digest: str, header: bytes,
         check(c.traffic_p2p == size and c.traffic_source == 0,
               f"{name}: traffic_p2p {c.traffic_p2p}, traffic_source "
               f"{c.traffic_source}, file {size}")
+        check_crc32c(c.storage.md, f"phase 6 {name}")
         lines[name] = {
             "mode": "manifest" if name == "A" else "file",
             "started_s": run["t0"] - run_a["t0"],
@@ -858,6 +896,31 @@ async def _replicas(workdir: str, sched_addr: str, url: str,
             await d.stop()
 
 
+async def _restart_replica(workdir: str, sched_addr: str, url: str,
+                           manifest: ShardManifest,
+                           stage: list[str]) -> dict:
+    """Replica A0 again, after the pod stopped: a fresh daemon on its
+    workdir reloads its warm partial at construction, re-verifies it at
+    start, and pulls its stage with a manifest sink on the card."""
+    t0 = time.monotonic()
+    d = Daemon(DaemonConfig(
+        workdir=os.path.join(workdir, "A0"), hostname="smoke-a0",
+        listen_ip="127.0.0.1", host_ip="127.0.0.1",
+        scheduler=SchedulerConfig(addresses=[sched_addr])))
+    d.topology = dataclasses.replace(d.topology, pod=SHARDED_POD)
+    await d.start()
+    started_s = time.monotonic() - t0
+    try:
+        run = await _leecher_pull(d, url, UrlMeta(shards=",".join(stage)),
+                                  manifest, {})
+        return {**run, "reload_to_ready_s": time.monotonic() - t0,
+                "reload_and_verify_s": started_s,
+                "reloaded_tasks": d.storage_mgr.reloaded_tasks,
+                "reload": dict(d.reload_stats)}
+    finally:
+        await d.stop()
+
+
 def phase_sharded(workdir: str, path: str, header: bytes, ref: torch.Tensor,
                   layout: list[tuple[str, list[int]]],
                   device: torch.device) -> None:
@@ -891,6 +954,12 @@ def phase_sharded(workdir: str, path: str, header: bytes, ref: torch.Tensor,
         runs, lags = asyncio.run(_replicas(
             os.path.join(workdir, "sharded"), sched_addr, "file://" + path,
             manifest, stages))
+        # the pod's counts, before the restart adds its placements
+        pod_counts = {k: shard_bytes.value(k) - before[k]
+                      for k in ("tree", "swap")}
+        restart = asyncio.run(_restart_replica(
+            os.path.join(workdir, "sharded"), sched_addr, "file://" + path,
+            manifest, stages[0]))
         parent_conn.send("stop")
         check(parent_conn.poll(300), "phase 9 child did not report")
         stats = parent_conn.recv()
@@ -930,6 +999,7 @@ def phase_sharded(workdir: str, path: str, header: bytes, ref: torch.Tensor,
               f"{name}: read {c.traffic_source} bytes from the origin")
         md = c.storage.md
         check(not md.done, f"{name}: a subset's storage was marked done")
+        check_crc32c(md, f"phase 9 {name}")
         check(set(md.pieces) <= c.needed_pieces,
               f"{name}: storage holds pieces outside its needed set")
         by_class = shard_class_bytes(c)
@@ -961,8 +1031,38 @@ def phase_sharded(workdir: str, path: str, header: bytes, ref: torch.Tensor,
             "traffic_p2p": c.traffic_p2p,
             "traffic_source": c.traffic_source}
         del tensors
+    # the restarted replica: its stage from its own disk, verified
+    c = restart["conductor"]
+    check(list(restart["out"]) == stages[0],
+          f"restart: {len(restart['out'])} tensors, want stage 0's "
+          f"{len(stages[0])}")
+    for tname in stages[0]:
+        info, t = shards[tname], restart["out"][tname]
+        lo = info.range_start - base
+        check(t.device == device and torch.equal(
+            t.reshape(-1).view(torch.uint8), ref[lo:lo + info.range_size]),
+              f"restart: {tname} differs from the origin")
+    check(restart["reloaded_tasks"] >= 1
+          and restart["reload"]["pieces_ok"] >= len(c.needed_pieces)
+          and restart["reload"]["pieces_dropped"] == 0,
+          f"restart: reload {restart['reloaded_tasks']} tasks, "
+          f"{restart['reload']}")
+    check((c.traffic_p2p, c.traffic_source) == (0, 0)
+          and c.traffic_placed >= stage_bytes[0],
+          f"restart: p2p {c.traffic_p2p}, source {c.traffic_source}, "
+          f"placed {c.traffic_placed}")
+    emit("phase 9 sharded, restart", {
+        "replica": "A0", "reloaded_tasks": restart["reloaded_tasks"],
+        **restart["reload"], "traffic_p2p": c.traffic_p2p,
+        "traffic_source": c.traffic_source,
+        "traffic_placed": c.traffic_placed,
+        "tensors": len(restart["out"]),
+        "reload_and_verify_s": restart["reload_and_verify_s"],
+        "reload_to_ready_s": restart["reload_to_ready_s"],
+        "pull_s": restart["wall"]})
+    del restart
     fell_back = fallbacks.value() - before["fallback"]
-    metric = {k: shard_bytes.value(k) - before[k] for k in ("tree", "swap")}
+    metric = pod_counts
     fetches = {k: p2p_pieces.value(k) - before[k]
                for k in ("ok", "busy", "fail")}
     ends = [r["t0"] + r["wall"] for r in runs.values()]
@@ -1431,10 +1531,20 @@ def write_json(path: str, obj: dict) -> str:
     return path
 
 
+def uploaded_topology_rows(sched: "Launched") -> int:
+    """The largest topology snapshot the scheduler's announcer uploaded
+    (each upload carries the whole snapshot when it changed)."""
+    return max((int(m.group(1)) for ln in sched.lines("records uploaded:")
+                if (m := re.search(r"\+ (\d+) topology rows", ln))),
+               default=0)
+
+
 async def _deploy_leecher_a(workdir: str, mgr_addr: str, sched_addr: str,
-                            url: str, digest: str,
-                            manifest: ShardManifest) -> dict:
-    """Leecher A: knows only the manager; pulls with a manifest sink."""
+                            url: str, digest: str, manifest: ShardManifest,
+                            sched: "Launched") -> dict:
+    """Leecher A: knows only the manager; pulls with a manifest sink, then
+    stays up (its prober reporting) until the scheduler has uploaded a
+    topology snapshot of ``DEPLOY_PROBE_LINKS`` links or more."""
     a = Daemon(DaemonConfig(
         workdir=os.path.join(workdir, "leecher-a"), hostname="deploy-a",
         listen_ip="127.0.0.1", host_ip="127.0.0.1",
@@ -1449,6 +1559,16 @@ async def _deploy_leecher_a(workdir: str, mgr_addr: str, sched_addr: str,
                                   {})
         c = run["conductor"]
         run["traffic"] = (c.traffic_p2p, c.traffic_source)
+        check_crc32c(c.storage.md, "phase 8 A")
+        t0 = time.monotonic()
+        while uploaded_topology_rows(sched) < DEPLOY_PROBE_LINKS:
+            check(time.monotonic() - t0 < DEPLOY_PROBE_S,
+                  f"the scheduler uploaded {uploaded_topology_rows(sched)} "
+                  f"topology rows in {DEPLOY_PROBE_S:.0f} s, want "
+                  f"{DEPLOY_PROBE_LINKS}: {sched.lines('records uploaded')}")
+            await asyncio.sleep(0.5)
+        run["probe_wait_s"] = time.monotonic() - t0
+        run["probe_rounds_a"] = a.prober.rounds
         return run
     finally:
         await a.stop()
@@ -1534,9 +1654,21 @@ def phase_deploy(workdir: str, seed: int, device: torch.device) -> None:
         check([(s["port"], s["state"]) for s in seeds]
               == [(seed_rpc, "active")], f"REST seed peers: {seeds}")
 
+        # leecher B, a launcher process, serves the dfget CLI below; it is
+        # up before A pulls, so the probers of the seed, A and B overlap
+        sock = os.path.join(d, "b.sock")
+        leech_b = Launched(d, "leecher-b", "daemon", ["--config", write_json(
+            os.path.join(d, "leecher-b.json"), {
+                "workdir": os.path.join(d, "leecher-b"),
+                "hostname": "deploy-b", "host_ip": "127.0.0.1",
+                "listen_ip": "127.0.0.1", "unix_sock": sock,
+                "manager_addresses": [mgr_addr]})])
+        procs.append(leech_b)
+        b_line = leech_b.wait_up("daemon up:")
+
         # leecher A in this process: discovery through the manager only
         run_a = asyncio.run(_deploy_leecher_a(d, mgr_addr, sched_addr, url,
-                                              digest, manifest))
+                                              digest, manifest, sched))
         tensors, base, shapes = run_a["out"], len(header), dict(layout)
         check(len(tensors) == len(layout),
               f"A: {len(tensors)} tensors, want {len(layout)}")
@@ -1555,16 +1687,7 @@ def phase_deploy(workdir: str, seed: int, device: torch.device) -> None:
               f"A: (traffic_p2p, traffic_source) {run_a['traffic']}, "
               f"file {size}")
 
-        # leecher B, a launcher process, serves the dfget CLI
-        sock = os.path.join(d, "b.sock")
-        leech_b = Launched(d, "leecher-b", "daemon", ["--config", write_json(
-            os.path.join(d, "leecher-b.json"), {
-                "workdir": os.path.join(d, "leecher-b"),
-                "hostname": "deploy-b", "host_ip": "127.0.0.1",
-                "listen_ip": "127.0.0.1", "unix_sock": sock,
-                "manager_addresses": [mgr_addr]})])
-        procs.append(leech_b)
-        b_line = leech_b.wait_up("daemon up:")
+        # leecher B: the dfget CLI's daemon, started before A's pull
         check(f"schedulers=['{sched_addr}']" in b_line,
               f"B did not find the scheduler through the manager: {b_line}")
         target = os.path.join(d, "out.safetensors")
@@ -1644,6 +1767,27 @@ def phase_deploy(workdir: str, seed: int, device: torch.device) -> None:
                 "blob_bytes": e["size"]})
         out = {"bound_version": latest["version"],
                "uploads_received": len(received), "fits": fits}
+        # the probes' rows reached the trainer, which fitted the GNN on
+        # the card and published it
+        deadline = time.monotonic() + DEPLOY_LOOP_S
+        while not (gnns := rest_get(rest, f"/api/v1/models?name="
+                                          f"{features.GNN_MODEL_NAME}")):
+            check(time.monotonic() < deadline,
+                  f"no topology_gnn in the registry in {DEPLOY_LOOP_S:.0f} "
+                  f"s; trainer {trainer.lines('gnn fit')}")
+            time.sleep(0.5)
+        check(any(" on cuda" in ln for ln in trainer.lines("gnn fit:")),
+              f"the GNN was not fitted on the card: "
+              f"{trainer.lines('gnn fit:')}")
+        out.update({
+            "probe_wait_s": run_a["probe_wait_s"],
+            "probe_rounds_a": run_a["probe_rounds_a"],
+            "topology_rows_uploaded": uploaded_topology_rows(sched),
+            "topology_gnn": [{
+                "version": e["version"], "edges": e["metrics"]["edges"],
+                "nodes": e["metrics"]["nodes"],
+                "train_seconds": e["metrics"]["train_seconds"]}
+                for e in gnns]})
         for p in (sched, seed_d, leech_b):
             check("manager attach failed" not in p.text(),
                   f"{p.name} logged a failed manager attach")
@@ -1664,8 +1808,227 @@ def phase_deploy(workdir: str, seed: int, device: torch.device) -> None:
         "phase_s": time.monotonic() - t_phase, "card": smi})
 
 
+# ---------------------------------------------------------------- phase 10
+
+NT_PROBE_S = 50.0            # about two probe rounds (20 s each)
+NT_TASK_PEERS = 16           # the cost ruling's task: peers on graph hosts
+
+
+def nt_seed_child(workdir: str, conn) -> None:
+    """Phase 10's seed daemon, in a spawned process that never touches
+    CUDA: it sends its host, serves until the parent asks, then sends the
+    origin bytes it read."""
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""     # before any CUDA call
+    asyncio.run(_nt_seed_child(workdir, conn))
+
+
+async def _nt_seed_child(workdir: str, conn) -> None:
+    origin = CountingFileClient()
+    source.register_client("file", origin)
+    seed = Daemon(DaemonConfig(workdir=os.path.join(workdir, "seed"),
+                               hostname="nt-seed", is_seed=True,
+                               listen_ip="127.0.0.1", host_ip="127.0.0.1",
+                               device="cpu"))
+    await seed.start()
+    try:
+        conn.send({"host": seed.host_info()})
+        await asyncio.to_thread(conn.recv)      # the parent is done
+        conn.send({"origin_bytes_read": origin.bytes_read})
+    finally:
+        await seed.stop()
+
+
+def _pair_rtts(rows: list[dict]) -> dict:
+    return {(r["src"], r["dst"]): r["avg_rtt_us"] for r in rows}
+
+
+async def _nt_pod(workdir: str, seed_host: Host, url: str,
+                  manifest: ShardManifest) -> dict:
+    """An ``nt`` scheduler and two leechers in this process; the leechers'
+    probers report (the seed, A and B pairwise) before both pull."""
+    sched = Scheduler(SchedCfg(
+        listen_ip="127.0.0.1", algorithm="nt",
+        records_dir=os.path.join(workdir, "records"),
+        seed_peers=[SeedPeerAddr(host_id=seed_host.id, ip=seed_host.ip,
+                                 rpc_port=seed_host.port,
+                                 download_port=seed_host.download_port)]))
+    await sched.start()
+    # the seed's own announce (the daemon announcer is not ported): its
+    # host is a probe target before any task triggers it
+    sched.resource.store_host(seed_host)
+    daemons = [Daemon(DaemonConfig(
+        workdir=os.path.join(workdir, n), hostname=f"nt-{n}",
+        listen_ip="127.0.0.1", host_ip="127.0.0.1",
+        scheduler=SchedulerConfig(addresses=[sched.address])))
+        for n in ("a", "b")]
+    try:
+        t0 = time.monotonic()
+        for d in daemons:
+            await d.start()
+        ids = [seed_host.id] + [d.host_info().id for d in daemons]
+        pairs = [(ids[0], ids[1]), (ids[0], ids[2]), (ids[1], ids[2])]
+        while any(sched.topo.avg_rtt_us(a, b) is None for a, b in pairs):
+            check(time.monotonic() - t0 < NT_PROBE_S,
+                  f"probes covered {sched.topo.snapshot_rows()} in "
+                  f"{NT_PROBE_S:.0f} s, want the pairs {pairs}")
+            await asyncio.sleep(0.1)
+        probe_s = time.monotonic() - t0
+        before = sched.topo.snapshot_rows()
+        runs = await asyncio.gather(*(
+            _leecher_pull(d, url, UrlMeta(), manifest, {}) for d in daemons))
+        return {"runs": runs, "probe_s": probe_s, "ids": ids,
+                "rows_before": before,
+                "rows_after": sched.topo.snapshot_rows(),
+                "rounds": [d.prober.rounds for d in daemons],
+                "decisions": sched.ledger.snapshot(limit=4096)["decisions"]}
+    finally:
+        for d in daemons:
+            await d.stop()
+        await sched.stop()
+
+
+def nt_ruling_cost(seed: int, device: torch.device) -> dict:
+    """One ``nt`` ruling over phase 7's 1,024-host, 8,192-link topology
+    with a ``topology_gnn`` imputer fitted on ``device`` from it bound:
+    the first ruling imputes every unprobed pair among the graph's hosts
+    (one forward); the next, inside the imputations' TTL, reads them."""
+    sched = Scheduler(SchedCfg(listen_ip="127.0.0.1", algorithm="nt"))
+    fill_topology(sched, seed)
+    rows = sched.topo.snapshot_rows()
+    fitted = training.train_gnn(rows, device=device)
+    check(fitted is not None, "the GNN did not fit on the phase 7 rows")
+    blob, metrics = fitted
+    sched.topo.bind_imputer(serving.make_gnn_impute(blob))
+    rng = np.random.default_rng(seed + 10)
+    task = sched.resource.get_or_create_task("f" * 64, "file:///nt-cost")
+    task.set_content_info(64 * (4 << 20), 4 << 20, 64)
+    peers = []
+    for k, h in enumerate(rng.choice(GNN_HOSTS, NT_TASK_PEERS,
+                                     replace=False)):
+        host = sched.resource.store_host(Host(
+            id=f"pod-host-{int(h):04d}", ip=f"10.1.{int(h) // 250}."
+            f"{int(h) % 250}", hostname=f"p{int(h)}", port=9000,
+            download_port=8000, type=HostType.NORMAL,
+            topology=TopologyInfo(slice_name=f"slice-{int(h) // 32}")))
+        peer = sched.resource.get_or_create_peer(f"nt-peer-{k:02d}", task,
+                                                 host)
+        peer.transit(PeerState.RUNNING)
+        peer.finished_pieces.update(int(n) for n in rng.choice(
+            64, int(rng.integers(1, 65)), replace=False))
+        peers.append(peer)
+    rows_seen: list[dict] = []
+    sched.scheduling.decision_sink = rows_seen.append
+    times = []
+    for child in peers[:2]:
+        t0 = time.perf_counter()
+        parents = sched.scheduling.find_parents(child)
+        times.append(time.perf_counter() - t0)
+        check(len(parents) > 0, "the nt ruling offered no parent")
+    cands = [c for r in rows_seen for c in r["candidates"]]
+    check(all(c.get("substituted") == {"locality": "rtt"} for c in cands),
+          "a candidate's locality was not the measured or imputed RTT")
+    return {"hosts": GNN_HOSTS, "links": len(rows),
+            "imputed_pairs": len(sched.topo._imputed),
+            "gnn_train_seconds": metrics["train_seconds"],
+            "candidates": len(cands),
+            "cold_ruling_ms": times[0] * 1e3,
+            "warm_ruling_ms": times[1] * 1e3}
+
+
+def phase_nt(workdir: str, seed: int, device: torch.device) -> None:
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    t_phase = time.monotonic()
+    path = os.path.join(workdir, "deploy", "model-00004-of-00004.safetensors")
+    layout = deploy_layout()
+    header, _ = safetensors_header(layout)
+    size = os.path.getsize(path)
+    manifest = manifest_from_file(path)
+    with open(path, "rb") as f:
+        f.seek(len(header))
+        ref = torch.frombuffer(bytearray(f.read()), dtype=torch.uint8).to(
+            device)
+    d = os.path.join(workdir, "nt")
+    ctx = multiprocessing.get_context("spawn")
+    parent_conn, child_conn = ctx.Pipe()
+    child = ctx.Process(target=nt_seed_child, name="smoke-nt-child",
+                        args=(d, child_conn))
+    child.start()
+    try:
+        check(parent_conn.poll(300), "phase 10 child did not start")
+        seed_host = parent_conn.recv()["host"]
+        pod = asyncio.run(_nt_pod(d, seed_host, "file://" + path, manifest))
+        parent_conn.send("stop")
+        check(parent_conn.poll(300), "phase 10 child did not report")
+        stats = parent_conn.recv()
+    finally:
+        child.join(timeout=120)
+        if child.is_alive():
+            child.terminate()
+            child.join(timeout=30)
+    check(child.exitcode == 0, f"phase 10 child exited {child.exitcode}")
+    base, shapes = len(header), dict(layout)
+    lines = {}
+    for name, run in zip(("A", "B"), pod["runs"]):
+        c, tensors = run["conductor"], run["out"]
+        for info in manifest.shards:
+            t = tensors[info.name]
+            lo = info.range_start - base
+            check(t.device == device and t.dtype == torch.bfloat16
+                  and list(t.shape) == shapes[info.name]
+                  and torch.equal(t.reshape(-1).view(torch.uint8),
+                                  ref[lo:lo + info.range_size]),
+                  f"{name}: {info.name} differs from the origin")
+        check(c.traffic_source == 0 and c.traffic_p2p == size,
+              f"{name}: p2p {c.traffic_p2p}, source {c.traffic_source}")
+        check_crc32c(c.storage.md, f"phase 10 {name}")
+        lines[name] = {"time_to_ready_s": run["wall"],
+                       "pieces_per_parent": dict(c.pieces_by_parent)}
+        del tensors, run["out"]
+    check(stats["origin_bytes_read"] == size,
+          f"origin read {stats['origin_bytes_read']} bytes, file {size}")
+    # every candidate of a ruling between probed hosts was scored on the
+    # store's measured RTT (the value before or after the pulls, when a
+    # probe report landed during them)
+    measured = [_pair_rtts(pod["rows_before"]), _pair_rtts(pod["rows_after"])]
+
+    def rtt(store, a, b):
+        return store.get((a, b), store.get((b, a)))
+    substituted = 0
+    for row in pod["decisions"]:
+        check(row["evaluator"] == "RTTEvaluator",
+              f"a ruling by {row['evaluator']}")
+        for cand in row["candidates"]:
+            want = {rtt(m, row["host_id"], cand["host_id"])
+                    for m in measured} - {None}
+            if not want:
+                check("substituted" not in cand,
+                      f"an unprobed pair scored on an RTT: {cand}")
+                continue
+            check(cand.get("substituted") == {"locality": "rtt"}
+                  and cand.get("rtt_us") in want,
+                  f"candidate {cand['host_id']} of {row['host_id']}: "
+                  f"{cand.get('substituted')} rtt_us "
+                  f"{cand.get('rtt_us')}, the store's {want}")
+            substituted += 1
+    check(substituted > 0, "no ruling scored a probed pair")
+    cost = nt_ruling_cost(seed, device)
+    emit("phase 10 nt", {
+        "file_bytes": size, "probe_s": pod["probe_s"],
+        "probe_rounds": pod["rounds"],
+        "rtt_us": {f"{a}->{b}": v for (a, b), v in
+                   _pair_rtts(pod["rows_after"]).items()},
+        "rulings": len(pod["decisions"]),
+        "candidates_on_rtt": substituted,
+        "origin_bytes_read": stats["origin_bytes_read"],
+        "leechers": lines, "ruling_cost": cost,
+        "phase_s": time.monotonic() - t_phase, "card": smi})
+
+
 def run_phases(layers: int, seed: int, device: torch.device) -> None:
-    """Phases 2-9 on ``device``; raises CheckFailed on a failed check."""
+    """Phases 2-10 on ``device``; raises CheckFailed on a failed check."""
     layout = llama_layout(layers)
     header, nbytes = safetensors_header(layout)
     workdir = tempfile.mkdtemp(prefix="chip-smoke-")
@@ -1673,15 +2036,28 @@ def run_phases(layers: int, seed: int, device: torch.device) -> None:
         buf = seeded_bytes(np.random.default_rng(seed), nbytes)
         ref = phase_sink(buf, seed, device)
         path = os.path.join(workdir, "model-00001-of-00004.safetensors")
+        # the pulls' piece digests are the native library's crc32c: it is
+        # built from the port's copy of dfnative.cc here, or the run fails
+        t_build = time.monotonic()
+        try:
+            native.build()
+        except (OSError, subprocess.SubprocessError) as exc:
+            detail = getattr(exc, "stderr", b"") or b""
+            check(False, f"native storage library did not build: {exc} "
+                         f"{detail.decode(errors='replace')[-2000:]}")
+        build_s = time.monotonic() - t_build
+        check(native.available(), "native storage library did not load")
         # host-side ceilings of the pull, one pass each over the bytes:
-        # the finalize digest (sha256), the piece digests (crc32) and the
-        # origin file write
+        # the finalize digest (sha256), the piece digests (crc32c, and
+        # zlib's crc32 for comparison) and the origin file write
         t0 = time.monotonic()
         sha = hashlib.sha256(header)
         sha.update(buf)
         t1 = time.monotonic()
         zlib.crc32(buf)
         t2 = time.monotonic()
+        native.crc32c_update(buf, 0)
+        t2c = time.monotonic()
         with open(path, "wb") as f:
             f.write(header)
             f.write(memoryview(buf))
@@ -1689,7 +2065,9 @@ def run_phases(layers: int, seed: int, device: torch.device) -> None:
         t3 = time.monotonic()
         emit("host", {"bytes": nbytes, "sha256_gbps": nbytes / 1e9 / (t1 - t0),
                       "crc32_gbps": nbytes / 1e9 / (t2 - t1),
-                      "file_write_fsync_gbps": nbytes / 1e9 / (t3 - t2),
+                      "crc32c_gbps": nbytes / 1e9 / (t2c - t2),
+                      "native_build_s": build_s,
+                      "file_write_fsync_gbps": nbytes / 1e9 / (t3 - t2c),
                       "cpus": os.cpu_count()})
         del buf
         digest = "sha256:" + sha.hexdigest()
@@ -1706,6 +2084,7 @@ def run_phases(layers: int, seed: int, device: torch.device) -> None:
         os.unlink(path)
         phase_trainer(workdir, seed, device)
         phase_deploy(workdir, seed, device)
+        phase_nt(workdir, seed, device)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 

@@ -20,6 +20,13 @@ widens the live download (``widen_to_whole_file``) until the download
 commits to finishing (``_finishing``). The reference's flight-recorder
 events have no counterpart here; the ``df_shard_*`` metrics and the
 published ``shard`` events stand in their place.
+
+Bytes already on disk are not transferred again: a request naming a
+content digest the content store holds complete is adopted whole
+(``_try_adopt_content``), and an announced piece held under this task (a
+warm partial, reloaded at a restart) or under any task with the same
+piece digest is placed from disk (``place_from_store``,
+``traffic_placed``).
 """
 
 from __future__ import annotations
@@ -127,6 +134,8 @@ class PeerTaskConductor:
         self.completed_length = 0
         self.traffic_p2p = 0          # bytes from peers
         self.traffic_source = 0       # bytes from origin
+        self.traffic_placed = 0       # bytes placed from disk, not moved
+        self._adopted = False         # whole task materialized by digest
         self.pieces_by_parent: dict[str, int] = {}   # P2P pieces per parent
         self.start_ms = int(time.time() * 1000)
 
@@ -167,6 +176,11 @@ class PeerTaskConductor:
         session, so the PeerResult carries the real outcome."""
         try:
             used_p2p = False
+            if await self._try_adopt_content():
+                # the whole task is on disk under another task id: no
+                # scheduler, no parents, no origin
+                await self._finish_success()
+                return
             if self.scheduler is not None:
                 self._session = await self._register()
                 if self._session is not None:
@@ -455,28 +469,97 @@ class PeerTaskConductor:
             if num not in self._staged:
                 self._ingest_to_device(num, meta.start, data)
 
+    async def _try_adopt_content(self) -> bool:
+        """Whole-task dedupe: when the request names a content digest the
+        store holds complete, this task becomes a hardlink of that copy
+        with its piece table (zero transfers). The device sink is fed from
+        disk at finalize (``_stage_backlog``). False = no hit."""
+        castore = self.storage_mgr.castore
+        if (not self.url_meta.digest or self.content_range is not None
+                # a ranged request's content_range resolves only later,
+                # against the origin: adopting on it would land the whole
+                # file under the ranged task id
+                or self.url_meta.range or castore is None):
+            return False
+        md = TaskMetadata(
+            task_id=self.task_id, task_type=self.task_type, url=self.url,
+            tag=self.url_meta.tag, application=self.url_meta.application,
+            digest=self.url_meta.digest, priority=self.resolved_priority,
+            qos_class=self.url_meta.qos_class)
+        ts = await run_io(self.storage_mgr.adopt_content, md)
+        if ts is None or not (ts.md.done and ts.md.success):
+            return False
+        self._adopted = True
+        self.storage = ts
+        self.content_length = ts.md.content_length
+        self.piece_size = ts.md.piece_size
+        self.total_pieces = ts.md.total_piece_count
+        self.storage_ready.set()
+        self._init_shards()
+        castore.note_hit("content", ts.md.content_length)
+        if self.device_sink_factory is not None and self.content_length > 0:
+            self._sink_build = asyncio.get_running_loop().create_task(
+                self._build_device_ingest(self.content_length))
+        for num in sorted(ts.md.pieces):
+            p = ts.md.pieces[num]
+            async with self._piece_cond:
+                self.ready.add(num)
+                self.completed_length += p.size
+                self._piece_cond.notify_all()
+            self.traffic_placed += p.size
+            self._note_shard_progress(num, p.start, p.size)
+            self._publish({"type": "piece", "num": num, "size": p.size,
+                           "completed": self.completed_length,
+                           "total": self.content_length})
+        self.log.info("content dedupe: task adopted from the store "
+                      "(%d pieces, %d bytes, zero transferred)",
+                      len(ts.md.pieces), self.completed_length)
+        return True
+
     async def place_from_store(self, infos: list[PieceInfo]) -> set[int]:
-        """Land any of ``infos`` that THIS task's storage already holds (a
-        finished subset's warm partial, or an earlier attempt's pieces)
-        without touching the wire. Their bytes verified when they first
-        landed; the device sink takes them from storage
-        (``_stage_backlog``). Returns the piece numbers landed, so the
-        engine never dispatches a pull for them."""
+        """Land any of ``infos`` whose bytes are already on disk without
+        touching the wire: pieces THIS task's storage holds (a finished
+        subset's warm partial, a reloaded one, an earlier attempt's)
+        verified when they landed or at the restart's re-verify, and
+        pieces another task holds under the same digest, copied and
+        re-verified by the content store. The device sink takes them from
+        storage (``_stage_backlog``). Returns the piece numbers landed, so
+        the engine never dispatches a pull for them."""
         if self.storage is None:
             return set()
+        castore = self.storage_mgr.castore
         placed: set[int] = set()
         reports: list[PieceResult] = []
         for info in infos:
             num = info.piece_num
-            meta = self.storage.md.pieces.get(num)
-            if meta is None or num in self.ready or num in self._landing:
+            if num in self.ready or num in self._landing:
                 continue
+            meta = self.storage.md.pieces.get(num)
+            if meta is None and (castore is None or not info.digest
+                                 or castore.find_piece(
+                                     info.digest, info.range_size,
+                                     exclude_task=self.task_id) is None):
+                continue
+            if meta is None:
+                self._landing.add(num)
+                try:
+                    landed = await run_io(
+                        castore.place_piece, self.storage, num,
+                        info.range_start, info.range_size, info.digest)
+                finally:
+                    self._landing.discard(num)
+                meta = self.storage.md.pieces.get(num) if landed else None
+                if meta is None:
+                    continue
+            elif castore is not None:
+                castore.note_hit("task", meta.size)
             async with self._piece_cond:
                 if num in self.ready or num in self._landing:
                     continue
                 self.ready.add(num)
                 self.completed_length += meta.size
                 self._piece_cond.notify_all()
+            self.traffic_placed += meta.size
             placed.add(num)
             self._note_shard_progress(num, meta.start, meta.size)
             self._publish({"type": "piece", "num": num, "size": meta.size,
@@ -641,6 +724,10 @@ class PeerTaskConductor:
     async def _verify_digest(self) -> None:
         if not self.url_meta.digest or self.storage is None:
             return
+        if self._adopted:
+            # the canonical copy verified this digest when it completed,
+            # and adoption hardlinks that same inode
+            return
         if self.content_range is not None:
             # the digest describes the whole file; a sub-range can't check it
             return
@@ -745,9 +832,10 @@ class PeerTaskConductor:
         self.done_event.set()
         async with self._piece_cond:
             self._piece_cond.notify_all()
-        self.log.info("task success: %d bytes, %d pieces (p2p=%d src=%d)",
-                      self.completed_length, len(self.ready),
-                      self.traffic_p2p, self.traffic_source)
+        self.log.info("task success: %d bytes, %d pieces (p2p=%d src=%d) "
+                      "placed=%d", self.completed_length, len(self.ready),
+                      self.traffic_p2p, self.traffic_source,
+                      self.traffic_placed)
 
     async def _finish_fail(self, code: Code, message: str) -> None:
         if self.state in (self.SUCCESS, self.FAILED):

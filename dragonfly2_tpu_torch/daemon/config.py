@@ -1,9 +1,10 @@
 """Daemon configuration.
 
 Counterpart of ``dragonfly2_tpu/daemon/config.py`` cut to the deployment
-settings this slice honors (manager and scheduler addresses, the
-scheduler-set refresh, ports, listeners, workdir), plus ``device``: where
-the device sink lands bytes. The
+settings the port honors (manager and scheduler addresses, the
+scheduler-set refresh, ports, listeners, workdir, the storage section's
+GC, dedupe and reload settings, RTT probing), plus ``device``: where the
+device sink lands bytes. The
 reference's tuning knobs that no caller of the port sets yet are module
 constants where they are used.
 """
@@ -36,6 +37,24 @@ class UploadConfig:
 
 
 @dataclass
+class StorageSection:
+    task_ttl_s: float = 6 * 3600.0
+    disk_gc_high_ratio: float = 0.90
+    disk_gc_low_ratio: float = 0.80
+    capacity_bytes: int = 0
+    gc_interval_s: float = 60.0
+    # content-addressed store (storage/castore.py): a piece already held
+    # under any task is placed, not transferred, and identical completed
+    # content hardlinks to one inode. Off: storage keyed by task id only
+    dedupe_enabled: bool = True
+    # crc32c re-verification of reloaded pieces at boot, before the warm
+    # state is served
+    reload_verify: bool = True
+    # serve-popularity decay half-life feeding the GC's eviction order
+    popularity_halflife_s: float = 600.0
+
+
+@dataclass
 class DaemonConfig:
     workdir: str = ""
     host_ip: str = ""                      # advertised to peers; "" = detect
@@ -48,6 +67,8 @@ class DaemonConfig:
     scheduler: SchedulerConfig = field(default_factory=SchedulerConfig)
     download: DownloadConfig = field(default_factory=DownloadConfig)
     upload: UploadConfig = field(default_factory=UploadConfig)
+    storage: StorageSection = field(default_factory=StorageSection)
+    probe_enabled: bool = True             # RTT probing via SyncProbes
     # "cuda": every CUDA device of the host (an error when there is none);
     # "cpu": one CPU device, only when named
     device: str = "cuda"

@@ -227,6 +227,15 @@ class PieceEngine:
             conductor.set_content_info(session.result.content_length,
                                        session.result.piece_size)
         self.apply_shard_state(conductor)
+        if conductor.storage is not None and conductor.storage.md.pieces:
+            # a warm partial (reloaded at a restart, or an earlier
+            # attempt's) places what it holds now; one that holds every
+            # needed piece finishes without waiting for a parent
+            await conductor.place_from_store(
+                [p.to_info() for p in conductor.storage.piece_infos()])
+            if conductor.pieces_remaining() == 0:
+                conductor._finishing = True
+                return True
         loop = asyncio.get_running_loop()
         packet_task = loop.create_task(
             self._consume_packets(conductor, session))

@@ -282,6 +282,14 @@ class SchedulerConnector:
             f"all {len(cands)} scheduler ring members unreachable "
             f"(last: {last_exc})")
 
+    async def sync_probes(self):
+        """Open the probe bidi stream (``networktopology`` drives it) on
+        the scheduler this host hashes to."""
+        cands = self._candidates(self.host.id)
+        if not cands:
+            raise DFError(Code.UNAVAILABLE, "no scheduler addresses")
+        return self._client_at(cands[0]).stream_stream("SyncProbes")
+
     async def leave_host(self) -> None:
         cands = self._candidates(self.host.id)
         if not cands:

@@ -323,5 +323,8 @@ class UploadServer:
                 await writer.drain()
             _upload_bytes.inc(rng.length)
             _upload_reqs.labels("206").inc()
+            if self.storage_mgr.castore is not None:
+                # what this daemon serves is what the GC should keep
+                self.storage_mgr.castore.record_serve(task_id, rng.length)
         finally:
             slot.release()

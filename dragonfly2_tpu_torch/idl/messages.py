@@ -7,7 +7,7 @@ slice carries the daemon's download messages, the scheduler's register /
 report / announce / leave / stat messages, the peer piece-sync messages,
 the seed trigger, the trainer's ``Train`` / ``ModelInfer`` messages, and
 the manager's registration, discovery, keepalive, model-registry and
-application-list messages. ``TopologyInfo`` carries the host's position
+application-list messages, and the probers' ``SyncProbes`` messages. ``TopologyInfo`` carries the host's position
 for link classification; ``DeviceSink`` describes a device-memory
 placement target; ``ShardManifest`` names the tensors of a sharded
 checkpoint.
@@ -379,6 +379,35 @@ class TaskStat:
     state: str = ""
     peer_count: int = 0
     has_available_peer: bool = False
+
+
+@message
+class ProbeTarget:
+    host_id: str = ""
+    ip: str = ""
+    port: int = 0
+
+
+@message
+class SyncProbesRequest:
+    """Daemon -> scheduler: either asking for targets or reporting results."""
+
+    host: Host | None = None
+    probes: list[Probe] | None = None
+    failed_host_ids: list[str] | None = None
+
+
+@message
+class Probe:
+    target_host_id: str = ""
+    rtt_us: int = 0
+    created_at_ms: int = 0
+
+
+@message
+class SyncProbesResponse:
+    targets: list[ProbeTarget] | None = None
+    probe_interval_s: float = 20.0
 
 
 # ---------------------------------------------------------------- daemon

@@ -64,6 +64,9 @@ class Context:
     def __init__(self, metadata: dict, peer: str):
         self._metadata = metadata
         self._peer = peer
+        # the caller ended its request stream cleanly (END), as opposed to
+        # going away mid-stream
+        self.half_closed = False
 
     def invocation_metadata(self) -> tuple:
         return tuple(self._metadata.items())
@@ -191,6 +194,7 @@ class RPCServer:
                         inbox.put_nowait(loads(payload))
                     elif fkind == wire.END:
                         ended.append(True)
+                        ctx.half_closed = True
                         inbox.put_nowait(_END)
                     else:
                         break
@@ -215,17 +219,25 @@ class RPCServer:
             writer.write(wire.frame(wire.MESSAGE, dumps(msg)))
             await writer.drain()
 
+        async def stream(responses) -> None:
+            try:
+                async for resp in responses:
+                    await send(resp)
+            finally:
+                # a handler cancelled inside send() leaves the generator
+                # suspended at its yield: close it now, so its cleanup
+                # runs with the call and not whenever it is collected
+                await responses.aclose()
+
         async def run() -> None:
             if kind == wire.UNARY_UNARY:
                 await send(await fn(await first_request(), ctx))
             elif kind == wire.UNARY_STREAM:
-                async for resp in fn(await first_request(), ctx):
-                    await send(resp)
+                await stream(fn(await first_request(), ctx))
             elif kind == wire.STREAM_UNARY:
                 await send(await fn(request_iter(), ctx))
             else:
-                async for resp in fn(request_iter(), ctx):
-                    await send(resp)
+                await stream(fn(request_iter(), ctx))
 
         loop = asyncio.get_running_loop()
         deadline = loop.time() + timeout if timeout else None

@@ -52,7 +52,7 @@ class SchedulerConfig:
     listen_ip: str = "0.0.0.0"
     advertise_ip: str = "127.0.0.1"
     port: int = 0                          # 0 = ephemeral
-    algorithm: str = "default"             # default | ml
+    algorithm: str = "default"             # default | ml | nt
     seed_peers: list[SeedPeerAddr] = field(default_factory=list)
     manager_addresses: list[str] = field(default_factory=list)
     trainer_address: str = ""              # records upload target

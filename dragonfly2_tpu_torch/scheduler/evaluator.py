@@ -7,10 +7,11 @@ success 0.2, free upload slots 0.15, host type 0.15 and fabric locality
 0.30 (the reference's IDC + location weights, computed from pod
 coordinates: LOCAL > ICI > DCN > WAN), and the ``IsBadNode`` Z-score
 outlier ejection (``evaluator.go:93``). ``make_evaluator("ml")`` gives
-the learned ``evaluator_ml.MLEvaluator`` behind this heuristic floor. The
-``nt`` (measured RTT) and plugin evaluators are not ported:
-``make_evaluator`` refuses them rather than scoring with the heuristic
-under their name.
+the learned ``evaluator_ml.MLEvaluator`` behind this heuristic floor, and
+``make_evaluator("nt", topo_store=...)`` the ``RTTEvaluator``, whose
+locality term comes from the probes' measured (or imputed) RTT. The
+plugin evaluator is not ported: ``make_evaluator`` refuses it rather than
+scoring with the heuristic under its name.
 """
 
 from __future__ import annotations
@@ -143,7 +144,37 @@ class Evaluator:
         return (costs[-1] - mean) / stdev > BAD_NODE_Z
 
 
-def make_evaluator(algorithm: str) -> Evaluator:
+class RTTEvaluator(Evaluator):
+    """``nt`` algorithm: replaces the static locality score with measured
+    RTT when the probe store has data for the pair
+    (reference ``evaluator_network_topology.go:30-57``)."""
+
+    def __init__(self, topo_store):
+        self.topo = topo_store
+
+    def _locality_score(self, child: Peer, parent: Peer) -> float:  # type: ignore[override]
+        rtt_us = self.topo.avg_rtt_us(child.host.id, parent.host.id)
+        if rtt_us is None:
+            return Evaluator._locality_score(child, parent)
+        return rtt_locality_score(rtt_us)
+
+    def explain(self, child: Peer, parent: Peer, *,
+                total_piece_count: int) -> dict:
+        out = super().explain(child, parent,
+                              total_piece_count=total_piece_count)
+        rtt_us = self.topo.avg_rtt_us(child.host.id, parent.host.id)
+        if rtt_us is not None:
+            # the locality term above already carries the RTT-derived
+            # score; record that it was measured, and the measurement, so
+            # the offline replay can re-map it instead of synthesizing one
+            out["substituted"] = {"locality": "rtt"}
+            out["rtt_us"] = rtt_us
+        return out
+
+
+def make_evaluator(algorithm: str, *, topo_store=None) -> Evaluator:
+    if algorithm == "nt" and topo_store is not None:
+        return RTTEvaluator(topo_store)
     if algorithm == "ml":
         # no model at boot: a bound one replaces the heuristic floor
         from .evaluator_ml import MLEvaluator
@@ -151,5 +182,5 @@ def make_evaluator(algorithm: str) -> Evaluator:
     if algorithm != "default":
         raise ValueError(f"evaluator algorithm {algorithm!r} is not "
                          "available; this package has the 'default' "
-                         "heuristic and 'ml'")
+                         "heuristic, 'ml', and 'nt' over a topology store")
     return Evaluator()

@@ -208,7 +208,12 @@ class Scheduling:
             terms = ex["terms"]
             # the exact scoring-time feature row (trainer layout:
             # evaluator_ml.parent_feature_row), rebuilt from the terms
-            # explain() already computed
+            # explain() already computed. features[4] stays the static
+            # locality (the train/serve contract): where the nt evaluator
+            # substituted a measured RTT, the base score is recomputed
+            locality = terms["locality"]
+            if "locality" in (ex.get("substituted") or {}):
+                locality = Evaluator._locality_score(child, p)
             cand = {
                 "peer_id": p.id,
                 "host_id": p.host.id,
@@ -217,11 +222,10 @@ class Scheduling:
                 "terms": terms,
                 "features": [terms["piece"], terms["upload_success"],
                              terms["free_upload"], terms["host_type"],
-                             terms["locality"],
-                             float(len(p.finished_pieces)),
+                             locality, float(len(p.finished_pieces)),
                              float(p.host.concurrent_upload_count)],
             }
-            for key in ("substituted", "base_total", "link_tier",
+            for key in ("substituted", "rtt_us", "base_total", "link_tier",
                         "cross_pod"):
                 if key in ex:
                     cand[key] = ex[key]

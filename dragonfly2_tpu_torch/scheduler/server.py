@@ -46,7 +46,8 @@ class Scheduler:
         self.cfg = cfg
         self.resource = Resource()
         self.topo = TopologyStore()
-        self.scheduling = Scheduling(make_evaluator(cfg.algorithm), rng=rng)
+        self.scheduling = Scheduling(
+            make_evaluator(cfg.algorithm, topo_store=self.topo), rng=rng)
         self.seed_client = SeedPeerClient(self.resource, cfg.seed_peers)
         if records is None and (cfg.records_dir or cfg.trainer_address):
             records = DownloadRecords(cfg.records_dir)
@@ -63,7 +64,8 @@ class Scheduler:
             self.resource.on_host_evict = self.sharded.forget_host
             self.resource.on_task_evict = self.sharded.drop_task
         self.service = SchedulerService(self.resource, self.scheduling,
-                                        self.seed_client, records=records)
+                                        self.seed_client, self.topo,
+                                        records=records)
         self.announcer = SchedulerAnnouncer(self)
         self.manager: ManagerLink | None = None
         self.rpc: RPCServer | None = None

@@ -4,7 +4,8 @@ Counterpart of ``dragonfly2_tpu/scheduler/service.py`` (reference
 ``scheduler/service/service_v1.go``): RegisterPeerTask with size-scope
 dispatch (:1005-1110), the ReportPieceResult bidi stream driving
 reschedules (:187), piece success/failure handling (:1159, :1210),
-ReportPeerResult, AnnounceHost (:478), StatTask, LeaveHost and LeavePeer.
+ReportPeerResult, AnnounceHost (:478), StatTask, LeaveHost, LeavePeer and
+the probers' SyncProbes stream (the RTTs the ``nt`` evaluator reads).
 
 Back-source arbitration: a child with no viable parents is not sent to
 origin at once. While a seed trigger is in flight, or peers hold content
@@ -24,8 +25,13 @@ pushes each changed ruling on the member's report stream
 Download records (``records``: piece, failed-piece and peer rows, the
 trainer's dataset) are written where the reference writes them. Left out,
 for later slices: the cluster view, quarantine, federation, tenant
-quotas, QoS preemption, fleet pulse, content re-announce, preheat and the
-probes.
+quotas, QoS preemption, fleet pulse, content re-announce and preheat.
+
+A report stream that ends with the daemon's half-close is not marked
+``stream_gone``: the daemon half-closes only on its way to the terminal
+PeerResult, and a replica that finished its subset keeps serving its
+partner in that gap (the reference excludes the peer until the result
+lands).
 """
 
 from __future__ import annotations
@@ -42,8 +48,9 @@ from ..idl.messages import (CLASS_DEFAULT_PRIORITY, PRIORITY_CLASSES,
                             AnnounceHostRequest, AnnounceHostResponse,
                             Empty, LeaveHostRequest, LeavePeerRequest,
                             PeerPacket, PeerResult, PieceResult, Priority,
-                            RegisterPeerTaskRequest, RegisterResult,
-                            SinglePiece, SizeScope, StatTaskRequest, TaskStat,
+                            ProbeTarget, RegisterPeerTaskRequest,
+                            RegisterResult, SinglePiece, SizeScope,
+                            StatTaskRequest, SyncProbesResponse, TaskStat,
                             resolve_class)
 from ..rpc.server import ServiceDef
 from .config import (BACK_SOURCE_TOTAL, CANDIDATE_PARENT_LIMIT,
@@ -51,6 +58,7 @@ from .config import (BACK_SOURCE_TOTAL, CANDIDATE_PARENT_LIMIT,
 from .resource import Peer, PeerState, Resource, TaskState
 from .scheduling import Scheduling
 from .seed_client import SeedPeerClient
+from .topology_store import TopologyStore
 
 log = logging.getLogger("df.sched.service")
 
@@ -74,10 +82,12 @@ class SchedulerService:
     REFRESH_INTERVAL_S = 0.5
 
     def __init__(self, resource: Resource, scheduling: Scheduling,
-                 seed_client: SeedPeerClient, *, records=None):
+                 seed_client: SeedPeerClient, topo: TopologyStore, *,
+                 records=None):
         self.resource = resource
         self.scheduling = scheduling
         self.seed_client = seed_client
+        self.topo = topo
         # scheduler/records.DownloadRecords, or None (no dataset kept)
         self.records = records
         self._seed_tasks: set[asyncio.Task] = set()
@@ -263,20 +273,24 @@ class SchedulerService:
                     break
                 yield packet
         finally:
-            scheduler_task.cancel()
-            consumer.cancel()
-            refresher.cancel()
-            await asyncio.gather(consumer, scheduler_task, refresher,
-                                 return_exceptions=True)
+            # mark before the first await: a caller that goes away ends
+            # this loop and then cancels the handler, which would cut the
+            # gather below short
             if peer.packet_sink is sink:
                 peer.packet_sink = None
-                if not peer.is_done():
+                if not peer.is_done() and not (context is not None
+                                               and context.half_closed):
                     # the stream died with the peer mid-download: stop
                     # offering it as a parent now (a late unary report or
                     # a fresh stream clears the mark)
                     peer.stream_gone = True
                     log.info("peer %s report stream gone mid-task",
                              peer.id[-12:])
+            scheduler_task.cancel()
+            consumer.cancel()
+            refresher.cancel()
+            await asyncio.gather(consumer, scheduler_task, refresher,
+                                 return_exceptions=True)
 
     async def _refresh_loop(self, peer: Peer) -> None:
         """Periodic sticky re-offer while the report stream is open; no
@@ -536,6 +550,31 @@ class SchedulerService:
                         state=task.state.value, peer_count=len(task.peers),
                         has_available_peer=task.has_available_peer())
 
+    # ------------------------------------------------------------------
+    # SyncProbes
+    # ------------------------------------------------------------------
+
+    async def sync_probes(self, request_iter,
+                          context) -> AsyncIterator[SyncProbesResponse]:
+        async for req in request_iter:
+            src = req.host.id if req.host is not None else ""
+            if req.host is not None:
+                # the port's daemons have no announcer yet: a prober's
+                # host joins the target pool as an announced one would
+                self.resource.store_host(req.host)
+            for probe in req.probes or []:
+                self.topo.record(src, probe.target_host_id, probe.rtt_us)
+            for failed in req.failed_host_ids or []:
+                self.topo.fail(src, failed)
+            targets = []
+            for hid in self.topo.pick_targets(
+                    src, list(self.resource.hosts)):
+                host = self.resource.hosts.get(hid)
+                if host is not None:
+                    targets.append(ProbeTarget(host_id=hid, ip=host.msg.ip,
+                                               port=host.msg.port))
+            yield SyncProbesResponse(targets=targets)
+
 
 def build_service(svc: SchedulerService) -> ServiceDef:
     d = ServiceDef(SCHEDULER_SERVICE)
@@ -546,4 +585,5 @@ def build_service(svc: SchedulerService) -> ServiceDef:
     d.unary_unary("LeaveHost", svc.leave_host)
     d.unary_unary("LeavePeer", svc.leave_peer)
     d.unary_unary("StatTask", svc.stat_task)
+    d.stream_stream("SyncProbes", svc.sync_probes)
     return d

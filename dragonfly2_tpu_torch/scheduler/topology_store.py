@@ -4,9 +4,9 @@ Counterpart of ``dragonfly2_tpu/scheduler/topology_store.py`` (reference
 ``scheduler/networktopology/``): per-(src,dst) probe stats with an EWMA
 avgRTT (alpha 0.1), ``snapshot_rows`` (the trainer's GNN dataset) and
 ``avg_rtt_us``: the measured RTT of a probed pair, else the bound
-``topology_gnn`` imputer's estimate. The probes that feed it and the
-``nt`` evaluator that reads it wait for a later slice; until then callers
-``record`` links directly.
+``topology_gnn`` imputer's estimate; ``pick_targets`` (least-probed
+first) answers the daemons' probers, whose reports ``record`` and
+``fail`` fold in.
 """
 
 from __future__ import annotations
@@ -26,7 +26,8 @@ class ProbeStat:
 
 
 class TopologyStore:
-    def __init__(self):
+    def __init__(self, *, probe_targets: int = 5):
+        self.probe_targets = probe_targets
         self._stats: dict[tuple[str, str], ProbeStat] = {}
         # GNN-imputed RTTs for unprobed pairs (the announcer binds the
         # model): pair -> (rtt_us, imputed at)
@@ -43,6 +44,9 @@ class TopologyStore:
             st.avg_rtt_us += _EWMA_ALPHA * (rtt_us - st.avg_rtt_us)
             st.count += 1
             st.updated_at = now
+
+    def fail(self, src: str, dst: str) -> None:
+        self._stats.pop((src, dst), None)
 
     def bind_imputer(self, impute) -> None:
         """Attach a ``topology_gnn`` imputer (trainer/serving
@@ -85,3 +89,14 @@ class TopologyStore:
         return [{"src": s, "dst": d, "avg_rtt_us": st.avg_rtt_us,
                  "count": st.count, "updated_at": st.updated_at}
                 for (s, d), st in self._stats.items()]
+
+    def probed_count(self, src: str) -> int:
+        return sum(1 for (s, _d) in self._stats if s == src)
+
+    def pick_targets(self, src: str, all_hosts: list[str]) -> list[str]:
+        """Least-probed-first target selection for a prober."""
+        others = [h for h in all_hosts if h != src]
+        others.sort(key=lambda h: (self._stats.get((src, h)) is not None,
+                                   (self._stats.get((src, h)) or
+                                    ProbeStat(0, 0, 0)).updated_at))
+        return others[:self.probe_targets]

@@ -1,8 +1,9 @@
 """Per-task persistent metadata.
 
 Counterpart of ``dragonfly2_tpu/storage/metadata.py``: the JSON sidecar
-beside a task's content. A task directory holds ``data`` (the content) and
-``metadata.json`` (this), in the same format in both packages.
+that lets a restarted daemon re-index its tasks. A task directory holds
+``data`` (the content) and ``metadata.json`` (this), in the same format in
+both packages.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ class PieceMeta:
     num: int
     start: int           # offset in the task file
     size: int
-    digest: str = ""     # "crc32:..." of this piece's bytes
+    digest: str = ""     # "crc32c:..." (or "crc32:...") of this piece
     cost_ms: int = 0     # how long the download took (ML feature)
     source: str = ""     # peer id it came from; "" = back-source
 
@@ -66,6 +67,21 @@ class TaskMetadata:
         d["task_type"] = int(self.task_type)
         d["pieces"] = {str(k): dataclasses.asdict(v) for k, v in self.pieces.items()}
         return json.dumps(d)
+
+    @staticmethod
+    def from_json(raw: str) -> "TaskMetadata":
+        d = json.loads(raw)
+        pieces = {int(k): PieceMeta(**v)
+                  for k, v in d.pop("pieces", {}).items()}
+        d["task_type"] = TaskType(d.get("task_type", 0))
+        md = TaskMetadata(**d)
+        md.pieces = pieces
+        return md
+
+    @staticmethod
+    def load(task_dir: str) -> "TaskMetadata":
+        with open(os.path.join(task_dir, METADATA_FILE)) as f:
+            return TaskMetadata.from_json(f.read())
 
     def save(self, task_dir: str) -> None:
         """Crash-safe persist: tmp file + fsync + atomic rename + directory

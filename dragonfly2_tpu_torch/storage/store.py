@@ -1,13 +1,17 @@
 """TaskStorage: the piece-addressed store for one task.
 
 Counterpart of ``dragonfly2_tpu/storage/store.py`` ``TaskStorage`` without
-the native library, the content-addressed store and ranged sub-tasks.
-Pieces are written at their offsets with per-piece digest verification,
-one at a time (``write_piece``) or as a downloaded span in one pass
-(``write_span``); reads feed the device sink, the upload server and the
-final output. Each call opens the data
-file for itself, so a task destroyed mid-IO fails the call cleanly instead
-of writing into a reused descriptor.
+ranged sub-tasks. Pieces are written at their offsets with per-piece
+digest verification, one at a time (``write_piece``) or as a downloaded
+span in one pass (``write_span``); reads feed the device sink, the upload
+server and the final output. Where a piece's digest is crc32c (or none is
+given), the native library writes and checksums it in one traversal
+(``native.span_write``); otherwise one pwrite and a Python hash. Every
+verified piece is indexed in the daemon's content store (``castore``) when
+one is attached. Each call opens the data file for itself, so a task
+destroyed mid-IO fails the call cleanly instead of writing into a reused
+descriptor, and a data file swapped for a hardlink is seen by the next
+call.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ import time
 
 from ..common import digest as digestlib
 from ..common.errors import Code, DFError
+from . import native
 from .metadata import DATA_FILE, PieceMeta, TaskMetadata
 
 
@@ -48,9 +53,13 @@ def _pwrite_all(fd: int, data, offset: int) -> None:
 class TaskStorage:
     """One task's on-disk state. Thread-safe for concurrent piece writes."""
 
-    def __init__(self, task_dir: str, metadata: TaskMetadata):
+    def __init__(self, task_dir: str, metadata: TaskMetadata,
+                 castore=None):
         self.dir = task_dir
         self.md = metadata
+        # the daemon's content-addressed index (storage/castore.py): every
+        # verified piece landed here is registered by digest; None = off
+        self.castore = castore
         self._lock = threading.Lock()
         self._save_lock = threading.Lock()     # one metadata save at a time
         self._data_path = os.path.join(task_dir, DATA_FILE)
@@ -59,36 +68,65 @@ class TaskStorage:
             with open(self._data_path, "wb"):
                 pass
 
+    def _write(self, offset: int, data, sizes: list[int],
+               fused: bool) -> list[str] | None:
+        """pwrite ``data`` at ``offset``; with ``fused``, through the native
+        library with each piece's crc32c folded in (the list it returns,
+        None when the library is absent and the plain write ran)."""
+        try:
+            fd = os.open(self._data_path, os.O_WRONLY)
+            try:
+                crcs = (native.span_write(fd, offset, data, sizes)
+                        if fused else None)
+                if crcs is None:
+                    _pwrite_all(fd, data, offset)
+                return crcs
+            finally:
+                os.close(fd)
+        except OSError as exc:
+            raise DFError(Code.CLIENT_STORAGE_ERROR,
+                          f"write @{offset}+{sum(sizes)} failed: "
+                          f"{exc}") from None
+
     def write_piece(self, num: int, offset: int, data: bytes | memoryview,
                     piece_digest: str = "", *, cost_ms: int = 0,
                     source: str = "", pre_verified: bool = False) -> PieceMeta:
         """Verify + persist one piece. Idempotent per piece number.
         ``pre_verified`` skips the re-hash when the transport already
-        checked the bytes against ``piece_digest``."""
+        checked the bytes against ``piece_digest``. A crc32c piece (or one
+        without a digest) is written and checksummed in one pass; a
+        mismatch found after the write is safe, since the piece is never
+        recorded and its region stays absent."""
         with self._lock:
             existing = self.md.pieces.get(num)
             if existing is not None:
                 return existing
+        algo = want = ""
         if piece_digest:
+            algo, want = digestlib.parse(piece_digest)
+        crcs = self._write(offset, data, [len(data)],
+                           fused=not piece_digest or algo == "crc32c")
+        if crcs is not None:
+            if not piece_digest:
+                piece_digest = f"crc32c:{crcs[0]}"
+            elif crcs[0] != want:
+                raise DFError(Code.CLIENT_DIGEST_MISMATCH,
+                              f"piece {num} digest mismatch")
+        elif piece_digest:
             if not pre_verified and not digestlib.verify(piece_digest, data):
                 raise DFError(Code.CLIENT_DIGEST_MISMATCH,
                               f"piece {num} digest mismatch")
         else:
-            piece_digest = digestlib.for_bytes(digestlib.PIECE_ALGO, data)
-        try:
-            fd = os.open(self._data_path, os.O_WRONLY)
-            try:
-                _pwrite_all(fd, data, offset)
-            finally:
-                os.close(fd)
-        except OSError as exc:
-            raise DFError(Code.CLIENT_STORAGE_ERROR,
-                          f"piece {num} write failed: {exc}") from None
+            piece_digest = digestlib.for_bytes(
+                digestlib.preferred_piece_algo(), data)
         meta = PieceMeta(num=num, start=offset, size=len(data),
                          digest=piece_digest, cost_ms=cost_ms, source=source)
         with self._lock:
             self.md.pieces[num] = meta
             self.md.access_time = time.time()
+        if self.castore is not None:
+            self.castore.add_piece(self.md.task_id, num, offset, len(data),
+                                   piece_digest)
         return meta
 
     def write_span(self, pieces: list[tuple[int, int, int, str]], data,
@@ -122,28 +160,28 @@ class TaskStorage:
         try:
             for run in runs:
                 lo = run[0][1] - base
-                run_view = mv[lo:lo + sum(p[2] for p in run)]
-                try:
-                    fd = os.open(self._data_path, os.O_WRONLY)
-                    try:
-                        _pwrite_all(fd, run_view, run[0][1])
-                    finally:
-                        os.close(fd)
-                except OSError as exc:
-                    raise DFError(Code.CLIENT_STORAGE_ERROR,
-                                  f"span write @{run[0][1]} failed: "
-                                  f"{exc}") from None
+                sizes = [p[2] for p in run]
+                run_view = mv[lo:lo + sum(sizes)]
+                digests = [digestlib.parse(p[3]) if p[3] else ("", "")
+                           for p in run]
+                crcs = self._write(run[0][1], run_view, sizes, fused=all(
+                    a in ("", "crc32c") for a, _ in digests))
                 pos = 0
-                for num, off, size, dg in run:
+                for i, (num, off, size, dg) in enumerate(run):
                     piece_view = run_view[pos:pos + size]
                     pos += size
-                    if dg:
+                    if crcs is not None:
+                        if dg and crcs[i] != digests[i][1]:
+                            corrupt.append(num)
+                            continue
+                        dg = dg or f"crc32c:{crcs[i]}"
+                    elif dg:
                         if not digestlib.verify(dg, piece_view):
                             corrupt.append(num)
                             continue
                     else:
-                        dg = digestlib.for_bytes(digestlib.PIECE_ALGO,
-                                                 piece_view)
+                        dg = digestlib.for_bytes(
+                            digestlib.preferred_piece_algo(), piece_view)
                     metas.append(PieceMeta(num=num, start=off, size=size,
                                            digest=dg, cost_ms=cost_ms,
                                            source=source))
@@ -154,7 +192,23 @@ class TaskStorage:
             for meta in metas:
                 self.md.pieces.setdefault(meta.num, meta)
             self.md.access_time = time.time()
+        if self.castore is not None:
+            for meta in metas:
+                self.castore.add_piece(self.md.task_id, meta.num,
+                                       meta.start, meta.size, meta.digest)
         return metas, corrupt
+
+    def adopt_from(self, src: "TaskStorage") -> None:
+        """Adopt ``src``'s geometry and piece table, once this task's data
+        file has become a hardlink of ``src``'s (same content)."""
+        with self._lock:
+            self.md.pieces = {
+                num: PieceMeta(num=p.num, start=p.start, size=p.size,
+                               digest=p.digest, source="cas")
+                for num, p in src.md.pieces.items()}
+            self.md.content_length = src.md.content_length
+            self.md.total_piece_count = src.md.total_piece_count
+            self.md.piece_size = src.md.piece_size
 
     def mark_done(self, *, success: bool, content_length: int | None = None,
                   total_piece_count: int | None = None) -> None:
@@ -166,6 +220,10 @@ class TaskStorage:
             self.md.done = True
             self.md.success = success
         self._save()
+        if success and self.castore is not None:
+            # content-identity dedupe: an identical completed task already
+            # on disk absorbs this one's bytes through a hardlink
+            self.castore.on_task_complete(self)
 
     def persist(self) -> None:
         """Save the metadata without marking the task done: a finished
@@ -257,6 +315,28 @@ class TaskStorage:
 
     def data_path(self) -> str:
         return self._data_path
+
+    def disk_usage(self) -> int:
+        """Logical bytes: hardlink-shared content counts once per task
+        here; ``StorageManager.usage`` dedupes by inode."""
+        try:
+            return os.path.getsize(self._data_path)
+        except OSError:
+            return 0
+
+    def inode(self) -> tuple[int, int] | None:
+        """(st_dev, st_ino) of the data file, or None when it is gone."""
+        try:
+            st = os.stat(self._data_path)
+            return st.st_dev, st.st_ino
+        except OSError:
+            return None
+
+    def nlink(self) -> int:
+        try:
+            return os.stat(self._data_path).st_nlink
+        except OSError:
+            return 0
 
     def destroy(self) -> None:
         shutil.rmtree(self.dir, ignore_errors=True)

@@ -38,11 +38,12 @@ def build_parser() -> argparse.ArgumentParser:
 async def serve(cfg: ManagerConfig) -> None:
     mgr = Manager(cfg)
     await mgr.start()
-    print(f"manager up: grpc={mgr.address} rest=:{mgr.rest.port}", flush=True)
     stop = asyncio.Event()
     loop = asyncio.get_running_loop()
     for sig in (signal.SIGINT, signal.SIGTERM):
         loop.add_signal_handler(sig, stop.set)
+    # announced once a SIGTERM stops it cleanly
+    print(f"manager up: grpc={mgr.address} rest=:{mgr.rest.port}", flush=True)
     await stop.wait()
     await mgr.stop()
 

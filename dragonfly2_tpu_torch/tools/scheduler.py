@@ -43,11 +43,12 @@ def build_parser() -> argparse.ArgumentParser:
 async def serve(cfg: SchedulerConfig) -> None:
     sched = Scheduler(cfg)
     await sched.start()
-    print(f"scheduler up: {sched.address}", flush=True)
     stop = asyncio.Event()
     loop = asyncio.get_running_loop()
     for sig in (signal.SIGINT, signal.SIGTERM):
         loop.add_signal_handler(sig, stop.set)
+    # announced once a SIGTERM stops it cleanly
+    print(f"scheduler up: {sched.address}", flush=True)
     await stop.wait()
     await sched.stop()
 
@@ -56,7 +57,6 @@ def main(argv: list[str] | None = None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
     refuse_unported(parser, {
-        "--algorithm nt": (args.algorithm == "nt", "the nt evaluator"),
         "--tracing-jsonl": (args.tracing_jsonl, "tracing"),
         "--tracing-otlp": (args.tracing_otlp, "tracing"),
         "--debug-port": (args.debug_port, "the debug HTTP surface")})

@@ -36,11 +36,12 @@ def build_parser() -> argparse.ArgumentParser:
 async def serve(cfg: TrainerConfig) -> None:
     trainer = Trainer(cfg)
     await trainer.start()
-    print(f"trainer up: {trainer.address}", flush=True)
     stop = asyncio.Event()
     loop = asyncio.get_running_loop()
     for sig in (signal.SIGINT, signal.SIGTERM):
         loop.add_signal_handler(sig, stop.set)
+    # announced once a SIGTERM stops it cleanly
+    print(f"trainer up: {trainer.address}", flush=True)
     await stop.wait()
     await trainer.stop()
 

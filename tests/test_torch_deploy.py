@@ -287,7 +287,6 @@ def test_launcher_flags_match_reference(port, ref):
     (manager_cli, ["--debug-port", "-1"], "--debug-port"),
     (scheduler_cli, ["--tracing-jsonl", "x.jsonl"], "tracing"),
     (scheduler_cli, ["--tracing-otlp", "http://c:4318"], "tracing"),
-    (scheduler_cli, ["--algorithm", "nt"], "nt evaluator"),
     (scheduler_cli, ["--debug-port", "1"], "--debug-port"),
     (trainer_cli, ["--debug-port", "1"], "--debug-port"),
     (daemon_cli, ["--debug-endpoints"], "--debug-endpoints"),
@@ -305,6 +304,20 @@ def test_unported_flags_exit_nonzero(module, argv, names, capsys):
     assert exc.value.code == 2
     err = capsys.readouterr().err
     assert "not ported" in err and names in err, err
+
+
+def test_scheduler_with_algorithm_nt_starts(tmp_path):
+    """``--algorithm nt`` (refused until the probes were ported) starts a
+    scheduler that rules with the RTT evaluator, and stops cleanly."""
+    sched = Service("scheduler", "--listen-ip", "127.0.0.1", "--port",
+                    str(free_port()), "--algorithm", "nt", workdir=tmp_path)
+    try:
+        line = sched.wait_line("scheduler up:")
+        assert "algorithm=nt" in sched.text(), sched.text()
+        assert "not ported" not in sched.text()
+    finally:
+        assert sched.stop() == 0, sched.text()
+    assert line
 
 
 def test_manager_config_with_unported_options_exits_nonzero(tmp_path,

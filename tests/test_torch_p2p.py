@@ -17,7 +17,8 @@ CPU, against the reference.
   Every tensor equals the origin's, the origin is read once, and each
   leecher's ``traffic_p2p`` is the file size. The same pull through the
   reference's scheduler and daemons gives the same task id, piece size
-  and count, per-piece digests and final sha256.
+  and count, per-piece digests (crc32c, with both packages' native
+  libraries built) and final sha256.
 * Control path: a register fails over past a dead scheduler; a leecher
   without parents fails without reading the origin; the daemon's limits
   and its advertised address are the reference's.
@@ -69,8 +70,9 @@ from dragonfly2_tpu_torch.rpc.balancer import HashRing
 from dragonfly2_tpu_torch.scheduler.config import SchedulerConfig, SeedPeerAddr
 from dragonfly2_tpu_torch.scheduler.server import Scheduler
 from dragonfly2_tpu_torch.source.file_client import FileSourceClient
-from dragonfly2_tpu_torch.storage.manager import StorageManager
+from dragonfly2_tpu_torch.storage.manager import StorageConfig, StorageManager
 from dragonfly2_tpu_torch.storage.metadata import TaskMetadata
+from test_torch_native import ref_native_lib  # noqa: F401 - fixture
 
 MiB = 1 << 20
 SERVER_LIMIT_S = 8.0
@@ -179,7 +181,8 @@ def test_upload_servers_interoperate(tmp_path):
     data = _content()
 
     async def main():
-        port_mgr = StorageManager(str(tmp_path / "port"))
+        port_mgr = StorageManager(StorageConfig(
+            data_dir=str(tmp_path / "port")))
         ref_mgr = RefStorageManager(RefStorageConfig(
             data_dir=str(tmp_path / "ref"), gc_interval_s=3600))
         _fill(port_mgr, TaskMetadata, data)
@@ -248,7 +251,8 @@ def test_busy_parent_answers_503_with_a_retry_hint(tmp_path):
     data = _content()
 
     async def main():
-        mgr = StorageManager(str(tmp_path / "port"))
+        mgr = StorageManager(StorageConfig(
+            data_dir=str(tmp_path / "port")))
         _fill(mgr, TaskMetadata, data)
         srv = UploadServer(mgr, host="127.0.0.1", concurrent_limit=1)
         srv.SLOT_WAIT_S = 0.05
@@ -346,7 +350,9 @@ async def _pull(daemon, msg, url: str, shards: list[dict], sink: bool,
     return task_id
 
 
-def test_p2p_pull_on_cpu_matches_reference(tmp_path):
+def test_p2p_pull_on_cpu_matches_reference(tmp_path, ref_native_lib):
+    """With both native libraries built, both pods record crc32c piece
+    digests, and the same ones."""
     url, data, shards = _origin(tmp_path)
     counting = _CountingFileClient()
 
@@ -443,6 +449,7 @@ def test_p2p_pull_on_cpu_matches_reference(tmp_path):
     for g, w in zip(got, want):
         g.pop("parents")
         assert g == w
+        assert all(d.startswith("crc32c:") for d in g["digests"].values())
     assert got[0]["pieces"] == 6 and got[0]["piece_size"] == 4 * MiB
 
 
@@ -553,7 +560,8 @@ def test_upload_rate_limit_throttles_the_serve(tmp_path):
     rate, rounds = 5 * MiB, 4
 
     async def main():
-        mgr = StorageManager(str(tmp_path / "port"))
+        mgr = StorageManager(StorageConfig(
+            data_dir=str(tmp_path / "port")))
         _fill(mgr, TaskMetadata, data)
         srv = UploadServer(mgr, host="127.0.0.1", rate_limit_bps=rate)
         await srv.start()

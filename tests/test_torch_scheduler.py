@@ -29,9 +29,11 @@ from dragonfly2_tpu_torch.idl import base as port_base
 from dragonfly2_tpu_torch.scheduler import config as port_config
 from dragonfly2_tpu_torch.scheduler import resource as port_resource
 from dragonfly2_tpu_torch.scheduler.evaluator import (Evaluator,
+                                                      RTTEvaluator,
                                                       make_evaluator)
 from dragonfly2_tpu_torch.scheduler.evaluator_ml import MLEvaluator
 from dragonfly2_tpu_torch.scheduler.scheduling import Scheduling
+from dragonfly2_tpu_torch.scheduler.topology_store import TopologyStore
 from dragonfly2_tpu_torch.tpu import topology as port_topology
 
 
@@ -186,7 +188,8 @@ def test_scheduling_matches_reference(seed):
 
 @pytest.mark.parametrize("algorithm", ["ml", "nt", "plugin:x"])
 def test_make_evaluator_refuses_what_is_not_ported(algorithm):
-    """``nt`` and plugins are refused; ``ml`` is ported (the learned
+    """Plugins are refused, and so is ``nt`` without a topology store
+    (with one it is the ``RTTEvaluator``); ``ml`` is ported (the learned
     evaluator behind the heuristic floor, unbound until a model lands)."""
     if algorithm == "ml":
         ev = make_evaluator(algorithm)
@@ -194,6 +197,10 @@ def test_make_evaluator_refuses_what_is_not_ported(algorithm):
     else:
         with pytest.raises(ValueError):
             make_evaluator(algorithm)
+    if algorithm == "nt":
+        store = TopologyStore()
+        ev = make_evaluator(algorithm, topo_store=store)
+        assert type(ev) is RTTEvaluator and ev.topo is store
     assert type(make_evaluator("default")) is Evaluator
 
 

@@ -77,11 +77,14 @@ from dragonfly2_tpu_torch.daemon.daemon import Daemon
 from dragonfly2_tpu_torch.scheduler.config import SchedulerConfig, SeedPeerAddr
 from dragonfly2_tpu_torch.scheduler.evaluator import make_evaluator
 from dragonfly2_tpu_torch.scheduler.resource import Resource, Task
+from dragonfly2_tpu_torch.rpc import Channel, ServiceClient
+from dragonfly2_tpu_torch.scheduler.resource import PeerState
 from dragonfly2_tpu_torch.scheduler.scheduling import Scheduling
 from dragonfly2_tpu_torch.scheduler.server import Scheduler
+from dragonfly2_tpu_torch.scheduler.service import SCHEDULER_SERVICE
 from dragonfly2_tpu_torch.scheduler.shard_affinity import ShardAffinity
 from dragonfly2_tpu_torch.source.file_client import FileSourceClient
-from dragonfly2_tpu_torch.storage.manager import StorageManager
+from dragonfly2_tpu_torch.storage.manager import StorageConfig, StorageManager
 
 MiB = 1 << 20
 PIECE = 4 * MiB
@@ -625,6 +628,65 @@ def test_swap_partner_outlasts_a_bad_node_blip():
     assert ref.filter_candidates(ra) == []
 
 
+def test_finished_partner_stays_offered_until_its_result_lands():
+    """A replica that finished its subset half-closes its report stream
+    and only then sends its PeerResult (the daemon's order, as in the
+    reference). In that gap its partner, still short of swap pieces, must
+    keep it as a candidate parent; a partner whose stream drops without
+    the half-close (a dead process) is excluded as stream-gone."""
+    names = [f"s{i}" for i in range(6)]
+
+    async def report(client, peer_id, nums):
+        stream = client.stream_stream("ReportPieceResult")
+        await stream.write(port_msg.PieceResult(
+            task_id=REGISTER_TASK, src_peer_id=peer_id, success=True))
+        for n in nums:
+            await stream.write(port_msg.PieceResult(
+                task_id=REGISTER_TASK, src_peer_id=peer_id, success=True,
+                piece_info=port_msg.PieceInfo(piece_num=n,
+                                              range_start=n * PIECE,
+                                              range_size=PIECE)))
+        return stream
+
+    async def main():
+        sched = Scheduler(SchedulerConfig(listen_ip="127.0.0.1"))
+        await sched.start()
+        channel = Channel(sched.address)
+        try:
+            for name in ("a0", "a1"):
+                await sched.service.register_peer_task(_register_req(
+                    port_msg, REGISTER_TASK, name, names), None)
+            a0, a1 = (sched.resource.find_peer(REGISTER_TASK, f"{n}-peer")
+                      for n in ("a0", "a1"))
+            for p in (a0, a1):
+                p.transit(PeerState.RUNNING)
+            client = ServiceClient(channel, SCHEDULER_SERVICE)
+            done = await report(client, a0.id, range(3))
+            await done.done_writing()            # finished: half-close
+            while await done.read() is not None:
+                pass
+            offered = {p.id for p in sched.scheduling.filter_candidates(a1)}
+            crashed = await report(client, a1.id, range(3, 5))
+            while len(a1.finished_pieces) < 2:
+                await asyncio.sleep(0.01)
+            crashed.cancel()                      # gone, no half-close
+            for _ in range(500):
+                if a1.packet_sink is None:
+                    break
+                await asyncio.sleep(0.01)
+            return a0, a1, offered, sched.scheduling
+        finally:
+            await channel.close()
+            await sched.stop()
+    a0, a1, offered, scheduling = asyncio.run(
+        asyncio.wait_for(main(), E2E_LIMIT_S))
+    assert not a0.is_done() and not a0.stream_gone
+    assert a0.finished_pieces == {0, 1, 2}
+    assert a0.id in offered
+    assert a1.packet_sink is None and a1.stream_gone
+    assert a1.id not in {p.id for p in scheduling.filter_candidates(a0)}
+
+
 # ---------------------------------------------------------------- dispatcher
 
 DISPATCHERS = {"ref": (ref_dispatcher, ref_msg),
@@ -759,7 +821,8 @@ def _conductor(pkg, tmp_path):
             piece_mgr=None, shard_manifest=shards, requested_shards=["a"])
     return PeerTaskConductor(
         task_id="t" * 64, peer_id="p1", url="http://x/y", url_meta=None,
-        storage_mgr=StorageManager(str(tmp_path / "store")), piece_mgr=None,
+        storage_mgr=StorageManager(StorageConfig(
+            data_dir=str(tmp_path / "store"))), piece_mgr=None,
         shard_manifest=shards, requested_shards=["a"])
 
 
@@ -1197,7 +1260,7 @@ def test_metadata_save_leaves_has_range_free(tmp_path, monkeypatch):
     pull. The upload server's ``has_range`` runs on the event loop, so it
     must not wait for that save."""
     from dragonfly2_tpu_torch.storage import metadata as port_metadata
-    ts = StorageManager(str(tmp_path)).register_task(
+    ts = StorageManager(StorageConfig(data_dir=str(tmp_path))).register_task(
         port_metadata.TaskMetadata(task_id="t" * 64, content_length=8,
                                    total_piece_count=2, piece_size=4))
     ts.write_piece(0, 0, b"abcd")
@@ -1229,7 +1292,7 @@ def test_saves_reach_disk_in_snapshot_order(tmp_path):
     disk while the second one runs."""
     import json
     from dragonfly2_tpu_torch.storage import metadata as port_metadata
-    ts = StorageManager(str(tmp_path)).register_task(
+    ts = StorageManager(StorageConfig(data_dir=str(tmp_path))).register_task(
         port_metadata.TaskMetadata(task_id="s" * 64, content_length=8,
                                    total_piece_count=2, piece_size=4))
     ts.write_piece(0, 0, b"abcd")
