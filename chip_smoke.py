@@ -4,8 +4,10 @@
     python3 chip_smoke.py [--layers 9] [--seed 0]
 
 Daemons pull checkpoints into device memory through the port's device
-sink: back to source (``file://``), as a seed peer does for every task,
-and then from peers, as the P2P path does:
+sink: back to source (``file://`` and, in phase 11, ``http://``), as a
+seed peer does for every task, and then from peers, as the P2P path does.
+The cut-through relay is on (the daemon's default) in every P2P phase:
+phases 6 and 9 print each daemon's relayed serves and bytes.
 
 1. device   — the card's name, count, power limit; no CUDA card is an error
 2. sink     — a seeded buffer written into ``DeviceIngest`` as shuffled
@@ -87,6 +89,23 @@ and then from peers, as the P2P path does:
               tensors must equal the origin, and the origin must be read
               once, by the seed. Then one ruling's cost over phase 7's
               1,024-host topology with a GNN imputer fitted on the card
+11. chain    — run after phase 10, on phase 8's origin, served over HTTP by
+              a standard-library server in a spawned child (``Range``,
+              paced to 250 MB/s per response, one redirect checked). A
+              scheduler (``relay_fanout=1``, one upload slot per host,
+              records kept) here, a seed in a child pulling the
+              ``http://`` URL as one stream, and leechers L1, L2, L3 here
+              (manifest sinks on the card, back-source disabled), each
+              started once its predecessor has its first offer. Run with
+              the relay on, then off. Every tensor must equal the origin;
+              the origin must send each byte once, to the seed; some
+              leecher must take pieces from another; L3's
+              ``/debug/flight/<task>`` must show ``hbm_done`` for every
+              piece; every leecher's flight summary must reach the
+              scheduler's records. With the relay on, L1 must complete a
+              relayed serve, L2 and L3 must report relayed pieces, and a
+              child's first byte of some piece must come before its
+              parent's ``wire_done`` of it
 
 Before phase 3 the native storage library (``dfnative.cc``, built with
 g++ at first use) must load: the pulls land crc32c piece digests, and the
@@ -573,6 +592,14 @@ def phase_prefetch(workdir: str, seed: int, device: torch.device) -> None:
 
 # ---------------------------------------------------------------- phase 6
 
+def relay_stats(d: Daemon) -> dict:
+    """What this daemon's upload server relayed: serves by result (``ok``
+    is a complete streamed range) and bytes by source (live span or
+    storage)."""
+    return {"relay_serves": dict(d.upload_server.relay_serves),
+            "relay_bytes": dict(d.upload_server.relay_bytes)}
+
+
 class CountingFileClient(FileSourceClient):
     """``file://`` origin that counts the bytes it serves."""
 
@@ -644,6 +671,8 @@ async def _p2p_child(workdir: str, conn) -> None:
                    "seed_back_source_s": seed_s.get("done"),
                    "seed_landed_s": seed_s.get("landed"),
                    "seed_upload_bytes": served.value(),
+                   "seed_relay_serves": dict(seed.upload_server.relay_serves),
+                   "seed_relay_bytes": dict(seed.upload_server.relay_bytes),
                    "seed_state": [c.state for c in
                                   seed.ptm._conductors.values()],
                    "rulings": sched.service.rulings,
@@ -724,6 +753,8 @@ async def _leechers(workdir: str, sched_addr: str, url: str, digest: str,
         run_a["upload_bytes"] = \
             REGISTRY.counter("df_upload_bytes_total").value() - served0
         run_a["peer_id"] = run_a["conductor"].peer_id
+        run_a.update(relay_stats(a))
+        run_b.update(relay_stats(b))
         return run_a, run_b
     finally:
         await a.stop()
@@ -803,6 +834,8 @@ def phase_p2p(workdir: str, path: str, digest: str, header: bytes,
             "copy_s": run["copy_s"], "transfers": run["transfers"],
             "traffic_p2p": c.traffic_p2p,
             "traffic_source": c.traffic_source,
+            "relay_serves": run["relay_serves"],
+            "relay_bytes": run["relay_bytes"],
             "piece_size": c.piece_size, "pieces": c.total_pieces}
     from_a = run_b["conductor"].pieces_by_parent.get(run_a["peer_id"], 0)
     check(from_a > 0, "B took no piece from A")
@@ -814,6 +847,8 @@ def phase_p2p(workdir: str, path: str, digest: str, header: bytes,
         "file_bytes": size, "seed_back_source_s": stats["seed_back_source_s"],
         "seed_landed_s": stats["seed_landed_s"],
         "seed_upload_bytes": stats["seed_upload_bytes"],
+        "seed_relay_serves": stats["seed_relay_serves"],
+        "seed_relay_bytes": stats["seed_relay_bytes"],
         "leecher_upload_bytes": run_a["upload_bytes"],
         "origin_bytes_read": stats["origin_bytes_read"],
         "rulings": stats["rulings"], "b_pieces_from_a": from_a,
@@ -888,7 +923,7 @@ async def _replicas(workdir: str, sched_addr: str, url: str,
             _leecher_pull(daemons[n], url,
                           UrlMeta(shards=",".join(stages[st])), manifest, {})
             for n, st in names.items()))
-        return {n: {**run, "stage": names[n]}
+        return {n: {**run, "stage": names[n], **relay_stats(daemons[n])}
                 for n, run in zip(names, runs)}, lags
     finally:
         watcher.cancel()
@@ -1029,7 +1064,9 @@ def phase_sharded(workdir: str, path: str, header: bytes, ref: torch.Tensor,
             "staged_bytes": ingest.host.numel(),
             "ingest_overlap_efficiency": run["overlap"],
             "traffic_p2p": c.traffic_p2p,
-            "traffic_source": c.traffic_source}
+            "traffic_source": c.traffic_source,
+            "relay_serves": run["relay_serves"],
+            "relay_bytes": run["relay_bytes"]}
         del tensors
     # the restarted replica: its stage from its own disk, verified
     c = restart["conductor"]
@@ -1073,6 +1110,8 @@ def phase_sharded(workdir: str, path: str, header: bytes, ref: torch.Tensor,
         "makespan_s": max(ends) - min(r["t0"] for r in runs.values()),
         "seed_upload_bytes": stats["seed_upload_bytes"],
         "seed_uplink_ratio": stats["seed_upload_bytes"] / size,
+        "seed_relay_serves": stats["seed_relay_serves"],
+        "seed_relay_bytes": stats["seed_relay_bytes"],
         "replica_upload_bytes":
             REGISTRY.counter("df_upload_bytes_total").value()
             - before["upload"],
@@ -2027,8 +2066,508 @@ def phase_nt(workdir: str, seed: int, device: torch.device) -> None:
         "phase_s": time.monotonic() - t_phase, "card": smi})
 
 
+# ---------------------------------------------------------------- phase 11
+
+CHAIN_PACE_BPS = 250_000_000     # one object-store stream's rate
+CHAIN = ("l1", "l2", "l3")
+CHAIN_OFFER_S = 60.0             # a leecher's wait for its first offer
+CHECK_HEADER = "X-Smoke-Check"   # origin requests outside the tally
+# one upload slot per host at the scheduler (``seed_upload_limit``,
+# ``peer_upload_limit``): a parent feeding a child is offered to no other,
+# an uplink-bound chain origin -> seed -> L1 -> L2 -> L3
+CHAIN_UPLOAD_LIMIT = 1
+
+
+def http_origin_child(path: str, pace_bps: int, conn) -> None:
+    """Phase 11's origin, in a spawned process: a standard-library
+    ``ThreadingHTTPServer`` serving ``path`` (HTTP/1.1, ``HEAD``, single
+    ``Range`` requests, ``Accept-Ranges: bytes``), each response paced to
+    ``pace_bps``; ``/redirect/<name>`` answers 302 to ``/<name>``. It
+    counts the body bytes it sends per client connection (requests carrying
+    ``X-Smoke-Check`` apart), the ranges, and when its first body byte
+    left (CLOCK_MONOTONIC, which every process of the host shares). Each
+    "report" from the parent is answered with the counts, which then
+    restart; "stop" ends it."""
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    name = os.path.basename(path)
+    size = os.path.getsize(path)
+    fd = os.open(path, os.O_RDONLY)
+    lock = threading.Lock()
+    tally: dict = {}
+
+    def reset() -> dict:
+        old = dict(tally)
+        tally.update(body_bytes=0, check_bytes=0, ranges=[], per_client={},
+                     first_byte_at=None, requests=0)
+        return old
+
+    reset()
+
+    class Handler(BaseHTTPRequestHandler):
+        protocol_version = "HTTP/1.1"
+
+        def log_message(self, *args) -> None:
+            pass
+
+        def _serve(self, head_only: bool) -> None:
+            with lock:
+                tally["requests"] += 1
+            target = self.path.split("?", 1)[0]
+            if target == f"/redirect/{name}":
+                self.send_response(302)
+                self.send_header("Location", f"/{name}")
+                self.send_header("Content-Length", "0")
+                self.end_headers()
+                return
+            if target != f"/{name}":
+                self.send_response(404)
+                self.send_header("Content-Length", "0")
+                self.end_headers()
+                return
+            start, end, status = 0, size, 200
+            m = re.match(r"bytes=(\d+)-(\d*)$", self.headers.get("Range", ""))
+            if m:
+                start = int(m.group(1))
+                end = min(size, int(m.group(2)) + 1 if m.group(2) else size)
+                status = 206
+            self.send_response(status)
+            self.send_header("Accept-Ranges", "bytes")
+            self.send_header("Content-Length", str(end - start))
+            if status == 206:
+                self.send_header("Content-Range",
+                                 f"bytes {start}-{end - 1}/{size}")
+            self.end_headers()
+            if head_only:
+                return
+            checked = CHECK_HEADER in self.headers
+            client = "%s:%d" % self.client_address
+            t0 = time.monotonic()
+            sent = 0
+            with lock:
+                if not checked:
+                    tally["ranges"].append((start, end))
+                    if tally["first_byte_at"] is None:
+                        tally["first_byte_at"] = t0
+            while sent < end - start:
+                chunk = os.pread(fd, min(1 << 20, end - start - sent),
+                                 start + sent)
+                self.wfile.write(chunk)
+                sent += len(chunk)
+                with lock:
+                    if checked:
+                        tally["check_bytes"] += len(chunk)
+                    else:
+                        tally["body_bytes"] += len(chunk)
+                        tally["per_client"][client] = \
+                            tally["per_client"].get(client, 0) + len(chunk)
+                ahead = sent / pace_bps - (time.monotonic() - t0)
+                if ahead > 0:
+                    time.sleep(ahead)
+
+        def do_GET(self) -> None:
+            self._serve(head_only=False)
+
+        def do_HEAD(self) -> None:
+            self._serve(head_only=True)
+
+    server = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+    server.daemon_threads = True
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        conn.send({"port": server.server_address[1]})
+        while conn.recv() == "report":
+            with lock:
+                conn.send(reset())
+    finally:
+        server.shutdown()
+        server.server_close()
+        os.close(fd)
+
+
+def chain_seed_child(workdir: str, relay: bool, conn) -> None:
+    """Phase 11's seed daemon, in a spawned process that never touches
+    CUDA: it sends its host, serves until the parent asks, then sends its
+    pull's origin bytes and timings and what its upload server served."""
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    asyncio.run(_chain_seed_child(workdir, relay, conn))
+
+
+async def _chain_seed_child(workdir: str, relay: bool, conn) -> None:
+    from dragonfly2_tpu_torch.daemon.config import DownloadConfig
+    # one origin stream (no parallel piece groups): the seed's pieces land
+    # in order at the object store's per-stream rate, as in the
+    # reference's chain test
+    seed = Daemon(DaemonConfig(workdir=os.path.join(workdir, "seed"),
+                               hostname="chain-seed", is_seed=True,
+                               listen_ip="127.0.0.1", host_ip="127.0.0.1",
+                               device="cpu",
+                               download=DownloadConfig(
+                                   relay_enabled=relay,
+                                   back_source_group_min_bytes=1 << 62)))
+    await seed.start()
+    try:
+        conn.send({"host": seed.host_info()})
+        await asyncio.to_thread(conn.recv)      # the parent is done
+        (c,) = seed.ptm._conductors.values()
+        # the pull's end and its last landing, on its flight's clock
+        ends: dict = {}
+        for t, st, *_ in c.flight.events:
+            if st in ("done", "wire_done"):
+                ends[st] = max(ends.get(st, 0.0), t)
+        conn.send({
+            "peer_id": c.peer_id, "state": c.state, "m0": c.flight._m0,
+            "traffic_source": c.traffic_source,
+            "back_source_s": ends.get("done", 0.0) / 1000.0,
+            "landed_s": ends.get("wire_done", 0.0) / 1000.0,
+            "relay_serves": dict(seed.upload_server.relay_serves),
+            "relay_bytes": dict(seed.upload_server.relay_bytes),
+            "upload_bytes": REGISTRY.counter("df_upload_bytes_total").value()})
+    finally:
+        await seed.stop()
+
+
+async def _http_json(port: int, target: str) -> tuple[int, dict]:
+    """GET a JSON route of a daemon's upload server."""
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    try:
+        writer.write(f"GET {target} HTTP/1.1\r\nHost: smoke\r\n\r\n"
+                     .encode())
+        head = (await reader.readuntil(b"\r\n\r\n")).decode("latin-1")
+        length = int(re.search(r"(?i)content-length:\s*(\d+)", head)
+                     .group(1))
+        return (int(head.split(" ")[1]),
+                json.loads(await reader.readexactly(length)))
+    finally:
+        writer.close()
+
+
+async def _origin_redirect_check(base: str, name: str, size: int,
+                                 want: bytes) -> None:
+    """The HTTP client's redirect rule on the card host: a probe and a
+    ranged GET through ``/redirect/`` (outside the origin's tally)."""
+    from dragonfly2_tpu_torch.common.piece import Range
+    from dragonfly2_tpu_torch.source import SourceRequest, close_clients
+    hdr = {CHECK_HEADER: "1"}
+    url = f"{base}/redirect/{name}"
+    try:
+        n = await source.content_length(SourceRequest(url=url, header=hdr))
+        check(n == size, f"redirected probe: length {n}, file {size}")
+        resp = await source.download(SourceRequest(
+            url=url, header=hdr, range=Range(0, len(want))))
+        got = await resp.read_all()
+        check(resp.status == 206 and got == want,
+              f"redirected range: status {resp.status}, {len(got)} bytes")
+    finally:
+        await close_clients()
+
+
+async def _chain_pod(workdir: str, seed_host: Host, url: str,
+                     manifest: ShardManifest, relay: bool) -> dict:
+    """A scheduler (``relay_fanout=1``, records kept) and leechers L1-L3 in
+    this process, each started once its predecessor has its first offer;
+    the seed runs in a child. The scheduler's DAG is sampled while they
+    pull (a finished peer's in-edges are dropped)."""
+    from dragonfly2_tpu_torch.daemon.config import DownloadConfig
+    sched = Scheduler(SchedCfg(
+        listen_ip="127.0.0.1", relay_fanout=1,
+        peer_upload_limit=CHAIN_UPLOAD_LIMIT,
+        seed_upload_limit=CHAIN_UPLOAD_LIMIT,
+        records_dir=os.path.join(workdir, "records"),
+        seed_peers=[SeedPeerAddr(host_id=seed_host.id, ip=seed_host.ip,
+                                 rpc_port=seed_host.port,
+                                 download_port=seed_host.download_port)]))
+    await sched.start()
+    sched.resource.store_host(seed_host)
+    daemons = {n: Daemon(DaemonConfig(
+        workdir=os.path.join(workdir, n), hostname=f"chain-{n}",
+        listen_ip="127.0.0.1", host_ip="127.0.0.1",
+        download=DownloadConfig(relay_enabled=relay),
+        scheduler=SchedulerConfig(addresses=[sched.address])))
+        for n in CHAIN}
+    dag: dict[str, set] = {}
+
+    async def watch_dag() -> None:
+        while True:
+            for task in list(sched.resource.tasks.values()):
+                for pid, peer in list(task.peers.items()):
+                    ups = dag.setdefault(peer.host.msg.hostname, set())
+                    for up in task.dag.parents(pid):
+                        if up in task.peers:
+                            ups.add(task.peers[up].host.msg.hostname)
+            await asyncio.sleep(0.02)
+
+    watcher = asyncio.get_running_loop().create_task(watch_dag())
+    try:
+        for d in daemons.values():
+            await d.start()
+        task_id = daemons["l1"].ptm._task_id(url, UrlMeta())
+        pulls = []
+        for n in CHAIN:
+            pulls.append(asyncio.get_running_loop().create_task(
+                _leecher_pull(daemons[n], url, UrlMeta(), manifest, {})))
+            t0 = time.monotonic()
+            while True:        # the next starts at this one's first offer
+                c = daemons[n].ptm.conductor(task_id)
+                engine = c._p2p_engine if c is not None else None
+                if engine is not None and engine._current_parents:
+                    break
+                check(not pulls[-1].done()
+                      and time.monotonic() - t0 < CHAIN_OFFER_S,
+                      f"{n}: no offer in {time.monotonic() - t0:.1f} s")
+                await asyncio.sleep(0.005)
+        runs = dict(zip(CHAIN, await asyncio.gather(*pulls)))
+        peers = {n: r["conductor"].peer_id for n, r in runs.items()}
+        status, flight_l3 = await _http_json(
+            daemons["l3"].upload_server.port, f"/debug/flight/{task_id}")
+        check(status == 200, f"L3 /debug/flight answered {status}")
+        # every leecher's PeerResult (its flight summary) lands after its
+        # result(): wait for the three
+        rows: list[dict] = []
+        t0 = time.monotonic()
+        while True:
+            rows += sched.service.records.drain()
+            flown = {r["peer_id"] for r in rows if r["kind"] == "flight"}
+            if set(peers.values()) <= flown or time.monotonic() - t0 > 10:
+                break
+            await asyncio.sleep(0.1)
+        for n, d in daemons.items():
+            runs[n].update(relay_stats(d))
+            runs[n]["flight"] = d.flight_recorder.get(task_id)
+        return {"runs": runs, "peers": peers, "rows": rows,
+                "dag": {k: sorted(v) for k, v in dag.items()},
+                "flight_l3": flight_l3}
+    finally:
+        watcher.cancel()
+        for d in daemons.values():
+            await d.stop()
+        await sched.stop()
+
+
+def _first(flight, stage: str, parent: str | None = None) -> dict:
+    """First ``stage`` event per piece (from ``parent`` only, when
+    given), on the monotonic clock."""
+    out: dict = {}
+    for t_ms, st, piece, p, _b, _d in list(flight.events):
+        if st == stage and piece >= 0 and parent in (None, p):
+            out.setdefault(piece, flight._m0 + t_ms / 1000.0)
+    return out
+
+
+def chain_run(workdir: str, url: str, manifest: ShardManifest, relay: bool,
+              origin_conn, size: int, ref: torch.Tensor, base: int,
+              shapes: dict, device: torch.device) -> dict:
+    """One chain pull (relay on or off) and its checks; returns its
+    line."""
+    ctx = multiprocessing.get_context("spawn")
+    parent_conn, child_conn = ctx.Pipe()
+    child = ctx.Process(target=chain_seed_child, name="smoke-chain-seed",
+                        args=(workdir, relay, child_conn))
+    child.start()
+    try:
+        check(parent_conn.poll(300), "phase 11 seed did not start")
+        seed_host = parent_conn.recv()["host"]
+        try:
+            pod = asyncio.run(_chain_pod(workdir, seed_host, url, manifest,
+                                         relay))
+        finally:
+            parent_conn.send("stop")    # the seed ends either way
+        check(parent_conn.poll(300), "phase 11 seed did not report")
+        seed = parent_conn.recv()
+    finally:
+        child.join(timeout=120)
+        if child.is_alive():
+            child.terminate()
+            child.join(timeout=30)
+    check(child.exitcode == 0, f"phase 11 seed exited {child.exitcode}")
+    origin_conn.send("report")
+    origin = origin_conn.recv()
+    what = "relay" if relay else "store-and-forward"
+    runs, peers = pod["runs"], pod["peers"]
+    names = {pid: n for n, pid in peers.items()}
+    names[seed["peer_id"]] = "seed"
+    leechers = {}
+    for n in CHAIN:
+        run = runs[n]
+        c, tensors = run["conductor"], run["out"]
+        for info in manifest.shards:
+            t = tensors[info.name]
+            lo = info.range_start - base
+            check(t.device == device and t.dtype == torch.bfloat16
+                  and list(t.shape) == shapes[info.name]
+                  and torch.equal(t.reshape(-1).view(torch.uint8),
+                                  ref[lo:lo + info.range_size]),
+                  f"{what} {n}: {info.name} differs from the origin")
+        check(c.traffic_source == 0 and c.traffic_p2p == size,
+              f"{what} {n}: p2p {c.traffic_p2p}, source {c.traffic_source}")
+        check_crc32c(c.storage.md, f"phase 11 {n}")
+        per_parent = run["flight"].summarize()["per_parent"]
+        leechers[n] = {
+            "time_to_ready_s": run["wall"],
+            "started_s": run["t0"] - runs["l1"]["t0"],
+            "parents_in_dag": pod["dag"].get(f"chain-{n}", []),
+            "pieces_from": {names.get(p, p): k
+                            for p, k in c.pieces_by_parent.items()},
+            "bytes_from": {names.get(p, p): v["bytes"]
+                           for p, v in per_parent.items()},
+            "relay_serves": run["relay_serves"],
+            "relay_bytes": run["relay_bytes"]}
+        del tensors, run["out"]
+    # the origin sent each byte once, and only to the seed: its tally is
+    # the file, its ranges do not overlap, the seed took the file from it
+    # and no leecher took a byte from it
+    spans = sorted(origin["ranges"])
+    covered = 0
+    for lo, hi in spans:
+        check(lo == covered, f"{what}: origin ranges overlap or leave a "
+                             f"hole at {covered}: {spans[:8]}")
+        covered = hi
+    check(covered == size and origin["body_bytes"] == size
+          and seed["traffic_source"] == size,
+          f"{what}: origin sent {origin['body_bytes']} bytes over "
+          f"{covered}, seed took {seed['traffic_source']}, file {size}")
+    # a chain: some leecher took pieces from another leecher. Hops from
+    # the origin: the seed 1, a leecher one more than its deepest parent
+    hops = {n: [p for p in leechers[n]["pieces_from"] if p in CHAIN]
+            for n in CHAIN}
+    check(any(hops.values()), f"{what}: no leecher took a piece from "
+                              f"another: {leechers}")
+    depth = {"seed": 1}
+    for n in CHAIN:              # parents start before their children
+        depth[n] = 1 + max(depth.get(p, 1)
+                           for p in leechers[n]["pieces_from"])
+    # L3's flight over HTTP: an hbm_done for every piece
+    total = runs["l3"]["conductor"].total_pieces
+    hbm = {e["piece"] for e in pod["flight_l3"]["events"]
+           if e["stage"] == "hbm_done"}
+    check(hbm == set(range(total)),
+          f"{what}: L3's flight has hbm_done for {len(hbm)} of {total} "
+          f"pieces")
+    # every leecher's flight summary reached the scheduler's records
+    flown = {r["peer_id"] for r in pod["rows"] if r["kind"] == "flight"}
+    check(set(peers.values()) <= flown,
+          f"{what}: flight rows for {len(flown & set(peers.values()))} of "
+          f"3 leechers")
+    relayed_rows = {}
+    for n in CHAIN:
+        relayed_rows[n] = sum(1 for r in pod["rows"]
+                              if r["kind"] == "piece" and r.get("relayed")
+                              and r["peer_id"] == peers[n])
+    overlaps = {}
+    for child_n, parent_n in (("l2", "l1"), ("l3", "l2")):
+        first = _first(runs[child_n]["flight"], "first_byte",
+                       parent=peers[parent_n])
+        done = _first(runs[parent_n]["flight"], "wire_done")
+        overlaps[f"{child_n}<{parent_n}"] = sum(
+            1 for p, t in first.items() if p in done and t < done[p])
+    if relay:
+        check(runs["l1"]["relay_serves"].get("ok", 0) > 0,
+              f"relay: L1 completed no relayed serve: "
+              f"{runs['l1']['relay_serves']}")
+        check(relayed_rows["l2"] > 0 and relayed_rows["l3"] > 0,
+              f"relay: relayed piece rows per leecher {relayed_rows}")
+        check(sum(overlaps.values()) > 0,
+              f"relay: no child's first byte came before its parent's "
+              f"wire_done: {overlaps}")
+    ends = [r["t0"] + r["wall"] for r in runs.values()]
+    # where each daemon's tail went, on the origin's first-byte clock:
+    # its last landing, its flight's done, and (leechers) result()
+    t0 = origin["first_byte_at"]
+    timeline = {"seed": {"landed": seed["m0"] + seed["landed_s"] - t0,
+                         "done": seed["m0"] + seed["back_source_s"] - t0}}
+    for n in CHAIN:
+        f = runs[n]["flight"]
+        landed = [f._m0 + t / 1000.0 - t0 for t, st, *_ in f.events
+                  if st == "wire_done"]
+        done = [f._m0 + t / 1000.0 - t0 for t, st, *_ in f.events
+                if st == "done"]
+        timeline[n] = {"first_landed": min(landed), "landed": max(landed),
+                       "done": max(done),
+                       "ready": runs[n]["t0"] + runs[n]["wall"] - t0}
+    return {"mode": what, "file_bytes": size,
+            "makespan_s": max(ends) - t0, "timeline_s": timeline,
+            "seed_back_source_s": seed["back_source_s"],
+            "seed_landed_s": seed["landed_s"],
+            "seed_relay_serves": seed["relay_serves"],
+            "seed_relay_bytes": seed["relay_bytes"],
+            "seed_upload_bytes": seed["upload_bytes"],
+            "origin_bytes_sent": origin["body_bytes"],
+            "origin_connections": len(origin["per_client"]),
+            "origin_requests": origin["requests"],
+            "chain_depth": max(depth.values()), "hops_from_origin": depth,
+            "relayed_piece_rows": relayed_rows,
+            "first_byte_before_parent_wire_done": overlaps,
+            "leechers": leechers}
+
+
+def phase_chain(workdir: str, device: torch.device) -> None:
+    """Phase 11: origin -> seed -> L1 -> L2 -> L3 from an HTTP origin,
+    with the relay on and then off (store-and-forward)."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    t_phase = time.monotonic()
+    path = os.path.join(workdir, "deploy", "model-00004-of-00004.safetensors")
+    name = os.path.basename(path)
+    layout = deploy_layout()
+    header, _ = safetensors_header(layout)
+    size = os.path.getsize(path)
+    free = shutil.disk_usage(workdir).free
+    need = 4 * size + (1 << 30)
+    check(free >= need, f"phase 11 needs {need} bytes of free disk for the "
+                        f"seed's and three leechers' copies, {free} free")
+    manifest = manifest_from_file(path)
+    with open(path, "rb") as f:
+        head = f.read(4096)
+        f.seek(len(header))
+        ref = torch.frombuffer(bytearray(f.read()), dtype=torch.uint8).to(
+            device)
+    ctx = multiprocessing.get_context("spawn")
+    origin_conn, child_conn = ctx.Pipe()
+    origin = ctx.Process(target=http_origin_child, name="smoke-origin",
+                         args=(path, CHAIN_PACE_BPS, child_conn))
+    origin.start()
+    lines = {}
+    try:
+        check(origin_conn.poll(120), "phase 11 origin did not start")
+        base = f"http://127.0.0.1:{origin_conn.recv()['port']}"
+        asyncio.run(_origin_redirect_check(base, name, size, head))
+        for relay in (True, False):
+            d = os.path.join(workdir, "chain-" + ("on" if relay else "off"))
+            lines[relay] = chain_run(d, f"{base}/{name}", manifest, relay,
+                                     origin_conn, size, ref, len(header),
+                                     dict(layout), device)
+            shutil.rmtree(d, ignore_errors=True)
+        origin_conn.send("stop")
+    finally:
+        origin.join(timeout=30)
+        if origin.is_alive():
+            origin.terminate()
+            origin.join(timeout=30)
+    del ref
+    for relay in (True, False):
+        emit(f"phase 11 chain, {lines[relay]['mode']}", lines[relay])
+    on, off = lines[True], lines[False]
+    emit("phase 11 chain", {
+        "origin_pace_bytes_per_s": CHAIN_PACE_BPS,
+        "makespan_s": {"relay": on["makespan_s"],
+                       "store_and_forward": off["makespan_s"],
+                       "difference": off["makespan_s"] - on["makespan_s"]},
+        "time_to_ready_s": {n: {"relay": on["leechers"][n]["time_to_ready_s"],
+                                "store_and_forward":
+                                    off["leechers"][n]["time_to_ready_s"]}
+                            for n in CHAIN},
+        "seed_back_source_s": {"relay": on["seed_back_source_s"],
+                               "store_and_forward":
+                                   off["seed_back_source_s"]},
+        "phase_s": time.monotonic() - t_phase, "card": smi})
+
+
 def run_phases(layers: int, seed: int, device: torch.device) -> None:
-    """Phases 2-10 on ``device``; raises CheckFailed on a failed check."""
+    """Phases 2-11 on ``device``; raises CheckFailed on a failed check."""
     layout = llama_layout(layers)
     header, nbytes = safetensors_header(layout)
     workdir = tempfile.mkdtemp(prefix="chip-smoke-")
@@ -2085,6 +2624,7 @@ def run_phases(layers: int, seed: int, device: torch.device) -> None:
         phase_trainer(workdir, seed, device)
         phase_deploy(workdir, seed, device)
         phase_nt(workdir, seed, device)
+        phase_chain(workdir, device)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 

@@ -1,14 +1,27 @@
-"""Deterministic fault injection at named sites, cut to this slice.
+"""Deterministic fault injection at named sites.
 
-Counterpart of ``dragonfly2_tpu/common/faultgate.py``. The slice fires one
-site, ``hbm.ingest`` (``tpu/hbm_sink.py`` ``DeviceIngest.write``): a raising
-script there drives the conductor's sink-failure path, where the sink is
-disabled and the download finishes to disk. Call sites guard with
-``if faultgate.ARMED:`` so a disarmed process pays one attribute load.
+Counterpart of ``dragonfly2_tpu/common/faultgate.py`` cut to the sites the
+port fires:
+
+* ``hbm.ingest`` (``tpu/hbm_sink.py`` ``DeviceIngest.write``): a raising
+  script drives the conductor's sink-failure path, where the sink is
+  disabled and the download finishes to disk;
+* ``piece.wire`` (``daemon/piece_downloader.py``): ``hang`` parks a piece
+  GET inside its deadline, ``corrupt`` flips the body's first byte before
+  the landing check sees it;
+* ``relay.stall`` (``daemon/upload_server.py`` streaming serve): ``hang``
+  models an upstream whose landing watermark stopped advancing;
+* ``upload.serve`` (``daemon/upload_server.py``): ``corrupt`` flips a byte
+  of a served range (``peek`` routes the serve off ``sendfile`` while
+  such a script is armed).
+
+Call sites guard with ``if faultgate.ARMED:`` so a disarmed process pays
+one attribute load.
 """
 
 from __future__ import annotations
 
+import asyncio
 import logging
 import threading
 import time
@@ -18,8 +31,9 @@ from .metrics import REGISTRY
 
 log = logging.getLogger("df.faultgate")
 
-SITES = frozenset({"hbm.ingest"})
-KINDS = frozenset({"fail", "error", "delay", "hang"})
+SITES = frozenset({"hbm.ingest", "piece.wire", "relay.stall",
+                   "upload.serve"})
+KINDS = frozenset({"fail", "error", "delay", "hang", "corrupt"})
 
 # fast-path flag: True iff at least one script is armed
 ARMED = False
@@ -76,10 +90,17 @@ def reset() -> None:
         _recompute_armed()
 
 
-def _claim(site: str, key: str) -> FaultScript | None:
+def _matches(s: FaultScript, site: str, key: str,
+             kinds: frozenset | None) -> bool:
+    return (s.site == site and s.n != 0 and (not s.key or s.key in key)
+            and (kinds is None or s.kind in kinds))
+
+
+def _claim(site: str, key: str, *, kinds: frozenset | None = None
+           ) -> FaultScript | None:
     with _lock:
         for s in _scripts:
-            if s.site == site and s.n != 0 and (not s.key or s.key in key):
+            if _matches(s, site, key, kinds):
                 s.fired += 1
                 if s.n > 0:
                     s.n -= 1
@@ -88,11 +109,60 @@ def _claim(site: str, key: str) -> FaultScript | None:
     return None
 
 
+def peek(site: str, key: str = "", *, kinds: frozenset | None = None) -> bool:
+    """True when an armed script would match (site, key), without
+    consuming a fire. The upload server's ``sendfile`` branch never sees
+    the bytes, so it reads this to route a serve through the corruptible
+    path while a script is armed."""
+    with _lock:
+        return any(_matches(s, site, key, kinds) for s in _scripts)
+
+
+_ASYNC_KINDS = frozenset({"fail", "error", "delay", "hang"})
+
+
+async def fire(site: str, key: str = "") -> None:
+    """Fire at an async site: fail/error raise a DFError, delay sleeps,
+    hang parks until the caller's own deadline cancels it. ``corrupt``
+    scripts are left for ``corrupt()``."""
+    script = _claim(site, key, kinds=_ASYNC_KINDS)
+    if script is None:
+        return
+    _injected.labels(site, script.kind).inc()
+    log.info("faultgate fired: %s/%s key=%r", site, script.kind, key)
+    if script.kind == "delay":
+        await asyncio.sleep(script.delay_s)
+    elif script.kind == "hang":
+        await asyncio.sleep(3600.0)   # the site's deadline cancels us
+    else:
+        raise DFError(script.code,
+                      f"faultgate[{script.site}]: injected {script.kind}")
+
+
+def corrupt(site: str, data, key: str = ""):
+    """Consume one ``corrupt`` script armed for (site, key): the first
+    byte of ``data`` is flipped, so the digest check downstream fails.
+    Returns the bytes, corrupted or not; a bytearray is flipped in
+    place."""
+    script = _claim(site, key, kinds=frozenset({"corrupt"}))
+    if script is None or not len(data):
+        return data
+    _injected.labels(site, script.kind).inc()
+    log.info("faultgate corrupting %d bytes at %s key=%r", len(data), site,
+             key)
+    if isinstance(data, bytearray):
+        data[0] ^= 0xFF
+        return data
+    buf = bytearray(data)
+    buf[0] ^= 0xFF
+    return bytes(buf)
+
+
 def fire_sync(site: str, key: str = "") -> None:
     """Fire at a sync site: fail/error raise a DFError; delay blocks the
     calling thread; hang is treated as fail (a sync site cannot park
     cancellably)."""
-    script = _claim(site, key)
+    script = _claim(site, key, kinds=_ASYNC_KINDS)
     if script is None:
         return
     _injected.labels(site, script.kind).inc()

@@ -61,6 +61,9 @@ class Range:
     def end(self) -> int:  # exclusive
         return self.start + self.length
 
+    def http_header(self) -> str:
+        return f"bytes={self.start}-{self.start + self.length - 1}"
+
 
 def parse_http_range(header: str, total: int) -> Range:
     """Parse an HTTP Range header value against a known total length.

@@ -1,7 +1,8 @@
 """Token-bucket rate limiting (async).
 
 Counterpart of ``TokenBucket`` in ``dragonfly2_tpu/common/rate.py``: the
-upload server's per-daemon serve rate limit.
+upload server's per-daemon serve rate limit, adjustable live
+(``set_rate``).
 """
 
 from __future__ import annotations
@@ -19,6 +20,15 @@ class TokenBucket:
         self.burst = float(burst) if burst is not None else max(self.rate, 1.0)
         self._tokens = self.burst
         self._last = time.monotonic()
+
+    def set_rate(self, rate: float, burst: float | None = None) -> None:
+        self._refill()
+        self.rate = float(rate)
+        if burst is not None:
+            self.burst = float(burst)
+        elif self.rate > 0:
+            self.burst = max(self.rate, 1.0)
+        self._tokens = min(self._tokens, self.burst)
 
     def _refill(self) -> None:
         now = time.monotonic()

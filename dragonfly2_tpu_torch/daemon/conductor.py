@@ -17,9 +17,18 @@ into tree-class pieces this peer fetches and swap-class pieces its
 co-located replicas supply (``set_affinity``). A finished subset stays a
 warm partial in storage, never marked done; a joiner that needs more
 widens the live download (``widen_to_whole_file``) until the download
-commits to finishing (``_finishing``). The reference's flight-recorder
-events have no counterpart here; the ``df_shard_*`` metrics and the
-published ``shard`` events stand in their place.
+commits to finishing (``_finishing``). Shard readiness is journaled on
+the task's flight (``shard_ready``, ``shard_fallback``) as well as counted
+in the ``df_shard_*`` metrics and published as ``shard`` events.
+
+The task's flight (``flight_recorder.TaskFlight``, None while the recorder
+is off) journals the ladder (``registered``, the rungs), each origin
+piece's ``wire_done``, each placement, each piece staged into the device
+sink (``hbm_done``), the sink's transfer spans and the terminal state.
+Once the geometry is known the task is tracked by the relay hub
+(``relay.RelayHub``): every in-flight span is published as a ``relay``
+event for the piece-sync streams' announce-ahead, every landing pulses
+the hub's waiters, and the task is untracked when it ends.
 
 Bytes already on disk are not transferred again: a request naming a
 content digest the content store holds complete is adopted whole
@@ -45,6 +54,7 @@ from ..storage.io_executor import run_io
 from ..storage.manager import StorageManager
 from ..storage.metadata import TaskMetadata
 from ..storage.store import TaskStorage
+from . import flight_recorder as fr
 
 log = logging.getLogger("df.core.conductor")
 
@@ -80,7 +90,8 @@ class PeerTaskConductor:
                  task_type: TaskType = TaskType.STANDARD,
                  device_sink_factory: Any = None,
                  shard_manifest: Any = None,
-                 requested_shards: list[str] | None = None):
+                 requested_shards: list[str] | None = None,
+                 flight: Any = None, relay: Any = None):
         self.task_id = task_id
         self.peer_id = peer_id
         self.url = url
@@ -94,6 +105,9 @@ class PeerTaskConductor:
         self.disable_back_source = disable_back_source
         self.task_type = task_type
         self.device_sink_factory = device_sink_factory
+        self.flight = flight         # TaskFlight journal (None = disabled)
+        self.relay = relay           # RelayHub (None = cut-through off)
+        self._relay_tracked = False
         # sharded-task delivery (common/sharding.py): the manifest's shard
         # table, the subset this host needs, and — once piece geometry is
         # known (_init_shards) — the tracker that turns verified piece
@@ -183,17 +197,23 @@ class PeerTaskConductor:
                 return
             if self.scheduler is not None:
                 self._session = await self._register()
+                if self.flight is not None and self._session is not None:
+                    self.flight.event(fr.REGISTERED)
                 if self._session is not None:
                     assigned = self._session.result.assigned_shards
                     if assigned is not None:
                         self.set_affinity(list(assigned))
                 if self._session is not None and self._p2p_engine is not None:
+                    if self.flight is not None:
+                        self.flight.rung(fr.RUNG_P2P)
                     used_p2p = await self._p2p_engine.pull(self,
                                                            self._session)
             if not used_p2p:
                 if self.disable_back_source:
                     raise DFError(Code.CLIENT_BACK_SOURCE_ERROR,
                                   "no P2P path and back-source disabled")
+                if self.flight is not None:
+                    self.flight.rung(fr.RUNG_BACK_SOURCE)
                 self.log.info("back-source: %s", self.url)
                 await self.piece_mgr.download_source(self)
             await self._finish_success()
@@ -207,6 +227,11 @@ class PeerTaskConductor:
         finally:
             if self._session is not None:
                 await self._session.close(success=self.state == self.SUCCESS)
+            if self._relay_tracked:
+                # wakes any streaming serve parked on this task's progress,
+                # so it winds down now instead of riding out its deadline
+                self._relay_tracked = False
+                self.relay.untrack(self.task_id)
 
     async def _register(self):
         """Register with the scheduler; None means "go to origin" (the
@@ -233,6 +258,8 @@ class PeerTaskConductor:
         try:
             self.device_ingest.write(offset, data)
             self._staged.add(num)
+            if self.flight is not None:
+                self.flight.event(fr.HBM_DONE, num, nbytes=len(data))
         except Exception:
             self.log.exception("device ingest write failed; disabling sink")
             self.device_ingest.close()
@@ -261,6 +288,8 @@ class PeerTaskConductor:
             self.requested_shards = None
             return
         self.shard_tracker = tracker
+        if self.flight is not None:
+            self.flight.shards_total = tracker.total
         if self.requested_shards is not None and self.total_pieces >= 0:
             self.needed_pieces = tracker.needed_pieces(self.piece_size,
                                                        self.total_pieces)
@@ -336,9 +365,14 @@ class PeerTaskConductor:
         t = time.time() * 1000 - self.start_ms
         for name in tracker.on_span(offset, offset + size, t):
             shard = tracker.shard_for(name)
-            src = "swap" if name in self._swap_shard_names else "tree"
+            cls = (fr.SHARD_SRC_SWAP if name in self._swap_shard_names
+                   else fr.SHARD_SRC_TREE)
+            src = fr.SHARD_SRC_NAMES[cls]
             _shard_ready.labels(src).inc()
             _shard_ready_s.observe(max(t, 0.0) / 1000.0)
+            if self.flight is not None:
+                self.flight.event(fr.SHARD_READY, cls, name,
+                                  shard.range_size)
             self._publish({"type": "shard", "name": name, "src": src,
                            "bytes": shard.range_size,
                            "ready": len(tracker.ready),
@@ -351,6 +385,8 @@ class PeerTaskConductor:
             return
         self.fallback_pieces.add(num)
         _shard_fallbacks.inc()
+        if self.flight is not None:
+            self.flight.event(fr.SHARD_FALLBACK, num, parent_id)
         self.log.info("swap piece %d falls back to the tree (%s)", num,
                       parent_id[-12:])
 
@@ -378,6 +414,8 @@ class PeerTaskConductor:
             fresh = ShardTracker(self.shard_manifest)
             fresh.ready.update(self.shard_tracker.ready)
             self.shard_tracker = fresh
+            if self.flight is not None:
+                self.flight.shards_total = fresh.total
             if self.storage is not None:
                 for num in sorted(self.ready):
                     meta = self.storage.md.pieces.get(num)
@@ -432,6 +470,12 @@ class PeerTaskConductor:
         self.storage = self.storage_mgr.register_task(md)
         self.storage_ready.set()
         self._init_shards()
+        if self.relay is not None and not self._relay_tracked:
+            # cut-through: from here until the task ends, the upload
+            # server may serve its bytes up to the landing watermark
+            self._relay_tracked = True
+            self.relay.track(self.task_id, total_pieces=self.total_pieces,
+                             on_open=self._on_relay_span)
         if (self.device_sink_factory is not None and content_length > 0
                 and self._sink_build is None):
             # pinning the staging buffer takes about a second per 4 GiB,
@@ -441,6 +485,18 @@ class PeerTaskConductor:
             self._sink_build = asyncio.get_running_loop().create_task(
                 self._build_device_ingest(content_length))
         return self.piece_size
+
+    def _on_relay_span(self, span) -> None:
+        """A new in-flight span opened for this task: publish its piece
+        numbers so the piece-sync streams announce them ahead (a child may
+        begin pulling them now, served to the landing watermark)."""
+        self._publish({"type": "relay",
+                       "nums": [p.piece_num for p in span.pieces]})
+
+    def _pulse_relay(self) -> None:
+        """Landed bytes are disk-covered now: move relay readers along."""
+        if self._relay_tracked:
+            self.relay.pulse(self.task_id)
 
     async def _build_device_ingest(self, content_length: int) -> None:
         try:
@@ -507,6 +563,8 @@ class PeerTaskConductor:
                 self.completed_length += p.size
                 self._piece_cond.notify_all()
             self.traffic_placed += p.size
+            if self.flight is not None:
+                self.flight.event(fr.PLACED, num, "cas", p.size)
             self._note_shard_progress(num, p.start, p.size)
             self._publish({"type": "piece", "num": num, "size": p.size,
                            "completed": self.completed_length,
@@ -561,7 +619,10 @@ class PeerTaskConductor:
                 self._piece_cond.notify_all()
             self.traffic_placed += meta.size
             placed.add(num)
+            if self.flight is not None:
+                self.flight.event(fr.PLACED, num, "cas", meta.size)
             self._note_shard_progress(num, meta.start, meta.size)
+            self._pulse_relay()
             self._publish({"type": "piece", "num": num, "size": meta.size,
                            "completed": self.completed_length,
                            "total": self.content_length})
@@ -594,6 +655,10 @@ class PeerTaskConductor:
             # _landing claims the piece BEFORE the await below, so two
             # near-simultaneous landings of one piece cannot both count
             return
+        # taken before landing (wire_done precedes the hbm_done below),
+        # journaled only once the piece landed; back-source pieces skip the
+        # dispatcher's stages, so the duration back-dates the start
+        t_wire = self.flight.now_ms() if self.flight is not None else 0.0
         self._landing.add(num)
         try:
             # hashing + write take ms at 16 MiB: the dedicated storage
@@ -604,6 +669,9 @@ class PeerTaskConductor:
             self._landing.discard(num)
         if num in self.ready:     # lost a race decided elsewhere
             return
+        if self.flight is not None:
+            self.flight.event(fr.WIRE_DONE, num, fr.ORIGIN, len(data),
+                              dur_ms=cost_ms, t_ms=t_wire)
         # write() is a memcpy + enqueue; the copy runs on the sink's own
         # thread and is never awaited here
         self._ingest_to_device(num, offset, data)
@@ -613,6 +681,7 @@ class PeerTaskConductor:
             self.traffic_source += len(data)
             self._piece_cond.notify_all()
         self._note_shard_progress(num, offset, len(data))
+        self._pulse_relay()
         self._publish({"type": "piece", "num": num, "size": len(data),
                        "completed": self.completed_length,
                        "total": self.content_length})
@@ -713,6 +782,7 @@ class PeerTaskConductor:
         for n in counted:
             p = by_num[n]
             self._note_shard_progress(n, p.range_start, p.range_size)
+        self._pulse_relay()
         for ev in events:
             self._publish(ev)
         return counted, corrupt, raced
@@ -825,7 +895,11 @@ class PeerTaskConductor:
                 self.log.exception("device sink flush failed")
                 self.device_ingest.close()
                 self.device_ingest = None
+        if self.device_ingest is not None and self.flight is not None:
+            self.flight.hbm_spans(list(self.device_ingest.transfer_spans))
         self.state = self.SUCCESS
+        if self.flight is not None:
+            self.flight.finish(self.SUCCESS)
         self._publish({"type": "done", "success": True,
                        "completed": self.completed_length,
                        "total": self.content_length})
@@ -843,6 +917,11 @@ class PeerTaskConductor:
         self.state = self.FAILED
         self.fail_code = code
         self.fail_message = message
+        if self.flight is not None:
+            # ladder exhausted: the fail rung puts the verdict in the
+            # journal, not only in the PeerResult code
+            self.flight.rung(fr.RUNG_FAIL)
+            self.flight.finish(self.FAILED)
         if self.device_ingest is not None:
             self.device_ingest.close()
             self.device_ingest = None

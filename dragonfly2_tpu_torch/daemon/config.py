@@ -3,8 +3,9 @@
 Counterpart of ``dragonfly2_tpu/daemon/config.py`` cut to the deployment
 settings the port honors (manager and scheduler addresses, the
 scheduler-set refresh, ports, listeners, workdir, the storage section's
-GC, dedupe and reload settings, RTT probing), plus ``device``: where the
-device sink lands bytes. The
+GC, dedupe and reload settings, RTT probing, the flight recorder's
+limits, the cut-through relay switch and the https origins' trust), plus
+``device``: where the device sink lands bytes. The
 reference's tuning knobs that no caller of the port sets yet are module
 constants where they are used.
 """
@@ -29,6 +30,27 @@ class SchedulerConfig:
 class DownloadConfig:
     back_source_parallelism: int = 4       # concurrent origin range streams
     back_source_group_min_bytes: int = 32 * MiB  # below this, one stream
+    # TLS trust for https origins (private registries, custom CAs)
+    source_ca: str = ""                    # extra CA bundle path
+    source_insecure: bool = False          # disable verification (tests)
+    # cut-through relay (daemon/relay.py): serve a piece while it is still
+    # arriving. Off restores strict store-and-forward: the upload server
+    # then answers 416 for incomplete ranges
+    relay_enabled: bool = True
+    # how long a streaming serve waits for the landing watermark to move
+    # before giving up (per wait, reset on every advance)
+    relay_stall_s: float = 10.0
+
+
+@dataclass
+class FlightConfig:
+    """Download flight recorder (daemon/flight_recorder.py): the per-task
+    piece-lifecycle journal behind GET /debug/flight on the upload port."""
+
+    enabled: bool = True
+    max_tasks: int = 64               # flights kept (drop-oldest)
+    max_events: int = 4096            # events per flight (ring)
+    max_serves: int = 1024            # serve-side edge rows per flight
 
 
 @dataclass
@@ -68,6 +90,7 @@ class DaemonConfig:
     download: DownloadConfig = field(default_factory=DownloadConfig)
     upload: UploadConfig = field(default_factory=UploadConfig)
     storage: StorageSection = field(default_factory=StorageSection)
+    flight: FlightConfig = field(default_factory=FlightConfig)
     probe_enabled: bool = True             # RTT probing via SyncProbes
     # "cuda": every CUDA device of the host (an error when there is none);
     # "cpu": one CPU device, only when named

@@ -11,9 +11,11 @@ manager and keeps tracking that set; a seed daemon also registers itself
 as a seed peer and keeps alive. Once a scheduler is known the RTT prober
 reports to it (``probe_enabled``). Storage is reloaded at construction
 (warm restart), its reloaded pieces are re-verified on the storage pool
-before the servers start, and a ``storage`` GC task sweeps it. TLS, the
-health plane, PEX, relay, QoS, the flight recorder, the announcer and the
-proxy wait for later slices.
+before the servers start, and a ``storage`` GC task sweeps it. One flight
+recorder journals every task (``GET /debug/flight`` on the upload port),
+and one relay hub lets the upload server stream pieces that are still
+arriving (``download.relay_enabled``). Fleet TLS, the health plane, PEX,
+QoS, the announcer and the proxy wait for later slices.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import tempfile
 
 import torch
 
+from .. import source
 from ..common.dfpath import DFPath
 from ..common.errors import Code, DFError
 from ..common.gc import GC, GCTask
@@ -41,11 +44,13 @@ from ..tpu import topology
 from ..tpu.hbm_sink import DeviceIngest
 from ..tpu.mesh import cuda_devices
 from .config import DaemonConfig
+from .flight_recorder import FlightRecorder
 from .networktopology import NetworkTopologyProber
 from .peertask_manager import PeerTaskManager
 from .piece_downloader import PieceDownloader
 from .piece_engine import PIECE_TIMEOUT_S, PieceEngine
 from .piece_manager import PieceManager
+from .relay import RelayHub
 from .rpcserver import DaemonService, build_service
 from .scheduler_session import SchedulerConnector
 from .upload_server import UploadServer
@@ -99,8 +104,18 @@ class Daemon:
         self.gc = GC()
         self.prober: NetworkTopologyProber | None = None
         self.piece_mgr = PieceManager(cfg.download)
+        self.flight_recorder = FlightRecorder(
+            enabled=cfg.flight.enabled, max_tasks=cfg.flight.max_tasks,
+            max_events=cfg.flight.max_events,
+            max_serves=cfg.flight.max_serves)
+        # cut-through relay hub: in-flight landing spans, readable by the
+        # upload server's streaming path; None = store-and-forward
+        self.relay = RelayHub() if cfg.download.relay_enabled else None
         self.upload_server = UploadServer(
-            self.storage_mgr, port=cfg.upload.port, host=cfg.listen_ip)
+            self.storage_mgr, port=cfg.upload.port, host=cfg.listen_ip,
+            flight_recorder=self.flight_recorder, relay=self.relay,
+            relay_stall_s=cfg.download.relay_stall_s)
+        self._prev_source_tls = None
         self.scheduler: SchedulerConnector | None = None
         self.manager: ManagerLink | None = None
         self._sched_refresh: asyncio.Task | None = None
@@ -163,7 +178,7 @@ class Daemon:
     def _engine(self) -> PieceEngine:
         return PieceEngine(
             downloader=self._downloader, channel_pool=self._peer_channels,
-            slice_name=self.topology.slice_name)
+            slice_name=self.topology.slice_name, relay=self.relay)
 
     async def start(self) -> None:
         if self.storage_mgr.reloaded_tasks:
@@ -176,6 +191,14 @@ class Daemon:
                      self.reload_stats["pieces_ok"],
                      self.reload_stats["pieces_dropped"],
                      self.reload_stats["pieces_rot"])
+        dl = self.cfg.download
+        if dl.source_ca or dl.source_insecure:
+            # the source client is a process singleton: the prior trust is
+            # restored at stop(), so co-resident daemons keep their own
+            http = source.client_for("https://")
+            self._prev_source_tls = (http, http._ssl)
+            http.set_tls(insecure=dl.source_insecure, ca_file=dl.source_ca)
+        self.upload_server.host_id = f"{self.hostname}-{self.host_ip}"
         await self.upload_server.start()
         self._peer_channels = ChannelPool()
         self._downloader = PieceDownloader(timeout_s=PIECE_TIMEOUT_S)
@@ -184,7 +207,8 @@ class Daemon:
             hostname=self.hostname, host_ip=self.host_ip,
             p2p_engine_factory=self._engine,
             device_sink_builder=self.device_sink_builder,
-            is_seed=self.cfg.is_seed)
+            is_seed=self.cfg.is_seed,
+            flight_recorder=self.flight_recorder, relay=self.relay)
         svc = DaemonService(
             self.ptm, upload_addr=f"{self.host_ip}:{self.upload_server.port}")
         # peer-facing TCP server: bind the listen address, advertise host_ip
@@ -309,3 +333,9 @@ class Daemon:
         if self.scheduler is not None:
             await self.scheduler.leave_host()
             await self.scheduler.close()
+        # this loop's pooled origin connections
+        await source.close_clients()
+        if self._prev_source_tls is not None:
+            http, prev = self._prev_source_tls
+            http._ssl = prev
+            self._prev_source_tls = None

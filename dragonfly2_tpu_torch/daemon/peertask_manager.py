@@ -2,9 +2,10 @@
 completed-task fast path.
 
 Counterpart of ``dragonfly2_tpu/daemon/peertask_manager.py`` cut to the
-file task: each conductor gets the daemon's scheduler connector and a
-fresh P2P engine, so it registers, pulls from parents, and goes back to
-source only when P2P cannot finish.
+file task: each conductor gets the daemon's scheduler connector, a fresh
+P2P engine, a flight from the daemon's recorder and the daemon's relay
+hub, so it registers, pulls from parents, and goes back to source only
+when P2P cannot finish.
 
 A request that names shards (``UrlMeta.shards``) runs a requested-subset
 download. The shard names stay out of the task id, so every host pulling
@@ -24,7 +25,7 @@ from ..common import ids
 from ..common.errors import Code, DFError
 from ..common.sharding import parse_shard_names
 from ..idl.messages import (DownloadRequest, DownloadResponse, TaskStat,
-                            TaskType, UrlMeta)
+                            TaskType, UrlMeta, resolve_class)
 from ..storage.manager import StorageManager
 from .conductor import PeerTaskConductor
 from .piece_manager import PieceManager
@@ -36,7 +37,8 @@ class PeerTaskManager:
     def __init__(self, *, storage_mgr: StorageManager, piece_mgr: PieceManager,
                  hostname: str, host_ip: str, scheduler: Any = None,
                  p2p_engine_factory: Any = None,
-                 device_sink_builder: Any = None, is_seed: bool = False):
+                 device_sink_builder: Any = None, is_seed: bool = False,
+                 flight_recorder: Any = None, relay: Any = None):
         self.storage_mgr = storage_mgr
         self.piece_mgr = piece_mgr
         self.hostname = hostname
@@ -45,6 +47,8 @@ class PeerTaskManager:
         self.p2p_engine_factory = p2p_engine_factory
         self.device_sink_builder = device_sink_builder
         self.is_seed = is_seed
+        self.flight_recorder = flight_recorder
+        self.relay = relay            # RelayHub (None = cut-through off)
         self._conductors: dict[str, PeerTaskConductor] = {}
         self._lock = asyncio.Lock()
 
@@ -69,16 +73,24 @@ class PeerTaskManager:
             conductor = self._join_existing(task_id, requested_shards)
             if conductor is not None:
                 return conductor
+            peer_id = ids.peer_id(self.hostname, self.host_ip,
+                                  seed=self.is_seed)
+            flight = (self.flight_recorder.begin(
+                task_id, peer_id, url=url,
+                # clamped to a known class ("" stays classless)
+                qos_class=(resolve_class(meta.qos_class)
+                           if meta.qos_class else ""),
+                tenant=meta.tenant)
+                if self.flight_recorder is not None else None)
             conductor = PeerTaskConductor(
-                task_id=task_id,
-                peer_id=ids.peer_id(self.hostname, self.host_ip,
-                                    seed=self.is_seed),
+                task_id=task_id, peer_id=peer_id,
                 url=url, url_meta=meta, storage_mgr=self.storage_mgr,
                 piece_mgr=self.piece_mgr, scheduler=self.scheduler,
                 disable_back_source=disable_back_source, task_type=task_type,
                 device_sink_factory=device_sink_factory,
                 shard_manifest=shard_manifest,
-                requested_shards=requested_shards)
+                requested_shards=requested_shards,
+                flight=flight, relay=self.relay)
             if self.p2p_engine_factory is not None:
                 conductor.set_p2p_engine(self.p2p_engine_factory())
             self._conductors[task_id] = conductor

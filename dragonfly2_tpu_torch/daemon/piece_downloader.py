@@ -10,6 +10,16 @@ keep-alive connections per parent (``asyncio`` protocols, at most
 (``common/bufpool.py``): the socket reads into it, with no copy on the
 event loop. Digests are checked later, in the storage landing pass.
 
+Cut-through relay (``daemon/relay.py``): ``relay_open(buf)`` registers the
+pooled buffer as an in-flight span once it is acquired, and every read
+into it advances the span's watermark (one integer store; the body bytes
+that arrive with the response head are copied in and counted too). A
+failed fetch retires the span before the buffer returns to the pool. A
+response carrying ``X-DF-Relay: 1`` (the parent streamed it against its
+own landing watermark) sets ``meta["relayed"]``. ``on_first_byte`` fires
+once, when the first body bytes land (the flight recorder's
+``first_byte``).
+
 Failures carry the reference's codes and typed verdicts: 503 is
 ``CLIENT_PEER_BUSY`` with the parent's retry hint; any other non-2xx is
 ``CLIENT_PIECE_DOWNLOAD_FAIL`` ("refused"); a short body, a wrong
@@ -25,6 +35,7 @@ import logging
 import time
 from urllib.parse import quote
 
+from ..common import faultgate
 from ..common.bufpool import POOL
 from ..common.errors import Code, DFError
 from ..idl.messages import PieceInfo
@@ -65,6 +76,7 @@ class _Conn(asyncio.BufferedProtocol):
         self._body: memoryview | None = None
         self._off = 0
         self._got_bytes = False
+        self._progress = None            # callable(body bytes so far)
         self.status = 0
         self.headers: dict[str, str] = {}
 
@@ -82,6 +94,8 @@ class _Conn(asyncio.BufferedProtocol):
         self._got_bytes = True
         if self._state == "body":
             self._off += nbytes
+            if self._progress is not None:
+                self._progress(self._off)
             if self._off == len(self._body):
                 self._done()
             return
@@ -119,6 +133,12 @@ class _Conn(asyncio.BufferedProtocol):
         self._body[:len(rest)] = rest
         self._off = len(rest)
         self._state = "body"
+        if self.status not in (200, 206):
+            self._progress = None       # an error body is not the piece
+        elif self._off and self._progress is not None:
+            # body bytes that came with the head count toward the
+            # watermark as well
+            self._progress(self._off)
         if self._off == len(self._body):
             self._done()
 
@@ -158,10 +178,13 @@ class _Conn(asyncio.BufferedProtocol):
             self._fut.set_exception(exc)
         self.close()
 
-    def request(self, raw: bytes, dst: memoryview) -> asyncio.Future:
+    def request(self, raw: bytes, dst: memoryview,
+                progress=None) -> asyncio.Future:
         """Send one request; the future resolves once the whole response
-        is in (``dst`` holds a 2xx body)."""
+        is in (``dst`` holds a 2xx body). ``progress(n)`` is called with
+        the 2xx body bytes landed in ``dst`` so far, after every read."""
         self._fut = asyncio.get_running_loop().create_future()
+        self._progress = progress
         self._dst = dst
         self._want = len(dst)
         self._body = None
@@ -176,6 +199,7 @@ class _Conn(asyncio.BufferedProtocol):
         check refuses a buffer that is still exported)."""
         self._dst = None
         self._body = None
+        self._progress = None
 
     def keep_alive(self) -> bool:
         return (not self.closed and self._state == "idle"
@@ -207,7 +231,7 @@ class PieceDownloader:
         return conn
 
     async def _fetch(self, addr: str, path: str, headers: dict,
-                     dst: memoryview) -> tuple[int, dict]:
+                     dst: memoryview, progress=None) -> tuple[int, dict]:
         """One GET on a pooled connection (opened if none is idle);
         returns (status, headers). A reused connection that dies before
         answering is retried once on a fresh one: the parent may have
@@ -227,7 +251,7 @@ class PieceDownloader:
                 reused = conn.used
                 conn.used = True
                 try:
-                    await conn.request(raw, dst)
+                    await conn.request(raw, dst, progress)
                 except _Stall:
                     conn.release_dst()
                     if reused and not conn._got_bytes:
@@ -247,12 +271,15 @@ class PieceDownloader:
         raise _Stall("connection closed")
 
     async def download_span(self, *, dst_addr: str, task_id: str,
-                            src_peer_id: str, pieces: list[PieceInfo]
+                            src_peer_id: str, pieces: list[PieceInfo],
+                            on_first_byte=None, relay_open=None,
+                            meta: dict | None = None,
                             ) -> tuple[bytearray, int]:
         """Fetch contiguous pieces in one ranged GET. Returns (buf,
         cost_ms): one pooled buffer holding the pieces' bytes back to back
         from ``pieces[0].range_start``; the caller releases it to
-        ``bufpool.POOL`` after landing."""
+        ``bufpool.POOL`` after landing (and retires the relay span
+        ``relay_open`` opened, before that)."""
         start = pieces[0].range_start
         size = sum(p.range_size for p in pieces)
         path = (f"/download/{task_id[:3]}/{task_id}"
@@ -263,32 +290,59 @@ class PieceDownloader:
                 else f"parent {dst_addr} span @{start}+{size}")
         t0 = time.monotonic()
         buf = POOL.acquire(size)
+        span = relay_open(buf) if relay_open is not None else None
+        first = [on_first_byte, faultgate.ARMED]
+
+        def progress(off: int) -> None:
+            if first[0] is not None or first[1]:
+                if first[1]:
+                    # 'corrupt' flips the body's first byte before the
+                    # landing check (or a relay reader) sees it
+                    faultgate.corrupt("piece.wire", buf, key=what)
+                if first[0] is not None:
+                    first[0]()
+                first[0] = None
+                first[1] = False
+            if span is not None:
+                span.advance(off)
+
+        async def fetch() -> tuple[int, dict]:
+            if faultgate.ARMED:
+                # inside the deadline: a 'hang' parks here until the
+                # per-piece deadline cancels it, like a wedged parent
+                await faultgate.fire("piece.wire", key=what)
+            return await self._fetch(dst_addr, path, headers, mv, progress)
+
+        def failed() -> None:
+            if span is not None:
+                span.close()        # before the buffer returns to the pool
+            POOL.release(buf)
+
         try:
             mv = memoryview(buf)
             try:
-                status, got = await asyncio.wait_for(
-                    self._fetch(dst_addr, path, headers, mv), self.timeout_s)
+                status, got = await asyncio.wait_for(fetch(), self.timeout_s)
             finally:
                 mv.release()
         except asyncio.TimeoutError:
-            POOL.release(buf)
+            failed()
             raise _classified(Code.CLIENT_PIECE_DOWNLOAD_FAIL,
                               f"{what}: per-piece deadline "
                               f"({self.timeout_s:.0f}s)", "timeout") from None
         except _Stall as exc:
-            POOL.release(buf)
+            failed()
             raise _classified(Code.CLIENT_PIECE_DOWNLOAD_FAIL,
                               f"{what}: {exc}", "stall") from None
         except OSError as exc:
-            POOL.release(buf)
+            failed()
             raise _classified(Code.CLIENT_PIECE_DOWNLOAD_FAIL,
                               f"{what}: {type(exc).__name__}: {exc}",
                               "refused") from None
         except BaseException:
-            POOL.release(buf)
+            failed()
             raise
         if status == 503:
-            POOL.release(buf)
+            failed()
             # upload-slot backpressure: the parent is busy, not broken
             err = DFError(Code.CLIENT_PEER_BUSY, f"parent {dst_addr} busy")
             try:
@@ -298,7 +352,10 @@ class PieceDownloader:
                 err.retry_after_ms = 0
             raise err
         if status not in (200, 206):
-            POOL.release(buf)
+            failed()
             raise _classified(Code.CLIENT_PIECE_DOWNLOAD_FAIL,
                               f"{what}: HTTP {status}", "refused")
+        if meta is not None:
+            # cut-through serve: the parent relayed these bytes mid-landing
+            meta["relayed"] = got.get("x-df-relay") == "1"
         return buf, int((time.monotonic() - t0) * 1000)

@@ -8,9 +8,16 @@ Counterpart of ``dragonfly2_tpu/daemon/piece_engine.py`` (reference
 the sharded-task piece classes (``apply_shard_state``: the needed subset
 and the swap-class pieces held off the seed; a scheduler packet that
 carries ``assigned_shards`` re-rules them mid-pull). Announced pieces this
-task's storage already holds are placed from disk before dispatch. The
-flight recorder, relay spans, verdict ledger and the content store are
-left out.
+task's storage already holds are placed from disk before dispatch.
+
+Each piece's lifecycle is journaled on the conductor's flight
+(``flight_recorder.py``: scheduled, dispatched, first_byte, wire_done, and
+the typed failures), and each dispatch's landing buffer is a cut-through
+relay span (``relay.py``) while its bytes arrive, retired after landing
+and before the buffer returns to the pool. A piece that rode a parent's
+relay path is reported with ``PieceResult.relayed``, on success as well
+as on failure (the reference marks failed transfers only). The verdict
+ledger is left out.
 
 ``pull`` returns:
   * True  — every NEEDED piece landed (the conductor verifies and
@@ -35,6 +42,7 @@ from ..common.metrics import REGISTRY
 from ..idl.messages import (PeerAddr, PeerPacket, PieceInfo, PieceResult,
                             PieceTaskRequest, SizeScope)
 from ..rpc.client import ChannelPool, ServiceClient
+from . import flight_recorder as fr
 from .piece_dispatcher import ENDGAME_PIECES, Dispatch, PieceDispatcher
 from .piece_downloader import PieceDownloader
 
@@ -144,11 +152,43 @@ class _Synchronizer:
             self.task.cancel()
 
 
+class _SpanHandle:
+    """Engine-side relay-span lifecycle: called by the downloader with the
+    pooled buffer once acquired (registers the in-flight span), retired by
+    the engine once the span's pieces have landed, always before the
+    buffer returns to the pool. A no-op while the relay plane is off."""
+
+    __slots__ = ("relay", "task_id", "pieces", "span")
+
+    def __init__(self, relay, task_id: str, pieces: list[PieceInfo]):
+        self.relay = relay
+        self.task_id = task_id
+        self.pieces = pieces
+        self.span = None
+
+    def __call__(self, buf):
+        if self.relay is None:
+            return None
+        base = self.pieces[0].range_start
+        size = sum(p.range_size for p in self.pieces)
+        self.span = self.relay.open_span(self.task_id, base, size, buf,
+                                         self.pieces)
+        return self.span
+
+    def retire(self) -> None:
+        if self.span is not None and self.relay is not None:
+            self.relay.retire(self.span)
+            self.span = None
+
+
 class PieceEngine:
     def __init__(self, *, downloader: PieceDownloader | None = None,
                  channel_pool: ChannelPool | None = None,
-                 slice_name: str = ""):
+                 slice_name: str = "", relay=None):
         self.slice_name = slice_name    # advertised on piece sync requests
+        # cut-through relay hub: every span this engine downloads is
+        # readable by the upload server's streaming path while it arrives
+        self.relay = relay
         self.downloader = downloader or PieceDownloader(
             timeout_s=PIECE_TIMEOUT_S)
         self._own_downloader = downloader is None
@@ -265,7 +305,10 @@ class PieceEngine:
                 self.dispatcher.endgame = 0 <= remaining <= ENDGAME_PIECES
                 if not self.dispatcher.has_live_parent():
                     # parents gone: give the scheduler a grace period to
-                    # re-assign, then fall back to origin
+                    # re-assign, then fall back to origin; the reschedule
+                    # rung journals that the task rides out an outage
+                    if conductor.flight is not None:
+                        conductor.flight.rung(fr.RUNG_RESCHEDULE)
                     try:
                         await asyncio.wait_for(self._wait_parent_change(),
                                                SCHEDULE_TIMEOUT_S)
@@ -273,6 +316,8 @@ class PieceEngine:
                         log.info("parents exhausted; back-source for the "
                                  "rest")
                         return False
+                    if conductor.flight is not None:
+                        conductor.flight.rung(fr.RUNG_P2P)
                     continue
                 # progress tick: piece arrivals notify the conductor's cond
                 try:
@@ -395,6 +440,17 @@ class PieceEngine:
             self._synchronizers[peer_id] = fresh
             fresh.start()
 
+    _FAIL_EVENTS = {"stall": fr.STALL, "timeout": fr.TIMEOUT,
+                    "refused": fr.REFUSED}
+
+    def _note_fail(self, conductor, info: PieceInfo, parent_id: str,
+                   code: str) -> None:
+        """Journal one non-corrupt typed failure on the flight."""
+        if conductor.flight is not None:
+            kind = self._FAIL_EVENTS.get(code)
+            if kind is not None:
+                conductor.flight.event(kind, info.piece_num, parent_id)
+
     async def _download_one(self, conductor, session, d: Dispatch, *,
                             track: bool = True) -> bool:
         """Fetch one dispatch, land it, report each piece. ``track``:
@@ -407,11 +463,26 @@ class PieceEngine:
                 if info.piece_num in conductor.swap_piece_nums:
                     conductor.note_shard_fallback(info.piece_num,
                                                   d.parent.peer_id)
+        flight = conductor.flight
+        on_first = None
+        if flight is not None:
+            # worker pickup: queue_ms is scheduled -> dispatched, the
+            # parent's own queueing lands in ttfb_ms
+            for info in d.pieces:
+                flight.event(fr.SCHEDULED, info.piece_num, d.parent.peer_id)
+            for info in d.pieces:
+                flight.event(fr.DISPATCHED, info.piece_num, d.parent.peer_id)
+
+            def on_first(_num=d.pieces[0].piece_num, _pid=d.parent.peer_id):
+                flight.event(fr.FIRST_BYTE, _num, _pid)
         t0 = int(time.time() * 1000)
+        span = _SpanHandle(self.relay, conductor.task_id, d.pieces)
+        wire_meta: dict = {}
         try:
             buf, cost = await self.downloader.download_span(
                 dst_addr=d.parent.addr, task_id=conductor.task_id,
-                src_peer_id=conductor.peer_id, pieces=d.pieces)
+                src_peer_id=conductor.peer_id, pieces=d.pieces,
+                on_first_byte=on_first, relay_open=span, meta=wire_meta)
         except DFError as exc:
             if exc.code == Code.CLIENT_PEER_BUSY:
                 # backpressure, not failure: requeue without a report (a
@@ -426,6 +497,8 @@ class PieceEngine:
                       [p.piece_num for p in d.pieces],
                       d.parent.peer_id[-12:], exc)
             fcode = getattr(exc, "fail_code", "") or "stall"
+            # one transfer, one typed event, however many pieces rode it
+            self._note_fail(conductor, d.pieces[0], d.parent.peer_id, fcode)
             if track:
                 await self.dispatcher.report(d, ok=False)
                 if d.parent.removed:
@@ -439,32 +512,49 @@ class PieceEngine:
                     code=exc.code, fail_code=fcode))
             return False
         per_piece_cost = max(1, cost // len(d.pieces))
+        relayed = wire_meta.get("relayed", False)
+        # taken before the landing await, journaled only for pieces that
+        # land: an endgame duplicate must not take the deliverer's row
+        t_wire = flight.now_ms() if flight is not None else 0.0
         try:
             # one landing hop for the whole span: storage write + verify
             # off the loop, the device sink's staging copy inline
             placed, corrupt, raced = await conductor.on_span_from_peer(
                 d.parent.peer_id, d.pieces, buf, per_piece_cost)
         finally:
-            # landing, the sink's staging copy included, has completed
+            # landing, the sink's staging copy included, has completed.
+            # The relay span retires FIRST: its bytes now serve from disk
+            # (or, for a corrupt piece, stop being servable at all)
+            span.retire()
             POOL.release(buf)
+        placed_set = set(placed)
         corrupt_set, raced_set = set(corrupt), set(raced)
         for info in d.pieces:
             if info.piece_num in corrupt_set:
                 _p2p_pieces.labels("corrupt").inc()
                 log.warning("piece %d from %s: digest mismatch (requeued)",
                             info.piece_num, d.parent.peer_id[-12:])
+                if flight is not None:
+                    flight.event(fr.CORRUPT, info.piece_num,
+                                 d.parent.peer_id, info.range_size)
                 await session.report_piece(self._piece_result(
                     conductor, info, d.parent.peer_id, t0, ok=False,
-                    code=Code.CLIENT_DIGEST_MISMATCH, fail_code="corrupt"))
+                    code=Code.CLIENT_DIGEST_MISMATCH, fail_code="corrupt",
+                    relayed=relayed))
                 continue
             if info.piece_num in raced_set:
                 # an endgame racer is mid-landing: its own report settles
                 # the piece
                 continue
+            if flight is not None and info.piece_num in placed_set:
+                flight.event(fr.WIRE_DONE, info.piece_num, d.parent.peer_id,
+                             info.range_size, dur_ms=per_piece_cost,
+                             t_ms=t_wire)
             _p2p_pieces.labels("ok").inc()
             await session.report_piece(self._piece_result(
                 conductor, info, d.parent.peer_id, t0, ok=True,
-                cost_ms=per_piece_cost, finished=len(conductor.ready)))
+                cost_ms=per_piece_cost, finished=len(conductor.ready),
+                relayed=relayed))
         if track:
             await self.dispatcher.report(
                 d, ok=True, cost_ms=cost,
@@ -478,7 +568,8 @@ class PieceEngine:
     @staticmethod
     def _piece_result(conductor, info: PieceInfo, parent_id: str, t0: int, *,
                       ok: bool, cost_ms: int = 0, code: Code = Code.OK,
-                      finished: int = 0, fail_code: str = "") -> PieceResult:
+                      finished: int = 0, fail_code: str = "",
+                      relayed: bool = False) -> PieceResult:
         reported = PieceInfo(piece_num=info.piece_num,
                              range_start=info.range_start,
                              range_size=info.range_size, digest=info.digest,
@@ -487,7 +578,7 @@ class PieceEngine:
             task_id=conductor.task_id, src_peer_id=conductor.peer_id,
             dst_peer_id=parent_id, piece_info=reported, begin_ms=t0,
             end_ms=t0 + cost_ms, success=ok, code=int(code),
-            fail_code=fail_code, finished_count=finished)
+            fail_code=fail_code, relayed=relayed, finished_count=finished)
 
     # ------------------------------------------------------------------
 

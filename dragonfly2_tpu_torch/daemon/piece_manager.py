@@ -6,7 +6,11 @@ origin stream into pieces, either as one stream or as a work queue of
 contiguous piece groups read in parallel, and hands each piece to the
 conductor to land. Pieces the task's storage already holds are adopted
 first, and the origin is asked only for the holes of the NEEDED set (the
-pieces covering a requested shard subset, or every piece).
+pieces covering a requested shard subset, or every piece). Each piece
+being cut is an in-flight relay span (``relay.py``) while it fills, so the
+seed is the first hop of a cut-through chain; such spans carry no digest,
+as in the reference (a child landing one computes its own, the trust it
+would give the origin).
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ from typing import TYPE_CHECKING
 from ..common.errors import Code, DFError
 from ..common.piece import (INGEST_DMA_UNIT_BYTES, Range, parse_http_range,
                             piece_count, piece_range)
+from ..idl.messages import PieceInfo
 from ..source import SourceRequest, client_for
 from ..source import download as source_download
 from .config import DownloadConfig
@@ -35,8 +40,9 @@ _SOURCE_BACKOFF_S = 0.5
 
 async def _open_source(req: SourceRequest):
     """Open an origin stream, retrying transient failures with exponential
-    backoff. Only the OPEN retries: pieces already landed from a stream
-    that died midway are deduped at landing."""
+    backoff, or after the origin's own ``Retry-After`` when it sent one.
+    Only the OPEN retries: pieces already landed from a stream that died
+    midway are deduped at landing."""
     for attempt in range(_SOURCE_ATTEMPTS):
         try:
             return await source_download(req)
@@ -46,20 +52,34 @@ async def _open_source(req: SourceRequest):
             if not transient or attempt == _SOURCE_ATTEMPTS - 1:
                 raise
             log.info("origin open failed (%s); retrying", exc.message)
-            await asyncio.sleep(_SOURCE_BACKOFF_S * 2 ** attempt)
+            hint_ms = getattr(exc, "retry_after_ms", 0)
+            await asyncio.sleep(hint_ms / 1000.0 if hint_ms
+                                else _SOURCE_BACKOFF_S * 2 ** attempt)
+
+
+def _relay_for(conductor):
+    """The relay hub when the conductor registered with it: origin bytes
+    then serve onward while the piece is still arriving."""
+    if getattr(conductor, "_relay_tracked", False):
+        return conductor.relay
+    return None
 
 
 class _PieceCutter:
     """Cuts an origin byte stream into per-piece buffers and lands each one
-    as it fills. ``want(num, rel)`` returns the next piece's size; <= 0
-    stops consuming (origin over-delivery, or the group bound)."""
+    as it fills; each buffer is a relay span while it fills (the span's
+    watermark maps onto the buffer one to one). ``want(num, rel)`` returns
+    the next piece's size; <= 0 stops consuming (origin over-delivery, or
+    the group bound)."""
 
     def __init__(self, conductor, *, start_num: int, start_rel: int, want):
         self.conductor = conductor
+        self.relay = _relay_for(conductor)
         self.want = want
         self.num = start_num
         self.rel = start_rel
         self.cur: bytearray | None = None
+        self.span = None
         self.filled = 0
         self.t0 = time.monotonic()
 
@@ -72,11 +92,18 @@ class _PieceCutter:
                     return
                 self.cur = bytearray(want)
                 self.filled = 0
+                if self.relay is not None:
+                    self.span = self.relay.open_span(
+                        self.conductor.task_id, self.rel, want, self.cur,
+                        [PieceInfo(piece_num=self.num, range_start=self.rel,
+                                   range_size=want)])
             take = min(len(self.cur) - self.filled, len(chunk) - coff)
             self.cur[self.filled:self.filled + take] = \
                 chunk[coff:coff + take]
             self.filled += take
             coff += take
+            if self.span is not None:
+                self.span.advance(self.filled)
             if self.filled == len(self.cur):
                 await self._land(bytes(self.cur))
                 self.cur = None
@@ -85,6 +112,9 @@ class _PieceCutter:
         cost = int((time.monotonic() - self.t0) * 1000)
         await self.conductor.on_piece_from_source(self.num, self.rel,
                                                   data, cost)
+        if self.relay is not None:
+            self.relay.retire(self.span)   # landed: serves from disk
+        self.span = None
         self.num += 1
         self.rel += len(data)
         self.t0 = time.monotonic()
@@ -95,6 +125,12 @@ class _PieceCutter:
         if self.cur is not None and self.filled:
             await self._land(bytes(self.cur[:self.filled]))
             self.cur = None
+
+    def close(self) -> None:
+        """The stream died mid-piece: retire the leftover span."""
+        if self.relay is not None and self.span is not None:
+            self.relay.retire(self.span)
+            self.span = None
 
 
 class PieceManager:
@@ -176,10 +212,13 @@ class PieceManager:
         cutter = _PieceCutter(
             conductor, start_num=0, start_rel=0,
             want=lambda _num, rel: min(piece_size, total - rel))
-        async for chunk in resp.chunks:
-            await cutter.feed(chunk)
-        # origin ended short of the expected size: land what came
-        await cutter.flush_tail()
+        try:
+            async for chunk in resp.chunks:
+                await cutter.feed(chunk)
+            # origin ended short of the expected size: land what came
+            await cutter.flush_tail()
+        finally:
+            cutter.close()
 
     async def _download_piece_groups(self, conductor, req: SourceRequest,
                                      total: int, piece_size: int,
@@ -233,8 +272,11 @@ class PieceManager:
                 want=lambda num, _rel: (piece_range(num, piece_size,
                                                     total)[1]
                                         if num < last else 0))
-            async for chunk in resp.chunks:
-                await cutter.feed(chunk)
+            try:
+                async for chunk in resp.chunks:
+                    await cutter.feed(chunk)
+            finally:
+                cutter.close()
             if cutter.num != last:
                 raise DFError(Code.CLIENT_BACK_SOURCE_ERROR,
                               f"short origin range read: group stopped at "

@@ -7,6 +7,15 @@ server stream, ``StatTask``, ``DeleteTask``), the peer API
 seeder's ``ObtainSeeds``. A seed announces every piece to every child, as
 the reference's seeds do; its super-seed rationing, ``ImportTask`` and
 ``ExportTask`` wait for a later slice.
+
+Announce-ahead (the control-plane half of cut-through relay,
+``relay.py``): pieces in flight on this daemon ride ``piece_infos`` with
+their numbers in ``relay_nums``, and every packet carries the holder's
+``progress`` (pieces landed). A child that pulls one is served to the
+landing watermark by the upload server's streaming path. Unlike the
+reference, whose seeds ration announcements through the super-seed path
+and announce nothing ahead, a seed here announces ahead like any holder,
+so it is the first hop of a chain.
 """
 
 from __future__ import annotations
@@ -69,16 +78,29 @@ class DaemonService:
                 ts = conductor.storage
         return ts
 
-    def _packet(self, request: PieceTaskRequest, ts,
-                infos: list) -> PiecePacket:
+    def _relay_ahead(self, task_id: str, known: set[int],
+                     start_num: int = 0) -> list:
+        """Announce-ahead infos: pieces in flight on this daemon now."""
+        relay = getattr(self.ptm, "relay", None)
+        if relay is None:
+            return []
+        return [i for i in relay.inflight_infos(task_id)
+                if i.piece_num not in known and i.piece_num >= start_num]
+
+    def _packet(self, request: PieceTaskRequest, ts, infos: list,
+                ahead: list | None = None) -> PiecePacket:
         md = ts.md
+        ahead = ahead or []
         return PiecePacket(task_id=request.task_id,
                            dst_peer_id=request.dst_peer_id,
-                           dst_addr=self.upload_addr, piece_infos=infos,
+                           dst_addr=self.upload_addr,
+                           piece_infos=infos + ahead,
                            total_piece_count=md.total_piece_count,
                            content_length=md.content_length,
                            piece_size=md.piece_size,
-                           progress=len(md.pieces))
+                           progress=len(md.pieces),
+                           relay_nums=([i.piece_num for i in ahead]
+                                       or None))
 
     async def get_piece_tasks(self, request: PieceTaskRequest,
                               context) -> PiecePacket:
@@ -86,9 +108,35 @@ class DaemonService:
         if ts is None:
             raise DFError(Code.NOT_FOUND,
                           f"task {request.task_id[:12]} unknown")
-        return self._packet(request, ts, [
-            p.to_info() for p in ts.piece_infos(request.start_num,
-                                                request.limit)])
+        infos = [p.to_info() for p in ts.piece_infos(request.start_num,
+                                                      request.limit)]
+        ahead = self._relay_ahead(
+            request.task_id, {p.piece_num for p in infos} | set(ts.md.pieces),
+            request.start_num)
+        return self._packet(request, ts, infos, ahead)
+
+    def _packet_for_nums(self, request: PieceTaskRequest, ts,
+                         nums: list[int], relay_nums: list[int]
+                         ) -> PiecePacket:
+        """Announcement packet carrying exactly ``nums`` plus the
+        ``relay_nums`` still in flight (announce-ahead); a relay piece
+        that landed while queued goes out as landed."""
+        infos = [ts.md.pieces[n].to_info() for n in nums
+                 if n in ts.md.pieces]
+        ahead = []
+        if relay_nums:
+            live = {i.piece_num: i for i in self._relay_ahead(
+                request.task_id, set(ts.md.pieces))}
+            for n in relay_nums:
+                p = ts.md.pieces.get(n)
+                if p is not None:
+                    infos.append(p.to_info())
+                elif n in live:
+                    ahead.append(live[n])
+                # else: the span died between the event and this packet
+                # (failed transfer, corrupt landing); the caller un-marks
+                # it as sent so its eventual landing announces it
+        return self._packet(request, ts, infos, ahead)
 
     @staticmethod
     def _drain(q: asyncio.Queue, first) -> list:
@@ -132,7 +180,10 @@ class DaemonService:
                 packet = await self.get_piece_tasks(request, context)
                 packet.piece_infos = [p for p in packet.piece_infos or []
                                       if p.piece_num not in sent]
-                sent.update(p.piece_num for p in packet.piece_infos)
+                kept = {p.piece_num for p in packet.piece_infos}
+                packet.relay_nums = [n for n in packet.relay_nums or []
+                                     if n in kept] or None
+                sent.update(kept)
                 if packet.piece_infos or first_packet:
                     first_packet = False
                     yield packet
@@ -142,11 +193,18 @@ class DaemonService:
                 done = False
                 while not done:
                     nums: list[int] = []
+                    relay_nums: list[int] = []
                     for event in self._drain(q, await q.get()):
                         if (event["type"] == "piece"
                                 and event["num"] not in sent):
                             sent.add(event["num"])
                             nums.append(event["num"])
+                        elif event["type"] == "relay":
+                            # announce-ahead: arriving on this daemon now
+                            for n in event["nums"]:
+                                if n not in sent:
+                                    sent.add(n)
+                                    relay_nums.append(n)
                         elif event["type"] == "done":
                             done = True
                     ts = self._storage_for(request.task_id)
@@ -154,14 +212,22 @@ class DaemonService:
                         break
                     if done:
                         # the final geometry and every piece not sent yet
+                        # (a relay piece announced ahead is sent; its
+                        # landed info carries the same range)
                         infos = [p.to_info() for p in ts.piece_infos()
                                  if p.num not in sent]
                         sent.update(p.piece_num for p in infos)
                         yield self._packet(request, ts, infos)
-                    elif nums:
-                        yield self._packet(request, ts, [
-                            ts.md.pieces[n].to_info() for n in nums
-                            if n in ts.md.pieces])
+                    elif nums or relay_nums:
+                        packet = self._packet_for_nums(request, ts, nums,
+                                                       relay_nums)
+                        announced = {p.piece_num
+                                     for p in packet.piece_infos or []}
+                        for n in relay_nums:
+                            if n not in announced:
+                                sent.discard(n)
+                        if packet.piece_infos:
+                            yield packet
             finally:
                 if q is not None:
                     conductor.unsubscribe(q)

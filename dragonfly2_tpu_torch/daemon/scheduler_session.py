@@ -122,8 +122,11 @@ class PeerSession:
             return
         if self._writer is not None and self._writer.done():
             # the scheduler went away: count the drop instead of queueing
-            # into the void
+            # into the void; the count rides the flight summary
             _report_dropped.inc()
+            flight = getattr(self.conductor, "flight", None)
+            if flight is not None:
+                flight.report_drops += 1
             return
         self._out.put_nowait(result)
 
@@ -153,6 +156,7 @@ class PeerSession:
         if conductor is None or self._peer_result_sent:
             return
         self._peer_result_sent = True
+        flight = getattr(conductor, "flight", None)
         result = PeerResult(
             task_id=self.task_id, peer_id=self.peer_id,
             url=conductor.url, success=success,
@@ -160,7 +164,9 @@ class PeerSession:
             cost_ms=int(time.time() * 1000) - conductor.start_ms,
             code=int(conductor.fail_code),
             total_piece_count=conductor.total_pieces,
-            content_length=conductor.content_length)
+            content_length=conductor.content_length,
+            flight_summary=(flight.compact_summary()
+                            if flight is not None else None))
         try:
             # the outer Retrier is the only retry layer (one-attempt client)
             once = ServiceClient(self.client.channel, SCHEDULER_SERVICE,

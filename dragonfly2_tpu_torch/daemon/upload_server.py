@@ -14,16 +14,27 @@ A gate slot is held for the whole transmit (the reference's ``_Slot``):
 the scheduler's upload-slot accounting assumes a busy parent answers 503.
 A whole-file task's range goes out with ``loop.sendfile`` (the bytes
 never enter Python); the disk-read branch serves the rest.
+
+Cut-through relay (``relay.py``): a range that is not stored yet, of a
+task the relay hub tracks, is streamed against the landing frontier
+(``_serve_relay``) in writes of at most 1 MiB, with ``Content-Length``
+known up front and ``X-DF-Relay: 1`` set; without a hub (or for an
+untracked task) it stays 416. Each served range is journaled on the
+task's flight (``TaskFlight.serve``), and ``GET /debug/flight`` and
+``/debug/flight/<task_id>`` read the daemon's flight recorder
+(``flight_recorder.add_flight_routes``).
 """
 
 from __future__ import annotations
 
 import asyncio
+import json
 import logging
 import time
-from collections import deque
-from urllib.parse import urlsplit
+from collections import Counter, deque
+from urllib.parse import parse_qs, urlsplit
 
+from ..common import faultgate
 from ..common.errors import DFError
 from ..common.metrics import REGISTRY
 from ..common.piece import parse_http_range
@@ -39,6 +50,20 @@ _upload_reqs = REGISTRY.counter("df_upload_requests_total",
                                 "piece requests served", ("status",))
 _upload_active = REGISTRY.gauge("df_upload_active_transfers",
                                 "concurrency-gate slots currently held")
+# cut-through relay serving: ranges streamed against the landing watermark
+# instead of refused as incomplete
+_relay_serves = REGISTRY.counter(
+    "df_relay_serves_total",
+    "streaming relay range serves", ("result",))
+_relay_bytes = REGISTRY.counter(
+    "df_relay_bytes_total",
+    "bytes served by the streaming relay path", ("src",))
+_relay_stalls = REGISTRY.counter(
+    "df_relay_stalls_total",
+    "relay serves aborted because the landing watermark stopped advancing")
+_relay_wait_secs = REGISTRY.histogram(
+    "df_relay_wait_seconds",
+    "time a streaming relay serve spent awaiting landing progress")
 
 _REASONS = {200: "OK", 206: "Partial Content", 400: "Bad Request",
             404: "Not Found", 405: "Method Not Allowed",
@@ -92,17 +117,64 @@ def _head(status: int, headers: dict) -> bytes:
     return ("\r\n".join(lines) + "\r\n\r\n").encode("latin-1")
 
 
+class _Router:
+    """GET routes beyond the piece route: exact paths, or a path whose
+    last segment is a ``{name}`` parameter. A handler takes (params,
+    query) and returns (status, JSON body)."""
+
+    def __init__(self) -> None:
+        self._routes: list[tuple[list[str], object]] = []
+
+    def add_get(self, path: str, handler) -> None:
+        self._routes.append((path.split("/"), handler))
+
+    def match(self, path: str):
+        parts = path.split("/")
+        for pattern, handler in self._routes:
+            if len(pattern) != len(parts):
+                continue
+            params = {}
+            for want, got in zip(pattern, parts):
+                if want.startswith("{") and want.endswith("}"):
+                    if not got:
+                        break
+                    params[want[1:-1]] = got
+                elif want != got:
+                    break
+            else:
+                return handler, params
+        return None
+
+
 class UploadServer:
     # concurrent transfers served at once when the config says "auto" (0);
     # beyond this the server answers 503 and the child reroutes
     DEFAULT_CONCURRENT_LIMIT = 6
     # how long a request may queue for a slot before 503ing
     SLOT_WAIT_S = 0.2
+    # most bytes moved per streaming-relay write: bounds the on-loop copy
+    # from a live span's buffer and keeps the limiter granular
+    RELAY_CHUNK = 1 << 20
 
     def __init__(self, storage_mgr: StorageManager, *, port: int = 0,
                  rate_limit_bps: int = 0, concurrent_limit: int = 0,
-                 host: str = "0.0.0.0"):
+                 host: str = "0.0.0.0", flight_recorder=None, relay=None,
+                 relay_stall_s: float = 10.0):
         self.storage_mgr = storage_mgr
+        self.flight_recorder = flight_recorder
+        self.relay = relay                  # RelayHub (None = store-and-forward)
+        self.relay_stall_s = relay_stall_s  # per-wait watermark deadline
+        # this daemon's host id (set by the bootstrap): scopes the
+        # ``upload.serve`` faultgate key to one daemon
+        self.host_id = ""
+        # this server's own relay tallies (the df_relay_* metrics are
+        # process-wide; several daemons may share a process)
+        self.relay_serves: Counter = Counter()
+        self.relay_bytes: Counter = Counter()
+        self.router = _Router()
+        if flight_recorder is not None:
+            from .flight_recorder import add_flight_routes
+            add_flight_routes(self.router, flight_recorder)
         self.host = host
         self.port = port
         self.limiter = TokenBucket(rate_limit_bps or 0)
@@ -213,10 +285,23 @@ class UploadServer:
                 "Content-Length": "2"}) + b"ok")
             await writer.drain()
             return
+        query = {k: v[0] for k, v in parse_qs(url.query).items()}
         if len(parts) == 4 and parts[1] == "download" and all(parts[2:]):
             if method != "GET":
                 raise _HTTPError(405, "405: Method Not Allowed")
-            await self._serve(parts[3], headers, writer)
+            await self._serve(parts[3], headers, writer, query)
+            return
+        found = self.router.match(url.path)
+        if found is not None:
+            if method != "GET":
+                raise _HTTPError(405, "405: Method Not Allowed")
+            handler, params = found
+            status, body = await handler(params, query)
+            data = json.dumps(body).encode()
+            writer.write(_head(status, {
+                "Content-Type": "application/json; charset=utf-8",
+                "Content-Length": str(len(data))}) + data)
+            await writer.drain()
             return
         raise _HTTPError(404, "404: Not Found")
 
@@ -265,7 +350,35 @@ class UploadServer:
                 raise
             return _Slot(self, adopted=True)
 
-    async def _serve(self, task_id: str, headers: dict, writer) -> None:
+    def _journal(self, task_id: str, ts, rng, query: dict, writer,
+                 slot: _Slot, *, wait_ms: float,
+                 relayed: bool = False) -> None:
+        """One completed serve: the storage GC's popularity feed and one
+        edge row (requesting peer, first piece and piece count, bytes,
+        slot-hold and limiter-wait ms) on the task's flight."""
+        if self.storage_mgr.castore is not None:
+            # what this daemon serves is what the GC should keep
+            self.storage_mgr.castore.record_serve(task_id, rng.length)
+        if self.flight_recorder is None:
+            return
+        flight = self.flight_recorder.serving(task_id)
+        if flight is None:
+            return
+        piece_size = ts.md.piece_size
+        peer = writer.get_extra_info("peername")
+        flight.serve(
+            peer=query.get("peerId", ""),
+            addr=f"{peer[0]}" if isinstance(peer, tuple) else "",
+            piece=rng.start // piece_size if piece_size > 0 else -1,
+            nbytes=rng.length,
+            serve_ms=(time.monotonic() - slot.t0) * 1000.0,
+            wait_ms=wait_ms,
+            pieces=-(-rng.length // piece_size) if piece_size > 0 else 1,
+            relayed=relayed)
+
+    async def _serve(self, task_id: str, headers: dict, writer,
+                     query: dict | None = None) -> None:
+        query = query or {}
         ts = self.storage_mgr.get(task_id)
         if ts is None:
             _upload_reqs.labels("404").inc()
@@ -281,13 +394,30 @@ class UploadServer:
         except ValueError as exc:
             _upload_reqs.labels("416").inc()
             raise _HTTPError(416, str(exc)) from None
+        streaming = False
         if not ts.has_range(rng.start, rng.length):
-            _upload_reqs.labels("416").inc()
-            raise _HTTPError(
-                416, f"bytes {rng.start}+{rng.length} not stored yet")
+            if self.relay is not None and self.relay.active(task_id):
+                # the task is mid-landing here: stream the range against
+                # the landing watermark instead of refusing it
+                streaming = True
+            else:
+                _upload_reqs.labels("416").inc()
+                raise _HTTPError(
+                    416, f"bytes {rng.start}+{rng.length} not stored yet")
         slot = await self._acquire_slot()
         try:
+            if streaming:
+                await self._serve_relay(task_id, ts, rng, slot, query,
+                                        writer)
+                return
+            # a corrupt script armed for this daemon routes the serve off
+            # sendfile (whose bytes never enter Python) so they can flip
+            fkey = f"{self.host_id}|{task_id}"
+            poisoned = faultgate.ARMED and faultgate.peek(
+                "upload.serve", fkey, kinds=frozenset({"corrupt"}))
+            wait_t0 = time.monotonic()
             await self.limiter.acquire(rng.length)
+            wait_ms = (time.monotonic() - wait_t0) * 1000.0
             head = {"Content-Range":
                     f"bytes {rng.start}-{rng.end - 1}/"
                     f"{total if total >= 0 else '*'}",
@@ -295,7 +425,7 @@ class UploadServer:
                     "Content-Length": str(rng.length),
                     "Accept-Ranges": "bytes",
                     **self._progress_headers(ts)}
-            if total >= 0:
+            if total >= 0 and not poisoned:
                 # whole-file task: the kernel moves the bytes (sendfile)
                 loop = asyncio.get_running_loop()
                 try:
@@ -319,12 +449,146 @@ class UploadServer:
                     _upload_reqs.labels("404").inc()
                     msg = exc.message if isinstance(exc, DFError) else str(exc)
                     raise _HTTPError(404, msg) from None
+                if poisoned:
+                    data = faultgate.corrupt("upload.serve", data, key=fkey)
                 writer.write(_head(206, head) + data)
                 await writer.drain()
             _upload_bytes.inc(rng.length)
             _upload_reqs.labels("206").inc()
-            if self.storage_mgr.castore is not None:
-                # what this daemon serves is what the GC should keep
-                self.storage_mgr.castore.record_serve(task_id, rng.length)
+            self._journal(task_id, ts, rng, query, writer, slot,
+                          wait_ms=wait_ms)
         finally:
             slot.release()
+
+    async def _serve_relay(self, task_id: str, ts, rng, slot: _Slot,
+                           query: dict, writer) -> None:
+        """Cut-through range serve: stream bytes up to the landing
+        frontier (verified pieces on disk, then the live span's
+        watermark), awaiting further progress with a bounded deadline.
+
+        Outcomes: ``ok`` (the whole range went out, possibly before this
+        daemon finished the piece, which is the point); a stall or an
+        eviction before the first byte answers 503 with a retry hint (the
+        child requeues without a strike, as from any busy parent); a stall
+        or eviction mid-stream closes the connection, so the child sees a
+        short read and requeues the piece against another holder. Limiter
+        tokens are taken per chunk for exactly the bytes about to move and
+        refunded when a write fails."""
+        relay = self.relay
+        total = ts.md.content_length
+        landed, total_pieces = relay.progress(task_id, ts)
+        head = _head(206, {
+            "Content-Range": f"bytes {rng.start}-{rng.end - 1}/"
+                             f"{total if total >= 0 else '*'}",
+            "Content-Type": "application/octet-stream",
+            "Content-Length": str(rng.length),
+            "Accept-Ranges": "bytes",
+            "X-DF-Piece-Progress": f"{landed}/{total_pieces}",
+            "X-DF-Relay": "1"})
+        pos = rng.start
+        wait_s = 0.0
+        limiter_ms = 0.0
+        # exits that never set a verdict (the child went away) are aborts
+        result = "aborted"
+        # the stall deadline re-arms only when THIS reader's frontier
+        # moves: task-wide pulses wake the wait, but a serve parked at an
+        # offset that never advances still expires in relay_stall_s
+        stall_at = time.monotonic() + self.relay_stall_s
+        last_avail = pos
+        fkey = f"{self.host_id}|{task_id}"
+        # one corrupt attempt per serve (one flipped byte fails the piece)
+        poison_pending = faultgate.ARMED and faultgate.peek(
+            "upload.serve", fkey, kinds=frozenset({"corrupt"}))
+        try:
+            while pos < rng.end:
+                if faultgate.ARMED:
+                    # 'hang' models an upstream whose watermark stopped:
+                    # bounded by the same deadline a real one gets
+                    try:
+                        await asyncio.wait_for(
+                            faultgate.fire("relay.stall", key=task_id),
+                            self.relay_stall_s)
+                    except asyncio.TimeoutError:
+                        result = "stall"
+                        _relay_stalls.inc()
+                        break
+                avail = relay.available_end(task_id, ts, pos, rng.end)
+                if avail > last_avail:
+                    last_avail = avail
+                    stall_at = time.monotonic() + self.relay_stall_s
+                if avail <= pos:
+                    if not relay.active(task_id):
+                        # the task ended here without covering the rest
+                        result = "abandoned"
+                        break
+                    remaining = stall_at - time.monotonic()
+                    if remaining <= 0:
+                        result = "stall"
+                        _relay_stalls.inc()
+                        break
+                    w0 = time.monotonic()
+                    await relay.wait_progress(task_id, remaining)
+                    wait_s += time.monotonic() - w0
+                    continue
+                n = min(self.RELAY_CHUNK, avail - pos)
+                try:
+                    chunk = relay.read_span(task_id, pos, n)
+                    src = "span"
+                    if chunk is None:
+                        # landed region: the verified bytes from disk,
+                        # clamped to what the piece table holds at pos
+                        hi = ts.covered_prefix(pos, pos + n)
+                        if hi <= pos:
+                            # raced: the span retired between the check
+                            # and the read
+                            await relay.wait_progress(task_id, 0.05)
+                            continue
+                        chunk = await run_io(ts.read_range, pos, hi - pos)
+                        src = "storage"
+                except (DFError, OSError):
+                    result = "evicted"      # no tokens held yet
+                    break
+                if not chunk:
+                    await relay.wait_progress(task_id, 0.05)
+                    continue
+                if poison_pending:
+                    poison_pending = False
+                    chunk = faultgate.corrupt("upload.serve", chunk, key=fkey)
+                l0 = time.monotonic()
+                await self.limiter.acquire(len(chunk))
+                limiter_ms += (time.monotonic() - l0) * 1000.0
+                try:
+                    if head is not None:
+                        writer.write(head + chunk)
+                        head = None
+                    else:
+                        writer.write(chunk)
+                    await writer.drain()
+                except BaseException:
+                    self.limiter.refund(len(chunk))   # never moved
+                    raise
+                _relay_bytes.labels(src).inc(len(chunk))
+                self.relay_bytes[src] += len(chunk)
+                _upload_bytes.inc(len(chunk))
+                pos += len(chunk)
+            if pos >= rng.end:
+                result = "ok"
+        finally:
+            _relay_wait_secs.observe(wait_s)
+            _relay_serves.labels(result).inc()
+            self.relay_serves[result] += 1
+            if result == "ok":
+                _upload_reqs.labels("206").inc()
+                self._journal(task_id, ts, rng, query, writer, slot,
+                              wait_ms=limiter_ms, relayed=True)
+        if result == "ok":
+            return
+        if head is not None:
+            # nothing sent yet: a clean 503 with a retry hint
+            _upload_reqs.labels("503").inc()
+            raise _HTTPError(503, f"relay {result}: watermark not advancing",
+                             {"Retry-After": "1",
+                              "X-Retry-After-Ms": "500"})
+        # mid-stream: close the connection so the child sees a short read
+        # instead of a clean end
+        raise ConnectionResetError(f"relay serve aborted: {result}")

@@ -3,11 +3,12 @@
 Counterpart of ``dragonfly2_tpu/scheduler/config.py`` cut to the
 deployment settings (listeners, the static seed-peer list,
 the evaluator algorithm, the manager and trainer addresses, the records
-directory) and the learned loop's cadences; the limits the register ->
-schedule -> report path honours are the reference's defaults, as
-constants (reference ``scheduler/config/config.go`` + ``constants.go``).
-The relay-tree shaping is off (``relay_fanout`` 0, the reference's
-default exact path); shard affinity is on by default, as in the
+directory), the learned loop's cadences and the per-host upload-slot
+limits; the other limits the register -> schedule -> report path honours
+are the reference's defaults, as constants (reference
+``scheduler/config/config.go`` + ``constants.go``).
+The relay-tree shaping is off by default (``relay_fanout`` 0, the
+reference's exact path); shard affinity is on by default, as in the
 reference; the control plane's other extras (quarantine, federation,
 fleet pulse, state store, tracing) wait for later slices.
 """
@@ -66,3 +67,14 @@ class SchedulerConfig:
     # decision_kind=shard); disabled, every daemon tree-fetches its whole
     # requested set. Parent scoring is untouched either way.
     shard_affinity_enabled: bool = True
+    # upload slots per host, counted on DAG edges (each parent -> child
+    # edge holds one): a parent with every slot taken is offered to no new
+    # child. A host's announced ``concurrent_upload_limit`` overrides
+    peer_upload_limit: int = 0             # 0 -> Host.DEFAULT_PEER_UPLOAD_LIMIT
+    seed_upload_limit: int = 0             # 0 -> Host.DEFAULT_SEED_UPLOAD_LIMIT
+    # relay-tree shaping (0 = off, the exact pre-relay scoring path). When
+    # > 0, a parent already feeding this many direct children in the task
+    # DAG is demoted behind under-cap candidates, so a cold fan-out forms
+    # relay chains instead of a star on the seed (Scheduling._relay_shape;
+    # cut-through serving overlaps the chain's hops, daemon/relay.py)
+    relay_fanout: int = 0

@@ -101,6 +101,11 @@ class DownloadRecords:
             "label": label_from_cost(info.range_size, info.download_cost_ms),
             "created_at": time.time(),
         }
+        if getattr(result, "relayed", False):
+            # the piece rode the parent's cut-through relay path; the
+            # reference marks failed rows only, so an unrelayed row stays
+            # the reference's row
+            row["relayed"] = True
         self._append(row)
 
     def on_piece_fail(self, peer: Peer, result) -> None:
@@ -164,6 +169,22 @@ class DownloadRecords:
             "created_at": time.time(),
         }
         self._append_peer_row(row)
+
+    def on_flight(self, peer: Peer, summary: dict) -> None:
+        """Latency-attribution row per finished peer run, from the
+        daemon's flight recorder (the compact summary on its PeerResult):
+        where the time went, per-parent throughput, tail latencies. The
+        reference also derives per-edge bandwidth rows from it
+        (``podscope.edges_from_summary``); those wait for the
+        observability plane's slice."""
+        self._append_peer_row({
+            "kind": "flight",
+            "task_id": peer.task.id,
+            "peer_id": peer.id,
+            "host_id": peer.host.id,
+            "summary": summary,
+            "created_at": time.time(),
+        })
 
     def on_decision(self, row: dict) -> None:
         """One row per scheduler ruling (``Scheduling._decide`` via the

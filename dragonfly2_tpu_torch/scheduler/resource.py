@@ -77,9 +77,15 @@ class Host:
     DEFAULT_PEER_UPLOAD_LIMIT = 200
     DEFAULT_SEED_UPLOAD_LIMIT = 500
 
-    def __init__(self, msg: HostMsg):
+    def __init__(self, msg: HostMsg, *, peer_upload_limit: int = 0,
+                 seed_upload_limit: int = 0):
         self.id = msg.id
         self.msg = msg
+        # the scheduler's per-type limits (config; 0 = the defaults above)
+        self.peer_upload_limit = (peer_upload_limit
+                                  or self.DEFAULT_PEER_UPLOAD_LIMIT)
+        self.seed_upload_limit = (seed_upload_limit
+                                  or self.DEFAULT_SEED_UPLOAD_LIMIT)
         self.concurrent_upload_count = 0
         self.upload_success = 0
         self.upload_fail = 0
@@ -91,8 +97,8 @@ class Host:
         if self.msg.concurrent_upload_limit > 0:
             return self.msg.concurrent_upload_limit
         if self.msg.type != HostType.NORMAL:
-            return self.DEFAULT_SEED_UPLOAD_LIMIT
-        return self.DEFAULT_PEER_UPLOAD_LIMIT
+            return self.seed_upload_limit
+        return self.peer_upload_limit
 
     def free_upload_slots(self) -> int:
         return max(0, self.upload_limit - self.concurrent_upload_count)
@@ -319,6 +325,15 @@ class Task:
             if parent is not None:
                 parent.host.acquire_upload_slot()
 
+    def detach_children(self, parent_id: str) -> None:
+        """Drop every out-edge of ``parent_id``, and the upload slots the
+        edges held."""
+        parent = self.peers.get(parent_id)
+        for cid in self.dag.children(parent_id):
+            self.dag.delete_edge(parent_id, cid)
+            if parent is not None:
+                parent.host.release_upload_slot()
+
     def has_available_peer(self) -> bool:
         return any(p.has_content() for p in self.peers.values())
 
@@ -358,9 +373,12 @@ class Task:
 class Resource:
     """The cluster state of record for one scheduler."""
 
-    def __init__(self):
+    def __init__(self, *, peer_upload_limit: int = 0,
+                 seed_upload_limit: int = 0):
         self.tasks: dict[str, Task] = {}
         self.hosts: dict[str, Host] = {}
+        self.peer_upload_limit = peer_upload_limit
+        self.seed_upload_limit = seed_upload_limit
         # eviction hooks: a host or task leaving the resource model must
         # also leave the views that remember it (shard affinity)
         self.on_host_evict = None      # callable(host_id)
@@ -379,7 +397,8 @@ class Resource:
     def store_host(self, msg: HostMsg) -> Host:
         host = self.hosts.get(msg.id)
         if host is None:
-            host = Host(msg)
+            host = Host(msg, peer_upload_limit=self.peer_upload_limit,
+                        seed_upload_limit=self.seed_upload_limit)
             self.hosts[msg.id] = host
         else:
             host.touch(msg)

@@ -3,8 +3,9 @@
 Counterpart of ``dragonfly2_tpu/scheduler/scheduling.py`` (reference
 ``scheduler/scheduling/scheduling.go``: ``FindCandidateParents`` :385 and
 ``filterCandidateParents`` :500-570 — blocklist, same-peer, DAG-cycle,
-bad-node and free-upload-slot checks) on the exact path: no quarantine,
-federation, relay-tree shaping or QoS preemption. The ``sharded`` arm
+bad-node and free-upload-slot checks) with the reference's relay-tree
+shaping (``relay_fanout`` > 0, ``_relay_shape``; 0, the default, is the
+exact path); no quarantine, federation or QoS preemption. The ``sharded`` arm
 (``shard_affinity.ShardAffinity``) rules sharded registers' tree-fetch
 subsets and never touches parent scoring; unlike the reference, its swap
 partners are exempt from the DAG-cycle exclusion, since two replicas that
@@ -42,8 +43,10 @@ _filter_excluded = REGISTRY.counter(
 
 class Scheduling:
     def __init__(self, evaluator: Evaluator, *,
-                 rng: random.Random | None = None, sharded=None):
+                 rng: random.Random | None = None, sharded=None,
+                 relay_fanout: int = 0):
         self.evaluator = evaluator
+        self.relay_fanout = relay_fanout
         self.rng = rng if rng is not None else random
         # shard-affinity arm; None = no shard rulings, every daemon
         # fetches its whole requested set from the tree
@@ -153,6 +156,40 @@ class Scheduling:
             return top
         return [*top[:-1], holder] if top else [holder]
 
+    def _relay_shape(self, child: Peer,
+                     scored: list[Peer]) -> tuple[list[Peer], dict | None]:
+        """Relay-chain shaping (``relay_fanout`` > 0): demote parents
+        already feeding ``relay_fanout`` direct children behind under-cap
+        candidates. Score order is kept within each partition, so the
+        choice among legal relays stays the evaluator's; parents this
+        child already holds keep their edge (the cap shapes new edges and
+        never tears down working ones). Returns the reshaped order and the
+        decision row's note (None when nothing was capped)."""
+        fanout = self.relay_fanout
+        # a bulk child claims half of a parent's relay slots, leaving
+        # breadth near the seed for the foreground classes (the reference's
+        # per-class caps, ``class_fanout_caps``, wait for QoS classes)
+        if getattr(child, "qos_class", "standard") == "bulk":
+            fanout = max(1, fanout // 2)
+        dag = child.task.dag
+        mine = child.last_offer_ids
+        under: list[Peer] = []
+        over: list[Peer] = []
+        counts: dict[str, int] = {}
+        for p in scored:
+            n = len(dag.children(p.id)) if p.id in dag else 0
+            counts[p.id] = n
+            if n >= fanout and p.id not in mine:
+                over.append(p)
+            else:
+                under.append(p)
+        if not over:
+            return scored, None
+        note = {"fanout": fanout,
+                "capped": [p.id for p in over],
+                "child_counts": {p.id: counts[p.id] for p in over}}
+        return under + over, note
+
     def find_parents(self, child: Peer) -> list[Peer]:
         return self._decide(child, "find")
 
@@ -171,6 +208,7 @@ class Scheduling:
         candidates = self.filter_candidates(child, excluded)
         total = child.task.total_piece_count
         explained: list[tuple[Peer, dict]] = []
+        relay_note: dict | None = None
         prev_offer = set(child.last_offer_ids)
         if not candidates:
             offer: list[Peer] = []
@@ -186,6 +224,8 @@ class Scheduling:
                     child, p, total_piece_count=total)) for p in candidates]
                 explained.sort(key=lambda pe: pe[1]["total"], reverse=True)
                 scored = [p for p, _ in explained]
+            if self.relay_fanout > 0:
+                scored, relay_note = self._relay_shape(child, scored)
             limit = CANDIDATE_PARENT_LIMIT
             if decision_kind == "refresh":
                 kept = [p for p in scored if p.id in prev_offer]
@@ -195,12 +235,14 @@ class Scheduling:
                 offer = self._ensure_holder(scored, scored[:limit])
         if sink is not None:
             self._emit_decision(child, decision_kind, explained,
-                                excluded or [], offer, prev_offer, total)
+                                excluded or [], offer, prev_offer, total,
+                                relay_note=relay_note)
         return offer
 
     def _emit_decision(self, child: Peer, decision_kind: str,
                        explained: list, excluded: list, offer: list[Peer],
-                       prev_offer: set, total: int) -> None:
+                       prev_offer: set, total: int,
+                       relay_note: dict | None = None) -> None:
         self._decision_seq += 1
         decision_id = f"d{self._decision_seq:08d}.{child.id[-12:]}"
         candidates = []
@@ -246,6 +288,10 @@ class Scheduling:
                           "reason": reason} for p, reason in excluded],
             "chosen": [p.id for p in offer],
         }
+        if relay_note is not None:
+            # which candidates the fan-out cap demoted, with their DAG
+            # child counts: "why isn't the seed my parent" from the row
+            row["relay"] = relay_note
         if decision_kind == "refresh":
             row["kept"] = [p.id for p in offer if p.id in prev_offer]
             row["fresh"] = [p.id for p in offer if p.id not in prev_offer]

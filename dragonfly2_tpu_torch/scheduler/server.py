@@ -44,10 +44,12 @@ class Scheduler:
     def __init__(self, cfg: SchedulerConfig, *,
                  rng: random.Random | None = None, records=None):
         self.cfg = cfg
-        self.resource = Resource()
+        self.resource = Resource(peer_upload_limit=cfg.peer_upload_limit,
+                                 seed_upload_limit=cfg.seed_upload_limit)
         self.topo = TopologyStore()
         self.scheduling = Scheduling(
-            make_evaluator(cfg.algorithm, topo_store=self.topo), rng=rng)
+            make_evaluator(cfg.algorithm, topo_store=self.topo), rng=rng,
+            relay_fanout=cfg.relay_fanout)
         self.seed_client = SeedPeerClient(self.resource, cfg.seed_peers)
         if records is None and (cfg.records_dir or cfg.trainer_address):
             records = DownloadRecords(cfg.records_dir)

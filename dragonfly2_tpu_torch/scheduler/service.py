@@ -317,6 +317,14 @@ class SchedulerService:
         while True:
             if peer.is_done() or peer.state == PeerState.BACK_SOURCE:
                 return
+            if peer.schedule_count == 0 and not peer.has_content():
+                # a refresh may have offered this peer, registered but not
+                # yet ruled and holding nothing, to another as a parent
+                # (as the reference's does): that edge makes every peer
+                # above it its descendant, and this ruling would find them
+                # all cycle-blocked, until they finish while upload slots
+                # are scarce. It has nothing to give yet: drop the edges
+                peer.task.detach_children(peer.id)
             parents = self.scheduling.find_parents(peer)
             if parents:
                 self._offer(peer, parents, "parents")
@@ -519,6 +527,8 @@ class SchedulerService:
         peer.last_offer_ids = set()
         if self.records is not None:
             self.records.on_peer(peer, result)
+            if result.flight_summary:
+                self.records.on_flight(peer, result.flight_summary)
         return Empty()
 
     # ------------------------------------------------------------------

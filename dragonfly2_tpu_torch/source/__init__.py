@@ -1,8 +1,9 @@
-"""Origin ("back-to-source") clients, keyed by URL scheme. This slice
-registers ``file://`` (and bare paths)."""
+"""Origin ("back-to-source") clients, keyed by URL scheme: ``file://``
+(and bare paths) and ``http://`` / ``https://`` on the standard library."""
 
 from .client import (  # noqa: F401
     SourceRequest, SourceResponse, ResourceClient,
-    register_client, client_for, download,
+    register_client, client_for, content_length, supports_range, download,
+    close_clients,
 )
-from . import file_client  # noqa: F401
+from . import file_client, http_client  # noqa: F401

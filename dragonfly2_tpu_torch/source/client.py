@@ -1,8 +1,10 @@
 """ResourceClient protocol + scheme registry.
 
 Counterpart of ``dragonfly2_tpu/source/client.py`` cut to what the
-back-source path calls: content length, range support and a download that
-streams chunks, so the daemon hashes and stores while bytes arrive.
+back-source path calls: content length, range support, last-modified and a
+download that streams chunks, so the daemon hashes and stores while bytes
+arrive. The recursive lister (``list``, ``walk``) waits for recursive
+downloads.
 """
 
 from __future__ import annotations
@@ -30,13 +32,23 @@ class SourceResponse:
     content_length: int = -1       # of THIS response body (range-aware)
     total_length: int = -1         # of the whole resource when known
     supports_range: bool = False
+    last_modified: str = ""
+    header: dict[str, str] = field(default_factory=dict)
     chunks: AsyncIterator[bytes] | None = None
+
+    async def read_all(self) -> bytes:
+        out = bytearray()
+        assert self.chunks is not None
+        async for c in self.chunks:
+            out.extend(c)
+        return bytes(out)
 
 
 class ResourceClient(Protocol):
     async def content_length(self, req: SourceRequest) -> int: ...
     async def supports_range(self, req: SourceRequest) -> bool: ...
     async def download(self, req: SourceRequest) -> SourceResponse: ...
+    async def last_modified(self, req: SourceRequest) -> str: ...
 
 
 _REGISTRY: dict[str, ResourceClient] = {}
@@ -57,5 +69,26 @@ def client_for(url: str) -> ResourceClient:
     return client
 
 
+async def content_length(req: SourceRequest) -> int:
+    return await client_for(req.url).content_length(req)
+
+
+async def supports_range(req: SourceRequest) -> bool:
+    return await client_for(req.url).supports_range(req)
+
+
 async def download(req: SourceRequest) -> SourceResponse:
     return await client_for(req.url).download(req)
+
+
+async def close_clients() -> None:
+    """Close every registered client's connections bound to the running
+    loop (in-process daemons share the process-wide registry)."""
+    seen: set[int] = set()
+    for client in _REGISTRY.values():
+        if id(client) in seen:
+            continue
+        seen.add(id(client))
+        close = getattr(client, "close", None)
+        if close is not None:
+            await close()

@@ -41,6 +41,13 @@ class FileSourceClient:
     async def supports_range(self, req: SourceRequest) -> bool:
         return True
 
+    async def last_modified(self, req: SourceRequest) -> str:
+        try:
+            return str(await asyncio.get_running_loop().run_in_executor(
+                None, os.path.getmtime, _path(req.url)))
+        except OSError:
+            return ""
+
     async def download(self, req: SourceRequest) -> SourceResponse:
         path = _path(req.url)
         loop = asyncio.get_running_loop()

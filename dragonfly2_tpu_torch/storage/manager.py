@@ -250,6 +250,7 @@ class StorageManager:
             for num in bad:
                 del md.pieces[num]
             md.done = md.success = False
+            ts._cover_cache = None      # the table shrank
         ts.persist()
         if self.castore is not None:
             self.castore.drop_task(md.task_id)

@@ -4,7 +4,8 @@ Counterpart of ``dragonfly2_tpu/storage/store.py`` ``TaskStorage`` without
 ranged sub-tasks. Pieces are written at their offsets with per-piece
 digest verification, one at a time (``write_piece``) or as a downloaded
 span in one pass (``write_span``); reads feed the device sink, the upload
-server and the final output. Where a piece's digest is crc32c (or none is
+server and the final output, and ``covered_prefix`` gives the relay plane
+the landed frontier (``daemon/relay.py``). Where a piece's digest is crc32c (or none is
 given), the native library writes and checksums it in one traversal
 (``native.span_write``); otherwise one pwrite and a Python hash. Every
 verified piece is indexed in the daemon's content store (``castore``) when
@@ -16,6 +17,7 @@ call.
 
 from __future__ import annotations
 
+import bisect
 import dataclasses
 import os
 import shutil
@@ -62,6 +64,8 @@ class TaskStorage:
         self.castore = castore
         self._lock = threading.Lock()
         self._save_lock = threading.Lock()     # one metadata save at a time
+        # covered_prefix memo: (piece count, merged [start, end) spans)
+        self._cover_cache: tuple[int, list[list[int]]] | None = None
         self._data_path = os.path.join(task_dir, DATA_FILE)
         os.makedirs(task_dir, exist_ok=True)
         if not os.path.exists(self._data_path):
@@ -209,6 +213,9 @@ class TaskStorage:
             self.md.content_length = src.md.content_length
             self.md.total_piece_count = src.md.total_piece_count
             self.md.piece_size = src.md.piece_size
+            # the memo is keyed on the piece count: a wholesale swap of
+            # the table must not serve its stale spans
+            self._cover_cache = None
 
     def mark_done(self, *, success: bool, content_length: int | None = None,
                   total_piece_count: int | None = None) -> None:
@@ -276,6 +283,39 @@ class TaskStorage:
             raise DFError(Code.CLIENT_STORAGE_ERROR,
                           f"range read @{start}+{length} failed: "
                           f"{exc}") from None
+
+    def covered_prefix(self, start: int, end: int) -> int:
+        """How far recorded (verified) pieces contiguously cover from
+        ``start``, clipped to ``end``: the landed half of the relay plane's
+        frontier (``daemon/relay.py``). Returns ``start`` when the byte at
+        ``start`` is not stored.
+
+        The streaming relay serve calls this per chunk and per progress
+        wake, on the event loop, so the merged spans are cached and
+        rebuilt only when a piece lands (the piece table only grows while
+        a task is live, so its count is the cache key) and a call is one
+        bisect."""
+        if end <= start:
+            return start
+        with self._lock:
+            key = len(self.md.pieces)
+            cache = self._cover_cache
+            if cache is None or cache[0] != key:
+                merged: list[list[int]] = []
+                for s, e in sorted((p.start, p.start + p.size)
+                                   for p in self.md.pieces.values()):
+                    if merged and s <= merged[-1][1]:
+                        if e > merged[-1][1]:
+                            merged[-1][1] = e
+                    else:
+                        merged.append([s, e])
+                cache = (key, merged)
+                self._cover_cache = cache
+        spans = cache[1]
+        i = bisect.bisect_right(spans, [start, 1 << 62]) - 1
+        if i < 0 or spans[i][1] <= start:
+            return start
+        return min(spans[i][1], end)
 
     def has_range(self, start: int, length: int) -> bool:
         """True if stored pieces fully cover [start, start+length)."""

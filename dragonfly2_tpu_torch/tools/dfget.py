@@ -6,8 +6,8 @@ socket, daemon spawn on demand, and the direct-from-source fallback with
 digest check. ``--shard-manifest`` with ``--shards`` pulls only the
 pieces covering the named shards and prints one ready line per shard,
 marked ``(tree)`` or ``(swap)`` by its supply path. Origins are
-``file://``; recursive downloads, tenants and QoS classes are not ported
-yet and their flags exit non-zero.
+``file://``, ``http://`` and ``https://``; recursive downloads, tenants and
+QoS classes are not ported yet and their flags exit non-zero.
 
 Usage:
     python -m dragonfly2_tpu_torch.tools.dfget URL -O /path/out [options]
@@ -31,7 +31,7 @@ from ..common.unit import format_bytes
 from ..idl.messages import (DownloadRequest, Empty, Priority, ShardInfo,
                             ShardManifest, UrlMeta)
 from ..rpc.client import Channel, ServiceClient
-from ..source import SourceRequest, client_for
+from ..source import SourceRequest, client_for, close_clients
 from . import refuse_unported
 
 
@@ -160,9 +160,11 @@ async def download_from_source(args, *, progress=None) -> None:
     """Direct origin fetch (no daemon): the reference's
     ``downloadFromSource`` fallback, with digest verification."""
     client = client_for(args.url)
-    req = SourceRequest(url=args.url, timeout_s=args.timeout)
+    header = dict(_meta(args).header or {})
+    req = SourceRequest(url=args.url, header=header, timeout_s=args.timeout)
     if args.range_:
-        total = await client.content_length(SourceRequest(url=args.url))
+        total = await client.content_length(SourceRequest(url=args.url,
+                                                          header=header))
         req.range = parse_http_range(args.range_, total)
     resp = await client.download(req)
     tmp = args.output + ".dfget.tmp"
@@ -242,8 +244,14 @@ def main(argv: list[str] | None = None) -> int:
         "--recursive": (args.recursive, "recursive downloads"),
         "--tenant": (args.tenant, "tenant quotas"),
         "--qos-class": (args.qos_class, "QoS classes")})
+    async def run_and_close() -> int:
+        try:
+            return await run(args)
+        finally:
+            await close_clients()     # this loop's pooled origin connections
+
     try:
-        return asyncio.run(run(args))
+        return asyncio.run(run_and_close())
     except DFError as exc:
         print(f"dfget: error: {exc.code.name}: {exc.message}", file=sys.stderr)
         return 1
