@@ -6,8 +6,10 @@
 Daemons pull checkpoints into device memory through the port's device
 sink: back to source (``file://`` and, in phase 11, ``http://``), as a
 seed peer does for every task, and then from peers, as the P2P path does.
-The cut-through relay is on (the daemon's default) in every P2P phase:
-phases 6 and 9 print each daemon's relayed serves and bytes.
+The cut-through relay and the PEX gossip plane are on (the daemon's
+defaults) in every P2P phase: phases 6 and 9 print each daemon's relayed
+serves and bytes, and phases 6, 9, 10 and 11 the PEX advisory primes and
+parent hits of this process's leechers.
 
 1. device   — the card's name, count, power limit; no CUDA card is an error
 2. sink     — a seeded buffer written into ``DeviceIngest`` as shuffled
@@ -106,6 +108,23 @@ phases 6 and 9 print each daemon's relayed serves and bytes.
               relayed serve, L2 and L3 must report relayed pieces, and a
               child's first byte of some piece must come before its
               parent's ``wire_done`` of it
+12. crash    — run after phase 11, on phase 8's origin, served unpaced by
+              phase 11's HTTP server in a child. A scheduler S1 and a seed
+              in children, every daemon announcing every 1 s and
+              gossiping every 1 s (cut from 30 s and 5 s). L1 (here,
+              manifest sink on the card, back-source disabled) pulls
+              through S1, and its swarm index must name the seed complete
+              within two gossip rounds. S1 is SIGKILLed; L2, knowing only
+              S1 and L1's upload address as its PEX bootstrap, must be
+              served on the pex rung (flight rungs ``["pex"]``, parent
+              hits counted, ``/debug/pex`` listing two holders). S2
+              starts on S1's port with a new epoch: within three announce
+              intervals the seed, L1 and L2 re-announce and are adopted
+              (holders, ``recovery`` ledger rows), and L2's PEX ticker
+              revives S1's demoted address. The origin stops; L3 pulls
+              through S2 with rungs ``["p2p"]``. Every tensor must equal
+              the origin's, no leecher may read the origin, and the
+              origin must send each byte once, to the seed
 
 Before phase 3 the native storage library (``dfnative.cc``, built with
 g++ at first use) must load: the pulls land crc32c piece digests, and the
@@ -137,6 +156,7 @@ import random
 import re
 import shutil
 import signal
+import socket
 import struct
 import subprocess
 import sys
@@ -600,6 +620,22 @@ def relay_stats(d: Daemon) -> dict:
             "relay_bytes": dict(d.upload_server.relay_bytes)}
 
 
+def pex_counts() -> dict:
+    """This process's PEX counters (its leechers'; a child keeps its
+    own): advisory packets primed onto scheduler sessions, pieces served
+    by parents the gossip plane found, demoted schedulers revived."""
+    return {"df_pex_prime_total":
+            REGISTRY.counter("df_pex_prime_total").value(),
+            "df_pex_parent_hits_total":
+            REGISTRY.counter("df_pex_parent_hits_total").value(),
+            "df_pex_sched_revived_total":
+            REGISTRY.counter("df_pex_sched_revived_total").value()}
+
+
+def pex_delta(before: dict) -> dict:
+    return {k: v - before[k] for k, v in pex_counts().items()}
+
+
 class CountingFileClient(FileSourceClient):
     """``file://`` origin that counts the bytes it serves."""
 
@@ -772,6 +808,7 @@ def phase_p2p(workdir: str, path: str, digest: str, header: bytes,
                         f"seed's and two leechers' copies, {free} free")
     manifest = manifest_from_file(path)
     before = hbm_counters()
+    pex0 = pex_counts()
     ctx = multiprocessing.get_context("spawn")
     parent_conn, child_conn = ctx.Pipe()
     child = ctx.Process(target=p2p_child, name="smoke-p2p-child",
@@ -853,7 +890,7 @@ def phase_p2p(workdir: str, path: str, digest: str, header: bytes,
         "origin_bytes_read": stats["origin_bytes_read"],
         "rulings": stats["rulings"], "b_pieces_from_a": from_a,
         "a_pieces_when_b_started": run_b["a_pieces_at_start"],
-        **hbm_metrics(before)})
+        "pex": pex_delta(pex0), **hbm_metrics(before)})
 
 
 # ---------------------------------------------------------------- phase 9
@@ -978,6 +1015,7 @@ def phase_sharded(workdir: str, path: str, header: bytes, ref: torch.Tensor,
               **{k: p2p_pieces.value(k) for k in ("ok", "busy", "fail")},
               "fallback": fallbacks.value(),
               "upload": REGISTRY.counter("df_upload_bytes_total").value()}
+    pex0 = pex_counts()
     ctx = multiprocessing.get_context("spawn")
     parent_conn, child_conn = ctx.Pipe()
     child = ctx.Process(target=p2p_child, name="smoke-sharded-child",
@@ -1124,7 +1162,8 @@ def phase_sharded(workdir: str, path: str, header: bytes, ref: torch.Tensor,
         "loop_lag_max_s": max(lags, default=0.0),
         "loop_lag_over_100ms_s": sum(x for x in lags if x > 0.1),
         "rulings": stats["rulings"],
-        "parents_excluded": stats["excluded"], "free_disk_bytes": free})
+        "parents_excluded": stats["excluded"], "pex": pex_delta(pex0),
+        "free_disk_bytes": free})
     for st, pair in assigned.items():
         check(len(pair) == 2 and not set(pair[0]) & set(pair[1])
               and sorted(pair[0] + pair[1]) == sorted(stages[st]),
@@ -1990,6 +2029,7 @@ def phase_nt(workdir: str, seed: int, device: torch.device) -> None:
         ref = torch.frombuffer(bytearray(f.read()), dtype=torch.uint8).to(
             device)
     d = os.path.join(workdir, "nt")
+    pex0 = pex_counts()
     ctx = multiprocessing.get_context("spawn")
     parent_conn, child_conn = ctx.Pipe()
     child = ctx.Process(target=nt_seed_child, name="smoke-nt-child",
@@ -2062,7 +2102,7 @@ def phase_nt(workdir: str, seed: int, device: torch.device) -> None:
         "rulings": len(pod["decisions"]),
         "candidates_on_rtt": substituted,
         "origin_bytes_read": stats["origin_bytes_read"],
-        "leechers": lines, "ruling_cost": cost,
+        "leechers": lines, "pex": pex_delta(pex0), "ruling_cost": cost,
         "phase_s": time.monotonic() - t_phase, "card": smi})
 
 
@@ -2082,7 +2122,8 @@ def http_origin_child(path: str, pace_bps: int, conn) -> None:
     """Phase 11's origin, in a spawned process: a standard-library
     ``ThreadingHTTPServer`` serving ``path`` (HTTP/1.1, ``HEAD``, single
     ``Range`` requests, ``Accept-Ranges: bytes``), each response paced to
-    ``pace_bps``; ``/redirect/<name>`` answers 302 to ``/<name>``. It
+    ``pace_bps`` (0: unpaced); ``/redirect/<name>`` answers 302 to
+    ``/<name>``. It
     counts the body bytes it sends per client connection (requests carrying
     ``X-Smoke-Check`` apart), the ranges, and when its first body byte
     left (CLOCK_MONOTONIC, which every process of the host shares). Each
@@ -2162,7 +2203,8 @@ def http_origin_child(path: str, pace_bps: int, conn) -> None:
                         tally["body_bytes"] += len(chunk)
                         tally["per_client"][client] = \
                             tally["per_client"].get(client, 0) + len(chunk)
-                ahead = sent / pace_bps - (time.monotonic() - t0)
+                ahead = (sent / pace_bps - (time.monotonic() - t0)
+                         if pace_bps else 0.0)
                 if ahead > 0:
                     time.sleep(ahead)
 
@@ -2361,6 +2403,7 @@ def chain_run(workdir: str, url: str, manifest: ShardManifest, relay: bool,
               shapes: dict, device: torch.device) -> dict:
     """One chain pull (relay on or off) and its checks; returns its
     line."""
+    pex0 = pex_counts()
     ctx = multiprocessing.get_context("spawn")
     parent_conn, child_conn = ctx.Pipe()
     child = ctx.Process(target=chain_seed_child, name="smoke-chain-seed",
@@ -2499,7 +2542,7 @@ def chain_run(workdir: str, url: str, manifest: ShardManifest, relay: bool,
             "chain_depth": max(depth.values()), "hops_from_origin": depth,
             "relayed_piece_rows": relayed_rows,
             "first_byte_before_parent_wire_done": overlaps,
-            "leechers": leechers}
+            "pex": pex_delta(pex0), "leechers": leechers}
 
 
 def phase_chain(workdir: str, device: torch.device) -> None:
@@ -2566,8 +2609,338 @@ def phase_chain(workdir: str, device: torch.device) -> None:
         "phase_s": time.monotonic() - t_phase, "card": smi})
 
 
+# ---------------------------------------------------------------- phase 12
+
+# the two cadences cut from the defaults (30 s and 5 s) so the phase fits
+CRASH_ANNOUNCE_S = 1.0
+CRASH_PEX_S = 1.0
+CRASH_WAIT_S = 30.0          # bound on each wait for gossip or announces
+
+
+def crash_daemon_cfg(workdir: str, name: str, sched_addr: str,
+                     **kw) -> DaemonConfig:
+    """Phase 12's daemons: one scheduler address, the cut cadences."""
+    cfg = DaemonConfig(workdir=os.path.join(workdir, name),
+                       hostname=f"crash-{name}", listen_ip="127.0.0.1",
+                       host_ip="127.0.0.1",
+                       scheduler=SchedulerConfig(addresses=[sched_addr]),
+                       **kw)
+    cfg.announce_interval_s = CRASH_ANNOUNCE_S
+    cfg.pex.interval_s = CRASH_PEX_S
+    return cfg
+
+
+def crash_sched_child(port: int, seed_host: Host, conn) -> None:
+    """Scheduler S1 of phase 12, in a spawned process the parent ends with
+    SIGKILL: no LeaveHost, no clean close."""
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    asyncio.run(_crash_sched_child(port, seed_host, conn))
+
+
+async def _crash_sched_child(port: int, seed_host: Host, conn) -> None:
+    sched = Scheduler(SchedCfg(
+        listen_ip="127.0.0.1", port=port, seed_peers=[SeedPeerAddr(
+            host_id=seed_host.id, ip=seed_host.ip, rpc_port=seed_host.port,
+            download_port=seed_host.download_port)]))
+    await sched.start()
+    conn.send({"epoch": sched.service.epoch, "started": time.time()})
+    await asyncio.to_thread(conn.recv)          # never answered
+
+
+def crash_seed_child(workdir: str, sched_addr: str, conn) -> None:
+    """Phase 12's seed daemon, in a spawned process that never touches
+    CUDA; it announces to the scheduler and gossips like the leechers.
+    It sends its host, serves until the parent asks, then sends its
+    pull's origin bytes."""
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    asyncio.run(_crash_seed_child(workdir, sched_addr, conn))
+
+
+async def _crash_seed_child(workdir: str, sched_addr: str, conn) -> None:
+    seed = Daemon(crash_daemon_cfg(workdir, "seed", sched_addr,
+                                   is_seed=True, device="cpu"))
+    await seed.start()
+    try:
+        conn.send({"host": seed.host_info()})
+        await asyncio.to_thread(conn.recv)      # the parent is done
+        conductors = list(seed.ptm._conductors.values())
+        conn.send({"traffic_source": sum(c.traffic_source
+                                         for c in conductors),
+                   "states": [c.state for c in conductors],
+                   "pex_rounds": seed.pex.rounds})
+    finally:
+        await seed.stop()
+
+
+def _holders(sched: Scheduler, task_id: str) -> set:
+    """Hosts the scheduler holds as complete holders of ``task_id``."""
+    task = sched.resource.tasks.get(task_id)
+    if task is None:
+        return set()
+    return {p.host.id for p in task.peers.values()
+            if p.state == PeerState.SUCCEEDED}
+
+
+async def _until(what: str, cond, limit: float = CRASH_WAIT_S) -> float:
+    """Wait for ``cond()``; returns the seconds it took."""
+    t0 = time.monotonic()
+    while not cond():
+        check(time.monotonic() - t0 < limit,
+              f"phase 12: {what} not within {limit:.0f} s")
+        await asyncio.sleep(0.02)
+    return time.monotonic() - t0
+
+
+async def _crash_pod(workdir: str, url: str, manifest: ShardManifest,
+                     sched_port: int, seed_host: Host, s1, s1_info: dict,
+                     origin_conn) -> dict:
+    """L1 pulls through S1; S1 is killed; L2 is served on the pex rung;
+    S2 starts on S1's port and the swarm re-announces to it; the origin
+    stops and L3 is served P2P by the adopted holders."""
+    addr = f"127.0.0.1:{sched_port}"
+    meta = UrlMeta()
+    out: dict = {}
+    l1 = Daemon(crash_daemon_cfg(workdir, "l1", addr))
+    l2 = l3 = s2 = None
+    await l1.start()
+    try:
+        task_id = l1.ptm._task_id(url, meta)
+        out["l1"] = await _leecher_pull(l1, url, meta, manifest, {})
+        # the scheduler named the seed as L1's parent (peer_observer): the
+        # gossip rounds that follow index it as a complete holder
+        out["l1_seed_indexed_s"] = await _until(
+            "L1's swarm index naming the seed complete",
+            lambda: any(e.host_id == seed_host.id and e.done
+                        for e in l1.pex.index.parents_for(task_id)),
+            limit=2 * 1.4 * CRASH_PEX_S + 1.0)
+
+        os.kill(s1.pid, signal.SIGKILL)
+        s1.join(timeout=30)
+        check(not s1.is_alive(), "phase 12: S1 survived SIGKILL")
+        out["s1_exit"] = s1.exitcode
+
+        hits0 = pex_counts()
+        cfg = crash_daemon_cfg(workdir, "l2", addr)
+        cfg.pex.bootstrap = [f"127.0.0.1:{l1.upload_server.port}"]
+        l2 = Daemon(cfg)
+        await l2.start()
+        # the pex rung serves only what the swarm index knows: L2's own
+        # ticker learns L1's holdings from its bootstrap neighbour first
+        out["l2_gossip_s"] = await _until(
+            "L2's first gossip round",
+            lambda: bool(l2.pex.index.parents_for(task_id)))
+        out["l2"] = await _leecher_pull(l2, url, meta, manifest, {})
+        out["l2_pex"] = pex_delta(hits0)
+        await _until("L2's index naming two holders",
+                     lambda: len(l2.pex.index.parents_for(task_id)) >= 2)
+        status, snap = await _http_json(l2.upload_server.port, "/debug/pex")
+        out["l2_debug_pex"] = (status, snap)
+
+        # the restart: a cold boot with a new epoch on S1's port
+        while int(time.time()) <= s1_info["epoch"]:
+            await asyncio.sleep(0.05)
+        adopted = REGISTRY.counter("df_sched_recovery_announces_total",
+                                   labels=("result",))
+        adopted0 = adopted.value("adopted")
+        s2 = Scheduler(SchedCfg(
+            listen_ip="127.0.0.1", port=sched_port, seed_peers=[SeedPeerAddr(
+                host_id=seed_host.id, ip=seed_host.ip,
+                rpc_port=seed_host.port,
+                download_port=seed_host.download_port)]))
+        t_start = time.monotonic()
+        await s2.start()
+        want = {seed_host.id, l1.host_info().id, l2.host_info().id}
+        out["reannounce_s"] = await _until(
+            "the re-announces of the seed, L1 and L2",
+            lambda: _holders(s2, task_id) >= want)
+        out["reannounce_from_start_s"] = time.monotonic() - t_start
+        out["s2_epoch"] = s2.service.epoch
+        out["s2_holders"] = sorted(_holders(s2, task_id))
+        out["s2_task_state"] = s2.resource.tasks[task_id].state.value
+        out["adopted"] = adopted.value("adopted") - adopted0
+        out["recovery_rows"] = [r for r in s2.ledger._ring
+                                if r.get("decision_kind") == "recovery"]
+        out["revived_s"] = await _until(
+            "L2's ticker reviving S1's demoted address",
+            lambda: pex_delta(hits0)["df_pex_sched_revived_total"] >= 1)
+        out["revived"] = pex_delta(hits0)["df_pex_sched_revived_total"]
+
+        origin_conn.send("report")
+        out["origin"] = origin_conn.recv()
+        origin_conn.send("stop")
+        hits0 = pex_counts()
+        l3 = Daemon(crash_daemon_cfg(workdir, "l3", addr))
+        await l3.start()
+        out["l3"] = await _leecher_pull(l3, url, meta, manifest, {})
+        out["l3_pex"] = pex_delta(hits0)
+        for n, d in (("l1", l1), ("l2", l2), ("l3", l3)):
+            out[n]["flight"] = d.flight_recorder.get(task_id).summarize()
+            out[n]["host_id"] = d.host_info().id
+        return out
+    finally:
+        for d in (l3, l2, l1):
+            if d is not None:
+                await d.stop()
+        if s2 is not None:
+            await s2.stop()
+
+
+def phase_crash(workdir: str, device: torch.device) -> None:
+    """Phase 12: a scheduler crash mid-rollout, on phase 8's origin."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    t_phase = time.monotonic()
+    path = os.path.join(workdir, "deploy", "model-00004-of-00004.safetensors")
+    name = os.path.basename(path)
+    layout = deploy_layout()
+    header, _ = safetensors_header(layout)
+    size = os.path.getsize(path)
+    free = shutil.disk_usage(workdir).free
+    need = 4 * size + (1 << 30)
+    check(free >= need, f"phase 12 needs {need} bytes of free disk for the "
+                        f"seed's and three leechers' copies, {free} free")
+    manifest = manifest_from_file(path)
+    with open(path, "rb") as f:
+        f.seek(len(header))
+        ref = torch.frombuffer(bytearray(f.read()), dtype=torch.uint8).to(
+            device)
+    d = os.path.join(workdir, "crash")
+    with socket.socket() as sock:          # S1's port, known to the seed
+        sock.bind(("127.0.0.1", 0))
+        sched_port = sock.getsockname()[1]
+    ctx = multiprocessing.get_context("spawn")
+    origin_conn, o_child = ctx.Pipe()
+    seed_conn, sd_child = ctx.Pipe()
+    s1_conn, s1_child = ctx.Pipe()
+    origin = ctx.Process(target=http_origin_child, name="smoke-crash-origin",
+                         args=(path, 0, o_child))
+    seed = ctx.Process(target=crash_seed_child, name="smoke-crash-seed",
+                       args=(d, f"127.0.0.1:{sched_port}", sd_child))
+    s1 = None
+    origin.start()
+    seed.start()
+    try:
+        check(origin_conn.poll(120), "phase 12 origin did not start")
+        url = f"http://127.0.0.1:{origin_conn.recv()['port']}/{name}"
+        check(seed_conn.poll(300), "phase 12 seed did not start")
+        seed_host = seed_conn.recv()["host"]
+        s1 = ctx.Process(target=crash_sched_child, name="smoke-crash-s1",
+                         args=(sched_port, seed_host, s1_child))
+        s1.start()
+        check(s1_conn.poll(300), "phase 12 S1 did not start")
+        s1_info = s1_conn.recv()
+        pod = asyncio.run(_crash_pod(d, url, manifest, sched_port,
+                                     seed_host, s1, s1_info, origin_conn))
+        seed_conn.send("stop")
+        check(seed_conn.poll(300), "phase 12 seed did not report")
+        seed_stats = seed_conn.recv()
+    finally:
+        if s1 is not None and s1.is_alive():
+            s1.kill()                  # the phase failed before the crash
+        for conn in (seed_conn, origin_conn):
+            try:
+                conn.send("stop")      # a no-op for a child already gone
+            except OSError:
+                pass
+        for proc in (s1, seed, origin):
+            if proc is None:
+                continue
+            proc.join(timeout=60)
+            if proc.is_alive():
+                proc.terminate()
+                proc.join(timeout=30)
+    check(seed.exitcode == 0, f"phase 12 seed exited {seed.exitcode}")
+    base, shapes = len(header), dict(layout)
+    lines = {}
+    for n in ("l1", "l2", "l3"):
+        run = pod[n]
+        c, tensors = run["conductor"], run["out"]
+        for info in manifest.shards:
+            t = tensors[info.name]
+            lo = info.range_start - base
+            check(t.device == device and t.dtype == torch.bfloat16
+                  and list(t.shape) == shapes[info.name]
+                  and torch.equal(t.reshape(-1).view(torch.uint8),
+                                  ref[lo:lo + info.range_size]),
+                  f"phase 12 {n}: {info.name} differs from the origin")
+        check(c.traffic_source == 0 and c.traffic_p2p == size,
+              f"phase 12 {n}: p2p {c.traffic_p2p}, source "
+              f"{c.traffic_source}")
+        check_crc32c(c.storage.md, f"phase 12 {n}")
+        lines[n] = {"time_to_ready_s": run["wall"],
+                    "rungs": run["flight"]["rungs"],
+                    "served_rung": run["flight"]["served_rung"],
+                    "pieces_per_parent": dict(c.pieces_by_parent)}
+        del tensors, run["out"]
+    del ref
+    shutil.rmtree(d, ignore_errors=True)
+    check(pod["l1"]["flight"]["rungs"] == ["p2p"],
+          f"phase 12 L1 rungs {pod['l1']['flight']['rungs']}")
+    check(pod["l2"]["flight"]["rungs"] == ["pex"]
+          and pod["l2"]["flight"]["served_rung"] == "pex",
+          f"phase 12 L2 rungs {pod['l2']['flight']['rungs']}, served "
+          f"{pod['l2']['flight']['served_rung']}")
+    check(pod["l2_pex"]["df_pex_parent_hits_total"] > 0,
+          f"phase 12 L2: no PEX parent hit {pod['l2_pex']}")
+    status, snap = pod["l2_debug_pex"]
+    task_id = pod["l1"]["conductor"].task_id
+    listed = snap.get("swarm", {}).get("tasks", {}).get(task_id, [])
+    check(status == 200 and len(listed) >= 2,
+          f"phase 12 L2 /debug/pex: status {status}, {len(listed)} holders")
+    want = sorted({seed_host.id, pod["l1"]["host_id"], pod["l2"]["host_id"]})
+    check(pod["s2_holders"] == want and pod["s2_task_state"] == "succeeded",
+          f"phase 12 S2 holders {pod['s2_holders']} "
+          f"({pod['s2_task_state']}), want {want}")
+    check(pod["adopted"] >= 3, f"phase 12 S2 adopted {pod['adopted']} "
+                               f"re-announces, want the seed, L1 and L2")
+    check({r["host_id"] for r in pod["recovery_rows"]} >= set(want),
+          f"phase 12 S2 recovery rows {pod['recovery_rows']}")
+    check(pod["reannounce_s"] <= 3 * CRASH_ANNOUNCE_S,
+          f"phase 12 re-announces took {pod['reannounce_s']:.2f} s, more "
+          f"than three announce intervals")
+    check(pod["revived"] >= 1, "phase 12: L2 revived no demoted scheduler")
+    check(pod["l3"]["flight"]["rungs"] == ["p2p"],
+          f"phase 12 L3 rungs {pod['l3']['flight']['rungs']}")
+    # the origin sent each byte once, and only to the seed
+    origin_t = pod["origin"]
+    spans = sorted(origin_t["ranges"])
+    covered = 0
+    for lo, hi in spans:
+        check(lo == covered, f"phase 12 origin ranges overlap or leave a "
+                             f"hole at {covered}: {spans[:8]}")
+        covered = hi
+    check(covered == size and origin_t["body_bytes"] == size
+          and seed_stats["traffic_source"] == size,
+          f"phase 12 origin sent {origin_t['body_bytes']} bytes over "
+          f"{covered}, seed took {seed_stats['traffic_source']}, file "
+          f"{size}")
+    emit("phase 12 crash", {
+        "file_bytes": size, "announce_interval_s": CRASH_ANNOUNCE_S,
+        "pex_interval_s": CRASH_PEX_S,
+        "time_to_ready_s": {n: lines[n]["time_to_ready_s"]
+                            for n in ("l1", "l2", "l3")},
+        "leechers": lines,
+        "l1_seed_indexed_s": pod["l1_seed_indexed_s"],
+        "l2_gossip_wait_s": pod["l2_gossip_s"],
+        "l2_pex": pod["l2_pex"], "l3_pex": pod["l3_pex"],
+        "l2_debug_pex_holders": len(listed),
+        "s1_exit": pod["s1_exit"], "s1_epoch": s1_info["epoch"],
+        "s2_epoch": pod["s2_epoch"],
+        "s2_start_to_last_reannounce_s": pod["reannounce_s"],
+        "s2_adopted_announces": pod["adopted"],
+        "s2_recovery_rows": len(pod["recovery_rows"]),
+        "s2_holders": pod["s2_holders"],
+        "df_pex_sched_revived_total": pod["revived"],
+        "revived_after_s2_s": pod["revived_s"],
+        "origin_bytes_sent": origin_t["body_bytes"],
+        "seed_traffic_source": seed_stats["traffic_source"],
+        "phase_s": time.monotonic() - t_phase, "card": smi})
+
+
 def run_phases(layers: int, seed: int, device: torch.device) -> None:
-    """Phases 2-11 on ``device``; raises CheckFailed on a failed check."""
+    """Phases 2-12 on ``device``; raises CheckFailed on a failed check."""
     layout = llama_layout(layers)
     header, nbytes = safetensors_header(layout)
     workdir = tempfile.mkdtemp(prefix="chip-smoke-")
@@ -2625,6 +2998,7 @@ def run_phases(layers: int, seed: int, device: torch.device) -> None:
         phase_deploy(workdir, seed, device)
         phase_nt(workdir, seed, device)
         phase_chain(workdir, device)
+        phase_crash(workdir, device)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 

@@ -13,7 +13,14 @@ port fires:
   models an upstream whose landing watermark stopped advancing;
 * ``upload.serve`` (``daemon/upload_server.py``): ``corrupt`` flips a byte
   of a served range (``peek`` routes the serve off ``sendfile`` while
-  such a script is armed).
+  such a script is armed);
+* ``sched.register`` (``daemon/scheduler_session.py``): fired before each
+  ring member's register dial, bounded by the register timeout, so
+  ``fail`` and ``hang`` walk the failover ladder a dead or wedged
+  scheduler would;
+* ``pex.gossip`` (``daemon/pex.py``): ``fail`` drops one edge's digest
+  exchange, ``corrupt`` flips a byte of the outbound envelope so the
+  receiver's checksum rejects it.
 
 Call sites guard with ``if faultgate.ARMED:`` so a disarmed process pays
 one attribute load.
@@ -32,7 +39,7 @@ from .metrics import REGISTRY
 log = logging.getLogger("df.faultgate")
 
 SITES = frozenset({"hbm.ingest", "piece.wire", "relay.stall",
-                   "upload.serve"})
+                   "upload.serve", "sched.register", "pex.gossip"})
 KINDS = frozenset({"fail", "error", "delay", "hang", "corrupt"})
 
 # fast-path flag: True iff at least one script is armed

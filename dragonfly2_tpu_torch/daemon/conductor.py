@@ -30,6 +30,15 @@ Once the geometry is known the task is tracked by the relay hub
 event for the piece-sync streams' announce-ahead, every landing pulses
 the hub's waiters, and the task is untracked when it ends.
 
+When every scheduler is unreachable (a transport failure, never a
+verdict), the ladder tries the ``pex`` rung (``pex.PexGossiper.try_pull``:
+holders the gossip plane knows) before back-source; while a scheduler
+session is live, ``pex.prime`` adds those holders as advisory parents.
+An origin that reports no length streams to its end
+(``piece_manager``); the total is learned at the end
+(``on_source_complete``), and such a task gets no device sink, as in the
+reference: the sink needs the length up front.
+
 Bytes already on disk are not transferred again: a request naming a
 content digest the content store holds complete is adopted whole
 (``_try_adopt_content``), and an announced piece held under this task (a
@@ -91,7 +100,7 @@ class PeerTaskConductor:
                  device_sink_factory: Any = None,
                  shard_manifest: Any = None,
                  requested_shards: list[str] | None = None,
-                 flight: Any = None, relay: Any = None):
+                 flight: Any = None, relay: Any = None, pex: Any = None):
         self.task_id = task_id
         self.peer_id = peer_id
         self.url = url
@@ -107,6 +116,7 @@ class PeerTaskConductor:
         self.device_sink_factory = device_sink_factory
         self.flight = flight         # TaskFlight journal (None = disabled)
         self.relay = relay           # RelayHub (None = cut-through off)
+        self.pex = pex               # PexGossiper (None = plane disabled)
         self._relay_tracked = False
         # sharded-task delivery (common/sharding.py): the manifest's shard
         # table, the subset this host needs, and — once piece geometry is
@@ -138,6 +148,10 @@ class PeerTaskConductor:
         # A widen that loses this race is refused, so a finishing subset
         # can never be widened into "incomplete"
         self._finishing = False
+        # register failed at the transport (every ring member
+        # unreachable), not by verdict: only then may the pex rung stand
+        # in for the missing control plane
+        self._sched_unreachable = False
 
         self.state = self.PENDING
         self.fail_code = Code.OK
@@ -185,9 +199,10 @@ class PeerTaskConductor:
 
     async def _run(self) -> None:
         """The ladder (reference ``conductor.py:203-272``): register; pull
-        P2P when the scheduler answered; back to source when P2P could not
-        finish and back-source is allowed; finalize; then close the
-        session, so the PeerResult carries the real outcome."""
+        P2P when the scheduler answered; the pex rung when no scheduler
+        could be reached; back to source when P2P could not finish and
+        back-source is allowed; finalize; then close the session, so the
+        PeerResult carries the real outcome."""
         try:
             used_p2p = False
             if await self._try_adopt_content():
@@ -206,8 +221,19 @@ class PeerTaskConductor:
                 if self._session is not None and self._p2p_engine is not None:
                     if self.flight is not None:
                         self.flight.rung(fr.RUNG_P2P)
+                    if self.pex is not None:
+                        # swarm-known holders ride an advisory packet, so a
+                        # hot task has parents before the scheduler's land
+                        self.pex.prime(self, self._session)
                     used_p2p = await self._p2p_engine.pull(self,
                                                            self._session)
+            if (not used_p2p and self.pex is not None
+                    and (self.scheduler is None or self._sched_unreachable)):
+                # the pex rung: no scheduler could be reached (or none is
+                # configured) but gossip knows holders. A verdict
+                # (NeedBackSource) is respected: this rung replaces only an
+                # absent control plane
+                used_p2p = await self.pex.try_pull(self)
             if not used_p2p:
                 if self.disable_back_source:
                     raise DFError(Code.CLIENT_BACK_SOURCE_ERROR,
@@ -239,12 +265,18 @@ class PeerTaskConductor:
         try:
             return await self.scheduler.register(self)
         except DFError as exc:
-            if exc.code in (Code.UNAVAILABLE, Code.DEADLINE_EXCEEDED,
-                            Code.SCHED_NEED_BACK_SOURCE):
-                self.log.info("register: %s; no P2P", exc.message)
+            if exc.code in (Code.UNAVAILABLE, Code.DEADLINE_EXCEEDED):
+                # transport exhaustion, not a verdict: the pex rung may
+                # still find mesh parents before origin
+                self._sched_unreachable = True
+                self.log.info("register unreachable: %s", exc.message)
+                return None
+            if exc.code == Code.SCHED_NEED_BACK_SOURCE:
+                self.log.info("register says back-source: %s", exc.message)
                 return None
             raise
         except Exception as exc:  # noqa: BLE001 - scheduler unreachable
+            self._sched_unreachable = True
             self.log.warning("scheduler unreachable (%s); no P2P", exc)
             return None
 
@@ -453,12 +485,15 @@ class PeerTaskConductor:
         piece size. ``content_length`` is the EFFECTIVE length this task
         stores (the sub-range length for ranged tasks — piece offsets are
         range-relative); ``piece_size`` is a parent's, when the geometry
-        comes from the swarm. Safe to call more than once."""
+        comes from the swarm; -1 = unknown until the origin's stream ends
+        (``on_source_complete``). Safe to call more than once."""
         if self.piece_size:
             return self.piece_size
         self.content_length = content_length
-        self.piece_size = piece_size or compute_piece_size(content_length)
-        self.total_pieces = piece_count(content_length, self.piece_size)
+        self.piece_size = piece_size or compute_piece_size(
+            max(content_length, 0))
+        if content_length >= 0:
+            self.total_pieces = piece_count(content_length, self.piece_size)
         md = TaskMetadata(
             task_id=self.task_id, task_type=self.task_type, url=self.url,
             tag=self.url_meta.tag, application=self.url_meta.application,
@@ -786,6 +821,16 @@ class PeerTaskConductor:
         for ev in events:
             self._publish(ev)
         return counted, corrupt, raced
+
+    def on_source_complete(self, total: int) -> None:
+        """An origin of unknown length ended after ``total`` bytes: the
+        geometry is what landed."""
+        if self.content_length < 0:
+            self.content_length = total
+            self.total_pieces = len(self.ready)
+            if self.storage is not None:
+                self.storage.md.content_length = total
+                self.storage.md.total_piece_count = self.total_pieces
 
     # ------------------------------------------------------------------
     # finalize

@@ -1,13 +1,14 @@
 """Daemon configuration.
 
 Counterpart of ``dragonfly2_tpu/daemon/config.py`` cut to the deployment
-settings the port honors (manager and scheduler addresses, the
-scheduler-set refresh, ports, listeners, workdir, the storage section's
-GC, dedupe and reload settings, RTT probing, the flight recorder's
-limits, the cut-through relay switch and the https origins' trust), plus
-``device``: where the device sink lands bytes. The
-reference's tuning knobs that no caller of the port sets yet are module
-constants where they are used.
+settings the port honors (manager and scheduler addresses, the register
+timeout and ring failover, the schedule timeout, the scheduler-set
+refresh, ports, listeners, workdir, the storage section's GC, dedupe and
+reload settings, RTT probing, the announce cadence, the PEX gossip
+plane, the flight recorder's limits, the cut-through relay switch and
+the https origins' trust), plus ``device``: where the device sink lands
+bytes. The reference's tuning knobs that no caller of the port sets yet
+are module constants where they are used.
 """
 
 from __future__ import annotations
@@ -20,6 +21,13 @@ from ..common.unit import MiB
 @dataclass
 class SchedulerConfig:
     addresses: list[str] = field(default_factory=list)  # empty: back-source only
+    register_timeout_s: float = 10.0
+    schedule_timeout_s: float = 30.0       # max wait for a usable peer packet
+    # register failover: a dead hashed scheduler fails over to the next
+    # ring members before the task goes to origin, and is demoted for
+    # demote_s so later tasks skip it
+    failover_n: int = 3                    # ring members tried per register
+    demote_s: float = 30.0                 # sticky demotion window
     # cadence of the manager-discovered scheduler set's refresh; 0
     # disables. A scheduler replaced, or one that registers after this
     # daemon booted, reaches the daemon without a restart.
@@ -51,6 +59,26 @@ class FlightConfig:
     max_tasks: int = 64               # flights kept (drop-oldest)
     max_events: int = 4096            # events per flight (ring)
     max_serves: int = 1024            # serve-side edge rows per flight
+
+
+@dataclass
+class PexConfig:
+    """Peer-exchange gossip plane (daemon/pex.py): piece discovery that
+    backs the ``pex`` rung when every scheduler is unreachable. On by
+    default; with no known peers a round is a no-op."""
+
+    enabled: bool = True
+    interval_s: float = 5.0           # gossip cadence (x0.6-1.4 jitter)
+    fanout: int = 3                   # peers pushed to per round
+    ttl_s: float = 60.0               # swarm-index entry lifetime
+    bootstrap: list[str] = field(default_factory=list)  # ip:upload_port
+    max_digest_tasks: int = 256       # tasks advertised per digest
+    # full piece-set digests stay within the host's pod (pod_scope); a
+    # pod seed also exchanges the compact completeness summary with the
+    # other pods' seeds in federation_peers (ip:upload_port)
+    pod_scope: bool = True
+    pod_seed: bool = False
+    federation_peers: list[str] = field(default_factory=list)
 
 
 @dataclass
@@ -91,6 +119,9 @@ class DaemonConfig:
     upload: UploadConfig = field(default_factory=UploadConfig)
     storage: StorageSection = field(default_factory=StorageSection)
     flight: FlightConfig = field(default_factory=FlightConfig)
+    pex: PexConfig = field(default_factory=PexConfig)
+    # host stats to the scheduler, and the recovery re-announce's cadence
+    announce_interval_s: float = 30.0
     probe_enabled: bool = True             # RTT probing via SyncProbes
     # "cuda": every CUDA device of the host (an error when there is none);
     # "cpu": one CPU device, only when named

@@ -9,18 +9,26 @@ it goes back to source as a seed peer's tasks do. With manager addresses
 and no static scheduler, the daemon finds its schedulers through the
 manager and keeps tracking that set; a seed daemon also registers itself
 as a seed peer and keeps alive. Once a scheduler is known the RTT prober
-reports to it (``probe_enabled``). Storage is reloaded at construction
+reports to it (``probe_enabled``) and the announcer heartbeats it and
+replays held content when it restarts (``announcer.py``); the
+connector's scheduler demotions are persisted at stop and restored at
+start. The PEX gossip plane (``pex.py``, on unless ``pex.enabled`` is
+false) keeps one swarm index per daemon, gossips on the upload port, and
+gives the conductor the ``pex`` rung with a fresh engine per pull.
+Storage is reloaded at construction
 (warm restart), its reloaded pieces are re-verified on the storage pool
-before the servers start, and a ``storage`` GC task sweeps it. One flight
-recorder journals every task (``GET /debug/flight`` on the upload port),
-and one relay hub lets the upload server stream pieces that are still
-arriving (``download.relay_enabled``). Fleet TLS, the health plane, PEX,
-QoS, the announcer and the proxy wait for later slices.
+before the servers start (a warm restart's first gossip round then runs
+at once), and a ``storage`` GC task sweeps it. One flight recorder
+journals every task (``GET /debug/flight`` on the upload port), and one
+relay hub lets the upload server stream pieces that are still arriving
+(``download.relay_enabled``). Fleet TLS, the health plane, QoS and the
+proxy wait for later slices.
 """
 
 from __future__ import annotations
 
 import asyncio
+import json
 import logging
 import os
 import socket
@@ -43,16 +51,19 @@ from ..storage.manager import StorageConfig, StorageManager
 from ..tpu import topology
 from ..tpu.hbm_sink import DeviceIngest
 from ..tpu.mesh import cuda_devices
+from .announcer import Announcer
 from .config import DaemonConfig
 from .flight_recorder import FlightRecorder
 from .networktopology import NetworkTopologyProber
 from .peertask_manager import PeerTaskManager
+from .pex import PexGossiper
 from .piece_downloader import PieceDownloader
 from .piece_engine import PIECE_TIMEOUT_S, PieceEngine
 from .piece_manager import PieceManager
 from .relay import RelayHub
 from .rpcserver import DaemonService, build_service
 from .scheduler_session import SchedulerConnector
+from .swarm_index import SwarmIndex
 from .upload_server import UploadServer
 
 log = logging.getLogger("df.core.daemon")
@@ -103,6 +114,7 @@ class Daemon:
         self.reload_stats: dict = {}
         self.gc = GC()
         self.prober: NetworkTopologyProber | None = None
+        self.announcer: Announcer | None = None
         self.piece_mgr = PieceManager(cfg.download)
         self.flight_recorder = FlightRecorder(
             enabled=cfg.flight.enabled, max_tasks=cfg.flight.max_tasks,
@@ -111,10 +123,22 @@ class Daemon:
         # cut-through relay hub: in-flight landing spans, readable by the
         # upload server's streaming path; None = store-and-forward
         self.relay = RelayHub() if cfg.download.relay_enabled else None
+        # the gossip plane exists before the upload server so its routes
+        # mount at start; ports and topology resolve through host_info()
+        self.pex: PexGossiper | None = None
+        if cfg.pex.enabled:
+            px = cfg.pex
+            self.pex = PexGossiper(
+                storage_mgr=self.storage_mgr, host_info=self.host_info,
+                index=SwarmIndex(ttl_s=px.ttl_s), interval_s=px.interval_s,
+                fanout=px.fanout, max_digest_tasks=px.max_digest_tasks,
+                bootstrap=px.bootstrap, relay=self.relay,
+                pod_scope=px.pod_scope, pod_seed=px.pod_seed,
+                federation_peers=px.federation_peers)
         self.upload_server = UploadServer(
             self.storage_mgr, port=cfg.upload.port, host=cfg.listen_ip,
             flight_recorder=self.flight_recorder, relay=self.relay,
-            relay_stall_s=cfg.download.relay_stall_s)
+            relay_stall_s=cfg.download.relay_stall_s, pex=self.pex)
         self._prev_source_tls = None
         self.scheduler: SchedulerConnector | None = None
         self.manager: ManagerLink | None = None
@@ -178,7 +202,17 @@ class Daemon:
     def _engine(self) -> PieceEngine:
         return PieceEngine(
             downloader=self._downloader, channel_pool=self._peer_channels,
-            slice_name=self.topology.slice_name, relay=self.relay)
+            slice_name=self.topology.slice_name, relay=self.relay,
+            peer_observer=(self.pex.observe_parent
+                           if self.pex is not None else None),
+            schedule_timeout_s=self.cfg.scheduler.schedule_timeout_s)
+
+    def _connector(self, addresses: list[str]) -> SchedulerConnector:
+        sc = self.cfg.scheduler
+        return SchedulerConnector(
+            addresses, self.host_info(),
+            register_timeout_s=sc.register_timeout_s,
+            failover_n=sc.failover_n, demote_s=sc.demote_s)
 
     async def start(self) -> None:
         if self.storage_mgr.reloaded_tasks:
@@ -208,7 +242,12 @@ class Daemon:
             p2p_engine_factory=self._engine,
             device_sink_builder=self.device_sink_builder,
             is_seed=self.cfg.is_seed,
-            flight_recorder=self.flight_recorder, relay=self.relay)
+            flight_recorder=self.flight_recorder, relay=self.relay,
+            pex=self.pex)
+        if self.pex is not None:
+            # the pex rung builds a fresh engine per pull (the scheduler
+            # path may have used the conductor's)
+            self.pex.engine_factory = self._engine
         svc = DaemonService(
             self.ptm, upload_addr=f"{self.host_ip}:{self.upload_server.port}")
         # peer-facing TCP server: bind the listen address, advertise host_ip
@@ -218,12 +257,12 @@ class Daemon:
         await self.rpc.start()
         # the connector needs the resolved rpc/upload ports for register
         if self.cfg.scheduler.addresses:
-            self.scheduler = SchedulerConnector(
-                self.cfg.scheduler.addresses, self.host_info())
+            self.scheduler = self._connector(self.cfg.scheduler.addresses)
         elif self.cfg.manager_addresses:
             await self._attach_manager()
         self.ptm.scheduler = self.scheduler
-        await self._start_prober()
+        await asyncio.to_thread(self._restore_scheduler_demotions)
+        await self._wire_scheduler_extras()
         self.gc.add(GCTask("storage", self.cfg.storage.gc_interval_s,
                            lambda: run_io(self.storage_mgr.try_gc)))
         self.gc.start()
@@ -238,6 +277,11 @@ class Daemon:
             self.local_rpc.register(sdef)
         await self.local_rpc.start()
         self.unix_sock = sock
+        if self.pex is not None:
+            # a warm-restarted daemon gossips its reloaded holdings at
+            # once, not after the first jittered interval
+            await self.pex.start(
+                initial_round=bool(self.storage_mgr.reloaded_tasks))
         log.info("daemon up: host=%s ip=%s rpc=%s upload=%d sock=%s "
                  "seed=%s device=%s schedulers=%s workdir=%s",
                  self.hostname, self.host_ip, self.rpc.port,
@@ -270,7 +314,7 @@ class Daemon:
                                              port=self.rpc.port)
             addrs = await self._discover_schedulers()
             if addrs:
-                self.scheduler = SchedulerConnector(addrs, self.host_info())
+                self.scheduler = self._connector(addrs)
             else:
                 log.info("manager knows no active schedulers; back-source "
                          "only until the refresh loop finds one")
@@ -295,24 +339,76 @@ class Daemon:
             if not addrs:
                 continue
             if self.scheduler is None:
-                self.scheduler = SchedulerConnector(addrs, self.host_info())
+                self.scheduler = self._connector(addrs)
                 self.ptm.scheduler = self.scheduler
                 log.info("schedulers appeared: %s", addrs)
-                await self._start_prober()
+                await asyncio.to_thread(self._restore_scheduler_demotions)
+                await self._wire_scheduler_extras()
             elif set(addrs) != set(self.scheduler.addresses):
                 log.info("scheduler set changed: %s -> %s",
                          self.scheduler.addresses, addrs)
                 self.scheduler.update_addresses(addrs)
 
-    async def _start_prober(self) -> None:
-        if (self.prober is None and self.cfg.probe_enabled
-                and self.scheduler is not None):
+    async def _wire_scheduler_extras(self) -> None:
+        """The announcer and the RTT prober ride the scheduler connection,
+        and the PEX ticker probes its demoted members: wired at boot and
+        when the refresh loop adopts a scheduler found later."""
+        if self.scheduler is None:
+            return
+        if self.pex is not None:
+            self.pex.scheduler = self.scheduler
+        if self.announcer is None:
+            self.announcer = Announcer(self)
+            await self.announcer.start()
+        if self.prober is None and self.cfg.probe_enabled:
             self.prober = NetworkTopologyProber(self)
             await self.prober.start()
+
+    def _demotions_path(self) -> str:
+        return os.path.join(self.paths.data_dir, "scheduler_demotions.json")
+
+    def _restore_scheduler_demotions(self) -> None:
+        """Re-arm the connector's demotions from the previous process, so
+        a restarted daemon does not walk every known-dead scheduler
+        through the register timeout again."""
+        if self.scheduler is None:
+            return
+        try:
+            with open(self._demotions_path(), "rb") as f:
+                state = json.loads(f.read())
+        except FileNotFoundError:
+            return
+        except (OSError, ValueError) as exc:
+            log.debug("demotion state unreadable (%s); starting clean", exc)
+            return
+        self.scheduler.restore_demotions(state)
+
+    def _persist_scheduler_demotions(self) -> None:
+        """Write the demotions at stop (tmp, fsync, rename). Best effort:
+        shutdown must not fail on a full disk."""
+        if self.scheduler is None:
+            return
+        path = self._demotions_path()
+        tmp = path + ".tmp"
+        try:
+            payload = json.dumps(self.scheduler.export_demotions(),
+                                 sort_keys=True).encode()
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            with open(tmp, "wb") as f:
+                f.write(payload)
+                f.flush()
+                os.fsync(f.fileno())
+            os.replace(tmp, path)
+        except OSError as exc:
+            log.debug("demotion persist failed: %s", exc)
 
     async def stop(self) -> None:
         if self.prober is not None:
             await self.prober.stop()
+        if self.pex is not None:
+            await self.pex.stop()
+        if self.announcer is not None:
+            await self.announcer.stop()
         await self.gc.stop()
         if self._sched_refresh is not None:
             self._sched_refresh.cancel()
@@ -331,6 +427,7 @@ class Daemon:
         if self._peer_channels is not None:
             await self._peer_channels.close()
         if self.scheduler is not None:
+            await asyncio.to_thread(self._persist_scheduler_demotions)
             await self.scheduler.leave_host()
             await self.scheduler.close()
         # this loop's pooled origin connections

@@ -38,7 +38,8 @@ class PeerTaskManager:
                  hostname: str, host_ip: str, scheduler: Any = None,
                  p2p_engine_factory: Any = None,
                  device_sink_builder: Any = None, is_seed: bool = False,
-                 flight_recorder: Any = None, relay: Any = None):
+                 flight_recorder: Any = None, relay: Any = None,
+                 pex: Any = None):
         self.storage_mgr = storage_mgr
         self.piece_mgr = piece_mgr
         self.hostname = hostname
@@ -49,6 +50,7 @@ class PeerTaskManager:
         self.is_seed = is_seed
         self.flight_recorder = flight_recorder
         self.relay = relay            # RelayHub (None = cut-through off)
+        self.pex = pex                # PexGossiper (None = plane disabled)
         self._conductors: dict[str, PeerTaskConductor] = {}
         self._lock = asyncio.Lock()
 
@@ -63,8 +65,13 @@ class PeerTaskManager:
             task_type: TaskType = TaskType.STANDARD,
             disable_back_source: bool = False,
             device_sink_factory: Any = None,
-            shard_manifest: Any = None) -> PeerTaskConductor:
-        """Join the live conductor for this task, or start one."""
+            shard_manifest: Any = None,
+            register: bool = True) -> PeerTaskConductor:
+        """Join the live conductor for this task, or start one.
+        ``register=False`` starts it without the scheduler: a seed's
+        ``ObtainSeeds`` download is the scheduler's own trigger, and
+        registering it too would let the scheduler offer the seed its
+        own waiting leecher as a parent (each then waits on the other)."""
         task_id = self._task_id(url, meta)
         requested_shards = None
         if meta.shards:
@@ -85,12 +92,13 @@ class PeerTaskManager:
             conductor = PeerTaskConductor(
                 task_id=task_id, peer_id=peer_id,
                 url=url, url_meta=meta, storage_mgr=self.storage_mgr,
-                piece_mgr=self.piece_mgr, scheduler=self.scheduler,
+                piece_mgr=self.piece_mgr,
+                scheduler=self.scheduler if register else None,
                 disable_back_source=disable_back_source, task_type=task_type,
                 device_sink_factory=device_sink_factory,
                 shard_manifest=shard_manifest,
                 requested_shards=requested_shards,
-                flight=flight, relay=self.relay)
+                flight=flight, relay=self.relay, pex=self.pex)
             if self.p2p_engine_factory is not None:
                 conductor.set_p2p_engine(self.p2p_engine_factory())
             self._conductors[task_id] = conductor

@@ -19,6 +19,13 @@ relay path is reported with ``PieceResult.relayed``, on success as well
 as on failure (the reference marks failed transfers only). The verdict
 ledger is left out.
 
+Every parent a packet admits is handed to ``peer_observer`` (the PEX
+plane's membership hook). An ``advisory`` packet (the PEX plane's swarm
+holders, ``pex.prime``) adds parents without pruning the scheduler's
+assignment. A session with ``rescuable = False`` (the pex rung's, which
+has no scheduler behind it) returns to the ladder when no piece lands
+for ``schedule_timeout_s``.
+
 ``pull`` returns:
   * True  — every NEEDED piece landed (the conductor verifies and
     finalizes);
@@ -184,8 +191,13 @@ class _SpanHandle:
 class PieceEngine:
     def __init__(self, *, downloader: PieceDownloader | None = None,
                  channel_pool: ChannelPool | None = None,
-                 slice_name: str = "", relay=None):
+                 slice_name: str = "", relay=None, peer_observer=None,
+                 schedule_timeout_s: float = SCHEDULE_TIMEOUT_S):
         self.slice_name = slice_name    # advertised on piece sync requests
+        # PEX membership hook: every admitted parent is observed, so the
+        # gossip plane knows the mesh the scheduler built
+        self.peer_observer = peer_observer
+        self.schedule_timeout_s = schedule_timeout_s
         # cut-through relay hub: every span this engine downloads is
         # readable by the upload server's streaming path while it arrives
         self.relay = relay
@@ -285,15 +297,31 @@ class PieceEngine:
             # a parent must show up within the schedule timeout
             try:
                 await asyncio.wait_for(self._first_parent.wait(),
-                                       SCHEDULE_TIMEOUT_S)
+                                       self.schedule_timeout_s)
             except asyncio.TimeoutError:
                 log.info("no parents within %.1fs; back-source",
-                         SCHEDULE_TIMEOUT_S)
+                         self.schedule_timeout_s)
                 return False
+            # a session with no scheduler behind it (the pex rung's) must
+            # give up on a stall: no packet or re-assignment will come
+            rescuable = getattr(session, "rescuable", True)
+            last_ready = len(conductor.ready)
+            last_progress = time.monotonic()
             while True:
                 if self._need_back_source:
                     return False
                 remaining = conductor.pieces_remaining()
+                if not rescuable:
+                    if len(conductor.ready) != last_ready:
+                        last_ready = len(conductor.ready)
+                        last_progress = time.monotonic()
+                    elif (time.monotonic() - last_progress
+                            > self.schedule_timeout_s):
+                        log.info("scheduler-less pull stalled %.1fs at "
+                                 "%d/%d pieces; returning to the ladder",
+                                 self.schedule_timeout_s, last_ready,
+                                 conductor.total_pieces)
+                        return False
                 if remaining == 0:
                     # done = every NEEDED piece landed. The commit flag is
                     # set in the same synchronous block as the coverage
@@ -311,7 +339,7 @@ class PieceEngine:
                         conductor.flight.rung(fr.RUNG_RESCHEDULE)
                     try:
                         await asyncio.wait_for(self._wait_parent_change(),
-                                               SCHEDULE_TIMEOUT_S)
+                                               self.schedule_timeout_s)
                     except asyncio.TimeoutError:
                         log.info("parents exhausted; back-source for the "
                                  "rest")
@@ -381,22 +409,26 @@ class PieceEngine:
                     parent.peer_id, f"{parent.ip}:{parent.download_port}",
                     resurrect=True, is_seed=parent.is_seed, link=parent.link)
                 self._current_parents[parent.peer_id] = parent
+                if self.peer_observer is not None:
+                    self.peer_observer(parent)
                 sync = self._synchronizers.get(parent.peer_id)
                 if sync is None or (sync.task is not None
                                     and sync.task.done()):
                     sync = _Synchronizer(self, conductor, parent)
                     self._synchronizers[parent.peer_id] = sync
                     sync.start()
-            if parents:
+            if parents and not packet.advisory:
                 # the packet is the scheduler's current assignment: parents
                 # it dropped release their upload slot server-side, so stop
-                # pulling from them
+                # pulling from them. An advisory packet (swarm holders from
+                # the PEX plane) only adds parents
                 assigned = {p.peer_id for p in parents}
                 for peer_id in list(self._synchronizers):
                     if peer_id not in assigned:
                         self._synchronizers.pop(peer_id).stop()
                         self._current_parents.pop(peer_id, None)
                         await self.dispatcher.remove_parent(peer_id)
+            if parents:
                 self._first_parent.set()
 
     async def _worker(self, conductor, session) -> None:

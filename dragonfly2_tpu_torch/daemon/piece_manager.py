@@ -6,7 +6,9 @@ origin stream into pieces, either as one stream or as a work queue of
 contiguous piece groups read in parallel, and hands each piece to the
 conductor to land. Pieces the task's storage already holds are adopted
 first, and the origin is asked only for the holes of the NEEDED set (the
-pieces covering a requested shard subset, or every piece). Each piece
+pieces covering a requested shard subset, or every piece). An origin that
+reports no length is streamed to its end as one stream, cut at the
+default piece size, and the total learned at the end. Each piece
 being cut is an in-flight relay span (``relay.py``) while it fills, so the
 seed is the first hop of a cut-through chain; such spans carry no digest,
 as in the reference (a child landing one computes its own, the trust it
@@ -144,9 +146,6 @@ class PieceManager:
         probe = SourceRequest(url=conductor.url, header=header)
         total = await client.content_length(probe)
         ranged = await client.supports_range(probe)
-        if total < 0:
-            raise DFError(Code.SOURCE_ERROR,
-                          "origin did not report a content length")
 
         # resolve a requested sub-range against the real total: the
         # conductor then stores ONLY the range, at range-relative offsets
@@ -154,15 +153,19 @@ class PieceManager:
             if not ranged:
                 raise DFError(Code.SOURCE_RANGE_UNSUPPORTED,
                               "origin cannot serve the requested range")
+            limit = total if total >= 0 else (1 << 62)
             try:
                 conductor.content_range = parse_http_range(
-                    conductor.url_meta.range, total)
+                    conductor.url_meta.range, limit)
             except ValueError as exc:
                 raise DFError(Code.INVALID_ARGUMENT, str(exc)) from None
         req = SourceRequest(url=conductor.url, header=header,
                             range=conductor.content_range)
         effective = (conductor.content_range.length
                      if conductor.content_range is not None else total)
+        if effective < 0:
+            await self._download_unknown_length(conductor, req)
+            return
 
         piece_size = conductor.set_content_info(effective)
         n = piece_count(effective, piece_size)
@@ -201,6 +204,23 @@ class PieceManager:
                                                   piece_size, missing)
             else:
                 await self._download_stream(conductor, req, piece_size)
+
+    async def _download_unknown_length(self, conductor,
+                                       req: SourceRequest) -> None:
+        """An origin with no length: one stream to its end, cut at the
+        default piece size with a short last piece, and the total learned
+        at the end (reference ``_download_unknown_length``)."""
+        piece_size = conductor.set_content_info(-1)
+        resp = await _open_source(req)
+        cutter = _PieceCutter(conductor, start_num=0, start_rel=0,
+                              want=lambda _num, _rel: piece_size)
+        try:
+            async for chunk in resp.chunks:
+                await cutter.feed(chunk)
+            await cutter.flush_tail()
+        finally:
+            cutter.close()
+        conductor.on_source_complete(cutter.rel)
 
     async def _download_stream(self, conductor, req: SourceRequest,
                                piece_size: int) -> None:

@@ -30,10 +30,13 @@ from ..idl.messages import (DeleteTaskRequest, DownloadRequest, Empty,
                             PieceTaskRequest, StatTaskDaemonRequest, TaskStat,
                             UrlMeta)
 from ..rpc.server import ServiceDef
+from .config import SchedulerConfig
 from .peertask_manager import PeerTaskManager
-from .scheduler_session import REGISTER_TIMEOUT_S
 
 log = logging.getLogger("df.rpc.daemon")
+
+# a geometry-less task's piece sync waits at most a register's time
+REGISTER_TIMEOUT_S = SchedulerConfig.register_timeout_s
 
 DAEMON_SERVICE = "df.daemon.Daemon"
 SEEDER_SERVICE = "df.daemon.Seeder"
@@ -237,9 +240,13 @@ class DaemonService:
     async def obtain_seeds(self, request: ObtainSeedsRequest,
                            context) -> AsyncIterator:
         """Trigger a seed download and stream its piece announcements
-        (the scheduler's seed-peer client consumes them)."""
+        (the scheduler's seed-peer client consumes them). The download
+        does not register with the scheduler, which already tracks it
+        through this stream: registered, a seed that knows its scheduler
+        was offered its first leecher as a parent while that leecher
+        waited on it, in both packages."""
         conductor = await self.ptm.get_or_create_conductor(
-            request.url, request.url_meta or UrlMeta())
+            request.url, request.url_meta or UrlMeta(), register=False)
         q = conductor.subscribe()
         try:
             if conductor.storage is not None:      # pieces already landed

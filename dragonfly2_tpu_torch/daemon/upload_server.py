@@ -23,6 +23,14 @@ untracked task) it stays 416. Each served range is journaled on the
 task's flight (``TaskFlight.serve``), and ``GET /debug/flight`` and
 ``/debug/flight/<task_id>`` read the daemon's flight recorder
 (``flight_recorder.add_flight_routes``).
+
+With a PEX gossiper (``pex.py``), ``GET``/``POST /pex/digest``,
+``GET``/``POST /pex/summary`` and ``GET /debug/pex`` are routed too
+(``pex.add_pex_routes``). A request body is read whole before the
+handler runs, up to 1 MiB (aiohttp's default ``client_max_size``);
+a larger one is answered 413 and the connection closed. Routed requests
+take no slot of the piece gate, so a gossip exchange never waits behind
+piece serves.
 """
 
 from __future__ import annotations
@@ -67,9 +75,11 @@ _relay_wait_secs = REGISTRY.histogram(
 
 _REASONS = {200: "OK", 206: "Partial Content", 400: "Bad Request",
             404: "Not Found", 405: "Method Not Allowed",
+            413: "Request Entity Too Large",
             416: "Range Not Satisfiable", 431: "Request Header Fields Too "
             "Large", 503: "Service Unavailable"}
 _HEAD_LIMIT = 64 << 10
+_BODY_LIMIT = 1 << 20        # aiohttp's default client_max_size
 
 
 class _HTTPError(Exception):
@@ -118,19 +128,27 @@ def _head(status: int, headers: dict) -> bytes:
 
 
 class _Router:
-    """GET routes beyond the piece route: exact paths, or a path whose
-    last segment is a ``{name}`` parameter. A handler takes (params,
-    query) and returns (status, JSON body)."""
+    """Routes beyond the piece route: exact paths, or a path whose last
+    segment is a ``{name}`` parameter. A GET handler takes (params,
+    query), a POST handler (params, query, body); each returns (status,
+    body): a dict is sent as JSON, bytes as ``application/octet-stream``,
+    a str as plain text."""
 
     def __init__(self) -> None:
-        self._routes: list[tuple[list[str], object]] = []
+        self._routes: list[tuple[str, list[str], object]] = []
 
     def add_get(self, path: str, handler) -> None:
-        self._routes.append((path.split("/"), handler))
+        self._routes.append(("GET", path.split("/"), handler))
 
-    def match(self, path: str):
+    def add_post(self, path: str, handler) -> None:
+        self._routes.append(("POST", path.split("/"), handler))
+
+    def match(self, method: str, path: str):
+        """(handler, params) for the route; None when no route has the
+        path; raises 405 when routes have the path but not the method."""
         parts = path.split("/")
-        for pattern, handler in self._routes:
+        path_known = False
+        for route_method, pattern, handler in self._routes:
             if len(pattern) != len(parts):
                 continue
             params = {}
@@ -142,7 +160,11 @@ class _Router:
                 elif want != got:
                     break
             else:
-                return handler, params
+                if route_method == method:
+                    return handler, params
+                path_known = True
+        if path_known:
+            raise _HTTPError(405, "405: Method Not Allowed")
         return None
 
 
@@ -159,7 +181,7 @@ class UploadServer:
     def __init__(self, storage_mgr: StorageManager, *, port: int = 0,
                  rate_limit_bps: int = 0, concurrent_limit: int = 0,
                  host: str = "0.0.0.0", flight_recorder=None, relay=None,
-                 relay_stall_s: float = 10.0):
+                 relay_stall_s: float = 10.0, pex=None):
         self.storage_mgr = storage_mgr
         self.flight_recorder = flight_recorder
         self.relay = relay                  # RelayHub (None = store-and-forward)
@@ -175,6 +197,9 @@ class UploadServer:
         if flight_recorder is not None:
             from .flight_recorder import add_flight_routes
             add_flight_routes(self.router, flight_recorder)
+        if pex is not None:
+            from .pex import add_pex_routes
+            add_pex_routes(self.router, pex)
         self.host = host
         self.port = port
         self.limiter = TokenBucket(rate_limit_bps or 0)
@@ -234,10 +259,16 @@ class UploadServer:
                 method, target, headers = self._parse_request(raw)
                 keep = headers.get("connection", "").lower() != "close"
                 length = int(headers.get("content-length") or 0)
-                if length:
-                    await reader.readexactly(length)   # discard a body
+                if length > _BODY_LIMIT:
+                    await self._send_error(writer, _HTTPError(
+                        413, "request body too large"), keep=False)
+                    await self._linger(reader, writer)
+                    return
+                # read whole before the handler runs: an unread body would
+                # be parsed as the next request on this connection
+                body = await reader.readexactly(length) if length else b""
                 try:
-                    await self._route(method, target, headers, writer)
+                    await self._route(method, target, headers, writer, body)
                 except _HTTPError as exc:
                     await self._send_error(writer, exc, keep=keep)
                 if not keep:
@@ -248,6 +279,20 @@ class UploadServer:
         finally:
             self._conns.discard(task)
             writer.close()
+
+    @staticmethod
+    async def _linger(reader, writer, timeout_s: float = 1.0) -> None:
+        """Half-close, then drop what the client still sends for a while:
+        a close with its body unread resets the connection, which can
+        destroy the answer before the client reads it."""
+        async def drain() -> None:
+            while await reader.read(1 << 16):
+                pass
+        try:
+            writer.write_eof()
+            await asyncio.wait_for(drain(), timeout_s)
+        except (OSError, asyncio.TimeoutError):
+            pass
 
     @staticmethod
     def _parse_request(raw: bytes) -> tuple[str, str, dict]:
@@ -274,7 +319,7 @@ class UploadServer:
         await writer.drain()
 
     async def _route(self, method: str, target: str, headers: dict,
-                     writer) -> None:
+                     writer, body: bytes = b"") -> None:
         url = urlsplit(target)
         parts = url.path.split("/")
         if url.path == "/healthy":
@@ -291,15 +336,22 @@ class UploadServer:
                 raise _HTTPError(405, "405: Method Not Allowed")
             await self._serve(parts[3], headers, writer, query)
             return
-        found = self.router.match(url.path)
+        found = self.router.match(method, url.path)
         if found is not None:
-            if method != "GET":
-                raise _HTTPError(405, "405: Method Not Allowed")
             handler, params = found
-            status, body = await handler(params, query)
-            data = json.dumps(body).encode()
+            if method == "POST":
+                status, out = await handler(params, query, body)
+            else:
+                status, out = await handler(params, query)
+            if isinstance(out, bytes):
+                ctype, data = "application/octet-stream", out
+            elif isinstance(out, str):
+                ctype, data = "text/plain; charset=utf-8", out.encode()
+            else:
+                ctype = "application/json; charset=utf-8"
+                data = json.dumps(out).encode()
             writer.write(_head(status, {
-                "Content-Type": "application/json; charset=utf-8",
+                "Content-Type": ctype,
                 "Content-Length": str(len(data))}) + data)
             await writer.drain()
             return

@@ -355,6 +355,39 @@ class AnnounceHostResponse:
 
 
 @message
+class HeldContentEntry:
+    """One task's holdings in a daemon's recovery re-announce: the PEX
+    digest entry shape (``daemon/pex.py`` ``build_digest``)."""
+
+    task_id: str = ""
+    url: str = ""
+    total_piece_count: int = -1
+    content_length: int = -1
+    piece_size: int = 0
+    done: bool = False
+    pieces: list[int] | None = None     # partial holdings (done=False)
+
+
+@message
+class AnnounceContentRequest:
+    """Daemon -> scheduler after an epoch change or a register failover:
+    what this daemon holds. ``digest`` is the sealed PEX envelope
+    (``daemon/pex.py`` ``seal``) over the same entries; the scheduler
+    refuses a torn or version-skewed one whole."""
+
+    host: Host | None = None
+    entries: list[HeldContentEntry] | None = None
+    digest: bytes = b""
+    pulse: PulseDigest | None = None
+
+
+@message
+class AnnounceContentResponse:
+    scheduler_epoch: int = 0
+    tasks_adopted: int = 0
+
+
+@message
 class LeaveHostRequest:
     host_id: str = ""
 

@@ -67,7 +67,7 @@ class Scheduler:
             self.resource.on_task_evict = self.sharded.drop_task
         self.service = SchedulerService(self.resource, self.scheduling,
                                         self.seed_client, self.topo,
-                                        records=records)
+                                        records=records, ledger=self.ledger)
         self.announcer = SchedulerAnnouncer(self)
         self.manager: ManagerLink | None = None
         self.rpc: RPCServer | None = None

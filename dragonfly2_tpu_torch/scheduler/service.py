@@ -4,8 +4,14 @@ Counterpart of ``dragonfly2_tpu/scheduler/service.py`` (reference
 ``scheduler/service/service_v1.go``): RegisterPeerTask with size-scope
 dispatch (:1005-1110), the ReportPieceResult bidi stream driving
 reschedules (:187), piece success/failure handling (:1159, :1210),
-ReportPeerResult, AnnounceHost (:478), StatTask, LeaveHost, LeavePeer and
-the probers' SyncProbes stream (the RTTs the ``nt`` evaluator reads).
+ReportPeerResult, AnnounceHost (:478), StatTask, LeaveHost, LeavePeer,
+the probers' SyncProbes stream (the RTTs the ``nt`` evaluator reads) and
+AnnounceContent, the recovery re-announce: a daemon that saw the boot
+epoch change replays what it holds, sealed as a PEX digest; a torn or
+unsealed digest is refused whole, and an adopted one creates a
+``<host>-recov-<task>`` holder peer per task and a ``recovery`` row in
+the decision ledger. The reference's quarantine, federation and fleet
+pulse calls in that handler wait for the planes that own them.
 
 Back-source arbitration: a child with no viable parents is not sent to
 origin at once. While a seed trigger is in flight, or peers hold content
@@ -25,7 +31,7 @@ pushes each changed ruling on the member's report stream
 Download records (``records``: piece, failed-piece and peer rows, the
 trainer's dataset) are written where the reference writes them. Left out,
 for later slices: the cluster view, quarantine, federation, tenant
-quotas, QoS preemption, fleet pulse, content re-announce and preheat.
+quotas, QoS preemption, fleet pulse and preheat.
 
 A report stream that ends with the daemon's half-close is not marked
 ``stream_gone``: the daemon half-closes only on its way to the terminal
@@ -45,6 +51,7 @@ from ..common.errors import Code, DFError
 from ..common.metrics import REGISTRY
 from ..common.sharding import parse_shard_names
 from ..idl.messages import (CLASS_DEFAULT_PRIORITY, PRIORITY_CLASSES,
+                            AnnounceContentRequest, AnnounceContentResponse,
                             AnnounceHostRequest, AnnounceHostResponse,
                             Empty, LeaveHostRequest, LeavePeerRequest,
                             PeerPacket, PeerResult, PieceResult, Priority,
@@ -70,6 +77,11 @@ _schedules = REGISTRY.counter("df_sched_schedule_total",
                               "scheduling decisions", ("kind",))
 _piece_reports = REGISTRY.counter("df_sched_piece_report_total",
                                   "piece results received", ("result",))
+_recovery_announces = REGISTRY.counter(
+    "df_sched_recovery_announces_total",
+    "daemon content re-announces after a scheduler epoch change, by "
+    "outcome (adopted = holdings merged into the resource view, "
+    "rejected = torn/unsealed digest refused wholesale)", ("result",))
 
 SCHEDULE_RETRY_INTERVAL_S = 0.25
 SCHEDULE_PATIENCE_S = 10.0
@@ -83,13 +95,15 @@ class SchedulerService:
 
     def __init__(self, resource: Resource, scheduling: Scheduling,
                  seed_client: SeedPeerClient, topo: TopologyStore, *,
-                 records=None):
+                 records=None, ledger=None):
         self.resource = resource
         self.scheduling = scheduling
         self.seed_client = seed_client
         self.topo = topo
         # scheduler/records.DownloadRecords, or None (no dataset kept)
         self.records = records
+        self.ledger = ledger            # decision ledger (recovery rows)
+        self._recovery_seq = 0
         self._seed_tasks: set[asyncio.Task] = set()
         # boot epoch, echoed on register/announce so daemons can tell a
         # restarted scheduler
@@ -541,6 +555,71 @@ class SchedulerService:
             self.resource.store_host(req.host)
         return AnnounceHostResponse(scheduler_epoch=self.epoch)
 
+    async def announce_content(self, req: AnnounceContentRequest,
+                               context) -> AnnounceContentResponse:
+        """Recovery re-announce: rebuild this host's holdings in the
+        resource view from its sealed digest, so a restarted scheduler
+        offers the swarm instead of ruling the herd back to origin."""
+        from ..daemon.pex import unseal
+        body = unseal(req.digest) if req.digest else None
+        if req.host is None or body is None:
+            _recovery_announces.labels("rejected").inc()
+            return AnnounceContentResponse(scheduler_epoch=self.epoch)
+        host = self.resource.store_host(req.host)
+        adopted = 0
+        pieces_learned = 0
+        for e in body.get("tasks") or ():
+            task_id = e.get("task_id") or ""
+            if not task_id:
+                continue
+            task = self.resource.get_or_create_task(task_id,
+                                                    e.get("url") or "")
+            task.set_content_info(int(e.get("content_length", -1)),
+                                  int(e.get("piece_size", 0)),
+                                  int(e.get("total", -1)))
+            if task.state == TaskState.PENDING:
+                task.transit(TaskState.RUNNING)
+            # a synthetic holder peer per (host, task): offerable as a
+            # parent at once; the piece metadata itself travels over the
+            # piece-sync streams, as for any live parent
+            peer_id = f"{host.id}-recov-{task_id[:16]}"
+            peer = self.resource.get_or_create_peer(peer_id, task, host)
+            if peer.state == PeerState.PENDING:
+                peer.transit(PeerState.RUNNING)
+            if e.get("done"):
+                if peer.state == PeerState.RUNNING:
+                    peer.transit(PeerState.SUCCEEDED)
+                if task.state == TaskState.RUNNING:
+                    task.transit(TaskState.SUCCEEDED)
+            else:
+                fresh = set(int(p) for p in (e.get("pieces") or ()))
+                pieces_learned += len(fresh - peer.finished_pieces)
+                peer.finished_pieces |= fresh
+            adopted += 1
+        _recovery_announces.labels("adopted").inc()
+        if self.ledger is not None and adopted:
+            # provenance: this part of the view was rebuilt from the
+            # swarm, and the row makes that replayable
+            self._recovery_seq += 1
+            self.ledger.on_decision({
+                "kind": "decision",
+                "decision_kind": "recovery",
+                "decision_id": f"r{self._recovery_seq:08d}."
+                               f"{host.id[-12:]}",
+                "host_id": host.id,
+                "source": "reannounce",
+                "tasks_adopted": adopted,
+                "pieces_learned": pieces_learned,
+                "scheduler_epoch": self.epoch,
+                "task_id": "",
+                "peer_id": "",
+                "candidates": [],
+                "excluded": [],
+                "chosen": [],
+            })
+        return AnnounceContentResponse(scheduler_epoch=self.epoch,
+                                       tasks_adopted=adopted)
+
     async def leave_host(self, req: LeaveHostRequest, context) -> Empty:
         for child in self.resource.leave_host(req.host_id):
             await self._reschedule(child)
@@ -568,10 +647,6 @@ class SchedulerService:
                           context) -> AsyncIterator[SyncProbesResponse]:
         async for req in request_iter:
             src = req.host.id if req.host is not None else ""
-            if req.host is not None:
-                # the port's daemons have no announcer yet: a prober's
-                # host joins the target pool as an announced one would
-                self.resource.store_host(req.host)
             for probe in req.probes or []:
                 self.topo.record(src, probe.target_host_id, probe.rtt_us)
             for failed in req.failed_host_ids or []:
@@ -592,6 +667,7 @@ def build_service(svc: SchedulerService) -> ServiceDef:
     d.stream_stream("ReportPieceResult", svc.report_piece_result)
     d.unary_unary("ReportPeerResult", svc.report_peer_result)
     d.unary_unary("AnnounceHost", svc.announce_host)
+    d.unary_unary("AnnounceContent", svc.announce_content)
     d.unary_unary("LeaveHost", svc.leave_host)
     d.unary_unary("LeavePeer", svc.leave_peer)
     d.unary_unary("StatTask", svc.stat_task)

@@ -286,7 +286,8 @@ class HTTPSourceClient:
         return _Conn(reader, writer)
 
     async def _roundtrip(self, method: str, url: str, headers: dict,
-                         deadline: _Deadline, pooled: bool) -> _Response:
+                         deadline: _Deadline, pooled: bool,
+                         body: bytes = b"") -> _Response:
         parts = urlsplit(url)
         scheme = parts.scheme.lower()
         if scheme not in ("http", "https") or not parts.hostname:
@@ -303,7 +304,9 @@ class HTTPSourceClient:
         lines = [f"{method} {target} HTTP/1.1", f"Host: {host_hdr}",
                  "User-Agent: dragonfly2-tpu-torch", "Accept: */*"]
         lines += [f"{k}: {v}" for k, v in headers.items()]
-        raw = ("\r\n".join(lines) + "\r\n\r\n").encode("latin-1")
+        if body or method == "POST":
+            lines.append(f"Content-Length: {len(body)}")
+        raw = ("\r\n".join(lines) + "\r\n\r\n").encode("latin-1") + body
         pool = self._pool().setdefault(key, []) if pooled else None
         for attempt in range(2):
             conn = None
@@ -363,20 +366,21 @@ class HTTPSourceClient:
                          deadline)
 
     async def _request(self, method: str, url: str, headers: dict,
-                       timeout_s: float, *, pooled: bool = True
-                       ) -> _Response:
-        """One request, following redirects (a 303 turns into a GET)."""
+                       timeout_s: float, *, pooled: bool = True,
+                       body: bytes = b"") -> _Response:
+        """One request, following redirects (a 303 turns into a GET and
+        drops the body)."""
         deadline = _Deadline(timeout_s)
         for _hop in range(_MAX_REDIRECTS + 1):
             resp = await self._roundtrip(method, url, headers, deadline,
-                                         pooled)
+                                         pooled, body)
             location = resp.headers.get("Location")
             if resp.status not in _REDIRECTS or not location:
                 return resp
             await resp.discard()
             url = urljoin(url, location)
             if resp.status == 303 and method != "HEAD":
-                method = "GET"
+                method, body = "GET", b""
         raise DFError(Code.SOURCE_ERROR, f"too many redirects: {url}")
 
     async def _head(self, req: SourceRequest) -> tuple[int, Headers]:

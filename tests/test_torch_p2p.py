@@ -61,9 +61,6 @@ from dragonfly2_tpu_torch.daemon.piece_downloader import PieceDownloader
 from dragonfly2_tpu_torch.daemon.piece_engine import (PIECE_PARALLELISM,
                                                       PIECE_TIMEOUT_S,
                                                       SCHEDULE_TIMEOUT_S)
-from dragonfly2_tpu_torch.daemon.scheduler_session import (DEMOTE_S,
-                                                           FAILOVER_N,
-                                                           REGISTER_TIMEOUT_S)
 from dragonfly2_tpu_torch.daemon.upload_server import UploadServer
 from dragonfly2_tpu_torch.rpc import Channel, ServiceClient
 from dragonfly2_tpu_torch.rpc.balancer import HashRing
@@ -503,7 +500,7 @@ def test_register_fails_over_past_a_dead_scheduler(tmp_path):
             dead_socks.append(sock)
             dead = f"127.0.0.1:{sock.getsockname()[1]}"
             if HashRing([dead, sched.address]).pick_n(
-                    task_id, FAILOVER_N)[0] == dead:
+                    task_id, DaemonSched().failover_n)[0] == dead:
                 break
         d = Daemon(DaemonConfig(
             workdir=str(tmp_path / "fo"), hostname="fo",
@@ -526,15 +523,143 @@ def test_register_fails_over_past_a_dead_scheduler(tmp_path):
             sock.close()
 
 
+def test_register_failover_journals_the_rung_and_marks_a_replay(tmp_path):
+    """The hashed scheduler's register is faulted dead (``sched.register``)
+    and the next ring member answers: in both packages the flight's rungs
+    are ``ring_failover`` then ``p2p``, the task is served P2P without
+    origin bytes, the connector holds the answering scheduler's epoch,
+    the dead member is demoted and a content replay is marked
+    (``reconcile_event``; the announcer, which would drain it, is
+    stopped first)."""
+    from dragonfly2_tpu.common import faultgate as ref_faultgate
+    from dragonfly2_tpu_torch.common import faultgate
+
+    url, data, _ = _origin(tmp_path)
+    task_id = ids.task_id(url)
+
+    async def pod(pkg: str) -> dict:
+        if pkg == "port":
+            gate, make_daemon, make_sched = faultgate, Daemon, Scheduler
+            cfg = lambda name, **kw: DaemonConfig(  # noqa: E731
+                workdir=str(tmp_path / f"{pkg}-{name}"), hostname=name,
+                listen_ip="127.0.0.1", host_ip="127.0.0.1", device="cpu",
+                **kw)
+            sched_cfg = lambda seeds: SchedulerConfig(  # noqa: E731
+                listen_ip="127.0.0.1", seed_peers=seeds)
+            seed_addr, sched_c, msg = SeedPeerAddr, DaemonSched, port_msg
+        else:
+            gate, make_daemon, make_sched = (ref_faultgate, RefDaemon,
+                                             RefScheduler)
+            cfg = lambda name, **kw: ref_dconfig.DaemonConfig(  # noqa: E731
+                workdir=str(tmp_path / f"{pkg}-{name}"), hostname=name,
+                host_ip="127.0.0.1",
+                storage=ref_dconfig.StorageSection(gc_interval_s=3600), **kw)
+            sched_cfg = lambda seeds: RefSchedulerConfig(  # noqa: E731
+                seed_peers=seeds)
+            seed_addr, sched_c, msg = (RefSeedPeerAddr,
+                                       ref_dconfig.SchedulerConfig, ref_msg)
+        seed = make_daemon(cfg("seed", is_seed=True))
+        await seed.start()
+        seeds = [seed_addr(host_id=seed.host_info().id, ip="127.0.0.1",
+                           rpc_port=seed.rpc.port,
+                           download_port=seed.upload_server.port)]
+        scheds = [make_sched(sched_cfg(seeds)) for _ in range(2)]
+        for sc in scheds:
+            await sc.start()
+        leech = make_daemon(cfg("leech", scheduler=sched_c(
+            addresses=[sc.address for sc in scheds],
+            schedule_timeout_s=20.0, demote_s=60.0)))
+        await leech.start()
+        await leech.announcer.stop()
+        dead = leech.scheduler._candidates(task_id)[0]
+        live = next(sc for sc in scheds if sc.address != dead)
+        script = gate.arm("sched.register", "fail", key=dead, n=-1)
+        try:
+            async for _ in leech.ptm.start_file_task(msg.DownloadRequest(
+                    url=url, output=str(tmp_path / f"{pkg}-out"),
+                    disable_back_source=True, timeout_s=E2E_LIMIT_S)):
+                pass
+            c = leech.ptm.conductor(task_id)
+            return {"rungs": c.flight.summarize()["rungs"],
+                    "served": c.flight.summarize()["served_rung"],
+                    "p2p": c.traffic_p2p, "source": c.traffic_source,
+                    "fired": script.fired,
+                    "epoch": leech.scheduler._epoch == live.service.epoch,
+                    "replay": leech.scheduler.reconcile_event.is_set(),
+                    "demoted": sorted(leech.scheduler.demoted()) == [dead],
+                    "bytes": (tmp_path / f"{pkg}-out").read_bytes() == data}
+        finally:
+            gate.reset()
+            await leech.stop()
+            for sc in scheds:
+                await sc.stop()
+            await seed.stop()
+
+    got = asyncio.run(asyncio.wait_for(pod("port"), E2E_LIMIT_S))
+    want = asyncio.run(asyncio.wait_for(pod("ref"), E2E_LIMIT_S))
+    assert got == want
+    assert got == {"rungs": ["ring_failover", "p2p"], "served": "p2p",
+                   "p2p": len(data), "source": 0, "fired": 1, "epoch": True,
+                   "replay": True, "demoted": True, "bytes": True}
+
+
+def test_a_seed_that_knows_its_scheduler_serves_its_first_leecher(
+        tmp_path):
+    """The seed's ``ObtainSeeds`` download does not register with the
+    scheduler: registered, it was offered its first leecher (running,
+    pieceless) as a parent while that leecher waited on it, and the pull
+    failed after the scheduler's patience in both packages. The seed now
+    back-sources at once, and the leecher is served P2P."""
+    url, data, _ = _origin(tmp_path)
+    task_id = ids.task_id(url)
+
+    async def main():
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        addr = f"127.0.0.1:{port}"
+
+        def cfg(name, **kw):
+            return DaemonConfig(
+                workdir=str(tmp_path / name), hostname=name,
+                listen_ip="127.0.0.1", host_ip="127.0.0.1", device="cpu",
+                scheduler=DaemonSched(addresses=[addr]), **kw)
+        seed = Daemon(cfg("seed", is_seed=True))
+        await seed.start()
+        sched = Scheduler(SchedulerConfig(
+            listen_ip="127.0.0.1", port=port, seed_peers=[SeedPeerAddr(
+                host_id=seed.host_info().id, ip="127.0.0.1",
+                rpc_port=seed.rpc.port,
+                download_port=seed.upload_server.port)]))
+        await sched.start()
+        leech = Daemon(cfg("leech"))
+        await leech.start()
+        try:
+            await _pull(leech, port_msg, url, [], sink=False)
+            c = leech.ptm.conductor(task_id)
+            assert (c.traffic_p2p, c.traffic_source) == (len(data), 0)
+            seeded = seed.ptm.conductor(task_id)
+            assert seeded.flight.summarize()["rungs"] == ["back_source"]
+        finally:
+            await leech.stop()
+            await sched.stop()
+            await seed.stop()
+
+    asyncio.run(asyncio.wait_for(main(), SERVER_LIMIT_S))
+
+
 def test_daemon_limits_are_the_reference_defaults():
-    """The daemon's P2P limits are constants; each equals the reference
-    config's default for the same knob."""
+    """The daemon's P2P limits, constants or config fields, each equal
+    the reference config's default for the same knob."""
     ref = ref_dconfig.DaemonConfig()
+    sched = DaemonConfig().scheduler
     assert (PIECE_PARALLELISM, SCHEDULE_TIMEOUT_S, PIECE_TIMEOUT_S,
-            REGISTER_TIMEOUT_S, FAILOVER_N, DEMOTE_S) == \
+            sched.schedule_timeout_s, sched.register_timeout_s,
+            sched.failover_n, sched.demote_s) == \
         (ref.download.piece_parallelism, ref.scheduler.schedule_timeout_s,
-         ref.download.piece_timeout_s, ref.scheduler.register_timeout_s,
-         ref.scheduler.failover_n, ref.scheduler.demote_s)
+         ref.download.piece_timeout_s, ref.scheduler.schedule_timeout_s,
+         ref.scheduler.register_timeout_s, ref.scheduler.failover_n,
+         ref.scheduler.demote_s)
 
 
 def test_advertised_address_is_the_configured_host_ip(tmp_path):

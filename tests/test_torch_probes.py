@@ -310,13 +310,9 @@ def test_sync_probes_handler_matches_reference(frozen_clock):
     got = asyncio.run(drive(port_svc, port_msg, port_hosts))
     assert [port_base.dumps(r) for r in got] == \
         [ref_base.dumps(r) for r in want]
-    # the port's handler also stores the probing host (the port has no
-    # announcer yet), which reads the clock: compare rows without it
-    def strip(rows):
-        return [{k: v for k, v in r.items() if k != "updated_at"}
-                for r in rows]
-    assert strip(port_store.snapshot_rows()) == \
-        strip(ref_store.snapshot_rows())
+    # targets come from the announced and registered hosts only, as in
+    # the reference: the rows, clock stamps included, are the reference's
+    assert port_store.snapshot_rows() == ref_store.snapshot_rows()
     assert [r["dst"] for r in port_store.snapshot_rows()] == \
         ["host-1", "host-3"]
 

@@ -260,3 +260,76 @@ def test_daemon_http_pull_matches_reference(tmp_path, ref_native_lib):
     assert got == want
     assert got["content_length"] == len(data) and got["pieces"] == 3
     assert all(d.startswith("crc32c:") for d in got["digests"].values())
+
+
+def test_daemon_pulls_an_origin_with_no_length_as_the_reference(
+        tmp_path, ref_native_lib):
+    """A chunked origin with no ``Content-Length``: both daemons stream it
+    to its end, cut 4 MiB pieces with a short last one, and learn the
+    total at the end; the same bytes, piece count and piece metadata
+    (crc32c digests, offsets, sizes). A manifest device sink needs the
+    length up front, so neither daemon builds one: the pull lands on disk
+    only, and the flight names the back-source rung."""
+    data = _data(9 * (1 << 20) + 777, seed=8)
+    manifest = [dict(name="head", range_start=0, range_size=1 << 20,
+                     dtype="uint8"),
+                dict(name="tail", range_start=8 << 20, range_size=1 << 20,
+                     dtype="uint8")]
+
+    def pieces(storage_mgr, task_id: str) -> list:
+        md = storage_mgr.get(task_id).md
+        return [(p.num, p.start, p.size, p.digest)
+                for p in sorted(md.pieces.values(), key=lambda p: p.num)]
+
+    async def pull(daemon, msg, url: str) -> dict:
+        task_id = None
+        async for resp in daemon.ptm.start_file_task(msg.DownloadRequest(
+                url=url, output=str(tmp_path / f"out-{id(daemon)}"),
+                timeout_s=LIMIT_S,
+                device_sink=msg.DeviceSink(enabled=True),
+                shard_manifest=msg.ShardManifest(
+                    shards=[msg.ShardInfo(**s) for s in manifest]))):
+            task_id = resp.task_id or task_id
+        c = daemon.ptm.conductor(task_id)
+        assert c.device_ingest is None
+        assert c.traffic_source == len(data)
+        out = (tmp_path / f"out-{id(daemon)}").read_bytes()
+        return {**_holding(daemon.storage_mgr, task_id),
+                "pieces_meta": pieces(daemon.storage_mgr, task_id),
+                "total_pieces": c.total_pieces, "out": out,
+                "rungs": c.flight.summarize()["rungs"]}
+
+    async def port(url: str) -> dict:
+        d = Daemon(DaemonConfig(workdir=str(tmp_path / "port"),
+                                hostname="port", listen_ip="127.0.0.1",
+                                host_ip="127.0.0.1", device="cpu"))
+        await d.start()
+        try:
+            return await pull(d, port_msg, url)
+        finally:
+            await d.stop()
+
+    async def ref(url: str) -> dict:
+        d = RefDaemon(ref_dconfig.DaemonConfig(
+            workdir=str(tmp_path / "ref"), host_ip="127.0.0.1",
+            hostname="ref",
+            storage=ref_dconfig.StorageSection(gc_interval_s=3600)))
+        await d.start()
+        try:
+            return await pull(d, ref_msg, url)
+        finally:
+            await d.stop()
+
+    # HEAD refused and ranges unsupported: the probe's GET is chunked too
+    with Origin({"w.bin": data}, no_length=True, no_head=True,
+                support_range=False) as o:
+        url = f"{o.base}/w.bin"
+        got = run(port(url))
+        want = run(ref(url))
+    assert got == want
+    assert got["out"] == data
+    assert got["content_length"] == len(data)
+    assert got["pieces"] == got["total_pieces"] == 3
+    assert [p[2] for p in got["pieces_meta"]] == [4 << 20, 4 << 20, 777 + (1 << 20)]
+    assert got["rungs"] == ["back_source"]
+    assert all(p[3].startswith("crc32c:") for p in got["pieces_meta"])
