@@ -126,6 +126,21 @@ parent hits of this process's leechers.
               the origin's, no leecher may read the origin, and the
               origin must send each byte once, to the seed
 
+13. dfbench — the port's ``dfbench`` points at the reference's full sizes,
+              the host-only points in spawned workers beside the card's
+              work: ``--pr19`` with its two seeded MLP fits on the card
+              (the port's datagen rows must equal
+              ``tests/data/pr19_datagen_rows.jsonl``, the fits give one blob,
+              the learned legs repeat their digests, and MLPs fitted on the
+              card on those rows, seeds 0-15, must beat the heuristic's
+              regret of 0.1379 on average); ``--pr9`` at pods of 64, 128
+              and 256; ``--pr14`` at 4x4, 8x8 and 16x16, with the port's
+              filter and with the reference's; ``--pr10``, ``--pr8``,
+              ``--pr5``, ``--pr4`` and the baseline. Every digest and gate
+              must equal the committed ``BENCH_*.json``; the port's
+              swap-partner exemption may move only pr14's 4x4 and 8x8
+              sharded schedules (ROADMAP known difference 13)
+
 Before phase 3 the native storage library (``dfnative.cc``, built with
 g++ at first use) must load: the pulls land crc32c piece digests, and the
 host line reports its crc32c rate beside zlib's crc32.
@@ -147,6 +162,7 @@ os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 import argparse
 import asyncio
+import concurrent.futures
 import dataclasses
 import datetime
 import hashlib
@@ -191,6 +207,7 @@ from dragonfly2_tpu_torch.scheduler.resource import PeerState
 from dragonfly2_tpu_torch.scheduler.server import Scheduler
 from dragonfly2_tpu_torch.source.file_client import FileSourceClient
 from dragonfly2_tpu_torch.storage import native
+from dragonfly2_tpu_torch.tools import dfbench
 from dragonfly2_tpu_torch.tpu.data import ShardPrefetcher
 from dragonfly2_tpu_torch.tpu.hbm_sink import DeviceIngest
 from dragonfly2_tpu_torch.trainer import (features, models, params_io,
@@ -2939,8 +2956,174 @@ def phase_crash(workdir: str, device: torch.device) -> None:
         "phase_s": time.monotonic() - t_phase, "card": smi})
 
 
+# --------------------------------------------------------------- phase 13
+
+# the dfbench points run on the host in worker processes while the card
+# fits --pr19's MLPs; pr14's second run rules with the reference's filter
+DFBENCH_POINTS = ("pr9", "pr14", "pr14_reference_filter", "pr4", "pr10",
+                  "pr8", "pr5", "baseline")
+DFBENCH_WORKERS = 4
+
+
+def dfbench_args(device: str = "cpu") -> argparse.Namespace:
+    """``dfbench``'s default shape: seed 7, 8 daemons, 64 pieces of 4 MiB."""
+    return argparse.Namespace(seed=7, daemons=8, pieces=64,
+                              piece_size=4 << 20, parallelism=4, smoke=False,
+                              device=device)
+
+
+def bench_file(name: str) -> dict:
+    with open(os.path.join(ROOT, f"BENCH_{name}.json")) as f:
+        return json.load(f)
+
+
+def dfbench_point(name: str) -> tuple[dict, float]:
+    """One host-only dfbench point at its full size, in a worker process:
+    (result, wall seconds)."""
+    args = dfbench_args()
+    t0 = time.monotonic()
+    if name == "baseline":
+        result = dfbench.run_bench(**dfbench._bench_kw(args))
+    elif name == "pr14_reference_filter":
+        result = dfbench._run_pr14(args, partner_exemption=False)
+    else:
+        result = dfbench.POINTS[name](args)
+    return result, time.monotonic() - t0
+
+
+def _jsonable(obj):
+    return json.loads(json.dumps(obj))
+
+
+def check_dfbench_point(name: str, got: dict) -> dict:
+    """Hold one point against its committed BENCH file; returns what the
+    phase line prints for it."""
+    got = _jsonable(got)
+    if name == "baseline":
+        want = bench_file("pr3")
+        check(got["schedule_digest"] == want["schedule_digest"],
+              f"baseline schedule_digest {got['schedule_digest']} != "
+              f"BENCH_pr3's")
+        check({k: got[k] for k in want} == want,
+              "the baseline differs from BENCH_pr3.json")
+        return {"schedule_digest": got["schedule_digest"]}
+    if name == "pr14":
+        want = bench_file("pr14")
+        flags = ("sharded_beats_naive_2x", "tree_bounded",
+                 "sharded_tracks_shard_bytes", "naive_tracks_content_bytes")
+        check(all(got[k] is True for k in flags),
+              f"pr14 gates: {({k: got[k] for k in flags})}")
+        # the port's swap-partner exemption (ROADMAP known difference 13)
+        # moves the sharded schedules at 4x4 and 8x8 only
+        moved = sorted(
+            f"{sc}/{size}" for sc in dfbench.ROLLOUT_SCENARIOS
+            for size in got["sizes"]
+            if got["scenarios"][sc][size]["schedule_digest"]
+            != want["scenarios"][sc][size]["schedule_digest"])
+        check(moved == ["roll_sharded/4x4", "roll_sharded/8x8"]
+              and got["kill"] == want["kill"],
+              f"pr14 schedules moved beyond the partner ruling: {moved}")
+        return {"rollout_digest": got["rollout_digest"],
+                "moved_by_swap_partner_exemption": moved,
+                "speedup": got["speedup"],
+                **{k: got[k] for k in flags}}
+    want = bench_file("pr14" if name == "pr14_reference_filter" else name)
+    check(got == want, f"{name} differs from BENCH_"
+                       f"{name.split('_')[0]}.json")
+    if name == "pr9":
+        check(got["relay_beats_pull"] and got["sublinear"],
+              "pr9 gates failed")
+        return {k: got[k] for k in ("cold_makespan_ms", "tree_depth",
+                                    "relay_beats_pull", "sublinear")}
+    keys = {"pr14_reference_filter": ("rollout_digest",),
+            "pr4": ("p2p_served_ratio",),
+            "pr10": ("churn_digest", "alias_pull_zero_transfer",
+                     "warm_restart_zero_origin", "disk_bounded"),
+            "pr8": ("decision_digest", "ledger_pure"),
+            "pr5": ("schedule_digest", "landing")}[name]
+    return {k: got[k] for k in keys}
+
+
+def phase_dfbench(device: torch.device) -> None:
+    """Phase 13: the port's dfbench points at the reference's full sizes.
+    The host-only points run in spawned workers while this process runs
+    --pr19, whose MLP fits are the phase's device work."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    t_phase = time.monotonic()
+    ctx = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(
+            DFBENCH_WORKERS, mp_context=ctx) as pool:
+        futures = {name: pool.submit(dfbench_point, name)
+                   for name in DFBENCH_POINTS}
+        # --pr19 on the card: datagen, two seeded fits, the replay, two
+        # learned legs
+        t0 = time.monotonic()
+        pr19 = dfbench._run_pr19(dfbench_args(str(device)))
+        pr19_s = time.monotonic() - t0
+        want = bench_file("pr19")
+        for k in ("schedule_digest", "learned_schedule_digest",
+                  "learned_decision_digest"):
+            check(pr19[k] == want[k], f"pr19 {k} {pr19[k]} != BENCH_pr19's")
+        flags = ("ml_disarmed_pure", "outcomes_pure", "trained_deterministic",
+                 "learned_deterministic")
+        check(all(pr19[k] is True for k in flags),
+              f"pr19 gates: {({k: pr19[k] for k in flags})}")
+        check(all(pr19["model"][k] == want["model"][k]
+                  for k in ("rows", "supervision", "feature_dim",
+                            "schema_version")),
+              f"pr19 model {pr19['model']} != BENCH_pr19's")
+        check(pr19["fit"]["device"] == str(device),
+              f"pr19 fitted on {pr19['fit']['device']}")
+        emit("phase 13 dfbench, pr19", {
+            "wall_s": pr19_s, "fit_device": pr19["fit"]["device"],
+            "fit_s": pr19["fit"]["seconds"],
+            "model_version": pr19["model"]["version"],
+            "regret": pr19["regret"], "card": smi,
+            **{k: pr19[k] for k in flags}})
+        # the port's own datagen rows are the fixture, and the learned
+        # recipe beats the heuristic on them on average (one fit's regret
+        # is noise: ROADMAP known difference 5)
+        rows = _jsonable(dfbench.datagen_rows(dfbench_args()))
+        with open(FIXTURE) as f:
+            fixture = [json.loads(line) for line in f]
+        check(rows == fixture, "the port's datagen rows differ from "
+                               "tests/data/pr19_datagen_rows.jsonl")
+        t0 = time.monotonic()
+        learned, fit_s = {}, []
+        for s in REGRET_SEEDS:
+            fitted = pipeline.train_decision_model(rows, seed=s,
+                                                   device=device)
+            check(fitted is not None, f"seed {s}: no model from the rows")
+            fit_s.append(fitted[1]["train_seconds"])
+            regret = replay_regret(rows, ("default", "ml"),
+                                   serving.make_mlp_infer(fitted[0]))
+            ev = regret["evaluators"]
+            check(round(ev["default"]["mean_regret"], 4) == HEURISTIC_REGRET,
+                  f"heuristic regret {ev['default']['mean_regret']}")
+            learned[s] = ev["ml"]["mean_regret"]
+        mean = sum(learned.values()) / len(learned)
+        check(mean < HEURISTIC_REGRET,
+              f"mean learned regret {mean} over seeds {list(learned)} does "
+              f"not beat the heuristic's {HEURISTIC_REGRET}")
+        emit("phase 13 dfbench, learned vs heuristic", {
+            "datagen_rows": len(rows), "rows_equal_fixture": True,
+            "learned_regret_by_seed": learned, "learned_regret_mean": mean,
+            "seeds_beating_heuristic": sum(v < HEURISTIC_REGRET
+                                           for v in learned.values()),
+            "fits_s": time.monotonic() - t0, "fit_s_each": fit_s})
+        for name in DFBENCH_POINTS:
+            result, wall_s = futures[name].result()
+            emit(f"phase 13 dfbench, {name}", {
+                "wall_s": wall_s, **check_dfbench_point(name, result)})
+    emit("phase 13 dfbench", {"phase_s": time.monotonic() - t_phase,
+                              "card": smi})
+
+
 def run_phases(layers: int, seed: int, device: torch.device) -> None:
-    """Phases 2-12 on ``device``; raises CheckFailed on a failed check."""
+    """Phases 2-13 on ``device``; raises CheckFailed on a failed check."""
     layout = llama_layout(layers)
     header, nbytes = safetensors_header(layout)
     workdir = tempfile.mkdtemp(prefix="chip-smoke-")
@@ -2999,6 +3182,7 @@ def run_phases(layers: int, seed: int, device: torch.device) -> None:
         phase_nt(workdir, seed, device)
         phase_chain(workdir, device)
         phase_crash(workdir, device)
+        phase_dfbench(device)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 

@@ -218,12 +218,15 @@ class TaskStorage:
             self._cover_cache = None
 
     def mark_done(self, *, success: bool, content_length: int | None = None,
-                  total_piece_count: int | None = None) -> None:
+                  total_piece_count: int | None = None,
+                  digest: str = "") -> None:
         with self._lock:
             if content_length is not None:
                 self.md.content_length = content_length
             if total_piece_count is not None:
                 self.md.total_piece_count = total_piece_count
+            if digest:
+                self.md.digest = digest
             self.md.done = True
             self.md.success = success
         self._save()

@@ -1,0 +1,1650 @@
+"""dfbench: the deterministic fakepod simulator and its proofs.
+
+Counterpart of ``dragonfly2_tpu/tools/dfbench.py``. A fan-out over a
+simulated pod (2 slices x N/2 hosts plus a dedicated seed host) runs the
+port's real scheduler stack under a virtual clock seeded by ``--seed``:
+``Resource``/``Peer``, ``Scheduling.find_parents`` with the evaluator's
+scoring and the upload-slot accounting of ``Task.set_parents``, the flight
+recorder's ``TaskFlight.summarize`` stage math, the decision ledger, the
+``MLEvaluator``, ``ShardAffinity`` and ``ShardTracker``, and the storage
+stack's reload and span landing. The pieces each daemon took from each
+parent hash into ``schedule_digest``; the same seed gives the same bytes
+in both packages, so a digest that moves is a scheduling change.
+
+    python -m dragonfly2_tpu_torch.tools.dfbench --seed 7     # baseline
+    python -m dragonfly2_tpu_torch.tools.dfbench --pr19 --device cpu --smoke
+
+Points: the baseline (``--scenario``), ``--pr4`` (schedulers down, with
+and without PEX), ``--pr5`` (data-plane replay and the span-landing
+self-check), ``--pr8`` (decision-ledger replay), ``--pr9`` (cold start,
+pull vs relay, at pod sizes 64-256), ``--pr10`` (content-store churn),
+``--pr14`` (sharded rollout) and ``--pr19`` (the learned loop: datagen,
+two seeded fits on ``--device``, a learned leg). The result is printed,
+or written to ``--out`` when it names a file; nothing is written by
+default. The reference's other points need modules this package does not
+have yet and are refused (exit 2).
+
+The fit in ``--pr19`` is the only device work: ``--device`` defaults to
+``cuda`` and raises without a CUDA card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import hashlib
+import heapq
+import json
+import math
+import random
+import sys
+import tempfile
+import time
+
+from ..common import digest as digestlib
+from ..common.sharding import ShardTracker, pieces_for_shards
+from ..daemon import flight_recorder as fr
+from ..daemon.flight_recorder import TaskFlight, _pctl
+from ..idl.messages import Host as HostMsg
+from ..idl.messages import HostType, LinkType, ShardInfo, TopologyInfo
+from ..scheduler.decision_ledger import replay_decisions, replay_regret
+from ..scheduler.evaluator import make_evaluator
+from ..scheduler.evaluator_ml import MLEvaluator, parent_feature_row
+from ..scheduler.resource import Peer, PeerState, Resource, Task
+from ..scheduler.scheduling import Scheduling
+from ..scheduler.shard_affinity import ShardAffinity
+from ..storage import native
+from ..storage.manager import StorageConfig, StorageManager
+from ..storage.metadata import TaskMetadata
+from ..storage.store import TaskStorage
+from ..tpu.topology import link_type
+from ..trainer import pipeline, serving, training
+from ..trainer.features import label_from_cost
+from . import refuse_unported
+
+# The reference simulator's model inputs: a modeled TPU pod's links (bytes
+# per second, milliseconds) and its host-to-device rate. They are the
+# virtual clock's constants, not the rates of any card; every committed
+# digest depends on them.
+LINK_BW_BPS = {LinkType.LOCAL: 20e9, LinkType.ICI: 8e9,
+               LinkType.DCN: 1.5e9, LinkType.WAN: 0.3e9}
+LINK_RTT_MS = {LinkType.LOCAL: 0.05, LinkType.ICI: 0.3,
+               LinkType.DCN: 1.5, LinkType.WAN: 8.0}
+HBM_BW_BPS = 5e9                 # host-buffer -> device DMA (modeled)
+TTFB_QUEUE_FACTOR = 0.35         # parent-side queueing per active transfer
+WIRE_SHARE_FACTOR = 0.15         # bandwidth dilution per active transfer
+REFRESH_EVERY = 8                # pieces landed between parent refreshes
+POLL_MS = 5.0                    # starved-worker re-poll (virtual)
+PEX_CONVERGE_MS = 40.0           # modeled gossip round trip to membership
+
+SCENARIOS = ("baseline", "scheds_down_no_pex", "scheds_down_pex")
+# cold start: every daemon joins within COLD_JOIN_MS of t=0 against one
+# pre-seeded host; ``cold_pull`` is store-and-forward, ``cold_relay``
+# cut-through with the scheduler's relay fan-out cap
+COLD_SCENARIOS = ("cold_pull", "cold_relay")
+COLD_JOIN_MS = 2.0               # cold herd: all joins inside this window
+COLD_REFRESH_MS = 25.0           # starvation-refresh throttle (cold sizes)
+RELAY_FANOUT = 4                 # tree cap the cold_relay scheduler applies
+
+STAGES = ("schedule", "first_byte", "wire", "hbm", "total")
+_ROW_KEY = {"schedule": "queue_ms", "first_byte": "ttfb_ms",
+            "wire": "wire_ms", "hbm": "hbm_ms", "total": "total_ms"}
+
+# the reference's points whose modules this package lacks:
+# flag -> what it needs (ROADMAP Queue 1 item)
+UNPORTED_POINTS = {
+    "--pr6": "podscope, ROADMAP Queue 1 item 4",
+    "--ctrl": "phasetimer, ctrl_debug and fleetpulse, ROADMAP Queue 1 "
+              "item 4",
+    "--pr18": "fleetpulse and the daemon pulse, ROADMAP Queue 1 item 4",
+    "--pr11": "the QoS traffic shaper, ROADMAP Queue 1 item 5",
+    "--pr12": "the quarantine registry, ROADMAP Queue 1 item 5",
+    "--pr13": "pod federation, ROADMAP Queue 1 item 5",
+    "--pr17": "the scheduler statestore, ROADMAP Queue 1 item 5",
+}
+
+
+class _Leecher:
+    __slots__ = ("peer", "flight", "done", "inflight", "parents",
+                 "schedule", "landed_at", "joined_ms", "done_ms",
+                 "since_refresh", "pex_at", "timeline", "arrive",
+                 "last_refresh", "relay_pulls")
+
+    def __init__(self, peer, flight, joined_ms: float):
+        self.peer = peer
+        self.flight = flight
+        self.done: set[int] = set()
+        self.inflight: set[int] = set()
+        self.parents: list = []
+        self.schedule: list[list] = []     # [piece, parent_id] in order
+        self.landed_at: dict[int, float] = {}
+        self.joined_ms = joined_ms
+        self.done_ms = 0.0
+        self.since_refresh = 0
+        self.pex_at = 0.0                  # when gossip membership converges
+        # (t_wire_done, wire_ms, size) per landed piece: the data-plane
+        # replay's input (collect_timeline); never in the rng path
+        self.timeline: list[tuple[float, float, int]] = []
+        # cut-through: per dispatched piece, when its first and last byte
+        # land here; a child relaying off this leecher rides one hop-RTT
+        # behind these
+        self.arrive: dict[int, tuple[float, float]] = {}
+        self.last_refresh = -1e9           # starvation-refresh throttle
+        self.relay_pulls = 0               # pieces pulled cut-through
+
+
+# pseudo-parent id of a back-source fetch (flight events carry parent "")
+_ORIGIN_ID = "origin"
+
+
+def _topo(slice_name: str, x: int, y: int) -> TopologyInfo:
+    return TopologyInfo(slice_name=slice_name, ici_coords=(x, y),
+                        zone="bench-zone")
+
+
+def run_bench(*, seed: int = 7, daemons: int = 8, pieces: int = 64,
+              piece_size: int = 4 << 20, parallelism: int = 4,
+              scenario: str = "baseline",
+              collect_timeline: bool = False,
+              collect_podscope: bool = False,
+              collect_decisions: bool = False,
+              collect_outcomes: bool = False,
+              evaluator=None,
+              quarantine=None,
+              origin_link: LinkType = LinkType.WAN) -> dict:
+    """One simulated fan-out; returns the result dict, a pure function of
+    the arguments. ``collect_timeline`` attaches each daemon's landings
+    (the ``--pr5`` replay's input), ``collect_decisions`` the decision
+    ledger's rows and ``collect_outcomes`` one ``kind=piece`` row per p2p
+    transfer (the ``--pr19`` training data); none of them touches the rng,
+    so the digest stays. ``evaluator`` swaps the scoring policy (default
+    ``make_evaluator("default")``). ``collect_podscope`` and a
+    ``quarantine`` registry need modules this package lacks and raise."""
+    if collect_podscope:
+        raise NotImplementedError(
+            "collect_podscope: not ported to this package yet (podscope, "
+            "ROADMAP Queue 1 item 4)")
+    if quarantine is not None:
+        raise NotImplementedError(
+            "quarantine: not ported to this package yet (the quarantine "
+            "registry, ROADMAP Queue 1 item 5)")
+    return _fanout(seed=seed, daemons=daemons, pieces=pieces,
+                   piece_size=piece_size, parallelism=parallelism,
+                   scenario=scenario, collect_timeline=collect_timeline,
+                   collect_decisions=collect_decisions,
+                   collect_outcomes=collect_outcomes, evaluator=evaluator,
+                   origin_link=origin_link)[0]
+
+
+def _fanout(*, seed: int = 7, daemons: int = 8, pieces: int = 64,
+            piece_size: int = 4 << 20, parallelism: int = 4,
+            scenario: str = "baseline", collect_timeline: bool = False,
+            collect_decisions: bool = False, collect_outcomes: bool = False,
+            evaluator=None, origin_link: LinkType = LinkType.WAN
+            ) -> tuple[dict, list[_Leecher]]:
+    """``run_bench``'s simulation; also returns the leechers, whose
+    flights ``_pod_tree`` reads."""
+    if scenario not in SCENARIOS + COLD_SCENARIOS:
+        raise ValueError(f"unknown scenario {scenario!r} "
+                         f"(known: {SCENARIOS + COLD_SCENARIOS})")
+    cold = scenario in COLD_SCENARIOS
+    relay_mode = scenario == "cold_relay"
+    scheds_up = scenario == "baseline" or cold
+    pex = scenario == "scheds_down_pex"
+
+    rng = random.Random(seed)
+    res = Resource()
+    task = Task("bench" + "0" * 59, "bench://blob")
+    task.set_content_info(pieces * piece_size, piece_size, pieces)
+    # the filter's pool shuffle draws from its own stream seeded like the
+    # sim's (the reference seeds the module rng for it)
+    sched = Scheduling(
+        make_evaluator("default") if evaluator is None else evaluator,
+        rng=random.Random(seed),
+        relay_fanout=RELAY_FANOUT if relay_mode else 0)
+    decision_rows: list[dict] = []
+    if collect_decisions:
+        sched.decision_sink = decision_rows.append
+    outcome_rows: list[dict] = []
+
+    def mk_peer(name: str, slice_name: str, x: int, y: int,
+                host_type: HostType = HostType.NORMAL, *,
+                register: bool = True):
+        host = res.store_host(HostMsg(
+            id=f"{name}-host", ip="10.0.0.1", port=1, download_port=2,
+            type=host_type, topology=_topo(slice_name, x, y)))
+        if register:
+            return res.get_or_create_peer(f"{name}-peer", task, host)
+        # registered (added to the task and DAG) at join time, as a real
+        # daemon is: offers only ever name peers that exist
+        return Peer(f"{name}-peer", task, host)
+
+    # dedicated seed host outside both slices, holding every piece
+    seed_peer = mk_peer("seedh", "slice-seed", 9, 9, HostType.SUPER_SEED)
+    seed_peer.transit(PeerState.RUNNING)
+    seed_peer.finished_pieces = set(range(pieces))
+    seed_peer.transit(PeerState.SUCCEEDED)
+
+    # leechers interleaved across 2 slices on a 2-column grid, joining
+    # staggered so late children see a live mesh
+    leechers: list[_Leecher] = []
+    for i in range(daemons):
+        s = i % 2
+        idx = i // 2
+        peer = mk_peer(f"s{s}w{idx}", f"slice-{s}", idx % 2, idx // 2,
+                       register=False)
+        if cold:
+            joined = (i * COLD_JOIN_MS / max(daemons, 1)) \
+                * rng.uniform(0.8, 1.2)
+        else:
+            joined = i * 20.0 * rng.uniform(0.9, 1.1)
+        # a ring sized to the run, so no early event is dropped
+        flight = TaskFlight(task.id, peer.id, url="bench://blob",
+                            max_events=5 * pieces + 8)
+        flight.events.append((joined, fr.REGISTERED, -1, "", 0, 0.0))
+        lc = _Leecher(peer, flight, joined)
+        if not scheds_up:
+            # gossip convergence: bootstrap names only the seed; one
+            # jittered PEX round later the leecher knows the membership
+            lc.pex_at = joined + PEX_CONVERGE_MS * rng.uniform(1.0, 2.0)
+            flight.rung(fr.RUNG_PEX if pex else fr.RUNG_BACK_SOURCE)
+        leechers.append(lc)
+
+    by_peer_id = {lc.peer.id: lc for lc in leechers}
+    active: dict[str, int] = {}        # parent peer id -> live transfers
+    # distinct children each parent has served (cold scenarios): a parent
+    # feeding RELAY_FANOUT children ranks behind under-cap holders, so the
+    # tree fills breadth-first
+    served_children: dict[str, set[str]] = {}
+
+    def refresh_parents(lc: _Leecher, now: float = 0.0) -> None:
+        if scheds_up:
+            parents = sched.find_parents(lc.peer)
+            lc.parents = parents
+            lc.peer.last_offer_ids = {p.id for p in parents}
+            task.set_parents(lc.peer.id, [p.id for p in parents])
+            return
+        if not pex:
+            lc.parents = []            # no discovery path at all
+            return
+        # PEX: the seed (bootstrap) at once; every converged leecher once
+        # this one has converged too
+        parents = [seed_peer]
+        if now >= lc.pex_at:
+            parents += [o.peer for o in leechers
+                        if o is not lc and now >= o.pex_at]
+        lc.parents = parents
+
+    def holds(parent, piece: int, now: float) -> bool:
+        if parent is seed_peer:
+            return True
+        src = by_peer_id.get(parent.id)
+        if src is None:
+            return False
+        t = src.landed_at.get(piece)
+        if t is not None and t <= now:
+            return True
+        # cut-through: a piece the parent has dispatched is requestable
+        return relay_mode and piece in src.arrive
+
+    def landed_now(parent, piece: int, now: float) -> bool:
+        if parent is seed_peer:
+            return True
+        src = by_peer_id.get(parent.id)
+        if src is None:
+            return False
+        t = src.landed_at.get(piece)
+        return t is not None and t <= now
+
+    def pick(lc: _Leecher, now: float):
+        """(piece, parent_or_None) for the next fetch, or None while
+        starved: the lowest needed piece; among its holders the least
+        loaded on the fastest link. A None parent is a back-source fetch."""
+        for piece in range(pieces):
+            if piece in lc.done or piece in lc.inflight:
+                continue
+            holders = [p for p in lc.parents if holds(p, piece, now)]
+            if not holders:
+                if not scheds_up and not pex:
+                    return piece, None     # origin absorbs the pull
+                continue
+            lt = {p.id: link_type(lc.peer.host.msg.topology,
+                                  p.host.msg.topology) for p in holders}
+            if cold:
+                # the dispatcher's rank: seeds strictly last, then (relay)
+                # under-cap holders and earlier copies, then load and link
+                def is_seed(p) -> int:
+                    return 1 if p is seed_peer \
+                        or p.host.msg.type != HostType.NORMAL else 0
+
+                def capped(p) -> int:
+                    kids = served_children.get(p.id)
+                    if kids is None or lc.peer.id in kids:
+                        return 0           # adopted children keep their edge
+                    return 1 if len(kids) >= RELAY_FANOUT else 0
+
+                def avail_ms(p) -> float:
+                    # when this holder's copy lands: 0 = ready now
+                    if landed_now(p, piece, now):
+                        return 0.0
+                    up = by_peer_id[p.id].arrive.get(piece)
+                    return up[1] if up is not None else 1e12
+                holders.sort(key=lambda p: (
+                    is_seed(p),
+                    capped(p) if relay_mode else 0,
+                    avail_ms(p) if relay_mode else 0.0,
+                    active.get(p.id, 0), int(lt[p.id]), p.id))
+            else:
+                holders.sort(key=lambda p: (active.get(p.id, 0),
+                                            int(lt[p.id]), p.id))
+            return piece, holders[0]
+        return None
+
+    # discrete events (time_ms, seq, kind, ...): ("worker", i) a worker of
+    # leecher i is free; ("land", i, piece, pid, tw) a transfer's wire half
+    # finished. A transfer holds its parent's ``active`` slot from dispatch
+    # to wire-done, so contention builds when pulls overlap.
+    events: list[tuple] = []
+    seq = 0
+
+    def push(t: float, *payload) -> None:
+        nonlocal seq
+        heapq.heappush(events, (t, seq, *payload))
+        seq += 1
+
+    for i, lc in enumerate(leechers):
+        for _ in range(parallelism):
+            push(lc.joined_ms, "worker", i)
+
+    finished = 0
+    while events and finished < len(leechers):
+        now, _s, kind, i, *rest = heapq.heappop(events)
+        lc = leechers[i]
+        if kind == "land":
+            piece, parent_id, t_wire = rest
+            lc.inflight.discard(piece)
+            lc.done.add(piece)
+            lc.landed_at[piece] = t_wire
+            lc.peer.finished_pieces.add(piece)
+            active[parent_id] = max(0, active.get(parent_id, 0) - 1)
+            lc.since_refresh += 1
+            if len(lc.done) >= pieces:
+                lc.flight.state = "success"
+                if scheds_up:
+                    lc.peer.transit(PeerState.SUCCEEDED)
+                finished += 1
+            elif lc.since_refresh >= REFRESH_EVERY:
+                lc.since_refresh = 0
+                refresh_parents(lc, now)
+            continue
+        # worker event
+        if len(lc.done) + len(lc.inflight) >= pieces:
+            continue                     # nothing left for this worker
+        if scheds_up and lc.peer.id not in task.peers:
+            # join: register once and take the first offer
+            task.add_peer(lc.peer)
+            lc.peer.transit(PeerState.RUNNING)
+            refresh_parents(lc)
+        if not lc.parents:
+            refresh_parents(lc, now)
+        got = pick(lc, now)
+        if got is None:
+            # starved: refresh the offer and re-poll in virtual time; cold
+            # sizes throttle the refresh (COLD_REFRESH_MS)
+            if not cold or now - lc.last_refresh >= COLD_REFRESH_MS:
+                lc.last_refresh = now
+                refresh_parents(lc, now)
+            push(now + POLL_MS, "worker", i)
+            continue
+        piece, parent = got
+        lc.inflight.add(piece)
+        if parent is None:
+            # schedulers down, no PEX: the origin serves the piece over
+            # ``origin_link``, one contended egress for the whole pod
+            lc.schedule.append([piece, _ORIGIN_ID])
+            load = active.get(_ORIGIN_ID, 0)
+            active[_ORIGIN_ID] = load + 1
+            ttfb_ms = (LINK_RTT_MS[origin_link]
+                       * (1.0 + TTFB_QUEUE_FACTOR * load)
+                       * rng.uniform(0.9, 1.3))
+            wire_ms = (piece_size / LINK_BW_BPS[origin_link] * 1000.0
+                       * (1.0 + WIRE_SHARE_FACTOR * load)
+                       * rng.uniform(0.9, 1.25))
+            hbm_ms = piece_size / HBM_BW_BPS * 1000.0 * rng.uniform(0.95, 1.15)
+            t_wire = now + ttfb_ms + wire_ms
+            t_hbm = t_wire + hbm_ms
+            lc.flight.events.append((t_wire, fr.WIRE_DONE, piece, "",
+                                     piece_size, wire_ms))
+            lc.flight.events.append((t_hbm, fr.HBM_DONE, piece, "",
+                                     piece_size, 0.0))
+            lc.done_ms = max(lc.done_ms, t_hbm)
+            if collect_timeline:
+                lc.timeline.append((t_wire, wire_ms, piece_size))
+            push(t_wire, "land", i, piece, _ORIGIN_ID, t_wire)
+            push(t_hbm, "worker", i)
+            continue
+        lc.schedule.append([piece, parent.id])
+        if cold:
+            served_children.setdefault(parent.id, set()).add(lc.peer.id)
+        lt = link_type(lc.peer.host.msg.topology, parent.host.msg.topology)
+        load = active.get(parent.id, 0)
+        active[parent.id] = load + 1
+        queue_ms = rng.uniform(0.1, 0.5)
+        ttfb_ms = (LINK_RTT_MS[lt] * (1.0 + TTFB_QUEUE_FACTOR * load)
+                   * rng.uniform(0.9, 1.3))
+        wire_ms = (piece_size / LINK_BW_BPS[lt] * 1000.0
+                   * (1.0 + WIRE_SHARE_FACTOR * load) * rng.uniform(0.9, 1.25))
+        hbm_ms = piece_size / HBM_BW_BPS * 1000.0 * rng.uniform(0.95, 1.15)
+        t_disp = now + queue_ms
+        t_first = t_disp + ttfb_ms
+        t_wire = t_first + wire_ms
+        if relay_mode and parent is not seed_peer \
+                and not landed_now(parent, piece, now):
+            # cut-through hop: one hop-RTT behind the parent's own first
+            # and last byte, never faster than this child's wire time
+            up = by_peer_id[parent.id].arrive.get(piece)
+            if up is not None:
+                hop = LINK_RTT_MS[lt]
+                t_first = max(t_first, up[0] + hop)
+                t_wire = max(t_first + wire_ms, up[1] + hop)
+                lc.relay_pulls += 1
+        t_hbm = t_wire + hbm_ms
+        if collect_outcomes:
+            # one kind=piece row per p2p transfer, in the records schema:
+            # the child's newest decision_id, the scoring-time features and
+            # the observed-bandwidth label (a readout, no rng draw)
+            cost_ms = ttfb_ms + wire_ms
+            outcome_rows.append({
+                "kind": "piece",
+                "task_id": task.id,
+                "peer_id": lc.peer.id,
+                "host_id": lc.peer.host.id,
+                "decision_id": lc.peer.last_decision_id,
+                "parent_peer_id": parent.id,
+                "parent_host_id": parent.host.id,
+                "piece_num": piece,
+                "piece_length": piece_size,
+                "cost_ms": cost_ms,
+                "success": True,
+                "fail_code": "",
+                "features": parent_feature_row(
+                    lc.peer, parent, total_piece_count=pieces),
+                "label": label_from_cost(piece_size, cost_ms),
+                "created_at": now,
+            })
+        lc.arrive[piece] = (t_first, t_wire)
+        ev = lc.flight.events.append
+        ev((now, fr.SCHEDULED, piece, parent.id, 0, 0.0))
+        ev((t_disp, fr.DISPATCHED, piece, parent.id, 0, 0.0))
+        ev((t_first, fr.FIRST_BYTE, piece, parent.id, 0, 0.0))
+        ev((t_wire, fr.WIRE_DONE, piece, parent.id, piece_size, wire_ms))
+        ev((t_hbm, fr.HBM_DONE, piece, "", piece_size, 0.0))
+        lc.done_ms = max(lc.done_ms, t_hbm)
+        if collect_timeline:
+            lc.timeline.append((t_wire, wire_ms, piece_size))
+        push(t_wire, "land", i, piece, parent.id, t_wire)
+        push(t_hbm, "worker", i)         # worker busy through HBM staging
+
+    result = _summarize(leechers, seed=seed, daemons=daemons, pieces=pieces,
+                        piece_size=piece_size, parallelism=parallelism,
+                        scenario=scenario)
+    if cold:
+        result["relay_pulled_pieces"] = sum(lc.relay_pulls
+                                            for lc in leechers)
+    if collect_timeline:
+        result["timeline"] = {lc.peer.id: sorted(lc.timeline)
+                              for lc in leechers}
+    if collect_decisions:
+        result["decisions"] = decision_rows
+    if collect_outcomes:
+        result["outcomes"] = outcome_rows
+    return result, leechers
+
+
+def _summarize(leechers, *, seed, daemons, pieces, piece_size,
+               parallelism, scenario="baseline") -> dict:
+    rows: list[dict] = []
+    per_daemon = {}
+    schedules = {}
+    seed_pieces = 0
+    total_pieces = 0
+    bytes_p2p = bytes_source = 0
+    for lc in leechers:
+        summary = lc.flight.summarize()
+        rows.extend(summary["piece_rows"])
+        bytes_p2p += summary["bytes_p2p"]
+        bytes_source += summary["bytes_source"]
+        per_daemon[lc.peer.id] = {
+            "pieces": summary["pieces"],
+            "bytes": summary["bytes_p2p"] + summary["bytes_source"],
+            "joined_ms": round(lc.joined_ms, 3),
+            "done_ms": round(lc.done_ms, 3),
+            "tail_ms": summary["tail_ms"],
+            # the reference's health plane annotates summaries with SLO
+            # breaches; this package's carry none (ROADMAP known
+            # difference 26), so the key reads {}
+            "slo_breaches": summary.get("slo_breaches", {}),
+        }
+        schedules[lc.peer.id] = lc.schedule
+        total_pieces += len(lc.schedule)
+        seed_pieces += sum(1 for _, p in lc.schedule
+                           if p.startswith("seedh"))
+    stage_latency = {}
+    for stage in STAGES:
+        vals = sorted(r[_ROW_KEY[stage]] for r in rows)
+        stage_latency[stage] = {"p50": _pctl(vals, 0.50),
+                                "p95": _pctl(vals, 0.95),
+                                "p99": _pctl(vals, 0.99)}
+    wall_ms = max((lc.done_ms for lc in leechers), default=0.0)
+    total_bytes = sum(d["bytes"] for d in per_daemon.values())
+    digest = hashlib.sha256(
+        json.dumps(schedules, sort_keys=True).encode()).hexdigest()
+    return {
+        "bench": "dfbench-fakepod",
+        "virtual_clock": True,
+        "seed": seed,
+        "scenario": scenario,
+        "daemons": daemons,
+        "pieces": pieces,
+        "piece_size": piece_size,
+        "parallelism": parallelism,
+        "wall_ms": round(wall_ms, 3),
+        "throughput_bps": (round(total_bytes / (wall_ms / 1000.0))
+                           if wall_ms > 0 else 0),
+        "stage_latency_ms": stage_latency,
+        "seed_served_ratio": (round(seed_pieces / total_pieces, 4)
+                              if total_pieces else 0.0),
+        "p2p_served_ratio": (round(bytes_p2p / (bytes_p2p + bytes_source), 4)
+                             if bytes_p2p + bytes_source else 0.0),
+        "per_daemon": per_daemon,
+        "schedule_digest": digest,
+        "schedules": schedules,
+    }
+
+
+def _pod_tree(leechers: list[_Leecher]) -> dict:
+    """The pod's distribution tree from the leechers' flights: makespan,
+    depth and edge count, as the reference's ``podscope.aggregate`` reads
+    them for the bench (its task report's ``makespan_ms``, ``depth`` and
+    ``len(edges)``). Each daemon hangs off the parent that delivered most
+    of its bytes; the origin is depth 0 and a serve-only holder depth 1."""
+    edges: dict[tuple[str, str], int] = {}
+    starts: list[float] = []
+    ends: list[float] = []
+    for lc in leechers:
+        summary = lc.flight.summarize()
+        rows = summary.get("piece_rows") or []
+        if rows or summary.get("placed_pieces"):
+            end_ms = max(round(e[0], 3) for e in lc.flight.events)
+            starts.append(0.0)
+            if lc.flight.state == "success":
+                ends.append(0.0 + end_ms / 1000.0)
+        for r in rows:
+            key = (r.get("parent") or "origin", lc.peer.id)
+            edges[key] = edges.get(key, 0) + r.get("bytes", 0)
+    nodes = {src for src, _ in edges} | {dst for _, dst in edges}
+    tree: dict[str, str] = {}
+    for dst in {dst for _, dst in edges}:
+        best = max((k for k in edges if k[1] == dst), key=edges.get)
+        tree[dst] = best[0]
+    depth_memo: dict[str, int] = {"origin": 0}
+
+    def depth_of(node: str, seen: frozenset = frozenset()) -> int:
+        if node in depth_memo:
+            return depth_memo[node]
+        if node in seen:               # swarm cross-serve cycle: cut here
+            return 1
+        parent = tree.get(node)
+        d = 1 if parent is None else depth_of(parent, seen | {node}) + 1
+        depth_memo[node] = d
+        return d
+
+    return {
+        "makespan_ms": (round((max(ends) - min(starts)) * 1000.0, 3)
+                        if starts and ends else 0.0),
+        "depth": max((depth_of(n) for n in nodes), default=0),
+        "edges": len(edges),
+    }
+
+
+# ---------------------------------------------------------------- --pr5
+# Data-plane replay: the baseline schedule replayed through two landing
+# models. ``legacy`` hashes every piece on the event loop plus one
+# to_thread hop per piece; ``zero_stall`` keeps only the network-chunk
+# copy on the loop and one landing hop per span. Each daemon's landings
+# serialize on its loop. The costs are the reference's modeled inputs.
+LOOP_HASH_BPS = 2.5e9       # on-loop verify traversal
+LOOP_MEMCPY_BPS = 12e9      # network-chunk copy into the piece buffer
+LEGACY_LAND_MS = 0.15       # one to_thread hop per piece (legacy)
+ZERO_STALL_LAND_MS = 0.05   # one landing hop per span (zero_stall)
+BENCH_STALL_MS = 10.0       # loop-busy run length that counts as a stall
+
+REPLAY_MODELS = ("legacy", "zero_stall")
+
+
+def replay_dataplane(timelines: dict, model: str) -> dict:
+    """Per-daemon landing serialization of a fixed schedule
+    (``run_bench(collect_timeline=True)``) under one landing-cost model.
+    Pure: never touches the sim's rng."""
+    if model not in REPLAY_MODELS:
+        raise ValueError(f"unknown replay model {model!r}")
+    delays: list[float] = []      # per-piece landing delay (queue + cost)
+    adj_wire: list[float] = []    # wire_ms + landing delay
+    busy_runs: list[float] = []   # contiguous loop-busy stretches
+    total_busy = 0.0
+    total_span = 0.0
+    for events in timelines.values():
+        free_at = None
+        run_start = None
+        first_t = last_done = None
+        for t, wire_ms, size in sorted(events):
+            cost = size / LOOP_MEMCPY_BPS * 1e3
+            if model == "legacy":
+                cost += size / LOOP_HASH_BPS * 1e3 + LEGACY_LAND_MS
+            else:
+                cost += ZERO_STALL_LAND_MS
+            if free_at is None or t >= free_at:
+                if run_start is not None:
+                    busy_runs.append(free_at - run_start)
+                run_start = t
+                start = t
+            else:
+                start = free_at
+            done = start + cost
+            free_at = done
+            delays.append(done - t)
+            adj_wire.append(wire_ms + (done - t))
+            total_busy += cost
+            first_t = t if first_t is None else first_t
+            last_done = done
+        if run_start is not None:
+            busy_runs.append(free_at - run_start)
+        if first_t is not None:
+            total_span += max(last_done - first_t, 1e-9)
+    delays.sort()
+    adj_wire.sort()
+    return {
+        "loop_lag_ms": {"p50": _pctl(delays, 0.50),
+                        "p95": _pctl(delays, 0.95),
+                        "p99": _pctl(delays, 0.99)},
+        "max_loop_lag_ms": round(max(busy_runs, default=0.0), 3),
+        "loop_stalls": sum(1 for r in busy_runs if r > BENCH_STALL_MS),
+        "loop_busy_fraction": (round(total_busy / total_span, 4)
+                               if total_span else 0.0),
+        "stage_latency_ms": {"wire": {"p50": _pctl(adj_wire, 0.50),
+                                      "p95": _pctl(adj_wire, 0.95),
+                                      "p99": _pctl(adj_wire, 0.99)}},
+    }
+
+
+def _selfcheck_span_landing() -> dict:
+    """A two-piece span through ``TaskStorage.write_span`` must land in one
+    pass and verify, and a corrupted piece must be refused without failing
+    its groupmate. ``span_write`` names the traversal: ``native`` (fused
+    pwrite and crc32c in the native library) or ``python``."""
+    algo = digestlib.preferred_piece_algo()
+    path = ("native" if algo == "crc32c" and native.available()
+            else "python")
+    ok = False
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            blob = bytes(range(256)) * 1024            # 2 x 128 KiB pieces
+            half = len(blob) // 2
+            spec = [(0, 0, half, digestlib.for_bytes(algo, blob[:half])),
+                    (1, half, half, digestlib.for_bytes(algo, blob[half:]))]
+            ts = TaskStorage(f"{d}/good", TaskMetadata(
+                task_id="bench-selfcheck-good", url="bench://selfcheck"))
+            metas, corrupt = ts.write_span(spec, blob)
+            ok = (len(metas) == 2 and not corrupt
+                  and ts.read_piece(0) == blob[:half]
+                  and ts.read_piece(1) == blob[half:])
+            bad = bytearray(blob)
+            bad[3] ^= 0xFF                             # corrupt piece 0 only
+            ts2 = TaskStorage(f"{d}/bad", TaskMetadata(
+                task_id="bench-selfcheck-bad", url="bench://selfcheck"))
+            metas2, corrupt2 = ts2.write_span(spec, bytes(bad))
+            ok = ok and corrupt2 == [0] and [m.num for m in metas2] == [1]
+    except Exception:  # noqa: BLE001 - the gate wants a verdict, not a trace
+        ok = False
+    return {"span_write": path, "per_piece_fallback": not ok}
+
+
+def _run_pr5(args) -> dict:
+    """One baseline sim replayed through both landing models, plus the
+    span-landing self-check."""
+    base = run_bench(seed=args.seed, daemons=args.daemons,
+                     pieces=args.pieces, piece_size=args.piece_size,
+                     parallelism=args.parallelism, collect_timeline=True)
+    timeline = base.pop("timeline")
+    del base["schedules"]
+    models = {m: replay_dataplane(timeline, m) for m in REPLAY_MODELS}
+    return {
+        "bench": "dfbench-dataplane",
+        "seed": args.seed,
+        "daemons": args.daemons,
+        "pieces": args.pieces,
+        "piece_size": args.piece_size,
+        "parallelism": args.parallelism,
+        "schedule_digest": base["schedule_digest"],
+        "baseline": base,
+        "models": models,
+        "improvement": {
+            "wire_p95_ms": {m: models[m]["stage_latency_ms"]["wire"]["p95"]
+                            for m in REPLAY_MODELS},
+            "max_loop_lag_ms": {m: models[m]["max_loop_lag_ms"]
+                                for m in REPLAY_MODELS},
+            "loop_stalls": {m: models[m]["loop_stalls"]
+                            for m in REPLAY_MODELS},
+        },
+        "landing": _selfcheck_span_landing(),
+    }
+
+
+def _bench_kw(args) -> dict:
+    return dict(seed=args.seed, daemons=args.daemons, pieces=args.pieces,
+                piece_size=args.piece_size, parallelism=args.parallelism)
+
+
+def _run_pr8(args) -> dict:
+    """Decision-ledger purity and counterfactual replay: a ledger-armed
+    run of the baseline seed must rule the same schedule, and its logged
+    candidate sets re-scored offline under ``default``, ``nt`` and ``ml``
+    give the rank agreements and the ``decision_digest``."""
+    base = run_bench(**_bench_kw(args))
+    led = run_bench(collect_decisions=True, **_bench_kw(args))
+    decisions = led["decisions"]
+    replay = replay_decisions(decisions)
+    return {
+        "bench": "dfbench-decisions",
+        "seed": args.seed,
+        "daemons": args.daemons,
+        "pieces": args.pieces,
+        "piece_size": args.piece_size,
+        "parallelism": args.parallelism,
+        "schedule_digest": base["schedule_digest"],
+        "ledger_pure": (base["schedule_digest"]
+                        == led["schedule_digest"]),
+        "decision_rows": len(decisions),
+        "decisions_with_candidates": replay["decisions_scored"],
+        "excluded_rows": sum(len(d.get("excluded") or [])
+                             for d in decisions),
+        "cross_evaluator": replay["pairs"],
+        "logged_choice_agreement": replay["logged_choice_agreement"],
+        "decision_digest": replay["decision_digest"],
+    }
+
+
+def datagen_rows(args) -> list[dict]:
+    """The ``--pr19`` training data: the decision rows and per-transfer
+    outcome rows of one baseline run."""
+    gen = run_bench(collect_decisions=True, collect_outcomes=True,
+                    **_bench_kw(args))
+    return gen["decisions"] + gen["outcomes"]
+
+
+def _run_pr19(args) -> dict:
+    """The learned loop on one seed. A cold ``MLEvaluator`` and the
+    outcome tap must leave the baseline schedule as it is; two seeded
+    fits on ``args.device`` must give the same blob; the model replays
+    against the heuristic over the logged rows (flip rate, regret); and
+    two learned legs served by the two blobs must rule the same schedule
+    and decisions. ``fit`` (device, seconds) is read from the wall clock."""
+    device = training.resolve_device(args.device)   # no CUDA card: raises
+    kw = _bench_kw(args)
+    base = run_bench(**kw)
+    disarmed = run_bench(evaluator=MLEvaluator(infer=None), **kw)
+    gen = run_bench(collect_decisions=True, collect_outcomes=True, **kw)
+    rows = gen["decisions"] + gen["outcomes"]
+    fit = pipeline.train_decision_model(rows, seed=args.seed, device=device)
+    refit = pipeline.train_decision_model(rows, seed=args.seed,
+                                          device=device)
+    if fit is None or refit is None:
+        raise RuntimeError("pr19: datagen run produced too few trainable "
+                           "rows — grow --daemons/--pieces")
+    blob, metrics = fit
+    infer = serving.make_mlp_infer(blob)
+    replay = replay_decisions(gen["decisions"],
+                              evaluators=("default", "ml"), infer=infer)
+    regret = replay_regret(rows, evaluators=("default", "ml"), infer=infer)
+    learned = run_bench(evaluator=MLEvaluator(infer=infer),
+                        collect_decisions=True, **kw)
+    learned2 = run_bench(evaluator=MLEvaluator(infer=serving.make_mlp_infer(
+        refit[0])), collect_decisions=True, **kw)
+    l_digest = replay_decisions(learned["decisions"])["decision_digest"]
+    l2_digest = replay_decisions(learned2["decisions"])["decision_digest"]
+    reg = regret["evaluators"]
+    return {
+        "bench": "dfbench-learned",
+        "seed": args.seed,
+        "daemons": args.daemons,
+        "pieces": args.pieces,
+        "piece_size": args.piece_size,
+        "parallelism": args.parallelism,
+        "schedule_digest": base["schedule_digest"],
+        "ml_disarmed_pure": (base["schedule_digest"]
+                             == disarmed["schedule_digest"]),
+        "outcomes_pure": (base["schedule_digest"]
+                          == gen["schedule_digest"]),
+        "decision_rows": len(gen["decisions"]),
+        "outcome_rows": len(gen["outcomes"]),
+        "model": {k: metrics.get(k)
+                  for k in ("version", "rows", "supervision",
+                            "first_epoch_loss", "final_loss",
+                            "schema_version", "feature_dim")},
+        "fit": {"device": str(device),
+                "seconds": [metrics["train_seconds"],
+                            refit[1]["train_seconds"]]},
+        "trained_deterministic": (refit[1]["version"]
+                                  == metrics["version"]),
+        "flip_rate": replay["pairs"]["default_vs_ml"]["choice_flip_rate"],
+        "rank_agreement": replay["pairs"]["default_vs_ml"]
+        ["rank_agreement"],
+        "logged_choice_agreement": replay["logged_choice_agreement"],
+        "decisions_judged": regret["decisions_judged"],
+        "regret": {"heuristic": reg["default"]["mean_regret"],
+                   "learned": reg["ml"]["mean_regret"]},
+        "best_pick_rate": {"heuristic": reg["default"]["best_pick_rate"],
+                           "learned": reg["ml"]["best_pick_rate"]},
+        "mean_chosen_bandwidth_bps": {
+            "heuristic": reg["default"]["mean_chosen_bandwidth_bps"],
+            "learned": reg["ml"]["mean_chosen_bandwidth_bps"]},
+        "learned_beats_heuristic": (reg["ml"]["mean_regret"]
+                                    < reg["default"]["mean_regret"]),
+        "learned_schedule_digest": learned["schedule_digest"],
+        "learned_decision_digest": l_digest,
+        "learned_deterministic": (
+            learned["schedule_digest"] == learned2["schedule_digest"]
+            and l_digest == l2_digest),
+        "wall_ms": {"heuristic": base["wall_ms"],
+                    "learned": learned["wall_ms"]},
+        "seed_served_ratio": {"heuristic": base["seed_served_ratio"],
+                              "learned": learned["seed_served_ratio"]},
+    }
+
+
+def _run_pr9(args) -> dict:
+    """Cold-start makespan against pod size, store-and-forward against
+    cut-through relay (the scheduler's ``relay_fanout`` armed for the
+    relay runs), each run's distribution tree read by ``_pod_tree``. A
+    plain baseline run rides along as the relay-disabled digest gate."""
+    sizes = [8, 16] if args.smoke else [64, 128, 256]
+    base = run_bench(**_bench_kw(args))
+    scenarios: dict[str, dict] = {sc: {} for sc in COLD_SCENARIOS}
+    for sc in COLD_SCENARIOS:
+        for n in sizes:
+            r, leechers = _fanout(**(_bench_kw(args) | {"daemons": n}),
+                                  scenario=sc)
+            tree = _pod_tree(leechers)
+            scenarios[sc][str(n)] = {
+                "wall_ms": r["wall_ms"],
+                "makespan_ms": tree["makespan_ms"],
+                "depth": tree["depth"],
+                "seed_served_ratio": r["seed_served_ratio"],
+                "relay_pulled_pieces": r.get("relay_pulled_pieces", 0),
+                "edges": tree["edges"],
+                "schedule_digest": r["schedule_digest"],
+            }
+    mk = {sc: {str(n): scenarios[sc][str(n)]["makespan_ms"]
+               for n in sizes} for sc in COLD_SCENARIOS}
+    depth = {sc: {str(n): scenarios[sc][str(n)]["depth"]
+                  for n in sizes} for sc in COLD_SCENARIOS}
+    pod_growth = sizes[-1] / sizes[0]
+    growth = {sc: round(mk[sc][str(sizes[-1])]
+                        / max(mk[sc][str(sizes[0])], 1e-9), 3)
+              for sc in COLD_SCENARIOS}
+    return {
+        "bench": "dfbench-coldstart",
+        "seed": args.seed,
+        "pieces": args.pieces,
+        "piece_size": args.piece_size,
+        "parallelism": args.parallelism,
+        "pod_sizes": sizes,
+        "schedule_digest": base["schedule_digest"],
+        "scenarios": scenarios,
+        "cold_makespan_ms": mk,
+        "tree_depth": depth,
+        "pod_growth_factor": pod_growth,
+        # makespan(max N) / makespan(min N): below pod_growth is sublinear
+        "growth_factor": growth,
+        "sublinear": growth["cold_relay"] < pod_growth,
+        "relay_beats_pull": all(
+            mk["cold_relay"][str(n)] < mk["cold_pull"][str(n)]
+            for n in sizes),
+        "log2_max_pod": round(math.log2(sizes[-1]), 2),
+    }
+
+
+# --------------------------------------------------------------- --pr10
+# Content-store churn: rolling restarts and hot-model pulls under alias
+# URLs (same content, new task ids) through the storage stack (the
+# manager, the content store, reload and re-verify) in a temporary
+# directory. The measured quantities are bytes, so no clock is needed.
+
+CHURN_RETAIN_EPOCHS = 2     # task turnover: aliases older than this leave
+
+
+def run_churn_bench(*, seed: int = 7, daemons: int = 4, epochs: int = 4,
+                    pieces: int = 8, piece_size: int = 64 << 10,
+                    restart_fraction: float = 0.34,
+                    dedupe: bool = True) -> dict:
+    """One churn run: per-epoch byte accounting and disk curves. Each
+    epoch every daemon pulls the seeded content under a fresh alias URL;
+    between epochs a rotating third of the daemons restart (their
+    ``StorageManager`` rebuilt over the surviving directory, then
+    ``verify_reloaded``). A piece comes from the local content store
+    (``placed``), else from any daemon holding it (``p2p``), else the
+    ``origin``. ``dedupe=False`` keys the store by task id, the baseline."""
+    rng = random.Random(seed)
+    content = rng.randbytes(pieces * piece_size)
+    algo = digestlib.preferred_piece_algo()
+    piece_digests = [
+        digestlib.for_bytes(algo, content[i * piece_size:(i + 1) * piece_size])
+        for i in range(pieces)]
+    content_digest = "sha256:" + hashlib.sha256(content).hexdigest()
+
+    def task_id(epoch: int) -> str:
+        # alias URL per epoch -> distinct task id over identical bytes
+        return hashlib.sha256(
+            f"churn://model?epoch={epoch}&seed={seed}".encode()).hexdigest()
+
+    epoch_rows: list[dict] = []
+    with tempfile.TemporaryDirectory(prefix="dfbench-pr10-") as root:
+        def make_mgr(i: int) -> StorageManager:
+            return StorageManager(StorageConfig(
+                data_dir=f"{root}/d{i}", gc_interval_s=3600,
+                dedupe_enabled=dedupe, reload_verify=True))
+
+        mgrs = [make_mgr(i) for i in range(daemons)]
+        n_restart = max(1, int(daemons * restart_fraction))
+        for epoch in range(epochs):
+            restarted: list[int] = []
+            if epoch > 0:
+                # rolling restart: process state lost, disk reloaded
+                for k in range(n_restart):
+                    i = (epoch * n_restart + k) % daemons
+                    restarted.append(i)
+                    mgrs[i] = make_mgr(i)
+                    mgrs[i].verify_reloaded()
+            tid = task_id(epoch)
+            origin_b = p2p_b = placed_b = 0
+            alias_transfer_b = 0
+            for i in range(daemons):
+                mgr = mgrs[i]
+                md = TaskMetadata(
+                    task_id=tid, url=f"churn://model?epoch={epoch}",
+                    content_length=len(content),
+                    total_piece_count=pieces, piece_size=piece_size,
+                    digest=content_digest)
+                ts = mgr.register_task(md)
+                for num in range(pieces):
+                    if num in ts.md.pieces:
+                        continue
+                    off = num * piece_size
+                    dg = piece_digests[num]
+                    if mgr.castore is not None and mgr.castore.place_piece(
+                            ts, num, off, piece_size, dg):
+                        placed_b += piece_size
+                        continue
+                    data = content[off:off + piece_size]
+                    holder = next(
+                        (j for j in range(daemons) if j != i
+                         and (mgrs[j].castore is not None
+                              and mgrs[j].castore.find_piece(
+                                  dg, piece_size) is not None
+                              or tid in {t.md.task_id
+                                         for t in mgrs[j].tasks()
+                                         if num in t.md.pieces})),
+                        None)
+                    ts.write_piece(num, off, data, dg)
+                    if holder is not None:
+                        p2p_b += piece_size
+                    else:
+                        origin_b += piece_size
+                    if epoch > 0:
+                        alias_transfer_b += piece_size
+                ts.mark_done(success=True, digest=content_digest)
+            # task turnover: shared bytes must live until the last alias
+            if epoch >= CHURN_RETAIN_EPOCHS:
+                old = task_id(epoch - CHURN_RETAIN_EPOCHS)
+                for mgr in mgrs:
+                    mgr.delete_task(old)
+            logical = physical = 0
+            for mgr in mgrs:
+                lo, ph = mgr.usage()
+                logical += lo
+                physical += ph
+            epoch_rows.append({
+                "epoch": epoch,
+                "restarted": restarted,
+                "origin_bytes": origin_b,
+                "p2p_bytes": p2p_b,
+                "placed_bytes": placed_b,
+                "alias_transfer_bytes": alias_transfer_b,
+                "logical_bytes": logical,
+                "physical_bytes": physical,
+            })
+    content_size = len(content)
+    # the digest covers the seeded content's identity and the byte
+    # accounting; the per-piece digest algorithm enters neither
+    digest = hashlib.sha256(json.dumps(
+        {"content": content_digest, "rows": epoch_rows},
+        sort_keys=True).encode()).hexdigest()
+    return {
+        "seed": seed,
+        "daemons": daemons,
+        "epochs": epochs,
+        "pieces": pieces,
+        "piece_size": piece_size,
+        "content_bytes": content_size,
+        "dedupe": dedupe,
+        "per_epoch": epoch_rows,
+        "origin_bytes_total": sum(r["origin_bytes"] for r in epoch_rows),
+        "origin_bytes_after_first_epoch": sum(
+            r["origin_bytes"] for r in epoch_rows if r["epoch"] > 0),
+        "alias_transfer_bytes": sum(
+            r["alias_transfer_bytes"] for r in epoch_rows),
+        "max_physical_bytes_per_daemon": max(
+            r["physical_bytes"] for r in epoch_rows) // daemons,
+        "max_logical_bytes_per_daemon": max(
+            r["logical_bytes"] for r in epoch_rows) // daemons,
+        "churn_digest": digest,
+    }
+
+
+def _run_pr10(args) -> dict:
+    """Content-addressed storage under churn against the task-id-keyed
+    baseline, with a plain baseline sim as the scheduler digest gate.
+    Acceptance: no origin bytes after the first epoch, alias pulls move
+    no bytes, and disk stays about one content copy per daemon."""
+    base = run_bench(**_bench_kw(args))
+    shape = dict(seed=args.seed,
+                 daemons=3 if args.smoke else 4,
+                 epochs=2 if args.smoke else 4,
+                 pieces=4 if args.smoke else 8,
+                 piece_size=(16 << 10) if args.smoke else (64 << 10))
+    cas = run_churn_bench(**shape, dedupe=True)
+    cold = run_churn_bench(**shape, dedupe=False)
+    content = cas["content_bytes"]
+    return {
+        "bench": "dfbench-castore",
+        "seed": args.seed,
+        "daemons": shape["daemons"],
+        "epochs": shape["epochs"],
+        "pieces": shape["pieces"],
+        "piece_size": shape["piece_size"],
+        "content_bytes": content,
+        "schedule_digest": base["schedule_digest"],
+        "cas": cas,
+        "baseline": cold,
+        "origin_bytes_after_first_epoch":
+            cas["origin_bytes_after_first_epoch"],
+        "alias_transfer_bytes": cas["alias_transfer_bytes"],
+        "warm_restart_zero_origin":
+            cas["origin_bytes_after_first_epoch"] == 0,
+        "alias_pull_zero_transfer": cas["alias_transfer_bytes"] == 0,
+        "disk_bounded": cas["max_physical_bytes_per_daemon"]
+            <= int(content * 1.25),
+        "disk_saving_vs_baseline": round(
+            1.0 - cas["max_physical_bytes_per_daemon"]
+            / max(cold["max_physical_bytes_per_daemon"], 1), 4),
+        "baseline_origin_bytes_after_first_epoch":
+            cold["origin_bytes_after_first_epoch"],
+        "churn_digest": cas["churn_digest"],
+    }
+
+
+# --------------------------------------------------------------- --pr14
+# Sharded-checkpoint rollout: ``positions x replicas`` hosts of one pod
+# each need their position's shards. ``roll_naive`` pulls the whole file
+# per host; ``roll_sharded`` splits each position group's request across
+# its replicas (``ShardAffinity``), fetches the host's share from the tree
+# and swaps the rest in the pod, with ``ShardTracker`` turning landings
+# into per-shard ready times. ``kill_owner`` kills one host halfway
+# through its tree share: its group falls back to the tree after the
+# swap hold.
+
+ROLLOUT_SCENARIOS = ("roll_naive", "roll_sharded")
+ROLLOUT_SHARDS = 32          # named shards per checkpoint
+ROLLOUT_SWAP_HOLD_MS = 60.0  # modeled swap hold before tree fallback
+
+
+class _ReferenceFilter(Scheduling):
+    """``Scheduling`` with the reference's filter: swap partners are held
+    to the cycle and bad-node rules like any other parent. The port exempts
+    them (ROADMAP known difference 13), which moves the sharded rollout's
+    schedules at 4x4 and 8x8 hosts."""
+
+    def _swap_partners(self, child, parent) -> bool:
+        return False
+
+
+def run_rollout_bench(*, seed: int = 7, positions: int = 4,
+                      replicas: int = 4, shards: int = ROLLOUT_SHARDS,
+                      pieces: int = 128, piece_size: int = 1 << 20,
+                      parallelism: int = 4, sharded: bool = True,
+                      kill_owner: bool = False,
+                      partner_exemption: bool = True) -> dict:
+    """One rollout fan-out: time-to-ready-arrays makespan, per-shard
+    percentiles and per-tier bytes. ``shards`` must divide by
+    ``positions`` and ``pieces`` by ``shards``. ``partner_exemption=False``
+    rules with the reference's filter (``_ReferenceFilter``)."""
+    if shards % positions or pieces % shards:
+        raise ValueError("need positions | shards | pieces divisibility")
+    rng = random.Random(seed)
+
+    content = pieces * piece_size
+    shard_size = content // shards
+    manifest = [ShardInfo(name=f"s{i:03d}", range_start=i * shard_size,
+                          range_size=shard_size) for i in range(shards)]
+    by_name = {s.name: s for s in manifest}
+    per_pos = shards // positions
+    requested_of_pos = {
+        p: [f"s{i:03d}" for i in range(p * per_pos, (p + 1) * per_pos)]
+        for p in range(positions)}
+
+    res = Resource()
+    task = Task("roll" + "0" * 60, "bench://rollout")
+    task.set_content_info(content, piece_size, pieces)
+    affinity = ShardAffinity() if sharded else None
+    sched = (Scheduling if partner_exemption else _ReferenceFilter)(
+        make_evaluator("default"), rng=random.Random(seed),
+        sharded=affinity, relay_fanout=RELAY_FANOUT)
+
+    # dedicated seed outside the pod (DCN link): the tree's root
+    seed_host = res.store_host(HostMsg(
+        id="rollseed-host", ip="10.0.0.1", port=1, download_port=2,
+        type=HostType.SUPER_SEED, topology=_topo("slice-seed", 9, 9)))
+    seed_peer = res.get_or_create_peer("rollseed-peer", task, seed_host)
+    seed_peer.transit(PeerState.RUNNING)
+    seed_peer.finished_pieces = set(range(pieces))
+    seed_peer.transit(PeerState.SUCCEEDED)
+
+    leechers: list[_Leecher] = []
+    pos_of: dict[str, int] = {}
+    for p in range(positions):
+        for r in range(replicas):
+            idx = p * replicas + r
+            host = res.store_host(HostMsg(
+                id=f"p{p}r{r}-host", ip="10.0.0.1", port=1,
+                download_port=2, topology=_topo("roll-pod", idx % 8,
+                                                idx // 8)))
+            peer = Peer(f"p{p}r{r}-peer", task, host)
+            joined = (idx * COLD_JOIN_MS / max(positions * replicas, 1)) \
+                * rng.uniform(0.8, 1.2)
+            lc = _Leecher(peer, None, joined)
+            pos_of[peer.id] = p
+            leechers.append(lc)
+
+    by_peer_id = {lc.peer.id: lc for lc in leechers}
+    # the fleet is known up front: every request registers before the
+    # first assignment is read (two passes; the second sees the whole
+    # membership, so the split is disjoint per group from t=0)
+    requested: dict[str, list[str]] = {}
+    needed: dict[str, set[int]] = {}
+    tree_nums: dict[str, set[int]] = {}
+    trackers: dict[str, ShardTracker] = {}
+    if sharded:
+        for _pass in range(2):
+            for lc in leechers:
+                p = pos_of[lc.peer.id]
+                names = requested_of_pos[p]
+                assigned = affinity.assign(
+                    task_id=task.id, peer_id=lc.peer.id,
+                    host_id=lc.peer.host.id,
+                    topology=lc.peer.host.msg.topology, requested=names)
+                requested[lc.peer.id] = names
+                mine = [by_name[n] for n in assigned]
+                tree_nums[lc.peer.id] = pieces_for_shards(
+                    mine, piece_size, pieces)
+    else:
+        for lc in leechers:
+            requested[lc.peer.id] = [s.name for s in manifest]
+            tree_nums[lc.peer.id] = set(range(pieces))
+    for lc in leechers:
+        names = requested[lc.peer.id]
+        trackers[lc.peer.id] = ShardTracker(manifest, names)
+        needed[lc.peer.id] = pieces_for_shards(
+            [by_name[n] for n in names], piece_size, pieces)
+
+    active: dict[str, int] = {}
+    served_children: dict[str, set[str]] = {}
+    dead: set[str] = set()
+    dcn_bytes = ici_bytes = 0
+    tree_bytes_by_peer: dict[str, int] = {}
+    fallback_pieces = 0
+    shard_ready_ms: list[float] = []     # every (host, shard) ready time
+    victim: _Leecher | None = None
+    kill_ms: float | None = None
+
+    def refresh_parents(lc: _Leecher, now: float = 0.0) -> None:
+        parents = sched.find_parents(lc.peer)
+        lc.parents = parents
+        lc.peer.last_offer_ids = {p.id for p in parents}
+        task.set_parents(lc.peer.id, [p.id for p in parents])
+
+    def landed_now(src: _Leecher, piece: int, now: float) -> bool:
+        t = src.landed_at.get(piece)
+        return t is not None and t <= now
+
+    def holds(parent, piece: int, now: float) -> bool:
+        if parent is seed_peer:
+            return True
+        src = by_peer_id.get(parent.id)
+        if src is None or parent.id in dead:
+            return False
+        # cut-through: an in-flight piece is pullable
+        return landed_now(src, piece, now) or piece in src.arrive
+
+    def swap_holders(lc: _Leecher, piece: int, now: float) -> list:
+        """Same-pod holders of a swap-class piece: the position group's
+        living replicas."""
+        out = []
+        for other in leechers:
+            if other is lc or other.peer.id in dead:
+                continue
+            if pos_of[other.peer.id] != pos_of[lc.peer.id]:
+                continue
+            if landed_now(other, piece, now) or piece in other.arrive:
+                out.append(other.peer)
+        return out
+
+    def pick(lc: _Leecher, now: float):
+        """(piece, parent, is_fallback) or None while starved. Tree-class
+        pieces ride the scheduler's offer (the cold-relay rank); swap
+        pieces ride the group's replicas, falling back to the tree only
+        after the swap hold."""
+        mine_tree = tree_nums[lc.peer.id]
+        for piece in sorted(needed[lc.peer.id]):
+            if piece in lc.done or piece in lc.inflight:
+                continue
+            if piece in mine_tree:
+                holders = [p for p in lc.parents
+                           if p.id not in dead and holds(p, piece, now)]
+                if not holders:
+                    continue
+                lt = {p.id: link_type(lc.peer.host.msg.topology,
+                                      p.host.msg.topology) for p in holders}
+
+                def capped(p) -> int:
+                    kids = served_children.get(p.id)
+                    if kids is None or lc.peer.id in kids:
+                        return 0
+                    return 1 if len(kids) >= RELAY_FANOUT else 0
+
+                def avail_ms(p) -> float:
+                    src = by_peer_id.get(p.id)
+                    if src is None or landed_now(src, piece, now):
+                        return 0.0
+                    up = src.arrive.get(piece)
+                    return up[1] if up is not None else 1e12
+                holders.sort(key=lambda p: (
+                    capped(p), avail_ms(p), active.get(p.id, 0),
+                    int(lt[p.id]), p.id))
+                return piece, holders[0], False
+            mates = swap_holders(lc, piece, now)
+            if mates:
+                mates.sort(key=lambda p: (active.get(p.id, 0), p.id))
+                return piece, mates[0], False
+            if now - lc.joined_ms >= ROLLOUT_SWAP_HOLD_MS:
+                # swap hold expired with no living holder: tree fallback
+                return piece, seed_peer, True
+        return None
+
+    events: list[tuple] = []
+    seq = 0
+
+    def push(t: float, *payload) -> None:
+        nonlocal seq
+        heapq.heappush(events, (t, seq, *payload))
+        seq += 1
+
+    for i, lc in enumerate(leechers):
+        for _ in range(parallelism):
+            push(lc.joined_ms, "worker", i)
+
+    if kill_owner:
+        if not sharded:
+            raise ValueError("kill_owner needs sharded=True")
+        # the first host with a non-empty tree share, killed once half of
+        # it has landed
+        victim = next(lc for lc in leechers if tree_nums[lc.peer.id])
+
+    SAFETY_MS = 600_000.0
+    finished = 0
+    while events:
+        alive_n = len(leechers) - len(dead)
+        if finished >= alive_n:
+            break
+        now, _s, kind, i, *rest = heapq.heappop(events)
+        if now > SAFETY_MS:
+            break
+        lc = leechers[i]
+        if lc.peer.id in dead:
+            continue
+        tracker = trackers[lc.peer.id]
+        if kind == "land":
+            piece, parent_id, t_wire = rest
+            lc.inflight.discard(piece)
+            if parent_id in dead:
+                lc.arrive.pop(piece, None)
+                push(now, "worker", i)
+                continue
+            lc.done.add(piece)
+            lc.landed_at[piece] = t_wire
+            lc.peer.finished_pieces.add(piece)
+            active[parent_id] = max(0, active.get(parent_id, 0) - 1)
+            lc.since_refresh += 1
+            # the tracker turns this landing into per-shard readiness, as
+            # the conductor does
+            for _name in tracker.on_span(piece * piece_size,
+                                         piece * piece_size + piece_size,
+                                         t_wire):
+                shard_ready_ms.append(t_wire)
+            if (victim is not None and kill_ms is None and lc is victim
+                    and len(lc.done & tree_nums[lc.peer.id])
+                    >= max(1, len(tree_nums[lc.peer.id]) // 2)):
+                kill_ms = now
+                dead.add(lc.peer.id)
+                lc.peer.stream_gone = True
+                task.set_parents(lc.peer.id, [])
+                affinity.forget_host(lc.peer.host.id)
+                continue
+            if len(tracker.ready) >= tracker.total:
+                lc.done_ms = max(lc.done_ms, t_wire)
+                lc.peer.transit(PeerState.SUCCEEDED)
+                task.set_parents(lc.peer.id, [])
+                lc.peer.last_offer_ids = set()
+                lc.parents = []
+                finished += 1
+            elif lc.since_refresh >= REFRESH_EVERY:
+                lc.since_refresh = 0
+                refresh_parents(lc, now)
+            continue
+        # worker event
+        if len(tracker.ready) >= tracker.total:
+            continue
+        if len(lc.done) + len(lc.inflight) >= len(needed[lc.peer.id]):
+            continue
+        if lc.peer.id not in task.peers:
+            task.add_peer(lc.peer)
+            lc.peer.transit(PeerState.RUNNING)
+            refresh_parents(lc)
+        if not lc.parents:
+            refresh_parents(lc, now)
+        got = pick(lc, now)
+        if got is None:
+            if now - lc.last_refresh >= COLD_REFRESH_MS:
+                lc.last_refresh = now
+                refresh_parents(lc, now)
+            push(now + POLL_MS, "worker", i)
+            continue
+        piece, parent, is_fallback = got
+        lc.inflight.add(piece)
+        if is_fallback:
+            fallback_pieces += 1
+        lc.schedule.append([piece, parent.id])
+        served_children.setdefault(parent.id, set()).add(lc.peer.id)
+        lt = link_type(lc.peer.host.msg.topology, parent.host.msg.topology)
+        if parent is seed_peer:
+            dcn_bytes += piece_size
+            tree_bytes_by_peer[lc.peer.id] = \
+                tree_bytes_by_peer.get(lc.peer.id, 0) + piece_size
+        else:
+            ici_bytes += piece_size
+        load = active.get(parent.id, 0)
+        active[parent.id] = load + 1
+        queue_ms = rng.uniform(0.1, 0.5)
+        ttfb_ms = (LINK_RTT_MS[lt] * (1.0 + TTFB_QUEUE_FACTOR * load)
+                   * rng.uniform(0.9, 1.3))
+        wire_ms = (piece_size / LINK_BW_BPS[lt] * 1000.0
+                   * (1.0 + WIRE_SHARE_FACTOR * load) * rng.uniform(0.9, 1.25))
+        t_first = now + queue_ms + ttfb_ms
+        t_wire = t_first + wire_ms
+        src = by_peer_id.get(parent.id)
+        if src is not None and not landed_now(src, piece, now):
+            up = src.arrive.get(piece)
+            if up is not None:
+                hop = LINK_RTT_MS[lt]
+                t_first = max(t_first, up[0] + hop)
+                t_wire = max(t_first + wire_ms, up[1] + hop)
+                lc.relay_pulls += 1
+        lc.arrive[piece] = (t_first, t_wire)
+        push(t_wire, "land", i, piece, parent.id, t_wire)
+        push(t_wire, "worker", i)
+
+    alive = [lc for lc in leechers if lc.peer.id not in dead]
+    complete = sum(1 for lc in alive
+                   if len(trackers[lc.peer.id].ready)
+                   >= trackers[lc.peer.id].total)
+    makespan = max((lc.done_ms for lc in alive), default=0.0)
+    ready_sorted = sorted(shard_ready_ms)
+    schedules = {lc.peer.id: lc.schedule for lc in leechers}
+    digest = hashlib.sha256(
+        json.dumps(schedules, sort_keys=True).encode()).hexdigest()
+    hosts = positions * replicas
+    tree_vals = [tree_bytes_by_peer.get(lc.peer.id, 0) for lc in alive]
+    result = {
+        "seed": seed,
+        "sharded": sharded,
+        "positions": positions,
+        "replicas": replicas,
+        "daemons": hosts,
+        "shards": shards,
+        "pieces": pieces,
+        "piece_size": piece_size,
+        "content_bytes": content,
+        "requested_bytes_per_host": (content // positions if sharded
+                                     else content),
+        "makespan_ms": round(makespan, 3),
+        "complete": complete,
+        "alive": len(alive),
+        "shard_ready_ms": {"p50": _pctl(ready_sorted, 0.50),
+                           "p99": _pctl(ready_sorted, 0.99)},
+        "shards_ready": len(ready_sorted),
+        # tree (seed uplink, DCN) against in-pod swap (ICI) bytes
+        "dcn_bytes": dcn_bytes,
+        "ici_bytes": ici_bytes,
+        "tree_copies": round(dcn_bytes / content, 3),
+        "tree_bytes_per_host_mean": (round(sum(tree_vals)
+                                           / max(len(tree_vals), 1)))
+        if tree_vals else 0,
+        "swap_fallback_pieces": fallback_pieces,
+        "relay_pulled_pieces": sum(lc.relay_pulls for lc in leechers),
+        "schedule_digest": digest,
+    }
+    if kill_owner:
+        result["kill"] = {
+            "killed_host": victim.peer.host.id,
+            "kill_ms": round(kill_ms, 3) if kill_ms is not None else None,
+            "completed": complete == len(alive),
+            "fallback_pieces": fallback_pieces,
+            # bounded by the dead owner's share over its replicas
+            "fallback_bounded": (fallback_pieces * piece_size
+                                 <= content // positions * replicas),
+        }
+    return result
+
+
+def _run_pr14(args, *, partner_exemption: bool = True) -> dict:
+    """The sharded rollout across fleet sizes, naive against sharded, and
+    a kill-the-owner run, with a plain baseline sim as the digest gate.
+    Acceptance: sharded beats naive 2x at 64 hosts, its makespan shrinks
+    as the fleet grows while naive's does not, and the tree carries about
+    one content copy. ``partner_exemption=False`` rules every run with the
+    reference's filter, which gives the reference's ``rollout_digest``."""
+    base = run_bench(**_bench_kw(args))
+    if args.smoke:
+        sizes = [(2, 2), (4, 4)]
+        shards, pieces, psize = 8, 16, 64 << 10
+    else:
+        sizes = [(4, 4), (8, 8), (16, 16)]
+        shards, pieces, psize = ROLLOUT_SHARDS, 128, 1 << 20
+    scenarios: dict[str, dict] = {sc: {} for sc in ROLLOUT_SCENARIOS}
+    for positions, replicas in sizes:
+        for sc, arm in (("roll_naive", False), ("roll_sharded", True)):
+            r = run_rollout_bench(
+                seed=args.seed, positions=positions, replicas=replicas,
+                shards=shards, pieces=pieces, piece_size=psize,
+                parallelism=args.parallelism, sharded=arm,
+                partner_exemption=partner_exemption)
+            scenarios[sc][f"{positions}x{replicas}"] = r
+    chaos = run_rollout_bench(
+        seed=args.seed, positions=sizes[0][0], replicas=sizes[0][1],
+        shards=shards, pieces=pieces, piece_size=psize,
+        parallelism=args.parallelism, sharded=True, kill_owner=True,
+        partner_exemption=partner_exemption)
+    keys = [f"{p}x{r}" for p, r in sizes]
+    # the acceptance size is 8x8 (64 hosts); smoke labels its own
+    mid = "8x8" if "8x8" in keys else keys[min(1, len(keys) - 1)]
+    naive, shrd = scenarios["roll_naive"], scenarios["roll_sharded"]
+    speedup_mid = round(naive[mid]["makespan_ms"]
+                        / max(shrd[mid]["makespan_ms"], 1e-9), 3)
+    rollout_digest = hashlib.sha256(json.dumps(
+        {sc: {k: v["schedule_digest"] for k, v in scenarios[sc].items()}
+         for sc in ROLLOUT_SCENARIOS} | {"chaos": chaos["schedule_digest"]},
+        sort_keys=True).encode()).hexdigest()
+    content = shrd[keys[0]]["content_bytes"]
+    return {
+        "bench": "dfbench-sharded",
+        "seed": args.seed,
+        "sizes": keys,
+        "shards": shards,
+        "pieces": pieces,
+        "piece_size": psize,
+        "parallelism": args.parallelism,
+        "schedule_digest": base["schedule_digest"],
+        "scenarios": scenarios,
+        "makespan_ms": {sc: {k: v["makespan_ms"]
+                             for k, v in scenarios[sc].items()}
+                        for sc in ROLLOUT_SCENARIOS},
+        "shard_ready_p99_ms": {sc: {k: v["shard_ready_ms"]["p99"]
+                                    for k, v in scenarios[sc].items()}
+                               for sc in ROLLOUT_SCENARIOS},
+        "speedup": speedup_mid,
+        "speedup_size": mid,
+        "sharded_beats_naive_2x": speedup_mid >= 2.0,
+        "sharded_tracks_shard_bytes": (
+            shrd[keys[-1]]["makespan_ms"] < shrd[keys[0]]["makespan_ms"]),
+        "naive_tracks_content_bytes": (
+            naive[keys[-1]]["makespan_ms"]
+            >= 0.8 * naive[keys[0]]["makespan_ms"]),
+        "tree_bounded": all(
+            shrd[k]["dcn_bytes"] <= 1.5 * content for k in keys),
+        "tree_bytes_per_host_mean": {k: shrd[k]["tree_bytes_per_host_mean"]
+                                     for k in keys},
+        "dcn_bytes": {sc: {k: v["dcn_bytes"]
+                           for k, v in scenarios[sc].items()}
+                      for sc in ROLLOUT_SCENARIOS},
+        "kill": chaos["kill"] | {
+            "makespan_ms": chaos["makespan_ms"],
+        },
+        "rollout_digest": rollout_digest,
+    }
+
+
+def _run_pr4(args) -> dict:
+    """One seed, three scenarios: the P2P-served ratio with and without
+    PEX while the control plane is down. Scenario blobs drop the raw
+    schedules (the digest stays)."""
+    scenarios = {}
+    for sc in SCENARIOS:
+        r = run_bench(scenario=sc, **_bench_kw(args))
+        del r["schedules"]
+        scenarios[sc] = r
+    return {
+        "bench": "dfbench-pex",
+        "seed": args.seed,
+        "scenarios": scenarios,
+        "p2p_served_ratio": {sc: scenarios[sc]["p2p_served_ratio"]
+                             for sc in SCENARIOS},
+        "wall_ms": {sc: scenarios[sc]["wall_ms"] for sc in SCENARIOS},
+    }
+
+
+POINTS = {"pr19": _run_pr19, "pr14": _run_pr14, "pr10": _run_pr10,
+          "pr9": _run_pr9, "pr8": _run_pr8, "pr5": _run_pr5, "pr4": _run_pr4}
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="dfbench", description="deterministic fakepod benchmark")
+    p.add_argument("--seed", type=int, default=7)
+    p.add_argument("--daemons", type=int, default=8)
+    p.add_argument("--pieces", type=int, default=64)
+    p.add_argument("--piece-size", type=int, default=4 << 20)
+    p.add_argument("--parallelism", type=int, default=4)
+    p.add_argument("--scenario", default="baseline",
+                   choices=SCENARIOS + COLD_SCENARIOS,
+                   help="discovery model (scheds_down_* = every scheduler "
+                   "unreachable, with/without the PEX gossip rung; "
+                   "cold_* = whole-pod cold start, store-and-forward vs "
+                   "cut-through relay)")
+    p.add_argument("--pr4", action="store_true",
+                   help="baseline and both schedulers-down scenarios: the "
+                   "P2P-served ratio with and without PEX")
+    p.add_argument("--pr5", action="store_true",
+                   help="replay the baseline schedule through the legacy "
+                   "and zero-stall data-plane models, and self-check span "
+                   "landing")
+    p.add_argument("--pr8", action="store_true",
+                   help="replay the decision-ledger rows through the "
+                   "default, nt and ml evaluators (decision_digest, "
+                   "ledger purity)")
+    p.add_argument("--pr9", action="store_true",
+                   help="cold-start makespan and tree depth against pod "
+                   "size (64, 128, 256; 8, 16 with --smoke), pull-only "
+                   "against cut-through relay")
+    p.add_argument("--pr10", action="store_true",
+                   help="content-addressed storage through rolling-restart "
+                   "churn and alias pulls against the task-id-keyed "
+                   "baseline (churn_digest)")
+    p.add_argument("--pr14", action="store_true",
+                   help="sharded-checkpoint rollout against fleet size, "
+                   "naive against shard affinity with in-pod swap, and a "
+                   "kill-the-owner run (rollout_digest)")
+    p.add_argument("--pr19", action="store_true",
+                   help="the learned loop: datagen, two seeded MLP fits on "
+                   "--device, the learned-vs-heuristic replay and a "
+                   "learned leg")
+    p.add_argument("--device", default="cuda",
+                   help="where --pr19 fits (default cuda: raises without a "
+                   "CUDA card; 'cpu' to fit on the CPU)")
+    for flag in UNPORTED_POINTS:
+        p.add_argument(flag, action="store_true",
+                       help="not ported to this package yet")
+    p.add_argument("--out", default="-",
+                   help="result path ('-', the default: stdout only)")
+    p.add_argument("--smoke", action="store_true",
+                   help="tiny run (4 daemons x 8 pieces)")
+    return p
+
+
+def main(argv: list[str] | None = None) -> int:
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    refuse_unported(parser, {
+        flag: (getattr(args, flag[2:]), what)
+        for flag, what in UNPORTED_POINTS.items()})
+    if args.smoke:
+        args.daemons, args.pieces, args.out = 4, 8, "-"
+    point = next((name for name in POINTS if getattr(args, name)), None)
+    t0 = time.monotonic()
+    if point is not None:
+        result = POINTS[point](args)
+    else:
+        result = run_bench(scenario=args.scenario, **_bench_kw(args))
+    wall_s = time.monotonic() - t0
+    text = json.dumps(result, indent=2, sort_keys=True)
+    if args.out == "-":
+        print(text)
+        return 0
+    with open(args.out, "w", encoding="utf-8") as f:
+        f.write(text + "\n")
+    digest = result.get("schedule_digest") or \
+        result["scenarios"]["baseline"]["schedule_digest"]
+    print(f"dfbench: wrote {args.out} (schedule {digest[:12]}, "
+          f"{wall_s:.2f} s)")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

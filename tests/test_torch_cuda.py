@@ -8,8 +8,10 @@ installed::
     python -m pytest --noconftest -m gpu tests/test_torch_cuda.py
 """
 
+import argparse
 import asyncio
 import hashlib
+import json
 import os
 import subprocess
 import sys
@@ -29,7 +31,8 @@ from dragonfly2_tpu_torch.scheduler.config import SchedulerConfig as \
 from dragonfly2_tpu_torch.scheduler.config import SeedPeerAddr
 from dragonfly2_tpu_torch.scheduler.server import Scheduler
 from dragonfly2_tpu_torch.tpu.hbm_sink import DeviceIngest
-from dragonfly2_tpu_torch.trainer import features, training
+from dragonfly2_tpu_torch.tools import dfbench
+from dragonfly2_tpu_torch.trainer import features, pipeline, training
 from dragonfly2_tpu_torch.trainer.server import Trainer, TrainerConfig
 
 
@@ -301,6 +304,36 @@ def test_card_and_cpu_fits_agree(cuda):
     g_cpu = training.train_gnn(topo, seed=2, device="cpu")[1]
     assert abs(g_card["final_loss"] - g_cpu["final_loss"]) <= \
         0.01 * g_cpu["final_loss"]
+
+
+@pytest.mark.gpu
+def test_dfbench_pr19_fits_on_card_repeat(cuda, monkeypatch):
+    """``dfbench --pr19`` on the card: its two seeded fits give the same
+    blob bytes, its two learned legs the same schedule and decision
+    digests, and every schedule digest is BENCH_pr19.json's."""
+    blobs = []
+    fit = pipeline.train_decision_model
+
+    def recorded(rows, **kw):
+        out = fit(rows, **kw)
+        blobs.append(out[0])
+        return out
+
+    monkeypatch.setattr(pipeline, "train_decision_model", recorded)
+    args = argparse.Namespace(seed=7, daemons=8, pieces=64,
+                              piece_size=4 << 20, parallelism=4,
+                              smoke=False, device="cuda")
+    r = dfbench._run_pr19(args)
+    assert len(blobs) == 2 and blobs[0] == blobs[1]
+    assert r["fit"]["device"] == str(cuda)
+    assert r["trained_deterministic"] and r["learned_deterministic"]
+    assert r["ml_disarmed_pure"] and r["outcomes_pure"]
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "BENCH_pr19.json")) as f:
+        want = json.load(f)
+    for key in ("schedule_digest", "learned_schedule_digest",
+                "learned_decision_digest"):
+        assert r[key] == want[key], key
 
 
 @pytest.mark.gpu
