@@ -140,6 +140,25 @@ parent hits of this process's leechers.
               must equal the committed ``BENCH_*.json``; the port's
               swap-partner exemption may move only pr14's 4x4 and 8x8
               sharded schedules (ROADMAP known difference 13)
+14. observe  — run last, on phase 8's origin: a manager, a seed daemon
+              (``--debug-endpoints``, ``--tracing-jsonl``), a trainer and
+              a scheduler (``--tracing-jsonl``) from the launchers, the
+              three services with ``--debug-port -1``; the scheduler's
+              ruling profiler is armed over ``/debug/ctrl?arm=1``; a
+              leecher here, tracing on, pulls into a manifest sink on the
+              card with back-source disabled. Every tensor must equal the
+              origin; one trace id must cover the leecher's ``peertask``,
+              the scheduler's ``sched.register`` / ``sched.offer``, the
+              ``piece.download`` spans, the seed's ``upload.serve`` and
+              ``hbm.ingest``; every debug route must answer 200 with the
+              reference's keys, ``/debug/ctrl`` showing a ``find`` ruling
+              with ``filter`` and ``emit`` phases; the flight summary must
+              carry ``slo_budgets_ms`` / ``slo_breaches``. Then the mesh:
+              ``graft_entry.dryrun_multichip(1)`` runs both models' sharded
+              step on a one-rank NCCL mesh, whose losses must equal the
+              single-device step's, and ``train_decision_model`` with the
+              mesh default on one card must report one device and repeat
+              phase 7's seed-7 blob
 
 Before phase 3 the native storage library (``dfnative.cc``, built with
 g++ at first use) must load: the pulls land crc32c piece digests, and the
@@ -179,16 +198,19 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.error
 import urllib.request
 import zlib
 
 import numpy as np
 import torch
 
-from dragonfly2_tpu_torch import source
+from dragonfly2_tpu_torch import graft_entry, source
+from dragonfly2_tpu_torch.common import phasetimer, tracing
 from dragonfly2_tpu_torch.common.metrics import REGISTRY
 from dragonfly2_tpu_torch.common.piece import compute_piece_size
-from dragonfly2_tpu_torch.daemon.config import DaemonConfig, SchedulerConfig
+from dragonfly2_tpu_torch.daemon.config import (DaemonConfig, SchedulerConfig,
+                                                TracingConfig)
 from dragonfly2_tpu_torch.daemon.daemon import Daemon
 from dragonfly2_tpu_torch.idl.messages import (DeviceSink, DownloadRequest,
                                                Host, HostType,
@@ -1507,6 +1529,7 @@ def phase_trainer(workdir: str, seed: int, device: torch.device) -> None:
         fits[s] = (fitted, infer, replay_regret(
             rows, ("default", "ml"), infer)["evaluators"])
     (blob, metrics), infer, regret = fits[7]
+    FIT_BLOBS["fixture_seed_7"] = blob
     again = pipeline.train_decision_model(rows, seed=7, device=device)
     check(again[0] == blob, "the fixture fit is not deterministic on the "
                             "card")
@@ -3122,8 +3145,320 @@ def phase_dfbench(device: torch.device) -> None:
                               "card": smi})
 
 
+# ---------------------------------------------------------------- phase 14
+
+OBSERVE_PROFILE_S = 1            # /debug/profile?seconds= on each port
+OBSERVE_OVERHEAD_CALLS = 200_000
+# the reference's JSON keys of each route (``common/health.py``,
+# ``common/faultgate.py``, ``scheduler/{cluster_view,ctrl_debug,
+# decision_ledger}.py``)
+HEALTH_KEYS = {"status", "active", "loop", "watchdog", "slo", "events",
+               "flight_recorders"}
+FAULTS_KEYS = {"armed", "scripts"}
+CLUSTER_KEYS = {"since", "hosts", "bytes_p2p", "bytes_source",
+                "back_to_source_ratio", "stragglers", "decisions",
+                "snapshot_ttl_s", "staleness_s"}
+DECISIONS_KEYS = {"stats", "decisions"}
+CTRL_KEYS = {"armed", "since", "rulings", "phases", "compute_ms",
+             "unattributed_ms", "queue_wait_ms", "state_bytes",
+             "state_staleness_s", "state_ttl_s"}
+TRACE_CHAIN = ("sched.register", "sched.offer", "piece.download",
+               "upload.serve", "hbm.ingest")
+# phase 7's seed-7 fixture blob, which phase 14's fit must repeat
+FIT_BLOBS: dict = {}
+
+
+def http_get(port: int, target: str) -> tuple[int, bytes]:
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{target}",
+                                    timeout=30) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as exc:
+        return exc.code, exc.read()
+
+
+def get_json(port: int, target: str, keys: set | None = None) -> dict:
+    status, body = http_get(port, target)
+    check(status == 200, f":{port}{target} answered {status}: {body[:300]}")
+    out = json.loads(body)
+    if keys is not None:
+        check(keys <= set(out), f":{port}{target} lacks the keys "
+                                f"{sorted(keys - set(out))}")
+    return out
+
+
+def check_debug_port(name: str, port: int) -> dict:
+    """``/debug/stacks``, ``/debug/profile`` and ``/metrics`` answer 200 on
+    a launcher's ``--debug-port``, and ``/debug/health`` with its keys."""
+    out = {}
+    for target, needle in (("/debug/stacks", b"--- asyncio tasks ---"),
+                           (f"/debug/profile?seconds={OBSERVE_PROFILE_S}",
+                            b"function calls"),
+                           ("/metrics", b"df_loop_lag_seconds")):
+        t0 = time.monotonic()
+        status, body = http_get(port, target)
+        check(status == 200 and needle in body,
+              f"{name} :{port}{target} answered {status}: {body[:300]}")
+        out[target.split("?")[0]] = round(time.monotonic() - t0, 3)
+    get_json(port, "/debug/health", HEALTH_KEYS)
+    return out
+
+
+def read_spans(path: str) -> list[dict]:
+    if not os.path.exists(path):
+        return []
+    with open(path) as f:
+        return [json.loads(ln) for ln in f if ln.strip()]
+
+
+def disarmed_phase_ns() -> float:
+    """ns per call of a disarmed ``phasetimer.phase`` (the profiler's
+    overhead contract), on this process's host thread."""
+    check(not phasetimer.ARMED, "the profiler is armed in this process")
+    t0 = time.perf_counter()
+    for _ in range(OBSERVE_OVERHEAD_CALLS):
+        with phasetimer.phase("filter"):
+            pass
+    return (time.perf_counter() - t0) / OBSERVE_OVERHEAD_CALLS * 1e9
+
+
+async def _observe_leecher(workdir: str, mgr_addr: str, sched_addr: str,
+                           url: str, digest: str, manifest: ShardManifest,
+                           trace_path: str) -> dict:
+    """The leecher, tracing on: pulls with a manifest sink on the card and
+    back-source disabled, then reads its own ``/debug/health`` and the
+    flight's summary."""
+    leech = Daemon(DaemonConfig(
+        workdir=os.path.join(workdir, "leecher"), hostname="observe-l",
+        listen_ip="127.0.0.1", host_ip="127.0.0.1",
+        manager_addresses=[mgr_addr],
+        tracing=TracingConfig(enabled=True, jsonl_path=trace_path)))
+    await leech.start()
+    try:
+        found = leech.scheduler and leech.scheduler.addresses
+        check(found == [sched_addr], f"the leecher found {found} through "
+                                     f"the manager, want [{sched_addr}]")
+        run = await _leecher_pull(leech, url, UrlMeta(digest=digest),
+                                  manifest, {})
+        c = run["conductor"]
+        run["traffic"] = (c.traffic_p2p, c.traffic_source)
+        port = leech.upload_server.port
+        run["health"] = await asyncio.to_thread(
+            get_json, port, "/debug/health", HEALTH_KEYS)
+        run["summary"] = await asyncio.to_thread(
+            get_json, port, f"/debug/flight/{c.task_id}?summary=1")
+        return run
+    finally:
+        tracing.TRACER.flush()
+        await leech.stop()
+
+
+def observe_pod(workdir: str, device: torch.device) -> dict:
+    """Phase 14 (a): a manager, a seed, a trainer and a scheduler from the
+    launchers with their debug surfaces and tracing on, and a leecher in
+    this process pulling phase 8's origin into the card."""
+    path = os.path.join(workdir, "deploy", "model-00004-of-00004.safetensors")
+    check(os.path.exists(path), f"phase 8's origin is gone: {path}")
+    layout = deploy_layout()
+    header, nbytes = safetensors_header(layout)
+    size = len(header) + nbytes
+    d = os.path.join(workdir, "observe")
+    os.makedirs(d)
+    need = 3 * size + (1 << 30)
+    free = shutil.disk_usage(d).free
+    check(free >= need, f"phase 14 needs {need} bytes of free disk, {free} "
+                        f"free")
+    with open(path, "rb") as f:
+        sha = hashlib.sha256(f.read(len(header)))
+        raw = np.fromfile(f, dtype=np.uint8)
+    sha.update(raw)
+    ref = torch.from_numpy(raw).to(device)
+    del raw
+    url, digest = "file://" + path, "sha256:" + sha.hexdigest()
+    manifest = manifest_from_file(path)
+    traces = {k: os.path.join(d, f"{k}-traces.jsonl")
+              for k in ("leecher", "seed", "scheduler")}
+    procs: list[Launched] = []
+    rcs: dict = {}
+    try:
+        mgr = Launched(d, "manager", "manager", [
+            "--listen-ip", "127.0.0.1", "--db", os.path.join(d, "m.db"),
+            "--workdir", os.path.join(d, "manager"), "--debug-port", "-1"])
+        procs.append(mgr)
+        mgr_dbg = int(mgr.wait_up("debug on :").rsplit(":", 1)[1])
+        mgr_addr = re.search(r"grpc=(\S+)",
+                             mgr.wait_up("manager up:")).group(1)
+        seed_d = Launched(d, "seed", "daemon", [
+            "--config", write_json(os.path.join(d, "seed.json"), {
+                "workdir": os.path.join(d, "seed"),
+                "hostname": "observe-seed", "is_seed": True,
+                "host_ip": "127.0.0.1", "listen_ip": "127.0.0.1",
+                "manager_addresses": [mgr_addr]}),
+            "--debug-endpoints", "--tracing-jsonl", traces["seed"]])
+        procs.append(seed_d)
+        seed_d.wait_up("daemon up:")
+        seed_up = int(seed_d.wait_line("upload server on", 10)
+                      .rsplit(":", 1)[1])
+        trainer = Launched(d, "trainer", "trainer", [
+            "--listen-ip", "127.0.0.1", "--manager", mgr_addr,
+            "--data-dir", os.path.join(d, "trainer"), "--debug-port", "-1"])
+        procs.append(trainer)
+        trainer_dbg = int(trainer.wait_up("debug on :").rsplit(":", 1)[1])
+        trainer_addr = trainer.wait_up("trainer up:").split()[-1]
+        sched = Launched(d, "scheduler", "scheduler", [
+            "--config", write_json(os.path.join(d, "scheduler.json"), {
+                "listen_ip": "127.0.0.1", "advertise_ip": "127.0.0.1"}),
+            "--manager", mgr_addr, "--trainer", trainer_addr,
+            "--debug-port", "-1", "--tracing-jsonl", traces["scheduler"]])
+        procs.append(sched)
+        sched_dbg = int(sched.wait_up("debug on :").rsplit(":", 1)[1])
+        sched_addr = sched.wait_up("scheduler up:").split()[-1]
+        check(" seeds=1)" in sched.wait_line("scheduler up on", 10),
+              "the scheduler did not adopt the seed from the manager")
+        # the ruling profiler, armed live before the pull
+        armed = get_json(sched_dbg, "/debug/ctrl?arm=1", CTRL_KEYS)
+        check(armed["armed"] is True, f"/debug/ctrl?arm=1: {armed}")
+
+        run = asyncio.run(_observe_leecher(d, mgr_addr, sched_addr, url,
+                                           digest, manifest,
+                                           traces["leecher"]))
+        tensors, base, shapes = run["out"], len(header), dict(layout)
+        check(len(tensors) == len(layout),
+              f"{len(tensors)} tensors, want {len(layout)}")
+        for info in manifest.shards:
+            t = tensors[info.name]
+            check(t.device == device and t.dtype == torch.bfloat16
+                  and list(t.shape) == shapes[info.name],
+                  f"{info.name} is {t.dtype} {list(t.shape)} on {t.device}")
+            lo = info.range_start - base
+            check(torch.equal(t.reshape(-1).view(torch.uint8),
+                              ref[lo:lo + info.range_size]),
+                  f"{info.name} bytes differ from the origin")
+        del tensors, run["out"], ref
+        check(run["traffic"] == (size, 0),
+              f"(traffic_p2p, traffic_source) {run['traffic']}, file {size}")
+        summary = run["summary"]
+        check("slo_breaches" in summary and summary.get("slo_budgets_ms"),
+              f"the flight summary lacks the SLO keys: {sorted(summary)}")
+
+        routes = {name: check_debug_port(name, port) for name, port in (
+            ("manager", mgr_dbg), ("trainer", trainer_dbg),
+            ("scheduler", sched_dbg))}
+        seed_health = get_json(seed_up, "/debug/health", HEALTH_KEYS)
+        faults = get_json(seed_up, "/debug/faults", FAULTS_KEYS)
+        check(faults == {"armed": False, "scripts": []},
+              f"seed /debug/faults: {faults}")
+        cluster = get_json(sched_dbg, "/debug/cluster", CLUSTER_KEYS)
+        check(cluster["bytes_p2p"] >= size and cluster["bytes_source"] == 0,
+              f"/debug/cluster bytes: {cluster['bytes_p2p']} p2p, "
+              f"{cluster['bytes_source']} source")
+        decisions = get_json(sched_dbg, "/debug/decisions", DECISIONS_KEYS)
+        check(decisions["stats"]["by_kind"].get("find", 0) >= 1,
+              f"/debug/decisions: {decisions['stats']}")
+        ctrl = get_json(sched_dbg, "/debug/ctrl", CTRL_KEYS)
+        find = ctrl["rulings"]["by_kind"].get("find", {})
+        check(find.get("count", 0) >= 1
+              and {"filter", "emit"} <= set(ctrl["phases"]),
+              f"/debug/ctrl: rulings {ctrl['rulings']['by_kind']}, phases "
+              f"{sorted(ctrl['phases'])}")
+        get_json(sched_dbg, "/debug/ctrl?arm=0", CTRL_KEYS)
+    finally:
+        for p in reversed(procs):
+            rcs[p.name] = p.stop()
+    check(all(rc == 0 for rc in rcs.values()),
+          f"return codes after SIGTERM: {rcs}")
+    spans = {k: read_spans(v) for k, v in traces.items()}
+    roots = [r for r in spans["leecher"] if r["name"] == "peertask"]
+    check(len(roots) == 1, f"{len(roots)} peertask spans, want 1")
+    trace_id = roots[0]["trace_id"]
+    joined = {name: [r for rows in spans.values() for r in rows
+                     if r["name"] == name and r["trace_id"] == trace_id]
+              for name in TRACE_CHAIN}
+    check(all(joined.values()),
+          f"spans of trace {trace_id} by name: "
+          f"{ {n: len(v) for n, v in joined.items()} }")
+    return {"file_bytes": size, "time_to_ready_s": run["wall"],
+            "gbps": size / 1e9 / run["wall"],
+            "spans": {k: len(v) for k, v in spans.items()},
+            "trace_id": trace_id,
+            "trace_spans": {n: len(v) for n, v in joined.items()},
+            "upload_serve_spans_by_seed": len(joined["upload.serve"]),
+            "slo_budgets_ms": summary["slo_budgets_ms"],
+            "slo_breaches": summary["slo_breaches"],
+            "leecher_loop_max_lag_s": run["health"]["loop"]["max_lag_s"],
+            "seed_loop_max_lag_s": seed_health["loop"]["max_lag_s"],
+            "ctrl_find": find, "ctrl_queue_wait_ms": ctrl["queue_wait_ms"],
+            "ctrl_state_bytes": ctrl["state_bytes"],
+            "route_s": routes, "return_codes": rcs}
+
+
+def observe_mesh(device: torch.device) -> dict:
+    """Phase 14 (b): the sharded step on the card's one-rank NCCL mesh
+    against the single-device step, and ``train_mlp``'s mesh default on
+    one card against phase 7's blob."""
+    dev_arg = None if device.type == "cuda" else "cpu"
+    t0 = time.monotonic()
+    out = graft_entry.dryrun_multichip(1, device=dev_arg or "cuda")
+    dryrun_s = time.monotonic() - t0
+    check(out["mesh"] == {"dp": 1, "tp": 1}, f"mesh {out['mesh']}")
+    losses = {"mlp": models.mlp_loss, "gnn": models.gnn_loss}
+    single = {}
+    with training.fit_numerics():
+        for name, (tree, batch) in graft_entry.dryrun_inputs().items():
+            model = models.params_from_numpy(tree).to(device)
+            step = models.make_train_step(losses[name],
+                                          models.make_optimizer(model))
+            single[name] = float(step(model,
+                                      models.batch_to_device(batch, device)))
+    diffs = {}
+    for name in losses:
+        diffs[name] = abs(out[name]["loss"] - single[name])
+        check(diffs[name] <= 1e-6 * abs(single[name]),
+              f"{name}: sharded loss {out[name]['loss']} != single-device "
+              f"{single[name]}")
+    with open(FIXTURE) as f:
+        rows = [json.loads(line) for line in f]
+    fitted = pipeline.train_decision_model(rows, seed=7, use_mesh=True,
+                                           device=dev_arg)
+    check(fitted is not None and fitted[1]["devices"] == 1,
+          f"train_mlp on one card: {fitted and fitted[1]['devices']} devices")
+    if "fixture_seed_7" in FIT_BLOBS:
+        check(fitted[0] == FIT_BLOBS["fixture_seed_7"],
+              "the one-card mesh default did not give phase 7's blob")
+    return {"mesh": out["mesh"], "dryrun_s": dryrun_s,
+            "sharded_loss": {n: out[n]["loss"] for n in losses},
+            "single_loss": single, "loss_abs_diff": diffs,
+            "sharded_step_ms": {n: out[n]["step_ms"] for n in losses},
+            "fit_devices": fitted[1]["devices"],
+            "fit_version": fitted[1]["version"],
+            "fit_equals_phase_7": "fixture_seed_7" in FIT_BLOBS}
+
+
+def phase_observe(workdir: str, device: torch.device) -> None:
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    t_phase = time.monotonic()
+    old = tracing.TRACER
+    tracing.TRACER = tracing.Tracer()
+    tracing.configure = tracing.TRACER.configure
+    try:
+        pod = observe_pod(workdir, device)
+    finally:
+        # later work in this process inherits no tracer
+        tracing.TRACER.flush()
+        tracing.TRACER = old
+        tracing.configure = old.configure
+    phase_ns = disarmed_phase_ns()
+    mesh = observe_mesh(device)
+    emit("phase 14 observe and mesh", {
+        **pod, "disarmed_phase_ns_per_call": phase_ns, **mesh,
+        "phase_s": time.monotonic() - t_phase, "card": smi})
+
+
 def run_phases(layers: int, seed: int, device: torch.device) -> None:
-    """Phases 2-13 on ``device``; raises CheckFailed on a failed check."""
+    """Phases 2-14 on ``device``; raises CheckFailed on a failed check."""
     layout = llama_layout(layers)
     header, nbytes = safetensors_header(layout)
     workdir = tempfile.mkdtemp(prefix="chip-smoke-")
@@ -3183,6 +3518,7 @@ def run_phases(layers: int, seed: int, device: torch.device) -> None:
         phase_chain(workdir, device)
         phase_crash(workdir, device)
         phase_dfbench(device)
+        phase_observe(workdir, device)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 

@@ -8,7 +8,10 @@ it triggers, or other leechers), and pieces from the parents' upload
 servers land in the leechers' device sinks; the learned loop, a trainer
 that fits the scheduler's parent-quality model on the card; and the
 manager with its model registry, through which a deployment started from
-the launchers in ``tools`` registers, discovers and closes that loop.
+the launchers in ``tools`` registers, discovers and closes that loop; the
+trainer's fit on every visible card (``trainer/ranks.py``,
+``graft_entry.py``); and the observability plane (``common/tracing.py``,
+``health.py``, ``phasetimer.py``, ``debug_http.py``).
 Module paths mirror ``dragonfly2_tpu`` so each counterpart is found by
 path; the package imports torch, numpy and the standard library only.
 """

@@ -23,7 +23,11 @@ port fires:
   receiver's checksum rejects it.
 
 Call sites guard with ``if faultgate.ARMED:`` so a disarmed process pays
-one attribute load.
+one attribute load. Scripts arm from code (``arm``), from the reference's
+text syntax (``arm_script``: ``site[@key]=kind[:n][:delay_s][:code=NAME]``
+clauses joined by ``;``) or over HTTP on a daemon started with
+``upload.debug_endpoints`` (``add_fault_routes``: ``GET``/``POST``/
+``DELETE /debug/faults``).
 """
 
 from __future__ import annotations
@@ -71,6 +75,16 @@ class FaultScript:
         self.delay_s = float(delay_s)
         self.fired = 0
 
+    def describe(self) -> dict:
+        """The reference's script row. This cut fires every matching
+        attempt at once, so ``pct`` is 100, ``after_ms`` 0 and
+        ``attempts`` the fire count."""
+        return {"site": self.site, "kind": self.kind, "key": self.key,
+                "remaining": self.n, "fired": self.fired,
+                "attempts": self.fired, "pct": 100,
+                "code": self.code.name, "after_ms": 0,
+                "delay_s": self.delay_s}
+
 
 _scripts: list[FaultScript] = []
 _lock = threading.Lock()   # hbm.ingest fires from the sink's caller thread
@@ -88,6 +102,59 @@ def arm(site: str, kind: str, **kwargs) -> FaultScript:
         _scripts.append(script)
         _recompute_armed()
     return script
+
+
+def arm_script(text: str) -> list[FaultScript]:
+    """Arm from the reference's text syntax: ``;``-joined clauses of
+    ``site[@key]=kind[:arg]...``, an arg being ``n=``, ``code=`` (a
+    ``Code`` name or number), ``delay_s=``, or positional (a float is
+    ``delay_s``, an int ``n``). ``pct`` below 100 and ``after_ms`` above 0
+    are refused: this cut fires every matching attempt at once."""
+    parsed = []
+    for clause in text.split(";"):
+        clause = clause.strip()
+        if not clause:
+            continue
+        head, _, spec = clause.partition("=")
+        if not spec:
+            raise ValueError(f"bad faultgate clause {clause!r} "
+                             "(want site[@key]=kind[:arg]...)")
+        site, _, key = head.partition("@")
+        parts = spec.split(":")
+        kwargs: dict = {"key": key.strip()}
+        for arg in parts[1:]:
+            arg = arg.strip()
+            if not arg:
+                continue
+            name, eq, value = arg.partition("=")
+            if not eq:
+                if "." in name:
+                    kwargs["delay_s"] = float(name)
+                else:
+                    kwargs["n"] = int(name)
+            elif name == "n":
+                kwargs["n"] = int(value)
+            elif name == "code":
+                kwargs["code"] = (Code(int(value))
+                                  if value.lstrip("-").isdigit()
+                                  else Code[value])
+            elif name == "delay_s":
+                kwargs["delay_s"] = float(value)
+            elif (name, value) in (("pct", "100"), ("after_ms", "0")):
+                continue
+            else:
+                raise ValueError(f"unsupported faultgate arg {name!r} in "
+                                 f"{clause!r}")
+        parsed.append(FaultScript(site.strip(), parts[0].strip(), **kwargs))
+    with _lock:
+        _scripts.extend(parsed)
+        _recompute_armed()
+    return parsed
+
+
+def status() -> dict:
+    with _lock:
+        return {"armed": ARMED, "scripts": [s.describe() for s in _scripts]}
 
 
 def reset() -> None:
@@ -179,3 +246,28 @@ def fire_sync(site: str, key: str = "") -> None:
         return
     raise DFError(script.code,
                   f"faultgate[{script.site}]: injected {script.kind}")
+
+
+def add_fault_routes(router) -> None:
+    """The fault-injection control surface, mounted on the daemon's upload
+    server under ``upload.debug_endpoints`` (arming mutates live
+    behaviour): ``GET /debug/faults`` -> ``{"armed", "scripts"}``;
+    ``POST`` arms the script text in its body; ``DELETE`` resets."""
+
+    async def get_faults(_params, _query):
+        return 200, status()
+
+    async def post_faults(_params, _query, body: bytes):
+        try:
+            armed = arm_script(body.decode("utf-8", "replace").strip())
+        except (ValueError, KeyError) as exc:
+            return 400, {"error": str(exc)}
+        return 200, {"armed": [s.describe() for s in armed]}
+
+    async def delete_faults(_params, _query):
+        reset()
+        return 200, status()
+
+    router.add_get("/debug/faults", get_faults)
+    router.add_post("/debug/faults", post_faults)
+    router.add_delete("/debug/faults", delete_faults)

@@ -55,6 +55,7 @@ import time
 from typing import Any
 
 from ..common import digest as digestlib
+from ..common import health, tracing
 from ..common.errors import Code, DFError
 from ..common.metrics import REGISTRY
 from ..common.piece import Range, compute_piece_size, piece_count
@@ -198,6 +199,13 @@ class PeerTaskConductor:
         self._p2p_engine = engine
 
     async def _run(self) -> None:
+        # the task's trace: its register, offers, piece fetches, the
+        # parents' serves and the device landing are spans under this one
+        with tracing.span("peertask", task_id=self.task_id[:16],
+                          peer_id=self.peer_id[-16:], url=self.url):
+            await self._run_traced()
+
+    async def _run_traced(self) -> None:
         """The ladder (reference ``conductor.py:203-272``): register; pull
         P2P when the scheduler answered; the pex rung when no scheduler
         could be reached; back to source when P2P could not finish and
@@ -940,11 +948,22 @@ class PeerTaskConductor:
                 self.log.exception("device sink flush failed")
                 self.device_ingest.close()
                 self.device_ingest = None
-        if self.device_ingest is not None and self.flight is not None:
-            self.flight.hbm_spans(list(self.device_ingest.transfer_spans))
+        if self.device_ingest is not None:
+            # inside the peertask span: the device landing joins the task's
+            # trace (ruling -> piece fetch -> device memory)
+            spans = list(self.device_ingest.transfer_spans)
+            with tracing.span("hbm.ingest", task_id=self.task_id[:16]) as hsp:
+                hsp.set(transfers=len(spans),
+                        done_fraction=self.device_ingest.done_fraction(),
+                        dma_ms=round(sum(b - a for a, b in spans) * 1e3, 3))
+            if self.flight is not None:
+                self.flight.hbm_spans(spans)
         self.state = self.SUCCESS
         if self.flight is not None:
             self.flight.finish(self.SUCCESS)
+            # this task's stage-budget breaches, counted once into
+            # df_slo_breach_total (summaries only carry the annotation)
+            health.PLANE.slo.observe_summary(self.flight.summarize())
         self._publish({"type": "done", "success": True,
                        "completed": self.completed_length,
                        "total": self.content_length})
@@ -967,6 +986,7 @@ class PeerTaskConductor:
             # journal, not only in the PeerResult code
             self.flight.rung(fr.RUNG_FAIL)
             self.flight.finish(self.FAILED)
+            health.PLANE.slo.observe_summary(self.flight.summarize())
         if self.device_ingest is not None:
             self.device_ingest.close()
             self.device_ingest = None

@@ -5,9 +5,10 @@ settings the port honors (manager and scheduler addresses, the register
 timeout and ring failover, the schedule timeout, the scheduler-set
 refresh, ports, listeners, workdir, the storage section's GC, dedupe and
 reload settings, RTT probing, the announce cadence, the PEX gossip
-plane, the flight recorder's limits, the cut-through relay switch and
-the https origins' trust), plus ``device``: where the device sink lands
-bytes. The reference's tuning knobs that no caller of the port sets yet
+plane, the flight recorder's limits, the cut-through relay switch, the
+https origins' trust, the upload port's debug endpoints, tracing and the
+health plane), plus ``device``: where the device sink lands bytes. The
+reference's tuning knobs that no caller of the port sets yet
 are module constants where they are used.
 """
 
@@ -84,6 +85,45 @@ class PexConfig:
 @dataclass
 class UploadConfig:
     port: int = 0                          # 0 = ephemeral
+    debug_endpoints: bool = False          # /debug/{stacks,profile,faults}
+
+
+@dataclass
+class TracingConfig:
+    enabled: bool = False
+    jsonl_path: str = ""              # "" -> <workdir>/logs/traces.jsonl
+    otlp_endpoint: str = ""           # e.g. http://collector:4318
+    sample_ratio: float = 1.0
+
+
+@dataclass
+class HealthSection:
+    """Runtime health plane (common/health.py): the event-loop lag
+    sampler, the coroutine watchdog and per-stage SLO budgets behind
+    ``GET /debug/health``. On by default: one monitor coroutine ticking
+    at ``sample_interval_s``, and a dict insert per piece group."""
+
+    enabled: bool = True
+    sample_interval_s: float = 0.1     # lag sample / watchdog sweep period
+    stall_threshold_s: float = 1.0     # loop lag past this = stall event
+    dump_min_interval_s: float = 10.0  # stack-dump rate limit
+    # SLO budgets (ms) per download stage; <= 0 disables that budget
+    slo_schedule_ms: float = 1000.0
+    slo_first_byte_ms: float = 2000.0
+    slo_wire_ms: float = 5000.0
+    slo_hbm_ms: float = 1000.0
+
+    def to_plane(self):
+        from ..common.health import HealthConfig
+        return HealthConfig(
+            enabled=self.enabled,
+            sample_interval_s=self.sample_interval_s,
+            stall_threshold_s=self.stall_threshold_s,
+            dump_min_interval_s=self.dump_min_interval_s,
+            slo_schedule_ms=self.slo_schedule_ms,
+            slo_first_byte_ms=self.slo_first_byte_ms,
+            slo_wire_ms=self.slo_wire_ms,
+            slo_hbm_ms=self.slo_hbm_ms)
 
 
 @dataclass
@@ -118,7 +158,9 @@ class DaemonConfig:
     download: DownloadConfig = field(default_factory=DownloadConfig)
     upload: UploadConfig = field(default_factory=UploadConfig)
     storage: StorageSection = field(default_factory=StorageSection)
+    tracing: TracingConfig = field(default_factory=TracingConfig)
     flight: FlightConfig = field(default_factory=FlightConfig)
+    health: HealthSection = field(default_factory=HealthSection)
     pex: PexConfig = field(default_factory=PexConfig)
     # host stats to the scheduler, and the recovery re-announce's cadence
     announce_interval_s: float = 30.0

@@ -21,8 +21,11 @@ before the servers start (a warm restart's first gossip round then runs
 at once), and a ``storage`` GC task sweeps it. One flight recorder
 journals every task (``GET /debug/flight`` on the upload port), and one
 relay hub lets the upload server stream pieces that are still arriving
-(``download.relay_enabled``). Fleet TLS, the health plane, QoS and the
-proxy wait for later slices.
+(``download.relay_enabled``). The process's health plane
+(``common/health.py``: loop-lag sampler, watchdog, SLO budgets) is
+acquired first at start and released last at stop, and the tracer is
+configured from the ``tracing`` section. Fleet TLS, QoS and the proxy
+wait for later slices.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ import tempfile
 import torch
 
 from .. import source
+from ..common import health, tracing
 from ..common.dfpath import DFPath
 from ..common.errors import Code, DFError
 from ..common.gc import GC, GCTask
@@ -138,7 +142,9 @@ class Daemon:
         self.upload_server = UploadServer(
             self.storage_mgr, port=cfg.upload.port, host=cfg.listen_ip,
             flight_recorder=self.flight_recorder, relay=self.relay,
-            relay_stall_s=cfg.download.relay_stall_s, pex=self.pex)
+            relay_stall_s=cfg.download.relay_stall_s, pex=self.pex,
+            debug_endpoints=cfg.upload.debug_endpoints)
+        self.health = None
         self._prev_source_tls = None
         self.scheduler: SchedulerConnector | None = None
         self.manager: ManagerLink | None = None
@@ -215,6 +221,12 @@ class Daemon:
             failover_n=sc.failover_n, demote_s=sc.demote_s)
 
     async def start(self) -> None:
+        # the health plane first: the watchdog must already sweep when the
+        # first download section opens (process-wide and refcounted, so
+        # co-resident daemons share it)
+        self.health = health.PLANE
+        self.health.acquire(self.cfg.health.to_plane())
+        self.health.attach_recorder(self.flight_recorder)
         if self.storage_mgr.reloaded_tasks:
             # warm restart: re-verify the reloaded pieces on the storage
             # pool before anything serves or advertises them
@@ -232,6 +244,13 @@ class Daemon:
             http = source.client_for("https://")
             self._prev_source_tls = (http, http._ssl)
             http.set_tls(insecure=dl.source_insecure, ca_file=dl.source_ca)
+        if self.cfg.tracing.enabled:
+            tr = self.cfg.tracing
+            tracing.configure(
+                service=f"dfdaemon/{self.hostname}",
+                jsonl_path=tr.jsonl_path or os.path.join(
+                    self.paths.log_dir, "traces.jsonl"),
+                otlp_endpoint=tr.otlp_endpoint, sample_ratio=tr.sample_ratio)
         self.upload_server.host_id = f"{self.hostname}-{self.host_ip}"
         await self.upload_server.start()
         self._peer_channels = ChannelPool()
@@ -403,6 +422,8 @@ class Daemon:
             log.debug("demotion persist failed: %s", exc)
 
     async def stop(self) -> None:
+        if self.cfg.tracing.enabled:
+            tracing.TRACER.flush()
         if self.prober is not None:
             await self.prober.stop()
         if self.pex is not None:
@@ -436,3 +457,6 @@ class Daemon:
             http, prev = self._prev_source_tls
             http._ssl = prev
             self._prev_source_tls = None
+        if self.health is not None:
+            self.health.release()
+            self.health = None

@@ -20,10 +20,9 @@ flights; while disabled, ``begin()`` returns None and callers hold a None.
 
 Exposure: ``GET /debug/flight`` and ``/debug/flight/<task_id>`` on the
 daemon's upload server (``add_flight_routes``), and the compact summary on
-the terminal ``PeerResult`` (``scheduler_session.py``). The reference
-annotates every summary with the health plane's SLO budget verdict
-(``PLANE.slo.annotate``); that call waits for the health plane's slice, so
-summaries here carry no ``slo_breaches`` / ``slo_budgets_ms`` keys.
+the terminal ``PeerResult`` (``scheduler_session.py``). Every summary
+carries the health plane's SLO budget verdict (``PLANE.slo.annotate``:
+``slo_breaches``, ``slo_budgets_ms``), as the reference's does.
 """
 
 from __future__ import annotations
@@ -31,6 +30,7 @@ from __future__ import annotations
 import time
 from collections import OrderedDict, deque
 
+from ..common import health
 from ..common.metrics import REGISTRY
 
 # flight-ring visibility: operators must be able to tell when max_tasks
@@ -455,6 +455,10 @@ class TaskFlight:
         summary["back_to_source_ratio"] = (
             round(summary["bytes_source"] / total_bytes, 4)
             if total_bytes else 0.0)
+        # the per-stage SLO budget verdict rides every summary surface
+        # (HTTP, the compact PeerResult form): pure annotation; the breach
+        # counters are counted once per task by the conductor
+        health.PLANE.slo.annotate(summary)
         if slowest is not None:
             stage = max(("queue_ms", "ttfb_ms", "wire_ms", "hbm_ms"),
                         key=lambda k: slowest[k])

@@ -945,7 +945,7 @@ class _PexSession:
 
 
 def add_pex_routes(router, gossiper: PexGossiper) -> None:
-    """Upload-port routes (``upload_server._Router``): ``GET /pex/digest``
+    """Upload-port routes (``common.httpd.Router``): ``GET /pex/digest``
     (pull), ``POST /pex/digest`` (push; the 200 body is our digest, the
     pull half of push-pull), the inter-pod ``/pex/summary`` pair, and
     ``GET /debug/pex`` (membership and swarm snapshot). A body that fails

@@ -35,7 +35,7 @@ import logging
 import time
 from urllib.parse import quote
 
-from ..common import faultgate
+from ..common import faultgate, tracing
 from ..common.bufpool import POOL
 from ..common.errors import Code, DFError
 from ..idl.messages import PieceInfo
@@ -285,6 +285,11 @@ class PieceDownloader:
         path = (f"/download/{task_id[:3]}/{task_id}"
                 f"?peerId={quote(src_peer_id, safe='')}")
         headers = {"Range": f"bytes={start}-{start + size - 1}"}
+        tp = tracing.traceparent()
+        if tp:
+            # the trace rides the piece request (reference
+            # piece_downloader.go:227): the parent's serve joins it
+            headers["traceparent"] = tp
         what = (f"parent {dst_addr} piece {pieces[0].piece_num}"
                 if len(pieces) == 1
                 else f"parent {dst_addr} span @{start}+{size}")

@@ -43,6 +43,7 @@ import random
 import time
 from typing import TYPE_CHECKING
 
+from ..common import health, tracing
 from ..common.bufpool import POOL
 from ..common.errors import Code, DFError
 from ..common.metrics import REGISTRY
@@ -511,10 +512,22 @@ class PieceEngine:
         span = _SpanHandle(self.relay, conductor.task_id, d.pieces)
         wire_meta: dict = {}
         try:
-            buf, cost = await self.downloader.download_span(
-                dst_addr=d.parent.addr, task_id=conductor.task_id,
-                src_peer_id=conductor.peer_id, pieces=d.pieces,
-                on_first_byte=on_first, relay_open=span, meta=wire_meta)
+            # a span of the task's trace per transfer, and a watchdog
+            # section: a parent that wedges mid-transfer self-reports (an
+            # await-chain dump and a wire breach) before the per-piece
+            # deadline cancels the read; the deadline scales with the
+            # group, so healthy spans do not trip it
+            with tracing.span("piece.download", piece=d.pieces[0].piece_num,
+                              n_pieces=len(d.pieces)) as psp, \
+                    health.PLANE.watchdog.section(
+                        "piece.wire",
+                        health.PLANE.slo.section_deadline_s(len(d.pieces)),
+                        stage="wire"):
+                psp.set(dst=d.parent.peer_id[-16:], link=int(d.parent.link))
+                buf, cost = await self.downloader.download_span(
+                    dst_addr=d.parent.addr, task_id=conductor.task_id,
+                    src_peer_id=conductor.peer_id, pieces=d.pieces,
+                    on_first_byte=on_first, relay_open=span, meta=wire_meta)
         except DFError as exc:
             if exc.code == Code.CLIENT_PEER_BUSY:
                 # backpressure, not failure: requeue without a report (a

@@ -26,24 +26,27 @@ task's flight (``TaskFlight.serve``), and ``GET /debug/flight`` and
 
 With a PEX gossiper (``pex.py``), ``GET``/``POST /pex/digest``,
 ``GET``/``POST /pex/summary`` and ``GET /debug/pex`` are routed too
-(``pex.add_pex_routes``). A request body is read whole before the
-handler runs, up to 1 MiB (aiohttp's default ``client_max_size``);
-a larger one is answered 413 and the connection closed. Routed requests
-take no slot of the piece gate, so a gossip exchange never waits behind
-piece serves.
+(``pex.add_pex_routes``); ``GET /debug/health`` always, and with
+``debug_endpoints`` ``/debug/stacks``, ``/debug/profile`` and
+``GET``/``POST``/``DELETE /debug/faults``. The routes, the parser and the
+connection loop are ``common/httpd.py``'s. Routed requests take no slot
+of the piece gate, so a gossip exchange never waits behind piece serves.
+A piece request carrying a ``traceparent`` header is served inside an
+``upload.serve`` span of that trace.
 """
 
 from __future__ import annotations
 
 import asyncio
-import json
 import logging
 import time
 from collections import Counter, deque
 from urllib.parse import parse_qs, urlsplit
 
-from ..common import faultgate
+from ..common import faultgate, httpd, tracing
 from ..common.errors import DFError
+from ..common.httpd import HTTPError as _HTTPError
+from ..common.httpd import head as _head
 from ..common.metrics import REGISTRY
 from ..common.piece import parse_http_range
 from ..common.rate import TokenBucket
@@ -72,23 +75,6 @@ _relay_stalls = REGISTRY.counter(
 _relay_wait_secs = REGISTRY.histogram(
     "df_relay_wait_seconds",
     "time a streaming relay serve spent awaiting landing progress")
-
-_REASONS = {200: "OK", 206: "Partial Content", 400: "Bad Request",
-            404: "Not Found", 405: "Method Not Allowed",
-            413: "Request Entity Too Large",
-            416: "Range Not Satisfiable", 431: "Request Header Fields Too "
-            "Large", 503: "Service Unavailable"}
-_HEAD_LIMIT = 64 << 10
-_BODY_LIMIT = 1 << 20        # aiohttp's default client_max_size
-
-
-class _HTTPError(Exception):
-    def __init__(self, status: int, text: str, headers: dict | None = None):
-        super().__init__(text)
-        self.status = status
-        self.text = text
-        self.headers = headers or {}
-
 
 class _Slot:
     """One concurrency-gate slot, held until the response body is fully
@@ -121,53 +107,6 @@ class _Slot:
         srv._pass_on_slot()
 
 
-def _head(status: int, headers: dict) -> bytes:
-    lines = [f"HTTP/1.1 {status} {_REASONS.get(status, 'Status')}"]
-    lines += [f"{k}: {v}" for k, v in headers.items()]
-    return ("\r\n".join(lines) + "\r\n\r\n").encode("latin-1")
-
-
-class _Router:
-    """Routes beyond the piece route: exact paths, or a path whose last
-    segment is a ``{name}`` parameter. A GET handler takes (params,
-    query), a POST handler (params, query, body); each returns (status,
-    body): a dict is sent as JSON, bytes as ``application/octet-stream``,
-    a str as plain text."""
-
-    def __init__(self) -> None:
-        self._routes: list[tuple[str, list[str], object]] = []
-
-    def add_get(self, path: str, handler) -> None:
-        self._routes.append(("GET", path.split("/"), handler))
-
-    def add_post(self, path: str, handler) -> None:
-        self._routes.append(("POST", path.split("/"), handler))
-
-    def match(self, method: str, path: str):
-        """(handler, params) for the route; None when no route has the
-        path; raises 405 when routes have the path but not the method."""
-        parts = path.split("/")
-        path_known = False
-        for route_method, pattern, handler in self._routes:
-            if len(pattern) != len(parts):
-                continue
-            params = {}
-            for want, got in zip(pattern, parts):
-                if want.startswith("{") and want.endswith("}"):
-                    if not got:
-                        break
-                    params[want[1:-1]] = got
-                elif want != got:
-                    break
-            else:
-                if route_method == method:
-                    return handler, params
-                path_known = True
-        if path_known:
-            raise _HTTPError(405, "405: Method Not Allowed")
-        return None
-
-
 class UploadServer:
     # concurrent transfers served at once when the config says "auto" (0);
     # beyond this the server answers 503 and the child reroutes
@@ -181,7 +120,8 @@ class UploadServer:
     def __init__(self, storage_mgr: StorageManager, *, port: int = 0,
                  rate_limit_bps: int = 0, concurrent_limit: int = 0,
                  host: str = "0.0.0.0", flight_recorder=None, relay=None,
-                 relay_stall_s: float = 10.0, pex=None):
+                 relay_stall_s: float = 10.0, pex=None,
+                 debug_endpoints: bool = False):
         self.storage_mgr = storage_mgr
         self.flight_recorder = flight_recorder
         self.relay = relay                  # RelayHub (None = store-and-forward)
@@ -193,13 +133,25 @@ class UploadServer:
         # process-wide; several daemons may share a process)
         self.relay_serves: Counter = Counter()
         self.relay_bytes: Counter = Counter()
-        self.router = _Router()
+        self.router = httpd.Router()
         if flight_recorder is not None:
             from .flight_recorder import add_flight_routes
             add_flight_routes(self.router, flight_recorder)
         if pex is not None:
             from .pex import add_pex_routes
             add_pex_routes(self.router, pex)
+        # the health snapshot is read-only and cheap: always on, so a
+        # wedged daemon is diagnosable without a restart
+        from ..common.health import add_health_routes
+        add_health_routes(self.router)
+        if debug_endpoints:
+            # the pprof-analog surface and the fault-injection control
+            # plane: off by default (profiling slows every call on the
+            # loop's thread, arming faults mutates live behaviour, and any
+            # mesh peer reaches this port)
+            from ..common.debug_http import add_debug_routes
+            add_debug_routes(self.router)
+            faultgate.add_fault_routes(self.router)
         self.host = host
         self.port = port
         self.limiter = TokenBucket(rate_limit_bps or 0)
@@ -226,7 +178,7 @@ class UploadServer:
 
     async def start(self) -> None:
         self._server = await asyncio.start_server(
-            self._on_conn, self.host, self.port, limit=_HEAD_LIMIT)
+            self._on_conn, self.host, self.port, limit=httpd.HEAD_LIMIT)
         self.port = self._server.sockets[0].getsockname()[1]
         log.info("upload server on %s:%d", self.host, self.port)
 
@@ -247,76 +199,9 @@ class UploadServer:
         task = asyncio.current_task()
         self._conns.add(task)
         try:
-            while True:
-                try:
-                    raw = await reader.readuntil(b"\r\n\r\n")
-                except asyncio.IncompleteReadError:
-                    return                    # client closed between requests
-                except asyncio.LimitOverrunError:
-                    await self._send_error(writer, _HTTPError(
-                        431, "request head too large"), keep=False)
-                    return
-                method, target, headers = self._parse_request(raw)
-                keep = headers.get("connection", "").lower() != "close"
-                length = int(headers.get("content-length") or 0)
-                if length > _BODY_LIMIT:
-                    await self._send_error(writer, _HTTPError(
-                        413, "request body too large"), keep=False)
-                    await self._linger(reader, writer)
-                    return
-                # read whole before the handler runs: an unread body would
-                # be parsed as the next request on this connection
-                body = await reader.readexactly(length) if length else b""
-                try:
-                    await self._route(method, target, headers, writer, body)
-                except _HTTPError as exc:
-                    await self._send_error(writer, exc, keep=keep)
-                if not keep:
-                    return
-        except (ConnectionError, ValueError, asyncio.IncompleteReadError) \
-                as exc:
-            log.debug("upload connection dropped: %s", exc)
+            await httpd.serve_connection(reader, writer, self._route)
         finally:
             self._conns.discard(task)
-            writer.close()
-
-    @staticmethod
-    async def _linger(reader, writer, timeout_s: float = 1.0) -> None:
-        """Half-close, then drop what the client still sends for a while:
-        a close with its body unread resets the connection, which can
-        destroy the answer before the client reads it."""
-        async def drain() -> None:
-            while await reader.read(1 << 16):
-                pass
-        try:
-            writer.write_eof()
-            await asyncio.wait_for(drain(), timeout_s)
-        except (OSError, asyncio.TimeoutError):
-            pass
-
-    @staticmethod
-    def _parse_request(raw: bytes) -> tuple[str, str, dict]:
-        lines = raw[:-4].decode("latin-1").split("\r\n")
-        parts = lines[0].split(" ")
-        if len(parts) != 3 or not parts[2].startswith("HTTP/1."):
-            raise ValueError(f"bad request line {lines[0]!r}")
-        headers = {}
-        for line in lines[1:]:
-            k, sep, v = line.partition(":")
-            if not sep:
-                raise ValueError(f"bad header line {line!r}")
-            headers[k.strip().lower()] = v.strip()
-        return parts[0], parts[1], headers
-
-    @staticmethod
-    async def _send_error(writer, exc: _HTTPError, *, keep: bool) -> None:
-        body = exc.text.encode()
-        headers = {"Content-Type": "text/plain; charset=utf-8",
-                   "Content-Length": str(len(body)), **exc.headers}
-        if not keep:
-            headers["Connection"] = "close"
-        writer.write(_head(exc.status, headers) + body)
-        await writer.drain()
 
     async def _route(self, method: str, target: str, headers: dict,
                      writer, body: bytes = b"") -> None:
@@ -334,28 +219,31 @@ class UploadServer:
         if len(parts) == 4 and parts[1] == "download" and all(parts[2:]):
             if method != "GET":
                 raise _HTTPError(405, "405: Method Not Allowed")
-            await self._serve(parts[3], headers, writer, query)
+            await self._traced(parts[3], headers, writer, query)
             return
-        found = self.router.match(method, url.path)
-        if found is not None:
-            handler, params = found
-            if method == "POST":
-                status, out = await handler(params, query, body)
-            else:
-                status, out = await handler(params, query)
-            if isinstance(out, bytes):
-                ctype, data = "application/octet-stream", out
-            elif isinstance(out, str):
-                ctype, data = "text/plain; charset=utf-8", out.encode()
-            else:
-                ctype = "application/json; charset=utf-8"
-                data = json.dumps(out).encode()
-            writer.write(_head(status, {
-                "Content-Type": ctype,
-                "Content-Length": str(len(data))}) + data)
-            await writer.drain()
+        if await self.router.dispatch(method, target, writer, body):
             return
         raise _HTTPError(404, "404: Not Found")
+
+    async def _traced(self, task_id: str, headers: dict, writer,
+                      query: dict) -> None:
+        """The server half of a piece request's trace: the child's
+        traceparent rides the GET (``piece_downloader``) and this span
+        joins its trace, so one trace id follows a transfer across both
+        daemons."""
+        parent = tracing.from_traceparent(headers.get("traceparent", ""))
+        if parent is None and not tracing.TRACER.enabled:
+            await self._serve(task_id, headers, writer, query)
+            return
+        with tracing.span("upload.serve", parent=parent,
+                          peer=query.get("peerId", "")[-16:],
+                          range=headers.get("range", "")) as sp:
+            try:
+                await self._serve(task_id, headers, writer, query)
+            except _HTTPError as exc:
+                sp.set(status=exc.status)
+                raise
+            sp.set(status=206)
 
     @staticmethod
     def _progress_headers(ts) -> dict:

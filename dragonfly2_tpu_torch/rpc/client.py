@@ -16,6 +16,7 @@ import asyncio
 import logging
 from typing import Any, AsyncIterator
 
+from ..common import tracing
 from ..common.errors import Code, DFError
 from ..common.retry import Retrier, RetryPolicy
 from ..idl.base import dumps, loads
@@ -122,6 +123,15 @@ class Channel:
         self._active.clear()
 
 
+def _trace_metadata():
+    """The W3C traceparent as call metadata while a span is current
+    (reference ``rpc/client._trace_metadata``): one trace id then covers
+    the daemon's task span, the scheduler's ruling and the piece fetches.
+    Free with tracing off: no current span, no metadata."""
+    tp = tracing.traceparent()
+    return (("traceparent", tp),) if tp else None
+
+
 class _Call:
     """One call on one connection: header, message frames, END, and the
     server's messages up to its STATUS frame. The connection opens on
@@ -133,7 +143,7 @@ class _Call:
         self.header = wire.pack_map({
             "service": service, "method": method, "kind": kind,
             "timeout": float(timeout or 0.0),
-            "metadata": dict(metadata or ())})
+            "metadata": dict(metadata or _trace_metadata() or ())})
         self.what = f"{channel.address}/{service}/{method}"
         loop = asyncio.get_running_loop()
         self.deadline = loop.time() + timeout if timeout else None

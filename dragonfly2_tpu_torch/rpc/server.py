@@ -24,6 +24,7 @@ import logging
 import os
 from typing import AsyncIterator, Awaitable, Callable
 
+from ..common import tracing
 from ..common.errors import Code, DFError
 from ..idl.base import dumps, loads
 from ..idl.messages import Empty
@@ -73,6 +74,20 @@ class Context:
 
     def peer(self) -> str:
         return self._peer
+
+
+def span_parent(context):
+    """The caller's W3C traceparent from the call's metadata (client half:
+    ``client._trace_metadata``), as the ``parent`` of a
+    ``tracing.span``; None without one."""
+    try:
+        metadata = context.invocation_metadata() or ()
+    except Exception:  # noqa: BLE001 - stand-in contexts in tests
+        return None
+    for key, value in metadata:
+        if key == "traceparent":
+            return tracing.from_traceparent(value)
+    return None
 
 
 class _Protocol(Exception):

@@ -10,7 +10,9 @@ are the reference's defaults, as constants (reference
 The relay-tree shaping is off by default (``relay_fanout`` 0, the
 reference's exact path); shard affinity is on by default, as in the
 reference; the control plane's other extras (quarantine, federation,
-fleet pulse, state store, tracing) wait for later slices.
+fleet pulse, state store) wait for later slices. ``tracing_jsonl`` and
+``tracing_otlp`` turn tracing on (``common/tracing.py``), as the
+reference's keys do.
 """
 
 from __future__ import annotations
@@ -59,6 +61,8 @@ class SchedulerConfig:
     trainer_address: str = ""              # records upload target
     keepalive_interval_s: float = 30.0
     records_dir: str = ""                  # download-record JSONL ("" = memory-only)
+    tracing_jsonl: str = ""                # span export path ("" = disabled)
+    tracing_otlp: str = ""                 # OTLP/HTTP collector endpoint
     train_upload_interval_s: float = 60.0  # records -> trainer cadence
     model_refresh_interval_s: float = 60.0  # manager -> ml evaluator cadence
     # sharded-checkpoint shard affinity (scheduler/shard_affinity.py): at

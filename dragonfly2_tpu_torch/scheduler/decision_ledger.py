@@ -75,6 +75,14 @@ class DecisionLedger:
             "ring": len(self._ring),
         }
 
+    def state_bytes(self) -> int:
+        """Bytes of ledger state (the ring and its counters) for
+        ``/debug/ctrl``; a deep sizeof walk, at snapshot cadence only."""
+        from ..common.sizeof import deep_sizeof
+        seen: set = set()
+        return sum(deep_sizeof(o, seen) for o in (
+            self._ring, self.by_kind, self.excluded_by_reason))
+
     def snapshot(self, task_id: str = "", peer_id: str = "",
                  limit: int = 64) -> dict:
         """Newest-last slice of the ring (``task_id`` prefix, ``peer_id``
@@ -84,6 +92,23 @@ class DecisionLedger:
                 and (not peer_id or r.get("peer_id", "").endswith(peer_id))]
         return {"stats": self.stats(),
                 "decisions": rows[-max(limit, 1):]}
+
+
+def add_decision_routes(router, ledger: DecisionLedger) -> None:
+    """``GET /debug/decisions`` (``?task=`` prefix, ``?peer=`` suffix,
+    ``?limit=``), on the scheduler launcher's ``--debug-port`` server next
+    to ``/debug/cluster``."""
+
+    async def decisions(_params, query):
+        try:
+            limit = int(query.get("limit", "64"))
+        except ValueError:
+            return 400, "limit must be an integer"
+        return 200, ledger.snapshot(task_id=query.get("task", ""),
+                                    peer_id=query.get("peer", ""),
+                                    limit=limit)
+
+    router.add_get("/debug/decisions", decisions)
 
 
 # ------------------------------------------------------------- outcome join

@@ -449,6 +449,15 @@ class Resource:
 
     # -- GC ------------------------------------------------------------
 
+    def state_bytes(self) -> int:
+        """Bytes of cluster state of record (tasks, peers, hosts, DAGs) for
+        ``/debug/ctrl``; a deep sizeof walk over the object graph (the
+        visited set charges the peer, task and host cross-references
+        once), at snapshot cadence only."""
+        from ..common.sizeof import deep_sizeof
+        seen: set = set()
+        return sum(deep_sizeof(o, seen) for o in (self.tasks, self.hosts))
+
     def gc(self) -> int:
         """Evict idle peers, empty/expired tasks, and silent hosts."""
         now = time.time()

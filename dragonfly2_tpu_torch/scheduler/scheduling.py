@@ -19,7 +19,12 @@ one ``kind=decision`` row (candidates with their per-term decomposition
 and scoring-time feature rows, exclusions, the chosen offer) and stamps
 ``decision_id`` on the child. It observes only: the ranking key is
 ``explain()["total"]``, bit-identical to ``evaluate()``, and the rng is
-never touched, so the offer is the same armed or not.
+never touched, so the offer is the same armed or not. The ruling
+profiler (``common/phasetimer.py``) times each ruling (``find``,
+``refresh``, ``shard``) and its ``filter`` (with ``dag-walk`` inside),
+``score``, ``relay`` and ``emit`` phases under the same purity contract;
+``exclusion`` stays unfired, as in the reference without quarantine or
+federation.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ from __future__ import annotations
 import logging
 import random
 
+from ..common import phasetimer
 from ..common.metrics import REGISTRY
 from ..idl.messages import HostType, PeerAddr, PeerPacket
 from ..tpu.topology import link_type
@@ -64,9 +70,11 @@ class Scheduling:
         — the daemon then treats every requested shard as tree-class."""
         if self.sharded is None or not requested:
             return None
-        return self.sharded.assign(
-            task_id=child.task.id, peer_id=child.id, host_id=child.host.id,
-            topology=child.host.msg.topology, requested=requested)
+        with phasetimer.ruling("shard"):
+            return self.sharded.assign(
+                task_id=child.task.id, peer_id=child.id,
+                host_id=child.host.id,
+                topology=child.host.msg.topology, requested=requested)
 
     def filter_candidates(self, child: Peer,
                           excluded: list | None = None) -> list[Peer]:
@@ -79,7 +87,8 @@ class Scheduling:
         self.rng.shuffle(pool)
         # one reachability sweep per ruling: a parent downstream of the
         # child would close a cycle
-        cycle_blocked = task.dag.descendants(child.id)
+        with phasetimer.phase("dag-walk"):
+            cycle_blocked = task.dag.descendants(child.id)
         out: list[Peer] = []
         for parent in pool:
             full = len(out) >= FILTER_PARENT_LIMIT
@@ -203,41 +212,49 @@ class Scheduling:
         """Filter, score (stable sort, best first), choose; with the sink
         armed, rank by ``explain()["total"]`` (== ``evaluate()``) and emit
         the ruling's decision row."""
-        sink = self.decision_sink
-        excluded: list | None = [] if sink is not None else None
-        candidates = self.filter_candidates(child, excluded)
-        total = child.task.total_piece_count
-        explained: list[tuple[Peer, dict]] = []
-        relay_note: dict | None = None
-        prev_offer = set(child.last_offer_ids)
-        if not candidates:
-            offer: list[Peer] = []
-        else:
-            if sink is None:
-                scored = sorted(
-                    candidates,
-                    key=lambda p: self.evaluator.evaluate(
-                        child, p, total_piece_count=total),
-                    reverse=True)
+        with phasetimer.ruling(decision_kind):
+            sink = self.decision_sink
+            excluded: list | None = [] if sink is not None else None
+            with phasetimer.phase("filter"):
+                candidates = self.filter_candidates(child, excluded)
+            total = child.task.total_piece_count
+            explained: list[tuple[Peer, dict]] = []
+            relay_note: dict | None = None
+            prev_offer = set(child.last_offer_ids)
+            if not candidates:
+                offer: list[Peer] = []
             else:
-                explained = [(p, self.evaluator.explain(
-                    child, p, total_piece_count=total)) for p in candidates]
-                explained.sort(key=lambda pe: pe[1]["total"], reverse=True)
-                scored = [p for p, _ in explained]
-            if self.relay_fanout > 0:
-                scored, relay_note = self._relay_shape(child, scored)
-            limit = CANDIDATE_PARENT_LIMIT
-            if decision_kind == "refresh":
-                kept = [p for p in scored if p.id in prev_offer]
-                fresh = [p for p in scored if p.id not in prev_offer]
-                offer = self._ensure_holder(scored, (kept + fresh)[:limit])
-            else:
-                offer = self._ensure_holder(scored, scored[:limit])
-        if sink is not None:
-            self._emit_decision(child, decision_kind, explained,
-                                excluded or [], offer, prev_offer, total,
-                                relay_note=relay_note)
-        return offer
+                with phasetimer.phase("score"):
+                    if sink is None:
+                        scored = sorted(
+                            candidates,
+                            key=lambda p: self.evaluator.evaluate(
+                                child, p, total_piece_count=total),
+                            reverse=True)
+                    else:
+                        explained = [(p, self.evaluator.explain(
+                            child, p, total_piece_count=total))
+                            for p in candidates]
+                        explained.sort(key=lambda pe: pe[1]["total"],
+                                       reverse=True)
+                        scored = [p for p, _ in explained]
+                if self.relay_fanout > 0:
+                    with phasetimer.phase("relay"):
+                        scored, relay_note = self._relay_shape(child, scored)
+                limit = CANDIDATE_PARENT_LIMIT
+                if decision_kind == "refresh":
+                    kept = [p for p in scored if p.id in prev_offer]
+                    fresh = [p for p in scored if p.id not in prev_offer]
+                    offer = self._ensure_holder(scored,
+                                                (kept + fresh)[:limit])
+                else:
+                    offer = self._ensure_holder(scored, scored[:limit])
+            if sink is not None:
+                with phasetimer.phase("emit"):
+                    self._emit_decision(child, decision_kind, explained,
+                                        excluded or [], offer, prev_offer,
+                                        total, relay_note=relay_note)
+            return offer
 
     def _emit_decision(self, child: Peer, decision_kind: str,
                        explained: list, excluded: list, offer: list[Peer],

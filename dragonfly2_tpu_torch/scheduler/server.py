@@ -9,8 +9,9 @@ manager, keeps alive, adopts the manager's seed peers when none are
 configured, refreshes the application priority table, and the announcer
 pulls fitted models from the registry. Shard affinity
 (``shard_affinity_enabled``) rules sharded registers with the ledger as
-its sink and forgets evicted hosts and tasks. No quarantine, federation,
-state store, fleet pulse or tenant table.
+its sink and forgets evicted hosts and tasks. ``tracing_jsonl`` /
+``tracing_otlp`` configure the process's tracer at start. No quarantine,
+federation, state store, fleet pulse or tenant table.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import logging
 import random
 import socket
 
+from ..common import tracing
 from ..idl.messages import RegisterSchedulerRequest
 from ..rpc.manager_link import ManagerLink
 from ..rpc.server import RPCServer
@@ -80,6 +82,10 @@ class Scheduler:
         return f"{self.cfg.advertise_ip}:{self.port}"
 
     async def start(self) -> None:
+        if self.cfg.tracing_jsonl or self.cfg.tracing_otlp:
+            tracing.configure(service="dfscheduler",
+                              jsonl_path=self.cfg.tracing_jsonl,
+                              otlp_endpoint=self.cfg.tracing_otlp)
         self.rpc = RPCServer(f"{self.cfg.listen_ip}:{self.cfg.port}")
         self.rpc.register(build_service(self.service))
         await self.rpc.start()

@@ -29,9 +29,13 @@ pushes each changed ruling on the member's report stream
 (``PeerPacket.assigned_shards``).
 
 Download records (``records``: piece, failed-piece and peer rows, the
-trainer's dataset) are written where the reference writes them. Left out,
-for later slices: the cluster view, quarantine, federation, tenant
-quotas, QoS preemption, fleet pulse and preheat.
+trainer's dataset) are written where the reference writes them, and so
+are the cluster view's (``cluster_view.py``, ``GET /debug/cluster``). A
+register and a stream's first offer are spans of the caller's trace
+(``sched.register``, ``sched.offer``), and an armed ruling profiler
+notes each first offer's queue wait. Left out, for later slices:
+quarantine, federation, tenant quotas, QoS preemption, fleet pulse and
+preheat.
 
 A report stream that ends with the daemon's half-close is not marked
 ``stream_gone``: the daemon half-closes only on its way to the terminal
@@ -47,6 +51,7 @@ import logging
 import time
 from typing import AsyncIterator
 
+from ..common import phasetimer, tracing
 from ..common.errors import Code, DFError
 from ..common.metrics import REGISTRY
 from ..common.sharding import parse_shard_names
@@ -59,7 +64,8 @@ from ..idl.messages import (CLASS_DEFAULT_PRIORITY, PRIORITY_CLASSES,
                             RegisterResult, SinglePiece, SizeScope,
                             StatTaskRequest, SyncProbesResponse, TaskStat,
                             resolve_class)
-from ..rpc.server import ServiceDef
+from ..rpc.server import ServiceDef, span_parent
+from .cluster_view import ClusterView
 from .config import (BACK_SOURCE_TOTAL, CANDIDATE_PARENT_LIMIT,
                      DEFAULT_BACK_SOURCE_CONCURRENT, RETRY_BACK_SOURCE_LIMIT)
 from .resource import Peer, PeerState, Resource, TaskState
@@ -103,6 +109,9 @@ class SchedulerService:
         # scheduler/records.DownloadRecords, or None (no dataset kept)
         self.records = records
         self.ledger = ledger            # decision ledger (recovery rows)
+        # per-host download view of piece reports and flight summaries
+        # (GET /debug/cluster)
+        self.cluster = ClusterView(ledger=ledger)
         self._recovery_seq = 0
         self._seed_tasks: set[asyncio.Task] = set()
         # boot epoch, echoed on register/announce so daemons can tell a
@@ -120,6 +129,16 @@ class SchedulerService:
 
     async def register_peer_task(self, req: RegisterPeerTaskRequest,
                                  context) -> RegisterResult:
+        # the daemon's traceparent rides the call metadata: the ruling
+        # joins the task's trace, which also covers the piece fetches and
+        # the device landing
+        with tracing.span("sched.register", parent=span_parent(context),
+                          task_id=req.task_id[:16],
+                          peer_id=req.peer_id[-16:]):
+            return await self._register_peer_task(req, context)
+
+    async def _register_peer_task(self, req: RegisterPeerTaskRequest,
+                                  context) -> RegisterResult:
         if not req.task_id or not req.peer_id or req.peer_host is None:
             raise DFError(Code.INVALID_ARGUMENT,
                           "task_id, peer_id, peer_host required")
@@ -280,11 +299,21 @@ class SchedulerService:
         scheduler_task = loop.create_task(
             self._schedule_with_patience(peer, sink))
         refresher = loop.create_task(self._refresh_loop(peer))
+        # the daemon opened this stream inside its peertask span: mark the
+        # first offer (parents or a back-source verdict) in that trace
+        offer_parent = span_parent(context) if context is not None else None
+        first_offer = True
         try:
             while True:
                 packet = await sink.get()
                 if packet is None:
                     break
+                if first_offer:
+                    first_offer = False
+                    with tracing.span("sched.offer", parent=offer_parent,
+                                      task_id=peer.task.id[:16],
+                                      code=packet.code):
+                        pass
                 yield packet
         finally:
             # mark before the first await: a caller that goes away ends
@@ -327,7 +356,8 @@ class SchedulerService:
                 sink.put_nowait(packet)
             return
         loop = asyncio.get_running_loop()
-        deadline = loop.time() + SCHEDULE_PATIENCE_S
+        t0 = loop.time()
+        deadline = t0 + SCHEDULE_PATIENCE_S
         while True:
             if peer.is_done() or peer.state == PeerState.BACK_SOURCE:
                 return
@@ -341,6 +371,11 @@ class SchedulerService:
                 peer.task.detach_children(peer.id)
             parents = self.scheduling.find_parents(peer)
             if parents:
+                if phasetimer.ARMED:
+                    # queue wait: the stream's arrival -> this offer (the
+                    # ruling's own compute is microseconds against the
+                    # retry ticks that dominate a queued child)
+                    phasetimer.note_queue_wait(loop.time() - t0)
                 self._offer(peer, parents, "parents")
                 sink.put_nowait(self.scheduling.build_packet(peer, parents))
                 return
@@ -450,6 +485,12 @@ class SchedulerService:
                                    result: PieceResult) -> None:
         peer.touch()
         task = peer.task
+        # endgame duplicate racers both report the same piece; the cluster
+        # view counts delivered bytes once
+        duplicate = (result.success and result.piece_info is not None
+                     and result.piece_info.piece_num in peer.finished_pieces)
+        if not duplicate:
+            self.cluster.on_piece(peer, result)
         if result.success:
             _piece_reports.labels("ok").inc()
             if result.piece_info is not None:
@@ -539,6 +580,8 @@ class SchedulerService:
         # slots free up (the peer stays a piece-holder vertex)
         task.set_parents(peer.id, [])
         peer.last_offer_ids = set()
+        if result.flight_summary:
+            self.cluster.on_flight(peer, result.flight_summary)
         if self.records is not None:
             self.records.on_peer(peer, result)
             if result.flight_summary:

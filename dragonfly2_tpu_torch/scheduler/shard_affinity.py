@@ -130,6 +130,15 @@ class ShardAffinity:
             "chosen": list(assigned),
         })
 
+    def state_bytes(self) -> int:
+        """Bytes of shard-affinity state (request tables, assignment memos)
+        for ``/debug/ctrl``; a deep sizeof walk, at snapshot cadence
+        only."""
+        from ..common.sizeof import deep_sizeof
+        seen: set = set()
+        return sum(deep_sizeof(o, seen)
+                   for o in (self._requests, self._last))
+
     def drop_task(self, task_id: str) -> None:
         """Task GC (``Resource.on_task_evict``): request tables die with
         the task."""

@@ -4,7 +4,10 @@ Counterpart of ``dragonfly2_tpu/tools/daemon.py`` (reference
 ``cmd/dfget/cmd/daemon.go``): config from YAML or JSON (``--config``),
 DF_* env overrides and flags; SIGINT or SIGTERM shuts down cleanly. The
 device sink lands bytes on CUDA unless the config names
-``"device": "cpu"``.
+``"device": "cpu"``. ``--debug-endpoints`` serves ``/debug/stacks``,
+``/debug/profile`` and ``/debug/faults`` on the upload port (``/debug/
+health`` is always there); ``--tracing-jsonl`` / ``--tracing-otlp`` turn
+tracing on.
 """
 
 from __future__ import annotations
@@ -15,10 +18,10 @@ import signal
 import sys
 
 from ..common import logging as dflog
+from ..common import tracing
 from ..common.config import env_overrides, load_config
 from ..daemon.config import DaemonConfig
 from ..daemon.daemon import Daemon
-from . import refuse_unported
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -50,16 +53,12 @@ async def serve(cfg: DaemonConfig) -> None:
         loop.add_signal_handler(sig, stop.set)
     await stop.wait()
     await daemon.stop()
+    # the OTLP drain sleeps in bounded hops: off the loop
+    await asyncio.to_thread(tracing.shutdown)
 
 
 def main(argv: list[str] | None = None) -> int:
-    parser = build_parser()
-    args = parser.parse_args(argv)
-    refuse_unported(parser, {
-        "--debug-endpoints": (args.debug_endpoints,
-                              "the debug HTTP surface"),
-        "--tracing-jsonl": (args.tracing_jsonl, "tracing"),
-        "--tracing-otlp": (args.tracing_otlp, "tracing")})
+    args = build_parser().parse_args(argv)
     dflog.setup("DEBUG" if args.verbose else "INFO")
     overrides: dict = env_overrides()
     if args.workdir:
@@ -74,6 +73,17 @@ def main(argv: list[str] | None = None) -> int:
         overrides["is_seed"] = True
     if args.scheduler:
         overrides.setdefault("scheduler", {})["addresses"] = args.scheduler
+    if args.debug_endpoints:
+        overrides.setdefault("upload", {})["debug_endpoints"] = True
+    if args.tracing_jsonl or args.tracing_otlp:
+        tr = overrides.setdefault("tracing", {})
+        tr["enabled"] = True
+        # only the flags given: an empty value would clobber an exporter
+        # the file or the environment configured
+        if args.tracing_jsonl:
+            tr["jsonl_path"] = args.tracing_jsonl
+        if args.tracing_otlp:
+            tr["otlp_endpoint"] = args.tracing_otlp
     cfg = load_config(DaemonConfig, args.config or None, overrides)
     asyncio.run(serve(cfg))
     return 0

@@ -92,10 +92,10 @@ _ROW_KEY = {"schedule": "queue_ms", "first_byte": "ttfb_ms",
 # the reference's points whose modules this package lacks:
 # flag -> what it needs (ROADMAP Queue 1 item)
 UNPORTED_POINTS = {
-    "--pr6": "podscope, ROADMAP Queue 1 item 4",
-    "--ctrl": "phasetimer, ctrl_debug and fleetpulse, ROADMAP Queue 1 "
-              "item 4",
-    "--pr18": "fleetpulse and the daemon pulse, ROADMAP Queue 1 item 4",
+    "--pr6": "podscope, ROADMAP Queue 1 item 4b",
+    "--ctrl": "fleetpulse (ROADMAP Queue 1 item 4b), federation and "
+              "quarantine (item 5)",
+    "--pr18": "fleetpulse and the daemon pulse, ROADMAP Queue 1 item 4b",
     "--pr11": "the QoS traffic shaper, ROADMAP Queue 1 item 5",
     "--pr12": "the quarantine registry, ROADMAP Queue 1 item 5",
     "--pr13": "pod federation, ROADMAP Queue 1 item 5",

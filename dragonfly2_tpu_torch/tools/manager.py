@@ -3,6 +3,8 @@
 Counterpart of ``dragonfly2_tpu/tools/manager.py`` (reference
 ``cmd/manager``): config from YAML or JSON (``--config``), DF_* env
 overrides and flags; SIGINT or SIGTERM shuts down cleanly.
+``--debug-port`` serves ``/debug/{stacks,profile,health}`` and
+``/metrics``.
 """
 
 from __future__ import annotations
@@ -12,7 +14,9 @@ import asyncio
 import signal
 import sys
 
+from ..common import health, tracing
 from ..common import logging as dflog
+from ..common.debug_http import maybe_start_debug
 from ..common.config import env_overrides, load_config
 from ..manager.server import Manager, ManagerConfig
 from . import add_debug_arg, refuse_unported
@@ -35,9 +39,11 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-async def serve(cfg: ManagerConfig) -> None:
+async def serve(cfg: ManagerConfig, debug_port: int = 0) -> None:
+    health.PLANE.acquire()   # loop watchdog + /debug/health
     mgr = Manager(cfg)
     await mgr.start()
+    debug = await maybe_start_debug(debug_port)
     stop = asyncio.Event()
     loop = asyncio.get_running_loop()
     for sig in (signal.SIGINT, signal.SIGTERM):
@@ -45,7 +51,12 @@ async def serve(cfg: ManagerConfig) -> None:
     # announced once a SIGTERM stops it cleanly
     print(f"manager up: grpc={mgr.address} rest=:{mgr.rest.port}", flush=True)
     await stop.wait()
+    if debug is not None:
+        await debug.stop()
     await mgr.stop()
+    health.PLANE.release()
+    # the OTLP drain sleeps in bounded hops: off the loop
+    await asyncio.to_thread(tracing.shutdown)
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -53,8 +64,7 @@ def main(argv: list[str] | None = None) -> int:
     args = parser.parse_args(argv)
     refuse_unported(parser, {
         "--auth": (args.auth, "REST auth"),
-        "--issue-certs": (args.issue_certs, "certificate issuance"),
-        "--debug-port": (args.debug_port, "the debug HTTP surface")})
+        "--issue-certs": (args.issue_certs, "certificate issuance")})
     dflog.setup("DEBUG" if args.verbose else "INFO")
     overrides: dict = env_overrides()
     if args.grpc_port:
@@ -71,7 +81,7 @@ def main(argv: list[str] | None = None) -> int:
     if cfg.unported():
         parser.error("not ported to this package yet: "
                      + ", ".join(cfg.unported()))
-    asyncio.run(serve(cfg))
+    asyncio.run(serve(cfg, debug_port=args.debug_port))
     return 0
 
 

@@ -3,6 +3,9 @@
 Counterpart of ``dragonfly2_tpu/tools/scheduler.py`` (reference
 ``cmd/scheduler``): config from YAML or JSON (``--config``), DF_* env
 overrides and flags; SIGINT or SIGTERM shuts down cleanly.
+``--debug-port`` serves ``/debug/{stacks,profile,health}``, ``/metrics``,
+``/debug/cluster``, ``/debug/decisions`` and ``/debug/ctrl``;
+``--tracing-jsonl`` / ``--tracing-otlp`` turn tracing on.
 """
 
 from __future__ import annotations
@@ -12,11 +15,16 @@ import asyncio
 import signal
 import sys
 
+from ..common import health, tracing
 from ..common import logging as dflog
+from ..common.debug_http import maybe_start_debug
 from ..common.config import env_overrides, load_config
+from ..scheduler.cluster_view import add_cluster_routes
 from ..scheduler.config import SchedulerConfig
+from ..scheduler.ctrl_debug import CtrlObservatory, add_ctrl_routes
+from ..scheduler.decision_ledger import add_decision_routes
 from ..scheduler.server import Scheduler
-from . import add_debug_arg, refuse_unported
+from . import add_debug_arg
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -40,9 +48,19 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-async def serve(cfg: SchedulerConfig) -> None:
+async def serve(cfg: SchedulerConfig, debug_port: int = 0) -> None:
+    health.PLANE.acquire()   # loop watchdog + /debug/health
     sched = Scheduler(cfg)
     await sched.start()
+
+    def extra_routes(router) -> None:
+        add_cluster_routes(router, sched.service.cluster)
+        add_decision_routes(router, sched.ledger)
+        add_ctrl_routes(router, CtrlObservatory(
+            resource=sched.resource, ledger=sched.ledger,
+            sharded=sched.sharded))
+
+    debug = await maybe_start_debug(debug_port, extra_routes=extra_routes)
     stop = asyncio.Event()
     loop = asyncio.get_running_loop()
     for sig in (signal.SIGINT, signal.SIGTERM):
@@ -50,16 +68,16 @@ async def serve(cfg: SchedulerConfig) -> None:
     # announced once a SIGTERM stops it cleanly
     print(f"scheduler up: {sched.address}", flush=True)
     await stop.wait()
+    if debug is not None:
+        await debug.stop()
     await sched.stop()
+    health.PLANE.release()
+    # the OTLP drain sleeps in bounded hops: off the loop
+    await asyncio.to_thread(tracing.shutdown)
 
 
 def main(argv: list[str] | None = None) -> int:
-    parser = build_parser()
-    args = parser.parse_args(argv)
-    refuse_unported(parser, {
-        "--tracing-jsonl": (args.tracing_jsonl, "tracing"),
-        "--tracing-otlp": (args.tracing_otlp, "tracing"),
-        "--debug-port": (args.debug_port, "the debug HTTP surface")})
+    args = build_parser().parse_args(argv)
     dflog.setup("DEBUG" if args.verbose else "INFO")
     overrides: dict = env_overrides()
     if args.port:
@@ -76,8 +94,12 @@ def main(argv: list[str] | None = None) -> int:
         overrides["algorithm"] = args.algorithm
     if args.records_dir:
         overrides["records_dir"] = args.records_dir
+    if args.tracing_jsonl:
+        overrides["tracing_jsonl"] = args.tracing_jsonl
+    if args.tracing_otlp:
+        overrides["tracing_otlp"] = args.tracing_otlp
     cfg = load_config(SchedulerConfig, args.config or None, overrides)
-    asyncio.run(serve(cfg))
+    asyncio.run(serve(cfg, debug_port=args.debug_port))
     return 0
 
 

@@ -3,8 +3,10 @@
 Counterpart of ``dragonfly2_tpu/tools/trainer.py`` (reference
 ``cmd/trainer``): config from YAML or JSON (``--config``), DF_* env
 overrides and flags; SIGINT or SIGTERM shuts down cleanly. Fits run on
-the first CUDA card unless the config names ``"device": "cpu"``; with no
-card the launcher exits non-zero.
+every visible CUDA card (the mesh when there are several) unless the
+config names one device, such as ``"device": "cpu"``; with no card the
+launcher exits non-zero. ``--debug-port`` serves
+``/debug/{stacks,profile,health}`` and ``/metrics``.
 """
 
 from __future__ import annotations
@@ -14,10 +16,12 @@ import asyncio
 import signal
 import sys
 
+from ..common import health, tracing
 from ..common import logging as dflog
+from ..common.debug_http import maybe_start_debug
 from ..common.config import env_overrides, load_config
 from ..trainer.server import Trainer, TrainerConfig
-from . import add_debug_arg, refuse_unported
+from . import add_debug_arg
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -33,9 +37,11 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-async def serve(cfg: TrainerConfig) -> None:
+async def serve(cfg: TrainerConfig, debug_port: int = 0) -> None:
+    health.PLANE.acquire()   # loop watchdog + /debug/health
     trainer = Trainer(cfg)
     await trainer.start()
+    debug = await maybe_start_debug(debug_port)
     stop = asyncio.Event()
     loop = asyncio.get_running_loop()
     for sig in (signal.SIGINT, signal.SIGTERM):
@@ -43,14 +49,16 @@ async def serve(cfg: TrainerConfig) -> None:
     # announced once a SIGTERM stops it cleanly
     print(f"trainer up: {trainer.address}", flush=True)
     await stop.wait()
+    if debug is not None:
+        await debug.stop()
     await trainer.stop()
+    health.PLANE.release()
+    # the OTLP drain sleeps in bounded hops: off the loop
+    await asyncio.to_thread(tracing.shutdown)
 
 
 def main(argv: list[str] | None = None) -> int:
-    parser = build_parser()
-    args = parser.parse_args(argv)
-    refuse_unported(parser, {
-        "--debug-port": (args.debug_port, "the debug HTTP surface")})
+    args = build_parser().parse_args(argv)
     dflog.setup("DEBUG" if args.verbose else "INFO")
     overrides: dict = env_overrides()
     if args.port:
@@ -62,7 +70,7 @@ def main(argv: list[str] | None = None) -> int:
     if args.manager:
         overrides["manager_addresses"] = args.manager
     cfg = load_config(TrainerConfig, args.config or None, overrides)
-    asyncio.run(serve(cfg))
+    asyncio.run(serve(cfg, debug_port=args.debug_port))
     return 0
 
 

@@ -18,8 +18,30 @@ losses, optimizer, train step). The numerics are the reference's:
 Parameters cross to and from the reference as the numpy form of its param
 pytree (``params_to_numpy`` / ``params_from_numpy``), with the key order
 ``jax.tree_util`` gives (sorted), so a port blob's npz layout is the
-reference's. The mesh half (``make_mesh``, ``shard_*``,
-``sharded_train_step``) and ``synthetic_*_batch`` are not ported.
+reference's.
+
+The mesh half (``make_mesh``, ``shard_params``, ``shard_batch``,
+``sharded_train_step``; reference ``models.py:165-212``) runs one process
+per rank (``trainer/ranks.py`` starts them) on a ``torch.distributed``
+``DeviceMesh`` with axes ``("dp", "tp")``, split as the reference splits
+its mesh. The layout is the reference's ``_param_spec``: a 2-D weight
+shards its output dim over tp when that dim tiles evenly, biases and the
+1-wide head replicate, the batch splits over dp. The step is the global
+step, as the reference's jitted one: its loss and gradients are the
+single-device step's on the whole batch, up to reduction order.
+
+The collectives are explicit autograd functions, not DTensor. DTensor
+has no sharding rule for the GNN's ``index_add_``, and one explicit path
+serves both models. A tp-sharded ``Dense`` is Megatron's column-parallel
+layer: its input enters with an identity that all-reduces the input's
+gradient over tp (``_ToTP``), and its output columns are all-gathered
+with a backward that keeps this rank's columns (``_GatherCols``).
+``torch.distributed.nn.functional.all_gather`` would reduce-scatter the
+output gradient instead, which counts a consumer replicated over tp tp
+times. Gradients are summed over dp in one flat all-reduce per step. The
+GNN's graph is held whole on every rank (its edges point at nodes any
+rank may hold), and dp splits the loss's edges; the reference's GSPMD
+keeps the same computation global.
 """
 
 from __future__ import annotations
@@ -28,6 +50,7 @@ import os
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -53,10 +76,16 @@ class Dense(nn.Module):
         super().__init__()
         self.w = nn.Parameter(torch.zeros(n_in, n_out))
         self.b = nn.Parameter(torch.zeros(n_out))
+        # (group, rank, size) of the tp axis once shard_params has cut
+        # ``w`` to this rank's output columns; None while whole
+        self.tp = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # bf16 operands, f32 products and sum (reference _dense)
-        return _bf16(x) @ _bf16(self.w) + self.b
+        if self.tp is None:
+            return _bf16(x) @ _bf16(self.w) + self.b
+        x = _ToTP.apply(x, self.tp)
+        return _GatherCols.apply(_bf16(x) @ _bf16(self.w), self.tp) + self.b
 
 
 class MLP(nn.Module):
@@ -147,17 +176,17 @@ def _dense_np(layer: Dense) -> dict:
             "w": layer.w.detach().cpu().numpy().astype(np.float32)}
 
 
-def params_to_numpy(model: nn.Module) -> dict:
+def params_to_numpy(model: nn.Module, leaf=_dense_np) -> dict:
     """The reference's param pytree as numpy, keys in ``jax.tree_util``
     order (sorted): ``{"layers": [{"b", "w"}, ...]}`` or ``{"encode",
-    "head", "msg": [...], "upd": [...]}``."""
+    "head", "msg": [...], "upd": [...]}``; ``leaf`` maps one ``Dense``."""
     if isinstance(model, MLP):
-        return {"layers": [_dense_np(layer) for layer in model.layers]}
+        return {"layers": [leaf(layer) for layer in model.layers]}
     if isinstance(model, GNN):
-        return {"encode": _dense_np(model.encode),
-                "head": _dense_np(model.head),
-                "msg": [_dense_np(p) for p in model.msg],
-                "upd": [_dense_np(p) for p in model.upd]}
+        return {"encode": leaf(model.encode),
+                "head": leaf(model.head),
+                "msg": [leaf(p) for p in model.msg],
+                "upd": [leaf(p) for p in model.upd]}
     raise TypeError(f"not a trainer model: {type(model).__name__}")
 
 
@@ -233,3 +262,215 @@ def make_train_step(loss_fn, optimizer: torch.optim.Optimizer):
         return loss.detach()
 
     return step
+
+
+# ------------------------------------------------------------------ sharding
+
+class _ToTP(torch.autograd.Function):
+    """Identity forward; the input's gradient summed over tp backward
+    (each tp rank holds only its columns' share of it)."""
+
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, group=ctx.tp[0])
+        return grad, None
+
+
+class _GatherCols(torch.autograd.Function):
+    """All-gather the output columns over tp forward; this rank's columns
+    of the gradient backward (every tp rank computes the same consumer)."""
+
+    @staticmethod
+    def forward(ctx, y, tp):
+        group, rank, size = tp
+        ctx.cols = (rank * y.shape[-1], (rank + 1) * y.shape[-1])
+        parts = [torch.empty_like(y) for _ in range(size)]
+        dist.all_gather(parts, y.contiguous(), group=group)
+        return torch.cat(parts, -1)
+
+    @staticmethod
+    def backward(ctx, grad):
+        lo, hi = ctx.cols
+        return grad[..., lo:hi].contiguous(), None
+
+
+def mesh_shape(n_devices: int) -> tuple[int, int]:
+    """(dp, tp) for ``n_devices``: dp takes half (at least 1), tp the
+    residue (reference ``make_mesh``). dp * tp falls one short of an odd
+    ``n_devices`` above 3: the mesh leaves the last device out."""
+    dp = max(1, n_devices // 2)
+    return dp, n_devices // dp
+
+
+def make_mesh(n_devices: int | None = None, *, device_type: str = "cuda"):
+    """A ``DeviceMesh`` with axes ``("dp", "tp")`` over the ranks of the
+    initialized process group (one rank per device; the group's size
+    must be ``mesh_shape``'s dp * tp)."""
+    from torch.distributed.device_mesh import init_device_mesh
+    n = n_devices or dist.get_world_size()
+    return init_device_mesh(device_type, mesh_shape(n),
+                            mesh_dim_names=("dp", "tp"))
+
+
+def _param_spec(shape, tp: int) -> tuple:
+    """The reference's ``PartitionSpec`` as a tuple: ``(None, "tp")`` for
+    a weight matrix whose output dim tiles evenly over tp, ``()``
+    (replicated) for biases, scalars and the 1-wide head."""
+    if len(shape) == 2 and tp > 1 and shape[1] % tp == 0 \
+            and shape[1] >= tp:
+        return (None, "tp")
+    return ()
+
+
+def _tp(mesh) -> tuple:
+    return (mesh.get_group("tp"), mesh.get_local_rank("tp"),
+            mesh.size(1))
+
+
+def _denses(model: nn.Module) -> list[Dense]:
+    return [m for m in model.modules() if isinstance(m, Dense)]
+
+
+def shard_params(model: nn.Module, mesh) -> nn.Module:
+    """Cut each weight ``_param_spec`` shards to this rank's output
+    columns, in place; call before the optimizer is made."""
+    group, rank, size = tp = _tp(mesh)
+    for layer in _denses(model):
+        if _param_spec(tuple(layer.w.shape), size) != (None, "tp"):
+            continue
+        k = layer.w.shape[1] // size
+        layer.w = nn.Parameter(
+            layer.w.detach()[:, rank * k:(rank + 1) * k].contiguous())
+        layer.tp = tp
+    return model
+
+
+def _dp_part(n: int, mesh) -> tuple[int, int]:
+    """This rank's [lo, hi) of ``n`` rows over dp (``tensor_split``'s
+    split: the first ``n % dp`` parts one row longer)."""
+    dp, r = mesh.size(0), mesh.get_local_rank("dp")
+    base, extra = divmod(n, dp)
+    lo = r * base + min(r, extra)
+    return lo, lo + base + (r < extra)
+
+
+def shard_batch(batch: dict, mesh) -> dict:
+    """This rank's dp slice of every leaf with a leading dim (the
+    reference's ``P("dp")``)."""
+    out = {}
+    for k, v in batch.items():
+        if v.ndim >= 1:
+            lo, hi = _dp_part(v.shape[0], mesh)
+            v = v[lo:hi]
+        out[k] = v
+    return out
+
+
+def _mlp_loss_part(model: MLP, batch: dict, mesh) -> torch.Tensor:
+    """This rank's share of the whole batch's MSE: its rows' mean times
+    their fraction of the batch (exactly the mean at dp = 1)."""
+    local = shard_batch(batch, mesh)
+    n = batch["y"].shape[0]
+    return mlp_loss(model, local) * (local["y"].shape[0] / n)
+
+
+def _gnn_loss_part(model: GNN, batch: dict, mesh) -> torch.Tensor:
+    """The whole graph's forward; this rank's dp slice of the edges'
+    masked squared error over the whole graph's mask count."""
+    pred = model(batch["nodes"], batch["edge_src"], batch["edge_dst"],
+                 batch["edge_feat"], batch["edge_mask"])
+    lo, hi = _dp_part(pred.shape[0], mesh)
+    mask = batch["edge_mask"]
+    err = (pred[lo:hi] - batch["y"][lo:hi]) ** 2 * mask[lo:hi]
+    return torch.sum(err) / torch.clamp_min(torch.sum(mask), 1.0)
+
+
+_LOSS_PARTS = {mlp_loss: _mlp_loss_part, gnn_loss: _gnn_loss_part}
+
+
+def sharded_train_step(loss_fn, optimizer: torch.optim.Optimizer, mesh):
+    """(model, batch) -> the whole batch's loss before the update, for a
+    model through ``shard_params``; ``batch`` is the whole batch on this
+    rank's device (the step takes its dp slice)."""
+    part_fn = _LOSS_PARTS[loss_fn]
+    dp_group = mesh.get_group("dp")
+
+    def step(model: nn.Module, batch: dict) -> torch.Tensor:
+        optimizer.zero_grad(set_to_none=True)
+        part = part_fn(model, batch, mesh)
+        part.backward()
+        params = [p for p in model.parameters() if p.grad is not None]
+        flat = torch.cat([p.grad.reshape(-1) for p in params])
+        dist.all_reduce(flat, group=dp_group)
+        off = 0
+        for p in params:
+            p.grad.copy_(flat[off:off + p.numel()].view_as(p.grad))
+            off += p.numel()
+        optimizer.step()
+        loss = part.detach().clone()
+        dist.all_reduce(loss, group=dp_group)
+        return loss
+
+    return step
+
+
+def gather_params(model: nn.Module, *, grads: bool = False) -> dict:
+    """The whole numpy param tree (or its gradients) of a sharded model,
+    every tp-sharded weight all-gathered over tp. Collective: every rank
+    calls it, and each gets the whole tree."""
+    def leaf(layer: Dense) -> dict:
+        w, b = ((layer.w.grad, layer.b.grad) if grads
+                else (layer.w.detach(), layer.b.detach()))
+        if layer.tp is not None:
+            group, _, size = layer.tp
+            parts = [torch.empty_like(w) for _ in range(size)]
+            dist.all_gather(parts, w.contiguous(), group=group)
+            w = torch.cat(parts, 1)
+        return {"b": b.cpu().numpy().astype(np.float32),
+                "w": w.cpu().numpy().astype(np.float32)}
+    return params_to_numpy(model, leaf=leaf)
+
+
+# ------------------------------------------------------------------ synthetic data
+
+def synthetic_mlp_batch(seed: int = 0, batch_size: int = 256) -> dict:
+    """The reference's synthetic MLP batch (shapes, dtypes, label
+    formula) from ``np.random.default_rng(seed)``: ``jax.random`` streams
+    cannot be reproduced, so parity tests feed both packages this batch."""
+    rng = np.random.default_rng(seed)
+    x = rng.random((batch_size, MLP_FEATURES), dtype=np.float32)
+    w = np.linspace(1.0, 0.2, MLP_FEATURES, dtype=np.float32)
+    noise = rng.standard_normal(batch_size, dtype=np.float32)
+    return {"x": x, "y": (x @ w + np.float32(0.05) * noise).astype(np.float32)}
+
+
+def synthetic_gnn_batch(seed: int = 0, n_nodes: int = 32,
+                        n_edges: int = 128) -> dict:
+    """The reference's synthetic host graph, from numpy (see
+    ``synthetic_mlp_batch``)."""
+    rng = np.random.default_rng(seed)
+    nodes = rng.random((n_nodes, GNN_NODE_FEATURES), dtype=np.float32)
+    edge_src = rng.integers(0, n_nodes, n_edges, dtype=np.int32)
+    edge_dst = rng.integers(0, n_nodes, n_edges, dtype=np.int32)
+    edge_feat = rng.random((n_edges, GNN_EDGE_FEATURES), dtype=np.float32)
+    y = (1.0 / (1.0 + edge_feat[:, 0])).astype(np.float32)
+    return {"nodes": nodes, "edge_src": edge_src, "edge_dst": edge_dst,
+            "edge_feat": edge_feat,
+            "edge_mask": np.ones((n_edges,), np.float32), "y": y}
+
+
+def batch_to_device(batch: dict, device) -> dict:
+    """A numpy batch as tensors on ``device``; index leaves as int64."""
+    out = {}
+    for k, v in batch.items():
+        t = torch.from_numpy(np.ascontiguousarray(v))
+        dtype = torch.int64 if t.dtype in (torch.int32, torch.int64) \
+            else None
+        out[k] = t.to(device=device, dtype=dtype)
+    return out

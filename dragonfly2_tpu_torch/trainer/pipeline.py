@@ -84,7 +84,7 @@ def training_rows(rows: list[dict]) -> tuple[list[dict], str]:
 
 def train_decision_model(rows: list[dict], *, seed: int = 0,
                          epochs: int = DEFAULT_EPOCHS, batch_size: int = 512,
-                         device=None
+                         use_mesh: bool = True, device=None
                          ) -> tuple[bytes, dict] | None:
     """Seeded deterministic fit of the parent-quality MLP over raw
     scheduler record rows (decisions + outcomes mixed, any schema
@@ -94,14 +94,14 @@ def train_decision_model(rows: list[dict], *, seed: int = 0,
     fit_rows, source = training_rows(rows)
     fitted = training.train_mlp(fit_rows, epochs=epochs,
                                 batch_size=batch_size, seed=seed,
-                                device=device)
+                                use_mesh=use_mesh, device=device)
     if fitted is None and source == "decision_outcomes":
         # a handful of joined decisions (fleet mid-upgrade, decision sink
         # freshly armed) must not starve the fit when raw piece rows are
         # plentiful — degrade to the piece-row supervision
         fitted = training.train_mlp(rows, epochs=epochs,
                                     batch_size=batch_size, seed=seed,
-                                    device=device)
+                                    use_mesh=use_mesh, device=device)
         source = "piece_rows"
     if fitted is None:
         log.info("pipeline: %d record rows folded to %d %s rows — below "
@@ -115,12 +115,12 @@ def train_decision_model(rows: list[dict], *, seed: int = 0,
 
 def train_from_records(path: str, *, seed: int = 0,
                        epochs: int = DEFAULT_EPOCHS, batch_size: int = 512,
-                       device=None
+                       use_mesh: bool = True, device=None
                        ) -> tuple[bytes, dict] | None:
     """File-to-model: everything above in one call."""
     return train_decision_model(load_records_jsonl(path), seed=seed,
                                 epochs=epochs, batch_size=batch_size,
-                                device=device)
+                                use_mesh=use_mesh, device=device)
 
 
 def main(argv: list[str] | None = None) -> int:

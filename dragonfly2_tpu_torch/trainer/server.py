@@ -4,8 +4,9 @@ Counterpart of ``dragonfly2_tpu/trainer/server.py`` (reference
 ``trainer/trainer.go:187`` New/Serve): the dataset storage, the ``Train``
 sink, and the manager connection the fitted models are published through
 (none without ``manager_addresses``: models then stay in the service).
-``device`` is where fits run: the first CUDA card by default (an error
-when there is none), ``"cpu"`` only when named.
+``device`` is where fits run: every visible CUDA card by default (the
+mesh when there are several; an error when there is none), ``"cpu"``
+only when named.
 """
 
 from __future__ import annotations

@@ -5,7 +5,7 @@ Counterpart of ``dragonfly2_tpu/trainer/service.py`` (reference
 receives gzip'd datasets keyed by (hostname, ip), lands them in
 ``trainer/storage``, and on stream close fits the models
 (``trainer/pipeline.py`` for the MLP, ``trainer/training.py`` for the
-GNN) on the service's device, in a worker thread, and publishes each
+GNN) on the service's device or mesh, in a worker thread, and publishes each
 fitted model to the manager's model registry (``CreateModel``) when the
 service has a manager link; the latest fit of each model also stays in
 ``latest``.
@@ -51,12 +51,15 @@ MIN_FIT_ROWS = 32
 class TrainerService:
     def __init__(self, storage: TrainerStorage, *, device=None,
                  manager=None):
-        """``device``: where fits run (default: the first CUDA card; raises
-        when there is none), resolved here, not in the fit's worker
-        thread. ``manager``: a ManagerLink fitted models are published
-        through; None keeps them local."""
+        """``device``: where fits run (default: every visible CUDA card,
+        one when there is one; raises here when there is none). A fit gets
+        ``device`` as given, so an unnamed card (None or ``"cuda"``) lets
+        it take the mesh (``training.mesh_world``); ``self.device`` is the
+        resolved first card. ``manager``: a ManagerLink fitted models are
+        published through; None keeps them local."""
         self.storage = storage
         self.device = training.resolve_device(device)
+        self._fit_device = device
         self.manager = manager
         self.latest: dict[str, tuple[bytes, dict]] = {}   # name -> (blob, metrics)
         self._infer_cache: dict[str, object] = {}         # name -> callable
@@ -151,10 +154,11 @@ class TrainerService:
             mlp = gnn = None
             if rows is not None:
                 mlp = await asyncio.to_thread(
-                    pipeline.train_decision_model, rows, device=self.device)
+                    pipeline.train_decision_model, rows,
+                    device=self._fit_device)
             if topo_rows is not None:
                 gnn = await asyncio.to_thread(
-                    training.train_gnn, topo_rows, device=self.device)
+                    training.train_gnn, topo_rows, device=self._fit_device)
             for name, fitted, attempted in (
                     (training.MLP_MODEL_NAME, mlp, rows is not None),
                     (training.GNN_MODEL_NAME, gnn, topo_rows is not None)):

@@ -1,6 +1,7 @@
 """Phase 9 of ``chip_smoke.py`` alone, repeated, with a per-piece trace.
 
     python3 tests/sharded_trace.py [--runs 3] [--trace-from 0]
+                                   [--health-plane on|off|alternate]
     python3 tests/sharded_trace.py --cpu-pod ref|port
 
 Needs one CUDA card, except with ``--cpu-pod`` (below). Builds phase 2's reference tensor and phase 6's
@@ -37,7 +38,11 @@ seed daemon) it prints, on the same clock:
   start/end`` and ``SEED FINISH end`` around the seed's finalize.
 
 Only pieces numbered ``--trace-from`` and up are traced, and every swap
-piece the seed serves. A check that fails is printed and the next run
+piece the seed serves. ``--health-plane off`` builds the four replicas
+(this process's daemons) with ``health.enabled`` false, so no loop-lag
+sampler, watchdog section or SLO counting runs on their loop; the seed's
+child keeps the default. ``alternate`` runs on, off, off, on, ... to
+compare the two within one call. A check that fails is printed and the next run
 goes on; the exit code is 1 when any run failed.
 
 ``--cpu-pod ref|port`` runs the same question on the CPU through either
@@ -149,12 +154,12 @@ def traced_child(workdir: str, conn) -> None:
     trace_seed(tail)
     packet = rpcserver.DaemonService._packet
 
-    def traced_packet(self, request, ts, infos):
+    def traced_packet(self, request, ts, infos, *rest):
         nums = [i.piece_num for i in infos if i.piece_num >= tail]
         if nums:
             say(f"SYNC {request.dst_peer_id[-6:]} -> "
                 f"{request.src_peer_id[-6:]} {nums}")
-        return packet(self, request, ts, infos)
+        return packet(self, request, ts, infos, *rest)
     rpcserver.DaemonService._packet = traced_packet
     cs.p2p_child(workdir, conn)
 
@@ -214,12 +219,12 @@ def trace(tail: int) -> None:
             f"{sys._getframe(1).f_code.co_name}")
         return await remove(self, peer_id)
 
-    def traced_packet(self, request, ts, infos):
+    def traced_packet(self, request, ts, infos, *rest):
         nums = [i.piece_num for i in infos if i.piece_num >= tail]
         if nums:
             say(f"SYNC {request.dst_peer_id[-6:]} -> "
                 f"{request.src_peer_id[-6:]} {nums}")
-        return packet(self, request, ts, infos)
+        return packet(self, request, ts, infos, *rest)
 
     async def traced_receive(self, pkt):
         nums = [i.piece_num for i in pkt.piece_infos or []
@@ -396,6 +401,14 @@ async def _drain(frames) -> None:
         pass
 
 
+def _without_health(daemon_config):
+    def make(*a, **kw):
+        cfg = daemon_config(*a, **kw)
+        cfg.health.enabled = False
+        return cfg
+    return make
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--runs", type=int, default=3)
@@ -403,6 +416,9 @@ def main() -> int:
                     help="trace pieces numbered this and up (default none)")
     ap.add_argument("--cpu-pod", choices=("ref", "port"), default="",
                     help="run the CPU pod through this package instead")
+    ap.add_argument("--health-plane", choices=("on", "off", "alternate"),
+                    default="on",
+                    help="the replicas' health plane, per run")
     args = ap.parse_args()
     if args.cpu_pod:
         workdir = tempfile.mkdtemp(prefix="sharded-trace-cpu-")
@@ -431,8 +447,14 @@ def main() -> int:
             f.write(memoryview(buf))
             os.fsync(f.fileno())
         del buf
+        daemon_config = cs.DaemonConfig
         for i in range(args.runs):
-            say(f"run {i}")
+            plane = args.health_plane
+            if plane == "alternate":
+                plane = "on" if i % 4 in (0, 3) else "off"
+            cs.DaemonConfig = (daemon_config if plane == "on"
+                               else _without_health(daemon_config))
+            say(f"run {i} (health plane {plane})")
             try:
                 cs.phase_sharded(workdir, path, header, ref, layout, device)
                 say(f"run {i}: ok")

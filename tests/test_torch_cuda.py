@@ -10,6 +10,7 @@ installed::
 
 import argparse
 import asyncio
+import functools
 import hashlib
 import json
 import os
@@ -32,7 +33,8 @@ from dragonfly2_tpu_torch.scheduler.config import SeedPeerAddr
 from dragonfly2_tpu_torch.scheduler.server import Scheduler
 from dragonfly2_tpu_torch.tpu.hbm_sink import DeviceIngest
 from dragonfly2_tpu_torch.tools import dfbench
-from dragonfly2_tpu_torch.trainer import features, pipeline, training
+from dragonfly2_tpu_torch.trainer import (features, models, pipeline, ranks,
+                                          training)
 from dragonfly2_tpu_torch.trainer.server import Trainer, TrainerConfig
 
 
@@ -389,3 +391,42 @@ def test_trainer_on_card_publishes_and_scheduler_binds_it(cuda, tmp_path):
             await mgr.stop()
 
     asyncio.run(asyncio.wait_for(main(), 120))
+
+
+@pytest.mark.gpu
+def test_one_rank_nccl_step_equals_the_single_device_step(cuda,
+                                                         monkeypatch):
+    """The sharded step on a one-rank NCCL mesh (dp=1, tp=1, a spawned
+    rank on card 0) gives each model the single-device step's loss and
+    gradients on the same params and batch; ``train_mlp`` with the mesh
+    default on one card reports one device."""
+    from dragonfly2_tpu_torch import graft_entry
+    monkeypatch.setattr(ranks, "run_ranks",
+                        functools.partial(ranks.run_ranks, timeout_s=120))
+    out = graft_entry.dryrun_multichip(1, device="cuda")
+    assert out["mesh"] == {"dp": 1, "tp": 1}
+    losses = {"mlp": models.mlp_loss, "gnn": models.gnn_loss}
+    for name, (tree, batch) in graft_entry.dryrun_inputs().items():
+        with training.fit_numerics():
+            model = models.params_from_numpy(tree).to(cuda)
+            step = models.make_train_step(losses[name],
+                                          models.make_optimizer(model))
+            loss = float(step(model, models.batch_to_device(batch, cuda)))
+        assert out[name]["loss"] == pytest.approx(loss, rel=1e-6)
+        grads = models.params_to_numpy(model, leaf=lambda d: {
+            "b": d.b.grad.cpu().numpy(), "w": d.w.grad.cpu().numpy()})
+        for got, want in zip(_leaves(out[name]["grads"]), _leaves(grads)):
+            np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-9)
+    rows = _mlp_rows(4, 256)
+    blob, metrics = training.train_mlp(rows, epochs=5, seed=3)
+    assert metrics["devices"] == 1
+    assert blob == training.train_mlp(rows, epochs=5, seed=3,
+                                      use_mesh=False)[0]
+
+
+def _leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    if isinstance(tree, list):
+        return [x for v in tree for x in _leaves(v)]
+    return [np.asarray(tree)]

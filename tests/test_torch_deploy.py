@@ -284,17 +284,8 @@ def test_launcher_flags_match_reference(port, ref):
 @pytest.mark.parametrize("module,argv,names", [
     (manager_cli, ["--auth"], "REST auth"),
     (manager_cli, ["--issue-certs"], "certificate issuance"),
-    (manager_cli, ["--debug-port", "-1"], "--debug-port"),
-    (scheduler_cli, ["--tracing-jsonl", "x.jsonl"], "tracing"),
-    (scheduler_cli, ["--tracing-otlp", "http://c:4318"], "tracing"),
-    (scheduler_cli, ["--debug-port", "1"], "--debug-port"),
-    (trainer_cli, ["--debug-port", "1"], "--debug-port"),
-    (daemon_cli, ["--debug-endpoints"], "--debug-endpoints"),
-    (daemon_cli, ["--tracing-jsonl", "x.jsonl"], "tracing"),
-    (daemon_cli, ["--tracing-otlp", "http://c:4318"], "tracing"),
     (dfget_cli, ["u", "-O", "o", "--recursive"], "recursive"),
     (dfget_cli, ["u", "-O", "o", "-r"], "recursive"),
-    (trainer_cli, ["--debug-port", "-1"], "--debug-port"),
     (dfget_cli, ["u", "-O", "o", "--tenant", "t"], "tenant"),
     (dfget_cli, ["u", "-O", "o", "--qos-class", "bulk"], "QoS"),
 ])

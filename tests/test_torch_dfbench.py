@@ -5,9 +5,6 @@ Each point runs through both packages on the same seed at the reference's
 8 shards of 16 pieces of 64 KiB for ``--pr14``) and the result dicts must
 be equal, except:
 
-- ``per_daemon.*.slo_breaches``: the reference's health plane annotates
-  flight summaries with SLO breaches, the port's carry none (ROADMAP
-  known difference 26);
 - ``--pr5``'s ``landing.span_write``: it names the storage library that
   loaded, the port's always builds, the reference's only after ``make -C
   native`` (known difference 3); the full-size run holds it against
@@ -39,6 +36,7 @@ from dragonfly2_tpu.common import digest as ref_digest
 from dragonfly2_tpu.tools import dfbench as ref
 from dragonfly2_tpu.trainer import pipeline as ref_pipeline
 from dragonfly2_tpu_torch.common import digest
+from dragonfly2_tpu_torch.common import phasetimer
 from dragonfly2_tpu_torch.tools import dfbench
 from dragonfly2_tpu_torch.trainer import pipeline
 
@@ -71,16 +69,11 @@ def _bench(name: str) -> dict:
         return json.load(f)
 
 
-def _without_slo(obj):
-    """``obj`` with every ``slo_breaches`` key dropped (known difference
-    26), through JSON so tuples compare as the committed lists."""
-    def walk(o):
-        if isinstance(o, dict):
-            return {k: walk(v) for k, v in o.items() if k != "slo_breaches"}
-        if isinstance(o, list):
-            return [walk(v) for v in o]
-        return o
-    return walk(json.loads(json.dumps(obj)))
+def _as_json(obj):
+    """``obj`` through JSON, so tuples compare as the committed lists;
+    the flight summaries' ``slo_breaches`` included (both health planes
+    annotate them)."""
+    return json.loads(json.dumps(obj))
 
 
 # ---------------------------------------------------------------- parity
@@ -92,14 +85,14 @@ def test_run_bench_matches_reference(scenario):
               collect_timeline=True)
     got = dfbench.run_bench(**kw)
     want = ref.run_bench(**kw)
-    assert _without_slo(got) == _without_slo(want)
+    assert _as_json(got) == _as_json(want)
 
 
 @pytest.mark.parametrize("point", ["pr4", "pr8", "pr9", "pr10", "pr14"])
 def test_smoke_point_matches_reference(point):
     got = getattr(dfbench, f"_run_{point}")(_args(**SMOKE))
     want = getattr(ref, f"_run_{point}")(_args(**SMOKE))
-    assert _without_slo(got) == _without_slo(want)
+    assert _as_json(got) == _as_json(want)
 
 
 def test_pr5_smoke_matches_reference():
@@ -108,7 +101,7 @@ def test_pr5_smoke_matches_reference():
     assert got["landing"]["per_piece_fallback"] is False
     for r in (got, want):
         del r["landing"]["span_write"]
-    assert _without_slo(got) == _without_slo(want)
+    assert _as_json(got) == _as_json(want)
 
 
 @pytest.mark.parametrize("size", ["smoke", "full"])
@@ -186,7 +179,7 @@ def test_full_size_point_equals_the_committed_file(point, bench):
         # mesh/origin byte split
         assert set(got) - set(want) == {"scenario", "p2p_served_ratio"}
         got = {k: got[k] for k in want}
-    assert _without_slo(got) == _without_slo(want)
+    assert _as_json(got) == _as_json(want)
     assert got.get("schedule_digest", "") == want.get("schedule_digest", "")
 
 
@@ -233,6 +226,24 @@ def test_rollout_partner_exemption_is_the_ruling_that_moves_the_digest():
         assert port["schedule_digest"] != want[key]["schedule_digest"]
         assert port["complete"] == port["alive"] == positions * replicas
         assert port["dcn_bytes"] <= 1.5 * port["content_bytes"]
+
+
+def test_armed_profiler_keeps_the_baseline_schedule_digest():
+    """``--ctrl``'s ``profiler_pure`` leg (reference ``dfbench.py:3066-
+    3076``): the full-size baseline with the ruling profiler armed keeps
+    BENCH_pr3's ``schedule_digest``, and the profiler saw its rulings."""
+    args = _args(**FULL)
+    phasetimer.reset()
+    phasetimer.arm()
+    try:
+        got = dfbench.run_bench(**dfbench._bench_kw(args))
+        snap = phasetimer.snapshot()
+    finally:
+        phasetimer.reset()
+    assert got["schedule_digest"] == _bench("pr3")["schedule_digest"]
+    assert got["schedule_digest"].startswith("cd0105ca")
+    assert snap["rulings"]["by_kind"]["find"]["count"] > 0
+    assert {"filter", "dag-walk", "score"} <= set(snap["phases"])
 
 
 # ---------------------------------------------------------------- the CLI
