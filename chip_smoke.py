@@ -9,7 +9,9 @@ seed peer does for every task, and then from peers, as the P2P path does.
 The cut-through relay and the PEX gossip plane are on (the daemon's
 defaults) in every P2P phase: phases 6 and 9 print each daemon's relayed
 serves and bytes, and phases 6, 9, 10 and 11 the PEX advisory primes and
-parent hits of this process's leechers.
+parent hits of this process's leechers. Every seed rations its
+announcements through super-seeding and announces only landed pieces, so
+a chain's first relaying hop is the seed's first child.
 
 1. device   — the card's name, count, power limit; no CUDA card is an error
 2. sink     — a seeded buffer written into ``DeviceIngest`` as shuffled
@@ -159,6 +161,32 @@ parent hits of this process's leechers.
               single-device step's, and ``train_decision_model`` with the
               mesh default on one card must report one device and repeat
               phase 7's seed-7 blob
+15. superseed — run after phase 14, on phase 8's origin, served over HTTP
+              by phase 11's server in a child, paced to 250 MB/s. A
+              scheduler here, its config loaded from a file in the
+              reference's key format (``cluster_id: 2``, default upload
+              limits); a seed in a child, its file setting
+              ``upload.rate_limit_bps`` (200 MB/s, below the origin's
+              pace), ``upload.concurrent_limit``,
+              ``download.piece_parallelism`` and ``piece_timeout_s``; it
+              rations its announcements through super-seeding. Leechers
+              L1-L4 here, started together (manifest sinks on the card,
+              back-source disabled). Every tensor must equal the origin;
+              the origin must send each byte once, to the seed; no packet
+              of the seed's piece-sync streams may carry ``relay_nums``;
+              the seed's uplink ratio must stay below the star's 4.0, its
+              serve rate over its serving window within the limit plus the
+              bucket's burst, and the limit must have held some serve.
+              Then ranged requests for ``model.norm.weight`` and a 64 MiB
+              slice of ``lm_head.weight`` must be answered by L1 from disk
+              (``peer_id`` ``"reused"``, no byte from the origin or a
+              peer), and a fresh daemon L5 with
+              ``download.prefetch_whole_file`` answers a ranged request
+              whose repeat, once the whole file is in, is reused. It
+              prints the leechers' times, the seed's share of each
+              leecher's pieces, the reveals by cause (fanout offer,
+              rotation, starvation ping), the chain depth and
+              ``pieces_by_parent``
 
 Before phase 3 the native storage library (``dfnative.cc``, built with
 g++ at first use) must load: the pulls land crc32c piece digests, and the
@@ -3457,8 +3485,449 @@ def phase_observe(workdir: str, device: torch.device) -> None:
         "phase_s": time.monotonic() - t_phase, "card": smi})
 
 
+# --------------------------------------------------------------- phase 15
+
+SUPERSEED = ("l1", "l2", "l3", "l4")
+# the seed's upload rate: below the origin's 250 MB/s pace, so the limiter
+# binds while the seed feeds its first child and the others pull from the
+# seed's children instead
+SUPERSEED_RATE_BPS = 200_000_000
+SUPERSEED_UPLOAD_SLOTS = 4            # no one-slot limit: all four fit
+SUPERSEED_SLICE_BYTES = 64 << 20      # the ranged request's lm_head slice
+SUPERSEED_WAIT_S = 120.0              # bound on the prefetch's wait
+# the daemons' and the scheduler's files, in the reference's key format
+SUPERSEED_SEED_YAML = """\
+is_seed: true
+hostname: superseed-seed
+host_ip: 127.0.0.1
+listen_ip: 127.0.0.1
+workdir: {workdir}
+upload:
+  rate_limit_bps: {rate}
+  concurrent_limit: {slots}
+download:
+  piece_parallelism: 6
+  piece_timeout_s: 30
+  back_source_group_min_bytes: 4611686018427387904
+"""
+SUPERSEED_SCHED_YAML = """\
+listen_ip: 127.0.0.1
+cluster_id: 2
+"""
+SUPERSEED_L5_YAML = """\
+hostname: superseed-l5
+host_ip: 127.0.0.1
+listen_ip: 127.0.0.1
+workdir: {workdir}
+scheduler:
+  addresses:
+    - {sched}
+download:
+  prefetch_whole_file: true
+"""
+
+
+def superseed_seed_child(workdir: str, yaml_path: str, conn) -> None:
+    """Phase 15's seed, in a spawned process that never touches CUDA: its
+    config is loaded from ``yaml_path`` (the reference's key format). The
+    policy's reveals are tallied by cause from its state (the owners of
+    each piece before and after each step). It sends its host, serves
+    until the parent asks, then sends what it served."""
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    asyncio.run(_superseed_seed_child(workdir, yaml_path, conn))
+
+
+def _tally_reveals(policy_cls, reveals: dict) -> None:
+    """Wrap the policy's steps to add each step's new (piece, child)
+    assignments to ``reveals`` under its cause."""
+    def owners(policy) -> int:
+        return sum(len(o) for o in policy.assigned.values())
+
+    def wrap(name, cause):
+        real = getattr(policy_cls, name)
+
+        def step(self, *args, **kw):
+            before = owners(self)
+            out = real(self, *args, **kw)
+            c = cause(args, kw) if callable(cause) else cause
+            reveals[c] = reveals.get(c, 0) + owners(self) - before
+            return out
+        setattr(policy_cls, name, step)
+
+    # a rotation tick calls _offer with a target; a landing or a new child
+    # calls it without (the fanout offer)
+    wrap("_offer", lambda args, kw: "rotation" if (
+        len(args) > 1 and args[1] is not None
+        or kw.get("target") is not None) else "fanout")
+    wrap("reveal_to", "starvation_ping")
+
+
+async def _superseed_seed_child(workdir: str, yaml_path: str, conn) -> None:
+    from dragonfly2_tpu_torch.common.config import load_config
+    from dragonfly2_tpu_torch.daemon import rpcserver
+    reveals: dict = {}
+    _tally_reveals(rpcserver._SuperSeed, reveals)
+    cfg = load_config(DaemonConfig, yaml_path, {"device": "cpu"})
+    seed = Daemon(cfg)
+    await seed.start()
+    try:
+        conn.send({"host": seed.host_info(),
+                   "config": {"rate_limit_bps": cfg.upload.rate_limit_bps,
+                              "concurrent_limit": cfg.upload.concurrent_limit,
+                              "piece_parallelism":
+                                  cfg.download.piece_parallelism,
+                              "piece_timeout_s": cfg.download.piece_timeout_s,
+                              "limiter_rate": seed.upload_server.limiter.rate,
+                              "limiter_burst":
+                                  seed.upload_server.limiter.burst,
+                              "upload_slots":
+                                  seed.upload_server.concurrent_limit}})
+        await asyncio.to_thread(conn.recv)      # the parent is done
+        (c,) = [c for c in seed.ptm._conductors.values()
+                if not c.url_meta.range]
+        serves = [(t, nbytes, serve_ms, wait_ms)
+                  for t, _p, _a, _n, nbytes, serve_ms, wait_ms, *_ in
+                  c.flight.serves]
+        conn.send({
+            "peer_id": c.peer_id, "state": c.state,
+            "traffic_source": c.traffic_source, "serves": serves,
+            "reveals": dict(reveals),
+            "relay_serves": dict(seed.upload_server.relay_serves),
+            "upload_bytes": REGISTRY.counter("df_upload_bytes_total").value()})
+    finally:
+        await seed.stop()
+
+
+def _record_sync_packets(seen: list):
+    """Record (parent peer id, relay_nums, piece nums) of every piece-sync
+    packet this process's leechers read; returns the undo."""
+    from dragonfly2_tpu_torch.daemon import piece_engine
+    real = piece_engine._Synchronizer._on_packet
+
+    async def on_packet(self, packet):
+        seen.append((self.parent.peer_id, packet.relay_nums,
+                     [p.piece_num for p in packet.piece_infos or []]))
+        return await real(self, packet)
+
+    piece_engine._Synchronizer._on_packet = on_packet
+    return lambda: setattr(piece_engine._Synchronizer, "_on_packet", real)
+
+
+async def _ranged_get(daemon: Daemon, url: str, rng: tuple[int, int],
+                      out: str) -> dict:
+    """One ranged request through the daemon's local API; its frames'
+    peer ids, its bytes and the daemon's conductors before and after."""
+    before = len(daemon.ptm._conductors)
+    t0 = time.monotonic()
+    peers = []
+    ch = Channel(f"unix:{daemon.unix_sock}")
+    try:
+        async for resp in ServiceClient(ch, "df.daemon.Daemon").unary_stream(
+                "Download", DownloadRequest(
+                    url=url, output=out, timeout_s=600.0,
+                    url_meta=UrlMeta(range=f"bytes={rng[0]}-"
+                                           f"{rng[0] + rng[1] - 1}"))):
+            peers.append(resp.peer_id)
+    finally:
+        await ch.close()
+    return {"peer_ids": sorted(set(peers)), "wall_s": time.monotonic() - t0,
+            "new_conductors": len(daemon.ptm._conductors) - before}
+
+
+async def _superseed_pod(workdir: str, seed_host: Host, url: str,
+                         manifest: ShardManifest, origin_conn,
+                         ranges: dict) -> dict:
+    """A scheduler (cluster 2, default upload limits) and leechers L1-L4
+    here, started together; then L1's ranged reuse and L5's prefetch."""
+    from dragonfly2_tpu_torch.common.config import load_config
+    sched_yaml = os.path.join(workdir, "scheduler.yaml")
+    with open(sched_yaml, "w") as f:
+        f.write(SUPERSEED_SCHED_YAML)
+    sched = Scheduler(load_config(SchedCfg, sched_yaml, {"seed_peers": [{
+        "host_id": seed_host.id, "ip": seed_host.ip,
+        "rpc_port": seed_host.port,
+        "download_port": seed_host.download_port}]}))
+    await sched.start()
+    sched.resource.store_host(seed_host)
+    daemons = {n: Daemon(DaemonConfig(
+        workdir=os.path.join(workdir, n), hostname=f"superseed-{n}",
+        listen_ip="127.0.0.1", host_ip="127.0.0.1",
+        scheduler=SchedulerConfig(addresses=[sched.address])))
+        for n in SUPERSEED}
+    l5 = None
+    seen: list = []
+    undo = _record_sync_packets(seen)
+    out: dict = {"cluster_id": sched.cfg.cluster_id, "packets": seen}
+    try:
+        for d in daemons.values():
+            await d.start()
+        pulls = [_leecher_pull(daemons[n], url, UrlMeta(), manifest, {})
+                 for n in SUPERSEED]
+        runs = dict(zip(SUPERSEED, await asyncio.gather(*pulls)))
+        out["runs"] = runs
+        out["peers"] = {n: r["conductor"].peer_id for n, r in runs.items()}
+        # the main pull's origin tally, before the ranged requests
+        origin_conn.send("report")
+        out["origin"] = await asyncio.to_thread(origin_conn.recv)
+        # L1 holds the whole file: ranges of it are read from its disk
+        l1 = daemons["l1"]
+        reuse = {}
+        for name, rng in ranges.items():
+            reuse[name] = await _ranged_get(
+                l1, url, rng, os.path.join(workdir, f"l1-{name}.bin"))
+        origin_conn.send("report")
+        out["l1_reuse"] = reuse
+        out["l1_reuse_origin"] = await asyncio.to_thread(origin_conn.recv)
+        # L5: prefetch_whole_file; its first range starts the whole file
+        l5_yaml = os.path.join(workdir, "l5.yaml")
+        with open(l5_yaml, "w") as f:
+            f.write(SUPERSEED_L5_YAML.format(
+                workdir=os.path.join(workdir, "l5"), sched=sched.address))
+        l5 = Daemon(load_config(DaemonConfig, l5_yaml))
+        await l5.start()
+        rng = ranges["lm_head_slice"]
+        first = await _ranged_get(l5, url, rng,
+                                  os.path.join(workdir, "l5-first.bin"))
+        parent = l5.ptm._task_id(url, UrlMeta())
+        t0 = time.monotonic()
+        while l5.storage_mgr.find_completed_task(parent) is None:
+            check(time.monotonic() - t0 < SUPERSEED_WAIT_S,
+                  f"phase 15 L5: the whole-file prefetch did not finish in "
+                  f"{SUPERSEED_WAIT_S:.0f} s")
+            await asyncio.sleep(0.05)
+        prefetch_s = time.monotonic() - t0
+        origin_conn.send("report")
+        first_origin = await asyncio.to_thread(origin_conn.recv)
+        repeat = await _ranged_get(l5, url, rng,
+                                   os.path.join(workdir, "l5-repeat.bin"))
+        origin_conn.send("report")
+        out["l5"] = {"prefetch_enabled": l5.ptm.prefetch_whole_file,
+                     "first": first, "repeat": repeat,
+                     "prefetch_wait_s": prefetch_s,
+                     "first_origin_bytes": first_origin["body_bytes"],
+                     "repeat_origin": await asyncio.to_thread(
+                         origin_conn.recv)}
+        for n, d in daemons.items():
+            runs[n]["flight"] = d.flight_recorder.get(
+                runs[n]["conductor"].task_id)
+            runs[n].update(relay_stats(d))
+        return out
+    finally:
+        undo()
+        for d in list(daemons.values()) + ([l5] if l5 is not None else []):
+            await d.stop()
+        await sched.stop()
+
+
+def phase_superseed(workdir: str, device: torch.device) -> None:
+    """Phase 15: a super-seeded fan-out of phase 8's origin over HTTP into
+    four leechers' device memory, then ranged reuse from disk."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    t_phase = time.monotonic()
+    path = os.path.join(workdir, "deploy", "model-00004-of-00004.safetensors")
+    name = os.path.basename(path)
+    layout = deploy_layout()
+    header, _ = safetensors_header(layout)
+    size = os.path.getsize(path)
+    d = os.path.join(workdir, "superseed")
+    os.makedirs(d, exist_ok=True)
+    free = shutil.disk_usage(workdir).free
+    need = 6 * size + (1 << 30)
+    check(free >= need, f"phase 15 needs {need} bytes of free disk for the "
+                        f"seed's and five leechers' copies, {free} free")
+    manifest = manifest_from_file(path)
+    shard = {s.name: s for s in manifest.shards}
+    norm, head = shard["model.norm.weight"], shard["lm_head.weight"]
+    ranges = {"norm": (norm.range_start, norm.range_size),
+              "lm_head_slice": (head.range_start + head.range_size // 2,
+                                SUPERSEED_SLICE_BYTES)}
+    with open(path, "rb") as f:
+        f.seek(len(header))
+        ref = torch.frombuffer(bytearray(f.read()), dtype=torch.uint8).to(
+            device)
+    seed_yaml = os.path.join(d, "seed.yaml")
+    with open(seed_yaml, "w") as f:
+        f.write(SUPERSEED_SEED_YAML.format(
+            workdir=os.path.join(d, "seed"), rate=SUPERSEED_RATE_BPS,
+            slots=SUPERSEED_UPLOAD_SLOTS))
+    ctx = multiprocessing.get_context("spawn")
+    origin_conn, o_child = ctx.Pipe()
+    seed_conn, s_child = ctx.Pipe()
+    origin = ctx.Process(target=http_origin_child,
+                         name="smoke-superseed-origin",
+                         args=(path, CHAIN_PACE_BPS, o_child))
+    seed = ctx.Process(target=superseed_seed_child,
+                       name="smoke-superseed-seed",
+                       args=(d, seed_yaml, s_child))
+    origin.start()
+    seed.start()
+    try:
+        check(origin_conn.poll(120), "phase 15 origin did not start")
+        url = f"http://127.0.0.1:{origin_conn.recv()['port']}/{name}"
+        check(seed_conn.poll(300), "phase 15 seed did not start")
+        hello = seed_conn.recv()
+        seed_host, seed_cfg = hello["host"], hello["config"]
+        pod = asyncio.run(_superseed_pod(d, seed_host, url, manifest,
+                                         origin_conn, ranges))
+        seed_conn.send("stop")
+        check(seed_conn.poll(300), "phase 15 seed did not report")
+        seed_stats = seed_conn.recv()
+    finally:
+        for conn in (seed_conn, origin_conn):
+            try:
+                conn.send("stop")      # a no-op for a child already gone
+            except OSError:
+                pass
+        for proc in (seed, origin):
+            proc.join(timeout=60)
+            if proc.is_alive():
+                proc.terminate()
+                proc.join(timeout=30)
+    check(seed.exitcode == 0, f"phase 15 seed exited {seed.exitcode}")
+    base, shapes = len(header), dict(layout)
+    runs, peers = pod["runs"], pod["peers"]
+    names = {pid: n for n, pid in peers.items()}
+    names[seed_stats["peer_id"]] = "seed"
+    leechers = {}
+    for n in SUPERSEED:
+        run = runs[n]
+        c, tensors = run["conductor"], run["out"]
+        for info in manifest.shards:
+            t = tensors[info.name]
+            lo = info.range_start - base
+            check(t.device == device and t.dtype == torch.bfloat16
+                  and list(t.shape) == shapes[info.name]
+                  and torch.equal(t.reshape(-1).view(torch.uint8),
+                                  ref[lo:lo + info.range_size]),
+                  f"phase 15 {n}: {info.name} differs from the origin")
+        check(c.traffic_source == 0 and c.traffic_p2p == size,
+              f"phase 15 {n}: p2p {c.traffic_p2p}, source "
+              f"{c.traffic_source}")
+        check_crc32c(c.storage.md, f"phase 15 {n}")
+        total = sum(c.pieces_by_parent.values())
+        from_seed = c.pieces_by_parent.get(seed_stats["peer_id"], 0)
+        leechers[n] = {
+            "time_to_ready_s": run["wall"],
+            "pieces_from": {names.get(p, p): k
+                            for p, k in c.pieces_by_parent.items()},
+            "seed_share": from_seed / total if total else 0.0,
+            "relay_serves": run["relay_serves"]}
+        del tensors, run["out"]
+    # the origin sent each byte once, and only to the seed
+    origin_t = pod["origin"]
+    spans = sorted(origin_t["ranges"])
+    covered = 0
+    for lo, hi in spans:
+        check(lo == covered, f"phase 15 origin ranges overlap or leave a "
+                             f"hole at {covered}: {spans[:8]}")
+        covered = hi
+    check(covered == size and origin_t["body_bytes"] == size
+          and seed_stats["traffic_source"] == size,
+          f"phase 15 origin sent {origin_t['body_bytes']} bytes over "
+          f"{covered}, seed took {seed_stats['traffic_source']}, file "
+          f"{size}")
+    # the seed announced landed pieces only: no relay_nums on its streams
+    seed_packets = [(nums, pieces) for p, nums, pieces in pod["packets"]
+                    if p == seed_stats["peer_id"]]
+    check(seed_packets and all(nums is None for nums, _ in seed_packets),
+          f"phase 15: {sum(1 for nums, _ in seed_packets if nums)} of "
+          f"{len(seed_packets)} seed packets carry relay_nums")
+    ahead_from_leechers = sum(1 for p, nums, _ in pod["packets"]
+                              if nums and p != seed_stats["peer_id"])
+    ratio = seed_stats["upload_bytes"] / size
+    check(ratio < len(SUPERSEED),
+          f"phase 15: seed uplink ratio {ratio:.3f}, a star's is "
+          f"{len(SUPERSEED)}")
+    # the serve rate over the seed's serving window: at most the limit
+    # plus the bucket's burst (serve rows end at t, took serve_ms)
+    serves = seed_stats["serves"]
+    check(serves, "phase 15: the seed journaled no serve")
+    w0 = min(t - s_ms for t, _, s_ms, _ in serves) / 1000.0
+    w1 = max(t for t, _, _, _ in serves) / 1000.0
+    served = sum(b for _, b, _, _ in serves)
+    allowed = seed_cfg["limiter_rate"] * (w1 - w0) + seed_cfg["limiter_burst"]
+    check(served <= allowed,
+          f"phase 15: the seed served {served} bytes in {w1 - w0:.3f} s, "
+          f"more than the limit allows ({allowed:.0f})")
+    waits = sum(w for _, _, _, w in serves)
+    check(waits > 0, "phase 15: the seed's rate limit never held a serve")
+    # L1's ranged requests, read from its disk
+    for rname, (lo, length) in ranges.items():
+        got = pod["l1_reuse"][rname]
+        with open(os.path.join(d, f"l1-{rname}.bin"), "rb") as f:
+            data = f.read()
+        want = ref[lo - base:lo - base + length].cpu().numpy().tobytes()
+        check(got["peer_ids"] == ["reused"] and got["new_conductors"] == 0
+              and data == want,
+              f"phase 15 L1 range {rname}: peer ids {got['peer_ids']}, "
+              f"{got['new_conductors']} new pulls, bytes "
+              f"{'equal' if data == want else 'differ'}")
+    check(pod["l1_reuse_origin"]["body_bytes"] == 0,
+          f"phase 15 L1 ranges: origin sent "
+          f"{pod['l1_reuse_origin']['body_bytes']} bytes")
+    l5 = pod["l5"]
+    lo, length = ranges["lm_head_slice"]
+    want = ref[lo - base:lo - base + length].cpu().numpy().tobytes()
+    for step in ("first", "repeat"):
+        with open(os.path.join(d, f"l5-{step}.bin"), "rb") as f:
+            check(f.read() == want, f"phase 15 L5 {step} range differs")
+    check(l5["prefetch_enabled"] and l5["first"]["peer_ids"] != ["reused"],
+          f"phase 15 L5 first range: {l5['first']}")
+    check(l5["repeat"]["peer_ids"] == ["reused"]
+          and l5["repeat"]["new_conductors"] == 0
+          and l5["repeat_origin"]["body_bytes"] == 0,
+          f"phase 15 L5 repeat: {l5['repeat']}, origin "
+          f"{l5['repeat_origin']['body_bytes']} bytes")
+    del ref
+    # hops from the origin: the seed 1, a leecher one more than its parent
+    # on the longest path from the seed that visits no daemon twice (two
+    # leechers may each have taken pieces from the other)
+    def hops(n: str, seen: tuple) -> int:
+        ups = [p for p in leechers[n]["pieces_from"]
+               if p in SUPERSEED and p not in seen]
+        return 1 + max([hops(p, seen + (p,)) for p in ups] or [1])
+    depth = {"seed": 1, **{n: hops(n, (n,)) for n in SUPERSEED}}
+    shutil.rmtree(d, ignore_errors=True)
+    ends = [r["t0"] + r["wall"] for r in runs.values()]
+    t0 = origin_t["first_byte_at"]
+    emit("phase 15 superseed", {
+        "file_bytes": size, "origin_pace_bytes_per_s": CHAIN_PACE_BPS,
+        "scheduler_cluster_id": pod["cluster_id"],
+        "seed_config": seed_cfg,
+        "time_to_ready_s": {n: leechers[n]["time_to_ready_s"]
+                            for n in SUPERSEED},
+        "makespan_s": max(ends) - t0,
+        "seed_uplink_ratio": ratio,
+        "seed_serve_window_s": w1 - w0,
+        "seed_served_bytes": served,
+        "seed_serve_rate_bytes_per_s": served / max(w1 - w0, 1e-9),
+        "seed_limiter_wait_ms": waits,
+        "seed_share_of_pieces": {n: leechers[n]["seed_share"]
+                                 for n in SUPERSEED},
+        "largest_seed_share": max(v["seed_share"]
+                                  for v in leechers.values()),
+        "reveals_by_cause": seed_stats["reveals"],
+        "seed_packets": len(seed_packets),
+        "leecher_packets_announcing_ahead": ahead_from_leechers,
+        "chain_depth": max(depth.values()), "hops_from_origin": depth,
+        "pieces_by_parent": {n: leechers[n]["pieces_from"]
+                             for n in SUPERSEED},
+        "relay_serves": {n: leechers[n]["relay_serves"] for n in SUPERSEED},
+        "seed_relay_serves": seed_stats["relay_serves"],
+        "l1_ranged_reuse_s": {k: v["wall_s"]
+                              for k, v in pod["l1_reuse"].items()},
+        "l5_first_range_s": l5["first"]["wall_s"],
+        "l5_first_range_origin_bytes": l5["first_origin_bytes"],
+        "l5_prefetch_wait_s": l5["prefetch_wait_s"],
+        "l5_repeat_range_s": l5["repeat"]["wall_s"],
+        "phase_s": time.monotonic() - t_phase, "card": smi})
+
+
 def run_phases(layers: int, seed: int, device: torch.device) -> None:
-    """Phases 2-14 on ``device``; raises CheckFailed on a failed check."""
+    """Phases 2-15 on ``device``; raises CheckFailed on a failed check."""
     layout = llama_layout(layers)
     header, nbytes = safetensors_header(layout)
     workdir = tempfile.mkdtemp(prefix="chip-smoke-")
@@ -3519,6 +3988,7 @@ def run_phases(layers: int, seed: int, device: torch.device) -> None:
         phase_crash(workdir, device)
         phase_dfbench(device)
         phase_observe(workdir, device)
+        phase_superseed(workdir, device)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 

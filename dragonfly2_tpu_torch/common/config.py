@@ -7,6 +7,15 @@ dataclass with unknown-key errors, then calls ``validate()`` hooks bottom
 up. YAML is read by the reference's standard-library subset (maps, block
 lists, scalars); the reference hands YAML to PyYAML when it is installed,
 which the card's machine does not have.
+
+Every service config takes every key of the reference's, with the
+reference's default, so a reference deployment's file loads. Each config
+module keeps a table (``KEY_CLASSES``) that puts each key in one class:
+``WIRED`` (the subsystem is here and the key reaches it), ``INERT`` (the
+reference declares the key and reads it nowhere, so nothing reads it here
+either) or ``unported(item)`` (the subsystem is not ported yet: the key
+loads, and a value other than its default is refused at start by name,
+naming the ROADMAP item, through ``refuse_unported``).
 """
 
 from __future__ import annotations
@@ -25,6 +34,42 @@ T = TypeVar("T")
 
 class ConfigError(ValueError):
     pass
+
+
+WIRED = "wired"
+INERT = "inert"
+
+
+def unported(item: str) -> str:
+    """The class of a key whose subsystem waits for ROADMAP Queue 1
+    ``item``."""
+    return f"unported:{item}"
+
+
+def key_value(cfg: Any, key: str) -> Any:
+    """The value at a dotted key path (``"upload.rate_limit_bps"``)."""
+    for part in key.split("."):
+        cfg = getattr(cfg, part)
+    return cfg
+
+
+def unported_set(cfg: Any, classes: dict[str, str]) -> list[tuple[str, str]]:
+    """``(key, item)`` for each unported key set to other than its
+    default."""
+    default = type(cfg)()
+    return [(key, cls.split(":", 1)[1]) for key, cls in classes.items()
+            if cls.startswith("unported:")
+            and key_value(cfg, key) != key_value(default, key)]
+
+
+def refuse_unported(cfg: Any, classes: dict[str, str]) -> None:
+    """Raise ``ConfigError`` naming every unported key that is set."""
+    bad = unported_set(cfg, classes)
+    if bad:
+        raise ConfigError(
+            f"{type(cfg).__name__}: not ported to this package yet: "
+            + ", ".join(f"{key} (ROADMAP Queue 1 item {item})"
+                        for key, item in bad))
 
 
 def _build(cls: Type[T], data: dict[str, Any], path: str) -> T:

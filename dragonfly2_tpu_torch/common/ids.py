@@ -37,6 +37,16 @@ def task_id(url: str, *, tag: str = "", application: str = "",
     return h.hexdigest()
 
 
+def parent_task_id(url: str, *, tag: str = "", application: str = "",
+                   digest: str = "",
+                   filtered_query_params: list[str] | None = None) -> str:
+    """Task id of a ranged request's whole-file parent: the same id with
+    the range dropped, the key a ranged request looks the finished
+    parent up by."""
+    return task_id(url, tag=tag, application=application, digest=digest,
+                   filtered_query_params=filtered_query_params)
+
+
 def peer_id(hostname: str, ip: str, *, seed: bool = False) -> str:
     """Unique-per-process peer id: host identity + random suffix."""
     kind = "seed" if seed else "peer"

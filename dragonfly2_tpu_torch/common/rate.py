@@ -1,8 +1,10 @@
 """Token-bucket rate limiting (async).
 
 Counterpart of ``TokenBucket`` in ``dragonfly2_tpu/common/rate.py``: the
-upload server's per-daemon serve rate limit, adjustable live
-(``set_rate``).
+upload server's per-daemon serve rate limit (adjustable live,
+``set_rate``), the daemon-wide back-source limit
+(``PieceManager.total_limiter``) and a super-seed's per-child reveal
+budget (``try_acquire``).
 """
 
 from __future__ import annotations
@@ -36,6 +38,16 @@ class TokenBucket:
             self._tokens = min(self.burst,
                                self._tokens + (now - self._last) * self.rate)
         self._last = now
+
+    def try_acquire(self, n: float) -> bool:
+        """Take ``n`` tokens if they are there now; never waits."""
+        if self.rate <= 0:
+            return True
+        self._refill()
+        if self._tokens >= n:
+            self._tokens -= n
+            return True
+        return False
 
     def reserve(self, n: float) -> float:
         """Take ``n`` tokens (going negative if needed); return seconds to

@@ -1,21 +1,18 @@
 """Daemon configuration.
 
-Counterpart of ``dragonfly2_tpu/daemon/config.py`` cut to the deployment
-settings the port honors (manager and scheduler addresses, the register
-timeout and ring failover, the schedule timeout, the scheduler-set
-refresh, ports, listeners, workdir, the storage section's GC, dedupe and
-reload settings, RTT probing, the announce cadence, the PEX gossip
-plane, the flight recorder's limits, the cut-through relay switch, the
-https origins' trust, the upload port's debug endpoints, tracing and the
-health plane), plus ``device``: where the device sink lands bytes. The
-reference's tuning knobs that no caller of the port sets yet
-are module constants where they are used.
+Counterpart of ``dragonfly2_tpu/daemon/config.py``: every key of the
+reference, with the reference's default, so a reference daemon's file
+loads, plus ``device``: where the device sink lands bytes. ``KEY_CLASSES``
+below puts each key in one class (``common/config.py``): wired, inert as
+in the reference, or unported. ``DaemonConfig.unported()`` names the
+unported keys a file sets; the daemon refuses to start with any.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 
+from ..common.config import INERT, WIRED, unported, unported_set
 from ..common.unit import MiB
 
 
@@ -24,6 +21,8 @@ class SchedulerConfig:
     addresses: list[str] = field(default_factory=list)  # empty: back-source only
     register_timeout_s: float = 10.0
     schedule_timeout_s: float = 30.0       # max wait for a usable peer packet
+    # inert, as in the reference: declared there and read nowhere
+    max_reschedule: int = 5
     # register failover: a dead hashed scheduler fails over to the next
     # ring members before the task goes to origin, and is demoted for
     # demote_s so later tasks skip it
@@ -37,8 +36,19 @@ class SchedulerConfig:
 
 @dataclass
 class DownloadConfig:
+    piece_parallelism: int = 4             # piece download workers per task
     back_source_parallelism: int = 4       # concurrent origin range streams
     back_source_group_min_bytes: int = 32 * MiB  # below this, one stream
+    # the daemon-wide back-source rate (PieceManager.total_limiter); 0 =
+    # unlimited. The shaper's per-task split waits for item 5b
+    total_rate_limit_bps: int = 0
+    # inert, as in the reference: declared there and read nowhere
+    per_peer_rate_limit_bps: int = 0
+    traffic_shaper_kind: str = "sampling"  # unported (item 5b)
+    prefetch_whole_file: bool = False      # ranged requests warm the whole task
+    # inert, as in the reference: declared there and read nowhere
+    first_piece_timeout_s: float = 30.0
+    piece_timeout_s: float = 60.0          # per-piece deadline of a P2P fetch
     # TLS trust for https origins (private registries, custom CAs)
     source_ca: str = ""                    # extra CA bundle path
     source_insecure: bool = False          # disable verification (tests)
@@ -85,7 +95,12 @@ class PexConfig:
 @dataclass
 class UploadConfig:
     port: int = 0                          # 0 = ephemeral
+    rate_limit_bps: int = 0                # serve rate; 0 = unlimited
+    # concurrent transfers served; 0 = the upload server's default. It is
+    # also announced as the host's upload slots at the scheduler
+    concurrent_limit: int = 0
     debug_endpoints: bool = False          # /debug/{stacks,profile,faults}
+    bulk_concurrent_limit: int = 0         # unported (item 5b)
 
 
 @dataclass
@@ -145,6 +160,65 @@ class StorageSection:
 
 
 @dataclass
+class SecurityConfig:
+    """Fleet mTLS with manager-issued certificates: unported (item 6)."""
+
+    enabled: bool = False
+    issue_token: str = ""
+    issue_token_path: str = ""
+    ca_cert: str = ""
+    cert_validity_s: int = 7 * 24 * 3600
+    tls_policy: str = "force"
+
+    def validate(self) -> None:
+        if self.tls_policy not in ("default", "prefer", "force"):
+            raise ValueError(
+                f"security.tls_policy must be default|prefer|force, "
+                f"got {self.tls_policy!r}")
+
+
+@dataclass
+class ProxyConfig:
+    """The registry mirror proxy: unported (item 6)."""
+
+    enabled: bool = False
+    port: int = 0
+    registry_mirror: str = ""
+    rules: list[str] = field(default_factory=list)
+    direct_rules: list[str] = field(default_factory=list)
+    hijack: bool = False
+    hijack_hosts: list[str] = field(default_factory=list)
+    ca_cert: str = ""
+    ca_key: str = ""
+    sni_port: int = 0
+    verify_upstream: bool = True
+
+
+@dataclass
+class ObjectStorageConfig:
+    """The object-storage gateway: unported (item 6)."""
+
+    enabled: bool = False
+    port: int = 0
+    buckets: dict[str, str] = field(default_factory=dict)
+    backends: dict[str, dict] = field(default_factory=dict)
+
+
+@dataclass
+class QosSection:
+    """QoS admission and brownout: unported (item 5b). Its defaults are a
+    classless fleet's, where every task is ``standard`` and never queued,
+    which is how the port admits every task."""
+
+    enabled: bool = True
+    bulk_active_limit: int = 8
+    brownout_critical_threshold: int = 1
+    queue_wait_s: float = 5.0
+    queue_limit: int = 64
+    shed_retry_after_ms: int = 2000
+
+
+@dataclass
 class DaemonConfig:
     workdir: str = ""
     host_ip: str = ""                      # advertised to peers; "" = detect
@@ -162,9 +236,129 @@ class DaemonConfig:
     flight: FlightConfig = field(default_factory=FlightConfig)
     health: HealthSection = field(default_factory=HealthSection)
     pex: PexConfig = field(default_factory=PexConfig)
+    security: SecurityConfig = field(default_factory=SecurityConfig)
+    proxy: ProxyConfig = field(default_factory=ProxyConfig)
+    object_storage: ObjectStorageConfig = field(
+        default_factory=ObjectStorageConfig)
+    qos: QosSection = field(default_factory=QosSection)
     # host stats to the scheduler, and the recovery re-announce's cadence
     announce_interval_s: float = 30.0
     probe_enabled: bool = True             # RTT probing via SyncProbes
+    # inert, as in the reference: declared there and read nowhere
+    metrics_port: int = 0
+    plugin_dir: str = ""                   # unported (item 5d)
     # "cuda": every CUDA device of the host (an error when there is none);
     # "cpu": one CPU device, only when named
     device: str = "cuda"
+
+    def unported(self) -> list[str]:
+        """The set keys whose subsystems this package lacks."""
+        return [key for key, _item in unported_set(self, KEY_CLASSES)]
+
+
+# The class of every key (common/config.py). Inert: a grep of
+# dragonfly2_tpu/ finds no reader of scheduler.max_reschedule,
+# download.per_peer_rate_limit_bps, download.first_piece_timeout_s or
+# metrics_port outside its config module. Unported, by ROADMAP Queue 1
+# item: fleet mTLS, the proxy and the object gateway (6), QoS and the
+# traffic shaper (5b), source plugins (5d). ``device`` is the port's own.
+KEY_CLASSES: dict[str, str] = {
+    "workdir": WIRED,
+    "host_ip": WIRED,
+    "listen_ip": WIRED,
+    "hostname": WIRED,
+    "is_seed": WIRED,
+    "rpc_port": WIRED,
+    "unix_sock": WIRED,
+    "manager_addresses": WIRED,
+    "scheduler.addresses": WIRED,
+    "scheduler.register_timeout_s": WIRED,
+    "scheduler.schedule_timeout_s": WIRED,
+    "scheduler.max_reschedule": INERT,
+    "scheduler.failover_n": WIRED,
+    "scheduler.demote_s": WIRED,
+    "scheduler.refresh_interval_s": WIRED,
+    "download.piece_parallelism": WIRED,
+    "download.back_source_parallelism": WIRED,
+    "download.back_source_group_min_bytes": WIRED,
+    "download.total_rate_limit_bps": WIRED,
+    "download.per_peer_rate_limit_bps": INERT,
+    "download.traffic_shaper_kind": unported("5b"),
+    "download.prefetch_whole_file": WIRED,
+    "download.first_piece_timeout_s": INERT,
+    "download.piece_timeout_s": WIRED,
+    "download.source_ca": WIRED,
+    "download.source_insecure": WIRED,
+    "download.relay_enabled": WIRED,
+    "download.relay_stall_s": WIRED,
+    "upload.port": WIRED,
+    "upload.rate_limit_bps": WIRED,
+    "upload.concurrent_limit": WIRED,
+    "upload.debug_endpoints": WIRED,
+    "upload.bulk_concurrent_limit": unported("5b"),
+    "storage.task_ttl_s": WIRED,
+    "storage.disk_gc_high_ratio": WIRED,
+    "storage.disk_gc_low_ratio": WIRED,
+    "storage.capacity_bytes": WIRED,
+    "storage.gc_interval_s": WIRED,
+    "storage.dedupe_enabled": WIRED,
+    "storage.reload_verify": WIRED,
+    "storage.popularity_halflife_s": WIRED,
+    "tracing.enabled": WIRED,
+    "tracing.jsonl_path": WIRED,
+    "tracing.otlp_endpoint": WIRED,
+    "tracing.sample_ratio": WIRED,
+    "flight.enabled": WIRED,
+    "flight.max_tasks": WIRED,
+    "flight.max_events": WIRED,
+    "flight.max_serves": WIRED,
+    "health.enabled": WIRED,
+    "health.sample_interval_s": WIRED,
+    "health.stall_threshold_s": WIRED,
+    "health.dump_min_interval_s": WIRED,
+    "health.slo_schedule_ms": WIRED,
+    "health.slo_first_byte_ms": WIRED,
+    "health.slo_wire_ms": WIRED,
+    "health.slo_hbm_ms": WIRED,
+    "pex.enabled": WIRED,
+    "pex.interval_s": WIRED,
+    "pex.fanout": WIRED,
+    "pex.ttl_s": WIRED,
+    "pex.bootstrap": WIRED,
+    "pex.max_digest_tasks": WIRED,
+    "pex.pod_scope": WIRED,
+    "pex.pod_seed": WIRED,
+    "pex.federation_peers": WIRED,
+    "security.enabled": unported("6"),
+    "security.issue_token": unported("6"),
+    "security.issue_token_path": unported("6"),
+    "security.ca_cert": unported("6"),
+    "security.cert_validity_s": unported("6"),
+    "security.tls_policy": unported("6"),
+    "proxy.enabled": unported("6"),
+    "proxy.port": unported("6"),
+    "proxy.registry_mirror": unported("6"),
+    "proxy.rules": unported("6"),
+    "proxy.direct_rules": unported("6"),
+    "proxy.hijack": unported("6"),
+    "proxy.hijack_hosts": unported("6"),
+    "proxy.ca_cert": unported("6"),
+    "proxy.ca_key": unported("6"),
+    "proxy.sni_port": unported("6"),
+    "proxy.verify_upstream": unported("6"),
+    "object_storage.enabled": unported("6"),
+    "object_storage.port": unported("6"),
+    "object_storage.buckets": unported("6"),
+    "object_storage.backends": unported("6"),
+    "qos.enabled": unported("5b"),
+    "qos.bulk_active_limit": unported("5b"),
+    "qos.brownout_critical_threshold": unported("5b"),
+    "qos.queue_wait_s": unported("5b"),
+    "qos.queue_limit": unported("5b"),
+    "qos.shed_retry_after_ms": unported("5b"),
+    "announce_interval_s": WIRED,
+    "probe_enabled": WIRED,
+    "metrics_port": INERT,
+    "plugin_dir": unported("5d"),
+    "device": WIRED,
+}

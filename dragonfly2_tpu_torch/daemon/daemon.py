@@ -24,8 +24,14 @@ relay hub lets the upload server stream pieces that are still arriving
 (``download.relay_enabled``). The process's health plane
 (``common/health.py``: loop-lag sampler, watchdog, SLO budgets) is
 acquired first at start and released last at stop, and the tracer is
-configured from the ``tracing`` section. Fleet TLS, QoS and the proxy
-wait for later slices.
+configured from the ``tracing`` section. The upload server serves at
+``upload.rate_limit_bps`` with ``upload.concurrent_limit`` transfers (also
+announced as the host's upload slots); every P2P pull runs
+``download.piece_parallelism`` workers with a ``download.piece_timeout_s``
+deadline per piece; back-source reads share the daemon-wide
+``download.total_rate_limit_bps``. A config that sets a key whose
+subsystem is not ported (fleet TLS, QoS, the proxy, the object gateway,
+source plugins) is refused at construction, by name.
 """
 
 from __future__ import annotations
@@ -41,6 +47,7 @@ import torch
 
 from .. import source
 from ..common import health, tracing
+from ..common.config import refuse_unported
 from ..common.dfpath import DFPath
 from ..common.errors import Code, DFError
 from ..common.gc import GC, GCTask
@@ -56,13 +63,13 @@ from ..tpu import topology
 from ..tpu.hbm_sink import DeviceIngest
 from ..tpu.mesh import cuda_devices
 from .announcer import Announcer
-from .config import DaemonConfig
+from .config import KEY_CLASSES, DaemonConfig
 from .flight_recorder import FlightRecorder
 from .networktopology import NetworkTopologyProber
 from .peertask_manager import PeerTaskManager
 from .pex import PexGossiper
 from .piece_downloader import PieceDownloader
-from .piece_engine import PIECE_TIMEOUT_S, PieceEngine
+from .piece_engine import PieceEngine
 from .piece_manager import PieceManager
 from .relay import RelayHub
 from .rpcserver import DaemonService, build_service
@@ -90,6 +97,7 @@ class Daemon:
         if cfg.device not in ("cuda", "cpu"):
             raise ValueError(f"device must be 'cuda' or 'cpu', "
                              f"got {cfg.device!r}")
+        refuse_unported(cfg, KEY_CLASSES)
         self.cfg = cfg
         self.hostname = cfg.hostname or socket.gethostname()
         self.host_ip = cfg.host_ip or _local_ip()
@@ -141,6 +149,8 @@ class Daemon:
                 federation_peers=px.federation_peers)
         self.upload_server = UploadServer(
             self.storage_mgr, port=cfg.upload.port, host=cfg.listen_ip,
+            rate_limit_bps=cfg.upload.rate_limit_bps,
+            concurrent_limit=cfg.upload.concurrent_limit,
             flight_recorder=self.flight_recorder, relay=self.relay,
             relay_stall_s=cfg.download.relay_stall_s, pex=self.pex,
             debug_endpoints=cfg.upload.debug_endpoints)
@@ -164,7 +174,8 @@ class Daemon:
             download_port=self.upload_server.port,
             type=HostType.SUPER_SEED if self.cfg.is_seed else HostType.NORMAL,
             os=os.uname().sysname.lower(), platform=os.uname().machine,
-            topology=self.topology)
+            topology=self.topology,
+            concurrent_upload_limit=self.cfg.upload.concurrent_limit)
 
     def devices(self) -> list[torch.device]:
         """The sink's devices: every CUDA device, or the one CPU device
@@ -206,7 +217,10 @@ class Daemon:
         return factory
 
     def _engine(self) -> PieceEngine:
+        dl = self.cfg.download
         return PieceEngine(
+            parallelism=dl.piece_parallelism,
+            piece_timeout_s=dl.piece_timeout_s,
             downloader=self._downloader, channel_pool=self._peer_channels,
             slice_name=self.topology.slice_name, relay=self.relay,
             peer_observer=(self.pex.observe_parent
@@ -254,7 +268,7 @@ class Daemon:
         self.upload_server.host_id = f"{self.hostname}-{self.host_ip}"
         await self.upload_server.start()
         self._peer_channels = ChannelPool()
-        self._downloader = PieceDownloader(timeout_s=PIECE_TIMEOUT_S)
+        self._downloader = PieceDownloader(timeout_s=dl.piece_timeout_s)
         self.ptm = PeerTaskManager(
             storage_mgr=self.storage_mgr, piece_mgr=self.piece_mgr,
             hostname=self.hostname, host_ip=self.host_ip,
@@ -262,7 +276,7 @@ class Daemon:
             device_sink_builder=self.device_sink_builder,
             is_seed=self.cfg.is_seed,
             flight_recorder=self.flight_recorder, relay=self.relay,
-            pex=self.pex)
+            pex=self.pex, prefetch_whole_file=dl.prefetch_whole_file)
         if self.pex is not None:
             # the pex rung builds a fresh engine per pull (the scheduler
             # path may have used the conductor's)

@@ -1,5 +1,5 @@
 """PeerTaskManager: one conductor per task, the file-task façade, and the
-completed-task fast path.
+reuse fast path.
 
 Counterpart of ``dragonfly2_tpu/daemon/peertask_manager.py`` cut to the
 file task: each conductor gets the daemon's scheduler connector, a fresh
@@ -13,16 +13,25 @@ any subset of one file joins one swarm. A joiner whose needs the live
 subset download does not cover widens it to the whole file; when that
 download has already committed to finishing, a fresh conductor over the
 same task storage adopts the landed pieces and fetches only the gap.
+
+The reuse fast path answers from disk with ``peer_id="reused"``: a
+completed task, or a ranged request (``UrlMeta.range``) whose finished
+whole-file parent covers the range, which is copied out of the parent's
+file. With ``prefetch_whole_file`` a ranged request whose parent is not
+finished also starts the whole file in the background, so later ranges
+are local reads.
 """
 
 from __future__ import annotations
 
 import asyncio
 import logging
+from dataclasses import replace
 from typing import Any, AsyncIterator
 
 from ..common import ids
 from ..common.errors import Code, DFError
+from ..common.piece import Range, parse_http_range
 from ..common.sharding import parse_shard_names
 from ..idl.messages import (DownloadRequest, DownloadResponse, TaskStat,
                             TaskType, UrlMeta, resolve_class)
@@ -39,7 +48,7 @@ class PeerTaskManager:
                  p2p_engine_factory: Any = None,
                  device_sink_builder: Any = None, is_seed: bool = False,
                  flight_recorder: Any = None, relay: Any = None,
-                 pex: Any = None):
+                 pex: Any = None, prefetch_whole_file: bool = False):
         self.storage_mgr = storage_mgr
         self.piece_mgr = piece_mgr
         self.hostname = hostname
@@ -51,7 +60,12 @@ class PeerTaskManager:
         self.flight_recorder = flight_recorder
         self.relay = relay            # RelayHub (None = cut-through off)
         self.pex = pex                # PexGossiper (None = plane disabled)
+        self.prefetch_whole_file = prefetch_whole_file
         self._conductors: dict[str, PeerTaskConductor] = {}
+        self._prefetching: set[str] = set()
+        # strong refs: the loop holds tasks weakly, and a collected
+        # prefetch would leave its id in _prefetching for good
+        self._prefetch_tasks: set[asyncio.Task] = set()
         self._lock = asyncio.Lock()
 
     def _task_id(self, url: str, meta: UrlMeta) -> str:
@@ -140,6 +154,29 @@ class PeerTaskManager:
     def conductor(self, task_id: str) -> PeerTaskConductor | None:
         return self._conductors.get(task_id)
 
+    def _start_prefetch(self, url: str, meta: UrlMeta) -> None:
+        """Start the whole-file download behind a ranged request, in the
+        background (best effort)."""
+        whole = replace(meta, range="")
+        task_id = self._task_id(url, whole)
+        if (task_id in self._prefetching
+                or self.storage_mgr.find_completed_task(task_id) is not None):
+            return
+        self._prefetching.add(task_id)
+
+        async def run() -> None:
+            try:
+                conductor = await self.get_or_create_conductor(url, whole)
+                await conductor.wait_done()
+            except Exception:  # noqa: BLE001 - prefetch is best effort
+                log.exception("whole-file prefetch of %s failed", url)
+            finally:
+                self._prefetching.discard(task_id)
+
+        t = asyncio.get_running_loop().create_task(run())
+        self._prefetch_tasks.add(t)
+        t.add_done_callback(self._prefetch_tasks.discard)
+
     async def start_file_task(
             self, req: DownloadRequest) -> AsyncIterator[DownloadResponse]:
         """Download ``req.url``; yields progress frames and a final
@@ -147,12 +184,38 @@ class PeerTaskManager:
         meta = req.url_meta or UrlMeta()
         task_id = self._task_id(req.url, meta)
 
-        # reuse fast path: the completed task is already on disk
+        # reuse fast path: the completed task, or a whole-file parent
+        # covering a ranged request, is already on disk
         reuse = self.storage_mgr.find_completed_task(task_id)
+        rng: Range | None = None
+        if meta.range and reuse is None:
+            parent_id = ids.parent_task_id(
+                req.url, tag=meta.tag, application=meta.application,
+                digest=meta.digest,
+                filtered_query_params=list(meta.filtered_query_params or []))
+            parent = self.storage_mgr.get(parent_id)
+            parent_done = (parent is not None and parent.md.done
+                           and parent.md.content_length >= 0)
+            if self.prefetch_whole_file and not parent_done:
+                # warm the whole file so later ranges are local reads
+                self._start_prefetch(req.url, meta)
+            if parent_done:
+                try:
+                    rng = parse_http_range(meta.range,
+                                           parent.md.content_length)
+                except ValueError as exc:
+                    raise DFError(Code.INVALID_ARGUMENT, str(exc)) from None
+                reuse = self.storage_mgr.find_partial_completed_task(
+                    parent_id, rng.start, rng.length)
+                if reuse is None:
+                    rng = None
         if reuse is not None:
             if req.output:
-                await asyncio.to_thread(reuse.store_to, req.output)
-            length = reuse.md.content_length
+                await asyncio.to_thread(
+                    reuse.store_to, req.output,
+                    **({"range_start": rng.start, "range_length": rng.length}
+                       if rng else {}))
+            length = rng.length if rng else reuse.md.content_length
             yield DownloadResponse(task_id=task_id, peer_id="reused",
                                    completed_length=length,
                                    content_length=length, done=True,

@@ -4,7 +4,9 @@ Counterpart of ``dragonfly2_tpu/daemon/piece_dispatcher.py``, with the
 sharded-task piece classes (``set_shard_state``: pieces outside the
 requested subset are never dispatched, and swap-class pieces wait out
 ``SWAP_HOLD_S`` before a seed may serve them). Unlike the reference, a
-download in an affinity split takes equally rare pieces oldest first. Reference
+download in an affinity split takes equally rare pieces oldest first, and
+a swap-class piece only seeds hold waits ``SUPERSEED_REVEAL_S`` longer:
+the time a rationing seed may take to tell the owning replica of it. Reference
 ``client/daemon/peer/piece_dispatcher.go`` scores
 parents by observed per-byte piece latency with epsilon-random exploration
 (``DefaultPieceDispatcherRandomRatio``), so fast ICI-local parents win the
@@ -182,6 +184,13 @@ ENDGAME_PIECES = 2   # remaining-piece count at which duplicate racing is allowe
 # partner costs one extra tree fetch (df_shard_fallback_total), never a
 # wedge.
 SWAP_HOLD_S = 1.5
+# A seed rations its announcements (daemon/rpcserver.py ``_SuperSeed``):
+# it tells a landed piece to two children at once and to one more at each
+# 0.5 s rotation tick, so with up to four children the replica that owns
+# a swap-class piece may learn of it two ticks after this child did. A
+# swap piece only seeds hold is held that much longer than SWAP_HOLD_S,
+# so the owner keeps the whole hold for its fetch.
+SUPERSEED_REVEAL_S = 2 * 0.5
 
 
 class Dispatch:
@@ -369,10 +378,12 @@ class PieceDispatcher:
             if (ps.info.piece_num in self.swap_nums
                     and all(h.is_seed for h in holders)):
                 # swap-class piece with only the tree to serve it: wait out
-                # the swap hold for the owning replica's copy; the expiry
-                # rides the worker wake scan like the seed grace
-                if now - ps.first_seen < self.swap_hold_s:
-                    expiry = ps.first_seen + self.swap_hold_s
+                # the swap hold for the owning replica's copy, after the
+                # seed's reveal to it; the expiry rides the worker wake
+                # scan like the seed grace
+                hold = self.swap_hold_s + SUPERSEED_REVEAL_S
+                if now - ps.first_seen < hold:
+                    expiry = ps.first_seen + hold
                     if (self._seed_hold_expiry is None
                             or expiry < self._seed_hold_expiry):
                         self._seed_hold_expiry = expiry

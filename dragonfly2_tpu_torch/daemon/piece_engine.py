@@ -62,7 +62,8 @@ log = logging.getLogger("df.flow.engine")
 
 DAEMON_SERVICE = "df.daemon.Daemon"
 
-# reference daemon config defaults
+# the defaults of the daemon config's download.piece_parallelism,
+# scheduler.schedule_timeout_s and download.piece_timeout_s
 PIECE_PARALLELISM = 4       # piece download workers per task
 SCHEDULE_TIMEOUT_S = 30.0   # max wait for a usable peer packet
 PIECE_TIMEOUT_S = 60.0      # per-piece deadline
@@ -190,10 +191,14 @@ class _SpanHandle:
 
 
 class PieceEngine:
-    def __init__(self, *, downloader: PieceDownloader | None = None,
+    def __init__(self, *, parallelism: int = PIECE_PARALLELISM,
+                 schedule_timeout_s: float = SCHEDULE_TIMEOUT_S,
+                 piece_timeout_s: float = PIECE_TIMEOUT_S,
+                 downloader: PieceDownloader | None = None,
                  channel_pool: ChannelPool | None = None,
-                 slice_name: str = "", relay=None, peer_observer=None,
-                 schedule_timeout_s: float = SCHEDULE_TIMEOUT_S):
+                 slice_name: str = "", relay=None, peer_observer=None):
+        self.parallelism = parallelism
+        self.piece_timeout_s = piece_timeout_s
         self.slice_name = slice_name    # advertised on piece sync requests
         # PEX membership hook: every admitted parent is observed, so the
         # gossip plane knows the mesh the scheduler built
@@ -203,7 +208,7 @@ class PieceEngine:
         # readable by the upload server's streaming path while it arrives
         self.relay = relay
         self.downloader = downloader or PieceDownloader(
-            timeout_s=PIECE_TIMEOUT_S)
+            timeout_s=piece_timeout_s)
         self._own_downloader = downloader is None
         # the channel pool may be daemon-wide so parent connections persist
         self._channels = (channel_pool if channel_pool is not None
@@ -293,7 +298,7 @@ class PieceEngine:
         packet_task = loop.create_task(
             self._consume_packets(conductor, session))
         workers = [loop.create_task(self._worker(conductor, session))
-                   for _ in range(PIECE_PARALLELISM)]
+                   for _ in range(self.parallelism)]
         try:
             # a parent must show up within the schedule timeout
             try:

@@ -9,10 +9,13 @@ first, and the origin is asked only for the holes of the NEEDED set (the
 pieces covering a requested shard subset, or every piece). An origin that
 reports no length is streamed to its end as one stream, cut at the
 default piece size, and the total learned at the end. Each piece
-being cut is an in-flight relay span (``relay.py``) while it fills, so the
-seed is the first hop of a cut-through chain; such spans carry no digest,
-as in the reference (a child landing one computes its own, the trust it
-would give the origin).
+being cut is an in-flight relay span (``relay.py``) while it fills, which
+the upload server can stream to the landing watermark; such spans carry
+no digest, as in the reference (a child landing one computes its own, the
+trust it would give the origin). Every origin read passes the
+daemon-wide ``total_limiter`` (``download.total_rate_limit_bps``; 0 =
+unlimited); the reference's traffic shaper, which splits that rate into
+per-task buckets, is not ported (ROADMAP Queue 1 item 5b).
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ import time
 from typing import TYPE_CHECKING
 
 from ..common.errors import Code, DFError
+from ..common.rate import TokenBucket
 from ..common.piece import (INGEST_DMA_UNIT_BYTES, Range, parse_http_range,
                             piece_count, piece_range)
 from ..idl.messages import PieceInfo
@@ -138,6 +142,12 @@ class _PieceCutter:
 class PieceManager:
     def __init__(self, cfg: DownloadConfig):
         self.cfg = cfg
+        self.total_limiter = TokenBucket(cfg.total_rate_limit_bps or 0)
+
+    def _limiter(self, conductor) -> TokenBucket:
+        # a shaper's per-task bucket when one is attached, else the
+        # daemon-wide bucket
+        return getattr(conductor, "rate_limiter", None) or self.total_limiter
 
     async def download_source(self, conductor: "PeerTaskConductor") -> None:
         """Fetch the conductor's full content (or sub-range) from the origin."""
@@ -214,8 +224,10 @@ class PieceManager:
         resp = await _open_source(req)
         cutter = _PieceCutter(conductor, start_num=0, start_rel=0,
                               want=lambda _num, _rel: piece_size)
+        limiter = self._limiter(conductor)
         try:
             async for chunk in resp.chunks:
+                await limiter.acquire(len(chunk))
                 await cutter.feed(chunk)
             await cutter.flush_tail()
         finally:
@@ -232,8 +244,10 @@ class PieceManager:
         cutter = _PieceCutter(
             conductor, start_num=0, start_rel=0,
             want=lambda _num, rel: min(piece_size, total - rel))
+        limiter = self._limiter(conductor)
         try:
             async for chunk in resp.chunks:
+                await limiter.acquire(len(chunk))
                 await cutter.feed(chunk)
             # origin ended short of the expected size: land what came
             await cutter.flush_tail()
@@ -292,8 +306,10 @@ class PieceManager:
                 want=lambda num, _rel: (piece_range(num, piece_size,
                                                     total)[1]
                                         if num < last else 0))
+            limiter = self._limiter(conductor)
             try:
                 async for chunk in resp.chunks:
+                    await limiter.acquire(len(chunk))
                     await cutter.feed(chunk)
             finally:
                 cutter.close()

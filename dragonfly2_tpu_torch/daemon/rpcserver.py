@@ -4,18 +4,22 @@ Counterpart of ``dragonfly2_tpu/daemon/rpcserver.py`` (reference
 ``client/daemon/rpcserver/rpcserver.go``): the local API (``Download``
 server stream, ``StatTask``, ``DeleteTask``), the peer API
 (``GetPieceTasks`` and the ``SyncPieceTasks`` bidi stream) and the
-seeder's ``ObtainSeeds``. A seed announces every piece to every child, as
-the reference's seeds do; its super-seed rationing, ``ImportTask`` and
-``ExportTask`` wait for a later slice.
+seeder's ``ObtainSeeds``. ``ImportTask`` and ``ExportTask`` wait for a
+later slice.
 
-Announce-ahead (the control-plane half of cut-through relay,
-``relay.py``): pieces in flight on this daemon ride ``piece_infos`` with
-their numbers in ``relay_nums``, and every packet carries the holder's
-``progress`` (pieces landed). A child that pulls one is served to the
-landing watermark by the upload server's streaming path. Unlike the
-reference, whose seeds ration announcements through the super-seed path
-and announce nothing ahead, a seed here announces ahead like any holder,
-so it is the first hop of a chain.
+A seed daemon rations its announcements through super-seeding
+(``_SuperSeed``), as the reference's seeds do: each landed piece is
+announced to a few children, a rotation widens it over time, and a
+starving child's pings reveal more within a per-child budget. A seed's
+stream opens with a geometry-only packet and then carries landed pieces
+only, never ``relay_nums``.
+
+Every other holder announces ahead (the control-plane half of
+cut-through relay, ``relay.py``): pieces in flight on this daemon ride
+``piece_infos`` with their numbers in ``relay_nums``, and every packet
+carries the holder's ``progress`` (pieces landed). A child that pulls
+one is served to the landing watermark by the upload server's streaming
+path, so a chain's first relaying hop is the seed's first child.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ import logging
 from typing import AsyncIterator
 
 from ..common.errors import Code, DFError
+from ..common.rate import TokenBucket
 from ..idl.messages import (DeleteTaskRequest, DownloadRequest, Empty,
                             ObtainSeedsRequest, PiecePacket, PieceSeed,
                             PieceTaskRequest, StatTaskDaemonRequest, TaskStat,
@@ -42,12 +47,141 @@ DAEMON_SERVICE = "df.daemon.Daemon"
 SEEDER_SERVICE = "df.daemon.Seeder"
 
 
+class _SuperSeed:
+    """Per-task super-seed announcement policy (seed daemons only).
+
+    A seed that reveals every piece to every child turns a fan-out into a
+    star: every child pulls each fresh piece off the seed, so the seed's
+    uplink bounds the swarm. Here each piece is announced to at most
+    ``fanout`` children (least loaded first, one per slice first), so
+    replication goes on through the mesh. A rotation widens every piece by
+    one more child per tick, capped at twice the fanout, so a slow child
+    never strands a piece; a departing child's assignments return to the
+    pool; and a child whose mesh parents have nothing for it pulls more
+    through starvation pings (``reveal_to``), within a per-child budget.
+    Children's dispatchers rank seed parents last, so a revealed piece the
+    mesh also holds is still pulled from the mesh.
+    """
+
+    # starvation-ping reveals are budgeted per child: a child running
+    # ahead of the mesh pings constantly, and unbudgeted reveals would
+    # make it the seed's dedicated first tier
+    REVEAL_RATE_PER_S = 0.6
+    REVEAL_BURST = 2.0
+
+    def __init__(self, *, fanout: int = 2, rotate_interval_s: float = 0.5):
+        self.fanout = fanout
+        self.rotate_interval_s = rotate_interval_s
+        self.known: set[int] = set()
+        self.assigned: dict[int, set[str]] = {}   # piece -> peer ids told
+        self.subs: dict[str, asyncio.Queue] = {}  # peer id -> allowed nums
+        self.slices: dict[str, str] = {}          # peer id -> slice
+        self._reveal_budget: dict[str, TokenBucket] = {}
+        self._rotor: asyncio.Task | None = None
+
+    def _load(self, peer_id: str) -> int:
+        return sum(1 for owners in self.assigned.values() if peer_id in owners)
+
+    def _offer(self, num: int, target: int | None = None) -> None:
+        """Reveal ``num`` to up to ``target`` (default ``fanout``)
+        children: one per slice first (each slice then has a local first
+        copy), least loaded within a slice."""
+        owners = self.assigned.setdefault(num, set())
+        want = (self.fanout if target is None else target) - len(owners)
+        if want <= 0:
+            return
+        covered = {self.slices.get(pid, "") for pid in owners}
+        cands = sorted((s for s in self.subs if s not in owners),
+                       key=self._load)
+        picked: list[str] = []
+        for pid in cands:               # pass 1: uncovered slices
+            if len(picked) >= want:
+                break
+            sl = self.slices.get(pid, "")
+            if sl not in covered:
+                picked.append(pid)
+                covered.add(sl)
+        for pid in cands:               # pass 2: fill the remaining fanout
+            if len(picked) >= want:
+                break
+            if pid not in picked:
+                picked.append(pid)
+        for pid in picked:
+            owners.add(pid)
+            self.subs[pid].put_nowait(num)
+
+    def on_piece(self, num: int) -> None:
+        self.known.add(num)
+        self._offer(num)
+
+    def reveal_to(self, peer_id: str, n: int = 2) -> None:
+        """Starvation pull: a child with idle workers and nothing
+        dispatchable asked for more. Reveal up to ``n`` of the least
+        revealed pieces it does not know yet, within its budget."""
+        q = self.subs.get(peer_id)
+        if q is None:
+            return
+        budget = self._reveal_budget.get(peer_id)
+        if budget is None:
+            budget = self._reveal_budget[peer_id] = TokenBucket(
+                self.REVEAL_RATE_PER_S, burst=self.REVEAL_BURST)
+        cands = sorted(
+            (num for num in self.known
+             if peer_id not in self.assigned.get(num, ())),
+            key=lambda num: len(self.assigned.get(num, ())))
+        for num in cands[:n]:
+            if not budget.try_acquire(1):
+                return
+            self.assigned.setdefault(num, set()).add(peer_id)
+            q.put_nowait(num)
+
+    def subscribe(self, peer_id: str, *, slice_name: str = "") -> asyncio.Queue:
+        q: asyncio.Queue = asyncio.Queue()
+        self.subs[peer_id] = q
+        if slice_name:
+            self.slices[peer_id] = slice_name
+        for num in self.known:   # fill any under-assigned pieces
+            self._offer(num)
+        if self._rotor is None:
+            self._rotor = asyncio.get_running_loop().create_task(self._rotate())
+        return q
+
+    def unsubscribe(self, peer_id: str, q: asyncio.Queue | None = None) -> None:
+        """``q`` guards reconnects: a child that re-subscribed on a new
+        stream keeps that subscription when the old stream's cleanup runs
+        (only the owner of the registered queue removes it)."""
+        if q is not None and self.subs.get(peer_id) is not q:
+            return
+        self.subs.pop(peer_id, None)
+        self.slices.pop(peer_id, None)
+        self._reveal_budget.pop(peer_id, None)
+        for owners in self.assigned.values():
+            owners.discard(peer_id)
+        if not self.subs and self._rotor is not None:
+            self._rotor.cancel()
+            self._rotor = None
+
+    async def _rotate(self) -> None:
+        # a liveness net for slow assignees, capped at twice the fanout:
+        # uncapped, it converges to broadcast whenever the swarm runs
+        # slower than the timer. Dead assignees are handled by
+        # unsubscribe(), stuck children by starvation pings
+        while True:
+            await asyncio.sleep(self.rotate_interval_s)
+            for num in list(self.known):
+                have = len(self.assigned.get(num, ()))
+                if have < 2 * self.fanout:
+                    self._offer(num, target=have + 1)
+
+
 class DaemonService:
     """Wire handlers; delegation to PeerTaskManager + storage."""
 
     def __init__(self, ptm: PeerTaskManager, *, upload_addr: str = ""):
         self.ptm = ptm
         self.upload_addr = upload_addr
+        self._superseed: dict[str, _SuperSeed] = {}
+        self._superseed_feeders: dict[str, asyncio.Task] = {}
 
     # -- local API -----------------------------------------------------
 
@@ -175,6 +309,11 @@ class DaemonService:
                                            REGISTER_TIMEOUT_S)
                 except asyncio.TimeoutError:
                     pass
+            if getattr(self.ptm, "is_seed", False):
+                async for packet in self._sync_superseed(
+                        request, request_iter, conductor, context):
+                    yield packet
+                continue
             # subscribe before the snapshot: a piece landing while the
             # snapshot is on the wire is then announced by its event
             q = (conductor.subscribe() if conductor is not None
@@ -234,6 +373,79 @@ class DaemonService:
             finally:
                 if q is not None:
                     conductor.unsubscribe(q)
+
+    def _superseed_for(self, task_id: str, conductor) -> _SuperSeed:
+        policy = self._superseed.get(task_id)
+        if policy is None:
+            policy = self._superseed[task_id] = _SuperSeed()
+            live = (conductor is not None
+                    and not conductor.done_event.is_set())
+            # subscribed before the storage snapshot, in one step: a piece
+            # landing in between is then known either way
+            q = conductor.subscribe() if live else None
+            ts = self._storage_for(task_id)
+            if ts is not None:
+                for p in ts.piece_infos():
+                    policy.known.add(p.num)
+            if live:
+                feeder = asyncio.get_running_loop().create_task(
+                    self._feed_superseed(policy, q))
+                # released however the feeder ends, cancelled before its
+                # first step included
+                feeder.add_done_callback(lambda _: conductor.unsubscribe(q))
+                self._superseed_feeders[task_id] = feeder
+        return policy
+
+    @staticmethod
+    async def _feed_superseed(policy: _SuperSeed, q: asyncio.Queue) -> None:
+        """Landed pieces into the policy (relay events, pieces still in
+        flight, are not announced by a seed)."""
+        while True:
+            event = await q.get()
+            if event["type"] == "piece":
+                policy.on_piece(event["num"])
+            elif event["type"] == "done":
+                return
+
+    async def _sync_superseed(self, request: PieceTaskRequest, request_iter,
+                              conductor, context) -> AsyncIterator:
+        policy = self._superseed_for(request.task_id, conductor)
+        sq = policy.subscribe(request.src_peer_id,
+                              slice_name=request.src_slice)
+
+        async def read_pings() -> None:
+            # a follow-up request on the stream: "my workers are idle and
+            # nothing is dispatchable", so reveal this child more pieces
+            async for _ in request_iter:
+                policy.reveal_to(request.src_peer_id)
+
+        pings = asyncio.get_running_loop().create_task(read_pings())
+        try:
+            # geometry-only opener: the child needs the sizes to set up
+            # its store before any piece is revealed to it
+            base = await self.get_piece_tasks(PieceTaskRequest(
+                task_id=request.task_id, src_peer_id=request.src_peer_id,
+                dst_peer_id=request.dst_peer_id, start_num=0, limit=1),
+                context)
+            base.piece_infos = []
+            base.relay_nums = None
+            yield base
+            while True:
+                nums = self._drain(sq, await sq.get())
+                ts = self._storage_for(request.task_id)
+                if ts is not None:
+                    yield self._packet_for_nums(request, ts, nums, [])
+        finally:
+            pings.cancel()
+            policy.unsubscribe(request.src_peer_id, sq)
+            # last subscriber gone: evict the policy and its feeder, or a
+            # long-lived seed keeps one per task it ever served. A later
+            # subscriber rebuilds both from storage
+            if not policy.subs:
+                self._superseed.pop(request.task_id, None)
+                feeder = self._superseed_feeders.pop(request.task_id, None)
+                if feeder is not None:
+                    feeder.cancel()
 
     # -- seeder API ----------------------------------------------------
 

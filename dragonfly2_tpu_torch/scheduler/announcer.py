@@ -27,7 +27,6 @@ from ..rpc.client import Channel, ServiceClient
 from ..trainer.features import GNN_MODEL_NAME, MLP_MODEL_NAME
 from ..trainer.params_io import version_of
 from ..trainer.serving import make_gnn_impute, make_mlp_infer
-from .config import CLUSTER_ID
 from .evaluator_ml import MLEvaluator
 
 log = logging.getLogger("df.sched.announcer")
@@ -122,15 +121,17 @@ class SchedulerAnnouncer:
                                           ("networktopology", topo_rows))
                  if payload}
 
+        cluster_id = self.scheduler.cfg.cluster_id
+
         async def chunks():
             for dataset, blob in blobs.items():
                 for off in range(0, len(blob), UPLOAD_CHUNK_BYTES):
                     yield TrainRequest(
-                        hostname=hostname, ip=ip, cluster_id=CLUSTER_ID,
+                        hostname=hostname, ip=ip, cluster_id=cluster_id,
                         dataset=dataset,
                         chunk=blob[off:off + UPLOAD_CHUNK_BYTES])
             yield TrainRequest(hostname=hostname, ip=ip,
-                               cluster_id=CLUSTER_ID, dataset="download",
+                               cluster_id=cluster_id, dataset="download",
                                done=True)
 
         try:
@@ -182,7 +183,7 @@ class SchedulerAnnouncer:
             return False
         resp = await manager.get_model(GetModelRequest(
             name=MLP_MODEL_NAME,
-            scheduler_cluster_id=CLUSTER_ID,
+            scheduler_cluster_id=self.scheduler.cfg.cluster_id,
             if_none_match=self.model_version))
         model = resp.model
         if model is None or model.version == self.model_version \
@@ -230,7 +231,7 @@ class SchedulerAnnouncer:
     async def _refresh_gnn_once(self) -> bool:
         resp = await self.scheduler.manager.get_model(GetModelRequest(
             name=GNN_MODEL_NAME,
-            scheduler_cluster_id=CLUSTER_ID,
+            scheduler_cluster_id=self.scheduler.cfg.cluster_id,
             if_none_match=self.gnn_version))
         model = resp.model
         if model is None or model.version == self.gnn_version \

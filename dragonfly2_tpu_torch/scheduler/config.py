@@ -1,23 +1,25 @@
 """Scheduler configuration + cluster constants.
 
-Counterpart of ``dragonfly2_tpu/scheduler/config.py`` cut to the
-deployment settings (listeners, the static seed-peer list,
-the evaluator algorithm, the manager and trainer addresses, the records
-directory), the learned loop's cadences and the per-host upload-slot
-limits; the other limits the register -> schedule -> report path honours
-are the reference's defaults, as constants (reference
-``scheduler/config/config.go`` + ``constants.go``).
-The relay-tree shaping is off by default (``relay_fanout`` 0, the
+Counterpart of ``dragonfly2_tpu/scheduler/config.py`` (reference
+``scheduler/config/config.go`` + ``constants.go``): every key of the
+reference, with the reference's default, so a reference scheduler's file
+loads. ``KEY_CLASSES`` below puts each key in one class
+(``common/config.py``): wired, inert as in the reference, or unported
+(the quarantine, QoS, federation, state store, fleet pulse, plugins and
+fleet TLS wait for later slices); ``SchedulerConfig.unported()`` names
+the unported keys a file sets, and the scheduler refuses to start with
+any. The relay-tree shaping is off by default (``relay_fanout`` 0, the
 reference's exact path); shard affinity is on by default, as in the
-reference; the control plane's other extras (quarantine, federation,
-fleet pulse, state store) wait for later slices. ``tracing_jsonl`` and
-``tracing_otlp`` turn tracing on (``common/tracing.py``), as the
-reference's keys do.
+reference. ``tracing_jsonl`` and ``tracing_otlp`` turn tracing on
+(``common/tracing.py``), as the reference's keys do. The constants below
+are the limits' defaults.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+
+from ..common.config import INERT, WIRED, unported, unported_set
 
 # the candidate set doubles the reference's 4: piece availability flows
 # only along parent->child sync streams, so the candidate limit is the
@@ -27,6 +29,7 @@ FILTER_PARENT_LIMIT = 15
 
 # reference scheduler/config/constants.go:63-71
 DEFAULT_BACK_SOURCE_CONCURRENT = 200
+RETRY_LIMIT = 5                  # declared by the reference, read nowhere
 RETRY_BACK_SOURCE_LIMIT = 4      # failed reports before NeedBackSource
 # scheduler-wide cap on concurrent back-source peers across all tasks,
 # counted per priority class
@@ -36,8 +39,6 @@ PEER_TTL_S = 24 * 3600.0
 TASK_TTL_S = 24 * 3600.0
 HOST_TTL_S = 6 * 3600.0
 PEER_GC_INTERVAL_S = 60.0
-
-CLUSTER_ID = 1                   # scheduler cluster: registration, uploads
 
 
 @dataclass
@@ -55,8 +56,13 @@ class SchedulerConfig:
     listen_ip: str = "0.0.0.0"
     advertise_ip: str = "127.0.0.1"
     port: int = 0                          # 0 = ephemeral
+    # the scheduler cluster: manager registration and keepalive, trainer
+    # uploads, model lookups
+    cluster_id: int = 1
     algorithm: str = "default"             # default | ml | nt
     seed_peers: list[SeedPeerAddr] = field(default_factory=list)
+    candidate_parent_limit: int = CANDIDATE_PARENT_LIMIT
+    filter_parent_limit: int = FILTER_PARENT_LIMIT
     manager_addresses: list[str] = field(default_factory=list)
     trainer_address: str = ""              # records upload target
     keepalive_interval_s: float = 30.0
@@ -82,3 +88,100 @@ class SchedulerConfig:
     # relay chains instead of a star on the seed (Scheduling._relay_shape;
     # cut-through serving overlaps the chain's hops, daemon/relay.py)
     relay_fanout: int = 0
+    # unported (item 5b): per-class relay fan-out caps, bulk preemption
+    class_fanout_caps: dict = field(default_factory=dict)
+    qos_preemption: bool = True
+    # unported (item 5a): the pod-wide peer quarantine
+    quarantine_enabled: bool = True
+    quarantine_corrupt_threshold: float = 3.0
+    quarantine_halflife_s: float = 600.0
+    quarantine_probation_delay_s: float = 30.0
+    quarantine_probe_successes: int = 2
+    quarantine_probe_children: int = 1
+    quarantine_min_reporters: int = 2
+    # unported (item 5c): cross-pod federation
+    federation_enabled: bool = False
+    federation_seeds_per_pod: int = 1
+    # inert, as in the reference: declared there and read nowhere
+    retry_limit: int = RETRY_LIMIT
+    # failed piece reports before a back-source verdict
+    retry_back_source_limit: int = RETRY_BACK_SOURCE_LIMIT
+    # back-source peers per task, and per priority class across tasks
+    back_source_concurrent: int = DEFAULT_BACK_SOURCE_CONCURRENT
+    back_source_total: int = BACK_SOURCE_TOTAL
+    peer_ttl_s: float = PEER_TTL_S
+    task_ttl_s: float = TASK_TTL_S
+    host_ttl_s: float = HOST_TTL_S
+    gc_interval_s: float = PEER_GC_INTERVAL_S   # the resource GC's cadence
+    plugin_dir: str = ""                   # unported (item 5d)
+    # unported (item 6): fleet mTLS enrollment toward seed daemons
+    security_issue_token: str = ""
+    security_ca_cert: str = ""
+    # unported (item 6): the reference reads it only for the fleet TLS
+    # enrollment's certificate directory
+    workdir: str = ""
+    # unported (item 5c): the crash-survivable control-plane state
+    statestore_dir: str = ""
+    statestore_interval_s: float = 30.0
+    statestore_handoff: bool = True
+    fleetpulse_enabled: bool = True        # unported (item 4b)
+
+    def unported(self) -> list[str]:
+        """The set keys whose subsystems this package lacks."""
+        return [key for key, _item in unported_set(self, KEY_CLASSES)]
+
+
+# The class of every key (common/config.py). Inert: a grep of
+# dragonfly2_tpu/ finds no reader of retry_limit outside its config
+# module. Unported, by ROADMAP Queue 1 item: the fleet pulse (4b), the
+# quarantine (5a), QoS (5b), federation and the state store (5c), plugins
+# (5d), fleet TLS and the directory only it reads (6).
+KEY_CLASSES: dict[str, str] = {
+    "listen_ip": WIRED,
+    "advertise_ip": WIRED,
+    "port": WIRED,
+    "cluster_id": WIRED,
+    "algorithm": WIRED,
+    "seed_peers": WIRED,
+    "candidate_parent_limit": WIRED,
+    "filter_parent_limit": WIRED,
+    "manager_addresses": WIRED,
+    "trainer_address": WIRED,
+    "keepalive_interval_s": WIRED,
+    "records_dir": WIRED,
+    "tracing_jsonl": WIRED,
+    "tracing_otlp": WIRED,
+    "train_upload_interval_s": WIRED,
+    "model_refresh_interval_s": WIRED,
+    "shard_affinity_enabled": WIRED,
+    "peer_upload_limit": WIRED,
+    "seed_upload_limit": WIRED,
+    "relay_fanout": WIRED,
+    "class_fanout_caps": unported("5b"),
+    "qos_preemption": unported("5b"),
+    "quarantine_enabled": unported("5a"),
+    "quarantine_corrupt_threshold": unported("5a"),
+    "quarantine_halflife_s": unported("5a"),
+    "quarantine_probation_delay_s": unported("5a"),
+    "quarantine_probe_successes": unported("5a"),
+    "quarantine_probe_children": unported("5a"),
+    "quarantine_min_reporters": unported("5a"),
+    "federation_enabled": unported("5c"),
+    "federation_seeds_per_pod": unported("5c"),
+    "retry_limit": INERT,
+    "retry_back_source_limit": WIRED,
+    "back_source_concurrent": WIRED,
+    "back_source_total": WIRED,
+    "peer_ttl_s": WIRED,
+    "task_ttl_s": WIRED,
+    "host_ttl_s": WIRED,
+    "gc_interval_s": WIRED,
+    "plugin_dir": unported("5d"),
+    "security_issue_token": unported("6"),
+    "security_ca_cert": unported("6"),
+    "workdir": unported("6"),
+    "statestore_dir": unported("5c"),
+    "statestore_interval_s": unported("5c"),
+    "statestore_handoff": unported("5c"),
+    "fleetpulse_enabled": unported("4b"),
+}

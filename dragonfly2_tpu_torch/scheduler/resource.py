@@ -374,7 +374,12 @@ class Resource:
     """The cluster state of record for one scheduler."""
 
     def __init__(self, *, peer_upload_limit: int = 0,
-                 seed_upload_limit: int = 0):
+                 seed_upload_limit: int = 0, peer_ttl_s: float = PEER_TTL_S,
+                 task_ttl_s: float = TASK_TTL_S,
+                 host_ttl_s: float = HOST_TTL_S):
+        self.peer_ttl_s = peer_ttl_s
+        self.task_ttl_s = task_ttl_s
+        self.host_ttl_s = host_ttl_s
         self.tasks: dict[str, Task] = {}
         self.hosts: dict[str, Host] = {}
         self.peer_upload_limit = peer_upload_limit
@@ -465,16 +470,16 @@ class Resource:
         for task in list(self.tasks.values()):
             for peer in list(task.peers.values()):
                 idle = now - peer.updated_at
-                if (peer.is_done() and idle > 300.0) or idle > PEER_TTL_S:
+                if (peer.is_done() and idle > 300.0) or idle > self.peer_ttl_s:
                     task.remove_peer(peer.id)
                     evicted += 1
-            if not task.peers and now - task.updated_at > TASK_TTL_S:
+            if not task.peers and now - task.updated_at > self.task_ttl_s:
                 del self.tasks[task.id]
                 if self.on_task_evict is not None:
                     self.on_task_evict(task.id)
                 evicted += 1
         for host in list(self.hosts.values()):
-            if now - host.updated_at > HOST_TTL_S:
+            if now - host.updated_at > self.host_ttl_s:
                 del self.hosts[host.id]
                 if self.on_host_evict is not None:
                     self.on_host_evict(host.id)

@@ -50,9 +50,13 @@ _filter_excluded = REGISTRY.counter(
 class Scheduling:
     def __init__(self, evaluator: Evaluator, *,
                  rng: random.Random | None = None, sharded=None,
-                 relay_fanout: int = 0):
+                 relay_fanout: int = 0,
+                 candidate_parent_limit: int = CANDIDATE_PARENT_LIMIT,
+                 filter_parent_limit: int = FILTER_PARENT_LIMIT):
         self.evaluator = evaluator
         self.relay_fanout = relay_fanout
+        self.candidate_parent_limit = candidate_parent_limit
+        self.filter_parent_limit = filter_parent_limit
         self.rng = rng if rng is not None else random
         # shard-affinity arm; None = no shard rulings, every daemon
         # fetches its whole requested set from the tree
@@ -91,7 +95,7 @@ class Scheduling:
             cycle_blocked = task.dag.descendants(child.id)
         out: list[Peer] = []
         for parent in pool:
-            full = len(out) >= FILTER_PARENT_LIMIT
+            full = len(out) >= self.filter_parent_limit
             if full and any(p.has_content() for p in out):
                 break
             if full and not parent.has_content():
@@ -241,7 +245,7 @@ class Scheduling:
                 if self.relay_fanout > 0:
                     with phasetimer.phase("relay"):
                         scored, relay_note = self._relay_shape(child, scored)
-                limit = CANDIDATE_PARENT_LIMIT
+                limit = self.candidate_parent_limit
                 if decision_kind == "refresh":
                     kept = [p for p in scored if p.id in prev_offer]
                     fresh = [p for p in scored if p.id not in prev_offer]

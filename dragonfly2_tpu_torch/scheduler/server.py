@@ -10,8 +10,12 @@ configured, refreshes the application priority table, and the announcer
 pulls fitted models from the registry. Shard affinity
 (``shard_affinity_enabled``) rules sharded registers with the ledger as
 its sink and forgets evicted hosts and tasks. ``tracing_jsonl`` /
-``tracing_otlp`` configure the process's tracer at start. No quarantine,
-federation, state store, fleet pulse or tenant table.
+``tracing_otlp`` configure the process's tracer at start. The config's
+cluster id, parent and back-source limits, TTLs and GC cadence reach the
+manager link, the announcer, ``Scheduling``, ``SchedulerService`` and
+``Resource``. No quarantine, federation, state store, fleet pulse or
+tenant table: a config that sets one of their keys is refused at
+construction, by name.
 """
 
 from __future__ import annotations
@@ -22,13 +26,13 @@ import random
 import socket
 
 from ..common import tracing
+from ..common.config import refuse_unported
 from ..idl.messages import RegisterSchedulerRequest
 from ..rpc.manager_link import ManagerLink
 from ..rpc.server import RPCServer
 from ..tpu import topology
 from .announcer import SchedulerAnnouncer
-from .config import (CLUSTER_ID, PEER_GC_INTERVAL_S, SchedulerConfig,
-                     SeedPeerAddr)
+from .config import KEY_CLASSES, SchedulerConfig, SeedPeerAddr
 from .decision_ledger import DecisionLedger
 from .evaluator import make_evaluator
 from .records import DownloadRecords
@@ -45,13 +49,19 @@ log = logging.getLogger("df.sched.server")
 class Scheduler:
     def __init__(self, cfg: SchedulerConfig, *,
                  rng: random.Random | None = None, records=None):
+        refuse_unported(cfg, KEY_CLASSES)
         self.cfg = cfg
         self.resource = Resource(peer_upload_limit=cfg.peer_upload_limit,
-                                 seed_upload_limit=cfg.seed_upload_limit)
+                                 seed_upload_limit=cfg.seed_upload_limit,
+                                 peer_ttl_s=cfg.peer_ttl_s,
+                                 task_ttl_s=cfg.task_ttl_s,
+                                 host_ttl_s=cfg.host_ttl_s)
         self.topo = TopologyStore()
         self.scheduling = Scheduling(
             make_evaluator(cfg.algorithm, topo_store=self.topo), rng=rng,
-            relay_fanout=cfg.relay_fanout)
+            relay_fanout=cfg.relay_fanout,
+            candidate_parent_limit=cfg.candidate_parent_limit,
+            filter_parent_limit=cfg.filter_parent_limit)
         self.seed_client = SeedPeerClient(self.resource, cfg.seed_peers)
         if records is None and (cfg.records_dir or cfg.trainer_address):
             records = DownloadRecords(cfg.records_dir)
@@ -69,7 +79,8 @@ class Scheduler:
             self.resource.on_task_evict = self.sharded.drop_task
         self.service = SchedulerService(self.resource, self.scheduling,
                                         self.seed_client, self.topo,
-                                        records=records, ledger=self.ledger)
+                                        records=records, ledger=self.ledger,
+                                        cfg=cfg)
         self.announcer = SchedulerAnnouncer(self)
         self.manager: ManagerLink | None = None
         self.rpc: RPCServer | None = None
@@ -95,7 +106,7 @@ class Scheduler:
         self._gc = asyncio.get_running_loop().create_task(self._gc_loop())
         self.announcer.start()
         log.info("scheduler up on %s (cluster=%d, algorithm=%s, seeds=%d)",
-                 self.address, CLUSTER_ID, self.cfg.algorithm,
+                 self.address, self.cfg.cluster_id, self.cfg.algorithm,
                  len(self.seed_client.seed_peers))
 
     async def _attach_manager(self) -> None:
@@ -111,12 +122,12 @@ class Scheduler:
             topo = await asyncio.to_thread(topology.detect)
             await self.manager.register_scheduler(RegisterSchedulerRequest(
                 hostname=hostname, ip=self.cfg.advertise_ip, port=self.port,
-                scheduler_cluster_id=CLUSTER_ID,
+                scheduler_cluster_id=self.cfg.cluster_id,
                 topology=topo))
             self.manager.start_keepalive(source_type="scheduler",
                                          hostname=hostname,
                                          ip=self.cfg.advertise_ip,
-                                         cluster_id=CLUSTER_ID,
+                                         cluster_id=self.cfg.cluster_id,
                                          port=self.port)
             if not self.cfg.seed_peers:
                 resp = await self.manager.get_seed_peers()
@@ -153,7 +164,7 @@ class Scheduler:
 
     async def _gc_loop(self) -> None:
         while True:
-            await asyncio.sleep(PEER_GC_INTERVAL_S)
+            await asyncio.sleep(self.cfg.gc_interval_s)
             try:
                 n = self.resource.gc()
             except Exception:  # noqa: BLE001 - the sweeper must survive

@@ -66,8 +66,7 @@ from ..idl.messages import (CLASS_DEFAULT_PRIORITY, PRIORITY_CLASSES,
                             resolve_class)
 from ..rpc.server import ServiceDef, span_parent
 from .cluster_view import ClusterView
-from .config import (BACK_SOURCE_TOTAL, CANDIDATE_PARENT_LIMIT,
-                     DEFAULT_BACK_SOURCE_CONCURRENT, RETRY_BACK_SOURCE_LIMIT)
+from .config import SchedulerConfig
 from .resource import Peer, PeerState, Resource, TaskState
 from .scheduling import Scheduling
 from .seed_client import SeedPeerClient
@@ -101,7 +100,11 @@ class SchedulerService:
 
     def __init__(self, resource: Resource, scheduling: Scheduling,
                  seed_client: SeedPeerClient, topo: TopologyStore, *,
-                 records=None, ledger=None):
+                 records=None, ledger=None,
+                 cfg: SchedulerConfig | None = None):
+        # the back-source and parent limits (the rest of the config is
+        # the server's business)
+        self.cfg = cfg if cfg is not None else SchedulerConfig()
         self.resource = resource
         self.scheduling = scheduling
         self.seed_client = seed_client
@@ -459,12 +462,12 @@ class SchedulerService:
     def _rule_back_source(self, peer: Peer) -> PeerPacket | None:
         task = peer.task
         self.rulings += 1
-        if len(task.back_source_peers) >= DEFAULT_BACK_SOURCE_CONCURRENT:
+        if len(task.back_source_peers) >= self.cfg.back_source_concurrent:
             _schedules.labels("busy").inc()
             return PeerPacket(task_id=task.id, src_peer_id=peer.id,
                               code=int(Code.SCHED_TASK_STATUS_ERROR))
         if (self._back_source_class_load(peer.priority)
-                >= BACK_SOURCE_TOTAL):
+                >= self.cfg.back_source_total):
             _schedules.labels("busy_global").inc()
             return PeerPacket(task_id=task.id, src_peer_id=peer.id,
                               code=int(Code.SCHED_TASK_STATUS_ERROR))
@@ -509,7 +512,7 @@ class SchedulerService:
                 for sibling in list(peer.task.peers.values()):
                     if (sibling.id != peer.id and not sibling.is_done()
                             and len(sibling.last_offer_ids)
-                            < CANDIDATE_PARENT_LIMIT):
+                            < self.cfg.candidate_parent_limit):
                         await self._refresh_parents(sibling)
             return
         _piece_reports.labels("fail").inc()
@@ -552,7 +555,7 @@ class SchedulerService:
             peer.packet_sink.put_nowait(
                 self.scheduling.build_packet(peer, parents))
             return
-        if peer.report_fail_count >= RETRY_BACK_SOURCE_LIMIT:
+        if peer.report_fail_count >= self.cfg.retry_back_source_limit:
             packet = self._rule_back_source(peer)
             if packet is not None:
                 peer.packet_sink.put_nowait(packet)

@@ -17,8 +17,13 @@ it:
   acting on physical (inode-deduped) bytes. Persistent tasks are spared.
 
 Task directories are ``<data_dir>/<task_id[:3]>/<task_id>``, the
-reference's layout, so either package reloads the other's. Ranged
-sub-tasks are not ported.
+reference's layout, so either package reloads the other's. A ranged
+sub-task (``register_subtask``) is a view over its parent's data file,
+kept in memory only: a reload finds the parent alone, and the GC drops a
+sub-task whose parent is gone or whose access time is past the TTL, after
+the TTL sweep and before the capacity eviction, as the reference does.
+A ranged request served from a finished parent
+(``find_partial_completed_task``) reads the parent itself.
 """
 
 from __future__ import annotations
@@ -32,13 +37,13 @@ import time
 from dataclasses import dataclass
 
 from ..common import digest as digestlib
-from ..common.errors import DFError
+from ..common.errors import Code, DFError
 from ..common.metrics import REGISTRY
 from ..idl.messages import TaskType
 from .castore import CAStore
 from .io_executor import run_io
 from .metadata import METADATA_FILE, TaskMetadata
-from .store import TaskStorage
+from .store import SubTaskStorage, TaskStorage
 
 log = logging.getLogger("df.storage.manager")
 
@@ -95,6 +100,7 @@ class StorageManager:
         os.makedirs(cfg.data_dir, exist_ok=True)
         self._lock = threading.Lock()
         self._tasks: dict[str, TaskStorage] = {}
+        self._subtasks: dict[str, SubTaskStorage] = {}
         self.castore = CAStore(
             resolve=self._tasks.get,
             popularity_halflife_s=cfg.popularity_halflife_s) \
@@ -117,14 +123,45 @@ class StorageManager:
                 self._tasks[md.task_id] = ts
             return ts
 
-    def get(self, task_id: str) -> TaskStorage | None:
+    def register_subtask(self, md: TaskMetadata) -> SubTaskStorage:
+        """A ranged sub-task sharing its parent's data file; an unknown
+        parent is created empty, so the range lands at its final
+        offset."""
+        if not md.parent_task_id:
+            raise DFError(Code.INVALID_ARGUMENT, "subtask needs parent_task_id")
         with self._lock:
-            return self._tasks.get(task_id)
+            st = self._subtasks.get(md.task_id)
+            if st is not None:
+                return st
+            parent = self._tasks.get(md.parent_task_id)
+        if parent is None:
+            parent = self.register_task(TaskMetadata(
+                task_id=md.parent_task_id, url=md.url, tag=md.tag))
+        st = SubTaskStorage(parent, md)
+        with self._lock:
+            self._subtasks[md.task_id] = st
+        return st
+
+    def get(self, task_id: str) -> TaskStorage | SubTaskStorage | None:
+        with self._lock:
+            return self._tasks.get(task_id) or self._subtasks.get(task_id)
 
     def find_completed_task(self, task_id: str) -> TaskStorage | None:
-        ts = self.get(task_id)
+        with self._lock:
+            ts = self._tasks.get(task_id)
         if ts is not None and ts.md.done and ts.md.success:
             ts.md.access_time = time.time()
+            return ts
+        return None
+
+    def find_partial_completed_task(self, parent_task_id: str, start: int,
+                                    length: int) -> TaskStorage | None:
+        """The finished whole-file task that holds ``[start,
+        start+length)``: any range of it is served from its file."""
+        ts = self.find_completed_task(parent_task_id)
+        if ts is None:
+            return None
+        if ts.md.content_length >= 0 and start + length <= ts.md.content_length:
             return ts
         return None
 
@@ -164,6 +201,7 @@ class StorageManager:
     def delete_task(self, task_id: str) -> bool:
         with self._lock:
             ts = self._tasks.pop(task_id, None)
+            self._subtasks.pop(task_id, None)
         if ts is None:
             return False
         if self.castore is not None:
@@ -353,6 +391,12 @@ class StorageManager:
                         physical_freed += sz
             else:
                 candidates.append(ts)
+        with self._lock:
+            dead_subs = [tid for tid, st in self._subtasks.items()
+                         if st.parent.md.task_id not in self._tasks
+                         or now - st.md.access_time > self.cfg.task_ttl_s]
+            for tid in dead_subs:
+                del self._subtasks[tid]
         used, cap = self._usage()
         if cap and used / cap > self.cfg.disk_gc_high_ratio:
             target = int(cap * self.cfg.disk_gc_low_ratio)

@@ -1,7 +1,8 @@
-"""TaskStorage: the piece-addressed store for one task.
+"""TaskStorage: the piece-addressed store for one task, and
+SubTaskStorage, a ranged view over it.
 
-Counterpart of ``dragonfly2_tpu/storage/store.py`` ``TaskStorage`` without
-ranged sub-tasks. Pieces are written at their offsets with per-piece
+Counterpart of ``dragonfly2_tpu/storage/store.py`` (``TaskStorage``,
+``SubTaskStorage``). Pieces are written at their offsets with per-piece
 digest verification, one at a time (``write_piece``) or as a downloaded
 span in one pass (``write_span``); reads feed the device sink, the upload
 server and the final output, and ``covered_prefix`` gives the relay plane
@@ -344,17 +345,33 @@ class TaskStorage:
                 nums = nums[:limit]
             return [self.md.pieces[n] for n in nums]
 
-    def store_to(self, output_path: str) -> None:
-        """Land the completed content at ``output_path``: hardlink when
-        possible (same filesystem), else copy."""
+    def store_to(self, output_path: str, *, range_start: int = 0,
+                 range_length: int = -1) -> None:
+        """Land the completed content (or its byte range) at
+        ``output_path``: the whole file as a hardlink when possible (same
+        filesystem), else a copy; a range is copied."""
         os.makedirs(os.path.dirname(os.path.abspath(output_path)) or ".",
                     exist_ok=True)
-        try:
-            if os.path.exists(output_path):
-                os.unlink(output_path)
-            os.link(self._data_path, output_path)
-        except OSError:
-            shutil.copyfile(self._data_path, output_path)
+        if range_start == 0 and (range_length < 0 or range_length
+                                 == self.md.content_length):
+            try:
+                if os.path.exists(output_path):
+                    os.unlink(output_path)
+                os.link(self._data_path, output_path)
+            except OSError:
+                shutil.copyfile(self._data_path, output_path)
+            return
+        length = (range_length if range_length >= 0
+                  else self.md.content_length - range_start)
+        with open(self._data_path, "rb") as src, \
+                open(output_path, "wb") as dst:
+            src.seek(range_start)
+            while length > 0:
+                b = src.read(min(4 << 20, length))
+                if not b:
+                    break
+                dst.write(b)
+                length -= len(b)
 
     def data_path(self) -> str:
         return self._data_path
@@ -383,3 +400,70 @@ class TaskStorage:
 
     def destroy(self) -> None:
         shutil.rmtree(self.dir, ignore_errors=True)
+
+
+class SubTaskStorage:
+    """A ranged sub-task over a parent TaskStorage: piece offsets are
+    relative to the range, and the bytes live in the parent's file at
+    ``range_start + offset``. Completing the range completes neither the
+    parent nor its piece table; the sub-task keeps its own metadata, in
+    memory only (a reload finds the parent alone)."""
+
+    def __init__(self, parent: TaskStorage, metadata: TaskMetadata):
+        if metadata.range_length < 0:
+            raise ValueError("subtask needs range_length")
+        self.parent = parent
+        self.md = metadata
+        self._lock = threading.Lock()
+
+    def write_piece(self, num: int, offset: int, data: bytes | memoryview,
+                    piece_digest: str = "", *, cost_ms: int = 0,
+                    source: str = "", pre_verified: bool = False) -> PieceMeta:
+        if offset + len(data) > self.md.range_length:
+            raise DFError(Code.CLIENT_STORAGE_ERROR,
+                          f"piece {num} spills past sub-range: "
+                          f"{offset}+{len(data)} > {self.md.range_length}")
+        if piece_digest and not pre_verified \
+                and not digestlib.verify(piece_digest, data):
+            raise DFError(Code.CLIENT_DIGEST_MISMATCH,
+                          f"piece {num} digest mismatch")
+        if not piece_digest:
+            piece_digest = digestlib.for_bytes(
+                digestlib.preferred_piece_algo(), data)
+        with self._lock:
+            existing = self.md.pieces.get(num)
+            if existing is not None:
+                return existing
+        self.parent._write(self.md.range_start + offset, data, [len(data)],
+                           fused=False)
+        meta = PieceMeta(num=num, start=offset, size=len(data),
+                         digest=piece_digest, cost_ms=cost_ms, source=source)
+        with self._lock:
+            self.md.pieces[num] = meta
+            self.md.access_time = time.time()
+        self.parent.md.access_time = time.time()
+        return meta
+
+    def read_piece(self, num: int) -> bytes:
+        meta = self.md.pieces.get(num)
+        if meta is None:
+            raise DFError(Code.CLIENT_PIECE_NOT_FOUND, f"piece {num} missing")
+        return self.parent.read_range(self.md.range_start + meta.start,
+                                      meta.size)
+
+    def piece_infos(self, start_num: int = 0,
+                    limit: int = 0) -> list[PieceMeta]:
+        with self._lock:
+            nums = sorted(n for n in self.md.pieces if n >= start_num)
+            if limit > 0:
+                nums = nums[:limit]
+            return [self.md.pieces[n] for n in nums]
+
+    def mark_done(self, *, success: bool) -> None:
+        with self._lock:
+            self.md.done = True
+            self.md.success = success
+
+    def store_to(self, output_path: str) -> None:
+        self.parent.store_to(output_path, range_start=self.md.range_start,
+                             range_length=self.md.range_length)

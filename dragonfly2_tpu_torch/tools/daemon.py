@@ -19,8 +19,9 @@ import sys
 
 from ..common import logging as dflog
 from ..common import tracing
-from ..common.config import env_overrides, load_config
-from ..daemon.config import DaemonConfig
+from ..common.config import (ConfigError, env_overrides, load_config,
+                             refuse_unported)
+from ..daemon.config import KEY_CLASSES, DaemonConfig
 from ..daemon.daemon import Daemon
 
 
@@ -58,7 +59,8 @@ async def serve(cfg: DaemonConfig) -> None:
 
 
 def main(argv: list[str] | None = None) -> int:
-    args = build_parser().parse_args(argv)
+    parser = build_parser()
+    args = parser.parse_args(argv)
     dflog.setup("DEBUG" if args.verbose else "INFO")
     overrides: dict = env_overrides()
     if args.workdir:
@@ -85,6 +87,10 @@ def main(argv: list[str] | None = None) -> int:
         if args.tracing_otlp:
             tr["otlp_endpoint"] = args.tracing_otlp
     cfg = load_config(DaemonConfig, args.config or None, overrides)
+    try:
+        refuse_unported(cfg, KEY_CLASSES)
+    except ConfigError as exc:
+        parser.error(str(exc))
     asyncio.run(serve(cfg))
     return 0
 

@@ -18,9 +18,10 @@ import sys
 from ..common import health, tracing
 from ..common import logging as dflog
 from ..common.debug_http import maybe_start_debug
-from ..common.config import env_overrides, load_config
+from ..common.config import (ConfigError, env_overrides, load_config,
+                             refuse_unported)
 from ..scheduler.cluster_view import add_cluster_routes
-from ..scheduler.config import SchedulerConfig
+from ..scheduler.config import KEY_CLASSES, SchedulerConfig
 from ..scheduler.ctrl_debug import CtrlObservatory, add_ctrl_routes
 from ..scheduler.decision_ledger import add_decision_routes
 from ..scheduler.server import Scheduler
@@ -77,7 +78,8 @@ async def serve(cfg: SchedulerConfig, debug_port: int = 0) -> None:
 
 
 def main(argv: list[str] | None = None) -> int:
-    args = build_parser().parse_args(argv)
+    parser = build_parser()
+    args = parser.parse_args(argv)
     dflog.setup("DEBUG" if args.verbose else "INFO")
     overrides: dict = env_overrides()
     if args.port:
@@ -99,6 +101,10 @@ def main(argv: list[str] | None = None) -> int:
     if args.tracing_otlp:
         overrides["tracing_otlp"] = args.tracing_otlp
     cfg = load_config(SchedulerConfig, args.config or None, overrides)
+    try:
+        refuse_unported(cfg, KEY_CLASSES)
+    except ConfigError as exc:
+        parser.error(str(exc))
     asyncio.run(serve(cfg, debug_port=args.debug_port))
     return 0
 

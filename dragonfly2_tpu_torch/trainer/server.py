@@ -6,13 +6,17 @@ sink, and the manager connection the fitted models are published through
 (none without ``manager_addresses``: models then stay in the service).
 ``device`` is where fits run: every visible CUDA card by default (the
 mesh when there are several; an error when there is none), ``"cpu"``
-only when named.
+only when named. ``min_rows`` is the MLP fit's row floor. Every key of
+the reference's ``TrainerConfig`` is wired (``KEY_CLASSES``); ``device``
+is the port's own.
 """
 
 from __future__ import annotations
 
 import logging
 from dataclasses import dataclass, field
+
+from ..common.config import WIRED
 
 from ..rpc.manager_link import ManagerLink
 from ..rpc.server import RPCServer
@@ -29,7 +33,20 @@ class TrainerConfig:
     port: int = 0                       # 0 = ephemeral
     data_dir: str = ""                  # dataset spool; "" = ./trainer-data
     manager_addresses: list[str] = field(default_factory=list)
+    min_rows: int = 32                  # don't fit on noise
     device: str = "cuda"                # where fits run
+
+
+# the class of every key (common/config.py)
+KEY_CLASSES: dict[str, str] = {
+    "listen_ip": WIRED,
+    "advertise_ip": WIRED,
+    "port": WIRED,
+    "data_dir": WIRED,
+    "manager_addresses": WIRED,
+    "min_rows": WIRED,
+    "device": WIRED,
+}
 
 
 class Trainer:
@@ -49,7 +66,8 @@ class Trainer:
         if self.cfg.manager_addresses:
             self.manager = ManagerLink(self.cfg.manager_addresses)
         self.service = TrainerService(self.storage, device=self.cfg.device,
-                                      manager=self.manager)
+                                      manager=self.manager,
+                                      min_rows=self.cfg.min_rows)
         self.rpc = RPCServer(f"{self.cfg.listen_ip}:{self.cfg.port}")
         self.rpc.register(build_service(self.service))
         await self.rpc.start()

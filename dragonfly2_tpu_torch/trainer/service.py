@@ -44,20 +44,18 @@ _fit_seconds = REGISTRY.gauge(
     "wall time of the most recent fit, per model", ("model",))
 
 
-# don't fit on noise: the download spool's floor before an MLP fit
-MIN_FIT_ROWS = 32
-
-
 class TrainerService:
     def __init__(self, storage: TrainerStorage, *, device=None,
-                 manager=None):
+                 manager=None, min_rows: int = 32):
         """``device``: where fits run (default: every visible CUDA card,
         one when there is one; raises here when there is none). A fit gets
         ``device`` as given, so an unnamed card (None or ``"cuda"``) lets
         it take the mesh (``training.mesh_world``); ``self.device`` is the
         resolved first card. ``manager``: a ManagerLink fitted models are
-        published through; None keeps them local."""
+        published through; None keeps them local. ``min_rows``: the
+        download spool's floor before an MLP fit (no fit on noise)."""
         self.storage = storage
+        self.min_rows = min_rows
         self.device = training.resolve_device(device)
         self._fit_device = device
         self.manager = manager
@@ -125,7 +123,7 @@ class TrainerService:
         topo_rows = await asyncio.to_thread(self.storage.rows,
                                             "networktopology")
         # each model gates on its own dataset floor
-        fit_mlp = len(rows) >= MIN_FIT_ROWS
+        fit_mlp = len(rows) >= self.min_rows
         fit_gnn = len(topo_rows) >= 4
         if not fit_mlp and not fit_gnn:
             return None

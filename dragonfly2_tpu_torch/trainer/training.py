@@ -7,6 +7,9 @@ content-addressed versioning. With ``use_mesh`` (the default) and more
 than one visible card, the fit runs on every card instead: one rank each
 (``ranks.run_ranks``), batch dp-sharded and weights tp-sharded
 (``models.sharded_train_step``), rank 0's gathered params serialized.
+The blob's ``devices`` meta is the reference's ``len(jax.devices())``:
+every visible device of the fit's type, whatever the mesh (5 cards give
+a world of 4 and ``devices`` 5); the world goes into the log line only.
 
 Same (rows, seed) gives the same blob bytes, hence the same
 ``version_of``: the rollout path dedupes on it. The fit therefore runs
@@ -88,6 +91,15 @@ def mesh_world(device, use_mesh: bool) -> int:
         return 1
     dp, tp = models.mesh_shape(max(ranks.visible_cards(), 1))
     return dp * tp
+
+
+def visible_devices(device) -> int:
+    """A fit's ``devices`` meta, the reference's ``len(jax.devices())``:
+    every visible device of the fit's type, whatever its mesh. The
+    visible cards, or 1 for a fit the caller put on the CPU."""
+    if device is not None and str(device).startswith("cpu"):
+        return 1
+    return max(ranks.visible_cards(), 1)
 
 
 def _fit_mlp(data: dict, *, epochs: int, batch_size: int, lr: float,
@@ -209,10 +221,10 @@ def train_mlp(rows: list[dict], *, epochs: int = 40, batch_size: int = 512,
         "feature_dim": features.FEATURE_DIM,
         "feature_names": list(features.PARENT_FEATURES),
         "schema_version": features.FEATURE_SCHEMA_VERSION,
-        "devices": world,
+        "devices": visible_devices(device),
     }
     blob, metrics = _finish(tree, metrics, t0)
-    log.info("mlp fit: rows=%d loss %.4f -> %.4f (%.1fs on %s, %d devices)",
+    log.info("mlp fit: rows=%d loss %.4f -> %.4f (%.1fs on %s, %d ranks)",
              n, first_loss, last_loss, metrics["train_seconds"], dev, world)
     return blob, metrics
 
@@ -260,10 +272,10 @@ def train_gnn(topo_rows: list[dict], *, epochs: int = 60, lr: float = 1e-3,
         "seed": int(seed),
         "first_epoch_loss": first_loss,
         "final_loss": last_loss,
-        "devices": world,
+        "devices": visible_devices(device),
     }
     blob, metrics = _finish(tree, metrics, t0)
-    log.info("gnn fit: edges=%d loss %.4f -> %.4f (%.1fs on %s, %d devices)",
+    log.info("gnn fit: edges=%d loss %.4f -> %.4f (%.1fs on %s, %d ranks)",
              metrics["edges"], first_loss, last_loss,
              metrics["train_seconds"], dev, world)
     return blob, metrics
