@@ -123,10 +123,12 @@ a chain's first relaying hop is the seed's first child.
               starts on S1's port with a new epoch: within three announce
               intervals the seed, L1 and L2 re-announce and are adopted
               (holders, ``recovery`` ledger rows), and L2's PEX ticker
-              revives S1's demoted address. The origin stops; L3 pulls
-              through S2 with rungs ``["p2p"]``. Every tensor must equal
-              the origin's, no leecher may read the origin, and the
-              origin must send each byte once, to the seed
+              revives S1's demoted address; S2's recovery adoption must
+              have ingested the re-announces' pulses (each of the seed,
+              L1 and L2 has a series in its fleet pulse). The origin
+              stops; L3 pulls through S2 with rungs ``["p2p"]``. Every
+              tensor must equal the origin's, no leecher may read the
+              origin, and the origin must send each byte once, to the seed
 
 13. dfbench — the port's ``dfbench`` points at the reference's full sizes,
               the host-only points in spawned workers beside the card's
@@ -138,8 +140,13 @@ a chain's first relaying hop is the seed's first child.
               regret of 0.1379 on average); ``--pr9`` at pods of 64, 128
               and 256; ``--pr14`` at 4x4, 8x8 and 16x16, with the port's
               filter and with the reference's; ``--pr10``, ``--pr8``,
-              ``--pr5``, ``--pr4`` and the baseline. Every digest and gate
-              must equal the committed ``BENCH_*.json``; the port's
+              ``--pr6`` (podscope's pod numbers; ``--pr9`` reads its trees
+              through podscope too), ``--pr5``, ``--pr4``, the baseline,
+              and ``--pr18``'s nine fleet-pulse legs (none, stall and
+              byzantine at 128, 1,000 and 10,000 daemons) with its
+              digest and gates, all but its ``fleetpulse_pure`` key.
+              Every digest and gate must equal the committed
+              ``BENCH_*.json``; the port's
               swap-partner exemption may move only pr14's 4x4 and 8x8
               sharded schedules (ROADMAP known difference 13)
 14. observe  — run last, on phase 8's origin: a manager, a seed daemon
@@ -186,7 +193,24 @@ a chain's first relaying hop is the seed's first child.
               prints the leechers' times, the seed's share of each
               leecher's pieces, the reveals by cause (fanout offer,
               rotation, starvation ping), the chain depth and
-              ``pieces_by_parent``
+              ``pieces_by_parent``. Every daemon announces each second
+              (cut from 30 s, as the line states), so the scheduler's
+              fleet pulse ingests their pulses during the fan-out. After
+              the fan-out, before the ranged requests, the readers of
+              the observability plane run, each timed: podscope sweeps
+              the seed's and L1-L4's upload ports (its tree must hang
+              each leecher off its heaviest parent in
+              ``pieces_by_parent``, its depth follow from that tree, its
+              amplification be 1.0, each leecher's incoming edges carry
+              its ``traffic_p2p`` and the seed uplink be the seed with
+              its ``df_upload_bytes_total``); ``dfdiag --pod --json``
+              gives the same report; the scheduler's records hold one
+              ``kind=edge`` row per (leecher, parent) of the leecher's
+              flight; its fleet pulse holds a series for each of the
+              five hosts, their pulse ``seq`` rising, and ``dfdiag
+              --fleet`` exits as its active episodes say; dfsched over
+              the records stitches at least 95 % of the piece rows to a
+              decision
 
 Before phase 3 the native storage library (``dfnative.cc``, built with
 g++ at first use) must load: the pulls land crc32c piece digests, and the
@@ -210,9 +234,11 @@ os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 import argparse
 import asyncio
 import concurrent.futures
+import contextlib
 import dataclasses
 import datetime
 import hashlib
+import io
 import json
 import multiprocessing
 import random
@@ -234,7 +260,8 @@ import numpy as np
 import torch
 
 from dragonfly2_tpu_torch import graft_entry, source
-from dragonfly2_tpu_torch.common import phasetimer, tracing
+from dragonfly2_tpu_torch.common import phasetimer, podscope, tracing
+from dragonfly2_tpu_torch.common.debug_http import start_debug_server
 from dragonfly2_tpu_torch.common.metrics import REGISTRY
 from dragonfly2_tpu_torch.common.piece import compute_piece_size
 from dragonfly2_tpu_torch.daemon.config import (DaemonConfig, SchedulerConfig,
@@ -251,13 +278,14 @@ from dragonfly2_tpu_torch.scheduler.config import SchedulerConfig as \
     SchedCfg
 from dragonfly2_tpu_torch.scheduler.config import SeedPeerAddr
 from dragonfly2_tpu_torch.scheduler.decision_ledger import (
-    replay_decisions, replay_regret)
+    replay_decisions, replay_regret, stitch_outcomes)
 from dragonfly2_tpu_torch.scheduler.records import MAX_BUFFERED_ROWS
 from dragonfly2_tpu_torch.scheduler.resource import PeerState
 from dragonfly2_tpu_torch.scheduler.server import Scheduler
 from dragonfly2_tpu_torch.source.file_client import FileSourceClient
 from dragonfly2_tpu_torch.storage import native
-from dragonfly2_tpu_torch.tools import dfbench
+from dragonfly2_tpu_torch.tools import dfbench, dfdiag, dfsched
+from dragonfly2_tpu_torch.tools.scheduler import add_scheduler_routes
 from dragonfly2_tpu_torch.tpu.data import ShardPrefetcher
 from dragonfly2_tpu_torch.tpu.hbm_sink import DeviceIngest
 from dragonfly2_tpu_torch.trainer import (features, models, params_io,
@@ -2815,6 +2843,16 @@ async def _crash_pod(workdir: str, url: str, manifest: ShardManifest,
                 host_id=seed_host.id, ip=seed_host.ip,
                 rpc_port=seed_host.port,
                 download_port=seed_host.download_port)]))
+        # the re-announces' pulses: AnnounceContent hands its pulse to
+        # ingest without an interval, AnnounceHost with one
+        content_pulses: list = []
+        fleet_ingest = s2.fleetpulse.ingest
+
+        def ingest(host_id, pulse, **kw):
+            if "interval_s" not in kw:
+                content_pulses.append(host_id)
+            return fleet_ingest(host_id, pulse, **kw)
+        s2.fleetpulse.ingest = ingest
         t_start = time.monotonic()
         await s2.start()
         want = {seed_host.id, l1.host_info().id, l2.host_info().id}
@@ -2828,6 +2866,11 @@ async def _crash_pod(workdir: str, url: str, manifest: ShardManifest,
         out["adopted"] = adopted.value("adopted") - adopted0
         out["recovery_rows"] = [r for r in s2.ledger._ring
                                 if r.get("decision_kind") == "recovery"]
+        out["s2_content_pulses"] = sorted(content_pulses)
+        out["s2_fleet_series"] = {
+            hid: [smp["seq"] for smp in series.ring]
+            for hid, series in s2.fleetpulse._series.items()}
+        out["s2_fleet_ingested"] = s2.fleetpulse.ingested
         out["revived_s"] = await _until(
             "L2's ticker reviving S1's demoted address",
             lambda: pex_delta(hits0)["df_pex_sched_revived_total"] >= 1)
@@ -2965,6 +3008,13 @@ def phase_crash(workdir: str, device: torch.device) -> None:
                                f"re-announces, want the seed, L1 and L2")
     check({r["host_id"] for r in pod["recovery_rows"]} >= set(want),
           f"phase 12 S2 recovery rows {pod['recovery_rows']}")
+    # S2's recovery adoption ingested the re-announces' pulses: each of
+    # the seed, L1 and L2 has a series in its fleet pulse
+    check(set(pod["s2_content_pulses"]) >= set(want)
+          and set(pod["s2_fleet_series"]) >= set(want),
+          f"phase 12 S2 fleet pulse: content pulses from "
+          f"{pod['s2_content_pulses']}, series {sorted(pod['s2_fleet_series'])}"
+          f", want {want}")
     check(pod["reannounce_s"] <= 3 * CRASH_ANNOUNCE_S,
           f"phase 12 re-announces took {pod['reannounce_s']:.2f} s, more "
           f"than three announce intervals")
@@ -3000,6 +3050,10 @@ def phase_crash(workdir: str, device: torch.device) -> None:
         "s2_adopted_announces": pod["adopted"],
         "s2_recovery_rows": len(pod["recovery_rows"]),
         "s2_holders": pod["s2_holders"],
+        "s2_content_pulses": len(pod["s2_content_pulses"]),
+        "s2_fleet_ingested": pod["s2_fleet_ingested"],
+        "s2_fleet_series": {hid: len(seqs) for hid, seqs
+                            in pod["s2_fleet_series"].items()},
         "df_pex_sched_revived_total": pod["revived"],
         "revived_after_s2_s": pod["revived_s"],
         "origin_bytes_sent": origin_t["body_bytes"],
@@ -3011,9 +3065,13 @@ def phase_crash(workdir: str, device: torch.device) -> None:
 
 # the dfbench points run on the host in worker processes while the card
 # fits --pr19's MLPs; pr14's second run rules with the reference's filter
-DFBENCH_POINTS = ("pr9", "pr14", "pr14_reference_filter", "pr4", "pr10",
-                  "pr8", "pr5", "baseline")
-DFBENCH_WORKERS = 4
+DFBENCH_POINTS = ("pr9", "fleetpulse", "pr14", "pr14_reference_filter",
+                  "pr4", "pr10", "pr8", "pr6", "pr5", "baseline")
+DFBENCH_WORKERS = 5
+# the keys BENCH_pr6.json predates (the reference's bench_summary grew
+# them later) and the values a fan-out without relaying, content-store
+# placements or pods gives them
+PR6_LATER_KEYS = {"relay": None, "placed_bytes": 0, "cross_pod_bytes": 0}
 
 
 def dfbench_args(device: str = "cpu") -> argparse.Namespace:
@@ -3037,6 +3095,10 @@ def dfbench_point(name: str) -> tuple[dict, float]:
         result = dfbench.run_bench(**dfbench._bench_kw(args))
     elif name == "pr14_reference_filter":
         result = dfbench._run_pr14(args, partner_exemption=False)
+    elif name == "fleetpulse":
+        # --pr18 without fleetpulse_pure (it needs items 5a and 5c): the
+        # nine legs at 128, 1,000 and 10,000 daemons
+        result = dfbench.fleetpulse_legs(args)
     else:
         result = dfbench.POINTS[name](args)
     return result, time.monotonic() - t0
@@ -3078,9 +3140,35 @@ def check_dfbench_point(name: str, got: dict) -> dict:
                 "moved_by_swap_partner_exemption": moved,
                 "speedup": got["speedup"],
                 **{k: got[k] for k in flags}}
+    if name == "fleetpulse":
+        want = bench_file("pr18")
+        del want["fleetpulse_pure"]
+        rates = {}
+        for leg, row in got["legs"].items():
+            rates[leg] = row.pop("ingest_per_sec")
+            want["legs"][leg].pop("ingest_per_sec")
+        check(got == want, "the fleet-pulse legs and gates differ from "
+                           "BENCH_pr18.json")
+        return {"pulse_digest": got["pulse_digest"],
+                "legs": sorted(got["legs"]),
+                "ingest_per_sec": rates,
+                "bytes_per_announce": got["bytes_per_announce"],
+                **{k: got[k] for k in ("detected_kinds",
+                                       "detection_latency_intervals",
+                                       "silent_detection_intervals",
+                                       "detection_bounded",
+                                       "zero_false_positives")}}
+    if name == "pr6":
+        for sc in got["scenarios"].values():
+            later = {k: sc["podscope"].pop(k) for k in PR6_LATER_KEYS}
+            check(later == PR6_LATER_KEYS,
+                  f"pr6 keys BENCH_pr6.json predates: {later}")
     want = bench_file("pr14" if name == "pr14_reference_filter" else name)
     check(got == want, f"{name} differs from BENCH_"
                        f"{name.split('_')[0]}.json")
+    if name == "pr6":
+        return {k: got[k] for k in ("tree_depth", "amplification",
+                                    "pod_makespan_ms")}
     if name == "pr9":
         check(got["relay_beats_pull"] and got["sublinear"],
               "pr9 gates failed")
@@ -3495,6 +3583,11 @@ SUPERSEED_RATE_BPS = 200_000_000
 SUPERSEED_UPLOAD_SLOTS = 4            # no one-slot limit: all four fit
 SUPERSEED_SLICE_BYTES = 64 << 20      # the ranged request's lm_head slice
 SUPERSEED_WAIT_S = 120.0              # bound on the prefetch's wait
+# every daemon announces (and pulses) each second, cut from the default
+# 30 s so the scheduler's fleet pulse holds a series of each during the
+# fan-out
+SUPERSEED_ANNOUNCE_S = 1.0
+SUPERSEED_READ_WAIT_S = 30.0          # bound on the results' and rows' wait
 # the daemons' and the scheduler's files, in the reference's key format
 SUPERSEED_SEED_YAML = """\
 is_seed: true
@@ -3502,6 +3595,10 @@ hostname: superseed-seed
 host_ip: 127.0.0.1
 listen_ip: 127.0.0.1
 workdir: {workdir}
+announce_interval_s: {announce}
+scheduler:
+  addresses:
+    - {sched}
 upload:
   rate_limit_bps: {rate}
   concurrent_limit: {slots}
@@ -3512,13 +3609,16 @@ download:
 """
 SUPERSEED_SCHED_YAML = """\
 listen_ip: 127.0.0.1
+port: {port}
 cluster_id: 2
+records_dir: {records}
 """
 SUPERSEED_L5_YAML = """\
 hostname: superseed-l5
 host_ip: 127.0.0.1
 listen_ip: 127.0.0.1
 workdir: {workdir}
+announce_interval_s: {announce}
 scheduler:
   addresses:
     - {sched}
@@ -3531,8 +3631,9 @@ def superseed_seed_child(workdir: str, yaml_path: str, conn) -> None:
     """Phase 15's seed, in a spawned process that never touches CUDA: its
     config is loaded from ``yaml_path`` (the reference's key format). The
     policy's reveals are tallied by cause from its state (the owners of
-    each piece before and after each step). It sends its host, serves
-    until the parent asks, then sends what it served."""
+    each piece before and after each step). It sends its host, answers
+    ``"count"`` with its upload byte count, serves until the parent says
+    ``"stop"``, then sends what it served."""
     os.environ["CUDA_VISIBLE_DEVICES"] = ""
     asyncio.run(_superseed_seed_child(workdir, yaml_path, conn))
 
@@ -3582,7 +3683,9 @@ async def _superseed_seed_child(workdir: str, yaml_path: str, conn) -> None:
                                   seed.upload_server.limiter.burst,
                               "upload_slots":
                                   seed.upload_server.concurrent_limit}})
-        await asyncio.to_thread(conn.recv)      # the parent is done
+        uploaded = REGISTRY.counter("df_upload_bytes_total")
+        while await asyncio.to_thread(conn.recv) == "count":
+            conn.send({"upload_bytes": uploaded.value()})
         (c,) = [c for c in seed.ptm._conductors.values()
                 if not c.url_meta.range]
         serves = [(t, nbytes, serve_ms, wait_ms)
@@ -3634,24 +3737,108 @@ async def _ranged_get(daemon: Daemon, url: str, rng: tuple[int, int],
             "new_conductors": len(daemon.ptm._conductors) - before}
 
 
+def run_cli(main, argv: list[str]) -> tuple[int, str, float]:
+    """A command-line tool's ``main`` in this process: (exit code, its
+    standard output, wall seconds). Its logs stay on standard error."""
+    buf = io.StringIO()
+    t0 = time.monotonic()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    return rc, buf.getvalue(), time.monotonic() - t0
+
+
+async def _read_superseed_pod(sched: Scheduler, debug_port: int,
+                              addrs: dict, seed_conn) -> dict:
+    """The readers of the observability plane over the finished fan-out,
+    each timed: podscope's sweep of the seed's and the leechers' upload
+    ports, ``dfdiag --pod`` and ``dfdiag --fleet`` on the scheduler's
+    debug routes, the scheduler's records (its ``kind=edge`` rows, dfsched
+    over its file) and the fleet pulse's series. ``collect_pod`` and the
+    tools block in ``urllib`` while the daemons serve on this loop: they
+    run in threads."""
+    records = sched.service.records
+    out: dict = {}
+    # the leechers' PeerResults (flight and edge rows) trail their pulls
+    t0 = time.monotonic()
+    while sum(r["kind"] == "flight" for r in records._peer_rows) \
+            < len(SUPERSEED):
+        check(time.monotonic() - t0 < SUPERSEED_READ_WAIT_S,
+              "phase 15: the leechers' flight rows did not reach the "
+              "scheduler's records")
+        await asyncio.sleep(0.05)
+    out["results_wait_s"] = time.monotonic() - t0
+    seed_conn.send("count")
+    out["seed_upload_bytes"] = (await asyncio.to_thread(
+        seed_conn.recv))["upload_bytes"]
+    t0 = time.monotonic()
+    snaps = await asyncio.to_thread(podscope.collect_pod, list(addrs))
+    out["sweep_s"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    out["report"] = podscope.aggregate(snaps)
+    out["aggregate_s"] = time.monotonic() - t0
+    out["dfdiag_pod"] = await asyncio.to_thread(
+        run_cli, dfdiag.main, ["--pod", ",".join(addrs), "--json"])
+    sch = f"127.0.0.1:{debug_port}"
+    out["dfdiag_fleet"] = await asyncio.to_thread(
+        run_cli, dfdiag.main, ["--fleet", "--scheduler", sch, "--json"])
+    out["fleet_series"] = {
+        hid: [smp["seq"] for smp in series.ring]
+        for hid, series in sched.fleetpulse._series.items()}
+    out["fleet_ingested"] = sched.fleetpulse.ingested
+    out["edge_rows"] = [r for r in records._peer_rows
+                        if r["kind"] == "edge"]
+    # dfsched reads the records file: wait for its batches to land
+    t0 = time.monotonic()
+    while records._pending or (records._flush_task is not None
+                               and not records._flush_task.done()):
+        check(time.monotonic() - t0 < SUPERSEED_READ_WAIT_S,
+              "phase 15: the records file was not flushed")
+        await asyncio.sleep(0.05)
+    out["dfsched_stats"] = await asyncio.to_thread(
+        run_cli, dfsched.main, ["--records", records.records_dir,
+                                "--stats"])
+    t0 = time.monotonic()
+    out["coverage"] = stitch_outcomes(
+        dfsched.load_rows(records.records_dir))["coverage"]
+    out["stitch_s"] = time.monotonic() - t0
+    return out
+
+
 async def _superseed_pod(workdir: str, seed_host: Host, url: str,
-                         manifest: ShardManifest, origin_conn,
-                         ranges: dict) -> dict:
-    """A scheduler (cluster 2, default upload limits) and leechers L1-L4
-    here, started together; then L1's ranged reuse and L5's prefetch."""
+                         manifest: ShardManifest, origin_conn, seed_conn,
+                         sched_port: int, ranges: dict) -> dict:
+    """A scheduler (cluster 2, default upload limits, records kept) and
+    leechers L1-L4 here, started together; then the readers of the
+    observability plane; then L1's ranged reuse and L5's prefetch."""
     from dragonfly2_tpu_torch.common.config import load_config
     sched_yaml = os.path.join(workdir, "scheduler.yaml")
     with open(sched_yaml, "w") as f:
-        f.write(SUPERSEED_SCHED_YAML)
+        f.write(SUPERSEED_SCHED_YAML.format(
+            port=sched_port, records=os.path.join(workdir, "records")))
     sched = Scheduler(load_config(SchedCfg, sched_yaml, {"seed_peers": [{
         "host_id": seed_host.id, "ip": seed_host.ip,
         "rpc_port": seed_host.port,
         "download_port": seed_host.download_port}]}))
     await sched.start()
     sched.resource.store_host(seed_host)
+    # the scheduler's debug routes, mounted as its launcher mounts them
+    debug = await start_debug_server(
+        "127.0.0.1", 0,
+        extra_routes=lambda router: add_scheduler_routes(router, sched))
+    # the seed's first announce to land replays what it holds: wait for
+    # it before the rollout starts, as a seed is up before a rollout in a
+    # deployment (landing after the seed's pull began, it replays partial
+    # holdings and the scheduler adopts a second, "-recov-" peer on the
+    # seed's host, which leechers then pull from)
+    t0 = time.monotonic()
+    while seed_host.id not in sched.fleetpulse._series:
+        check(time.monotonic() - t0 < SUPERSEED_READ_WAIT_S,
+              "phase 15: the seed's first announce did not arrive")
+        await asyncio.sleep(0.02)
     daemons = {n: Daemon(DaemonConfig(
         workdir=os.path.join(workdir, n), hostname=f"superseed-{n}",
         listen_ip="127.0.0.1", host_ip="127.0.0.1",
+        announce_interval_s=SUPERSEED_ANNOUNCE_S,
         scheduler=SchedulerConfig(addresses=[sched.address])))
         for n in SUPERSEED}
     l5 = None
@@ -3666,6 +3853,16 @@ async def _superseed_pod(workdir: str, seed_host: Host, url: str,
         runs = dict(zip(SUPERSEED, await asyncio.gather(*pulls)))
         out["runs"] = runs
         out["peers"] = {n: r["conductor"].peer_id for n, r in runs.items()}
+        out["hosts"] = {n: d.host_info().id for n, d in daemons.items()}
+        out["addrs"] = {f"127.0.0.1:{d.upload_server.port}": n
+                        for n, d in daemons.items()}
+        addrs = {f"{seed_host.ip}:{seed_host.download_port}": "seed",
+                 **out["addrs"]}
+        out["readers"] = await _read_superseed_pod(sched, debug.port, addrs,
+                                                   seed_conn)
+        for n in SUPERSEED:
+            runs[n]["per_parent"] = runs[n]["conductor"].flight.summarize()[
+                "per_parent"]
         # the main pull's origin tally, before the ranged requests
         origin_conn.send("report")
         out["origin"] = await asyncio.to_thread(origin_conn.recv)
@@ -3682,7 +3879,8 @@ async def _superseed_pod(workdir: str, seed_host: Host, url: str,
         l5_yaml = os.path.join(workdir, "l5.yaml")
         with open(l5_yaml, "w") as f:
             f.write(SUPERSEED_L5_YAML.format(
-                workdir=os.path.join(workdir, "l5"), sched=sched.address))
+                workdir=os.path.join(workdir, "l5"), sched=sched.address,
+                announce=SUPERSEED_ANNOUNCE_S))
         l5 = Daemon(load_config(DaemonConfig, l5_yaml))
         await l5.start()
         rng = ranges["lm_head_slice"]
@@ -3716,7 +3914,143 @@ async def _superseed_pod(workdir: str, seed_host: Host, url: str,
         undo()
         for d in list(daemons.values()) + ([l5] if l5 is not None else []):
             await d.stop()
+        await debug.stop()
         await sched.stop()
+
+
+def check_superseed_readers(pod: dict, seed_stats: dict, seed_host: Host,
+                            size: int, chain_depth: int) -> dict:
+    """Hold the readers' account of phase 15's fan-out to what the phase
+    measured itself; returns what the phase line prints of it."""
+    rd = pod["readers"]
+    seed_addr = f"{seed_host.ip}:{seed_host.download_port}"
+    names = {seed_addr: "seed", **pod["addrs"]}
+    runs = pod["runs"]
+    report = rd["report"]
+    (task_id,) = {r["conductor"].task_id for r in runs.values()}
+    check(list(report["tasks"]) == [task_id] and not report["unreachable"],
+          f"phase 15 podscope: tasks {list(report['tasks'])}, unreachable "
+          f"{report['unreachable']}")
+    task = report["tasks"][task_id]
+    # the tree: each leecher hangs off the parent that gave it the most
+    # pieces (pieces_by_parent; a tie admits either), and the depth
+    # follows from it as podscope counts it (origin 0, seed 1)
+    tree = {names[dst]: names.get(src, src)
+            for dst, src in task["tree"].items()}
+    peer_name = {p: n for n, p in pod["peers"].items()}
+    peer_name[seed_stats["peer_id"]] = "seed"
+    for n in SUPERSEED:
+        by = {peer_name.get(p, p): k for p, k in
+              runs[n]["conductor"].pieces_by_parent.items()}
+        top = max(by.values())
+        check(tree.get(n) in {p for p, k in by.items() if k == top},
+              f"phase 15 podscope: {n} hangs off {tree.get(n)}, its "
+              f"pieces came from {by}")
+    check(tree.get("seed") == "origin",
+          f"phase 15 podscope: the seed hangs off {tree.get('seed')}")
+
+    def tree_depth(n: str, seen: frozenset = frozenset()) -> int:
+        if n == "origin":
+            return 0
+        if n in seen:
+            return 1
+        return tree_depth(tree[n], seen | {n}) + 1 if n in tree else 1
+    own = max(tree_depth(n) for n in ("seed", *SUPERSEED))
+    check(task["depth"] == own and own <= chain_depth,
+          f"phase 15 podscope depth {task['depth']}, the phase's tree "
+          f"{own}, its longest chain {chain_depth}")
+    check(task["amplification"] == 1.0 and task["origin_bytes"] == size
+          and task["content_length"] == size,
+          f"phase 15 podscope: amplification {task['amplification']}, "
+          f"origin bytes {task['origin_bytes']}, content "
+          f"{task['content_length']}")
+    check(task["daemons"] == task["complete"] == 1 + len(SUPERSEED),
+          f"phase 15 podscope: {task['complete']}/{task['daemons']} "
+          f"complete")
+    edge_in = {n: 0 for n in SUPERSEED}
+    for e in task["edges"]:
+        if names.get(e["dst"]) in edge_in:
+            edge_in[names[e["dst"]]] += e["bytes"]
+    for n in SUPERSEED:
+        check(edge_in[n] == runs[n]["conductor"].traffic_p2p,
+              f"phase 15 podscope: {n}'s incoming edges carry "
+              f"{edge_in[n]} bytes, its traffic_p2p "
+              f"{runs[n]['conductor'].traffic_p2p}")
+    su = task["seed_uplink"] or {}
+    check(su.get("node") == seed_addr
+          and su.get("bytes") == rd["seed_upload_bytes"],
+          f"phase 15 podscope: seed uplink {su}, the seed uploaded "
+          f"{rd['seed_upload_bytes']} bytes")
+    # dfdiag --pod gives the same report, and exits on its breaches
+    rc, text, pod_s = rd["dfdiag_pod"]
+    via_cli = json.loads(text)
+    check(_jsonable(via_cli["tasks"]) == _jsonable(report["tasks"])
+          and rc == (3 if via_cli["breaches"] else 0),
+          f"phase 15 dfdiag --pod: exit {rc}, breaches "
+          f"{via_cli['breaches']}, tasks equal "
+          f"{_jsonable(via_cli['tasks']) == _jsonable(report['tasks'])}")
+    # one kind=edge row per (leecher, parent) of its flight summary
+    for n in SUPERSEED:
+        got = sorted((r["src_peer_id"], r["bytes"]) for r in rd["edge_rows"]
+                     if r["dst_peer_id"] == pod["peers"][n])
+        want = sorted((p or "origin", v["bytes"])
+                      for p, v in runs[n]["per_parent"].items())
+        check(got == want, f"phase 15 records: {n}'s edge rows {got}, its "
+                           f"flight's parents {want}")
+    # a series per host, its pulse seq rising; dfdiag's exit follows the
+    # snapshot's active episodes
+    hosts = {"seed": seed_host.id, **pod["hosts"]}
+    series = rd["fleet_series"]
+    for n, hid in hosts.items():
+        seqs = series.get(hid, [])
+        check(len(seqs) >= 2 and all(a < b for a, b in zip(seqs, seqs[1:])),
+              f"phase 15 fleet pulse: {n}'s series {seqs}")
+    rc, text, fleet_s = rd["dfdiag_fleet"]
+    fleet = json.loads(text)
+    check(rd["fleet_ingested"] > 0 and fleet["daemons"] >= len(hosts)
+          and rc == (3 if fleet["active"] else 0),
+          f"phase 15 dfdiag --fleet: exit {rc}, active {fleet['active']}, "
+          f"daemons {fleet['daemons']}, ingested {fleet['ingested']}")
+    rc, stats_text, dfsched_s = rd["dfsched_stats"]
+    cov = rd["coverage"]
+    check(rc == 0 and cov["piece_rows"] > 0 and cov["ratio"] >= 0.95,
+          f"phase 15 dfsched: exit {rc}, coverage {cov}")
+    summary = podscope.bench_summary(task)
+    return {
+        "podscope": {
+            "depth": task["depth"], "amplification": task["amplification"],
+            "makespan_ms": task["makespan_ms"], "edges": len(task["edges"]),
+            "edge_bandwidth_bps": summary["edge_bandwidth_bps"],
+            "edge_wire_ms": summary["edge_wire_ms"],
+            "tree": tree, "seed_uplink": {**su, "node": "seed"},
+            "incoming_edge_bytes": edge_in,
+            "bottleneck": task["bottleneck"] and {
+                **task["bottleneck"],
+                "src": names.get(task["bottleneck"]["src"],
+                                 task["bottleneck"]["src"]),
+                "dst": names.get(task["bottleneck"]["dst"],
+                                 task["bottleneck"]["dst"])},
+            "relay": task["relay"],
+            "breaches": report["breaches"], "verdict": report["verdict"]},
+        "fleet_pulse": {
+            "daemons": fleet["daemons"], "ingested": fleet["ingested"],
+            "samples": fleet["samples"],
+            "series": {n: len(series[hid]) for n, hid in hosts.items()},
+            "seq_last": {n: series[hid][-1] for n, hid in hosts.items()},
+            "active": fleet["active"], "dfdiag_exit": rc,
+            "anomalies": [(a["anomaly"], a["host_id"], a["signal"],
+                           a["value"]) for a in fleet["recent_anomalies"]],
+            "lag_max_ms": fleet["fleet"]["loop_lag_max_ms"]},
+        "records": {"edge_rows": len(rd["edge_rows"]),
+                    "dfsched_coverage": cov,
+                    "dfsched_stats": stats_text.strip().splitlines()},
+        "reader_s": {"results_wait": rd["results_wait_s"],
+                     "podscope_sweep": rd["sweep_s"],
+                     "podscope_aggregate": rd["aggregate_s"],
+                     "dfdiag_pod": pod_s, "dfdiag_fleet": fleet_s,
+                     "dfsched_stats": dfsched_s,
+                     "stitch_outcomes": rd["stitch_s"]},
+    }
 
 
 def phase_superseed(workdir: str, device: torch.device) -> None:
@@ -3748,11 +4082,15 @@ def phase_superseed(workdir: str, device: torch.device) -> None:
         f.seek(len(header))
         ref = torch.frombuffer(bytearray(f.read()), dtype=torch.uint8).to(
             device)
+    with socket.socket() as sock:          # the scheduler's port, known
+        sock.bind(("127.0.0.1", 0))        # to the seed, which announces
+        sched_port = sock.getsockname()[1]
     seed_yaml = os.path.join(d, "seed.yaml")
     with open(seed_yaml, "w") as f:
         f.write(SUPERSEED_SEED_YAML.format(
             workdir=os.path.join(d, "seed"), rate=SUPERSEED_RATE_BPS,
-            slots=SUPERSEED_UPLOAD_SLOTS))
+            slots=SUPERSEED_UPLOAD_SLOTS, announce=SUPERSEED_ANNOUNCE_S,
+            sched=f"127.0.0.1:{sched_port}"))
     ctx = multiprocessing.get_context("spawn")
     origin_conn, o_child = ctx.Pipe()
     seed_conn, s_child = ctx.Pipe()
@@ -3771,7 +4109,8 @@ def phase_superseed(workdir: str, device: torch.device) -> None:
         hello = seed_conn.recv()
         seed_host, seed_cfg = hello["host"], hello["config"]
         pod = asyncio.run(_superseed_pod(d, seed_host, url, manifest,
-                                         origin_conn, ranges))
+                                         origin_conn, seed_conn, sched_port,
+                                         ranges))
         seed_conn.send("stop")
         check(seed_conn.poll(300), "phase 15 seed did not report")
         seed_stats = seed_conn.recv()
@@ -3890,6 +4229,8 @@ def phase_superseed(workdir: str, device: torch.device) -> None:
                if p in SUPERSEED and p not in seen]
         return 1 + max([hops(p, seen + (p,)) for p in ups] or [1])
     depth = {"seed": 1, **{n: hops(n, (n,)) for n in SUPERSEED}}
+    readers = check_superseed_readers(pod, seed_stats, seed_host, size,
+                                      max(depth.values()))
     shutil.rmtree(d, ignore_errors=True)
     ends = [r["t0"] + r["wall"] for r in runs.values()]
     t0 = origin_t["first_byte_at"]
@@ -3923,6 +4264,8 @@ def phase_superseed(workdir: str, device: torch.device) -> None:
         "l5_first_range_origin_bytes": l5["first_origin_bytes"],
         "l5_prefetch_wait_s": l5["prefetch_wait_s"],
         "l5_repeat_range_s": l5["repeat"]["wall_s"],
+        "announce_interval_s": SUPERSEED_ANNOUNCE_S,
+        "announce_interval_cut_from_s": 30.0, **readers,
         "phase_s": time.monotonic() - t_phase, "card": smi})
 
 

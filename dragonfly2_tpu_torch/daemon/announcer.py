@@ -11,8 +11,9 @@ loop wakes at once and replays what this daemon holds
 with the PEX envelope), so a restarted scheduler relearns who holds what
 within one interval. The first pass of the loop replays too, so a
 daemon restarted over its storage tells the scheduler what it still
-holds. ``pulse`` (the health plane's digest, ``daemon/pulse.py``) waits
-for Queue 1 item 4 and is ``None`` on every announce.
+holds. Both announces carry the daemon's pulse (``daemon/pulse.py``), a
+digest of its health counters with a sequence number that rises by one
+per announce, which the scheduler's fleet pulse ingests.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ import shutil
 from ..idl.messages import (AnnounceContentRequest, AnnounceHostRequest,
                             CPUStat, DiskStat, Host, MemoryStat)
 from .pex import DIGEST_VERSION, seal
+from .pulse import build_pulse
 
 log = logging.getLogger("df.flow.announcer")
 
@@ -67,6 +69,18 @@ class Announcer:
         self.daemon = daemon
         self.interval_s = daemon.cfg.announce_interval_s
         self._task: asyncio.Task | None = None
+        # pulse sequence: lets the scheduler order digests and spot a
+        # restart (seq reset) independently of wall clocks
+        self._pulse_seq = 0
+
+    def _pulse(self):
+        """Build this announce's pulse digest; a pulse failure must never
+        cost the heartbeat it rides on."""
+        self._pulse_seq += 1
+        try:
+            return build_pulse(self.daemon, self._pulse_seq)
+        except Exception:  # noqa: BLE001 - telemetry is best-effort
+            return None
 
     def host_with_stats(self) -> Host:
         host = self.daemon.host_info()
@@ -105,7 +119,7 @@ class Announcer:
             return
         resp = await self.daemon.scheduler.announce_content(
             AnnounceContentRequest(
-                host=self.host_with_stats(),
+                host=self.host_with_stats(), pulse=self._pulse(),
                 digest=seal({"v": DIGEST_VERSION, "tasks": entries})))
         log.info("re-announced %d held tasks (%d adopted)", len(entries),
                  getattr(resp, "tasks_adopted", 0))
@@ -118,7 +132,8 @@ class Announcer:
         while True:
             try:
                 await self.daemon.scheduler.announce_host(AnnounceHostRequest(
-                    host=self.host_with_stats(), interval_s=self.interval_s))
+                    host=self.host_with_stats(), interval_s=self.interval_s,
+                    pulse=self._pulse()))
                 # announce_host fed the epoch watermark; a change (or a
                 # register ring failover) left reconcile_event set
                 event = getattr(self.daemon.scheduler, "reconcile_event",

@@ -32,6 +32,9 @@ from collections import OrderedDict, deque
 
 from ..common import health
 from ..common.metrics import REGISTRY
+# the package's one percentile rule: every flight-summary consumer
+# (dfbench, the SLO engine, podscope) keys on these exact cut points
+from ..common.podscope import _pctl
 
 # flight-ring visibility: operators must be able to tell when max_tasks
 # is silently dropping history under churn (the index carries occupancy
@@ -491,15 +494,6 @@ class TaskFlight:
                          key=lambda kv: kv[1]["bytes"], reverse=True)
         s["uploads"] = dict(uploads[:max_parents])
         return s
-
-
-def _pctl(vals: list[float], q: float) -> float:
-    """The reference's one percentile rule (``common/podscope.py``): every
-    flight-summary consumer keys on these exact cut points."""
-    if not vals:
-        return 0.0
-    s = sorted(vals)
-    return round(s[min(len(s) - 1, int(q * len(s)))], 3)
 
 
 class FlightRecorder:

@@ -124,7 +124,8 @@ class SchedulerConfig:
     statestore_dir: str = ""
     statestore_interval_s: float = 30.0
     statestore_handoff: bool = True
-    fleetpulse_enabled: bool = True        # unported (item 4b)
+    # announce-borne pulses, anomaly detection, GET /debug/fleet
+    fleetpulse_enabled: bool = True
 
     def unported(self) -> list[str]:
         """The set keys whose subsystems this package lacks."""
@@ -133,9 +134,9 @@ class SchedulerConfig:
 
 # The class of every key (common/config.py). Inert: a grep of
 # dragonfly2_tpu/ finds no reader of retry_limit outside its config
-# module. Unported, by ROADMAP Queue 1 item: the fleet pulse (4b), the
-# quarantine (5a), QoS (5b), federation and the state store (5c), plugins
-# (5d), fleet TLS and the directory only it reads (6).
+# module. Unported, by ROADMAP Queue 1 item: the quarantine (5a), QoS
+# (5b), federation and the state store (5c), plugins (5d), fleet TLS and
+# the directory only it reads (6).
 KEY_CLASSES: dict[str, str] = {
     "listen_ip": WIRED,
     "advertise_ip": WIRED,
@@ -183,5 +184,5 @@ KEY_CLASSES: dict[str, str] = {
     "statestore_dir": unported("5c"),
     "statestore_interval_s": unported("5c"),
     "statestore_handoff": unported("5c"),
-    "fleetpulse_enabled": unported("4b"),
+    "fleetpulse_enabled": WIRED,
 }

@@ -8,9 +8,11 @@ parent with its exclusion reason, the chosen offer, and sticky-refresh
 kept/fresh attribution. This module is everything downstream of that
 emission:
 
-* ``DecisionLedger`` — bounded in-memory ring for live inspection that
-  also forwards rows into ``records.py``, where they interleave with the
-  ``kind=piece`` outcome rows they join against;
+* ``DecisionLedger`` — bounded in-memory ring for live inspection
+  (``GET /debug/decisions`` on the scheduler's ``--debug-port``,
+  ``add_decision_routes``) that also forwards rows into ``records.py``,
+  where they interleave with the ``kind=piece`` / ``kind=edge`` outcome
+  rows they join against;
 * ``stitch_outcomes`` — the join: piece rows carry the child's newest
   ``decision_id`` (stamped at scoring time), edge rows join by
   (task, child, parent) keys;
@@ -19,9 +21,8 @@ emission:
   agreement, choice-flip rates, a deterministic ``decision_digest`` and
   the observed-bandwidth regret of each evaluator's pick.
 
-The ``GET /debug/decisions`` route (``add_decision_routes``) waits for the
-scheduler's debug HTTP surface. Everything below ``DecisionLedger`` is
-pure (no clock, no IO) so the replay is deterministic.
+Everything below ``DecisionLedger`` is pure (no clock, no IO) so the
+replay is deterministic.
 """
 
 from __future__ import annotations

@@ -8,8 +8,10 @@ time, so the trainer fits on precisely what the ``ml`` evaluator sees at
 scoring time.
 
 Rows are JSONL: an in-memory ring for the announcer to drain + an optional
-append-only file with size rotation for post-mortems. ``on_flight`` (the
-daemon flight recorder's rows) waits for the flight recorder.
+append-only file with size rotation for post-mortems. ``on_flight`` writes
+the daemon flight recorder's attribution row and, as the reference does,
+one ``kind=edge`` row per parent that served the flight
+(``podscope.edges_from_summary``).
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import os
 import time
 
 from ..common.metrics import REGISTRY
+from ..common.podscope import edges_from_summary
 from ..trainer.features import FEATURE_DIM, label_from_cost
 from .evaluator_ml import parent_feature_row
 from .resource import Peer
@@ -173,10 +176,10 @@ class DownloadRecords:
     def on_flight(self, peer: Peer, summary: dict) -> None:
         """Latency-attribution row per finished peer run, from the
         daemon's flight recorder (the compact summary on its PeerResult):
-        where the time went, per-parent throughput, tail latencies. The
-        reference also derives per-edge bandwidth rows from it
-        (``podscope.edges_from_summary``); those wait for the
-        observability plane's slice."""
+        where the time went, per-parent throughput, tail latencies. Then
+        one ``kind=edge`` row per parent that served the flight, with the
+        observed edge throughput (the podscope schema; the decision
+        ledger's ``stitch_outcomes`` joins them to the ruling)."""
         self._append_peer_row({
             "kind": "flight",
             "task_id": peer.task.id,
@@ -185,12 +188,17 @@ class DownloadRecords:
             "summary": summary,
             "created_at": time.time(),
         })
+        now = time.time()
+        for edge in edges_from_summary(peer.task.id, peer.id,
+                                       peer.host.id, summary):
+            edge["created_at"] = now
+            self._append_peer_row(edge)
 
     def on_decision(self, row: dict) -> None:
         """One row per scheduler ruling (``Scheduling._decide`` via the
         decision ledger): the candidate set with per-term decomposition,
         exclusions, and the chosen offer — the decision half that
-        ``kind=piece`` outcome rows join against."""
+        ``kind=piece`` / ``kind=edge`` outcome rows join against."""
         if "created_at" not in row:
             row = dict(row)
             row["created_at"] = time.time()

@@ -13,9 +13,12 @@ its sink and forgets evicted hosts and tasks. ``tracing_jsonl`` /
 ``tracing_otlp`` configure the process's tracer at start. The config's
 cluster id, parent and back-source limits, TTLs and GC cadence reach the
 manager link, the announcer, ``Scheduling``, ``SchedulerService`` and
-``Resource``. No quarantine, federation, state store, fleet pulse or
-tenant table: a config that sets one of their keys is refused at
-construction, by name.
+``Resource``. With ``fleetpulse_enabled`` (the default) the fleet pulse
+(``fleetpulse.py``) ingests the announces' pulses, fires its anomaly rows
+into the decision ledger and sweeps for silent daemons on the GC runner,
+next to the resource GC. No quarantine, federation, state store or tenant
+table: a config that sets one of their keys is refused at construction,
+by name.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ import socket
 
 from ..common import tracing
 from ..common.config import refuse_unported
+from ..common.gc import GC, GCTask
 from ..idl.messages import RegisterSchedulerRequest
 from ..rpc.manager_link import ManagerLink
 from ..rpc.server import RPCServer
@@ -35,6 +39,7 @@ from .announcer import SchedulerAnnouncer
 from .config import KEY_CLASSES, SchedulerConfig, SeedPeerAddr
 from .decision_ledger import DecisionLedger
 from .evaluator import make_evaluator
+from .fleetpulse import FleetPulse
 from .records import DownloadRecords
 from .resource import Resource
 from .scheduling import Scheduling
@@ -77,15 +82,28 @@ class Scheduler:
             self.scheduling.sharded = self.sharded
             self.resource.on_host_evict = self.sharded.forget_host
             self.resource.on_task_evict = self.sharded.drop_task
+        # fleet pulse: announce-borne telemetry rings, the EWMA anomaly
+        # detector and incident capture; firings ride the decision ledger
+        # (decision_kind=anomaly). The quarantine, federation and state
+        # store it can report on are not ported yet (items 5a, 5c)
+        self.fleetpulse = None
+        if cfg.fleetpulse_enabled:
+            self.fleetpulse = FleetPulse(sink=self.ledger.on_decision)
         self.service = SchedulerService(self.resource, self.scheduling,
                                         self.seed_client, self.topo,
                                         records=records, ledger=self.ledger,
-                                        cfg=cfg)
+                                        cfg=cfg, fleetpulse=self.fleetpulse)
         self.announcer = SchedulerAnnouncer(self)
         self.manager: ManagerLink | None = None
         self.rpc: RPCServer | None = None
         self.port: int | None = None
-        self._gc: asyncio.Task | None = None
+        self.gc = GC()
+        self.gc.add(GCTask("resource", cfg.gc_interval_s, self.resource.gc))
+        if self.fleetpulse is not None:
+            # silent-daemon detection and series aging: a daemon that
+            # stops announcing cannot push its own absence
+            self.gc.add(GCTask("fleetpulse", cfg.gc_interval_s,
+                               self.fleetpulse.tick))
         self._app_refresh: asyncio.Task | None = None
 
     @property
@@ -103,7 +121,7 @@ class Scheduler:
         self.port = self.rpc.port
         if self.cfg.manager_addresses:
             await self._attach_manager()
-        self._gc = asyncio.get_running_loop().create_task(self._gc_loop())
+        self.gc.start()
         self.announcer.start()
         log.info("scheduler up on %s (cluster=%d, algorithm=%s, seeds=%d)",
                  self.address, self.cfg.cluster_id, self.cfg.algorithm,
@@ -162,17 +180,6 @@ class Scheduler:
                 log.debug("application refresh failed: %s", exc)
             await asyncio.sleep(self.cfg.keepalive_interval_s * 6)
 
-    async def _gc_loop(self) -> None:
-        while True:
-            await asyncio.sleep(self.cfg.gc_interval_s)
-            try:
-                n = self.resource.gc()
-            except Exception:  # noqa: BLE001 - the sweeper must survive
-                log.exception("resource gc failed")
-                continue
-            if n:
-                log.debug("resource gc evicted %d", n)
-
     async def stop(self) -> None:
         if self._app_refresh is not None:
             self._app_refresh.cancel()
@@ -180,9 +187,7 @@ class Scheduler:
         await self.announcer.stop()
         if self.manager is not None:
             await self.manager.close()
-        if self._gc is not None:
-            self._gc.cancel()
-            await asyncio.gather(self._gc, return_exceptions=True)
+        await self.gc.stop()
         for t in list(self.service._seed_tasks):
             t.cancel()
         await asyncio.gather(*self.service._seed_tasks,

@@ -10,8 +10,10 @@ AnnounceContent, the recovery re-announce: a daemon that saw the boot
 epoch change replays what it holds, sealed as a PEX digest; a torn or
 unsealed digest is refused whole, and an adopted one creates a
 ``<host>-recov-<task>`` holder peer per task and a ``recovery`` row in
-the decision ledger. The reference's quarantine, federation and fleet
-pulse calls in that handler wait for the planes that own them.
+the decision ledger. Both announces hand their pulse to the fleet pulse
+(``fleetpulse.py``), as the reference's do. The reference's quarantine
+and federation calls in those handlers wait for the planes that own them
+(ROADMAP Queue 1 items 5a and 5c).
 
 Back-source arbitration: a child with no viable parents is not sent to
 origin at once. While a seed trigger is in flight, or peers hold content
@@ -34,8 +36,7 @@ are the cluster view's (``cluster_view.py``, ``GET /debug/cluster``). A
 register and a stream's first offer are spans of the caller's trace
 (``sched.register``, ``sched.offer``), and an armed ruling profiler
 notes each first offer's queue wait. Left out, for later slices:
-quarantine, federation, tenant quotas, QoS preemption, fleet pulse and
-preheat.
+quarantine, federation, tenant quotas, QoS preemption and preheat.
 
 A report stream that ends with the daemon's half-close is not marked
 ``stream_gone``: the daemon half-closes only on its way to the terminal
@@ -101,7 +102,7 @@ class SchedulerService:
     def __init__(self, resource: Resource, scheduling: Scheduling,
                  seed_client: SeedPeerClient, topo: TopologyStore, *,
                  records=None, ledger=None,
-                 cfg: SchedulerConfig | None = None):
+                 cfg: SchedulerConfig | None = None, fleetpulse=None):
         # the back-source and parent limits (the rest of the config is
         # the server's business)
         self.cfg = cfg if cfg is not None else SchedulerConfig()
@@ -112,6 +113,8 @@ class SchedulerService:
         # scheduler/records.DownloadRecords, or None (no dataset kept)
         self.records = records
         self.ledger = ledger            # decision ledger (recovery rows)
+        # scheduler/fleetpulse.FleetPulse: ingests the announces' pulses
+        self.fleetpulse = fleetpulse
         # per-host download view of piece reports and flight summaries
         # (GET /debug/cluster)
         self.cluster = ClusterView(ledger=ledger)
@@ -599,6 +602,12 @@ class SchedulerService:
                             context) -> AnnounceHostResponse:
         if req.host is not None:
             self.resource.store_host(req.host)
+            if self.fleetpulse is not None and req.pulse is not None:
+                # piggybacked telemetry: ingest is total (never raises)
+                # and strictly observational: no ruling path reads it
+                self.fleetpulse.ingest(
+                    req.host.id, req.pulse,
+                    interval_s=float(req.interval_s or 0.0) or 30.0)
         return AnnounceHostResponse(scheduler_epoch=self.epoch)
 
     async def announce_content(self, req: AnnounceContentRequest,
@@ -611,6 +620,8 @@ class SchedulerService:
         if req.host is None or body is None:
             _recovery_announces.labels("rejected").inc()
             return AnnounceContentResponse(scheduler_epoch=self.epoch)
+        if self.fleetpulse is not None and req.pulse is not None:
+            self.fleetpulse.ingest(req.host.id, req.pulse)
         host = self.resource.store_host(req.host)
         adopted = 0
         pieces_learned = 0

@@ -5,24 +5,27 @@ simulated pod (2 slices x N/2 hosts plus a dedicated seed host) runs the
 port's real scheduler stack under a virtual clock seeded by ``--seed``:
 ``Resource``/``Peer``, ``Scheduling.find_parents`` with the evaluator's
 scoring and the upload-slot accounting of ``Task.set_parents``, the flight
-recorder's ``TaskFlight.summarize`` stage math, the decision ledger, the
-``MLEvaluator``, ``ShardAffinity`` and ``ShardTracker``, and the storage
-stack's reload and span landing. The pieces each daemon took from each
-parent hash into ``schedule_digest``; the same seed gives the same bytes
-in both packages, so a digest that moves is a scheduling change.
+recorder's ``TaskFlight.summarize`` stage math, podscope, the decision
+ledger, the ``MLEvaluator``, ``ShardAffinity``, ``ShardTracker``, the
+fleet pulse, and the storage stack's reload and span landing. The pieces
+each daemon took from each parent hash into ``schedule_digest``; the same
+seed gives the same bytes in both packages, so a digest that moves is a
+scheduling change.
 
     python -m dragonfly2_tpu_torch.tools.dfbench --seed 7     # baseline
     python -m dragonfly2_tpu_torch.tools.dfbench --pr19 --device cpu --smoke
 
 Points: the baseline (``--scenario``), ``--pr4`` (schedulers down, with
 and without PEX), ``--pr5`` (data-plane replay and the span-landing
-self-check), ``--pr8`` (decision-ledger replay), ``--pr9`` (cold start,
-pull vs relay, at pod sizes 64-256), ``--pr10`` (content-store churn),
-``--pr14`` (sharded rollout) and ``--pr19`` (the learned loop: datagen,
-two seeded fits on ``--device``, a learned leg). The result is printed,
-or written to ``--out`` when it names a file; nothing is written by
-default. The reference's other points need modules this package does not
-have yet and are refused (exit 2).
+self-check), ``--pr6`` (podscope's pod numbers), ``--pr8``
+(decision-ledger replay), ``--pr9`` (cold start, pull vs relay, at pod
+sizes 64-256), ``--pr10`` (content-store churn), ``--pr14`` (sharded
+rollout) and ``--pr19`` (the learned loop: datagen, two seeded fits on
+``--device``, a learned leg). The result is printed, or written to
+``--out`` when it names a file; nothing is written by default. The
+reference's other points need modules this package does not have yet and
+are refused (exit 2); ``fleetpulse_legs`` is ``--pr18`` without the one
+key that needs them.
 
 The fit in ``--pr19`` is the only device work: ``--device`` defaults to
 ``cuda`` and raises without a CUDA card.
@@ -41,14 +44,19 @@ import tempfile
 import time
 
 from ..common import digest as digestlib
+from ..common import podscope
+from ..common.podscope import _pctl
 from ..common.sharding import ShardTracker, pieces_for_shards
 from ..daemon import flight_recorder as fr
-from ..daemon.flight_recorder import TaskFlight, _pctl
+from ..daemon.flight_recorder import TaskFlight
+from ..idl.base import dumps as idl_dumps
 from ..idl.messages import Host as HostMsg
-from ..idl.messages import HostType, LinkType, ShardInfo, TopologyInfo
+from ..idl.messages import (AnnounceHostRequest, HostType, LinkType,
+                            PulseDigest, ShardInfo, TopologyInfo)
 from ..scheduler.decision_ledger import replay_decisions, replay_regret
 from ..scheduler.evaluator import make_evaluator
 from ..scheduler.evaluator_ml import MLEvaluator, parent_feature_row
+from ..scheduler.fleetpulse import FleetPulse
 from ..scheduler.resource import Peer, PeerState, Resource, Task
 from ..scheduler.scheduling import Scheduling
 from ..scheduler.shard_affinity import ShardAffinity
@@ -92,14 +100,15 @@ _ROW_KEY = {"schedule": "queue_ms", "first_byte": "ttfb_ms",
 # the reference's points whose modules this package lacks:
 # flag -> what it needs (ROADMAP Queue 1 item)
 UNPORTED_POINTS = {
-    "--pr6": "podscope, ROADMAP Queue 1 item 4b",
-    "--ctrl": "fleetpulse (ROADMAP Queue 1 item 4b), federation and "
-              "quarantine (item 5)",
-    "--pr18": "fleetpulse and the daemon pulse, ROADMAP Queue 1 item 4b",
-    "--pr11": "the QoS traffic shaper, ROADMAP Queue 1 item 5",
-    "--pr12": "the quarantine registry, ROADMAP Queue 1 item 5",
-    "--pr13": "pod federation, ROADMAP Queue 1 item 5",
-    "--pr17": "the scheduler statestore, ROADMAP Queue 1 item 5",
+    "--ctrl": "the quarantine registry and pod federation, ROADMAP "
+              "Queue 1 item 5a and item 5c",
+    "--pr18": "its fleetpulse_pure key runs the ctrl storm, which arms "
+              "the quarantine registry and pod federation (ROADMAP Queue 1 "
+              "item 5a and item 5c)",
+    "--pr11": "the QoS traffic shaper, ROADMAP Queue 1 item 5b",
+    "--pr12": "the quarantine registry, ROADMAP Queue 1 item 5a",
+    "--pr13": "pod federation, ROADMAP Queue 1 item 5c",
+    "--pr17": "the scheduler statestore, ROADMAP Queue 1 item 5c",
 }
 
 
@@ -153,36 +162,18 @@ def run_bench(*, seed: int = 7, daemons: int = 8, pieces: int = 64,
               origin_link: LinkType = LinkType.WAN) -> dict:
     """One simulated fan-out; returns the result dict, a pure function of
     the arguments. ``collect_timeline`` attaches each daemon's landings
-    (the ``--pr5`` replay's input), ``collect_decisions`` the decision
-    ledger's rows and ``collect_outcomes`` one ``kind=piece`` row per p2p
-    transfer (the ``--pr19`` training data); none of them touches the rng,
-    so the digest stays. ``evaluator`` swaps the scoring policy (default
-    ``make_evaluator("default")``). ``collect_podscope`` and a
-    ``quarantine`` registry need modules this package lacks and raise."""
-    if collect_podscope:
-        raise NotImplementedError(
-            "collect_podscope: not ported to this package yet (podscope, "
-            "ROADMAP Queue 1 item 4)")
+    (the ``--pr5`` replay's input), ``collect_podscope`` per-daemon
+    snapshots in the ``common/podscope.py`` shape (``--pr6``, ``--pr9``),
+    ``collect_decisions`` the decision ledger's rows and
+    ``collect_outcomes`` one ``kind=piece`` row per p2p transfer (the
+    ``--pr19`` training data); none of them touches the rng, so the digest
+    stays. ``evaluator`` swaps the scoring policy (default
+    ``make_evaluator("default")``). A ``quarantine`` registry needs a
+    module this package lacks and raises."""
     if quarantine is not None:
         raise NotImplementedError(
             "quarantine: not ported to this package yet (the quarantine "
-            "registry, ROADMAP Queue 1 item 5)")
-    return _fanout(seed=seed, daemons=daemons, pieces=pieces,
-                   piece_size=piece_size, parallelism=parallelism,
-                   scenario=scenario, collect_timeline=collect_timeline,
-                   collect_decisions=collect_decisions,
-                   collect_outcomes=collect_outcomes, evaluator=evaluator,
-                   origin_link=origin_link)[0]
-
-
-def _fanout(*, seed: int = 7, daemons: int = 8, pieces: int = 64,
-            piece_size: int = 4 << 20, parallelism: int = 4,
-            scenario: str = "baseline", collect_timeline: bool = False,
-            collect_decisions: bool = False, collect_outcomes: bool = False,
-            evaluator=None, origin_link: LinkType = LinkType.WAN
-            ) -> tuple[dict, list[_Leecher]]:
-    """``run_bench``'s simulation; also returns the leechers, whose
-    flights ``_pod_tree`` reads."""
+            "registry, ROADMAP Queue 1 item 5a)")
     if scenario not in SCENARIOS + COLD_SCENARIOS:
         raise ValueError(f"unknown scenario {scenario!r} "
                          f"(known: {SCENARIOS + COLD_SCENARIOS})")
@@ -497,7 +488,19 @@ def _fanout(*, seed: int = 7, daemons: int = 8, pieces: int = 64,
         result["decisions"] = decision_rows
     if collect_outcomes:
         result["outcomes"] = outcome_rows
-    return result, leechers
+    if collect_podscope:
+        # per-daemon snapshots in the podscope shape, on one shared
+        # virtual epoch (started_at=0: the events' t_ms are absolute
+        # virtual times). The seed rides along with no flight: podscope
+        # reads a serve-only node as a root holder
+        snaps = [{"addr": seed_peer.id, "flights": {}}]
+        for lc in leechers:
+            dump = lc.flight.timeline()
+            dump["started_at"] = 0.0
+            dump["summary"] = lc.flight.summarize()
+            snaps.append({"addr": lc.peer.id, "flights": {task.id: dump}})
+        result["podscope_snapshots"] = snaps
+    return result
 
 
 def _summarize(leechers, *, seed, daemons, pieces, piece_size,
@@ -558,51 +561,6 @@ def _summarize(leechers, *, seed, daemons, pieces, piece_size,
         "per_daemon": per_daemon,
         "schedule_digest": digest,
         "schedules": schedules,
-    }
-
-
-def _pod_tree(leechers: list[_Leecher]) -> dict:
-    """The pod's distribution tree from the leechers' flights: makespan,
-    depth and edge count, as the reference's ``podscope.aggregate`` reads
-    them for the bench (its task report's ``makespan_ms``, ``depth`` and
-    ``len(edges)``). Each daemon hangs off the parent that delivered most
-    of its bytes; the origin is depth 0 and a serve-only holder depth 1."""
-    edges: dict[tuple[str, str], int] = {}
-    starts: list[float] = []
-    ends: list[float] = []
-    for lc in leechers:
-        summary = lc.flight.summarize()
-        rows = summary.get("piece_rows") or []
-        if rows or summary.get("placed_pieces"):
-            end_ms = max(round(e[0], 3) for e in lc.flight.events)
-            starts.append(0.0)
-            if lc.flight.state == "success":
-                ends.append(0.0 + end_ms / 1000.0)
-        for r in rows:
-            key = (r.get("parent") or "origin", lc.peer.id)
-            edges[key] = edges.get(key, 0) + r.get("bytes", 0)
-    nodes = {src for src, _ in edges} | {dst for _, dst in edges}
-    tree: dict[str, str] = {}
-    for dst in {dst for _, dst in edges}:
-        best = max((k for k in edges if k[1] == dst), key=edges.get)
-        tree[dst] = best[0]
-    depth_memo: dict[str, int] = {"origin": 0}
-
-    def depth_of(node: str, seen: frozenset = frozenset()) -> int:
-        if node in depth_memo:
-            return depth_memo[node]
-        if node in seen:               # swarm cross-serve cycle: cut here
-            return 1
-        parent = tree.get(node)
-        d = 1 if parent is None else depth_of(parent, seen | {node}) + 1
-        depth_memo[node] = d
-        return d
-
-    return {
-        "makespan_ms": (round((max(ends) - min(starts)) * 1000.0, 3)
-                        if starts and ends else 0.0),
-        "depth": max((depth_of(n) for n in nodes), default=0),
-        "edges": len(edges),
     }
 
 
@@ -739,6 +697,47 @@ def _run_pr5(args) -> dict:
     }
 
 
+def _run_pr6(args) -> dict:
+    """Podscope's pod numbers (pod makespan, distribution-tree depth,
+    origin amplification, per-edge bandwidth percentiles) per scenario,
+    over the same runs as the earlier points: the baseline's
+    ``schedule_digest`` stays BENCH_pr3's. The baseline's amplification
+    is 1.0 (the content crossed the origin uplink once); the outage
+    without PEX shows N daemons' worth."""
+    scenarios = {}
+    for sc in SCENARIOS:
+        r = run_bench(**_bench_kw(args), scenario=sc, collect_podscope=True)
+        report = podscope.aggregate(r.pop("podscope_snapshots"))
+        task_report = next(iter(report["tasks"].values()))
+        scenarios[sc] = {
+            "schedule_digest": r["schedule_digest"],
+            "wall_ms": r["wall_ms"],
+            "p2p_served_ratio": r["p2p_served_ratio"],
+            "podscope": podscope.bench_summary(task_report),
+        }
+    base = scenarios["baseline"]["podscope"]
+    return {
+        "bench": "dfbench-podscope",
+        "seed": args.seed,
+        "daemons": args.daemons,
+        "pieces": args.pieces,
+        "piece_size": args.piece_size,
+        "parallelism": args.parallelism,
+        "schedule_digest": scenarios["baseline"]["schedule_digest"],
+        "scenarios": scenarios,
+        "pod_makespan_ms": {sc: scenarios[sc]["podscope"]["makespan_ms"]
+                            for sc in SCENARIOS},
+        "tree_depth": {sc: scenarios[sc]["podscope"]["depth"]
+                       for sc in SCENARIOS},
+        "amplification": {sc: scenarios[sc]["podscope"]["amplification"]
+                          for sc in SCENARIOS},
+        "edge_bandwidth_p95_bps":
+            {sc: scenarios[sc]["podscope"]["edge_bandwidth_bps"]["p95"]
+             for sc in SCENARIOS},
+        "baseline_bottleneck": base["bottleneck"],
+    }
+
+
 def _bench_kw(args) -> dict:
     return dict(seed=args.seed, daemons=args.daemons, pieces=args.pieces,
                 piece_size=args.piece_size, parallelism=args.parallelism)
@@ -864,23 +863,25 @@ def _run_pr19(args) -> dict:
 def _run_pr9(args) -> dict:
     """Cold-start makespan against pod size, store-and-forward against
     cut-through relay (the scheduler's ``relay_fanout`` armed for the
-    relay runs), each run's distribution tree read by ``_pod_tree``. A
-    plain baseline run rides along as the relay-disabled digest gate."""
+    relay runs), each run's distribution tree read by
+    ``podscope.aggregate``. A plain baseline run rides along as the
+    relay-disabled digest gate."""
     sizes = [8, 16] if args.smoke else [64, 128, 256]
     base = run_bench(**_bench_kw(args))
     scenarios: dict[str, dict] = {sc: {} for sc in COLD_SCENARIOS}
     for sc in COLD_SCENARIOS:
         for n in sizes:
-            r, leechers = _fanout(**(_bench_kw(args) | {"daemons": n}),
-                                  scenario=sc)
-            tree = _pod_tree(leechers)
+            r = run_bench(**(_bench_kw(args) | {"daemons": n}),
+                          scenario=sc, collect_podscope=True)
+            report = podscope.aggregate(r.pop("podscope_snapshots"))
+            task_report = next(iter(report["tasks"].values()))
             scenarios[sc][str(n)] = {
                 "wall_ms": r["wall_ms"],
-                "makespan_ms": tree["makespan_ms"],
-                "depth": tree["depth"],
+                "makespan_ms": task_report["makespan_ms"],
+                "depth": task_report["depth"],
                 "seed_served_ratio": r["seed_served_ratio"],
                 "relay_pulled_pieces": r.get("relay_pulled_pieces", 0),
-                "edges": tree["edges"],
+                "edges": len(task_report["edges"]),
                 "schedule_digest": r["schedule_digest"],
             }
     mk = {sc: {str(n): scenarios[sc][str(n)]["makespan_ms"]
@@ -1560,8 +1561,211 @@ def _run_pr4(args) -> dict:
     }
 
 
+# ---------------------------------------------------------- fleet pulse
+# Virtual announce streams through the real ``FleetPulse``: stationary
+# noise, then a fault injected at ``PULSE_INJECT_AT``. The reference's
+# constants; ``pulse_digest`` depends on every one of them.
+PULSE_SMOKE_FLEET = 128             # the legs the CPU tests run
+PULSE_FLEETS = (1000, 10000)        # the full-size legs
+PULSE_INTERVALS = 40                # announce intervals per leg
+PULSE_INJECT_AT = 20                # interval the fault injection starts
+PULSE_FAULTY = 7                    # daemons driven faulty per fault leg
+PULSE_SILENT = 3                    # daemons that go silent (stall leg)
+PULSE_ANNOUNCE_MS = 30_000.0        # one announce interval (virtual)
+PULSE_MAX_BYTES = 512               # per-announce piggyback budget (gate)
+PULSE_INJECTIONS = ("none", "stall", "byzantine")
+
+
+def run_fleetpulse_bench(*, seed: int = 7, daemons: int = 1000,
+                         inject: str = "none") -> dict:
+    """Drive ``daemons`` virtual announce streams through the port's
+    ``FleetPulse`` on a virtual clock: ``PULSE_INTERVALS`` intervals of
+    stationary noise, then, on the fault legs, from ``PULSE_INJECT_AT``:
+
+    * ``stall``: ``PULSE_FAULTY`` daemons spike loop lag and SLO breaches
+      and ``PULSE_SILENT`` daemons stop announcing (silent-daemon through
+      ``tick()``);
+    * ``byzantine``: ``PULSE_FAULTY`` daemons burst corrupt verdicts and
+      shunned parents (one self-quarantines), escalate serves off the
+      primary rung and shed admissions.
+
+    Reported per leg: per-kind detection latency in announce intervals,
+    false positives (a firing on a clean daemon, or anything on the clean
+    leg) and a sha256 ``pulse_digest`` over the anomaly rows.
+    ``ingest_per_sec`` is this host's wall rate, the one number that is
+    not a function of the arguments."""
+    interval_s = PULSE_ANNOUNCE_MS / 1000.0
+    rng = random.Random(f"{seed}:{daemons}:{inject}")
+    now_ref = [0.0]
+    rows: list[dict] = []
+    fp = FleetPulse(sink=rows.append, clock=lambda: now_ref[0])
+
+    faulty = [f"vd{i:05d}" for i in range(PULSE_FAULTY)] \
+        if inject in ("stall", "byzantine") else []
+    silent = [f"vd{i:05d}" for i in
+              range(PULSE_FAULTY, PULSE_FAULTY + PULSE_SILENT)] \
+        if inject == "stall" else []
+    injected = set(faulty) | set(silent)
+
+    # per-daemon counters since boot (the daemon/pulse.py shape)
+    cum = {f"vd{i:05d}": {"slo": 0, "shed": 0, "corrupt": 0, "shun": 0,
+                          "rung": 0, "p2p": 0}
+           for i in range(daemons)}
+
+    t0 = time.perf_counter()
+    for t in range(PULSE_INTERVALS):
+        now_ref[0] += interval_s
+        hot = t >= PULSE_INJECT_AT
+        for i in range(daemons):
+            hid = f"vd{i:05d}"
+            if hot and hid in silent:
+                continue            # the daemon fell over: no announce
+            c = cum[hid]
+            # stationary noise under the detector's absolute floors: the
+            # clean leg must produce no firing
+            c["slo"] += rng.randrange(2)
+            c["shed"] += rng.randrange(2)
+            c["p2p"] += 4 + rng.randrange(4)
+            c["rung"] += rng.randrange(2)
+            lag = 4.0 + 8.0 * rng.random()
+            quar = False
+            if hot and hid in faulty:
+                if inject == "stall":
+                    lag = 500.0 + 400.0 * rng.random()
+                    c["slo"] += 10 + rng.randrange(5)
+                else:
+                    c["corrupt"] += 5 + rng.randrange(3)
+                    c["shun"] += 1
+                    c["rung"] += 6 + rng.randrange(3)
+                    c["shed"] += 10 + rng.randrange(5)
+                    quar = (i == 0 and t >= PULSE_INJECT_AT + 2)
+            fp.ingest(hid, {
+                "v": 1, "seq": t, "flight_tasks": 1 + i % 3,
+                "loop_lag_max_ms": round(lag, 3),
+                "slo_breaches": c["slo"],
+                "served_rungs": {"p2p": c["p2p"], "seed": c["rung"]},
+                "qos_shed": c["shed"],
+                "corrupt_verdicts": c["corrupt"],
+                "shunned_parents": c["shun"],
+                "self_quarantined": quar,
+                "qos_state": "shed" if (hot and hid in faulty
+                                        and inject == "byzantine")
+                             else "normal",
+            }, interval_s=interval_s)
+        fp.tick()                   # the scheduler's GC cadence
+    wall_s = time.perf_counter() - t0
+
+    inject_at_s = PULSE_INJECT_AT * interval_s
+    latency: dict[str, float] = {}
+    false_positives = 0
+    for row in rows:
+        kind = row["anomaly"]
+        on_injected = row["host_id"] in injected
+        if inject == "none" or not on_injected \
+                or row["at"] <= inject_at_s:
+            false_positives += 1
+            continue
+        lat = (row["at"] - inject_at_s) / interval_s
+        if kind not in latency or lat < latency[kind]:
+            latency[kind] = round(lat, 1)
+    digest = hashlib.sha256(json.dumps(
+        [[r["decision_id"], r["anomaly"], r["host_id"], r["signal"]]
+         for r in rows], sort_keys=True).encode()).hexdigest()
+    return {
+        "daemons": daemons,
+        "inject": inject,
+        "intervals": PULSE_INTERVALS,
+        "announces": fp.ingested,
+        "anomalies": len(rows),
+        "anomaly_counts": {k: v for k, v in
+                           sorted(fp.anomaly_counts.items()) if v},
+        "detection_latency_intervals": dict(sorted(latency.items())),
+        "false_positives": false_positives,
+        "incidents": len(fp.incidents),
+        "ingest_per_sec": round(fp.ingested / max(wall_s, 1e-9), 1),
+        "pulse_digest": digest,
+    }
+
+
+def _pulse_overhead_bytes() -> int:
+    """Encoded bytes a busy pulse adds to one announce: the same
+    ``AnnounceHostRequest`` with and without a fully populated digest,
+    through the port's msgpack codec. Gated at ``PULSE_MAX_BYTES``."""
+    host = HostMsg(id="overhead-probe-host", ip="10.0.0.1", port=65001,
+                   download_port=65002,
+                   topology=TopologyInfo(slice_name="pod-00",
+                                         ici_coords=(15, 15),
+                                         zone="bench-zone"))
+    pulse = PulseDigest(
+        seq=999_999, flight_tasks=64, flight_evicted=4096,
+        served_rungs={"p2p": 1_000_000, "seed": 50_000, "cross": 10_000,
+                      "origin": 5_000, "relay": 2_500, "swap": 1_250},
+        loop_lag_max_ms=1234.567, loop_stalls=999, slo_breaches=100_000,
+        corrupt_verdicts=5_000, shunned_parents=64, self_quarantined=True,
+        qos_state="brownout", qos_shed=100_000, storage_tasks=4096)
+    bare = AnnounceHostRequest(host=host, interval_s=30.0)
+    full = AnnounceHostRequest(host=host, interval_s=30.0, pulse=pulse)
+    return len(idl_dumps(full)) - len(idl_dumps(bare))
+
+
+def fleetpulse_legs(args) -> dict:
+    """``--pr18`` without its ``fleetpulse_pure`` key: the baseline's
+    ``schedule_digest``, the fleet-pulse legs (128 daemons; with 1,000 and
+    10,000 unless ``args.smoke``), ``pulse_digest`` over the 128-daemon
+    legs, the detection gates and ``bytes_per_announce``.
+    ``fleetpulse_pure`` compares the ctrl storm's rulings with and
+    without pulses, and ``run_ctrl_bench`` arms the federation and the
+    quarantine registry (ROADMAP Queue 1 items 5a and 5c), so ``--pr18``
+    itself stays refused until they land."""
+    base = run_bench(**_bench_kw(args))
+    legs = {}
+    fleets = [PULSE_SMOKE_FLEET] + ([] if args.smoke else list(PULSE_FLEETS))
+    for n in fleets:
+        for inj in PULSE_INJECTIONS:
+            legs[f"{inj}_{n}"] = run_fleetpulse_bench(
+                seed=args.seed, daemons=n, inject=inj)
+    smoke_legs = [legs[f"{inj}_{PULSE_SMOKE_FLEET}"]
+                  for inj in PULSE_INJECTIONS]
+    pulse_digest = hashlib.sha256("".join(
+        leg["pulse_digest"] for leg in smoke_legs).encode()).hexdigest()
+    detected = sorted({k for leg in legs.values()
+                       for k in leg["anomaly_counts"]})
+    # silent-daemon is gap-triggered (2.5 missed intervals by design) and
+    # carries its own bound; every push-signal kind must clear 2 intervals
+    push_latency: dict[str, float] = {}
+    silent_latency = 0.0
+    for leg in legs.values():
+        for kind, lat in leg["detection_latency_intervals"].items():
+            if kind == "silent-daemon":
+                silent_latency = max(silent_latency, lat)
+            else:
+                push_latency[kind] = max(push_latency.get(kind, 0.0), lat)
+    overhead = _pulse_overhead_bytes()
+    return {
+        "bench": "dfbench-fleetpulse",
+        "seed": args.seed,
+        "fleets": fleets,
+        "intervals": PULSE_INTERVALS,
+        "inject_at": PULSE_INJECT_AT,
+        "schedule_digest": base["schedule_digest"],
+        "pulse_digest": pulse_digest,
+        "legs": legs,
+        "detected_kinds": detected,
+        "detection_latency_intervals": dict(sorted(push_latency.items())),
+        "silent_detection_intervals": silent_latency,
+        "detection_bounded": all(v <= 2.0 for v in push_latency.values()),
+        "false_positives": {name: leg["false_positives"]
+                            for name, leg in sorted(legs.items())},
+        "zero_false_positives": all(leg["false_positives"] == 0
+                                    for leg in legs.values()),
+        "bytes_per_announce": overhead,
+        "pulse_overhead_ok": overhead <= PULSE_MAX_BYTES,
+    }
+
+
 POINTS = {"pr19": _run_pr19, "pr14": _run_pr14, "pr10": _run_pr10,
-          "pr9": _run_pr9, "pr8": _run_pr8, "pr5": _run_pr5, "pr4": _run_pr4}
+          "pr9": _run_pr9, "pr8": _run_pr8, "pr6": _run_pr6, "pr5": _run_pr5,
+          "pr4": _run_pr4}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -1585,6 +1789,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="replay the baseline schedule through the legacy "
                    "and zero-stall data-plane models, and self-check span "
                    "landing")
+    p.add_argument("--pr6", action="store_true",
+                   help="podscope's pod numbers per scenario (makespan, "
+                   "tree depth, origin amplification, edge bandwidth "
+                   "percentiles, the bottleneck edge)")
     p.add_argument("--pr8", action="store_true",
                    help="replay the decision-ledger rows through the "
                    "default, nt and ml evaluators (decision_digest, "

@@ -4,7 +4,8 @@ Counterpart of ``dragonfly2_tpu/tools/scheduler.py`` (reference
 ``cmd/scheduler``): config from YAML or JSON (``--config``), DF_* env
 overrides and flags; SIGINT or SIGTERM shuts down cleanly.
 ``--debug-port`` serves ``/debug/{stacks,profile,health}``, ``/metrics``,
-``/debug/cluster``, ``/debug/decisions`` and ``/debug/ctrl``;
+``/debug/cluster``, ``/debug/decisions``, ``/debug/ctrl`` and, with the
+fleet pulse on (the default), ``/debug/fleet``;
 ``--tracing-jsonl`` / ``--tracing-otlp`` turn tracing on.
 """
 
@@ -24,6 +25,7 @@ from ..scheduler.cluster_view import add_cluster_routes
 from ..scheduler.config import KEY_CLASSES, SchedulerConfig
 from ..scheduler.ctrl_debug import CtrlObservatory, add_ctrl_routes
 from ..scheduler.decision_ledger import add_decision_routes
+from ..scheduler.fleetpulse import add_fleet_routes
 from ..scheduler.server import Scheduler
 from . import add_debug_arg
 
@@ -49,19 +51,26 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def add_scheduler_routes(router, sched: Scheduler) -> None:
+    """The scheduler's own debug surfaces on the ``--debug-port`` router:
+    ``/debug/cluster``, ``/debug/decisions``, ``/debug/fleet`` (with the
+    fleet pulse on) and ``/debug/ctrl``."""
+    add_cluster_routes(router, sched.service.cluster)
+    add_decision_routes(router, sched.ledger)
+    if sched.fleetpulse is not None:
+        add_fleet_routes(router, sched.fleetpulse)
+    add_ctrl_routes(router, CtrlObservatory(
+        resource=sched.resource, ledger=sched.ledger,
+        sharded=sched.sharded))
+
+
 async def serve(cfg: SchedulerConfig, debug_port: int = 0) -> None:
     health.PLANE.acquire()   # loop watchdog + /debug/health
     sched = Scheduler(cfg)
     await sched.start()
-
-    def extra_routes(router) -> None:
-        add_cluster_routes(router, sched.service.cluster)
-        add_decision_routes(router, sched.ledger)
-        add_ctrl_routes(router, CtrlObservatory(
-            resource=sched.resource, ledger=sched.ledger,
-            sharded=sched.sharded))
-
-    debug = await maybe_start_debug(debug_port, extra_routes=extra_routes)
+    debug = await maybe_start_debug(
+        debug_port,
+        extra_routes=lambda router: add_scheduler_routes(router, sched))
     stop = asyncio.Event()
     loop = asyncio.get_running_loop()
     for sig in (signal.SIGINT, signal.SIGTERM):

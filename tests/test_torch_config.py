@@ -238,9 +238,10 @@ def test_reference_yaml_files_load(tmp_path):
     (daemon_tool, "proxy:\n  enabled: true\nqos:\n  queue_limit: 3\n",
      ["proxy.enabled (ROADMAP Queue 1 item 6)",
       "qos.queue_limit (ROADMAP Queue 1 item 5b)"]),
+    # fleetpulse_enabled is wired since item 4b: only the quarantine key
+    # is refused
     (sched_tool, "quarantine_enabled: false\nfleetpulse_enabled: false\n",
-     ["quarantine_enabled (ROADMAP Queue 1 item 5a)",
-      "fleetpulse_enabled (ROADMAP Queue 1 item 4b)"])])
+     ["quarantine_enabled (ROADMAP Queue 1 item 5a)"])])
 def test_launchers_refuse_unported_keys(tmp_path, capsys, tool, text, name):
     path = tmp_path / "c.yaml"
     path.write_text(text)
@@ -250,6 +251,7 @@ def test_launchers_refuse_unported_keys(tmp_path, capsys, tool, text, name):
     msg = capsys.readouterr().err
     for n in name:
         assert n in msg
+    assert "fleetpulse_enabled" not in msg
 
 
 # ---------------------------------------------------------------- daemon

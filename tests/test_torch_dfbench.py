@@ -46,8 +46,8 @@ SMOKE = dict(seed=7, daemons=4, pieces=8, piece_size=4 << 20,
              parallelism=4, smoke=True, device="cpu")
 FULL = dict(SMOKE, daemons=8, pieces=64, smoke=False)
 # the reference's points whose modules the port lacks: flag -> ROADMAP item
-UNPORTED = {"--pr6": 4, "--ctrl": 4, "--pr18": 4, "--pr11": 5,
-            "--pr12": 5, "--pr13": 5, "--pr17": 5}
+UNPORTED = {"--ctrl": "5a", "--pr18": "5a", "--pr11": "5b",
+            "--pr12": "5a", "--pr13": "5c", "--pr17": "5c"}
 
 
 @pytest.fixture(autouse=True)
@@ -88,7 +88,8 @@ def test_run_bench_matches_reference(scenario):
     assert _as_json(got) == _as_json(want)
 
 
-@pytest.mark.parametrize("point", ["pr4", "pr8", "pr9", "pr10", "pr14"])
+@pytest.mark.parametrize("point", ["pr4", "pr6", "pr8", "pr9", "pr10",
+                                   "pr14"])
 def test_smoke_point_matches_reference(point):
     got = getattr(dfbench, f"_run_{point}")(_args(**SMOKE))
     want = getattr(ref, f"_run_{point}")(_args(**SMOKE))
@@ -131,21 +132,20 @@ def test_pr19_matches_reference_given_the_reference_fit(size, monkeypatch):
 
 
 def test_pod_tree_reads_the_cold_runs_as_podscope_does():
-    from dragonfly2_tpu.common import podscope
+    """``--pr9`` reads each cold run's tree through ``podscope.aggregate``:
+    the port's snapshots and podscope give the reference's task report."""
+    from dragonfly2_tpu.common import podscope as ref_podscope
+    from dragonfly2_tpu_torch.common import podscope
     for scenario in dfbench.COLD_SCENARIOS:
-        _, leechers = dfbench._fanout(daemons=16, pieces=8,
-                                      scenario=scenario)
-        snaps = [{"addr": "seedh-peer", "flights": {}}]
-        for lc in leechers:
-            dump = lc.flight.timeline()
-            dump["started_at"] = 0.0
-            dump["summary"] = lc.flight.summarize()
-            snaps.append({"addr": lc.peer.id,
-                          "flights": {lc.flight.task_id: dump}})
-        report = next(iter(podscope.aggregate(snaps)["tasks"].values()))
-        assert dfbench._pod_tree(leechers) == {
-            "makespan_ms": report["makespan_ms"], "depth": report["depth"],
-            "edges": len(report["edges"])}
+        kw = dict(daemons=16, pieces=8, scenario=scenario,
+                  collect_podscope=True)
+        got = podscope.aggregate(
+            dfbench.run_bench(**kw)["podscope_snapshots"])
+        want = ref_podscope.aggregate(
+            ref.run_bench(**kw)["podscope_snapshots"])
+        assert _as_json(got) == _as_json(want)
+        (report,) = got["tasks"].values()
+        assert report["depth"] > 1 and report["makespan_ms"] > 0
 
 
 @pytest.mark.parametrize("algo", ["crc32", "crc32c"])
@@ -258,9 +258,7 @@ def test_unported_points_are_refused(flag, capsys):
 
 
 def test_unported_run_bench_arms_raise():
-    with pytest.raises(NotImplementedError, match="item 4"):
-        dfbench.run_bench(daemons=2, pieces=2, collect_podscope=True)
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.raises(NotImplementedError, match="item 5a"):
         dfbench.run_bench(daemons=2, pieces=2, quarantine=object())
 
 

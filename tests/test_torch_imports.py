@@ -15,6 +15,8 @@ import os
 import subprocess
 import sys
 
+import pytest
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "dragonfly2_tpu_torch")
 ALLOWED = frozenset(sys.stdlib_module_names) | {"torch", "numpy",
@@ -81,6 +83,29 @@ def test_every_import_statement_is_stdlib_torch_or_numpy():
     assert not bad, bad
 
 
+# the readers of the observability plane (ROADMAP Queue 1 item 4b): the
+# reference's versions import aiohttp (the fleet route) or sit beside
+# modules that do, so each is checked by name
+READERS = ("common/podscope.py", "scheduler/fleetpulse.py",
+           "daemon/pulse.py", "tools/dfdiag.py", "tools/dfsched.py")
+
+
+@pytest.mark.parametrize("rel", READERS)
+def test_the_observability_readers_import_only_the_allowed(rel):
+    path = os.path.join(PORT, rel)
+    assert path in _sources()
+    with open(path, encoding="utf-8") as f:
+        tree = ast.parse(f.read(), path)
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.add(node.module.split(".")[0])
+    assert names <= ALLOWED, names
+    assert not names & {"aiohttp", "jax", "dragonfly2_tpu"}
+
+
 def test_port_imports_without_jax_or_the_reference():
     env = dict(os.environ, PYTHONPATH=ROOT)
     proc = subprocess.run(
@@ -88,4 +113,4 @@ def test_port_imports_without_jax_or_the_reference():
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     # every module of the slice was found and imported
-    assert int(proc.stdout.strip().splitlines()[-1]) >= 87, proc.stdout
+    assert int(proc.stdout.strip().splitlines()[-1]) >= 112, proc.stdout
