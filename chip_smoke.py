@@ -139,7 +139,13 @@ a chain's first relaying hop is the seed's first child.
               card on those rows, seeds 0-15, must beat the heuristic's
               regret of 0.1379 on average); ``--pr9`` at pods of 64, 128
               and 256; ``--pr14`` at 4x4, 8x8 and 16x16, with the port's
-              filter and with the reference's; ``--pr10``, ``--pr8``,
+              filter and with the reference's; ``--pr12`` (a byzantine
+              holder, quarantine on and off); ``--pr13`` (federation at 4,
+              8 and 16 pods of 64 daemons, and a pod seed killed);
+              ``--pr17`` (a scheduler crash, legs of 64 and 512 daemons)
+              with the reference's filter, equal to its file but for the
+              wall-clock ``time_to_first_ruling_ms``, and with the port's,
+              its gates and schedule digest; ``--pr10``, ``--pr8``,
               ``--pr6`` (podscope's pod numbers; ``--pr9`` reads its trees
               through podscope too), ``--pr5``, ``--pr4``, the baseline,
               and ``--pr18``'s nine fleet-pulse legs (none, stall and
@@ -149,7 +155,7 @@ a chain's first relaying hop is the seed's first child.
               ``BENCH_*.json``; the port's
               swap-partner exemption may move only pr14's 4x4 and 8x8
               sharded schedules (ROADMAP known difference 13)
-14. observe  — run last, on phase 8's origin: a manager, a seed daemon
+14. observe  — run after phase 13, on phase 8's origin: a manager, a seed daemon
               (``--debug-endpoints``, ``--tracing-jsonl``), a trainer and
               a scheduler (``--tracing-jsonl``) from the launchers, the
               three services with ``--debug-port -1``; the scheduler's
@@ -211,6 +217,42 @@ a chain's first relaying hop is the seed's first child.
               --fleet`` exits as its active episodes say; dfsched over
               the records stitches at least 95 % of the piece rows to a
               decision
+16. poison   — run after phase 15, on phase 8's origin over HTTP (250
+              MB/s) from phase 11's server in a child. Children: a
+              scheduler S1 with the reference's defaults (the quarantine
+              registry on) plus a state store snapshotting every 0.5 s
+              and records, the seed, and a poisoner P that pulls the file
+              clean through S1 and then arms ``upload.serve@<its
+              host>=corrupt:n=-1``. L1-L4 here, started together
+              (manifest sinks on the card, back-source disabled; every
+              daemon announcing and gossiping each second, cut from 30 s
+              and 5 s). Every tensor must equal the file; P must be
+              quarantined (or on probation) at S1 with 2 or more
+              reporters and at most 6 corrupt verdicts per leecher; each
+              leecher's ``/debug/verdicts`` must name P shunned or, for a
+              leecher the pod-wide exclusion spared, deprioritized, with
+              at least one shunning it; the leechers' pulses and S1's
+              fleet-pulse series must carry corrupt verdicts; podscope's
+              quarantine view must name P; S1's records must hold the
+              ``quarantine`` rows. S1 is SIGKILLed once its snapshot holds
+              P; S2 starts on its port over the same directory and the
+              origin stops: S2's provenance must say recovered, with the
+              ``recovery`` row, P must be non-healthy at S2 before any new
+              evidence, and a fresh leecher L5 must be ready on the card
+              through S2 with no origin byte and no piece from P. It
+              prints the wasted corrupt pieces per leecher, the time to
+              quarantine, S2's restore-to-first-ruling time and L5's
+              time-to-ready
+17. pods     — run after phase 16, on phase 8's origin over HTTP: a
+              scheduler here with ``federation_enabled``, a seed (no pod)
+              in a child, and two pods of two daemons each, one child
+              process per pod with ``DF_POD_ID`` set (manifest sinks on
+              the card, back-source disabled, started together). Each pod
+              must elect one pod seed (``federation`` decision rows), no
+              member but a pod seed may take a piece from the other pod,
+              the members read no origin byte, every tensor must equal
+              the file, and the origin must send each byte once, to the
+              seed. It prints each pod's makespan
 
 Before phase 3 the native storage library (``dfnative.cc``, built with
 g++ at first use) must load: the pulls land crc32c piece digests, and the
@@ -266,6 +308,7 @@ from dragonfly2_tpu_torch.common.metrics import REGISTRY
 from dragonfly2_tpu_torch.common.piece import compute_piece_size
 from dragonfly2_tpu_torch.daemon.config import (DaemonConfig, SchedulerConfig,
                                                 TracingConfig)
+from dragonfly2_tpu_torch.daemon import pulse as pulse_mod
 from dragonfly2_tpu_torch.daemon.daemon import Daemon
 from dragonfly2_tpu_torch.idl.messages import (DeviceSink, DownloadRequest,
                                                Host, HostType,
@@ -842,7 +885,9 @@ async def _leecher_pull(daemon: Daemon, url: str, meta: UrlMeta,
     check(ingest is not None, f"{daemon.hostname}: device sink was not live")
     out = await asyncio.to_thread(ingest.result, 1200.0)
     # off the loop: other daemons of this process may still be pulling
-    await asyncio.to_thread(torch.cuda.synchronize)
+    # (a CPU sink, phase 17's pods rehearsed without a card, has none)
+    if torch.cuda.is_available():
+        await asyncio.to_thread(torch.cuda.synchronize)
     wall = time.monotonic() - t0
     spans = list(ingest.transfer_spans)
     return {"out": out, "conductor": conductor, "wall": wall, "t0": t0,
@@ -3065,8 +3110,13 @@ def phase_crash(workdir: str, device: torch.device) -> None:
 
 # the dfbench points run on the host in worker processes while the card
 # fits --pr19's MLPs; pr14's second run rules with the reference's filter
-DFBENCH_POINTS = ("pr9", "fleetpulse", "pr14", "pr14_reference_filter",
-                  "pr4", "pr10", "pr8", "pr6", "pr5", "baseline")
+DFBENCH_POINTS = ("pr13", "pr9", "fleetpulse", "pr17",
+                  "pr17_reference_filter", "pr14", "pr14_reference_filter",
+                  "pr12", "pr4", "pr10", "pr8", "pr6", "pr5", "baseline")
+# the one wall-clock key of --pr17 (per leg, and the legs' rollup)
+RECOVERY_WALL_CLOCK = "time_to_first_ruling_ms"
+RECOVERY_GATES = ("snapshot_fault_survived", "origin_amplification_bounded",
+              "poisoner_quarantined_across_restart", "affinity_sticky")
 DFBENCH_WORKERS = 5
 # the keys BENCH_pr6.json predates (the reference's bench_summary grew
 # them later) and the values a fan-out without relaying, content-store
@@ -3095,6 +3145,8 @@ def dfbench_point(name: str) -> tuple[dict, float]:
         result = dfbench.run_bench(**dfbench._bench_kw(args))
     elif name == "pr14_reference_filter":
         result = dfbench._run_pr14(args, partner_exemption=False)
+    elif name == "pr17_reference_filter":
+        result = dfbench._run_pr17(args, partner_exemption=False)
     elif name == "fleetpulse":
         # --pr18 without fleetpulse_pure (it needs items 5a and 5c): the
         # nine legs at 128, 1,000 and 10,000 daemons
@@ -3158,6 +3210,36 @@ def check_dfbench_point(name: str, got: dict) -> dict:
                                        "silent_detection_intervals",
                                        "detection_bounded",
                                        "zero_false_positives")}}
+    if name in ("pr17", "pr17_reference_filter"):
+        check(all(got[k] is True for k in RECOVERY_GATES),
+              f"{name} gates: {({k: got[k] for k in RECOVERY_GATES})}")
+        wall = got.pop(RECOVERY_WALL_CLOCK)
+        for leg in got["legs"].values():
+            leg.pop(RECOVERY_WALL_CLOCK)
+        want = bench_file("pr17")
+        want.pop(RECOVERY_WALL_CLOCK)
+        for leg in want["legs"].values():
+            leg.pop(RECOVERY_WALL_CLOCK)
+        if name == "pr17_reference_filter":
+            # ruled with the reference's filter, everything but the one
+            # wall-clock key equals the committed file
+            check(got == want, "pr17 with the reference's filter differs "
+                               "from BENCH_pr17.json")
+        else:
+            # the port's swap-partner exemption (known difference 13)
+            # moves the storm's rulings: the schedule gate and the
+            # shape of the result hold
+            check(got["schedule_digest"] == want["schedule_digest"]
+                  and got.keys() == want.keys(),
+                  "pr17 with the port's filter: schedule digest or keys "
+                  "differ from BENCH_pr17.json")
+        return {"recovery_digest": got["recovery_digest"],
+                RECOVERY_WALL_CLOCK: wall,
+                "poisoner_reoffers": got["poisoner_reoffers"],
+                "origin_hits_after_restart":
+                    got["origin_hits_after_restart"],
+                "shard_stickiness": got["shard_stickiness"],
+                **{k: got[k] for k in RECOVERY_GATES}}
     if name == "pr6":
         for sc in got["scenarios"].values():
             later = {k: sc["podscope"].pop(k) for k in PR6_LATER_KEYS}
@@ -3169,6 +3251,22 @@ def check_dfbench_point(name: str, got: dict) -> dict:
     if name == "pr6":
         return {k: got[k] for k in ("tree_depth", "amplification",
                                     "pod_makespan_ms")}
+    if name == "pr12":
+        check(got["quarantine_pure"] and got["quarantine_bounds_waste"],
+              "pr12 gates failed")
+        return {k: got[k] for k in ("byzantine_digest", "quarantine_pure",
+                                    "quarantine_bounds_waste",
+                                    "time_to_quarantine_ms",
+                                    "wasted_ratio", "makespan_ms")}
+    if name == "pr13":
+        flags = ("origin_bounded", "sublinear_in_pods", "hier_beats_naive")
+        check(all(got[k] is True for k in flags)
+              and got["member_origin_bytes"] == 0, "pr13 gates failed")
+        return {"federation_digest": got["federation_digest"],
+                "makespan_ms": got["makespan_ms"],
+                "origin_copies": got["origin_copies"],
+                "seed_kill": got["seed_kill"],
+                **{k: got[k] for k in flags}}
     if name == "pr9":
         check(got["relay_beats_pull"] and got["sublinear"],
               "pr9 gates failed")
@@ -4269,8 +4367,680 @@ def phase_superseed(workdir: str, device: torch.device) -> None:
         "phase_s": time.monotonic() - t_phase, "card": smi})
 
 
+# ---------------------------------------------------------------- phase 16
+
+POISON = ("l1", "l2", "l3", "l4")
+# every daemon announces and gossips each second (cut from 30 s and 5 s,
+# as the line states), and S1 snapshots its state every 0.5 s when dirty
+POISON_ANNOUNCE_S = 1.0
+POISON_PEX_S = 1.0
+POISON_SNAPSHOT_S = 0.5
+POISON_WAIT_S = 30.0          # bound on each wait for a verdict or a row
+# the reference's bound on the registry's evidence: corrupt verdicts per
+# child (the local shun at 2, plus the transfers in flight at the flip)
+POISON_EVIDENCE_PER_CHILD = 6
+
+
+def poison_daemon_cfg(workdir: str, name: str, sched_addr: str,
+                      **kw) -> DaemonConfig:
+    """Phase 16's daemons: one scheduler address, the cut cadences."""
+    cfg = DaemonConfig(workdir=os.path.join(workdir, name),
+                       hostname=f"poison-{name}", listen_ip="127.0.0.1",
+                       host_ip="127.0.0.1",
+                       scheduler=SchedulerConfig(addresses=[sched_addr]),
+                       **kw)
+    cfg.announce_interval_s = POISON_ANNOUNCE_S
+    cfg.pex.interval_s = POISON_PEX_S
+    return cfg
+
+
+def poison_sched_cfg(port: int, seed_host: Host, state_dir: str,
+                     records_dir: str = "") -> SchedCfg:
+    """S1 and S2: the reference's defaults (the quarantine registry on),
+    plus a state store under ``state_dir`` and, for S1, records."""
+    return SchedCfg(
+        listen_ip="127.0.0.1", port=port, records_dir=records_dir,
+        statestore_dir=state_dir, statestore_interval_s=POISON_SNAPSHOT_S,
+        statestore_handoff=False,
+        seed_peers=[SeedPeerAddr(host_id=seed_host.id, ip=seed_host.ip,
+                                 rpc_port=seed_host.port,
+                                 download_port=seed_host.download_port)])
+
+
+def poison_sched_state(sched: Scheduler) -> dict:
+    """What phase 16 reads of a scheduler: the quarantine ladder, its
+    decision rows, each fleet-pulse series' cumulative corrupt counts and
+    the quarantine component of the snapshot on disk."""
+    snap = None
+    if os.path.exists(sched.statestore.path):
+        with open(sched.statestore.path) as f:
+            snap = json.load(f)["components"]["quarantine"]
+    return {
+        "quarantine": sched.quarantine.snapshot(),
+        "rows": [r for r in sched.ledger._ring
+                 if r.get("decision_kind") == "quarantine"],
+        "fleet": {hid: [smp["corrupt"] for smp in series.ring]
+                  for hid, series in sched.fleetpulse._series.items()},
+        "snapshot": snap}
+
+
+def poison_sched_child(port: int, seed_host: Host, state_dir: str,
+                       records_dir: str, conn) -> None:
+    """Scheduler S1 of phase 16, in a spawned process the parent ends with
+    SIGKILL. It answers each "state" with ``poison_sched_state``."""
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    asyncio.run(_poison_sched_child(port, seed_host, state_dir, records_dir,
+                                    conn))
+
+
+async def _poison_sched_child(port: int, seed_host: Host, state_dir: str,
+                              records_dir: str, conn) -> None:
+    sched = Scheduler(poison_sched_cfg(port, seed_host, state_dir,
+                                       records_dir))
+    await sched.start()
+    conn.send({"epoch": sched.service.epoch, "started": time.time()})
+    while True:
+        msg = await asyncio.to_thread(conn.recv)
+        if msg == "state":
+            conn.send(poison_sched_state(sched))
+
+
+def poisoner_child(workdir: str, sched_addr: str, url: str, conn) -> None:
+    """The poisoner P of phase 16, in a spawned process that never touches
+    CUDA: it pulls the file clean through S1, then arms the corrupt script
+    on its own host key, so every range it serves carries a flipped byte.
+    It sends its host, address and peer id, serves until the parent says
+    "stop", then sends the faults fired."""
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    asyncio.run(_poisoner_child(workdir, sched_addr, url, conn))
+
+
+async def _poisoner_child(workdir: str, sched_addr: str, url: str,
+                          conn) -> None:
+    from dragonfly2_tpu_torch.common import faultgate
+    d = Daemon(poison_daemon_cfg(workdir, "p", sched_addr, device="cpu"))
+    await d.start()
+    try:
+        t0 = time.monotonic()
+        task_id = None
+        async for resp in d.ptm.start_file_task(DownloadRequest(
+                url=url, disable_back_source=True, timeout_s=1200.0)):
+            task_id = resp.task_id or task_id
+        c = d.ptm.conductor(task_id)
+        host = d.host_info()
+        faultgate.arm_script(f"upload.serve@{host.id}=corrupt:n=-1")
+        conn.send({"host": host, "peer_id": c.peer_id, "state": c.state,
+                   "traffic_source": c.traffic_source,
+                   "addr": f"127.0.0.1:{d.upload_server.port}",
+                   "pull_s": time.monotonic() - t0})
+        await asyncio.to_thread(conn.recv)      # the parent is done
+        conn.send({"faults": faultgate.status()})
+    finally:
+        await d.stop()
+
+
+def _wait(what: str, cond, limit: float = POISON_WAIT_S) -> float:
+    """Poll ``cond()`` (which may block) until it holds; the seconds."""
+    t0 = time.monotonic()
+    while not cond():
+        check(time.monotonic() - t0 < limit,
+              f"{what} not within {limit:.0f} s")
+        time.sleep(0.1)
+    return time.monotonic() - t0
+
+
+def _ask(conn, msg: str, timeout: float = 60.0):
+    conn.send(msg)
+    check(conn.poll(timeout), f"no answer to {msg!r}")
+    return conn.recv()
+
+
+async def _poison_run(workdir: str, url: str, manifest: ShardManifest,
+                      sched_port: int, seed_host: Host, state_dir: str,
+                      records_dir: str, poison: dict, s1, s1_conn,
+                      origin_conn) -> dict:
+    """L1-L4 here, started together, pull through S1 while P serves
+    corrupt bytes; each leecher's verdicts, pulses and podscope are read;
+    S1 is SIGKILLed once its snapshot holds P, S2 starts on its port over
+    its state directory, the origin stops and a fresh L5 pulls through
+    S2. L1-L4 serve throughout."""
+    sched_addr = f"127.0.0.1:{sched_port}"
+    daemons = {n: Daemon(poison_daemon_cfg(workdir, n, sched_addr))
+               for n in POISON}
+    phost, paddr = poison["host"].id, poison["addr"]
+    out: dict = {}
+    s2 = l5 = None
+    try:
+        for d in daemons.values():
+            await d.start()
+        out["start_wall"] = time.time()
+        runs = await asyncio.gather(*(
+            _leecher_pull(daemons[n], url, UrlMeta(), manifest, {})
+            for n in POISON))
+        out["runs"] = dict(zip(POISON, runs))
+        task_id = runs[0]["conductor"].task_id
+
+        async def verdicts() -> dict:
+            got = {}
+            for n, d in daemons.items():
+                status, body = await _http_json(d.upload_server.port,
+                                                "/debug/verdicts")
+                check(status == 200, f"phase 16 {n} /debug/verdicts: "
+                                     f"{status}")
+                got[n] = body["parents"].get(paddr)
+            return got
+
+        # a leecher the pod-wide quarantine spared before its second
+        # corrupt piece learns of P from its siblings' digests (suspects):
+        # a gossip round or two later it too orders P last
+        t0 = time.monotonic()
+        while True:
+            seen = await verdicts()
+            if all(v is not None and (v["shunned"] or v["deprioritized"])
+                   for v in seen.values()):
+                break
+            check(time.monotonic() - t0 < POISON_WAIT_S,
+                  f"phase 16: not every leecher's /debug/verdicts names P: "
+                  f"{seen}")
+            await asyncio.sleep(0.2)
+        out["verdicts"] = seen
+        out["verdicts_wait_s"] = time.monotonic() - t0
+        out["pulses"] = {n: pulse_mod.build_pulse(d, 0).corrupt_verdicts
+                         for n, d in daemons.items()}
+        out["hosts"] = {n: d.host_info().id for n, d in daemons.items()}
+        addrs = [f"127.0.0.1:{d.upload_server.port}"
+                 for d in daemons.values()]
+        snaps = await asyncio.to_thread(podscope.collect_pod, addrs,
+                                        timeout_s=10.0)
+        out["podscope"] = podscope.aggregate(snaps)["quarantine"]
+        for run in out["runs"].values():
+            s = run["conductor"].flight.summarize()
+            run["corrupt_pieces"] = sum((s.get("corrupt_pieces")
+                                         or {}).values())
+        # the pulses of the last announces reach S1's fleet pulse
+        await asyncio.sleep(2 * POISON_ANNOUNCE_S)
+        out["s1"] = await asyncio.to_thread(_ask, s1_conn, "state")
+        # the verdict must be on disk before the crash: the snapshot
+        # ticker persists the quarantine transition
+        out["snapshot_wait_s"] = await asyncio.to_thread(
+            _wait, "phase 16: S1's snapshot holding P quarantined",
+            lambda: ((_ask(s1_conn, "state")["snapshot"] or {})
+                     .get("hosts", {}).get(phost, {}).get("state")
+                     in ("quarantined", "probation")))
+        # the records' rows reach download.jsonl on the age flush
+        rec_path = os.path.join(records_dir, "download.jsonl")
+
+        def record_rows() -> list:
+            if not os.path.exists(rec_path):
+                return []
+            with open(rec_path) as f:
+                rows = [json.loads(line) for line in f if line.strip()]
+            return [r for r in rows
+                    if r.get("decision_kind") == "quarantine"]
+        await asyncio.to_thread(
+            _wait, "phase 16: quarantine rows in S1's records",
+            lambda: any(r["host_id"] == phost
+                        and r["to_state"] == "quarantined"
+                        for r in record_rows()))
+        out["records_rows"] = record_rows()
+
+        os.kill(s1.pid, signal.SIGKILL)
+        await asyncio.to_thread(s1.join, 30)
+        check(not s1.is_alive(), "phase 16: S1 survived SIGKILL")
+        s2 = Scheduler(poison_sched_cfg(sched_port, seed_host, state_dir))
+        t_start = time.time()
+        await s2.start()
+        out["restore_s"] = time.time() - t_start
+        out["provenance"] = s2.statestore.provenance
+        # before any fresh evidence: the ladder came back from disk
+        out["p_state_at_start"] = s2.quarantine.state(phost)
+        out["recovery_rows"] = [r for r in s2.ledger._ring
+                                if r.get("decision_kind") == "recovery"]
+        origin_conn.send("report")
+        out["origin"] = await asyncio.to_thread(origin_conn.recv)
+        origin_conn.send("stop")
+        want = {seed_host.id, *out["hosts"].values()}
+        t0 = time.monotonic()
+        while not _holders(s2, task_id) >= want:
+            check(time.monotonic() - t0 < POISON_WAIT_S,
+                  f"phase 16: S2 holders {_holders(s2, task_id)}, want "
+                  f"{want}")
+            await asyncio.sleep(0.02)
+        out["reannounce_s"] = time.monotonic() - t0
+        l5 = Daemon(poison_daemon_cfg(workdir, "l5", s2.address))
+        await l5.start()
+        run = await _leecher_pull(l5, url, UrlMeta(), manifest, {})
+        s = run["conductor"].flight.summarize()
+        run["corrupt_pieces"] = sum((s.get("corrupt_pieces")
+                                     or {}).values())
+        out["runs"]["l5"] = run
+        finds = [r for r in s2.ledger._ring
+                 if r.get("decision_kind") in ("find", "refresh")]
+        check(finds, "phase 16: S2 made no ruling")
+        out["restore_to_first_ruling_s"] = finds[0]["created_at"] - t_start
+        out["p_state_at_end"] = s2.quarantine.state(phost)
+        return out
+    finally:
+        if l5 is not None:
+            await l5.stop()
+        for d in daemons.values():
+            await d.stop()
+        if s2 is not None:
+            await s2.stop()
+
+
+def phase_poison(workdir: str, device: torch.device) -> None:
+    """Phase 16: a poisoned pod and a scheduler restart, on phase 8's
+    origin over HTTP."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    t_phase = time.monotonic()
+    path = os.path.join(workdir, "deploy", "model-00004-of-00004.safetensors")
+    name = os.path.basename(path)
+    layout = deploy_layout()
+    header, _ = safetensors_header(layout)
+    size = os.path.getsize(path)
+    d = os.path.join(workdir, "poison")
+    os.makedirs(d, exist_ok=True)
+    free = shutil.disk_usage(workdir).free
+    need = 7 * size + (1 << 30)
+    check(free >= need, f"phase 16 needs {need} bytes of free disk for the "
+                        f"seed's, P's and five leechers' copies, {free} free")
+    manifest = manifest_from_file(path)
+    with open(path, "rb") as f:
+        f.seek(len(header))
+        ref = torch.frombuffer(bytearray(f.read()), dtype=torch.uint8).to(
+            device)
+    state_dir = os.path.join(d, "sched-state")
+    records_dir = os.path.join(d, "records")
+    with socket.socket() as sock:          # S1's port, known to the seed
+        sock.bind(("127.0.0.1", 0))
+        sched_port = sock.getsockname()[1]
+    sched_addr = f"127.0.0.1:{sched_port}"
+    ctx = multiprocessing.get_context("spawn")
+    origin_conn, o_child = ctx.Pipe()
+    seed_conn, sd_child = ctx.Pipe()
+    s1_conn, s1_child = ctx.Pipe()
+    p_conn, p_child = ctx.Pipe()
+    origin = ctx.Process(target=http_origin_child, name="smoke-poison-origin",
+                         args=(path, CHAIN_PACE_BPS, o_child))
+    seed = ctx.Process(target=crash_seed_child, name="smoke-poison-seed",
+                       args=(d, sched_addr, sd_child))
+    s1 = p = None
+    origin.start()
+    seed.start()
+    try:
+        check(origin_conn.poll(120), "phase 16 origin did not start")
+        url = f"http://127.0.0.1:{origin_conn.recv()['port']}/{name}"
+        check(seed_conn.poll(300), "phase 16 seed did not start")
+        seed_host = seed_conn.recv()["host"]
+        s1 = ctx.Process(target=poison_sched_child, name="smoke-poison-s1",
+                         args=(sched_port, seed_host, state_dir, records_dir,
+                               s1_child))
+        s1.start()
+        check(s1_conn.poll(300), "phase 16 S1 did not start")
+        s1_conn.recv()
+        p = ctx.Process(target=poisoner_child, name="smoke-poison-p",
+                        args=(d, sched_addr, url, p_child))
+        p.start()
+        check(p_conn.poll(600), "phase 16 P did not pull its clean copy")
+        poison = p_conn.recv()
+        check(poison["state"] == "success" and poison["traffic_source"] == 0,
+              f"phase 16 P's clean pull: {poison}")
+        pod = asyncio.run(_poison_run(
+            d, url, manifest, sched_port, seed_host, state_dir, records_dir,
+            poison, s1, s1_conn, origin_conn))
+        p_conn.send("stop")
+        check(p_conn.poll(120), "phase 16 P did not report")
+        p_stats = p_conn.recv()
+        seed_conn.send("stop")
+        check(seed_conn.poll(300), "phase 16 seed did not report")
+        seed_stats = seed_conn.recv()
+    finally:
+        if s1 is not None and s1.is_alive():
+            s1.kill()                  # the phase failed before the crash
+        for conn in (p_conn, seed_conn, origin_conn):
+            try:
+                conn.send("stop")      # a no-op for a child already gone
+            except OSError:
+                pass
+        for proc in (p, s1, seed, origin):
+            if proc is None:
+                continue
+            proc.join(timeout=60)
+            if proc.is_alive():
+                proc.terminate()
+                proc.join(timeout=30)
+    check(seed.exitcode == 0 and p.exitcode == 0,
+          f"phase 16 seed exited {seed.exitcode}, P {p.exitcode}")
+    base, shapes = len(header), dict(layout)
+    phost = poison["host"].id
+    lines = {}
+    for n, run in pod["runs"].items():
+        c, tensors = run["conductor"], run["out"]
+        for info in manifest.shards:
+            t = tensors[info.name]
+            lo = info.range_start - base
+            check(t.device == device and t.dtype == torch.bfloat16
+                  and list(t.shape) == shapes[info.name]
+                  and torch.equal(t.reshape(-1).view(torch.uint8),
+                                  ref[lo:lo + info.range_size]),
+                  f"phase 16 {n}: {info.name} differs from the origin")
+        check(c.traffic_source == 0 and c.traffic_p2p == size,
+              f"phase 16 {n}: p2p {c.traffic_p2p}, source "
+              f"{c.traffic_source}")
+        check_crc32c(c.storage.md, f"phase 16 {n}")
+        from_p = {pid: k for pid, k in c.pieces_by_parent.items()
+                  if pid == poison["peer_id"] or pid.startswith(phost)}
+        lines[n] = {"time_to_ready_s": run["wall"],
+                    "wasted_corrupt_pieces": run["corrupt_pieces"],
+                    "pieces_from_p": sum(from_p.values()),
+                    "pieces_per_parent": dict(c.pieces_by_parent)}
+        del tensors, run["out"]
+    del ref
+    shutil.rmtree(d, ignore_errors=True)
+    # the immune system: P quarantined pod-wide at S1 on bounded evidence
+    s1_state = pod["s1"]
+    row = s1_state["quarantine"]["hosts"].get(phost)
+    check(row is not None and row["state"] in ("quarantined", "probation")
+          and row["reporters"] >= 2
+          and row["corrupt_evidence"]
+          <= POISON_EVIDENCE_PER_CHILD * len(POISON),
+          f"phase 16 S1's standing of P: {row}")
+    quarantined = [r for r in s1_state["rows"]
+                   if r["to_state"] == "quarantined"]
+    check([r["host_id"] for r in quarantined] == [phost],
+          f"phase 16 S1 quarantined {[r['host_id'] for r in quarantined]}")
+    check(sum(v["shunned"] for v in pod["verdicts"].values()) >= 1,
+          f"phase 16: no leecher shunned P: {pod['verdicts']}")
+    check(any(v > 0 for v in pod["pulses"].values())
+          and any(max(s1_state["fleet"].get(pod["hosts"][n]) or [0]) > 0
+                  for n in POISON),
+          f"phase 16 pulses' corrupt verdicts: {pod['pulses']}, S1's "
+          f"series {s1_state['fleet']}")
+    check(poison["addr"] in pod["podscope"]["shunned"],
+          f"phase 16 podscope's quarantine view: {pod['podscope']}")
+    check(any(r["to_state"] == "quarantined" for r in pod["records_rows"]),
+          "phase 16: no quarantine row in S1's records")
+    # the restart: the verdict survived S1's SIGKILL
+    prov = pod["provenance"]
+    check(prov.get("recovered") is True
+          and prov["components"]["quarantine"]["restored"] >= 1
+          and [r["source"] for r in pod["recovery_rows"]][:1]
+          == ["snapshot"],
+          f"phase 16 S2 provenance {prov}, rows {pod['recovery_rows']}")
+    check(pod["p_state_at_start"] in ("quarantined", "probation")
+          and pod["p_state_at_end"] != "healthy",
+          f"phase 16 S2's standing of P: {pod['p_state_at_start']} at "
+          f"start, {pod['p_state_at_end']} at the end")
+    check(lines["l5"]["pieces_from_p"] == 0,
+          f"phase 16 L5 landed {lines['l5']['pieces_from_p']} pieces from P")
+    origin_t = pod["origin"]
+    check(origin_t["body_bytes"] == size
+          and seed_stats["traffic_source"] == size,
+          f"phase 16 origin sent {origin_t['body_bytes']} bytes, seed took "
+          f"{seed_stats['traffic_source']}, file {size}")
+    first_q = min(r["created_at"] for r in quarantined)
+    emit("phase 16 poison", {
+        "file_bytes": size, "announce_interval_s": POISON_ANNOUNCE_S,
+        "pex_interval_s": POISON_PEX_S,
+        "snapshot_interval_s": POISON_SNAPSHOT_S,
+        "time_to_ready_s": {n: lines[n]["time_to_ready_s"] for n in lines},
+        # a corrupt serve flips one byte of its range: the other pieces
+        # of a multi-piece span from P verify and land
+        "pieces_from_p": {n: lines[n]["pieces_from_p"] for n in lines},
+        "wasted_corrupt_pieces": {n: lines[n]["wasted_corrupt_pieces"]
+                                  for n in lines},
+        "time_to_quarantine_s": first_q - pod["start_wall"],
+        "s1_standing_of_p": row,
+        "s1_quarantine_rows": [(r["host_id"], r["from_state"], r["to_state"],
+                                r["reporters"]) for r in s1_state["rows"]],
+        "verdicts_of_p": {n: (v or {}).get("codes")
+                          for n, v in pod["verdicts"].items()},
+        "shunned_by": sorted(n for n, v in pod["verdicts"].items()
+                             if v["shunned"]),
+        "verdicts_wait_s": pod["verdicts_wait_s"],
+        "pulse_corrupt_verdicts": pod["pulses"],
+        "podscope_shunned": pod["podscope"]["shunned"],
+        "records_quarantine_rows": len(pod["records_rows"]),
+        "snapshot_wait_s": pod["snapshot_wait_s"],
+        "p_pull_s": poison["pull_s"],
+        "p_faults": p_stats["faults"],
+        "s2_restore_s": pod["restore_s"],
+        "s2_restore_to_first_ruling_s": pod["restore_to_first_ruling_s"],
+        "s2_reannounce_s": pod["reannounce_s"],
+        "s2_components": {k: v.get("restored") for k, v in
+                          prov["components"].items()},
+        "s2_standing_of_p": [pod["p_state_at_start"],
+                             pod["p_state_at_end"]],
+        "l5_time_to_ready_s": lines["l5"]["time_to_ready_s"],
+        "l5_pieces_per_parent": lines["l5"]["pieces_per_parent"],
+        "origin_bytes_sent": origin_t["body_bytes"],
+        "seed_traffic_source": seed_stats["traffic_source"],
+        "phase_s": time.monotonic() - t_phase, "card": smi})
+
+
+# ---------------------------------------------------------------- phase 17
+
+FED_PODS = ("pod-a", "pod-b")
+FED_MEMBERS = 2               # daemons per pod
+FED_WAIT_S = 600.0            # bound on a pod child's start and pulls
+
+
+def fed_pod_child(workdir: str, pod: str, sched_addr: str, url: str,
+                  path: str, layout: list, device: str, conn) -> None:
+    """One pod of phase 17 in a spawned process: ``DF_POD_ID`` names its
+    pod before the topology is first read, as a deployment's environment
+    does. Its two daemons pull with manifest sinks on ``device`` when the
+    parent says "go" and hold every tensor against the file's bytes."""
+    os.environ["DF_POD_ID"] = pod
+    asyncio.run(_fed_pod_child(workdir, pod, sched_addr, url, path, layout,
+                               torch.device(device), conn))
+
+
+async def _fed_pod_child(workdir: str, pod: str, sched_addr: str, url: str,
+                         path: str, layout: list, device: torch.device,
+                         conn) -> None:
+    header, _ = safetensors_header(layout)
+    manifest = manifest_from_file(path)
+    with open(path, "rb") as f:
+        f.seek(len(header))
+        ref = torch.frombuffer(bytearray(f.read()), dtype=torch.uint8).to(
+            device)
+    daemons = [Daemon(DaemonConfig(
+        workdir=os.path.join(workdir, f"{pod}-{i}"),
+        hostname=f"fed-{pod}-{i}", listen_ip="127.0.0.1",
+        host_ip="127.0.0.1", device=device.type,
+        announce_interval_s=POISON_ANNOUNCE_S,
+        scheduler=SchedulerConfig(addresses=[sched_addr])))
+        for i in range(FED_MEMBERS)]
+    try:
+        for d in daemons:
+            await d.start()
+        conn.send({"hosts": [d.host_info().id for d in daemons],
+                   "pods": [d.topology.pod for d in daemons]})
+        await asyncio.to_thread(conn.recv)      # "go"
+        runs = await asyncio.gather(*(
+            _leecher_pull(d, url, UrlMeta(), manifest, {}) for d in daemons))
+        base, shapes = len(header), dict(layout)
+        out = []
+        for d, run in zip(daemons, runs):
+            c, tensors = run["conductor"], run["out"]
+            equal = all(
+                tensors[i.name].device == device
+                and tensors[i.name].dtype == torch.bfloat16
+                and list(tensors[i.name].shape) == shapes[i.name]
+                and torch.equal(
+                    tensors[i.name].reshape(-1).view(torch.uint8),
+                    ref[i.range_start - base:
+                        i.range_start - base + i.range_size])
+                for i in manifest.shards)
+            out.append({"host": d.host_info().id, "peer_id": c.peer_id,
+                        "pod": d.topology.pod, "tensors_equal": equal,
+                        "traffic_source": c.traffic_source,
+                        "traffic_p2p": c.traffic_p2p,
+                        "t0": run["t0"], "wall": run["wall"],
+                        "pieces_by_parent": dict(c.pieces_by_parent)})
+            del tensors, run["out"]
+        conn.send(out)
+        await asyncio.to_thread(conn.recv)      # "stop"
+    finally:
+        for d in daemons:
+            await d.stop()
+
+
+async def _fed_run(sched: Scheduler, conns: dict) -> dict:
+    await sched.start()
+    try:
+        hellos = {}
+        for pod, conn in conns.items():
+            check(await asyncio.to_thread(conn.poll, FED_WAIT_S),
+                  f"phase 17 {pod} did not start")
+            hellos[pod] = conn.recv()
+        for conn in conns.values():
+            conn.send("go")
+        results = {}
+        for pod, conn in conns.items():
+            check(await asyncio.to_thread(conn.poll, FED_WAIT_S),
+                  f"phase 17 {pod} did not finish")
+            results[pod] = conn.recv()
+        rows = [r for r in sched.ledger._ring
+                if r.get("decision_kind") == "federation"]
+        excluded = sum(1 for r in sched.ledger._ring
+                       for e in r.get("excluded") or []
+                       if e["reason"] == "cross-pod")
+        return {"hellos": hellos, "results": results, "rows": rows,
+                "cross_pod_exclusions": excluded,
+                "describe": sched.federation.describe()}
+    finally:
+        await sched.stop()
+
+
+def phase_federation(workdir: str, device: torch.device) -> None:
+    """Phase 17: two federated pods, on phase 8's origin over HTTP."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    t_phase = time.monotonic()
+    path = os.path.join(workdir, "deploy", "model-00004-of-00004.safetensors")
+    name = os.path.basename(path)
+    size = os.path.getsize(path)
+    d = os.path.join(workdir, "federation")
+    os.makedirs(d, exist_ok=True)
+    free = shutil.disk_usage(workdir).free
+    need = (1 + len(FED_PODS) * FED_MEMBERS) * size + (1 << 30)
+    check(free >= need, f"phase 17 needs {need} bytes of free disk for the "
+                        f"seed's and four members' copies, {free} free")
+    with socket.socket() as sock:          # the scheduler's port
+        sock.bind(("127.0.0.1", 0))
+        sched_port = sock.getsockname()[1]
+    sched_addr = f"127.0.0.1:{sched_port}"
+    ctx = multiprocessing.get_context("spawn")
+    origin_conn, o_child = ctx.Pipe()
+    seed_conn, sd_child = ctx.Pipe()
+    origin = ctx.Process(target=http_origin_child, name="smoke-fed-origin",
+                         args=(path, CHAIN_PACE_BPS, o_child))
+    seed = ctx.Process(target=crash_seed_child, name="smoke-fed-seed",
+                       args=(d, sched_addr, sd_child))
+    pods: dict = {}
+    conns: dict = {}
+    origin.start()
+    seed.start()
+    try:
+        check(origin_conn.poll(120), "phase 17 origin did not start")
+        url = f"http://127.0.0.1:{origin_conn.recv()['port']}/{name}"
+        check(seed_conn.poll(300), "phase 17 seed did not start")
+        seed_host = seed_conn.recv()["host"]
+        for pod in FED_PODS:
+            conns[pod], child = ctx.Pipe()
+            pods[pod] = ctx.Process(
+                target=fed_pod_child, name=f"smoke-fed-{pod}",
+                args=(d, pod, sched_addr, url, path, deploy_layout(),
+                      str(device), child))
+            pods[pod].start()
+        sched = Scheduler(SchedCfg(
+            listen_ip="127.0.0.1", port=sched_port, federation_enabled=True,
+            seed_peers=[SeedPeerAddr(
+                host_id=seed_host.id, ip=seed_host.ip,
+                rpc_port=seed_host.port,
+                download_port=seed_host.download_port)]))
+        run = asyncio.run(_fed_run(sched, conns))
+        for conn in conns.values():
+            conn.send("stop")
+        origin_conn.send("report")
+        origin_t = origin_conn.recv()
+        seed_conn.send("stop")
+        check(seed_conn.poll(300), "phase 17 seed did not report")
+        seed_stats = seed_conn.recv()
+    finally:
+        for conn in (*conns.values(), seed_conn, origin_conn):
+            try:
+                conn.send("stop")
+            except OSError:
+                pass
+        for proc in (*pods.values(), seed, origin):
+            proc.join(timeout=60)
+            if proc.is_alive():
+                proc.terminate()
+                proc.join(timeout=30)
+    shutil.rmtree(d, ignore_errors=True)
+    check(all(proc.exitcode == 0 for proc in (*pods.values(), seed)),
+          f"phase 17 children exited "
+          f"{[proc.exitcode for proc in (*pods.values(), seed)]}")
+    members = [m for pod in FED_PODS for m in run["results"][pod]]
+    pod_of_peer = {m["peer_id"]: m["pod"] for m in members}
+    elected = {}
+    for r in run["rows"]:
+        if r["result"] == "elected":
+            check(r["pod"] not in elected,
+                  f"phase 17: pod {r['pod']} elected twice: {run['rows']}")
+            elected[r["pod"]] = r["elected"]
+    check(sorted(elected) == sorted(FED_PODS)
+          and all(len(v) == 1 for v in elected.values()),
+          f"phase 17 elections: {run['rows']}")
+    pod_seeds = {h for v in elected.values() for h in v}
+    crossed = {}
+    for m in members:
+        check(m["pod"] in FED_PODS and m["tensors_equal"],
+              f"phase 17 {m['host']} ({m['pod']}): tensors differ from the "
+              f"file")
+        check(m["traffic_source"] == 0 and m["traffic_p2p"] == size,
+              f"phase 17 {m['host']}: p2p {m['traffic_p2p']}, source "
+              f"{m['traffic_source']}")
+        crossed[m["host"]] = sum(
+            k for pid, k in m["pieces_by_parent"].items()
+            if pod_of_peer.get(pid) not in (None, m["pod"]))
+        if m["host"] not in pod_seeds:
+            check(crossed[m["host"]] == 0,
+                  f"phase 17 member {m['host']} took {crossed[m['host']]} "
+                  f"pieces across pods")
+    check(origin_t["body_bytes"] == size
+          and seed_stats["traffic_source"] == size,
+          f"phase 17 origin sent {origin_t['body_bytes']} bytes, seed took "
+          f"{seed_stats['traffic_source']}, file {size}")
+    t0 = min(m["t0"] for m in members)
+    emit("phase 17 federation", {
+        "file_bytes": size, "pods": run["describe"]["pods"],
+        "pod_seeds": elected,
+        "makespan_s": {pod: max(m["t0"] + m["wall"] - t0
+                                for m in run["results"][pod])
+                       for pod in FED_PODS},
+        "time_to_ready_s": {m["host"]: m["wall"] for m in members},
+        "cross_pod_pieces": crossed,
+        "cross_pod_exclusions": run["cross_pod_exclusions"],
+        "federation_rows": len(run["rows"]),
+        "pieces_per_parent": {m["host"]: m["pieces_by_parent"]
+                              for m in members},
+        "origin_bytes_sent": origin_t["body_bytes"],
+        "seed_traffic_source": seed_stats["traffic_source"],
+        "phase_s": time.monotonic() - t_phase, "card": smi})
+
+
 def run_phases(layers: int, seed: int, device: torch.device) -> None:
-    """Phases 2-15 on ``device``; raises CheckFailed on a failed check."""
+    """Phases 2-17 on ``device``; raises CheckFailed on a failed check."""
     layout = llama_layout(layers)
     header, nbytes = safetensors_header(layout)
     workdir = tempfile.mkdtemp(prefix="chip-smoke-")
@@ -4332,6 +5102,8 @@ def run_phases(layers: int, seed: int, device: torch.device) -> None:
         phase_dfbench(device)
         phase_observe(workdir, device)
         phase_superseed(workdir, device)
+        phase_poison(workdir, device)
+        phase_federation(workdir, device)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 

@@ -20,7 +20,11 @@ port fires:
   scheduler would;
 * ``pex.gossip`` (``daemon/pex.py``): ``fail`` drops one edge's digest
   exchange, ``corrupt`` flips a byte of the outbound envelope so the
-  receiver's checksum rejects it.
+  receiver's checksum rejects it;
+* ``sched.snapshot.io`` (``scheduler/statestore.py`` persist path, keyed
+  by the snapshot reason): ``corrupt`` flips a byte of the serialized
+  blob so load refuses it wholesale, ``error``/``fail`` raise
+  mid-persist, ``delay`` models a slow disk.
 
 Call sites guard with ``if faultgate.ARMED:`` so a disarmed process pays
 one attribute load. Scripts arm from code (``arm``), from the reference's
@@ -43,7 +47,8 @@ from .metrics import REGISTRY
 log = logging.getLogger("df.faultgate")
 
 SITES = frozenset({"hbm.ingest", "piece.wire", "relay.stall",
-                   "upload.serve", "sched.register", "pex.gossip"})
+                   "upload.serve", "sched.register", "pex.gossip",
+                   "sched.snapshot.io"})
 KINDS = frozenset({"fail", "error", "delay", "hang", "corrupt"})
 
 # fast-path flag: True iff at least one script is armed

@@ -31,9 +31,8 @@ so dfbench feeds it simulated flights and the tests synthetic ones;
 source of ``scheduler/records.py``. ``_pctl`` is the package's one
 percentile rule; the flight recorder imports it from here.
 
-A port daemon has no ``/debug/verdicts`` route yet (ROADMAP Queue 1 item
-5a), so a snapshot's ``verdicts`` is ``None``, as for an older reference
-daemon.
+A daemon's snapshot carries its ``/debug/verdicts``; one without the
+route (an older daemon) gives ``None``.
 """
 
 from __future__ import annotations

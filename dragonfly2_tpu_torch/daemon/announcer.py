@@ -95,9 +95,13 @@ class Announcer:
 
     def _held_content(self) -> list[dict]:
         """PEX digest entry shape + ``url`` (the scheduler needs it to
-        re-create the task record). The reference advertises nothing from
-        a self-quarantined daemon; the port has no verdict plane yet
-        (Queue 1 item 5)."""
+        re-create the task record). A self-quarantined daemon advertises
+        nothing: replaying a poisoner's inventory at a recovered
+        scheduler would be the re-offer the quarantine ladder exists to
+        prevent."""
+        verdicts = getattr(self.daemon, "verdicts", None)
+        if verdicts is not None and verdicts.self_quarantined:
+            return []
         entries = []
         for ts in self.daemon.storage_mgr.tasks():
             md = ts.md

@@ -15,6 +15,13 @@ connector's scheduler demotions are persisted at stop and restored at
 start. The PEX gossip plane (``pex.py``, on unless ``pex.enabled`` is
 false) keeps one swarm index per daemon, gossips on the upload port, and
 gives the conductor the ``pex`` rung with a fresh engine per pull.
+One verdict ledger (``verdicts.py``) remembers how each parent behaved:
+the piece engine records every landed and failed piece in it and gates
+parent admission on it, PEX filters and orders holders by it, the
+upload server serves it at ``GET /debug/verdicts``, and a content-store
+placement or a boot re-verify that finds bit rot in a completed task
+self-quarantines the daemon (its registers and announces carry
+``Host.quarantined``, its digests and re-announces advertise nothing).
 Storage is reloaded at construction
 (warm restart), its reloaded pieces are re-verified on the storage pool
 before the servers start (a warm restart's first gossip round then runs
@@ -76,6 +83,7 @@ from .rpcserver import DaemonService, build_service
 from .scheduler_session import SchedulerConnector
 from .swarm_index import SwarmIndex
 from .upload_server import UploadServer
+from .verdicts import VerdictLedger
 
 log = logging.getLogger("df.core.daemon")
 
@@ -117,12 +125,14 @@ class Daemon:
             dedupe_enabled=st.dedupe_enabled,
             reload_verify=st.reload_verify,
             popularity_halflife_s=st.popularity_halflife_s))
+        # per-parent verdict ledger: the local half of the swarm immune
+        # system, consulted by the engine's parent admission, the PEX rung
+        # and the self-quarantine
+        self.verdicts = VerdictLedger()
         if self.storage_mgr.castore is not None:
-            # the reference's verdict plane self-quarantines here (a later
-            # slice); the placement already dropped the rotten location
-            self.storage_mgr.castore.on_rot = lambda tid: log.warning(
-                "content store: bytes of task %s failed re-verification",
-                tid[:12])
+            self.storage_mgr.castore.on_rot = lambda tid: \
+                self.verdicts.self_quarantine(
+                    f"cas placement re-verify failed (task {tid[:12]})")
         self.reload_stats: dict = {}
         self.gc = GC()
         self.prober: NetworkTopologyProber | None = None
@@ -145,7 +155,7 @@ class Daemon:
                 index=SwarmIndex(ttl_s=px.ttl_s), interval_s=px.interval_s,
                 fanout=px.fanout, max_digest_tasks=px.max_digest_tasks,
                 bootstrap=px.bootstrap, relay=self.relay,
-                pod_scope=px.pod_scope, pod_seed=px.pod_seed,
+                verdicts=self.verdicts, pod_scope=px.pod_scope, pod_seed=px.pod_seed,
                 federation_peers=px.federation_peers)
         self.upload_server = UploadServer(
             self.storage_mgr, port=cfg.upload.port, host=cfg.listen_ip,
@@ -153,7 +163,8 @@ class Daemon:
             concurrent_limit=cfg.upload.concurrent_limit,
             flight_recorder=self.flight_recorder, relay=self.relay,
             relay_stall_s=cfg.download.relay_stall_s, pex=self.pex,
-            debug_endpoints=cfg.upload.debug_endpoints)
+            debug_endpoints=cfg.upload.debug_endpoints,
+            verdicts=self.verdicts)
         self.health = None
         self._prev_source_tls = None
         self.scheduler: SchedulerConnector | None = None
@@ -175,7 +186,10 @@ class Daemon:
             type=HostType.SUPER_SEED if self.cfg.is_seed else HostType.NORMAL,
             os=os.uname().sysname.lower(), platform=os.uname().machine,
             topology=self.topology,
-            concurrent_upload_limit=self.cfg.upload.concurrent_limit)
+            concurrent_upload_limit=self.cfg.upload.concurrent_limit,
+            # the self-quarantine rides every register and announce: the
+            # scheduler's registry treats the flag as hard evidence
+            quarantined=self.verdicts.self_quarantined)
 
     def devices(self) -> list[torch.device]:
         """The sink's devices: every CUDA device, or the one CPU device
@@ -223,6 +237,7 @@ class Daemon:
             piece_timeout_s=dl.piece_timeout_s,
             downloader=self._downloader, channel_pool=self._peer_channels,
             slice_name=self.topology.slice_name, relay=self.relay,
+            verdicts=self.verdicts,
             peer_observer=(self.pex.observe_parent
                            if self.pex is not None else None),
             schedule_timeout_s=self.cfg.scheduler.schedule_timeout_s)
@@ -251,6 +266,14 @@ class Daemon:
                      self.reload_stats["pieces_ok"],
                      self.reload_stats["pieces_dropped"],
                      self.reload_stats["pieces_rot"])
+            if self.reload_stats.get("pieces_rot", 0):
+                # rot in completed tasks (pieces that once verified): the
+                # disk is lying, so stop serving pod-wide until a restart
+                # re-verifies clean; drops from partial tasks are torn
+                # writes and heal silently
+                self.verdicts.self_quarantine(
+                    f"boot re-verify found {self.reload_stats['pieces_rot']} "
+                    f"rotted piece(s) in completed tasks")
         dl = self.cfg.download
         if dl.source_ca or dl.source_insecure:
             # the source client is a process singleton: the prior trust is

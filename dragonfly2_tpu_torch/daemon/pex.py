@@ -31,10 +31,11 @@ The reference rides aiohttp; the card's machine has none, so exchanges
 go through the port's standard-library HTTP/1.1 client
 (``source/http_client.py``) with the reference's 5 s total deadline and
 16-connection limit, and the routes mount on the port's upload server
-(``add_pex_routes``). The verdict ledger (``verdicts``: shunned holders,
-suspects in digests, self-quarantine) is Queue 1 item 5's and stays
-``None`` here; fleet mTLS (item 6) is not ported, so gossip is plain
-HTTP.
+(``add_pex_routes``). The daemon's verdict ledger (``verdicts``,
+``verdicts.py``) drops shunned holders, puts its local shuns in digests as
+``suspects`` (receivers only deprioritize them) and empties a
+self-quarantined daemon's digests; fleet mTLS (item 6) is not ported, so
+gossip is plain HTTP.
 """
 
 from __future__ import annotations

@@ -16,8 +16,15 @@ the typed failures), and each dispatch's landing buffer is a cut-through
 relay span (``relay.py``) while its bytes arrive, retired after landing
 and before the buffer returns to the pool. A piece that rode a parent's
 relay path is reported with ``PieceResult.relayed``, on success as well
-as on failure (the reference marks failed transfers only). The verdict
-ledger is left out.
+as on failure (the reference marks failed transfers only).
+
+With a verdict ledger (``verdicts``, ``verdicts.py``) every landed piece
+is a ``record_ok`` on its parent's address and every typed failure a
+``record``; the corrupt verdict that flips an address to shunned
+journals a ``quarantine`` flight event and severs the parent for this
+task, and the admission gate (``_admissible``) keeps a shunned address
+out of the dispatcher whoever offers it (scheduler packet, sync stream,
+PEX rung, resurrection).
 
 Every parent a packet admits is handed to ``peer_observer`` (the PEX
 plane's membership hook). An ``advisory`` packet (the PEX plane's swarm
@@ -140,6 +147,10 @@ class _Synchronizer:
             return    # the parent does not know the geometry yet
         dst_addr = (packet.dst_addr
                     or f"{self.parent.ip}:{self.parent.download_port}")
+        if not self.engine._admissible(self.parent.peer_id, dst_addr):
+            # a locally shunned address grows no dispatcher slot, however
+            # it got a sync stream
+            return
         await self.engine.dispatcher.add_parent(
             self.parent.peer_id, dst_addr, is_seed=self.parent.is_seed,
             link=self.parent.link)
@@ -196,13 +207,17 @@ class PieceEngine:
                  piece_timeout_s: float = PIECE_TIMEOUT_S,
                  downloader: PieceDownloader | None = None,
                  channel_pool: ChannelPool | None = None,
-                 slice_name: str = "", relay=None, peer_observer=None):
+                 slice_name: str = "", relay=None, peer_observer=None,
+                 verdicts=None):
         self.parallelism = parallelism
         self.piece_timeout_s = piece_timeout_s
         self.slice_name = slice_name    # advertised on piece sync requests
         # PEX membership hook: every admitted parent is observed, so the
         # gossip plane knows the mesh the scheduler built
         self.peer_observer = peer_observer
+        # per-parent verdict ledger (verdicts.py): typed failure verdicts
+        # recorded here; parents it shuns are refused admission
+        self.verdicts = verdicts
         self.schedule_timeout_s = schedule_timeout_s
         # cut-through relay hub: every span this engine downloads is
         # readable by the upload server's streaming path while it arrives
@@ -411,8 +426,11 @@ class PieceEngine:
             for parent in parents:
                 if parent.peer_id == conductor.peer_id:
                     continue
+                dl_addr = f"{parent.ip}:{parent.download_port}"
+                if not self._admissible(parent.peer_id, dl_addr):
+                    continue
                 await self.dispatcher.add_parent(
-                    parent.peer_id, f"{parent.ip}:{parent.download_port}",
+                    parent.peer_id, dl_addr,
                     resurrect=True, is_seed=parent.is_seed, link=parent.link)
                 self._current_parents[parent.peer_id] = parent
                 if self.peer_observer is not None:
@@ -469,7 +487,9 @@ class PieceEngine:
         for peer_id, parent in list(self._current_parents.items()):
             sync = self._synchronizers.get(peer_id)
             if (sync is None or sync.task is None or not sync.task.done()
-                    or self.dispatcher.hard_removed(peer_id)):
+                    or self.dispatcher.hard_removed(peer_id)
+                    or not self._admissible(
+                        peer_id, f"{parent.ip}:{parent.download_port}")):
                 continue
             await self.dispatcher.add_parent(
                 peer_id, f"{parent.ip}:{parent.download_port}",
@@ -482,12 +502,46 @@ class PieceEngine:
                     "refused": fr.REFUSED}
 
     def _note_fail(self, conductor, info: PieceInfo, parent_id: str,
-                   code: str) -> None:
-        """Journal one non-corrupt typed failure on the flight."""
+                   addr: str, code: str) -> None:
+        """Journal and ledger one non-corrupt typed failure: soft
+        evidence, decayed for ordering, never shunned on."""
         if conductor.flight is not None:
             kind = self._FAIL_EVENTS.get(code)
             if kind is not None:
                 conductor.flight.event(kind, info.piece_num, parent_id)
+        if self.verdicts is not None and addr and code != "corrupt":
+            self.verdicts.record(addr, code, peer_id=parent_id)
+
+    def _note_corrupt(self, conductor, info: PieceInfo, parent_id: str,
+                      addr: str = "", relayed: bool = False) -> bool:
+        """A transfer failed digest verification at landing: count it,
+        journal it, and record the hard verdict in the daemon-wide
+        ledger. Returns True when this verdict flipped the address to
+        shunned (journaled as a ``quarantine`` flight event)."""
+        _p2p_pieces.labels("corrupt").inc()
+        log.warning("piece %d from %s: digest mismatch (requeued)",
+                    info.piece_num, parent_id[-12:])
+        if conductor.flight is not None:
+            conductor.flight.event(fr.CORRUPT, info.piece_num, parent_id,
+                                   info.range_size)
+        if self.verdicts is not None and addr:
+            flipped = self.verdicts.record(addr, "corrupt",
+                                           peer_id=parent_id,
+                                           relayed=relayed)
+            if flipped and conductor.flight is not None:
+                conductor.flight.event(fr.QUARANTINE, info.piece_num, addr)
+            return flipped
+        return False
+
+    def _admissible(self, parent_id: str, addr: str) -> bool:
+        """Parent admission gate: a locally shunned address is refused a
+        dispatcher slot whoever offers it; pulling, verifying and
+        requeuing a poisoned piece is the waste the ledger stops."""
+        if self.verdicts is None or not self.verdicts.shunned(addr):
+            return True
+        log.info("refusing shunned parent %s (%s): local corrupt "
+                 "verdicts", parent_id[-12:], addr)
+        return False
 
     async def _download_one(self, conductor, session, d: Dispatch, *,
                             track: bool = True) -> bool:
@@ -548,7 +602,8 @@ class PieceEngine:
                       d.parent.peer_id[-12:], exc)
             fcode = getattr(exc, "fail_code", "") or "stall"
             # one transfer, one typed event, however many pieces rode it
-            self._note_fail(conductor, d.pieces[0], d.parent.peer_id, fcode)
+            self._note_fail(conductor, d.pieces[0], d.parent.peer_id,
+                            d.parent.addr, fcode)
             if track:
                 await self.dispatcher.report(d, ok=False)
                 if d.parent.removed:
@@ -579,14 +634,12 @@ class PieceEngine:
             POOL.release(buf)
         placed_set = set(placed)
         corrupt_set, raced_set = set(corrupt), set(raced)
+        shun_flipped = False
         for info in d.pieces:
             if info.piece_num in corrupt_set:
-                _p2p_pieces.labels("corrupt").inc()
-                log.warning("piece %d from %s: digest mismatch (requeued)",
-                            info.piece_num, d.parent.peer_id[-12:])
-                if flight is not None:
-                    flight.event(fr.CORRUPT, info.piece_num,
-                                 d.parent.peer_id, info.range_size)
+                shun_flipped |= self._note_corrupt(
+                    conductor, info, d.parent.peer_id, addr=d.parent.addr,
+                    relayed=relayed)
                 await session.report_piece(self._piece_result(
                     conductor, info, d.parent.peer_id, t0, ok=False,
                     code=Code.CLIENT_DIGEST_MISMATCH, fail_code="corrupt",
@@ -601,10 +654,20 @@ class PieceEngine:
                              info.range_size, dur_ms=per_piece_cost,
                              t_ms=t_wire)
             _p2p_pieces.labels("ok").inc()
+            if self.verdicts is not None:
+                self.verdicts.record_ok(d.parent.addr)
             await session.report_piece(self._piece_result(
                 conductor, info, d.parent.peer_id, t0, ok=True,
                 cost_ms=per_piece_cost, finished=len(conductor.ready),
                 relayed=relayed))
+        if shun_flipped:
+            # shunned on local corrupt evidence: sever it for this task now
+            # (the admission gate keeps it out of later tasks, and the
+            # scheduler's pod-wide quarantine follows from the reports)
+            await self.dispatcher.remove_parent(d.parent.peer_id)
+            sync = self._synchronizers.get(d.parent.peer_id)
+            if sync is not None:
+                sync.stop()
         if track:
             await self.dispatcher.report(
                 d, ok=True, cost_ms=cost,

@@ -10,10 +10,10 @@ timers: building it is a handful of attribute reads.
 Counters are monotonic since boot; the scheduler differentiates them and
 clamps restart resets (``scheduler/fleetpulse.py``). Every read is
 getattr-defensive, as in the reference: a daemon wired without some
-subsystem still pulses what it has. The port has no verdict ledger or
-QoS governor yet (ROADMAP Queue 1 items 5a and 5b), so
-``corrupt_verdicts``, ``shunned_parents``, ``self_quarantined``,
-``qos_state`` and ``qos_shed`` keep their defaults.
+subsystem still pulses what it has. The verdict ledger gives
+``corrupt_verdicts``, ``shunned_parents`` and ``self_quarantined``; the
+port has no QoS governor yet (ROADMAP Queue 1 item 5b), so ``qos_state``
+and ``qos_shed`` keep their defaults.
 """
 
 from __future__ import annotations

@@ -26,7 +26,8 @@ task's flight (``TaskFlight.serve``), and ``GET /debug/flight`` and
 
 With a PEX gossiper (``pex.py``), ``GET``/``POST /pex/digest``,
 ``GET``/``POST /pex/summary`` and ``GET /debug/pex`` are routed too
-(``pex.add_pex_routes``); ``GET /debug/health`` always, and with
+(``pex.add_pex_routes``); with a verdict ledger (``verdicts.py``),
+``GET /debug/verdicts``; ``GET /debug/health`` always, and with
 ``debug_endpoints`` ``/debug/stacks``, ``/debug/profile`` and
 ``GET``/``POST``/``DELETE /debug/faults``. The routes, the parser and the
 connection loop are ``common/httpd.py``'s. Routed requests take no slot
@@ -121,7 +122,7 @@ class UploadServer:
                  rate_limit_bps: int = 0, concurrent_limit: int = 0,
                  host: str = "0.0.0.0", flight_recorder=None, relay=None,
                  relay_stall_s: float = 10.0, pex=None,
-                 debug_endpoints: bool = False):
+                 debug_endpoints: bool = False, verdicts=None):
         self.storage_mgr = storage_mgr
         self.flight_recorder = flight_recorder
         self.relay = relay                  # RelayHub (None = store-and-forward)
@@ -140,6 +141,12 @@ class UploadServer:
         if pex is not None:
             from .pex import add_pex_routes
             add_pex_routes(self.router, pex)
+        self.verdicts = verdicts            # VerdictLedger (/debug/verdicts)
+        if verdicts is not None:
+            # per-parent verdict readout: always on, a poisoned pod must
+            # be diagnosable (``dfdiag --pod`` sweeps it)
+            from .verdicts import add_verdict_routes
+            add_verdict_routes(self.router, verdicts)
         # the health snapshot is read-only and cheap: always on, so a
         # wedged daemon is diagnosable without a restart
         from ..common.health import add_health_routes

@@ -57,6 +57,13 @@ def resolve_class(qos_class: str) -> str:
     return qos_class if qos_class in PRIORITY_CLASSES \
         else DEFAULT_PRIORITY_CLASS
 
+# The typed piece-failure vocabulary (``PieceResult.fail_code``, flight
+# failure events, ``kind=piece`` record rows, the verdict ledger's
+# counters): ``corrupt`` is hard evidence of a lying parent, which the
+# quarantine registry promotes; the other three are congestion or
+# liveness shapes that only deprioritize.
+FAIL_CODES = ("corrupt", "stall", "timeout", "refused")
+
 
 class HostType(enum.IntEnum):
     NORMAL = 0       # ordinary peer
@@ -711,3 +718,29 @@ class ApplicationEntry:
 @message
 class ListApplicationsResponse:
     applications: list[ApplicationEntry] | None = None
+
+
+@message
+class SetSchedulerStateRequest:
+    """Stopping scheduler -> manager: park this member's last exported
+    quarantine/affinity summary, so the failover successor can import
+    it. ``signature`` is an HMAC over ``blob`` with the cluster's
+    issuance token when security is on ("" = unsigned)."""
+
+    scheduler_id: str = ""           # exporter identity (host:port)
+    cluster_id: int = 0
+    blob: bytes = b""                # sealed summary (pex.seal envelope)
+    signature: str = ""
+
+
+@message
+class GetSchedulerStateRequest:
+    cluster_id: int = 0
+    exclude: str = ""                # don't hand a member its own blob
+
+
+@message
+class GetSchedulerStateResponse:
+    scheduler_id: str = ""           # "" = nothing parked
+    blob: bytes = b""
+    signature: str = ""

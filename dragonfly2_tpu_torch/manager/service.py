@@ -5,8 +5,10 @@ Counterpart of ``dragonfly2_tpu/manager/service.py`` (reference
 the cluster's config), GetSeedPeers, ListApplications, the
 self-registration RPCs schedulers and seed peers call on boot, the
 KeepAlive client stream (``manager_server_v2.go:737``) and the model
-registry (CreateModel, GetModel). ListTenants, the scheduler handoff
-state and IssueCertificate wait for later slices.
+registry (CreateModel, GetModel) and the schedulers' handoff relay
+(SetSchedulerState, GetSchedulerState: an opaque blob parked per
+scheduler, the freshest other member's handed back). ListTenants and
+IssueCertificate wait for later slices.
 """
 
 from __future__ import annotations
@@ -19,10 +21,13 @@ from ..common.errors import Code, DFError
 from ..idl.messages import (ApplicationEntry, CreateModelRequest, Empty,
                             GetModelRequest, GetModelResponse,
                             GetSchedulersRequest, GetSchedulersResponse,
+                            GetSchedulerStateRequest,
+                            GetSchedulerStateResponse,
                             GetSeedPeersRequest, GetSeedPeersResponse,
                             ListApplicationsResponse, ModelEntity, Priority,
                             RegisterSchedulerRequest,
-                            RegisterSeedPeerRequest)
+                            RegisterSeedPeerRequest,
+                            SetSchedulerStateRequest)
 from ..rpc.server import ServiceDef
 from .searcher import find_scheduler_cluster
 from .store import Store
@@ -100,6 +105,33 @@ class ManagerService:
                 topology=req.topology))
         return Empty()
 
+    # -- scheduler handoff relay (control-plane failover) --------------
+
+    async def set_scheduler_state(self, req: SetSchedulerStateRequest,
+                                  context) -> Empty:
+        """Park a stopping scheduler's state summary. The blob is opaque
+        and its signature is verified by the importer: a relay can drop a
+        handoff but cannot forge one."""
+        if not req.scheduler_id or not req.blob:
+            raise DFError(Code.INVALID_ARGUMENT,
+                          "scheduler_id and blob required")
+        await asyncio.to_thread(
+            lambda: self.store.park_scheduler_state(
+                cluster_id=req.cluster_id, scheduler_id=req.scheduler_id,
+                blob=req.blob, signature=req.signature))
+        return Empty()
+
+    async def get_scheduler_state(self, req: GetSchedulerStateRequest,
+                                  context) -> GetSchedulerStateResponse:
+        row = await asyncio.to_thread(
+            lambda: self.store.latest_scheduler_state(
+                cluster_id=req.cluster_id, exclude=req.exclude))
+        if row is None:
+            return GetSchedulerStateResponse()
+        return GetSchedulerStateResponse(
+            scheduler_id=row["scheduler_id"], blob=row["blob"],
+            signature=row["signature"])
+
     # -- model registry (reference manager/models/model.go:36) ---------
 
     async def create_model(self, req: CreateModelRequest, context) -> Empty:
@@ -159,6 +191,8 @@ def build_service(svc: ManagerService) -> ServiceDef:
     d.unary_unary("RegisterScheduler", svc.register_scheduler)
     d.unary_unary("RegisterSeedPeer", svc.register_seed_peer)
     d.stream_unary("KeepAlive", svc.keep_alive)
+    d.unary_unary("SetSchedulerState", svc.set_scheduler_state)
+    d.unary_unary("GetSchedulerState", svc.get_scheduler_state)
     d.unary_unary("CreateModel", svc.create_model)
     d.unary_unary("GetModel", svc.get_model)
     return d

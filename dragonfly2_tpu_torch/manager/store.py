@@ -4,9 +4,9 @@ Counterpart of ``dragonfly2_tpu/manager/store.py`` (reference
 ``manager/models/*.go`` + ``manager/database``). The DDL is the
 reference's, whole, so one database file opens in either package; this
 slice reads and writes the scheduler clusters, schedulers, seed-peer
-clusters, seed peers, applications and the model registry. The tenant,
-handoff-state, job, user and OAuth tables are created and left to the
-slices that port their services.
+clusters, seed peers, applications, the model registry and the
+schedulers' parked handoff state. The tenant, job, user and OAuth tables
+are created and left to the slices that port their services.
 """
 
 from __future__ import annotations
@@ -386,6 +386,32 @@ class Store:
         r = dict(rows[0])
         r["metrics"] = json.loads(r["metrics"])
         return r
+
+    # -- scheduler handoff blobs (control-plane failover) --------------
+
+    def park_scheduler_state(self, *, cluster_id: int, scheduler_id: str,
+                             blob: bytes, signature: str = "") -> None:
+        """Park a stopping scheduler's exported quarantine/affinity
+        summary for its ring successor. One row per (cluster, scheduler);
+        the blob is relayed opaquely and its signature travels with it,
+        so the importer, not the relay, verifies provenance."""
+        self._exec(
+            "INSERT INTO scheduler_states(cluster_id, scheduler_id, blob,"
+            " signature, updated_at) VALUES (?,?,?,?,?)"
+            " ON CONFLICT(cluster_id, scheduler_id) DO UPDATE SET"
+            " blob=excluded.blob, signature=excluded.signature,"
+            " updated_at=excluded.updated_at",
+            (int(cluster_id), scheduler_id, blob, signature, _now()))
+
+    def latest_scheduler_state(self, *, cluster_id: int,
+                               exclude: str = "") -> dict | None:
+        """Freshest parked blob in the cluster, skipping the asker's own
+        export."""
+        rows = self._rows(
+            "SELECT * FROM scheduler_states WHERE cluster_id=? AND"
+            " scheduler_id != ? ORDER BY updated_at DESC LIMIT 1",
+            (int(cluster_id), exclude))
+        return dict(rows[0]) if rows else None
 
     def models(self, *, name: str | None = None) -> list[dict]:
         """Listing without blobs (REST index view)."""

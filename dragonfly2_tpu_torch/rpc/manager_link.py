@@ -1,4 +1,5 @@
-"""Client link to the manager: registration, discovery, keepalive, models.
+"""Client link to the manager: registration, discovery, keepalive, models
+and the schedulers' handoff state.
 
 Counterpart of ``dragonfly2_tpu/rpc/manager_link.py`` (reference
 ``pkg/rpc/manager/client`` + the keepalive goroutines of the scheduler's
@@ -15,9 +16,11 @@ import logging
 
 from ..idl.messages import (CreateModelRequest, Empty, GetModelRequest,
                             GetModelResponse, GetSchedulersRequest,
-                            GetSchedulersResponse, GetSeedPeersRequest,
+                            GetSchedulersResponse, GetSchedulerStateRequest,
+                            GetSchedulerStateResponse, GetSeedPeersRequest,
                             GetSeedPeersResponse, KeepAliveRequest,
-                            ListApplicationsResponse)
+                            ListApplicationsResponse,
+                            SetSchedulerStateRequest)
 from .client import Channel, ServiceClient
 
 log = logging.getLogger("df.rpc.mgrlink")
@@ -77,6 +80,15 @@ class ManagerLink:
 
     async def list_applications(self) -> ListApplicationsResponse:
         return await self._unary("ListApplications", Empty())
+
+    async def set_scheduler_state(self, req: SetSchedulerStateRequest
+                                  ) -> None:
+        """Park this scheduler's quarantine/affinity summary (handoff)."""
+        await self._unary("SetSchedulerState", req)
+
+    async def get_scheduler_state(self, req: GetSchedulerStateRequest
+                                  ) -> GetSchedulerStateResponse:
+        return await self._unary("GetSchedulerState", req)
 
     async def create_model(self, req: CreateModelRequest) -> None:
         await self._unary("CreateModel", req, timeout=60.0)

@@ -5,11 +5,12 @@ Counterpart of ``dragonfly2_tpu/scheduler/config.py`` (reference
 reference, with the reference's default, so a reference scheduler's file
 loads. ``KEY_CLASSES`` below puts each key in one class
 (``common/config.py``): wired, inert as in the reference, or unported
-(the quarantine, QoS, federation, state store, fleet pulse, plugins and
-fleet TLS wait for later slices); ``SchedulerConfig.unported()`` names
+(QoS, plugins and fleet TLS wait for later slices);
+``SchedulerConfig.unported()`` names
 the unported keys a file sets, and the scheduler refuses to start with
 any. The relay-tree shaping is off by default (``relay_fanout`` 0, the
-reference's exact path); shard affinity is on by default, as in the
+reference's exact path); shard affinity and the quarantine registry are
+on by default, federation and the state store off, as in the
 reference. ``tracing_jsonl`` and ``tracing_otlp`` turn tracing on
 (``common/tracing.py``), as the reference's keys do. The constants below
 are the limits' defaults.
@@ -91,7 +92,11 @@ class SchedulerConfig:
     # unported (item 5b): per-class relay fan-out caps, bulk preemption
     class_fanout_caps: dict = field(default_factory=dict)
     qos_preemption: bool = True
-    # unported (item 5a): the pod-wide peer quarantine
+    # the pod-wide peer quarantine (quarantine.py): decayed corrupt-verdict
+    # mass walks a host healthy -> suspect -> quarantined -> probation;
+    # quarantined -> probation after probation_delay_s without evidence,
+    # probe_successes clean pieces off probe_children children climb it
+    # back; min_reporters distinct reporters before a quarantine
     quarantine_enabled: bool = True
     quarantine_corrupt_threshold: float = 3.0
     quarantine_halflife_s: float = 600.0
@@ -99,7 +104,8 @@ class SchedulerConfig:
     quarantine_probe_successes: int = 2
     quarantine_probe_children: int = 1
     quarantine_min_reporters: int = 2
-    # unported (item 5c): cross-pod federation
+    # cross-pod federation (federation.py): per-pod seed elections, and
+    # cross-pod parents only for a pod's elected seeds
     federation_enabled: bool = False
     federation_seeds_per_pod: int = 1
     # inert, as in the reference: declared there and read nowhere
@@ -120,7 +126,10 @@ class SchedulerConfig:
     # unported (item 6): the reference reads it only for the fleet TLS
     # enrollment's certificate directory
     workdir: str = ""
-    # unported (item 5c): the crash-survivable control-plane state
+    # the crash-survivable control-plane state (statestore.py): one
+    # snapshot under statestore_dir, persisted when dirty or every
+    # interval; statestore_handoff parks a summary with the manager at a
+    # graceful stop and imports the parked one at attach
     statestore_dir: str = ""
     statestore_interval_s: float = 30.0
     statestore_handoff: bool = True
@@ -134,9 +143,8 @@ class SchedulerConfig:
 
 # The class of every key (common/config.py). Inert: a grep of
 # dragonfly2_tpu/ finds no reader of retry_limit outside its config
-# module. Unported, by ROADMAP Queue 1 item: the quarantine (5a), QoS
-# (5b), federation and the state store (5c), plugins (5d), fleet TLS and
-# the directory only it reads (6).
+# module. Unported, by ROADMAP Queue 1 item: QoS (5b), plugins (5d),
+# fleet TLS and the directory only it reads (6).
 KEY_CLASSES: dict[str, str] = {
     "listen_ip": WIRED,
     "advertise_ip": WIRED,
@@ -160,15 +168,15 @@ KEY_CLASSES: dict[str, str] = {
     "relay_fanout": WIRED,
     "class_fanout_caps": unported("5b"),
     "qos_preemption": unported("5b"),
-    "quarantine_enabled": unported("5a"),
-    "quarantine_corrupt_threshold": unported("5a"),
-    "quarantine_halflife_s": unported("5a"),
-    "quarantine_probation_delay_s": unported("5a"),
-    "quarantine_probe_successes": unported("5a"),
-    "quarantine_probe_children": unported("5a"),
-    "quarantine_min_reporters": unported("5a"),
-    "federation_enabled": unported("5c"),
-    "federation_seeds_per_pod": unported("5c"),
+    "quarantine_enabled": WIRED,
+    "quarantine_corrupt_threshold": WIRED,
+    "quarantine_halflife_s": WIRED,
+    "quarantine_probation_delay_s": WIRED,
+    "quarantine_probe_successes": WIRED,
+    "quarantine_probe_children": WIRED,
+    "quarantine_min_reporters": WIRED,
+    "federation_enabled": WIRED,
+    "federation_seeds_per_pod": WIRED,
     "retry_limit": INERT,
     "retry_back_source_limit": WIRED,
     "back_source_concurrent": WIRED,
@@ -181,8 +189,8 @@ KEY_CLASSES: dict[str, str] = {
     "security_issue_token": unported("6"),
     "security_ca_cert": unported("6"),
     "workdir": unported("6"),
-    "statestore_dir": unported("5c"),
-    "statestore_interval_s": unported("5c"),
-    "statestore_handoff": unported("5c"),
+    "statestore_dir": WIRED,
+    "statestore_interval_s": WIRED,
+    "statestore_handoff": WIRED,
     "fleetpulse_enabled": WIRED,
 }

@@ -4,9 +4,9 @@ Counterpart of ``dragonfly2_tpu/scheduler/ctrl_debug.py``: the ruling
 profiler's aggregates (``common/phasetimer.py``: rulings/sec, per-phase
 p50/p99, queue wait vs compute) joined with the bytes of state each
 control-plane component holds (``state_bytes()`` of the resource, the
-decision ledger and shard affinity; the reference's federation and
-quarantine are absent here, and absent components are skipped, not
-zero), served on the scheduler launcher's ``--debug-port`` next to
+decision ledger, the federation, the quarantine registry and shard
+affinity; disabled components are skipped, not zero) and the state
+store's recovery provenance, served on the scheduler launcher's ``--debug-port`` next to
 ``/debug/cluster``.
 
 The state walk is O(every object the scheduler holds), so it runs behind

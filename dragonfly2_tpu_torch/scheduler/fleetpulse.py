@@ -32,9 +32,10 @@ sustained anomaly fires once, freeze the baseline while latched, and
 suppress everything until ``WARMUP_SAMPLES`` announces have been seen.
 The clock is injectable: dfbench replays detection on a virtual clock.
 
-The port's scheduler builds it with ``quarantine``, ``federation`` and
-``statestore`` set to ``None`` until ROADMAP Queue 1 items 5a and 5c
-land; its rings are then not registered with a state store.
+The scheduler hands it its quarantine registry and federation view
+(incident bundles carry the host's ladder state and pod) and, with a
+state store, registers its rings there so incident history survives a
+restart.
 """
 
 from __future__ import annotations

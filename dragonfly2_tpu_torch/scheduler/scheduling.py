@@ -5,7 +5,14 @@ Counterpart of ``dragonfly2_tpu/scheduler/scheduling.py`` (reference
 ``filterCandidateParents`` :500-570 — blocklist, same-peer, DAG-cycle,
 bad-node and free-upload-slot checks) with the reference's relay-tree
 shaping (``relay_fanout`` > 0, ``_relay_shape``; 0, the default, is the
-exact path); no quarantine, federation or QoS preemption. The ``sharded`` arm
+exact path), the quarantine registry's exclusion (``quarantine``:
+``quarantine.QuarantineRegistry``, hosts it rules not offerable are
+excluded as ``quarantined``, probation hosts pass within their probe
+budget) and the federation's (``federation``: ``federation.
+PodFederation``, a cross-pod parent only for the child pod's elected
+seeds, else ``cross-pod``); no QoS preemption. Both ``None`` (the
+defaults) skip every lookup: the rulings are the exact path without
+them. The ``sharded`` arm
 (``shard_affinity.ShardAffinity``) rules sharded registers' tree-fetch
 subsets and never touches parent scoring; unlike the reference, its swap
 partners are exempt from the DAG-cycle exclusion, since two replicas that
@@ -22,15 +29,16 @@ and scoring-time feature rows, exclusions, the chosen offer) and stamps
 never touched, so the offer is the same armed or not. The ruling
 profiler (``common/phasetimer.py``) times each ruling (``find``,
 ``refresh``, ``shard``) and its ``filter`` (with ``dag-walk`` inside),
-``score``, ``relay`` and ``emit`` phases under the same purity contract;
-``exclusion`` stays unfired, as in the reference without quarantine or
-federation.
+``exclusion`` (the quarantine and federation lookups, one sample per
+ruling, fired only when either is armed), ``score``, ``relay`` and
+``emit`` phases under the same purity contract.
 """
 
 from __future__ import annotations
 
 import logging
 import random
+import time
 
 from ..common import phasetimer
 from ..common.metrics import REGISTRY
@@ -46,10 +54,17 @@ _filter_excluded = REGISTRY.counter(
     "df_sched_filter_excluded_total",
     "candidate parents excluded by the scheduling filter", ("reason",))
 
+# The filter's exclusion-reason vocabulary: every reason ``_trace`` fires
+# is one of these (counted in ``df_sched_filter_excluded_total`` and named
+# in the decision rows' ``excluded`` entries).
+EXCLUSION_REASONS = ("stream-gone", "blocklist", "no-slots", "bad-node",
+                     "cycle", "quarantined", "cross-pod")
+
 
 class Scheduling:
     def __init__(self, evaluator: Evaluator, *,
                  rng: random.Random | None = None, sharded=None,
+                 quarantine=None, federation=None,
                  relay_fanout: int = 0,
                  candidate_parent_limit: int = CANDIDATE_PARENT_LIMIT,
                  filter_parent_limit: int = FILTER_PARENT_LIMIT):
@@ -58,6 +73,12 @@ class Scheduling:
         self.candidate_parent_limit = candidate_parent_limit
         self.filter_parent_limit = filter_parent_limit
         self.rng = rng if rng is not None else random
+        # quarantine registry (scheduler/quarantine.py); None skips every
+        # lookup, the exact filter path without it
+        self.quarantine = quarantine
+        # cross-pod federation view (scheduler/federation.py); None skips
+        # every lookup, the exact single-pod filter path
+        self.federation = federation
         # shard-affinity arm; None = no shard rulings, every daemon
         # fetches its whole requested set from the tree
         self.sharded = sharded
@@ -93,6 +114,10 @@ class Scheduling:
         # child would close a cycle
         with phasetimer.phase("dag-walk"):
             cycle_blocked = task.dag.descendants(child.id)
+        # the per-candidate quarantine/federation lookups accumulate one
+        # local delta and record ONE ``exclusion`` sample per ruling
+        armed = phasetimer.ARMED
+        excl_s = 0.0
         out: list[Peer] = []
         for parent in pool:
             full = len(out) >= self.filter_parent_limit
@@ -126,11 +151,37 @@ class Scheduling:
                     and not self._swap_partners(child, parent)):
                 self._trace(child, parent, "bad-node", excluded)
                 continue
+            if self.quarantine is not None:
+                t0 = time.perf_counter() if armed else 0.0
+                offerable = self.quarantine.offerable(parent.host.id,
+                                                      child.id)
+                if armed:
+                    excl_s += time.perf_counter() - t0
+                if not offerable:
+                    # pod-wide quarantine (hard corrupt evidence or a
+                    # self-flag): out of offers, relay shaping and every
+                    # downstream choice until probation walks it back
+                    self._trace(child, parent, "quarantined", excluded)
+                    continue
+            if self.federation is not None:
+                t0 = time.perf_counter() if armed else 0.0
+                allowed = self.federation.allows(child, parent)
+                if armed:
+                    excl_s += time.perf_counter() - t0
+                if not allowed:
+                    # a parent in another pod serves only this pod's
+                    # elected seeds; everyone else takes the bytes off
+                    # the pod seed's in-pod tree
+                    self._trace(child, parent, "cross-pod", excluded)
+                    continue
             if (parent.id in cycle_blocked
                     and not self._swap_partners(child, parent)):
                 self._trace(child, parent, "cycle", excluded)
                 continue
             out.append(parent)
+        if armed and (self.quarantine is not None
+                      or self.federation is not None):
+            phasetimer.record("exclusion", excl_s)
         return out
 
     def _swap_partners(self, child: Peer, parent: Peer) -> bool:
@@ -313,6 +364,12 @@ class Scheduling:
             # which candidates the fan-out cap demoted, with their DAG
             # child counts: "why isn't the seed my parent" from the row
             row["relay"] = relay_note
+        if self.federation is not None:
+            # the child's pod, its elected seeds and whether it may cross
+            # pods: federation fairness replayable from the row alone
+            fed_note = self.federation.note(child)
+            if fed_note is not None:
+                row["federation"] = fed_note
         if decision_kind == "refresh":
             row["kept"] = [p.id for p in offer if p.id in prev_offer]
             row["fresh"] = [p.id for p in offer if p.id not in prev_offer]

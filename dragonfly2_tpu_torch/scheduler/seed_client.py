@@ -2,8 +2,9 @@
 
 Counterpart of ``dragonfly2_tpu/scheduler/seed_client.py`` (reference
 ``scheduler/resource/seed_peer.go`` ``TriggerTask`` :101): the scheduler
-opens ``ObtainSeeds`` on a seed daemon chosen by hashing the task id and
-folds the piece announcements into its resource state, so the seed is a
+opens ``ObtainSeeds`` on a seed daemon chosen by hashing the task id
+(walking clockwise past seeds the quarantine registry rules not
+offerable, ``federation.walk_ring``) and folds the piece announcements into its resource state, so the seed is a
 schedulable parent while it is still downloading.
 """
 
@@ -17,6 +18,7 @@ from ..idl.messages import HostType, ObtainSeedsRequest, UrlMeta
 from ..rpc.balancer import HashRing
 from ..rpc.client import ChannelPool, ServiceClient
 from .config import SeedPeerAddr
+from .federation import walk_ring
 from .resource import Peer, PeerState, Resource, Task
 
 log = logging.getLogger("df.sched.seed")
@@ -25,8 +27,13 @@ SEEDER_SERVICE = "df.daemon.Seeder"
 
 
 class SeedPeerClient:
-    def __init__(self, resource: Resource, seed_peers: list[SeedPeerAddr]):
+    def __init__(self, resource: Resource, seed_peers: list[SeedPeerAddr],
+                 *, quarantine=None):
+        """``quarantine``: registry consulted at seed election — content
+        injected through a quarantined seed would poison the root of the
+        whole distribution tree."""
         self.resource = resource
+        self.quarantine = quarantine
         self.seed_peers = {self._host_id(s): s for s in seed_peers}
         self._ring = HashRing(list(self.seed_peers))
         self._channels = ChannelPool(limit=32)
@@ -38,11 +45,23 @@ class SeedPeerClient:
     def available(self) -> bool:
         return bool(self.seed_peers)
 
+    def _elect(self, task_id: str) -> str | None:
+        """Seed election: the hashed member, walking clockwise past any
+        quarantined seed. With every member quarantined the hashed one
+        still serves (a quarantined seed fleet beats no injection path).
+        The walk is ``federation.walk_ring``, the same election the
+        cross-pod plane runs per (task, pod)."""
+        if self.quarantine is None:
+            return self._ring.pick(task_id)
+        picked = walk_ring(self._ring, task_id, len(self.seed_peers),
+                           self.quarantine)
+        return picked[0] if picked else None
+
     async def trigger(self, task: Task, url_meta: UrlMeta | None) -> None:
         """Run one seed download to completion, folding piece announcements
         into the task as they arrive. Exceptions are contained: a failed
         seed leaves the task unseeded and peers fall back to origin."""
-        hid = self._ring.pick(task.id)
+        hid = self._elect(task.id)
         if hid is None:
             return
         seed = self.seed_peers[hid]

@@ -11,9 +11,13 @@ epoch change replays what it holds, sealed as a PEX digest; a torn or
 unsealed digest is refused whole, and an adopted one creates a
 ``<host>-recov-<task>`` holder peer per task and a ``recovery`` row in
 the decision ledger. Both announces hand their pulse to the fleet pulse
-(``fleetpulse.py``), as the reference's do. The reference's quarantine
-and federation calls in those handlers wait for the planes that own them
-(ROADMAP Queue 1 items 5a and 5c).
+(``fleetpulse.py``), as the reference's do. The quarantine registry
+(``quarantine``) hears each register's and announce's self-quarantine
+flag (``record_self``), clean pieces off a parent (``record_ok``) and
+``corrupt`` piece verdicts (``record_corrupt``); the federation view
+(``federation``) learns each host's pod on register and on both
+announces (``observe_host``) and forgets a host whose report stream died
+mid-task (``forget_host``).
 
 Back-source arbitration: a child with no viable parents is not sent to
 origin at once. While a seed trigger is in flight, or peers hold content
@@ -36,7 +40,7 @@ are the cluster view's (``cluster_view.py``, ``GET /debug/cluster``). A
 register and a stream's first offer are spans of the caller's trace
 (``sched.register``, ``sched.offer``), and an armed ruling profiler
 notes each first offer's queue wait. Left out, for later slices:
-quarantine, federation, tenant quotas, QoS preemption and preheat.
+tenant quotas, QoS preemption and preheat.
 
 A report stream that ends with the daemon's half-close is not marked
 ``stream_gone``: the daemon half-closes only on its way to the terminal
@@ -102,7 +106,8 @@ class SchedulerService:
     def __init__(self, resource: Resource, scheduling: Scheduling,
                  seed_client: SeedPeerClient, topo: TopologyStore, *,
                  records=None, ledger=None,
-                 cfg: SchedulerConfig | None = None, fleetpulse=None):
+                 cfg: SchedulerConfig | None = None, fleetpulse=None,
+                 quarantine=None, federation=None):
         # the back-source and parent limits (the rest of the config is
         # the server's business)
         self.cfg = cfg if cfg is not None else SchedulerConfig()
@@ -115,9 +120,15 @@ class SchedulerService:
         self.ledger = ledger            # decision ledger (recovery rows)
         # scheduler/fleetpulse.FleetPulse: ingests the announces' pulses
         self.fleetpulse = fleetpulse
+        # scheduler/quarantine.QuarantineRegistry: fed corrupt verdicts
+        # and self-flags here; None = no immune system
+        self.quarantine = quarantine
+        # scheduler/federation.PodFederation: fed host pods from register
+        # and announce, forgets on a dead stream; None = one flat pod
+        self.federation = federation
         # per-host download view of piece reports and flight summaries
         # (GET /debug/cluster)
-        self.cluster = ClusterView(ledger=ledger)
+        self.cluster = ClusterView(ledger=ledger, quarantine=quarantine)
         self._recovery_seq = 0
         self._seed_tasks: set[asyncio.Task] = set()
         # boot epoch, echoed on register/announce so daemons can tell a
@@ -159,6 +170,17 @@ class SchedulerService:
             # before the peer exists so a retrying client grows nothing
             raise DFError(Code.SCHED_FORBIDDEN,
                           "download forbidden by priority (LEVEL1)")
+        if self.quarantine is not None:
+            # the self-quarantine flag rides every register: a daemon that
+            # found its own bit rot is excluded from its first contact
+            self.quarantine.record_self(
+                req.peer_host.id, req.peer_host.quarantined,
+                reason="self-quarantine flag on register")
+        if self.federation is not None:
+            # per-pod seed elections need the membership before the first
+            # cross-pod ruling, not an announce later
+            self.federation.observe_host(req.peer_host.id,
+                                         req.peer_host.topology)
         host = self.resource.store_host(req.peer_host)
         peer = self.resource.get_or_create_peer(req.peer_id, task, host)
         peer.priority = resolved_priority
@@ -335,6 +357,10 @@ class SchedulerService:
                     peer.stream_gone = True
                     log.info("peer %s report stream gone mid-task",
                              peer.id[-12:])
+                    if self.federation is not None:
+                        # a likely-dead host stops winning pod-seed
+                        # elections now; its next announce re-admits it
+                        self.federation.forget_host(peer.host.id)
             scheduler_task.cancel()
             consumer.cancel()
             refresher.cancel()
@@ -507,6 +533,10 @@ class SchedulerService:
                 parent = task.peers.get(result.dst_peer_id)
                 if parent is not None:
                     parent.host.observe_upload(True)
+                    if self.quarantine is not None:
+                        # probation reprieve: a clean piece off this host
+                        # counts toward its climb back to healthy
+                        self.quarantine.record_ok(parent.host.id)
             if self.records is not None and result.piece_info is not None:
                 self.records.on_piece(peer, result)
             if len(peer.finished_pieces) == 1:
@@ -524,6 +554,14 @@ class SchedulerService:
             parent = task.peers.get(result.dst_peer_id)
             if parent is not None:
                 parent.host.observe_upload(False)
+                if (self.quarantine is not None
+                        and result.fail_code == "corrupt"):
+                    # hard evidence, promoted cross-task into the pod-wide
+                    # ladder (stall/timeout/refused stay congestion-shaped)
+                    self.quarantine.record_corrupt(
+                        parent.host.id, task_id=task.id,
+                        reporter=peer.host.id,
+                        relayed=result.relayed)
             peer.block_parent(result.dst_peer_id)
         if self.records is not None:
             # failed pieces get rows too (success=False, typed fail_code)
@@ -602,6 +640,17 @@ class SchedulerService:
                             context) -> AnnounceHostResponse:
         if req.host is not None:
             self.resource.store_host(req.host)
+            if self.quarantine is not None:
+                # flag set -> quarantined; cleared (a restart re-verified
+                # clean) -> probation
+                self.quarantine.record_self(
+                    req.host.id, req.host.quarantined,
+                    reason="self-quarantine flag on announce")
+            if self.federation is not None:
+                # re-announcing the same coordinates is a no-op, so
+                # elections stay sticky
+                self.federation.observe_host(req.host.id,
+                                             req.host.topology)
             if self.fleetpulse is not None and req.pulse is not None:
                 # piggybacked telemetry: ingest is total (never raises)
                 # and strictly observational: no ruling path reads it
@@ -620,6 +669,12 @@ class SchedulerService:
         if req.host is None or body is None:
             _recovery_announces.labels("rejected").inc()
             return AnnounceContentResponse(scheduler_epoch=self.epoch)
+        if self.quarantine is not None:
+            self.quarantine.record_self(
+                req.host.id, req.host.quarantined,
+                reason="self-quarantine flag on content re-announce")
+        if self.federation is not None:
+            self.federation.observe_host(req.host.id, req.host.topology)
         if self.fleetpulse is not None and req.pulse is not None:
             self.fleetpulse.ingest(req.host.id, req.pulse)
         host = self.resource.store_host(req.host)

@@ -171,3 +171,33 @@ class ShardAffinity:
         if reqs is None or a_host not in reqs or b_host not in reqs:
             return False
         return not set(reqs[a_host]).isdisjoint(reqs[b_host])
+
+    # -- durable state (scheduler/statestore.py) -------------------------
+
+    def export_state(self) -> dict:
+        """Request membership and assignment memos, tuple keys flattened
+        to JSON-safe lists (the reference's layout). The split is a pure
+        function of the request tables, so carrying membership across a
+        crash makes the restarted scheduler re-rule the same subsets."""
+        return {
+            "seq": self._seq,
+            "requests": [[tid, group, reqs]
+                         for (tid, group), reqs in self._requests.items()],
+            "last": [[tid, group, hid, assigned]
+                     for (tid, group, hid), assigned in self._last.items()],
+        }
+
+    def restore(self, state: dict) -> int:
+        """Rebuild from :meth:`export_state` output, insertion order kept
+        (the ``MAX_TASKS`` eviction order) and silently: the first
+        register of an unchanged requester set after a restart emits no
+        fresh ledger row."""
+        restored = 0
+        for tid, group, reqs in (state.get("requests") or ()):
+            self._requests[(tid, group)] = {
+                hid: list(names) for hid, names in reqs.items()}
+            restored += 1
+        for tid, group, hid, assigned in (state.get("last") or ()):
+            self._last[(tid, group, hid)] = list(assigned)
+        self._seq = max(self._seq, int(state.get("seq", 0)))
+        return restored

@@ -19,8 +19,11 @@ Points: the baseline (``--scenario``), ``--pr4`` (schedulers down, with
 and without PEX), ``--pr5`` (data-plane replay and the span-landing
 self-check), ``--pr6`` (podscope's pod numbers), ``--pr8``
 (decision-ledger replay), ``--pr9`` (cold start, pull vs relay, at pod
-sizes 64-256), ``--pr10`` (content-store churn), ``--pr14`` (sharded
-rollout) and ``--pr19`` (the learned loop: datagen, two seeded fits on
+sizes 64-256), ``--pr10`` (content-store churn), ``--pr12`` (a byzantine
+holder, quarantine on vs off), ``--pr13`` (cross-pod federation, flat vs
+hierarchical, and a pod seed killed mid-pull), ``--pr14`` (sharded
+rollout), ``--pr17`` (a scheduler crash, durable vs amnesiac) and
+``--pr19`` (the learned loop: datagen, two seeded fits on
 ``--device``, a learned leg). The result is printed, or written to
 ``--out`` when it names a file; nothing is written by default. The
 reference's other points need modules this package does not have yet and
@@ -39,12 +42,13 @@ import heapq
 import json
 import math
 import random
+import shutil
 import sys
 import tempfile
 import time
 
 from ..common import digest as digestlib
-from ..common import podscope
+from ..common import faultgate, podscope
 from ..common.podscope import _pctl
 from ..common.sharding import ShardTracker, pieces_for_shards
 from ..daemon import flight_recorder as fr
@@ -53,18 +57,22 @@ from ..idl.base import dumps as idl_dumps
 from ..idl.messages import Host as HostMsg
 from ..idl.messages import (AnnounceHostRequest, HostType, LinkType,
                             PulseDigest, ShardInfo, TopologyInfo)
-from ..scheduler.decision_ledger import replay_decisions, replay_regret
+from ..scheduler.decision_ledger import (DecisionLedger, replay_decisions,
+                                         replay_regret)
 from ..scheduler.evaluator import make_evaluator
 from ..scheduler.evaluator_ml import MLEvaluator, parent_feature_row
+from ..scheduler.federation import PodFederation
 from ..scheduler.fleetpulse import FleetPulse
+from ..scheduler.quarantine import QUARANTINED, QuarantineRegistry
 from ..scheduler.resource import Peer, PeerState, Resource, Task
 from ..scheduler.scheduling import Scheduling
 from ..scheduler.shard_affinity import ShardAffinity
+from ..scheduler.statestore import SchedulerStateStore
 from ..storage import native
 from ..storage.manager import StorageConfig, StorageManager
 from ..storage.metadata import TaskMetadata
 from ..storage.store import TaskStorage
-from ..tpu.topology import link_type
+from ..tpu.topology import LINK_TIER_NAMES, link_type
 from ..trainer import pipeline, serving, training
 from ..trainer.features import label_from_cost
 from . import refuse_unported
@@ -100,15 +108,11 @@ _ROW_KEY = {"schedule": "queue_ms", "first_byte": "ttfb_ms",
 # the reference's points whose modules this package lacks:
 # flag -> what it needs (ROADMAP Queue 1 item)
 UNPORTED_POINTS = {
-    "--ctrl": "the quarantine registry and pod federation, ROADMAP "
-              "Queue 1 item 5a and item 5c",
-    "--pr18": "its fleetpulse_pure key runs the ctrl storm, which arms "
-              "the quarantine registry and pod federation (ROADMAP Queue 1 "
-              "item 5a and item 5c)",
+    "--ctrl": "the control-plane storm (run_ctrl_bench), the head of "
+              "ROADMAP Queue 1",
+    "--pr18": "its fleetpulse_pure key runs the control-plane storm "
+              "(run_ctrl_bench), the head of ROADMAP Queue 1",
     "--pr11": "the QoS traffic shaper, ROADMAP Queue 1 item 5b",
-    "--pr12": "the quarantine registry, ROADMAP Queue 1 item 5a",
-    "--pr13": "pod federation, ROADMAP Queue 1 item 5c",
-    "--pr17": "the scheduler statestore, ROADMAP Queue 1 item 5c",
 }
 
 
@@ -168,12 +172,10 @@ def run_bench(*, seed: int = 7, daemons: int = 8, pieces: int = 64,
     ``collect_outcomes`` one ``kind=piece`` row per p2p transfer (the
     ``--pr19`` training data); none of them touches the rng, so the digest
     stays. ``evaluator`` swaps the scoring policy (default
-    ``make_evaluator("default")``). A ``quarantine`` registry needs a
-    module this package lacks and raises."""
-    if quarantine is not None:
-        raise NotImplementedError(
-            "quarantine: not ported to this package yet (the quarantine "
-            "registry, ROADMAP Queue 1 item 5a)")
+    ``make_evaluator("default")``). ``quarantine``: an armed (possibly
+    empty) ``QuarantineRegistry`` in the filter; an evidence-free one
+    answers healthy for every candidate and leaves the digest as it is
+    (``--pr12``'s purity gate)."""
     if scenario not in SCENARIOS + COLD_SCENARIOS:
         raise ValueError(f"unknown scenario {scenario!r} "
                          f"(known: {SCENARIOS + COLD_SCENARIOS})")
@@ -191,7 +193,8 @@ def run_bench(*, seed: int = 7, daemons: int = 8, pieces: int = 64,
     sched = Scheduling(
         make_evaluator("default") if evaluator is None else evaluator,
         rng=random.Random(seed),
-        relay_fanout=RELAY_FANOUT if relay_mode else 0)
+        relay_fanout=RELAY_FANOUT if relay_mode else 0,
+        quarantine=quarantine)
     decision_rows: list[dict] = []
     if collect_decisions:
         sched.decision_sink = decision_rows.append
@@ -1715,8 +1718,8 @@ def fleetpulse_legs(args) -> dict:
     legs, the detection gates and ``bytes_per_announce``.
     ``fleetpulse_pure`` compares the ctrl storm's rulings with and
     without pulses, and ``run_ctrl_bench`` arms the federation and the
-    quarantine registry (ROADMAP Queue 1 items 5a and 5c), so ``--pr18``
-    itself stays refused until they land."""
+    quarantine registry and is not ported yet, so ``--pr18`` itself
+    stays refused until it is."""
     base = run_bench(**_bench_kw(args))
     legs = {}
     fleets = [PULSE_SMOKE_FLEET] + ([] if args.smoke else list(PULSE_FLEETS))
@@ -1763,7 +1766,1156 @@ def fleetpulse_legs(args) -> dict:
     }
 
 
-POINTS = {"pr19": _run_pr19, "pr14": _run_pr14, "pr10": _run_pr10,
+# Poisoned-swarm harness: one byzantine holder serving corrupt bytes into
+# a fan-out, quarantine on vs off, through the real Scheduling filter and
+# the real QuarantineRegistry ladder on a virtual clock. The poisoner is a
+# complete non-seed holder, the parent the evaluator prefers. Measured:
+# pod makespan, wasted corrupt bytes, time-to-quarantine and the corrupt
+# verdicts absorbed before the ladder engaged.
+
+BYZ_CORRUPT_PCT = 60         # % of poisoner serves that are corrupt
+BYZ_LOCAL_SHUN = 2           # child-local verdict-ledger shun threshold
+                             # (daemon/verdicts.py SHUN_THRESHOLD)
+BYZ_QUARANTINE_THRESHOLD = 3  # registry threshold (scheduler default)
+
+
+def run_byzantine_bench(*, seed: int = 7, daemons: int = 8,
+                        pieces: int = 32, piece_size: int = 4 << 20,
+                        parallelism: int = 4,
+                        corrupt_pct: int = BYZ_CORRUPT_PCT,
+                        quarantine: bool = True) -> dict:
+    """One poisoned fan-out; returns makespan + wasted-byte accounting.
+
+    ``quarantine=True`` models the shipped immune system: each child's
+    local verdict ledger shuns the poisoner after ``BYZ_LOCAL_SHUN``
+    verified corruptions, and the real ``QuarantineRegistry`` (driven
+    through ``Scheduling.filter_candidates`` via the ``quarantined``
+    exclusion) removes it pod-wide at the threshold. ``quarantine=False``
+    is the fabric without an immune system: corruption is caught piece-by-piece at each
+    landing, silently requeued, and the scheduler keeps offering the
+    poisoner — every child pays for the same lesson separately, forever.
+    Pure function of its arguments (virtual clock, seeded rng)."""
+    rng = random.Random(seed)
+    now_ref = [0.0]            # virtual ms, read by the registry clock
+
+    res = Resource()
+    task = Task("byz" + "0" * 61, "bench://byzantine")
+    task.set_content_info(pieces * piece_size, piece_size, pieces)
+
+    quarantine_rows: list[dict] = []
+    registry = None
+    if quarantine:
+        registry = QuarantineRegistry(
+            corrupt_threshold=BYZ_QUARANTINE_THRESHOLD,
+            halflife_s=1e9,            # no decay inside one short sim
+            probation_delay_s=1e9,     # no mid-sim reprieve (chaos e2e
+                                       # proves the reprieve half live)
+            sink=quarantine_rows.append,
+            clock=lambda: now_ref[0] / 1000.0)
+    # the filter's pool shuffle draws from its own stream seeded like the
+    # sim's (the reference seeds the module rng for it)
+    sched = Scheduling(make_evaluator("default"), rng=random.Random(seed),
+                       quarantine=registry)
+
+    def topo(slice_name: str, x: int, y: int) -> TopologyInfo:
+        return TopologyInfo(slice_name=slice_name, ici_coords=(x, y),
+                            zone="bench-zone")
+
+    def mk_host(name: str, slice_name: str, x: int, y: int,
+                host_type: HostType = HostType.NORMAL):
+        return res.store_host(HostMsg(
+            id=f"{name}-host", ip="10.0.0.1", port=1, download_port=2,
+            type=host_type, topology=topo(slice_name, x, y)))
+
+    def complete_peer(name: str, host) -> Peer:
+        p = res.get_or_create_peer(f"{name}-peer", task, host)
+        p.transit(PeerState.RUNNING)
+        p.finished_pieces = set(range(pieces))
+        p.transit(PeerState.SUCCEEDED)
+        return p
+
+    seed_peer = complete_peer(
+        "seedh", mk_host("seedh", "slice-seed", 9, 9, HostType.SUPER_SEED))
+    # the poisoner: a complete NORMAL holder INSIDE slice 0 — best link
+    # class, full coverage, the evaluator's favourite parent
+    poisoner = complete_peer("poison", mk_host("poison", "slice-0", 3, 3))
+
+    leechers: list[_Leecher] = []
+    local_corrupt: list[dict] = []     # per-leecher {parent_id: verdicts}
+    for i in range(daemons):
+        s = i % 2
+        idx = i // 2
+        host = mk_host(f"s{s}w{idx}", f"slice-{s}", idx % 2, idx // 2)
+        peer = Peer(f"s{s}w{idx}-peer", task, host)
+        joined = i * 10.0 * rng.uniform(0.9, 1.1)
+        lc = _Leecher(peer, None, joined)
+        leechers.append(lc)
+        local_corrupt.append({})
+
+    by_peer_id = {lc.peer.id: lc for lc in leechers}
+    active: dict[str, int] = {}
+    wasted_bytes = 0
+    wasted_transfers = 0
+    poison_serves_total = 0
+    quarantined_at: float | None = None
+    serves_after_quarantine = 0
+
+    def refresh_parents(lc: _Leecher) -> None:
+        parents = sched.find_parents(lc.peer)
+        lc.parents = parents
+        lc.peer.last_offer_ids = {p.id for p in parents}
+        task.set_parents(lc.peer.id, [p.id for p in parents])
+
+    def holds(parent, piece: int) -> bool:
+        if parent is seed_peer or parent is poisoner:
+            return True
+        src = by_peer_id.get(parent.id)
+        return src is not None and piece in src.done
+
+    def pick(lc: _Leecher, i: int):
+        shun = local_corrupt[i]
+        for piece in range(pieces):
+            if piece in lc.done or piece in lc.inflight:
+                continue
+            holders = [p for p in lc.parents if holds(p, piece)]
+            if quarantine:
+                # the child's own verdict ledger: locally-shunned parents
+                # are refused a dispatcher slot whatever the offer says
+                holders = [p for p in holders
+                           if shun.get(p.id, 0) < BYZ_LOCAL_SHUN]
+            if not holders:
+                continue
+            lt = {p.id: link_type(lc.peer.host.msg.topology,
+                                  p.host.msg.topology) for p in holders}
+            holders.sort(key=lambda p: (active.get(p.id, 0),
+                                        int(lt[p.id]), p.id))
+            return piece, holders[0]
+        return None
+
+    events: list[tuple] = []
+    seq = 0
+
+    def push(t: float, *payload) -> None:
+        nonlocal seq
+        heapq.heappush(events, (t, seq, *payload))
+        seq += 1
+
+    for i, lc in enumerate(leechers):
+        for _ in range(parallelism):
+            push(lc.joined_ms, "worker", i)
+
+    finished = 0
+    while events and finished < len(leechers):
+        now, _s, kind, i, *rest = heapq.heappop(events)
+        now_ref[0] = now
+        lc = leechers[i]
+        if kind == "land":
+            piece, parent_id, corrupted = rest
+            lc.inflight.discard(piece)
+            active[parent_id] = max(0, active.get(parent_id, 0) - 1)
+            if corrupted:
+                # caught at the child's landing verification: the piece
+                # requeues; the corrupt verdict is the immune signal
+                wasted_bytes += piece_size
+                wasted_transfers += 1
+                lc.schedule.append([piece, parent_id, "corrupt"])
+                local_corrupt[i][parent_id] = \
+                    local_corrupt[i].get(parent_id, 0) + 1
+                if registry is not None:
+                    registry.record_corrupt(
+                        "poison-host", task_id=task.id,
+                        reporter=lc.peer.host.id)
+                    refresh_parents(lc)
+                    if (quarantined_at is None and registry.state(
+                            "poison-host") == QUARANTINED):
+                        # stamped HERE, at the verdict that tripped the
+                        # ruling — sampling it on a later worker event
+                        # lagged time_to_quarantine and let a dispatch in
+                        # the gap escape the serves-after counter
+                        quarantined_at = now
+                push(now, "worker", i)
+                continue
+            lc.done.add(piece)
+            lc.peer.finished_pieces.add(piece)
+            lc.schedule.append([piece, parent_id, "ok"])
+            if len(lc.done) >= pieces:
+                lc.done_ms = now
+                lc.peer.transit(PeerState.SUCCEEDED)
+                finished += 1
+            elif len(lc.done) % REFRESH_EVERY == 0:
+                refresh_parents(lc)
+            continue
+        # worker event
+        if len(lc.done) + len(lc.inflight) >= pieces:
+            continue
+        if lc.peer.id not in task.peers:
+            task.add_peer(lc.peer)
+            lc.peer.transit(PeerState.RUNNING)
+            refresh_parents(lc)
+        if not lc.parents:
+            refresh_parents(lc)
+        got = pick(lc, i)
+        if got is None:
+            refresh_parents(lc)
+            push(now + POLL_MS, "worker", i)
+            continue
+        piece, parent = got
+        lc.inflight.add(piece)
+        lt = link_type(lc.peer.host.msg.topology, parent.host.msg.topology)
+        load = active.get(parent.id, 0)
+        active[parent.id] = load + 1
+        ttfb_ms = (LINK_RTT_MS[lt] * (1.0 + TTFB_QUEUE_FACTOR * load)
+                   * rng.uniform(0.9, 1.3))
+        wire_ms = (piece_size / LINK_BW_BPS[lt] * 1000.0
+                   * (1.0 + WIRE_SHARE_FACTOR * load) * rng.uniform(0.9, 1.25))
+        corrupted = False
+        if parent is poisoner:
+            poison_serves_total += 1
+            if quarantined_at is not None:
+                serves_after_quarantine += 1
+            # deterministic per-dispatch draw (seeded rng, dispatch order)
+            corrupted = rng.random() * 100.0 < corrupt_pct
+        t_done = now + ttfb_ms + wire_ms
+        push(t_done, "land", i, piece, parent.id, corrupted)
+        push(t_done, "worker", i)
+    makespan = max((lc.done_ms for lc in leechers), default=0.0)
+    total_bytes = daemons * pieces * piece_size
+    schedules = {lc.peer.id: lc.schedule for lc in leechers}
+    digest = hashlib.sha256(
+        json.dumps(schedules, sort_keys=True).encode()).hexdigest()
+    corrupt_verdicts = sum(sum(d.values()) for d in local_corrupt)
+    return {
+        "seed": seed,
+        "daemons": daemons,
+        "pieces": pieces,
+        "piece_size": piece_size,
+        "corrupt_pct": corrupt_pct,
+        "quarantine": quarantine,
+        "makespan_ms": round(makespan, 3),
+        "wasted_corrupt_bytes": wasted_bytes,
+        "wasted_transfers": wasted_transfers,
+        # corrupt bytes per unit of useful content delivered — the
+        # pod-wide tax the poisoner extracts
+        "wasted_ratio": round(wasted_bytes / total_bytes, 4),
+        "corrupt_verdicts": corrupt_verdicts,
+        "poisoner_serves": poison_serves_total,
+        "poisoner_serves_after_quarantine": serves_after_quarantine,
+        "time_to_quarantine_ms": (round(quarantined_at, 3)
+                                  if quarantined_at is not None else None),
+        "quarantine_rows": len(quarantine_rows),
+        "quarantine_transitions": [
+            {"from": r.get("from_state"), "to": r.get("to_state"),
+             "why": r.get("why")} for r in quarantine_rows],
+        "schedule_digest": digest,
+    }
+
+
+def _run_pr12(args) -> dict:
+    """The swarm immune system under a
+    byzantine holder, quarantine on vs off. A plain baseline sim rides
+    along twice — bare, and with an ARMED-but-evidence-free registry —
+    as the digest gates (both give the baseline's digest: the filter
+    consults the registry only per-candidate and an empty registry
+    answers healthy without touching the rng). Acceptance: quarantine bounds wasted corrupt bytes to a
+    small multiple of the evidence threshold while the unprotected pod's
+    waste scales with daemons x corrupt_pct; the poisoner is quarantined
+    after a bounded number of verdicts and serves ~nothing afterwards;
+    makespan improves."""
+    base = run_bench(**_bench_kw(args))
+    armed = run_bench(**_bench_kw(args), quarantine=QuarantineRegistry())
+    shape = dict(seed=args.seed,
+                 daemons=4 if args.smoke else 8,
+                 pieces=8 if args.smoke else 32,
+                 piece_size=(256 << 10) if args.smoke else (4 << 20),
+                 parallelism=args.parallelism)
+    protected = run_byzantine_bench(**shape, quarantine=True)
+    exposed = run_byzantine_bench(**shape, quarantine=False)
+    byz_digest = hashlib.sha256(json.dumps(
+        {"on": protected, "off": exposed},
+        sort_keys=True).encode()).hexdigest()
+    return {
+        "bench": "dfbench-byzantine",
+        "seed": args.seed,
+        "daemons": shape["daemons"],
+        "pieces": shape["pieces"],
+        "piece_size": shape["piece_size"],
+        "corrupt_pct": protected["corrupt_pct"],
+        # the scheduler sim untouched by the quarantine plumbing: digest
+        # gates (bare AND armed-empty-registry runs)
+        "schedule_digest": base["schedule_digest"],
+        "quarantine_pure": (base["schedule_digest"]
+                            == armed["schedule_digest"]),
+        "quarantine_on": protected,
+        "quarantine_off": exposed,
+        "makespan_ms": {"on": protected["makespan_ms"],
+                        "off": exposed["makespan_ms"]},
+        "wasted_ratio": {"on": protected["wasted_ratio"],
+                         "off": exposed["wasted_ratio"]},
+        "time_to_quarantine_ms": protected["time_to_quarantine_ms"],
+        "verdicts_to_quarantine": BYZ_QUARANTINE_THRESHOLD,
+        # the headline: with quarantine, pod-wide wasted corrupt bytes
+        # stay bounded near threshold x piece_size; exposed, every child
+        # pays separately and waste scales with daemons x corrupt_pct.
+        # (Makespan is reported, not gated: a 60%-corrupt parent still
+        # contributes 40% goodput in the link model, so wall-clock is
+        # roughly a wash — the tax quarantine removes is wasted BYTES
+        # and verdict churn, which at pod scale is shared-uplink load.)
+        "quarantine_bounds_waste": (
+            protected["wasted_corrupt_bytes"]
+            < exposed["wasted_corrupt_bytes"]),
+        "byzantine_digest": byz_digest,
+    }
+
+
+# Cross-pod federation harness: many pods behind thin
+# DCN links, one origin, whole-fleet cold start — the feeder-limited
+# regime of the MLPerf-on-pods papers. ``fed_naive`` is the flat fabric:
+# every daemon may back-source and cross-pod parents are unrestricted,
+# so the cold herd storms the origin from every pod at once.
+# ``fed_hier`` drives the real two-level stack: the real PodFederation
+# (hash-ring per-pod seed election) armed inside the real Scheduling
+# filter — cross-pod parents are legal only for each pod's elected
+# seeds, members never touch the origin, and the in-pod fan-out rides
+# the relay shaping with cut-through pipelining, so the chain is
+# origin -> pod-seed (DCN) -> ICI relay tree. The seed-kill chaos
+# variant kills a pod's elected seed mid-pull: the federation view
+# forgets the host, the ring re-elects, and the pod completes with no
+# origin copies beyond the replacement's resume of the holes.
+
+FED_SCENARIOS = ("fed_naive", "fed_hier")
+FED_PIECES = 32              # pieces per federation run (fixed: the scale
+                             # axis is PODS, not content size)
+
+
+def run_federation_bench(*, seed: int = 7, pods: int = 4,
+                         daemons_per_pod: int = 16, pieces: int = FED_PIECES,
+                         piece_size: int = 4 << 20, parallelism: int = 4,
+                         federation: bool = True,
+                         origin_link: LinkType = LinkType.DCN,
+                         seed_kill: bool = False,
+                         collect_podscope: bool = False) -> dict:
+    """One multi-pod cold-start fan-out; returns makespan + per-tier byte
+    accounting. Pure function of its arguments (virtual clock, seeded
+    rng, deterministic elections). ``federation=False`` models the flat
+    pre-federation fabric (anyone may back-source, anyone may cross
+    pods); ``federation=True`` arms the real PodFederation inside the
+    real Scheduling filter. ``seed_kill`` kills pod-0's elected seed
+    once it has landed half the content (a deterministic trigger — no
+    wall clock), exercising forget-host -> ring re-election -> resume."""
+    rng = random.Random(seed)
+
+    res = Resource()
+    task = Task("fed" + "0" * 61, "bench://federation")
+    task.set_content_info(pieces * piece_size, piece_size, pieces)
+
+    fed = PodFederation(seeds_per_pod=1) if federation else None
+    # the filter's pool shuffle: its own stream, seeded like the sim's
+    sched = Scheduling(make_evaluator("default"), rng=random.Random(seed),
+                       relay_fanout=RELAY_FANOUT, federation=fed)
+
+    def topo(pod: int, i: int) -> TopologyInfo:
+        return TopologyInfo(slice_name=f"pod-{pod}", ici_coords=(i % 8, i // 8),
+                            zone="bench-zone")
+
+    leechers: list[_Leecher] = []
+    pod_of: dict[str, str] = {}        # peer id -> pod name
+    for p in range(pods):
+        for i in range(daemons_per_pod):
+            t = topo(p, i)
+            host = res.store_host(HostMsg(
+                id=f"p{p}w{i}-host", ip="10.0.0.1", port=1, download_port=2,
+                topology=t))
+            peer = Peer(f"p{p}w{i}-peer", task, host)
+            if fed is not None:
+                fed.observe_host(host.id, t)   # the announce plane
+            idx = p * daemons_per_pod + i
+            joined = (idx * COLD_JOIN_MS / max(pods * daemons_per_pod, 1)) \
+                * rng.uniform(0.8, 1.2)
+            flight = None
+            if collect_podscope:
+                flight = TaskFlight(task.id, peer.id, url="bench://federation",
+                                    max_events=5 * pieces + 8)
+                flight.events.append((joined, fr.REGISTERED, -1, "", 0, 0.0))
+            lc = _Leecher(peer, flight, joined)
+            pod_of[peer.id] = f"pod-{p}"
+            leechers.append(lc)
+
+    by_peer_id = {lc.peer.id: lc for lc in leechers}
+    by_host_id = {lc.peer.host.id: lc for lc in leechers}
+    active: dict[str, int] = {}
+    served_children: dict[str, set[str]] = {}
+    dead: set[str] = set()             # peer ids of killed daemons
+    bytes_by_tier = {name: 0 for name in
+                     (*LINK_TIER_NAMES.values(), "origin")}
+    origin_by_peer: dict[str, int] = {}
+    kill_ms: float | None = None
+    victim: _Leecher | None = None
+    reelected: list[str] = []
+    pod0_origin_after_kill = 0
+
+    def is_pod_seed(lc: _Leecher) -> bool:
+        if fed is None:
+            return True                # flat fabric: anyone back-sources
+        return lc.peer.host.id in fed.seeds_for(task.id, pod_of[lc.peer.id])
+
+    def refresh_parents(lc: _Leecher, now: float = 0.0) -> None:
+        parents = sched.find_parents(lc.peer)
+        lc.parents = parents
+        lc.peer.last_offer_ids = {p.id for p in parents}
+        task.set_parents(lc.peer.id, [p.id for p in parents])
+
+    def holds(parent, piece: int, now: float) -> bool:
+        src = by_peer_id.get(parent.id)
+        if src is None or parent.id in dead:
+            return False
+        t = src.landed_at.get(piece)
+        if t is not None and t <= now:
+            return True
+        # cut-through: an in-flight piece is announce-ahead
+        # pullable — including behind a pod seed's ORIGIN stream, which
+        # is exactly the origin -> pod-seed -> ICI pipeline
+        return piece in src.arrive
+
+    def landed_now(parent, piece: int, now: float) -> bool:
+        src = by_peer_id.get(parent.id)
+        if src is None or parent.id in dead:
+            return False
+        t = src.landed_at.get(piece)
+        return t is not None and t <= now
+
+    def pick(lc: _Leecher, now: float):
+        """(piece, parent_or_None) — None parent = origin back-source,
+        legal only for pod seeds under federation. The holder ranking is
+        the cold_relay rule: under-fanout-cap first, earliest available
+        copy, load, link tier."""
+        allowed_origin = None
+        for piece in range(pieces):
+            if piece in lc.done or piece in lc.inflight:
+                continue
+            holders = [p for p in lc.parents
+                       if p.id not in dead and holds(p, piece, now)]
+            if not holders:
+                if allowed_origin is None:
+                    allowed_origin = is_pod_seed(lc)
+                if allowed_origin:
+                    return piece, None
+                continue
+            lt = {p.id: link_type(lc.peer.host.msg.topology,
+                                  p.host.msg.topology) for p in holders}
+
+            def capped(p) -> int:
+                kids = served_children.get(p.id)
+                if kids is None or lc.peer.id in kids:
+                    return 0
+                return 1 if len(kids) >= RELAY_FANOUT else 0
+
+            def avail_ms(p) -> float:
+                if landed_now(p, piece, now):
+                    return 0.0
+                up = by_peer_id[p.id].arrive.get(piece)
+                return up[1] if up is not None else 1e12
+            holders.sort(key=lambda p: (
+                capped(p), avail_ms(p), active.get(p.id, 0),
+                int(lt[p.id]), p.id))
+            return piece, holders[0]
+        return None
+
+    def kill_seed(now: float) -> None:
+        """Pod-0's elected seed dies mid-pull: process gone, storage
+        gone, stream gone. The federation view forgets it (the live
+        scheduler does this on leave/stream-gone), so the next ruling
+        that needs pod-0's seed re-elects the next ring member."""
+        nonlocal kill_ms
+        kill_ms = now
+        dead.add(victim.peer.id)
+        victim.peer.stream_gone = True
+        task.set_parents(victim.peer.id, [])
+        fed.forget_host(victim.peer.host.id)
+        if victim.flight is not None:
+            victim.flight.state = "failed"
+
+    events: list[tuple] = []
+    seq = 0
+
+    def push(t: float, *payload) -> None:
+        nonlocal seq
+        heapq.heappush(events, (t, seq, *payload))
+        seq += 1
+
+    for i, lc in enumerate(leechers):
+        for _ in range(parallelism):
+            push(lc.joined_ms, "worker", i)
+
+    if seed_kill:
+        if fed is None:
+            raise ValueError("seed_kill needs federation=True")
+        # election is deterministic, so the victim is known up front;
+        # register pod-0 hosts are observed already
+        vic_host = fed.seeds_for(task.id, "pod-0")[0]
+        victim = by_host_id[vic_host]
+
+    SAFETY_MS = 600_000.0
+    finished = 0
+    while events:
+        alive = len(leechers) - len(dead)
+        if finished >= alive:
+            break
+        now, _s, kind, i, *rest = heapq.heappop(events)
+        if now > SAFETY_MS:
+            break
+        lc = leechers[i]
+        if lc.peer.id in dead:
+            continue                   # a dead daemon's events are void
+        if kind == "land":
+            piece, parent_id, t_wire = rest
+            lc.inflight.discard(piece)
+            if parent_id in dead:
+                # the parent died mid-stream: the transfer aborted, the
+                # piece deadline re-pulls it from another holder
+                lc.arrive.pop(piece, None)
+                push(now, "worker", i)
+                continue
+            lc.done.add(piece)
+            lc.landed_at[piece] = t_wire
+            lc.peer.finished_pieces.add(piece)
+            active[parent_id] = max(0, active.get(parent_id, 0) - 1)
+            lc.since_refresh += 1
+            if (victim is not None and kill_ms is None and lc is victim
+                    and len(lc.done) >= pieces // 2):
+                kill_seed(now)
+                continue
+            if len(lc.done) >= pieces:
+                if lc.flight is not None:
+                    lc.flight.state = "success"
+                lc.peer.transit(PeerState.SUCCEEDED)
+                # a completed peer needs no parents: clearing its
+                # in-edges (the live scheduler does this when the
+                # conductor closes) releases the cycle filter so EARLY
+                # joiners — ancestors of half the DAG — can finally be
+                # offered the finished holders below them
+                task.set_parents(lc.peer.id, [])
+                lc.peer.last_offer_ids = set()
+                lc.parents = []
+                finished += 1
+            elif lc.since_refresh >= REFRESH_EVERY:
+                lc.since_refresh = 0
+                refresh_parents(lc, now)
+            continue
+        # worker event
+        if len(lc.done) + len(lc.inflight) >= pieces:
+            continue
+        if lc.peer.id not in task.peers:
+            task.add_peer(lc.peer)
+            lc.peer.transit(PeerState.RUNNING)
+            refresh_parents(lc)
+        if not lc.parents:
+            refresh_parents(lc, now)
+        got = pick(lc, now)
+        if got is None:
+            if now - lc.last_refresh >= COLD_REFRESH_MS:
+                lc.last_refresh = now
+                refresh_parents(lc, now)
+            push(now + POLL_MS, "worker", i)
+            continue
+        piece, parent = got
+        lc.inflight.add(piece)
+        if parent is None:
+            # origin back-source over the origin tier (one contended
+            # egress for the whole fleet — the resource federation
+            # exists to ration)
+            lc.schedule.append([piece, _ORIGIN_ID])
+            load = active.get(_ORIGIN_ID, 0)
+            active[_ORIGIN_ID] = load + 1
+            ttfb_ms = (LINK_RTT_MS[origin_link]
+                       * (1.0 + TTFB_QUEUE_FACTOR * load)
+                       * rng.uniform(0.9, 1.3))
+            wire_ms = (piece_size / LINK_BW_BPS[origin_link] * 1000.0
+                       * (1.0 + WIRE_SHARE_FACTOR * load)
+                       * rng.uniform(0.9, 1.25))
+            t_first = now + ttfb_ms
+            t_wire = t_first + wire_ms
+            lc.arrive[piece] = (t_first, t_wire)
+            bytes_by_tier["origin"] += piece_size
+            origin_by_peer[lc.peer.id] = \
+                origin_by_peer.get(lc.peer.id, 0) + piece_size
+            if kill_ms is not None and pod_of[lc.peer.id] == "pod-0":
+                # the replacement seed's resume: the only origin traffic
+                # the failover is allowed to add
+                pod0_origin_after_kill += piece_size
+            lc.done_ms = max(lc.done_ms, t_wire)
+            if lc.flight is not None:
+                lc.flight.events.append((t_wire, fr.WIRE_DONE, piece, "",
+                                         piece_size, wire_ms))
+            push(t_wire, "land", i, piece, _ORIGIN_ID, t_wire)
+            push(t_wire, "worker", i)
+            continue
+        lc.schedule.append([piece, parent.id])
+        served_children.setdefault(parent.id, set()).add(lc.peer.id)
+        lt = link_type(lc.peer.host.msg.topology, parent.host.msg.topology)
+        bytes_by_tier[LINK_TIER_NAMES[lt]] += piece_size
+        load = active.get(parent.id, 0)
+        active[parent.id] = load + 1
+        queue_ms = rng.uniform(0.1, 0.5)
+        ttfb_ms = (LINK_RTT_MS[lt] * (1.0 + TTFB_QUEUE_FACTOR * load)
+                   * rng.uniform(0.9, 1.3))
+        wire_ms = (piece_size / LINK_BW_BPS[lt] * 1000.0
+                   * (1.0 + WIRE_SHARE_FACTOR * load) * rng.uniform(0.9, 1.25))
+        t_disp = now + queue_ms
+        t_first = t_disp + ttfb_ms
+        t_wire = t_first + wire_ms
+        if not landed_now(parent, piece, now):
+            # cut-through hop behind the parent's own landing watermark
+            up = by_peer_id[parent.id].arrive.get(piece)
+            if up is not None:
+                hop = LINK_RTT_MS[lt]
+                t_first = max(t_first, up[0] + hop)
+                t_wire = max(t_first + wire_ms, up[1] + hop)
+                lc.relay_pulls += 1
+        lc.arrive[piece] = (t_first, t_wire)
+        lc.done_ms = max(lc.done_ms, t_wire)
+        if lc.flight is not None:
+            ev = lc.flight.events.append
+            ev((now, fr.SCHEDULED, piece, parent.id, 0, 0.0))
+            ev((t_disp, fr.DISPATCHED, piece, parent.id, 0, 0.0))
+            ev((t_first, fr.FIRST_BYTE, piece, parent.id, 0, 0.0))
+            ev((t_wire, fr.WIRE_DONE, piece, parent.id, piece_size, wire_ms))
+        push(t_wire, "land", i, piece, parent.id, t_wire)
+        push(t_wire, "worker", i)
+
+    alive = [lc for lc in leechers if lc.peer.id not in dead]
+    makespan = max((lc.done_ms for lc in alive), default=0.0)
+    content = pieces * piece_size
+    schedules = {lc.peer.id: lc.schedule for lc in leechers}
+    digest = hashlib.sha256(
+        json.dumps(schedules, sort_keys=True).encode()).hexdigest()
+    seed_hosts = set()
+    if fed is not None:
+        for p in range(pods):
+            seed_hosts |= set(fed.seeds_for(task.id, f"pod-{p}"))
+    member_origin = sum(
+        n for pid, n in origin_by_peer.items()
+        if fed is not None
+        and by_peer_id[pid].peer.host.id not in seed_hosts
+        and (victim is None or pid != victim.peer.id))
+    result = {
+        "seed": seed,
+        "federation": federation,
+        "pods": pods,
+        "daemons_per_pod": daemons_per_pod,
+        "daemons": pods * daemons_per_pod,
+        "pieces": pieces,
+        "piece_size": piece_size,
+        "content_bytes": content,
+        "origin_link": LINK_TIER_NAMES[origin_link],
+        "makespan_ms": round(makespan, 3),
+        "complete": sum(1 for lc in alive if len(lc.done) >= pieces),
+        "alive": len(alive),
+        "origin_bytes": bytes_by_tier["origin"],
+        # the headline ratio: copies of the content that crossed the
+        # origin uplink (hier acceptance: <= 1.25 x pods)
+        "origin_copies": round(bytes_by_tier["origin"] / content, 3),
+        "bytes_by_tier": dict(bytes_by_tier),
+        "cross_pod_p2p_bytes": bytes_by_tier["dcn"] + bytes_by_tier["wan"],
+        # bytes NON-SEED members pulled from origin: the federation
+        # contract is exactly 0 — every member byte arrives over the
+        # pod seed's ICI tree. None when federation is off: the flat
+        # fabric has no seed/member distinction, and reporting 0 there
+        # would read as the contract holding in the very scenario that
+        # violates it
+        "member_origin_bytes": (member_origin if fed is not None
+                                else None),
+        "relay_pulled_pieces": sum(lc.relay_pulls for lc in leechers),
+        "schedule_digest": digest,
+    }
+    if seed_kill:
+        result["seed_kill"] = {
+            "killed_host": victim.peer.host.id,
+            "kill_ms": round(kill_ms, 3) if kill_ms is not None else None,
+            "reelected": (fed.seeds_for(task.id, "pod-0")
+                          if fed is not None else []),
+            "completed": all(len(lc.done) >= pieces for lc in alive),
+            # resume bound: pod-0's origin bytes after the kill cover at
+            # most the holes the dead seed never spread in-pod
+            "pod0_origin_bytes_after_kill": pod0_origin_after_kill,
+            "resume_bounded": pod0_origin_after_kill <= content,
+        }
+    if collect_podscope:
+        snaps = []
+        for lc in leechers:
+            dump = lc.flight.timeline()
+            dump["started_at"] = 0.0
+            dump["summary"] = lc.flight.summarize()
+            snaps.append({"addr": lc.peer.id, "pod": pod_of[lc.peer.id],
+                          "flights": {task.id: dump}})
+        result["podscope_snapshots"] = snaps
+    return result
+
+
+def _run_pr13(args) -> dict:
+    """Cross-pod federation over DCN. A plain single-pod baseline sim
+    rides along as the digest gate (federation disarmed: the baseline's
+    digest); the fakepod
+    then scales across pod counts for flat (fed_naive) vs hierarchical
+    (fed_hier) distribution, and a seed-kill chaos run proves mid-pull
+    failover. Acceptance: hier origin egress
+    <= 1.25 x (pods x content) at the largest size, hier makespan growth
+    <= 2x while the pod count grows 4x, members never touch the origin,
+    and the killed pod re-elects + completes with the replacement's
+    resume as the only extra origin traffic."""
+    base = run_bench(**_bench_kw(args))
+    if args.smoke:
+        sizes = [(2, 6), (4, 6)]
+        pieces, psize = 8, 256 << 10
+    else:
+        sizes = [(4, 64), (8, 64), (16, 64)]
+        pieces, psize = FED_PIECES, 4 << 20
+    scenarios: dict[str, dict] = {sc: {} for sc in FED_SCENARIOS}
+    for pods, dpp in sizes:
+        for sc, fed_on in (("fed_naive", False), ("fed_hier", True)):
+            r = run_federation_bench(
+                seed=args.seed, pods=pods, daemons_per_pod=dpp,
+                pieces=pieces, piece_size=psize,
+                parallelism=args.parallelism, federation=fed_on)
+            scenarios[sc][f"{pods}x{dpp}"] = r
+    # two-level tree shape at the smallest size, through the real
+    # podscope aggregation (pure readout — never in the rng path)
+    tree_run = run_federation_bench(
+        seed=args.seed, pods=sizes[0][0], daemons_per_pod=sizes[0][1],
+        pieces=pieces, piece_size=psize, parallelism=args.parallelism,
+        federation=True, collect_podscope=True)
+    report = podscope.aggregate(tree_run.pop("podscope_snapshots"))
+    task_report = next(iter(report["tasks"].values()))
+    chaos = run_federation_bench(
+        seed=args.seed, pods=sizes[0][0], daemons_per_pod=sizes[0][1],
+        pieces=pieces, piece_size=psize, parallelism=args.parallelism,
+        federation=True, seed_kill=True)
+    biggest = f"{sizes[-1][0]}x{sizes[-1][1]}"
+    smallest = f"{sizes[0][0]}x{sizes[0][1]}"
+    hier = scenarios["fed_hier"]
+    naive = scenarios["fed_naive"]
+    content = hier[biggest]["content_bytes"]
+    pod_growth = sizes[-1][0] / sizes[0][0]
+    growth = {sc: round(scenarios[sc][biggest]["makespan_ms"]
+                        / max(scenarios[sc][smallest]["makespan_ms"], 1e-9),
+                        3) for sc in FED_SCENARIOS}
+    fed_digest = hashlib.sha256(json.dumps(
+        {sc: {k: v["schedule_digest"] for k, v in scenarios[sc].items()}
+         for sc in FED_SCENARIOS} | {"chaos": chaos["schedule_digest"]},
+        sort_keys=True).encode()).hexdigest()
+    return {
+        "bench": "dfbench-federation",
+        "seed": args.seed,
+        "sizes": [f"{p}x{d}" for p, d in sizes],
+        "pieces": pieces,
+        "piece_size": psize,
+        "parallelism": args.parallelism,
+        # federation disarmed == the plain scheduler path: the
+        # baseline's digest
+        "schedule_digest": base["schedule_digest"],
+        "scenarios": scenarios,
+        "makespan_ms": {sc: {k: v["makespan_ms"]
+                             for k, v in scenarios[sc].items()}
+                        for sc in FED_SCENARIOS},
+        "origin_copies": {sc: {k: v["origin_copies"]
+                               for k, v in scenarios[sc].items()}
+                          for sc in FED_SCENARIOS},
+        "pod_growth_factor": pod_growth,
+        "makespan_growth": growth,
+        # acceptance flags
+        "origin_bounded": (hier[biggest]["origin_bytes"]
+                           <= 1.25 * sizes[-1][0] * content),
+        "sublinear_in_pods": growth["fed_hier"] <= 2.0,
+        "hier_beats_naive": all(
+            hier[f"{p}x{d}"]["makespan_ms"]
+            < naive[f"{p}x{d}"]["makespan_ms"] for p, d in sizes),
+        "member_origin_bytes": hier[biggest]["member_origin_bytes"],
+        "tree": {"depth": task_report["depth"],
+                 "cross_pod_bytes": task_report["cross_pod_bytes"],
+                 "edges": len(task_report["edges"])},
+        "seed_kill": chaos["seed_kill"] | {
+            "makespan_ms": chaos["makespan_ms"],
+            "origin_copies": chaos["origin_copies"],
+            "member_origin_bytes": chaos["member_origin_bytes"],
+        },
+        "federation_digest": fed_digest,
+    }
+
+
+# The recovery storm's shape (the reference's ctrl-bench constants it
+# shares): virtual daemons per pod-sized task group, pieces per task, the
+# shard names per ruling and the rulings per fleet.
+CTRL_SMOKE_FLEET = 64               # the legs' fleet (pinned)
+CTRL_PEERS_PER_POD = 256            # one task per pod-sized group
+CTRL_PIECES = 32
+CTRL_SHARDS = 16                    # shard names per shard ruling
+CTRL_SHARD_RULINGS = 512            # shard rulings per fleet
+RECOV_OUTAGE_MS = 5_000.0           # virtual scheduler downtime (crash
+                                    # to restarted-and-serving)
+RECOV_ANNOUNCE_MS = 30_000.0        # one announce interval: how long the
+                                    # amnesia brain waits to re-learn
+                                    # holders from periodic announces
+RECOV_FULL_FLEET = 512              # full-mode second recovery point
+
+
+def run_recovery_bench(*, seed: int = 7, daemons: int = 64,
+                       pieces: int = 32, piece_size: int = 4 << 20,
+                       durable: bool = True,
+                       partner_exemption: bool = True) -> dict:
+    """One leg of the crash-resilience storm: a cold herd through
+    the real control-plane stack (``Scheduling`` over ``Resource`` with
+    ``QuarantineRegistry``/``PodFederation``/``ShardAffinity`` armed),
+    the scheduler KILLED at 50 % of the refresh storm, then restarted —
+    with the ``scheduler/statestore.py`` snapshot (``durable=True``) or
+    with amnesia (Dragonfly2's behavior, which the snapshot exists to
+    beat).
+
+    The crash discards every in-memory ruling input. On restart the
+    durable brain restores the snapshot (quarantine ladder, shard
+    request tables + memos, seed elections) and — because daemons see
+    the epoch change — every holder's content is re-announced BEFORE
+    the herd's retry storm lands. The amnesia brain learns holders only
+    from each daemon's periodic announce, one ``RECOV_ANNOUNCE_MS``
+    interval later, so its retry storm back-sources from the origin.
+
+    Measured per leg: time from restart to the first ruling served,
+    origin hits in the retry storm (a ruling whose offer names no
+    content holder = one origin back-source), re-offers of a host
+    quarantined BEFORE the crash, and shard-assignment stickiness
+    across the restart. The durable leg also proves the
+    ``sched.snapshot.io`` contract mid-run: an injected ENOSPC save
+    fails silently while the very next ruling still lands.
+
+    Determinism: virtual quarantine/statestore clocks, seeded rng —
+    ``ruling_digest`` (ordered [kind, peer, chosen] rows, never wall
+    times) is a pure function of (seed, daemons, pieces, durable).
+    ``partner_exemption=False`` rules with the reference's filter (swap
+    partners held to the cycle and bad-node rules, ROADMAP known
+    difference 13)."""
+    # the filter's pool shuffle: one stream across both scheduler
+    # lifetimes, as the reference's module rng runs on across its crash
+    pool_rng = random.Random(seed)
+    sched_cls = Scheduling if partner_exemption else _ReferenceFilter
+    now_ref = [0.0]            # virtual ms: quarantine AND statestore
+
+    def vclock() -> float:
+        return now_ref[0] / 1000.0
+
+    def build_stack():
+        res = Resource()
+        registry = QuarantineRegistry(
+            corrupt_threshold=3.0, halflife_s=1e9, probation_delay_s=1e9,
+            clock=vclock)
+        fed = PodFederation(seeds_per_pod=1)
+        ledger = DecisionLedger()
+        affinity = ShardAffinity(sink=ledger.on_decision)
+        sched = sched_cls(make_evaluator("default"), rng=pool_rng,
+                          relay_fanout=RELAY_FANOUT, quarantine=registry,
+                          federation=fed, sharded=affinity)
+        sched.decision_sink = ledger.on_decision
+        return res, registry, fed, affinity, sched
+
+    def wire(store, registry, fed, affinity):
+        # the same component set scheduler/server.py registers (minus
+        # tenants/meta, which have no bench-side analog)
+        store.register("quarantine", registry.export_state,
+                       registry.restore)
+        store.register("federation", fed.export_state, fed.restore)
+        store.register("shard_affinity", affinity.export_state,
+                       affinity.restore)
+
+    pods = max(1, -(-daemons // CTRL_PEERS_PER_POD))
+
+    def topo(pod: int, i: int) -> TopologyInfo:
+        return TopologyInfo(slice_name=f"pod-{pod}",
+                            ici_coords=(i % 16, (i // 16) % 16),
+                            zone="bench-zone")
+
+    def make_tasks(res):
+        out = []
+        for p in range(pods):
+            task = res.get_or_create_task(f"recv{p:03d}".ljust(64, "0"),
+                                          f"bench://recovery/{p}")
+            task.set_content_info(pieces * piece_size, piece_size, pieces)
+            out.append(task)
+        return out
+
+    def add_seed(res, fed, tasks, p):
+        t = topo(p, 255)
+        host = res.store_host(HostMsg(
+            id=f"r{p}seed-host", ip="10.0.0.1", port=1, download_port=2,
+            type=HostType.SUPER_SEED, topology=t))
+        fed.observe_host(host.id, t)
+        sp = res.get_or_create_peer(f"r{p}seed-peer", tasks[p], host)
+        sp.transit(PeerState.RUNNING)
+        sp.finished_pieces = set(range(pieces))
+        sp.transit(PeerState.SUCCEEDED)
+
+    res, registry, fed, affinity, sched = build_stack()
+    tasks = make_tasks(res)
+    for p in range(pods):
+        add_seed(res, fed, tasks, p)
+
+    rows: list[list] = []      # [kind, peer_id, chosen ids] -> the digest
+    peers = []
+
+    # -- cold herd: every daemon registers (find rulings)
+    for i in range(daemons):
+        p = i // CTRL_PEERS_PER_POD
+        w = i % CTRL_PEERS_PER_POD
+        t = topo(p, w)
+        host = res.store_host(HostMsg(
+            id=f"r{p}w{w}-host", ip="10.0.0.1", port=1, download_port=2,
+            topology=t))
+        fed.observe_host(host.id, t)
+        peer = res.get_or_create_peer(f"r{p}w{w}-peer", tasks[p], host)
+        peer.created_at = float(i)
+        peers.append(peer)
+        parents = sched.find_parents(peer)
+        peer.last_offer_ids = {pr.id for pr in parents}
+        tasks[p].set_parents(peer.id, [pr.id for pr in parents])
+        rows.append(["find", peer.id, [pr.id for pr in parents]])
+
+    # -- one pod-0 holder goes byzantine: two independent reporters, two
+    # hard verdicts each -> pod-wide quarantine
+    now_ref[0] = 1000.0
+    poisoner_peer_id = peers[0].id
+    for rep in ("rep-a", "rep-b"):
+        for _ in range(2):
+            registry.record_corrupt(peers[0].host.id, task_id=tasks[0].id,
+                                    reporter=rep)
+
+    # -- progress: the herd holds partial content; the poisoner holds
+    # EVERYTHING, so it is maximally attractive to any brain that
+    # forgot why it was quarantined
+    for i, peer in enumerate(peers):
+        peer.finished_pieces = set(range((i * 7) % pieces))
+    peers[0].finished_pieces = set(range(pieces))
+
+    requested = [f"layer-{j:02d}" for j in range(CTRL_SHARDS)]
+    shard_n = min(daemons, CTRL_SHARD_RULINGS)
+    for peer in peers[:shard_n]:       # membership warm-up pass
+        assigned = sched.shard_assignment(peer, requested)
+        rows.append(["shard", peer.id, list(assigned or [])])
+    pre_shard = {}
+    for peer in peers[:shard_n]:       # steady state: full membership
+        assigned = sched.shard_assignment(peer, requested)
+        rows.append(["shard-steady", peer.id, list(assigned or [])])
+        pre_shard[peer.host.id] = list(assigned or [])
+
+    half = daemons // 2
+    for peer in peers[:half]:
+        parents = sched.refresh_parents(peer)
+        peer.last_offer_ids = {pr.id for pr in parents}
+        peer.task.set_parents(peer.id, [pr.id for pr in parents])
+        rows.append(["refresh", peer.id, [pr.id for pr in parents]])
+
+    # -- durable leg: the snapshot first survives an injected ENOSPC
+    # (the sched.snapshot.io contract: a failed snapshot must never
+    # block or perturb a ruling — one still lands mid-fault), then
+    # persists for real
+    tmpdir = ""
+    snapshot_fault_survived = None
+    try:
+        if durable:
+            tmpdir = tempfile.mkdtemp(prefix="dfbench-recovery-")
+            store = SchedulerStateStore(tmpdir, clock=vclock, wall=vclock)
+            wire(store, registry, fed, affinity)
+            faultgate.reset()
+            faultgate.arm_script("sched.snapshot.io=error:n=1")
+            failed_save = store.save(reason="bench")
+            probe = sched.refresh_parents(peers[half])
+            peers[half].last_offer_ids = {pr.id for pr in probe}
+            peers[half].task.set_parents(peers[half].id,
+                                         [pr.id for pr in probe])
+            rows.append(["refresh-during-fault", peers[half].id,
+                         [pr.id for pr in probe]])
+            faultgate.reset()
+            snapshot_fault_survived = (failed_save is False
+                                       and store.save(reason="bench"))
+
+        # crash-time holdings: what each daemon can re-announce later
+        holdings = [(i, sorted(peer.finished_pieces))
+                    for i, peer in enumerate(peers)]
+
+        # ==== CRASH: the scheduler dies at 50 % of the refresh storm;
+        # every in-memory ruling input is gone. Restart after a virtual
+        # outage.
+        now_ref[0] += RECOV_OUTAGE_MS
+        res, registry, fed, affinity, sched = build_stack()
+        tasks = make_tasks(res)
+
+        t_restart = time.perf_counter()
+        provenance = None
+        if durable:
+            store2 = SchedulerStateStore(tmpdir, clock=vclock, wall=vclock)
+            wire(store2, registry, fed, affinity)
+            provenance = store2.restore()
+            # epoch change -> every daemon re-announces held content
+            # (PEX digest codec) BEFORE the retry storm lands: holders
+            # are back immediately — and the restored ladder keeps the
+            # poisoner's full copy out of every offer
+            for p in range(pods):
+                add_seed(res, fed, tasks, p)
+            for i, held in holdings:
+                if not held:
+                    continue
+                p = i // CTRL_PEERS_PER_POD
+                w = i % CTRL_PEERS_PER_POD
+                t = topo(p, w)
+                host = res.store_host(HostMsg(
+                    id=f"r{p}w{w}-host", ip="10.0.0.1", port=1,
+                    download_port=2, topology=t))
+                fed.observe_host(host.id, t)
+                tw = res.get_or_create_peer(f"r{p}w{w}-peer", tasks[p],
+                                            host)
+                tw.created_at = float(i)
+                tw.finished_pieces = set(held)
+
+        # -- retry storm: the mid-pull herd re-registers IMMEDIATELY (no
+        # daemon waits out an announce interval to retry). A ruling
+        # whose offer names no content holder is an origin hit: that
+        # child back-sources its bytes over the WAN.
+        time_to_first_ruling_ms = 0.0
+        origin_hits = 0
+        poisoner_offers = 0
+        post_shard = {}
+        peers2 = []
+        for i in range(daemons):
+            p = i // CTRL_PEERS_PER_POD
+            w = i % CTRL_PEERS_PER_POD
+            t = topo(p, w)
+            host = res.store_host(HostMsg(
+                id=f"r{p}w{w}-host", ip="10.0.0.1", port=1,
+                download_port=2, topology=t))
+            fed.observe_host(host.id, t)
+            peer = res.get_or_create_peer(f"r{p}w{w}-peer", tasks[p], host)
+            peer.created_at = float(i)
+            peers2.append(peer)
+            parents = sched.find_parents(peer)
+            if i == 0:
+                time_to_first_ruling_ms = round(
+                    (time.perf_counter() - t_restart) * 1000, 3)
+            peer.last_offer_ids = {pr.id for pr in parents}
+            tasks[p].set_parents(peer.id, [pr.id for pr in parents])
+            rows.append(["recover-find", peer.id,
+                         [pr.id for pr in parents]])
+            if not any(pr.has_content() for pr in parents):
+                origin_hits += 1
+            if any(pr.id == poisoner_peer_id for pr in parents):
+                poisoner_offers += 1
+            if i < shard_n:
+                assigned = sched.shard_assignment(peer, requested)
+                rows.append(["recover-shard", peer.id,
+                             list(assigned or [])])
+                post_shard[host.id] = list(assigned or [])
+
+        # -- one announce interval later: the amnesia brain finally
+        # re-learns holders from periodic announces — including the
+        # poisoner, whose quarantine evidence died with the old process
+        now_ref[0] += RECOV_ANNOUNCE_MS
+        if not durable:
+            for p in range(pods):
+                add_seed(res, fed, tasks, p)
+            for i, held in holdings:
+                peers2[i].finished_pieces = set(held)
+
+        # -- steady state resumes: the whole herd re-rules
+        for peer in peers2:
+            parents = sched.refresh_parents(peer)
+            peer.last_offer_ids = {pr.id for pr in parents}
+            peer.task.set_parents(peer.id, [pr.id for pr in parents])
+            rows.append(["recover-refresh", peer.id,
+                         [pr.id for pr in parents]])
+            if any(pr.id == poisoner_peer_id for pr in parents):
+                poisoner_offers += 1
+    finally:
+        faultgate.reset()
+        if tmpdir:
+            shutil.rmtree(tmpdir, ignore_errors=True)
+
+    sticky = sum(1 for hid, a in pre_shard.items()
+                 if post_shard.get(hid) == a)
+    digest = hashlib.sha256(
+        json.dumps(rows, sort_keys=True).encode()).hexdigest()
+    out = {
+        "leg": "durable" if durable else "amnesia",
+        "daemons": daemons,
+        "pods": pods,
+        "pieces": pieces,
+        "rulings": len(rows),
+        "time_to_first_ruling_ms": time_to_first_ruling_ms,
+        "origin_hits_after_restart": origin_hits,
+        "poisoner_reoffers": poisoner_offers,
+        "shard_stickiness": round(sticky / max(len(pre_shard), 1), 4),
+        "ruling_digest": digest,
+    }
+    if durable:
+        out["snapshot_fault_survived"] = bool(snapshot_fault_survived)
+        out["provenance"] = provenance
+    return out
+
+
+def _run_pr17(args, *, partner_exemption: bool = True) -> dict:
+    """Control-plane crash resilience. Gates: the no-crash baseline sim
+    keeps the baseline's ``schedule_digest`` (durability never perturbs
+    a ruling),
+    the durable leg serves its first post-restart ruling with ZERO
+    origin stampede while the amnesia twin back-sources the whole herd,
+    a host quarantined before the crash is never re-offered across the
+    restart (the amnesia twin re-offers it), shard assignments stay
+    >=90 % sticky, and a snapshot that fails mid-run (injected ENOSPC)
+    never blocks a ruling. ``recovery_digest`` pins both legs' ruling
+    streams. ``partner_exemption=False`` rules every leg with the
+    reference's filter."""
+    base = run_bench(**_bench_kw(args))
+    # legs are PINNED to the fleet-64 x 32-piece shape (not --smoke
+    # scaled): the smoke re-derivation must use the exact parameters
+    # the committed artifact used
+    legs = {
+        "durable": run_recovery_bench(
+            seed=args.seed, daemons=CTRL_SMOKE_FLEET, pieces=CTRL_PIECES,
+            durable=True, partner_exemption=partner_exemption),
+        "amnesia": run_recovery_bench(
+            seed=args.seed, daemons=CTRL_SMOKE_FLEET, pieces=CTRL_PIECES,
+            durable=False, partner_exemption=partner_exemption),
+    }
+    if not args.smoke:
+        for name, durable in (("durable", True), ("amnesia", False)):
+            legs[f"{name}_{RECOV_FULL_FLEET}"] = run_recovery_bench(
+                seed=args.seed, daemons=RECOV_FULL_FLEET,
+                pieces=CTRL_PIECES, durable=durable,
+                partner_exemption=partner_exemption)
+    d, a = legs["durable"], legs["amnesia"]
+    recovery_digest = hashlib.sha256(
+        (d["ruling_digest"] + a["ruling_digest"]).encode()).hexdigest()
+    return {
+        "bench": "dfbench-recovery",
+        "seed": args.seed,
+        "daemons": CTRL_SMOKE_FLEET,
+        "pieces": CTRL_PIECES,
+        "schedule_digest": base["schedule_digest"],
+        "recovery_digest": recovery_digest,
+        "legs": legs,
+        "time_to_first_ruling_ms": {
+            k: v["time_to_first_ruling_ms"] for k, v in legs.items()},
+        "origin_hits_after_restart": {
+            k: v["origin_hits_after_restart"] for k, v in legs.items()},
+        "poisoner_reoffers": {
+            k: v["poisoner_reoffers"] for k, v in legs.items()},
+        "shard_stickiness": {
+            k: v["shard_stickiness"] for k, v in legs.items()},
+        "snapshot_fault_survived": d["snapshot_fault_survived"],
+        "origin_amplification_bounded": (
+            d["origin_hits_after_restart"] * 10
+            <= a["origin_hits_after_restart"]),
+        "poisoner_quarantined_across_restart": (
+            d["poisoner_reoffers"] == 0 < a["poisoner_reoffers"]),
+        "affinity_sticky": d["shard_stickiness"] >= 0.9,
+    }
+
+
+POINTS = {"pr19": _run_pr19, "pr17": _run_pr17, "pr14": _run_pr14,
+          "pr13": _run_pr13, "pr12": _run_pr12, "pr10": _run_pr10,
           "pr9": _run_pr9, "pr8": _run_pr8, "pr6": _run_pr6, "pr5": _run_pr5,
           "pr4": _run_pr4}
 
@@ -1805,10 +2957,19 @@ def build_parser() -> argparse.ArgumentParser:
                    help="content-addressed storage through rolling-restart "
                    "churn and alias pulls against the task-id-keyed "
                    "baseline (churn_digest)")
+    p.add_argument("--pr12", action="store_true",
+                   help="a byzantine holder in a fan-out, quarantine on vs "
+                   "off (byzantine_digest, quarantine_pure)")
+    p.add_argument("--pr13", action="store_true",
+                   help="cross-pod federation across pod counts, flat vs "
+                   "hierarchical, and a pod-seed kill (federation_digest)")
     p.add_argument("--pr14", action="store_true",
                    help="sharded-checkpoint rollout against fleet size, "
                    "naive against shard affinity with in-pod swap, and a "
                    "kill-the-owner run (rollout_digest)")
+    p.add_argument("--pr17", action="store_true",
+                   help="a scheduler crash mid-storm, durable snapshot vs "
+                   "amnesia (recovery_digest)")
     p.add_argument("--pr19", action="store_true",
                    help="the learned loop: datagen, two seeded MLP fits on "
                    "--device, the learned-vs-heuristic replay and a "

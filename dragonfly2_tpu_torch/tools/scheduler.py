@@ -61,7 +61,8 @@ def add_scheduler_routes(router, sched: Scheduler) -> None:
         add_fleet_routes(router, sched.fleetpulse)
     add_ctrl_routes(router, CtrlObservatory(
         resource=sched.resource, ledger=sched.ledger,
-        sharded=sched.sharded))
+        federation=sched.federation, quarantine=sched.quarantine,
+        sharded=sched.sharded, statestore=sched.statestore))
 
 
 async def serve(cfg: SchedulerConfig, debug_port: int = 0) -> None:

@@ -7,16 +7,18 @@ port and against the reference.
 * The same sealed digest, given to both schedulers' ``announce_content``,
   gives an equal resource view (task and peer states, finished pieces),
   an equal ``tasks_adopted`` and an equal ``recovery`` ledger row; a torn
-  digest is refused whole by both.
+  digest is refused whole by both. The announce's self-quarantine flag
+  and pod reach both schedulers' quarantine registries and federation
+  views alike (``record_self``, ``observe_host``).
 * An epoch change wakes the announcer's loop before its interval ends.
 * Exported demotions round-trip; a blob of another schema is refused
   whole and a blob from a skewed clock is clamped to ``demote_s``, as in
   the reference.
 * End to end on the CPU (the reference's ``test_recovery_chaos.py``
-  without the state store and quarantine, which wait for Queue 1 item
-  5): a seed, two leechers and a scheduler; the scheduler stops and a new
-  one starts on its port with a new epoch; the daemons re-announce; a
-  fresh leecher, with the origin gone, pulls the same bytes P2P.
+  without the state store, which ``test_torch_recovery.py`` adds): a
+  seed, two leechers and a scheduler; the scheduler stops and a new one
+  starts on its port with a new epoch; the daemons re-announce; a fresh
+  leecher, with the origin gone, pulls the same bytes P2P.
 
 Every test that starts servers runs under ``asyncio.wait_for``.
 """
@@ -149,7 +151,9 @@ def test_announce_content_rebuilds_the_reference_view():
     def drive(sched, msg) -> list:
         sched.service.epoch = EPOCH
         host = msg.Host(id="leech-127.0.0.1", ip="127.0.0.1",
-                        hostname="leech", port=7001, download_port=7002)
+                        hostname="leech", port=7001, download_port=7002,
+                        quarantined=True,
+                        topology=msg.TopologyInfo(pod="pod-x"))
         out = []
         for raw in (digest, digest[:-2], b""):
             resp = asyncio.run(sched.service.announce_content(
@@ -166,8 +170,9 @@ def test_announce_content_rebuilds_the_reference_view():
                              ("result",))
         return c.value("adopted"), c.value("rejected")
 
-    port_sched = Scheduler(SchedulerConfig(listen_ip="127.0.0.1"))
-    ref_sched = RefScheduler(RefSchedulerConfig())
+    port_sched = Scheduler(SchedulerConfig(listen_ip="127.0.0.1",
+                                           federation_enabled=True))
+    ref_sched = RefScheduler(RefSchedulerConfig(federation_enabled=True))
     port_before, ref_before = counts(REGISTRY), counts(REF_REGISTRY)
     got = drive(port_sched, port_msg)
     want = drive(ref_sched, ref_msg)
@@ -188,6 +193,16 @@ def test_announce_content_rebuilds_the_reference_view():
     assert [(r["tasks_adopted"], r["pieces_learned"]) for r in rows] == \
         [(2, 3), (2, 0)]
     assert rows[0]["decision_id"] == "r00000001.ch-127.0.0.1"
+    # the self-quarantine flag and the pod reached both planes alike
+    assert port_sched.quarantine.state("leech-127.0.0.1") == "quarantined"
+    def ladder(sched):         # the ages are wall-clock
+        return {h: {k: v for k, v in row.items() if not k.endswith("_age_s")}
+                for h, row in sched.quarantine.export_state()["hosts"].items()}
+    assert ladder(port_sched) == ladder(ref_sched)
+    assert port_sched.federation.describe() \
+        == ref_sched.federation.describe() \
+        == {"seeds_per_pod": 1, "pods": {"pod-x": ["leech-127.0.0.1"]},
+            "elections": {}}
 
 
 def test_epoch_change_wakes_the_announcer_early():

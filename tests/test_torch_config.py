@@ -214,6 +214,70 @@ def test_an_unported_key_is_refused_at_start_by_name(tmp_path, svc, key,
     assert not os.listdir(tmp_path) or svc != "daemon"
 
 
+FIVE_AC = [k for k in sched_config.KEY_CLASSES
+           if k.startswith(("quarantine_", "federation_", "statestore_"))]
+
+
+@pytest.mark.parametrize("key", FIVE_AC)
+def test_quarantine_federation_and_state_store_keys_are_wired(tmp_path,
+                                                              key):
+    """Items 5a and 5c: each key is wired, keeps the reference's default,
+    and a non-default value builds a scheduler that carries it."""
+    assert sched_config.KEY_CLASSES[key] == "wired"
+    assert getattr(SchedulerConfig(), key) == getattr(RefSchedConfig(), key)
+    value = _other(key, key_value(RefSchedConfig(), key))
+    if key == "statestore_dir":
+        value = str(tmp_path / "state")
+    data = {key: value}
+    if key.startswith("federation_"):
+        data["federation_enabled"] = True
+    if key.startswith("statestore_") and key != "statestore_dir":
+        data["statestore_dir"] = str(tmp_path / "state")
+    cfg = from_dict(SchedulerConfig, data)
+    assert cfg.unported() == []
+    sched = Scheduler(cfg)
+    got = {
+        "quarantine_enabled": sched.quarantine is not None,
+        "quarantine_corrupt_threshold": getattr(
+            sched.quarantine, "corrupt_threshold", None),
+        "quarantine_halflife_s": getattr(sched.quarantine, "halflife_s",
+                                         None),
+        "quarantine_probation_delay_s": getattr(
+            sched.quarantine, "probation_delay_s", None),
+        "quarantine_probe_successes": getattr(
+            sched.quarantine, "probe_successes", None),
+        "quarantine_probe_children": getattr(
+            sched.quarantine, "probe_children", None),
+        "quarantine_min_reporters": getattr(sched.quarantine,
+                                            "min_reporters", None),
+        "federation_enabled": sched.federation is not None,
+        "federation_seeds_per_pod": getattr(sched.federation,
+                                            "seeds_per_pod", None),
+        "statestore_dir": getattr(sched.statestore, "dir", None),
+        "statestore_interval_s": getattr(sched.statestore, "interval_s",
+                                         None),
+        "statestore_handoff": sched.cfg.statestore_handoff,
+    }[key]
+    assert got == value
+
+
+def test_default_scheduler_arms_the_quarantine_registry_as_the_reference():
+    from dragonfly2_tpu.scheduler.server import Scheduler as RefScheduler
+    port, ref = Scheduler(SchedulerConfig()), RefScheduler(RefSchedConfig())
+    assert port.quarantine is not None and ref.quarantine is not None
+    for attr in ("corrupt_threshold", "halflife_s", "probation_delay_s",
+                 "probe_successes", "probe_children", "min_reporters"):
+        assert getattr(port.quarantine, attr) == getattr(ref.quarantine,
+                                                         attr), attr
+    assert port.scheduling.quarantine is port.quarantine
+    assert port.seed_client.quarantine is port.quarantine
+    assert port.service.quarantine is port.quarantine
+    assert port.fleetpulse.quarantine is port.quarantine
+    assert port.service.cluster.quarantine is port.quarantine
+    assert (port.federation, port.statestore) == (None, None)
+    assert (ref.federation, ref.statestore) == (None, None)
+
+
 def test_reference_yaml_files_load(tmp_path):
     d = tmp_path / "daemon.yaml"
     d.write_text("upload:\n  rate_limit_bps: 1000000\n"
@@ -238,10 +302,13 @@ def test_reference_yaml_files_load(tmp_path):
     (daemon_tool, "proxy:\n  enabled: true\nqos:\n  queue_limit: 3\n",
      ["proxy.enabled (ROADMAP Queue 1 item 6)",
       "qos.queue_limit (ROADMAP Queue 1 item 5b)"]),
-    # fleetpulse_enabled is wired since item 4b: only the quarantine key
-    # is refused
-    (sched_tool, "quarantine_enabled: false\nfleetpulse_enabled: false\n",
-     ["quarantine_enabled (ROADMAP Queue 1 item 5a)"])])
+    # fleetpulse_enabled (item 4b) and the quarantine, federation and
+    # state store keys (items 5a, 5c) are wired: only the plugin key is
+    # refused
+    (sched_tool, "quarantine_enabled: false\nfleetpulse_enabled: false\n"
+     "federation_enabled: true\nstatestore_interval_s: 5\n"
+     "plugin_dir: df-plugins\n",
+     ["plugin_dir (ROADMAP Queue 1 item 5d)"])])
 def test_launchers_refuse_unported_keys(tmp_path, capsys, tool, text, name):
     path = tmp_path / "c.yaml"
     path.write_text(text)
@@ -251,7 +318,9 @@ def test_launchers_refuse_unported_keys(tmp_path, capsys, tool, text, name):
     msg = capsys.readouterr().err
     for n in name:
         assert n in msg
-    assert "fleetpulse_enabled" not in msg
+    for wired in ("fleetpulse_enabled", "quarantine_enabled",
+                  "federation_enabled", "statestore_interval_s"):
+        assert wired not in msg
 
 
 # ---------------------------------------------------------------- daemon

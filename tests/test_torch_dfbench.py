@@ -19,8 +19,15 @@ their schedule digests, their determinism and the purity checks.
 
 At the full default sizes the baseline and ``--pr4/5/8/10`` equal the
 committed ``BENCH_*.json`` files, and ``--pr19`` (fitted on the CPU) their
-digests and booleans. ``--pr9`` at 64-256 daemons and ``--pr14`` at 16x16
-run in ``chip_smoke.py`` phase 13, not here. Tolerances are exact.
+digests and booleans. ``--pr12`` equals ``BENCH_pr12.json`` whole, and
+``--pr17`` ruled with the reference's filter equals ``BENCH_pr17.json``
+but for ``time_to_first_ruling_ms``, the one wall-clock key (milliseconds
+from a restart to its first ruling on this host), which is left out of
+the comparison; with the port's filter (known difference 13) its gates
+hold. ``--pr13`` runs here at its ``--smoke`` sizes against the reference
+run live at the same sizes; at its full sizes (64-daemon pods, 4-16 pods),
+and ``--pr9`` at 64-256 daemons and ``--pr14`` at 16x16, it runs in
+``chip_smoke.py`` phase 13, not here. Tolerances are exact.
 """
 
 import argparse
@@ -45,9 +52,11 @@ FIXTURE = os.path.join(ROOT, "tests", "data", "pr19_datagen_rows.jsonl")
 SMOKE = dict(seed=7, daemons=4, pieces=8, piece_size=4 << 20,
              parallelism=4, smoke=True, device="cpu")
 FULL = dict(SMOKE, daemons=8, pieces=64, smoke=False)
-# the reference's points whose modules the port lacks: flag -> ROADMAP item
-UNPORTED = {"--ctrl": "5a", "--pr18": "5a", "--pr11": "5b",
-            "--pr12": "5a", "--pr13": "5c", "--pr17": "5c"}
+# the reference's points the port refuses: flag -> what the refusal names
+UNPORTED = {"--ctrl": "run_ctrl_bench", "--pr18": "run_ctrl_bench",
+            "--pr11": "item 5b"}
+# the one wall-clock key of --pr17 (per leg, and the legs' rollup)
+RECOVERY_WALL_CLOCK = "time_to_first_ruling_ms"
 
 
 @pytest.fixture(autouse=True)
@@ -89,7 +98,7 @@ def test_run_bench_matches_reference(scenario):
 
 
 @pytest.mark.parametrize("point", ["pr4", "pr6", "pr8", "pr9", "pr10",
-                                   "pr14"])
+                                   "pr12", "pr13", "pr14"])
 def test_smoke_point_matches_reference(point):
     got = getattr(dfbench, f"_run_{point}")(_args(**SMOKE))
     want = getattr(ref, f"_run_{point}")(_args(**SMOKE))
@@ -166,7 +175,7 @@ def test_churn_digest_is_blind_to_the_piece_algorithm(algo, monkeypatch):
 
 @pytest.mark.parametrize("point,bench", [
     (None, "pr3"), ("pr4", "pr4"), ("pr5", "pr5"), ("pr8", "pr8"),
-    ("pr10", "pr10")])
+    ("pr10", "pr10"), ("pr12", "pr12")])
 def test_full_size_point_equals_the_committed_file(point, bench):
     args = _args(**FULL)
     if point is None:
@@ -254,12 +263,57 @@ def test_unported_points_are_refused(flag, capsys):
         dfbench.main([flag])
     assert exc.value.code == 2
     err = capsys.readouterr().err
-    assert "not ported" in err and f"item {UNPORTED[flag]}" in err
+    assert "not ported" in err and UNPORTED[flag] in err
 
 
-def test_unported_run_bench_arms_raise():
-    with pytest.raises(NotImplementedError, match="item 5a"):
-        dfbench.run_bench(daemons=2, pieces=2, quarantine=object())
+def _without_wall_clock(result: dict) -> dict:
+    result = _as_json(result)
+    result.pop(RECOVERY_WALL_CLOCK)
+    for leg in result["legs"].values():
+        leg.pop(RECOVERY_WALL_CLOCK)
+    return result
+
+
+def test_pr17_smoke_with_the_reference_filter_matches_reference():
+    got = dfbench._run_pr17(_args(**SMOKE), partner_exemption=False)
+    want = ref._run_pr17(_args(**SMOKE))
+    assert _without_wall_clock(got) == _without_wall_clock(want)
+
+
+def test_full_size_pr17_equals_the_committed_file_but_its_wall_clock():
+    """``--pr17`` at its full size (legs of 64 and 512 daemons), ruled
+    with the reference's filter: ``BENCH_pr17.json`` but for the wall-clock
+    ``time_to_first_ruling_ms``, which is left out of the comparison."""
+    got = dfbench._run_pr17(_args(**FULL), partner_exemption=False)
+    want = _bench("pr17")
+    assert set(got[RECOVERY_WALL_CLOCK]) == set(want[RECOVERY_WALL_CLOCK])
+    assert _without_wall_clock(got) == _without_wall_clock(want)
+    assert got["recovery_digest"].startswith(want["recovery_digest"][:12])
+
+
+def test_pr17_with_the_ports_filter_keeps_the_gates():
+    """The port's filter exempts swap partners (known difference 13), and
+    the recovery storm arms shard affinity: its ruling digests move, its
+    gates hold."""
+    got = dfbench._run_pr17(_args(**SMOKE))
+    want = ref._run_pr17(_args(**SMOKE))
+    for key in ("snapshot_fault_survived", "origin_amplification_bounded",
+                "poisoner_quarantined_across_restart", "affinity_sticky"):
+        assert got[key] is True, key
+    assert got["schedule_digest"] == want["schedule_digest"]
+    assert got["origin_hits_after_restart"] \
+        == want["origin_hits_after_restart"]
+    assert got["legs"]["durable"]["poisoner_reoffers"] == 0
+    assert got["legs"]["durable"]["provenance"] \
+        == want["legs"]["durable"]["provenance"]
+
+
+def test_run_bench_with_an_armed_empty_registry_keeps_the_digest():
+    from dragonfly2_tpu_torch.scheduler.quarantine import QuarantineRegistry
+    args = _args(**FULL)
+    got = dfbench.run_bench(**dfbench._bench_kw(args),
+                            quarantine=QuarantineRegistry())
+    assert got["schedule_digest"] == _bench("pr3")["schedule_digest"]
 
 
 def test_pr19_needs_a_card_unless_the_cpu_is_named(monkeypatch):

@@ -10,11 +10,15 @@
   state into both) are equal.
 * ``build_pulse`` against a stand-in daemon with set counters gives the
   reference's ``dumps`` bytes, with and without the verdict and QoS
-  planes the port does not have yet.
+  planes (each package's own ``VerdictLedger`` fed the same verdicts; a
+  stand-in QoS governor, item 5b).
 * The announcer numbers its pulses and sends one on both announces; the
   scheduler's ``announce_host`` and ``announce_content`` hand them to
-  ``ingest`` as the reference's do, and ``fleetpulse_enabled: false``
-  turns the plane off.
+  ``ingest`` as the reference's do, with the self-quarantine flag and the
+  pod reaching the quarantine registry and the federation view alike, and
+  ``fleetpulse_enabled: false`` turns the plane off. With a state store
+  the plane's rings are registered there and an incident bundle carries
+  the host's quarantine standing and pod, as in the reference.
 * ``/debug/fleet`` on the port's router, and the scheduler's GC runner
   ticking the plane.
 * dfbench's fleet-pulse legs at 128 daemons, ``pulse_digest``,
@@ -37,6 +41,7 @@ from dragonfly2_tpu.common import health as ref_health
 from dragonfly2_tpu.daemon import flight_recorder as ref_fr
 from dragonfly2_tpu.daemon import pulse as ref_pulse
 from dragonfly2_tpu.daemon import pex as ref_pex
+from dragonfly2_tpu.daemon import verdicts as ref_verdicts
 from dragonfly2_tpu.idl import base as ref_base
 from dragonfly2_tpu.idl import messages as ref_msg
 from dragonfly2_tpu.scheduler import Scheduler as RefScheduler
@@ -49,6 +54,7 @@ from dragonfly2_tpu_torch.daemon import announcer
 from dragonfly2_tpu_torch.daemon import flight_recorder as fr
 from dragonfly2_tpu_torch.daemon import pex
 from dragonfly2_tpu_torch.daemon import pulse
+from dragonfly2_tpu_torch.daemon import verdicts
 from dragonfly2_tpu_torch.idl import base
 from dragonfly2_tpu_torch.idl import messages as msg
 from dragonfly2_tpu_torch.scheduler import fleetpulse
@@ -203,7 +209,7 @@ def test_the_vocabulary_and_constants_are_the_reference_s():
 
 # ------------------------------------------------------------ daemon pulse
 
-def _standin(fr_mod, *, planes: bool):
+def _standin(fr_mod, verdicts_mod, *, planes: bool):
     rec = fr_mod.FlightRecorder(max_tasks=2)
     for i in range(3):
         flight = rec.begin(f"t{i}" * 32, f"p{i}")
@@ -213,11 +219,12 @@ def _standin(fr_mod, *, planes: bool):
         flight_recorder=rec,
         storage_mgr=types.SimpleNamespace(tasks=lambda: [1, 2, 3, 4]))
     if planes:
-        d.verdicts = types.SimpleNamespace(
-            _parents={"a": types.SimpleNamespace(codes={"corrupt": 2.6}),
-                      "b": types.SimpleNamespace(codes={"stall": 1.0,
-                                                        "corrupt": 1.0})},
-            shunned_addrs=lambda: ["a"], self_quarantined=True)
+        d.verdicts = verdicts_mod.VerdictLedger(clock=lambda: 0.0)
+        for addr, code in (("a", "corrupt"), ("a", "corrupt"),
+                           ("a", "corrupt"), ("b", "stall"),
+                           ("b", "corrupt")):
+            d.verdicts.record(addr, code)
+        d.verdicts.self_quarantine("boot re-verify")
         d.qos = types.SimpleNamespace(state="brownout",
                                       counters={"shed": {"bulk": 4,
                                                          "standard": 1}})
@@ -239,17 +246,21 @@ def _set_health_planes(monkeypatch, lag_s: float, stalls: int,
 def test_build_pulse_gives_the_reference_bytes(planes, monkeypatch):
     _set_health_planes(monkeypatch, 0.25, 3,
                        {("wire", "p"): 4, ("hbm", "q"): 2})
-    got = pulse.build_pulse(_standin(fr, planes=planes), 7)
-    want = ref_pulse.build_pulse(_standin(ref_fr, planes=planes), 7)
+    got = pulse.build_pulse(_standin(fr, verdicts, planes=planes), 7)
+    want = ref_pulse.build_pulse(_standin(ref_fr, ref_verdicts,
+                                          planes=planes), 7)
     assert base.dumps(got) == ref_base.dumps(want)
     assert (got.seq, got.flight_tasks, got.flight_evicted) == (7, 2, 1)
     assert got.served_rungs == {"p2p": 3, "pex": 1, "back_source": 2}
     assert (got.loop_lag_max_ms, got.loop_stalls, got.slo_breaches,
             got.storage_tasks) == (250.0, 3, 6, 4)
-    if not planes:       # the port's daemons: verdict and QoS at defaults
+    if not planes:       # no verdict ledger, no QoS plane: the defaults
         assert (got.corrupt_verdicts, got.shunned_parents,
                 got.self_quarantined, got.qos_state, got.qos_shed) == \
             (0, 0, False, "normal", 0)
+    else:
+        assert (got.corrupt_verdicts, got.shunned_parents,
+                got.self_quarantined) == (4, 1, True)
 
 
 def test_a_bare_daemon_pulses_the_reference_defaults(monkeypatch):
@@ -318,8 +329,11 @@ def test_the_announcer_numbers_its_pulses_on_both_announces():
 
 
 def _host(m, name="leech"):
+    # the content re-announcer flags its own bit rot; the leecher has a pod
     return m.Host(id=f"{name}-127.0.0.1", ip="127.0.0.1", hostname=name,
-                  port=7001, download_port=7002)
+                  port=7001, download_port=7002, quarantined=name == "c",
+                  topology=(m.TopologyInfo(pod="pod-l") if name == "leech"
+                            else None))
 
 
 def _digest(seal):
@@ -349,11 +363,18 @@ def _announce_all(sched, m, seal):
 
 
 def test_announces_reach_ingest_as_in_the_reference():
-    port = Scheduler(SchedulerConfig(listen_ip="127.0.0.1"))
-    ref = RefScheduler(RefSchedulerConfig())
+    port = Scheduler(SchedulerConfig(listen_ip="127.0.0.1",
+                                     federation_enabled=True))
+    ref = RefScheduler(RefSchedulerConfig(federation_enabled=True))
     got = _announce_all(port, msg, pex.seal)
     want = _announce_all(ref, ref_msg, ref_pex.seal)
     assert _as_json(got) == _as_json(want)
+    # the flag and the pod reach both schedulers' planes alike
+    assert port.quarantine.snapshot()["hosts"].keys() \
+        == ref.quarantine.snapshot()["hosts"].keys() == {"c-127.0.0.1"}
+    assert port.quarantine.state("c-127.0.0.1") == "quarantined"
+    assert port.federation.describe() == ref.federation.describe()
+    assert port.federation.pod_of_host("leech-127.0.0.1") == "pod-l"
     snap = got[1]
     assert (snap["daemons"], snap["ingested"]) == (2, 4)
     series = port.fleetpulse._series
@@ -362,6 +383,29 @@ def test_announces_reach_ingest_as_in_the_reference():
     # the content re-announce carries no interval: the reference's 30 s
     assert series["c-127.0.0.1"].interval_s == 30.0
     assert got[0] == [True, True, True, 1, 0]
+
+
+def test_rings_register_with_the_state_store_and_bundles_carry_standing(
+        tmp_path):
+    sched = Scheduler(SchedulerConfig(
+        listen_ip="127.0.0.1", federation_enabled=True,
+        statestore_dir=str(tmp_path / "state")))
+    ref = RefScheduler(RefSchedulerConfig(
+        federation_enabled=True, statestore_dir=str(tmp_path / "ref")))
+    assert sched.fleetpulse.statestore is sched.statestore
+    assert list(sched.statestore._exports) == list(ref.statestore._exports)
+    rows = []
+    for s, m in ((sched, msg), (ref, ref_msg)):
+        s.fleetpulse.clock = lambda: 0.0
+        s.federation.observe_host("h1", m.TopologyInfo(pod="pod-q"))
+        s.quarantine.record_self("h1", True, reason="rot")
+        s.fleetpulse.ingest("h1", {"v": 1, "seq": 1}, interval_s=1.0)
+        rows.append(s.fleetpulse._bundle(
+            {"host_id": "h1", "anomaly": "x", "signal": "s", "value": 1.0,
+             "decision_id": "a00000001.x",
+             "zscore": 0.0, "at": 0.0}, s.fleetpulse._series["h1"]))
+    assert rows[0]["quarantine"] == rows[1]["quarantine"] == "quarantined"
+    assert rows[0]["pod"] == rows[1]["pod"] == "pod-q"
 
 
 def test_fleetpulse_enabled_false_turns_the_plane_off():

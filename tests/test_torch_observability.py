@@ -814,8 +814,10 @@ def test_launcher_debug_port_serves_the_routes(name, routes, tmp_path):
         assert svc.stop() == 0, svc.text()
     if ctrl is not None:
         assert ctrl["armed"] is True
+        # the default scheduler arms the quarantine registry; federation
+        # is off, and a disabled component is skipped
         assert set(ctrl["state_bytes"]["components"]) == {
-            "resource", "ledger", "shard_affinity"}
+            "resource", "ledger", "quarantine", "shard_affinity"}
 
 
 def test_daemon_launcher_serves_its_debug_endpoints_and_traces(tmp_path):

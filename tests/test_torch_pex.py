@@ -759,9 +759,9 @@ def test_bad_envelopes_rejected_under_the_same_reason(case, reason):
     assert not port_g.peers and not ref_g.peers
 
 
-def _digest_pair(n_peers: int = 20):
+def _digest_pair(n_peers: int = 20, verdicts: tuple = (None, None)):
     """The same storage state, relay watermark, membership and rng seed
-    in both packages' gossipers."""
+    in both packages' gossipers; ``verdicts``: each one's ledger."""
     mds = []
     for pkg in ((TaskMetadata, PieceMeta),
                 (ref_metadata.TaskMetadata, ref_metadata.PieceMeta)):
@@ -785,10 +785,11 @@ def _digest_pair(n_peers: int = 20):
                                       zone="z", pod="pod-a"))
     port_g = PexGossiper(storage_mgr=fake_storage(*mds[0]),
                          host_info=host(port_msg),
-                         relay=relay, rng=random.Random(7))
+                         relay=relay, rng=random.Random(7),
+                         verdicts=verdicts[0])
     ref_g = ref_pex.PexGossiper(storage_mgr=fake_storage(*mds[1]),
                                 host_info=host(ref_msg), relay=relay,
-                                rng=random.Random(7))
+                                rng=random.Random(7), verdicts=verdicts[1])
     for i in range(n_peers):
         for g, msg in ((port_g, None), (ref_g, ref_msg)):
             topo = (TopologyInfo if msg is None else msg.TopologyInfo)(
@@ -808,6 +809,32 @@ def test_build_digest_and_summary_equal_reference():
     assert got["tasks"][1]["relay"] == [1, 4]
     assert port_g.build_summary() == ref_g.build_summary()
     assert port_g.envelope() == ref_g.envelope()
+
+
+@pytest.mark.parametrize("selfq", [False, True])
+def test_digests_carry_the_reference_verdicts(selfq):
+    """The verdict hooks of the PEX plane: local shuns ride a digest as
+    ``suspects`` and a self-quarantined daemon advertises no tasks, with
+    ``selfq`` set, in the reference's bytes."""
+    from dragonfly2_tpu.daemon import verdicts as ref_verdicts
+    from dragonfly2_tpu_torch.daemon import verdicts as port_verdicts
+    ledgers = []
+    for mod in (port_verdicts, ref_verdicts):
+        v = mod.VerdictLedger(clock=lambda: 0.0)
+        for addr in ("10.0.3.1:9004", "10.0.3.1:9004", "10.0.5.1:9006"):
+            v.record(addr, "corrupt")
+        v.hint("10.0.7.1:9008")
+        if selfq:
+            v.self_quarantine("rot")
+        ledgers.append(v)
+    port_g, ref_g = _digest_pair(verdicts=tuple(ledgers))
+    got, want = port_g.build_digest(), ref_g.build_digest()
+    assert got == want
+    assert got["suspects"] == ["10.0.3.1:9004"]
+    assert got["origin"]["selfq"] is selfq
+    assert (got["tasks"] == []) is selfq
+    assert port_g.envelope() == ref_g.envelope()
+    assert port_g.build_summary() == ref_g.build_summary()
 
 
 def _holder_index(idx_cls, entry_cls, topo_cls, rng: np.random.Generator):

@@ -471,7 +471,10 @@ def test_collect_pod_reads_port_daemons_as_the_reference_does(tmp_path):
     assert [s["addr"] for s in got] == addrs + [dead]
     assert "error" in got[2] and "error" not in got[0]
     for snap in got[:2]:
-        assert snap["verdicts"] is None            # no route until item 5a
+        # the daemon's verdict ledger, read as from a reference daemon
+        assert snap["verdicts"]["self_quarantined"] is False
+        assert snap["verdicts"]["parents"] == {}
+        assert snap["verdicts"]["shun_threshold"] == 2.0
         assert snap["health"]["status"] and snap["pex"] is not None
         (flight,) = snap["flights"].values()
         assert flight["state"] == "success"

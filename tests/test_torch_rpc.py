@@ -408,3 +408,53 @@ def test_hash_ring_matches_reference():
     ref.remove(nodes[2])
     port.remove(nodes[2])
     assert port.pick_n("task", 5) == ref.pick_n("task", 5)
+
+
+@pytest.mark.parametrize("name", ["SetSchedulerStateRequest",
+                                  "GetSchedulerStateRequest",
+                                  "GetSchedulerStateResponse"])
+def test_scheduler_state_messages_have_the_reference_fields_and_bytes(name):
+    """The handoff relay's three messages: the reference's field names,
+    order and defaults, and its bytes for a filled-in instance."""
+    ref_cls, port_cls = getattr(ref_msg, name), getattr(port_msg, name)
+    assert [(f.name, f.default) for f in dataclasses.fields(port_cls)] \
+        == [(f.name, f.default) for f in dataclasses.fields(ref_cls)]
+    kw = {f.name: (b"\x00sealed\xff" if f.type in (bytes, "bytes") else
+                   7 if f.type in (int, "int") else f"{f.name}-v")
+          for f in dataclasses.fields(ref_cls)}
+    raw = ref_base.dumps(ref_cls(**kw))
+    assert port_base.dumps(port_cls(**kw)) == raw
+    assert port_base.loads(raw) == port_cls(**kw)
+
+
+def test_scheduler_state_relay_over_the_transport(tmp_path):
+    """SetSchedulerState parks a blob per scheduler; GetSchedulerState
+    hands back the freshest other member's, never the asker's own."""
+    from dragonfly2_tpu_torch.manager.server import Manager, ManagerConfig
+    from dragonfly2_tpu_torch.rpc.manager_link import ManagerLink
+
+    async def main():
+        mgr = Manager(ManagerConfig(listen_ip="127.0.0.1"))
+        await mgr.start()
+        link = ManagerLink([mgr.address])
+        try:
+            await link.set_scheduler_state(port_msg.SetSchedulerStateRequest(
+                scheduler_id="s1:1", cluster_id=1, blob=b"one"))
+            await link.set_scheduler_state(port_msg.SetSchedulerStateRequest(
+                scheduler_id="s2:2", cluster_id=1, blob=b"two",
+                signature="sig"))
+            got = await link.get_scheduler_state(
+                port_msg.GetSchedulerStateRequest(cluster_id=1,
+                                                  exclude="s2:2"))
+            assert (got.scheduler_id, got.blob, got.signature) == (
+                "s1:1", b"one", "")
+            none = await link.get_scheduler_state(
+                port_msg.GetSchedulerStateRequest(cluster_id=9))
+            assert none.scheduler_id == "" and none.blob == b""
+            with pytest.raises(DFError):
+                await link.set_scheduler_state(
+                    port_msg.SetSchedulerStateRequest(cluster_id=1))
+        finally:
+            await link.close()
+            await mgr.stop()
+    asyncio.run(asyncio.wait_for(main(), LIMIT_S))
