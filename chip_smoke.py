@@ -148,13 +148,20 @@ a chain's first relaying hop is the seed's first child.
               its gates and schedule digest; ``--pr10``, ``--pr8``,
               ``--pr6`` (podscope's pod numbers; ``--pr9`` reads its trees
               through podscope too), ``--pr5``, ``--pr4``, the baseline,
-              and ``--pr18``'s nine fleet-pulse legs (none, stall and
-              byzantine at 128, 1,000 and 10,000 daemons) with its
-              digest and gates, all but its ``fleetpulse_pure`` key.
-              Every digest and gate must equal the committed
-              ``BENCH_*.json``; the port's
-              swap-partner exemption may move only pr14's 4x4 and 8x8
-              sharded schedules (ROADMAP known difference 13)
+              ``--pr18`` (the nine fleet-pulse legs: none, stall and
+              byzantine at 128, 1,000 and 10,000 daemons, with its digest
+              and gates, and ``fleetpulse_pure``: the 64-daemon storm's
+              rulings with pulses ingested equal those without), equal to
+              its file but for each leg's ``ingest_per_sec``; ``--pr11``
+              (a critical pull against a bulk herd, QoS on and off); and
+              ``--ctrl``, the control-plane storm at 64, 1,000, 5,000
+              and 10,000 daemons, whose ``ruling_digests``,
+              ``schedule_digest`` and purity gates must equal
+              ``BENCH_pr16.json`` (its rulings/s, phase latencies and
+              state bytes are printed). Every digest and gate must equal
+              the committed ``BENCH_*.json``; the port's swap-partner
+              exemption may move only pr14's 4x4 and 8x8 sharded
+              schedules (ROADMAP known difference 13)
 14. observe  — run after phase 13, on phase 8's origin: a manager, a seed daemon
               (``--debug-endpoints``, ``--tracing-jsonl``), a trainer and
               a scheduler (``--tracing-jsonl``) from the launchers, the
@@ -253,6 +260,38 @@ a chain's first relaying hop is the seed's first child.
               the members read no origin byte, every tensor must equal
               the file, and the origin must send each byte once, to the
               seed. It prints each pod's makespan
+18. qos      — run after phase 17, on phase 8's origin over HTTP (250
+              MB/s per response) from phase 11's server in a child. A
+              manager here holds three tenants (``serving`` critical,
+              ``batch`` bulk, ``capped`` with ``max_running`` 1); a
+              scheduler here refreshes them from it every 3 s (its
+              keepalive cut from 30 s to 0.5 s); a seed in a child whose
+              uplink (``upload.rate_limit_bps`` 400 MB/s, 4 upload slots,
+              2 for bulk) is the shared bottleneck; and Lq here, its
+              governor's gate cut to one bulk task and one queued (3 s
+              wait, 1 s retry hint) and its shaper splitting 600 MB/s by
+              class, its content store off (every copy is one content,
+              which it would otherwise place from its own disk). First a
+              critical pull of tenant ``serving`` alone
+              into a manifest sink on the card; then four bulk pulls of
+              tenant ``batch`` on distinct task URLs and, once one is in
+              flight, the critical pull again. Both critical pulls'
+              tensors must equal the file; the governor must admit them
+              without a queue or a shed, queue bulk work and shed some
+              with RESOURCE_EXHAUSTED and the configured retry hint, and
+              every bulk pull, retried after its hint, must complete;
+              the seed's ``df_qos_upload_active{cls="bulk"}``, sampled
+              every 5 ms, must never exceed its bulk limit; a second
+              concurrent register of tenant ``capped`` must be refused
+              with the row's retry hint and one count in
+              ``df_qos_quota_shed_total``, and a classless register of
+              ``batch`` must take the class ``bulk`` from the tenant row;
+              ``GET /debug/qos`` and ``dfdiag --qos --json`` on Lq must
+              agree; Lq's pulse, and the scheduler's fleet-pulse series of
+              it, must carry the governor's state and sheds. It prints the
+              critical pull's time to device-ready alone and under the
+              herd and their ratio, the herd's throughput, the queued and
+              shed counts and the scheduler's ``preempt`` rows
 
 Before phase 3 the native storage library (``dfnative.cc``, built with
 g++ at first use) must load: the pulls land crc32c piece digests, and the
@@ -304,18 +343,23 @@ import torch
 from dragonfly2_tpu_torch import graft_entry, source
 from dragonfly2_tpu_torch.common import phasetimer, podscope, tracing
 from dragonfly2_tpu_torch.common.debug_http import start_debug_server
+from dragonfly2_tpu_torch.common.errors import Code, DFError
+from dragonfly2_tpu_torch.common.httpd import HTTPError
 from dragonfly2_tpu_torch.common.metrics import REGISTRY
 from dragonfly2_tpu_torch.common.piece import compute_piece_size
-from dragonfly2_tpu_torch.daemon.config import (DaemonConfig, SchedulerConfig,
+from dragonfly2_tpu_torch.daemon.config import (DaemonConfig, QosSection,
+                                                SchedulerConfig,
                                                 TracingConfig)
 from dragonfly2_tpu_torch.daemon import pulse as pulse_mod
 from dragonfly2_tpu_torch.daemon.daemon import Daemon
 from dragonfly2_tpu_torch.idl.messages import (DeviceSink, DownloadRequest,
                                                Host, HostType,
                                                ModelInferRequest, PieceInfo,
-                                               PieceResult, ShardInfo,
-                                               ShardManifest, TopologyInfo,
-                                               UrlMeta)
+                                               PieceResult,
+                                               RegisterPeerTaskRequest,
+                                               ShardInfo, ShardManifest,
+                                               TopologyInfo, UrlMeta)
+from dragonfly2_tpu_torch.manager.server import Manager, ManagerConfig
 from dragonfly2_tpu_torch.rpc.client import Channel, ServiceClient
 from dragonfly2_tpu_torch.scheduler.config import SchedulerConfig as \
     SchedCfg
@@ -2266,8 +2310,9 @@ def http_origin_child(path: str, pace_bps: int, conn) -> None:
     ``pace_bps`` (0: unpaced); ``/redirect/<name>`` answers 302 to
     ``/<name>``. It
     counts the body bytes it sends per client connection (requests carrying
-    ``X-Smoke-Check`` apart), the ranges, and when its first body byte
-    left (CLOCK_MONOTONIC, which every process of the host shares). Each
+    ``X-Smoke-Check`` apart), the ranges, when its first body byte
+    left (CLOCK_MONOTONIC, which every process of the host shares), and
+    each response's first and last body byte and its length. Each
     "report" from the parent is answered with the counts, which then
     restart; "stop" ends it."""
     from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -2282,7 +2327,7 @@ def http_origin_child(path: str, pace_bps: int, conn) -> None:
     def reset() -> dict:
         old = dict(tally)
         tally.update(body_bytes=0, check_bytes=0, ranges=[], per_client={},
-                     first_byte_at=None, requests=0)
+                     first_byte_at=None, requests=0, responses=[])
         return old
 
     reset()
@@ -2348,6 +2393,9 @@ def http_origin_child(path: str, pace_bps: int, conn) -> None:
                          if pace_bps else 0.0)
                 if ahead > 0:
                     time.sleep(ahead)
+            if not checked:
+                with lock:
+                    tally["responses"].append((t0, time.monotonic(), sent))
 
         def do_GET(self) -> None:
             self._serve(head_only=False)
@@ -3109,10 +3157,16 @@ def phase_crash(workdir: str, device: torch.device) -> None:
 # --------------------------------------------------------------- phase 13
 
 # the dfbench points run on the host in worker processes while the card
-# fits --pr19's MLPs; pr14's second run rules with the reference's filter
-DFBENCH_POINTS = ("pr13", "pr9", "fleetpulse", "pr17",
+# fits --pr19's MLPs, the longest first; pr14's and pr17's second runs
+# rule with the reference's filter
+DFBENCH_POINTS = ("ctrl", "pr13", "pr9", "pr18", "pr17",
                   "pr17_reference_filter", "pr14", "pr14_reference_filter",
-                  "pr12", "pr4", "pr10", "pr8", "pr6", "pr5", "baseline")
+                  "pr12", "pr11", "pr4", "pr10", "pr8", "pr6", "pr5",
+                  "baseline")
+# what --ctrl must equal in BENCH_pr16.json (its latencies, rates and
+# state bytes are this host's measurements, printed, not compared)
+CTRL_EQUAL_KEYS = ("bench", "seed", "fleets", "pieces", "schedule_digest",
+                   "profiler_pure", "ctrl_profiler_pure", "ruling_digests")
 # the one wall-clock key of --pr17 (per leg, and the legs' rollup)
 RECOVERY_WALL_CLOCK = "time_to_first_ruling_ms"
 RECOVERY_GATES = ("snapshot_fault_survived", "origin_amplification_bounded",
@@ -3147,10 +3201,6 @@ def dfbench_point(name: str) -> tuple[dict, float]:
         result = dfbench._run_pr14(args, partner_exemption=False)
     elif name == "pr17_reference_filter":
         result = dfbench._run_pr17(args, partner_exemption=False)
-    elif name == "fleetpulse":
-        # --pr18 without fleetpulse_pure (it needs items 5a and 5c): the
-        # nine legs at 128, 1,000 and 10,000 daemons
-        result = dfbench.fleetpulse_legs(args)
     else:
         result = dfbench.POINTS[name](args)
     return result, time.monotonic() - t0
@@ -3192,16 +3242,41 @@ def check_dfbench_point(name: str, got: dict) -> dict:
                 "moved_by_swap_partner_exemption": moved,
                 "speedup": got["speedup"],
                 **{k: got[k] for k in flags}}
-    if name == "fleetpulse":
+    if name == "ctrl":
+        want = bench_file("pr16")
+        check({k: got[k] for k in CTRL_EQUAL_KEYS}
+              == {k: want[k] for k in CTRL_EQUAL_KEYS},
+              f"ctrl differs from BENCH_pr16.json: "
+              f"{({k: got[k] for k in CTRL_EQUAL_KEYS})}")
+        check(all(got["scenarios"][k]["rulings"]
+                  == want["scenarios"][k]["rulings"] for k in want["scenarios"]),
+              "ctrl ruling counts differ from BENCH_pr16.json")
+        return {"ruling_digests": got["ruling_digests"],
+                "profiler_pure": got["profiler_pure"],
+                "ctrl_profiler_pure": got["ctrl_profiler_pure"],
+                "rulings": {k: v["rulings"]
+                            for k, v in got["scenarios"].items()},
+                "rulings_per_sec": got["rulings_per_sec"],
+                "wall_ms": {k: v["wall_ms"]
+                            for k, v in got["scenarios"].items()},
+                "queue_wait_p99_ms": {
+                    k: v["profile"]["queue_wait_ms"]["p99_ms"]
+                    for k, v in got["scenarios"].items()},
+                "phase_p50_ms": got["phase_p50_ms"],
+                "phase_p99_ms": got["phase_p99_ms"],
+                "state_bytes_per_peer": got["state_bytes_per_peer"],
+                "overhead": got["overhead"]}
+    if name == "pr18":
         want = bench_file("pr18")
-        del want["fleetpulse_pure"]
         rates = {}
         for leg, row in got["legs"].items():
             rates[leg] = row.pop("ingest_per_sec")
             want["legs"][leg].pop("ingest_per_sec")
-        check(got == want, "the fleet-pulse legs and gates differ from "
-                           "BENCH_pr18.json")
-        return {"pulse_digest": got["pulse_digest"],
+        check(got == want and got["fleetpulse_pure"] is True,
+              "pr18 differs from BENCH_pr18.json (fleetpulse_pure "
+              f"{got['fleetpulse_pure']})")
+        return {"fleetpulse_pure": got["fleetpulse_pure"],
+                "pulse_digest": got["pulse_digest"],
                 "legs": sorted(got["legs"]),
                 "ingest_per_sec": rates,
                 "bytes_per_announce": got["bytes_per_announce"],
@@ -3273,6 +3348,9 @@ def check_dfbench_point(name: str, got: dict) -> dict:
         return {k: got[k] for k in ("cold_makespan_ms", "tree_depth",
                                     "relay_beats_pull", "sublinear")}
     keys = {"pr14_reference_filter": ("rollout_digest",),
+            "pr11": ("qos_digest", "fg_p99_ratio_qos", "fg_p99_ratio_no_qos",
+                     "fg_holds_slo", "bulk_degrades", "bulk_queued",
+                     "bulk_shed", "fg_starved"),
             "pr4": ("p2p_served_ratio",),
             "pr10": ("churn_digest", "alias_pull_zero_transfer",
                      "warm_restart_zero_origin", "disk_bounded"),
@@ -5039,8 +5117,551 @@ def phase_federation(workdir: str, device: torch.device) -> None:
         "phase_s": time.monotonic() - t_phase, "card": smi})
 
 
+# ---------------------------------------------------------------- phase 18
+
+QOS_HERD = 4                      # bulk pulls of tenant "batch"
+QOS_SEED_RATE_BPS = 400_000_000   # the seed's uplink: the shared bottleneck
+QOS_SEED_SLOTS = 4                # its upload.concurrent_limit
+QOS_SEED_BULK_SLOTS = 2           # its upload.bulk_concurrent_limit
+QOS_LQ_RATE_BPS = 600_000_000     # Lq's download.total_rate_limit_bps
+# Lq's governor, cut so a herd of four walks the ladder to shed
+QOS_LQ_GOVERNOR = QosSection(bulk_active_limit=1, queue_limit=1,
+                             queue_wait_s=3.0, shed_retry_after_ms=1000)
+# the tenant table: name -> (default class, max_running, retry hint ms)
+QOS_TENANTS = {"serving": ("critical", 0, 0), "batch": ("bulk", 0, 0),
+               "capped": ("", 1, 1500)}
+# the scheduler's keepalive, cut from 30 s: it refreshes the tenant table
+# every six keepalives, 3 s
+QOS_KEEPALIVE_S = 0.5
+QOS_ANNOUNCE_S = 1.0              # every daemon's announce, cut from 30 s
+QOS_SAMPLE_S = 0.005              # the seed's bulk-slot sampling period
+QOS_LAG_S = 0.001                 # an event-loop stall the timelines keep
+QOS_WAIT_S = 120.0                # bound on each wait of the phase
+
+
+def qos_daemon_cfg(workdir: str, name: str, sched_addr: str,
+                   **kw) -> DaemonConfig:
+    """Phase 18's daemons: one scheduler address, the cut cadences."""
+    cfg = crash_daemon_cfg(workdir, name, sched_addr, **kw)
+    cfg.hostname = f"qos-{name}"
+    cfg.announce_interval_s = QOS_ANNOUNCE_S
+    return cfg
+
+
+def qos_seed_child(workdir: str, sched_addr: str, conn) -> None:
+    """Phase 18's seed, in a spawned process that never touches CUDA: its
+    uplink limit, slots and bulk slots as the phase line states. It
+    samples its bulk upload slots (``_active_cls`` and the
+    ``df_qos_upload_active{cls="bulk"}`` gauge) every 5 ms from start to
+    stop, and keeps a timeline on CLOCK_MONOTONIC, which every process of
+    the host shares: each change of a class's slot count, each slot
+    acquire (its wait, or its 503) and each stall of its event loop over
+    1 ms. It sends its host, serves until the parent says "stop", then
+    sends its origin bytes, the samples, the timeline and, per task, its
+    back-source window and its serves."""
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    asyncio.run(_qos_seed_child(workdir, sched_addr, conn))
+
+
+async def _qos_seed_child(workdir: str, sched_addr: str, conn) -> None:
+    cfg = qos_daemon_cfg(workdir, "seed", sched_addr, is_seed=True,
+                         device="cpu")
+    cfg.upload.rate_limit_bps = QOS_SEED_RATE_BPS
+    cfg.upload.concurrent_limit = QOS_SEED_SLOTS
+    cfg.upload.bulk_concurrent_limit = QOS_SEED_BULK_SLOTS
+    seed = Daemon(cfg)
+    await seed.start()
+    srv = seed.upload_server
+    gauge = REGISTRY.gauge("df_qos_upload_active", "", ("cls",))
+    seen = {"samples": 0, "busy_samples": 0, "max_slots": 0,
+            "max_gauge": 0.0}
+    timeline = {"slots": [], "acquires": [], "lags": []}
+    count_cls, acquire_slot = srv._count_cls, srv._acquire_slot
+
+    def counted(cls: str, delta: int) -> None:
+        count_cls(cls, delta)
+        timeline["slots"].append((time.monotonic(), cls,
+                                  srv._active_cls[cls]))
+
+    async def timed_acquire(cls: str = "standard"):
+        t = time.monotonic()
+        try:
+            slot = await acquire_slot(cls)
+        except HTTPError as exc:
+            timeline["acquires"].append((t, time.monotonic() - t, cls,
+                                         exc.status))
+            raise
+        timeline["acquires"].append((t, time.monotonic() - t, cls, 200))
+        return slot
+
+    srv._count_cls, srv._acquire_slot = counted, timed_acquire
+
+    async def sample() -> None:
+        while True:
+            bulk = srv._active_cls.get("bulk", 0)
+            seen["samples"] += 1
+            seen["busy_samples"] += bulk > 0
+            seen["max_slots"] = max(seen["max_slots"], bulk)
+            seen["max_gauge"] = max(seen["max_gauge"], gauge.value("bulk"))
+            t = time.monotonic()
+            await asyncio.sleep(QOS_SAMPLE_S)
+            lag = time.monotonic() - t - QOS_SAMPLE_S
+            if lag > QOS_LAG_S:
+                timeline["lags"].append((t, lag))
+
+    sampler = asyncio.get_running_loop().create_task(sample())
+    try:
+        conn.send({"host": seed.host_info()})
+        await asyncio.to_thread(conn.recv)      # the parent is done
+        sampler.cancel()
+        conductors = list(seed.ptm._conductors.values())
+        copies = {}
+        for c in conductors:
+            summary = c.flight.summarize()
+            rows = [r for r in summary["piece_rows"]
+                    if r["source"] == "origin"]
+            if not rows:
+                continue
+            m0 = c.flight._m0
+            copies[c.task_id] = {
+                "url": c.url,
+                "source_t0": m0 + min(r["start_ms"] for r in rows) / 1e3,
+                "source_t1": m0 + max(r["start_ms"] + r["total_ms"]
+                                      for r in rows) / 1e3,
+                "uploads": list(summary["uploads"].values())}
+        conn.send({"traffic_source": sum(c.traffic_source
+                                         for c in conductors),
+                   "states": [c.state for c in conductors],
+                   "bulk_limit": srv.bulk_limit, **seen, **timeline,
+                   "copies": copies,
+                   "bulk_503": REGISTRY.counter(
+                       "df_qos_upload_shed_total", "",
+                       ("cls",)).value("bulk")})
+    finally:
+        sampler.cancel()
+        await seed.stop()
+
+
+async def _qos_bulk_pull(daemon: Daemon, url: str, meta: UrlMeta) -> dict:
+    """One bulk pull to disk, back-source disabled. A shed admission
+    (RESOURCE_EXHAUSTED) is retried after its own hint, as the retry
+    ladder does; every shed is kept."""
+    sheds = []
+    t0 = time.monotonic()
+    while True:
+        try:
+            task_id = None
+            async for resp in daemon.ptm.start_file_task(DownloadRequest(
+                    url=url, url_meta=meta, disable_back_source=True,
+                    timeout_s=1200.0)):
+                task_id = resp.task_id or task_id
+            break
+        except DFError as exc:
+            if exc.code != Code.RESOURCE_EXHAUSTED:
+                raise
+            retry_ms = getattr(exc, "retry_after_ms", 0)
+            sheds.append(retry_ms)
+            await asyncio.sleep(max(retry_ms, 1) / 1000.0)
+    c = daemon.ptm.conductor(task_id)
+    return {"t0": t0, "wall": time.monotonic() - t0, "sheds": sheds,
+            "state": c.state, "traffic_p2p": c.traffic_p2p,
+            "traffic_source": c.traffic_source, "qos_class": c.qos_class}
+
+
+def _quota_req(url: str, task_id: str, i: int, tenant: str
+               ) -> RegisterPeerTaskRequest:
+    """A register of tenant ``tenant`` on an existing task (no seed
+    trigger), from a host of its own."""
+    return RegisterPeerTaskRequest(
+        task_id=task_id, url=url, peer_id=f"qos-probe-{tenant}-{i}",
+        url_meta=UrlMeta(tenant=tenant),
+        peer_host=Host(id=f"qos-probe-{tenant}-{i}-host", ip="127.0.0.1",
+                       port=1, download_port=2, type=HostType.NORMAL))
+
+
+async def _qos_run(workdir: str, url: str, manifest: ShardManifest,
+                   sched_port: int, seed_host: Host) -> dict:
+    """The manager and the scheduler here, Lq's two critical pulls around
+    the herd, then the quota, the readers and the pulses."""
+    mgr = Manager(ManagerConfig(listen_ip="127.0.0.1",
+                                db_path=os.path.join(workdir, "m.db")))
+    await mgr.start()
+    for name, (cls, running, retry_ms) in QOS_TENANTS.items():
+        mgr.store.upsert_tenant(name, qos_class=cls, max_running=running,
+                                shed_retry_after_ms=retry_ms)
+    sched = Scheduler(SchedCfg(
+        listen_ip="127.0.0.1", advertise_ip="127.0.0.1", port=sched_port,
+        manager_addresses=[mgr.address],
+        keepalive_interval_s=QOS_KEEPALIVE_S,
+        seed_peers=[SeedPeerAddr(host_id=seed_host.id, ip=seed_host.ip,
+                                 rpc_port=seed_host.port,
+                                 download_port=seed_host.download_port)]))
+    lq = None
+    out: dict = {"lq_lags": []}
+
+    async def lag_sampler() -> None:
+        # stalls of this process's loop, which Lq's pulls share
+        while True:
+            t = time.monotonic()
+            await asyncio.sleep(QOS_SAMPLE_S)
+            lag = time.monotonic() - t - QOS_SAMPLE_S
+            if lag > QOS_LAG_S:
+                out["lq_lags"].append((t, lag))
+
+    lagger = asyncio.get_running_loop().create_task(lag_sampler())
+    try:
+        await sched.start()
+        t0 = time.monotonic()
+        while set(sched.service.tenants) != set(QOS_TENANTS):
+            check(time.monotonic() - t0 < QOS_WAIT_S,
+                  f"phase 18: the scheduler's tenants "
+                  f"{sorted(sched.service.tenants)}")
+            await asyncio.sleep(0.05)
+        out["tenants"] = dict(sched.service.tenants)
+        cfg = qos_daemon_cfg(workdir, "lq", sched.address)
+        cfg.download.total_rate_limit_bps = QOS_LQ_RATE_BPS
+        cfg.qos = dataclasses.replace(QOS_LQ_GOVERNOR)
+        # every copy is one content: without this, Lq's content store
+        # would place each pull after the first from its own disk
+        cfg.storage.dedupe_enabled = False
+        lq = Daemon(cfg)
+        await lq.start()
+        critical = UrlMeta(tenant="serving", qos_class="critical")
+        out["alone"] = await _leecher_pull(
+            lq, f"{url}?copy=critical-alone", critical, manifest, {})
+        # the herd; the critical pull starts once a bulk task is landing
+        herd = [asyncio.get_running_loop().create_task(_qos_bulk_pull(
+            lq, f"{url}?copy=bulk-{i}", UrlMeta(tenant="batch",
+                                                qos_class="bulk")))
+            for i in range(QOS_HERD)]
+        t0 = time.monotonic()
+        while not any(c.qos_class == "bulk" and c.ready
+                      for c in lq.ptm._conductors.values()):
+            check(time.monotonic() - t0 < QOS_WAIT_S
+                  and not any(t.done() and t.exception() for t in herd),
+                  "phase 18: no bulk pull in flight")
+            await asyncio.sleep(0.01)
+        out["herd_in_flight"] = {
+            "active": dict(lq.qos.active), "queued_now": len(lq.qos._waiters),
+            "shed": dict(lq.qos.counters["shed"])}
+        out["under_herd"] = await _leecher_pull(
+            lq, f"{url}?copy=critical-herd", critical, manifest, {})
+        out["herd"] = await asyncio.gather(*herd)
+        # a pull's last frame comes before its conductor's run ends and
+        # releases its admission and its shaper bucket
+        t0 = time.monotonic()
+        while any(lq.qos.active.values()) or lq.shaper._tasks:
+            check(time.monotonic() - t0 < QOS_WAIT_S,
+                  f"phase 18: Lq's governor still counts {lq.qos.active}")
+            await asyncio.sleep(0.05)
+        # the quota: the second concurrent register of "capped" is refused
+        task_id = out["under_herd"]["conductor"].task_id
+        svc = sched.service
+        shed_total = REGISTRY.counter("df_qos_quota_shed_total", "",
+                                      ("tenant",))
+        before = shed_total.value("capped")
+        await svc.register_peer_task(
+            _quota_req(url, task_id, 0, "capped"), None)
+        try:
+            await svc.register_peer_task(
+                _quota_req(url, task_id, 1, "capped"), None)
+            out["quota"] = {"refused": False}
+        except DFError as exc:
+            out["quota"] = {"refused": True, "code": exc.code.name,
+                            "retry_after_ms": exc.retry_after_ms}
+        out["quota"]["shed_counted"] = shed_total.value("capped") - before
+        # a classless register of "batch" takes its class from the row
+        await svc.register_peer_task(
+            _quota_req(url, task_id, 0, "batch"), None)
+        probe = sched.resource.find_peer(task_id, "qos-probe-batch-0")
+        out["tenant_class"] = {"qos_class": probe.qos_class,
+                               "priority": probe.priority}
+        # the readers: /debug/qos against dfdiag --qos, both on Lq
+        status, snap = await _http_json(lq.upload_server.port, "/debug/qos")
+        check(status == 200, f"phase 18 /debug/qos: {status}")
+        addr = f"127.0.0.1:{lq.upload_server.port}"
+        rc_json, text_json, _ = await asyncio.to_thread(
+            run_cli, dfdiag.main, ["--daemon", addr, "--qos", "--json"])
+        rc, text, diag_s = await asyncio.to_thread(
+            run_cli, dfdiag.main, ["--daemon", addr, "--qos"])
+        out["debug_qos"] = snap
+        out["dfdiag"] = {"rc_json": rc_json, "snap": json.loads(text_json),
+                         "rc": rc, "text": text, "wall_s": diag_s}
+        out["governor"] = {"counters": json.loads(json.dumps(
+            lq.qos.counters)), "tenants": dict(lq.qos.tenant_counters),
+            "state": lq.qos.state}
+        # the pulse, and the scheduler's series of it
+        pulse = pulse_mod.build_pulse(lq, 0)
+        out["pulse"] = {"qos_state": pulse.qos_state,
+                        "qos_shed": pulse.qos_shed}
+        host_id = lq.host_info().id
+        t0 = time.monotonic()
+        while True:
+            series = sched.fleetpulse._series.get(host_id)
+            sheds = [smp["shed"] for smp in (series.ring if series else [])]
+            if sheds and max(sheds) >= pulse.qos_shed:
+                break
+            check(time.monotonic() - t0 < 10 * QOS_ANNOUNCE_S,
+                  f"phase 18: the scheduler's series of Lq: sheds {sheds}")
+            await asyncio.sleep(0.1)
+        out["fleet_sheds"] = max(sheds)
+        out["preempt_rows"] = sum(
+            1 for r in sched.ledger._ring
+            if r.get("decision_kind") == "preempt")
+        return out
+    finally:
+        lagger.cancel()
+        if lq is not None:
+            await lq.stop()
+        await sched.stop()
+        await mgr.stop()
+
+
+def _occupancy(slots: list, a: float, b: float) -> dict:
+    """Mean upload slots each class held over ``[a, b]``, weighted by
+    time, from a timeline of ``(t, class, count)`` changes."""
+    out = {}
+    for cls in sorted({c for _, c, _ in slots}):
+        level, area, t_prev = 0, 0.0, a
+        for t, c, n in slots:
+            if c != cls:
+                continue
+            if t <= a:
+                level = n
+                continue
+            if t >= b:
+                break
+            area += level * (t - t_prev)
+            level, t_prev = n, t
+        out[cls] = (area + level * (b - t_prev)) / (b - a)
+    return out
+
+
+def _lag_in(lags: list, a: float, b: float) -> dict:
+    inside = [lag for t, lag in lags if a <= t < b]
+    return {"stalls": len(inside), "sum_s": sum(inside),
+            "max_s": max(inside, default=0.0)}
+
+
+def _critical_flight(r: dict, seed_stats: dict, origin_t: dict,
+                     lq_lags: list) -> dict:
+    """Where a critical pull's time went, over its window ``[t0, t0 +
+    wall]``: Lq's per-piece stages (``queue_ms`` is the shaper's wait,
+    ``ttfb_ms`` the seed's slot, uplink and relay waits), the seed's
+    back-source of the same task and its serves of it, the seed's slot
+    acquires by class, its slots held by class weighted by time, both
+    loops' stalls, and the origin's responses in the window."""
+    c = r["conductor"]
+    a, b = r["t0"], r["t0"] + r["wall"]
+    rows = c.flight.summarize()["piece_rows"]
+    copy = seed_stats["copies"].get(c.task_id)
+    check(copy is not None, f"phase 18: the seed holds no back-source "
+                            f"window of {c.url}")
+    acquires = {}
+    for t, wait, cls, status in seed_stats["acquires"]:
+        if a <= t < b:
+            row = acquires.setdefault(cls, {"n": 0, "wait_s": 0.0,
+                                            "max_wait_s": 0.0, "503": 0})
+            row["n"] += 1
+            row["wait_s"] += wait
+            row["max_wait_s"] = max(row["max_wait_s"], wait)
+            row["503"] += status == 503
+    stages = {}
+    for key in ("queue_ms", "ttfb_ms", "wire_ms", "hbm_ms"):
+        vals = sorted(x[key] for x in rows)
+        stages[key] = {"sum": sum(vals), "p50": podscope._pctl(vals, 0.5),
+                       "max": vals[-1]}
+    return {
+        "lq_pieces": len(rows), "lq_stages_ms": stages,
+        "lq_loop": _lag_in(lq_lags, a, b),
+        "seed_source_s": copy["source_t1"] - copy["source_t0"],
+        "seed_source_from_t0_s": [copy["source_t0"] - a,
+                                  copy["source_t1"] - a],
+        "seed_serves": copy["uploads"],
+        "seed_acquires": acquires,
+        "seed_slots_mean": _occupancy(seed_stats["slots"], a, b),
+        "seed_loop": _lag_in(seed_stats["lags"], a, b),
+        "origin": _origin_in(origin_t["responses"], a, b)}
+
+
+def _origin_in(responses: list, a: float, b: float) -> dict:
+    """The origin's responses overlapping ``[a, b]``: how many, their mean
+    concurrency and the bytes they sent in it (each response's bytes
+    spread evenly over its life), and the median rate of one response."""
+    inside = [(t0, t1, n) for t0, t1, n in responses
+              if t0 < b and t1 > a and t1 > t0]
+    overlap = [(min(t1, b) - max(t0, a), t1 - t0, n) for t0, t1, n in inside]
+    rates = sorted(n / (t1 - t0) for t0, t1, n in inside)
+    return {"responses": len(inside),
+            "mean_concurrency": sum(o for o, _, _ in overlap) / (b - a),
+            "bytes_per_s": sum(n * o / d for o, d, n in overlap) / (b - a),
+            "response_bytes_per_s_p50": podscope._pctl(rates, 0.5)}
+
+
+def phase_qos(workdir: str, device: torch.device) -> None:
+    """Phase 18: a critical pull into the card through a bulk herd, on
+    phase 8's origin over HTTP."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    t_phase = time.monotonic()
+    path = os.path.join(workdir, "deploy", "model-00004-of-00004.safetensors")
+    name = os.path.basename(path)
+    layout = deploy_layout()
+    header, _ = safetensors_header(layout)
+    size = os.path.getsize(path)
+    d = os.path.join(workdir, "qos")
+    os.makedirs(d, exist_ok=True)
+    free = shutil.disk_usage(workdir).free
+    need = 2 * (2 + QOS_HERD) * size + (1 << 30)
+    check(free >= need, f"phase 18 needs {need} bytes of free disk for the "
+                        f"seed's and Lq's {2 + QOS_HERD} copies each, "
+                        f"{free} free")
+    manifest = manifest_from_file(path)
+    with open(path, "rb") as f:
+        f.seek(len(header))
+        ref = torch.frombuffer(bytearray(f.read()), dtype=torch.uint8).to(
+            device)
+    with socket.socket() as sock:          # the scheduler's port
+        sock.bind(("127.0.0.1", 0))
+        sched_port = sock.getsockname()[1]
+    ctx = multiprocessing.get_context("spawn")
+    origin_conn, o_child = ctx.Pipe()
+    seed_conn, sd_child = ctx.Pipe()
+    origin = ctx.Process(target=http_origin_child, name="smoke-qos-origin",
+                         args=(path, CHAIN_PACE_BPS, o_child))
+    seed = ctx.Process(target=qos_seed_child, name="smoke-qos-seed",
+                       args=(d, f"127.0.0.1:{sched_port}", sd_child))
+    origin.start()
+    seed.start()
+    try:
+        check(origin_conn.poll(120), "phase 18 origin did not start")
+        url = f"http://127.0.0.1:{origin_conn.recv()['port']}/{name}"
+        check(seed_conn.poll(300), "phase 18 seed did not start")
+        seed_host = seed_conn.recv()["host"]
+        run = asyncio.run(_qos_run(d, url, manifest, sched_port, seed_host))
+        origin_conn.send("report")
+        origin_t = origin_conn.recv()
+        seed_conn.send("stop")
+        check(seed_conn.poll(300), "phase 18 seed did not report")
+        seed_stats = seed_conn.recv()
+    finally:
+        for conn in (seed_conn, origin_conn):
+            try:
+                conn.send("stop")
+            except OSError:
+                pass
+        for proc in (seed, origin):
+            proc.join(timeout=60)
+            if proc.is_alive():
+                proc.terminate()
+                proc.join(timeout=30)
+    check(seed.exitcode == 0, f"phase 18 seed exited {seed.exitcode}")
+    base, shapes = len(header), dict(layout)
+    ready, flights = {}, {}
+    for key in ("alone", "under_herd"):
+        r = run[key]
+        flights[key] = _critical_flight(r, seed_stats, origin_t,
+                                        run["lq_lags"])
+        c, tensors = r["conductor"], r["out"]
+        for info in manifest.shards:
+            t = tensors[info.name]
+            lo = info.range_start - base
+            check(t.device == device and t.dtype == torch.bfloat16
+                  and list(t.shape) == shapes[info.name]
+                  and torch.equal(t.reshape(-1).view(torch.uint8),
+                                  ref[lo:lo + info.range_size]),
+                  f"phase 18 critical {key}: {info.name} differs from the "
+                  f"file")
+        check(c.qos_class == "critical" and c.traffic_source == 0
+              and c.traffic_p2p == size,
+              f"phase 18 critical {key}: class {c.qos_class}, p2p "
+              f"{c.traffic_p2p}, source {c.traffic_source}")
+        ready[key] = r["wall"]
+        del tensors, r["out"]
+    del ref
+    shutil.rmtree(d, ignore_errors=True)
+    gov = run["governor"]
+    check(gov["tenants"].get("serving") == {"admitted": 2, "queued": 0,
+                                            "shed": 0}
+          and gov["counters"]["shed"]["critical"] == 0,
+          f"phase 18: the critical pulls' admissions {gov}")
+    herd = run["herd"]
+    sheds = [ms for h in herd for ms in h["sheds"]]
+    check(all(h["state"] == "success" and h["traffic_p2p"] == size
+              and h["traffic_source"] == 0 and h["qos_class"] == "bulk"
+              for h in herd),
+          f"phase 18 herd: {[(h['state'], h['traffic_p2p']) for h in herd]}")
+    check(gov["counters"]["queued"] >= 1 and gov["counters"]["shed"]["bulk"]
+          >= 1 and len(sheds) == gov["counters"]["shed"]["bulk"]
+          and set(sheds) == {QOS_LQ_GOVERNOR.shed_retry_after_ms},
+          f"phase 18: bulk queued {gov['counters']['queued']}, shed "
+          f"{gov['counters']['shed']}, retry hints seen {sheds}")
+    check(1 <= seed_stats["max_slots"] <= QOS_SEED_BULK_SLOTS
+          and seed_stats["max_gauge"] <= QOS_SEED_BULK_SLOTS
+          and seed_stats["bulk_limit"] == QOS_SEED_BULK_SLOTS,
+          f"phase 18 seed's bulk slots: {seed_stats}")
+    quota = run["quota"]
+    check(quota == {"refused": True, "code": "RESOURCE_EXHAUSTED",
+                    "retry_after_ms": QOS_TENANTS["capped"][2],
+                    "shed_counted": 1.0},
+          f"phase 18 quota of tenant capped: {quota}")
+    check(run["tenant_class"] == {"qos_class": "bulk", "priority": 6},
+          f"phase 18: a classless register of batch: {run['tenant_class']}")
+    snap, diag = dict(run["debug_qos"]), run["dfdiag"]
+    got = dict(diag["snap"])
+    snap.pop("state_since_s")
+    got.pop("state_since_s")
+    check(got == snap and diag["rc_json"] == diag["rc"] == 0
+          and diag["text"].startswith(f"qos: state={snap['state']}"),
+          f"phase 18: dfdiag --qos {got} (rc {diag['rc']}) against "
+          f"/debug/qos {snap}")
+    shed_total = sum(gov["counters"]["shed"].values())
+    check(run["pulse"] == {"qos_state": gov["state"], "qos_shed": shed_total}
+          and run["fleet_sheds"] >= shed_total > 0,
+          f"phase 18 Lq's pulse {run['pulse']}, governor {gov['state']} "
+          f"{shed_total} shed, the scheduler's series {run['fleet_sheds']}")
+    copies = (2 + QOS_HERD) * size
+    check(origin_t["body_bytes"] == copies
+          and seed_stats["traffic_source"] == copies,
+          f"phase 18 origin sent {origin_t['body_bytes']} bytes, seed took "
+          f"{seed_stats['traffic_source']}, {2 + QOS_HERD} copies "
+          f"{copies}")
+    t_herd0 = min(h["t0"] for h in herd)
+    t_herd1 = max(h["t0"] + h["wall"] for h in herd)
+    emit("phase 18 qos", {
+        "file_bytes": size, "tenants": run["tenants"],
+        "tenant_refresh_s": QOS_KEEPALIVE_S * 6,
+        "seed_upload_rate_bps": QOS_SEED_RATE_BPS,
+        "seed_slots": QOS_SEED_SLOTS, "seed_bulk_slots": QOS_SEED_BULK_SLOTS,
+        "lq_total_rate_bps": QOS_LQ_RATE_BPS,
+        "lq_governor": dataclasses.asdict(QOS_LQ_GOVERNOR),
+        "critical_ready_alone_s": ready["alone"],
+        "critical_ready_under_herd_s": ready["under_herd"],
+        "critical_ratio": ready["under_herd"] / ready["alone"],
+        "herd_pulls": QOS_HERD,
+        "herd_bytes_per_s": QOS_HERD * size / (t_herd1 - t_herd0),
+        "herd_wall_s": [h["wall"] for h in herd],
+        "herd_at_critical_start": run["herd_in_flight"],
+        "critical_flight": flights,
+        "bulk_queued": gov["counters"]["queued"],
+        "bulk_shed": gov["counters"]["shed"]["bulk"],
+        "governor_tenants": gov["tenants"],
+        "seed_bulk_slots_max": seed_stats["max_slots"],
+        "seed_bulk_busy_samples": seed_stats["busy_samples"],
+        "seed_samples": seed_stats["samples"],
+        "seed_bulk_503": seed_stats["bulk_503"],
+        "quota": quota, "tenant_class": run["tenant_class"],
+        "preempt_rows": run["preempt_rows"],
+        "dfdiag_qos_s": diag["wall_s"], "pulse": run["pulse"],
+        "origin_bytes_sent": origin_t["body_bytes"],
+        "seed_traffic_source": seed_stats["traffic_source"],
+        "phase_s": time.monotonic() - t_phase, "card": smi})
+
+
 def run_phases(layers: int, seed: int, device: torch.device) -> None:
-    """Phases 2-17 on ``device``; raises CheckFailed on a failed check."""
+    """Phases 2-18 on ``device``; raises CheckFailed on a failed check."""
     layout = llama_layout(layers)
     header, nbytes = safetensors_header(layout)
     workdir = tempfile.mkdtemp(prefix="chip-smoke-")
@@ -5104,6 +5725,7 @@ def run_phases(layers: int, seed: int, device: torch.device) -> None:
         phase_superseed(workdir, device)
         phase_poison(workdir, device)
         phase_federation(workdir, device)
+        phase_qos(workdir, device)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 

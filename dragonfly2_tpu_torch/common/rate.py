@@ -1,10 +1,13 @@
-"""Token-bucket rate limiting (async).
+"""Token-bucket rate limiting (async) and the QoS class split.
 
-Counterpart of ``TokenBucket`` in ``dragonfly2_tpu/common/rate.py``: the
-upload server's per-daemon serve rate limit (adjustable live,
-``set_rate``), the daemon-wide back-source limit
+Counterpart of ``dragonfly2_tpu/common/rate.py``: the upload server's
+per-daemon serve rate limit (adjustable live, ``set_rate``), the traffic
+shaper's per-task buckets (``daemon/traffic_shaper.py``), the daemon-wide
+back-source limit when no shaper is attached
 (``PieceManager.total_limiter``) and a super-seed's per-child reveal
-budget (``try_acquire``).
+budget (``try_acquire``). ``class_shares`` is the one split of a total
+rate across the QoS classes: the shaper's retune and dfbench's ``--pr11``
+model both call it.
 """
 
 from __future__ import annotations
@@ -60,12 +63,15 @@ class TokenBucket:
             return 0.0
         return -self._tokens / self.rate
 
-    def refund(self, n: float) -> None:
-        """Hand back ``n`` reserved tokens whose bytes were never moved."""
-        if self.rate <= 0:
-            return
+    def _unreserve(self, n: float) -> None:
         self._refill()
         self._tokens = min(self.burst, self._tokens + n)
+
+    def refund(self, n: float) -> None:
+        """Hand back ``n`` reserved tokens whose bytes were never moved
+        (a cancelled transfer, a 404 after an optimistic acquire); clamped
+        at ``burst``, so a double refund mints nothing."""
+        self._unreserve(n)
 
     async def acquire(self, n: float) -> None:
         # an oversized request (a 16 MiB piece against a small burst) pays
@@ -75,5 +81,23 @@ class TokenBucket:
             try:
                 await asyncio.sleep(delay)
             except asyncio.CancelledError:
-                self.refund(n)
+                # the bytes were never moved: hand the tokens back
+                self._unreserve(n)
                 raise
+
+
+def class_shares(total: float, weights: dict[str, float],
+                 demand: dict[str, float]) -> dict[str, float]:
+    """Split ``total`` across service classes by weight, counting only
+    classes with live demand: an idle class's capacity is borrowed by the
+    active ones, so a lone ``bulk`` task gets the whole pipe and loses
+    most of it the moment ``critical`` traffic appears. Returns bytes/s
+    per class; every class of ``weights`` gets a row, idle ones 0.0."""
+    active = {c: w for c, w in weights.items() if demand.get(c, 0.0) > 0}
+    out = {c: 0.0 for c in weights}
+    if total <= 0 or not active:
+        return out
+    wsum = sum(active.values())
+    for c, w in active.items():
+        out[c] = total * w / wsum
+    return out

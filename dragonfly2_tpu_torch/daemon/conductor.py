@@ -34,6 +34,15 @@ When every scheduler is unreachable (a transport failure, never a
 verdict), the ladder tries the ``pex`` rung (``pex.PexGossiper.try_pull``:
 holders the gossip plane knows) before back-source; while a scheduler
 session is live, ``pex.prime`` adds those holders as advisory parents.
+QoS: the task's service class and tenant (``qos_class``, ``tenant``,
+from ``UrlMeta``; unknown classes clamp to ``standard``) ride the whole
+download, on every rung: the shaper's registration (``attach_shaper``:
+``rate_limiter`` is the task's bucket, each landed piece is ``record``-ed
+and the task unregisters when it ends), each piece GET's ``?cls=``, the
+storage metadata (class-weighted eviction) and the flight summary. The
+governor's admission is released exactly once when the run ends
+(``qos_release``).
+
 An origin that reports no length streams to its end
 (``piece_manager``); the total is learned at the end
 (``on_source_complete``), and such a task gets no device sink, as in the
@@ -59,7 +68,8 @@ from ..common import health, tracing
 from ..common.errors import Code, DFError
 from ..common.metrics import REGISTRY
 from ..common.piece import Range, compute_piece_size, piece_count
-from ..idl.messages import PieceInfo, PieceResult, TaskType, UrlMeta
+from ..idl.messages import (PieceInfo, PieceResult, TaskType, UrlMeta,
+                            resolve_class)
 from ..storage.io_executor import run_io
 from ..storage.manager import StorageManager
 from ..storage.metadata import TaskMetadata
@@ -108,6 +118,10 @@ class PeerTaskConductor:
         self.url_meta = url_meta or UrlMeta()
         # the scheduler may refine this at register (application table)
         self.resolved_priority = int(self.url_meta.priority)
+        # the QoS class lives on the conductor, not on a session, so it
+        # rides every rung (back-source and the scheduler-less pex rung)
+        self.qos_class = resolve_class(self.url_meta.qos_class)
+        self.tenant = self.url_meta.tenant
         self.storage_mgr = storage_mgr
         self.piece_mgr = piece_mgr
         self.scheduler = scheduler
@@ -183,6 +197,11 @@ class PeerTaskConductor:
         self._run_task: asyncio.Task | None = None
         self._p2p_engine: Any = None
         self._session: Any = None      # scheduler PeerSession once registered
+        # the governor's release hook (PeerTaskManager), fired once when
+        # the run ends: an unreleased admission wedges the bulk gate
+        self.qos_release: Any = None
+        self.shaper: Any = None
+        self.rate_limiter: Any = None  # this task's bucket from the shaper
         self.log = logging.LoggerAdapter(
             log, {"task": task_id[:12], "peer": peer_id[-12:]})
 
@@ -197,6 +216,11 @@ class PeerTaskConductor:
 
     def set_p2p_engine(self, engine: Any) -> None:
         self._p2p_engine = engine
+
+    def attach_shaper(self, shaper: Any) -> None:
+        self.shaper = shaper
+        self.rate_limiter = shaper.register(
+            self.task_id, qos_class=self.qos_class, tenant=self.tenant)
 
     async def _run(self) -> None:
         # the task's trace: its register, offers, piece fetches, the
@@ -261,6 +285,11 @@ class PeerTaskConductor:
         finally:
             if self._session is not None:
                 await self._session.close(success=self.state == self.SUCCESS)
+            if self.shaper is not None:
+                self.shaper.unregister(self.task_id)
+            if self.qos_release is not None:
+                release, self.qos_release = self.qos_release, None
+                release()
             if self._relay_tracked:
                 # wakes any streaming serve parked on this task's progress,
                 # so it winds down now instead of riding out its deadline
@@ -509,7 +538,7 @@ class PeerTaskConductor:
             total_piece_count=self.total_pieces,
             piece_size=self.piece_size, digest=self.url_meta.digest,
             priority=self.resolved_priority,
-            qos_class=self.url_meta.qos_class)
+            qos_class=self.qos_class)
         self.storage = self.storage_mgr.register_task(md)
         self.storage_ready.set()
         self._init_shards()
@@ -584,7 +613,7 @@ class PeerTaskConductor:
             task_id=self.task_id, task_type=self.task_type, url=self.url,
             tag=self.url_meta.tag, application=self.url_meta.application,
             digest=self.url_meta.digest, priority=self.resolved_priority,
-            qos_class=self.url_meta.qos_class)
+            qos_class=self.qos_class)
         ts = await run_io(self.storage_mgr.adopt_content, md)
         if ts is None or not (ts.md.done and ts.md.success):
             return False
@@ -718,6 +747,8 @@ class PeerTaskConductor:
         # write() is a memcpy + enqueue; the copy runs on the sink's own
         # thread and is never awaited here
         self._ingest_to_device(num, offset, data)
+        if self.shaper is not None:
+            self.shaper.record(self.task_id, len(data))
         async with self._piece_cond:
             self.ready.add(num)
             self.completed_length += len(data)
@@ -818,6 +849,8 @@ class PeerTaskConductor:
                 self.ready.add(n)
                 self.completed_length += size
                 self.traffic_p2p += size
+                if self.shaper is not None:
+                    self.shaper.record(self.task_id, size)
                 events.append({"type": "piece", "num": n, "size": size,
                                "completed": self.completed_length,
                                "total": self.content_length})

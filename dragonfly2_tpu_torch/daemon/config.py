@@ -14,6 +14,7 @@ from dataclasses import dataclass, field
 
 from ..common.config import INERT, WIRED, unported, unported_set
 from ..common.unit import MiB
+from .qos import QosSection
 
 
 @dataclass
@@ -39,12 +40,13 @@ class DownloadConfig:
     piece_parallelism: int = 4             # piece download workers per task
     back_source_parallelism: int = 4       # concurrent origin range streams
     back_source_group_min_bytes: int = 32 * MiB  # below this, one stream
-    # the daemon-wide back-source rate (PieceManager.total_limiter); 0 =
-    # unlimited. The shaper's per-task split waits for item 5b
+    # the daemon's download budget (0 = unlimited): the traffic shaper
+    # splits it by QoS class and task, and each task's bucket paces its
+    # P2P fetches and its back-source reads
     total_rate_limit_bps: int = 0
     # inert, as in the reference: declared there and read nowhere
     per_peer_rate_limit_bps: int = 0
-    traffic_shaper_kind: str = "sampling"  # unported (item 5b)
+    traffic_shaper_kind: str = "sampling"  # sampling | plain
     prefetch_whole_file: bool = False      # ranged requests warm the whole task
     # inert, as in the reference: declared there and read nowhere
     first_piece_timeout_s: float = 30.0
@@ -100,7 +102,9 @@ class UploadConfig:
     # also announced as the host's upload slots at the scheduler
     concurrent_limit: int = 0
     debug_endpoints: bool = False          # /debug/{stacks,profile,faults}
-    bulk_concurrent_limit: int = 0         # unported (item 5b)
+    # upload slots bulk-class children may hold at once; 0 = the upload
+    # server's default (concurrent_limit - 2, at least 1)
+    bulk_concurrent_limit: int = 0
 
 
 @dataclass
@@ -205,20 +209,6 @@ class ObjectStorageConfig:
 
 
 @dataclass
-class QosSection:
-    """QoS admission and brownout: unported (item 5b). Its defaults are a
-    classless fleet's, where every task is ``standard`` and never queued,
-    which is how the port admits every task."""
-
-    enabled: bool = True
-    bulk_active_limit: int = 8
-    brownout_critical_threshold: int = 1
-    queue_wait_s: float = 5.0
-    queue_limit: int = 64
-    shed_retry_after_ms: int = 2000
-
-
-@dataclass
 class DaemonConfig:
     workdir: str = ""
     host_ip: str = ""                      # advertised to peers; "" = detect
@@ -260,8 +250,8 @@ class DaemonConfig:
 # dragonfly2_tpu/ finds no reader of scheduler.max_reschedule,
 # download.per_peer_rate_limit_bps, download.first_piece_timeout_s or
 # metrics_port outside its config module. Unported, by ROADMAP Queue 1
-# item: fleet mTLS, the proxy and the object gateway (6), QoS and the
-# traffic shaper (5b), source plugins (5d). ``device`` is the port's own.
+# item: fleet mTLS, the proxy and the object gateway (6), source plugins
+# (5d). ``device`` is the port's own.
 KEY_CLASSES: dict[str, str] = {
     "workdir": WIRED,
     "host_ip": WIRED,
@@ -283,7 +273,7 @@ KEY_CLASSES: dict[str, str] = {
     "download.back_source_group_min_bytes": WIRED,
     "download.total_rate_limit_bps": WIRED,
     "download.per_peer_rate_limit_bps": INERT,
-    "download.traffic_shaper_kind": unported("5b"),
+    "download.traffic_shaper_kind": WIRED,
     "download.prefetch_whole_file": WIRED,
     "download.first_piece_timeout_s": INERT,
     "download.piece_timeout_s": WIRED,
@@ -295,7 +285,7 @@ KEY_CLASSES: dict[str, str] = {
     "upload.rate_limit_bps": WIRED,
     "upload.concurrent_limit": WIRED,
     "upload.debug_endpoints": WIRED,
-    "upload.bulk_concurrent_limit": unported("5b"),
+    "upload.bulk_concurrent_limit": WIRED,
     "storage.task_ttl_s": WIRED,
     "storage.disk_gc_high_ratio": WIRED,
     "storage.disk_gc_low_ratio": WIRED,
@@ -350,12 +340,12 @@ KEY_CLASSES: dict[str, str] = {
     "object_storage.port": unported("6"),
     "object_storage.buckets": unported("6"),
     "object_storage.backends": unported("6"),
-    "qos.enabled": unported("5b"),
-    "qos.bulk_active_limit": unported("5b"),
-    "qos.brownout_critical_threshold": unported("5b"),
-    "qos.queue_wait_s": unported("5b"),
-    "qos.queue_limit": unported("5b"),
-    "qos.shed_retry_after_ms": unported("5b"),
+    "qos.enabled": WIRED,
+    "qos.bulk_active_limit": WIRED,
+    "qos.brownout_critical_threshold": WIRED,
+    "qos.queue_wait_s": WIRED,
+    "qos.queue_limit": WIRED,
+    "qos.shed_retry_after_ms": WIRED,
     "announce_interval_s": WIRED,
     "probe_enabled": WIRED,
     "metrics_port": INERT,

@@ -33,11 +33,16 @@ relay hub lets the upload server stream pieces that are still arriving
 acquired first at start and released last at stop, and the tracer is
 configured from the ``tracing`` section. The upload server serves at
 ``upload.rate_limit_bps`` with ``upload.concurrent_limit`` transfers (also
-announced as the host's upload slots); every P2P pull runs
+announced as the host's upload slots), of which bulk-class children hold
+at most ``upload.bulk_concurrent_limit``; every P2P pull runs
 ``download.piece_parallelism`` workers with a ``download.piece_timeout_s``
-deadline per piece; back-source reads share the daemon-wide
-``download.total_rate_limit_bps``. A config that sets a key whose
-subsystem is not ported (fleet TLS, QoS, the proxy, the object gateway,
+deadline per piece. The QoS plane: the traffic shaper
+(``traffic_shaper.py``) splits ``download.total_rate_limit_bps`` by class
+and task, and its per-task buckets pace P2P fetches and back-source
+reads; the governor (``qos.py``, the ``qos`` section) admits each new
+task by class, browning out and shedding bulk work, and serves ``GET
+/debug/qos`` on the upload port. A config that sets a key whose
+subsystem is not ported (fleet TLS, the proxy, the object gateway,
 source plugins) is refused at construction, by name.
 """
 
@@ -75,6 +80,7 @@ from .flight_recorder import FlightRecorder
 from .networktopology import NetworkTopologyProber
 from .peertask_manager import PeerTaskManager
 from .pex import PexGossiper
+from .qos import QosGovernor
 from .piece_downloader import PieceDownloader
 from .piece_engine import PieceEngine
 from .piece_manager import PieceManager
@@ -82,6 +88,7 @@ from .relay import RelayHub
 from .rpcserver import DaemonService, build_service
 from .scheduler_session import SchedulerConnector
 from .swarm_index import SwarmIndex
+from .traffic_shaper import TrafficShaper
 from .upload_server import UploadServer
 from .verdicts import VerdictLedger
 
@@ -138,6 +145,12 @@ class Daemon:
         self.prober: NetworkTopologyProber | None = None
         self.announcer: Announcer | None = None
         self.piece_mgr = PieceManager(cfg.download)
+        self.shaper = TrafficShaper(
+            total_rate_bps=cfg.download.total_rate_limit_bps,
+            kind=cfg.download.traffic_shaper_kind)
+        # class-aware admission with brownout and shed; the shaper rides
+        # along for /debug/qos's per-class rates
+        self.qos = QosGovernor(cfg.qos, shaper=self.shaper)
         self.flight_recorder = FlightRecorder(
             enabled=cfg.flight.enabled, max_tasks=cfg.flight.max_tasks,
             max_events=cfg.flight.max_events,
@@ -161,10 +174,11 @@ class Daemon:
             self.storage_mgr, port=cfg.upload.port, host=cfg.listen_ip,
             rate_limit_bps=cfg.upload.rate_limit_bps,
             concurrent_limit=cfg.upload.concurrent_limit,
+            bulk_concurrent_limit=cfg.upload.bulk_concurrent_limit,
             flight_recorder=self.flight_recorder, relay=self.relay,
             relay_stall_s=cfg.download.relay_stall_s, pex=self.pex,
             debug_endpoints=cfg.upload.debug_endpoints,
-            verdicts=self.verdicts)
+            verdicts=self.verdicts, qos=self.qos)
         self.health = None
         self._prev_source_tls = None
         self.scheduler: SchedulerConnector | None = None
@@ -292,6 +306,7 @@ class Daemon:
         await self.upload_server.start()
         self._peer_channels = ChannelPool()
         self._downloader = PieceDownloader(timeout_s=dl.piece_timeout_s)
+        self.shaper.start()
         self.ptm = PeerTaskManager(
             storage_mgr=self.storage_mgr, piece_mgr=self.piece_mgr,
             hostname=self.hostname, host_ip=self.host_ip,
@@ -299,7 +314,8 @@ class Daemon:
             device_sink_builder=self.device_sink_builder,
             is_seed=self.cfg.is_seed,
             flight_recorder=self.flight_recorder, relay=self.relay,
-            pex=self.pex, prefetch_whole_file=dl.prefetch_whole_file)
+            pex=self.pex, prefetch_whole_file=dl.prefetch_whole_file,
+            shaper=self.shaper, qos=self.qos)
         if self.pex is not None:
             # the pex rung builds a fresh engine per pull (the scheduler
             # path may have used the conductor's)
@@ -461,6 +477,7 @@ class Daemon:
     async def stop(self) -> None:
         if self.cfg.tracing.enabled:
             tracing.TRACER.flush()
+        await self.shaper.stop()
         if self.prober is not None:
             await self.prober.stop()
         if self.pex is not None:

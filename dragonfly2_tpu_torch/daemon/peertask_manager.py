@@ -7,6 +7,15 @@ P2P engine, a flight from the daemon's recorder and the daemon's relay
 hub, so it registers, pulls from parents, and goes back to source only
 when P2P cannot finish.
 
+QoS: a new task is admitted by the daemon's governor (``qos``,
+``daemon/qos.py``) before its conductor exists, outside the manager's
+lock, so a bulk request riding the brownout queue never holds the lock a
+critical request needs; a shed raises RESOURCE_EXHAUSTED with
+``retry_after_ms``. The admission is released when the run ends
+(``conductor.qos_release``), the ruling is a ``qos`` event on the task's
+flight, and the conductor registers with the traffic shaper
+(``shaper``).
+
 A request that names shards (``UrlMeta.shards``) runs a requested-subset
 download. The shard names stay out of the task id, so every host pulling
 any subset of one file joins one swarm. A joiner whose needs the live
@@ -31,6 +40,7 @@ from typing import Any, AsyncIterator
 
 from ..common import ids
 from ..common.errors import Code, DFError
+from . import flight_recorder as fr
 from ..common.piece import Range, parse_http_range
 from ..common.sharding import parse_shard_names
 from ..idl.messages import (DownloadRequest, DownloadResponse, TaskStat,
@@ -48,7 +58,8 @@ class PeerTaskManager:
                  p2p_engine_factory: Any = None,
                  device_sink_builder: Any = None, is_seed: bool = False,
                  flight_recorder: Any = None, relay: Any = None,
-                 pex: Any = None, prefetch_whole_file: bool = False):
+                 pex: Any = None, prefetch_whole_file: bool = False,
+                 shaper: Any = None, qos: Any = None):
         self.storage_mgr = storage_mgr
         self.piece_mgr = piece_mgr
         self.hostname = hostname
@@ -61,6 +72,8 @@ class PeerTaskManager:
         self.relay = relay            # RelayHub (None = cut-through off)
         self.pex = pex                # PexGossiper (None = plane disabled)
         self.prefetch_whole_file = prefetch_whole_file
+        self.shaper = shaper          # TrafficShaper (None = unshaped)
+        self.qos = qos                # QosGovernor (None = admission off)
         self._conductors: dict[str, PeerTaskConductor] = {}
         self._prefetching: set[str] = set()
         # strong refs: the loop holds tasks weakly, and a collected
@@ -94,30 +107,71 @@ class PeerTaskManager:
             conductor = self._join_existing(task_id, requested_shards)
             if conductor is not None:
                 return conductor
-            peer_id = ids.peer_id(self.hostname, self.host_ip,
-                                  seed=self.is_seed)
-            flight = (self.flight_recorder.begin(
-                task_id, peer_id, url=url,
-                # clamped to a known class ("" stays classless)
-                qos_class=(resolve_class(meta.qos_class)
-                           if meta.qos_class else ""),
-                tenant=meta.tenant)
-                if self.flight_recorder is not None else None)
-            conductor = PeerTaskConductor(
-                task_id=task_id, peer_id=peer_id,
-                url=url, url_meta=meta, storage_mgr=self.storage_mgr,
-                piece_mgr=self.piece_mgr,
-                scheduler=self.scheduler if register else None,
-                disable_back_source=disable_back_source, task_type=task_type,
+        # admission outside the lock, so a queued bulk request never holds
+        # the lock a critical one needs; may raise RESOURCE_EXHAUSTED
+        qos = None
+        if self.qos is not None:
+            qos = await self.qos.admit(resolve_class(meta.qos_class),
+                                       meta.tenant)
+        async with self._lock:
+            conductor = self._join_existing(task_id, requested_shards)
+            if conductor is not None:
+                if qos is not None:
+                    # lost the creation race while queued: the winner's
+                    # admission is the accounted one
+                    self.qos.release(qos[0])
+                return conductor
+            return self._start_conductor(
+                task_id, url, meta, task_type=task_type,
+                disable_back_source=disable_back_source,
                 device_sink_factory=device_sink_factory,
                 shard_manifest=shard_manifest,
-                requested_shards=requested_shards,
-                flight=flight, relay=self.relay, pex=self.pex)
-            if self.p2p_engine_factory is not None:
-                conductor.set_p2p_engine(self.p2p_engine_factory())
-            self._conductors[task_id] = conductor
-            conductor.start()
-            return conductor
+                requested_shards=requested_shards, register=register,
+                qos=qos)
+
+    def _start_conductor(self, task_id: str, url: str, meta: UrlMeta, *,
+                         task_type: TaskType, disable_back_source: bool,
+                         device_sink_factory: Any, shard_manifest: Any,
+                         requested_shards: list[str] | None, register: bool,
+                         qos: tuple[str, str] | None = None,
+                         ) -> PeerTaskConductor:
+        """Build and start a task's conductor (called under the manager
+        lock). ``qos``: the governor's (class, ruling) for this task."""
+        peer_id = ids.peer_id(self.hostname, self.host_ip,
+                              seed=self.is_seed)
+        flight = (self.flight_recorder.begin(
+            task_id, peer_id, url=url,
+            # clamped to a known class ("" stays classless): it becomes a
+            # metric label, and a raw wire string would be unbounded
+            qos_class=(resolve_class(meta.qos_class)
+                       if meta.qos_class else ""),
+            tenant=meta.tenant)
+            if self.flight_recorder is not None else None)
+        conductor = PeerTaskConductor(
+            task_id=task_id, peer_id=peer_id,
+            url=url, url_meta=meta, storage_mgr=self.storage_mgr,
+            piece_mgr=self.piece_mgr,
+            scheduler=self.scheduler if register else None,
+            disable_back_source=disable_back_source, task_type=task_type,
+            device_sink_factory=device_sink_factory,
+            shard_manifest=shard_manifest,
+            requested_shards=requested_shards,
+            flight=flight, relay=self.relay, pex=self.pex)
+        if qos is not None:
+            qos_cls, ruling = qos
+            conductor.qos_release = lambda c=qos_cls: self.qos.release(c)
+            if flight is not None:
+                # the admission ruling: a bulk task that rode the
+                # brownout queue carries it in its journal
+                flight.event(fr.QOS, parent=("brownout" if ruling == "queued"
+                                             else self.qos.state))
+        if self.p2p_engine_factory is not None:
+            conductor.set_p2p_engine(self.p2p_engine_factory())
+        if self.shaper is not None:
+            conductor.attach_shaper(self.shaper)
+        self._conductors[task_id] = conductor
+        conductor.start()
+        return conductor
 
     def _join_existing(self, task_id: str,
                        requested_shards: list[str] | None,

@@ -273,17 +273,21 @@ class PieceDownloader:
     async def download_span(self, *, dst_addr: str, task_id: str,
                             src_peer_id: str, pieces: list[PieceInfo],
                             on_first_byte=None, relay_open=None,
-                            meta: dict | None = None,
+                            qos_class: str = "", meta: dict | None = None,
                             ) -> tuple[bytearray, int]:
         """Fetch contiguous pieces in one ranged GET. Returns (buf,
         cost_ms): one pooled buffer holding the pieces' bytes back to back
         from ``pieces[0].range_start``; the caller releases it to
         ``bufpool.POOL`` after landing (and retires the relay span
-        ``relay_open`` opened, before that)."""
+        ``relay_open`` opened, before that). ``qos_class`` rides the GET
+        as ``?cls=``, so the parent's upload gate admits the transfer
+        under the right class; a classless caller adds no parameter."""
         start = pieces[0].range_start
         size = sum(p.range_size for p in pieces)
         path = (f"/download/{task_id[:3]}/{task_id}"
                 f"?peerId={quote(src_peer_id, safe='')}")
+        if qos_class:
+            path += f"&cls={quote(qos_class, safe='')}"
         headers = {"Range": f"bytes={start}-{start + size - 1}"}
         tp = tracing.traceparent()
         if tp:

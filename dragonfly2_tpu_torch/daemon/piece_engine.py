@@ -558,10 +558,16 @@ class PieceEngine:
         flight = conductor.flight
         on_first = None
         if flight is not None:
-            # worker pickup: queue_ms is scheduled -> dispatched, the
+            # worker pickup: queue_ms then measures the shaper's wait; the
             # parent's own queueing lands in ttfb_ms
             for info in d.pieces:
                 flight.event(fr.SCHEDULED, info.piece_num, d.parent.peer_id)
+        limiter = getattr(conductor, "rate_limiter", None)
+        if limiter is not None:
+            # the task's bucket from the traffic shaper: P2P fetches are
+            # paced by class and task, as back-source reads are
+            await limiter.acquire(d.size())
+        if flight is not None:
             for info in d.pieces:
                 flight.event(fr.DISPATCHED, info.piece_num, d.parent.peer_id)
 
@@ -586,7 +592,9 @@ class PieceEngine:
                 buf, cost = await self.downloader.download_span(
                     dst_addr=d.parent.addr, task_id=conductor.task_id,
                     src_peer_id=conductor.peer_id, pieces=d.pieces,
-                    on_first_byte=on_first, relay_open=span, meta=wire_meta)
+                    on_first_byte=on_first, relay_open=span,
+                    qos_class=getattr(conductor, "qos_class", ""),
+                    meta=wire_meta)
         except DFError as exc:
             if exc.code == Code.CLIENT_PEER_BUSY:
                 # backpressure, not failure: requeue without a report (a

@@ -12,10 +12,11 @@ default piece size, and the total learned at the end. Each piece
 being cut is an in-flight relay span (``relay.py``) while it fills, which
 the upload server can stream to the landing watermark; such spans carry
 no digest, as in the reference (a child landing one computes its own, the
-trust it would give the origin). Every origin read passes the
-daemon-wide ``total_limiter`` (``download.total_rate_limit_bps``; 0 =
-unlimited); the reference's traffic shaper, which splits that rate into
-per-task buckets, is not ported (ROADMAP Queue 1 item 5b).
+trust it would give the origin). Every origin read passes the task's
+bucket from the traffic shaper (``conductor.rate_limiter``: the shaper
+splits ``download.total_rate_limit_bps`` by class and task, and the same
+bucket paces the task's P2P fetches), or the daemon-wide
+``total_limiter`` when no shaper is attached.
 """
 
 from __future__ import annotations

@@ -12,8 +12,7 @@ clamps restart resets (``scheduler/fleetpulse.py``). Every read is
 getattr-defensive, as in the reference: a daemon wired without some
 subsystem still pulses what it has. The verdict ledger gives
 ``corrupt_verdicts``, ``shunned_parents`` and ``self_quarantined``; the
-port has no QoS governor yet (ROADMAP Queue 1 item 5b), so ``qos_state``
-and ``qos_shed`` keep their defaults.
+QoS governor (``daemon/qos.py``) gives ``qos_state`` and ``qos_shed``.
 """
 
 from __future__ import annotations

@@ -12,6 +12,15 @@ range that cannot be parsed or is not stored yet, 503 with
 
 A gate slot is held for the whole transmit (the reference's ``_Slot``):
 the scheduler's upload-slot accounting assumes a busy parent answers 503.
+The gate is class-aware: the requesting child's QoS class rides the GET
+(``?cls=``, unknown or absent is ``standard``); ``bulk`` requests hold at
+most ``bulk_concurrent_limit`` slots (default ``concurrent_limit - 2``,
+at least 1) and queue behind every non-bulk waiter, so a bulk herd never
+takes the slots a critical child needs (``df_qos_upload_active``,
+``df_qos_upload_shed_total``). Unlike the reference, a bulk waiter's class
+is counted when a release hands it the slot, not when it resumes, so two
+releases in between cannot let one bulk transfer too many through
+(ROADMAP known difference 49).
 A whole-file task's range goes out with ``loop.sendfile`` (the bytes
 never enter Python); the disk-read branch serves the rest.
 
@@ -27,7 +36,8 @@ task's flight (``TaskFlight.serve``), and ``GET /debug/flight`` and
 With a PEX gossiper (``pex.py``), ``GET``/``POST /pex/digest``,
 ``GET``/``POST /pex/summary`` and ``GET /debug/pex`` are routed too
 (``pex.add_pex_routes``); with a verdict ledger (``verdicts.py``),
-``GET /debug/verdicts``; ``GET /debug/health`` always, and with
+``GET /debug/verdicts``; with a QoS governor (``qos.py``),
+``GET /debug/qos``; ``GET /debug/health`` always, and with
 ``debug_endpoints`` ``/debug/stacks``, ``/debug/profile`` and
 ``GET``/``POST``/``DELETE /debug/faults``. The routes, the parser and the
 connection loop are ``common/httpd.py``'s. Routed requests take no slot
@@ -76,18 +86,32 @@ _relay_stalls = REGISTRY.counter(
 _relay_wait_secs = REGISTRY.histogram(
     "df_relay_wait_seconds",
     "time a streaming relay serve spent awaiting landing progress")
+# class-aware upload admission: bulk-class piece GETs are capped below the
+# total gate, so a bulk herd never holds every slot a critical child needs
+_qos_upload_active = REGISTRY.gauge(
+    "df_qos_upload_active", "upload slots currently held, by requesting "
+    "class", ("cls",))
+_qos_upload_shed = REGISTRY.counter(
+    "df_qos_upload_shed_total",
+    "piece requests 503-shed at the class-aware upload gate", ("cls",))
 
 class _Slot:
     """One concurrency-gate slot, held until the response body is fully
     written (or the connection dies)."""
 
-    __slots__ = ("server", "released", "t0")
+    __slots__ = ("server", "released", "t0", "cls")
 
-    def __init__(self, server: "UploadServer", *, adopted: bool = False):
+    def __init__(self, server: "UploadServer", *, adopted: bool = False,
+                 cls: str = "standard", counted: bool = False):
         """``adopted``: the capacity was handed over by a releasing
-        transfer; ``_active`` already counts it."""
+        transfer; ``_active`` already counts it. ``counted``: the handoff
+        also counted the class (a bulk waiter's wake); otherwise the class
+        is counted here."""
         self.server = server
         self.released = False
+        self.cls = cls
+        if not counted:
+            server._count_cls(cls, 1)
         self.t0 = time.monotonic()
         if not adopted:
             server._active += 1
@@ -98,6 +122,7 @@ class _Slot:
             return
         self.released = True
         srv = self.server
+        srv._count_cls(self.cls, -1)
         # feed the busy-hint EWMA with the observed hold time
         held_ms = (time.monotonic() - self.t0) * 1000.0
         srv._transfer_ms = (0.8 * srv._transfer_ms + 0.2 * held_ms
@@ -122,7 +147,8 @@ class UploadServer:
                  rate_limit_bps: int = 0, concurrent_limit: int = 0,
                  host: str = "0.0.0.0", flight_recorder=None, relay=None,
                  relay_stall_s: float = 10.0, pex=None,
-                 debug_endpoints: bool = False, verdicts=None):
+                 debug_endpoints: bool = False, verdicts=None,
+                 bulk_concurrent_limit: int = 0, qos=None):
         self.storage_mgr = storage_mgr
         self.flight_recorder = flight_recorder
         self.relay = relay                  # RelayHub (None = store-and-forward)
@@ -147,6 +173,12 @@ class UploadServer:
             # be diagnosable (``dfdiag --pod`` sweeps it)
             from .verdicts import add_verdict_routes
             add_verdict_routes(self.router, verdicts)
+        self.qos = qos                      # QosGovernor (/debug/qos)
+        if qos is not None:
+            # the QoS plane's readout: read-only and always on, like
+            # /debug/health (``dfdiag --qos`` reads it)
+            from .qos import add_qos_routes
+            add_qos_routes(self.router, qos)
         # the health snapshot is read-only and cheap: always on, so a
         # wedged daemon is diagnosable without a restart
         from ..common.health import add_health_routes
@@ -164,24 +196,46 @@ class UploadServer:
         self.limiter = TokenBucket(rate_limit_bps or 0)
         self.concurrent_limit = (concurrent_limit
                                  or self.DEFAULT_CONCURRENT_LIMIT)
+        # bulk-class GETs hold at most this many slots; the rest stay
+        # reserved for critical/standard children
+        self.bulk_limit = (bulk_concurrent_limit
+                           or max(1, self.concurrent_limit - 2))
         self._active = 0
+        self._active_cls: dict[str, int] = {}
         self._transfer_ms = 0.0     # EWMA slot-hold time -> 503 retry hint
         self._transfer_ms_at = 0.0
         self._slot_waiters: deque = deque()
+        self._bulk_waiters: deque = deque()   # bulk queues behind all others
         self._server: asyncio.base_events.Server | None = None
         self._conns: set[asyncio.Task] = set()
 
     def _pass_on_slot(self) -> None:
         """Give a freed slot to the next live waiter, else return it to
         capacity. Cancelled waiters are skipped: setting a result on one
-        would strand the slot."""
+        would strand the slot. Non-bulk waiters wake first; a bulk waiter
+        only while the bulk cap has headroom."""
         while self._slot_waiters:
             fut = self._slot_waiters.popleft()
             if not fut.done():
                 fut.set_result(None)
                 return
+        if self._active_cls.get("bulk", 0) < self.bulk_limit:
+            while self._bulk_waiters:
+                fut = self._bulk_waiters.popleft()
+                if not fut.done():
+                    # the class is counted at the handoff, not when the
+                    # waiter resumes: a second release (or a fresh bulk
+                    # arrival) in between would see the cap with room and
+                    # let one bulk transfer too many through
+                    self._count_cls("bulk", 1)
+                    fut.set_result("bulk")
+                    return
         self._active -= 1
         _upload_active.set(self._active)
+
+    def _count_cls(self, cls: str, delta: int) -> None:
+        self._active_cls[cls] = max(0, self._active_cls.get(cls, 0) + delta)
+        _qos_upload_active.labels(cls).set(self._active_cls[cls])
 
     async def start(self) -> None:
         self._server = await asyncio.start_server(
@@ -259,17 +313,25 @@ class UploadServer:
         return {"X-DF-Piece-Progress":
                 f"{len(md.pieces)}/{md.total_piece_count}"}
 
-    async def _acquire_slot(self) -> _Slot:
-        """A gate slot, queueing up to ``SLOT_WAIT_S`` behind earlier
-        waiters; a gate still full after that answers 503 with a retry
-        hint of about one measured transfer time."""
-        if self._active < self.concurrent_limit and not self._slot_waiters:
-            return _Slot(self)
+    async def _acquire_slot(self, cls: str = "standard") -> _Slot:
+        """A gate slot for a child of class ``cls``, queueing up to
+        ``SLOT_WAIT_S`` behind earlier waiters (a bulk request behind
+        every non-bulk one, and only while the bulk cap has headroom); a
+        gate still closed after that answers 503 with a retry hint of
+        about one measured transfer time."""
+        is_bulk = cls == "bulk"
+        waiters = self._bulk_waiters if is_bulk else self._slot_waiters
+        if not (self._active >= self.concurrent_limit or self._slot_waiters
+                or (is_bulk and (self._bulk_waiters
+                                 or self._active_cls.get("bulk", 0)
+                                 >= self.bulk_limit))):
+            return _Slot(self, cls=cls)
         deadline = time.monotonic() + self.SLOT_WAIT_S
         while True:
             remaining = deadline - time.monotonic()
             if remaining <= 0:
                 _upload_reqs.labels("503").inc()
+                _qos_upload_shed.labels(cls).inc()
                 # a congested-era EWMA must not dictate backoffs after the
                 # burst has passed: old hints decay to the floor
                 ewma = self._transfer_ms
@@ -281,21 +343,26 @@ class UploadServer:
                     "Retry-After": str(-(-hint_ms // 1000)),
                     "X-Retry-After-Ms": str(hint_ms)})
             fut = asyncio.get_running_loop().create_future()
-            self._slot_waiters.append(fut)
+            waiters.append(fut)
             try:
                 await asyncio.wait_for(fut, remaining)
             except asyncio.TimeoutError:
                 if fut.done() and not fut.cancelled():
-                    return _Slot(self, adopted=True)   # landed at the wire
+                    # landed at the wire
+                    return _Slot(self, adopted=True, cls=cls,
+                                 counted=fut.result() == cls)
                 continue
             except BaseException:
                 # request died while queued: re-home a slot handed to us
                 if fut.done() and not fut.cancelled():
+                    if fut.result() == cls:
+                        self._count_cls(cls, -1)
                     self._pass_on_slot()
                 else:
                     fut.cancel()
                 raise
-            return _Slot(self, adopted=True)
+            return _Slot(self, adopted=True, cls=cls,
+                         counted=fut.result() == cls)
 
     def _journal(self, task_id: str, ts, rng, query: dict, writer,
                  slot: _Slot, *, wait_ms: float,
@@ -351,7 +418,11 @@ class UploadServer:
                 _upload_reqs.labels("416").inc()
                 raise _HTTPError(
                     416, f"bytes {rng.start}+{rng.length} not stored yet")
-        slot = await self._acquire_slot()
+        # the requesting child's class rides the GET (piece_downloader)
+        cls = query.get("cls", "")
+        if cls not in ("critical", "standard", "bulk"):
+            cls = "standard"
+        slot = await self._acquire_slot(cls)
         try:
             if streaming:
                 await self._serve_relay(task_id, ts, rng, slot, query,

@@ -721,6 +721,27 @@ class ListApplicationsResponse:
 
 
 @message
+class TenantEntry:
+    """One manager-registered tenant with its quota and default service
+    class. Schedulers pull the table (``ListTenants``, on the
+    applications' cadence) and enforce ``max_running`` at register with
+    RESOURCE_EXHAUSTED and a retry-after hint."""
+
+    name: str = ""
+    qos_class: str = ""              # default class of the tenant's
+                                     # requests that carry none
+    max_running: int = 0             # concurrent running downloads
+                                     # cluster-wide (0 = unlimited)
+    shed_retry_after_ms: int = 0     # hint stamped on quota sheds
+                                     # (0 = the scheduler's default)
+
+
+@message
+class ListTenantsResponse:
+    tenants: list[TenantEntry] | None = None
+
+
+@message
 class SetSchedulerStateRequest:
     """Stopping scheduler -> manager: park this member's last exported
     quarantine/affinity summary, so the failover successor can import

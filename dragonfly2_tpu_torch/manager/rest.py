@@ -4,11 +4,12 @@ Counterpart of ``dragonfly2_tpu/manager/rest.py`` (reference
 ``manager/handlers`` + ``manager/router``) for the entities this slice
 ports: health, metrics, scheduler clusters (list, create), schedulers,
 seed peers, seed-peer clusters (list, create), applications (list,
-create) and models (list). The reference serves with ``aiohttp.web``; the
+create), tenants (list, and create with the class checked against the
+QoS vocabulary) and models (list). The reference serves with ``aiohttp.web``; the
 card's machine has no aiohttp, so this module speaks HTTP/1.1 on
 ``asyncio.start_server``, as ``daemon/upload_server.py`` does, with the
-same paths, status codes and JSON bodies. Jobs, tenants, users, personal
-access tokens, OAuth and the cluster PATCH wait for later slices.
+same paths, status codes and JSON bodies. Jobs, users, personal access
+tokens, OAuth and the cluster PATCH wait for later slices.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ import logging
 from urllib.parse import parse_qs, urlsplit
 
 from ..common.metrics import REGISTRY
-from ..idl.messages import ClusterConfig
+from ..idl.messages import PRIORITY_CLASSES, ClusterConfig
 from .store import Store
 
 log = logging.getLogger("df.mgr.rest")
@@ -81,6 +82,8 @@ class RestAPI:
             ("GET", "/api/v1/seed-peers"): self._list_seed_peers,
             ("GET", "/api/v1/applications"): self._list_applications,
             ("POST", "/api/v1/applications"): self._create_application,
+            ("GET", "/api/v1/tenants"): self._list_tenants,
+            ("POST", "/api/v1/tenants"): self._create_tenant,
             ("GET", "/api/v1/models"): self._list_models,
             ("GET", "/api/v1/seed-peer-clusters"): self._list_sp_clusters,
             ("POST", "/api/v1/seed-peer-clusters"): self._create_sp_cluster,
@@ -214,6 +217,32 @@ class RestAPI:
                 name, url=body.get("url", ""),
                 priority=body.get("priority")))
         return _json({"id": app_id}, 201)
+
+    async def _list_tenants(self, _q, _b):
+        return _json(await asyncio.to_thread(self.store.tenants))
+
+    async def _create_tenant(self, _q, raw):
+        """A tenant's quota row. The class is checked against the QoS
+        vocabulary at the write: a typo'd class fails the POST rather than
+        losing its default at the scheduler."""
+        body = _body(raw)
+        if not body.get("name"):
+            return _json({"error": "name required"}, 400)
+        cls = body.get("qos_class", "")
+        if cls and cls not in PRIORITY_CLASSES:
+            return _json({"error": f"unknown qos_class {cls!r} "
+                                   f"(known: {list(PRIORITY_CLASSES)})"},
+                         400)
+        try:
+            max_running = int(body.get("max_running", 0) or 0)
+            retry_ms = int(body.get("shed_retry_after_ms", 0) or 0)
+        except (TypeError, ValueError) as exc:
+            raise _HTTPError(400, str(exc)) from None
+        tenant_id = await asyncio.to_thread(
+            lambda: self.store.upsert_tenant(
+                body["name"], qos_class=cls, max_running=max_running,
+                shed_retry_after_ms=retry_ms))
+        return _json({"id": tenant_id}, 201)
 
     async def _list_models(self, query, _b):
         name = query.get("name")

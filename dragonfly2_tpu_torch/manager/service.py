@@ -2,13 +2,14 @@
 
 Counterpart of ``dragonfly2_tpu/manager/service.py`` (reference
 ``manager/rpcserver/``): GetSchedulers (searcher-driven cluster pick plus
-the cluster's config), GetSeedPeers, ListApplications, the
+the cluster's config), GetSeedPeers, ListApplications, ListTenants (the
+tenants' QoS quotas, on the schedulers' applications cadence), the
 self-registration RPCs schedulers and seed peers call on boot, the
 KeepAlive client stream (``manager_server_v2.go:737``) and the model
 registry (CreateModel, GetModel) and the schedulers' handoff relay
 (SetSchedulerState, GetSchedulerState: an opaque blob parked per
-scheduler, the freshest other member's handed back). ListTenants and
-IssueCertificate wait for later slices.
+scheduler, the freshest other member's handed back). IssueCertificate
+waits for a later slice.
 """
 
 from __future__ import annotations
@@ -24,10 +25,11 @@ from ..idl.messages import (ApplicationEntry, CreateModelRequest, Empty,
                             GetSchedulerStateRequest,
                             GetSchedulerStateResponse,
                             GetSeedPeersRequest, GetSeedPeersResponse,
-                            ListApplicationsResponse, ModelEntity, Priority,
+                            ListApplicationsResponse, ListTenantsResponse,
+                            ModelEntity, PRIORITY_CLASSES, Priority,
                             RegisterSchedulerRequest,
                             RegisterSeedPeerRequest,
-                            SetSchedulerStateRequest)
+                            SetSchedulerStateRequest, TenantEntry)
 from ..rpc.server import ServiceDef
 from .searcher import find_scheduler_cluster
 from .store import Store
@@ -82,6 +84,24 @@ class ManagerService:
                 name=r["name"], url=r.get("url", "") or "",
                 priority=Priority(prio)))
         return ListApplicationsResponse(applications=out)
+
+    async def list_tenants(self, req, context) -> ListTenantsResponse:
+        """The tenant quota table for the schedulers: each tenant's
+        default class and ``max_running``. A class outside the vocabulary
+        is clamped to "" here, so a typo'd row loses its default class
+        rather than reaching the enforcement point as an unknown label."""
+        rows = await asyncio.to_thread(self.store.tenants)
+        out = []
+        for r in rows:
+            cls = r.get("qos_class") or ""
+            if cls not in PRIORITY_CLASSES:
+                cls = ""
+            out.append(TenantEntry(
+                name=r["name"], qos_class=cls,
+                max_running=int(r.get("max_running") or 0),
+                shed_retry_after_ms=int(r.get("shed_retry_after_ms")
+                                        or 0)))
+        return ListTenantsResponse(tenants=out)
 
     async def register_scheduler(self, req: RegisterSchedulerRequest,
                                  context) -> Empty:
@@ -188,6 +208,7 @@ def build_service(svc: ManagerService) -> ServiceDef:
     d.unary_unary("GetSchedulers", svc.get_schedulers)
     d.unary_unary("GetSeedPeers", svc.get_seed_peers)
     d.unary_unary("ListApplications", svc.list_applications)
+    d.unary_unary("ListTenants", svc.list_tenants)
     d.unary_unary("RegisterScheduler", svc.register_scheduler)
     d.unary_unary("RegisterSeedPeer", svc.register_seed_peer)
     d.stream_unary("KeepAlive", svc.keep_alive)

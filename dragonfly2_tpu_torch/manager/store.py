@@ -4,9 +4,10 @@ Counterpart of ``dragonfly2_tpu/manager/store.py`` (reference
 ``manager/models/*.go`` + ``manager/database``). The DDL is the
 reference's, whole, so one database file opens in either package; this
 slice reads and writes the scheduler clusters, schedulers, seed-peer
-clusters, seed peers, applications, the model registry and the
-schedulers' parked handoff state. The tenant, job, user and OAuth tables
-are created and left to the slices that port their services.
+clusters, seed peers, applications, the tenants' QoS quotas, the model
+registry and the schedulers' parked handoff state. The job, user and
+OAuth tables are created and left to the slices that port their
+services.
 """
 
 from __future__ import annotations
@@ -350,6 +351,28 @@ class Store:
     def applications(self) -> list[dict]:
         return [dict(r) for r in self._rows(
             "SELECT * FROM applications ORDER BY id")]
+
+    # -- tenants (multi-tenant QoS quotas) -----------------------------
+
+    def upsert_tenant(self, name: str, *, qos_class: str = "",
+                      max_running: int = 0,
+                      shed_retry_after_ms: int = 0) -> int:
+        self._exec(
+            "INSERT INTO tenants(name, qos_class, max_running,"
+            " shed_retry_after_ms, created_at, updated_at)"
+            " VALUES (?,?,?,?,?,?)"
+            " ON CONFLICT(name) DO UPDATE SET qos_class=excluded.qos_class,"
+            " max_running=excluded.max_running,"
+            " shed_retry_after_ms=excluded.shed_retry_after_ms,"
+            " updated_at=excluded.updated_at",
+            (name, qos_class, int(max_running), int(shed_retry_after_ms),
+             _now(), _now()))
+        return int(self._rows("SELECT id FROM tenants WHERE name=?",
+                              (name,))[0]["id"])
+
+    def tenants(self) -> list[dict]:
+        return [dict(r) for r in self._rows(
+            "SELECT * FROM tenants ORDER BY id")]
 
     # -- model registry (reference manager/models/model.go:36) ---------
 

@@ -19,7 +19,7 @@ from ..idl.messages import (CreateModelRequest, Empty, GetModelRequest,
                             GetSchedulersResponse, GetSchedulerStateRequest,
                             GetSchedulerStateResponse, GetSeedPeersRequest,
                             GetSeedPeersResponse, KeepAliveRequest,
-                            ListApplicationsResponse,
+                            ListApplicationsResponse, ListTenantsResponse,
                             SetSchedulerStateRequest)
 from .client import Channel, ServiceClient
 
@@ -80,6 +80,9 @@ class ManagerLink:
 
     async def list_applications(self) -> ListApplicationsResponse:
         return await self._unary("ListApplications", Empty())
+
+    async def list_tenants(self) -> ListTenantsResponse:
+        return await self._unary("ListTenants", Empty())
 
     async def set_scheduler_state(self, req: SetSchedulerStateRequest
                                   ) -> None:

@@ -5,7 +5,7 @@ Counterpart of ``dragonfly2_tpu/scheduler/config.py`` (reference
 reference, with the reference's default, so a reference scheduler's file
 loads. ``KEY_CLASSES`` below puts each key in one class
 (``common/config.py``): wired, inert as in the reference, or unported
-(QoS, plugins and fleet TLS wait for later slices);
+(plugins and fleet TLS wait for later slices);
 ``SchedulerConfig.unported()`` names
 the unported keys a file sets, and the scheduler refuses to start with
 any. The relay-tree shaping is off by default (``relay_fanout`` 0, the
@@ -89,8 +89,11 @@ class SchedulerConfig:
     # relay chains instead of a star on the seed (Scheduling._relay_shape;
     # cut-through serving overlaps the chain's hops, daemon/relay.py)
     relay_fanout: int = 0
-    # unported (item 5b): per-class relay fan-out caps, bulk preemption
+    # per-class relay fan-out caps ({"bulk": 2, ...}); empty caps a bulk
+    # child at half of relay_fanout (Scheduling._relay_shape)
     class_fanout_caps: dict = field(default_factory=dict)
+    # a waiting critical child may evict one bulk child's edge from a
+    # slot-full holder (Scheduling.preempt_for)
     qos_preemption: bool = True
     # the pod-wide peer quarantine (quarantine.py): decayed corrupt-verdict
     # mass walks a host healthy -> suspect -> quarantined -> probation;
@@ -143,7 +146,7 @@ class SchedulerConfig:
 
 # The class of every key (common/config.py). Inert: a grep of
 # dragonfly2_tpu/ finds no reader of retry_limit outside its config
-# module. Unported, by ROADMAP Queue 1 item: QoS (5b), plugins (5d),
+# module. Unported, by ROADMAP Queue 1 item: plugins (5d),
 # fleet TLS and the directory only it reads (6).
 KEY_CLASSES: dict[str, str] = {
     "listen_ip": WIRED,
@@ -166,8 +169,8 @@ KEY_CLASSES: dict[str, str] = {
     "peer_upload_limit": WIRED,
     "seed_upload_limit": WIRED,
     "relay_fanout": WIRED,
-    "class_fanout_caps": unported("5b"),
-    "qos_preemption": unported("5b"),
+    "class_fanout_caps": WIRED,
+    "qos_preemption": WIRED,
     "quarantine_enabled": WIRED,
     "quarantine_corrupt_threshold": WIRED,
     "quarantine_halflife_s": WIRED,

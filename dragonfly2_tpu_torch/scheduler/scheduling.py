@@ -10,9 +10,13 @@ exact path), the quarantine registry's exclusion (``quarantine``:
 excluded as ``quarantined``, probation hosts pass within their probe
 budget) and the federation's (``federation``: ``federation.
 PodFederation``, a cross-pod parent only for the child pod's elected
-seeds, else ``cross-pod``); no QoS preemption. Both ``None`` (the
-defaults) skip every lookup: the rulings are the exact path without
-them. The ``sharded`` arm
+seeds, else ``cross-pod``). Both ``None`` (the defaults) skip every
+lookup: the rulings are the exact path without them. QoS: the relay
+fan-out cap is per class (``class_fanout_caps``; without caps a ``bulk``
+child gets half of ``relay_fanout``), and ``preempt_for`` lets a waiting
+``critical`` child evict one ``bulk`` child's edge from a slot-full
+content holder (``qos_preemption``), ruled under ``preempt`` with a
+``decision_kind=preempt`` row. The ``sharded`` arm
 (``shard_affinity.ShardAffinity``) rules sharded registers' tree-fetch
 subsets and never touches parent scoring; unlike the reference, its swap
 partners are exempt from the DAG-cycle exclusion, since two replicas that
@@ -31,7 +35,8 @@ profiler (``common/phasetimer.py``) times each ruling (``find``,
 ``refresh``, ``shard``) and its ``filter`` (with ``dag-walk`` inside),
 ``exclusion`` (the quarantine and federation lookups, one sample per
 ruling, fired only when either is armed), ``score``, ``relay`` and
-``emit`` phases under the same purity contract.
+``emit`` phases under the same purity contract, and each ``preempt``
+probe.
 """
 
 from __future__ import annotations
@@ -53,6 +58,11 @@ log = logging.getLogger("df.sched.core")
 _filter_excluded = REGISTRY.counter(
     "df_sched_filter_excluded_total",
     "candidate parents excluded by the scheduling filter", ("reason",))
+_preemptions = REGISTRY.counter(
+    "df_sched_preempt_total",
+    "bulk-class parent edges evicted so a waiting critical child could "
+    "be scheduled (QoS preemption; each ruling rides the decision "
+    "ledger)", ("cls",))
 
 # The filter's exclusion-reason vocabulary: every reason ``_trace`` fires
 # is one of these (counted in ``df_sched_filter_excluded_total`` and named
@@ -66,10 +76,15 @@ class Scheduling:
                  rng: random.Random | None = None, sharded=None,
                  quarantine=None, federation=None,
                  relay_fanout: int = 0,
+                 class_fanout_caps: dict | None = None,
+                 qos_preemption: bool = True,
                  candidate_parent_limit: int = CANDIDATE_PARENT_LIMIT,
                  filter_parent_limit: int = FILTER_PARENT_LIMIT):
         self.evaluator = evaluator
         self.relay_fanout = relay_fanout
+        # QoS: the per-class relay fan-out caps and bulk preemption
+        self.class_fanout_caps = dict(class_fanout_caps or {})
+        self.qos_preemption = qos_preemption
         self.candidate_parent_limit = candidate_parent_limit
         self.filter_parent_limit = filter_parent_limit
         self.rng = rng if rng is not None else random
@@ -230,10 +245,13 @@ class Scheduling:
         never tears down working ones). Returns the reshaped order and the
         decision row's note (None when nothing was capped)."""
         fanout = self.relay_fanout
-        # a bulk child claims half of a parent's relay slots, leaving
-        # breadth near the seed for the foreground classes (the reference's
-        # per-class caps, ``class_fanout_caps``, wait for QoS classes)
-        if getattr(child, "qos_class", "standard") == "bulk":
+        # per-class slot cap: bulk children claim fewer of a parent's
+        # relay slots, leaving breadth near the seed for the foreground
+        # classes; without caps a bulk child gets half the fan-out
+        cls = getattr(child, "qos_class", "standard")
+        if self.class_fanout_caps:
+            fanout = int(self.class_fanout_caps.get(cls, fanout))
+        elif cls == "bulk":
             fanout = max(1, fanout // 2)
         dag = child.task.dag
         mine = child.last_offer_ids
@@ -253,6 +271,73 @@ class Scheduling:
                 "capped": [p.id for p in over],
                 "child_counts": {p.id: counts[p.id] for p in over}}
         return under + over, note
+
+    def preempt_for(self, child: Peer) -> Peer | None:
+        """Bulk preemption: a waiting ``critical`` child found no content
+        holder because every holder's upload slots are taken; evict one
+        ``bulk`` child's edge from the first such holder, so the next
+        ``find_parents`` sees a free slot. The victim keeps its other
+        parents and its pieces, and a later refresh re-offers it whatever
+        is legal then. Returns the victim (the caller pushes it its
+        shrunk offer, so its engine drops the edge) or None."""
+        if (not self.qos_preemption
+                or getattr(child, "qos_class", "standard") != "critical"):
+            return None
+        with phasetimer.ruling("preempt"):
+            return self._preempt_scan(child)
+
+    def _preempt_scan(self, child: Peer) -> Peer | None:
+        task = child.task
+        dag = task.dag
+        # holders with no free slot; the victim edge is the bulk child that
+        # joined the parent last (it has sunk the least into the edge)
+        for parent in task.peers.values():
+            if (parent.id == child.id or not parent.has_content()
+                    or parent.host.free_upload_slots() > 0
+                    or parent.id not in dag):
+                continue
+            victims = [
+                task.peers[cid] for cid in dag.children(parent.id)
+                if cid in task.peers
+                and getattr(task.peers[cid], "qos_class",
+                            "standard") == "bulk"
+                and not task.peers[cid].is_done()]
+            if not victims:
+                continue
+            victim = max(victims, key=lambda p: p.created_at)
+            keep = [pid for pid in dag.parents(victim.id)
+                    if pid != parent.id]
+            task.set_parents(victim.id, keep)
+            victim.last_offer_ids = set(keep)
+            _preemptions.labels("bulk").inc()
+            log.info("preempt: bulk child %s lost parent %s so critical "
+                     "%s can schedule", victim.id[-12:], parent.id[-12:],
+                     child.id[-12:])
+            if self.decision_sink is not None:
+                self._decision_seq += 1
+                self.decision_sink({
+                    "kind": "decision",
+                    "decision_id": (f"d{self._decision_seq:08d}."
+                                    f"{child.id[-12:]}"),
+                    "decision_kind": "preempt",
+                    "task_id": task.id,
+                    "peer_id": child.id,
+                    "host_id": child.host.id,
+                    "qos_class": getattr(child, "qos_class", "standard"),
+                    "tenant": getattr(child, "tenant", ""),
+                    "candidates": [],
+                    "excluded": [],
+                    "chosen": [],
+                    "preempted": {
+                        "victim_peer_id": victim.id,
+                        "victim_class": "bulk",
+                        "victim_tenant": getattr(victim, "tenant", ""),
+                        "parent_id": parent.id,
+                        "victim_parents_kept": keep,
+                    },
+                })
+            return victim
+        return None
 
     def find_parents(self, child: Peer) -> list[Peer]:
         return self._decide(child, "find")

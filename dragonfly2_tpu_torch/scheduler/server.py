@@ -10,7 +10,9 @@ configured, refreshes the application priority table, and the announcer
 pulls fitted models from the registry. Shard affinity
 (``shard_affinity_enabled``) rules sharded registers with the ledger as
 its sink and forgets evicted hosts and tasks. ``tracing_jsonl`` /
-``tracing_otlp`` configure the process's tracer at start. The config's
+``tracing_otlp`` configure the process's tracer at start. The manager's tenant table
+(``ListTenants``) is refreshed on the applications' cadence and enforced
+at register (``SchedulerService.tenants``). The config's
 cluster id, parent and back-source limits, TTLs and GC cadence reach the
 manager link, the announcer, ``Scheduling``, ``SchedulerService`` and
 ``Resource``. With ``fleetpulse_enabled`` (the default) the fleet pulse
@@ -28,9 +30,9 @@ it recovered), persisted on the GC runner when dirty or every
 ``statestore_interval_s`` and at stop, where with ``statestore_handoff``
 and a manager the quarantine/affinity summary is parked with the
 manager for a successor to import at its attach (unsigned: the issuance
-token is fleet TLS's, item 6). No tenant table (item 5b) and no fleet
-TLS: a config that sets one of their keys is refused at construction,
-by name.
+token is fleet TLS's, item 6); the state store's ``tenants`` component
+carries the tenant and application tables. No fleet TLS: a config that
+sets one of its keys is refused at construction, by name.
 """
 
 from __future__ import annotations
@@ -82,6 +84,8 @@ class Scheduler:
         self.scheduling = Scheduling(
             make_evaluator(cfg.algorithm, topo_store=self.topo), rng=rng,
             relay_fanout=cfg.relay_fanout,
+            class_fanout_caps=cfg.class_fanout_caps,
+            qos_preemption=cfg.qos_preemption,
             candidate_parent_limit=cfg.candidate_parent_limit,
             filter_parent_limit=cfg.filter_parent_limit)
         if records is None and (cfg.records_dir or cfg.trainer_address):
@@ -195,19 +199,23 @@ class Scheduler:
         self._app_refresh: asyncio.Task | None = None
 
     def _register_service_state(self) -> None:
-        """The service's durable slices: the priority tables (``tenants``
-        stays empty here, the tenant quotas being item 5b) and the boot
-        epoch, strictly increasing across durable restarts."""
+        """The service's durable slices: the tenant quota and application
+        priority tables, and the boot epoch, strictly increasing across
+        durable restarts."""
         svc = self.service
 
         def _export_tenants() -> dict:
-            return {"tenants": {}, "applications": svc.applications}
+            return {"tenants": svc.tenants,
+                    "applications": svc.applications}
 
         def _restore_tenants(sub: dict) -> int:
-            # restored priorities hold until the first manager refresh
+            # restored quotas hold until the first manager refresh
+            # overwrites them: a recovered brain enforces tenant limits
+            # from its first ruling
+            svc.tenants = dict(sub.get("tenants") or {})
             svc.applications = {k: int(v) for k, v in
                                 (sub.get("applications") or {}).items()}
-            return len(sub.get("tenants") or {})
+            return len(svc.tenants)
 
         def _export_meta() -> dict:
             return {"epoch": svc.epoch}
@@ -390,10 +398,23 @@ class Scheduler:
 
     async def _refresh_applications(self) -> None:
         """Pull the application priority table into the service (reference
-        dynconfig.GetApplications feeding ``Peer.CalculatePriority``)."""
+        dynconfig.GetApplications feeding ``Peer.CalculatePriority``), and
+        the tenant quota table on the same cadence; each fails on its
+        own, so a manager without ``ListTenants`` still feeds
+        applications."""
         resp = await self.manager.list_applications()
         self.service.applications = {
             e.name: int(e.priority) for e in (resp.applications or [])}
+        try:
+            tresp = await self.manager.list_tenants()
+        except Exception as exc:  # noqa: BLE001 - older manager: no verb
+            log.debug("tenant refresh failed: %s", exc)
+            return
+        self.service.tenants = {
+            t.name: {"qos_class": t.qos_class,
+                     "max_running": int(t.max_running),
+                     "shed_retry_after_ms": int(t.shed_retry_after_ms)}
+            for t in (tresp.tenants or [])}
 
     async def _app_refresh_loop(self) -> None:
         while True:

@@ -39,8 +39,16 @@ trainer's dataset) are written where the reference writes them, and so
 are the cluster view's (``cluster_view.py``, ``GET /debug/cluster``). A
 register and a stream's first offer are spans of the caller's trace
 (``sched.register``, ``sched.offer``), and an armed ruling profiler
-notes each first offer's queue wait. Left out, for later slices:
-tenant quotas, QoS preemption and preheat.
+notes each first offer's queue wait.
+
+QoS: a register's class is its request's, else its tenant's default
+(``tenants``, the manager's table), else ``standard``; a tenant at its
+``max_running`` is refused before the peer exists (RESOURCE_EXHAUSTED
+with the row's retry-after, ``df_qos_quota_shed_total``). A ``critical``
+child that finds no content holder (an empty or holderless offer in the
+patience loop, a refresh, a reschedule) may preempt one bulk edge
+(``Scheduling.preempt_for``); the victim is pushed its shrunk offer.
+Preheat is left for a later slice.
 
 A report stream that ends with the daemon's half-close is not marked
 ``stream_gone``: the daemon half-closes only on its way to the terminal
@@ -63,7 +71,8 @@ from ..common.sharding import parse_shard_names
 from ..idl.messages import (CLASS_DEFAULT_PRIORITY, PRIORITY_CLASSES,
                             AnnounceContentRequest, AnnounceContentResponse,
                             AnnounceHostRequest, AnnounceHostResponse,
-                            Empty, LeaveHostRequest, LeavePeerRequest,
+                            Empty, HostType, LeaveHostRequest,
+                            LeavePeerRequest,
                             PeerPacket, PeerResult, PieceResult, Priority,
                             ProbeTarget, RegisterPeerTaskRequest,
                             RegisterResult, SinglePiece, SizeScope,
@@ -87,6 +96,11 @@ _schedules = REGISTRY.counter("df_sched_schedule_total",
                               "scheduling decisions", ("kind",))
 _piece_reports = REGISTRY.counter("df_sched_piece_report_total",
                                   "piece results received", ("result",))
+_quota_sheds = REGISTRY.counter(
+    "df_qos_quota_shed_total",
+    "registers rejected by a tenant's max_running quota "
+    "(RESOURCE_EXHAUSTED + retry-after; HTTP surfaces answer 429)",
+    ("tenant",))
 _recovery_announces = REGISTRY.counter(
     "df_sched_recovery_announces_total",
     "daemon content re-announces after a scheduler epoch change, by "
@@ -139,6 +153,10 @@ class SchedulerService:
         # application -> priority (the manager's table, refreshed by the
         # server); consulted when a register carries no explicit priority
         self.applications: dict[str, int] = {}
+        # tenant -> quota row ({"qos_class", "max_running",
+        # "shed_retry_after_ms"}), the manager's tenants table on the same
+        # cadence; enforced at register
+        self.tenants: dict[str, dict] = {}
 
     # ------------------------------------------------------------------
     # RegisterPeerTask
@@ -170,6 +188,12 @@ class SchedulerService:
             # before the peer exists so a retrying client grows nothing
             raise DFError(Code.SCHED_FORBIDDEN,
                           "download forbidden by priority (LEVEL1)")
+        # the tenant's quota, checked before the peer exists for the same
+        # reason. Seed hosts are exempt: a seed's register replays the
+        # client's UrlMeta, and billing it to the tenant would shed the
+        # very pull that lets the admitted download finish P2P
+        if req.peer_host.type == HostType.NORMAL:
+            self._enforce_tenant_quota(tenant)
         if self.quarantine is not None:
             # the self-quarantine flag rides every register: a daemon that
             # found its own bit rot is excluded from its first contact
@@ -280,14 +304,54 @@ class SchedulerService:
                 return int(prio)
         return CLASS_DEFAULT_PRIORITY.get(qos_class, int(Priority.LEVEL0))
 
-    @staticmethod
-    def _resolve_class(url_meta) -> tuple[str, str]:
-        """(qos_class, tenant) for a register."""
+    def _resolve_class(self, url_meta) -> tuple[str, str]:
+        """(qos_class, tenant) for a register: the request's class wins; a
+        classless request of a known tenant takes the tenant's default
+        class; everything else is ``standard``."""
         tenant = url_meta.tenant if url_meta is not None else ""
         raw = url_meta.qos_class if url_meta is not None else ""
         if raw in PRIORITY_CLASSES:
             return raw, tenant
+        row = self.tenants.get(tenant) if tenant else None
+        if row and row.get("qos_class") in PRIORITY_CLASSES:
+            return row["qos_class"], tenant
         return resolve_class(raw), tenant
+
+    TENANT_SHED_RETRY_MS = 2000
+
+    def _enforce_tenant_quota(self, tenant: str) -> None:
+        """``max_running``: the tenant's live peers (not terminal, not
+        stale, not on a seed host) across every task, counted on demand:
+        a register is not the hot path, and a counter kept across GC and
+        stream deaths would drift when it matters."""
+        row = self.tenants.get(tenant) if tenant else None
+        if not row:
+            return
+        limit = int(row.get("max_running") or 0)
+        if limit <= 0:
+            return
+        stale_after = time.time() - 300.0
+        running = 0
+        for task in self.resource.tasks.values():
+            for p in task.peers.values():
+                if (p.tenant != tenant or p.is_done()
+                        or p.host.msg.type != HostType.NORMAL):
+                    continue
+                # a crashed peer's stream is gone and its clock stops: it
+                # must not hold quota until its TTL
+                if p.stream_gone or p.updated_at < stale_after:
+                    continue
+                running += 1
+                if running >= limit:
+                    _quota_sheds.labels(tenant).inc()
+                    exc = DFError(
+                        Code.RESOURCE_EXHAUSTED,
+                        f"tenant {tenant!r} at max_running={limit}; "
+                        f"retry later")
+                    exc.retry_after_ms = int(
+                        row.get("shed_retry_after_ms") or 0) \
+                        or self.TENANT_SHED_RETRY_MS
+                    raise exc
 
     # ------------------------------------------------------------------
     # ReportPieceResult (bidi stream)
@@ -376,6 +440,19 @@ class SchedulerService:
                 return
             self._maybe_retrigger_seed(peer.task)
             await self._refresh_parents(peer)
+            if (peer.qos_class == "critical" and peer.last_offer_ids
+                    and not any(
+                        p is not None and p.has_content()
+                        for p in (peer.task.peers.get(pid)
+                                  for pid in peer.last_offer_ids))):
+                # starving mid-download: every offered parent is a
+                # pieceless sibling while holders sit slot-full behind
+                # bulk edges. The patience loop's preemption rule, on the
+                # refresh cadence
+                victim = self.scheduling.preempt_for(peer)
+                if victim is not None:
+                    await self._push_victim_packet(victim)
+                    await self._refresh_parents(peer)
 
     async def _schedule_with_patience(self, peer: Peer,
                                       sink: asyncio.Queue) -> None:
@@ -402,6 +479,14 @@ class SchedulerService:
                 # are scarce. It has nothing to give yet: drop the edges
                 peer.task.detach_children(peer.id)
             parents = self.scheduling.find_parents(peer)
+            if parents and not any(p.has_content() for p in parents):
+                # a holderless offer (pieceless siblings only): a critical
+                # child starving because every holder is slot-full may
+                # evict one bulk edge and be ruled again now
+                victim = self.scheduling.preempt_for(peer)
+                if victim is not None:
+                    await self._push_victim_packet(victim)
+                    continue
             if parents:
                 if phasetimer.ARMED:
                     # queue wait: the stream's arrival -> this offer (the
@@ -411,6 +496,11 @@ class SchedulerService:
                 self._offer(peer, parents, "parents")
                 sink.put_nowait(self.scheduling.build_packet(peer, parents))
                 return
+            # QoS preemption, empty-offer form: no legal parent at all
+            victim = self.scheduling.preempt_for(peer)
+            if victim is not None:
+                await self._push_victim_packet(victim)
+                continue
             self._maybe_retrigger_seed(peer.task)
             seed_pending = (peer.task.seed_job is not None
                             and not peer.task.seed_job.done())
@@ -586,11 +676,28 @@ class SchedulerService:
         peer.packet_sink.put_nowait(self.scheduling.build_packet(peer,
                                                                  parents))
 
+    async def _push_victim_packet(self, victim: Peer) -> None:
+        """Send a preempted bulk child its shrunk parent set, so its
+        engine drops the evicted edge and requeues the pieces in flight
+        on it against the parents it keeps."""
+        if victim.packet_sink is None:
+            return
+        parents = [victim.task.peers[pid]
+                   for pid in victim.last_offer_ids
+                   if pid in victim.task.peers]
+        victim.packet_sink.put_nowait(
+            self.scheduling.build_packet(victim, parents))
+
     async def _reschedule(self, peer: Peer) -> None:
         if (peer.packet_sink is None or peer.is_done()
                 or peer.state == PeerState.BACK_SOURCE):
             return
         parents = self.scheduling.find_parents(peer)
+        if not parents:
+            victim = self.scheduling.preempt_for(peer)
+            if victim is not None:
+                await self._push_victim_packet(victim)
+                parents = self.scheduling.find_parents(peer)
         if parents:
             self._offer(peer, parents, "parents")
             peer.packet_sink.put_nowait(

@@ -21,14 +21,19 @@ self-check), ``--pr6`` (podscope's pod numbers), ``--pr8``
 (decision-ledger replay), ``--pr9`` (cold start, pull vs relay, at pod
 sizes 64-256), ``--pr10`` (content-store churn), ``--pr12`` (a byzantine
 holder, quarantine on vs off), ``--pr13`` (cross-pod federation, flat vs
-hierarchical, and a pod seed killed mid-pull), ``--pr14`` (sharded
-rollout), ``--pr17`` (a scheduler crash, durable vs amnesiac) and
-``--pr19`` (the learned loop: datagen, two seeded fits on
-``--device``, a learned leg). The result is printed, or written to
-``--out`` when it names a file; nothing is written by default. The
-reference's other points need modules this package does not have yet and
-are refused (exit 2); ``fleetpulse_legs`` is ``--pr18`` without the one
-key that needs them.
+hierarchical, and a pod seed killed mid-pull), ``--pr11`` (multi-tenant
+QoS: a critical pull against a bulk herd on one uplink, split by the
+shaper's ``class_shares`` and gated by the governor's ladder),
+``--pr14`` (sharded rollout), ``--ctrl`` (the control-plane storm: a
+cold register herd, a refresh storm, preemption and shard rulings
+through ``Scheduling`` with the quarantine registry, the federation and
+shard affinity armed, at 64 daemons and, unless ``--smoke``, 1,000, 5,000
+and 10,000), ``--pr17`` (a scheduler crash, durable vs amnesiac),
+``--pr18`` (the fleet pulse, with ``fleetpulse_pure``: the storm's
+rulings with pulses ingested mid-storm equal those without) and
+``--pr19`` (the learned loop: datagen, two seeded fits on ``--device``,
+a learned leg). The result is printed, or written to ``--out`` when it
+names a file; nothing is written by default.
 
 The fit in ``--pr19`` is the only device work: ``--device`` defaults to
 ``cuda`` and raises without a CUDA card.
@@ -48,15 +53,18 @@ import tempfile
 import time
 
 from ..common import digest as digestlib
-from ..common import faultgate, podscope
+from ..common import faultgate, phasetimer, podscope
 from ..common.podscope import _pctl
+from ..common.rate import class_shares
 from ..common.sharding import ShardTracker, pieces_for_shards
 from ..daemon import flight_recorder as fr
 from ..daemon.flight_recorder import TaskFlight
+from ..daemon.traffic_shaper import CLASS_WEIGHTS
 from ..idl.base import dumps as idl_dumps
 from ..idl.messages import Host as HostMsg
 from ..idl.messages import (AnnounceHostRequest, HostType, LinkType,
                             PulseDigest, ShardInfo, TopologyInfo)
+from ..scheduler.ctrl_debug import CtrlObservatory
 from ..scheduler.decision_ledger import (DecisionLedger, replay_decisions,
                                          replay_regret)
 from ..scheduler.evaluator import make_evaluator
@@ -75,7 +83,6 @@ from ..storage.store import TaskStorage
 from ..tpu.topology import LINK_TIER_NAMES, link_type
 from ..trainer import pipeline, serving, training
 from ..trainer.features import label_from_cost
-from . import refuse_unported
 
 # The reference simulator's model inputs: a modeled TPU pod's links (bytes
 # per second, milliseconds) and its host-to-device rate. They are the
@@ -104,17 +111,6 @@ RELAY_FANOUT = 4                 # tree cap the cold_relay scheduler applies
 STAGES = ("schedule", "first_byte", "wire", "hbm", "total")
 _ROW_KEY = {"schedule": "queue_ms", "first_byte": "ttfb_ms",
             "wire": "wire_ms", "hbm": "hbm_ms", "total": "total_ms"}
-
-# the reference's points whose modules this package lacks:
-# flag -> what it needs (ROADMAP Queue 1 item)
-UNPORTED_POINTS = {
-    "--ctrl": "the control-plane storm (run_ctrl_bench), the head of "
-              "ROADMAP Queue 1",
-    "--pr18": "its fleetpulse_pure key runs the control-plane storm "
-              "(run_ctrl_bench), the head of ROADMAP Queue 1",
-    "--pr11": "the QoS traffic shaper, ROADMAP Queue 1 item 5b",
-}
-
 
 class _Leecher:
     __slots__ = ("peer", "flight", "done", "inflight", "parents",
@@ -860,6 +856,237 @@ def _run_pr19(args) -> dict:
                     "learned": learned["wall_ms"]},
         "seed_served_ratio": {"heuristic": base["seed_served_ratio"],
                               "learned": learned["seed_served_ratio"]},
+    }
+
+
+# Multi-tenant QoS under contention: a ``critical`` foreground pull shares
+# one feeder uplink with a ``bulk`` herd. A fluid-flow event simulation on
+# a virtual clock: between events every active transfer moves at its
+# granted rate, which comes from the daemon shaper's own split
+# (``common/rate.class_shares`` over ``traffic_shaper.CLASS_WEIGHTS``)
+# with QoS on, and from a plain per-transfer fair share with it off. Bulk
+# admission follows the governor's ladder (``daemon/qos.py``):
+# ``bulk_active_limit`` concurrent, a bounded queue and wait, shed with
+# retry; the queued and shed counts ride the result.
+
+QOS_UPLINK_BPS = 1.5e9          # the shared DCN feeder link
+QOS_BULK_ACTIVE_LIMIT = 4       # governor gate in the modeled daemon
+QOS_QUEUE_LIMIT = 8
+QOS_QUEUE_WAIT_MS = 400.0
+QOS_SHED_RETRY_MS = 250.0
+QOS_FG_THINK_MS = (1.0, 3.0)    # foreground inter-piece think (jittered)
+
+
+def run_qos_bench(*, seed: int = 7, fg_pieces: int = 32,
+                  bulk_workers: int = 12, piece_size: int = 4 << 20,
+                  qos: bool = True, contended: bool = True) -> dict:
+    """One contended (or solo-foreground) run; returns per-class piece
+    latencies and the shed and queue counts. A pure function of its
+    arguments: virtual clock, seeded rng, no globals."""
+    rng = random.Random(seed)
+    # transfer: [cls, remaining_bytes, size, t_start, worker]
+    active: list[list] = []
+    fg_latencies: list[float] = []
+    bulk_latencies: list[float] = []
+    bulk_done_bytes = 0
+    counters = {"queued": 0, "shed": 0, "bulk_started": 0}
+    fg_started = 0
+    t = 0.0
+
+    def rates() -> dict[int, float]:
+        """bytes/ms granted to each active transfer at this instant."""
+        if not active:
+            return {}
+        if not qos:
+            share = QOS_UPLINK_BPS / len(active) / 1000.0
+            return {id(tr): share for tr in active}
+        demand: dict[str, float] = {}
+        for tr in active:
+            demand[tr[0]] = demand.get(tr[0], 0.0) + 1.0
+        shares = class_shares(QOS_UPLINK_BPS, CLASS_WEIGHTS, demand)
+        return {id(tr): shares[tr[0]] / demand[tr[0]] / 1000.0
+                for tr in active}
+
+    # event heap: (t_ms, seq, kind, payload)
+    events: list[tuple] = []
+    seq = 0
+
+    def push(at: float, kind: str, payload=None) -> None:
+        nonlocal seq
+        heapq.heappush(events, (at, seq, kind, payload))
+        seq += 1
+
+    bulk_queue: list[tuple[float, int]] = []   # (enqueued_at, worker)
+
+    def bulk_size() -> int:
+        return int(piece_size * rng.uniform(0.9, 1.1))
+
+    def try_start_bulk(worker: int, now: float) -> None:
+        counters_active = sum(1 for tr in active if tr[0] == "bulk")
+        if qos and counters_active >= QOS_BULK_ACTIVE_LIMIT:
+            if len(bulk_queue) >= QOS_QUEUE_LIMIT:
+                # shed: the worker backs off for the governor's hint
+                counters["shed"] += 1
+                push(now + QOS_SHED_RETRY_MS, "bulk_want", worker)
+                return
+            counters["queued"] += 1
+            bulk_queue.append((now, worker))
+            push(now + QOS_QUEUE_WAIT_MS, "bulk_deadline", worker)
+            return
+        size = bulk_size()
+        counters["bulk_started"] += 1
+        active.append(["bulk", float(size), size, now, worker])
+
+    def drain_bulk_queue(now: float) -> None:
+        while bulk_queue and sum(
+                1 for tr in active if tr[0] == "bulk") \
+                < QOS_BULK_ACTIVE_LIMIT:
+            enq, worker = bulk_queue.pop(0)
+            if now - enq > QOS_QUEUE_WAIT_MS:
+                counters["shed"] += 1
+                push(now + QOS_SHED_RETRY_MS, "bulk_want", worker)
+                continue
+            size = bulk_size()
+            counters["bulk_started"] += 1
+            active.append(["bulk", float(size), size, now, worker])
+
+    push(0.0, "fg_want", None)
+    if contended:
+        for w in range(bulk_workers):
+            push(rng.uniform(0.0, 2.0), "bulk_want", w)
+
+    SAFETY_MS = 600_000.0
+    while fg_started < fg_pieces or any(tr[0] == "critical"
+                                        for tr in active):
+        if t > SAFETY_MS:
+            break
+        # next discrete event vs next transfer completion under current
+        # rates (fluid advance between events)
+        grant = rates()
+        next_done = None
+        for tr in active:
+            r = grant[id(tr)]
+            eta = t + (tr[1] / r if r > 0 else SAFETY_MS)
+            if next_done is None or eta < next_done[0]:
+                next_done = (eta, tr)
+        next_event = events[0][0] if events else None
+        if next_done is not None and (next_event is None
+                                      or next_done[0] <= next_event):
+            # advance the fluid to the completion moment
+            dt = next_done[0] - t
+            for tr in active:
+                tr[1] = max(0.0, tr[1] - grant[id(tr)] * dt)
+            t = next_done[0]
+            tr = next_done[1]
+            active.remove(tr)
+            cls, _rem, size, t0, worker = tr
+            if cls == "critical":
+                fg_latencies.append(t - t0)
+                if fg_started < fg_pieces:
+                    push(t + rng.uniform(*QOS_FG_THINK_MS),
+                         "fg_want", None)
+            else:
+                bulk_latencies.append(t - t0)
+                bulk_done_bytes += size
+                if contended:
+                    push(t, "bulk_want", worker)
+            drain_bulk_queue(t)
+            continue
+        if next_event is None:
+            break
+        # advance the fluid to the event moment, then apply it
+        dt = next_event - t
+        for tr in active:
+            tr[1] = max(0.0, tr[1] - grant.get(id(tr), 0.0) * dt)
+        t = next_event
+        _at, _s, kind, payload = heapq.heappop(events)
+        if kind == "fg_want":
+            if fg_started < fg_pieces:
+                fg_started += 1
+                size = int(piece_size * rng.uniform(0.95, 1.05))
+                active.append(["critical", float(size), size, t, -1])
+        elif kind == "bulk_want":
+            try_start_bulk(payload, t)
+        elif kind == "bulk_deadline":
+            # a queued admission whose bounded wait expired: shed
+            for i, (enq, worker) in enumerate(bulk_queue):
+                if worker == payload and t - enq >= QOS_QUEUE_WAIT_MS:
+                    bulk_queue.pop(i)
+                    counters["shed"] += 1
+                    push(t + QOS_SHED_RETRY_MS, "bulk_want", worker)
+                    break
+
+    fg_sorted = sorted(fg_latencies)
+    bulk_sorted = sorted(bulk_latencies)
+    makespan = t
+    return {
+        "qos": qos,
+        "contended": contended,
+        "fg_pieces_done": len(fg_latencies),
+        "fg_pieces_requested": fg_pieces,
+        "fg_latency_ms": {"p50": _pctl(fg_sorted, 0.50),
+                          "p99": _pctl(fg_sorted, 0.99)},
+        "bulk_latency_ms": {"p50": _pctl(bulk_sorted, 0.50),
+                            "p99": _pctl(bulk_sorted, 0.99)},
+        "bulk_pieces_done": len(bulk_latencies),
+        "bulk_throughput_bps": (round(bulk_done_bytes
+                                      / (makespan / 1000.0))
+                                if makespan > 0 else 0),
+        "bulk_queued": counters["queued"],
+        "bulk_shed": counters["shed"],
+        "makespan_ms": round(makespan, 3),
+        # zero starved foreground pieces is the no-deadlock acceptance
+        "fg_starved": fg_pieces - len(fg_latencies),
+    }
+
+
+def _run_pr11(args) -> dict:
+    """Multi-tenant QoS under contention. The baseline sim keeps its
+    ``schedule_digest`` (no class machinery touches the scheduler). Gates:
+    the foreground ``critical`` p99 with QoS on stays within 1.5x of its
+    uncontended p99, while the same herd without QoS blows it out by an
+    order of magnitude; bulk throughput degrades (below the no-QoS
+    free-for-all) instead of the pod deadlocking (no starved foreground
+    piece, sheds counted)."""
+    base = run_bench(**_bench_kw(args))
+    # the full shape over-subscribes the governor's gate (16 workers
+    # against 4 active and 8 queued) so the point walks the whole ladder,
+    # shed included; the smoke shape stays inside the queue
+    shape = dict(seed=args.seed,
+                 fg_pieces=8 if args.smoke else 32,
+                 bulk_workers=6 if args.smoke else 16,
+                 piece_size=(256 << 10) if args.smoke else (4 << 20))
+    uncontended = run_qos_bench(**shape, qos=True, contended=False)
+    contended_no_qos = run_qos_bench(**shape, qos=False, contended=True)
+    contended_qos = run_qos_bench(**shape, qos=True, contended=True)
+    base_p99 = max(uncontended["fg_latency_ms"]["p99"], 1e-9)
+    ratio_qos = round(contended_qos["fg_latency_ms"]["p99"] / base_p99, 4)
+    ratio_no_qos = round(
+        contended_no_qos["fg_latency_ms"]["p99"] / base_p99, 4)
+    scenarios = {"uncontended": uncontended,
+                 "contended_no_qos": contended_no_qos,
+                 "contended_qos": contended_qos}
+    qos_digest = hashlib.sha256(json.dumps(
+        scenarios, sort_keys=True).encode()).hexdigest()
+    return {
+        "bench": "dfbench-qos",
+        "seed": args.seed,
+        "fg_pieces": shape["fg_pieces"],
+        "bulk_workers": shape["bulk_workers"],
+        "piece_size": shape["piece_size"],
+        "uplink_bps": QOS_UPLINK_BPS,
+        # the scheduler sim the QoS plane never touches
+        "schedule_digest": base["schedule_digest"],
+        "scenarios": scenarios,
+        "fg_p99_ratio_qos": ratio_qos,
+        "fg_p99_ratio_no_qos": ratio_no_qos,
+        "fg_holds_slo": ratio_qos <= 1.5,
+        "bulk_degrades": (contended_qos["bulk_throughput_bps"]
+                          < contended_no_qos["bulk_throughput_bps"]),
+        "bulk_shed": contended_qos["bulk_shed"],
+        "bulk_queued": contended_qos["bulk_queued"],
+        "fg_starved": contended_qos["fg_starved"],
+        "qos_digest": qos_digest,
     }
 
 
@@ -1715,11 +1942,7 @@ def fleetpulse_legs(args) -> dict:
     """``--pr18`` without its ``fleetpulse_pure`` key: the baseline's
     ``schedule_digest``, the fleet-pulse legs (128 daemons; with 1,000 and
     10,000 unless ``args.smoke``), ``pulse_digest`` over the 128-daemon
-    legs, the detection gates and ``bytes_per_announce``.
-    ``fleetpulse_pure`` compares the ctrl storm's rulings with and
-    without pulses, and ``run_ctrl_bench`` arms the federation and the
-    quarantine registry and is not ported yet, so ``--pr18`` itself
-    stays refused until it is."""
+    legs, the detection gates and ``bytes_per_announce``."""
     base = run_bench(**_bench_kw(args))
     legs = {}
     fleets = [PULSE_SMOKE_FLEET] + ([] if args.smoke else list(PULSE_FLEETS))
@@ -1764,6 +1987,21 @@ def fleetpulse_legs(args) -> dict:
         "bytes_per_announce": overhead,
         "pulse_overhead_ok": overhead <= PULSE_MAX_BYTES,
     }
+
+
+def _run_pr18(args) -> dict:
+    """The fleet pulse (``--pr18``): ``fleetpulse_legs`` and
+    ``fleetpulse_pure``, the 64-daemon control-plane storm's ruling
+    digest with pulses ingested between its rulings equal to the digest
+    without them (the observer-purity gate)."""
+    out = fleetpulse_legs(args)
+    disarmed = run_ctrl_bench(seed=args.seed, daemons=CTRL_SMOKE_FLEET,
+                              pieces=CTRL_PIECES, armed=False)
+    pulsed = run_ctrl_bench(seed=args.seed, daemons=CTRL_SMOKE_FLEET,
+                            pieces=CTRL_PIECES, armed=False, pulse=True)
+    out["fleetpulse_pure"] = (disarmed["ruling_digest"]
+                              == pulsed["ruling_digest"])
+    return out
 
 
 # Poisoned-swarm harness: one byzantine holder serving corrupt bytes into
@@ -2541,20 +2779,298 @@ def _run_pr13(args) -> dict:
     }
 
 
-# The recovery storm's shape (the reference's ctrl-bench constants it
-# shares): virtual daemons per pod-sized task group, pieces per task, the
-# shard names per ruling and the rulings per fleet.
+# The control-plane storm's shape, shared by the recovery storm: virtual
+# daemons per pod-sized task group, pieces per task, the shard names per
+# ruling and the rulings per fleet, the hosts poisoned before the refresh
+# storm and the registrants' class mix.
+CTRL_FLEETS = (1000, 5000, 10000)   # virtual daemons per full-size point
 CTRL_SMOKE_FLEET = 64               # the legs' fleet (pinned)
 CTRL_PEERS_PER_POD = 256            # one task per pod-sized group
 CTRL_PIECES = 32
 CTRL_SHARDS = 16                    # shard names per shard ruling
 CTRL_SHARD_RULINGS = 512            # shard rulings per fleet
+CTRL_QUARANTINED = 3                # pod-0 hosts poisoned pre-refresh
+CTRL_CRITICAL_EVERY = 97            # every Nth register is critical class
+CTRL_BULK_EVERY = 3                 # every Nth register is bulk class
 RECOV_OUTAGE_MS = 5_000.0           # virtual scheduler downtime (crash
                                     # to restarted-and-serving)
 RECOV_ANNOUNCE_MS = 30_000.0        # one announce interval: how long the
                                     # amnesia brain waits to re-learn
                                     # holders from periodic announces
 RECOV_FULL_FLEET = 512              # full-mode second recovery point
+
+
+def run_ctrl_bench(*, seed: int = 7, daemons: int = 1000,
+                   pieces: int = 32, piece_size: int = 4 << 20,
+                   armed: bool = True, pulse: bool = False) -> dict:
+    """A cold register herd and a steady-state refresh storm through the
+    real control-plane stack: ``Scheduling`` over ``Resource`` with the
+    ``DecisionLedger``, ``PodFederation``, ``QuarantineRegistry`` and
+    ``ShardAffinity`` armed; every ``find``/``refresh``/``preempt``/
+    ``shard`` ruling the fleet takes, profiled by ``common/phasetimer.py``
+    when ``armed``.
+
+    The storm: ``daemons`` hosts across pod-sized tasks (one task +
+    SUPER_SEED seed peer per CTRL_PEERS_PER_POD group) register back to
+    back (the cold herd — ``find`` rulings; queue-wait is each
+    registrant's real wall delay behind the single brain), a few pod-0
+    hosts earn quarantine, then every peer reports progress and
+    re-rules (``refresh``), critical children probe ``preempt``, and a
+    capped slice takes ``shard`` rulings.
+
+    Determinism: virtual quarantine clock, seeded rng, sha256 shard
+    hashing. ``ruling_digest`` (ordered [kind, peer, chosen] rows, never
+    latencies) is a pure function of (seed, daemons, pieces), the same
+    armed or disarmed (the profiler-purity gate) and with pulses or
+    without. The port's swap-partner exemption (ROADMAP known difference
+    13) moves no ruling here: the shard requests come after every find
+    and refresh, so no peer has a swap partner while they are ruled."""
+    now_ref = [0.0]            # virtual ms, read by the registry clock
+
+    res = Resource()
+    registry = QuarantineRegistry(
+        corrupt_threshold=3.0, halflife_s=1e9, probation_delay_s=1e9,
+        clock=lambda: now_ref[0] / 1000.0)
+    fed = PodFederation(seeds_per_pod=1)
+    ledger = DecisionLedger()
+    affinity = ShardAffinity(sink=ledger.on_decision)
+    # the filter's pool shuffle, seeded as the reference seeds its module
+    # rng
+    sched = Scheduling(make_evaluator("default"), rng=random.Random(seed),
+                       relay_fanout=RELAY_FANOUT, quarantine=registry,
+                       federation=fed, sharded=affinity)
+    sched.decision_sink = ledger.on_decision
+
+    phasetimer.reset()
+    if armed:
+        phasetimer.arm()
+
+    # the pulse purity leg: a FleetPulse fed synthetic pulses between
+    # rulings mid-storm, with its own Random and its own sink; the gate is
+    # that ruling_digest is the same with pulses or without
+    pulse_fp = pulse_rng = None
+    if pulse:
+        pulse_fp = FleetPulse(sink=(lambda row: None), federation=fed,
+                              clock=lambda: now_ref[0] / 1000.0)
+        pulse_rng = random.Random(f"ctrl-pulse:{seed}:{daemons}")
+
+    pods = max(1, -(-daemons // CTRL_PEERS_PER_POD))
+
+    def topo(pod: int, i: int) -> TopologyInfo:
+        return TopologyInfo(slice_name=f"pod-{pod}",
+                            ici_coords=(i % 16, (i // 16) % 16),
+                            zone="bench-zone")
+
+    tasks: list[Task] = []
+    for p in range(pods):
+        # registered with the Resource: the state-bytes walk and the
+        # per-peer quotient read res.tasks
+        task = res.get_or_create_task(f"ctrl{p:03d}".ljust(64, "0"),
+                                      f"bench://ctrl/{p}")
+        task.set_content_info(pieces * piece_size, piece_size, pieces)
+        t = topo(p, 255)
+        host = res.store_host(HostMsg(
+            id=f"c{p}seed-host", ip="10.0.0.1", port=1, download_port=2,
+            type=HostType.SUPER_SEED, topology=t))
+        fed.observe_host(host.id, t)
+        sp = res.get_or_create_peer(f"c{p}seed-peer", task, host)
+        sp.transit(PeerState.RUNNING)
+        sp.finished_pieces = set(range(pieces))
+        sp.transit(PeerState.SUCCEEDED)
+        tasks.append(task)
+
+    hosts = []
+    for i in range(daemons):
+        p = i // CTRL_PEERS_PER_POD
+        t = topo(p, i % CTRL_PEERS_PER_POD)
+        host = res.store_host(HostMsg(
+            id=f"c{p}w{i % CTRL_PEERS_PER_POD}-host", ip="10.0.0.1",
+            port=1, download_port=2, topology=t))
+        fed.observe_host(host.id, t)
+        hosts.append(host)
+
+    rows: list[list] = []      # [kind, peer_id, chosen ids] -> the digest
+    peers = []
+
+    # -- cold register herd: every daemon rules `find` back to back;
+    # registrant i's queue wait is its wall delay behind the i-1 rulings
+    # before it
+    t_storm = time.perf_counter()
+    for i, host in enumerate(hosts):
+        p = i // CTRL_PEERS_PER_POD
+        task = tasks[p]
+        peer = res.get_or_create_peer(
+            f"c{p}w{i % CTRL_PEERS_PER_POD}-peer", task, host)
+        peer.created_at = float(i)     # deterministic preempt-victim order
+        if i % CTRL_CRITICAL_EVERY == 0:
+            peer.qos_class = "critical"
+        elif i % CTRL_BULK_EVERY == 0:
+            peer.qos_class = "bulk"
+        peers.append(peer)
+        if armed:
+            phasetimer.note_queue_wait(time.perf_counter() - t_storm)
+        parents = sched.find_parents(peer)
+        peer.last_offer_ids = {pr.id for pr in parents}
+        task.set_parents(peer.id, [pr.id for pr in parents])
+        rows.append(["find", peer.id, [pr.id for pr in parents]])
+    register_wall_s = time.perf_counter() - t_storm
+
+    # -- a few pod-0 hosts earn pod-wide quarantine (virtual clock), so
+    # the refresh storm exercises the `quarantined` exclusion path
+    now_ref[0] = 1000.0
+    for host in hosts[:CTRL_QUARANTINED]:
+        for rep in ("rep-a", "rep-b"):
+            for _ in range(2):
+                registry.record_corrupt(host.id, task_id=tasks[0].id,
+                                        reporter=rep)
+
+    # -- steady state: the fleet reports progress, then re-rules
+    for i, peer in enumerate(peers):
+        peer.finished_pieces = set(range((i * 7) % pieces))
+    t1 = time.perf_counter()
+    for peer in peers:
+        if pulse_fp is not None:
+            # a pulse lands between rulings, as announces do: if ingest
+            # touched any ruling input, the digest gate would catch it
+            pulse_fp.ingest(peer.host.id, {
+                "v": 1, "seq": 1, "flight_tasks": 1,
+                "loop_lag_max_ms": 5.0 + pulse_rng.random(),
+                "slo_breaches": pulse_rng.randrange(3),
+                "served_rungs": {"p2p": pulse_rng.randrange(8)},
+                "qos_shed": 0, "corrupt_verdicts": 0,
+                "shunned_parents": 0, "self_quarantined": False,
+                "qos_state": "normal",
+            }, interval_s=PULSE_ANNOUNCE_MS / 1000.0)
+        parents = sched.refresh_parents(peer)
+        peer.last_offer_ids = {pr.id for pr in parents}
+        peer.task.set_parents(peer.id, [pr.id for pr in parents])
+        rows.append(["refresh", peer.id, [pr.id for pr in parents]])
+    refresh_wall_s = time.perf_counter() - t1
+
+    t2 = time.perf_counter()
+    for peer in peers:
+        if peer.qos_class != "critical":
+            continue
+        victim = sched.preempt_for(peer)
+        rows.append(["preempt", peer.id,
+                     [victim.id] if victim is not None else []])
+    requested = [f"layer-{j:02d}" for j in range(CTRL_SHARDS)]
+    for peer in peers[:CTRL_SHARD_RULINGS]:
+        assigned = sched.shard_assignment(peer, requested)
+        rows.append(["shard", peer.id, list(assigned or [])])
+    tail_wall_s = time.perf_counter() - t2
+
+    wall_s = register_wall_s + refresh_wall_s + tail_wall_s
+    snap = phasetimer.snapshot() if armed else None
+    obs = CtrlObservatory(resource=res, ledger=ledger, federation=fed,
+                          quarantine=registry, sharded=affinity, ttl_s=0.0)
+    state = obs.state_bytes()
+    phasetimer.reset()
+    digest = hashlib.sha256(
+        json.dumps(rows, sort_keys=True).encode()).hexdigest()
+    n_rulings = len(rows)
+    out = {
+        "daemons": daemons,
+        "pods": pods,
+        "pieces": pieces,
+        "armed": armed,
+        "rulings": n_rulings,
+        "rulings_per_sec": round(n_rulings / max(wall_s, 1e-9), 1),
+        "wall_ms": {
+            "register_storm": round(register_wall_s * 1000, 3),
+            "refresh_storm": round(refresh_wall_s * 1000, 3),
+            "preempt_and_shard": round(tail_wall_s * 1000, 3),
+            "total": round(wall_s * 1000, 3),
+        },
+        "state_bytes": state,
+        "ruling_digest": digest,
+    }
+    if snap is not None:
+        out["profile"] = {
+            "rulings": snap["rulings"],
+            "phases": snap["phases"],
+            "compute_ms": snap["compute_ms"],
+            "unattributed_ms": snap["unattributed_ms"],
+            "queue_wait_ms": snap["queue_wait_ms"],
+        }
+    return out
+
+
+def _ctrl_overhead_ns() -> dict:
+    """ns per ``phase()`` call, disarmed and armed: the disarmed number
+    is what every ruling pays for carrying the profiler."""
+    phasetimer.reset()
+    n = 200_000
+    t0 = time.perf_counter()
+    for _ in range(n):
+        with phasetimer.phase("filter"):
+            pass
+    disarmed = (time.perf_counter() - t0) / n * 1e9
+    phasetimer.arm()
+    n2 = 20_000
+    t0 = time.perf_counter()
+    for _ in range(n2):
+        with phasetimer.phase("filter"):
+            pass
+    armed = (time.perf_counter() - t0) / n2 * 1e9
+    phasetimer.reset()
+    return {"disarmed_ns_per_call": round(disarmed, 1),
+            "armed_ns_per_call": round(armed, 1)}
+
+
+def _run_pr16(args) -> dict:
+    """The control-plane storm (``--ctrl``). Gates: the baseline sim
+    re-run with the profiler armed keeps its ``schedule_digest`` (the
+    profiler never perturbs a ruling), and the 64-daemon storm's
+    ``ruling_digest`` is the same armed and disarmed; the disarmed
+    overhead is measured. The full size adds the 1,000, 5,000 and
+    10,000-daemon storms: rulings/s, per-phase p50/p99, queue-wait
+    growth and bytes of state per peer at each size."""
+    base = run_bench(**_bench_kw(args))
+    phasetimer.reset()
+    phasetimer.arm()
+    prof = run_bench(**_bench_kw(args))
+    phasetimer.reset()
+    profiler_pure = base["schedule_digest"] == prof["schedule_digest"]
+
+    # the 64-daemon storm always runs, twice: the disarmed twin proves the
+    # armed profiler changed no ruling. Pieces are pinned, not scaled by
+    # --smoke: the digest is derived from the committed parameters
+    ctrl_pieces = CTRL_PIECES
+    disarmed64 = run_ctrl_bench(seed=args.seed, daemons=CTRL_SMOKE_FLEET,
+                                pieces=ctrl_pieces, armed=False)
+    scenarios = {str(CTRL_SMOKE_FLEET): run_ctrl_bench(
+        seed=args.seed, daemons=CTRL_SMOKE_FLEET, pieces=ctrl_pieces,
+        armed=True)}
+    if not args.smoke:
+        for n in CTRL_FLEETS:
+            scenarios[str(n)] = run_ctrl_bench(
+                seed=args.seed, daemons=n, pieces=ctrl_pieces, armed=True)
+    ctrl_pure = (disarmed64["ruling_digest"]
+                 == scenarios[str(CTRL_SMOKE_FLEET)]["ruling_digest"])
+    keys = sorted(scenarios, key=int)
+    return {
+        "bench": "dfbench-ctrl",
+        "seed": args.seed,
+        "fleets": [int(k) for k in keys],
+        "pieces": ctrl_pieces,
+        "schedule_digest": base["schedule_digest"],
+        "profiler_pure": profiler_pure,
+        "ctrl_profiler_pure": ctrl_pure,
+        "ruling_digests": {k: scenarios[k]["ruling_digest"] for k in keys},
+        "scenarios": scenarios,
+        "rulings_per_sec": {k: scenarios[k]["rulings_per_sec"]
+                            for k in keys},
+        "phase_p50_ms": {k: {ph: r["p50_ms"] for ph, r in
+                             scenarios[k]["profile"]["phases"].items()}
+                         for k in keys},
+        "phase_p99_ms": {k: {ph: r["p99_ms"] for ph, r in
+                             scenarios[k]["profile"]["phases"].items()}
+                         for k in keys},
+        "state_bytes_per_peer": {k: scenarios[k]["state_bytes"]["per_peer"]
+                                 for k in keys},
+        "overhead": _ctrl_overhead_ns(),
+    }
 
 
 def run_recovery_bench(*, seed: int = 7, daemons: int = 64,
@@ -2914,8 +3430,9 @@ def _run_pr17(args, *, partner_exemption: bool = True) -> dict:
     }
 
 
-POINTS = {"pr19": _run_pr19, "pr17": _run_pr17, "pr14": _run_pr14,
-          "pr13": _run_pr13, "pr12": _run_pr12, "pr10": _run_pr10,
+POINTS = {"pr19": _run_pr19, "pr18": _run_pr18, "pr17": _run_pr17,
+          "ctrl": _run_pr16, "pr14": _run_pr14, "pr13": _run_pr13,
+          "pr12": _run_pr12, "pr11": _run_pr11, "pr10": _run_pr10,
           "pr9": _run_pr9, "pr8": _run_pr8, "pr6": _run_pr6, "pr5": _run_pr5,
           "pr4": _run_pr4}
 
@@ -2957,6 +3474,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="content-addressed storage through rolling-restart "
                    "churn and alias pulls against the task-id-keyed "
                    "baseline (churn_digest)")
+    p.add_argument("--pr11", action="store_true",
+                   help="multi-tenant QoS: a critical pull against a bulk "
+                   "herd on one uplink, with and without the class split "
+                   "and the admission ladder (qos_digest)")
     p.add_argument("--pr12", action="store_true",
                    help="a byzantine holder in a fan-out, quarantine on vs "
                    "off (byzantine_digest, quarantine_pure)")
@@ -2967,9 +3488,18 @@ def build_parser() -> argparse.ArgumentParser:
                    help="sharded-checkpoint rollout against fleet size, "
                    "naive against shard affinity with in-pod swap, and a "
                    "kill-the-owner run (rollout_digest)")
+    p.add_argument("--ctrl", action="store_true",
+                   help="the control-plane storm: register, refresh, "
+                   "preempt and shard rulings at 64 daemons and (without "
+                   "--smoke) 1,000, 5,000 and 10,000, profiled "
+                   "(ruling_digests, profiler purity)")
     p.add_argument("--pr17", action="store_true",
                    help="a scheduler crash mid-storm, durable snapshot vs "
                    "amnesia (recovery_digest)")
+    p.add_argument("--pr18", action="store_true",
+                   help="the fleet pulse: anomaly legs at 128 daemons and "
+                   "(without --smoke) 1,000 and 10,000, and the storm's "
+                   "rulings with and without pulses (fleetpulse_pure)")
     p.add_argument("--pr19", action="store_true",
                    help="the learned loop: datagen, two seeded MLP fits on "
                    "--device, the learned-vs-heuristic replay and a "
@@ -2977,9 +3507,6 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="where --pr19 fits (default cuda: raises without a "
                    "CUDA card; 'cpu' to fit on the CPU)")
-    for flag in UNPORTED_POINTS:
-        p.add_argument(flag, action="store_true",
-                       help="not ported to this package yet")
     p.add_argument("--out", default="-",
                    help="result path ('-', the default: stdout only)")
     p.add_argument("--smoke", action="store_true",
@@ -2988,11 +3515,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv: list[str] | None = None) -> int:
-    parser = build_parser()
-    args = parser.parse_args(argv)
-    refuse_unported(parser, {
-        flag: (getattr(args, flag[2:]), what)
-        for flag, what in UNPORTED_POINTS.items()})
+    args = build_parser().parse_args(argv)
     if args.smoke:
         args.daemons, args.pieces, args.out = 4, 8, "-"
     point = next((name for name in POINTS if getattr(args, name)), None)

@@ -16,12 +16,12 @@ Usage:
     python -m dragonfly2_tpu_torch.tools.dfdiag --cluster --scheduler host:port
     python -m dragonfly2_tpu_torch.tools.dfdiag --fleet --scheduler host:port
     python -m dragonfly2_tpu_torch.tools.dfdiag --pod h1:65002,h2:65002 --json
+    python -m dragonfly2_tpu_torch.tools.dfdiag --daemon 10.0.0.4:65002 --qos
 
 Exit codes: 0 healthy, 1 fetch or IO failure, 2 usage, 3 the verdict
 names an SLO breach, a straggler bottleneck, a pod-level breach or (with
-``--fleet``) an active anomaly episode. ``--qos`` reads a daemon's QoS
-plane, which this package does not have yet (ROADMAP Queue 1 item 5b):
-it exits 2 naming the item.
+``--fleet``) an active anomaly episode, or (with ``--qos``, which reads a
+daemon's ``/debug/qos``) a starved ``standard`` or ``critical`` class.
 
 Waterfall legend: ``.`` queue (rate-limiter wait), ``-`` ttfb (request +
 parent-side queueing), ``=`` wire transfer, ``#`` HBM staging.
@@ -34,7 +34,6 @@ import json
 import sys
 
 from ..common.podscope import _fmt_bytes, _get_json
-from . import refuse_unported
 
 EXIT_OK = 0
 EXIT_IO = 1          # a daemon/scheduler could not be reached or parsed
@@ -438,8 +437,11 @@ def build_parser() -> argparse.ArgumentParser:
                    "tools/dfsched.py is the full inspector with outcome "
                    "joins over a records file")
     p.add_argument("--qos", action="store_true",
-                   help="the daemon's QoS plane: not ported to this "
-                   "package yet (ROADMAP Queue 1 item 5b)")
+                   help="show the daemon's QoS plane (/debug/qos on "
+                   "--daemon): degradation state, per-class "
+                   "throttle/queue/shed counters, per-tenant "
+                   "attribution, and a verdict naming any starved "
+                   "class and the offending tenant")
     p.add_argument("--pod", default="",
                    help="comma-separated daemon upload host:port set — "
                    "render the podscope distribution tree (per-edge "
@@ -458,10 +460,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv: list[str] | None = None) -> int:
-    parser = build_parser()
-    args = parser.parse_args(argv)
-    refuse_unported(parser, {
-        "--qos": (args.qos, "the QoS plane, ROADMAP Queue 1 item 5b")})
+    args = build_parser().parse_args(argv)
     try:
         if args.pod:
             from ..common import podscope
@@ -480,6 +479,13 @@ def main(argv: list[str] | None = None) -> int:
             if len(report["unreachable"]) == len(addrs):
                 return EXIT_IO          # nothing answered: not a verdict
             return EXIT_BREACH if report["breaches"] else EXIT_OK
+        if args.qos:
+            snap = _get(f"http://{args.daemon}/debug/qos", args.timeout)
+            print(json.dumps(snap, indent=2) if args.json
+                  else render_qos(snap))
+            # gate contract: a starving QoS plane exits like an SLO
+            # breach, so chaos pipelines can assert on it
+            return EXIT_BREACH if qos_verdict(snap)[1] else EXIT_OK
         if args.decisions:
             if not args.scheduler:
                 print("dfdiag: --decisions needs --scheduler host:port "
@@ -562,6 +568,93 @@ def main(argv: list[str] | None = None) -> int:
 def render_pod_report(report: dict) -> str:
     from ..common.podscope import render_pod
     return render_pod(report)
+
+
+def qos_verdict(snap: dict) -> tuple[str, bool]:
+    """(verdict text, is_breach) over a ``/debug/qos`` snapshot. A class
+    is starved when its work is queued or shed while another class holds
+    active capacity; the verdict names that other class's heaviest
+    consuming tenant as the offender."""
+    state = snap.get("state", "normal")
+    active = snap.get("active") or {}
+    shed = snap.get("shed") or {}
+    queued_now = snap.get("queued_now", 0)
+    classes = snap.get("classes") or {}
+    parts = [f"verdict: qos state '{state}'"]
+    starved = ""
+    # starvation is judged only while the plane is OUT of `normal`:
+    # shed counters are cumulative process-lifetime totals, and reading
+    # them unconditionally would latch "class X is starved" forever
+    # after one historic shed
+    if state != "normal":
+        for cls in ("bulk", "standard", "critical"):
+            pressure = shed.get(cls, 0) > 0 or (cls == "bulk"
+                                                and queued_now > 0)
+            if pressure and any(active.get(c, 0) > 0
+                                for c in active if c != cls):
+                starved = cls
+                break
+    breach = False
+    if starved:
+        others = [c for c in active if c != starved and active.get(c, 0)]
+        # the offending tenant: heaviest consumer across the classes
+        # holding the capacity the starved class is queued behind
+        offender, offender_cls, consumed = "", "", -1
+        for c in others:
+            for tenant, row in (classes.get(c, {})
+                                .get("tenants") or {}).items():
+                if row.get("consumed_bytes", 0) > consumed:
+                    offender, offender_cls = tenant, c
+                    consumed = row.get("consumed_bytes", 0)
+        parts.append(
+            f"class '{starved}' is being "
+            f"{'shed' if shed.get(starved) else 'queued'} "
+            f"({shed.get(starved, 0)} shed, {queued_now} queued now) "
+            f"while {'/'.join(others)} hold "
+            f"{sum(active.get(c, 0) for c in others)} active slots")
+        if offender:
+            parts.append(f"offending tenant: '{offender}' "
+                         f"(class '{offender_cls}', "
+                         f"{consumed} bytes consumed)")
+        # bulk being browned out is the plane WORKING (no breach);
+        # standard/critical starving is a breach
+        breach = starved in ("standard", "critical")
+        if starved == "bulk":
+            parts.append("bulk degradation under foreground pressure is "
+                         "the brownout contract, not a fault")
+    else:
+        parts.append("no class is starved")
+    return ";\n  ".join(parts) + ".", breach
+
+
+def render_qos(snap: dict) -> str:
+    """Tabular per-class throttle/queue readout + verdict."""
+    out = [f"qos: state={snap.get('state', '?')} "
+           f"(for {snap.get('state_since_s', 0):.0f}s)  "
+           f"enabled={snap.get('enabled', '?')}  "
+           f"queued_now={snap.get('queued_now', 0)}"]
+    classes = snap.get("classes") or {}
+    active = snap.get("active") or {}
+    admitted = snap.get("admitted") or {}
+    shed = snap.get("shed") or {}
+    out.append(f"{'class':<10} {'active':>7} {'admitted':>9} "
+               f"{'shed':>6} {'rate':>12} {'consumed':>12} {'tasks':>6}")
+    for cls in ("critical", "standard", "bulk"):
+        row = classes.get(cls) or {}
+        out.append(
+            f"{cls:<10} {active.get(cls, 0):>7} "
+            f"{admitted.get(cls, 0):>9} {shed.get(cls, 0):>6} "
+            f"{_fmt_bytes(row.get('rate_bps', 0)):>10}/s "
+            f"{_fmt_bytes(row.get('consumed_bytes', 0)):>12} "
+            f"{row.get('tasks', 0):>6}")
+    tenants = snap.get("tenants") or {}
+    for name, row in sorted(tenants.items()):
+        out.append(f"tenant {name}: admitted={row.get('admitted', 0)} "
+                   f"queued={row.get('queued', 0)} "
+                   f"shed={row.get('shed', 0)}")
+    out.append(qos_verdict(snap)[0])
+    return "\n".join(out)
+
 
 
 if __name__ == "__main__":

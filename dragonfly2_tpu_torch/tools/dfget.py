@@ -5,9 +5,11 @@ Counterpart of ``dragonfly2_tpu/tools/dfget.py`` (reference ``cmd/dfget``
 socket, daemon spawn on demand, and the direct-from-source fallback with
 digest check. ``--shard-manifest`` with ``--shards`` pulls only the
 pieces covering the named shards and prints one ready line per shard,
-marked ``(tree)`` or ``(swap)`` by its supply path. Origins are
-``file://``, ``http://`` and ``https://``; recursive downloads, tenants and
-QoS classes are not ported yet and their flags exit non-zero.
+marked ``(tree)`` or ``(swap)`` by its supply path. ``--tenant`` and
+``--qos-class`` ride the request's ``UrlMeta`` to the daemon's governor
+and shaper and to the scheduler's quotas. Origins are ``file://``,
+``http://`` and ``https://``; recursive downloads are not ported yet and
+their flag exits non-zero.
 
 Usage:
     python -m dragonfly2_tpu_torch.tools.dfget URL -O /path/out [options]
@@ -87,7 +89,8 @@ def _meta(args) -> UrlMeta:
     return UrlMeta(digest=args.digest, tag=args.tag, range=args.range_,
                    application=args.application, header=header or None,
                    filtered_query_params=args.filter or None,
-                   priority=Priority(args.priority), shards=args.shards)
+                   priority=Priority(args.priority), tenant=args.tenant,
+                   qos_class=args.qos_class, shards=args.shards)
 
 
 def _load_shard_manifest(path: str) -> ShardManifest | None:
@@ -241,9 +244,7 @@ def main(argv: list[str] | None = None) -> int:
         parser.error("--shards requires --shard-manifest (the daemon "
                      "needs the shard table to subset the download)")
     refuse_unported(parser, {
-        "--recursive": (args.recursive, "recursive downloads"),
-        "--tenant": (args.tenant, "tenant quotas"),
-        "--qos-class": (args.qos_class, "QoS classes")})
+        "--recursive": (args.recursive, "recursive downloads")})
     async def run_and_close() -> int:
         try:
             return await run(args)

@@ -1,7 +1,7 @@
-"""Phases 16 and 17 of chip_smoke.py alone on the card, on a freshly
-written phase-8 origin (the Llama-3-8B layout's last tensors).
+"""Phases 16, 17 and 18 of chip_smoke.py alone on the card, on a
+freshly written phase-8 origin (the Llama-3-8B layout's last tensors).
 
-    python3 tests/poison_pods.py [poison] [federation]
+    python3 tests/poison_pods.py [poison] [federation] [qos]
 """
 import os
 import sys
@@ -29,6 +29,6 @@ if __name__ == "__main__":
         os.fsync(f.fileno())
     del buf
     t0 = time.monotonic()
-    for name in sys.argv[1:] or ["poison", "federation"]:
+    for name in sys.argv[1:] or ["poison", "federation", "qos"]:
         getattr(cs, f"phase_{name}")(work, device)
     print("done", time.monotonic() - t0, flush=True)

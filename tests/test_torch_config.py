@@ -261,6 +261,46 @@ def test_quarantine_federation_and_state_store_keys_are_wired(tmp_path,
     assert got == value
 
 
+FIVE_B = ([("daemon", k) for k in daemon_config.KEY_CLASSES
+           if k.startswith("qos.") or k in ("download.traffic_shaper_kind",
+                                            "upload.bulk_concurrent_limit")]
+          + [("scheduler", k) for k in ("class_fanout_caps",
+                                        "qos_preemption")])
+
+
+@pytest.mark.parametrize("svc,key", FIVE_B,
+                         ids=[f"{s}:{k}" for s, k in FIVE_B])
+def test_qos_keys_are_wired(tmp_path, svc, key):
+    """Item 5b: each QoS key is wired, keeps the reference's default, and
+    a non-default value builds a daemon or scheduler that carries it to
+    its subsystem."""
+    port_cls, ref_cls, table, _ = CLASSES[svc]
+    assert table[key] == "wired"
+    assert key_value(port_cls(), key) == key_value(ref_cls(), key)
+    value = _other(key, key_value(ref_cls(), key))
+    data = _nested(key, value)
+    if svc == "scheduler":
+        cfg = from_dict(SchedulerConfig, data)
+        assert cfg.unported() == []
+        sched = Scheduler(cfg)
+        got = {"class_fanout_caps": sched.scheduling.class_fanout_caps,
+               "qos_preemption": sched.scheduling.qos_preemption}[key]
+        assert got == value
+        return
+    data.update(workdir=str(tmp_path), device="cpu")
+    cfg = from_dict(DaemonConfig, data)
+    assert cfg.unported() == []
+    d = Daemon(cfg)
+    if key == "download.traffic_shaper_kind":
+        got = d.shaper.kind
+    elif key == "upload.bulk_concurrent_limit":
+        got = d.upload_server.bulk_limit
+    else:
+        got = getattr(d.qos.cfg, key.split(".", 1)[1])
+    assert got == value
+    assert d.qos.shaper is d.shaper
+
+
 def test_default_scheduler_arms_the_quarantine_registry_as_the_reference():
     from dragonfly2_tpu.scheduler.server import Scheduler as RefScheduler
     port, ref = Scheduler(SchedulerConfig()), RefScheduler(RefSchedConfig())
@@ -299,9 +339,9 @@ def test_reference_yaml_files_load(tmp_path):
 
 
 @pytest.mark.parametrize("tool,text,name", [
+    # the qos keys (item 5b) are wired: only the proxy key is refused
     (daemon_tool, "proxy:\n  enabled: true\nqos:\n  queue_limit: 3\n",
-     ["proxy.enabled (ROADMAP Queue 1 item 6)",
-      "qos.queue_limit (ROADMAP Queue 1 item 5b)"]),
+     ["proxy.enabled (ROADMAP Queue 1 item 6)"]),
     # fleetpulse_enabled (item 4b) and the quarantine, federation and
     # state store keys (items 5a, 5c) are wired: only the plugin key is
     # refused
@@ -319,7 +359,8 @@ def test_launchers_refuse_unported_keys(tmp_path, capsys, tool, text, name):
     for n in name:
         assert n in msg
     for wired in ("fleetpulse_enabled", "quarantine_enabled",
-                  "federation_enabled", "statestore_interval_s"):
+                  "federation_enabled", "statestore_interval_s",
+                  "qos.queue_limit"):
         assert wired not in msg
 
 

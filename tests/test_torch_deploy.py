@@ -286,8 +286,6 @@ def test_launcher_flags_match_reference(port, ref):
     (manager_cli, ["--issue-certs"], "certificate issuance"),
     (dfget_cli, ["u", "-O", "o", "--recursive"], "recursive"),
     (dfget_cli, ["u", "-O", "o", "-r"], "recursive"),
-    (dfget_cli, ["u", "-O", "o", "--tenant", "t"], "tenant"),
-    (dfget_cli, ["u", "-O", "o", "--qos-class", "bulk"], "QoS"),
 ])
 def test_unported_flags_exit_nonzero(module, argv, names, capsys):
     with pytest.raises(SystemExit) as exc:
@@ -295,6 +293,19 @@ def test_unported_flags_exit_nonzero(module, argv, names, capsys):
     assert exc.value.code == 2
     err = capsys.readouterr().err
     assert "not ported" in err and names in err, err
+
+
+@pytest.mark.parametrize("argv", [
+    ["--tenant", "batch"], ["--qos-class", "bulk"],
+    ["--tenant", "serving", "--qos-class", "critical"]])
+def test_dfget_carries_tenant_and_class_in_url_meta(argv):
+    """``--tenant`` and ``--qos-class`` (refused until the QoS plane was
+    ported) ride the request's UrlMeta, as the reference's do."""
+    full = ["http://o/x", "-O", "o"] + argv
+    port = dfget_cli._meta(dfget_cli.build_parser().parse_args(full))
+    ref = ref_dfget_cli._meta(ref_dfget_cli.build_parser().parse_args(full))
+    assert (port.tenant, port.qos_class) == (ref.tenant, ref.qos_class)
+    assert port.tenant or port.qos_class
 
 
 def test_scheduler_with_algorithm_nt_starts(tmp_path):

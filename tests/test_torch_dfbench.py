@@ -24,10 +24,17 @@ digests and booleans. ``--pr12`` equals ``BENCH_pr12.json`` whole, and
 but for ``time_to_first_ruling_ms``, the one wall-clock key (milliseconds
 from a restart to its first ruling on this host), which is left out of
 the comparison; with the port's filter (known difference 13) its gates
-hold. ``--pr13`` runs here at its ``--smoke`` sizes against the reference
+hold. ``--pr11`` equals ``BENCH_pr11.json`` whole. The control-plane
+storm (``--ctrl``) at 64 and 1,000 daemons gives ``BENCH_pr16.json``'s
+``ruling_digests`` and ``schedule_digest`` with both purity gates true,
+with the port's filter and with the reference's (known difference 13
+moves no ruling of the storm); ``--pr18`` gives ``fleetpulse_pure`` true
+and, at its 128-daemon legs, the committed legs and gates.
+``--pr13`` runs here at its ``--smoke`` sizes against the reference
 run live at the same sizes; at its full sizes (64-daemon pods, 4-16 pods),
-and ``--pr9`` at 64-256 daemons and ``--pr14`` at 16x16, it runs in
-``chip_smoke.py`` phase 13, not here. Tolerances are exact.
+and ``--pr9`` at 64-256 daemons, ``--pr14`` at 16x16, the storm at
+5,000 and 10,000 daemons and ``--pr18``'s 1,000- and 10,000-daemon legs,
+it runs in ``chip_smoke.py`` phase 13, not here. Tolerances are exact.
 """
 
 import argparse
@@ -52,9 +59,6 @@ FIXTURE = os.path.join(ROOT, "tests", "data", "pr19_datagen_rows.jsonl")
 SMOKE = dict(seed=7, daemons=4, pieces=8, piece_size=4 << 20,
              parallelism=4, smoke=True, device="cpu")
 FULL = dict(SMOKE, daemons=8, pieces=64, smoke=False)
-# the reference's points the port refuses: flag -> what the refusal names
-UNPORTED = {"--ctrl": "run_ctrl_bench", "--pr18": "run_ctrl_bench",
-            "--pr11": "item 5b"}
 # the one wall-clock key of --pr17 (per leg, and the legs' rollup)
 RECOVERY_WALL_CLOCK = "time_to_first_ruling_ms"
 
@@ -98,7 +102,7 @@ def test_run_bench_matches_reference(scenario):
 
 
 @pytest.mark.parametrize("point", ["pr4", "pr6", "pr8", "pr9", "pr10",
-                                   "pr12", "pr13", "pr14"])
+                                   "pr11", "pr12", "pr13", "pr14"])
 def test_smoke_point_matches_reference(point):
     got = getattr(dfbench, f"_run_{point}")(_args(**SMOKE))
     want = getattr(ref, f"_run_{point}")(_args(**SMOKE))
@@ -175,7 +179,7 @@ def test_churn_digest_is_blind_to_the_piece_algorithm(algo, monkeypatch):
 
 @pytest.mark.parametrize("point,bench", [
     (None, "pr3"), ("pr4", "pr4"), ("pr5", "pr5"), ("pr8", "pr8"),
-    ("pr10", "pr10"), ("pr12", "pr12")])
+    ("pr10", "pr10"), ("pr11", "pr11"), ("pr12", "pr12")])
 def test_full_size_point_equals_the_committed_file(point, bench):
     args = _args(**FULL)
     if point is None:
@@ -255,15 +259,108 @@ def test_armed_profiler_keeps_the_baseline_schedule_digest():
     assert {"filter", "dag-walk", "score"} <= set(snap["phases"])
 
 
+# ------------------------------------------- the control-plane storm
+
+def _storm_counts(result: dict) -> dict:
+    """A storm's deterministic outputs: the digest, the rulings and, by
+    kind and phase, how many the profiler saw (never a latency)."""
+    prof = result.get("profile") or {}
+    return {"ruling_digest": result["ruling_digest"],
+            "rulings": result["rulings"], "pods": result["pods"],
+            "by_kind": {k: v["count"] for k, v in
+                        prof.get("rulings", {}).get("by_kind", {}).items()},
+            "phases": {k: v["count"] for k, v in
+                       prof.get("phases", {}).items()},
+            "peers": result["state_bytes"]["peers"]}
+
+
+def test_ctrl_smoke_matches_reference():
+    got = dfbench._run_pr16(_args(**SMOKE))
+    want = ref._run_pr16(_args(**SMOKE))
+    for key in ("bench", "seed", "fleets", "pieces", "schedule_digest",
+                "profiler_pure", "ctrl_profiler_pure", "ruling_digests"):
+        assert got[key] == want[key], key
+    assert set(got) == set(want)
+    for k in want["scenarios"]:
+        assert _storm_counts(got["scenarios"][k]) \
+            == _storm_counts(want["scenarios"][k])
+    assert set(got["overhead"]) == set(want["overhead"])
+
+
+@pytest.mark.parametrize("daemons", [dfbench.CTRL_SMOKE_FLEET, 1000])
+@pytest.mark.parametrize("filt", ["port", "reference"])
+def test_storm_rulings_equal_the_committed_file(daemons, filt, monkeypatch):
+    """The storm at 64 and 1,000 daemons gives ``BENCH_pr16.json``'s
+    ``ruling_digests`` with the port's filter, and with the reference's:
+    the shard rulings come after every find and refresh, so the port's
+    swap-partner exemption (known difference 13) moves nothing here."""
+    if filt == "reference":
+        monkeypatch.setattr(dfbench, "Scheduling", dfbench._ReferenceFilter)
+    got = dfbench.run_ctrl_bench(seed=7, daemons=daemons,
+                                 pieces=dfbench.CTRL_PIECES, armed=True)
+    want = _bench("pr16")
+    assert got["ruling_digest"] == want["ruling_digests"][str(daemons)]
+    assert _storm_counts(got) == _storm_counts(
+        want["scenarios"][str(daemons)])
+
+
+def test_ctrl_point_keeps_the_gates_and_the_baseline_digest():
+    """``--ctrl`` over the full-size baseline (the storm at 64 daemons):
+    the armed baseline keeps BENCH_pr3's ``schedule_digest`` (BENCH_pr16
+    records the same), both purity gates hold, the keys are the file's."""
+    got = dfbench._run_pr16(_args(**dict(FULL, smoke=True)))
+    want = _bench("pr16")
+    assert got["profiler_pure"] is True and got["ctrl_profiler_pure"] is True
+    assert got["ruling_digests"]["64"] == want["ruling_digests"]["64"]
+    assert got["schedule_digest"] == want["schedule_digest"]
+    assert set(want) == set(got)
+    assert got["overhead"]["disarmed_ns_per_call"] > 0
+
+
+def test_pr18_is_pure_and_its_legs_equal_the_committed_file():
+    """``--pr18`` at its 128-daemon legs: ``fleetpulse_pure`` (the storm's
+    rulings with pulses ingested mid-storm equal those without), and the
+    legs, digest and gates of ``BENCH_pr18.json``; the full point runs in
+    ``chip_smoke.py`` phase 13."""
+    got = _as_json(dfbench._run_pr18(_args(**dict(FULL, smoke=True))))
+    want = _bench("pr18")
+    assert got["fleetpulse_pure"] is True
+    assert set(got) == set(want)
+    for name, leg in got["legs"].items():
+        want["legs"][name].pop("ingest_per_sec")
+        leg.pop("ingest_per_sec")
+        assert leg == want["legs"][name], name
+    for key in ("bench", "seed", "intervals", "inject_at", "schedule_digest",
+                "pulse_digest", "bytes_per_announce", "pulse_overhead_ok",
+                "detection_bounded", "zero_false_positives",
+                "detected_kinds", "fleetpulse_pure"):
+        assert got[key] == want[key], key
+
+
+def test_pr18_smoke_matches_reference():
+    got = _as_json(dfbench._run_pr18(_args(**SMOKE)))
+    want = _as_json(ref._run_pr18(_args(**SMOKE)))
+    for d in (got, want):
+        for leg in d["legs"].values():
+            leg.pop("ingest_per_sec")
+    assert got == want
+
+
 # ---------------------------------------------------------------- the CLI
 
-@pytest.mark.parametrize("flag", sorted(UNPORTED))
+# the points once refused, and the key each result carries
+ONCE_REFUSED = {"--ctrl": "ruling_digests", "--pr11": "qos_digest",
+                "--pr18": "fleetpulse_pure"}
+
+
+@pytest.mark.parametrize("flag", sorted(ONCE_REFUSED))
 def test_unported_points_are_refused(flag, capsys):
-    with pytest.raises(SystemExit) as exc:
-        dfbench.main([flag])
-    assert exc.value.code == 2
-    err = capsys.readouterr().err
-    assert "not ported" in err and UNPORTED[flag] in err
+    """``--pr11``, ``--ctrl`` and ``--pr18`` were refused until the QoS
+    plane and the storm were ported; each now runs and prints its
+    result."""
+    assert dfbench.main([flag, "--smoke"]) == 0
+    out = json.loads(capsys.readouterr().out)
+    assert ONCE_REFUSED[flag] in out
 
 
 def _without_wall_clock(result: dict) -> dict:

@@ -3,8 +3,9 @@
 * Each render (``render_waterfall`` with ``verdict``, ``render_cluster``,
   ``render_ctrl``, ``render_fleet``, ``render_pod_report``) gives the
   reference's text on the same JSON, and ``main`` the same output and
-  exit code on saved files and on usage errors. ``--qos`` is refused by
-  name (ROADMAP Queue 1 item 5b), exit 2.
+  exit code on saved files and on usage errors. ``--qos`` is no longer
+  refused: it reads a daemon's ``/debug/qos`` (``tests/test_torch_qos.py``
+  holds its verdict and render against the reference's).
 * A pod on the CPU (a scheduler with records and its debug routes
   mounted as the launcher mounts them, a seed, a leecher, announcing
   every 0.2 s): ``dfdiag --pod --json`` gives podscope's report of the
@@ -234,9 +235,14 @@ def test_a_pod_that_never_answers_is_an_io_exit():
 
 
 def test_qos_is_refused_by_name():
-    rc, out, err = _call(dfdiag.main, ["--qos"])
-    assert rc == 2 and out == ""
-    assert "--qos" in err and "item 5b" in err and "not ported" in err
+    """``--qos`` was refused by name until the QoS plane was ported; now
+    it reads the daemon, and a daemon that does not answer is an IO
+    exit, as for the other daemon views."""
+    rc, out, err = _call(dfdiag.main, ["--qos", "--daemon",
+                                       f"127.0.0.1:{_closed_port()}",
+                                       "--timeout", "2"])
+    assert rc == 1 and out == ""
+    assert "not ported" not in err and err.startswith("dfdiag: ")
 
 
 # ------------------------------------------------------------ a CPU pod

@@ -11,7 +11,7 @@
 * ``build_pulse`` against a stand-in daemon with set counters gives the
   reference's ``dumps`` bytes, with and without the verdict and QoS
   planes (each package's own ``VerdictLedger`` fed the same verdicts; a
-  stand-in QoS governor, item 5b).
+  stand-in QoS governor; ``tests/test_torch_qos.py`` drives a real one).
 * The announcer numbers its pulses and sends one on both announces; the
   scheduler's ``announce_host`` and ``announce_content`` hand them to
   ``ingest`` as the reference's do, with the self-quarantine flag and the
@@ -488,3 +488,20 @@ def test_smoke_legs_and_gates_equal_the_committed_file():
                 "detected_kinds", "detection_latency_intervals"):
         assert got[key] == want[key], key
     assert got["fleets"] == [128] and want["fleets"] == [128, 1000, 10000]
+
+
+def test_full_size_pr18_equals_the_committed_file_but_its_ingest_rates():
+    """``--pr18`` at its full size (the nine legs at 128, 1,000 and 10,000
+    daemons, and the control-plane storm with and without pulses):
+    ``BENCH_pr18.json`` but for each leg's wall-clock ``ingest_per_sec``,
+    with ``fleetpulse_pure`` true."""
+    args = argparse.Namespace(seed=7, daemons=8, pieces=64,
+                              piece_size=4 << 20, parallelism=4, smoke=False)
+    got = json.loads(json.dumps(dfbench._run_pr18(args)))
+    with open(os.path.join(ROOT, "BENCH_pr18.json")) as f:
+        want = json.load(f)
+    for result in (got, want):
+        for leg in result["legs"].values():
+            assert leg.pop("ingest_per_sec") > 0
+    assert got["fleetpulse_pure"] is True
+    assert got == want
