@@ -292,6 +292,38 @@ a chain's first relaying hop is the seed's first child.
               critical pull's time to device-ready alone and under the
               herd and their ratio, the herd's throughput, the queued and
               shed counts and the scheduler's ``preempt`` rows
+19. objstore — dataset shards written through dfstore and the object
+              gateway, then prefetched over P2P into the card between
+              training steps: eight seeded 256 MiB shards (2 GiB, phase
+              5's). An S3 stand-in (``S3StandIn``, standard library) in a
+              child keeps objects on disk, recomputes every request's
+              SigV4 signature from a fixed key pair and counts the bytes
+              of each PUT and GET. A second child runs a scheduler
+              (``algorithm="plugin:gwfirst"``, records kept) whose
+              evaluator plugin scores the gateway's host 10.0 and any
+              other 1.0, and the seed daemon G with the object gateway:
+              bucket ``datasets`` on the stand-in (backend kind ``s3``,
+              write-back) and ``generated`` on the ``seeded`` scheme of
+              a source plugin in G's ``plugin_dir``. Each shard is put
+              by ``python -m dragonfly2_tpu_torch.tools.dfstore put`` as
+              its own process, which must exit 0 only once the stand-in
+              holds the object; the stand-in must receive every dataset
+              byte once. Leecher L, in this process (back-source
+              disabled, device sink on the card), iterates
+              ``ShardPrefetcher(depth=2)`` over G's ``s3+http://`` URLs
+              with ``UrlMeta(tag="objstore")``; each shard must equal the
+              bytes put and feeds one training step on the card (a bf16
+              matmul over its bytes and an SGD update). The stand-in must
+              send 0 GET bytes meanwhile, and every ruling of L's tasks
+              must carry ``substituted: {"total": "plugin"}`` with the
+              plugin's totals and choose its best. ``dfstore get`` of a
+              ``generated`` object streams through G's ``stream_task``
+              and must equal the plugin's bytes, twice, the second from
+              the completed task (the plugin read once); ``dfstore rm``
+              then ``stat`` must find the object gone from the gateway
+              and the stand-in. It prints the put and prefetch rates,
+              the consumer's wait per shard against the step time, the
+              stand-in's byte counts and the plugin's rulings
 
 Before phase 3 the native storage library (``dfnative.cc``, built with
 g++ at first use) must load: the pulls land crc32c piece digests, and the
@@ -321,12 +353,14 @@ import datetime
 import hashlib
 import io
 import json
+import math
 import multiprocessing
 import random
 import re
 import shutil
 import signal
 import socket
+import statistics
 import struct
 import subprocess
 import sys
@@ -347,8 +381,9 @@ from dragonfly2_tpu_torch.common.errors import Code, DFError
 from dragonfly2_tpu_torch.common.httpd import HTTPError
 from dragonfly2_tpu_torch.common.metrics import REGISTRY
 from dragonfly2_tpu_torch.common.piece import compute_piece_size
-from dragonfly2_tpu_torch.daemon.config import (DaemonConfig, QosSection,
-                                                SchedulerConfig,
+from dragonfly2_tpu_torch.daemon.config import (DaemonConfig,
+                                                ObjectStorageConfig,
+                                                QosSection, SchedulerConfig,
                                                 TracingConfig)
 from dragonfly2_tpu_torch.daemon import pulse as pulse_mod
 from dragonfly2_tpu_torch.daemon.daemon import Daemon
@@ -5660,8 +5695,674 @@ def phase_qos(workdir: str, device: torch.device) -> None:
         "phase_s": time.monotonic() - t_phase, "card": smi})
 
 
+# ---------------------------------------------------------------- phase 19
+
+OBJ_SHARDS = PREFETCH_SHARDS             # the dataset: phase 5's eight
+OBJ_SHARD_BYTES = PREFETCH_SHARD_BYTES   # 256 MiB shards, 2 GiB in all
+OBJ_BUCKET = "datasets"                  # the gateway's s3-backed bucket
+OBJ_BACKEND_BUCKET = "smoke-datasets"    # its name on the S3 stand-in
+OBJ_GEN_BUCKET = "generated"             # a bucket on the plugin's scheme
+OBJ_GEN_KEY = "eval/holdout-00000.tar"
+OBJ_GEN_BYTES = 64 << 20
+OBJ_G = "objstore-g"                     # the gateway's hostname
+OBJ_L = "objstore-l"                     # the training process's daemon
+OBJ_PLUGIN = "gwfirst"                   # the scheduler's evaluator plugin
+OBJ_PREFER, OBJ_OTHER = 10.0, 1.0        # its totals: G's host, any other
+OBJ_STEP_COLS, OBJ_STEP_OUT = 16384, 1024   # the step's bf16 matmul
+OBJ_WAIT_S = 300.0
+# the stand-in's key pair: every request must carry a SigV4 signature
+# that it recomputes from the secret
+S3_ACCESS, S3_SECRET, S3_REGION = "AKSMOKE0000000000000", \
+    "smoke/secret/key/for/the/s3/standin", "us-west-2"
+
+OBJ_EVALUATOR_PLUGIN = f'''"""Evaluator plugin: rules on the parent's host alone. The object
+gateway's host (id {OBJ_G!r}-<ip>) scores {OBJ_PREFER}, any other
+{OBJ_OTHER}."""
+
+
+class GatewayFirst:
+    def evaluate(self, child, parent, *, total_piece_count):
+        if parent.host.id.startswith({OBJ_G + "-"!r}):
+            return {OBJ_PREFER}
+        return {OBJ_OTHER}
+
+
+def dragonfly_plugin_init(option):
+    return GatewayFirst(), {{"type": "evaluator", "name": {OBJ_PLUGIN!r}}}
+'''
+
+OBJ_SOURCE_PLUGIN = '''"""Source plugin for the ``seeded`` scheme: ``seeded://<length>/<key>``
+is <length> seeded bytes (uint64 words of numpy's default generator, its
+seed the key's crc32). It counts its downloads and the bytes it gave."""
+
+import zlib
+
+import numpy as np
+
+from dragonfly2_tpu_torch.source.client import SourceResponse
+
+
+def object_bytes(url):
+    length, _, key = url.split("://", 1)[1].partition("/")
+    n = int(length)
+    rng = np.random.default_rng(zlib.crc32(key.encode()))
+    words = rng.integers(0, np.iinfo(np.uint64).max, size=-(-n // 8),
+                         dtype=np.uint64, endpoint=True)
+    return words.view(np.uint8)[:n]
+
+
+class SeededSource:
+    def __init__(self):
+        self.reads = 0
+        self.bytes_read = 0
+
+    async def content_length(self, req):
+        return int(req.url.split("://", 1)[1].partition("/")[0])
+
+    async def supports_range(self, req):
+        return False
+
+    async def last_modified(self, req):
+        return ""
+
+    async def download(self, req):
+        self.reads += 1
+        data = object_bytes(req.url)
+
+        async def chunks():
+            for off in range(0, len(data), 1 << 20):
+                chunk = data[off:off + (1 << 20)].tobytes()
+                self.bytes_read += len(chunk)
+                yield chunk
+        return SourceResponse(status=200, content_length=len(data),
+                              total_length=len(data), chunks=chunks())
+
+    async def list(self, req):
+        return []
+
+
+def dragonfly_plugin_init(option):
+    return SeededSource(), {"type": "source", "name": "seeded",
+                            "schemes": ["seeded"]}
+'''
+
+
+def seeded_object(key: str, n: int) -> np.ndarray:
+    """What the ``seeded`` plugin gives for ``key``."""
+    return seeded_bytes(np.random.default_rng(zlib.crc32(key.encode())), n)
+
+
+def write_objstore_plugins(plugin_dir: str) -> None:
+    os.makedirs(plugin_dir, exist_ok=True)
+    for name, text in ((f"df_plugin_evaluator_{OBJ_PLUGIN}.py",
+                        OBJ_EVALUATOR_PLUGIN),
+                       ("df_plugin_source_seeded.py", OBJ_SOURCE_PLUGIN)):
+        with open(os.path.join(plugin_dir, name), "w") as f:
+            f.write(text)
+
+
+class S3StandIn:
+    """An S3-compatible store on the standard library: a
+    ``ThreadingHTTPServer`` keeping objects under ``root/<bucket>/<key>``,
+    path-style PUT, GET (a single ``Range``), HEAD and DELETE. Every
+    request must carry an AWS SigV4 ``Authorization`` that it recomputes
+    with ``secret`` over the signed headers (403 otherwise), and a payload
+    hash other than ``UNSIGNED-PAYLOAD`` must be the body's sha256. It
+    counts, per ``bucket/key``, the PUTs, the body bytes each PUT brought
+    and the body bytes GETs sent."""
+
+    def __init__(self, root: str, access: str = S3_ACCESS,
+                 secret: str = S3_SECRET, region: str = S3_REGION):
+        from dragonfly2_tpu_torch.common.objectstorage import S3Credentials
+        self.root = root
+        self.creds = S3Credentials(access, secret, region)
+        self.lock = threading.Lock()
+        self.puts: dict[str, int] = {}
+        self.put_bytes: dict[str, int] = {}
+        self.get_bytes: dict[str, int] = {}
+        self.denied = 0
+        self._server = None
+
+    def stats(self) -> dict:
+        with self.lock:
+            objects = {}
+            for dirpath, _dirs, files in os.walk(self.root):
+                for fn in files:
+                    if fn.startswith(".put-"):
+                        continue
+                    full = os.path.join(dirpath, fn)
+                    rel = os.path.relpath(full, self.root)
+                    objects[rel] = os.path.getsize(full)
+            return {"puts": dict(self.puts), "put_bytes": dict(self.put_bytes),
+                    "get_bytes": dict(self.get_bytes), "denied": self.denied,
+                    "objects": objects}
+
+    def _signed_ok(self, handler) -> bool:
+        from dragonfly2_tpu_torch.common.objectstorage import sign_v4
+        auth = handler.headers.get("Authorization", "")
+        if not auth.startswith("AWS4-HMAC-SHA256 "):
+            return False
+        try:
+            fields = dict(p.strip().split("=", 1)
+                          for p in auth.split(" ", 1)[1].split(","))
+            signed = fields["SignedHeaders"].split(";")
+            now = datetime.datetime.strptime(
+                handler.headers["x-amz-date"], "%Y%m%dT%H%M%SZ").replace(
+                    tzinfo=datetime.timezone.utc)
+        except (KeyError, ValueError):
+            return False
+        url = f"http://{handler.headers['Host']}{handler.path}"
+        redo = sign_v4(self.creds, handler.command, url,
+                       {k: handler.headers.get(k, "") for k in signed
+                        if k not in ("host", "x-amz-date",
+                                     "x-amz-content-sha256")},
+                       handler.headers.get("x-amz-content-sha256", ""),
+                       now=now)
+        return redo["Authorization"] == auth
+
+    def start(self) -> int:
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+        from urllib.parse import unquote
+        store = self
+
+        class Handler(BaseHTTPRequestHandler):
+            protocol_version = "HTTP/1.1"
+
+            def log_message(self, *args) -> None:
+                pass
+
+            def _plain(self, status: int, headers: dict | None = None,
+                       body: bytes = b"") -> None:
+                self.send_response(status)
+                for k, v in (headers or {}).items():
+                    self.send_header(k, v)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                if body and self.command != "HEAD":
+                    self.wfile.write(body)
+
+            def _body(self):
+                """The request body in chunks (Content-Length or
+                chunked)."""
+                if "chunked" in self.headers.get("Transfer-Encoding", ""):
+                    while True:
+                        size = int(self.rfile.readline().split(b";")[0], 16)
+                        if size == 0:
+                            while self.rfile.readline().strip():
+                                pass
+                            return
+                        while size > 0:
+                            data = self.rfile.read(min(1 << 20, size))
+                            size -= len(data)
+                            yield data
+                        self.rfile.read(2)
+                left = int(self.headers.get("Content-Length") or 0)
+                while left > 0:
+                    data = self.rfile.read(min(1 << 20, left))
+                    if not data:
+                        return
+                    left -= len(data)
+                    yield data
+
+            def _target(self) -> tuple[str, str]:
+                path = self.path.split("?", 1)[0]
+                bucket, _, key = path.lstrip("/").partition("/")
+                name = f"{unquote(bucket)}/{unquote(key)}"
+                full = os.path.realpath(os.path.join(store.root, name))
+                if not full.startswith(os.path.realpath(store.root)
+                                       + os.sep):
+                    raise ValueError(name)
+                return name, full
+
+            def _handle(self) -> None:
+                if not store._signed_ok(self):
+                    for _ in self._body():
+                        pass
+                    with store.lock:
+                        store.denied += 1
+                    self._plain(403, body=b"SignatureDoesNotMatch")
+                    return
+                try:
+                    name, full = self._target()
+                except ValueError:
+                    self._plain(400)
+                    return
+                if self.command == "PUT":
+                    self._put(name, full)
+                elif not os.path.isfile(full):
+                    self._plain(404)
+                elif self.command == "DELETE":
+                    os.unlink(full)
+                    self._plain(204)
+                else:
+                    self._get(name, full)
+
+            def _put(self, name: str, full: str) -> None:
+                want = self.headers.get("x-amz-content-sha256", "")
+                sha = hashlib.sha256()
+                os.makedirs(os.path.dirname(full), exist_ok=True)
+                tmp = os.path.join(os.path.dirname(full),
+                                   f".put-{threading.get_ident()}")
+                n = 0
+                with open(tmp, "wb") as f:
+                    for data in self._body():
+                        f.write(data)
+                        n += len(data)
+                        if want != "UNSIGNED-PAYLOAD":
+                            sha.update(data)
+                if want != "UNSIGNED-PAYLOAD" and sha.hexdigest() != want:
+                    os.unlink(tmp)
+                    self._plain(400, body=b"XAmzContentSHA256Mismatch")
+                    return
+                os.replace(tmp, full)
+                with store.lock:
+                    store.puts[name] = store.puts.get(name, 0) + 1
+                    store.put_bytes[name] = store.put_bytes.get(name, 0) + n
+                self._plain(200, {"ETag": '"standin"'})
+
+            def _get(self, name: str, full: str) -> None:
+                size = os.path.getsize(full)
+                start, end, status = 0, size, 200
+                m = re.match(r"bytes=(\d+)-(\d*)$",
+                             self.headers.get("Range", ""))
+                if m:
+                    start = int(m.group(1))
+                    end = min(size, int(m.group(2)) + 1 if m.group(2)
+                              else size)
+                    status = 206
+                self.send_response(status)
+                self.send_header("Content-Length", str(end - start))
+                self.send_header("ETag", '"standin"')
+                if status == 206:
+                    self.send_header("Content-Range",
+                                     f"bytes {start}-{end - 1}/{size}")
+                self.end_headers()
+                if self.command == "HEAD":
+                    return
+                with open(full, "rb") as f:
+                    f.seek(start)
+                    left = end - start
+                    while left > 0:
+                        data = f.read(min(1 << 20, left))
+                        self.wfile.write(data)
+                        left -= len(data)
+                        with store.lock:
+                            store.get_bytes[name] = \
+                                store.get_bytes.get(name, 0) + len(data)
+
+            do_PUT = do_GET = do_HEAD = do_DELETE = _handle
+
+        os.makedirs(self.root, exist_ok=True)
+        self._server = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self._server.daemon_threads = True
+        threading.Thread(target=self._server.serve_forever,
+                         daemon=True).start()
+        return self._server.server_address[1]
+
+    def stop(self) -> None:
+        if self._server is not None:
+            self._server.shutdown()
+            self._server.server_close()
+            self._server = None
+
+
+def s3_standin_child(root: str, conn) -> None:
+    """Phase 19's S3 stand-in, in a spawned process: it sends its port,
+    answers each "stats" with its counts, and ends at "stop"."""
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    store = S3StandIn(root)
+    try:
+        conn.send({"port": store.start()})
+        while conn.recv() == "stats":
+            conn.send(store.stats())
+    finally:
+        store.stop()
+
+
+def objstore_gateway_cfg(workdir: str, s3_port: int, plugin_dir: str,
+                         gen_bytes: int) -> DaemonConfig:
+    """G: a seed daemon with the object gateway. ``datasets`` is backed by
+    the S3 stand-in with write-back; ``generated`` reads the plugin's
+    ``seeded`` scheme through the P2P task engine."""
+    return DaemonConfig(
+        workdir=workdir, hostname=OBJ_G, is_seed=True,
+        listen_ip="127.0.0.1", host_ip="127.0.0.1", device="cpu",
+        plugin_dir=plugin_dir,
+        object_storage=ObjectStorageConfig(
+            enabled=True,
+            buckets={OBJ_BUCKET: f"s3://{OBJ_BACKEND_BUCKET}",
+                     OBJ_GEN_BUCKET: f"seeded://{gen_bytes}"},
+            backends={OBJ_BUCKET: {
+                "kind": "s3", "base": f"http://127.0.0.1:{s3_port}",
+                "bucket": OBJ_BACKEND_BUCKET, "access_key": S3_ACCESS,
+                "secret_key": S3_SECRET, "region": S3_REGION}}))
+
+
+def objstore_child(workdir: str, s3_port: int, plugin_dir: str,
+                   keys: list[str], gen_bytes: int, conn) -> None:
+    """Phase 19's scheduler and gateway daemon G, in a spawned process
+    that never touches CUDA: it sends the scheduler's address, the
+    gateway's port and G's URLs for ``keys``, answers each "stats" with
+    the scheduler's rulings and the source plugin's reads, and ends at
+    "stop"."""
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    asyncio.run(_objstore_child(workdir, s3_port, plugin_dir, keys,
+                                gen_bytes, conn))
+
+
+async def _objstore_child(workdir: str, s3_port: int, plugin_dir: str,
+                          keys: list[str], gen_bytes: int, conn) -> None:
+    g = Daemon(objstore_gateway_cfg(os.path.join(workdir, "g"), s3_port,
+                                    plugin_dir, gen_bytes))
+    await g.start()
+    sched = Scheduler(SchedCfg(
+        listen_ip="127.0.0.1", algorithm=f"plugin:{OBJ_PLUGIN}",
+        plugin_dir=plugin_dir, records_dir=os.path.join(workdir, "records"),
+        seed_peers=[SeedPeerAddr(host_id=g.host_info().id, ip="127.0.0.1",
+                                 rpc_port=g.rpc.port,
+                                 download_port=g.upload_server.port)]))
+    await sched.start()
+    gw = g.object_gateway
+    requests = REGISTRY.counter("df_objstore_requests_total",
+                                labels=("op", "status"))
+    try:
+        conn.send({"scheduler": sched.address, "gateway": gw.port,
+                   "g_host_id": g.host_info().id,
+                   "urls": [gw._object_url(OBJ_BUCKET, k) for k in keys]})
+        while await asyncio.to_thread(conn.recv) == "stats":
+            plugin = source.client_for("seeded://0/x")
+            conn.send({
+                "decisions": sched.ledger.snapshot(limit=4096)["decisions"],
+                "plugin_reads": plugin.reads,
+                "plugin_bytes": plugin.bytes_read,
+                "g_upload_bytes": REGISTRY.counter(
+                    "df_upload_bytes_total").value(),
+                "g_tasks": len(g.storage_mgr.tasks()),
+                "requests": {f"{op}/{st}": requests.value(op, st)
+                             for op, st in (("put", "ok"), ("get", "ok"),
+                                            ("head", "ok"), ("head", "404"),
+                                            ("delete", "ok"))}})
+    finally:
+        await g.stop()
+        await sched.stop()
+
+
+def dfstore(endpoint: str, *args: str) -> tuple[int, dict, float]:
+    """One ``dfstore`` CLI run as its own process: (exit code, its JSON
+    line, seconds)."""
+    t0 = time.monotonic()
+    r = subprocess.run(
+        [sys.executable, "-m", "dragonfly2_tpu_torch.tools.dfstore", *args,
+         "--endpoint", endpoint], capture_output=True, text=True,
+        timeout=600, cwd=ROOT, env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    wall = time.monotonic() - t0
+    line = r.stdout.strip().splitlines()[-1] if r.stdout.strip() else "{}"
+    try:
+        out = json.loads(line)
+    except ValueError:
+        out = {"stdout": line}
+    if r.returncode and r.stderr:
+        out["stderr"] = r.stderr[-2000:]
+    return r.returncode, out, wall
+
+
+def objstore_train(daemon_box: dict, urls: list[str], refs: list,
+                   device: torch.device) -> dict:
+    """The training process's loop: ``ShardPrefetcher(depth=2)`` over G's
+    URLs on L, each shard one step on the card (a bf16 matmul over the
+    shard's bytes, its exponents' top bit cleared so every value is
+    finite, and an SGD update of the weight)."""
+    gen = torch.Generator(device=device).manual_seed(19)
+    w = (torch.randn(OBJ_STEP_COLS, OBJ_STEP_OUT, generator=gen,
+                     device=device) * 0.01).to(torch.bfloat16)
+    w.requires_grad_()
+    pf = ShardPrefetcher(daemon_box["daemon"], urls, depth=2,
+                         loop=daemon_box["loop"],
+                         url_meta=UrlMeta(tag="objstore"),
+                         disable_back_source=True)
+    waits, steps, losses = [], [], []
+    t0 = t_ask = time.monotonic()
+    for i, arrays in enumerate(pf):
+        waits.append(time.monotonic() - t_ask)
+        check(all(a.device.type == device.type for a in arrays),
+              f"shard {i} is not on {device}")
+        flat = torch.cat(arrays)[:OBJ_SHARD_BYTES]
+        check(torch.equal(flat, refs[i]),
+              f"shard {i} on the card differs from the bytes put")
+        t_step = time.monotonic()
+        x = (flat.view(torch.int16) & -16385).view(torch.bfloat16)
+        x = x.view(-1, OBJ_STEP_COLS)
+        loss = (x @ w).float().square().mean()
+        loss.backward()
+        with torch.no_grad():
+            w -= 1e-3 * w.grad
+            w.grad = None
+        losses.append(loss.item())          # synchronizes the step
+        steps.append(time.monotonic() - t_step)
+        del flat, x, arrays
+        t_ask = time.monotonic()
+    elapsed = time.monotonic() - t0
+    check(len(steps) == len(urls), f"{len(steps)} shards, want {len(urls)}")
+    check(all(math.isfinite(v) for v in losses), f"losses {losses}")
+    return {"elapsed_s": elapsed, "waits_s": waits, "steps_s": steps,
+            "losses": losses}
+
+
+def phase_objstore(workdir: str, seed: int, device: torch.device) -> None:
+    """Phase 19: dataset shards written through dfstore and the object
+    gateway to an S3 stand-in, then prefetched over P2P into the card
+    between training steps."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    t_phase = time.monotonic()
+    d = os.path.join(workdir, "objstore")
+    os.makedirs(os.path.join(d, "data"), exist_ok=True)
+    total = OBJ_SHARDS * OBJ_SHARD_BYTES
+    # the shard files, the stand-in's copies, G's cache, the spool and L's
+    # in-flight shards
+    need = 3 * total + 4 * OBJ_SHARD_BYTES + (1 << 30)
+    free = shutil.disk_usage(workdir).free
+    check(free >= need, f"phase 19 needs {need} bytes of free disk, "
+                        f"{free} free")
+    plugin_dir = os.path.join(d, "plugins")
+    write_objstore_plugins(plugin_dir)
+    rng = np.random.default_rng(seed + 19)
+    keys = [f"train/shard-{i:05d}.tar" for i in range(OBJ_SHARDS)]
+    paths, refs = [], []
+    for i in range(OBJ_SHARDS):
+        data = seeded_bytes(rng, OBJ_SHARD_BYTES)
+        path = os.path.join(d, "data", f"shard-{i:05d}.tar")
+        with open(path, "wb") as f:
+            f.write(memoryview(data))
+            os.fsync(f.fileno())
+        paths.append(path)
+        refs.append(torch.from_numpy(data).to(device))
+    del data
+    ctx = multiprocessing.get_context("spawn")
+    s3_conn, s3_child_conn = ctx.Pipe()
+    s3 = ctx.Process(target=s3_standin_child, name="smoke-s3",
+                     args=(os.path.join(d, "s3"), s3_child_conn))
+    s3.start()
+    g_conn = g = None
+    boot: dict = {}
+    stop = threading.Event()
+    thread = None
+    try:
+        check(s3_conn.poll(300), "phase 19's S3 stand-in did not start")
+        s3_port = s3_conn.recv()["port"]
+        g_conn, g_child_conn = ctx.Pipe()
+        g = ctx.Process(target=objstore_child, name="smoke-objstore",
+                        args=(d, s3_port, plugin_dir, keys, OBJ_GEN_BYTES,
+                              g_child_conn))
+        g.start()
+        check(g_conn.poll(300), "phase 19's gateway child did not start")
+        info = g_conn.recv()
+        endpoint = f"http://127.0.0.1:{info['gateway']}"
+
+        # writing: one dfstore put per shard, each done only once the
+        # stand-in holds the object
+        t0 = time.monotonic()
+        put_s = []
+        for key, path in zip(keys, paths):
+            rc, out, wall = dfstore(endpoint, "put", OBJ_BUCKET, key,
+                                    "-I", path)
+            check(rc == 0 and out.get("stored") == key,
+                  f"dfstore put {key}: exit {rc} {out}")
+            held = _ask(s3_conn, "stats")["objects"].get(
+                f"{OBJ_BACKEND_BUCKET}/{key}")
+            check(held == OBJ_SHARD_BYTES,
+                  f"dfstore put {key} exited 0 with the stand-in holding "
+                  f"{held} bytes")
+            put_s.append(wall)
+        put_wall = time.monotonic() - t0
+        s3_put = _ask(s3_conn, "stats")
+        names = [f"{OBJ_BACKEND_BUCKET}/{k}" for k in keys]
+        check(all(s3_put["puts"].get(n) == 1
+                  and s3_put["put_bytes"].get(n) == OBJ_SHARD_BYTES
+                  for n in names) and s3_put["denied"] == 0,
+              f"the stand-in did not receive each byte once: "
+              f"{s3_put['puts']} {s3_put['put_bytes']} "
+              f"denied {s3_put['denied']}")
+        for path in paths:
+            os.unlink(path)
+
+        # prefetching: L embedded in this process, as in phase 5
+        def daemon_thread() -> None:
+            async def main() -> None:
+                daemon = Daemon(DaemonConfig(
+                    workdir=os.path.join(d, "l"), hostname=OBJ_L,
+                    listen_ip="127.0.0.1", host_ip="127.0.0.1",
+                    device="cpu" if device.type == "cpu" else "cuda",
+                    scheduler=SchedulerConfig(
+                        addresses=[info["scheduler"]])))
+                await daemon.start()
+                boot.update(daemon=daemon, loop=asyncio.get_running_loop(),
+                            host_id=daemon.host_info().id)
+                try:
+                    while not stop.is_set():
+                        await asyncio.sleep(0.05)
+                finally:
+                    await daemon.stop()
+            asyncio.run(main())
+
+        thread = threading.Thread(target=daemon_thread, name="smoke-objstore-l",
+                                  daemon=True)
+        thread.start()
+        t_boot = time.monotonic()
+        while "daemon" not in boot:
+            check(thread.is_alive() and time.monotonic() - t_boot < 120,
+                  "phase 19's L did not start")
+            time.sleep(0.05)
+        before = hbm_counters()
+        train = objstore_train(boot, info["urls"], refs, device)
+        hbm = hbm_metrics(before)
+        del refs
+        s3_pf = _ask(s3_conn, "stats")
+        check(sum(s3_pf["get_bytes"].values()) == 0,
+              f"the stand-in sent {s3_pf['get_bytes']} GET bytes during "
+              f"the prefetch")
+        stats = _ask(g_conn, "stats")
+
+        # every ruling of L's tasks is the plugin's
+        rows = [r for r in stats["decisions"]
+                if r["host_id"] == boot["host_id"] and r["candidates"]]
+        check(rows, "the scheduler made no ruling with candidates for L")
+        for r in rows:
+            best = max(c["total"] for c in r["candidates"])
+            for c in r["candidates"]:
+                want = (OBJ_PREFER if c["host_id"] == info["g_host_id"]
+                        else OBJ_OTHER)
+                check(c.get("substituted") == {"total": "plugin"}
+                      and c["total"] == want and "base_total" in c,
+                      f"candidate {c['host_id']} of {r['decision_id']}: "
+                      f"{c.get('substituted')} total {c['total']}, "
+                      f"want {want}")
+            chosen = {c["peer_id"]: c["total"] for c in r["candidates"]}
+            check(all(chosen.get(p) == best for p in r["chosen"]),
+                  f"{r['decision_id']} chose {r['chosen']} below the "
+                  f"plugin's best {best}")
+        tasks = {r["task_id"] for r in rows}
+
+        # the gateway's GET path: the plugin's scheme through G's
+        # stream_task, then from the completed task
+        want = seeded_object(OBJ_GEN_KEY, OBJ_GEN_BYTES)
+        gets = []
+        for n in range(2):
+            out_path = os.path.join(d, f"generated-{n}.tar")
+            rc, out, wall = dfstore(endpoint, "get", OBJ_GEN_BUCKET,
+                                    OBJ_GEN_KEY, "-O", out_path)
+            check(rc == 0 and out.get("bytes") == OBJ_GEN_BYTES,
+                  f"dfstore get {OBJ_GEN_KEY}: exit {rc} {out}")
+            got = np.fromfile(out_path, dtype=np.uint8)
+            check(np.array_equal(got, want),
+                  f"get {n} of {OBJ_GEN_KEY} differs from the plugin's "
+                  f"bytes")
+            os.unlink(out_path)
+            reads = _ask(g_conn, "stats")
+            gets.append({"wall_s": wall, "plugin_reads": reads["plugin_reads"],
+                         "plugin_bytes": reads["plugin_bytes"]})
+        check(gets[0]["plugin_reads"] == 1
+              and gets[0]["plugin_bytes"] == OBJ_GEN_BYTES
+              and gets[1]["plugin_reads"] == 1
+              and gets[1]["plugin_bytes"] == OBJ_GEN_BYTES,
+              f"the plugin's reads across two gets: {gets}")
+
+        # removal, in the gateway and on the stand-in
+        rc, out, _ = dfstore(endpoint, "rm", OBJ_BUCKET, keys[0])
+        check(rc == 0 and out.get("deleted") == keys[0],
+              f"dfstore rm: exit {rc} {out}")
+        rc, out, _ = dfstore(endpoint, "stat", OBJ_BUCKET, keys[0])
+        check(rc == 1 and out == {"exists": False},
+              f"dfstore stat after rm: exit {rc} {out}")
+        s3_rm = _ask(s3_conn, "stats")
+        check(names[0] not in s3_rm["objects"]
+              and all(n in s3_rm["objects"] for n in names[1:]),
+              f"the stand-in holds {sorted(s3_rm['objects'])} after rm")
+        final = _ask(g_conn, "stats")
+    finally:
+        stop.set()
+        if thread is not None:
+            thread.join(timeout=120)
+        for conn, proc in ((g_conn, g), (s3_conn, s3)):
+            if conn is not None:
+                try:
+                    conn.send("stop")
+                except (OSError, ValueError):
+                    pass
+            if proc is not None:
+                proc.join(timeout=120)
+                if proc.is_alive():
+                    proc.terminate()
+                    proc.join(timeout=30)
+    check(g.exitcode == 0 and s3.exitcode == 0,
+          f"phase 19 children exited {g.exitcode}, {s3.exitcode}")
+    waits, steps = train["waits_s"], train["steps_s"]
+    emit("phase 19 objstore", {
+        "shards": OBJ_SHARDS, "shard_bytes": OBJ_SHARD_BYTES,
+        "dataset_bytes": total,
+        "put_wall_s": put_wall, "put_gbps": total / 1e9 / put_wall,
+        "put_s": put_s,
+        "prefetch_s": train["elapsed_s"],
+        "prefetch_gbps": total / 1e9 / train["elapsed_s"],
+        "wait_median_s": statistics.median(waits),
+        "wait_max_s": max(waits), "waits_s": waits,
+        "step_median_s": statistics.median(steps), "steps_s": steps,
+        "losses": train["losses"],
+        "standin": {"put_bytes": sum(s3_put["put_bytes"].values()),
+                    "puts": sum(s3_put["puts"].values()),
+                    "get_bytes_during_prefetch": sum(
+                        s3_pf["get_bytes"].values()),
+                    "denied": s3_pf["denied"]},
+        "plugin_rulings": len(rows), "l_tasks_ruled": len(tasks),
+        "g_upload_bytes": stats["g_upload_bytes"],
+        "generated_gets": gets, "gateway_requests": final["requests"],
+        **hbm, "phase_s": time.monotonic() - t_phase, "card": smi})
+
+
 def run_phases(layers: int, seed: int, device: torch.device) -> None:
-    """Phases 2-18 on ``device``; raises CheckFailed on a failed check."""
+    """Phases 2-19 on ``device``; raises CheckFailed on a failed check."""
     layout = llama_layout(layers)
     header, nbytes = safetensors_header(layout)
     workdir = tempfile.mkdtemp(prefix="chip-smoke-")
@@ -5726,6 +6427,7 @@ def run_phases(layers: int, seed: int, device: torch.device) -> None:
         phase_poison(workdir, device)
         phase_federation(workdir, device)
         phase_qos(workdir, device)
+        phase_objstore(workdir, seed, device)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 

@@ -24,11 +24,13 @@ from urllib.parse import parse_qs, urlsplit
 
 log = logging.getLogger("df.http")
 
-REASONS = {200: "OK", 206: "Partial Content", 400: "Bad Request",
+REASONS = {200: "OK", 201: "Created", 202: "Accepted", 204: "No Content",
+           206: "Partial Content", 400: "Bad Request",
            404: "Not Found", 405: "Method Not Allowed", 409: "Conflict",
            413: "Request Entity Too Large",
-           416: "Range Not Satisfiable", 431: "Request Header Fields Too "
-           "Large", 503: "Service Unavailable"}
+           416: "Range Not Satisfiable", 429: "Too Many Requests",
+           431: "Request Header Fields Too Large", 501: "Not Implemented",
+           502: "Bad Gateway", 503: "Service Unavailable"}
 HEAD_LIMIT = 64 << 10
 BODY_LIMIT = 1 << 20        # aiohttp's default client_max_size
 

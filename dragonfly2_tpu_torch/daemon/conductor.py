@@ -48,6 +48,9 @@ An origin that reports no length streams to its end
 (``on_source_complete``), and such a task gets no device sink, as in the
 reference: the sink needs the length up front.
 
+An ``ordered`` conductor (a stream consumer's, ``read_ordered``) has its
+P2P pieces dispatched lowest-numbered first instead of rarest-first.
+
 Bytes already on disk are not transferred again: a request naming a
 content digest the content store holds complete is adopted whole
 (``_try_adopt_content``), and an announced piece held under this task (a
@@ -61,7 +64,7 @@ from __future__ import annotations
 import asyncio
 import logging
 import time
-from typing import Any
+from typing import Any, AsyncIterator
 
 from ..common import digest as digestlib
 from ..common import health, tracing
@@ -111,7 +114,8 @@ class PeerTaskConductor:
                  device_sink_factory: Any = None,
                  shard_manifest: Any = None,
                  requested_shards: list[str] | None = None,
-                 flight: Any = None, relay: Any = None, pex: Any = None):
+                 flight: Any = None, relay: Any = None, pex: Any = None,
+                 ordered: bool = False):
         self.task_id = task_id
         self.peer_id = peer_id
         self.url = url
@@ -129,6 +133,7 @@ class PeerTaskConductor:
         self.disable_back_source = disable_back_source
         self.task_type = task_type
         self.device_sink_factory = device_sink_factory
+        self.ordered = ordered       # stream consumers want low pieces first
         self.flight = flight         # TaskFlight journal (None = disabled)
         self.relay = relay           # RelayHub (None = cut-through off)
         self.pex = pex               # PexGossiper (None = plane disabled)
@@ -1032,6 +1037,9 @@ class PeerTaskConductor:
                        "message": message})
         self.done_event.set()
         self.storage_ready.set()
+        async with self._piece_cond:
+            # an ordered reader parked on a piece that will never land
+            self._piece_cond.notify_all()
         self.log.warning("task failed: %s %s", code.name, message)
 
     async def wait_done(self, timeout: float | None = None) -> bool:
@@ -1072,3 +1080,31 @@ class PeerTaskConductor:
     def _publish(self, event: dict) -> None:
         for q in list(self._subscribers):
             q.put_nowait(event)
+
+    # ------------------------------------------------------------------
+    # ordered byte stream (stream tasks, the object gateway)
+    # ------------------------------------------------------------------
+
+    async def read_ordered(self) -> AsyncIterator[bytes]:
+        """Yield the content's bytes in order, each piece as soon as it
+        and every piece before it have landed; raises the task's error if
+        it fails first."""
+        num = 0
+        while True:
+            async with self._piece_cond:
+                while (num not in self.ready
+                       and not self.done_event.is_set()):
+                    await self._piece_cond.wait()
+            if num in self.ready:
+                assert self.storage is not None
+                data = await run_io(self.storage.read_piece, num)
+                yield data
+                num += 1
+                if self.total_pieces >= 0 and num >= self.total_pieces:
+                    return
+                continue
+            # done without the piece: the task ended
+            if self.state == self.FAILED:
+                raise DFError(self.fail_code or Code.UNKNOWN,
+                              self.fail_message or "task failed")
+            return

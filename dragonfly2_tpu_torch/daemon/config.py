@@ -200,11 +200,16 @@ class ProxyConfig:
 
 @dataclass
 class ObjectStorageConfig:
-    """The object-storage gateway: unported (item 6)."""
+    """The object-storage gateway (daemon/objectstorage.py)."""
 
     enabled: bool = False
     port: int = 0
+    # bucket name -> source URL base (file:///path, http(s)://, s3://, or
+    # a source plugin's scheme): the P2P-accelerated read path
     buckets: dict[str, str] = field(default_factory=dict)
+    # bucket name -> the write path's backend ({kind: file|s3, base,
+    # bucket, access_key, secret_key, region}); a file:// read bucket gets
+    # an implicit file backend
     backends: dict[str, dict] = field(default_factory=dict)
 
 
@@ -236,7 +241,7 @@ class DaemonConfig:
     probe_enabled: bool = True             # RTT probing via SyncProbes
     # inert, as in the reference: declared there and read nowhere
     metrics_port: int = 0
-    plugin_dir: str = ""                   # unported (item 5d)
+    plugin_dir: str = ""                   # df_plugin_source_*.py schemes
     # "cuda": every CUDA device of the host (an error when there is none);
     # "cpu": one CPU device, only when named
     device: str = "cuda"
@@ -250,8 +255,7 @@ class DaemonConfig:
 # dragonfly2_tpu/ finds no reader of scheduler.max_reschedule,
 # download.per_peer_rate_limit_bps, download.first_piece_timeout_s or
 # metrics_port outside its config module. Unported, by ROADMAP Queue 1
-# item: fleet mTLS, the proxy and the object gateway (6), source plugins
-# (5d). ``device`` is the port's own.
+# item: fleet mTLS and the proxy (6). ``device`` is the port's own.
 KEY_CLASSES: dict[str, str] = {
     "workdir": WIRED,
     "host_ip": WIRED,
@@ -336,10 +340,10 @@ KEY_CLASSES: dict[str, str] = {
     "proxy.ca_key": unported("6"),
     "proxy.sni_port": unported("6"),
     "proxy.verify_upstream": unported("6"),
-    "object_storage.enabled": unported("6"),
-    "object_storage.port": unported("6"),
-    "object_storage.buckets": unported("6"),
-    "object_storage.backends": unported("6"),
+    "object_storage.enabled": WIRED,
+    "object_storage.port": WIRED,
+    "object_storage.buckets": WIRED,
+    "object_storage.backends": WIRED,
     "qos.enabled": WIRED,
     "qos.bulk_active_limit": WIRED,
     "qos.brownout_critical_threshold": WIRED,
@@ -349,6 +353,6 @@ KEY_CLASSES: dict[str, str] = {
     "announce_interval_s": WIRED,
     "probe_enabled": WIRED,
     "metrics_port": INERT,
-    "plugin_dir": unported("5d"),
+    "plugin_dir": WIRED,
     "device": WIRED,
 }

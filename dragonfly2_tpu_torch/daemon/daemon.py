@@ -41,9 +41,14 @@ deadline per piece. The QoS plane: the traffic shaper
 and task, and its per-task buckets pace P2P fetches and back-source
 reads; the governor (``qos.py``, the ``qos`` section) admits each new
 task by class, browning out and shedding bulk work, and serves ``GET
-/debug/qos`` on the upload port. A config that sets a key whose
-subsystem is not ported (fleet TLS, the proxy, the object gateway,
-source plugins) is refused at construction, by name.
+/debug/qos`` on the upload port. ``plugin_dir``'s source plugins
+(``common/plugins.py``) register their schemes at start, before anything
+pulls. With ``object_storage.enabled`` the object gateway
+(``objectstorage.py``) is built at construction (its bucket config is
+checked there) and serves from start, before the manager attach, so a
+seed's registration carries its port. A config that sets a key whose
+subsystem is not ported (fleet TLS, the proxy) is refused at
+construction, by name.
 """
 
 from __future__ import annotations
@@ -64,6 +69,7 @@ from ..common.dfpath import DFPath
 from ..common.errors import Code, DFError
 from ..common.gc import GC, GCTask
 from ..common.piece import INGEST_DMA_UNIT_BYTES
+from ..common.plugins import load_source_plugins
 from ..idl.messages import (DeviceSink, GetSchedulersRequest, Host, HostType,
                             RegisterSeedPeerRequest)
 from ..rpc.client import ChannelPool
@@ -78,6 +84,7 @@ from .announcer import Announcer
 from .config import KEY_CLASSES, DaemonConfig
 from .flight_recorder import FlightRecorder
 from .networktopology import NetworkTopologyProber
+from .objectstorage import ObjectGateway
 from .peertask_manager import PeerTaskManager
 from .pex import PexGossiper
 from .qos import QosGovernor
@@ -190,6 +197,9 @@ class Daemon:
         self.unix_sock = ""
         self._downloader: PieceDownloader | None = None
         self._peer_channels: ChannelPool | None = None
+        self.object_gateway: ObjectGateway | None = (
+            ObjectGateway(self, cfg.object_storage)
+            if cfg.object_storage.enabled else None)
 
     def host_info(self) -> Host:
         return Host(
@@ -270,6 +280,9 @@ class Daemon:
         self.health = health.PLANE
         self.health.acquire(self.cfg.health.to_plane())
         self.health.attach_recorder(self.flight_recorder)
+        if self.cfg.plugin_dir:
+            # a plugin's schemes exist before the first pull
+            load_source_plugins(self.cfg.plugin_dir)
         if self.storage_mgr.reloaded_tasks:
             # warm restart: re-verify the reloaded pieces on the storage
             # pool before anything serves or advertises them
@@ -327,6 +340,9 @@ class Daemon:
         for sdef in build_service(svc):
             self.rpc.register(sdef)
         await self.rpc.start()
+        if self.object_gateway is not None:
+            # before the manager attach: a seed registers its port
+            await self.object_gateway.start()
         # the connector needs the resolved rpc/upload ports for register
         if self.cfg.scheduler.addresses:
             self.scheduler = self._connector(self.cfg.scheduler.addresses)
@@ -379,6 +395,9 @@ class Daemon:
                     hostname=self.hostname, ip=self.host_ip,
                     port=self.rpc.port,
                     download_port=self.upload_server.port,
+                    object_storage_port=(self.object_gateway.port
+                                         if self.object_gateway is not None
+                                         else 0),
                     seed_peer_cluster_id=1, topology=self.topology))
                 self.manager.start_keepalive(source_type="seed_peer",
                                              hostname=self.hostname,
@@ -485,6 +504,9 @@ class Daemon:
         if self.announcer is not None:
             await self.announcer.stop()
         await self.gc.stop()
+        if self.object_gateway is not None:
+            # drains its async write-backs while the daemon still runs
+            await self.object_gateway.stop()
         if self._sched_refresh is not None:
             self._sched_refresh.cancel()
             await asyncio.gather(self._sched_refresh, return_exceptions=True)

@@ -29,6 +29,12 @@ whole-file parent covers the range, which is copied out of the parent's
 file. With ``prefetch_whole_file`` a ranged request whose parent is not
 finished also starts the whole file in the background, so later ranges
 are local reads.
+
+The object gateway's two paths: ``stream_task`` gives a task's bytes in
+order as they land (a completed task replays from disk; a running file
+task joined by a stream switches to in-order fetching), and
+``import_file`` makes a local file a completed task under a URL's task
+id, as a back-source pull would store it.
 """
 
 from __future__ import annotations
@@ -93,18 +99,23 @@ class PeerTaskManager:
             disable_back_source: bool = False,
             device_sink_factory: Any = None,
             shard_manifest: Any = None,
-            register: bool = True) -> PeerTaskConductor:
+            register: bool = True,
+            ordered: bool = False) -> PeerTaskConductor:
         """Join the live conductor for this task, or start one.
         ``register=False`` starts it without the scheduler: a seed's
         ``ObtainSeeds`` download is the scheduler's own trigger, and
         registering it too would let the scheduler offer the seed its
-        own waiting leecher as a parent (each then waits on the other)."""
+        own waiting leecher as a parent (each then waits on the other).
+        ``ordered``: a stream consumer reads it from piece 0 up, so its
+        pieces are fetched in order (a running task joined this way
+        switches)."""
         task_id = self._task_id(url, meta)
         requested_shards = None
         if meta.shards:
             requested_shards = parse_shard_names(meta.shards) or None
         async with self._lock:
-            conductor = self._join_existing(task_id, requested_shards)
+            conductor = self._join_existing(task_id, requested_shards,
+                                            ordered)
             if conductor is not None:
                 return conductor
         # admission outside the lock, so a queued bulk request never holds
@@ -114,7 +125,8 @@ class PeerTaskManager:
             qos = await self.qos.admit(resolve_class(meta.qos_class),
                                        meta.tenant)
         async with self._lock:
-            conductor = self._join_existing(task_id, requested_shards)
+            conductor = self._join_existing(task_id, requested_shards,
+                                            ordered)
             if conductor is not None:
                 if qos is not None:
                     # lost the creation race while queued: the winner's
@@ -127,14 +139,14 @@ class PeerTaskManager:
                 device_sink_factory=device_sink_factory,
                 shard_manifest=shard_manifest,
                 requested_shards=requested_shards, register=register,
-                qos=qos)
+                qos=qos, ordered=ordered)
 
     def _start_conductor(self, task_id: str, url: str, meta: UrlMeta, *,
                          task_type: TaskType, disable_back_source: bool,
                          device_sink_factory: Any, shard_manifest: Any,
                          requested_shards: list[str] | None, register: bool,
                          qos: tuple[str, str] | None = None,
-                         ) -> PeerTaskConductor:
+                         ordered: bool = False) -> PeerTaskConductor:
         """Build and start a task's conductor (called under the manager
         lock). ``qos``: the governor's (class, ruling) for this task."""
         peer_id = ids.peer_id(self.hostname, self.host_ip,
@@ -156,7 +168,7 @@ class PeerTaskManager:
             device_sink_factory=device_sink_factory,
             shard_manifest=shard_manifest,
             requested_shards=requested_shards,
-            flight=flight, relay=self.relay, pex=self.pex)
+            flight=flight, relay=self.relay, pex=self.pex, ordered=ordered)
         if qos is not None:
             qos_cls, ruling = qos
             conductor.qos_release = lambda c=qos_cls: self.qos.release(c)
@@ -175,12 +187,21 @@ class PeerTaskManager:
 
     def _join_existing(self, task_id: str,
                        requested_shards: list[str] | None,
+                       ordered: bool = False,
                        ) -> PeerTaskConductor | None:
         """The live conductor this request may share (called under the
         manager lock), or None to start a fresh one."""
         conductor = self._conductors.get(task_id)
         if conductor is None or conductor.state == PeerTaskConductor.FAILED:
             return None
+        if ordered and not conductor.ordered:
+            # a stream consumer joined a running file task: switch to
+            # in-order fetching so read_ordered() does not stall behind
+            # rarest-first pieces
+            conductor.ordered = True
+            engine = conductor._p2p_engine
+            if engine is not None:
+                engine.dispatcher.ordered = True
         if self._subset_gap(conductor, requested_shards):
             # the joiner needs shards (or the whole file) the live subset
             # download would never fetch: widen it so its done_event
@@ -325,6 +346,23 @@ class PeerTaskManager:
         finally:
             conductor.unsubscribe(q)
 
+    async def stream_task(self, url: str, meta: UrlMeta | None = None,
+                          ) -> tuple[str, AsyncIterator[bytes]]:
+        """The task's bytes in order, as they land (the object gateway's
+        GET): a completed task replays from disk, else the live conductor
+        is joined, or one started, with in-order fetching."""
+        meta = meta or UrlMeta()
+        task_id = self._task_id(url, meta)
+        reuse = self.storage_mgr.find_completed_task(task_id)
+        if reuse is not None:
+            async def replay() -> AsyncIterator[bytes]:
+                for p in reuse.piece_infos():
+                    yield await asyncio.to_thread(reuse.read_piece, p.num)
+            return task_id, replay()
+        conductor = await self.get_or_create_conductor(url, meta,
+                                                       ordered=True)
+        return task_id, conductor.read_ordered()
+
     async def stat_task(self, task_id: str) -> TaskStat:
         ts = self.storage_mgr.get(task_id)
         if ts is None:
@@ -341,6 +379,47 @@ class PeerTaskManager:
                         state="success" if md.success else
                               ("done" if md.done else "running"),
                         has_available_peer=md.done and md.success)
+
+    async def import_file(self, path: str, url: str,
+                          meta: UrlMeta | None = None,
+                          task_type: TaskType = TaskType.PERSISTENT) -> str:
+        """Make a local file a completed task under ``url``'s task id
+        (the gateway's PUT): its pieces are cut, digested and stored as a
+        back-source pull would store them. No scheduler is told; a seed
+        serves the task when the scheduler triggers it. A task already
+        complete is left as it is."""
+        meta = meta or UrlMeta()
+        task_id = self._task_id(url, meta)
+        if self.storage_mgr.find_completed_task(task_id) is not None:
+            return task_id
+        conductor = PeerTaskConductor(
+            task_id=task_id,
+            peer_id=ids.peer_id(self.hostname, self.host_ip,
+                                seed=self.is_seed),
+            url=url, url_meta=meta, storage_mgr=self.storage_mgr,
+            piece_mgr=self.piece_mgr, scheduler=None, task_type=task_type)
+        self._conductors[task_id] = conductor
+
+        async def run_import() -> None:
+            try:
+                await self.piece_mgr.import_file(conductor, path)
+                await conductor._finish_success()
+            except DFError as exc:
+                await conductor._finish_fail(exc.code, exc.message)
+            except Exception as exc:  # noqa: BLE001
+                await conductor._finish_fail(Code.UNKNOWN, str(exc))
+
+        # held, and awaited to its end: the loop holds tasks weakly
+        import_task = asyncio.get_running_loop().create_task(run_import())
+        try:
+            await import_task
+        except BaseException:
+            import_task.cancel()
+            await asyncio.gather(import_task, return_exceptions=True)
+            raise
+        if conductor.state != PeerTaskConductor.SUCCESS:
+            raise DFError(conductor.fail_code, conductor.fail_message)
+        return task_id
 
     async def delete_task(self, task_id: str) -> bool:
         conductor = self._conductors.pop(task_id, None)

@@ -265,6 +265,9 @@ class PieceEngine:
 
     async def pull(self, conductor: "PeerTaskConductor",
                    session: "PeerSession") -> bool:
+        # a stream consumer (the object gateway) reads from piece 0 up:
+        # fetch lowest-numbered first instead of rarest-first
+        self.dispatcher.ordered = conductor.ordered
         result = session.result
         try:
             if result.size_scope == SizeScope.EMPTY:

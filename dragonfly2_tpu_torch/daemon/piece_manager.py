@@ -16,7 +16,8 @@ trust it would give the origin). Every origin read passes the task's
 bucket from the traffic shaper (``conductor.rate_limiter``: the shaper
 splits ``download.total_rate_limit_bps`` by class and task, and the same
 bucket paces the task's P2P fetches), or the daemon-wide
-``total_limiter`` when no shaper is attached.
+``total_limiter`` when no shaper is attached. ``import_file`` lands a
+local file's pieces the same way (the object gateway's PUT).
 """
 
 from __future__ import annotations
@@ -329,3 +330,28 @@ class PieceManager:
         errs = [r for r in results if isinstance(r, BaseException)]
         if errs:
             raise errs[0]
+
+    async def import_file(self, conductor: "PeerTaskConductor",
+                          path: str) -> None:
+        """A local file into the conductor's storage, cut at the task's
+        piece size (the gateway's PUT; reference ``import_file``). The
+        reads go through the default executor, not the storage pool, so a
+        multi-GB import never parks the piece landings queued there."""
+        import os
+
+        loop = asyncio.get_running_loop()
+        total = await loop.run_in_executor(None, os.path.getsize, path)
+        piece_size = conductor.set_content_info(total)
+        f = await loop.run_in_executor(None, lambda: open(path, "rb"))
+        try:
+            num, off = 0, 0
+            while True:
+                data = await loop.run_in_executor(None, f.read, piece_size)
+                if not data:
+                    break
+                await conductor.on_piece_from_source(num, off, data, 0)
+                num += 1
+                off += len(data)
+        finally:
+            f.close()
+        conductor.on_source_complete(total)

@@ -3,9 +3,9 @@
 Counterpart of ``dragonfly2_tpu/manager/searcher.py`` (reference
 ``manager/searcher/searcher.go:106-156``): weighted affinity scoring of
 cluster scopes against the peer, slice match over zone match over CIDR
-over hostname regex, plus a small bonus for the default cluster. The
-reference's plugin slot (an operator's scorer loaded from a directory)
-is not ported.
+over hostname regex, plus a small bonus for the default cluster. An
+operator's scorer, a ``searcher`` plugin (``common/plugins.py``) loaded by
+``load_searcher_plugin``, replaces the built-in scoring.
 """
 
 from __future__ import annotations
@@ -51,9 +51,28 @@ def _score(scopes: dict, req: GetSchedulersRequest, is_default: bool) -> float:
     return score
 
 
+_plugin_searcher = None
+
+
+def load_searcher_plugin(plugin_dir: str, name: str = "default") -> None:
+    """Operator override of the scoring (reference searcher plugin slot,
+    ``manager/searcher/plugin.go``): a ``searcher``-type plugin exposing
+    ``find_scheduler_cluster(clusters, req) -> int | None`` replaces the
+    built-in affinity scorer."""
+    global _plugin_searcher
+    from ..common import plugins
+    impl, _meta = plugins.load(plugin_dir, "searcher", name)
+    if not callable(getattr(impl, "find_scheduler_cluster", None)):
+        raise plugins.PluginError(
+            "searcher plugin lacks find_scheduler_cluster()")
+    _plugin_searcher = impl
+
+
 def find_scheduler_cluster(clusters: list[dict],
                            req: GetSchedulersRequest) -> int | None:
     """Best-scoring cluster id, or None when there are no clusters."""
+    if _plugin_searcher is not None:
+        return _plugin_searcher.find_scheduler_cluster(clusters, req)
     best_id, best_score = None, -1.0
     for c in clusters:
         scopes = c.get("scopes")

@@ -4,8 +4,10 @@ Counterpart of ``dragonfly2_tpu/manager/server.py`` (reference
 ``manager/manager.go:106-234`` ``New``/``Serve``) with the keepalive-TTL
 sweep that marks silent instances inactive. ``ManagerConfig`` keeps the
 reference's fields; the ones whose subsystems are not ported yet (REST
-auth, certificate issuance, TLS on the RPC port, the searcher plugin) make
-``start`` refuse with an error that names them.
+auth, certificate issuance, TLS on the RPC port) make ``start`` refuse
+with an error that names them. ``plugin_dir`` loads the searcher plugin
+at ``start``, and a broken or missing one fails the start, as in the
+reference.
 """
 
 from __future__ import annotations
@@ -39,15 +41,14 @@ class ManagerConfig:
     # ported
     issue_certs: bool = False
     grpc_tls: bool = False
-    # searcher plugin directory: not ported
+    # df_plugin_searcher_default.py replaces the cluster scorer
     plugin_dir: str = ""
 
     def unported(self) -> list[str]:
         """The set options whose subsystems this package lacks."""
         return [name for name, on in (("auth_enabled", self.auth_enabled),
                                       ("issue_certs", self.issue_certs),
-                                      ("grpc_tls", self.grpc_tls),
-                                      ("plugin_dir", self.plugin_dir))
+                                      ("grpc_tls", self.grpc_tls))
                 if on]
 
 
@@ -74,8 +75,15 @@ class Manager:
         if unported:
             raise ValueError(
                 f"manager options not ported yet: {', '.join(unported)} "
-                f"(REST auth, certificate issuance, RPC TLS and the "
-                f"searcher plugin are later slices)")
+                f"(REST auth, certificate issuance and RPC TLS are later "
+                f"slices)")
+        if self.cfg.plugin_dir:
+            # fail hard, as the scheduler's evaluator plugin slot does: an
+            # operator who configured a plugin must not silently get the
+            # built-in scorer because of a typo in the plugin file
+            from .searcher import load_searcher_plugin
+            load_searcher_plugin(self.cfg.plugin_dir)
+            log.info("searcher plugin loaded from %s", self.cfg.plugin_dir)
         # a default cluster always exists so self-registration lands somewhere
         self.store.default_scheduler_cluster()
         self.rpc = RPCServer(f"{self.cfg.listen_ip}:{self.cfg.grpc_port}")

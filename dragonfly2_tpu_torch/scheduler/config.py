@@ -5,7 +5,7 @@ Counterpart of ``dragonfly2_tpu/scheduler/config.py`` (reference
 reference, with the reference's default, so a reference scheduler's file
 loads. ``KEY_CLASSES`` below puts each key in one class
 (``common/config.py``): wired, inert as in the reference, or unported
-(plugins and fleet TLS wait for later slices);
+(fleet TLS waits for a later slice);
 ``SchedulerConfig.unported()`` names
 the unported keys a file sets, and the scheduler refuses to start with
 any. The relay-tree shaping is off by default (``relay_fanout`` 0, the
@@ -122,7 +122,8 @@ class SchedulerConfig:
     task_ttl_s: float = TASK_TTL_S
     host_ttl_s: float = HOST_TTL_S
     gc_interval_s: float = PEER_GC_INTERVAL_S   # the resource GC's cadence
-    plugin_dir: str = ""                   # unported (item 5d)
+    # df_plugin_evaluator_<name>.py for algorithm "plugin:<name>"
+    plugin_dir: str = ""
     # unported (item 6): fleet mTLS enrollment toward seed daemons
     security_issue_token: str = ""
     security_ca_cert: str = ""
@@ -146,8 +147,8 @@ class SchedulerConfig:
 
 # The class of every key (common/config.py). Inert: a grep of
 # dragonfly2_tpu/ finds no reader of retry_limit outside its config
-# module. Unported, by ROADMAP Queue 1 item: plugins (5d),
-# fleet TLS and the directory only it reads (6).
+# module. Unported, by ROADMAP Queue 1 item: fleet TLS and the directory
+# only it reads (6).
 KEY_CLASSES: dict[str, str] = {
     "listen_ip": WIRED,
     "advertise_ip": WIRED,
@@ -188,7 +189,7 @@ KEY_CLASSES: dict[str, str] = {
     "task_ttl_s": WIRED,
     "host_ttl_s": WIRED,
     "gc_interval_s": WIRED,
-    "plugin_dir": unported("5d"),
+    "plugin_dir": WIRED,
     "security_issue_token": unported("6"),
     "security_ca_cert": unported("6"),
     "workdir": unported("6"),

@@ -9,9 +9,12 @@ coordinates: LOCAL > ICI > DCN > WAN), and the ``IsBadNode`` Z-score
 outlier ejection (``evaluator.go:93``). ``make_evaluator("ml")`` gives
 the learned ``evaluator_ml.MLEvaluator`` behind this heuristic floor, and
 ``make_evaluator("nt", topo_store=...)`` the ``RTTEvaluator``, whose
-locality term comes from the probes' measured (or imputed) RTT. The
-plugin evaluator is not ported: ``make_evaluator`` refuses it rather than
-scoring with the heuristic under its name.
+locality term comes from the probes' measured (or imputed) RTT.
+``make_evaluator("plugin:<name>", plugin_dir=...)`` loads an operator's
+scorer (``common/plugins.py``, type ``evaluator``): its ``evaluate`` is the
+ruling total, and ``explain`` keeps the heuristic's total as
+``base_total`` with ``substituted: {"total": "plugin"}``. A missing or
+malformed plugin raises ``PluginError``.
 """
 
 from __future__ import annotations
@@ -172,15 +175,45 @@ class RTTEvaluator(Evaluator):
         return out
 
 
-def make_evaluator(algorithm: str, *, topo_store=None) -> Evaluator:
+def make_evaluator(algorithm: str, *, topo_store=None,
+                   plugin_dir: str = "") -> Evaluator:
     if algorithm == "nt" and topo_store is not None:
         return RTTEvaluator(topo_store)
     if algorithm == "ml":
         # no model at boot: a bound one replaces the heuristic floor
         from .evaluator_ml import MLEvaluator
         return MLEvaluator()
+    if algorithm.startswith("plugin:"):
+        # an operator's scorer (reference evaluator 'plugin' algorithm +
+        # internal/dfplugin); it must expose
+        # evaluate(child, parent, total_piece_count) -> float
+        from ..common import plugins
+        impl, _meta = plugins.load(plugin_dir, "evaluator",
+                                   algorithm.split(":", 1)[1])
+        return _PluginEvaluator(impl)
     if algorithm != "default":
         raise ValueError(f"evaluator algorithm {algorithm!r} is not "
                          "available; this package has the 'default' "
-                         "heuristic, 'ml', and 'nt' over a topology store")
+                         "heuristic, 'ml', 'nt' over a topology store and "
+                         "'plugin:<name>'")
     return Evaluator()
+
+
+class _PluginEvaluator(Evaluator):
+    def __init__(self, impl):
+        self.impl = impl
+
+    def evaluate(self, child, parent, *, total_piece_count: int) -> float:
+        return float(self.impl.evaluate(
+            child, parent, total_piece_count=total_piece_count))
+
+    def explain(self, child, parent, *, total_piece_count: int) -> dict:
+        # the heuristic's terms stay as context; the ruling total is the
+        # plugin's
+        out = super().explain(child, parent,
+                              total_piece_count=total_piece_count)
+        out["base_total"] = out["total"]
+        out["total"] = self.evaluate(child, parent,
+                                     total_piece_count=total_piece_count)
+        out["substituted"] = {"total": "plugin"}
+        return out

@@ -82,7 +82,8 @@ class Scheduler:
                                  host_ttl_s=cfg.host_ttl_s)
         self.topo = TopologyStore()
         self.scheduling = Scheduling(
-            make_evaluator(cfg.algorithm, topo_store=self.topo), rng=rng,
+            make_evaluator(cfg.algorithm, topo_store=self.topo,
+                           plugin_dir=cfg.plugin_dir), rng=rng,
             relay_fanout=cfg.relay_fanout,
             class_fanout_caps=cfg.class_fanout_caps,
             qos_preemption=cfg.qos_preemption,

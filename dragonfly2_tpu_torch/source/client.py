@@ -3,8 +3,9 @@
 Counterpart of ``dragonfly2_tpu/source/client.py`` cut to what the
 back-source path calls: content length, range support, last-modified and a
 download that streams chunks, so the daemon hashes and stores while bytes
-arrive. The recursive lister (``list``, ``walk``) waits for recursive
-downloads.
+arrive. ``ListEntry`` and a client's one-level ``list`` serve the object
+gateway's object listing (the ``file`` and ``s3`` clients have it); the
+recursive walk waits for recursive downloads.
 """
 
 from __future__ import annotations
@@ -42,6 +43,14 @@ class SourceResponse:
         async for c in self.chunks:
             out.extend(c)
         return bytes(out)
+
+
+@dataclass
+class ListEntry:
+    url: str
+    name: str
+    is_dir: bool
+    content_length: int = -1
 
 
 class ResourceClient(Protocol):

@@ -14,7 +14,7 @@ from typing import AsyncIterator
 from urllib.parse import unquote, urlsplit
 
 from ..common.errors import Code, DFError
-from .client import SourceRequest, SourceResponse, register_client
+from .client import ListEntry, SourceRequest, SourceResponse, register_client
 
 _CHUNK = 1 << 20
 
@@ -81,6 +81,31 @@ class FileSourceClient:
 
         return SourceResponse(status=200, content_length=length, total_length=total,
                               supports_range=True, chunks=chunks())
+
+
+    async def list(self, req: SourceRequest) -> list[ListEntry]:
+        """One directory level (or the file itself)."""
+        path = _path(req.url)
+
+        def _scan() -> list[ListEntry] | None:
+            if not os.path.isdir(path):
+                return None
+            out = []
+            for name in sorted(os.listdir(path)):
+                full = os.path.join(path, name)
+                is_dir = os.path.isdir(full)
+                out.append(ListEntry(
+                    url=f"file://{full}", name=name, is_dir=is_dir,
+                    content_length=-1 if is_dir else os.path.getsize(full)))
+            return out
+
+        entries = await asyncio.get_running_loop().run_in_executor(None,
+                                                                   _scan)
+        if entries is None:
+            return [ListEntry(url=req.url, name=os.path.basename(path),
+                              is_dir=False,
+                              content_length=await self.content_length(req))]
+        return entries
 
 
 register_client(["file"], FileSourceClient())

@@ -13,7 +13,10 @@ support; redirects followed; 404 is ``SOURCE_NOT_FOUND``, 401/403
 transfer encoding or close-delimited); bodies arrive in chunks of at most
 1 MiB. Keep-alive connections are pooled per event loop, as the
 reference pools its sessions: the client is a process singleton that may
-serve several ``asyncio.run`` lifetimes.
+serve several ``asyncio.run`` lifetimes. ``request`` sends any method with
+a body given whole or streamed from an async iterator (the object
+gateway's backend and ``dfstore`` write through it, where the reference
+uses aiohttp's session).
 """
 
 from __future__ import annotations
@@ -220,6 +223,14 @@ class _Response:
             raise
         self._release()
 
+    async def read(self) -> bytes:
+        """The whole body."""
+        try:
+            return b"".join([c async for c in self.chunks()])
+        except (OSError, asyncio.TimeoutError, _ProtocolError) as exc:
+            raise DFError(Code.SOURCE_ERROR,
+                          f"body read failed: {exc!r}") from None
+
     async def discard(self) -> None:
         """Read and drop a small body (a redirect's or an error's), so the
         connection can be reused; a large one closes it."""
@@ -287,7 +298,7 @@ class HTTPSourceClient:
 
     async def _roundtrip(self, method: str, url: str, headers: dict,
                          deadline: _Deadline, pooled: bool,
-                         body: bytes = b"") -> _Response:
+                         body=b"", content_length: int = -1) -> _Response:
         parts = urlsplit(url)
         scheme = parts.scheme.lower()
         if scheme not in ("http", "https") or not parts.hostname:
@@ -301,16 +312,35 @@ class HTTPSourceClient:
         host_hdr = host if ":" not in host else f"[{host}]"
         if port != default:
             host_hdr += f":{port}"
-        lines = [f"{method} {target} HTTP/1.1", f"Host: {host_hdr}",
-                 "User-Agent: dragonfly2-tpu-torch", "Accept: */*"]
+        # a caller's own Host or Content-Length (a signed request carries
+        # both) is sent once, as given
+        given = {k.lower() for k in headers}
+        lines = [f"{method} {target} HTTP/1.1"]
+        if "host" not in given:
+            lines.append(f"Host: {host_hdr}")
+        lines += ["User-Agent: dragonfly2-tpu-torch", "Accept: */*"]
         lines += [f"{k}: {v}" for k, v in headers.items()]
-        if body or method == "POST":
+        # a streamed body is an async iterator of chunks: sent as it is
+        # read, with its Content-Length when known, else chunked
+        stream = not isinstance(body, (bytes, bytearray, memoryview))
+        if stream:
+            if "content-length" not in given:
+                lines.append(f"Content-Length: {content_length}"
+                             if content_length >= 0
+                             else "Transfer-Encoding: chunked")
+        elif (body or method in ("POST", "PUT")) \
+                and "content-length" not in given:
             lines.append(f"Content-Length: {len(body)}")
-        raw = ("\r\n".join(lines) + "\r\n\r\n").encode("latin-1") + body
+        raw = ("\r\n".join(lines) + "\r\n\r\n").encode("latin-1")
+        if not stream:
+            raw += body
         pool = self._pool().setdefault(key, []) if pooled else None
+        chunked = stream and content_length < 0 \
+            and "content-length" not in given
         for attempt in range(2):
             conn = None
-            while pool and conn is None:
+            # a streamed body cannot be sent twice: a fresh connection
+            while pool and conn is None and not stream:
                 c = pool.pop()
                 if not c.writer.is_closing() and not c.reader.at_eof():
                     conn = c
@@ -323,6 +353,22 @@ class HTTPSourceClient:
                 conn.writer.write(raw)
                 await asyncio.wait_for(conn.writer.drain(),
                                        deadline.budget(_READ_S))
+                if stream:
+                    async for chunk in body:
+                        if not chunk:
+                            continue
+                        if chunked:
+                            conn.writer.write(f"{len(chunk):x}\r\n"
+                                              .encode())
+                        conn.writer.write(chunk)
+                        if chunked:
+                            conn.writer.write(b"\r\n")
+                        await asyncio.wait_for(conn.writer.drain(),
+                                               deadline.budget(_READ_S))
+                    if chunked:
+                        conn.writer.write(b"0\r\n\r\n")
+                        await asyncio.wait_for(conn.writer.drain(),
+                                               deadline.budget(_READ_S))
                 head = await asyncio.wait_for(
                     conn.reader.readuntil(b"\r\n\r\n"),
                     deadline.budget(_READ_S))
@@ -367,21 +413,41 @@ class HTTPSourceClient:
 
     async def _request(self, method: str, url: str, headers: dict,
                        timeout_s: float, *, pooled: bool = True,
-                       body: bytes = b"") -> _Response:
+                       body=b"", content_length: int = -1) -> _Response:
         """One request, following redirects (a 303 turns into a GET and
-        drops the body)."""
+        drops the body). A streamed body is sent once: its response is
+        returned as it is, redirect or not."""
         deadline = _Deadline(timeout_s)
         for _hop in range(_MAX_REDIRECTS + 1):
             resp = await self._roundtrip(method, url, headers, deadline,
-                                         pooled, body)
+                                         pooled, body, content_length)
             location = resp.headers.get("Location")
-            if resp.status not in _REDIRECTS or not location:
+            if (resp.status not in _REDIRECTS or not location
+                    or not isinstance(body, (bytes, bytearray,
+                                             memoryview))):
                 return resp
             await resp.discard()
             url = urljoin(url, location)
             if resp.status == 303 and method != "HEAD":
                 method, body = "GET", b""
         raise DFError(Code.SOURCE_ERROR, f"too many redirects: {url}")
+
+    async def request(self, method: str, url: str,
+                      headers: dict | None = None, *, body=b"",
+                      content_length: int = -1, timeout_s: float = 0.0,
+                      pooled: bool = True) -> _Response:
+        """Any method, for the clients that write as well as read (the
+        object-storage backend, dfstore): ``body`` is bytes or an async
+        iterator of chunks (streamed; ``content_length`` when known). The
+        response's body is read with ``chunks()`` or ``read()``; a
+        transport failure is ``SOURCE_ERROR``."""
+        try:
+            return await self._request(method, url, dict(headers or {}),
+                                       timeout_s, pooled=pooled, body=body,
+                                       content_length=content_length)
+        except (OSError, asyncio.TimeoutError, _ProtocolError) as exc:
+            raise DFError(Code.SOURCE_ERROR,
+                          f"{method} {url} failed: {exc!r}") from None
 
     async def _head(self, req: SourceRequest) -> tuple[int, Headers]:
         # Probes carry ``Connection: close`` and stay out of the pool: an

@@ -1,6 +1,7 @@
 """Training-loop data prefetch: shard URLs -> device tensors, overlapped.
 
-Counterpart of ``dragonfly2_tpu/tpu/data.py``, unchanged in logic. The
+Counterpart of ``dragonfly2_tpu/tpu/data.py``, unchanged in logic but for
+one option of the port's, ``disable_back_source``. The
 training process EMBEDS the daemon (the device tensors must land in the
 training process's CUDA context, so the last hop cannot cross a process
 boundary). The daemon's asyncio loop runs in a background thread; the
@@ -50,7 +51,8 @@ class ShardPrefetcher:
                  url_meta: UrlMeta | None = None,
                  dtype: str = "uint8",
                  skip_failed: bool = False,
-                 delete_after: bool = True):
+                 delete_after: bool = True,
+                 disable_back_source: bool = False):
         self.daemon = daemon
         self.urls = list(urls)
         self.depth = max(1, depth)
@@ -62,6 +64,10 @@ class ShardPrefetcher:
         # pieces once its device array is handed over, or a long epoch
         # accumulates the whole dataset on local disk
         self.delete_after = delete_after
+        # the port's own option: a consumer whose shards must come from
+        # peers (an object gateway's swarm) fails a shard rather than
+        # read its origin
+        self.disable_back_source = disable_back_source
 
     # -- async core ----------------------------------------------------
 
@@ -95,6 +101,8 @@ class ShardPrefetcher:
             async for resp in self.daemon.ptm.start_file_task(
                     DownloadRequest(url=url, url_meta=self.url_meta,
                                     device_sink=sink,
+                                    disable_back_source=(
+                                        self.disable_back_source),
                                     timeout_s=self.SHARD_TIMEOUT_S)):
                 task_id = resp.task_id or task_id
             conductor = self.daemon.ptm.conductor(task_id) if task_id \

@@ -1,7 +1,8 @@
-"""Phases 16, 17 and 18 of chip_smoke.py alone on the card, on a
-freshly written phase-8 origin (the Llama-3-8B layout's last tensors).
+"""Phases 16, 17, 18 and 19 of chip_smoke.py alone on the card; the
+first three on a freshly written phase-8 origin (the Llama-3-8B layout's
+last tensors), phase 19 (``objstore``) on its own dataset.
 
-    python3 tests/poison_pods.py [poison] [federation] [qos]
+    python3 tests/poison_pods.py [poison] [federation] [qos] [objstore]
 """
 import os
 import sys
@@ -17,7 +18,13 @@ import chip_smoke as cs  # noqa: E402
 if __name__ == "__main__":
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
+    names = sys.argv[1:] or ["poison", "federation", "qos", "objstore"]
     work = tempfile.mkdtemp(prefix="p1617-")
+    if names == ["objstore"]:
+        t0 = time.monotonic()
+        cs.phase_objstore(work, 0, device)
+        print("done", time.monotonic() - t0, flush=True)
+        sys.exit(0)
     os.makedirs(os.path.join(work, "deploy"))
     layout = cs.deploy_layout()
     header, nbytes = cs.safetensors_header(layout)
@@ -29,6 +36,9 @@ if __name__ == "__main__":
         os.fsync(f.fileno())
     del buf
     t0 = time.monotonic()
-    for name in sys.argv[1:] or ["poison", "federation", "qos"]:
-        getattr(cs, f"phase_{name}")(work, device)
+    for name in names:
+        if name == "objstore":
+            cs.phase_objstore(work, 0, device)
+        else:
+            getattr(cs, f"phase_{name}")(work, device)
     print("done", time.monotonic() - t0, flush=True)

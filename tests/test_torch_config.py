@@ -261,6 +261,105 @@ def test_quarantine_federation_and_state_store_keys_are_wired(tmp_path,
     assert got == value
 
 
+PLUGIN_AND_GATEWAY = ([("daemon", k) for k in daemon_config.KEY_CLASSES
+                       if k.startswith("object_storage.")]
+                      + [("daemon", "plugin_dir"),
+                         ("scheduler", "plugin_dir")])
+
+
+@pytest.mark.parametrize("svc,key", PLUGIN_AND_GATEWAY,
+                         ids=[f"{s}:{k}" for s, k in PLUGIN_AND_GATEWAY])
+def test_plugin_and_object_storage_keys_are_wired(tmp_path, svc, key):
+    """Items 5d and 6a: each plugin and gateway key is wired, keeps the
+    reference's default, and a non-default value builds a daemon or
+    scheduler that carries it to its subsystem."""
+    from dragonfly2_tpu_torch import source
+    from dragonfly2_tpu_torch.common.objectstorage import (FileBackend,
+                                                           S3CompatClient)
+    from dragonfly2_tpu_torch.scheduler.evaluator import _PluginEvaluator
+
+    port_cls, ref_cls, table, _ = CLASSES[svc]
+    assert table[key] == "wired"
+    assert key_value(port_cls(), key) == key_value(ref_cls(), key)
+    plugins = tmp_path / "plugins"
+    plugins.mkdir()
+    if svc == "scheduler":
+        (plugins / "df_plugin_evaluator_flat.py").write_text(
+            "class Flat:\n"
+            "    def evaluate(self, child, parent, *, total_piece_count):\n"
+            "        return 0.5\n\n"
+            "def dragonfly_plugin_init(option):\n"
+            "    return Flat(), {'type': 'evaluator', 'name': 'flat'}\n")
+        cfg = from_dict(SchedulerConfig, {"plugin_dir": str(plugins),
+                                          "algorithm": "plugin:flat"})
+        assert cfg.unported() == []
+        ev = Scheduler(cfg).scheduling.evaluator
+        assert type(ev) is _PluginEvaluator and type(ev.impl).__name__ == \
+            "Flat"
+        return
+    gw = {"enabled": True, "port": 0,
+          "buckets": {"files": f"file://{tmp_path / 'bucket'}"}}
+    value = {"object_storage.enabled": True,
+             "object_storage.port": _free_port(),
+             "object_storage.buckets": {
+                 "files": f"file://{tmp_path / 'bucket'}",
+                 "web": "http://127.0.0.1:1/objects"},
+             "object_storage.backends": {"web": {
+                 "kind": "s3", "base": "http://127.0.0.1:1",
+                 "bucket": "backend-web"}},
+             "plugin_dir": str(plugins)}[key]
+    if key == "plugin_dir":
+        (plugins / "df_plugin_source_wiredkey.py").write_text(
+            "class Src:\n"
+            "    pass\n\n"
+            "def dragonfly_plugin_init(option):\n"
+            "    return Src(), {'type': 'source', 'name': 'wiredkey',\n"
+            "                   'schemes': ['wiredkey']}\n")
+        data = {"plugin_dir": value}
+    else:
+        sub = key.split(".", 1)[1]
+        data = {"object_storage": {**gw, sub: value}}
+    data.update(workdir=str(tmp_path / "d"), device="cpu",
+                listen_ip="127.0.0.1", host_ip="127.0.0.1")
+    cfg = from_dict(DaemonConfig, data)
+    assert cfg.unported() == []
+    d = Daemon(cfg)
+
+    async def main():
+        await d.start()
+        try:
+            if key == "plugin_dir":
+                return type(source.client_for("wiredkey://x/y")).__name__
+            g = d.object_gateway
+            if key == "object_storage.enabled":
+                return g is not None
+            if key == "object_storage.port":
+                return g.port
+            if key == "object_storage.buckets":
+                return (sorted(g.cfg.buckets),
+                        type(g._backends["files"]) is FileBackend,
+                        "web" not in g._backends)
+            web = g._backends["web"]
+            return type(web) is S3CompatClient and web.bucket == "backend-web"
+        finally:
+            await d.stop()
+            source.client._REGISTRY.pop("wiredkey", None)
+
+    want = {"object_storage.enabled": True,
+            "object_storage.port": value,
+            "object_storage.buckets": (["files", "web"], True, True),
+            "object_storage.backends": True,
+            "plugin_dir": "Src"}[key]
+    assert asyncio.run(asyncio.wait_for(main(), 30)) == want
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
 FIVE_B = ([("daemon", k) for k in daemon_config.KEY_CLASSES
            if k.startswith("qos.") or k in ("download.traffic_shaper_kind",
                                             "upload.bulk_concurrent_limit")]
@@ -342,13 +441,13 @@ def test_reference_yaml_files_load(tmp_path):
     # the qos keys (item 5b) are wired: only the proxy key is refused
     (daemon_tool, "proxy:\n  enabled: true\nqos:\n  queue_limit: 3\n",
      ["proxy.enabled (ROADMAP Queue 1 item 6)"]),
-    # fleetpulse_enabled (item 4b) and the quarantine, federation and
-    # state store keys (items 5a, 5c) are wired: only the plugin key is
-    # refused
+    # fleetpulse_enabled (item 4b), the quarantine, federation and state
+    # store keys (items 5a, 5c) and plugin_dir (item 5d) are wired: only
+    # the fleet TLS key is refused
     (sched_tool, "quarantine_enabled: false\nfleetpulse_enabled: false\n"
      "federation_enabled: true\nstatestore_interval_s: 5\n"
-     "plugin_dir: df-plugins\n",
-     ["plugin_dir (ROADMAP Queue 1 item 5d)"])])
+     "plugin_dir: df-plugins\nsecurity_ca_cert: ca.pem\n",
+     ["security_ca_cert (ROADMAP Queue 1 item 6)"])])
 def test_launchers_refuse_unported_keys(tmp_path, capsys, tool, text, name):
     path = tmp_path / "c.yaml"
     path.write_text(text)
@@ -360,7 +459,7 @@ def test_launchers_refuse_unported_keys(tmp_path, capsys, tool, text, name):
         assert n in msg
     for wired in ("fleetpulse_enabled", "quarantine_enabled",
                   "federation_enabled", "statestore_interval_s",
-                  "qos.queue_limit"):
+                  "qos.queue_limit", "plugin_dir"):
         assert wired not in msg
 
 

@@ -240,6 +240,66 @@ def test_p2p_pull_from_a_seed_lands_on_card(cuda, tmp_path):
         assert got == raw[info.range_start:info.range_start + info.range_size]
 
 
+@pytest.mark.gpu
+def test_a_gateway_object_prefetched_onto_the_card_equals_its_bytes(
+        cuda, tmp_path):
+    """An object PUT through a seed's object gateway (a file:// bucket) is
+    prefetched by a leecher, back-source off, through ``ShardPrefetcher``
+    under the gateway's task meta: its bytes on cuda:0 are the object's,
+    every one from the seed."""
+    from dragonfly2_tpu_torch.daemon.config import ObjectStorageConfig
+    from dragonfly2_tpu_torch.tools.dfstore import Dfstore
+    from dragonfly2_tpu_torch.tpu.data import ShardPrefetcher
+
+    raw = _seeded(20 << 20, seed=16)
+    src = tmp_path / "shard.tar"
+    src.write_bytes(raw)
+    bucket = tmp_path / "bucket"
+    bucket.mkdir()
+
+    async def main():
+        seed = Daemon(DaemonConfig(
+            workdir=str(tmp_path / "seed"), hostname="seed", is_seed=True,
+            listen_ip="127.0.0.1", host_ip="127.0.0.1",
+            object_storage=ObjectStorageConfig(
+                enabled=True, buckets={"data": f"file://{bucket}"})))
+        await seed.start()
+        sched = Scheduler(SchedCfg(listen_ip="127.0.0.1", seed_peers=[
+            SeedPeerAddr(host_id=seed.host_info().id, ip="127.0.0.1",
+                         rpc_port=seed.rpc.port,
+                         download_port=seed.upload_server.port)]))
+        await sched.start()
+        leecher = Daemon(DaemonConfig(
+            workdir=str(tmp_path / "leecher"), hostname="leecher",
+            listen_ip="127.0.0.1", host_ip="127.0.0.1",
+            scheduler=SchedulerConfig(addresses=[sched.address])))
+        await leecher.start()
+        store = Dfstore(f"http://127.0.0.1:{seed.object_gateway.port}")
+        try:
+            await store.put_object("data", "train/shard-0.tar", str(src))
+            url = seed.object_gateway._object_url("data",
+                                                  "train/shard-0.tar")
+            pf = ShardPrefetcher(leecher, [url],
+                                 url_meta=UrlMeta(tag="objstore"),
+                                 disable_back_source=True,
+                                 delete_after=False)
+            got = [arrays async for arrays in pf.astream()]
+            task_id = leecher.ptm._task_id(url, UrlMeta(tag="objstore"))
+            c = leecher.ptm.conductor(task_id)
+            return got, c.traffic_p2p, c.traffic_source
+        finally:
+            await store.close()
+            await leecher.stop()
+            await sched.stop()
+            await seed.stop()
+
+    got, p2p, src_bytes = asyncio.run(asyncio.wait_for(main(), 180))
+    assert len(got) == 1 and all(a.device == cuda for a in got[0])
+    flat = torch.cat(got[0])
+    assert flat[:len(raw)].cpu().numpy().tobytes() == raw
+    assert (p2p, src_bytes) == (len(raw), 0)
+
+
 def _mlp_rows(seed: int, n: int) -> list[dict]:
     rng = np.random.default_rng(seed)
     x = rng.uniform(size=(n, features.FEATURE_DIM)) * [1, 1, 1, 1, 1, 64, 4]

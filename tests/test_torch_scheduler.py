@@ -31,6 +31,7 @@ from dragonfly2_tpu_torch.scheduler import resource as port_resource
 from dragonfly2_tpu_torch.scheduler.evaluator import (Evaluator,
                                                       RTTEvaluator,
                                                       make_evaluator)
+from dragonfly2_tpu_torch.common.plugins import PluginError
 from dragonfly2_tpu_torch.scheduler.evaluator_ml import MLEvaluator
 from dragonfly2_tpu_torch.scheduler.scheduling import Scheduling
 from dragonfly2_tpu_torch.scheduler.topology_store import TopologyStore
@@ -188,12 +189,17 @@ def test_scheduling_matches_reference(seed):
 
 @pytest.mark.parametrize("algorithm", ["ml", "nt", "plugin:x"])
 def test_make_evaluator_refuses_what_is_not_ported(algorithm):
-    """Plugins are refused, and so is ``nt`` without a topology store
-    (with one it is the ``RTTEvaluator``); ``ml`` is ported (the learned
-    evaluator behind the heuristic floor, unbound until a model lands)."""
+    """``nt`` without a topology store is refused (with one it is the
+    ``RTTEvaluator``); ``ml`` is ported (the learned evaluator behind the
+    heuristic floor, unbound until a model lands); ``plugin:<name>``
+    loads its plugin, and a missing plugin file raises ``PluginError``
+    rather than scoring with the heuristic under its name."""
     if algorithm == "ml":
         ev = make_evaluator(algorithm)
         assert type(ev) is MLEvaluator and ev.infer is None
+    elif algorithm.startswith("plugin:"):
+        with pytest.raises(PluginError, match="df_plugin_evaluator_x.py"):
+            make_evaluator(algorithm)
     else:
         with pytest.raises(ValueError):
             make_evaluator(algorithm)
