@@ -324,6 +324,41 @@ a chain's first relaying hop is the seed's first child.
               and the stand-in. It prints the put and prefetch rates,
               the consumer's wait per shard against the step time, the
               stand-in's byte counts and the plugin's rulings
+20. mirror   — run after phase 19, on phase 8's origin: a containerd-shaped
+              pull of an OCI image through the daemons' registry mirror
+              proxy into the card. The image is a config blob and two
+              layers: phase 8's file (the model layer) and a seeded
+              256 MiB runtime layer (BASELINE config 3's multi-GB vLLM
+              image cut to about 1.3 GB). A registry stand-in
+              (``RegistryStandIn``, standard library) in a child speaks
+              TLS with a leaf from the port's ``CertIssuer`` under a CA
+              of its own, requires a bearer token, answers the v2 routes
+              (``/v2/``, manifests, blobs with HEAD and ``Range``) and
+              counts the body bytes it serves per digest and its
+              manifest hits. A second child runs a scheduler and daemons
+              A and B (``proxy.hijack``) and C (``proxy.registry_mirror``
+              on the stand-in, ``proxy.sni_port`` -1), each trusting the
+              stand-in's CA through ``download.source_ca``. The client
+              here, on ``http.client``, checks the API, fetches the
+              manifest with ``Accept``, then the config and the layers,
+              streaming each layer into a pinned host buffer that is
+              copied to the card on a side stream. Four pulls: through
+              A's CONNECT (the stand-in must then have sent each blob's
+              bytes exactly once), through B's CONNECT (no further blob
+              byte from the stand-in, and every piece of B's from a
+              peer), through C's mirror rewrite over plain HTTP with
+              relative paths (likewise), and through C's SNI port with a
+              registry name in the ClientHello and the stand-in's address
+              as ``Host`` (replayed from C's storage). Every blob's
+              sha256 must equal its digest, the model layer's tensors on
+              the card must equal phase 8's, the manifest hits must equal
+              the pulls (manifests relay direct), and the leaves' SANs
+              must name the CONNECT host and the SNI name. It checks the
+              ``openssl`` binary first, and prints each pull's wall time
+              and rate, the stand-in's bytes per digest after each pull,
+              the proxy's counters by route, each leaf's first mint time
+              and the loop lag the health plane saw during the SNI
+              handshake
 
 Before phase 3 the native storage library (``dfnative.cc``, built with
 g++ at first use) must load: the pulls land crc32c piece digests, and the
@@ -351,6 +386,7 @@ import contextlib
 import dataclasses
 import datetime
 import hashlib
+import http.client
 import io
 import json
 import math
@@ -360,6 +396,7 @@ import re
 import shutil
 import signal
 import socket
+import ssl
 import statistics
 import struct
 import subprocess
@@ -368,6 +405,7 @@ import tempfile
 import threading
 import time
 import urllib.error
+import urllib.parse
 import urllib.request
 import zlib
 
@@ -6361,8 +6399,681 @@ def phase_objstore(workdir: str, seed: int, device: torch.device) -> None:
         **hbm, "phase_s": time.monotonic() - t_phase, "card": smi})
 
 
+# --------------------------------------------------------------- phase 20
+
+MIRROR_RUNTIME_BYTES = 256 << 20          # the image's runtime layer
+MIRROR_TOKEN = "Bearer mirror-smoke-token"
+MIRROR_REPO = "serving/vllm"
+MIRROR_TAG = "v1"
+MIRROR_SNI_NAME = "registry.mirror.test"  # a name only the ClientHello has
+MIRROR_COPY_BYTES = 64 << 20              # the client's host-to-card unit
+MIRROR_LAG_SAMPLE_S = 0.005               # the child's loop-lag sampler
+MIRROR_WAIT_S = 300.0
+MEDIA_MANIFEST = "application/vnd.oci.image.manifest.v1+json"
+MEDIA_CONFIG = "application/vnd.oci.image.config.v1+json"
+MEDIA_LAYER = "application/vnd.oci.image.layer.v1.tar"
+
+
+def oci_digest(data) -> str:
+    return "sha256:" + hashlib.sha256(data).hexdigest()
+
+
+def oci_manifest(config: bytes, layers: list[tuple[str, int]]) -> bytes:
+    """An OCI image manifest naming ``config`` and the (digest, size)
+    layers."""
+    return json.dumps({
+        "schemaVersion": 2, "mediaType": MEDIA_MANIFEST,
+        "config": {"mediaType": MEDIA_CONFIG, "digest": oci_digest(config),
+                   "size": len(config)},
+        "layers": [{"mediaType": MEDIA_LAYER, "digest": d, "size": n}
+                   for d, n in layers]}).encode()
+
+
+class RegistryStandIn:
+    """An OCI distribution (v2) registry on the standard library, over
+    TLS: a ``ThreadingHTTPServer`` whose certificate is a leaf for
+    127.0.0.1 from the port's ``CertIssuer`` under a CA of its own
+    (``<root>/ca/proxy-ca.crt``). Every request must carry ``token`` as
+    its ``Authorization`` (401 with ``WWW-Authenticate`` otherwise). It
+    answers ``GET /v2/``, ``/v2/<name>/manifests/<ref>`` (``manifest``
+    for any name and reference) and ``/v2/<name>/blobs/<digest>`` (the
+    files of ``blobs``, digest -> path) with HEAD and a single ``Range``.
+    It counts the body bytes it sends per digest, its manifest hits and
+    its refusals."""
+
+    def __init__(self, root: str, blobs: dict[str, str], manifest: bytes,
+                 token: str = MIRROR_TOKEN):
+        from dragonfly2_tpu_torch.common.certs import CertIssuer
+        self.issuer = CertIssuer(os.path.join(root, "ca"))
+        self.blobs = blobs
+        self.manifest = manifest
+        self.token = token
+        self.lock = threading.Lock()
+        self.served = {d: 0 for d in blobs}
+        self.manifest_hits = 0
+        self.denied = 0
+        self._server = None
+
+    @property
+    def ca_path(self) -> str:
+        return self.issuer.ca_cert_path
+
+    def stats(self) -> dict:
+        with self.lock:
+            return {"served": dict(self.served),
+                    "manifest_hits": self.manifest_hits,
+                    "denied": self.denied}
+
+    def start(self) -> int:
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+        reg = self
+        ctx = self.issuer.server_context("127.0.0.1")
+
+        class TLSServer(ThreadingHTTPServer):
+            daemon_threads = True
+
+            def get_request(self):
+                sock, addr = self.socket.accept()
+                return ctx.wrap_socket(sock, server_side=True,
+                                       do_handshake_on_connect=False), addr
+
+            def handle_error(self, request, client_address) -> None:
+                pass                # a client that hung up mid-body
+
+        class Handler(BaseHTTPRequestHandler):
+            protocol_version = "HTTP/1.1"
+
+            def setup(self) -> None:
+                self.request.do_handshake()      # on the request's thread
+                super().setup()
+
+            def log_message(self, *args) -> None:
+                pass
+
+            def _plain(self, status: int, headers: dict | None = None,
+                       body: bytes = b"") -> None:
+                self.send_response(status)
+                for k, v in (headers or {}).items():
+                    self.send_header(k, v)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                if body and self.command != "HEAD":
+                    self.wfile.write(body)
+
+            def _handle(self) -> None:
+                path = self.path.split("?", 1)[0]
+                if self.headers.get("Authorization") != reg.token:
+                    with reg.lock:
+                        reg.denied += 1
+                    self._plain(401, {"WWW-Authenticate":
+                                      'Bearer realm="standin"'})
+                    return
+                if path == "/v2/":
+                    self._plain(200, {"Content-Type": "application/json"},
+                                b"{}")
+                    return
+                m = re.match(r"/v2/.+/(manifests|blobs)/([^/]+)$", path)
+                if m is None:
+                    self._plain(404)
+                elif m.group(1) == "manifests":
+                    with reg.lock:
+                        reg.manifest_hits += 1
+                    self._plain(200, {
+                        "Content-Type": MEDIA_MANIFEST,
+                        "Docker-Content-Digest": oci_digest(reg.manifest)},
+                        reg.manifest)
+                elif m.group(2) not in reg.blobs:
+                    self._plain(404)
+                else:
+                    self._blob(m.group(2))
+
+            def _blob(self, digest: str) -> None:
+                full = reg.blobs[digest]
+                size = os.path.getsize(full)
+                start, end, status = 0, size, 200
+                m = re.match(r"bytes=(\d+)-(\d*)$",
+                             self.headers.get("Range", ""))
+                if m:
+                    start = int(m.group(1))
+                    end = min(size, int(m.group(2)) + 1 if m.group(2)
+                              else size)
+                    status = 206
+                self.send_response(status)
+                self.send_header("Content-Length", str(end - start))
+                self.send_header("Accept-Ranges", "bytes")
+                self.send_header("Docker-Content-Digest", digest)
+                if status == 206:
+                    self.send_header("Content-Range",
+                                     f"bytes {start}-{end - 1}/{size}")
+                self.end_headers()
+                if self.command == "HEAD":
+                    return
+                with open(full, "rb") as f:
+                    f.seek(start)
+                    left = end - start
+                    while left > 0:
+                        data = f.read(min(1 << 20, left))
+                        self.wfile.write(data)
+                        left -= len(data)
+                        with reg.lock:
+                            reg.served[digest] += len(data)
+
+            do_GET = do_HEAD = _handle
+
+        self._server = TLSServer(("127.0.0.1", 0), Handler)
+        threading.Thread(target=self._server.serve_forever,
+                         daemon=True).start()
+        return self._server.server_address[1]
+
+    def stop(self) -> None:
+        if self._server is not None:
+            self._server.shutdown()
+            self._server.server_close()
+            self._server = None
+
+
+def registry_child(root: str, blobs: dict[str, str], manifest: bytes,
+                   conn) -> None:
+    """Phase 20's registry stand-in, in a spawned process: it sends its
+    port and CA file, answers each "stats" with its counts, and ends at
+    "stop"."""
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    reg = RegistryStandIn(root, blobs, manifest)
+    try:
+        conn.send({"port": reg.start(), "ca": reg.ca_path})
+        while conn.recv() == "stats":
+            conn.send(reg.stats())
+    finally:
+        reg.stop()
+
+
+def mirror_daemon_cfg(workdir: str, name: str, sched_addr: str,
+                      registry_ca: str, proxy) -> DaemonConfig:
+    from dragonfly2_tpu_torch.daemon.config import (DownloadConfig,
+                                                    HealthSection,
+                                                    StorageSection)
+    return DaemonConfig(
+        workdir=os.path.join(workdir, name), hostname=name,
+        listen_ip="127.0.0.1", host_ip="127.0.0.1", device="cpu",
+        scheduler=SchedulerConfig(addresses=[sched_addr]),
+        storage=StorageSection(gc_interval_s=3600),
+        download=DownloadConfig(source_ca=registry_ca),
+        health=HealthSection(sample_interval_s=MIRROR_LAG_SAMPLE_S),
+        proxy=proxy)
+
+
+def peer_sources(daemon) -> dict[str, int]:
+    """Piece counts by source ("origin" for back-source) over the tasks
+    the daemon ran."""
+    out: dict[str, int] = {}
+    for conductor in daemon.ptm._conductors.values():
+        if conductor.storage is None:
+            continue
+        for p in conductor.storage.md.pieces.values():
+            key = p.source or "origin"
+            out[key] = out.get(key, 0) + 1
+    return out
+
+
+def proxy_counters() -> dict:
+    reqs = REGISTRY.counter("df_proxy_requests_total", labels=("route",))
+    nbytes = REGISTRY.counter("df_proxy_bytes_total", labels=("route",))
+    return {route: {"requests": reqs.value(route),
+                    "bytes": nbytes.value(route)}
+            for route in ("hijack", "tunnel", "p2p", "shed", "direct")}
+
+
+def mirror_child(workdir: str, registry_port: int, registry_ca: str,
+                 conn) -> None:
+    """Phase 20's scheduler and daemons A, B and C, in a spawned process
+    that never touches CUDA: it sends the proxies' ports and CA files,
+    answers "stats" (the proxy counters, each daemon's piece sources,
+    each leaf's mint times) and "lag_reset" / "lag" (the health plane's
+    loop lag since the reset), and ends at "stop"."""
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    from dragonfly2_tpu_torch.common import certs
+    mints: list[dict] = []
+    real_mint = certs.CertIssuer._mint
+
+    def timed_mint(self, host: str):
+        t0 = time.monotonic()
+        out = real_mint(self, host)
+        mints.append({"daemon": os.path.basename(self.workdir),
+                      "host": host, "s": time.monotonic() - t0,
+                      "on_loop": threading.current_thread()
+                      is threading.main_thread()})
+        return out
+
+    certs.CertIssuer._mint = timed_mint
+    asyncio.run(_mirror_child(workdir, registry_port, registry_ca, mints,
+                              conn))
+
+
+async def _mirror_child(workdir: str, registry_port: int, registry_ca: str,
+                        mints: list, conn) -> None:
+    from dragonfly2_tpu_torch.common import health
+    from dragonfly2_tpu_torch.daemon.config import ProxyConfig
+    sched = Scheduler(SchedCfg(listen_ip="127.0.0.1"))
+    await sched.start()
+    registry = f"https://127.0.0.1:{registry_port}"
+    daemons = {
+        "mirror-a": ProxyConfig(enabled=True, hijack=True),
+        "mirror-b": ProxyConfig(enabled=True, hijack=True),
+        "mirror-c": ProxyConfig(enabled=True, registry_mirror=registry,
+                                sni_port=-1)}
+    started = []
+    try:
+        for name, proxy in daemons.items():
+            d = Daemon(mirror_daemon_cfg(workdir, name, sched.address,
+                                         registry_ca, proxy))
+            await d.start()
+            started.append(d)
+        a, b, c = started
+        conn.send({"a": a.proxy_server.port,
+                   "a_ca": a.proxy_server.ca_cert_path,
+                   "b": b.proxy_server.port,
+                   "b_ca": b.proxy_server.ca_cert_path,
+                   "c": c.proxy_server.port, "c_sni": c.proxy_server.sni_port,
+                   "c_ca": c.proxy_server.ca_cert_path})
+        plane = health.PLANE
+        while True:
+            msg = await asyncio.to_thread(conn.recv)
+            if msg == "lag_reset":
+                plane.max_lag_s = 0.0
+                conn.send({"samples": plane.samples})
+            elif msg == "lag":
+                conn.send({"max_lag_s": plane.max_lag_s,
+                           "samples": plane.samples,
+                           "sample_interval_s": plane.cfg.sample_interval_s})
+            elif msg == "stats":
+                conn.send({"proxy": proxy_counters(), "mints": list(mints),
+                           "sources": {d.hostname: peer_sources(d)
+                                       for d in started},
+                           "traffic": {d.hostname: {
+                               "p2p": sum(x.traffic_p2p for x in
+                                          d.ptm._conductors.values()),
+                               "source": sum(x.traffic_source for x in
+                                             d.ptm._conductors.values())}
+                               for d in started}})
+            else:
+                break
+    finally:
+        for d in reversed(started):
+            await d.stop()
+        await sched.stop()
+
+
+class _SNIConnection(http.client.HTTPSConnection):
+    """An HTTPS connection to ``host:port`` whose ClientHello names
+    ``sni``: a client that resolved the registry's name to the daemon."""
+
+    def __init__(self, host: str, port: int, sni: str,
+                 context: ssl.SSLContext, timeout: float):
+        super().__init__(host, port, context=context, timeout=timeout)
+        self.sni = sni
+
+    def connect(self) -> None:
+        sock = socket.create_connection((self.host, self.port), self.timeout)
+        self.sock = self._context.wrap_socket(sock, server_hostname=self.sni)
+
+
+class OCIClient:
+    """A containerd-shaped puller on ``http.client``: ``route`` is
+    "connect" (through a proxy's CONNECT to ``registry``, trusting
+    ``ca``), "mirror" (plain HTTP to a mirror at ``proxy`` with relative
+    paths) or "sni" (TLS to ``proxy`` naming ``sni``, trusting ``ca``,
+    with ``Host`` the registry's address). Each layer streams into a
+    host buffer (pinned on a card; ``hosts``, by size, may be shared by
+    the clients of a run) copied to ``device`` in ``MIRROR_COPY_BYTES``
+    units on a side stream."""
+
+    def __init__(self, route: str, proxy: tuple[str, int], registry: str,
+                 *, ca: str = "", sni: str = "", token: str = MIRROR_TOKEN,
+                 device: torch.device = torch.device("cpu"),
+                 hosts: dict | None = None, timeout: float = MIRROR_WAIT_S):
+        self.route, self.proxy, self.registry = route, proxy, registry
+        self.ca, self.sni, self.token = ca, sni, token
+        self.device = device
+        self.timeout = timeout
+        self.peer_sans: list[list[str]] = []
+        self._hosts: dict[int, torch.Tensor] = {} if hosts is None else hosts
+        self.conn = self._connect()
+
+    def _context(self) -> ssl.SSLContext:
+        return ssl.create_default_context(cafile=self.ca)
+
+    def _connect(self) -> http.client.HTTPConnection:
+        host, port = self.proxy
+        if self.route == "mirror":
+            return http.client.HTTPConnection(host, port,
+                                              timeout=self.timeout)
+        if self.route == "sni":
+            return _SNIConnection(host, port, self.sni, self._context(),
+                                  self.timeout)
+        conn = http.client.HTTPSConnection(host, port,
+                                           context=self._context(),
+                                           timeout=self.timeout)
+        reg = urllib.parse.urlsplit(self.registry)
+        conn.set_tunnel(reg.hostname, reg.port)
+        return conn
+
+    def request(self, path: str, headers: dict | None = None):
+        """GET ``path``; the response with its head read. A closed
+        connection (every proxy answer closes it) reconnects."""
+        hdrs = {"Authorization": self.token, **(headers or {})}
+        if self.route == "sni":
+            hdrs["Host"] = urllib.parse.urlsplit(self.registry).netloc
+        if self.conn.sock is None:
+            self.conn.connect()
+        if isinstance(self.conn.sock, ssl.SSLSocket):
+            sans = [v for _, v in self.conn.sock.getpeercert().get(
+                "subjectAltName", ())]
+            if sans not in self.peer_sans:
+                self.peer_sans.append(sans)
+        self.conn.request("GET", path, headers=hdrs)
+        return self.conn.getresponse()
+
+    def _host_buffer(self, n: int) -> torch.Tensor:
+        buf = self._hosts.get(n)
+        if buf is None:
+            buf = torch.empty(n, dtype=torch.uint8,
+                              pin_memory=self.device.type == "cuda")
+            self._hosts[n] = buf
+        return buf
+
+    def _layer(self, resp, size: int) -> tuple[torch.Tensor, torch.Tensor]:
+        host = self._host_buffer(size)
+        out = torch.empty(size, dtype=torch.uint8, device=self.device)
+        view = memoryview(host.numpy())
+        side = (torch.cuda.Stream(self.device)
+                if self.device.type == "cuda" else None)
+        got = sent = 0
+        while got < size:
+            n = resp.readinto(view[got:min(size, got + (1 << 20))])
+            check(n > 0, f"layer body ended at {got} of {size} bytes")
+            got += n
+            if got - sent >= MIRROR_COPY_BYTES or got == size:
+                if side is not None:
+                    with torch.cuda.stream(side):
+                        out[sent:got].copy_(host[sent:got],
+                                            non_blocking=True)
+                else:
+                    out[sent:got].copy_(host[sent:got])
+                sent = got
+        check(resp.read(1) == b"", "layer body longer than its size")
+        if side is not None:
+            side.synchronize()
+        return host, out
+
+    def pull(self, repo: str, tag: str) -> dict:
+        """The containerd sequence: the API check, the manifest with
+        ``Accept``, then the config and each layer. Returns the wall
+        time, the manifest and the blobs (the config's bytes, each
+        layer's host buffer and card tensor)."""
+        t0 = time.monotonic()
+        resp = self.request("/v2/")
+        check(resp.status == 200, f"{self.route}: /v2/ answered {resp.status}")
+        resp.read()
+        resp = self.request(f"/v2/{repo}/manifests/{tag}",
+                            {"Accept": MEDIA_MANIFEST})
+        check(resp.status == 200,
+              f"{self.route}: manifest answered {resp.status}")
+        manifest = json.loads(resp.read())
+        out = {"layers": []}
+        for i, entry in enumerate([manifest["config"], *manifest["layers"]]):
+            resp = self.request(f"/v2/{repo}/blobs/{entry['digest']}")
+            check(resp.status == 200,
+                  f"{self.route}: blob {entry['digest'][:19]} answered "
+                  f"{resp.status}")
+            if i == 0:
+                out["config"] = resp.read()
+            else:
+                out["layers"].append(self._layer(resp, entry["size"]))
+        out["wall_s"] = time.monotonic() - t0
+        out["manifest"] = manifest
+        return out
+
+    def close(self) -> None:
+        self.conn.close()
+
+
+def _layer_checks(pull: dict, digests: list[str], refs: list[torch.Tensor],
+                  layout: list[tuple[str, list[int]]], route: str) -> None:
+    """Every blob's sha256 is its digest, each layer on the card equals
+    its reference, and the model layer's tensors equal phase 8's."""
+    check(oci_digest(pull["config"]) == pull["manifest"]["config"]["digest"],
+          f"{route}: the config blob's sha256 is not its digest")
+    got = [e["digest"] for e in pull["manifest"]["layers"]]
+    check(got == digests, f"{route}: manifest layers {got}")
+    for (host, card), digest, ref in zip(pull["layers"], digests, refs):
+        check(oci_digest(memoryview(host.numpy())) == digest,
+              f"{route}: layer {digest[:19]}'s sha256 is not its digest")
+        check(torch.equal(card, ref),
+              f"{route}: layer {digest[:19]} on the card differs")
+    model = pull["layers"][0][1]
+    n = struct.unpack("<Q", bytes(model[:8].cpu().numpy()))[0]
+    meta = json.loads(bytes(model[8:8 + n].cpu().numpy()))
+    base = 8 + n
+    for name, shape in layout:
+        start, end = meta[name]["data_offsets"]
+        check(meta[name]["shape"] == shape and meta[name]["dtype"] == "BF16",
+              f"{route}: {name} is {meta[name]}")
+        t = model[base + start:base + end].view(torch.bfloat16).view(shape)
+        r = refs[0][base + start:base + end].view(torch.bfloat16).view(shape)
+        # bitwise: seeded bytes hold NaNs, which never equal themselves
+        check(torch.equal(t.view(torch.int16), r.view(torch.int16)),
+              f"{route}: {name} on the card differs from phase 8's")
+
+
+def phase_mirror(workdir: str, seed: int, device: torch.device) -> None:
+    """Phase 20: an OCI image pulled through the registry mirror proxy
+    (CONNECT interception, the mirror rewrite and the SNI listener) into
+    the card."""
+    try:
+        ossl = subprocess.run(["openssl", "version"], capture_output=True,
+                              text=True, timeout=60)
+    except OSError as exc:
+        raise CheckFailed(f"phase 20 needs the openssl binary (the port's "
+                          f"certificates are made by it): {exc}") from None
+    check(ossl.returncode == 0,
+          f"phase 20: openssl version exited {ossl.returncode}: "
+          f"{ossl.stderr.strip()}")
+    print(f"phase 20 openssl: {ossl.stdout.strip()}", flush=True)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    t_phase = time.monotonic()
+    path = os.path.join(workdir, "deploy", "model-00004-of-00004.safetensors")
+    layout = deploy_layout()
+    model_size = os.path.getsize(path)
+    d = os.path.join(workdir, "mirror")
+    blob_dir = os.path.join(d, "registry", "blobs")
+    os.makedirs(blob_dir, exist_ok=True)
+    image = model_size + MIRROR_RUNTIME_BYTES
+    free = shutil.disk_usage(workdir).free
+    need = 4 * image + (1 << 30)
+    check(free >= need, f"phase 20 needs {need} bytes of free disk for the "
+                        f"registry's and three daemons' copies, {free} free")
+    sha = hashlib.sha256()
+    with open(path, "rb") as f:
+        for block in iter(lambda: f.read(16 << 20), b""):
+            sha.update(block)
+    model_digest = "sha256:" + sha.hexdigest()
+    runtime = seeded_bytes(np.random.default_rng(seed + 20),
+                           MIRROR_RUNTIME_BYTES)
+    runtime_digest = oci_digest(memoryview(runtime))
+    config = json.dumps({
+        "architecture": "amd64", "os": "linux",
+        "config": {"Entrypoint": ["python3", "-m", "vllm.entrypoints"]},
+        "rootfs": {"type": "layers",
+                   "diff_ids": [model_digest, runtime_digest]}}).encode()
+    blobs = {}
+    model_blob = os.path.join(blob_dir, model_digest[7:])
+    try:
+        os.link(path, model_blob)
+    except OSError:
+        shutil.copyfile(path, model_blob)
+    blobs[model_digest] = model_blob
+    for digest, data in ((runtime_digest, memoryview(runtime)),
+                         (oci_digest(config), config)):
+        blobs[digest] = os.path.join(blob_dir, digest[7:])
+        with open(blobs[digest], "wb") as f:
+            f.write(data)
+            os.fsync(f.fileno())
+    digests = [model_digest, runtime_digest]
+    manifest = oci_manifest(config, [(model_digest, model_size),
+                                     (runtime_digest, MIRROR_RUNTIME_BYTES)])
+    with open(path, "rb") as f:
+        refs = [torch.frombuffer(bytearray(f.read()), dtype=torch.uint8).to(
+            device), torch.from_numpy(runtime).to(device)]
+    del runtime
+    ctx = multiprocessing.get_context("spawn")
+    r_conn, r_child = ctx.Pipe()
+    reg = ctx.Process(target=registry_child, name="smoke-registry",
+                      args=(os.path.join(d, "registry"), blobs, manifest,
+                            r_child))
+    reg.start()
+    m_conn = m = None
+    clients: list[OCIClient] = []
+    pulls: list[dict] = []
+    try:
+        check(r_conn.poll(300), "phase 20's registry stand-in did not start")
+        info = r_conn.recv()
+        registry = f"https://127.0.0.1:{info['port']}"
+        m_conn, m_child = ctx.Pipe()
+        m = ctx.Process(target=mirror_child, name="smoke-mirror",
+                        args=(d, info["port"], info["ca"], m_child))
+        m.start()
+        check(m_conn.poll(300), "phase 20's daemons child did not start")
+        ports = m_conn.recv()
+
+        def one_pull(route: str, client: OCIClient) -> dict:
+            clients.append(client)
+            pull = client.pull(MIRROR_REPO, MIRROR_TAG)
+            _layer_checks(pull, digests, refs, layout, route)
+            served = _ask(r_conn, "stats")
+            stats = _ask(m_conn, "stats")
+            rec = {"route": route, "wall_s": pull["wall_s"],
+                   "gbps": image / 1e9 / pull["wall_s"],
+                   "served": served["served"],
+                   "manifest_hits": served["manifest_hits"],
+                   "proxy": stats["proxy"], "sources": stats["sources"],
+                   "traffic": stats["traffic"]}
+            pulls.append(rec)
+            del pull
+            return rec
+
+        sizes = {dg: os.path.getsize(p) for dg, p in blobs.items()}
+        # the layers' pinned host buffers, shared by the four pulls and
+        # pinned before the first
+        t_pin = time.monotonic()
+        hosts = {n: torch.empty(n, dtype=torch.uint8,
+                                pin_memory=device.type == "cuda")
+                 for n in (model_size, MIRROR_RUNTIME_BYTES)}
+        pin_s = time.monotonic() - t_pin
+        # 1: through A's CONNECT; A goes back to the stand-in
+        p1 = one_pull("a-connect", OCIClient(
+            "connect", ("127.0.0.1", ports["a"]), registry, ca=ports["a_ca"],
+            device=device, hosts=hosts))
+        check(p1["served"] == sizes,
+              f"after A's pull the stand-in served {p1['served']}, want "
+              f"each blob once {sizes}")
+        # 2: through B's CONNECT; every piece from a peer
+        p2 = one_pull("b-connect", OCIClient(
+            "connect", ("127.0.0.1", ports["b"]), registry, ca=ports["b_ca"],
+            device=device, hosts=hosts))
+        check(p2["served"] == sizes,
+              f"B's pull reached the stand-in: {p2['served']}")
+        b_src = p2["sources"]["mirror-b"]
+        check(b_src and "origin" not in b_src,
+              f"B's pieces came from {b_src}")
+        # 3: C's mirror rewrite, plain HTTP with relative paths
+        p3 = one_pull("c-mirror", OCIClient(
+            "mirror", ("127.0.0.1", ports["c"]), registry, device=device,
+            hosts=hosts))
+        check(p3["served"] == sizes,
+              f"C's mirror pull reached the stand-in: {p3['served']}")
+        c_src = p3["sources"]["mirror-c"]
+        check(c_src and "origin" not in c_src,
+              f"C's pieces came from {c_src}")
+        # 4: C's SNI listener, replayed from C's storage; the health
+        # plane's loop lag over the first handshake for the name
+        _ask(m_conn, "lag_reset")
+        sni = OCIClient("sni", ("127.0.0.1", ports["c_sni"]), registry,
+                        ca=ports["c_ca"], sni=MIRROR_SNI_NAME, device=device,
+                        hosts=hosts)
+        t_hs = time.monotonic()
+        sni.conn.connect()
+        handshake_s = time.monotonic() - t_hs
+        time.sleep(10 * MIRROR_LAG_SAMPLE_S)
+        lag = _ask(m_conn, "lag")
+        p4 = one_pull("c-sni", sni)
+        check(p4["served"] == sizes,
+              f"C's SNI pull reached the stand-in: {p4['served']}")
+        check(p4["traffic"]["mirror-c"] == p3["traffic"]["mirror-c"],
+              f"C's SNI pull moved bytes: {p3['traffic']['mirror-c']} -> "
+              f"{p4['traffic']['mirror-c']}")
+        check(p4["manifest_hits"] == 4,
+              f"{p4['manifest_hits']} manifest hits for 4 pulls")
+        sans = {f"{p['route']}": c.peer_sans
+                for p, c in zip(pulls, clients) if c.peer_sans}
+        check(any("127.0.0.1" in s for s in clients[0].peer_sans)
+              and any("127.0.0.1" in s for s in clients[1].peer_sans),
+              f"the CONNECT leaves name {sans}")
+        check(any(MIRROR_SNI_NAME in s for s in sni.peer_sans),
+              f"the SNI leaf names {sni.peer_sans}")
+        final = _ask(m_conn, "stats")
+        proxy = final["proxy"]
+        blob_bytes = sum(sizes.values())
+        check(proxy["p2p"] == {"requests": 12, "bytes": 4 * blob_bytes}
+              and proxy["direct"]["requests"] == 8
+              and proxy["hijack"]["requests"] == 10
+              and proxy["tunnel"]["requests"] == 0
+              and proxy["shed"]["requests"] == 0,
+              f"proxy counters {proxy}")
+    finally:
+        for c in clients:
+            c.close()
+        for conn, proc in ((m_conn, m), (r_conn, reg)):
+            if conn is not None:
+                try:
+                    conn.send("stop")
+                except (OSError, ValueError):
+                    pass
+            if proc is not None:
+                proc.join(timeout=120)
+                if proc.is_alive():
+                    proc.terminate()
+                    proc.join(timeout=30)
+    check(m.exitcode == 0 and reg.exitcode == 0,
+          f"phase 20 children exited {m.exitcode}, {reg.exitcode}")
+    del refs
+    first_mints = {}
+    for row in final["mints"]:
+        first_mints.setdefault(f"{row['daemon']}/{row['host']}", row)
+    emit("phase 20 mirror", {
+        "openssl": ossl.stdout.strip(),
+        "image_bytes": image + len(config), "model_layer_bytes": model_size,
+        "runtime_layer_bytes": MIRROR_RUNTIME_BYTES,
+        "config_bytes": len(config),
+        "reduced": "BASELINE config 3's multi-GB vLLM image cut to phase "
+                   "8's 1.05 GB model file and a 256 MiB runtime layer",
+        "pulls": [{k: p[k] for k in ("route", "wall_s", "gbps", "served",
+                                     "manifest_hits")} for p in pulls],
+        "proxy": proxy, "sources": final["sources"],
+        "traffic": final["traffic"], "first_mints": first_mints,
+        "pin_s": pin_s,
+        "sni_handshake_s": handshake_s,
+        "sni_loop_lag_max_s": lag["max_lag_s"],
+        "lag_sample_interval_s": lag["sample_interval_s"],
+        "leaf_sans": sans, "phase_s": time.monotonic() - t_phase,
+        "card": smi})
+    shutil.rmtree(d, ignore_errors=True)
+
+
 def run_phases(layers: int, seed: int, device: torch.device) -> None:
-    """Phases 2-19 on ``device``; raises CheckFailed on a failed check."""
+    """Phases 2-20 on ``device``; raises CheckFailed on a failed check."""
     layout = llama_layout(layers)
     header, nbytes = safetensors_header(layout)
     workdir = tempfile.mkdtemp(prefix="chip-smoke-")
@@ -6428,6 +7139,10 @@ def run_phases(layers: int, seed: int, device: torch.device) -> None:
         phase_federation(workdir, device)
         phase_qos(workdir, device)
         phase_objstore(workdir, seed, device)
+        # phase 19's copies are not needed again: their disk goes to
+        # phase 20's registry and daemons
+        shutil.rmtree(os.path.join(workdir, "objstore"), ignore_errors=True)
+        phase_mirror(workdir, seed, device)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 

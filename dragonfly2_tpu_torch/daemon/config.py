@@ -183,7 +183,12 @@ class SecurityConfig:
 
 @dataclass
 class ProxyConfig:
-    """The registry mirror proxy: unported (item 6)."""
+    """The HTTP(S) proxy and registry mirror (``daemon/proxy.py``): P2P
+    and direct URL rules, ``registry_mirror`` for relative paths, CONNECT
+    interception (``hijack``, limited to ``hijack_hosts`` when given) with
+    leaves signed by ``ca_cert``/``ca_key`` or by a CA generated into the
+    workdir, an SNI listener on ``sni_port`` (0 off, -1 any free port), and
+    ``verify_upstream`` for the direct route's TLS."""
 
     enabled: bool = False
     port: int = 0
@@ -255,7 +260,7 @@ class DaemonConfig:
 # dragonfly2_tpu/ finds no reader of scheduler.max_reschedule,
 # download.per_peer_rate_limit_bps, download.first_piece_timeout_s or
 # metrics_port outside its config module. Unported, by ROADMAP Queue 1
-# item: fleet mTLS and the proxy (6). ``device`` is the port's own.
+# item: fleet mTLS (6). ``device`` is the port's own.
 KEY_CLASSES: dict[str, str] = {
     "workdir": WIRED,
     "host_ip": WIRED,
@@ -329,17 +334,17 @@ KEY_CLASSES: dict[str, str] = {
     "security.ca_cert": unported("6"),
     "security.cert_validity_s": unported("6"),
     "security.tls_policy": unported("6"),
-    "proxy.enabled": unported("6"),
-    "proxy.port": unported("6"),
-    "proxy.registry_mirror": unported("6"),
-    "proxy.rules": unported("6"),
-    "proxy.direct_rules": unported("6"),
-    "proxy.hijack": unported("6"),
-    "proxy.hijack_hosts": unported("6"),
-    "proxy.ca_cert": unported("6"),
-    "proxy.ca_key": unported("6"),
-    "proxy.sni_port": unported("6"),
-    "proxy.verify_upstream": unported("6"),
+    "proxy.enabled": WIRED,
+    "proxy.port": WIRED,
+    "proxy.registry_mirror": WIRED,
+    "proxy.rules": WIRED,
+    "proxy.direct_rules": WIRED,
+    "proxy.hijack": WIRED,
+    "proxy.hijack_hosts": WIRED,
+    "proxy.ca_cert": WIRED,
+    "proxy.ca_key": WIRED,
+    "proxy.sni_port": WIRED,
+    "proxy.verify_upstream": WIRED,
     "object_storage.enabled": WIRED,
     "object_storage.port": WIRED,
     "object_storage.buckets": WIRED,

@@ -46,8 +46,10 @@ task by class, browning out and shedding bulk work, and serves ``GET
 pulls. With ``object_storage.enabled`` the object gateway
 (``objectstorage.py``) is built at construction (its bucket config is
 checked there) and serves from start, before the manager attach, so a
-seed's registration carries its port. A config that sets a key whose
-subsystem is not ported (fleet TLS, the proxy) is refused at
+seed's registration carries its port. With ``proxy.enabled`` the HTTP(S)
+proxy and registry mirror (``proxy.py``) starts after the local API, as
+in the reference, and stops after the task manager's shutdown. A config
+that sets a key whose subsystem is not ported (fleet TLS) is refused at
 construction, by name.
 """
 
@@ -91,6 +93,7 @@ from .qos import QosGovernor
 from .piece_downloader import PieceDownloader
 from .piece_engine import PieceEngine
 from .piece_manager import PieceManager
+from .proxy import ProxyServer
 from .relay import RelayHub
 from .rpcserver import DaemonService, build_service
 from .scheduler_session import SchedulerConnector
@@ -200,6 +203,7 @@ class Daemon:
         self.object_gateway: ObjectGateway | None = (
             ObjectGateway(self, cfg.object_storage)
             if cfg.object_storage.enabled else None)
+        self.proxy_server: ProxyServer | None = None
 
     def host_info(self) -> Host:
         return Host(
@@ -365,6 +369,9 @@ class Daemon:
             self.local_rpc.register(sdef)
         await self.local_rpc.start()
         self.unix_sock = sock
+        if self.cfg.proxy.enabled:
+            self.proxy_server = ProxyServer(self, self.cfg.proxy)
+            await self.proxy_server.start()
         if self.pex is not None:
             # a warm-restarted daemon gossips its reloaded holdings at
             # once, not after the first jittered interval
@@ -514,6 +521,8 @@ class Daemon:
             await self.manager.close()
         if self.ptm is not None:
             await self.ptm.shutdown()
+        if self.proxy_server is not None:
+            await self.proxy_server.stop()
         if self.local_rpc is not None:
             await self.local_rpc.stop(0.2)
         if self.rpc is not None:

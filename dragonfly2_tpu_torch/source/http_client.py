@@ -7,7 +7,8 @@ are the reference's: metadata from a HEAD sent with ``Connection: close``
 (so a probe's connection never enters the pool), falling back to a
 ``bytes=0-0`` ranged GET when the origin rejects HEAD, whose
 ``Content-Range`` total is the length; ``Accept-Ranges: bytes`` for range
-support; redirects followed; 404 is ``SOURCE_NOT_FOUND``, 401/403
+support; redirects followed (``request`` may leave them to its caller);
+404 is ``SOURCE_NOT_FOUND``, 401/403
 ``SOURCE_AUTH_ERROR``, and a 429/503 carries its ``Retry-After`` as
 ``retry_after_ms``; an unknown length streams to the end (chunked
 transfer encoding or close-delimited); bodies arrive in chunks of at most
@@ -16,7 +17,10 @@ reference pools its sessions: the client is a process singleton that may
 serve several ``asyncio.run`` lifetimes. ``request`` sends any method with
 a body given whole or streamed from an async iterator (the object
 gateway's backend and ``dfstore`` write through it, where the reference
-uses aiohttp's session).
+uses aiohttp's session; so does the proxy's direct route, which needs a
+response as received: its reason phrase and every header line in order,
+repeats included, in ``Headers.lines``). As with aiohttp, the default
+``User-Agent`` and ``Accept`` go out only when the caller gives none.
 """
 
 from __future__ import annotations
@@ -45,20 +49,34 @@ class _ProtocolError(Exception):
 
 class Headers(dict):
     """Response headers under the origin's own names, looked up without
-    regard to case (HTTP header names are case-insensitive)."""
+    regard to case (HTTP header names are case-insensitive). A repeated
+    name looks up as its last value; ``lines`` holds every line as
+    received, in order, repeats included (what a proxy forwards)."""
 
     def __init__(self, pairs=()):
         super().__init__()
         self._names: dict[str, str] = {}
+        self.lines: list[tuple[str, str]] = []
         for k, v in pairs:
-            self[k] = v
+            self.add(k, v)
 
-    def __setitem__(self, key: str, value: str) -> None:
+    def add(self, key: str, value: str) -> None:
+        """One more line: a repeated name keeps its earlier lines."""
+        self._set(key, value)
+        self.lines.append((key, value))
+
+    def _set(self, key: str, value: str) -> None:
         old = self._names.get(key.lower())
         if old is not None and old != key:
             super().__delitem__(old)
         self._names[key.lower()] = key
         super().__setitem__(key, value)
+
+    def __setitem__(self, key: str, value: str) -> None:
+        """Replaces every line of the name."""
+        self._set(key, value)
+        self.lines = [kv for kv in self.lines
+                      if kv[0].lower() != key.lower()] + [(key, value)]
 
     def __getitem__(self, key: str) -> str:
         return super().__getitem__(self._names.get(key.lower(), key))
@@ -121,9 +139,10 @@ class _Response:
 
     def __init__(self, conn: _Conn, method: str, status: int,
                  headers: Headers, version: str, pool: list | None,
-                 deadline: _Deadline):
+                 deadline: _Deadline, reason: str = ""):
         self.conn = conn
         self.status = status
+        self.reason = reason
         self.headers = headers
         self.deadline = deadline
         self._pool = pool
@@ -318,7 +337,10 @@ class HTTPSourceClient:
         lines = [f"{method} {target} HTTP/1.1"]
         if "host" not in given:
             lines.append(f"Host: {host_hdr}")
-        lines += ["User-Agent: dragonfly2-tpu-torch", "Accept: */*"]
+        if "user-agent" not in given:
+            lines.append("User-Agent: dragonfly2-tpu-torch")
+        if "accept" not in given:
+            lines.append("Accept: */*")
         lines += [f"{k}: {v}" for k, v in headers.items()]
         # a streamed body is an async iterator of chunks: sent as it is
         # read, with its Content-Length when known, else chunked
@@ -397,8 +419,9 @@ class HTTPSourceClient:
         if not version.startswith("HTTP/1."):
             conn.close()
             raise _ProtocolError(f"bad status line {text[0][:60]!r}")
+        code, _, reason = rest.partition(" ")
         try:
-            status = int(rest.split(" ", 1)[0])
+            status = int(code)
         except ValueError:
             conn.close()
             raise _ProtocolError(f"bad status line {text[0][:60]!r}") \
@@ -407,22 +430,25 @@ class HTTPSourceClient:
         for line in text[1:]:
             k, sep, v = line.partition(":")
             if sep:
-                headers[k.strip()] = v.strip()
+                headers.add(k.strip(), v.strip())
         return _Response(conn, method, status, headers, version, pool,
-                         deadline)
+                         deadline, reason=reason.strip())
 
     async def _request(self, method: str, url: str, headers: dict,
                        timeout_s: float, *, pooled: bool = True,
-                       body=b"", content_length: int = -1) -> _Response:
+                       body=b"", content_length: int = -1,
+                       follow_redirects: bool = True) -> _Response:
         """One request, following redirects (a 303 turns into a GET and
-        drops the body). A streamed body is sent once: its response is
-        returned as it is, redirect or not."""
+        drops the body) unless ``follow_redirects`` is false. A streamed
+        body is sent once: its response is returned as it is, redirect or
+        not."""
         deadline = _Deadline(timeout_s)
         for _hop in range(_MAX_REDIRECTS + 1):
             resp = await self._roundtrip(method, url, headers, deadline,
                                          pooled, body, content_length)
             location = resp.headers.get("Location")
-            if (resp.status not in _REDIRECTS or not location
+            if (not follow_redirects or resp.status not in _REDIRECTS
+                    or not location
                     or not isinstance(body, (bytes, bytearray,
                                              memoryview))):
                 return resp
@@ -435,16 +461,20 @@ class HTTPSourceClient:
     async def request(self, method: str, url: str,
                       headers: dict | None = None, *, body=b"",
                       content_length: int = -1, timeout_s: float = 0.0,
-                      pooled: bool = True) -> _Response:
+                      pooled: bool = True,
+                      follow_redirects: bool = True) -> _Response:
         """Any method, for the clients that write as well as read (the
-        object-storage backend, dfstore): ``body`` is bytes or an async
-        iterator of chunks (streamed; ``content_length`` when known). The
-        response's body is read with ``chunks()`` or ``read()``; a
-        transport failure is ``SOURCE_ERROR``."""
+        object-storage backend, dfstore, the proxy's direct route):
+        ``body`` is bytes or an async iterator of chunks (streamed;
+        ``content_length`` when known). The response's body is read with
+        ``chunks()`` or ``read()``; a transport failure is
+        ``SOURCE_ERROR``. With ``follow_redirects`` false a 3xx is the
+        response."""
         try:
             return await self._request(method, url, dict(headers or {}),
                                        timeout_s, pooled=pooled, body=body,
-                                       content_length=content_length)
+                                       content_length=content_length,
+                                       follow_redirects=follow_redirects)
         except (OSError, asyncio.TimeoutError, _ProtocolError) as exc:
             raise DFError(Code.SOURCE_ERROR,
                           f"{method} {url} failed: {exc!r}") from None

@@ -1,8 +1,10 @@
-"""Phases 16, 17, 18 and 19 of chip_smoke.py alone on the card; the
-first three on a freshly written phase-8 origin (the Llama-3-8B layout's
-last tensors), phase 19 (``objstore``) on its own dataset.
+"""Phases 16, 17, 18, 19 and 20 of chip_smoke.py alone on the card;
+16-18 and 20 (``mirror``) on a freshly written phase-8 origin (the
+Llama-3-8B layout's last tensors), phase 19 (``objstore``) on its own
+dataset.
 
     python3 tests/poison_pods.py [poison] [federation] [qos] [objstore]
+                                 [mirror]
 """
 import os
 import sys
@@ -18,7 +20,8 @@ import chip_smoke as cs  # noqa: E402
 if __name__ == "__main__":
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
-    names = sys.argv[1:] or ["poison", "federation", "qos", "objstore"]
+    names = sys.argv[1:] or ["poison", "federation", "qos", "objstore",
+                             "mirror"]
     work = tempfile.mkdtemp(prefix="p1617-")
     if names == ["objstore"]:
         t0 = time.monotonic()
@@ -37,8 +40,8 @@ if __name__ == "__main__":
     del buf
     t0 = time.monotonic()
     for name in names:
-        if name == "objstore":
-            cs.phase_objstore(work, 0, device)
+        if name in ("objstore", "mirror"):
+            getattr(cs, f"phase_{name}")(work, 0, device)
         else:
             getattr(cs, f"phase_{name}")(work, device)
     print("done", time.monotonic() - t0, flush=True)

@@ -360,6 +360,82 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
+PROXY_KEYS = [k for k in daemon_config.KEY_CLASSES if k.startswith("proxy.")]
+
+
+@pytest.mark.parametrize("key", PROXY_KEYS)
+def test_proxy_keys_are_wired(tmp_path, key):
+    """Item 6b: each proxy key is wired, keeps the reference's default,
+    and a non-default value builds a daemon that carries it to its
+    ``ProxyServer``."""
+    import ssl
+
+    from dragonfly2_tpu_torch.common.certs import generate_ca
+
+    assert len(PROXY_KEYS) == 11
+    assert daemon_config.KEY_CLASSES[key] == "wired"
+    assert key_value(DaemonConfig(), key) == \
+        key_value(RefDaemonConfig(), key)
+    sub = key.split(".", 1)[1]
+    ca_pem, ca_key = generate_ca("wired-key CA")
+    (tmp_path / "ca.crt").write_bytes(ca_pem)
+    (tmp_path / "ca.key").write_bytes(ca_key)
+    (tmp_path / "ca-and-key.pem").write_bytes(ca_pem + ca_key)
+    value = {"enabled": True, "port": _free_port(),
+             "registry_mirror": "https://registry.example",
+             "rules": [r"\.safetensors$"], "direct_rules": [r"/a/blobs/"],
+             "hijack": True, "hijack_hosts": [r"^registry\.example$"],
+             "ca_cert": str(tmp_path / "ca-and-key.pem"),
+             "ca_key": str(tmp_path / "ca.key"), "sni_port": -1,
+             "verify_upstream": False}[sub]
+    assert value != key_value(RefDaemonConfig(), key)
+    proxy = {"enabled": True, sub: value}
+    if sub == "ca_key":
+        proxy["ca_cert"] = str(tmp_path / "ca.crt")
+    if sub in ("ca_cert", "ca_key"):
+        proxy["hijack"] = True
+    cfg = from_dict(DaemonConfig, {
+        "proxy": proxy, "workdir": str(tmp_path / "d"), "device": "cpu",
+        "listen_ip": "127.0.0.1", "host_ip": "127.0.0.1"})
+    assert cfg.unported() == []
+    d = Daemon(cfg)
+
+    async def main():
+        await d.start()
+        try:
+            ps = d.proxy_server
+            return {
+                "enabled": lambda: ps is not None and ps.port > 0,
+                "port": lambda: ps.port,
+                "registry_mirror": lambda: ps._resolve_url("/v2/", {}),
+                "rules": lambda: ps.use_p2p("http://h/m/w.safetensors"),
+                "direct_rules": lambda: ps.use_p2p(
+                    "http://h/v2/a/blobs/sha256:" + "0" * 64),
+                "hijack": lambda: ps.ca_cert_path,
+                "hijack_hosts": lambda: (
+                    ps._hijack_match("registry.example"),
+                    ps._hijack_match("other.example")),
+                "ca_cert": lambda: (ps.ca_cert_path,
+                                    ps._issuer.ca_key_path),
+                "ca_key": lambda: ps._issuer.ca_key_path,
+                "sni_port": lambda: ps.sni_port > 0,
+                "verify_upstream": lambda: ps._client._ssl.verify_mode,
+            }[sub]()
+        finally:
+            await d.stop()
+
+    want = {"enabled": True, "port": value,
+            "registry_mirror": "https://registry.example/v2/",
+            "rules": True,
+            # a blob digest path, but a direct rule matches first
+            "direct_rules": False,
+            "hijack": str(tmp_path / "d" / "proxy-ca.crt"),
+            "hijack_hosts": (True, False),
+            "ca_cert": (value, value), "ca_key": value, "sni_port": True,
+            "verify_upstream": ssl.CERT_NONE}[sub]
+    assert asyncio.run(asyncio.wait_for(main(), 30)) == want
+
+
 FIVE_B = ([("daemon", k) for k in daemon_config.KEY_CLASSES
            if k.startswith("qos.") or k in ("download.traffic_shaper_kind",
                                             "upload.bulk_concurrent_limit")]
@@ -438,9 +514,15 @@ def test_reference_yaml_files_load(tmp_path):
 
 
 @pytest.mark.parametrize("tool,text,name", [
-    # the qos keys (item 5b) are wired: only the proxy key is refused
-    (daemon_tool, "proxy:\n  enabled: true\nqos:\n  queue_limit: 3\n",
-     ["proxy.enabled (ROADMAP Queue 1 item 6)"]),
+    # the qos keys (item 5b) and the proxy keys (item 6b) are wired: only
+    # the fleet TLS key (item 6c) is refused. The case keeps the id it had
+    # when it refused the proxy key
+    pytest.param(
+        daemon_tool, "proxy:\n  enabled: true\nqos:\n  queue_limit: 3\n"
+        "security:\n  enabled: true\n",
+        ["security.enabled (ROADMAP Queue 1 item 6)"],
+        id="dragonfly2_tpu_torch.tools.daemon-proxy:\n  enabled: true"
+           "\nqos:\n  queue_limit: 3\n-name0"),
     # fleetpulse_enabled (item 4b), the quarantine, federation and state
     # store keys (items 5a, 5c) and plugin_dir (item 5d) are wired: only
     # the fleet TLS key is refused
@@ -459,7 +541,7 @@ def test_launchers_refuse_unported_keys(tmp_path, capsys, tool, text, name):
         assert n in msg
     for wired in ("fleetpulse_enabled", "quarantine_enabled",
                   "federation_enabled", "statestore_interval_s",
-                  "qos.queue_limit", "plugin_dir"):
+                  "qos.queue_limit", "plugin_dir", "proxy.enabled"):
         assert wired not in msg
 
 

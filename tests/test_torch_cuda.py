@@ -300,6 +300,60 @@ def test_a_gateway_object_prefetched_onto_the_card_equals_its_bytes(
     assert (p2p, src_bytes) == (len(raw), 0)
 
 
+@pytest.mark.gpu
+def test_a_blob_pulled_through_a_hijacking_proxy_lands_on_the_card(
+        cuda, tmp_path):
+    """A registry blob over TLS (``chip_smoke.RegistryStandIn``), pulled
+    with ``http.client`` through a daemon's CONNECT with ``proxy.hijack``
+    and copied to cuda:0 through a pinned buffer on a side stream, equals
+    its bytes; the leaf names the CONNECT host, and the stand-in served
+    the blob once."""
+    import chip_smoke
+    from dragonfly2_tpu_torch.daemon.config import (DownloadConfig,
+                                                    ProxyConfig)
+
+    raw = _seeded(12 << 20, seed=17)
+    digest = "sha256:" + hashlib.sha256(raw).hexdigest()
+    blob = tmp_path / "blob"
+    blob.write_bytes(raw)
+    reg = chip_smoke.RegistryStandIn(str(tmp_path / "registry"),
+                                     {digest: str(blob)}, b"{}")
+    port = reg.start()
+
+    async def main():
+        d = Daemon(DaemonConfig(
+            workdir=str(tmp_path / "d"), hostname="proxyd",
+            listen_ip="127.0.0.1", host_ip="127.0.0.1",
+            download=DownloadConfig(source_ca=reg.ca_path),
+            proxy=ProxyConfig(enabled=True, hijack=True)))
+        await d.start()
+        client = chip_smoke.OCIClient(
+            "connect", ("127.0.0.1", d.proxy_server.port),
+            f"https://127.0.0.1:{port}", ca=d.proxy_server.ca_cert_path,
+            device=cuda)
+
+        def fetch():
+            resp = client.request(f"/v2/repo/blobs/{digest}")
+            assert resp.status == 200
+            return client._layer(resp, len(raw))
+
+        try:
+            return await asyncio.to_thread(fetch), client.peer_sans
+        finally:
+            client.close()
+            await d.stop()
+
+    try:
+        (host, card), sans = asyncio.run(asyncio.wait_for(main(), 120))
+        served = reg.stats()["served"]
+    finally:
+        reg.stop()
+    assert host.is_pinned() and card.device == cuda
+    assert card.cpu().numpy().tobytes() == raw
+    assert sans == [["127.0.0.1"]]
+    assert served == {digest: len(raw)}
+
+
 def _mlp_rows(seed: int, n: int) -> list[dict]:
     rng = np.random.default_rng(seed)
     x = rng.uniform(size=(n, features.FEATURE_DIM)) * [1, 1, 1, 1, 1, 64, 4]
