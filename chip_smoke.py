@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's main path on one CUDA card.
 
-    python3 chip_smoke.py [--layers 9] [--seed 0]
+    python3 chip_smoke.py [--layers 3] [--seed 0]
 
 Daemons pull checkpoints into device memory through the port's device
 sink: back to source (``file://`` and, in phase 11, ``http://``), as a
@@ -26,7 +26,7 @@ a chain's first relaying hop is the seed's first child.
               device leg and the finalize digest each add)
 5. prefetch — eight seeded 256 MiB shards through ``ShardPrefetcher``
 6. p2p      — the same file through the P2P path: a scheduler and a seed
-              daemon (back-source, no sink) in a spawned child process that
+              daemon (back-source, no sink) in a child process that
               never touches CUDA; in this process leecher A pulls with the
               manifest and leecher B, started when A holds about half of
               its pieces, pulls whole-file, both with back-source disabled
@@ -36,17 +36,16 @@ a chain's first relaying hop is the seed's first child.
               source in the child), and B must take pieces from A
 7. trainer  — the learned-scheduler loop: a scheduler (``algorithm="ml"``,
               records kept) rules over a staged cluster until its records
-              ring holds 50,000 rows (decisions and piece outcomes, 64:512
+              ring holds 10,000 rows (a fifth of the ring's 50,000: the
+              depth cut that keeps half the run's time limit to spare;
+              decisions and piece outcomes, 64:512
               as in BENCH_pr19's datagen) and its topology store a
               1024-host, 8192-link snapshot; the announcer uploads both to
               a trainer on the card, which fits the MLP (600 epochs) and
               the GNN (60 epochs). A refit must give the same bytes; the
               MLP blob binds into the scheduler's evaluator, which then
               rules with the model (garbage and NaN blobs are refused);
-              ``ModelInfer`` answers with the bound version; and MLPs
-              fitted on the card on BENCH_pr19's datagen rows
-              (``tests/data/pr19_datagen_rows.jsonl``, seeds 0-15) must
-              beat the heuristic's replay regret of 0.1379 on average
+              and ``ModelInfer`` answers with the bound version
 8. deploy   — the port deployed from its launchers (``python -m
               dragonfly2_tpu_torch.tools.<name>``): a manager (sqlite in the
               workdir), a seed daemon that registers with it, a trainer
@@ -69,7 +68,7 @@ a chain's first relaying hop is the seed's first child.
 9. sharded  — run after phase 6, on its origin file: the checkpoint as two
               pipeline stages (the embedding and the first half of the
               layers; the rest), each pulled by two replicas. A scheduler
-              and a seed run in a spawned child as in phase 6; four
+              and a seed run in a child as in phase 6; four
               leecher daemons in this process, one pod, back-source
               disabled, each with a manifest sink on the card and
               ``UrlMeta.shards`` naming its stage's tensors, start
@@ -86,7 +85,7 @@ a chain's first relaying hop is the seed's first child.
               with no byte from the origin or a peer
 10. nt       — run after phase 8, on its origin: a scheduler with
               ``algorithm="nt"`` (records kept) in this process, a seed in
-              a spawned child, two leechers here whose RTT probers report
+              a child, two leechers here whose RTT probers report
               before they pull with manifest sinks on the card. Every
               candidate of a ruling between probed hosts must carry
               ``substituted: {locality: rtt}`` and the store's RTT, the
@@ -94,7 +93,7 @@ a chain's first relaying hop is the seed's first child.
               once, by the seed. Then one ruling's cost over phase 7's
               1,024-host topology with a GNN imputer fitted on the card
 11. chain    — run after phase 10, on phase 8's origin, served over HTTP by
-              a standard-library server in a spawned child (``Range``,
+              a standard-library server in a child (``Range``,
               paced to 250 MB/s per response, one redirect checked). A
               scheduler (``relay_fanout=1``, one upload slot per host,
               records kept) here, a seed in a child pulling the
@@ -131,13 +130,15 @@ a chain's first relaying hop is the seed's first child.
               origin, and the origin must send each byte once, to the seed
 
 13. dfbench — the port's ``dfbench`` points at the reference's full sizes,
-              the host-only points in spawned workers beside the card's
+              the host-only points in child workers beside the card's
               work: ``--pr19`` with its two seeded MLP fits on the card
               (the port's datagen rows must equal
               ``tests/data/pr19_datagen_rows.jsonl``, the fits give one blob,
               the learned legs repeat their digests, and MLPs fitted on the
               card on those rows, seeds 0-15, must beat the heuristic's
-              regret of 0.1379 on average); ``--pr9`` at pods of 64, 128
+              replay regret of 0.1379 on average, seed 7's fit giving the
+              same bytes twice and the heuristic's replay the logged
+              choices); ``--pr9`` at pods of 64, 128
               and 256; ``--pr14`` at 4x4, 8x8 and 16x16, with the port's
               filter and with the reference's; ``--pr12`` (a byzantine
               holder, quarantine on and off); ``--pr13`` (federation at 4,
@@ -358,7 +359,34 @@ a chain's first relaying hop is the seed's first child.
               and rate, the stand-in's bytes per digest after each pull,
               the proxy's counters by route, each leaf's first mint time
               and the loop lag the health plane saw during the SNI
-              handshake
+              handshake, which must stay below C's first mint of the SNI
+              name (minted off C's event loop)
+21. fleet    — run after phase 20, on phase 8's origin over HTTP
+              (unpaced): fleet mTLS. A child runs a manager that issues
+              certificates (``issue_certs``, its RPC port over TLS), seeds
+              S (``security.tls_policy: force``) and S2 (``default``, the
+              rollout) and two schedulers, one per seed, each enrolled
+              with the issuance token and the pinned fleet CA. Leechers
+              L1 and L2 here (``security.enabled``, the token, the CA,
+              ``force``) pull the file through S's scheduler with
+              back-source disabled into the card: every leaf must name
+              its ``[host_ip, hostname]``, every key be mode 0600, a wrong
+              token be refused, the seed trigger reach S's mTLS RPC port
+              and every piece ride HTTPS with a client certificate;
+              plaintext and certless TLS clients must be refused on both
+              of S's planes. Then through S2's one RPC and one upload
+              port a plaintext leecher P and an mTLS leecher T pull two
+              distinct tasks S2 pulled from the origin first (so their
+              rates are S2's serving), and the mux counters must show
+              ``plain``
+              and ``tls``. S2's muxes flip to ``force``: P's established
+              RPC connection still answers ``Health/Check``, a fresh
+              plaintext leecher fails and ``plain_refused`` rises, and a
+              fresh mTLS leecher's pull lands in the card. Every landed
+              tensor must equal phase 8's; each pull has a deadline
+              that, when it passes, fails the phase with the leecher's
+              flight and the seed's holders. It prints each enrollment's
+              seconds, each pull's rate and the mux counters
 
 Before phase 3 the native storage library (``dfnative.cc``, built with
 g++ at first use) must load: the pulls land crc32c piece digests, and the
@@ -468,10 +496,12 @@ KERNELS_NOTE = ("the JAX package has no Pallas kernel; its device work on "
                 "gathers, segment sums, AdamW), which the port runs as "
                 "torch ops")
 
-# phase 7: one full records ring (scheduler/records.py), decision to
+# phase 7: a fifth of a full records ring (scheduler/records.py,
+# MAX_BUFFERED_ROWS, 50,000 rows; the path's depth, cut so that the run
+# keeps half its time limit to spare, every check kept), decision to
 # piece-outcome rows as in BENCH_pr19's datagen, and the GNN's largest
 # buckets (trainer/features.py _NODE_BUCKETS, _EDGE_BUCKETS)
-RING_ROWS = MAX_BUFFERED_ROWS
+RING_ROWS = MAX_BUFFERED_ROWS // 5
 DECISION_ROWS, OUTCOME_ROWS = 64, 512
 GNN_HOSTS = features._NODE_BUCKETS[-1]
 GNN_LINKS = features._EDGE_BUCKETS[-1]
@@ -510,6 +540,17 @@ def check(cond: bool, what: str) -> None:
 
 def emit(phase: str, record: dict) -> None:
     print(f"{phase}: {json.dumps(record)}", flush=True)
+
+
+def child_context():
+    """The context every phase starts its children in: a fork server that
+    has imported this module, and so torch and the port, once. A child
+    forked from it starts in milliseconds, where a spawned one spends
+    seconds importing them again. The server never touches CUDA, so a
+    child may."""
+    ctx = multiprocessing.get_context("forkserver")
+    ctx.set_forkserver_preload(["chip_smoke"])
+    return ctx
 
 
 def seeded_bytes(rng: np.random.Generator, n: int) -> np.ndarray:
@@ -910,7 +951,7 @@ class CountingFileClient(FileSourceClient):
 
 
 def p2p_child(workdir: str, conn) -> None:
-    """Phase 6's scheduler and seed daemon, in a spawned process that never
+    """Phase 6's scheduler and seed daemon, in a child process that never
     touches CUDA: it sends the scheduler's address, serves until the
     parent asks, then sends the origin bytes read, the seed's back-source
     time and the scheduler's rulings."""
@@ -980,7 +1021,8 @@ async def _p2p_child(workdir: str, conn) -> None:
 
 
 async def _leecher_pull(daemon: Daemon, url: str, meta: UrlMeta,
-                        manifest: ShardManifest | None, box: dict) -> dict:
+                        manifest: ShardManifest | None, box: dict,
+                        timeout_s: float = 1200.0) -> dict:
     """One leecher's pull with back-source disabled; ``box`` exposes the
     conductor while the pull runs."""
     t0 = time.monotonic()
@@ -988,7 +1030,7 @@ async def _leecher_pull(daemon: Daemon, url: str, meta: UrlMeta,
     t_landed = None
     async for resp in daemon.ptm.start_file_task(DownloadRequest(
             url=url, url_meta=meta, device_sink=DeviceSink(enabled=True),
-            disable_back_source=True, timeout_s=1200.0,
+            disable_back_source=True, timeout_s=timeout_s,
             shard_manifest=manifest)):
         task_id = resp.task_id or task_id
         if "conductor" not in box and task_id:
@@ -1013,6 +1055,26 @@ async def _leecher_pull(daemon: Daemon, url: str, meta: UrlMeta,
             "overlap": overlap_efficiency(spans, t_dl_end),
             "copy_s": sum(e - b for b, e in spans),
             "transfers": len(spans)}
+
+
+async def _bounded_pull(daemon: Daemon, url: str, meta: UrlMeta,
+                        manifest: ShardManifest | None, limit: float,
+                        who: str, holders) -> dict:
+    """``_leecher_pull`` with a deadline: when it passes, the phase fails
+    with the leecher's flight and the seed's holders of the task
+    (``await holders(task_id)``), not a call killed at its limit."""
+    box: dict = {}
+    try:
+        return await asyncio.wait_for(
+            _leecher_pull(daemon, url, meta, manifest, box), limit)
+    except asyncio.TimeoutError:
+        c = box.get("conductor")
+        flight = c.flight.summarize() if c is not None and c.flight else None
+        held = await holders(c.task_id) if c is not None else None
+        raise CheckFailed(
+            f"{who}: pull not done within {limit:.0f} s; its flight "
+            f"{json.dumps(flight, default=str)[:6000]}; holders "
+            f"{held}") from None
 
 
 async def _leechers(workdir: str, sched_addr: str, url: str, digest: str,
@@ -1066,7 +1128,7 @@ def phase_p2p(workdir: str, path: str, digest: str, header: bytes,
     manifest = manifest_from_file(path)
     before = hbm_counters()
     pex0 = pex_counts()
-    ctx = multiprocessing.get_context("spawn")
+    ctx = child_context()
     parent_conn, child_conn = ctx.Pipe()
     child = ctx.Process(target=p2p_child, name="smoke-p2p-child",
                         args=(os.path.join(workdir, "p2p"), child_conn))
@@ -1273,7 +1335,7 @@ def phase_sharded(workdir: str, path: str, header: bytes, ref: torch.Tensor,
               "fallback": fallbacks.value(),
               "upload": REGISTRY.counter("df_upload_bytes_total").value()}
     pex0 = pex_counts()
-    ctx = multiprocessing.get_context("spawn")
+    ctx = child_context()
     parent_conn, child_conn = ctx.Pipe()
     child = ctx.Process(target=p2p_child, name="smoke-sharded-child",
                         args=(os.path.join(workdir, "sharded"), child_conn))
@@ -1730,53 +1792,7 @@ def phase_trainer(workdir: str, seed: int, device: torch.device) -> None:
         "health": loop["health"], "rulings": loop["rulings"],
         "top_pick_differs_from_heuristic": loop["top_pick_differs"],
         "refused": loop["refused"],
-        "model_infer_rows": loop["model_infer_rows"]})
-    # learned vs heuristic on BENCH_pr19's datagen rows. One fit's replay
-    # regret moves with the last bit of the arithmetic: the fit is chaotic
-    # on these 170 unnormalized rows (on the CPU, changing the seed-7
-    # initial weights by one ulp gave regrets from 0.039 to 0.145), so the
-    # claim is held on the recipe's mean over REGRET_SEEDS fits. Seed 7,
-    # BENCH_pr19's, is one of them and is printed on its own.
-    with open(FIXTURE) as f:
-        rows = [json.loads(line) for line in f]
-    fits = {}
-    for s in REGRET_SEEDS:
-        fitted = pipeline.train_decision_model(rows, seed=s, device=device)
-        check(fitted is not None, f"seed {s}: the fixture fit gave no model")
-        infer = serving.make_mlp_infer(fitted[0])
-        fits[s] = (fitted, infer, replay_regret(
-            rows, ("default", "ml"), infer)["evaluators"])
-    (blob, metrics), infer, regret = fits[7]
-    FIT_BLOBS["fixture_seed_7"] = blob
-    again = pipeline.train_decision_model(rows, seed=7, device=device)
-    check(again[0] == blob, "the fixture fit is not deterministic on the "
-                            "card")
-    replay = replay_decisions(rows, ("default", "ml"), infer)
-    check(replay["logged_choice_agreement"]["default"] == 1.0,
-          "the heuristic replay does not reproduce the logged choices")
-    heuristic = regret["default"]["mean_regret"]
-    check(round(heuristic, 4) == HEURISTIC_REGRET,
-          f"heuristic regret {heuristic} != {HEURISTIC_REGRET} (BENCH_pr19)")
-    learned = {s: r["ml"]["mean_regret"] for s, (_, _, r) in fits.items()}
-    mean = sum(learned.values()) / len(learned)
-    check(mean < heuristic,
-          f"mean learned regret {mean} over seeds {list(learned)} does not "
-          f"beat the heuristic's {heuristic}")
-    emit("phase 7 trainer, learned vs heuristic", {
-        "fold_rows": metrics["rows"], "seed_7": {
-            "version": metrics["version"], "fit_s": metrics["train_seconds"],
-            "final_loss": metrics["final_loss"],
-            "regret": {k: v["mean_regret"] for k, v in regret.items()},
-            "best_pick_rate": {k: v["best_pick_rate"]
-                               for k, v in regret.items()},
-            "logged_choice_agreement": replay["logged_choice_agreement"],
-            "flip_rate":
-                replay["pairs"]["default_vs_ml"]["choice_flip_rate"]},
-        "heuristic_regret": heuristic,
-        "learned_regret_by_seed": learned,
-        "learned_regret_mean": mean,
-        "seeds_beating_heuristic": sum(v < heuristic
-                                       for v in learned.values()),
+        "model_infer_rows": loop["model_infer_rows"],
         "phase_s": time.monotonic() - t_phase})
     print(smi, flush=True)
 
@@ -1961,12 +1977,13 @@ def phase_deploy(workdir: str, seed: int, device: torch.device) -> None:
                 "is_seed": True, "host_ip": "127.0.0.1",
                 "listen_ip": "127.0.0.1", "manager_addresses": [mgr_addr]})])
         procs.append(seed_d)
-        seed_line = seed_d.wait_up("daemon up:")
-        seed_rpc = int(re.search(r"rpc=(\d+)", seed_line).group(1))
+        # the trainer starts beside the seed: neither needs the other
         trainer = Launched(d, "trainer", "trainer", [
             "--listen-ip", "127.0.0.1", "--manager", mgr_addr,
             "--data-dir", os.path.join(d, "trainer")])
         procs.append(trainer)
+        seed_line = seed_d.wait_up("daemon up:")
+        seed_rpc = int(re.search(r"rpc=(\d+)", seed_line).group(1))
         trainer_addr = trainer.wait_up("trainer up:").split()[-1]
         sched = Launched(d, "scheduler", "scheduler", [
             "--config", write_json(os.path.join(d, "scheduler.json"), {
@@ -2151,7 +2168,7 @@ NT_TASK_PEERS = 16           # the cost ruling's task: peers on graph hosts
 
 
 def nt_seed_child(workdir: str, conn) -> None:
-    """Phase 10's seed daemon, in a spawned process that never touches
+    """Phase 10's seed daemon, in a child process that never touches
     CUDA: it sends its host, serves until the parent asks, then sends the
     origin bytes it read."""
     os.environ["CUDA_VISIBLE_DEVICES"] = ""     # before any CUDA call
@@ -2288,7 +2305,7 @@ def phase_nt(workdir: str, seed: int, device: torch.device) -> None:
             device)
     d = os.path.join(workdir, "nt")
     pex0 = pex_counts()
-    ctx = multiprocessing.get_context("spawn")
+    ctx = child_context()
     parent_conn, child_conn = ctx.Pipe()
     child = ctx.Process(target=nt_seed_child, name="smoke-nt-child",
                         args=(d, child_conn))
@@ -2377,7 +2394,7 @@ CHAIN_UPLOAD_LIMIT = 1
 
 
 def http_origin_child(path: str, pace_bps: int, conn) -> None:
-    """Phase 11's origin, in a spawned process: a standard-library
+    """Phase 11's origin, in a child process: a standard-library
     ``ThreadingHTTPServer`` serving ``path`` (HTTP/1.1, ``HEAD``, single
     ``Range`` requests, ``Accept-Ranges: bytes``), each response paced to
     ``pace_bps`` (0: unpaced); ``/redirect/<name>`` answers 302 to
@@ -2492,7 +2509,7 @@ def http_origin_child(path: str, pace_bps: int, conn) -> None:
 
 
 def chain_seed_child(workdir: str, relay: bool, conn) -> None:
-    """Phase 11's seed daemon, in a spawned process that never touches
+    """Phase 11's seed daemon, in a child process that never touches
     CUDA: it sends its host, serves until the parent asks, then sends its
     pull's origin bytes and timings and what its upload server served."""
     os.environ["CUDA_VISIBLE_DEVICES"] = ""
@@ -2666,7 +2683,7 @@ def chain_run(workdir: str, url: str, manifest: ShardManifest, relay: bool,
     """One chain pull (relay on or off) and its checks; returns its
     line."""
     pex0 = pex_counts()
-    ctx = multiprocessing.get_context("spawn")
+    ctx = child_context()
     parent_conn, child_conn = ctx.Pipe()
     child = ctx.Process(target=chain_seed_child, name="smoke-chain-seed",
                         args=(workdir, relay, child_conn))
@@ -2830,7 +2847,7 @@ def phase_chain(workdir: str, device: torch.device) -> None:
         f.seek(len(header))
         ref = torch.frombuffer(bytearray(f.read()), dtype=torch.uint8).to(
             device)
-    ctx = multiprocessing.get_context("spawn")
+    ctx = child_context()
     origin_conn, child_conn = ctx.Pipe()
     origin = ctx.Process(target=http_origin_child, name="smoke-origin",
                          args=(path, CHAIN_PACE_BPS, child_conn))
@@ -2893,7 +2910,7 @@ def crash_daemon_cfg(workdir: str, name: str, sched_addr: str,
 
 
 def crash_sched_child(port: int, seed_host: Host, conn) -> None:
-    """Scheduler S1 of phase 12, in a spawned process the parent ends with
+    """Scheduler S1 of phase 12, in a child process the parent ends with
     SIGKILL: no LeaveHost, no clean close."""
     os.environ["CUDA_VISIBLE_DEVICES"] = ""
     asyncio.run(_crash_sched_child(port, seed_host, conn))
@@ -2910,7 +2927,7 @@ async def _crash_sched_child(port: int, seed_host: Host, conn) -> None:
 
 
 def crash_seed_child(workdir: str, sched_addr: str, conn) -> None:
-    """Phase 12's seed daemon, in a spawned process that never touches
+    """Phase 12's seed daemon, in a child process that never touches
     CUDA; it announces to the scheduler and gossips like the leechers.
     It sends its host, serves until the parent asks, then sends its
     pull's origin bytes."""
@@ -3087,7 +3104,7 @@ def phase_crash(workdir: str, device: torch.device) -> None:
     with socket.socket() as sock:          # S1's port, known to the seed
         sock.bind(("127.0.0.1", 0))
         sched_port = sock.getsockname()[1]
-    ctx = multiprocessing.get_context("spawn")
+    ctx = child_context()
     origin_conn, o_child = ctx.Pipe()
     seed_conn, sd_child = ctx.Pipe()
     s1_conn, s1_child = ctx.Pipe()
@@ -3434,14 +3451,14 @@ def check_dfbench_point(name: str, got: dict) -> dict:
 
 def phase_dfbench(device: torch.device) -> None:
     """Phase 13: the port's dfbench points at the reference's full sizes.
-    The host-only points run in spawned workers while this process runs
+    The host-only points run in child workers while this process runs
     --pr19, whose MLP fits are the phase's device work."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
     t_phase = time.monotonic()
-    ctx = multiprocessing.get_context("spawn")
+    ctx = child_context()
     with concurrent.futures.ProcessPoolExecutor(
             DFBENCH_WORKERS, mp_context=ctx) as pool:
         futures = {name: pool.submit(dfbench_point, name)
@@ -3479,25 +3496,52 @@ def phase_dfbench(device: torch.device) -> None:
             fixture = [json.loads(line) for line in f]
         check(rows == fixture, "the port's datagen rows differ from "
                                "tests/data/pr19_datagen_rows.jsonl")
+        # One fit's replay regret moves with the last bit of the
+        # arithmetic: the fit is chaotic on these 170 unnormalized rows (on
+        # the CPU, changing the seed-7 initial weights by one ulp gave
+        # regrets from 0.039 to 0.145), so the claim is held on the
+        # recipe's mean over REGRET_SEEDS fits. Seed 7, BENCH_pr19's, is
+        # one of them and is printed on its own.
         t0 = time.monotonic()
-        learned, fit_s = {}, []
+        learned, fit_s, fits = {}, [], {}
         for s in REGRET_SEEDS:
             fitted = pipeline.train_decision_model(rows, seed=s,
                                                    device=device)
             check(fitted is not None, f"seed {s}: no model from the rows")
             fit_s.append(fitted[1]["train_seconds"])
-            regret = replay_regret(rows, ("default", "ml"),
-                                   serving.make_mlp_infer(fitted[0]))
-            ev = regret["evaluators"]
+            infer = serving.make_mlp_infer(fitted[0])
+            ev = replay_regret(rows, ("default", "ml"), infer)["evaluators"]
             check(round(ev["default"]["mean_regret"], 4) == HEURISTIC_REGRET,
-                  f"heuristic regret {ev['default']['mean_regret']}")
+                  f"heuristic regret {ev['default']['mean_regret']} != "
+                  f"{HEURISTIC_REGRET} (BENCH_pr19)")
             learned[s] = ev["ml"]["mean_regret"]
+            fits[s] = (fitted, infer, ev)
         mean = sum(learned.values()) / len(learned)
         check(mean < HEURISTIC_REGRET,
               f"mean learned regret {mean} over seeds {list(learned)} does "
               f"not beat the heuristic's {HEURISTIC_REGRET}")
+        (blob, metrics), infer, regret = fits[7]
+        FIT_BLOBS["fixture_seed_7"] = blob
+        again = pipeline.train_decision_model(rows, seed=7, device=device)
+        check(again[0] == blob, "the fixture fit is not deterministic on the "
+                                "card")
+        replay = replay_decisions(rows, ("default", "ml"), infer)
+        check(replay["logged_choice_agreement"]["default"] == 1.0,
+              "the heuristic replay does not reproduce the logged choices")
         emit("phase 13 dfbench, learned vs heuristic", {
             "datagen_rows": len(rows), "rows_equal_fixture": True,
+            "fold_rows": metrics["rows"], "seed_7": {
+                "version": metrics["version"],
+                "fit_s": metrics["train_seconds"],
+                "final_loss": metrics["final_loss"],
+                "regret": {k: v["mean_regret"] for k, v in regret.items()},
+                "best_pick_rate": {k: v["best_pick_rate"]
+                                   for k, v in regret.items()},
+                "logged_choice_agreement":
+                    replay["logged_choice_agreement"],
+                "flip_rate":
+                    replay["pairs"]["default_vs_ml"]["choice_flip_rate"]},
+            "heuristic_regret": regret["default"]["mean_regret"],
             "learned_regret_by_seed": learned, "learned_regret_mean": mean,
             "seeds_beating_heuristic": sum(v < HEURISTIC_REGRET
                                            for v in learned.values()),
@@ -3661,13 +3705,14 @@ def observe_pod(workdir: str, device: torch.device) -> dict:
                 "manager_addresses": [mgr_addr]}),
             "--debug-endpoints", "--tracing-jsonl", traces["seed"]])
         procs.append(seed_d)
-        seed_d.wait_up("daemon up:")
-        seed_up = int(seed_d.wait_line("upload server on", 10)
-                      .rsplit(":", 1)[1])
+        # the trainer starts beside the seed: neither needs the other
         trainer = Launched(d, "trainer", "trainer", [
             "--listen-ip", "127.0.0.1", "--manager", mgr_addr,
             "--data-dir", os.path.join(d, "trainer"), "--debug-port", "-1"])
         procs.append(trainer)
+        seed_d.wait_up("daemon up:")
+        seed_up = int(seed_d.wait_line("upload server on", 10)
+                      .rsplit(":", 1)[1])
         trainer_dbg = int(trainer.wait_up("debug on :").rsplit(":", 1)[1])
         trainer_addr = trainer.wait_up("trainer up:").split()[-1]
         sched = Launched(d, "scheduler", "scheduler", [
@@ -3789,14 +3834,14 @@ def observe_mesh(device: torch.device) -> dict:
           f"train_mlp on one card: {fitted and fitted[1]['devices']} devices")
     if "fixture_seed_7" in FIT_BLOBS:
         check(fitted[0] == FIT_BLOBS["fixture_seed_7"],
-              "the one-card mesh default did not give phase 7's blob")
+              "the one-card mesh default did not give phase 13's blob")
     return {"mesh": out["mesh"], "dryrun_s": dryrun_s,
             "sharded_loss": {n: out[n]["loss"] for n in losses},
             "single_loss": single, "loss_abs_diff": diffs,
             "sharded_step_ms": {n: out[n]["step_ms"] for n in losses},
             "fit_devices": fitted[1]["devices"],
             "fit_version": fitted[1]["version"],
-            "fit_equals_phase_7": "fixture_seed_7" in FIT_BLOBS}
+            "fit_equals_phase_13": "fixture_seed_7" in FIT_BLOBS}
 
 
 def phase_observe(workdir: str, device: torch.device) -> None:
@@ -3877,7 +3922,7 @@ download:
 
 
 def superseed_seed_child(workdir: str, yaml_path: str, conn) -> None:
-    """Phase 15's seed, in a spawned process that never touches CUDA: its
+    """Phase 15's seed, in a child process that never touches CUDA: its
     config is loaded from ``yaml_path`` (the reference's key format). The
     policy's reveals are tallied by cause from its state (the owners of
     each piece before and after each step). It sends its host, answers
@@ -4340,7 +4385,7 @@ def phase_superseed(workdir: str, device: torch.device) -> None:
             workdir=os.path.join(d, "seed"), rate=SUPERSEED_RATE_BPS,
             slots=SUPERSEED_UPLOAD_SLOTS, announce=SUPERSEED_ANNOUNCE_S,
             sched=f"127.0.0.1:{sched_port}"))
-    ctx = multiprocessing.get_context("spawn")
+    ctx = child_context()
     origin_conn, o_child = ctx.Pipe()
     seed_conn, s_child = ctx.Pipe()
     origin = ctx.Process(target=http_origin_child,
@@ -4527,6 +4572,7 @@ POISON_ANNOUNCE_S = 1.0
 POISON_PEX_S = 1.0
 POISON_SNAPSHOT_S = 0.5
 POISON_WAIT_S = 30.0          # bound on each wait for a verdict or a row
+POISON_L5_S = 90.0            # bound on L5's pull through S2 (1.7-2.0 s)
 # the reference's bound on the registry's evidence: corrupt verdicts per
 # child (the local shun at 2, plus the transfers in flight at the flip)
 POISON_EVIDENCE_PER_CHILD = 6
@@ -4577,7 +4623,7 @@ def poison_sched_state(sched: Scheduler) -> dict:
 
 def poison_sched_child(port: int, seed_host: Host, state_dir: str,
                        records_dir: str, conn) -> None:
-    """Scheduler S1 of phase 16, in a spawned process the parent ends with
+    """Scheduler S1 of phase 16, in a child process the parent ends with
     SIGKILL. It answers each "state" with ``poison_sched_state``."""
     os.environ["CUDA_VISIBLE_DEVICES"] = ""
     asyncio.run(_poison_sched_child(port, seed_host, state_dir, records_dir,
@@ -4597,7 +4643,7 @@ async def _poison_sched_child(port: int, seed_host: Host, state_dir: str,
 
 
 def poisoner_child(workdir: str, sched_addr: str, url: str, conn) -> None:
-    """The poisoner P of phase 16, in a spawned process that never touches
+    """The poisoner P of phase 16, in a child process that never touches
     CUDA: it pulls the file clean through S1, then arms the corrupt script
     on its own host key, so every range it serves carries a flipped byte.
     It sends its host, address and peer id, serves until the parent says
@@ -4760,7 +4806,14 @@ async def _poison_run(workdir: str, url: str, manifest: ShardManifest,
         out["reannounce_s"] = time.monotonic() - t0
         l5 = Daemon(poison_daemon_cfg(workdir, "l5", s2.address))
         await l5.start()
-        run = await _leecher_pull(l5, url, UrlMeta(), manifest, {})
+
+        async def s2_holders(tid: str) -> list:
+            return sorted(_holders(s2, tid))
+
+        # bounded: a pull that hangs fails the phase with its cause
+        run = await _bounded_pull(l5, url, UrlMeta(), manifest,
+                                  POISON_L5_S, "phase 16 L5 through S2",
+                                  s2_holders)
         s = run["conductor"].flight.summarize()
         run["corrupt_pieces"] = sum((s.get("corrupt_pieces")
                                      or {}).values())
@@ -4810,7 +4863,7 @@ def phase_poison(workdir: str, device: torch.device) -> None:
         sock.bind(("127.0.0.1", 0))
         sched_port = sock.getsockname()[1]
     sched_addr = f"127.0.0.1:{sched_port}"
-    ctx = multiprocessing.get_context("spawn")
+    ctx = child_context()
     origin_conn, o_child = ctx.Pipe()
     seed_conn, sd_child = ctx.Pipe()
     s1_conn, s1_child = ctx.Pipe()
@@ -4982,7 +5035,7 @@ FED_WAIT_S = 600.0            # bound on a pod child's start and pulls
 
 def fed_pod_child(workdir: str, pod: str, sched_addr: str, url: str,
                   path: str, layout: list, device: str, conn) -> None:
-    """One pod of phase 17 in a spawned process: ``DF_POD_ID`` names its
+    """One pod of phase 17 in a child process: ``DF_POD_ID`` names its
     pod before the topology is first read, as a deployment's environment
     does. Its two daemons pull with manifest sinks on ``device`` when the
     parent says "go" and hold every tensor against the file's bytes."""
@@ -5089,7 +5142,7 @@ def phase_federation(workdir: str, device: torch.device) -> None:
         sock.bind(("127.0.0.1", 0))
         sched_port = sock.getsockname()[1]
     sched_addr = f"127.0.0.1:{sched_port}"
-    ctx = multiprocessing.get_context("spawn")
+    ctx = child_context()
     origin_conn, o_child = ctx.Pipe()
     seed_conn, sd_child = ctx.Pipe()
     origin = ctx.Process(target=http_origin_child, name="smoke-fed-origin",
@@ -5222,7 +5275,7 @@ def qos_daemon_cfg(workdir: str, name: str, sched_addr: str,
 
 
 def qos_seed_child(workdir: str, sched_addr: str, conn) -> None:
-    """Phase 18's seed, in a spawned process that never touches CUDA: its
+    """Phase 18's seed, in a child process that never touches CUDA: its
     uplink limit, slots and bulk slots as the phase line states. It
     samples its bulk upload slots (``_active_cls`` and the
     ``df_qos_upload_active{cls="bulk"}`` gauge) every 5 ms from start to
@@ -5599,7 +5652,7 @@ def phase_qos(workdir: str, device: torch.device) -> None:
     with socket.socket() as sock:          # the scheduler's port
         sock.bind(("127.0.0.1", 0))
         sched_port = sock.getsockname()[1]
-    ctx = multiprocessing.get_context("spawn")
+    ctx = child_context()
     origin_conn, o_child = ctx.Pipe()
     seed_conn, sd_child = ctx.Pipe()
     origin = ctx.Process(target=http_origin_child, name="smoke-qos-origin",
@@ -6045,7 +6098,7 @@ class S3StandIn:
 
 
 def s3_standin_child(root: str, conn) -> None:
-    """Phase 19's S3 stand-in, in a spawned process: it sends its port,
+    """Phase 19's S3 stand-in, in a child process: it sends its port,
     answers each "stats" with its counts, and ends at "stop"."""
     os.environ["CUDA_VISIBLE_DEVICES"] = ""
     store = S3StandIn(root)
@@ -6078,7 +6131,7 @@ def objstore_gateway_cfg(workdir: str, s3_port: int, plugin_dir: str,
 
 def objstore_child(workdir: str, s3_port: int, plugin_dir: str,
                    keys: list[str], gen_bytes: int, conn) -> None:
-    """Phase 19's scheduler and gateway daemon G, in a spawned process
+    """Phase 19's scheduler and gateway daemon G, in a child process
     that never touches CUDA: it sends the scheduler's address, the
     gateway's port and G's URLs for ``keys``, answers each "stats" with
     the scheduler's rulings and the source plugin's reads, and ends at
@@ -6199,8 +6252,8 @@ def phase_objstore(workdir: str, seed: int, device: torch.device) -> None:
     os.makedirs(os.path.join(d, "data"), exist_ok=True)
     total = OBJ_SHARDS * OBJ_SHARD_BYTES
     # the shard files, the stand-in's copies, G's cache, the spool and L's
-    # in-flight shards
-    need = 3 * total + 4 * OBJ_SHARD_BYTES + (1 << 30)
+    # in-flight shards, and as much again of shards to spare
+    need = 3 * total + 8 * OBJ_SHARD_BYTES
     free = shutil.disk_usage(workdir).free
     check(free >= need, f"phase 19 needs {need} bytes of free disk, "
                         f"{free} free")
@@ -6218,7 +6271,7 @@ def phase_objstore(workdir: str, seed: int, device: torch.device) -> None:
         paths.append(path)
         refs.append(torch.from_numpy(data).to(device))
     del data
-    ctx = multiprocessing.get_context("spawn")
+    ctx = child_context()
     s3_conn, s3_child_conn = ctx.Pipe()
     s3 = ctx.Process(target=s3_standin_child, name="smoke-s3",
                      args=(os.path.join(d, "s3"), s3_child_conn))
@@ -6574,7 +6627,7 @@ class RegistryStandIn:
 
 def registry_child(root: str, blobs: dict[str, str], manifest: bytes,
                    conn) -> None:
-    """Phase 20's registry stand-in, in a spawned process: it sends its
+    """Phase 20's registry stand-in, in a child process: it sends its
     port and CA file, answers each "stats" with its counts, and ends at
     "stop"."""
     os.environ["CUDA_VISIBLE_DEVICES"] = ""
@@ -6625,7 +6678,7 @@ def proxy_counters() -> dict:
 
 def mirror_child(workdir: str, registry_port: int, registry_ca: str,
                  conn) -> None:
-    """Phase 20's scheduler and daemons A, B and C, in a spawned process
+    """Phase 20's scheduler and daemons A, B and C, in a child process
     that never touches CUDA: it sends the proxies' ports and CA files,
     answers "stats" (the proxy counters, each daemon's piece sources,
     each leaf's mint times) and "lag_reset" / "lag" (the health plane's
@@ -6892,7 +6945,7 @@ def phase_mirror(workdir: str, seed: int, device: torch.device) -> None:
     os.makedirs(blob_dir, exist_ok=True)
     image = model_size + MIRROR_RUNTIME_BYTES
     free = shutil.disk_usage(workdir).free
-    need = 4 * image + (1 << 30)
+    need = 5 * image                  # one copy to spare
     check(free >= need, f"phase 20 needs {need} bytes of free disk for the "
                         f"registry's and three daemons' copies, {free} free")
     sha = hashlib.sha256()
@@ -6928,7 +6981,7 @@ def phase_mirror(workdir: str, seed: int, device: torch.device) -> None:
         refs = [torch.frombuffer(bytearray(f.read()), dtype=torch.uint8).to(
             device), torch.from_numpy(runtime).to(device)]
     del runtime
-    ctx = multiprocessing.get_context("spawn")
+    ctx = child_context()
     r_conn, r_child = ctx.Pipe()
     reg = ctx.Process(target=registry_child, name="smoke-registry",
                       args=(os.path.join(d, "registry"), blobs, manifest,
@@ -7052,6 +7105,14 @@ def phase_mirror(workdir: str, seed: int, device: torch.device) -> None:
     first_mints = {}
     for row in final["mints"]:
         first_mints.setdefault(f"{row['daemon']}/{row['host']}", row)
+    # the SNI name's first mint runs off C's event loop (its listener
+    # peeks at the ClientHello and mints on its own executor), so the
+    # loop's lag over the handshake stays below the mint
+    sni_mint = first_mints.get(f"mirror-c/{MIRROR_SNI_NAME}")
+    check(sni_mint is not None and not sni_mint["on_loop"]
+          and lag["max_lag_s"] < sni_mint["s"],
+          f"phase 20: C's loop lag over the SNI handshake "
+          f"{lag['max_lag_s']:.4f} s against its first mint {sni_mint}")
     emit("phase 20 mirror", {
         "openssl": ossl.stdout.strip(),
         "image_bytes": image + len(config), "model_layer_bytes": model_size,
@@ -7072,8 +7133,506 @@ def phase_mirror(workdir: str, seed: int, device: torch.device) -> None:
     shutil.rmtree(d, ignore_errors=True)
 
 
+# ---------------------------------------------------------------- phase 21
+
+FLEET_PULL_S = 120.0          # bound on each pull that must land
+FLEET_REFUSED_S = 5.0         # the refused plaintext leecher's deadline
+FLEET_WAIT_S = 300.0          # bound on the children's starts
+FLEET_TAGS = {"tls": "fleet-l", "plain": "fleet-p", "mtls": "fleet-t"}
+FLEET_KINDS = ("tls", "plain", "plain_refused")
+
+
+def fleet_daemon_cfg(workdir: str, name: str, sched_addr: str,
+                     fleet: dict | None, *, policy: str = "force",
+                     is_seed: bool = False, **kw) -> DaemonConfig:
+    """Phase 21's daemons: one scheduler address; with ``fleet`` (the
+    manager's address, the issuance token and the CA file) fleet mTLS at
+    ``policy``, enrolling with the manager over its TLS port. No gossip
+    round runs in the phase (PEX every hour), so S2's mux counters count
+    the pulls' connections and the checks' only."""
+    from dragonfly2_tpu_torch.daemon.config import (SecurityConfig,
+                                                    StorageSection)
+    cfg = DaemonConfig(workdir=os.path.join(workdir, name),
+                       hostname=f"fleet-{name}", listen_ip="127.0.0.1",
+                       host_ip="127.0.0.1", is_seed=is_seed,
+                       scheduler=SchedulerConfig(addresses=[sched_addr]),
+                       storage=StorageSection(gc_interval_s=3600), **kw)
+    cfg.pex.interval_s = 3600.0
+    if fleet is not None:
+        cfg.manager_addresses = [fleet["manager"]]
+        cfg.security = SecurityConfig(enabled=True, issue_token=fleet["token"],
+                                      ca_cert=fleet["ca"], tls_policy=policy)
+    return cfg
+
+
+def time_enrollments(rows: list):
+    """Record each daemon's and scheduler's enrollment seconds in
+    ``rows``; returns the function that undoes it."""
+    import dragonfly2_tpu_torch.scheduler.server as sched_server
+    real_daemon = Daemon._obtain_certificate
+    real_sched = sched_server.obtain_certificate
+
+    async def daemon_enroll(self):
+        t0 = time.monotonic()
+        out = await real_daemon(self)
+        rows.append({"who": self.hostname, "s": time.monotonic() - t0})
+        return out
+
+    async def sched_enroll(*args, **kw):
+        t0 = time.monotonic()
+        out = await real_sched(*args, **kw)
+        rows.append({"who": "scheduler:" + os.path.basename(
+            os.path.dirname(kw["out_dir"])), "s": time.monotonic() - t0})
+        return out
+
+    Daemon._obtain_certificate = daemon_enroll
+    sched_server.obtain_certificate = sched_enroll
+
+    def undo() -> None:
+        Daemon._obtain_certificate = real_daemon
+        sched_server.obtain_certificate = real_sched
+    return undo
+
+
+def leaf_check(d: Daemon) -> dict:
+    """A daemon's issued leaf: its SANs and its key's mode."""
+    dec = ssl._ssl._test_decode_cert(d._peer_tls_cert)
+    return {"sans": sorted(v for _, v in dec.get("subjectAltName", ())),
+            "key_mode": oct(os.stat(d._peer_tls_key).st_mode & 0o777)}
+
+
+def mux_counts() -> dict:
+    from dragonfly2_tpu_torch.rpc import mux
+    return {k: mux._conns.value(k) for k in FLEET_KINDS}
+
+
+def fleet_child(workdir: str, url: str, conn) -> None:
+    """Phase 21's control plane and seeds, in a child process that never
+    touches CUDA: a manager issuing certificates, seeds S (``force``) and
+    S2 (``default``), and one scheduler per seed with fleet TLS. It sends
+    the addresses, answers "stats" (the mux counters, the seeds' pulls,
+    the schedulers' seed clients), ("holders", task), ("warm", tags) (S2
+    pulls those tasks from the origin, off its scheduler, so the
+    leechers' pulls through it measure its serving, not its origin) and
+    "flip" (S2's muxes to ``force``), and ends at "stop"."""
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    asyncio.run(_fleet_child(workdir, url, conn))
+
+
+async def _fleet_child(workdir: str, url: str, conn) -> None:
+    enrolls: list = []
+    time_enrollments(enrolls)
+    mgr = Manager(ManagerConfig(listen_ip="127.0.0.1",
+                                workdir=os.path.join(workdir, "manager"),
+                                issue_certs=True, grpc_tls=True))
+    await mgr.start()
+    fleet = {"manager": mgr.address, "token": mgr.issue_token,
+             "ca": mgr.ca_cert_path}
+    ports = []
+    for _ in range(2):                 # the schedulers' ports, for the seeds
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            ports.append(sock.getsockname()[1])
+    seeds, scheds = [], []
+    try:
+        for name, policy, port in (("s", "force", ports[0]),
+                                   ("s2", "default", ports[1])):
+            seed = Daemon(fleet_daemon_cfg(
+                workdir, name, f"127.0.0.1:{port}", fleet, policy=policy,
+                is_seed=True, device="cpu"))
+            await seed.start()
+            seeds.append(seed)
+        for port, seed in zip(ports, seeds):
+            host = seed.host_info()
+            sched = Scheduler(SchedCfg(
+                listen_ip="127.0.0.1", port=port,
+                manager_addresses=[mgr.address],
+                security_issue_token=mgr.issue_token,
+                security_ca_cert=mgr.ca_cert_path,
+                workdir=os.path.join(workdir, f"sched-{seed.hostname}"),
+                statestore_handoff=False,
+                seed_peers=[SeedPeerAddr(host_id=host.id, ip=host.ip,
+                                         rpc_port=host.port,
+                                         download_port=host.download_port)]))
+            await sched.start()
+            scheds.append(sched)
+        s, s2 = seeds
+        conn.send({**fleet, "scheds": [x.address for x in scheds],
+                   "s": {"rpc": f"127.0.0.1:{s.rpc.port}",
+                         "upload": s.upload_server.port,
+                         "mux": (s.rpc.mux, s.upload_server.mux) != (None,
+                                                                     None),
+                         "leaf": leaf_check(s)},
+                   "s2": {"rpc": f"127.0.0.1:{s2.rpc.port}",
+                          "upload": s2.upload_server.port,
+                          "leaf": leaf_check(s2)}})
+        while True:
+            msg = await asyncio.to_thread(conn.recv)
+            if msg == "stats":
+                conn.send({
+                    "mux": mux_counts(), "enrolls": list(enrolls),
+                    "seed_tls": [bool(x.seed_client._channels.tls_cert)
+                                 for x in scheds],
+                    "seeds": {d.hostname: {
+                        c.task_id: {"state": c.state,
+                                    "source": c.traffic_source,
+                                    "p2p": c.traffic_p2p}
+                        for c in d.ptm._conductors.values()}
+                        for d in seeds}})
+            elif isinstance(msg, tuple) and msg[0] == "holders":
+                conn.send({x.address: sorted(_holders(x, msg[1]))
+                           for x in scheds})
+            elif isinstance(msg, tuple) and msg[0] == "warm":
+                conn.send(await _warm(s2, url, msg[1]))
+            elif msg == "flip":
+                s2.rpc.mux.policy = s2.upload_server.mux.policy = "force"
+                conn.send(mux_counts())
+            else:
+                break
+    finally:
+        for d in seeds:
+            await d.stop()
+        for x in scheds:
+            await x.stop()
+        await mgr.stop()
+
+
+async def _warm(seed: Daemon, url: str, tags: list[str]) -> dict:
+    """The seed pulls each tagged task from the origin at once, with no
+    scheduler; its later triggers serve them from disk. The seconds, or
+    the error."""
+    connector, seed.ptm.scheduler = seed.ptm.scheduler, None
+    t0 = time.monotonic()
+
+    async def one(tag: str) -> None:
+        async for _ in seed.ptm.start_file_task(DownloadRequest(
+                url=url, url_meta=UrlMeta(tag=tag), timeout_s=FLEET_PULL_S)):
+            pass
+
+    try:
+        await asyncio.gather(*(one(t) for t in tags))
+        return {"s": time.monotonic() - t0}
+    except DFError as exc:
+        return {"error": str(exc)}
+    finally:
+        seed.ptm.scheduler = connector
+
+
+async def _refused(info: dict, ca: str, leaf: tuple[str, str]) -> dict:
+    """A seed's two planes under ``force``: a plaintext GET and a TLS GET
+    without a client certificate to its upload port, and a plaintext and
+    a certless ``Health/Check`` to its RPC port, each refused; the same
+    check with the fleet leaf answers."""
+    from dragonfly2_tpu_torch.idl.messages import Empty
+    out = {}
+
+    async def get(ctx) -> bytes:
+        try:
+            reader, writer = await asyncio.wait_for(asyncio.open_connection(
+                "127.0.0.1", info["upload"], ssl=ctx), 10)
+            writer.write(b"GET /healthy HTTP/1.1\r\nHost: s\r\n"
+                         b"Connection: close\r\n\r\n")
+            got = await asyncio.wait_for(reader.read(), 10)
+            writer.close()
+            return got
+        except (OSError, asyncio.TimeoutError) as exc:
+            return repr(exc).encode()
+
+    async def check_rpc(**tls) -> str:
+        ch = Channel(info["rpc"], **tls)
+        try:
+            await ServiceClient(ch, "df.health.Health", max_attempts=1).unary(
+                "Check", Empty(), timeout=10)
+            return "answered"
+        except (DFError, OSError) as exc:
+            return repr(exc)
+        finally:
+            await ch.close()
+
+    nocert = ssl.create_default_context(cafile=ca)
+    nocert.check_hostname = False
+    withcert = ssl.create_default_context(cafile=ca)
+    withcert.check_hostname = False
+    withcert.load_cert_chain(*leaf)
+    out["upload_plain"] = (await get(None))[:120].decode(errors="replace")
+    out["upload_certless"] = (await get(nocert))[:120].decode(
+        errors="replace")
+    out["upload_fleet"] = (await get(withcert))[:15].decode(errors="replace")
+    out["rpc_plain"] = await check_rpc()
+    out["rpc_certless"] = await check_rpc(tls_ca=ca)
+    out["rpc_fleet"] = await check_rpc(tls_ca=ca, tls_cert=leaf[0],
+                                       tls_key=leaf[1])
+    return out
+
+
+async def _fleet_run(workdir: str, url: str, manifest: ShardManifest,
+                     info: dict, conn) -> dict:
+    """L1 and L2 through S; P and T through S2; the flip; a refused
+    plaintext leecher F and an mTLS leecher U after it."""
+    from dragonfly2_tpu_torch.idl.messages import Empty
+    from dragonfly2_tpu_torch.rpc.security import obtain_certificate
+    enrolls: list = []
+    undo = time_enrollments(enrolls)
+    fleet = {k: info[k] for k in ("manager", "token", "ca")}
+    s1_addr, s2_addr = info["scheds"]
+    started: list[Daemon] = []
+    out: dict = {"runs": {}}
+
+    async def make(name: str, sched: str, secure: bool = True) -> Daemon:
+        d = Daemon(fleet_daemon_cfg(workdir, name, sched,
+                                    fleet if secure else None))
+        await d.start()
+        started.append(d)
+        return d
+
+    async def holders(task_id: str) -> dict:
+        return await asyncio.to_thread(_ask, conn, ("holders", task_id))
+
+    async def pull(d: Daemon, tag: str) -> dict:
+        return await _bounded_pull(d, url, UrlMeta(tag=tag), manifest,
+                                   FLEET_PULL_S, f"phase 21 {d.hostname}",
+                                   holders)
+
+    async def stop(*ds: Daemon) -> None:
+        for d in ds:
+            await d.stop()
+            started.remove(d)
+            shutil.rmtree(d.cfg.workdir, ignore_errors=True)
+
+    try:
+        # a wrong token gets no certificate
+        try:
+            await obtain_certificate(
+                [fleet["manager"]], hosts=["127.0.0.1"],
+                token=fleet["token"] + "x", tls_ca=fleet["ca"],
+                out_dir=os.path.join(workdir, "wrong-token"))
+            out["wrong_token"] = "issued"
+        except RuntimeError as exc:
+            out["wrong_token"] = str(exc)
+        # TLS direct: L1 and L2 through S (force)
+        l1, l2 = await make("l1", s1_addr), await make("l2", s1_addr)
+        out["leaves"] = {d.hostname: leaf_check(d) for d in (l1, l2)}
+        out["leaves"].update({"fleet-s": info["s"]["leaf"],
+                              "fleet-s2": info["s2"]["leaf"]})
+        runs = await asyncio.gather(pull(l1, FLEET_TAGS["tls"]),
+                                    pull(l2, FLEET_TAGS["tls"]))
+        out["runs"].update(zip(("l1", "l2"), runs))
+        out["schemes"] = {d.hostname: d._downloader.scheme
+                          for d in (l1, l2)}
+        out["refusals"] = await _refused(
+            info["s"], fleet["ca"], (l1._peer_tls_cert, l1._peer_tls_key))
+        out["after_tls"] = await asyncio.to_thread(_ask, conn, "stats")
+        await stop(l1, l2)
+        # the rollout: P (plaintext) and T (mTLS) through S2's one RPC
+        # port and one upload port, distinct tasks S2 already holds
+        out["s2_warm"] = await asyncio.to_thread(
+            _ask, conn, ("warm", [FLEET_TAGS["plain"], FLEET_TAGS["mtls"]]),
+            FLEET_PULL_S)
+        check("s" in out["s2_warm"], f"phase 21 S2's origin pulls: "
+                                     f"{out['s2_warm']}")
+        p = await make("p", s2_addr, secure=False)
+        t = await make("t", s2_addr)
+        runs = await asyncio.gather(pull(p, FLEET_TAGS["plain"]),
+                                    pull(t, FLEET_TAGS["mtls"]))
+        out["runs"].update(zip(("p", "t"), runs))
+        out["schemes"].update({d.hostname: d._downloader.scheme
+                               for d in (p, t)})
+        # P's pooled connection to S2's RPC port, made before the flip
+        ch = p._peer_channels.get(info["s2"]["rpc"])
+        health = ServiceClient(ch, "df.health.Health", max_attempts=1)
+        out["p_check_before"] = repr(await health.unary("Check", Empty(),
+                                                        timeout=10))
+        out["before_flip"] = (await asyncio.to_thread(
+            _ask, conn, "stats"))["mux"]
+        out["at_flip"] = await asyncio.to_thread(_ask, conn, "flip")
+        try:
+            out["p_check_after"] = repr(await health.unary(
+                "Check", Empty(), timeout=10))
+        except DFError as exc:
+            out["p_check_after"] = f"failed: {exc}"
+        out["after_check"] = (await asyncio.to_thread(
+            _ask, conn, "stats"))["mux"]
+        # a fresh plaintext leecher: refused on both planes
+        f = await make("f", s2_addr, secure=False)
+        t0 = time.monotonic()
+        box: dict = {}
+        try:
+            await asyncio.wait_for(_leecher_pull(
+                f, url, UrlMeta(tag=FLEET_TAGS["mtls"]), manifest, box,
+                timeout_s=FLEET_REFUSED_S), FLEET_REFUSED_S + 30)
+            out["fresh_plain"] = "landed"
+        except (DFError, asyncio.TimeoutError) as exc:
+            out["fresh_plain"] = f"failed: {type(exc).__name__}: {exc}"
+        c = box.get("conductor")
+        out["fresh_plain_s"] = time.monotonic() - t0
+        out["fresh_plain_p2p"] = c.traffic_p2p if c is not None else 0
+        await stop(f)
+        out["after_refused"] = (await asyncio.to_thread(
+            _ask, conn, "stats"))["mux"]
+        # a fresh mTLS leecher after the flip
+        u = await make("u", s2_addr)
+        out["runs"]["u"] = await pull(u, FLEET_TAGS["mtls"])
+        out["schemes"][u.hostname] = u._downloader.scheme
+        out["final"] = await asyncio.to_thread(_ask, conn, "stats")
+        out["enrolls"] = enrolls
+        return out
+    finally:
+        undo()
+        for d in list(started):
+            await d.stop()
+
+
+def phase_fleet(workdir: str, device: torch.device) -> None:
+    """Phase 21: fleet mTLS, a pull into the card over mutual TLS and the
+    TLS rollout on one port per plane, on phase 8's origin over HTTP."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    t_phase = time.monotonic()
+    path = os.path.join(workdir, "deploy", "model-00004-of-00004.safetensors")
+    name = os.path.basename(path)
+    layout = deploy_layout()
+    header, _ = safetensors_header(layout)
+    size = os.path.getsize(path)
+    d = os.path.join(workdir, "fleet")
+    os.makedirs(d, exist_ok=True)
+    free = shutil.disk_usage(workdir).free
+    need = 8 * size                   # one copy to spare
+    check(free >= need, f"phase 21 needs {need} bytes of free disk for the "
+                        f"seeds' and leechers' copies, {free} free")
+    manifest = manifest_from_file(path)
+    with open(path, "rb") as f:
+        f.seek(len(header))
+        ref = torch.frombuffer(bytearray(f.read()), dtype=torch.uint8).to(
+            device)
+    ctx = child_context()
+    origin_conn, o_child = ctx.Pipe()
+    f_conn, f_child = ctx.Pipe()
+    origin = ctx.Process(target=http_origin_child, name="smoke-fleet-origin",
+                         args=(path, 0, o_child))
+    origin.start()
+    fleet = None
+    try:
+        check(origin_conn.poll(120), "phase 21 origin did not start")
+        url = f"http://127.0.0.1:{origin_conn.recv()['port']}/{name}"
+        fleet = ctx.Process(target=fleet_child, name="smoke-fleet",
+                            args=(d, url, f_child))
+        fleet.start()
+        check(f_conn.poll(FLEET_WAIT_S), "phase 21 control plane did not "
+                                         "start")
+        info = f_conn.recv()
+        run = asyncio.run(_fleet_run(d, url, manifest, info, f_conn))
+        origin_t = _ask(origin_conn, "report")
+    finally:
+        for conn in (f_conn, origin_conn):
+            try:
+                conn.send("stop")
+            except OSError:
+                pass
+        for proc in (fleet, origin):
+            if proc is None:
+                continue
+            proc.join(timeout=60)
+            if proc.is_alive():
+                proc.terminate()
+                proc.join(timeout=30)
+    check(fleet.exitcode == 0, f"phase 21 control plane exited "
+                               f"{fleet.exitcode}")
+    base, shapes = len(header), dict(layout)
+    rates = {}
+    for n, r in run["runs"].items():
+        c, tensors = r["conductor"], r["out"]
+        for info_ in manifest.shards:
+            t = tensors[info_.name]
+            lo = info_.range_start - base
+            check(t.device == device and t.dtype == torch.bfloat16
+                  and list(t.shape) == shapes[info_.name]
+                  and torch.equal(t.reshape(-1).view(torch.uint8),
+                                  ref[lo:lo + info_.range_size]),
+                  f"phase 21 {n}: {info_.name} differs from phase 8's")
+        check(c.traffic_source == 0 and c.traffic_p2p == size,
+              f"phase 21 {n}: p2p {c.traffic_p2p}, source "
+              f"{c.traffic_source}")
+        check_crc32c(c.storage.md, f"phase 21 {n}")
+        rates[n] = {"wall_s": r["wall"], "gbps": size / 1e9 / r["wall"]}
+        del tensors, r["out"]
+    del ref
+    shutil.rmtree(d, ignore_errors=True)
+    # enrollment: leaves name [host_ip, hostname], keys 0600, no leaf for
+    # a wrong token
+    for host, leaf in run["leaves"].items():
+        check(leaf["sans"] == sorted(["127.0.0.1", host])
+              and leaf["key_mode"] == "0o600",
+              f"phase 21 {host}'s leaf: {leaf}")
+    check("bad issuance token" in run["wrong_token"],
+          f"phase 21: a wrong token got {run['wrong_token']}")
+    # the trigger reached S's mTLS RPC port; every piece rode mTLS
+    final = run["final"]
+    l_task = run["runs"]["l1"]["conductor"].task_id
+    s_pull = final["seeds"]["fleet-s"].get(l_task)
+    check(all(final["seed_tls"]) and not info["s"]["mux"]
+          and s_pull is not None and s_pull["state"] == "success"
+          and s_pull["source"] == size,
+          f"phase 21 S's triggered pull {s_pull}, seed clients' TLS "
+          f"{final['seed_tls']}")
+    check(all(run["schemes"][f"fleet-{n}"] == "https"
+              for n in ("l1", "l2", "t", "u"))
+          and run["schemes"]["fleet-p"] == "http",
+          f"phase 21 piece schemes {run['schemes']}")
+    ref_s = run["refusals"]
+    check(not ref_s["upload_plain"].startswith("HTTP/1.1 200")
+          and not ref_s["upload_certless"].startswith("HTTP/1.1 200")
+          and ref_s["upload_fleet"].startswith("HTTP/1.1 200")
+          and ref_s["rpc_plain"] != "answered"
+          and ref_s["rpc_certless"] != "answered"
+          and ref_s["rpc_fleet"] == "answered",
+          f"phase 21 S's planes under force: {ref_s}")
+    # the rollout: both kinds through S2's muxes, then the flip
+    before, at, after = run["before_flip"], run["at_flip"], \
+        run["after_check"]
+    check(before["plain"] >= 2 and before["tls"] >= 2
+          and before["plain_refused"] == 0,
+          f"phase 21 S2's mux before the flip: {before}")
+    check(run["p_check_after"] == run["p_check_before"] == "Empty()"
+          and after == at,
+          f"phase 21 P's established connection across the flip: "
+          f"{run['p_check_before']} -> {run['p_check_after']}, mux {at} "
+          f"-> {after}")
+    refused = run["after_refused"]
+    check(run["fresh_plain"].startswith("failed")
+          and run["fresh_plain_p2p"] == 0
+          and refused["plain_refused"] > at["plain_refused"]
+          and refused["plain"] == at["plain"],
+          f"phase 21 the fresh plaintext leecher: {run['fresh_plain']} "
+          f"({run['fresh_plain_p2p']} bytes), mux {at} -> {refused}")
+    check(origin_t["body_bytes"] == 3 * size,
+          f"phase 21 origin sent {origin_t['body_bytes']} bytes, want "
+          f"3 x {size} (S's task, S2's two)")
+    enrolls = final["enrolls"] + run["enrolls"]
+    emit("phase 21 fleet", {
+        "file_bytes": size,
+        "enroll_s": {e["who"]: e["s"] for e in enrolls},
+        "leaves": run["leaves"],
+        "wrong_token": run["wrong_token"][:80],
+        "pulls": rates, "s2_origin_pulls_s": run["s2_warm"]["s"],
+        "tls_direct_gbps": [rates["l1"]["gbps"], rates["l2"]["gbps"]],
+        "mux_plain_gbps": rates["p"]["gbps"],
+        "mux_tls_gbps": rates["t"]["gbps"],
+        "after_flip_tls_gbps": rates["u"]["gbps"],
+        "mux_before_flip": before, "mux_at_flip": at,
+        "mux_after_refused": refused, "mux_final": final["mux"],
+        "p_check_across_flip": [run["p_check_before"],
+                                run["p_check_after"]],
+        "fresh_plain": run["fresh_plain"][:160],
+        "fresh_plain_s": run["fresh_plain_s"],
+        "refusals": {k: v[:60] for k, v in ref_s.items()},
+        "origin_bytes_sent": origin_t["body_bytes"],
+        "phase_s": time.monotonic() - t_phase, "card": smi})
+
+
 def run_phases(layers: int, seed: int, device: torch.device) -> None:
-    """Phases 2-20 on ``device``; raises CheckFailed on a failed check."""
+    """Phases 2-21 on ``device``; raises CheckFailed on a failed check."""
     layout = llama_layout(layers)
     header, nbytes = safetensors_header(layout)
     workdir = tempfile.mkdtemp(prefix="chip-smoke-")
@@ -7143,13 +7702,14 @@ def run_phases(layers: int, seed: int, device: torch.device) -> None:
         # phase 20's registry and daemons
         shutil.rmtree(os.path.join(workdir, "objstore"), ignore_errors=True)
         phase_mirror(workdir, seed, device)
+        phase_fleet(workdir, device)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--layers", type=int, default=9,
+    ap.add_argument("--layers", type=int, default=3,
                     help="decoder layers of Llama-3-8B to include (32 = "
                          "the whole model)")
     ap.add_argument("--seed", type=int, default=0)

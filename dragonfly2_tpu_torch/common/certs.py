@@ -96,8 +96,8 @@ class CertIssuer:
         # host -> (ssl_ctx, not_after); insertion-ordered for LRU eviction
         self._cache: dict[str, tuple[ssl.SSLContext, datetime.datetime]] = {}
         # per-host single-flight: minting host B must not block a cache hit
-        # for host A (the SNI callback runs server_context synchronously on
-        # the event loop; a global mint lock would head-of-line block it)
+        # for host A (a global mint lock would head-of-line block every
+        # handshake behind one mint)
         self._mint_locks: dict[str, threading.Lock] = {}
 
     # client-controlled names (CONNECT targets, raw SNI bytes) feed the
@@ -127,6 +127,23 @@ class CertIssuer:
         return (self.sign_public_key(key.public_pem(), [host]), key.pem,
                 not_after)
 
+    def _lookup(self, host: str, now: datetime.datetime
+                ) -> ssl.SSLContext | None:
+        """A live cached context, LRU-touched; call under ``_lock``."""
+        hit = self._cache.get(host)
+        if hit is None or now >= hit[1]:
+            return None
+        self._cache[host] = self._cache.pop(host)
+        return hit[0]
+
+    def cached_context(self, host: str) -> ssl.SSLContext | None:
+        """The cached leaf context for ``host``, or None on a miss: mints
+        nothing, so an event loop may ask before it sends a miss to a
+        worker thread."""
+        now = datetime.datetime.now(datetime.timezone.utc)
+        with self._lock:
+            return self._lookup(host, now)
+
     def server_context(self, host: str) -> ssl.SSLContext:
         """TLS server context presenting a CA-signed leaf for ``host``.
 
@@ -141,10 +158,9 @@ class CertIssuer:
             raise ValueError(f"not a host name: {host!r}")
         now = datetime.datetime.now(datetime.timezone.utc)
         with self._lock:
-            hit = self._cache.get(host)
-            if hit is not None and now < hit[1]:
-                self._cache[host] = self._cache.pop(host)   # LRU touch
-                return hit[0]
+            hit = self._lookup(host, now)
+            if hit is not None:
+                return hit
             mint_lock = self._mint_locks.setdefault(host, threading.Lock())
         with mint_lock:
             # double-check: the racer that held the mint lock first filled it

@@ -64,6 +64,13 @@ def generate_private_key() -> PrivateKey:
     return PrivateKey(_run(["pkcs8", "-topk8", "-nocrypt"], raw))
 
 
+def load_public_key(pem: bytes) -> bytes:
+    """A public key PEM from a peer, normalized to SubjectPublicKeyInfo
+    PEM: a malformed one fails here, before it is signed into a
+    certificate."""
+    return _run(["pkey", "-pubin", "-pubout"], pem)
+
+
 def load_private_key(pem: bytes) -> PrivateKey:
     """Any unencrypted private key PEM (PKCS#8 or traditional), normalized
     to PKCS#8: a malformed one fails here, not at signing."""

@@ -184,7 +184,8 @@ async def serve_connection(reader, writer, route) -> None:
                 await send_error(writer, exc, keep=keep)
             if not keep:
                 return
-    except (ConnectionError, ValueError, asyncio.IncompleteReadError) as exc:
+    except (OSError, ValueError, asyncio.IncompleteReadError) as exc:
+        # OSError: resets, and the TLS errors of an mTLS data plane
         log.debug("http connection dropped: %s", exc)
     finally:
         writer.close()

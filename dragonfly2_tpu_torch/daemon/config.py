@@ -5,14 +5,15 @@ reference, with the reference's default, so a reference daemon's file
 loads, plus ``device``: where the device sink lands bytes. ``KEY_CLASSES``
 below puts each key in one class (``common/config.py``): wired, inert as
 in the reference, or unported. ``DaemonConfig.unported()`` names the
-unported keys a file sets; the daemon refuses to start with any.
+unported keys a file sets; the daemon refuses to start with any. Since the
+fleet mTLS keys (``security.*``) were wired, no daemon key is unported.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 
-from ..common.config import INERT, WIRED, unported, unported_set
+from ..common.config import INERT, WIRED, unported_set
 from ..common.unit import MiB
 from .qos import QosSection
 
@@ -165,13 +166,25 @@ class StorageSection:
 
 @dataclass
 class SecurityConfig:
-    """Fleet mTLS with manager-issued certificates: unported (item 6)."""
+    """Fleet mTLS with manager-issued certificates (reference
+    ``pkg/issuer`` and the certify auto-issuance of
+    ``client/daemon/daemon.go:367-458``). With ``enabled`` both peer
+    planes are mutual TLS: the RPC port and the HTTPS piece-upload port,
+    each requiring a fleet client certificate. The renewal loop refreshes
+    the issued material at 2/3 of its validity: outbound channels and
+    sessions take it as they rotate; listeners load their certificate at
+    bind time and need a restart within the validity window (7 days by
+    default) to serve the fresh leaf."""
 
     enabled: bool = False
-    issue_token: str = ""
-    issue_token_path: str = ""
-    ca_cert: str = ""
+    issue_token: str = ""             # the manager's issuer.token
+    issue_token_path: str = ""        # or a file that holds it
+    ca_cert: str = ""                 # the fleet CA (the manager's CA file)
     cert_validity_s: int = 7 * 24 * 3600
+    # the TLS rollout policy of both peer planes (rpc/mux.py): "force" is
+    # TLS only; "default" and "prefer" accept plaintext and TLS on each
+    # port, so a live fleet upgrades without a flag day ("prefer" flags
+    # plaintext peers in the log and the metric)
     tls_policy: str = "force"
 
     def validate(self) -> None:
@@ -259,8 +272,9 @@ class DaemonConfig:
 # The class of every key (common/config.py). Inert: a grep of
 # dragonfly2_tpu/ finds no reader of scheduler.max_reschedule,
 # download.per_peer_rate_limit_bps, download.first_piece_timeout_s or
-# metrics_port outside its config module. Unported, by ROADMAP Queue 1
-# item: fleet mTLS (6). ``device`` is the port's own.
+# metrics_port outside its config module. No key is unported: the
+# ``unported`` class and its refusal stay for keys a later reference
+# change adds. ``device`` is the port's own.
 KEY_CLASSES: dict[str, str] = {
     "workdir": WIRED,
     "host_ip": WIRED,
@@ -328,12 +342,12 @@ KEY_CLASSES: dict[str, str] = {
     "pex.pod_scope": WIRED,
     "pex.pod_seed": WIRED,
     "pex.federation_peers": WIRED,
-    "security.enabled": unported("6"),
-    "security.issue_token": unported("6"),
-    "security.issue_token_path": unported("6"),
-    "security.ca_cert": unported("6"),
-    "security.cert_validity_s": unported("6"),
-    "security.tls_policy": unported("6"),
+    "security.enabled": WIRED,
+    "security.issue_token": WIRED,
+    "security.issue_token_path": WIRED,
+    "security.ca_cert": WIRED,
+    "security.cert_validity_s": WIRED,
+    "security.tls_policy": WIRED,
     "proxy.enabled": WIRED,
     "proxy.port": WIRED,
     "proxy.registry_mirror": WIRED,

@@ -48,9 +48,18 @@ pulls. With ``object_storage.enabled`` the object gateway
 checked there) and serves from start, before the manager attach, so a
 seed's registration carries its port. With ``proxy.enabled`` the HTTP(S)
 proxy and registry mirror (``proxy.py``) starts after the local API, as
-in the reference, and stops after the task manager's shutdown. A config
-that sets a key whose subsystem is not ported (fleet TLS) is refused at
-construction, by name.
+in the reference, and stops after the task manager's shutdown. With
+``security.enabled`` (fleet mTLS) the daemon first enrolls with the
+manager (``rpc/security.py``: a local key pair, its public half signed by
+the manager's ``IssueCertificate``), then serves both peer planes with
+the issued leaf and requires fleet client certificates on each: the RPC
+port and the upload port, through the TLS/plaintext mux while
+``security.tls_policy`` is not ``force``. Its peer channels, piece
+downloader and PEX gossip present the leaf; a renewal task re-enrolls at
+2/3 of the validity (outbound material rotates, listeners keep the leaf
+they bound). As in the reference, the manager link and the scheduler
+session stay plaintext. A config that sets a key whose subsystem is not
+ported is refused at construction, by name.
 """
 
 from __future__ import annotations
@@ -76,7 +85,8 @@ from ..idl.messages import (DeviceSink, GetSchedulersRequest, Host, HostType,
                             RegisterSeedPeerRequest)
 from ..rpc.client import ChannelPool
 from ..rpc.manager_link import ManagerLink
-from ..rpc.server import RPCServer
+from ..rpc.security import obtain_certificate
+from ..rpc.server import RPCServer, TLSOptions
 from ..storage.io_executor import run_io
 from ..storage.manager import StorageConfig, StorageManager
 from ..tpu import topology
@@ -204,6 +214,12 @@ class Daemon:
             ObjectGateway(self, cfg.object_storage)
             if cfg.object_storage.enabled else None)
         self.proxy_server: ProxyServer | None = None
+        # fleet mTLS: the issued material, set by _enroll_security
+        self.fleet_ca = ""
+        self._peer_tls_ca = ""
+        self._peer_tls_cert = ""
+        self._peer_tls_key = ""
+        self._cert_renewal: asyncio.Task | None = None
 
     def host_info(self) -> Host:
         return Host(
@@ -270,6 +286,55 @@ class Daemon:
                            if self.pex is not None else None),
             schedule_timeout_s=self.cfg.scheduler.schedule_timeout_s)
 
+    def _issue_token(self) -> str:
+        sec = self.cfg.security
+        if sec.issue_token or not sec.issue_token_path:
+            return sec.issue_token
+        with open(sec.issue_token_path, encoding="utf-8") as f:
+            return f.read().strip()
+
+    async def _obtain_certificate(self) -> tuple[str, str, str]:
+        sec = self.cfg.security
+        return await obtain_certificate(
+            self.cfg.manager_addresses, hosts=[self.host_ip, self.hostname],
+            token=await asyncio.to_thread(self._issue_token),
+            out_dir=os.path.join(self.paths.cache_dir, "tls"),
+            validity_s=sec.cert_validity_s, tls_ca=sec.ca_cert)
+
+    async def _enroll_security(self) -> TLSOptions:
+        """Enroll with the manager and keep the issued material: peer
+        channels verify the fleet CA and present the leaf; the RPC
+        server requires client certificates, the mutual half of mTLS."""
+        if not self.cfg.security.ca_cert:
+            log.warning(
+                "security: enrolling over a channel with NO pinned fleet "
+                "CA: the issuance token travels unprotected and the CA is "
+                "trust-on-first-use; set security.ca_cert (and a TLS "
+                "manager port) for untrusted networks")
+        cert, key, ca = await self._obtain_certificate()
+        self.fleet_ca = self.cfg.security.ca_cert or ca
+        self._peer_tls_ca = self.fleet_ca
+        self._peer_tls_cert = cert
+        self._peer_tls_key = key
+        self._cert_renewal = asyncio.get_running_loop().create_task(
+            self._renew_certs_loop())
+        return TLSOptions(cert, key, ca_path=self.fleet_ca,
+                          require_client_cert=True)
+
+    async def _renew_certs_loop(self) -> None:
+        """Re-enroll at 2/3 of the validity, at least a minute apart
+        (reference: certify re-issues on demand). The files are rewritten
+        in place: outbound material rotates as connections open, and
+        listeners keep the leaf they bound."""
+        sec = self.cfg.security
+        while True:
+            await asyncio.sleep(max(sec.cert_validity_s * 2 / 3, 60))
+            try:
+                await self._obtain_certificate()
+                log.info("fleet certificate renewed")
+            except Exception as exc:  # noqa: BLE001 - retry next cycle
+                log.error("fleet certificate renewal failed: %s", exc)
+
     def _connector(self, addresses: list[str]) -> SchedulerConnector:
         sc = self.cfg.scheduler
         return SchedulerConnector(
@@ -319,10 +384,25 @@ class Daemon:
                 jsonl_path=tr.jsonl_path or os.path.join(
                     self.paths.log_dir, "traces.jsonl"),
                 otlp_endpoint=tr.otlp_endpoint, sample_ratio=tr.sample_ratio)
+        # fleet mTLS enrollment first: the upload server, the peer
+        # channels, the downloader, PEX and the RPC server take its leaf
+        rpc_tls = None
+        tls_triple = None
+        if self.cfg.security.enabled:
+            rpc_tls = await self._enroll_security()
+            tls_triple = (self._peer_tls_cert, self._peer_tls_key,
+                          self._peer_tls_ca)
+            # the rollout policy covers both planes, and must be set
+            # before start() decides whether to front a mux
+            self.upload_server.tls = tls_triple
+            self.upload_server.tls_policy = self.cfg.security.tls_policy
         self.upload_server.host_id = f"{self.hostname}-{self.host_ip}"
         await self.upload_server.start()
-        self._peer_channels = ChannelPool()
-        self._downloader = PieceDownloader(timeout_s=dl.piece_timeout_s)
+        self._peer_channels = ChannelPool(
+            tls_ca=self._peer_tls_ca, tls_cert=self._peer_tls_cert,
+            tls_key=self._peer_tls_key)
+        self._downloader = PieceDownloader(timeout_s=dl.piece_timeout_s,
+                                           tls=tls_triple)
         self.shaper.start()
         self.ptm = PeerTaskManager(
             storage_mgr=self.storage_mgr, piece_mgr=self.piece_mgr,
@@ -335,12 +415,16 @@ class Daemon:
             shaper=self.shaper, qos=self.qos)
         if self.pex is not None:
             # the pex rung builds a fresh engine per pull (the scheduler
-            # path may have used the conductor's)
+            # path may have used the conductor's); gossip presents the
+            # fleet client leaf under mTLS
             self.pex.engine_factory = self._engine
+            self.pex.tls = tls_triple
         svc = DaemonService(
             self.ptm, upload_addr=f"{self.host_ip}:{self.upload_server.port}")
         # peer-facing TCP server: bind the listen address, advertise host_ip
-        self.rpc = RPCServer(f"{self.cfg.listen_ip}:{self.cfg.rpc_port}")
+        self.rpc = RPCServer(f"{self.cfg.listen_ip}:{self.cfg.rpc_port}",
+                             tls=rpc_tls,
+                             tls_policy=self.cfg.security.tls_policy)
         for sdef in build_service(svc):
             self.rpc.register(sdef)
         await self.rpc.start()
@@ -501,6 +585,10 @@ class Daemon:
             log.debug("demotion persist failed: %s", exc)
 
     async def stop(self) -> None:
+        if self._cert_renewal is not None:
+            self._cert_renewal.cancel()
+            await asyncio.gather(self._cert_renewal, return_exceptions=True)
+            self._cert_renewal = None
         if self.cfg.tracing.enabled:
             tracing.TRACER.flush()
         await self.shaper.stop()

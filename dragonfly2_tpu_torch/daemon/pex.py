@@ -34,8 +34,9 @@ go through the port's standard-library HTTP/1.1 client
 (``add_pex_routes``). The daemon's verdict ledger (``verdicts``,
 ``verdicts.py``) drops shunned holders, puts its local shuns in digests as
 ``suspects`` (receivers only deprioritize them) and empties a
-self-quarantined daemon's digests; fleet mTLS (item 6) is not ported, so
-gossip is plain HTTP.
+self-quarantined daemon's digests. Under fleet mTLS (``tls``: cert, key
+and the fleet CA, set by the daemon before ``start``) digest and summary
+exchanges ride https with the daemon's leaf as the client certificate.
 """
 
 from __future__ import annotations
@@ -179,8 +180,10 @@ class _GossipClient:
     TIMEOUT_S = 5.0
     LIMIT = 16
 
-    def __init__(self) -> None:
+    def __init__(self, tls: tuple[str, str, str] | None = None) -> None:
         self._http = HTTPSourceClient()
+        if tls is not None:
+            self._http.set_client_cert(*tls)
         self._sem: asyncio.Semaphore | None = None
 
     async def post(self, url: str, payload: bytes) -> tuple[int, bytes]:
@@ -263,6 +266,8 @@ class PexGossiper:
         self._bootstrap = list(bootstrap or [])
         self._task: asyncio.Task | None = None
         self._http: _GossipClient | None = None    # lazy
+        # fleet mTLS: (cert, key, ca) presented on every exchange
+        self.tls: tuple[str, str, str] | None = None
         self.rounds = 0
 
     # -- membership ----------------------------------------------------
@@ -586,8 +591,12 @@ class PexGossiper:
 
     def _client(self) -> _GossipClient:
         if self._http is None:
-            self._http = _GossipClient()
+            self._http = _GossipClient(self.tls)
         return self._http
+
+    @property
+    def _scheme(self) -> str:
+        return "https" if self.tls is not None else "http"
 
     async def _push_pull(self, url: str, payload: bytes) -> bytes:
         """One push-pull exchange; the reply body (the peer's own
@@ -630,7 +639,7 @@ class PexGossiper:
                 if faultgate.ARMED:
                     payload = faultgate.corrupt("pex.gossip", payload,
                                                 key=peer.addr)
-                url = f"http://{peer.addr}/pex/digest"
+                url = f"{self._scheme}://{peer.addr}/pex/digest"
                 reply = await self._push_pull(url, payload)
                 # anti-entropy pull: the reply is the peer's digest
                 self.ingest(reply, transport="pull")
@@ -694,7 +703,7 @@ class PexGossiper:
                 if faultgate.ARMED:
                     payload = faultgate.corrupt("pex.gossip", payload,
                                                 key=addr)
-                url = f"http://{addr}/pex/summary"
+                url = f"{self._scheme}://{addr}/pex/summary"
                 self.ingest(await self._push_pull(url, payload),
                             transport="summary")
                 exchanged += 1

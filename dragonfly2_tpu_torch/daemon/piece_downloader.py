@@ -26,6 +26,13 @@ Failures carry the reference's codes and typed verdicts: 503 is
 ``Content-Length`` or a reset mid-body is ``CLIENT_PIECE_DOWNLOAD_FAIL``
 ("stall"); the per-piece deadline is ``CLIENT_PIECE_DOWNLOAD_FAIL``
 ("timeout"); a refused connection is "refused".
+
+Under fleet mTLS (``tls``: cert, key and the fleet CA) the GETs ride
+https with the daemon's leaf as the client certificate (the reference's
+``check_hostname=False`` and ``CERT_REQUIRED``: peers are dialed by IP,
+and the fleet CA's signature is the authentication). asyncio's TLS
+transport feeds the same buffered protocol, so the decrypted body still
+lands straight in the caller's buffer.
 """
 
 from __future__ import annotations
@@ -39,6 +46,7 @@ from ..common import faultgate, tracing
 from ..common.bufpool import POOL
 from ..common.errors import Code, DFError
 from ..idl.messages import PieceInfo
+from ..source.http_client import fleet_client_context
 
 log = logging.getLogger("df.flow.piecedl")
 
@@ -69,7 +77,7 @@ class _Conn(asyncio.BufferedProtocol):
         self.used = False                # carried a response before
         self._scratch = bytearray(64 << 10)
         self._head = bytearray()
-        self._state = "idle"             # idle | head | body
+        self._state = "idle"             # idle | head | body | dropped
         self._fut: asyncio.Future | None = None
         self._dst: memoryview | None = None
         self._want = 0                   # expected 2xx body size
@@ -92,6 +100,8 @@ class _Conn(asyncio.BufferedProtocol):
 
     def buffer_updated(self, nbytes: int) -> None:
         self._got_bytes = True
+        if self._state == "dropped":
+            return      # an abandoned response's bytes; the close is due
         if self._state == "body":
             self._off += nbytes
             if self._progress is not None:
@@ -196,7 +206,11 @@ class _Conn(asyncio.BufferedProtocol):
 
     def release_dst(self) -> None:
         """Drop every view of the caller's buffer (the pool's reuse
-        check refuses a buffer that is still exported)."""
+        check refuses a buffer that is still exported). A response cut
+        short leaves its later bytes nowhere to land: a TLS transport
+        closes after it has delivered what it already decrypted."""
+        if self._state == "body":
+            self._state = "dropped"
         self._dst = None
         self._body = None
         self._progress = None
@@ -212,11 +226,21 @@ class _Conn(asyncio.BufferedProtocol):
 
 
 class PieceDownloader:
-    def __init__(self, *, timeout_s: float = 30.0, max_connections: int = 64):
+    def __init__(self, *, timeout_s: float = 30.0, max_connections: int = 64,
+                 tls: tuple[str, str, str] | None = None):
+        """``tls``: (cert, key, ca), the fleet mTLS material; piece GETs
+        then ride https presenting the client leaf."""
         self.timeout_s = timeout_s
         self.max_connections = max_connections
+        self.tls = tls
+        self._ssl = (fleet_client_context(*tls) if tls is not None
+                     else None)
         self._idle: dict[str, list[_Conn]] = {}
         self._slots = asyncio.Semaphore(max_connections)
+
+    @property
+    def scheme(self) -> str:
+        return "https" if self.tls is not None else "http"
 
     async def close(self) -> None:
         for conns in self._idle.values():
@@ -227,7 +251,7 @@ class PieceDownloader:
     async def _connect(self, addr: str) -> _Conn:
         host, _, port = addr.rpartition(":")
         _, conn = await asyncio.get_running_loop().create_connection(
-            _Conn, host.strip("[]"), int(port))
+            _Conn, host.strip("[]"), int(port), ssl=self._ssl)
         return conn
 
     async def _fetch(self, addr: str, path: str, headers: dict,

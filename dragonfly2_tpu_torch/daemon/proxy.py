@@ -24,16 +24,26 @@ close the connection after one response.
 
 The port's differences: the CA lives in the daemon's resolved workdir
 (``Daemon.paths``); ``stop`` closes the connections still open, so a
-client holding one idle cannot hold the daemon's stop; and a CONNECT host
-or SNI name that is not an IP literal or a DNS name gets no leaf (the
-CONNECT is answered 400, the handshake refused).
+client holding one idle cannot hold the daemon's stop; a CONNECT host or
+SNI name that is not an IP literal or a DNS name gets no leaf (the
+CONNECT is answered 400, the handshake refused); and no leaf is minted
+on the event loop. The reference mints a first-seen SNI name inside the
+``ssl`` module's synchronous SNI callback. The port's SNI listener
+accepts plain sockets, peeks at the ClientHello (``MSG_PEEK``: no byte
+is consumed) for its ``server_name``, mints a name it has not cached on
+a bounded executor of its own (a flood of fresh names queues there), and
+only then hands the socket to asyncio's TLS with that name's leaf, so the
+client's first handshake still gets it.
 """
 
 from __future__ import annotations
 
 import asyncio
+import concurrent.futures
+import functools
 import logging
 import re
+import socket
 import ssl
 from urllib.parse import urlsplit
 
@@ -55,7 +65,78 @@ _proxy_bytes = REGISTRY.counter("df_proxy_bytes_total",
 BLOB_RE = re.compile(r"/blobs/sha256:[0-9a-f]{64}$")
 
 DIRECT_TIMEOUT_S = 300.0        # a relayed request's total, as aiohttp's
+# the SNI listener: a ClientHello is one TLS record at most this long,
+# and must be whole within the deadline (the mux's first-byte deadline)
+HELLO_LIMIT = 16384 + 5
+HELLO_S = 30.0
+SNI_MINT_WORKERS = 4
 _HOP_BY_HOP = ("proxy-connection", "connection", "host", "content-length")
+
+
+async def _peek_hello(loop: asyncio.AbstractEventLoop,
+                      sock: socket.socket) -> bytes:
+    """The client's first TLS record, read with ``MSG_PEEK`` (it stays in
+    the socket for the handshake), once whole or ``HELLO_LIMIT`` long;
+    fewer bytes when the connection does not start with a handshake
+    record. EOF first is a ConnectionResetError."""
+    pause = 0.001
+    while True:
+        ready = loop.create_future()
+        loop.add_reader(sock.fileno(),
+                        lambda: ready.done() or ready.set_result(None))
+        try:
+            await ready
+        finally:
+            loop.remove_reader(sock.fileno())
+        try:
+            data = sock.recv(HELLO_LIMIT, socket.MSG_PEEK)
+        except BlockingIOError:
+            continue
+        if not data:
+            raise ConnectionResetError("closed before its ClientHello")
+        if data[0] != 0x16:
+            return data
+        if len(data) >= 5:
+            need = 5 + int.from_bytes(data[3:5], "big")
+            if len(data) >= min(need, HELLO_LIMIT):
+                return data
+        # part of the record is in: the socket stays readable, so wait a
+        # little before peeking again instead of spinning
+        await asyncio.sleep(pause)
+        pause = min(pause * 2, 0.05)
+
+
+def client_hello_sni(data: bytes) -> str | None:
+    """The ``server_name`` (host_name) of a ClientHello record, or None
+    when the record carries none or cannot be read as one."""
+    if len(data) < 9 or data[0] != 0x16 or data[5] != 0x01:
+        return None
+    end = min(len(data), 5 + int.from_bytes(data[3:5], "big"))
+    i = 9 + 2 + 32                     # handshake header, version, random
+    try:
+        i += 1 + data[i]               # session id
+        i += 2 + int.from_bytes(data[i:i + 2], "big")   # cipher suites
+        i += 1 + data[i]               # compression methods
+        ext_end = min(end, i + 2 + int.from_bytes(data[i:i + 2], "big"))
+        i += 2
+        while i + 4 <= ext_end:
+            etype = int.from_bytes(data[i:i + 2], "big")
+            elen = int.from_bytes(data[i + 2:i + 4], "big")
+            i += 4
+            if etype == 0:             # server_name
+                j, stop = i + 2, min(ext_end, i + elen)
+                while j + 3 <= stop:
+                    kind = data[j]
+                    nlen = int.from_bytes(data[j + 1:j + 3], "big")
+                    j += 3
+                    if kind == 0 and j + nlen <= stop:
+                        return data[j:j + nlen].decode("ascii")
+                    j += nlen
+                return None
+            i += elen
+    except (IndexError, UnicodeDecodeError):
+        return None
+    return None
 
 
 class ProxyServer:
@@ -68,7 +149,11 @@ class ProxyServer:
         self.port = cfg.port
         self.sni_port = cfg.sni_port
         self._server: asyncio.Server | None = None
-        self._sni_server: asyncio.Server | None = None
+        self._sni_sock: socket.socket | None = None
+        self._sni_accept: asyncio.Task | None = None
+        self._sni_pending: set[asyncio.Task] = set()
+        self._sni_base: ssl.SSLContext | None = None
+        self._mint_pool: concurrent.futures.ThreadPoolExecutor | None = None
         self._client: HTTPSourceClient | None = None
         self._writers: set[asyncio.StreamWriter] = set()
         self._issuer = None
@@ -101,25 +186,39 @@ class ProxyServer:
         self._client.set_tls(insecure=not self.cfg.verify_upstream,
                              ca_file=self.daemon.cfg.download.source_ca)
         if self.sni_port:
-            self._sni_server = await asyncio.start_server(
-                self._handle_sni_conn, self.daemon.cfg.listen_ip,
-                max(self.sni_port, 0), ssl=self._sni_ssl_context(),
+            self._mint_pool = concurrent.futures.ThreadPoolExecutor(
+                SNI_MINT_WORKERS, thread_name_prefix="df-sni-mint")
+            self._sni_base = await asyncio.get_running_loop(
+            ).run_in_executor(self._mint_pool, self._sni_ssl_context)
+            self._sni_sock = socket.create_server(
+                (self.daemon.cfg.listen_ip, max(self.sni_port, 0)),
                 backlog=self.BACKLOG)
-            self.sni_port = self._sni_server.sockets[0].getsockname()[1]
+            self._sni_sock.setblocking(False)
+            self.sni_port = self._sni_sock.getsockname()[1]
+            self._sni_accept = asyncio.get_running_loop().create_task(
+                self._sni_accept_loop(self._sni_sock))
             log.info("SNI proxy on :%d", self.sni_port)
         log.info("proxy on :%d (mirror=%s, %d p2p rules, hijack=%s)",
                  self.port, self.cfg.registry_mirror or "-", len(self.rules),
                  self.cfg.hijack)
 
     async def stop(self) -> None:
-        for srv in (self._server, self._sni_server):
-            if srv is not None:
-                srv.close()
+        if self._server is not None:
+            self._server.close()
+        tasks = list(self._sni_pending)
+        if self._sni_accept is not None:
+            tasks.append(self._sni_accept)
+        for t in tasks:
+            t.cancel()
+        await asyncio.gather(*tasks, return_exceptions=True)
+        if self._sni_sock is not None:
+            self._sni_sock.close()
         for writer in list(self._writers):
             writer.close()
-        for srv in (self._server, self._sni_server):
-            if srv is not None:
-                await srv.wait_closed()
+        if self._server is not None:
+            await self._server.wait_closed()
+        if self._mint_pool is not None:
+            self._mint_pool.shutdown(wait=False, cancel_futures=True)
         if self._client is not None:
             await self._client.close()
 
@@ -140,14 +239,59 @@ class ProxyServer:
         await self._serve_conn(reader, writer, scheme="http")
 
     async def _handle_sni_conn(self, reader: asyncio.StreamReader,
-                               writer: asyncio.StreamWriter) -> None:
+                               writer: asyncio.StreamWriter, *,
+                               authority: str = "") -> None:
         """TLS connections from clients that resolved the registry's name
         to this daemon (reference ``proxy_sni.go``): asyncio completed the
-        handshake with an SNI-minted leaf; inner requests are origin-form
-        with a Host header and route exactly like hijacked CONNECTs."""
-        sslobj = writer.get_extra_info("ssl_object")
-        sni = getattr(sslobj, "_df_sni", "") if sslobj else ""
-        await self._serve_conn(reader, writer, scheme="https", authority=sni)
+        handshake with the leaf of the client's SNI name (``authority``,
+        the routing fallback of a request without a Host); inner requests
+        are origin-form with a Host header and route exactly like
+        hijacked CONNECTs."""
+        await self._serve_conn(reader, writer, scheme="https",
+                               authority=authority)
+
+    async def _sni_accept_loop(self, lsock: socket.socket) -> None:
+        loop = asyncio.get_running_loop()
+        while True:
+            try:
+                sock, _ = await loop.sock_accept(lsock)
+            except OSError as exc:
+                log.debug("SNI accept failed: %s", exc)
+                await asyncio.sleep(0.05)
+                continue
+            sock.setblocking(False)
+            task = loop.create_task(self._sni_handoff(sock))
+            self._sni_pending.add(task)
+            task.add_done_callback(self._sni_pending.discard)
+
+    async def _sni_handoff(self, sock: socket.socket) -> None:
+        """Peek at the ClientHello's server name, mint its leaf off the
+        loop when it is not cached, then start TLS on the socket with
+        that leaf. A hello without a name gets the base context; a name
+        that is no host name gets the base context too, whose callback
+        refuses it (``unrecognized_name``) before anything is minted."""
+        loop = asyncio.get_running_loop()
+        try:
+            hello = await asyncio.wait_for(_peek_hello(loop, sock), HELLO_S)
+            name = client_hello_sni(hello)
+            ctx = self._sni_base
+            if name and valid_host(name):
+                ctx = self._issuer.cached_context(name)
+                if ctx is None:
+                    ctx = await loop.run_in_executor(
+                        self._mint_pool, self._issuer.server_context, name)
+            else:
+                name = ""
+            proto = asyncio.StreamReaderProtocol(
+                asyncio.StreamReader(),
+                functools.partial(self._handle_sni_conn, authority=name))
+            await loop.connect_accepted_socket(lambda: proto, sock, ssl=ctx)
+        except asyncio.CancelledError:
+            sock.close()
+            raise
+        except Exception as exc:  # noqa: BLE001 - one client's handshake
+            log.debug("SNI handshake failed: %s", exc)
+            sock.close()
 
     async def _serve_conn(self, reader: asyncio.StreamReader,
                           writer: asyncio.StreamWriter, *, scheme: str,
@@ -171,23 +315,22 @@ class ProxyServer:
                 pass
 
     def _sni_ssl_context(self) -> ssl.SSLContext:
-        """Base server context whose SNI callback swaps in a leaf minted
-        for whatever name the client asked for (reference
-        ``proxy_sni.go``'s GetCertificate)."""
+        """The base server context (minted off the loop at start): it
+        serves a hello without a server name. Its SNI callback swaps in a
+        cached leaf and refuses any name it would have to mint (the
+        handoff mints before the handshake, so only a hello the peek
+        could not read gets there) or that is no host name."""
         assert self._issuer is not None
         issuer = self._issuer
         base = issuer.server_context(self.daemon.cfg.host_ip or "localhost")
 
         def on_sni(sslobj, servername, _ctx):
-            # synchronous by the ssl module's contract: a first-seen name
-            # mints on the event loop (openssl processes, tens of ms);
-            # cached 24 h after. A name that is no host name is refused
-            # before anything is minted for it.
             if servername:
-                if not valid_host(servername):
+                ctx = (issuer.cached_context(servername)
+                       if valid_host(servername) else None)
+                if ctx is None:
                     return ssl.ALERT_DESCRIPTION_UNRECOGNIZED_NAME
-                sslobj.context = issuer.server_context(servername)
-                sslobj._df_sni = servername   # routing fallback (no Host)
+                sslobj.context = ctx
             return None
 
         base.sni_callback = on_sni

@@ -44,12 +44,22 @@ connection loop are ``common/httpd.py``'s. Routed requests take no slot
 of the piece gate, so a gossip exchange never waits behind piece serves.
 A piece request carrying a ``traceparent`` header is served inside an
 ``upload.serve`` span of that trace.
+
+Under fleet mTLS (``tls``: cert, key and the fleet CA, set by the daemon
+before ``start``) the data plane serves the issued leaf and requires a
+client certificate from the fleet CA; a ``tls_policy`` other than
+``force`` serves plaintext and mTLS on the one port through
+``rpc/mux.py``'s front (``.mux.policy`` flips at runtime), as the
+reference does. Over TLS a range goes out in 4 MiB reads from storage
+(``loop.sendfile``'s fallback would read 16 KiB at a time, each read a
+thread hop).
 """
 
 from __future__ import annotations
 
 import asyncio
 import logging
+import ssl
 import time
 from collections import Counter, deque
 from urllib.parse import parse_qs, urlsplit
@@ -61,6 +71,7 @@ from ..common.httpd import head as _head
 from ..common.metrics import REGISTRY
 from ..common.piece import parse_http_range
 from ..common.rate import TokenBucket
+from ..rpc.mux import MuxListener
 from ..storage.io_executor import run_io
 from ..storage.manager import StorageManager
 
@@ -142,6 +153,8 @@ class UploadServer:
     # most bytes moved per streaming-relay write: bounds the on-loop copy
     # from a live span's buffer and keeps the limiter granular
     RELAY_CHUNK = 1 << 20
+    # most bytes read and written per step of a serve over TLS
+    TLS_CHUNK = 4 << 20
 
     def __init__(self, storage_mgr: StorageManager, *, port: int = 0,
                  rate_limit_bps: int = 0, concurrent_limit: int = 0,
@@ -193,6 +206,9 @@ class UploadServer:
             faultgate.add_fault_routes(self.router)
         self.host = host
         self.port = port
+        self.tls: tuple[str, str, str] | None = None   # (cert, key, ca)
+        self.tls_policy = "force"      # rpc/mux.py POLICIES
+        self.mux = None                # MuxListener while rolling out
         self.limiter = TokenBucket(rate_limit_bps or 0)
         self.concurrent_limit = (concurrent_limit
                                  or self.DEFAULT_CONCURRENT_LIMIT)
@@ -206,7 +222,7 @@ class UploadServer:
         self._transfer_ms_at = 0.0
         self._slot_waiters: deque = deque()
         self._bulk_waiters: deque = deque()   # bulk queues behind all others
-        self._server: asyncio.base_events.Server | None = None
+        self._servers: list[asyncio.base_events.Server] = []
         self._conns: set[asyncio.Task] = set()
 
     def _pass_on_slot(self) -> None:
@@ -237,21 +253,59 @@ class UploadServer:
         self._active_cls[cls] = max(0, self._active_cls.get(cls, 0) + delta)
         _qos_upload_active.labels(cls).set(self._active_cls[cls])
 
+    def _ssl_context(self) -> ssl.SSLContext:
+        """The data plane's mTLS: the issued leaf, and a client
+        certificate from the fleet CA required, or the fleet's mTLS would
+        protect metadata while every piece crossed the wire in clear."""
+        cert, key, ca = self.tls
+        ctx = ssl.SSLContext(ssl.PROTOCOL_TLS_SERVER)
+        ctx.load_cert_chain(cert, key)
+        ctx.load_verify_locations(cafile=ca)
+        ctx.verify_mode = ssl.CERT_REQUIRED
+        return ctx
+
     async def start(self) -> None:
-        self._server = await asyncio.start_server(
-            self._on_conn, self.host, self.port, limit=httpd.HEAD_LIMIT)
-        self.port = self._server.sockets[0].getsockname()[1]
+        ctx = self._ssl_context() if self.tls is not None else None
+        if ctx is not None and self.tls_policy != "force":
+            # the TLS rollout on the data plane too (rpc/mux.py): one
+            # public port serves plaintext and mTLS through the peeking
+            # front over unix-socket backends
+            plain_sock, tls_sock = MuxListener.backend_sockets()
+            self._servers.append(await asyncio.start_unix_server(
+                self._on_conn, path=plain_sock, limit=httpd.HEAD_LIMIT))
+            self._servers.append(await asyncio.start_unix_server(
+                self._on_conn, path=tls_sock, limit=httpd.HEAD_LIMIT,
+                ssl=ctx))
+            self.mux = MuxListener(self.host, self.port,
+                                   plain_sock=plain_sock, tls_sock=tls_sock,
+                                   policy=self.tls_policy)
+            await self.mux.start()
+            self.port = self.mux.port
+        else:
+            srv = await asyncio.start_server(
+                self._on_conn, self.host, self.port, limit=httpd.HEAD_LIMIT,
+                ssl=ctx)
+            self._servers.append(srv)
+            self.port = srv.sockets[0].getsockname()[1]
         log.info("upload server on %s:%d", self.host, self.port)
+        if self.tls is not None:
+            log.info("upload server mTLS (policy=%s)", self.tls_policy)
 
     async def stop(self) -> None:
-        if self._server is None:
+        if not self._servers:
             return
-        self._server.close()
+        if self.mux is not None:
+            await self.mux.stop()
+        for srv in self._servers:
+            srv.close()
         for t in list(self._conns):
             t.cancel()
         await asyncio.gather(*self._conns, return_exceptions=True)
-        await self._server.wait_closed()
-        self._server = None
+        for srv in self._servers:
+            await srv.wait_closed()
+        self._servers = []
+        if self.mux is not None:
+            self.mux.cleanup_backend_files()
 
     # ------------------------------------------------------------------
 
@@ -443,7 +497,8 @@ class UploadServer:
                     "Content-Length": str(rng.length),
                     "Accept-Ranges": "bytes",
                     **self._progress_headers(ts)}
-            if total >= 0 and not poisoned:
+            tls = writer.get_extra_info("ssl_object") is not None
+            if total >= 0 and not poisoned and not tls:
                 # whole-file task: the kernel moves the bytes (sendfile)
                 loop = asyncio.get_running_loop()
                 try:
@@ -459,8 +514,12 @@ class UploadServer:
                 finally:
                     f.close()
             else:
+                # over TLS sendfile would fall back to 16 KiB reads, each a
+                # thread hop: the range goes out in TLS_CHUNK reads
+                step = self.TLS_CHUNK if tls else rng.length
                 try:
-                    data = await run_io(ts.read_range, rng.start, rng.length)
+                    data = await run_io(ts.read_range, rng.start,
+                                        min(step, rng.length))
                 except (DFError, OSError) as exc:
                     # the bytes were never moved: hand the tokens back
                     self.limiter.refund(rng.length)
@@ -471,6 +530,18 @@ class UploadServer:
                     data = faultgate.corrupt("upload.serve", data, key=fkey)
                 writer.write(_head(206, head) + data)
                 await writer.drain()
+                off = rng.start + len(data)
+                while off < rng.end:
+                    try:
+                        data = await run_io(ts.read_range, off,
+                                            min(step, rng.end - off))
+                    except (DFError, OSError) as exc:
+                        # the head went out: only the connection can say
+                        raise ConnectionResetError(
+                            f"range read failed mid-body: {exc}") from None
+                    writer.write(data)
+                    await writer.drain()
+                    off += len(data)
             _upload_bytes.inc(rng.length)
             _upload_reqs.labels("206").inc()
             self._journal(task_id, ts, rng, query, writer, slot,

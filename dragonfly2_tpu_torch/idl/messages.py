@@ -704,6 +704,24 @@ class GetModelResponse:
 
 
 @message
+class CertificateRequest:
+    """Fleet certificate issuance (reference ``security_server_v1.go``
+    IssueCertificate and ``pkg/issuer``): the requester keeps its private
+    key and submits only the public half and the identities to certify."""
+
+    public_key_pem: bytes = b""
+    hosts: list[str] | None = None       # DNS names and IPs for the SAN
+    validity_s: int = 0                  # 0: the issuer's default; capped
+    token: str = ""                      # the manager's issuance token
+
+
+@message
+class CertificateResponse:
+    cert_pem: bytes = b""
+    ca_cert_pem: bytes = b""
+
+
+@message
 class ApplicationEntry:
     """One manager-registered application with its download priority
     (reference ``manager/models/application.go:24`` Priority JSONMap —

@@ -3,21 +3,29 @@
 Counterpart of ``dragonfly2_tpu/manager/server.py`` (reference
 ``manager/manager.go:106-234`` ``New``/``Serve``) with the keepalive-TTL
 sweep that marks silent instances inactive. ``ManagerConfig`` keeps the
-reference's fields; the ones whose subsystems are not ported yet (REST
-auth, certificate issuance, TLS on the RPC port) make ``start`` refuse
-with an error that names them. ``plugin_dir`` loads the searcher plugin
-at ``start``, and a broken or missing one fails the start, as in the
-reference.
+reference's fields. ``issue_certs`` makes the manager a fleet certificate
+issuer: a CA under ``<workdir>/manager-ca`` and an issuance token made
+once and kept at ``<workdir>/issuer.token`` (mode 0600), both as the
+reference's; ``grpc_tls`` serves the RPC port over TLS with a leaf from
+that CA. REST auth is not ported yet, and ``auth_enabled`` makes
+``start`` refuse with an error that names it. ``plugin_dir`` loads the
+searcher plugin at ``start``, and a broken or missing one fails the
+start, as in the reference.
 """
 
 from __future__ import annotations
 
+import asyncio
 import logging
 import os
+import secrets
+import tempfile
 from dataclasses import dataclass
 
+from ..common.certs import CertIssuer
+
 from ..common.gc import GC, GCTask
-from ..rpc.server import RPCServer
+from ..rpc.server import RPCServer, TLSOptions
 from .rest import RestAPI
 from .service import ManagerService, build_service
 from .store import Store
@@ -37,19 +45,20 @@ class ManagerConfig:
     # REST auth (reference manager/middlewares): not ported
     auth_enabled: bool = False
     workdir: str = ""
-    # certificate issuance for fleet mTLS and TLS on the RPC port: not
-    # ported
+    # certificate issuance for fleet mTLS (reference
+    # manager/rpcserver/security_server_v1.go and pkg/issuer)
     issue_certs: bool = False
+    # the manager's own RPC port over TLS, with a leaf from the manager
+    # CA: needed wherever issue_certs rides an untrusted network, since
+    # the issuance token travels in the request. Clients trust
+    # manager-ca/proxy-ca.crt, distributed out of band.
     grpc_tls: bool = False
     # df_plugin_searcher_default.py replaces the cluster scorer
     plugin_dir: str = ""
 
     def unported(self) -> list[str]:
         """The set options whose subsystems this package lacks."""
-        return [name for name, on in (("auth_enabled", self.auth_enabled),
-                                      ("issue_certs", self.issue_certs),
-                                      ("grpc_tls", self.grpc_tls))
-                if on]
+        return ["auth_enabled"] if self.auth_enabled else []
 
 
 class Manager:
@@ -59,7 +68,29 @@ class Manager:
             os.makedirs(os.path.dirname(os.path.abspath(cfg.db_path)),
                         exist_ok=True)
         self.store = Store(cfg.db_path or ":memory:")
-        self.service = ManagerService(self.store)
+        workdir = cfg.workdir or (
+            os.path.dirname(os.path.abspath(cfg.db_path)) if cfg.db_path
+            else "")
+        self.issuer: CertIssuer | None = None
+        self.issue_token = ""
+        if cfg.issue_certs:
+            self.issuer = CertIssuer(os.path.join(workdir or ".",
+                                                  "manager-ca"))
+            # the issuance gate: made once, kept 0600, handed to the fleet
+            # out of band (an open signing oracle would make the fleet's
+            # mTLS authenticate nothing)
+            token_path = os.path.join(workdir or ".", "issuer.token")
+            if os.path.exists(token_path):
+                with open(token_path, encoding="utf-8") as f:
+                    self.issue_token = f.read().strip()
+            else:
+                self.issue_token = secrets.token_urlsafe(24)
+                fd = os.open(token_path,
+                             os.O_WRONLY | os.O_CREAT | os.O_TRUNC, 0o600)
+                with os.fdopen(fd, "w", encoding="utf-8") as f:
+                    f.write(self.issue_token + "\n")
+        self.service = ManagerService(self.store, issuer=self.issuer,
+                                      issue_token=self.issue_token)
         self.rest = RestAPI(self.store, host=cfg.listen_ip,
                             port=cfg.rest_port)
         self.rpc: RPCServer | None = None
@@ -70,13 +101,35 @@ class Manager:
     def address(self) -> str:
         return f"{self.cfg.advertise_ip}:{self.port}"
 
+    @property
+    def ca_cert_path(self) -> str:
+        return self.issuer.ca_cert_path if self.issuer else ""
+
+    def _grpc_tls(self) -> TLSOptions | None:
+        """The RPC port's TLS: a leaf for ``advertise_ip`` from the
+        manager CA, written to a fresh temporary directory (the key
+        0600)."""
+        if not self.cfg.grpc_tls:
+            return None
+        if self.issuer is None:
+            raise ValueError("grpc_tls requires issue_certs (the manager CA "
+                             "signs its own server cert)")
+        cert_pem, key_pem, _ = self.issuer._mint(self.cfg.advertise_ip)
+        d = tempfile.mkdtemp(prefix="df-mgr-tls-")
+        cert_p, key_p = os.path.join(d, "s.crt"), os.path.join(d, "s.key")
+        with open(cert_p, "wb") as f:
+            f.write(cert_pem + self.issuer.ca_cert.pem)
+        fd = os.open(key_p, os.O_WRONLY | os.O_CREAT | os.O_TRUNC, 0o600)
+        with os.fdopen(fd, "wb") as f:
+            f.write(key_pem)
+        return TLSOptions(cert_p, key_p)
+
     async def start(self) -> None:
         unported = self.cfg.unported()
         if unported:
             raise ValueError(
                 f"manager options not ported yet: {', '.join(unported)} "
-                f"(REST auth, certificate issuance and RPC TLS are later "
-                f"slices)")
+                f"(REST auth is a later slice)")
         if self.cfg.plugin_dir:
             # fail hard, as the scheduler's evaluator plugin slot does: an
             # operator who configured a plugin must not silently get the
@@ -86,7 +139,8 @@ class Manager:
             log.info("searcher plugin loaded from %s", self.cfg.plugin_dir)
         # a default cluster always exists so self-registration lands somewhere
         self.store.default_scheduler_cluster()
-        self.rpc = RPCServer(f"{self.cfg.listen_ip}:{self.cfg.grpc_port}")
+        self.rpc = RPCServer(f"{self.cfg.listen_ip}:{self.cfg.grpc_port}",
+                             tls=await asyncio.to_thread(self._grpc_tls))
         self.rpc.register(build_service(self.service))
         await self.rpc.start()
         self.port = self.rpc.port

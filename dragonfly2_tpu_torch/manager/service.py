@@ -8,18 +8,23 @@ self-registration RPCs schedulers and seed peers call on boot, the
 KeepAlive client stream (``manager_server_v2.go:737``) and the model
 registry (CreateModel, GetModel) and the schedulers' handoff relay
 (SetSchedulerState, GetSchedulerState: an opaque blob parked per
-scheduler, the freshest other member's handed back). IssueCertificate
-waits for a later slice.
+scheduler, the freshest other member's handed back) and fleet certificate
+issuance (IssueCertificate, reference ``security_server_v1.go``: a peer's
+public key signed by the manager's CA when the issuance token matches).
 """
 
 from __future__ import annotations
 
 import asyncio
+import datetime
+import hmac
 import json
 import logging
 
 from ..common.errors import Code, DFError
-from ..idl.messages import (ApplicationEntry, CreateModelRequest, Empty,
+from ..common import cryptoshim
+from ..idl.messages import (ApplicationEntry, CertificateRequest,
+                            CertificateResponse, CreateModelRequest, Empty,
                             GetModelRequest, GetModelResponse,
                             GetSchedulersRequest, GetSchedulersResponse,
                             GetSchedulerStateRequest,
@@ -37,11 +42,16 @@ from .store import Store
 log = logging.getLogger("df.mgr.service")
 
 MANAGER_SERVICE = "df.manager.Manager"
+MAX_CERT_VALIDITY_S = 30 * 24 * 3600     # a caller may ask for less, not more
 
 
 class ManagerService:
-    def __init__(self, store: Store):
+    def __init__(self, store: Store, *, issuer=None, issue_token: str = ""):
         self.store = store
+        # fleet certificate issuance: a CertIssuer and its token, both
+        # set by the manager's ``issue_certs``
+        self.issuer = issuer
+        self.issue_token = issue_token
 
     async def get_schedulers(self, req: GetSchedulersRequest,
                              context) -> GetSchedulersResponse:
@@ -186,6 +196,32 @@ class ManagerService:
             data=b"" if unchanged else row["data"],
             created_at=row["created_at"]))
 
+    async def issue_certificate(self, req: CertificateRequest,
+                                context) -> CertificateResponse:
+        """Sign a fleet leaf for the caller's public key (reference
+        ``security_server_v1.go``): the token is compared in constant
+        time, the validity capped at ``MAX_CERT_VALIDITY_S``, and the
+        signature (``openssl`` processes) runs on a worker thread."""
+        if self.issuer is None:
+            raise DFError(Code.SCHED_FORBIDDEN,
+                          "certificate issuance not enabled")
+        if not self.issue_token or not hmac.compare_digest(
+                req.token or "", self.issue_token):
+            raise DFError(Code.SCHED_FORBIDDEN, "bad issuance token")
+        if not req.public_key_pem or not req.hosts:
+            raise DFError(Code.INVALID_ARGUMENT,
+                          "public_key_pem and hosts required")
+
+        def sign() -> bytes:
+            pub = cryptoshim.load_public_key(req.public_key_pem)
+            want = req.validity_s if req.validity_s > 0 else 24 * 3600
+            ttl = datetime.timedelta(seconds=min(want, MAX_CERT_VALIDITY_S))
+            return self.issuer.sign_public_key(pub, list(req.hosts), ttl=ttl)
+
+        cert_pem = await asyncio.to_thread(sign)
+        return CertificateResponse(cert_pem=cert_pem,
+                                   ca_cert_pem=self.issuer.ca_cert.pem)
+
     async def keep_alive(self, request_iter, context) -> Empty:
         """Client stream: one message per interval; the instance goes
         inactive when the stream dies and the TTL sweep catches it."""
@@ -216,4 +252,5 @@ def build_service(svc: ManagerService) -> ServiceDef:
     d.unary_unary("GetSchedulerState", svc.get_scheduler_state)
     d.unary_unary("CreateModel", svc.create_model)
     d.unary_unary("GetModel", svc.get_model)
+    d.unary_unary("IssueCertificate", svc.issue_certificate)
     return d

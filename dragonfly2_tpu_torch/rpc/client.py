@@ -7,13 +7,19 @@ What callers rely on is kept: a refused or reset connection raises
 (the transient class unary calls retry); a server-side DFError comes back
 with its code; cancelling or closing a stream call ends the handler on the
 other side. A ``Channel`` keeps idle connections to one address for reuse;
-``ChannelPool`` bounds the channels a daemon keeps open.
+``ChannelPool`` bounds the channels a daemon keeps open. A channel is
+plaintext unless given TLS material: ``tls_ca`` trusts that CA (the
+manager's issuing CA, typically), ``tls_cert``/``tls_key`` present the
+client certificate an mTLS server requires, and the target's host must
+match the server certificate's names unless ``tls_server_name`` overrides
+it, as grpc's ``ssl_target_name_override`` does for the reference.
 """
 
 from __future__ import annotations
 
 import asyncio
 import logging
+import ssl
 from typing import Any, AsyncIterator
 
 from ..common import tracing
@@ -77,11 +83,33 @@ class Channel:
 
     IDLE_LIMIT = 8
 
-    def __init__(self, address: str):
+    def __init__(self, address: str, *, tls_ca: str = "",
+                 tls_cert: str = "", tls_key: str = "",
+                 tls_server_name: str = ""):
         self.address = address
+        self.tls_ca = tls_ca
+        self.tls_cert = tls_cert
+        self.tls_key = tls_key
+        self.tls_server_name = tls_server_name
+        self._ssl: ssl.SSLContext | None = None
         self._idle: list[_Conn] = []
         self._active: set[_Conn] = set()
         self._closed = False
+
+    @property
+    def secure(self) -> bool:
+        return bool(self.tls_ca or self.tls_cert)
+
+    def _ssl_context(self) -> ssl.SSLContext:
+        """The client context, built at the first connection: trust
+        ``tls_ca`` (the system's roots without one) and present the
+        client certificate when one is given."""
+        if self._ssl is None:
+            ctx = ssl.create_default_context(cafile=self.tls_ca or None)
+            if self.tls_cert:
+                ctx.load_cert_chain(self.tls_cert, self.tls_key or None)
+            self._ssl = ctx
+        return self._ssl
 
     async def _open(self) -> _Conn:
         if self._closed:
@@ -97,6 +125,10 @@ class Channel:
             if scheme == "unix":
                 reader, writer = await asyncio.open_unix_connection(
                     host, limit=1 << 20)
+            elif self.secure:
+                reader, writer = await asyncio.open_connection(
+                    host, port, limit=1 << 20, ssl=self._ssl_context(),
+                    server_hostname=self.tls_server_name or host)
             else:
                 reader, writer = await asyncio.open_connection(
                     host, port, limit=1 << 20)
@@ -204,7 +236,7 @@ class _Call:
         try:
             conn.writer.write(data)
             await self._bounded(conn.writer.drain())
-        except ConnectionError as exc:
+        except OSError as exc:
             self._fail_conn()
             raise DFError(Code.UNAVAILABLE, f"{self.what}: {exc}") from None
 
@@ -233,7 +265,7 @@ class _Call:
         conn = await self._ensure_open()
         try:
             got = await self._bounded(wire.read_frame(conn.reader))
-        except ConnectionError as exc:
+        except OSError as exc:
             self._fail_conn()
             raise DFError(Code.UNAVAILABLE, f"{self.what}: {exc}") from None
         except DFError:
@@ -276,11 +308,17 @@ class _Call:
 class ChannelPool:
     """LRU cache of channels keyed by address. ``limit`` bounds the open
     channels of a long-lived daemon; an evicted channel closes after
-    ``evict_grace_s`` so streams opened on it can finish."""
+    ``evict_grace_s`` so streams opened on it can finish. With fleet mTLS
+    every channel verifies peers against ``tls_ca`` and presents the
+    daemon's leaf."""
 
-    def __init__(self, limit: int = 128, evict_grace_s: float = 120.0):
+    def __init__(self, limit: int = 128, evict_grace_s: float = 120.0,
+                 tls_ca: str = "", tls_cert: str = "", tls_key: str = ""):
         self.limit = limit
         self.evict_grace_s = evict_grace_s
+        self.tls_ca = tls_ca
+        self.tls_cert = tls_cert
+        self.tls_key = tls_key
         self._channels: dict[str, Channel] = {}
         self._evicted: list[Channel] = []
         self._closers: set[asyncio.Task] = set()
@@ -288,7 +326,8 @@ class ChannelPool:
     def get(self, address: str) -> Channel:
         ch = self._channels.pop(address, None)
         if ch is None:
-            ch = Channel(address)
+            ch = Channel(address, tls_ca=self.tls_ca,
+                         tls_cert=self.tls_cert, tls_key=self.tls_key)
             while len(self._channels) >= self.limit:
                 oldest = next(iter(self._channels))
                 self._evict(self._channels.pop(oldest))

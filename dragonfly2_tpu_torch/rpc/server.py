@@ -15,6 +15,13 @@ unix socket. A caller that closes or cancels its call ends the request
 iterator and cancels the handler, as grpc does. Every server also answers
 ``df.health.Health/Check`` (reference ``pkg/rpc/health``), which ``dfget``
 asks before it hands a download to a daemon.
+
+TLS (``TLSOptions``) builds an ``ssl.SSLContext`` where the reference
+builds grpc credentials; with a CA and ``require_client_cert`` it is
+mutual TLS with manager-issued certificates. ``tls_policy`` other than
+``force`` puts both protocols on one TCP port through ``mux.MuxListener``
+(the rollout), and an ``"ip:START-END"`` address binds the first free
+port of the range (``listen.bind_port_in_range``).
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ from __future__ import annotations
 import asyncio
 import logging
 import os
+import ssl
 from typing import AsyncIterator, Awaitable, Callable
 
 from ..common import tracing
@@ -29,6 +37,8 @@ from ..common.errors import Code, DFError
 from ..idl.base import dumps, loads
 from ..idl.messages import Empty
 from . import wire
+from .listen import bind_port_in_range, parse_port_spec
+from .mux import POLICIES, MuxListener
 
 log = logging.getLogger("df.rpc.server")
 
@@ -90,6 +100,19 @@ def span_parent(context):
     return None
 
 
+def _split_listen(address: str) -> tuple[str, str, int, int]:
+    """("unix", path, 0, 0) or ("tcp", host, lo, hi): a single port is a
+    range of one."""
+    if address.startswith("unix:"):
+        return "unix", address[len("unix:"):], 0, 0
+    host, _, spec = address.rpartition(":")
+    if not host or not spec:
+        raise ValueError(f"bad address {address!r}; want ip:port, "
+                         "ip:START-END or unix:/path")
+    lo, hi = parse_port_spec(spec)
+    return "tcp", host.strip("[]"), lo, hi
+
+
 class _Protocol(Exception):
     """The peer broke the framing; the connection is dropped."""
 
@@ -98,16 +121,61 @@ async def _health_check(request, context) -> Empty:
     return Empty()
 
 
+class TLSOptions:
+    """Server-side TLS (reference ``pkg/rpc/mux.go`` credentials and
+    ``security.go`` policies). ``ca_path`` with ``require_client_cert``
+    is mutual TLS with manager-issued certificates (``pkg/issuer``); a
+    CA alone asks for a client certificate without requiring one, as
+    grpc's ``ssl_server_credentials`` does."""
+
+    def __init__(self, cert_path: str, key_path: str, *, ca_path: str = "",
+                 require_client_cert: bool = False):
+        self.cert_path = cert_path
+        self.key_path = key_path
+        self.ca_path = ca_path
+        self.require_client_cert = require_client_cert
+
+    def server_context(self) -> ssl.SSLContext:
+        ctx = ssl.SSLContext(ssl.PROTOCOL_TLS_SERVER)
+        ctx.load_cert_chain(self.cert_path, self.key_path)
+        if self.ca_path:
+            ctx.load_verify_locations(cafile=self.ca_path)
+            ctx.verify_mode = ssl.CERT_OPTIONAL
+        if self.require_client_cert:
+            ctx.verify_mode = ssl.CERT_REQUIRED
+        return ctx
+
+
 class RPCServer:
     """One server hosting many ServiceDefs on one address: "ip:port",
-    "ip:0" (ephemeral; the port is ``.port`` after ``start``) or
-    "unix:/path"."""
+    "ip:0" (ephemeral; the port is ``.port`` after ``start``),
+    "ip:START-END" (the first free port of the range) or "unix:/path".
+    ``tls`` secures the listener (``TLSOptions``).
 
-    def __init__(self, address: str):
+    ``tls_policy`` (only with ``tls``; reference ``pkg/rpc/mux.go`` and
+    ``credential.go``):
+      "force":   TLS only on the port (the default);
+      "default": plaintext and TLS accepted on one port (the rollout);
+      "prefer":  both accepted, plaintext flagged as deprecated in the log
+                 and the metric. Set ``.mux.policy`` to "force" at runtime
+                 to retire plaintext for new connections without a
+                 restart.
+    """
+
+    def __init__(self, address: str, *, tls: TLSOptions | None = None,
+                 tls_policy: str = "force"):
         self.address = address
         self.port: int | None = None
+        self.tls = tls
+        if tls is not None:
+            if tls_policy not in POLICIES:
+                # refused before start() makes backend sockets: a typo'd
+                # policy must not leave a dfmux-* directory behind
+                raise ValueError(f"unknown tls_policy {tls_policy!r}")
+        self.tls_policy = tls_policy
+        self.mux = None                     # MuxListener when muxing
         self._services: dict[str, ServiceDef] = {}
-        self._server: asyncio.base_events.Server | None = None
+        self._servers: list[asyncio.base_events.Server] = []
         self._conns: set[asyncio.Task] = set()
         self._busy: set[asyncio.Task] = set()     # connections mid-call
         health = ServiceDef("df.health.Health")
@@ -118,23 +186,54 @@ class RPCServer:
         self._services[service.name] = service
 
     async def start(self) -> None:
-        scheme, host, port = wire.split_address(self.address)
+        scheme, host, lo, hi = _split_listen(self.address)
+        ctx = self.tls.server_context() if self.tls is not None else None
         if scheme == "unix":
             if os.path.exists(host):
                 os.unlink(host)
-            self._server = await asyncio.start_unix_server(
-                self._on_conn, path=host, limit=1 << 20)
+            self._servers.append(await asyncio.start_unix_server(
+                self._on_conn, path=host, limit=1 << 20, ssl=ctx))
+        elif ctx is not None and self.tls_policy != "force":
+            # both protocols on one public port: the mux front reads each
+            # connection's first byte and splices it to the matching
+            # unix-socket backend (a 0700 directory: a loopback TCP
+            # backend would let processes on the host skip the policy
+            # and the client-certificate check; rpc/mux.py)
+            plain_sock, tls_sock = MuxListener.backend_sockets()
+            self._servers.append(await asyncio.start_unix_server(
+                self._on_conn, path=plain_sock, limit=1 << 20))
+            self._servers.append(await asyncio.start_unix_server(
+                self._on_conn, path=tls_sock, limit=1 << 20, ssl=ctx))
+            self.mux = MuxListener(
+                host, lo, plain_sock=plain_sock, tls_sock=tls_sock,
+                policy=self.tls_policy,
+                sock=bind_port_in_range(host, lo, hi) if hi > lo else None)
+            await self.mux.start()
+            self.port = self.mux.port
+        elif hi > lo:
+            # a port range: the first free port wins, bound here and
+            # served as it is (no window for another process to take it)
+            sock = bind_port_in_range(host, lo, hi)
+            self._servers.append(await asyncio.start_server(
+                self._on_conn, sock=sock, limit=1 << 20, ssl=ctx))
+            self.port = sock.getsockname()[1]
         else:
-            self._server = await asyncio.start_server(
-                self._on_conn, host, port, limit=1 << 20)
-            self.port = self._server.sockets[0].getsockname()[1]
-        log.info("rpc server on %s (port=%s): %s", self.address, self.port,
+            srv = await asyncio.start_server(self._on_conn, host, lo,
+                                             limit=1 << 20, ssl=ctx)
+            self._servers.append(srv)
+            self.port = srv.sockets[0].getsockname()[1]
+        log.info("rpc server on %s (port=%s, tls=%s, policy=%s): %s",
+                 self.address, self.port, self.tls is not None,
+                 self.tls_policy if self.tls is not None else "-",
                  ",".join(self._services))
 
     async def stop(self, grace: float = 1.0) -> None:
-        if self._server is None:
+        if not self._servers:
             return
-        self._server.close()
+        if self.mux is not None:
+            await self.mux.stop()
+        for srv in self._servers:
+            srv.close()
         busy = list(self._busy)
         if busy and grace > 0:
             # calls in flight get ``grace`` seconds; idle connections go now
@@ -143,8 +242,11 @@ class RPCServer:
         for t in conns:
             t.cancel()
         await asyncio.gather(*conns, return_exceptions=True)
-        await self._server.wait_closed()
-        self._server = None
+        for srv in self._servers:
+            await srv.wait_closed()
+        self._servers = []
+        if self.mux is not None:
+            self.mux.cleanup_backend_files()
 
     # ------------------------------------------------------------------
 
@@ -169,7 +271,8 @@ class RPCServer:
                         return
                 finally:
                     self._busy.discard(task)
-        except (ConnectionError, _Protocol, DFError, ValueError) as exc:
+        except (ConnectionError, _Protocol, DFError, ValueError,
+                ssl.SSLError) as exc:
             log.debug("rpc connection from %s dropped: %s", peer_s, exc)
         finally:
             self._conns.discard(task)

@@ -4,14 +4,13 @@ Counterpart of ``dragonfly2_tpu/scheduler/config.py`` (reference
 ``scheduler/config/config.go`` + ``constants.go``): every key of the
 reference, with the reference's default, so a reference scheduler's file
 loads. ``KEY_CLASSES`` below puts each key in one class
-(``common/config.py``): wired, inert as in the reference, or unported
-(fleet TLS waits for a later slice);
-``SchedulerConfig.unported()`` names
-the unported keys a file sets, and the scheduler refuses to start with
-any. The relay-tree shaping is off by default (``relay_fanout`` 0, the
-reference's exact path); shard affinity and the quarantine registry are
-on by default, federation and the state store off, as in the
-reference. ``tracing_jsonl`` and ``tracing_otlp`` turn tracing on
+(``common/config.py``): wired, inert as in the reference, or unported;
+``SchedulerConfig.unported()`` names the unported keys a file sets, and
+the scheduler refuses to start with any. Since the fleet TLS keys were
+wired, no scheduler key is unported. The relay-tree shaping is off by
+default (``relay_fanout`` 0, the reference's exact path); shard affinity
+and the quarantine registry are on by default, federation and the state
+store off, as in the reference. ``tracing_jsonl`` and ``tracing_otlp`` turn tracing on
 (``common/tracing.py``), as the reference's keys do. The constants below
 are the limits' defaults.
 """
@@ -20,7 +19,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass, field
 
-from ..common.config import INERT, WIRED, unported, unported_set
+from ..common.config import INERT, WIRED, unported_set
 
 # the candidate set doubles the reference's 4: piece availability flows
 # only along parent->child sync streams, so the candidate limit is the
@@ -124,11 +123,11 @@ class SchedulerConfig:
     gc_interval_s: float = PEER_GC_INTERVAL_S   # the resource GC's cadence
     # df_plugin_evaluator_<name>.py for algorithm "plugin:<name>"
     plugin_dir: str = ""
-    # unported (item 6): fleet mTLS enrollment toward seed daemons
+    # fleet mTLS toward security-enabled seed daemons: enroll with the
+    # manager's issuer (the token also signs the state handoff)
     security_issue_token: str = ""
-    security_ca_cert: str = ""
-    # unported (item 6): the reference reads it only for the fleet TLS
-    # enrollment's certificate directory
+    security_ca_cert: str = ""             # the pinned fleet CA
+    # the enrollment's certificate directory (<workdir>/scheduler-tls)
     workdir: str = ""
     # the crash-survivable control-plane state (statestore.py): one
     # snapshot under statestore_dir, persisted when dirty or every
@@ -147,8 +146,8 @@ class SchedulerConfig:
 
 # The class of every key (common/config.py). Inert: a grep of
 # dragonfly2_tpu/ finds no reader of retry_limit outside its config
-# module. Unported, by ROADMAP Queue 1 item: fleet TLS and the directory
-# only it reads (6).
+# module. No key is unported: the class and its refusal stay for keys a
+# later reference change adds.
 KEY_CLASSES: dict[str, str] = {
     "listen_ip": WIRED,
     "advertise_ip": WIRED,
@@ -190,9 +189,9 @@ KEY_CLASSES: dict[str, str] = {
     "host_ttl_s": WIRED,
     "gc_interval_s": WIRED,
     "plugin_dir": WIRED,
-    "security_issue_token": unported("6"),
-    "security_ca_cert": unported("6"),
-    "workdir": unported("6"),
+    "security_issue_token": WIRED,
+    "security_ca_cert": WIRED,
+    "workdir": WIRED,
     "statestore_dir": WIRED,
     "statestore_interval_s": WIRED,
     "statestore_handoff": WIRED,

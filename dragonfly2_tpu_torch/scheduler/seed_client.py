@@ -28,15 +28,24 @@ SEEDER_SERVICE = "df.daemon.Seeder"
 
 class SeedPeerClient:
     def __init__(self, resource: Resource, seed_peers: list[SeedPeerAddr],
-                 *, quarantine=None):
-        """``quarantine``: registry consulted at seed election — content
-        injected through a quarantined seed would poison the root of the
-        whole distribution tree."""
+                 *, tls: tuple[str, str, str] | None = None,
+                 quarantine=None):
+        """``tls``: (cert, key, ca), the fleet material: security-enabled
+        seed daemons serve their RPC port over mTLS, and a plaintext
+        trigger would fail every seed of the fleet. ``quarantine``:
+        registry consulted at seed election — content injected through a
+        quarantined seed would poison the root of the whole distribution
+        tree."""
         self.resource = resource
         self.quarantine = quarantine
         self.seed_peers = {self._host_id(s): s for s in seed_peers}
         self._ring = HashRing(list(self.seed_peers))
-        self._channels = ChannelPool(limit=32)
+        if tls is not None:
+            cert, key, ca = tls
+            self._channels = ChannelPool(limit=32, tls_ca=ca, tls_cert=cert,
+                                         tls_key=key)
+        else:
+            self._channels = ChannelPool(limit=32)
 
     @staticmethod
     def _host_id(s: SeedPeerAddr) -> str:

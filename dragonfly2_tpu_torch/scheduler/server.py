@@ -29,16 +29,24 @@ restored before the RPC server starts (a ``recovery`` decision row when
 it recovered), persisted on the GC runner when dirty or every
 ``statestore_interval_s`` and at stop, where with ``statestore_handoff``
 and a manager the quarantine/affinity summary is parked with the
-manager for a successor to import at its attach (unsigned: the issuance
-token is fleet TLS's, item 6); the state store's ``tenants`` component
-carries the tenant and application tables. No fleet TLS: a config that
-sets one of its keys is refused at construction, by name.
+manager for a successor to import at its attach, signed with an HMAC of
+the fleet's issuance token when one is set (an import with a bad
+signature is refused; without a token nothing is checked); the state
+store's ``tenants`` component carries the tenant and application tables.
+With ``security_issue_token`` and a manager the scheduler enrolls for
+fleet TLS material at start (``rpc/security.py``, certificates under
+``<workdir>/scheduler-tls``), and its seed triggers then reach
+security-enabled seed daemons over mTLS; a failed enrollment is logged
+and leaves the triggers plaintext, as in the reference.
 """
 
 from __future__ import annotations
 
 import asyncio
+import hashlib
+import hmac
 import logging
+import os
 import random
 import socket
 
@@ -49,6 +57,7 @@ from ..idl.messages import (GetSchedulerStateRequest,
                             RegisterSchedulerRequest,
                             SetSchedulerStateRequest)
 from ..rpc.manager_link import ManagerLink
+from ..rpc.security import obtain_certificate
 from ..rpc.server import RPCServer
 from ..tpu import topology
 from .announcer import SchedulerAnnouncer
@@ -275,11 +284,36 @@ class Scheduler:
         self.port = self.rpc.port
         if self.cfg.manager_addresses:
             await self._attach_manager()
+        if self.cfg.security_issue_token and self.cfg.manager_addresses:
+            await self._enroll_security()
         self.gc.start()
         self.announcer.start()
         log.info("scheduler up on %s (cluster=%d, algorithm=%s, seeds=%d)",
                  self.address, self.cfg.cluster_id, self.cfg.algorithm,
                  len(self.seed_client.seed_peers))
+
+    async def _enroll_security(self) -> None:
+        """Obtain fleet TLS material, so seed triggers reach
+        security-enabled seed daemons (their RPC ports require client
+        certificates). A failure is logged; the triggers stay plaintext
+        and will fail against mTLS seeds."""
+        try:
+            cert, key, ca = await obtain_certificate(
+                self.cfg.manager_addresses, hosts=[self.cfg.advertise_ip],
+                token=self.cfg.security_issue_token,
+                out_dir=os.path.join(self.cfg.workdir or ".",
+                                     "scheduler-tls"),
+                tls_ca=self.cfg.security_ca_cert)
+        except Exception as exc:  # noqa: BLE001 - seeds then unreachable
+            log.error("fleet TLS enrollment failed (%s): seed triggers to "
+                      "mTLS seed daemons WILL fail", exc)
+            return
+        tls = (cert, key, self.cfg.security_ca_cert or ca)
+        await self.seed_client.close()
+        self.seed_client = SeedPeerClient(
+            self.resource, list(self.seed_client.seed_peers.values()),
+            tls=tls, quarantine=self.quarantine)
+        self.service.seed_client = self.seed_client
 
     async def _attach_manager(self) -> None:
         """Register with the manager, keep alive, and adopt its seed-peer
@@ -322,12 +356,19 @@ class Scheduler:
         self._app_refresh = asyncio.get_running_loop().create_task(
             self._app_refresh_loop())
 
+    def _handoff_signature(self, blob: bytes) -> str:
+        """The HMAC-SHA256 of a handoff blob with the issuance token, hex;
+        "" (unsigned) without a token."""
+        token = self.cfg.security_issue_token
+        if not token:
+            return ""
+        return hmac.new(token.encode(), blob, hashlib.sha256).hexdigest()
+
     async def _export_handoff(self) -> None:
         """Graceful stop: park the quarantine/affinity summary with the
         manager, sealed with the PEX envelope codec, so the ring
-        successor can warm itself. Unsigned: the signature is an HMAC
-        with the fleet's issuance token (item 6), and the manager accepts
-        "" as unsigned."""
+        successor can warm itself; HMAC'd with the issuance token when
+        one is set."""
         if (self.manager is None or self.statestore is None
                 or not self.cfg.statestore_handoff):
             return
@@ -339,10 +380,11 @@ class Scheduler:
             body["shard_affinity"] = self.sharded.export_state()
         if len(body) == 1:
             return
+        blob = seal(body)
         try:
             await self.manager.set_scheduler_state(SetSchedulerStateRequest(
                 scheduler_id=self.address, cluster_id=self.cfg.cluster_id,
-                blob=seal(body), signature=""))
+                blob=blob, signature=self._handoff_signature(blob)))
         except Exception as exc:  # noqa: BLE001 - handoff is best-effort
             log.debug("handoff export failed: %s", exc)
 
@@ -351,9 +393,9 @@ class Scheduler:
         summary. Imported verdicts land as circumstantial mass through
         ``QuarantineRegistry.import_summary``, which tops out at
         ``suspect``: only first-hand corrupt reports arriving here can
-        quarantine. Affinity memos import whole. Without an issuance
-        token (item 6) no signature is checked, as in the reference's
-        scheduler that holds none."""
+        quarantine. Affinity memos import whole. A blob whose signature
+        is not the HMAC with this scheduler's issuance token is refused;
+        without a token no signature is checked, as in the reference."""
         from ..daemon.pex import unseal
         try:
             resp = await self.manager.get_scheduler_state(
@@ -363,6 +405,11 @@ class Scheduler:
             log.debug("handoff import unavailable: %s", exc)
             return
         if resp is None or not resp.blob or resp.scheduler_id == self.address:
+            return
+        want = self._handoff_signature(resp.blob)
+        if want and not hmac.compare_digest(want, resp.signature or ""):
+            log.warning("handoff blob from %s refused: bad signature",
+                        resp.scheduler_id)
             return
         body = unseal(resp.blob)
         if body is None:

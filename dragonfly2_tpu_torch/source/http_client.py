@@ -263,6 +263,19 @@ class _Response:
         self.close()
 
 
+def fleet_client_context(cert: str, key: str, ca: str) -> ssl.SSLContext:
+    """The client context of the peer HTTP planes under fleet mTLS (piece
+    GETs and PEX gossip): trust the fleet CA ``ca`` alone, present
+    ``cert``/``key`` as the client certificate, and check no host name
+    (peers are dialed by IP; the CA's signature authenticates), as the
+    reference's sessions do."""
+    ctx = ssl.create_default_context(cafile=ca)
+    ctx.load_cert_chain(cert, key)
+    ctx.check_hostname = False
+    ctx.verify_mode = ssl.CERT_REQUIRED
+    return ctx
+
+
 class HTTPSourceClient:
     def __init__(self) -> None:
         # id(loop) -> (loop, {(scheme, host, port): [idle _Conn]})
@@ -284,6 +297,11 @@ class HTTPSourceClient:
             self._ssl = ctx
         else:
             self._ssl = None
+
+    def set_client_cert(self, cert: str, key: str, ca: str) -> None:
+        """Fleet mTLS toward peers (PEX gossip): ``fleet_client_context``
+        in place of the system's trust, for this client only."""
+        self._ssl = fleet_client_context(cert, key, ca)
 
     def _pool(self) -> dict:
         loop = asyncio.get_running_loop()

@@ -4,7 +4,9 @@ Counterpart of ``dragonfly2_tpu/tools/manager.py`` (reference
 ``cmd/manager``): config from YAML or JSON (``--config``), DF_* env
 overrides and flags; SIGINT or SIGTERM shuts down cleanly.
 ``--debug-port`` serves ``/debug/{stacks,profile,health}`` and
-``/metrics``.
+``/metrics``. ``--issue-certs`` makes the manager the fleet's certificate
+issuer (its CA under ``<workdir>/manager-ca``, the issuance token at
+``<workdir>/issuer.token``); ``--auth`` waits for a later slice.
 """
 
 from __future__ import annotations
@@ -62,9 +64,7 @@ async def serve(cfg: ManagerConfig, debug_port: int = 0) -> None:
 def main(argv: list[str] | None = None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
-    refuse_unported(parser, {
-        "--auth": (args.auth, "REST auth"),
-        "--issue-certs": (args.issue_certs, "certificate issuance")})
+    refuse_unported(parser, {"--auth": (args.auth, "REST auth")})
     dflog.setup("DEBUG" if args.verbose else "INFO")
     overrides: dict = env_overrides()
     if args.grpc_port:
@@ -77,6 +77,8 @@ def main(argv: list[str] | None = None) -> int:
         overrides["db_path"] = args.db
     if args.workdir:
         overrides["workdir"] = args.workdir
+    if args.issue_certs:
+        overrides["issue_certs"] = True
     cfg = load_config(ManagerConfig, args.config or None, overrides)
     if cfg.unported():
         parser.error("not ported to this package yet: "

@@ -38,7 +38,8 @@ from dragonfly2_tpu.scheduler.config import SchedulerConfig as RefSchedConfig
 from dragonfly2_tpu.trainer.server import TrainerConfig as RefTrainerConfig
 import dragonfly2_tpu_torch
 from dragonfly2_tpu_torch.common.config import (ConfigError, from_dict,
-                                                key_value, load_config)
+                                                key_value, load_config,
+                                                unported)
 from dragonfly2_tpu_torch.daemon import config as daemon_config
 from dragonfly2_tpu_torch.daemon.config import DaemonConfig
 from dragonfly2_tpu_torch.daemon.daemon import Daemon
@@ -192,15 +193,20 @@ def test_a_non_default_value_loads_and_is_classed(svc, key, cls):
         assert unported == [key]
 
 
-UNPORTED = [(s, k, c.split(":")[1]) for s, k, c in KEYS
-            if c.startswith("unported:")]
+# no daemon or scheduler key is unported since the fleet TLS keys were
+# wired (item 6c); the refusal stays for keys a later reference change
+# adds, and is driven here with a patched class
+REFUSED = [("daemon", "security.enabled", "6"),
+           ("scheduler", "security_ca_cert", "6")]
 
 
-@pytest.mark.parametrize("svc,key,item", UNPORTED,
-                         ids=[f"{s}:{k}" for s, k, _ in UNPORTED])
-def test_an_unported_key_is_refused_at_start_by_name(tmp_path, svc, key,
-                                                     item):
-    port_cls, ref_cls, _, _ = CLASSES[svc]
+@pytest.mark.parametrize("svc,key,item", REFUSED,
+                         ids=[f"{s}:{k}" for s, k, _ in REFUSED])
+def test_an_unported_key_is_refused_at_start_by_name(tmp_path, monkeypatch,
+                                                     svc, key, item):
+    port_cls, ref_cls, table, _ = CLASSES[svc]
+    assert not [k for k, c in table.items() if c.startswith("unported:")]
+    monkeypatch.setitem(table, key, unported(item))
     data = _nested(key, _other(key, key_value(ref_cls(), key)))
     if svc == "daemon":
         data.update(workdir=str(tmp_path), device="cpu")
@@ -208,10 +214,122 @@ def test_an_unported_key_is_refused_at_start_by_name(tmp_path, svc, key,
     else:
         build = Scheduler
     cfg = from_dict(port_cls, data)
+    assert cfg.unported() == [key]
     with pytest.raises(ConfigError) as err:
         build(cfg)
     assert f"{key} (ROADMAP Queue 1 item {item})" in str(err.value)
     assert not os.listdir(tmp_path) or svc != "daemon"
+
+
+SECURITY_KEYS = [("daemon", k) for k in daemon_config.KEY_CLASSES
+                 if k.startswith("security.")] + \
+    [("scheduler", k) for k in ("security_issue_token", "security_ca_cert",
+                                "workdir")]
+
+
+@pytest.mark.parametrize("svc,key", SECURITY_KEYS,
+                         ids=[f"{s}:{k}" for s, k in SECURITY_KEYS])
+def test_security_keys_are_wired(tmp_path, svc, key):
+    """Item 6c: each fleet mTLS key is wired, keeps the reference's
+    default, and a non-default value reaches its reader: the daemon's or
+    the scheduler's enrollment with a manager that issues certificates,
+    and what they serve and dial with."""
+    port_cls, ref_cls, table, _ = CLASSES[svc]
+    assert table[key] == "wired"
+    assert key_value(port_cls(), key) == key_value(ref_cls(), key)
+    assert len(SECURITY_KEYS) == 9
+
+    async def main():
+        # a pinned CA enrolls over the manager's TLS port, as in the
+        # reference
+        mgr = Manager(ManagerConfig(
+            listen_ip="127.0.0.1", workdir=str(tmp_path / "mgr"),
+            issue_certs=True,
+            grpc_tls=key in ("security.ca_cert", "security_ca_cert")))
+        await mgr.start()
+        try:
+            token_file = tmp_path / "token"
+            token_file.write_text(mgr.issue_token + "\n")
+            addr = f"127.0.0.1:{mgr.port}"
+            if svc == "daemon":
+                sec = {"enabled": True, "issue_token": mgr.issue_token}
+                sub = key.split(".", 1)[1]
+                value = {"enabled": True, "issue_token": mgr.issue_token,
+                         "issue_token_path": str(token_file),
+                         "ca_cert": mgr.ca_cert_path,
+                         "cert_validity_s": 3 * 3600,
+                         "tls_policy": "prefer"}[sub]
+                sec[sub] = value
+                if sub == "issue_token_path":
+                    sec.pop("issue_token")
+                cfg = from_dict(DaemonConfig, {
+                    "security": sec, "workdir": str(tmp_path / "d"),
+                    "device": "cpu", "listen_ip": "127.0.0.1",
+                    "host_ip": "127.0.0.1", "hostname": "wired",
+                    "manager_addresses": [addr]})
+                assert cfg.unported() == []
+                d = Daemon(cfg)
+                await d.start()
+                try:
+                    leaf = open(d._peer_tls_cert, "rb").read()
+                    return {
+                        "enabled": lambda: (d.rpc.tls is not None,
+                                            d.upload_server.tls is not None),
+                        "issue_token": lambda: bool(leaf),
+                        "issue_token_path": lambda: bool(leaf),
+                        "ca_cert": lambda: d.fleet_ca,
+                        "cert_validity_s": lambda: _validity_s(
+                            d._peer_tls_cert),
+                        "tls_policy": lambda: (d.rpc.mux.policy,
+                                               d.upload_server.mux.policy),
+                    }[sub](), value
+                finally:
+                    await d.stop()
+            data = {"listen_ip": "127.0.0.1", "advertise_ip": "127.0.0.1",
+                    "manager_addresses": [addr],
+                    "security_issue_token": mgr.issue_token,
+                    "workdir": str(tmp_path / "s"),
+                    "statestore_handoff": False}
+            value = {"security_issue_token": mgr.issue_token,
+                     "security_ca_cert": mgr.ca_cert_path,
+                     "workdir": str(tmp_path / "s")}[key]
+            data[key] = value
+            cfg = from_dict(SchedulerConfig, data)
+            assert cfg.unported() == []
+            sched = Scheduler(cfg)
+            await sched.start()
+            try:
+                pool = sched.seed_client._channels
+                return {
+                    "security_issue_token": lambda: bool(pool.tls_cert),
+                    "security_ca_cert": lambda: pool.tls_ca,
+                    "workdir": lambda: os.path.dirname(
+                        os.path.dirname(pool.tls_cert)),
+                }[key](), value
+            finally:
+                await sched.stop()
+        finally:
+            await mgr.stop()
+
+    got, value = asyncio.run(asyncio.wait_for(main(), 60))
+    assert value != key_value(port_cls(), key)
+    want = {"security.enabled": lambda: (True, True),
+            "security.issue_token": lambda: True,
+            "security.issue_token_path": lambda: True,
+            "security.ca_cert": lambda: value,
+            # backdated an hour, as the reference's
+            "security.cert_validity_s": lambda: value + 3600,
+            "security.tls_policy": lambda: (value, value),
+            "security_issue_token": lambda: True,
+            "security_ca_cert": lambda: value, "workdir": lambda: value}[key]
+    assert got == want()
+
+
+def _validity_s(cert_path: str) -> int:
+    import ssl
+    dec = ssl._ssl._test_decode_cert(cert_path)
+    return int(ssl.cert_time_to_seconds(dec["notAfter"])
+               - ssl.cert_time_to_seconds(dec["notBefore"]))
 
 
 FIVE_AC = [k for k in sched_config.KEY_CLASSES
@@ -513,10 +631,10 @@ def test_reference_yaml_files_load(tmp_path):
     assert load_config(TrainerConfig, str(t)).min_rows == 64
 
 
-@pytest.mark.parametrize("tool,text,name", [
-    # the qos keys (item 5b) and the proxy keys (item 6b) are wired: only
-    # the fleet TLS key (item 6c) is refused. The case keeps the id it had
-    # when it refused the proxy key
+LAUNCHER_CASES = [
+    # the qos keys (item 5b), the proxy keys (item 6b) and the fleet TLS
+    # key (item 6c) are wired; the case keeps the id it had when it
+    # refused the proxy key
     pytest.param(
         daemon_tool, "proxy:\n  enabled: true\nqos:\n  queue_limit: 3\n"
         "security:\n  enabled: true\n",
@@ -524,13 +642,27 @@ def test_reference_yaml_files_load(tmp_path):
         id="dragonfly2_tpu_torch.tools.daemon-proxy:\n  enabled: true"
            "\nqos:\n  queue_limit: 3\n-name0"),
     # fleetpulse_enabled (item 4b), the quarantine, federation and state
-    # store keys (items 5a, 5c) and plugin_dir (item 5d) are wired: only
-    # the fleet TLS key is refused
+    # store keys (items 5a, 5c), plugin_dir (item 5d) and the fleet TLS
+    # keys (item 6c) are wired
     (sched_tool, "quarantine_enabled: false\nfleetpulse_enabled: false\n"
      "federation_enabled: true\nstatestore_interval_s: 5\n"
      "plugin_dir: df-plugins\nsecurity_ca_cert: ca.pem\n",
-     ["security_ca_cert (ROADMAP Queue 1 item 6)"])])
-def test_launchers_refuse_unported_keys(tmp_path, capsys, tool, text, name):
+     ["security_ca_cert (ROADMAP Queue 1 item 6)"])]
+WIRED_KEYS = ("fleetpulse_enabled", "quarantine_enabled",
+              "federation_enabled", "statestore_interval_s",
+              "qos.queue_limit", "plugin_dir", "proxy.enabled")
+
+
+@pytest.mark.parametrize("tool,text,name", LAUNCHER_CASES)
+def test_launchers_refuse_unported_keys(tmp_path, capsys, monkeypatch, tool,
+                                        text, name):
+    """The launchers' exit 2 naming the key and its item, driven with the
+    fleet TLS key's class patched back to unported (no key is unported
+    now): the refusal stays for keys a later reference change adds."""
+    table = (daemon_config if tool is daemon_tool else sched_config
+             ).KEY_CLASSES
+    key = name[0].split(" ", 1)[0]
+    monkeypatch.setitem(table, key, "unported:6")
     path = tmp_path / "c.yaml"
     path.write_text(text)
     with pytest.raises(SystemExit) as err:
@@ -539,10 +671,30 @@ def test_launchers_refuse_unported_keys(tmp_path, capsys, tool, text, name):
     msg = capsys.readouterr().err
     for n in name:
         assert n in msg
-    for wired in ("fleetpulse_enabled", "quarantine_enabled",
-                  "federation_enabled", "statestore_interval_s",
-                  "qos.queue_limit", "plugin_dir", "proxy.enabled"):
+    for wired in WIRED_KEYS:
         assert wired not in msg
+
+
+@pytest.mark.parametrize("tool,text,name", LAUNCHER_CASES)
+def test_launchers_accept_the_security_keys(tmp_path, capsys, monkeypatch,
+                                            tool, text, name):
+    """The same files start their service now: the launcher hands the
+    loaded config, fleet TLS key included, to ``serve``."""
+    served = []
+
+    async def serve(cfg, **kw):
+        served.append(cfg)
+
+    monkeypatch.setattr(tool, "serve", serve)
+    path = tmp_path / "c.yaml"
+    path.write_text(text)
+    assert tool.main(["--config", str(path)]) == 0
+    assert "not ported" not in capsys.readouterr().err
+    (cfg,) = served
+    key = name[0].split(" ", 1)[0]
+    assert key_value(cfg, key) == {"security.enabled": True,
+                                   "security_ca_cert": "ca.pem"}[key]
+    assert cfg.unported() == []
 
 
 # ---------------------------------------------------------------- daemon

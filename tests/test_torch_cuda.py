@@ -241,6 +241,73 @@ def test_p2p_pull_from_a_seed_lands_on_card(cuda, tmp_path):
 
 
 @pytest.mark.gpu
+def test_an_mtls_pull_from_a_seed_lands_on_card(cuda, tmp_path):
+    """Fleet mTLS: a manager issues the certificates; the seed and the
+    leecher enroll with ``security.enabled`` and the scheduler with its
+    issuance token, so the seed trigger, the sync stream and every piece
+    GET ride mutual TLS; the leecher's pull lands on cuda:0."""
+    from dragonfly2_tpu_torch.daemon.config import SecurityConfig
+
+    raw = _seeded(24 << 20, seed=6)
+    path = tmp_path / "ckpt.bin"
+    path.write_bytes(raw)
+    manifest = ShardManifest(shards=[
+        ShardInfo(name="w", range_start=0, range_size=16 << 20,
+                  dtype="bfloat16", shape=[2048, 4096])])
+
+    async def main():
+        mgr = Manager(ManagerConfig(listen_ip="127.0.0.1",
+                                    workdir=str(tmp_path / "mgr"),
+                                    issue_certs=True))
+        await mgr.start()
+        sec = SecurityConfig(enabled=True, issue_token=mgr.issue_token)
+        addrs = [f"127.0.0.1:{mgr.port}"]
+        seed = Daemon(DaemonConfig(workdir=str(tmp_path / "seed"),
+                                   hostname="seed", is_seed=True,
+                                   listen_ip="127.0.0.1",
+                                   host_ip="127.0.0.1",
+                                   manager_addresses=addrs, security=sec))
+        await seed.start()
+        sched = Scheduler(SchedCfg(
+            listen_ip="127.0.0.1", manager_addresses=addrs,
+            security_issue_token=mgr.issue_token,
+            workdir=str(tmp_path / "sched"), statestore_handoff=False,
+            seed_peers=[SeedPeerAddr(host_id=seed.host_info().id,
+                                     ip="127.0.0.1", rpc_port=seed.rpc.port,
+                                     download_port=seed.upload_server.port)]))
+        await sched.start()
+        leecher = Daemon(DaemonConfig(
+            workdir=str(tmp_path / "leecher"), hostname="leecher",
+            listen_ip="127.0.0.1", host_ip="127.0.0.1",
+            manager_addresses=addrs, security=sec,
+            scheduler=SchedulerConfig(addresses=[sched.address])))
+        await leecher.start()
+        try:
+            assert sched.seed_client._channels.tls_cert
+            task_id = None
+            async for r in leecher.ptm.start_file_task(DownloadRequest(
+                    url=f"file://{path}", disable_back_source=True,
+                    device_sink=DeviceSink(enabled=True),
+                    shard_manifest=manifest, timeout_s=120)):
+                task_id = r.task_id
+            c = leecher.ptm.conductor(task_id)
+            assert c.traffic_p2p == len(raw) and c.traffic_source == 0
+            assert leecher._downloader.scheme == "https"
+            return await asyncio.to_thread(c.device_ingest.result, 60)
+        finally:
+            await leecher.stop()
+            await sched.stop()
+            await seed.stop()
+            await mgr.stop()
+
+    out = asyncio.run(asyncio.wait_for(main(), 180))
+    t = out["w"]
+    assert t.device == cuda and t.dtype == torch.bfloat16
+    assert t.reshape(-1).view(torch.uint8).cpu().numpy().tobytes() == \
+        raw[:16 << 20]
+
+
+@pytest.mark.gpu
 def test_a_gateway_object_prefetched_onto_the_card_equals_its_bytes(
         cuda, tmp_path):
     """An object PUT through a seed's object gateway (a file:// bucket) is

@@ -283,7 +283,6 @@ def test_launcher_flags_match_reference(port, ref):
 
 @pytest.mark.parametrize("module,argv,names", [
     (manager_cli, ["--auth"], "REST auth"),
-    (manager_cli, ["--issue-certs"], "certificate issuance"),
     (dfget_cli, ["u", "-O", "o", "--recursive"], "recursive"),
     (dfget_cli, ["u", "-O", "o", "-r"], "recursive"),
 ])
@@ -293,6 +292,46 @@ def test_unported_flags_exit_nonzero(module, argv, names, capsys):
     assert exc.value.code == 2
     err = capsys.readouterr().err
     assert "not ported" in err and names in err, err
+
+
+def test_manager_with_issue_certs_answers_issue_certificate(tmp_path):
+    """``--issue-certs`` (refused until fleet mTLS was ported) starts a
+    manager whose ``IssueCertificate`` signs a public key for the token
+    in ``<workdir>/issuer.token`` and refuses a wrong token."""
+    import asyncio
+
+    from dragonfly2_tpu_torch.common import cryptoshim
+    from dragonfly2_tpu_torch.common.errors import DFError
+    from dragonfly2_tpu_torch.idl.messages import CertificateRequest
+    from dragonfly2_tpu_torch.rpc import Channel, ServiceClient
+
+    port = free_port()
+    mgr = Service("manager", "--listen-ip", "127.0.0.1", "--grpc-port",
+                  str(port), "--workdir", str(tmp_path), "--issue-certs",
+                  workdir=tmp_path)
+    try:
+        mgr.wait_line("manager up:")
+        token = (tmp_path / "issuer.token").read_text().strip()
+        pub = cryptoshim.generate_private_key().public_pem()
+
+        async def issue(tok: str):
+            ch = Channel(f"127.0.0.1:{port}")
+            try:
+                return await ServiceClient(ch, "df.manager.Manager").unary(
+                    "IssueCertificate", CertificateRequest(
+                        public_key_pem=pub, hosts=["127.0.0.1"], token=tok),
+                    timeout=30)
+            finally:
+                await ch.close()
+
+        resp = asyncio.run(issue(token))
+        with pytest.raises(DFError, match="bad issuance token"):
+            asyncio.run(issue(token + "x"))
+    finally:
+        assert mgr.stop() == 0, mgr.text()
+    assert b"BEGIN CERTIFICATE" in resp.cert_pem
+    assert resp.ca_cert_pem == \
+        (tmp_path / "manager-ca" / "proxy-ca.crt").read_bytes()
 
 
 @pytest.mark.parametrize("argv", [
@@ -325,11 +364,13 @@ def test_scheduler_with_algorithm_nt_starts(tmp_path):
 def test_manager_config_with_unported_options_exits_nonzero(tmp_path,
                                                             capsys):
     cfg = tmp_path / "m.yaml"
-    cfg.write_text("grpc_port: 0\nissue_certs: true\n")
+    cfg.write_text("grpc_port: 0\nauth_enabled: true\nissue_certs: true\n")
     with pytest.raises(SystemExit) as exc:
         manager_cli.main(["--config", str(cfg)])
     assert exc.value.code == 2
-    assert "issue_certs" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    # issue_certs is ported (item 6c); REST auth waits for item 7b
+    assert "auth_enabled" in err and "issue_certs" not in err
 
 
 def test_trainer_launcher_without_a_card_exits_nonzero(tmp_path):

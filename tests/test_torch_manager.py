@@ -672,13 +672,29 @@ def test_applications_refresh_resolves_priority(tmp_path):
     _limited(main())
 
 
-def test_unported_manager_options_refuse_to_start():
+def test_unported_manager_options_refuse_to_start(tmp_path):
+    """REST auth (item 7b) still refuses to start; certificate issuance
+    and the TLS RPC port (item 6c) start, and ``grpc_tls`` without
+    ``issue_certs`` is refused, as in the reference."""
     async def main():
-        for field in ("auth_enabled", "issue_certs", "grpc_tls"):
-            mgr = Manager(ManagerConfig(listen_ip="127.0.0.1",
-                                        **{field: True}))
-            with pytest.raises(ValueError, match=field):
-                await mgr.start()
-            mgr.store.close()
+        mgr = Manager(ManagerConfig(listen_ip="127.0.0.1",
+                                    auth_enabled=True))
+        with pytest.raises(ValueError, match="auth_enabled"):
+            await mgr.start()
+        mgr.store.close()
+        mgr = Manager(ManagerConfig(listen_ip="127.0.0.1", grpc_tls=True))
+        with pytest.raises(ValueError, match="grpc_tls requires issue_certs"):
+            await mgr.start()
+        mgr.store.close()
+        mgr = Manager(ManagerConfig(listen_ip="127.0.0.1",
+                                    workdir=str(tmp_path), issue_certs=True,
+                                    grpc_tls=True))
+        await mgr.start()
+        try:
+            assert mgr.rpc.tls is not None and mgr.issue_token
+            assert mgr.ca_cert_path == str(tmp_path / "manager-ca" /
+                                           "proxy-ca.crt")
+        finally:
+            await mgr.stop()
 
     _limited(main())

@@ -837,7 +837,7 @@ def test_daemon_launcher_serves_its_debug_endpoints_and_traces(tmp_path):
 
 
 @pytest.mark.parametrize("argv,names", [
-    (["--auth"], "REST auth"), (["--issue-certs"], "certificate issuance"),
+    (["--auth"], "REST auth"),
     (["--auth", "--debug-port", "-1"], "REST auth")])
 def test_auth_and_issue_certs_still_exit_2(argv, names, capsys):
     with pytest.raises(SystemExit) as exc:
@@ -845,3 +845,22 @@ def test_auth_and_issue_certs_still_exit_2(argv, names, capsys):
     assert exc.value.code == 2
     err = capsys.readouterr().err
     assert "not ported" in err and names in err, err
+
+
+def test_issue_certs_starts_a_manager_with_its_debug_port(tmp_path):
+    """``--issue-certs`` (it exited 2 until fleet mTLS was ported) starts
+    a manager beside its debug port; the CA and the issuance token land
+    in the workdir, the token at mode 0600."""
+    svc = _launch("manager", tmp_path, "--issue-certs", "--workdir",
+                  str(tmp_path / "mw"), "--debug-port", "-1")
+    try:
+        line = svc.wait_line("debug on :")
+        svc.wait_line("manager up:")
+        base = f"http://127.0.0.1:{int(line.rsplit(':', 1)[1])}"
+        status, _ = _get(base + "/debug/health")
+    finally:
+        assert svc.stop() == 0, svc.text()
+    assert status == 200
+    assert "not ported" not in svc.text()
+    assert (tmp_path / "mw" / "manager-ca" / "proxy-ca.crt").exists()
+    assert os.stat(tmp_path / "mw" / "issuer.token").st_mode & 0o777 == 0o600
