@@ -387,6 +387,36 @@ a chain's first relaying hop is the seed's first child.
               that, when it passes, fails the phase with the leecher's
               flight and the seed's holders. It prints each enrollment's
               seconds, each pull's rate and the mux counters
+22. tree     — run after phase 21, on phase 8's origin: a checkpoint tree
+              pulled from a GCS stand-in (``GCSStandIn``, standard
+              library, in a child: the JSON API's media, metadata and
+              listing paths, one ``Range``, ``HEAD``, a bearer token
+              required on every request) into the card. The bucket holds
+              the published Meta-Llama-3-8B repository's layout cut to its
+              last weight file (phase 8's): ``config.json`` and
+              ``original/params.json`` of ``LLAMA3_8B``'s widths,
+              ``model.safetensors.index.json``, the weights and a
+              zero-byte ``.gitattributes``. A second child runs a
+              scheduler and seed S, which alone reads the stand-in. L1,
+              here, takes a recursive ``Download`` over its local RPC
+              socket (device sink on the card, back-source disabled):
+              five done frames, each leaf on the card equal to its
+              object (the zero-byte leaf with no sink), the weights'
+              tensors at their header's offsets equal to phase 8's as
+              bf16 with their published shapes, the mirror equal to the
+              bucket, and no content byte from the origin. L2, here, is
+              driven by a ``dfget --recursive`` process, which must exit
+              0, print five files and leave a mirror equal to the bucket,
+              with no origin byte. The stand-in must send each object's
+              bytes once, to S, and refuse a probe without the token.
+              Then ``dfcache`` imports a seeded 64 MiB file into L1,
+              stats, exports (bytes equal) and deletes it; a ``stat``
+              after the delete exits 1 with ``NOT_FOUND``. It prints the
+              leaves and bytes, each leaf's time to device-ready, L1's
+              makespan, dfget's wall time, the stand-in's media bytes and
+              listing requests, and the peak of open sinks' pinned bytes
+              (``hdfs://`` and ``oras://`` are held in the CPU tests
+              only)
 
 Before phase 3 the native storage library (``dfnative.cc``, built with
 g++ at first use) must load: the pulls land crc32c piece digests, and the
@@ -413,6 +443,8 @@ import concurrent.futures
 import contextlib
 import dataclasses
 import datetime
+import faulthandler
+import filecmp
 import hashlib
 import http.client
 import io
@@ -7631,8 +7663,611 @@ def phase_fleet(workdir: str, device: torch.device) -> None:
         "phase_s": time.monotonic() - t_phase, "card": smi})
 
 
+# ---------------------------------------------------------------- phase 22
+
+TREE_BUCKET = "ckpt"
+TREE_PREFIX = "meta-llama/Meta-Llama-3-8B/"     # the published repository
+TREE_WEIGHTS = "model-00004-of-00004.safetensors"
+TREE_TOKEN = "ya29.smoke-tree-token"            # the stand-in's bearer token
+TREE_S, TREE_L1, TREE_L2 = "tree-s", "tree-l1", "tree-l2"
+TREE_CACHE_ID = "smoke-cache-64m"
+TREE_CACHE_BYTES = 64 << 20                     # dfcache's seeded import
+TREE_SAMPLE_S = 0.005                           # the pinned-bytes sampler
+TREE_WAIT_S = 300.0                             # bound on each wait
+
+
+class GCSStandIn:
+    """A Google Cloud Storage stand-in on the standard library: a
+    ``ThreadingHTTPServer`` speaking the JSON API over objects kept under
+    ``root/<bucket>/<object>``. ``GET`` or ``HEAD`` of
+    ``/storage/v1/b/<bucket>/o/<object>?alt=media`` serves the media (one
+    ``Range``, ``Accept-Ranges: bytes``); without ``alt=media`` the
+    metadata JSON (``name``, ``size``, ``updated``);
+    ``/storage/v1/b/<bucket>/o?prefix=P&delimiter=/`` one level of the
+    listing (``items`` and ``prefixes``, one page). Every request must
+    carry ``Authorization: Bearer <token>`` (401 otherwise). It counts the
+    media body bytes it sends per object, the listing requests and the
+    refused ones."""
+
+    def __init__(self, root: str, token: str = TREE_TOKEN):
+        self.root = root
+        self.token = token
+        self.lock = threading.Lock()
+        self.media_bytes: dict[str, int] = {}
+        self.listings = 0
+        self.unauthorized = 0
+        self.requests = 0
+        self._server = None
+
+    def stats(self) -> dict:
+        with self.lock:
+            return {"media_bytes": dict(self.media_bytes),
+                    "listings": self.listings,
+                    "unauthorized": self.unauthorized,
+                    "requests": self.requests}
+
+    def listing(self, bucket: str, prefix: str) -> dict:
+        """One level under ``prefix``: objects and sub-prefixes, in name
+        order."""
+        base = os.path.join(self.root, bucket)
+        items, prefixes = [], set()
+        for dirpath, _dirs, files in os.walk(base):
+            for fn in files:
+                full = os.path.join(dirpath, fn)
+                name = os.path.relpath(full, base).replace(os.sep, "/")
+                if not name.startswith(prefix):
+                    continue
+                rest = name[len(prefix):]
+                if "/" in rest:
+                    prefixes.add(prefix + rest.split("/", 1)[0] + "/")
+                else:
+                    items.append(self.meta(bucket, name, full))
+        return {"kind": "storage#objects",
+                "items": sorted(items, key=lambda i: i["name"]),
+                "prefixes": sorted(prefixes)}
+
+    @staticmethod
+    def meta(bucket: str, name: str, full: str) -> dict:
+        st = os.stat(full)
+        updated = datetime.datetime.fromtimestamp(
+            st.st_mtime, datetime.timezone.utc).strftime(
+                "%Y-%m-%dT%H:%M:%S.%fZ")
+        return {"kind": "storage#object", "bucket": bucket, "name": name,
+                "size": str(st.st_size), "updated": updated}
+
+    def start(self) -> int:
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+        from urllib.parse import parse_qs, unquote, urlsplit
+        store = self
+
+        class Handler(BaseHTTPRequestHandler):
+            protocol_version = "HTTP/1.1"
+
+            def log_message(self, *args) -> None:
+                pass
+
+            def _reply(self, status: int, body: bytes = b"",
+                       ctype: str = "application/json") -> None:
+                self.send_response(status)
+                self.send_header("Content-Type", ctype)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                if body and self.command != "HEAD":
+                    self.wfile.write(body)
+
+            def _handle(self) -> None:
+                with store.lock:
+                    store.requests += 1
+                if self.headers.get("Authorization", "") != \
+                        f"Bearer {store.token}":
+                    with store.lock:
+                        store.unauthorized += 1
+                    self._reply(401, b'{"error": {"code": 401}}')
+                    return
+                parts = urlsplit(self.path)
+                query = parse_qs(parts.query)
+                segs = parts.path.split("/")
+                # ['', 'storage', 'v1', 'b', <bucket>, 'o'(, <object>)]
+                if (len(segs) < 6 or segs[1:4] != ["storage", "v1", "b"]
+                        or segs[5] != "o" or len(segs) > 7):
+                    self._reply(404)
+                    return
+                bucket = unquote(segs[4])
+                if len(segs) == 6 or not segs[6]:
+                    prefix = query.get("prefix", [""])[0]
+                    with store.lock:
+                        store.listings += 1
+                    self._reply(200, json.dumps(
+                        store.listing(bucket, prefix)).encode())
+                    return
+                name = unquote(segs[6])
+                base = os.path.realpath(os.path.join(store.root, bucket))
+                full = os.path.realpath(os.path.join(base, name))
+                if not full.startswith(base + os.sep) \
+                        or not os.path.isfile(full):
+                    self._reply(404, b'{"error": {"code": 404}}')
+                    return
+                if query.get("alt", [""])[0] != "media":
+                    self._reply(200, json.dumps(
+                        store.meta(bucket, name, full)).encode())
+                    return
+                self._media(f"{bucket}/{name}", full)
+
+            def _media(self, key: str, full: str) -> None:
+                size = os.path.getsize(full)
+                start, end, status = 0, size, 200
+                m = re.match(r"bytes=(\d+)-(\d*)$",
+                             self.headers.get("Range", ""))
+                if m:
+                    start = int(m.group(1))
+                    end = min(size, int(m.group(2)) + 1 if m.group(2)
+                              else size)
+                    if start >= size:
+                        self.send_response(416)
+                        self.send_header("Content-Range", f"bytes */{size}")
+                        self.send_header("Content-Length", "0")
+                        self.end_headers()
+                        return
+                    status = 206
+                self.send_response(status)
+                self.send_header("Content-Type", "application/octet-stream")
+                self.send_header("Content-Length", str(end - start))
+                self.send_header("Accept-Ranges", "bytes")
+                if status == 206:
+                    self.send_header("Content-Range",
+                                     f"bytes {start}-{end - 1}/{size}")
+                self.end_headers()
+                if self.command == "HEAD" or end == start:
+                    return
+                self.wfile.flush()
+                with open(full, "rb") as f:
+                    sent = self.connection.sendfile(f, start, end - start)
+                with store.lock:
+                    store.media_bytes[key] = \
+                        store.media_bytes.get(key, 0) + sent
+
+            do_GET = do_HEAD = _handle
+
+        os.makedirs(self.root, exist_ok=True)
+        self._server = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self._server.daemon_threads = True
+        threading.Thread(target=self._server.serve_forever,
+                         daemon=True).start()
+        return self._server.server_address[1]
+
+    def stop(self) -> None:
+        if self._server is not None:
+            self._server.shutdown()
+            self._server.server_close()
+            self._server = None
+
+
+def gcs_standin_child(root: str, token: str, conn) -> None:
+    """Phase 22's GCS stand-in, in a child process: it sends its port,
+    answers each "stats" with its counts, and ends at "stop"."""
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    store = GCSStandIn(root, token)
+    try:
+        conn.send({"port": store.start()})
+        while conn.recv() == "stats":
+            conn.send(store.stats())
+    finally:
+        store.stop()
+
+
+def hf_tree(bucket_root: str, weights: str) -> dict[str, int]:
+    """The published Meta-Llama-3-8B repository's layout under
+    ``bucket_root/TREE_PREFIX``, cut to its last weight file: the
+    ``config.json`` and ``original/params.json`` of ``LLAMA3_8B``'s
+    widths, a ``model.safetensors.index.json`` mapping phase 8's tensors
+    to ``TREE_WEIGHTS`` (``weights``, linked in), and a zero-byte
+    ``.gitattributes``. Returns each object's path under the prefix and
+    its size."""
+    h = LLAMA3_8B["hidden"]
+    heads = h // LLAMA3_8B["head_dim"]
+    config = {"architectures": ["LlamaForCausalLM"], "model_type": "llama",
+              "hidden_size": h,
+              "intermediate_size": LLAMA3_8B["intermediate"],
+              "num_attention_heads": heads,
+              "num_hidden_layers": LLAMA3_8B["layers"],
+              "num_key_value_heads": LLAMA3_8B["kv_heads"],
+              "vocab_size": LLAMA3_8B["vocab"], "torch_dtype": "bfloat16"}
+    params = {"dim": h, "n_layers": LLAMA3_8B["layers"], "n_heads": heads,
+              "n_kv_heads": LLAMA3_8B["kv_heads"],
+              "vocab_size": LLAMA3_8B["vocab"]}
+    layout = deploy_layout()
+    index = {"metadata": {"total_size": safetensors_header(layout)[1]},
+             "weight_map": {name: TREE_WEIGHTS for name, _ in layout}}
+    base = os.path.join(bucket_root, TREE_PREFIX)
+    os.makedirs(os.path.join(base, "original"), exist_ok=True)
+    files = {"config.json": json.dumps(config, indent=2).encode(),
+             "original/params.json": json.dumps(params, indent=2).encode(),
+             "model.safetensors.index.json":
+                 json.dumps(index, indent=2).encode(),
+             ".gitattributes": b""}
+    for rel, data in files.items():
+        with open(os.path.join(base, rel), "wb") as f:
+            f.write(data)
+    dst = os.path.join(base, TREE_WEIGHTS)
+    try:
+        os.link(weights, dst)
+    except OSError:
+        shutil.copyfile(weights, dst)
+    return {rel: os.path.getsize(os.path.join(base, rel))
+            for rel in [*files, TREE_WEIGHTS]}
+
+
+def tree_child(workdir: str, endpoint: str, token: str, conn) -> None:
+    """Phase 22's scheduler and seed S, in a child process that never
+    touches CUDA, S reading the GCS stand-in at ``endpoint`` with the
+    token: it sends the scheduler's address, answers each "stats" with
+    S's tasks, and ends at "stop"."""
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    os.environ["DF_GCS_ENDPOINT"] = endpoint
+    os.environ["GOOGLE_APPLICATION_TOKEN"] = token
+    asyncio.run(_tree_child(workdir, conn))
+
+
+async def _tree_child(workdir: str, conn) -> None:
+    s = Daemon(DaemonConfig(
+        workdir=os.path.join(workdir, "s"), hostname=TREE_S, is_seed=True,
+        listen_ip="127.0.0.1", host_ip="127.0.0.1", device="cpu"))
+    await s.start()
+    sched = Scheduler(SchedCfg(
+        listen_ip="127.0.0.1",
+        seed_peers=[SeedPeerAddr(host_id=s.host_info().id, ip="127.0.0.1",
+                                 rpc_port=s.rpc.port,
+                                 download_port=s.upload_server.port)]))
+    await sched.start()
+    try:
+        conn.send({"scheduler": sched.address})
+        while await asyncio.to_thread(conn.recv) == "stats":
+            conn.send({ts.md.url: {"length": ts.md.content_length,
+                                   "done": ts.md.done and ts.md.success}
+                       for ts in s.storage_mgr.tasks()})
+    finally:
+        await s.stop()
+        await sched.stop()
+
+
+def _mirror_equal(out_dir: str, tree: str, sizes: dict[str, int]) -> dict:
+    """Each object's bytes against its mirror under ``out_dir``; the
+    mismatches, and files the mirror has beyond the tree."""
+    bad = {}
+    for rel in sizes:
+        path = os.path.join(out_dir, rel)
+        if not os.path.isfile(path):
+            bad[rel] = "missing"
+        elif not filecmp.cmp(path, os.path.join(tree, rel), shallow=False):
+            bad[rel] = "differs"
+    extra = sorted(
+        os.path.relpath(os.path.join(dp, fn), out_dir)
+        for dp, _d, fns in os.walk(out_dir) for fn in fns
+        if os.path.relpath(os.path.join(dp, fn), out_dir) not in sizes)
+    return {"bad": bad, "extra": extra}
+
+
+async def _tree_leaf_ready(c, t0: float) -> tuple:
+    """A completed leaf's bytes on the device and its time to
+    device-ready (seconds from ``t0``); a zero-byte leaf has no sink."""
+    ingest = c.device_ingest
+    if ingest is None:
+        return None, time.monotonic() - t0
+    out = await asyncio.to_thread(ingest.result, TREE_WAIT_S)
+    if torch.cuda.is_available():
+        await asyncio.to_thread(torch.cuda.synchronize)
+    return torch.cat(out)[:c.content_length], time.monotonic() - t0
+
+
+async def _tree_run(workdir: str, url: str, sched_addr: str,
+                    device: torch.device) -> dict:
+    """L1 and L2 here: L1's recursive ``Download`` over its local RPC
+    socket into the card, L2's through a ``dfget --recursive`` process,
+    then dfcache's round trip on L1."""
+    def cfg(name: str) -> DaemonConfig:
+        return DaemonConfig(
+            workdir=os.path.join(workdir, name), hostname=name,
+            listen_ip="127.0.0.1", host_ip="127.0.0.1",
+            device="cpu" if device.type == "cpu" else "cuda",
+            scheduler=SchedulerConfig(addresses=[sched_addr]))
+
+    l1, l2 = Daemon(cfg(TREE_L1)), Daemon(cfg(TREE_L2))
+    await l1.start()
+    await l2.start()
+    out: dict = {}
+    try:
+        # L1: the recursive Download, as a client of its RPC socket sends it
+        stop = asyncio.Event()
+        peak = {"open_pinned": 0}
+
+        async def sample() -> None:
+            while not stop.is_set():
+                n = sum(c.device_ingest.pinned_bytes
+                        for c in list(l1.ptm._conductors.values())
+                        if c.device_ingest is not None
+                        and not c.device_ingest._closed)
+                peak["open_pinned"] = max(peak["open_pinned"], n)
+                await asyncio.sleep(TREE_SAMPLE_S)
+
+        sampler = asyncio.get_running_loop().create_task(sample())
+        ch = Channel(f"unix:{l1.unix_sock}")
+        client = ServiceClient(ch, "df.daemon.Daemon")
+        l1_out = os.path.join(workdir, "l1-mirror")
+        dones, ready = [], []
+        t0 = time.monotonic()
+
+        async def recursive() -> None:
+            async for resp in client.unary_stream("Download", DownloadRequest(
+                    url=url, output=l1_out, recursive=True,
+                    device_sink=DeviceSink(enabled=True),
+                    disable_back_source=True, timeout_s=TREE_WAIT_S)):
+                if resp.done:
+                    dones.append(resp)
+                    c = l1.ptm.conductor(resp.task_id)
+                    ready.append((resp, c, asyncio.get_running_loop()
+                                  .create_task(_tree_leaf_ready(c, t0))))
+
+        try:
+            await asyncio.wait_for(recursive(), TREE_WAIT_S)
+            leaves = {}
+            for resp, c, task in ready:
+                tensor, ready_s = await asyncio.wait_for(task, TREE_WAIT_S)
+                leaves[os.path.relpath(resp.output, l1_out)] = {
+                    "tensor": tensor, "ready_s": ready_s,
+                    "length": c.content_length,
+                    "source": c.traffic_source, "p2p": c.traffic_p2p,
+                    "sink": c.device_ingest is not None}
+        except asyncio.TimeoutError:
+            flights = {c.url: c.flight.summarize() if c.flight else None
+                       for c in l1.ptm._conductors.values()}
+            raise CheckFailed(
+                f"phase 22 L1: recursive pull not done within "
+                f"{TREE_WAIT_S:.0f} s ({len(dones)} done frames); flights "
+                f"{json.dumps(flights, default=str)[:6000]}") from None
+        finally:
+            stop.set()
+            await sampler
+            await ch.close()
+        out["l1"] = {"makespan_s": time.monotonic() - t0, "leaves": leaves,
+                     "done_frames": len(dones),
+                     "peak_open_pinned_bytes": peak["open_pinned"],
+                     "pinned_bytes": sum(
+                         c.device_ingest.pinned_bytes
+                         for _r, c, _t in ready
+                         if c.device_ingest is not None),
+                     "mirror": l1_out}
+        # L2: dfget --recursive, its own process, through L2's socket
+        l2_out = os.path.join(workdir, "l2-mirror")
+        rc, text, wall = await asyncio.to_thread(
+            run_cli_process, "dragonfly2_tpu_torch.tools.dfget",
+            ["--recursive", url, "-O", l2_out, "--daemon-sock",
+             l2.unix_sock])
+        out["l2"] = {"rc": rc, "out": text, "wall_s": wall,
+                     "mirror": l2_out,
+                     "source": sum(c.traffic_source
+                                   for c in l2.ptm._conductors.values()),
+                     "tasks": len(l2.ptm._conductors)}
+        # dfcache on L1: import, stat, export, delete, stat
+        src = os.path.join(workdir, "cache-in.bin")
+        data = seeded_bytes(np.random.default_rng(22), TREE_CACHE_BYTES)
+        with open(src, "wb") as f:
+            f.write(memoryview(data))
+        exported = os.path.join(workdir, "cache-out.bin")
+        steps = []
+        for argv in (["import", TREE_CACHE_ID, "-I", src],
+                     ["stat", TREE_CACHE_ID],
+                     ["export", TREE_CACHE_ID, "-O", exported],
+                     ["delete", TREE_CACHE_ID],
+                     ["stat", TREE_CACHE_ID]):
+            rc, text, wall = await asyncio.to_thread(
+                run_cli_process, "dragonfly2_tpu_torch.tools.dfcache",
+                [*argv, "--daemon-sock", l1.unix_sock])
+            steps.append({"op": argv[0], "rc": rc, "out": text,
+                          "wall_s": wall})
+        with open(exported, "rb") as f:
+            out["dfcache"] = {"steps": steps,
+                              "equal": f.read() == data.tobytes()}
+    finally:
+        await l2.stop()
+        await l1.stop()
+    return out
+
+
+def run_cli_process(module: str, argv: list[str]) -> tuple[int, str, float]:
+    """``python -m module argv`` as its own process, off the card: (exit
+    code, its stdout and stderr, seconds)."""
+    t0 = time.monotonic()
+    r = subprocess.run([sys.executable, "-m", module, *argv],
+                       capture_output=True, text=True, timeout=TREE_WAIT_S,
+                       cwd=ROOT,
+                       env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    return r.returncode, r.stdout + r.stderr, time.monotonic() - t0
+
+
+def phase_tree(workdir: str, device: torch.device) -> None:
+    """Phase 22: a checkpoint tree pulled from a GCS stand-in into the
+    card through a recursive ``Download``, a ``dfget --recursive``
+    process and dfcache's round trip, on phase 8's origin.
+
+    The tree is the published Meta-Llama-3-8B repository's layout cut to
+    its last weight file (``hf_tree``): five objects, one under a nested
+    prefix, one of zero bytes. The ``hdfs://`` and ``oras://`` clients
+    have no leg here: their device leg is the one this phase drives for
+    ``gs://`` (an origin listed by the walker and read by the seed), and
+    ``oras://`` over TLS would need phase 20's registry stand-in again,
+    so both are held against the reference in the CPU tests only."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    t_phase = time.monotonic()
+    path = os.path.join(workdir, "deploy", TREE_WEIGHTS)
+    size = os.path.getsize(path)
+    d = os.path.join(workdir, "tree")
+    os.makedirs(d, exist_ok=True)
+    # S's, L1's and L2's copies, two mirrors, and one to spare
+    need = 6 * size + 4 * TREE_CACHE_BYTES
+    free = shutil.disk_usage(workdir).free
+    check(free >= need, f"phase 22 needs {need} bytes of free disk, "
+                        f"{free} free")
+    gcs_root = os.path.join(d, "gcs")
+    sizes = hf_tree(os.path.join(gcs_root, TREE_BUCKET), path)
+    tree = os.path.join(gcs_root, TREE_BUCKET, TREE_PREFIX)
+    url = f"gs://{TREE_BUCKET}/{TREE_PREFIX}"
+    layout = deploy_layout()
+    header, _ = safetensors_header(layout)
+    ctx = child_context()
+    g_conn, g_child = ctx.Pipe()
+    gcs = ctx.Process(target=gcs_standin_child, name="smoke-gcs",
+                      args=(gcs_root, TREE_TOKEN, g_child))
+    gcs.start()
+    s_conn = s = None
+    env = {k: os.environ.get(k) for k in ("DF_GCS_ENDPOINT",
+                                           "GOOGLE_APPLICATION_TOKEN")}
+    try:
+        check(g_conn.poll(120), "phase 22's GCS stand-in did not start")
+        endpoint = f"http://127.0.0.1:{g_conn.recv()['port']}"
+        # a probe without the token is refused
+        try:
+            urllib.request.urlopen(
+                f"{endpoint}/storage/v1/b/{TREE_BUCKET}/o?prefix="
+                f"{urllib.parse.quote(TREE_PREFIX, safe='')}", timeout=30)
+            anon = 200
+        except urllib.error.HTTPError as exc:
+            anon = exc.code
+        s_conn, s_child = ctx.Pipe()
+        s = ctx.Process(target=tree_child, name="smoke-tree",
+                        args=(d, endpoint, TREE_TOKEN, s_child))
+        s.start()
+        check(s_conn.poll(TREE_WAIT_S), "phase 22's scheduler and seed did "
+                                        "not start")
+        sched_addr = s_conn.recv()["scheduler"]
+        # the walkers (L1 and L2) list the stand-in from this process
+        os.environ["DF_GCS_ENDPOINT"] = endpoint
+        os.environ["GOOGLE_APPLICATION_TOKEN"] = TREE_TOKEN
+        run = asyncio.run(_tree_run(d, url, sched_addr, device))
+        gcs_t = _ask(g_conn, "stats")
+        s_tasks = _ask(s_conn, "stats")
+    finally:
+        for k, v in env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        for conn in (s_conn, g_conn):
+            try:
+                if conn is not None:
+                    conn.send("stop")
+            except OSError:
+                pass
+        for proc in (s, gcs):
+            if proc is None:
+                continue
+            proc.join(timeout=60)
+            if proc.is_alive():
+                proc.terminate()
+                proc.join(timeout=30)
+    check(s.exitcode == 0, f"phase 22's seed child exited {s.exitcode}")
+    check(anon == 401, f"phase 22: a probe without the token got {anon}")
+    # L1: five done frames, each leaf on the card equal to its object
+    l1 = run["l1"]
+    leaves = l1["leaves"]
+    check(l1["done_frames"] == len(sizes) and set(leaves) == set(sizes),
+          f"phase 22 L1: {l1['done_frames']} done frames for "
+          f"{sorted(leaves)}, want {sorted(sizes)}")
+    for rel, leaf in leaves.items():
+        t = leaf["tensor"]
+        if sizes[rel] == 0:
+            check(t is None and not leaf["sink"] and leaf["length"] == 0,
+                  f"phase 22 L1: the zero-byte {rel} has a sink")
+            continue
+        with open(os.path.join(tree, rel), "rb") as f:
+            want = torch.frombuffer(bytearray(f.read()), dtype=torch.uint8)
+        check(t is not None and t.device.type == device.type
+              and torch.equal(t, want.to(device)),
+              f"phase 22 L1: {rel} on the card differs from its object")
+        check(leaf["source"] == 0 and leaf["p2p"] == sizes[rel],
+              f"phase 22 L1: {rel} p2p {leaf['p2p']} source "
+              f"{leaf['source']}, want {sizes[rel]} from peers")
+    # the weights' tensors at their header's offsets, as bf16 on the card
+    flat = leaves[TREE_WEIGHTS]["tensor"]
+    n = struct.unpack("<Q", bytes(flat[:8].cpu().numpy()))[0]
+    entries = json.loads(bytes(flat[8:8 + n].cpu().numpy()))
+    with open(path, "rb") as f:
+        f.seek(len(header))
+        ref = torch.frombuffer(bytearray(f.read()), dtype=torch.uint8).to(
+            device)
+    for name, shape in layout:
+        lo, hi = entries[name]["data_offsets"]
+        t = flat[8 + n + lo:8 + n + hi].view(torch.bfloat16).reshape(shape)
+        r = ref[lo:hi].view(torch.bfloat16).reshape(shape)
+        # compared as bytes: seeded bits hold NaNs, which equal nothing
+        check(entries[name]["shape"] == shape
+              and entries[name]["dtype"] == "BF16"
+              and list(t.shape) == shape
+              and torch.equal(t.view(torch.uint8), r.view(torch.uint8)),
+              f"phase 22 L1: {name} differs from phase 8's")
+    del flat, ref, t, r
+    mirror1 = _mirror_equal(l1["mirror"], tree, sizes)
+    check(not mirror1["bad"] and not mirror1["extra"],
+          f"phase 22 L1's mirror: {mirror1}")
+    # L2: dfget exits 0, prints five files, mirrors the bucket, no origin
+    l2 = run["l2"]
+    lines = [ln for ln in l2["out"].splitlines() if ln.startswith("dfget: [")]
+    check(l2["rc"] == 0 and len(lines) == len(sizes)
+          and f"dfget: {len(sizes)} files" in l2["out"],
+          f"phase 22 dfget: exit {l2['rc']}: {l2['out'][-2000:]}")
+    mirror2 = _mirror_equal(l2["mirror"], tree, sizes)
+    check(not mirror2["bad"] and not mirror2["extra"]
+          and l2["source"] == 0 and l2["tasks"] == len(sizes),
+          f"phase 22 L2: mirror {mirror2}, {l2['tasks']} tasks, source "
+          f"bytes {l2['source']}")
+    # the stand-in sent each byte once, to S
+    media = gcs_t["media_bytes"]
+    check(sum(media.values()) == sum(sizes.values())
+          and all(media.get(f"{TREE_BUCKET}/{TREE_PREFIX}{rel}", 0) == sz
+                  for rel, sz in sizes.items()),
+          f"phase 22: the stand-in's media bytes {media}, want each "
+          f"object once: {sizes}")
+    check(gcs_t["unauthorized"] == 1,
+          f"phase 22: {gcs_t['unauthorized']} unauthorized requests, want "
+          f"the one probe")
+    seeded = {u: t for u, t in s_tasks.items() if u.startswith(url)}
+    check(len(seeded) == len(sizes) and all(t["done"]
+                                            for t in seeded.values()),
+          f"phase 22: S's tasks {seeded}")
+    # dfcache's round trip on L1
+    steps = run["dfcache"]["steps"]
+    stat = json.loads(steps[1]["out"].splitlines()[0]) \
+        if steps[1]["rc"] == 0 else {}
+    check(all(steps[i]["rc"] == 0 for i in range(4))
+          and stat.get("content_length") == TREE_CACHE_BYTES
+          and run["dfcache"]["equal"]
+          and steps[4]["rc"] == 1 and "NOT_FOUND" in steps[4]["out"],
+          f"phase 22 dfcache: {steps}")
+    shutil.rmtree(d, ignore_errors=True)
+    emit("phase 22 tree", {
+        "url": url, "leaves": len(sizes), "bytes": sum(sizes.values()),
+        "sizes": sizes, "cut": "four weight files to the last one "
+        "(phase 8's lm_head.weight and model.norm.weight)",
+        "l1_ready_s": {rel: leaf["ready_s"] for rel, leaf in leaves.items()},
+        "l1_makespan_s": l1["makespan_s"],
+        "l1_gbps": sum(sizes.values()) / 1e9 / l1["makespan_s"],
+        "peak_open_pinned_bytes": l1["peak_open_pinned_bytes"],
+        "pinned_bytes": l1["pinned_bytes"],
+        "dfget_wall_s": l2["wall_s"],
+        "dfget_gbps": sum(sizes.values()) / 1e9 / l2["wall_s"],
+        "media_bytes": sum(media.values()),
+        "listing_requests": gcs_t["listings"],
+        "standin_requests": gcs_t["requests"],
+        "unauthorized": gcs_t["unauthorized"],
+        "dfcache_s": {f"{i}:{st['op']}": st["wall_s"]
+                      for i, st in enumerate(steps)},
+        "phase_s": time.monotonic() - t_phase, "card": smi})
+
+
 def run_phases(layers: int, seed: int, device: torch.device) -> None:
-    """Phases 2-21 on ``device``; raises CheckFailed on a failed check."""
+    """Phases 2-22 on ``device``; raises CheckFailed on a failed check."""
     layout = llama_layout(layers)
     header, nbytes = safetensors_header(layout)
     workdir = tempfile.mkdtemp(prefix="chip-smoke-")
@@ -7703,6 +8338,7 @@ def run_phases(layers: int, seed: int, device: torch.device) -> None:
         shutil.rmtree(os.path.join(workdir, "objstore"), ignore_errors=True)
         phase_mirror(workdir, seed, device)
         phase_fleet(workdir, device)
+        phase_tree(workdir, device)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -7717,6 +8353,11 @@ def main() -> None:
     if not 0 <= args.layers <= LLAMA3_8B["layers"]:
         ap.error(f"--layers must be 0..{LLAMA3_8B['layers']}")
     t_start = time.monotonic()
+    # a crash in native code (the CUDA runtime, sqlite, ctypes) prints
+    # every thread's stack; the environment carries it to the fork server
+    # and the command-line tools, which start after this line
+    faulthandler.enable(all_threads=True)
+    os.environ["PYTHONFAULTHANDLER"] = "1"
     name = phase_device()
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)

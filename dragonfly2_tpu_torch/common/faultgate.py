@@ -24,7 +24,10 @@ port fires:
 * ``sched.snapshot.io`` (``scheduler/statestore.py`` persist path, keyed
   by the snapshot reason): ``corrupt`` flips a byte of the serialized
   blob so load refuses it wholesale, ``error``/``fail`` raise
-  mid-persist, ``delay`` models a slow disk.
+  mid-persist, ``delay`` models a slow disk;
+* ``source.fetch`` (``source/client.py`` module-level ``download``, keyed
+  by the URL): ``error``/``fail`` play an origin failure for that URL's
+  back-source pull, ``delay`` a slow origin.
 
 Call sites guard with ``if faultgate.ARMED:`` so a disarmed process pays
 one attribute load. Scripts arm from code (``arm``), from the reference's
@@ -48,7 +51,7 @@ log = logging.getLogger("df.faultgate")
 
 SITES = frozenset({"hbm.ingest", "piece.wire", "relay.stall",
                    "upload.serve", "sched.register", "pex.gossip",
-                   "sched.snapshot.io"})
+                   "sched.snapshot.io", "source.fetch"})
 KINDS = frozenset({"fail", "error", "delay", "hang", "corrupt"})
 
 # fast-path flag: True iff at least one script is armed

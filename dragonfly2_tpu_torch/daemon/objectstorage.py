@@ -9,7 +9,8 @@ piece order as the pieces land), a PUT with write-back to the bucket's
 backend and import into the local piece cache, and the reference's
 ``df_objstore_requests_total{op,status}``. A bucket maps to a source URL
 base (``ObjectStorageConfig.buckets``: ``file://``, ``http(s)://``,
-``s3://``, or a scheme a source plugin registered) and optionally to a
+``s3://``, ``gs://``, ``memory://``, or a scheme a source plugin
+registered) and optionally to a
 write backend (``backends``: ``common/objectstorage.py``); a ``file://``
 bucket gets an implicit file backend. Reads of an ``s3`` backend's bucket
 go to that backend's endpoint (``s3+http(s)://``), under the object
@@ -23,8 +24,6 @@ chunked) is streamed to the handler and a PUT spools it to a file under
 the daemon's data directory (memory stays bounded at any object size);
 a GET streams its response as the pieces are read. The QoS governor's
 shed answers a GET 429 with ``Retry-After`` and ``X-Retry-After-Ms``.
-Buckets whose base is ``gs://`` or ``memory://`` wait for their source
-clients (ROADMAP item 6d) and are refused when the gateway is built.
 """
 
 from __future__ import annotations
@@ -52,8 +51,6 @@ _obj_reqs = REGISTRY.counter("df_objstore_requests_total",
                              "object gateway requests", ("op", "status"))
 
 _CHUNK = 1 << 20
-# bases whose source clients are not ported yet (item 6d)
-_WAITING_SCHEMES = ("gs://", "memory://")
 
 
 class _Body:
@@ -131,12 +128,6 @@ class ObjectGateway:
         self.daemon = daemon
         self.cfg = cfg
         self.port = cfg.port
-        for bucket, base in cfg.buckets.items():
-            if base.startswith(_WAITING_SCHEMES):
-                raise DFError(
-                    Code.INVALID_ARGUMENT,
-                    f"bucket {bucket!r}: base {base!r} waits for its source "
-                    f"client (ROADMAP Queue 1 item 6d)")
         # write-path backends (reference pkg/objectstorage clients);
         # file:// read buckets get an implicit file backend
         self._backends = {}

@@ -34,7 +34,9 @@ The object gateway's two paths: ``stream_task`` gives a task's bytes in
 order as they land (a completed task replays from disk; a running file
 task joined by a stream switches to in-order fetching), and
 ``import_file`` makes a local file a completed task under a URL's task
-id, as a back-source pull would store it.
+id, as a back-source pull would store it. ``import_file`` and
+``export_file`` also serve the local API's ``ImportTask`` and
+``ExportTask`` (dfcache).
 """
 
 from __future__ import annotations
@@ -419,6 +421,27 @@ class PeerTaskManager:
             raise
         if conductor.state != PeerTaskConductor.SUCCESS:
             raise DFError(conductor.fail_code, conductor.fail_message)
+        return task_id
+
+    async def export_file(self, url: str, output: str,
+                          meta: UrlMeta | None = None, *,
+                          local_only: bool = False,
+                          timeout_s: float = 0.0) -> str:
+        """Write ``url``'s task to ``output`` (dfcache's export): a task
+        completed here is copied out off the loop; else, unless
+        ``local_only`` (then NOT_FOUND), it is downloaded as a file task."""
+        meta = meta or UrlMeta()
+        task_id = self._task_id(url, meta)
+        ts = self.storage_mgr.find_completed_task(task_id)
+        if ts is not None:
+            await asyncio.to_thread(ts.store_to, output)
+            return task_id
+        if local_only:
+            raise DFError(Code.NOT_FOUND, "task not cached locally")
+        req = DownloadRequest(url=url, output=output, url_meta=meta,
+                              timeout_s=timeout_s)
+        async for _ in self.start_file_task(req):
+            pass
         return task_id
 
     async def delete_task(self, task_id: str) -> bool:

@@ -2,10 +2,16 @@
 
 Counterpart of ``dragonfly2_tpu/daemon/rpcserver.py`` (reference
 ``client/daemon/rpcserver/rpcserver.go``): the local API (``Download``
-server stream, ``StatTask``, ``DeleteTask``), the peer API
-(``GetPieceTasks`` and the ``SyncPieceTasks`` bidi stream) and the
-seeder's ``ObtainSeeds``. ``ImportTask`` and ``ExportTask`` wait for a
-later slice.
+server stream, ``StatTask``, ``ImportTask``, ``ExportTask``,
+``DeleteTask``), the peer API (``GetPieceTasks`` and the
+``SyncPieceTasks`` bidi stream) and the seeder's ``ObtainSeeds``.
+
+A recursive ``Download`` walks the origin's listing from this daemon
+(``source.walk``; listings come from here even with back-source
+disabled, as in the reference) and runs one file task per leaf, its
+output mirrored under the request's ``output``, with at most
+``recursive_concurrency`` leaves in flight; the leaves' frames interleave
+on the one stream, each leaf ending with its own done frame.
 
 A seed daemon rations its announcements through super-seeding
 (``_SuperSeed``), as the reference's seeds do: each landed piece is
@@ -26,14 +32,18 @@ from __future__ import annotations
 
 import asyncio
 import logging
+import os
+from dataclasses import replace
 from typing import AsyncIterator
 
 from ..common.errors import Code, DFError
 from ..common.rate import TokenBucket
 from ..idl.messages import (DeleteTaskRequest, DownloadRequest, Empty,
+                            ExportTaskRequest, ImportTaskRequest,
                             ObtainSeedsRequest, PiecePacket, PieceSeed,
                             PieceTaskRequest, StatTaskDaemonRequest, TaskStat,
                             UrlMeta)
+from ..source import walk
 from ..rpc.server import ServiceDef
 from .config import SchedulerConfig
 from .peertask_manager import PeerTaskManager
@@ -188,16 +198,94 @@ class DaemonService:
     async def download(self, request: DownloadRequest,
                        context) -> AsyncIterator:
         if request.recursive:
-            raise DFError(Code.INVALID_ARGUMENT,
-                          "recursive downloads are not supported")
+            async for resp in self._download_recursive(request):
+                yield resp
+            return
         async for resp in self.ptm.start_file_task(request):
             yield resp
+
+    async def _download_recursive(self, request: DownloadRequest
+                                  ) -> AsyncIterator:
+        """One file task per leaf of the walk, mirrored under
+        ``request.output``, at most ``recursive_concurrency`` in flight.
+        The first leaf error is raised on the stream once the walk and
+        the leaves have ended; a client that goes cancels the producer
+        and its leaves."""
+        meta = request.url_meta
+        if meta is not None and (meta.digest or meta.range):
+            # a whole-tree digest or range cannot apply to each file
+            meta = replace(meta, digest="", range="")
+        header = dict(meta.header) if meta is not None and meta.header \
+            else None
+        sem = asyncio.Semaphore(max(1, request.recursive_concurrency))
+        out_q: asyncio.Queue = asyncio.Queue()      # unbounded: put never waits
+        done = object()
+
+        async def fetch(entry, rel: str) -> None:
+            async with sem:         # held for the whole leaf: the fan-out cap
+                sub = DownloadRequest(
+                    url=entry.url, output=os.path.join(request.output, rel),
+                    url_meta=meta, timeout_s=request.timeout_s,
+                    disable_back_source=request.disable_back_source,
+                    device_sink=request.device_sink,
+                    task_type=request.task_type,
+                    rate_limit_bps=request.rate_limit_bps,
+                    keep_original_offset=request.keep_original_offset)
+                async for resp in self.ptm.start_file_task(sub):
+                    out_q.put_nowait(resp)
+
+        async def produce() -> None:
+            loop = asyncio.get_running_loop()
+            tasks: list[asyncio.Task] = []
+            try:
+                async for entry, rel in walk(request.url,
+                                             timeout_s=request.timeout_s,
+                                             header=header):
+                    tasks.append(loop.create_task(fetch(entry, rel)))
+                results = await asyncio.gather(*tasks,
+                                               return_exceptions=True)
+                errs = [r for r in results if isinstance(r, BaseException)]
+                if errs:
+                    raise errs[0]
+            finally:
+                for t in tasks:
+                    if not t.done():
+                        t.cancel()
+                out_q.put_nowait(done)
+
+        producer = asyncio.get_running_loop().create_task(produce())
+        try:
+            while True:
+                item = await out_q.get()
+                if item is done:
+                    break
+                yield item
+            await producer          # the walk's or a leaf's error
+        finally:
+            if not producer.done():     # the client went
+                producer.cancel()
+                await asyncio.gather(producer, return_exceptions=True)
 
     async def stat_task(self, request: StatTaskDaemonRequest,
                         context) -> TaskStat:
         task_id = request.task_id or self.ptm._task_id(
             request.url, request.url_meta or UrlMeta())
         return await self.ptm.stat_task(task_id)
+
+    async def import_task(self, request: ImportTaskRequest,
+                          context) -> TaskStat:
+        task_id = await self.ptm.import_file(
+            request.path, request.url, request.url_meta,
+            task_type=request.task_type)
+        return await self.ptm.stat_task(task_id)
+
+    async def export_task(self, request: ExportTaskRequest,
+                          context) -> Empty:
+        await self.ptm.export_file(request.url, request.output,
+                                   request.url_meta,
+                                   local_only=request.local_only,
+                                   timeout_s=request.timeout_s)
+        return Empty()
 
     async def delete_task(self, request: DeleteTaskRequest, context) -> Empty:
         task_id = request.task_id or self.ptm._task_id(
@@ -493,6 +581,8 @@ def build_service(svc: DaemonService) -> list[ServiceDef]:
     d = ServiceDef(DAEMON_SERVICE)
     d.unary_stream("Download", svc.download)
     d.unary_unary("StatTask", svc.stat_task)
+    d.unary_unary("ImportTask", svc.import_task)
+    d.unary_unary("ExportTask", svc.export_task)
     d.unary_unary("DeleteTask", svc.delete_task)
     d.unary_unary("GetPieceTasks", svc.get_piece_tasks)
     d.stream_stream("SyncPieceTasks", svc.sync_piece_tasks)

@@ -508,6 +508,23 @@ class StatTaskDaemonRequest:
 
 
 @message
+class ImportTaskRequest:
+    path: str = ""
+    url: str = ""                   # the cache key URL (cache://...)
+    url_meta: UrlMeta | None = None
+    task_type: TaskType = TaskType.PERSISTENT
+
+
+@message
+class ExportTaskRequest:
+    url: str = ""
+    output: str = ""
+    url_meta: UrlMeta | None = None
+    timeout_s: float = 0.0
+    local_only: bool = False
+
+
+@message
 class DeleteTaskRequest:
     url: str = ""
     url_meta: UrlMeta | None = None

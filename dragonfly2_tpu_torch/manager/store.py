@@ -155,7 +155,12 @@ class Store:
             self._db.commit()
 
     def close(self) -> None:
-        self._db.close()
+        # under the lock: a query still running on a worker thread (its
+        # handler cancelled by the server's stop) must finish first, since
+        # closing the connection under sqlite3_step crashes the process;
+        # a later call raises sqlite3.ProgrammingError instead
+        with self._lock:
+            self._db.close()
 
     def _exec(self, sql: str, args: Iterable[Any] = ()) -> sqlite3.Cursor:
         with self._lock:

@@ -21,6 +21,9 @@ uses aiohttp's session; so does the proxy's direct route, which needs a
 response as received: its reason phrase and every header line in order,
 repeats included, in ``Headers.lines``). As with aiohttp, the default
 ``User-Agent`` and ``Accept`` go out only when the caller gives none.
+``list`` is the reference's one-entry listing of the URL itself. The
+``gs``, ``oras`` and ``hdfs`` clients speak their protocols through this
+client.
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ from typing import AsyncIterator
 from urllib.parse import urljoin, urlsplit
 
 from ..common.errors import Code, DFError
-from .client import SourceRequest, SourceResponse, register_client
+from .client import ListEntry, SourceRequest, SourceResponse, register_client
 
 _CHUNK = 1 << 20
 _READ_LIMIT = 2 << 20        # stream buffer; bounds one head line too
@@ -588,6 +591,12 @@ class HTTPSourceClient:
             or resp.headers.get("Accept-Ranges", "").lower() == "bytes",
             last_modified=resp.headers.get("Last-Modified", ""),
             header=resp.headers, chunks=chunks())
+
+    async def list(self, req: SourceRequest) -> list[ListEntry]:
+        """Plain HTTP has no directory protocol: one entry, the URL."""
+        return [ListEntry(url=req.url, name=req.url.rsplit("/", 1)[-1],
+                          is_dir=False,
+                          content_length=await self.content_length(req))]
 
 
 register_client(["http", "https"], HTTPSourceClient())

@@ -62,23 +62,26 @@ def build() -> str:
 
 def load():
     """Build (when needed) and load the library once; None when it cannot
-    be built or loaded."""
+    be built or loaded. A thread that calls while another builds or loads
+    waits for that attempt's outcome: the attempt is marked done only
+    after ``_lib`` is set, so no piece lands with the fallback digest
+    while the library is still loading."""
     global _lib, _load_attempted
     if _lib is not None or _load_attempted:
         return _lib
     with _lib_lock:
         if _lib is not None or _load_attempted:
             return _lib
-        _load_attempted = True
         try:
             lib = ctypes.CDLL(build())
+            _bind(lib)
+            _lib = lib
         except (OSError, subprocess.SubprocessError) as exc:
             detail = getattr(exc, "stderr", b"") or b""
             log.warning("native storage library unavailable (%s) %s", exc,
                         detail.decode(errors="replace")[-2000:])
-            return None
-        _bind(lib)
-        _lib = lib
+        finally:
+            _load_attempted = True
     return _lib
 
 

@@ -7,9 +7,12 @@ digest check. ``--shard-manifest`` with ``--shards`` pulls only the
 pieces covering the named shards and prints one ready line per shard,
 marked ``(tree)`` or ``(swap)`` by its supply path. ``--tenant`` and
 ``--qos-class`` ride the request's ``UrlMeta`` to the daemon's governor
-and shaper and to the scheduler's quotas. Origins are ``file://``,
-``http://`` and ``https://``; recursive downloads are not ported yet and
-their flag exits non-zero.
+and shaper and to the scheduler's quotas. ``--recursive`` mirrors a
+directory-shaped origin (a ``file://`` directory, a ``gs://`` or
+``hdfs://`` prefix, ``memory://`` names) under ``-O``: through the
+daemon, which walks the listing and runs one file task per leaf, printing
+one line per completed file and a total; with ``--no-daemon`` (or no
+daemon) the listing is walked here and each file fetched from the origin.
 
 Usage:
     python -m dragonfly2_tpu_torch.tools.dfget URL -O /path/out [options]
@@ -33,8 +36,7 @@ from ..common.unit import format_bytes
 from ..idl.messages import (DownloadRequest, Empty, Priority, ShardInfo,
                             ShardManifest, UrlMeta)
 from ..rpc.client import Channel, ServiceClient
-from ..source import SourceRequest, client_for, close_clients
-from . import refuse_unported
+from ..source import SourceRequest, client_for, close_clients, walk
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -141,8 +143,23 @@ async def download_via_daemon(sock: str, args, *, progress=None) -> None:
         client = ServiceClient(ch, "df.daemon.Daemon")
         req = DownloadRequest(url=args.url, output=os.path.abspath(args.output),
                               url_meta=_meta(args), timeout_s=args.timeout,
+                              recursive=args.recursive,
                               shard_manifest=_load_shard_manifest(
                                   args.shard_manifest))
+        if args.recursive:
+            # the leaves' frames interleave with no file name on progress
+            # frames: report each completed file instead of a percentage
+            files = total = 0
+            async for resp in client.unary_stream("Download", req):
+                if resp.done:
+                    files += 1
+                    total += resp.completed_length
+                    if not args.quiet:
+                        print(f"dfget: [{files}] {resp.output} "
+                              f"({format_bytes(resp.completed_length)})")
+            if not args.quiet:
+                print(f"dfget: {files} files, {format_bytes(total)} total")
+            return
         async for resp in client.unary_stream("Download", req):
             if resp.shard and not args.quiet:
                 # per-shard ready line: the shard's bytes all verified
@@ -161,21 +178,35 @@ async def download_via_daemon(sock: str, args, *, progress=None) -> None:
 
 async def download_from_source(args, *, progress=None) -> None:
     """Direct origin fetch (no daemon): the reference's
-    ``downloadFromSource`` fallback, with digest verification."""
+    ``downloadFromSource`` fallback, with digest verification;
+    ``--recursive`` walks the listing here and fetches each file."""
     client = client_for(args.url)
     header = dict(_meta(args).header or {})
+    if args.recursive:
+        # a whole-tree digest or range cannot apply to each file
+        async for e, rel in walk(args.url, timeout_s=args.timeout,
+                                 header=header or None):
+            await _fetch_from_source(client, SourceRequest(
+                url=e.url, header=dict(header), timeout_s=args.timeout),
+                os.path.join(args.output, rel), "", progress)
+        return
     req = SourceRequest(url=args.url, header=header, timeout_s=args.timeout)
     if args.range_:
         total = await client.content_length(SourceRequest(url=args.url,
                                                           header=header))
         req.range = parse_http_range(args.range_, total)
+    await _fetch_from_source(client, req, args.output, args.digest, progress)
+
+
+async def _fetch_from_source(client, req: SourceRequest, output: str,
+                             digest: str, progress) -> None:
     resp = await client.download(req)
-    tmp = args.output + ".dfget.tmp"
+    tmp = output + ".dfget.tmp"
     os.makedirs(os.path.dirname(os.path.abspath(tmp)) or ".", exist_ok=True)
     hasher = None
     algo = want = ""
-    if args.digest:
-        algo, want = digestlib.parse(args.digest)
+    if digest:
+        algo, want = digestlib.parse(digest)
         hasher = digestlib.Hasher(algo)
     done = 0
     with open(tmp, "wb") as f:
@@ -192,7 +223,7 @@ async def download_from_source(args, *, progress=None) -> None:
             os.unlink(tmp)
             raise DFError(Code.CLIENT_DIGEST_MISMATCH,
                           f"digest mismatch from source: {algo}:{got[:12]}..")
-    os.replace(tmp, args.output)
+    os.replace(tmp, output)
     if progress:
         progress(done, done, done=True)
 
@@ -243,8 +274,7 @@ def main(argv: list[str] | None = None) -> int:
         # and downloading the whole checkpoint is what the flag avoids
         parser.error("--shards requires --shard-manifest (the daemon "
                      "needs the shard table to subset the download)")
-    refuse_unported(parser, {
-        "--recursive": (args.recursive, "recursive downloads")})
+
     async def run_and_close() -> int:
         try:
             return await run(args)

@@ -33,12 +33,14 @@ import pytest
 
 from dragonfly2_tpu.common import config as ref_config
 from dragonfly2_tpu.tools import daemon as ref_daemon_cli
+from dragonfly2_tpu.tools import dfcache as ref_dfcache_cli
 from dragonfly2_tpu.tools import dfget as ref_dfget_cli
 from dragonfly2_tpu.tools import manager as ref_manager_cli
 from dragonfly2_tpu.tools import scheduler as ref_scheduler_cli
 from dragonfly2_tpu.tools import trainer as ref_trainer_cli
 from dragonfly2_tpu_torch.common import config as port_config
 from dragonfly2_tpu_torch.tools import daemon as daemon_cli
+from dragonfly2_tpu_torch.tools import dfcache as dfcache_cli
 from dragonfly2_tpu_torch.tools import dfget as dfget_cli
 from dragonfly2_tpu_torch.tools import manager as manager_cli
 from dragonfly2_tpu_torch.tools import scheduler as scheduler_cli
@@ -264,7 +266,7 @@ def test_dfget_shards_without_manifest_exits_2(capsys):
 
 PARSERS = [(manager_cli, ref_manager_cli), (scheduler_cli, ref_scheduler_cli),
            (trainer_cli, ref_trainer_cli), (daemon_cli, ref_daemon_cli),
-           (dfget_cli, ref_dfget_cli)]
+           (dfget_cli, ref_dfget_cli), (dfcache_cli, ref_dfcache_cli)]
 
 
 def _flags(parser) -> list[tuple]:
@@ -283,8 +285,6 @@ def test_launcher_flags_match_reference(port, ref):
 
 @pytest.mark.parametrize("module,argv,names", [
     (manager_cli, ["--auth"], "REST auth"),
-    (dfget_cli, ["u", "-O", "o", "--recursive"], "recursive"),
-    (dfget_cli, ["u", "-O", "o", "-r"], "recursive"),
 ])
 def test_unported_flags_exit_nonzero(module, argv, names, capsys):
     with pytest.raises(SystemExit) as exc:
@@ -292,6 +292,25 @@ def test_unported_flags_exit_nonzero(module, argv, names, capsys):
     assert exc.value.code == 2
     err = capsys.readouterr().err
     assert "not ported" in err and names in err, err
+
+
+@pytest.mark.parametrize("flag", ["--recursive", "-r"])
+def test_dfget_recursive_mirrors_a_file_tree(tmp_path, flag):
+    """``--recursive`` and ``-r`` (refused until recursive downloads were
+    ported) mirror a ``file://`` tree, here without a daemon."""
+    src = tmp_path / "tree"
+    (src / "sub").mkdir(parents=True)
+    files = {"a.bin": os.urandom(3000), "sub/b.bin": os.urandom(70),
+             "sub/empty": b""}
+    for rel, data in files.items():
+        (src / rel).write_bytes(data)
+    out = tmp_path / "mirror"
+    assert dfget_cli.main([f"file://{src}", "-O", str(out), flag,
+                           "--no-daemon", "--quiet"]) == 0
+    got = {os.path.relpath(os.path.join(dp, fn), out):
+           open(os.path.join(dp, fn), "rb").read()
+           for dp, _d, fns in os.walk(out) for fn in fns}
+    assert got == files
 
 
 def test_manager_with_issue_certs_answers_issue_certificate(tmp_path):

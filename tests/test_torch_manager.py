@@ -2,7 +2,9 @@
 
 * Store: a database file written by the reference's ``Store`` reads back
   through the port's with equal rows, and the reverse (the DDL is the
-  reference's, so one file opens in either package).
+  reference's, so one file opens in either package). The port's ``close``
+  waits for a query still running on another thread (closing the
+  connection under it crashes the process) and later calls raise.
 * Searcher: over seeded cluster scopes and peers, the port picks the
   reference's cluster.
 * RPC: for the same database, the port's ``ManagerService`` answers
@@ -43,6 +45,8 @@ import asyncio
 import dataclasses
 import json
 import os
+import sqlite3
+import threading
 
 import aiohttp
 import numpy as np
@@ -183,6 +187,35 @@ def test_store_file_reads_back_in_the_other_package(tmp_path, writer):
         assert r.expire_stale(ttl_s=-1.0) == 2
     finally:
         r.close()
+
+
+def test_store_close_waits_for_a_query_on_another_thread(tmp_path):
+    """A handler cancelled by the server's stop leaves its query running
+    on a worker thread; ``close`` must wait for it, then refuse calls."""
+    store = Store(str(tmp_path / "m.db"))
+    entered, release = threading.Event(), threading.Event()
+
+    def slow() -> int:
+        entered.set()
+        release.wait(10)
+        return 1
+
+    store._db.create_function("slow", 0, slow)
+    out = {}
+    query = threading.Thread(target=lambda: out.setdefault(
+        "rows", store._rows("SELECT slow() AS v")))
+    query.start()
+    assert entered.wait(10)
+    closer = threading.Thread(target=store.close)
+    closer.start()
+    closer.join(0.3)
+    assert closer.is_alive()            # the query still holds the store
+    release.set()
+    query.join(10)
+    closer.join(10)
+    assert not closer.is_alive() and out["rows"][0]["v"] == 1
+    with pytest.raises(sqlite3.ProgrammingError):
+        store.tenants()
 
 
 # ---------------------------------------------------------------- searcher

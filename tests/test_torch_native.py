@@ -12,7 +12,10 @@ the same seeded buffers, made with numpy:
   and leave the caller's buffer free of exports;
 * ``preferred_piece_algo()`` is crc32c once the library loads, and a
   task's piece digests are then crc32c, as the reference's are when its
-  library is built.
+  library is built;
+* a thread that asks for the library while another is loading it waits
+  for the load, so no piece takes the fallback digest meanwhile (the
+  reference's ``load`` answers None there).
 
 Tolerances are exact. The ``ref_native_lib`` fixture builds the
 reference's ``native/dfnative.cc`` into the test's temporary directory
@@ -23,6 +26,7 @@ reference's ``native/dfnative.cc`` into the test's temporary directory
 import ctypes
 import os
 import subprocess
+import threading
 
 import numpy as np
 import pytest
@@ -184,3 +188,36 @@ def test_stores_land_crc32c_digests_in_both_packages(tmp_path,
     assert got["port"] == got["ref"]
     assert all(d.startswith("crc32c:") for d in got["port"][0])
     assert got["port"][1] == data
+
+
+def test_a_caller_during_the_first_load_waits_for_it(monkeypatch):
+    """Storage threads land a pull's first pieces at once; each asks for
+    the library. One that asks while another is still loading it must get
+    the library, not None (which would give its piece a crc32 digest)."""
+    path = native.build()
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "_load_attempted", False)
+    entered, release = threading.Event(), threading.Event()
+
+    def slow_build():
+        entered.set()
+        release.wait(10)
+        return path
+
+    monkeypatch.setattr(native, "build", slow_build)
+    got = {}
+    first = threading.Thread(target=lambda: got.setdefault(
+        "first", native.load()))
+    first.start()
+    assert entered.wait(10)
+    second = threading.Thread(target=lambda: got.setdefault(
+        "second", (native.load(), digest.preferred_piece_algo())))
+    second.start()
+    second.join(0.3)
+    assert second.is_alive()            # waits for the load in flight
+    release.set()
+    first.join(10)
+    second.join(10)
+    lib, algo = got["second"]
+    assert got["first"] is not None and lib is got["first"]
+    assert algo == "crc32c"

@@ -17,9 +17,10 @@ the reference.
 * The gateway (``TestGatewayWriteBack``, ``TestGatewayRePut``,
   ``tests/test_aux.py::TestObjectGateway``): write-back modes, a re-PUT,
   put / stat / get / ls / rm through ``Dfstore`` and the dfstore CLI, a
-  body well over 1 MiB both ways, the refusals (``gs://`` and
-  ``memory://`` buckets, two s3 credential sets, dot segments, a bucket
-  without a backend), and a QoS shed answered 429 with ``Retry-After``.
+  body well over 1 MiB both ways, ``gs://`` and ``memory://`` buckets
+  read through as the reference's gateway reads them, the refusals (two
+  s3 credential sets, dot segments, a bucket without a backend), and a
+  QoS shed answered 429 with ``Retry-After``.
 * Ordered streaming: ``stream_task``'s bytes and order back to source and
   over P2P, replay of a completed task, a running task switched to
   ordered when a stream joins it.
@@ -31,6 +32,7 @@ Tolerances are exact.
 """
 
 import asyncio
+import contextlib
 import datetime
 import json
 import os
@@ -59,6 +61,7 @@ from dragonfly2_tpu_torch.idl.messages import DownloadRequest, UrlMeta
 from dragonfly2_tpu_torch.scheduler.config import SchedulerConfig, SeedPeerAddr
 from dragonfly2_tpu_torch.scheduler.server import Scheduler
 from dragonfly2_tpu_torch.source import SourceRequest
+from dragonfly2_tpu_torch.source import memory_client as port_memory
 from dragonfly2_tpu_torch.source.http_client import HTTPSourceClient
 from dragonfly2_tpu_torch.tools import dfstore
 from dragonfly2_tpu_torch.tools.dfstore import Dfstore
@@ -489,6 +492,58 @@ def _file_gateway(tmp_path, **kw) -> tuple[Daemon, str]:
     return daemon, str(backend)
 
 
+@contextlib.contextmanager
+def _cold_bucket(root, monkeypatch, kind: str, payload: bytes, mem):
+    """A bucket base holding ``w/a.bin`` (``payload``) and ``w/sub/b``:
+    a ``gs://`` prefix on a started ``chip_smoke.GCSStandIn``, or
+    ``memory://`` blobs in ``mem``'s registry."""
+    names = {"w/a.bin": payload, "w/sub/b": b"b"}
+    if kind == "memory":
+        for name, data in names.items():
+            mem.put_blob(f"store/{name}", data)
+        try:
+            yield "memory://store"
+        finally:
+            for name in names:
+                mem.delete_blob(f"store/{name}")
+        return
+    for name, data in names.items():
+        p = root / "gcs" / "bkt" / "prefix" / name
+        p.parent.mkdir(parents=True, exist_ok=True)
+        p.write_bytes(data)
+    standin = chip_smoke.GCSStandIn(str(root / "gcs"), "tok")
+    port = standin.start()
+    monkeypatch.setenv("DF_GCS_ENDPOINT", f"http://127.0.0.1:{port}")
+    monkeypatch.setenv("GOOGLE_APPLICATION_TOKEN", "tok")
+    try:
+        yield "gs://bkt/prefix"
+    finally:
+        standin.stop()
+
+
+async def _cold_requests(daemon) -> dict:
+    """GET (twice: the second from the completed task), HEAD, a missing
+    object's HEAD and the listing of bucket ``cold``, through either
+    package's daemon."""
+    await daemon.start()
+    base = (f"http://127.0.0.1:{daemon.object_gateway.port}"
+            f"/buckets/cold/objects")
+    try:
+        got = {}
+        for name in ("get", "again"):
+            status, _, data = await _http("GET", base + "/w/a.bin")
+            got[name] = (status, data)
+        status, headers, _ = await _http("HEAD", base + "/w/a.bin")
+        got["head"] = (status, headers.get("Content-Length"))
+        got["missing"] = (await _http("HEAD", base + "/w/nope"))[0]
+        status, _, data = await _http("GET", base)
+        got["list"] = json.loads(data) if status == 200 else status
+        return got
+    finally:
+        await daemon.stop()
+        await source.close_clients()
+
+
 class TestObjectGateway:
     def test_put_get_stat_ls_rm(self, tmp_path):
         payload = _bytes(2 * MiB, 5)
@@ -574,15 +629,68 @@ class TestObjectGateway:
         assert got["read-through"] == (200, b"remote")
         assert got["other"][0] == 404
 
-    @pytest.mark.parametrize("base", ["gs://bkt/prefix", "memory://store"])
-    def test_buckets_waiting_for_their_clients_are_refused(self, tmp_path,
-                                                           base):
-        with pytest.raises(DFError) as err:
-            Daemon(DaemonConfig(
-                workdir=str(tmp_path), device="cpu",
-                object_storage=ObjectStorageConfig(
-                    enabled=True, buckets={"cold": base})))
-        assert "'cold'" in err.value.message and "6d" in err.value.message
+    @pytest.mark.parametrize("kind", ["gs", "memory"])
+    def test_gs_and_memory_buckets_serve_their_objects(self, tmp_path,
+                                                       monkeypatch, kind):
+        """A ``gs://`` bucket (on ``chip_smoke.GCSStandIn``) and a
+        ``memory://`` bucket, refused until their source clients were
+        ported, serve an object read through: GET, HEAD and the
+        listing."""
+        payload = _bytes(3 * MiB + 17, 11)
+        with _cold_bucket(tmp_path, monkeypatch, kind, payload,
+                          port_memory) as base:
+            got = asyncio.run(asyncio.wait_for(_cold_requests(
+                Daemon(DaemonConfig(
+                    workdir=str(tmp_path / "cold"), host_ip="127.0.0.1",
+                    listen_ip="127.0.0.1", hostname="cold", device="cpu",
+                    storage=StorageSection(gc_interval_s=3600),
+                    object_storage=ObjectStorageConfig(
+                        enabled=True, buckets={"cold": base})))), 60))
+        assert got["get"] == (200, payload)
+        assert got["again"] == (200, payload)
+        assert got["head"] == (200, str(len(payload)))
+        assert got["missing"] == 404
+        # a gs listing is one level (the prefix's sub-prefix), a memory
+        # listing every blob under the name
+        assert got["list"] == ({
+            "gs": [{"key": "prefix/w/", "size": -1, "is_dir": True}],
+            "memory": [{"key": "store/w/a.bin", "size": len(payload),
+                        "is_dir": False},
+                       {"key": "store/w/sub/b", "size": 1,
+                        "is_dir": False}]}[kind])
+
+    @pytest.mark.parametrize("kind", ["gs", "memory"])
+    def test_gs_and_memory_buckets_answer_as_the_reference_gateway(
+            self, tmp_path, monkeypatch, kind):
+        from dragonfly2_tpu.daemon import config as ref_config
+        from dragonfly2_tpu.daemon.daemon import Daemon as RefDaemon
+        from dragonfly2_tpu.source import memory_client as ref_memory
+        payload = _bytes(2 * MiB + 5, 12)
+        got = {}
+        for pkg in ("reference", "port"):
+            mem = ref_memory if pkg == "reference" else port_memory
+            with _cold_bucket(tmp_path / pkg, monkeypatch, kind, payload,
+                              mem) as base:
+                if pkg == "reference":
+                    daemon = RefDaemon(ref_config.DaemonConfig(
+                        workdir=str(tmp_path / "r-cold"),
+                        host_ip="127.0.0.1", hostname="r-cold",
+                        storage=ref_config.StorageSection(
+                            gc_interval_s=3600),
+                        object_storage=ref_config.ObjectStorageConfig(
+                            enabled=True, buckets={"cold": base})))
+                else:
+                    daemon = Daemon(DaemonConfig(
+                        workdir=str(tmp_path / "p-cold"),
+                        host_ip="127.0.0.1", listen_ip="127.0.0.1",
+                        hostname="p-cold", device="cpu",
+                        storage=StorageSection(gc_interval_s=3600),
+                        object_storage=ObjectStorageConfig(
+                            enabled=True, buckets={"cold": base})))
+                got[pkg] = asyncio.run(asyncio.wait_for(
+                    _cold_requests(daemon), 60))
+        assert got["port"] == got["reference"]
+        assert got["port"]["get"] == (200, payload)
 
     def test_two_s3_credential_sets_are_refused(self, tmp_path):
         backends = {name: {"kind": "s3", "base": "http://127.0.0.1:1",
