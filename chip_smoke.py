@@ -417,6 +417,42 @@ a chain's first relaying hop is the seed's first child.
               listing requests, and the peak of open sinks' pinned bytes
               (``hdfs://`` and ``oras://`` are held in the CPU tests
               only)
+23. preheat  — run after phase 22, on phase 8's origin over HTTP (250
+              MB/s per response) from phase 11's server in a child: the
+              manager's jobs. A manager (``--db`` in the workdir, fixed
+              ``--grpc-port`` and ``--rest-port``), a seed daemon that
+              reads its origin as one stream and a scheduler, all from
+              their launchers, the daemons knowing only the manager. A
+              ``POST /api/v1/jobs`` preheat of the file; the manager is
+              SIGKILLed once the seed's back-source starts and restarted
+              on the same database and ports, and the job must reach
+              ``succeeded`` through the restarted manager's resume, with
+              the task id a pull of the URL computes, resumed before the
+              seed's back-source ended; the origin must send each byte
+              once, to the seed. The origin stops; leecher L, here, knows
+              only the manager and pulls with a manifest sink on the card
+              and back-source disabled: its tensors must equal the file,
+              every byte from peers. A registry stand-in (phase 20's
+              ``RegistryStandIn`` over plain HTTP, its bearer challenge
+              naming a ``/token`` realm) serves an OCI index of
+              linux/amd64 (a config and a seeded 256 MiB layer) and
+              linux/arm64 (its own config and a 64 MiB layer): an
+              ``image`` job for linux/amd64 must succeed with one entry
+              per amd64 blob while the stand-in sends each amd64 blob
+              once, no arm64 byte, and grants one token; L's pull of the
+              amd64 layer into the card must leave the stand-in's counts
+              as they were. A ``sync_peers`` job must list the seed's and
+              L's hosts. Two ``PATCH /api/v1/scheduler-clusters/<id>``
+              (``candidate_parent_limit`` 7, then ``filter_parent_limit``
+              as the string "20") must reach a ``Dynconfig`` on the
+              manager's ``GetSchedulers`` (refreshed every 0.2 s, its
+              snapshot in the workdir) as two notifications, the first
+              kept; with the manager stopped, a fresh ``Dynconfig`` on
+              the snapshot must answer ``get()`` with both. It prints the
+              kill-to-restart and job times, the resume's margin over the
+              seed's back-source, L's time to ready and GB/s, the image
+              job's time and the stand-in's counts, the layer's time to
+              ready, the hosts, and each PATCH's time to the observer
 
 Before phase 3 the native storage library (``dfnative.cc``, built with
 g++ at first use) must load: the pulls land crc32c piece digests, and the
@@ -473,8 +509,9 @@ import numpy as np
 import torch
 
 from dragonfly2_tpu_torch import graft_entry, source
-from dragonfly2_tpu_torch.common import phasetimer, podscope, tracing
+from dragonfly2_tpu_torch.common import ids, phasetimer, podscope, tracing
 from dragonfly2_tpu_torch.common.debug_http import start_debug_server
+from dragonfly2_tpu_torch.common.dynconfig import Dynconfig
 from dragonfly2_tpu_torch.common.errors import Code, DFError
 from dragonfly2_tpu_torch.common.httpd import HTTPError
 from dragonfly2_tpu_torch.common.metrics import REGISTRY
@@ -486,6 +523,7 @@ from dragonfly2_tpu_torch.daemon.config import (DaemonConfig,
 from dragonfly2_tpu_torch.daemon import pulse as pulse_mod
 from dragonfly2_tpu_torch.daemon.daemon import Daemon
 from dragonfly2_tpu_torch.idl.messages import (DeviceSink, DownloadRequest,
+                                               GetSchedulersRequest,
                                                Host, HostType,
                                                ModelInferRequest, PieceInfo,
                                                PieceResult,
@@ -493,6 +531,7 @@ from dragonfly2_tpu_torch.idl.messages import (DeviceSink, DownloadRequest,
                                                ShardInfo, ShardManifest,
                                                TopologyInfo, UrlMeta)
 from dragonfly2_tpu_torch.manager.server import Manager, ManagerConfig
+from dragonfly2_tpu_torch.manager.service import MANAGER_SERVICE
 from dragonfly2_tpu_torch.rpc.client import Channel, ServiceClient
 from dragonfly2_tpu_torch.scheduler.config import SchedulerConfig as \
     SchedCfg
@@ -1847,10 +1886,12 @@ def log_time(line: str) -> float:
 
 class Launched:
     """One launcher process of phase 8; its stdout and stderr go to a log
-    file the phase reads lines from."""
+    file the phase reads lines from. ``env`` adds to the environment (a
+    process that never touches the card is started without it, so its
+    topology probe does not open the card)."""
 
     def __init__(self, workdir: str, name: str, module: str,
-                 args: list[str]):
+                 args: list[str], env: dict | None = None):
         self.name = name
         self.log_path = os.path.join(workdir, f"{name}.log")
         self._log = open(self.log_path, "w")
@@ -1858,7 +1899,8 @@ class Launched:
         self.proc = subprocess.Popen(
             [sys.executable, "-m", f"dragonfly2_tpu_torch.tools.{module}",
              *args], stdout=self._log, stderr=subprocess.STDOUT, cwd=ROOT,
-            env=dict(os.environ, PYTHONPATH=ROOT, PYTHONUNBUFFERED="1"))
+            env=dict(os.environ, PYTHONPATH=ROOT, PYTHONUNBUFFERED="1",
+                     **(env or {})))
         self.up_s = None
 
     def text(self) -> str:
@@ -6524,41 +6566,55 @@ class RegistryStandIn:
     for any name and reference) and ``/v2/<name>/blobs/<digest>`` (the
     files of ``blobs``, digest -> path) with HEAD and a single ``Range``.
     It counts the body bytes it sends per digest, its manifest hits and
-    its refusals."""
+    its refusals.
+
+    Phase 23's options: ``tls`` false serves plain HTTP; ``manifests``
+    (reference -> (body, media type)) answers those references with their
+    own documents, ``manifest`` any other; ``realm`` makes the challenge
+    the token dance's (``realm`` its own ``/token``, with ``service`` and
+    ``scope``), and ``/token`` grants the bearer token of ``token``,
+    counted as ``grants``."""
 
     def __init__(self, root: str, blobs: dict[str, str], manifest: bytes,
-                 token: str = MIRROR_TOKEN):
+                 token: str = MIRROR_TOKEN, *, tls: bool = True,
+                 manifests: dict[str, tuple[bytes, str]] | None = None,
+                 realm: bool = False):
         from dragonfly2_tpu_torch.common.certs import CertIssuer
-        self.issuer = CertIssuer(os.path.join(root, "ca"))
+        self.issuer = CertIssuer(os.path.join(root, "ca")) if tls else None
         self.blobs = blobs
         self.manifest = manifest
+        self.manifests = manifests or {}
         self.token = token
+        self.realm = realm
         self.lock = threading.Lock()
         self.served = {d: 0 for d in blobs}
         self.manifest_hits = 0
         self.denied = 0
+        self.grants = 0
         self._server = None
 
     @property
     def ca_path(self) -> str:
-        return self.issuer.ca_cert_path
+        return self.issuer.ca_cert_path if self.issuer else ""
 
     def stats(self) -> dict:
         with self.lock:
             return {"served": dict(self.served),
                     "manifest_hits": self.manifest_hits,
-                    "denied": self.denied}
+                    "denied": self.denied, "grants": self.grants}
 
     def start(self) -> int:
         from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
         reg = self
-        ctx = self.issuer.server_context("127.0.0.1")
+        ctx = self.issuer.server_context("127.0.0.1") if self.issuer else None
 
         class TLSServer(ThreadingHTTPServer):
             daemon_threads = True
 
             def get_request(self):
                 sock, addr = self.socket.accept()
+                if ctx is None:
+                    return sock, addr
                 return ctx.wrap_socket(sock, server_side=True,
                                        do_handshake_on_connect=False), addr
 
@@ -6569,7 +6625,8 @@ class RegistryStandIn:
             protocol_version = "HTTP/1.1"
 
             def setup(self) -> None:
-                self.request.do_handshake()      # on the request's thread
+                if ctx is not None:
+                    self.request.do_handshake()  # on the request's thread
                 super().setup()
 
             def log_message(self, *args) -> None:
@@ -6587,11 +6644,23 @@ class RegistryStandIn:
 
             def _handle(self) -> None:
                 path = self.path.split("?", 1)[0]
+                if reg.realm and path == "/token":
+                    with reg.lock:
+                        reg.grants += 1
+                    self._plain(200, {"Content-Type": "application/json"},
+                                json.dumps({"token": reg.token.split(
+                                    " ", 1)[1]}).encode())
+                    return
                 if self.headers.get("Authorization") != reg.token:
                     with reg.lock:
                         reg.denied += 1
-                    self._plain(401, {"WWW-Authenticate":
-                                      'Bearer realm="standin"'})
+                    challenge = 'Bearer realm="standin"'
+                    if reg.realm:
+                        port = self.server.server_address[1]
+                        challenge = (f'Bearer realm="http://127.0.0.1:{port}'
+                                     f'/token",service="standin",'
+                                     f'scope="repository:{MIRROR_REPO}:pull"')
+                    self._plain(401, {"WWW-Authenticate": challenge})
                     return
                 if path == "/v2/":
                     self._plain(200, {"Content-Type": "application/json"},
@@ -6603,10 +6672,11 @@ class RegistryStandIn:
                 elif m.group(1) == "manifests":
                     with reg.lock:
                         reg.manifest_hits += 1
+                    body, media = reg.manifests.get(
+                        m.group(2), (reg.manifest, MEDIA_MANIFEST))
                     self._plain(200, {
-                        "Content-Type": MEDIA_MANIFEST,
-                        "Docker-Content-Digest": oci_digest(reg.manifest)},
-                        reg.manifest)
+                        "Content-Type": media,
+                        "Docker-Content-Digest": oci_digest(body)}, body)
                 elif m.group(2) not in reg.blobs:
                     self._plain(404)
                 else:
@@ -6658,12 +6728,12 @@ class RegistryStandIn:
 
 
 def registry_child(root: str, blobs: dict[str, str], manifest: bytes,
-                   conn) -> None:
-    """Phase 20's registry stand-in, in a child process: it sends its
-    port and CA file, answers each "stats" with its counts, and ends at
-    "stop"."""
+                   conn, **opts) -> None:
+    """Phases 20's and 23's registry stand-in (``opts`` its options), in a
+    child process: it sends its port and CA file, answers each "stats"
+    with its counts, and ends at "stop"."""
     os.environ["CUDA_VISIBLE_DEVICES"] = ""
-    reg = RegistryStandIn(root, blobs, manifest)
+    reg = RegistryStandIn(root, blobs, manifest, **opts)
     try:
         conn.send({"port": reg.start(), "ca": reg.ca_path})
         while conn.recv() == "stats":
@@ -8266,8 +8336,455 @@ def phase_tree(workdir: str, device: torch.device) -> None:
         "phase_s": time.monotonic() - t_phase, "card": smi})
 
 
+# ---------------------------------------------------------------- phase 23
+
+PREHEAT_WAIT_S = 300.0             # bound on each wait of the phase
+PREHEAT_LAYER_BYTES = 256 << 20    # the amd64 image's seeded layer
+PREHEAT_ARM_BYTES = 64 << 20       # the arm64 image's layer of its own
+PREHEAT_TOKEN = "Bearer preheat-smoke-token"   # granted by the realm
+PREHEAT_SEED = "preheat-seed"
+PREHEAT_L = "preheat-l"
+PREHEAT_REFRESH_S = 0.2            # the Dynconfig's refresh, cut from 30 s
+MEDIA_INDEX = "application/vnd.oci.image.index.v1+json"
+
+
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def rest_call(port: int, method: str, route: str,
+              body: dict | None = None) -> tuple[int, dict]:
+    """One REST call to the manager: (status, JSON body)."""
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{route}", method=method,
+        data=json.dumps(body).encode() if body is not None else None,
+        headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=30) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as exc:
+        return exc.code, json.loads(exc.read() or b"{}")
+
+
+def wait_job(rest: int, job_id: int) -> tuple[dict, float]:
+    """Poll ``GET /api/v1/jobs/<id>`` until the job is terminal: the job
+    and the seconds waited."""
+    t0 = time.monotonic()
+    while True:
+        status, job = rest_call(rest, "GET", f"/api/v1/jobs/{job_id}")
+        if status == 200 and job["state"] in ("succeeded", "failed"):
+            return job, time.monotonic() - t0
+        check(time.monotonic() - t0 < PREHEAT_WAIT_S,
+              f"phase 23: job {job_id} not terminal in "
+              f"{PREHEAT_WAIT_S:.0f} s: {status} {job}")
+        time.sleep(0.05)
+
+
+def preheat_image(d: str, seed: int) -> dict:
+    """The two-platform image of phase 23 under ``d/blobs``: linux/amd64
+    (a config and a seeded 256 MiB layer) and linux/arm64 (its own config
+    and a 64 MiB layer), behind an OCI index."""
+    rng = np.random.default_rng(seed)
+    blob_dir = os.path.join(d, "blobs")
+    os.makedirs(blob_dir, exist_ok=True)
+    layer = seeded_bytes(rng, PREHEAT_LAYER_BYTES)
+    arm = seeded_bytes(rng, PREHEAT_ARM_BYTES)
+    configs = {a: json.dumps({"architecture": a, "os": "linux",
+                              "rootfs": {"type": "layers"}}).encode()
+               for a in ("amd64", "arm64")}
+    blobs: dict[str, str] = {}
+    for data in (layer, arm, *configs.values()):
+        digest = oci_digest(data)
+        blobs[digest] = os.path.join(blob_dir, digest[7:])
+        with open(blobs[digest], "wb") as f:
+            f.write(memoryview(data))
+            os.fsync(f.fileno())
+    man = {"amd64": oci_manifest(configs["amd64"],
+                                 [(oci_digest(layer), len(layer))]),
+           "arm64": oci_manifest(configs["arm64"],
+                                 [(oci_digest(arm), len(arm))])}
+    index = json.dumps({"schemaVersion": 2, "mediaType": MEDIA_INDEX,
+                        "manifests": [
+                            {"mediaType": MEDIA_MANIFEST,
+                             "digest": oci_digest(man[a]),
+                             "size": len(man[a]),
+                             "platform": {"architecture": a, "os": "linux"}}
+                            for a in ("amd64", "arm64")]}).encode()
+    return {"blobs": blobs, "index": index, "layer": layer,
+            "manifests": {MIRROR_TAG: (index, MEDIA_INDEX),
+                          **{oci_digest(m): (m, MEDIA_MANIFEST)
+                             for m in man.values()}},
+            "amd": [oci_digest(configs["amd64"]), oci_digest(layer)],
+            "arm": [oci_digest(configs["arm64"]), oci_digest(arm)]}
+
+
+def manager_fetcher(mgr_addr: str):
+    """A Dynconfig fetcher: the cluster config and schedulers the
+    manager's ``GetSchedulers`` gives a host named ``PREHEAT_L``, one
+    attempt a call."""
+    async def fetch() -> dict:
+        ch = Channel(mgr_addr)
+        try:
+            resp = await ServiceClient(ch, MANAGER_SERVICE,
+                                       max_attempts=1).unary(
+                "GetSchedulers", GetSchedulersRequest(
+                    hostname=PREHEAT_L, ip="127.0.0.1"), timeout=5.0)
+        finally:
+            await ch.close()
+        return {"cluster_config": dataclasses.asdict(resp.cluster_config),
+                "schedulers": [f"{e.ip}:{e.port}"
+                               for e in resp.schedulers or []]}
+    return fetch
+
+
+async def _preheat_run(d: str, mgr_addr: str, rest: int, sched_addr: str,
+                       url: str, manifest: ShardManifest, image: dict,
+                       reg_base: str, r_conn, seed: "Launched",
+                       device: torch.device) -> dict:
+    """Leecher L here, knowing only the manager: the preheated file into
+    the card, the image job and L's pull of its layer, the sync_peers
+    job, and the two cluster PATCHes seen by a Dynconfig."""
+    async def rest_(method: str, route: str, body: dict | None = None):
+        return await asyncio.to_thread(rest_call, rest, method, route, body)
+
+    async def job(body: dict) -> tuple[dict, float]:
+        status, posted = await rest_("POST", "/api/v1/jobs", body)
+        check(status == 201, f"phase 23: POST {body}: {status} {posted}")
+        return await asyncio.to_thread(wait_job, rest, posted["id"])
+
+    async def holders(_task_id: str) -> str:
+        return seed.text()[-1500:]
+
+    out: dict = {}
+    l_daemon = Daemon(DaemonConfig(
+        workdir=os.path.join(d, "l"), hostname=PREHEAT_L,
+        listen_ip="127.0.0.1", host_ip="127.0.0.1",
+        device="cpu" if device.type == "cpu" else "cuda",
+        manager_addresses=[mgr_addr]))
+    await l_daemon.start()
+    try:
+        check(l_daemon.scheduler is not None
+              and l_daemon.scheduler.addresses == [sched_addr],
+              f"phase 23 L found {l_daemon.scheduler and l_daemon.scheduler.addresses}"
+              f" through the manager, want [{sched_addr}]")
+        out["file"] = await _bounded_pull(l_daemon, url, UrlMeta(), manifest,
+                                          PREHEAT_WAIT_S, "phase 23 L",
+                                          holders)
+        # the image job: resolved through the realm's token, amd64 only
+        t0 = time.monotonic()
+        out["image_job"], _ = await job({"type": "preheat", "args": {
+            "url": f"{reg_base}/v2/{MIRROR_REPO}/manifests/{MIRROR_TAG}",
+            "type": "image", "platform": "linux/amd64"}})
+        out["image_job_s"] = time.monotonic() - t0
+        out["reg_after_job"] = await asyncio.to_thread(_ask, r_conn, "stats")
+        layer_url = f"{reg_base}/v2/{MIRROR_REPO}/blobs/{image['amd'][1]}"
+        out["layer"] = await _bounded_pull(l_daemon, layer_url, UrlMeta(),
+                                           None, PREHEAT_WAIT_S,
+                                           "phase 23 L's layer", holders)
+        out["reg_after_pull"] = await asyncio.to_thread(_ask, r_conn,
+                                                        "stats")
+        # sync_peers: the scheduler's live hosts, L's among them
+        t0 = time.monotonic()
+        out["sync_job"], _ = await job({"type": "sync_peers"})
+        out["sync_job_s"] = time.monotonic() - t0
+        # the cluster PATCH, seen by a Dynconfig on the manager
+        status, clusters = await rest_("GET", "/api/v1/scheduler-clusters")
+        cid = next(c["id"] for c in clusters if c["is_default"])
+        snap = os.path.join(d, "dynconfig.json")
+        dc = Dynconfig(manager_fetcher(mgr_addr),
+                       refresh_interval=PREHEAT_REFRESH_S,
+                       snapshot_path=snap)
+        seen: list[tuple[float, dict]] = []
+        dc.register(lambda data: seen.append((time.monotonic(), data)))
+        await dc.get()
+        await dc.serve()
+        patches = []
+        try:
+            for body, key, want in (
+                    ({"config": {"candidate_parent_limit": 7}},
+                     "candidate_parent_limit", 7),
+                    ({"config": {"filter_parent_limit": "20"}},
+                     "filter_parent_limit", 20)):
+                t0 = time.monotonic()
+                status, answer = await rest_(
+                    "PATCH", f"/api/v1/scheduler-clusters/{cid}", body)
+                check(status == 200 and answer == {"ok": True},
+                      f"phase 23: PATCH {body}: {status} {answer}")
+                while not (seen and seen[-1][1]["cluster_config"][key]
+                           == want):
+                    check(time.monotonic() - t0 < 30,
+                          f"phase 23: the Dynconfig did not see {body}: "
+                          f"{seen[-1:]}")
+                    await asyncio.sleep(0.02)
+                patches.append(seen[-1][0] - t0)
+        finally:
+            await dc.stop()
+        out["dynconfig"] = {"seen": [data for _t, data in seen],
+                            "patch_to_seen_s": patches, "snapshot": snap}
+    finally:
+        await l_daemon.stop()
+    return out
+
+
+def phase_preheat(workdir: str, device: torch.device) -> None:
+    """Phase 23: the manager's jobs, on phase 8's origin over HTTP (250
+    MB/s per response): a file preheated into the seed by a REST job that
+    survives the manager's SIGKILL, then pulled from the seed into the
+    card with the origin gone; an image preheat that warms one platform's
+    blobs; a sync_peers job; and two cluster PATCHes seen by a
+    ``Dynconfig`` that answers from its snapshot with the manager down."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    t_phase = time.monotonic()
+    path = os.path.join(workdir, "deploy", TREE_WEIGHTS)
+    size = os.path.getsize(path)
+    d = os.path.join(workdir, "preheat")
+    os.makedirs(d, exist_ok=True)
+    # the seed's and L's copies of the file, the image's blobs, and the
+    # seed's and L's copies of them
+    image_bytes = PREHEAT_LAYER_BYTES + PREHEAT_ARM_BYTES
+    need = 3 * size + 4 * image_bytes
+    free = shutil.disk_usage(workdir).free
+    check(free >= need, f"phase 23 needs {need} bytes of free disk, "
+                        f"{free} free")
+    layout = deploy_layout()
+    header, _ = safetensors_header(layout)
+    manifest = manifest_from_file(path)
+    with open(path, "rb") as f:
+        f.seek(len(header))
+        ref = torch.frombuffer(bytearray(f.read()), dtype=torch.uint8).to(
+            device)
+    image = preheat_image(d, 23)
+    layer_ref = torch.from_numpy(image.pop("layer")).to(device)
+    grpc_port, rest = free_port(), free_port()
+    mgr_args = ["--listen-ip", "127.0.0.1", "--db", os.path.join(d, "m.db"),
+                "--workdir", os.path.join(d, "manager"),
+                "--grpc-port", str(grpc_port), "--rest-port", str(rest)]
+    ctx = child_context()
+    o_conn, o_child = ctx.Pipe()
+    origin = ctx.Process(target=http_origin_child, name="smoke-preheat-origin",
+                         args=(path, CHAIN_PACE_BPS, o_child))
+    origin.start()
+    r_conn, r_child = ctx.Pipe()
+    reg = ctx.Process(target=registry_child, name="smoke-preheat-registry",
+                      args=(os.path.join(d, "registry"), image["blobs"],
+                            image["index"], r_child),
+                      kwargs={"token": PREHEAT_TOKEN, "tls": False,
+                              "manifests": image["manifests"],
+                              "realm": True})
+    reg.start()
+    procs: list[Launched] = []
+    rcs: dict = {}
+    origin_stopped = False
+    try:
+        check(o_conn.poll(120), "phase 23's origin did not start")
+        url = f"http://127.0.0.1:{o_conn.recv()['port']}/{TREE_WEIGHTS}"
+        task_id = ids.task_id(url)
+        check(r_conn.poll(120), "phase 23's registry stand-in did not start")
+        reg_base = f"http://127.0.0.1:{r_conn.recv()['port']}"
+        mgr = Launched(d, "manager", "manager", mgr_args)
+        procs.append(mgr)
+        mgr_addr = re.search(r"grpc=(\S+) ",
+                             mgr.wait_up("manager up:")).group(1)
+        # the seed (no sink) and the scheduler never touch the card; the
+        # seed reads its origin as one stream, 4.2 s at the origin's pace,
+        # so its back-source outlasts the manager's restart
+        off_card = {"CUDA_VISIBLE_DEVICES": ""}
+        seed = Launched(d, "seed", "daemon", ["--config", write_json(
+            os.path.join(d, "seed.json"), {
+                "workdir": os.path.join(d, "seed"), "hostname": PREHEAT_SEED,
+                "is_seed": True, "device": "cpu", "host_ip": "127.0.0.1",
+                "listen_ip": "127.0.0.1", "manager_addresses": [mgr_addr],
+                "download": {"back_source_parallelism": 1}})],
+            env=off_card)
+        procs.append(seed)
+        seed.wait_up("daemon up:")
+        sched = Launched(d, "scheduler", "scheduler", [
+            "--config", write_json(os.path.join(d, "scheduler.json"), {
+                "listen_ip": "127.0.0.1", "advertise_ip": "127.0.0.1"}),
+            "--manager", mgr_addr], env=off_card)
+        procs.append(sched)
+        sched_addr = sched.wait_up("scheduler up:").split()[-1]
+        check(" seeds=1)" in sched.wait_line("scheduler up on", 10),
+              "phase 23: the scheduler did not adopt the seed from the "
+              "manager")
+
+        # 1-2. the file preheat; the manager SIGKILLed during the seed's
+        # back-source and restarted on the same database and ports
+        t_post = time.monotonic()
+        status, posted = rest_call(rest, "POST", "/api/v1/jobs", {
+            "type": "preheat", "args": {"url": url}})
+        check(status == 201, f"phase 23: POST preheat: {status} {posted}")
+        job_id = posted["id"]
+        seed.wait_line("back-source:", PREHEAT_WAIT_S)
+        t_bs = time.monotonic()
+        mgr.proc.kill()
+        rcs[mgr.name] = mgr.proc.wait(timeout=30)
+        mgr._log.close()
+        mgr2 = Launched(d, "manager-restarted", "manager", mgr_args)
+        procs.append(mgr2)
+        mgr2.wait_up("manager up:")
+        job, _ = wait_job(rest, job_id)
+        job_s = time.monotonic() - t_post
+        check(job["state"] == "succeeded",
+              f"phase 23: the resumed preheat job {job}")
+        (entry,) = job["result"].values()
+        check(entry == {"url": url, "state": "succeeded",
+                        "task_id": task_id},
+              f"phase 23: the job's result {entry}, want task {task_id}")
+        resumed = mgr2.lines("resumed 1 interrupted job(s)")
+        seed_done = seed.wait_line("task success:", 60)
+        check(len(resumed) == 1, f"phase 23: the restarted manager's "
+                                 f"resume: {mgr2.text()[-1500:]}")
+        # the resumed Preheat reached a seed job still running
+        check(log_time(resumed[0]) < log_time(seed_done),
+              f"phase 23: resumed at {resumed[0][:23]}, after the seed's "
+              f"back-source ended at {seed_done[:23]}")
+        back_source = seed.lines("back-source:")
+        check(len(back_source) == 1
+              and [_task_success(ln) for ln in seed.lines("task success:")]
+              == [(0, size)],
+              f"phase 23: the seed's origin reads "
+              f"{seed.lines('task success:')}")
+        seed_bs_s = log_time(seed_done) - log_time(back_source[0])
+        resumed_margin_s = log_time(seed_done) - log_time(resumed[0])
+        o_report = _ask(o_conn, "report")
+        check(o_report["body_bytes"] == size
+              and sorted(o_report["ranges"]) == [(0, size)],
+              f"phase 23: the origin sent {o_report['body_bytes']} bytes "
+              f"in {o_report['ranges']}, want {size} once")
+        o_conn.send("stop")
+        origin.join(timeout=60)
+        origin_stopped = True
+
+        # 3-6. L, the image, sync_peers, the PATCHes
+        run = asyncio.run(_preheat_run(d, mgr_addr, rest, sched_addr, url,
+                                       manifest, image, reg_base, r_conn,
+                                       seed, device))
+        # the manager stops: a fresh Dynconfig answers from the snapshot
+        rcs[mgr2.name] = mgr2.stop()
+        snap = run["dynconfig"]["snapshot"]
+        fresh = Dynconfig(manager_fetcher(mgr_addr), snapshot_path=snap)
+        t0 = time.monotonic()
+        from_disk = asyncio.run(fresh.get())
+        from_disk_s = time.monotonic() - t0
+    finally:
+        for p in reversed(procs):
+            if p.name not in rcs:
+                rcs[p.name] = p.stop()
+        for conn, proc in ((o_conn, origin), (r_conn, reg)):
+            try:
+                if not (proc is origin and origin_stopped):
+                    conn.send("stop")
+            except OSError:
+                pass
+            proc.join(timeout=60)
+            if proc.is_alive():
+                proc.terminate()
+                proc.join(timeout=30)
+    check(rcs[mgr.name] == -signal.SIGKILL
+          and all(rc == 0 for name, rc in rcs.items() if name != mgr.name),
+          f"phase 23: return codes {rcs}")
+    # L's tensors: phase 8's, every byte from peers
+    f_run = run["file"]
+    tensors, base, shapes = f_run["out"], len(header), dict(layout)
+    for info in manifest.shards:
+        t = tensors[info.name]
+        lo = info.range_start - base
+        check(t.device == device and t.dtype == torch.bfloat16
+              and list(t.shape) == shapes[info.name]
+              and torch.equal(t.reshape(-1).view(torch.uint8),
+                              ref[lo:lo + info.range_size]),
+              f"phase 23 L: {info.name} differs from the origin")
+    c = f_run["conductor"]
+    check((c.traffic_p2p, c.traffic_source) == (c.content_length, 0)
+          and c.content_length == size and c.task_id == task_id,
+          f"phase 23 L: task {c.task_id}, (p2p, source) "
+          f"{(c.traffic_p2p, c.traffic_source)}, file {size}")
+    del tensors, f_run["out"], ref
+    # the image job: one entry per amd64 blob; no arm64 byte; one grant
+    img = run["image_job"]
+    check(img["state"] == "succeeded", f"phase 23: the image job {img}")
+    (ientry,) = img["result"].values()
+    blob_urls = [f"{reg_base}/v2/{MIRROR_REPO}/blobs/{dg}"
+                 for dg in image["amd"]]
+    check(ientry["state"] == "succeeded"
+          and [b["url"] for b in ientry["blobs"]] == blob_urls
+          and all(b["state"] == "succeeded"
+                  and b["task_id"] == ids.task_id(b["url"])
+                  for b in ientry["blobs"]),
+          f"phase 23: the image job's blobs {ientry}")
+    served = run["reg_after_job"]
+    sizes = {dg: os.path.getsize(p) for dg, p in image["blobs"].items()}
+    check(all(served["served"][dg] == sizes[dg] for dg in image["amd"])
+          and all(served["served"][dg] == 0 for dg in image["arm"])
+          and served["grants"] == 1,
+          f"phase 23: the stand-in served {served}, want each amd64 blob "
+          f"once, no arm64 byte and one token grant")
+    check(run["reg_after_pull"] == served,
+          f"phase 23: L's layer pull moved the stand-in's counts: "
+          f"{run['reg_after_pull']} after {served}")
+    lay = run["layer"]
+    lc = lay["conductor"]
+    got = torch.cat(lay["out"])[:lc.content_length]
+    check(lc.content_length == PREHEAT_LAYER_BYTES
+          and got.device.type == device.type and torch.equal(got, layer_ref)
+          and (lc.traffic_p2p, lc.traffic_source)
+          == (PREHEAT_LAYER_BYTES, 0),
+          f"phase 23 L's layer: (p2p, source) "
+          f"{(lc.traffic_p2p, lc.traffic_source)}")
+    del got, lay["out"], layer_ref
+    # sync_peers: the seed's and L's hosts
+    sync = run["sync_job"]
+    check(sync["state"] == "succeeded", f"phase 23: sync_peers {sync}")
+    (sentry,) = sync["result"].values()
+    host_ids = sorted(h["id"] for h in sentry["hosts"])
+    check({f"{PREHEAT_SEED}-127.0.0.1", f"{PREHEAT_L}-127.0.0.1"}
+          <= set(host_ids), f"phase 23: sync_peers hosts {host_ids}")
+    # the Dynconfig: the first change, then both, then from disk
+    configs = [s["cluster_config"] for s in run["dynconfig"]["seen"]]
+    pairs = [(c["candidate_parent_limit"], c["filter_parent_limit"])
+             for c in configs]
+    check(pairs[0] == (4, 15) and (7, 15) in pairs
+          and pairs[-1] == (7, 20)
+          and pairs.index((7, 15)) < pairs.index((7, 20)),
+          f"phase 23: the Dynconfig saw {pairs}")
+    check(from_disk == run["dynconfig"]["seen"][-1],
+          f"phase 23: with the manager down the Dynconfig answered "
+          f"{from_disk}")
+    shutil.rmtree(d, ignore_errors=True)
+    emit("phase 23 preheat", {
+        "file_bytes": size, "task_id": task_id,
+        "start_s": {p.name: p.up_s for p in procs},
+        "post_to_back_source_s": t_bs - t_post,
+        "kill_to_restarted_s": mgr2.up_s,
+        "job_s": job_s, "origin_bytes": o_report["body_bytes"],
+        "seed_back_source_s": seed_bs_s,
+        "resumed_before_seed_done_s": resumed_margin_s,
+        "l_time_to_ready_s": f_run["wall"],
+        "l_gbps": size / 1e9 / f_run["wall"],
+        "l_pieces_per_parent": dict(c.pieces_by_parent),
+        "image_blobs": len(ientry["blobs"]),
+        "image_job_s": run["image_job_s"],
+        "standin": {"served": served["served"], "grants": served["grants"],
+                    "denied": served["denied"],
+                    "manifest_hits": served["manifest_hits"]},
+        "layer_time_to_ready_s": lay["wall"],
+        "layer_gbps": PREHEAT_LAYER_BYTES / 1e9 / lay["wall"],
+        "sync_peers_hosts": host_ids, "sync_job_s": run["sync_job_s"],
+        "dynconfig": {"seen": pairs,
+                      "patch_to_seen_s": run["dynconfig"]["patch_to_seen_s"],
+                      "from_disk_s": from_disk_s},
+        "return_codes": rcs,
+        "phase_s": time.monotonic() - t_phase, "card": smi})
+
+
 def run_phases(layers: int, seed: int, device: torch.device) -> None:
-    """Phases 2-22 on ``device``; raises CheckFailed on a failed check."""
+    """Phases 2-23 on ``device``; raises CheckFailed on a failed check."""
     layout = llama_layout(layers)
     header, nbytes = safetensors_header(layout)
     workdir = tempfile.mkdtemp(prefix="chip-smoke-")
@@ -8339,6 +8856,7 @@ def run_phases(layers: int, seed: int, device: torch.device) -> None:
         phase_mirror(workdir, seed, device)
         phase_fleet(workdir, device)
         phase_tree(workdir, device)
+        phase_preheat(workdir, device)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 

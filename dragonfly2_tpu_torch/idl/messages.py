@@ -5,12 +5,13 @@ field names in the same order, same defaults, so one field dict builds
 either package's message and ``dumps`` gives both the same bytes. The
 slice carries the daemon's download messages, the scheduler's register /
 report / announce / leave / stat messages, the peer piece-sync messages,
-the seed trigger, the trainer's ``Train`` / ``ModelInfer`` messages, and
-the manager's registration, discovery, keepalive, model-registry and
-application-list messages, and the probers' ``SyncProbes`` messages. ``TopologyInfo`` carries the host's position
-for link classification; ``DeviceSink`` describes a device-memory
-placement target; ``ShardManifest`` names the tensors of a sharded
-checkpoint.
+the seed trigger, the trainer's ``Train`` / ``ModelInfer`` messages, the
+manager's registration, discovery, keepalive, model-registry and
+application-list messages, the probers' ``SyncProbes`` messages, and the
+``Preheat`` and ``SyncPeers`` messages of the manager's jobs.
+``TopologyInfo`` carries the host's position for link classification;
+``DeviceSink`` describes a device-memory placement target;
+``ShardManifest`` names the tensors of a sharded checkpoint.
 """
 
 from __future__ import annotations
@@ -647,6 +648,23 @@ class RegisterSeedPeerRequest:
     topology: TopologyInfo | None = None
 
 
+@message
+class PreheatRequest:
+    """Manager/operator -> scheduler: warm a URL into the seed layer."""
+
+    url: str = ""
+    url_meta: UrlMeta | None = None
+    wait: bool = True               # block until the seed finishes
+
+
+@message
+class PreheatResponse:
+    task_id: str = ""
+    state: str = ""                 # pending | running | succeeded | failed
+    content_length: int = -1
+    total_piece_count: int = -1
+
+
 # ---------------------------------------------------------------- trainer service
 
 @message
@@ -800,3 +818,16 @@ class GetSchedulerStateResponse:
     scheduler_id: str = ""           # "" = nothing parked
     blob: bytes = b""
     signature: str = ""
+
+
+@message
+class SyncPeersRequest:
+    """Manager -> scheduler: dump your live host set (reference
+    scheduler/job/job.go:224 syncPeers consumed by manager/job/sync_peers)."""
+
+    cluster_id: int = 0
+
+
+@message
+class SyncPeersResponse:
+    hosts: list[Host] | None = None

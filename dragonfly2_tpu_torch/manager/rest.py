@@ -5,11 +5,18 @@ Counterpart of ``dragonfly2_tpu/manager/rest.py`` (reference
 ports: health, metrics, scheduler clusters (list, create), schedulers,
 seed peers, seed-peer clusters (list, create), applications (list,
 create), tenants (list, and create with the class checked against the
-QoS vocabulary) and models (list). The reference serves with ``aiohttp.web``; the
-card's machine has no aiohttp, so this module speaks HTTP/1.1 on
-``asyncio.start_server``, as ``daemon/upload_server.py`` does, with the
-same paths, status codes and JSON bodies. Jobs, users, personal access
-tokens, OAuth and the cluster PATCH wait for later slices.
+QoS vocabulary), models (list), jobs (``POST /api/v1/jobs`` of a
+``preheat`` or ``sync_peers`` job, the list, one by id) and the cluster
+``PATCH /api/v1/scheduler-clusters/{id}``, which merges its ``config``
+into the stored one (a numeric string coerced, a wrong type or an unknown
+key refused) and replaces ``scopes``. The reference serves with
+``aiohttp.web``; the card's machine has no aiohttp, so this module speaks
+HTTP/1.1 on ``asyncio.start_server``, as ``daemon/upload_server.py`` does,
+with the same paths (``{id}`` matching one path segment), status codes
+and JSON bodies; a method not routed on a known path is 405. Malformed
+input the reference answers 500 (a body that is no JSON object, a
+non-integer id, unknown ``url_meta`` keys) is 400 here. Users, personal
+access tokens and OAuth wait for the slice that ports REST auth.
 """
 
 from __future__ import annotations
@@ -18,10 +25,12 @@ import asyncio
 import dataclasses
 import json
 import logging
-from urllib.parse import parse_qs, urlsplit
+import re
+from urllib.parse import parse_qs, unquote, urlsplit
 
 from ..common.metrics import REGISTRY
-from ..idl.messages import PRIORITY_CLASSES, ClusterConfig
+from ..idl.messages import PRIORITY_CLASSES, ClusterConfig, UrlMeta
+from .jobs import JobRunner
 from .store import Store
 
 log = logging.getLogger("df.mgr.rest")
@@ -57,6 +66,13 @@ def _body(raw: bytes) -> dict:
     return body
 
 
+def _int_id(raw: str) -> int:
+    try:
+        return int(raw)
+    except ValueError:
+        raise _HTTPError(400, f"id must be an integer: {raw!r}") from None
+
+
 def _name(body: dict) -> str:
     name = body.get("name")
     if not isinstance(name, str) or not name:
@@ -65,9 +81,10 @@ def _name(body: dict) -> str:
 
 
 class RestAPI:
-    def __init__(self, store: Store, *, host: str = "0.0.0.0",
-                 port: int = 0):
+    def __init__(self, store: Store, jobs: JobRunner | None = None, *,
+                 host: str = "0.0.0.0", port: int = 0):
         self.store = store
+        self.jobs = jobs
         self.host = host
         self.port = port
         self._server: asyncio.base_events.Server | None = None
@@ -87,7 +104,19 @@ class RestAPI:
             ("GET", "/api/v1/models"): self._list_models,
             ("GET", "/api/v1/seed-peer-clusters"): self._list_sp_clusters,
             ("POST", "/api/v1/seed-peer-clusters"): self._create_sp_cluster,
+            ("POST", "/api/v1/jobs"): self._create_job,
+            ("GET", "/api/v1/jobs"): self._list_jobs,
+            ("GET", "/api/v1/jobs/{id}"): self._get_job,
+            ("PATCH", "/api/v1/scheduler-clusters/{id}"):
+                self._update_sched_cluster,
         }
+        # a "{name}" segment matches one path segment; its decoded text
+        # is the handler's third argument
+        self._patterns = [
+            (method, re.compile("^" + re.sub(r"\\\{\w+\\\}", "([^/]+)",
+                                             re.escape(path)) + "$"),
+             handler)
+            for (method, path), handler in self._routes.items()]
 
     async def start(self) -> None:
         self._server = await asyncio.start_server(
@@ -157,14 +186,23 @@ class RestAPI:
     async def _dispatch(self, method: str, target: str,
                         body: bytes) -> tuple[int, str, bytes]:
         url = urlsplit(target)
-        handler = self._routes.get((method, url.path))
+        handler, args, known = None, (), False
+        for m, pattern, h in self._patterns:
+            match = pattern.match(url.path)
+            if match is None:
+                continue
+            known = True
+            if m == method:
+                handler = h
+                args = tuple(unquote(g) for g in match.groups())
+                break
         if handler is None:
-            if any(path == url.path for _, path in self._routes):
+            if known:
                 return 405, _TEXT, b"405: Method Not Allowed"
             return 404, _TEXT, b"404: Not Found"
         query = {k: v[-1] for k, v in parse_qs(url.query).items()}
         try:
-            return await handler(query, body)
+            return await handler(query, body, *args)
         except _HTTPError as exc:
             return _json({"error": exc.error}, exc.status)
         except Exception as exc:  # noqa: BLE001 - one request, not the server
@@ -260,3 +298,111 @@ class RestAPI:
         except Exception as exc:  # noqa: BLE001 - e.g. duplicate name
             raise _HTTPError(400, str(exc)) from None
         return _json({"id": cid}, 201)
+
+    async def _create_job(self, _q, raw):
+        body = _body(raw)
+        args = body.get("args", {})
+        if not isinstance(args, dict):
+            raise _HTTPError(400, "args must be an object")
+        if body.get("type") == "preheat":
+            if not args.get("url"):
+                return _json({"error": "preheat requires args.url"}, 400)
+            if args.get("type", "file") not in ("file", "image"):
+                return _json({"error": "preheat args.type must be file|image"},
+                             400)
+            meta = None
+            if args.get("url_meta"):
+                try:
+                    meta = UrlMeta(**args["url_meta"])
+                except TypeError as exc:
+                    raise _HTTPError(400, f"url_meta: {exc}") from None
+            job_id = await self.jobs.submit_preheat(
+                url=args["url"], url_meta=meta,
+                cluster_id=args.get("cluster_id"),
+                type_=args.get("type", "file"),
+                platform=args.get("platform", ""))
+        elif body.get("type") == "sync_peers":
+            job_id = await self.jobs.submit_sync_peers(
+                cluster_id=args.get("cluster_id"))
+        else:
+            return _json({"error": "unknown job type"}, 400)
+        return _json({"id": job_id}, 201)
+
+    async def _list_jobs(self, _q, _b):
+        return _json(await asyncio.to_thread(self.store.jobs))
+
+    async def _get_job(self, _q, _b, job_id):
+        job = await asyncio.to_thread(self.store.job, _int_id(job_id))
+        if job is None:
+            return _json({"error": "not found"}, 404)
+        job["args"] = json.loads(job["args"])
+        job["result"] = json.loads(job["result"])
+        return _json(job)
+
+    async def _update_sched_cluster(self, _q, raw, cluster_id):
+        # parsed as the reference's request.json(): an empty or junk body
+        # answers 400 with the decoder's own message
+        try:
+            body = json.loads(raw.decode())
+            if not isinstance(body, dict):
+                raise ValueError("body must be a JSON object")
+        except Exception as exc:  # noqa: BLE001 - malformed input is a 400
+            return _json({"error": str(exc)}, 400)
+        cid = _int_id(cluster_id)
+        cfg = None
+        if body.get("config") is not None:
+            if not isinstance(body["config"], dict):
+                return _json({"error": "config must be an object"}, 400)
+            # a partial update merges over the stored config: rebuilding
+            # from the defaults would reset every omitted tunable
+            current = await asyncio.to_thread(self.store.cluster_config, cid)
+            # each value is checked against the stored field's type: a
+            # wrong-typed value would be stored and then break every
+            # scheduler's dynconfig refresh
+            coerced = {}
+            for k, v in body["config"].items():
+                if not hasattr(current, k):
+                    return _json({"error": f"unknown config key {k!r}"}, 400)
+                target = type(getattr(current, k))
+                value = _coerce(target, v)
+                if value is _BAD:
+                    return _json({"error": f"{k} must be {target.__name__}"},
+                                 400)
+                coerced[k] = value
+            try:
+                cfg = dataclasses.replace(current, **coerced)
+            except TypeError as exc:
+                return _json({"error": str(exc)}, 400)
+        if cfg is None and body.get("scopes") is None:
+            return _json({"error": "nothing to update"}, 400)
+        ok = await asyncio.to_thread(
+            lambda: self.store.update_scheduler_cluster(
+                cid, config=cfg, scopes=body.get("scopes")))
+        return _json({"ok": ok}, 200 if ok else 404)
+
+
+_BAD = object()
+
+
+def _coerce(target: type, v):
+    """``v`` as a value of the stored field's type, or ``_BAD``: a bool
+    only for a bool; for an int, no bool or float (a float would be
+    truncated) but a numeric string (what clients send); for a float, no
+    bool."""
+    if target is bool:
+        return v if isinstance(v, bool) else _BAD
+    if target is int:
+        if isinstance(v, (bool, float)):
+            return _BAD
+        try:
+            return int(v)
+        except (TypeError, ValueError):
+            return _BAD
+    if target is float:
+        if isinstance(v, bool):
+            return _BAD
+        try:
+            return float(v)
+        except (TypeError, ValueError):
+            return _BAD
+    return v if isinstance(v, target) else _BAD

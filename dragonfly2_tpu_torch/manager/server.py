@@ -1,8 +1,13 @@
-"""Manager bootstrap: store + RPC + REST + liveness sweep.
+"""Manager bootstrap: store + job runner + RPC + REST + liveness sweep.
 
 Counterpart of ``dragonfly2_tpu/manager/server.py`` (reference
 ``manager/manager.go:106-234`` ``New``/``Serve``) with the keepalive-TTL
-sweep that marks silent instances inactive. ``ManagerConfig`` keeps the
+sweep that marks silent instances inactive. The job runner
+(``jobs.py``) takes the REST API's preheat and sync-peers jobs; once the
+RPC server is up, and before the REST listener opens, it dispatches again
+the jobs a previous process left ``pending`` or ``running`` in the same
+database, so a job submitted at boot is not dispatched twice; ``stop``
+cancels the jobs still running. ``ManagerConfig`` keeps the
 reference's fields. ``issue_certs`` makes the manager a fleet certificate
 issuer: a CA under ``<workdir>/manager-ca`` and an issuance token made
 once and kept at ``<workdir>/issuer.token`` (mode 0600), both as the
@@ -26,6 +31,7 @@ from ..common.certs import CertIssuer
 
 from ..common.gc import GC, GCTask
 from ..rpc.server import RPCServer, TLSOptions
+from .jobs import JobRunner
 from .rest import RestAPI
 from .service import ManagerService, build_service
 from .store import Store
@@ -68,6 +74,7 @@ class Manager:
             os.makedirs(os.path.dirname(os.path.abspath(cfg.db_path)),
                         exist_ok=True)
         self.store = Store(cfg.db_path or ":memory:")
+        self.jobs = JobRunner(self.store)
         workdir = cfg.workdir or (
             os.path.dirname(os.path.abspath(cfg.db_path)) if cfg.db_path
             else "")
@@ -91,7 +98,7 @@ class Manager:
                     f.write(self.issue_token + "\n")
         self.service = ManagerService(self.store, issuer=self.issuer,
                                       issue_token=self.issue_token)
-        self.rest = RestAPI(self.store, host=cfg.listen_ip,
+        self.rest = RestAPI(self.store, self.jobs, host=cfg.listen_ip,
                             port=cfg.rest_port)
         self.rpc: RPCServer | None = None
         self.gc = GC()
@@ -144,6 +151,9 @@ class Manager:
         self.rpc.register(build_service(self.service))
         await self.rpc.start()
         self.port = self.rpc.port
+        # before the REST listener: a job submitted during the boot window
+        # must not be dispatched twice by the scan
+        await self.jobs.resume_interrupted()
         await self.rest.start()
         self.gc.add(GCTask(
             "keepalive-sweep", self.cfg.sweep_interval_s,
@@ -154,6 +164,7 @@ class Manager:
 
     async def stop(self) -> None:
         await self.gc.stop()
+        await self.jobs.close()
         await self.rest.stop()
         if self.rpc is not None:
             await self.rpc.stop(0.5)

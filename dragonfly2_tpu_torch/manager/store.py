@@ -3,11 +3,11 @@
 Counterpart of ``dragonfly2_tpu/manager/store.py`` (reference
 ``manager/models/*.go`` + ``manager/database``). The DDL is the
 reference's, whole, so one database file opens in either package; this
-slice reads and writes the scheduler clusters, schedulers, seed-peer
-clusters, seed peers, applications, the tenants' QoS quotas, the model
-registry and the schedulers' parked handoff state. The job, user and
-OAuth tables are created and left to the slices that port their
-services.
+slice reads and writes the scheduler clusters (their dynconfig payload
+patched in place), schedulers, seed-peer clusters, seed peers,
+applications, the tenants' QoS quotas, the model registry, the
+schedulers' parked handoff state and the jobs. The user and OAuth tables
+are created and left to the slice that ports REST auth.
 """
 
 from __future__ import annotations
@@ -215,6 +215,28 @@ class Store:
         return [dict(r) for r in self._rows(
             "SELECT * FROM seed_peer_clusters ORDER BY id")]
 
+    def update_scheduler_cluster(self, cluster_id: int, *,
+                                 config: ClusterConfig | None = None,
+                                 scopes: dict | None = None) -> bool:
+        """Partial update of a cluster's dynconfig payload (reference
+        UpdateSchedulerCluster handler); schedulers pick the new config up
+        on their next dynconfig refresh."""
+        sets, args = [], []
+        if config is not None:
+            sets.append("config=?")
+            args.append(json.dumps(dataclasses.asdict(config)))
+        if scopes is not None:
+            sets.append("scopes=?")
+            args.append(json.dumps(scopes))
+        if not sets:
+            return False
+        sets.append("updated_at=?")
+        args += [_now(), cluster_id]
+        cur = self._exec(
+            f"UPDATE scheduler_clusters SET {', '.join(sets)} WHERE id=?",
+            args)
+        return cur.rowcount > 0
+
     # -- scheduler instances ------------------------------------------
 
     def upsert_scheduler(self, *, hostname: str, ip: str, port: int,
@@ -378,6 +400,30 @@ class Store:
     def tenants(self) -> list[dict]:
         return [dict(r) for r in self._rows(
             "SELECT * FROM tenants ORDER BY id")]
+
+    # -- jobs (preheat, sync_peers; manager/jobs.py) -------------------
+
+    def create_job(self, type_: str, args: dict) -> int:
+        cur = self._exec(
+            "INSERT INTO jobs(type, state, args, created_at, updated_at)"
+            " VALUES (?,?,?,?,?)",
+            (type_, "pending", json.dumps(args), _now(), _now()))
+        return int(cur.lastrowid)
+
+    def update_job(self, job_id: int, *, state: str,
+                   result: dict | None = None) -> None:
+        self._exec("UPDATE jobs SET state=?, result=?, updated_at=? WHERE id=?",
+                   (state, json.dumps(result or {}), _now(), job_id))
+
+    def job(self, job_id: int) -> dict | None:
+        rows = self._rows("SELECT * FROM jobs WHERE id=?", (job_id,))
+        return dict(rows[0]) if rows else None
+
+    def jobs(self, *, state: str | None = None) -> list[dict]:
+        if state:
+            return [dict(r) for r in self._rows(
+                "SELECT * FROM jobs WHERE state=? ORDER BY id", (state,))]
+        return [dict(r) for r in self._rows("SELECT * FROM jobs ORDER BY id")]
 
     # -- model registry (reference manager/models/model.go:36) ---------
 

@@ -48,7 +48,13 @@ with the row's retry-after, ``df_qos_quota_shed_total``). A ``critical``
 child that finds no content holder (an empty or holderless offer in the
 patience loop, a refresh, a reschedule) may preempt one bulk edge
 (``Scheduling.preempt_for``); the victim is pushed its shrunk offer.
-Preheat is left for a later slice.
+
+The manager's jobs reach the scheduler through two verbs. ``Preheat``
+warms a URL into the seed layer under the task id a register of the same
+URL and ``UrlMeta`` computes, so a later pull joins the preheated task;
+a preheat of a task whose seed job still runs joins that job (``wait``
+awaits it shielded, so a caller that goes away leaves it running), and
+one whose seed failed re-triggers it. ``SyncPeers`` lists the live hosts.
 
 A report stream that ends with the daemon's half-close is not marked
 ``stream_gone``: the daemon half-closes only on its way to the terminal
@@ -64,7 +70,7 @@ import logging
 import time
 from typing import AsyncIterator
 
-from ..common import phasetimer, tracing
+from ..common import ids, phasetimer, tracing
 from ..common.errors import Code, DFError
 from ..common.metrics import REGISTRY
 from ..common.sharding import parse_shard_names
@@ -73,11 +79,13 @@ from ..idl.messages import (CLASS_DEFAULT_PRIORITY, PRIORITY_CLASSES,
                             AnnounceHostRequest, AnnounceHostResponse,
                             Empty, HostType, LeaveHostRequest,
                             LeavePeerRequest,
-                            PeerPacket, PeerResult, PieceResult, Priority,
+                            PeerPacket, PeerResult, PieceResult,
+                            PreheatRequest, PreheatResponse, Priority,
                             ProbeTarget, RegisterPeerTaskRequest,
                             RegisterResult, SinglePiece, SizeScope,
-                            StatTaskRequest, SyncProbesResponse, TaskStat,
-                            resolve_class)
+                            StatTaskRequest, SyncPeersRequest,
+                            SyncPeersResponse, SyncProbesResponse, TaskStat,
+                            UrlMeta, resolve_class)
 from ..rpc.server import ServiceDef, span_parent
 from .cluster_view import ClusterView
 from .config import SchedulerConfig
@@ -859,6 +867,52 @@ class SchedulerService:
                         has_available_peer=task.has_available_peer())
 
     # ------------------------------------------------------------------
+    # Preheat / SyncPeers (the manager's jobs)
+    # ------------------------------------------------------------------
+
+    async def preheat(self, req: PreheatRequest,
+                      context) -> PreheatResponse:
+        """Warm a URL into the seed layer (reference ``scheduler/job/
+        job.go:152`` consumes the same verb from the manager's queue)."""
+        meta = req.url_meta or UrlMeta()
+        task_id = ids.task_id(
+            req.url, tag=meta.tag, application=meta.application,
+            digest=meta.digest, piece_range=meta.range,
+            filtered_query_params=list(meta.filtered_query_params or []))
+        if not self.seed_client.available():
+            raise DFError(Code.SCHED_FORBIDDEN,
+                          "no seed peers to preheat into")
+        task = self.resource.get_or_create_task(task_id, req.url)
+        if task.url_meta is None:
+            task.url_meta = meta      # a seed re-trigger replays these
+        if task.state == TaskState.PENDING:
+            task.transit(TaskState.RUNNING)
+        seed_done = task.seed_job is not None and task.seed_job.done()
+        # a failed seed is re-triggered on retry: a transient origin outage
+        # must not poison the task until GC
+        if not task.seed_triggered or (seed_done
+                                       and not task.has_available_peer()):
+            self._fire_seed_trigger(task, meta)
+        if req.wait and task.seed_job is not None:
+            await asyncio.shield(task.seed_job)
+        if task.has_available_peer():
+            state = "succeeded"
+        elif task.seed_job is not None and not task.seed_job.done():
+            state = "running"
+        else:
+            state = "failed"
+        return PreheatResponse(task_id=task_id, state=state,
+                               content_length=task.content_length,
+                               total_piece_count=task.total_piece_count)
+
+    async def sync_peers(self, req: SyncPeersRequest,
+                         context) -> SyncPeersResponse:
+        """The live hosts, for the manager's sync_peers job (reference
+        ``scheduler/job/job.go:224``)."""
+        return SyncPeersResponse(hosts=[h.msg
+                                        for h in self.resource.hosts.values()])
+
+    # ------------------------------------------------------------------
     # SyncProbes
     # ------------------------------------------------------------------
 
@@ -890,5 +944,7 @@ def build_service(svc: SchedulerService) -> ServiceDef:
     d.unary_unary("LeaveHost", svc.leave_host)
     d.unary_unary("LeavePeer", svc.leave_peer)
     d.unary_unary("StatTask", svc.stat_task)
+    d.unary_unary("Preheat", svc.preheat)
+    d.unary_unary("SyncPeers", svc.sync_peers)
     d.stream_stream("SyncProbes", svc.sync_probes)
     return d

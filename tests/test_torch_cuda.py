@@ -368,6 +368,80 @@ def test_a_gateway_object_prefetched_onto_the_card_equals_its_bytes(
 
 
 @pytest.mark.gpu
+def test_a_preheated_file_pulled_from_the_seed_lands_on_the_card(
+        cuda, tmp_path):
+    """A REST preheat job of the manager warms a file into a seed whose
+    sink is the CPU; the origin file is then removed, and a leecher that
+    knows only the manager pulls it with back-source off into cuda:0: its
+    bytes are the origin's, every one from the seed."""
+    import urllib.request
+
+    raw = _seeded(24 << 20, seed=20)
+    path = tmp_path / "ckpt.bin"
+    path.write_bytes(raw)
+    url = f"file://{path}"
+
+    def rest(port: int, route: str, body: dict | None = None) -> dict:
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}{route}",
+            data=json.dumps(body).encode() if body is not None else None,
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=30) as r:
+            return json.loads(r.read())
+
+    async def main():
+        mgr = Manager(ManagerConfig(listen_ip="127.0.0.1"))
+        await mgr.start()
+        seed = Daemon(DaemonConfig(
+            workdir=str(tmp_path / "seed"), hostname="seed", is_seed=True,
+            listen_ip="127.0.0.1", host_ip="127.0.0.1", device="cpu",
+            manager_addresses=[mgr.address]))
+        await seed.start()
+        sched = Scheduler(SchedCfg(listen_ip="127.0.0.1",
+                                   manager_addresses=[mgr.address]))
+        await sched.start()
+        leecher = None
+        try:
+            job_id = (await asyncio.to_thread(
+                rest, mgr.rest.port, "/api/v1/jobs",
+                {"type": "preheat", "args": {"url": url}}))["id"]
+            for _ in range(600):
+                job = await asyncio.to_thread(rest, mgr.rest.port,
+                                              f"/api/v1/jobs/{job_id}")
+                if job["state"] in ("succeeded", "failed"):
+                    break
+                await asyncio.sleep(0.1)
+            assert job["state"] == "succeeded", job
+            path.unlink()
+            leecher = Daemon(DaemonConfig(
+                workdir=str(tmp_path / "leecher"), hostname="leecher",
+                listen_ip="127.0.0.1", host_ip="127.0.0.1",
+                manager_addresses=[mgr.address]))
+            await leecher.start()
+            task_id = None
+            async for r in leecher.ptm.start_file_task(DownloadRequest(
+                    url=url, disable_back_source=True,
+                    device_sink=DeviceSink(enabled=True), timeout_s=120)):
+                task_id = r.task_id
+            (entry,) = job["result"].values()
+            assert entry["task_id"] == task_id
+            c = leecher.ptm.conductor(task_id)
+            assert c.traffic_p2p == len(raw) and c.traffic_source == 0
+            return await asyncio.to_thread(c.device_ingest.result, 60)
+        finally:
+            if leecher is not None:
+                await leecher.stop()
+            await sched.stop()
+            await seed.stop()
+            await mgr.stop()
+
+    out = asyncio.run(asyncio.wait_for(main(), 180))
+    assert all(a.device == cuda for a in out)
+    flat = torch.cat(out)
+    assert flat[:len(raw)].cpu().numpy().tobytes() == raw
+
+
+@pytest.mark.gpu
 def test_a_blob_pulled_through_a_hijacking_proxy_lands_on_the_card(
         cuda, tmp_path):
     """A registry blob over TLS (``chip_smoke.RegistryStandIn``), pulled
