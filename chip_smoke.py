@@ -453,6 +453,38 @@ a chain's first relaying hop is the seed's first child.
               seed's back-source, L's time to ready and GB/s, the image
               job's time and the stand-in's counts, the layer's time to
               ready, the hosts, and each PATCH's time to the observer
+24. auth     — run after phase 23, on phase 8's origin over HTTP (250
+              MB/s per response) from phase 11's server in a child: the
+              manager's REST auth. A manager from its launcher with
+              ``--auth`` (``--db`` and ``--workdir`` in the workdir, fixed
+              ports); a seed and a scheduler, both registered with it, in
+              one child that never touches the card; an OAuth provider
+              stand-in on the standard library in another child, which
+              sends its token's JSON as ``text/plain``. ``root.password``
+              and ``session.secret`` must be mode 0600. A request without
+              credentials, one to an unknown path and a sign-in with a
+              wrong password are 401. Root signs in and makes a guest, who
+              reads (200) and may not post a job (403). Root mints a PAT
+              labelled ``ci``; with that PAT alone a ``POST /api/v1/jobs``
+              preheats the file into the seed and ``GET /api/v1/jobs/<id>``
+              polls it to ``succeeded``, the origin sending each byte
+              once. The origin stops; leecher L, here, knowing only the
+              manager, pulls with a manifest sink on the card and
+              back-source disabled: its tensors must equal the file, every
+              byte from peers. The revoked PAT's next request is 401. The
+              provider registered, the sign-in is a 302 to the stand-in
+              with the ``client_id`` and a ``state``; the callback's
+              session, named ``smokehub:octocat``, reads (200) and may not
+              write (403), and the replayed state is 401. The manager
+              restarted with SIGTERM on the same workdir and database keeps
+              root's session and does not bootstrap root again
+              (``root.password`` unchanged). The quota, which no launcher
+              key sets: an in-process ``RestAPI`` whose ``Authenticator``
+              allows 2 requests a second (burst 2) answers a burst's third
+              request 429 with ``Retry-After: 1`` and another identity's
+              200. It prints the scrypt sign-in's seconds, the median of
+              200 GETs each with a session, with a PAT and to the public
+              ``/healthy``, the job's seconds, L's time to ready and GB/s
 
 Before phase 3 the native storage library (``dfnative.cc``, built with
 g++ at first use) must load: the pulls land crc32c piece digests, and the
@@ -530,8 +562,11 @@ from dragonfly2_tpu_torch.idl.messages import (DeviceSink, DownloadRequest,
                                                RegisterPeerTaskRequest,
                                                ShardInfo, ShardManifest,
                                                TopologyInfo, UrlMeta)
+from dragonfly2_tpu_torch.manager.auth import Authenticator
+from dragonfly2_tpu_torch.manager.rest import RestAPI
 from dragonfly2_tpu_torch.manager.server import Manager, ManagerConfig
 from dragonfly2_tpu_torch.manager.service import MANAGER_SERVICE
+from dragonfly2_tpu_torch.manager.store import Store
 from dragonfly2_tpu_torch.rpc.client import Channel, ServiceClient
 from dragonfly2_tpu_torch.scheduler.config import SchedulerConfig as \
     SchedCfg
@@ -8355,12 +8390,16 @@ def free_port() -> int:
 
 
 def rest_call(port: int, method: str, route: str,
-              body: dict | None = None) -> tuple[int, dict]:
-    """One REST call to the manager: (status, JSON body)."""
+              body: dict | None = None, token: str = "") -> tuple[int, dict]:
+    """One REST call to the manager, with ``token`` as its bearer when
+    given: (status, JSON body)."""
+    headers = {"Content-Type": "application/json"}
+    if token:
+        headers["Authorization"] = f"Bearer {token}"
     req = urllib.request.Request(
         f"http://127.0.0.1:{port}{route}", method=method,
         data=json.dumps(body).encode() if body is not None else None,
-        headers={"Content-Type": "application/json"})
+        headers=headers)
     try:
         with urllib.request.urlopen(req, timeout=30) as r:
             return r.status, json.loads(r.read())
@@ -8368,17 +8407,18 @@ def rest_call(port: int, method: str, route: str,
         return exc.code, json.loads(exc.read() or b"{}")
 
 
-def wait_job(rest: int, job_id: int) -> tuple[dict, float]:
-    """Poll ``GET /api/v1/jobs/<id>`` until the job is terminal: the job
-    and the seconds waited."""
+def wait_job(rest: int, job_id: int, token: str = "") -> tuple[dict, float]:
+    """Poll ``GET /api/v1/jobs/<id>`` (with ``token`` as its bearer when
+    given) until the job is terminal: the job and the seconds waited."""
     t0 = time.monotonic()
     while True:
-        status, job = rest_call(rest, "GET", f"/api/v1/jobs/{job_id}")
+        status, job = rest_call(rest, "GET", f"/api/v1/jobs/{job_id}",
+                                token=token)
         if status == 200 and job["state"] in ("succeeded", "failed"):
             return job, time.monotonic() - t0
         check(time.monotonic() - t0 < PREHEAT_WAIT_S,
-              f"phase 23: job {job_id} not terminal in "
-              f"{PREHEAT_WAIT_S:.0f} s: {status} {job}")
+              f"job {job_id} not terminal in {PREHEAT_WAIT_S:.0f} s: "
+              f"{status} {job}")
         time.sleep(0.05)
 
 
@@ -8783,8 +8823,556 @@ def phase_preheat(workdir: str, device: torch.device) -> None:
         "phase_s": time.monotonic() - t_phase, "card": smi})
 
 
+AUTH_WAIT_S = 120.0                # bound on each wait of the phase
+AUTH_GETS = 200                    # timed GETs per credential
+AUTH_SEED = "auth-seed"
+AUTH_L = "auth-l"
+AUTH_QUOTA_RPS = 2.0               # the in-process quota's rate and burst
+OAUTH_PROVIDER = "smokehub"
+OAUTH_CODE = "smoke-code"
+OAUTH_ACCESS = "at-smoke-123"
+OAUTH_LOGIN = "octocat"
+
+
+class OAuthStandIn:
+    """An OAuth2 provider stand-in on the standard library:
+    ``POST /token`` (a form) trades the code ``OAUTH_CODE`` for the
+    access token ``OAUTH_ACCESS``, its JSON sent as ``token_ctype`` (phase
+    24 sends ``text/plain``, which a callback must take), and answers any
+    other code 400; ``GET /userinfo`` with that bearer token answers
+    ``identity``, any other 401. It keeps each token request's form,
+    ``Content-Type`` and ``Accept``, and counts the userinfo requests."""
+
+    def __init__(self, token_ctype: str = "application/json",
+                 identity: dict | None = None):
+        self.token_ctype = token_ctype
+        self.identity = identity or {"login": OAUTH_LOGIN}
+        self.lock = threading.Lock()
+        self.token_requests: list[dict] = []
+        self.userinfo_requests = 0
+        self._server = None
+
+    def stats(self) -> dict:
+        with self.lock:
+            return {"token_requests": list(self.token_requests),
+                    "userinfo_requests": self.userinfo_requests}
+
+    def start(self) -> int:
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+        provider = self
+
+        class Handler(BaseHTTPRequestHandler):
+            protocol_version = "HTTP/1.1"
+
+            def log_message(self, *args) -> None:
+                pass
+
+            def _reply(self, status: int, obj,
+                       ctype: str = "application/json") -> None:
+                body = json.dumps(obj).encode()
+                self.send_response(status)
+                self.send_header("Content-Type", ctype)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def do_POST(self) -> None:
+                n = int(self.headers.get("Content-Length") or 0)
+                raw = self.rfile.read(n).decode()
+                if urllib.parse.urlsplit(self.path).path != "/token":
+                    self._reply(404, {"error": "not found"})
+                    return
+                form = {k: v[-1] for k, v in
+                        urllib.parse.parse_qs(raw).items()}
+                with provider.lock:
+                    provider.token_requests.append({
+                        "form": form,
+                        "content_type": self.headers.get("Content-Type", ""),
+                        "accept": self.headers.get("Accept", "")})
+                if form.get("code") != OAUTH_CODE:
+                    self._reply(400, {"error": "bad code"})
+                    return
+                self._reply(200, {"access_token": OAUTH_ACCESS,
+                                  "token_type": "bearer"},
+                            provider.token_ctype)
+
+            def do_GET(self) -> None:
+                if urllib.parse.urlsplit(self.path).path != "/userinfo":
+                    self._reply(404, {"error": "not found"})
+                    return
+                with provider.lock:
+                    provider.userinfo_requests += 1
+                if self.headers.get("Authorization") != \
+                        f"Bearer {OAUTH_ACCESS}":
+                    self._reply(401, {"error": "bad token"})
+                    return
+                self._reply(200, provider.identity)
+
+        self._server = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self._server.daemon_threads = True
+        threading.Thread(target=self._server.serve_forever,
+                         daemon=True).start()
+        return self._server.server_address[1]
+
+    def stop(self) -> None:
+        if self._server is not None:
+            self._server.shutdown()
+            self._server.server_close()
+            self._server = None
+
+
+def oauth_standin_child(token_ctype: str, conn) -> None:
+    """Phase 24's OAuth provider stand-in, in a child process: it sends
+    its port, answers each "stats" with its requests, and ends at
+    "stop"."""
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    provider = OAuthStandIn(token_ctype)
+    try:
+        conn.send({"port": provider.start()})
+        while conn.recv() == "stats":
+            conn.send(provider.stats())
+    finally:
+        provider.stop()
+
+
+def auth_pod_child(workdir: str, mgr_addr: str, conn) -> None:
+    """Phase 24's seed and scheduler, in one child that never touches
+    CUDA: the seed registers with the manager, and the scheduler, which
+    also registers there, adopts it at its start. It sends the
+    scheduler's address and its seed count, answers each "report" with
+    the seed's origin bytes and task states, and ends at "stop"."""
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    asyncio.run(_auth_pod_child(workdir, mgr_addr, conn))
+
+
+async def _auth_pod_child(workdir: str, mgr_addr: str, conn) -> None:
+    seed = Daemon(DaemonConfig(
+        workdir=os.path.join(workdir, "seed"), hostname=AUTH_SEED,
+        is_seed=True, device="cpu", host_ip="127.0.0.1",
+        listen_ip="127.0.0.1", manager_addresses=[mgr_addr]))
+    await seed.start()
+    sched = Scheduler(SchedCfg(listen_ip="127.0.0.1",
+                               advertise_ip="127.0.0.1",
+                               manager_addresses=[mgr_addr]))
+    try:
+        await sched.start()
+        conn.send({"sched_addr": sched.address,
+                   "seeds": len(sched.seed_client.seed_peers)})
+        while await asyncio.to_thread(conn.recv) == "report":
+            # a preheat job ends when the seed's task does: wait for its
+            # conductor to say so too
+            t0 = time.monotonic()
+            while (any(c.state in (c.PENDING, c.RUNNING)
+                       for c in seed.ptm._conductors.values())
+                   and time.monotonic() - t0 < AUTH_WAIT_S):
+                await asyncio.sleep(0.05)
+            conductors = list(seed.ptm._conductors.values())
+            conn.send({"traffic_source": sum(c.traffic_source
+                                             for c in conductors),
+                       "states": [c.state for c in conductors]})
+    finally:
+        await sched.stop()
+        await seed.stop()
+
+
+def auth_call(port: int, method: str, route: str, token: str = "",
+              body=None, conn: http.client.HTTPConnection | None = None
+              ) -> tuple[int, dict, object]:
+    """One REST request to the manager, a redirect not followed, on
+    ``conn`` (kept open) or a connection of its own: (status, headers
+    under lower-case names, the JSON body, or the text of another)."""
+    own = conn is None
+    if own:
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
+    try:
+        headers = {"Authorization": f"Bearer {token}"} if token else {}
+        data = None
+        if body is not None:
+            data = json.dumps(body).encode()
+            headers["Content-Type"] = "application/json"
+        conn.request(method, route, body=data, headers=headers)
+        resp = conn.getresponse()
+        raw = resp.read()
+        hdrs = {k.lower(): v for k, v in resp.getheaders()}
+        if hdrs.get("content-type", "").startswith("application/json"):
+            return resp.status, hdrs, json.loads(raw)
+        return resp.status, hdrs, raw.decode(errors="replace")
+    finally:
+        if own:
+            conn.close()
+
+
+def timed_gets(port: int, route: str, token: str) -> dict:
+    """``AUTH_GETS`` GETs of ``route`` on one kept-open connection, each
+    on the host's clock: the median and the slowest seconds, and the
+    statuses seen."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
+    times, statuses = [], set()
+    try:
+        for _ in range(AUTH_GETS):
+            t0 = time.perf_counter()
+            status, _h, _b = auth_call(port, "GET", route, token, conn=conn)
+            times.append(time.perf_counter() - t0)
+            statuses.add(status)
+    finally:
+        conn.close()
+    return {"median_s": statistics.median(times), "max_s": max(times),
+            "statuses": sorted(statuses)}
+
+
+async def _auth_pull(d: str, mgr_addr: str, sched_addr: str, url: str,
+                     manifest: ShardManifest, device: torch.device) -> dict:
+    """Leecher L, here, knowing only the manager: the preheated file into
+    the card, back-source disabled."""
+    l_daemon = Daemon(DaemonConfig(
+        workdir=os.path.join(d, "l"), hostname=AUTH_L,
+        listen_ip="127.0.0.1", host_ip="127.0.0.1",
+        device="cpu" if device.type == "cpu" else "cuda",
+        manager_addresses=[mgr_addr]))
+    await l_daemon.start()
+
+    async def holders(_task_id: str) -> str:
+        return "the seed's holders are in its child"
+
+    try:
+        check(l_daemon.scheduler is not None
+              and l_daemon.scheduler.addresses == [sched_addr],
+              f"phase 24 L found "
+              f"{l_daemon.scheduler and l_daemon.scheduler.addresses} "
+              f"through the manager, want [{sched_addr}]")
+        return await _bounded_pull(l_daemon, url, UrlMeta(), manifest,
+                                   AUTH_WAIT_S, "phase 24 L", holders)
+    finally:
+        await l_daemon.stop()
+
+
+async def _auth_quota() -> dict:
+    """Check 9: the per-identity quota, which no launcher key sets (as in
+    the reference), on an in-process ``RestAPI`` whose ``Authenticator``
+    allows ``AUTH_QUOTA_RPS`` requests a second with that burst: a burst
+    of three by one identity, then one by another."""
+    store = Store()
+    auth = Authenticator(store, rest_quota_rps=AUTH_QUOTA_RPS,
+                         rest_quota_burst=AUTH_QUOTA_RPS)
+    api = RestAPI(store, host="127.0.0.1", auth=auth)
+    await api.start()
+    try:
+        pats = {}
+        for name in ("noisy", "calm"):
+            uid = await asyncio.to_thread(store.create_user, name,
+                                          name + "-pw", role="root")
+            pats[name] = await asyncio.to_thread(store.create_pat, uid)
+
+        def burst() -> list:
+            out = [auth_call(api.port, "GET", "/api/v1/schedulers",
+                             pats["noisy"]) for _ in range(3)]
+            out.append(auth_call(api.port, "GET", "/api/v1/schedulers",
+                                 pats["calm"]))
+            return [(s, h.get("retry-after"), b) for s, h, b in out]
+
+        return {"answers": await asyncio.to_thread(burst)}
+    finally:
+        await api.stop()
+        store.close()
+
+
+def phase_auth(workdir: str, device: torch.device) -> None:
+    """Phase 24: the manager's REST auth, on phase 8's origin over HTTP
+    (250 MB/s per response) from phase 11's server in a child. A manager
+    from its launcher with ``--auth``; a seed and a scheduler in one
+    child; an OAuth provider stand-in in another; leecher L here. Every
+    check of ``24. auth`` in the module's docstring; no fallback: L's sink
+    is on the card, and a manager that cannot bootstrap fails the
+    phase."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    t_phase = time.monotonic()
+    path = os.path.join(workdir, "deploy", TREE_WEIGHTS)
+    size = os.path.getsize(path)
+    d = os.path.join(workdir, "auth")
+    os.makedirs(d, exist_ok=True)
+    need = 3 * size                 # the seed's and L's copies, and room
+    free = shutil.disk_usage(workdir).free
+    check(free >= need, f"phase 24 needs {need} bytes of free disk, "
+                        f"{free} free")
+    layout = deploy_layout()
+    header, _ = safetensors_header(layout)
+    manifest = manifest_from_file(path)
+    with open(path, "rb") as f:
+        f.seek(len(header))
+        ref = torch.frombuffer(bytearray(f.read()), dtype=torch.uint8).to(
+            device)
+    mgr_dir = os.path.join(d, "manager")
+    pw_path = os.path.join(mgr_dir, "root.password")
+    grpc_port, rest = free_port(), free_port()
+    mgr_args = ["--listen-ip", "127.0.0.1", "--db", os.path.join(d, "m.db"),
+                "--workdir", mgr_dir, "--grpc-port", str(grpc_port),
+                "--rest-port", str(rest), "--auth"]
+    ctx = child_context()
+    o_conn, o_child = ctx.Pipe()
+    origin = ctx.Process(target=http_origin_child, name="smoke-auth-origin",
+                         args=(path, CHAIN_PACE_BPS, o_child))
+    origin.start()
+    p_conn, p_child = ctx.Pipe()
+    provider = ctx.Process(target=oauth_standin_child,
+                           name="smoke-auth-oauth",
+                           args=("text/plain", p_child))
+    provider.start()
+    children = [(o_conn, origin), (p_conn, provider)]
+    mgr = Launched(d, "manager", "manager", mgr_args)
+    procs: list[Launched] = [mgr]
+    rcs: dict = {}
+    origin_stopped = False
+    try:
+        mgr_addr = re.search(r"grpc=(\S+) ",
+                             mgr.wait_up("manager up:")).group(1)
+        pod_conn, pod_child = ctx.Pipe()
+        pod = ctx.Process(target=auth_pod_child, name="smoke-auth-pod",
+                          args=(d, mgr_addr, pod_child))
+        pod.start()
+        children.append((pod_conn, pod))
+        # 1. the bootstrap's files, 0600 from their creation
+        modes = {f: os.stat(os.path.join(mgr_dir, f)).st_mode & 0o777
+                 for f in ("root.password", "session.secret")}
+        check(modes == {"root.password": 0o600, "session.secret": 0o600},
+              f"phase 24: the bootstrap's file modes {modes}")
+        with open(pw_path) as f:
+            password = f.read().strip()
+        pw_mtime = os.stat(pw_path).st_mtime_ns
+        check(o_conn.poll(AUTH_WAIT_S), "phase 24's origin did not start")
+        url = f"http://127.0.0.1:{o_conn.recv()['port']}/{TREE_WEIGHTS}"
+        task_id = ids.task_id(url)
+        check(p_conn.poll(AUTH_WAIT_S),
+              "phase 24's OAuth stand-in did not start")
+        pbase = f"http://127.0.0.1:{p_conn.recv()['port']}"
+
+        # 2. no credentials, an unknown path, a wrong password: 401
+        refused = {
+            "no credentials": auth_call(rest, "GET", "/api/v1/schedulers"),
+            "unknown path": auth_call(rest, "GET", "/api/v1/nope"),
+            "wrong password": auth_call(
+                rest, "POST", "/api/v1/users/signin",
+                body={"name": "root", "password": password + "x"})}
+        check({k: v[0] for k, v in refused.items()}
+              == dict.fromkeys(refused, 401),
+              f"phase 24: the 401s {refused}")
+
+        # 3. root signs in (one scrypt check), makes a guest, who reads
+        # and may not write
+        t0 = time.monotonic()
+        status, _h, signin = auth_call(
+            rest, "POST", "/api/v1/users/signin",
+            body={"name": "root", "password": password})
+        signin_s = time.monotonic() - t0
+        check(status == 200 and signin["role"] == "root"
+              and signin["token"].startswith("dfs_"),
+              f"phase 24: root's sign-in {status} {signin}")
+        root = signin["token"]
+        made = auth_call(rest, "POST", "/api/v1/users", root,
+                         {"name": "viewer", "password": "viewer-pw",
+                          "role": "guest"})
+        check(made[0] == 201, f"phase 24: the guest's creation {made}")
+        status, _h, gsign = auth_call(
+            rest, "POST", "/api/v1/users/signin",
+            body={"name": "viewer", "password": "viewer-pw"})
+        check(status == 200 and gsign["role"] == "guest",
+              f"phase 24: the guest's sign-in {status} {gsign}")
+        guest = gsign["token"]
+        guest_read = auth_call(rest, "GET", "/api/v1/schedulers", guest)
+        guest_job = auth_call(rest, "POST", "/api/v1/jobs", guest,
+                              {"type": "preheat", "args": {"url": url}})
+        check(guest_read[0] == 200
+              and guest_job[::2] == (403, {"error": "forbidden"}),
+              f"phase 24: the guest's read {guest_read[0]} and job "
+              f"{guest_job}")
+
+        # 4. a PAT labelled ci; with it alone, the preheat job
+        minted = auth_call(rest, "POST", "/api/v1/personal-access-tokens",
+                           root, {"label": "ci"})
+        check(minted[0] == 201 and minted[2]["token"].startswith("dfp_"),
+              f"phase 24: the PAT {minted}")
+        pat = minted[2]["token"]
+        gets = {"session": timed_gets(rest, "/api/v1/schedulers", root),
+                "pat": timed_gets(rest, "/api/v1/schedulers", pat),
+                "public": timed_gets(rest, "/healthy", "")}
+        check(all(g["statuses"] == [200] for g in gets.values()),
+              f"phase 24: the timed GETs {gets}")
+        check(pod_conn.poll(AUTH_WAIT_S),
+              "phase 24's seed and scheduler did not start")
+        pod_info = pod_conn.recv()
+        check(pod_info["seeds"] == 1,
+              f"phase 24: the scheduler adopted {pod_info['seeds']} seeds "
+              f"from the manager, want 1")
+        t0 = time.monotonic()
+        status, _h, posted = auth_call(rest, "POST", "/api/v1/jobs", pat,
+                                       {"type": "preheat",
+                                        "args": {"url": url}})
+        check(status == 201, f"phase 24: the PAT's preheat {status} "
+                             f"{posted}")
+        job, _ = wait_job(rest, posted["id"], pat)
+        job_s = time.monotonic() - t0
+        check(job["state"] == "succeeded", f"phase 24: the job {job}")
+        (entry,) = job["result"].values()
+        check(entry == {"url": url, "state": "succeeded",
+                        "task_id": task_id},
+              f"phase 24: the job's result {entry}, want task {task_id}")
+        seed_report = _ask(pod_conn, "report")
+        o_report = _ask(o_conn, "report")
+        # the seed's parallel back-source reads ranges: they must tile the
+        # file, each byte once
+        spans = sorted(o_report["ranges"])
+        tiled = (bool(spans) and spans[0][0] == 0 and spans[-1][1] == size
+                 and all(a[1] == b[0] for a, b in zip(spans, spans[1:])))
+        check(o_report["body_bytes"] == size and tiled
+              and seed_report["traffic_source"] == size,
+              f"phase 24: the origin sent {o_report['body_bytes']} bytes "
+              f"in {spans}, the seed read "
+              f"{seed_report['traffic_source']}, want {size} once")
+
+        # 5. the origin stops; L pulls the file into the card
+        o_conn.send("stop")
+        origin.join(timeout=60)
+        origin_stopped = True
+        l_run = asyncio.run(_auth_pull(d, mgr_addr, pod_info["sched_addr"],
+                                       url, manifest, device))
+
+        # 6. the PAT revoked: its next request is 401
+        status, _h, listed = auth_call(
+            rest, "GET", "/api/v1/personal-access-tokens", root)
+        ci = [p for p in listed if p["label"] == "ci"]
+        check(status == 200 and len(ci) == 1 and not ci[0]["revoked"],
+              f"phase 24: the PAT list {status} {listed}")
+        revoked = auth_call(rest, "DELETE",
+                            f"/api/v1/personal-access-tokens/{ci[0]['id']}",
+                            root)
+        after_revoke = auth_call(rest, "GET", "/api/v1/schedulers", pat)
+        check(revoked[::2] == (200, {"ok": True})
+              and after_revoke[0] == 401,
+              f"phase 24: revoke {revoked}, then {after_revoke}")
+
+        # 7. OAuth against the stand-in, whose token is text/plain JSON
+        created = auth_call(rest, "POST", "/api/v1/oauth", root, {
+            "name": OAUTH_PROVIDER, "client_id": "smoke-client",
+            "client_secret": "smoke-secret",
+            "auth_url": f"{pbase}/authorize",
+            "token_url": f"{pbase}/token",
+            "userinfo_url": f"{pbase}/userinfo", "scopes": "read:user"})
+        check(created[0] == 201, f"phase 24: the provider {created}")
+        status, hdrs, _b = auth_call(rest, "GET",
+                                     f"/oauth/signin/{OAUTH_PROVIDER}")
+        loc = hdrs.get("location", "")
+        query = urllib.parse.parse_qs(urllib.parse.urlsplit(loc).query)
+        check(status == 302 and loc.startswith(f"{pbase}/authorize?")
+              and query.get("client_id") == ["smoke-client"]
+              and len(query.get("state", [])) == 1,
+              f"phase 24: the sign-in {status} to {loc!r}")
+        callback = (f"/oauth/callback/{OAUTH_PROVIDER}?"
+                    + urllib.parse.urlencode({"code": OAUTH_CODE,
+                                              "state": query["state"][0]}))
+        t0 = time.monotonic()
+        status, _h, signed = auth_call(rest, "GET", callback)
+        oauth_s = time.monotonic() - t0
+        check(status == 200 and signed["user"]["name"]
+              == f"{OAUTH_PROVIDER}:{OAUTH_LOGIN}"
+              and signed["user"]["role"] == "guest",
+              f"phase 24: the callback {status} {signed}")
+        oauth_read = auth_call(rest, "GET", "/api/v1/schedulers",
+                               signed["token"])[0]
+        oauth_write = auth_call(rest, "POST", "/api/v1/applications",
+                                signed["token"], {"name": "oauth-app"})[0]
+        replay = auth_call(rest, "GET", callback)
+        check((oauth_read, oauth_write, replay[0]) == (200, 403, 401),
+              f"phase 24: the OAuth session read {oauth_read}, wrote "
+              f"{oauth_write}; the replayed state {replay}")
+        seen = _ask(p_conn, "stats")
+        (treq,) = seen["token_requests"]
+        check(treq["form"].get("client_secret") == "smoke-secret"
+              and treq["form"].get("code") == OAUTH_CODE
+              and treq["content_type"]
+              == "application/x-www-form-urlencoded"
+              and treq["accept"] == "application/json"
+              and seen["userinfo_requests"] == 1,
+              f"phase 24: the stand-in saw {seen}")
+
+        # 8. a SIGTERM restart on the same workdir and database keeps
+        # root's session and does not bootstrap again
+        rcs[mgr.name] = mgr.stop()
+        mgr2 = Launched(d, "manager-restarted", "manager", mgr_args)
+        procs.append(mgr2)
+        mgr2.wait_up("manager up:")
+        kept = auth_call(rest, "GET", "/api/v1/schedulers", root)[0]
+        with open(pw_path) as f:
+            same_password = f.read().strip() == password
+        check(kept == 200 and same_password
+              and os.stat(pw_path).st_mtime_ns == pw_mtime
+              and len(mgr.lines("bootstrapped root user")) == 1
+              and not mgr2.lines("bootstrapped root user"),
+              f"phase 24: after the restart root's session got {kept}, "
+              f"the password file unchanged: {same_password}; "
+              f"{mgr2.text()[-1500:]}")
+
+        # 9. the quota, in process
+        quota = asyncio.run(_auth_quota())
+        check(quota["answers"] == [
+            (200, None, quota["answers"][0][2]),
+            (200, None, quota["answers"][1][2]),
+            (429, "1", {"error": "quota exceeded"}),
+            (200, None, quota["answers"][3][2])],
+            f"phase 24: the quota's answers {quota}")
+    finally:
+        for p in reversed(procs):
+            if p.name not in rcs:
+                rcs[p.name] = p.stop()
+        for conn, proc in children:
+            try:
+                if not (proc is origin and origin_stopped):
+                    conn.send("stop")
+            except OSError:
+                pass
+            proc.join(timeout=60)
+            if proc.is_alive():
+                proc.terminate()
+                proc.join(timeout=30)
+    check(all(rc == 0 for rc in rcs.values())
+          and all(proc.exitcode == 0 for _c, proc in children),
+          f"phase 24: return codes {rcs}, children "
+          f"{[(proc.name, proc.exitcode) for _c, proc in children]}")
+    # L's tensors: the file's, every byte from peers
+    tensors, base, shapes = l_run["out"], len(header), dict(layout)
+    for info in manifest.shards:
+        t = tensors[info.name]
+        lo = info.range_start - base
+        check(t.device == device and t.dtype == torch.bfloat16
+              and list(t.shape) == shapes[info.name]
+              and torch.equal(t.reshape(-1).view(torch.uint8),
+                              ref[lo:lo + info.range_size]),
+              f"phase 24 L: {info.name} differs from the origin")
+    c = l_run["conductor"]
+    check((c.traffic_p2p, c.traffic_source) == (c.content_length, 0)
+          and c.content_length == size and c.task_id == task_id,
+          f"phase 24 L: task {c.task_id}, (p2p, source) "
+          f"{(c.traffic_p2p, c.traffic_source)}, file {size}")
+    del tensors, l_run["out"], ref
+    shutil.rmtree(d, ignore_errors=True)
+    emit("phase 24 auth", {
+        "file_bytes": size, "task_id": task_id,
+        "start_s": {p.name: p.up_s for p in procs},
+        "scrypt_signin_s": signin_s,
+        "get_median_s": {k: g["median_s"] for k, g in gets.items()},
+        "get_max_s": {k: g["max_s"] for k, g in gets.items()},
+        "gets_each": AUTH_GETS,
+        "pat_job_s": job_s, "origin_bytes": o_report["body_bytes"],
+        "l_time_to_ready_s": l_run["wall"],
+        "l_gbps": size / 1e9 / l_run["wall"],
+        "oauth_callback_s": oauth_s,
+        "return_codes": rcs,
+        "phase_s": time.monotonic() - t_phase, "card": smi})
+
+
 def run_phases(layers: int, seed: int, device: torch.device) -> None:
-    """Phases 2-23 on ``device``; raises CheckFailed on a failed check."""
+    """Phases 2-24 on ``device``; raises CheckFailed on a failed check."""
     layout = llama_layout(layers)
     header, nbytes = safetensors_header(layout)
     workdir = tempfile.mkdtemp(prefix="chip-smoke-")
@@ -8857,6 +9445,7 @@ def run_phases(layers: int, seed: int, device: torch.device) -> None:
         phase_fleet(workdir, device)
         phase_tree(workdir, device)
         phase_preheat(workdir, device)
+        phase_auth(workdir, device)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 

@@ -31,7 +31,7 @@ from urllib.parse import urlencode
 
 from ..idl.messages import PreheatRequest, SyncPeersRequest, UrlMeta
 from ..rpc.client import ChannelPool, ServiceClient
-from ..source.http_client import HTTPSourceClient
+from ..source.http_client import HTTPSourceClient, json_body
 from .store import Store
 
 log = logging.getLogger("df.mgr.jobs")
@@ -199,10 +199,12 @@ class JobRunner:
                   if k in ("service", "scope") and v}
         if params:
             realm += ("&" if "?" in realm else "?") + urlencode(params)
-        tstatus, _h, tbody = await self._get(realm, {})
+        tstatus, thdrs, tbody = await self._get(realm, {})
         if tstatus != 200:
             return 401, {}, b""
-        tok = json.loads(tbody).get("token") or ""
+        # a token under a type that is not JSON fails the resolution, and
+        # with it the job, as the reference's resp.json() does
+        tok = json_body(tstatus, thdrs, tbody, realm).get("token") or ""
         auth["Authorization"] = f"Bearer {tok}"
         return await self._get(url, {**headers, **auth})
 

@@ -1,22 +1,27 @@
 """Manager REST API.
 
 Counterpart of ``dragonfly2_tpu/manager/rest.py`` (reference
-``manager/handlers`` + ``manager/router``) for the entities this slice
-ports: health, metrics, scheduler clusters (list, create), schedulers,
-seed peers, seed-peer clusters (list, create), applications (list,
-create), tenants (list, and create with the class checked against the
-QoS vocabulary), models (list), jobs (``POST /api/v1/jobs`` of a
-``preheat`` or ``sync_peers`` job, the list, one by id) and the cluster
-``PATCH /api/v1/scheduler-clusters/{id}``, which merges its ``config``
-into the stored one (a numeric string coerced, a wrong type or an unknown
-key refused) and replaces ``scopes``. The reference serves with
+``manager/handlers`` + ``manager/router``): health, metrics, scheduler
+clusters (list, create), schedulers, seed peers, seed-peer clusters
+(list, create), applications (list, create), tenants (list, and create
+with the class checked against the QoS vocabulary), models (list), jobs
+(``POST /api/v1/jobs`` of a ``preheat`` or ``sync_peers`` job, the list,
+one by id), the cluster ``PATCH /api/v1/scheduler-clusters/{id}``, which
+merges its ``config`` into the stored one (a numeric string coerced, a
+wrong type or an unknown key refused) and replaces ``scopes``, and the
+users, personal access tokens and OAuth providers of REST auth. With
+``auth`` (an ``auth.Authenticator``) every request passes its ``gate``
+before it is routed, as the reference's aiohttp middleware runs around
+the 404 and 405 answers too: an unknown path without credentials is 401;
+the OAuth sign-in and callback routes exist only then, and the sign-in
+route answers 404 without it. The reference serves with
 ``aiohttp.web``; the card's machine has no aiohttp, so this module speaks
 HTTP/1.1 on ``asyncio.start_server``, as ``daemon/upload_server.py`` does,
-with the same paths (``{id}`` matching one path segment), status codes
-and JSON bodies; a method not routed on a known path is 405. Malformed
-input the reference answers 500 (a body that is no JSON object, a
-non-integer id, unknown ``url_meta`` keys) is 400 here. Users, personal
-access tokens and OAuth wait for the slice that ports REST auth.
+with the same paths (``{id}`` matching one path segment), status codes,
+headers (``Location``, ``Retry-After``) and JSON bodies; a method not
+routed on a known path is 405. Malformed input the reference answers 500
+(a body that is no JSON object, a non-integer id, unknown ``url_meta``
+keys) is 400 here.
 """
 
 from __future__ import annotations
@@ -26,18 +31,23 @@ import dataclasses
 import json
 import logging
 import re
+import socket
+from dataclasses import dataclass
 from urllib.parse import parse_qs, unquote, urlsplit
 
+from ..common.errors import DFError
 from ..common.metrics import REGISTRY
 from ..idl.messages import PRIORITY_CLASSES, ClusterConfig, UrlMeta
+from .auth import OAuthFlow
 from .jobs import JobRunner
 from .store import Store
 
 log = logging.getLogger("df.mgr.rest")
 
-_REASONS = {200: "OK", 201: "Created", 400: "Bad Request",
-            404: "Not Found", 405: "Method Not Allowed",
-            413: "Payload Too Large", 500: "Internal Server Error"}
+_REASONS = {200: "OK", 201: "Created", 302: "Found", 400: "Bad Request",
+            401: "Unauthorized", 403: "Forbidden", 404: "Not Found",
+            405: "Method Not Allowed", 413: "Payload Too Large",
+            429: "Too Many Requests", 500: "Internal Server Error"}
 _HEAD_LIMIT = 64 << 10
 _BODY_LIMIT = 1 << 20
 _JSON = "application/json; charset=utf-8"
@@ -51,8 +61,26 @@ class _HTTPError(Exception):
         self.error = error
 
 
-def _json(obj, status: int = 200) -> tuple[int, str, bytes]:
-    return status, _JSON, json.dumps(obj).encode()
+@dataclass
+class _Request:
+    """What a handler reads of its request: the query (last value of each
+    name), the body, the headers (names in lower case), ``Host`` and the
+    user the auth gate attached (None: auth off or a public path)."""
+    query: dict
+    body: bytes
+    headers: dict
+    user: dict | None = None
+
+    @property
+    def host(self) -> str:
+        # aiohttp's request.host: the Host header, else the machine's name
+        return self.headers.get("host") or socket.getfqdn()
+
+
+def _json(obj, status: int = 200, headers: dict | None = None
+          ) -> tuple[int, str, bytes, dict]:
+    """A JSON response: status, content type, body and extra headers."""
+    return status, _JSON, json.dumps(obj).encode(), headers or {}
 
 
 def _body(raw: bytes) -> dict:
@@ -82,11 +110,15 @@ def _name(body: dict) -> str:
 
 class RestAPI:
     def __init__(self, store: Store, jobs: JobRunner | None = None, *,
-                 host: str = "0.0.0.0", port: int = 0):
+                 host: str = "0.0.0.0", port: int = 0, auth=None):
+        """``auth``: an ``auth.Authenticator``; None leaves the API open
+        (the reference's dev mode, its middleware off)."""
         self.store = store
         self.jobs = jobs
         self.host = host
         self.port = port
+        self.auth = auth
+        self._oauth_flow = None
         self._server: asyncio.base_events.Server | None = None
         self._conns: set[asyncio.Task] = set()
         self._routes = {
@@ -109,7 +141,23 @@ class RestAPI:
             ("GET", "/api/v1/jobs/{id}"): self._get_job,
             ("PATCH", "/api/v1/scheduler-clusters/{id}"):
                 self._update_sched_cluster,
+            ("POST", "/api/v1/users/signin"): self._signin,
+            ("POST", "/api/v1/users"): self._create_user,
+            ("GET", "/api/v1/users"): self._list_users,
+            ("POST", "/api/v1/personal-access-tokens"): self._create_pat,
+            ("GET", "/api/v1/personal-access-tokens"): self._list_pats,
+            ("DELETE", "/api/v1/personal-access-tokens/{id}"):
+                self._revoke_pat,
+            ("GET", "/api/v1/oauth"): self._list_oauth,
+            ("POST", "/api/v1/oauth"): self._create_oauth,
+            ("DELETE", "/api/v1/oauth/{id}"): self._delete_oauth,
         }
+        if auth is not None:
+            self._oauth_flow = OAuthFlow(store, auth)
+            self._routes[("GET", "/oauth/signin/{name}")] = \
+                self._oauth_signin
+            self._routes[("GET", "/oauth/callback/{name}")] = \
+                self._oauth_callback
         # a "{name}" segment matches one path segment; its decoded text
         # is the handler's third argument
         self._patterns = [
@@ -133,6 +181,8 @@ class RestAPI:
         await asyncio.gather(*self._conns, return_exceptions=True)
         await self._server.wait_closed()
         self._server = None
+        if self._oauth_flow is not None:
+            await self._oauth_flow.close()
 
     # -- HTTP/1.1 ------------------------------------------------------
 
@@ -159,16 +209,17 @@ class RestAPI:
                 keep = headers.get("connection", "").lower() != "close"
                 length = int(headers.get("content-length") or 0)
                 if length > _BODY_LIMIT:
-                    status, ctype, payload = _json(
+                    status, ctype, payload, extra = _json(
                         {"error": "body too large"}, 413)
                     keep = False
                 else:
                     body = await reader.readexactly(length) if length else b""
-                    status, ctype, payload = await self._dispatch(
-                        parts[0], parts[1], body)
+                    status, ctype, payload, extra = await self._dispatch(
+                        parts[0], parts[1], body, headers)
                 head = [f"HTTP/1.1 {status} {_REASONS.get(status, 'Status')}",
                         f"Content-Type: {ctype}",
-                        f"Content-Length: {len(payload)}"]
+                        f"Content-Length: {len(payload)}",
+                        *(f"{k}: {v}" for k, v in extra.items())]
                 if not keep:
                     head.append("Connection: close")
                 writer.write(("\r\n".join(head) + "\r\n\r\n").encode("latin-1")
@@ -183,26 +234,35 @@ class RestAPI:
             self._conns.discard(task)
             writer.close()
 
-    async def _dispatch(self, method: str, target: str,
-                        body: bytes) -> tuple[int, str, bytes]:
+    async def _dispatch(self, method: str, target: str, body: bytes,
+                        headers: dict) -> tuple[int, str, bytes, dict]:
         url = urlsplit(target)
-        handler, args, known = None, (), False
-        for m, pattern, h in self._patterns:
-            match = pattern.match(url.path)
-            if match is None:
-                continue
-            known = True
-            if m == method:
-                handler = h
-                args = tuple(unquote(g) for g in match.groups())
-                break
-        if handler is None:
-            if known:
-                return 405, _TEXT, b"405: Method Not Allowed"
-            return 404, _TEXT, b"404: Not Found"
-        query = {k: v[-1] for k, v in parse_qs(url.query).items()}
+        req = _Request({k: v[-1] for k, v in parse_qs(url.query).items()},
+                       body, headers)
         try:
-            return await handler(query, body, *args)
+            if self.auth is not None:
+                # before routing: an unknown path or an unrouted method
+                # without credentials is 401, as in the reference
+                req.user, refused = self.auth.gate(method, unquote(url.path),
+                                                   headers)
+                if refused is not None:
+                    status, answer, extra = refused
+                    return _json(answer, status, extra)
+            handler, args, known = None, (), False
+            for m, pattern, h in self._patterns:
+                match = pattern.match(url.path)
+                if match is None:
+                    continue
+                known = True
+                if m == method:
+                    handler = h
+                    args = tuple(unquote(g) for g in match.groups())
+                    break
+            if handler is None:
+                if known:
+                    return 405, _TEXT, b"405: Method Not Allowed", {}
+                return 404, _TEXT, b"404: Not Found", {}
+            return await handler(req, *args)
         except _HTTPError as exc:
             return _json({"error": exc.error}, exc.status)
         except Exception as exc:  # noqa: BLE001 - one request, not the server
@@ -211,17 +271,17 @@ class RestAPI:
 
     # -- handlers ------------------------------------------------------
 
-    async def _healthy(self, _q, _b):
-        return 200, _TEXT, b"ok"
+    async def _healthy(self, _r):
+        return 200, _TEXT, b"ok", {}
 
-    async def _metrics(self, _q, _b):
-        return 200, _TEXT, REGISTRY.expose().encode()
+    async def _metrics(self, _r):
+        return 200, _TEXT, REGISTRY.expose().encode(), {}
 
-    async def _list_sched_clusters(self, _q, _b):
+    async def _list_sched_clusters(self, _r):
         return _json(await asyncio.to_thread(self.store.scheduler_clusters))
 
-    async def _create_sched_cluster(self, _q, raw):
-        body = _body(raw)
+    async def _create_sched_cluster(self, r):
+        body = _body(r.body)
         name = _name(body)
         try:
             cfg = ClusterConfig(**(body.get("config") or {}))
@@ -236,19 +296,19 @@ class RestAPI:
             raise _HTTPError(400, str(exc)) from None
         return _json({"id": cid}, 201)
 
-    async def _list_schedulers(self, _q, _b):
+    async def _list_schedulers(self, _r):
         return _json([dataclasses.asdict(s) for s in
                       await asyncio.to_thread(self.store.schedulers)])
 
-    async def _list_seed_peers(self, _q, _b):
+    async def _list_seed_peers(self, _r):
         return _json([dataclasses.asdict(s) for s in
                       await asyncio.to_thread(self.store.seed_peers)])
 
-    async def _list_applications(self, _q, _b):
+    async def _list_applications(self, _r):
         return _json(await asyncio.to_thread(self.store.applications))
 
-    async def _create_application(self, _q, raw):
-        body = _body(raw)
+    async def _create_application(self, r):
+        body = _body(r.body)
         name = _name(body)
         app_id = await asyncio.to_thread(
             lambda: self.store.upsert_application(
@@ -256,14 +316,14 @@ class RestAPI:
                 priority=body.get("priority")))
         return _json({"id": app_id}, 201)
 
-    async def _list_tenants(self, _q, _b):
+    async def _list_tenants(self, _r):
         return _json(await asyncio.to_thread(self.store.tenants))
 
-    async def _create_tenant(self, _q, raw):
+    async def _create_tenant(self, r):
         """A tenant's quota row. The class is checked against the QoS
         vocabulary at the write: a typo'd class fails the POST rather than
         losing its default at the scheduler."""
-        body = _body(raw)
+        body = _body(r.body)
         if not body.get("name"):
             return _json({"error": "name required"}, 400)
         cls = body.get("qos_class", "")
@@ -282,16 +342,16 @@ class RestAPI:
                 shed_retry_after_ms=retry_ms))
         return _json({"id": tenant_id}, 201)
 
-    async def _list_models(self, query, _b):
-        name = query.get("name")
+    async def _list_models(self, r):
+        name = r.query.get("name")
         return _json(await asyncio.to_thread(
             lambda: self.store.models(name=name)))
 
-    async def _list_sp_clusters(self, _q, _b):
+    async def _list_sp_clusters(self, _r):
         return _json(await asyncio.to_thread(self.store.seed_peer_clusters))
 
-    async def _create_sp_cluster(self, _q, raw):
-        name = _name(_body(raw))
+    async def _create_sp_cluster(self, r):
+        name = _name(_body(r.body))
         try:
             cid = await asyncio.to_thread(self.store.create_seed_peer_cluster,
                                           name)
@@ -299,8 +359,8 @@ class RestAPI:
             raise _HTTPError(400, str(exc)) from None
         return _json({"id": cid}, 201)
 
-    async def _create_job(self, _q, raw):
-        body = _body(raw)
+    async def _create_job(self, r):
+        body = _body(r.body)
         args = body.get("args", {})
         if not isinstance(args, dict):
             raise _HTTPError(400, "args must be an object")
@@ -328,10 +388,10 @@ class RestAPI:
             return _json({"error": "unknown job type"}, 400)
         return _json({"id": job_id}, 201)
 
-    async def _list_jobs(self, _q, _b):
+    async def _list_jobs(self, _r):
         return _json(await asyncio.to_thread(self.store.jobs))
 
-    async def _get_job(self, _q, _b, job_id):
+    async def _get_job(self, _r, job_id):
         job = await asyncio.to_thread(self.store.job, _int_id(job_id))
         if job is None:
             return _json({"error": "not found"}, 404)
@@ -339,11 +399,11 @@ class RestAPI:
         job["result"] = json.loads(job["result"])
         return _json(job)
 
-    async def _update_sched_cluster(self, _q, raw, cluster_id):
+    async def _update_sched_cluster(self, r, cluster_id):
         # parsed as the reference's request.json(): an empty or junk body
         # answers 400 with the decoder's own message
         try:
-            body = json.loads(raw.decode())
+            body = json.loads(r.body.decode())
             if not isinstance(body, dict):
                 raise ValueError("body must be a JSON object")
         except Exception as exc:  # noqa: BLE001 - malformed input is a 400
@@ -379,6 +439,105 @@ class RestAPI:
             lambda: self.store.update_scheduler_cluster(
                 cid, config=cfg, scopes=body.get("scopes")))
         return _json({"ok": ok}, 200 if ok else 404)
+
+
+    # -- users and tokens (reference manager/handlers/user.go, pat.go) --
+
+    async def _signin(self, r):
+        if self.auth is None:
+            return _json({"error": "auth disabled"}, 404)
+        body = _body(r.body)
+        user = await asyncio.to_thread(
+            self.store.verify_user, body.get("name", ""),
+            body.get("password", ""))
+        if user is None:
+            return _json({"error": "bad credentials"}, 401)
+        return _json({"token": self.auth.mint_session(user),
+                      "role": user["role"]})
+
+    async def _create_user(self, r):
+        body = _body(r.body)
+        try:
+            uid = await asyncio.to_thread(
+                lambda: self.store.create_user(
+                    body["name"], body["password"],
+                    role=body.get("role", "guest")))
+        except Exception as exc:  # noqa: BLE001 - a duplicate name, a bad role
+            return _json({"error": str(exc)}, 400)
+        return _json({"id": uid}, 201)
+
+    async def _create_pat(self, r):
+        body = _body(r.body)
+        user = r.user or {"id": body.get("user_id", 0)}
+        token = await asyncio.to_thread(
+            lambda: self.store.create_pat(
+                user["id"], label=body.get("label", ""),
+                ttl_s=float(body.get("ttl_s", 0))))
+        return _json({"token": token}, 201)
+
+    async def _list_pats(self, r):
+        uid = r.user["id"] if r.user and r.user["role"] != "root" else None
+        return _json(await asyncio.to_thread(lambda: self.store.pats(uid)))
+
+    async def _revoke_pat(self, _r, pat_id):
+        await asyncio.to_thread(self.store.revoke_pat, _int_id(pat_id))
+        return _json({"ok": True})
+
+    async def _list_users(self, r):
+        if r.user is not None and r.user.get("role") != "root":
+            # user names include OAuth identities: operators only
+            return _json({"error": "forbidden"}, 403)
+        return _json(await asyncio.to_thread(self.store.users))
+
+    # -- OAuth (reference manager/handlers/oauth.go) ----------------------
+
+    async def _list_oauth(self, _r):
+        return _json(await asyncio.to_thread(self.store.oauths))
+
+    async def _create_oauth(self, r):
+        body = _body(r.body)
+        try:
+            oid = await asyncio.to_thread(
+                lambda: self.store.create_oauth(
+                    body["name"], client_id=body["client_id"],
+                    client_secret=body["client_secret"],
+                    auth_url=body["auth_url"], token_url=body["token_url"],
+                    userinfo_url=body["userinfo_url"],
+                    scopes=body.get("scopes", "")))
+        except KeyError as exc:
+            return _json({"error": f"missing field {exc}"}, 400)
+        except Exception as exc:  # noqa: BLE001 - e.g. a duplicate name
+            return _json({"error": str(exc)}, 400)
+        return _json({"id": oid}, 201)
+
+    async def _delete_oauth(self, _r, oauth_id):
+        ok = await asyncio.to_thread(self.store.delete_oauth,
+                                     _int_id(oauth_id))
+        return _json({"ok": ok}, 200 if ok else 404)
+
+    def _redirect_uri(self, r, name: str) -> str:
+        return r.query.get("redirect_uri",
+                           f"http://{r.host}/oauth/callback/{name}")
+
+    async def _oauth_signin(self, r, name):
+        try:
+            url = await self._oauth_flow.signin_url(
+                name, self._redirect_uri(r, name))
+        except DFError as exc:
+            # the state table is full (a flood of mints): 429, not 500
+            return _json({"error": exc.message}, 429)
+        if url is None:
+            return _json({"error": "unknown provider"}, 404)
+        # aiohttp's HTTPFound, body and all
+        return 302, _TEXT, b"302: Found", {"Location": url}
+
+    async def _oauth_callback(self, r, name):
+        result = await self._oauth_flow.callback(
+            name, r.query.get("code", ""), r.query.get("state", ""),
+            self._redirect_uri(r, name))
+        if result is None:
+            return _json({"error": "oauth signin rejected"}, 401)
+        return _json(result)
 
 
 _BAD = object()

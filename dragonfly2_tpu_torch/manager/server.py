@@ -12,15 +12,19 @@ reference's fields. ``issue_certs`` makes the manager a fleet certificate
 issuer: a CA under ``<workdir>/manager-ca`` and an issuance token made
 once and kept at ``<workdir>/issuer.token`` (mode 0600), both as the
 reference's; ``grpc_tls`` serves the RPC port over TLS with a leaf from
-that CA. REST auth is not ported yet, and ``auth_enabled`` makes
-``start`` refuse with an error that names it. ``plugin_dir`` loads the
-searcher plugin at ``start``, and a broken or missing one fails the
-start, as in the reference.
+that CA. ``auth_enabled`` turns on REST auth (``auth.py``): the
+session secret kept as ``session.secret`` in the workdir and, at the
+first boot, a root user whose generated password is written beside it
+as ``root.password`` (both mode 0600 from creation); a Python whose
+``hashlib`` lacks scrypt fails the manager's construction.
+``plugin_dir`` loads the searcher plugin at ``start``, and a broken or
+missing one fails the start, as in the reference.
 """
 
 from __future__ import annotations
 
 import asyncio
+import hashlib
 import logging
 import os
 import secrets
@@ -31,6 +35,7 @@ from ..common.certs import CertIssuer
 
 from ..common.gc import GC, GCTask
 from ..rpc.server import RPCServer, TLSOptions
+from .auth import Authenticator, bootstrap_root
 from .jobs import JobRunner
 from .rest import RestAPI
 from .service import ManagerService, build_service
@@ -48,7 +53,7 @@ class ManagerConfig:
     db_path: str = ""                  # "" = in-memory
     keepalive_ttl_s: float = 60.0
     sweep_interval_s: float = 15.0
-    # REST auth (reference manager/middlewares): not ported
+    # REST auth (reference manager/middlewares)
     auth_enabled: bool = False
     workdir: str = ""
     # certificate issuance for fleet mTLS (reference
@@ -63,8 +68,10 @@ class ManagerConfig:
     plugin_dir: str = ""
 
     def unported(self) -> list[str]:
-        """The set options whose subsystems this package lacks."""
-        return ["auth_enabled"] if self.auth_enabled else []
+        """The set options whose subsystems this package lacks: none
+        since REST auth was ported; kept for a key a later reference
+        change adds."""
+        return []
 
 
 class Manager:
@@ -98,8 +105,20 @@ class Manager:
                     f.write(self.issue_token + "\n")
         self.service = ManagerService(self.store, issuer=self.issuer,
                                       issue_token=self.issue_token)
+        self.auth: Authenticator | None = None
+        if cfg.auth_enabled:
+            if not hasattr(hashlib, "scrypt"):
+                raise RuntimeError(
+                    "auth_enabled needs hashlib.scrypt, which this Python's "
+                    "OpenSSL lacks: the password hash has no other form")
+            self.auth = Authenticator(
+                self.store,
+                secret_path=os.path.join(workdir, "session.secret")
+                if workdir else "")
+            bootstrap_root(self.store, password_path=os.path.join(
+                workdir, "root.password") if workdir else "")
         self.rest = RestAPI(self.store, self.jobs, host=cfg.listen_ip,
-                            port=cfg.rest_port)
+                            port=cfg.rest_port, auth=self.auth)
         self.rpc: RPCServer | None = None
         self.gc = GC()
         self.port: int | None = None
@@ -135,8 +154,7 @@ class Manager:
         unported = self.cfg.unported()
         if unported:
             raise ValueError(
-                f"manager options not ported yet: {', '.join(unported)} "
-                f"(REST auth is a later slice)")
+                f"manager options not ported yet: {', '.join(unported)}")
         if self.cfg.plugin_dir:
             # fail hard, as the scheduler's evaluator plugin slot does: an
             # operator who configured a plugin must not silently get the

@@ -6,14 +6,23 @@ reference's, whole, so one database file opens in either package; this
 slice reads and writes the scheduler clusters (their dynconfig payload
 patched in place), schedulers, seed-peer clusters, seed peers,
 applications, the tenants' QoS quotas, the model registry, the
-schedulers' parked handoff state and the jobs. The user and OAuth tables
-are created and left to the slice that ports REST auth.
+schedulers' parked handoff state and the jobs, and, for REST auth
+(``auth.py``), the users (an scrypt password hash with
+``n=2**14, r=8, p=1``, kept as ``salt hex + "$" + key hex``), personal
+access tokens (``"dfp_" + token_urlsafe(32)``, only its sha256 hex
+kept), the single-use OAuth sign-in nonces (capped at
+``OAUTH_STATE_CAP``) and the OAuth providers, in the reference's formats
+byte for byte.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import hmac
 import json
+import os
+import secrets
 import sqlite3
 import threading
 import time
@@ -236,6 +245,10 @@ class Store:
             f"UPDATE scheduler_clusters SET {', '.join(sets)} WHERE id=?",
             args)
         return cur.rowcount > 0
+
+    def users(self) -> list[dict]:
+        return [dict(r) for r in self._rows(
+            "SELECT id, name, role, created_at FROM users ORDER BY id")]
 
     # -- scheduler instances ------------------------------------------
 
@@ -501,3 +514,159 @@ class Store:
             d["metrics"] = json.loads(d["metrics"])
             out.append(d)
         return out
+
+    # -- users and personal access tokens (reference
+    # -- manager/models/user.go, personal_access_token.go) ----------------
+
+    @staticmethod
+    def _hash_password(password: str, salt: bytes | None = None) -> str:
+        salt = salt or os.urandom(16)
+        dk = hashlib.scrypt(password.encode(), salt=salt, n=2**14, r=8, p=1)
+        return salt.hex() + "$" + dk.hex()
+
+    def create_user(self, name: str, password: str, *,
+                    role: str = "guest") -> int:
+        if role not in ("root", "guest"):
+            raise ValueError(f"unknown role {role!r}")
+        cur = self._exec(
+            "INSERT INTO users(name, password_hash, role, created_at)"
+            " VALUES (?,?,?,?)",
+            (name, self._hash_password(password), role, _now()))
+        return int(cur.lastrowid)
+
+    def verify_user(self, name: str, password: str) -> dict | None:
+        rows = self._rows("SELECT * FROM users WHERE name=?", (name,))
+        if not rows:
+            return None
+        user = dict(rows[0])
+        salt_hex, _, want = user.pop("password_hash").partition("$")
+        dk = hashlib.scrypt(password.encode(), salt=bytes.fromhex(salt_hex),
+                            n=2**14, r=8, p=1)
+        if not hmac.compare_digest(dk.hex(), want):
+            return None
+        return user
+
+    def user(self, user_id: int) -> dict | None:
+        rows = self._rows("SELECT id, name, role, created_at FROM users"
+                          " WHERE id=?", (user_id,))
+        return dict(rows[0]) if rows else None
+
+    @staticmethod
+    def _token_hash(token: str) -> str:
+        return hashlib.sha256(token.encode()).hexdigest()
+
+    def create_pat(self, user_id: int, *, label: str = "",
+                   ttl_s: float = 0.0) -> str:
+        """Mint a personal access token; only its hash is stored, so a
+        leaked database leaks no bearer credential."""
+        token = "dfp_" + secrets.token_urlsafe(32)
+        expires = _now() + ttl_s if ttl_s > 0 else 0.0
+        self._exec(
+            "INSERT INTO personal_access_tokens"
+            "(token_hash, label, user_id, expires_at, created_at)"
+            " VALUES (?,?,?,?,?)",
+            (self._token_hash(token), label, user_id, expires, _now()))
+        return token
+
+    def pat_user(self, token: str) -> dict | None:
+        """The user behind a live token, or None (unknown, revoked or
+        expired)."""
+        rows = self._rows(
+            "SELECT u.id, u.name, u.role, p.expires_at, p.revoked"
+            " FROM personal_access_tokens p JOIN users u ON u.id=p.user_id"
+            " WHERE p.token_hash=?", (self._token_hash(token),))
+        if not rows:
+            return None
+        row = dict(rows[0])
+        if row.pop("revoked"):
+            return None
+        expires = row.pop("expires_at")
+        if expires and _now() > expires:
+            return None
+        return row
+
+    def pats(self, user_id: int | None = None) -> list[dict]:
+        sql = ("SELECT id, label, user_id, revoked, expires_at, created_at"
+               " FROM personal_access_tokens")
+        args: list = []
+        if user_id is not None:
+            sql += " WHERE user_id=?"
+            args.append(user_id)
+        return [dict(r) for r in self._rows(sql + " ORDER BY id", args)]
+
+    def revoke_pat(self, pat_id: int) -> None:
+        self._exec("UPDATE personal_access_tokens SET revoked=1 WHERE id=?",
+                   (pat_id,))
+
+    # -- OAuth sign-in states: single-use, in the database so they survive
+    # -- a restart and serve replicas sharing it ---------------------------
+
+    OAUTH_STATE_CAP = 10_000
+
+    def save_oauth_nonce(self, nonce: str, expires_at: float) -> bool:
+        """False when the live states fill the cap: the sign-in route is
+        public, so a flood of mints fills a bounded table. The purge, the
+        count and the insert hold the lock together."""
+        with self._lock:
+            self._db.execute("DELETE FROM oauth_states WHERE expires_at < ?",
+                             (_now(),))
+            n = self._db.execute(
+                "SELECT COUNT(*) FROM oauth_states").fetchone()[0]
+            if n < self.OAUTH_STATE_CAP:
+                self._db.execute(
+                    "INSERT OR REPLACE INTO oauth_states(nonce, expires_at)"
+                    " VALUES (?,?)", (nonce, expires_at))
+            self._db.commit()
+            return n < self.OAUTH_STATE_CAP
+
+    def consume_oauth_nonce(self, nonce: str) -> bool:
+        """True exactly once per saved, unexpired nonce."""
+        cur = self._exec(
+            "DELETE FROM oauth_states WHERE nonce=? AND expires_at >= ?",
+            (nonce, _now()))
+        return cur.rowcount > 0
+
+    # -- OAuth providers (reference manager/models/oauth.go) -------------
+
+    def create_oauth(self, name: str, *, client_id: str, client_secret: str,
+                     auth_url: str, token_url: str, userinfo_url: str,
+                     scopes: str = "") -> int:
+        cur = self._exec(
+            "INSERT INTO oauth_providers(name, client_id, client_secret,"
+            " auth_url, token_url, userinfo_url, scopes, created_at)"
+            " VALUES (?,?,?,?,?,?,?,?)",
+            (name, client_id, client_secret, auth_url, token_url,
+             userinfo_url, scopes, _now()))
+        return int(cur.lastrowid)
+
+    def oauth(self, name: str) -> dict | None:
+        rows = self._rows("SELECT * FROM oauth_providers WHERE name=?",
+                          (name,))
+        return dict(rows[0]) if rows else None
+
+    def oauths(self) -> list[dict]:
+        """The providers without their client secrets (the REST list)."""
+        return [dict(r) for r in self._rows(
+            "SELECT id, name, client_id, auth_url, token_url, userinfo_url,"
+            " scopes, created_at FROM oauth_providers ORDER BY id")]
+
+    def delete_oauth(self, oauth_id: int) -> bool:
+        cur = self._exec("DELETE FROM oauth_providers WHERE id=?",
+                         (oauth_id,))
+        return cur.rowcount > 0
+
+    def get_or_create_oauth_user(self, provider: str, login: str) -> dict:
+        """The local user of an external identity, named
+        ``"{provider}:{login}"`` (no local name can collide), made at its
+        first sign-in as a ``guest`` with an unusable password."""
+        name = f"{provider}:{login}"
+        select = "SELECT id, name, role, created_at FROM users WHERE name=?"
+        rows = self._rows(select, (name,))
+        if rows:
+            return dict(rows[0])
+        try:
+            uid = self.create_user(name, secrets.token_urlsafe(32))
+        except sqlite3.IntegrityError:
+            # a concurrent first sign-in won the insert: read its row
+            return dict(self._rows(select, (name,))[0])
+        return self.user(uid)

@@ -18,14 +18,13 @@ port). Auth: ``user.name`` from ``DF_HDFS_USER`` (simple auth).
 
 from __future__ import annotations
 
-import json
 import os
 from typing import AsyncIterator
 from urllib.parse import quote
 
 from ..common.errors import Code, DFError
 from .client import ListEntry, SourceRequest, SourceResponse, register_client
-from .http_client import HTTPSourceClient, _ProtocolError
+from .http_client import HTTPSourceClient, _ProtocolError, json_body
 
 _CHUNK = 1 << 20
 
@@ -58,15 +57,18 @@ class HDFSSourceClient:
         await self._http.close()
 
     async def _json(self, req: SourceRequest, op: str) -> dict:
-        resp = await self._http.request("GET", _api(req.url, op),
-                                        req.header, timeout_s=req.timeout_s)
+        """The NameNode's JSON answer to ``op``; one not typed as JSON
+        raises ``ContentTypeError``, as the reference's ``resp.json()``."""
+        url = _api(req.url, op)
+        resp = await self._http.request("GET", url, req.header,
+                                        timeout_s=req.timeout_s)
         body = await resp.read()
         if resp.status == 404 and op == "GETFILESTATUS":
             raise DFError(Code.SOURCE_NOT_FOUND, req.url)
         if resp.status >= 400:
             raise DFError(Code.SOURCE_ERROR,
                           f"webhdfs {op} {resp.status}: {req.url}")
-        return json.loads(body)
+        return json_body(resp.status, resp.headers, body, url)
 
     async def _status(self, req: SourceRequest) -> dict:
         return (await self._json(req, "GETFILESTATUS")).get("FileStatus", {})

@@ -23,12 +23,16 @@ repeats included, in ``Headers.lines``). As with aiohttp, the default
 ``User-Agent`` and ``Accept`` go out only when the caller gives none.
 ``list`` is the reference's one-entry listing of the URL itself. The
 ``gs``, ``oras`` and ``hdfs`` clients speak their protocols through this
-client.
+client. ``json_body`` parses a JSON answer as aiohttp's ``resp.json()``
+does by default, refusing one whose ``Content-Type`` is not JSON.
 """
 
 from __future__ import annotations
 
 import asyncio
+import codecs
+import json
+import re
 import ssl
 import time
 from typing import AsyncIterator
@@ -44,6 +48,41 @@ _MAX_REDIRECTS = 10
 _REDIRECTS = frozenset({301, 302, 303, 307, 308})
 _CONNECT_S = 30.0            # aiohttp's sock_connect in the reference
 _READ_S = 120.0              # and its sock_read
+
+
+# aiohttp's ``json_re``: a JSON type or a ``+json`` suffix, matched at the
+# start of the raw header, parameters and all
+_JSON_TYPE = re.compile(r"^application/(?:[\w.+-]+?\+)?json")
+
+
+class ContentTypeError(ValueError):
+    """A JSON body under a ``Content-Type`` that is not JSON: the
+    reference's aiohttp ``ContentTypeError``, with its text."""
+
+
+def json_body(status: int, headers, body: bytes, url: str):
+    """``body`` parsed as aiohttp's ``resp.json()`` parses it by default:
+    the lower-cased ``Content-Type`` (missing: empty) must match
+    ``_JSON_TYPE``, else ``ContentTypeError``; a blank body is None; the
+    text is decoded by its ``charset`` (UTF-8 when none is given or known)
+    and a body that is no JSON raises ``json.JSONDecodeError``."""
+    ctype = (headers.get("Content-Type") or "").lower()
+    if _JSON_TYPE.match(ctype) is None:
+        raise ContentTypeError(
+            f"{status}, message='Attempt to decode JSON with unexpected "
+            f"mimetype: {ctype}', url={url!r}")
+    stripped = body.strip()
+    if not stripped:
+        return None
+    encoding = "utf-8"
+    for param in ctype.split(";")[1:]:
+        key, _, value = param.strip().partition("=")
+        if key.strip() == "charset" and value.strip():
+            try:
+                encoding = codecs.lookup(value.strip().strip('"')).name
+            except LookupError:
+                pass
+    return json.loads(stripped.decode(encoding))
 
 
 class _ProtocolError(Exception):

@@ -32,7 +32,7 @@ from urllib.parse import urlencode
 
 from ..common.errors import Code, DFError
 from .client import ListEntry, SourceRequest, SourceResponse, register_client
-from .http_client import HTTPSourceClient, _ProtocolError
+from .http_client import HTTPSourceClient, _ProtocolError, json_body
 
 _CHUNK = 1 << 20
 _MANIFEST_ACCEPT = ", ".join([
@@ -94,10 +94,9 @@ class ORASSourceClient:
         body = await resp.read()
         if resp.status >= 400:
             return False
-        try:
-            data = json.loads(body)
-        except (json.JSONDecodeError, UnicodeDecodeError):
-            return False
+        # a body that is no JSON, or not typed as JSON, raises out of the
+        # request, as the reference's resp.json() does
+        data = json_body(resp.status, resp.headers, body, url)
         token = data.get("token") or data.get("access_token", "")
         if not token:
             return False

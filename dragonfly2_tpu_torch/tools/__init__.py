@@ -2,8 +2,9 @@
 
 Counterpart of ``dragonfly2_tpu/tools`` (reference ``cmd/``): each runs as
 ``python -m dragonfly2_tpu_torch.tools.<name>`` with the reference's
-parser, flag for flag. A flag whose subsystem this package does not have
-yet exits non-zero with a message that names it.
+parser, flag for flag. Every flag's subsystem is ported; a flag a later
+reference change adds, without its subsystem, would exit non-zero through
+``refuse_unported`` with a message that names it.
 """
 
 from __future__ import annotations

@@ -6,7 +6,9 @@ overrides and flags; SIGINT or SIGTERM shuts down cleanly.
 ``--debug-port`` serves ``/debug/{stacks,profile,health}`` and
 ``/metrics``. ``--issue-certs`` makes the manager the fleet's certificate
 issuer (its CA under ``<workdir>/manager-ca``, the issuance token at
-``<workdir>/issuer.token``); ``--auth`` waits for a later slice.
+``<workdir>/issuer.token``); ``--auth`` turns on REST auth and RBAC (the
+first boot writes root's password to ``root.password`` in the workdir,
+mode 0600).
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ from ..common import logging as dflog
 from ..common.debug_http import maybe_start_debug
 from ..common.config import env_overrides, load_config
 from ..manager.server import Manager, ManagerConfig
-from . import add_debug_arg, refuse_unported
+from . import add_debug_arg
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -64,7 +66,6 @@ async def serve(cfg: ManagerConfig, debug_port: int = 0) -> None:
 def main(argv: list[str] | None = None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
-    refuse_unported(parser, {"--auth": (args.auth, "REST auth")})
     dflog.setup("DEBUG" if args.verbose else "INFO")
     overrides: dict = env_overrides()
     if args.grpc_port:
@@ -77,6 +78,8 @@ def main(argv: list[str] | None = None) -> int:
         overrides["db_path"] = args.db
     if args.workdir:
         overrides["workdir"] = args.workdir
+    if args.auth:
+        overrides["auth_enabled"] = True
     if args.issue_certs:
         overrides["issue_certs"] = True
     cfg = load_config(ManagerConfig, args.config or None, overrides)

@@ -26,6 +26,7 @@ import subprocess
 import sys
 import threading
 import time
+import urllib.error
 import urllib.request
 
 import numpy as np
@@ -286,12 +287,28 @@ def test_launcher_flags_match_reference(port, ref):
 @pytest.mark.parametrize("module,argv,names", [
     (manager_cli, ["--auth"], "REST auth"),
 ])
-def test_unported_flags_exit_nonzero(module, argv, names, capsys):
-    with pytest.raises(SystemExit) as exc:
-        module.main(argv)
-    assert exc.value.code == 2
-    err = capsys.readouterr().err
-    assert "not ported" in err and names in err, err
+def test_unported_flags_exit_nonzero(module, argv, names, tmp_path):
+    """The flags that exited 2 until their subsystems were ported now
+    start their service: ``--auth`` (``names``) starts a manager that
+    bootstraps root, its password at mode 0600, and answers 401 to a
+    request without credentials."""
+    name = module.__name__.rsplit(".", 1)[1]
+    svc = Service(name, "--listen-ip", "127.0.0.1", "--workdir",
+                  str(tmp_path / "mw"), *argv, workdir=tmp_path)
+    try:
+        rest = int(svc.wait_line(" rest=:").rsplit(":", 1)[1])
+        try:
+            urllib.request.urlopen(
+                f"http://127.0.0.1:{rest}/api/v1/schedulers", timeout=10)
+            status = 200
+        except urllib.error.HTTPError as exc:
+            status = exc.code
+    finally:
+        assert svc.stop() == 0, svc.text()
+    assert status == 401, names
+    assert "not ported" not in svc.text()
+    assert os.stat(tmp_path / "mw" / "root.password").st_mode & 0o777 \
+        == 0o600
 
 
 @pytest.mark.parametrize("flag", ["--recursive", "-r"])
@@ -380,16 +397,34 @@ def test_scheduler_with_algorithm_nt_starts(tmp_path):
     assert line
 
 
-def test_manager_config_with_unported_options_exits_nonzero(tmp_path,
-                                                            capsys):
+def test_manager_config_with_unported_options_exits_nonzero(tmp_path):
+    """A config file with ``auth_enabled`` and ``issue_certs`` (each
+    refused until its item was ported, REST auth last) starts a manager
+    with both: the CA, the issuance token and root's password land in the
+    workdir, and the REST surface asks for credentials."""
     cfg = tmp_path / "m.yaml"
-    cfg.write_text("grpc_port: 0\nauth_enabled: true\nissue_certs: true\n")
-    with pytest.raises(SystemExit) as exc:
-        manager_cli.main(["--config", str(cfg)])
-    assert exc.value.code == 2
-    err = capsys.readouterr().err
-    # issue_certs is ported (item 6c); REST auth waits for item 7b
-    assert "auth_enabled" in err and "issue_certs" not in err
+    cfg.write_text("grpc_port: 0\nauth_enabled: true\nissue_certs: true\n"
+                   f"workdir: {tmp_path / 'mw'}\n")
+    svc = Service("manager", "--config", str(cfg), "--listen-ip",
+                  "127.0.0.1", workdir=tmp_path)
+    try:
+        rest = int(svc.wait_line(" rest=:").rsplit(":", 1)[1])
+        with urllib.request.urlopen(f"http://127.0.0.1:{rest}/healthy",
+                                    timeout=10) as r:
+            healthy = r.status
+        try:
+            urllib.request.urlopen(f"http://127.0.0.1:{rest}/api/v1/nope",
+                                   timeout=10)
+            unknown = 200
+        except urllib.error.HTTPError as exc:
+            unknown = exc.code
+    finally:
+        assert svc.stop() == 0, svc.text()
+    assert "not ported" not in svc.text()
+    assert (healthy, unknown) == (200, 401)
+    assert (tmp_path / "mw" / "manager-ca" / "proxy-ca.crt").exists()
+    for f in ("issuer.token", "root.password", "session.secret"):
+        assert os.stat(tmp_path / "mw" / f).st_mode & 0o777 == 0o600, f
 
 
 def test_trainer_launcher_without_a_card_exits_nonzero(tmp_path):

@@ -706,15 +706,21 @@ def test_applications_refresh_resolves_priority(tmp_path):
 
 
 def test_unported_manager_options_refuse_to_start(tmp_path):
-    """REST auth (item 7b) still refuses to start; certificate issuance
-    and the TLS RPC port (item 6c) start, and ``grpc_tls`` without
-    ``issue_certs`` is refused, as in the reference."""
+    """No manager option is refused any more: REST auth, the last ported,
+    starts, its manager in memory bootstrapping root with no file;
+    certificate issuance and the TLS RPC port (item 6c) start, and
+    ``grpc_tls`` without ``issue_certs`` is refused, as in the
+    reference."""
     async def main():
         mgr = Manager(ManagerConfig(listen_ip="127.0.0.1",
                                     auth_enabled=True))
-        with pytest.raises(ValueError, match="auth_enabled"):
-            await mgr.start()
-        mgr.store.close()
+        assert mgr.cfg.unported() == []
+        await mgr.start()
+        try:
+            assert [u["name"] for u in mgr.store.users()] == ["root"]
+            assert mgr.rest.auth is mgr.auth is not None
+        finally:
+            await mgr.stop()
         mgr = Manager(ManagerConfig(listen_ip="127.0.0.1", grpc_tls=True))
         with pytest.raises(ValueError, match="grpc_tls requires issue_certs"):
             await mgr.start()

@@ -59,7 +59,6 @@ from dragonfly2_tpu_torch.scheduler.config import SchedulerConfig, SeedPeerAddr
 from dragonfly2_tpu_torch.scheduler.ctrl_debug import (CtrlObservatory,
                                                        add_ctrl_routes)
 from dragonfly2_tpu_torch.scheduler.server import Scheduler
-from dragonfly2_tpu_torch.tools import manager as manager_cli
 from test_torch_deploy import Service, free_port
 
 MiB = 1 << 20
@@ -839,12 +838,28 @@ def test_daemon_launcher_serves_its_debug_endpoints_and_traces(tmp_path):
 @pytest.mark.parametrize("argv,names", [
     (["--auth"], "REST auth"),
     (["--auth", "--debug-port", "-1"], "REST auth")])
-def test_auth_and_issue_certs_still_exit_2(argv, names, capsys):
-    with pytest.raises(SystemExit) as exc:
-        manager_cli.main(argv)
-    assert exc.value.code == 2
-    err = capsys.readouterr().err
-    assert "not ported" in err and names in err, err
+def test_auth_and_issue_certs_still_exit_2(argv, names, tmp_path):
+    """``--auth`` (``names``; it exited 2 until REST auth was ported)
+    starts a manager, beside its debug port when one is asked for: the
+    public ``/healthy`` and ``/metrics`` answer 200 and a route without
+    credentials 401."""
+    svc = _launch("manager", tmp_path, "--workdir", str(tmp_path / "mw"),
+                  *argv)
+    try:
+        debug = None
+        if "--debug-port" in argv:
+            line = svc.wait_line("debug on :")
+            debug = _get(f"http://127.0.0.1:{int(line.rsplit(':', 1)[1])}"
+                         "/debug/health")[0]
+        rest = int(svc.wait_line(" rest=:").rsplit(":", 1)[1])
+        base = f"http://127.0.0.1:{rest}"
+        got = [_get(base + p)[0]
+               for p in ("/healthy", "/metrics", "/api/v1/schedulers")]
+    finally:
+        assert svc.stop() == 0, svc.text()
+    assert got == [200, 200, 401], (names, got)
+    assert debug == (200 if "--debug-port" in argv else None)
+    assert "not ported" not in svc.text()
 
 
 def test_issue_certs_starts_a_manager_with_its_debug_port(tmp_path):

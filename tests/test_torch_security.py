@@ -1,13 +1,13 @@
 """Fleet mTLS: certificate issuance, enrollment and the mTLS peer planes.
 
 The port's counterpart of ``tests/test_security.py``'s
-``TestCertIssuanceAndTLSRPC`` and ``TestFleetMTLS`` (the auth and OAuth
-classes wait for ROADMAP item 7b), plus what ties the two packages
-together: the issuance messages' bytes, fleet leaves from both packages'
-managers over one CA directory, the HTTP data plane over mTLS across
-packages (the RPC planes cannot talk to each other: known difference 2),
-the renewal loop, the state handoff's HMAC, the key's file mode and the
-enrollment's error.
+``TestCertIssuanceAndTLSRPC`` and ``TestFleetMTLS`` (its auth and
+OAuth classes are ported in ``tests/test_torch_auth.py``), plus what ties
+the two packages together: the issuance messages' bytes, fleet leaves
+from both packages' managers over one CA directory, the HTTP data plane
+over mTLS across packages (the RPC planes cannot talk to each other:
+known difference 2), the renewal loop, the state handoff's HMAC, the
+key's file mode and the enrollment's error.
 """
 
 import asyncio
