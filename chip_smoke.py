@@ -36,8 +36,8 @@ a chain's first relaying hop is the seed's first child.
               source in the child), and B must take pieces from A
 7. trainer  — the learned-scheduler loop: a scheduler (``algorithm="ml"``,
               records kept) rules over a staged cluster until its records
-              ring holds 10,000 rows (a fifth of the ring's 50,000: the
-              depth cut that keeps half the run's time limit to spare;
+              ring holds 2,500 rows (a twentieth of the ring's 50,000: the
+              depth cut that keeps the run near half its time limit;
               decisions and piece outcomes, 64:512
               as in BENCH_pr19's datagen) and its topology store a
               1024-host, 8192-link snapshot; the announcer uploads both to
@@ -216,8 +216,11 @@ a chain's first relaying hop is the seed's first child.
               each leecher off its heaviest parent in
               ``pieces_by_parent``, its depth follow from that tree, its
               amplification be 1.0, each leecher's incoming edges carry
-              its ``traffic_p2p`` and the seed uplink be the seed with
-              its ``df_upload_bytes_total``); ``dfdiag --pod --json``
+              its ``traffic_p2p``, the seed uplink be the heaviest
+              server of its edges, the seed's edges carry its serve
+              journal less the serves no leecher landed, and its
+              ``df_upload_bytes_total`` be that journal plus the bytes
+              of relay serves cut short); ``dfdiag --pod --json``
               gives the same report; the scheduler's records hold one
               ``kind=edge`` row per (leecher, parent) of the leecher's
               flight; its fleet pulse holds a series for each of the
@@ -295,8 +298,9 @@ a chain's first relaying hop is the seed's first child.
               shed counts and the scheduler's ``preempt`` rows
 19. objstore — dataset shards written through dfstore and the object
               gateway, then prefetched over P2P into the card between
-              training steps: eight seeded 256 MiB shards (2 GiB, phase
-              5's). An S3 stand-in (``S3StandIn``, standard library) in a
+              training steps: four seeded 256 MiB shards (1 GiB, the
+              first half of phase 5's: the depth cut that keeps the run
+              near half its time limit). An S3 stand-in (``S3StandIn``, standard library) in a
               child keeps objects on disk, recomputes every request's
               SigV4 signature from a fixed key pair and counts the bytes
               of each PUT and GET. A second child runs a scheduler
@@ -485,6 +489,34 @@ a chain's first relaying hop is the seed's first child.
               200. It prints the scrypt sign-in's seconds, the median of
               200 GETs each with a session, with a PAT and to the public
               ``/healthy``, the job's seconds, L's time to ready and GB/s
+25. stress   — run after phase 24, on phase 8's origin over HTTP (250
+              MB/s per response) from phase 11's server in a child: the
+              load tools. A scheduler (its debug routes on a port of
+              their own) and a seed in one child, daemon P
+              (``upload.debug_endpoints``) alone in another, since the
+              faultgate is process-wide, and daemon X (``proxy.enabled``
+              with a ``proxy.rules`` entry sending the origin's URL over
+              P2P) in a third; L here. P pulls the file clean from the
+              seed, which back-sources it. The port's ``stress`` CLI runs
+              as its own process through X's proxy: four workers
+              (``--priority critical:1 --priority bulk:2`` and one
+              standard) for 30 s, ``--byzantine 30`` with P as its
+              ``--chaos-target``, and the ``--pod-report`` (X, P, L),
+              ``--ctrl-report``, ``--fleet-report`` and ``--pex-dump`` (X)
+              attachments. Once the tool has armed P, L pulls the file
+              with a manifest sink on the card and back-source disabled.
+              The tool must exit 0 with one JSON report: no error and no
+              shed, and for each class at least two requests a worker
+              (the load outlasts a request), each of the whole file. L's
+              tensors must equal the file, every byte from peers, its
+              pull ending inside the load; P must have injected corruption at the
+              stride (0 < injected < its serves), the report's verdict
+              sweep must name P with corrupt verdicts at X or L, no
+              attachment may be an error, and P must be disarmed after
+              the run; X's pull must ride the mesh and the origin send
+              the file once. It prints the load's throughput, latency
+              percentiles overall and per class, requests and bytes,
+              P's injected and served counts, L's time to ready and GB/s
 
 Before phase 3 the native storage library (``dfnative.cc``, built with
 g++ at first use) must load: the pulls land crc32c piece digests, and the
@@ -507,6 +539,7 @@ os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 import argparse
 import asyncio
+import collections
 import concurrent.futures
 import contextlib
 import dataclasses
@@ -602,12 +635,12 @@ KERNELS_NOTE = ("the JAX package has no Pallas kernel; its device work on "
                 "gathers, segment sums, AdamW), which the port runs as "
                 "torch ops")
 
-# phase 7: a fifth of a full records ring (scheduler/records.py,
+# phase 7: a twentieth of a full records ring (scheduler/records.py,
 # MAX_BUFFERED_ROWS, 50,000 rows; the path's depth, cut so that the run
-# keeps half its time limit to spare, every check kept), decision to
+# stays near half its time limit, every check kept), decision to
 # piece-outcome rows as in BENCH_pr19's datagen, and the GNN's largest
 # buckets (trainer/features.py _NODE_BUCKETS, _EDGE_BUCKETS)
-RING_ROWS = MAX_BUFFERED_ROWS // 5
+RING_ROWS = MAX_BUFFERED_ROWS // 20
 DECISION_ROWS, OUTCOME_ROWS = 64, 512
 GNN_HOSTS = features._NODE_BUCKETS[-1]
 GNN_LINKS = features._EDGE_BUCKETS[-1]
@@ -4088,7 +4121,19 @@ async def _superseed_seed_child(workdir: str, yaml_path: str, conn) -> None:
                                   seed.upload_server.concurrent_limit}})
         uploaded = REGISTRY.counter("df_upload_bytes_total")
         while await asyncio.to_thread(conn.recv) == "count":
-            conn.send({"upload_bytes": uploaded.value()})
+            # the serve journal: (child peer id, first piece, pieces,
+            # bytes) of each completed range
+            journal = [(peer, piece, pieces, nbytes)
+                       for c in seed.ptm._conductors.values()
+                       if c.flight is not None
+                       for _t, peer, _a, piece, nbytes, _s, _w, pieces, _r
+                       in c.flight.serves]
+            conn.send({"upload_bytes": uploaded.value(),
+                       "serves": journal, "max_serves": seed.flight_recorder
+                       .max_serves,
+                       "relay_serves": dict(seed.upload_server.relay_serves),
+                       "relay_cut_bytes":
+                           dict(seed.upload_server.relay_cut_bytes)})
         (c,) = [c for c in seed.ptm._conductors.values()
                 if not c.url_meta.range]
         serves = [(t, nbytes, serve_ms, wait_ms)
@@ -4171,8 +4216,12 @@ async def _read_superseed_pod(sched: Scheduler, debug_port: int,
         await asyncio.sleep(0.05)
     out["results_wait_s"] = time.monotonic() - t0
     seed_conn.send("count")
-    out["seed_upload_bytes"] = (await asyncio.to_thread(
-        seed_conn.recv))["upload_bytes"]
+    count = await asyncio.to_thread(seed_conn.recv)
+    out["seed_upload_bytes"] = count["upload_bytes"]
+    out["seed_serves"] = count["serves"]
+    out["seed_max_serves"] = count["max_serves"]
+    out["seed_relay_serves"] = count["relay_serves"]
+    out["seed_relay_cut_bytes"] = count["relay_cut_bytes"]
     t0 = time.monotonic()
     snaps = await asyncio.to_thread(podscope.collect_pod, list(addrs))
     out["sweep_s"] = time.monotonic() - t0
@@ -4321,6 +4370,49 @@ async def _superseed_pod(workdir: str, seed_host: Host, url: str,
         await sched.stop()
 
 
+def check_seed_uplink(seed_bytes: int, serves: list, max_serves: int,
+                      landed: collections.Counter, piece_size: int,
+                      size: int, upload_bytes: int, relay_cut: dict,
+                      relay_serves: dict,
+                      detail: str = "") -> tuple[int, int]:
+    """Phase 15's account of the seed's uplink. Podscope's edges from the
+    seed (``seed_bytes``) carry what the leechers landed from it; the
+    seed's ``df_upload_bytes_total`` (``upload_bytes``) is what it sent.
+    Its serve journal (``serves``: child peer id, first piece, pieces,
+    bytes of each completed range, at most ``max_serves`` kept) lies
+    between: the edges carry the journal less the serves no leecher
+    landed (a piece its child gave up on, or landed from another parent
+    first; ``landed`` counts the landings per (child peer id, piece)),
+    and the counter is the journal plus the bytes of relay serves that
+    ended other than ``ok`` (``relay_cut``, by result), which the counter
+    takes and the journal never records. Any other difference fails, its
+    message ending with ``detail``. Returns (unlanded bytes, cut relay
+    bytes)."""
+    served: collections.Counter = collections.Counter()
+    for peer, first, pieces, _nbytes in serves:
+        for num in range(first, first + pieces):
+            served[(peer, num)] += 1
+    unlanded = sum(max(0, k - landed[key])
+                   * min(piece_size, size - key[1] * piece_size)
+                   for key, k in served.items())
+    journaled = sum(row[3] for row in serves)
+    cut = sum(relay_cut.values())
+    landed_bytes = sum(k * min(piece_size, size - key[1] * piece_size)
+                       for key, k in landed.items())
+    check(seed_bytes == journaled - unlanded
+          and len(serves) < max_serves
+          and upload_bytes == journaled + cut,
+          f"phase 15 podscope: edges from the seed carry {seed_bytes} "
+          f"bytes; the seed uploaded "
+          f"{upload_bytes} bytes, journaled {journaled} in {len(serves)} "
+          f"serves (cap {max_serves}), {unlanded} of them landed by no "
+          f"leecher, {cut} sent by relay serves cut short "
+          f"({relay_cut}; relay results {relay_serves}), "
+          f"{upload_bytes - journaled - cut} unexplained; landed from "
+          f"the seed {landed_bytes}{detail}")
+    return unlanded, cut
+
+
 def check_superseed_readers(pod: dict, seed_stats: dict, seed_host: Host,
                             size: int, chain_depth: int) -> dict:
     """Hold the readers' account of phase 15's fan-out to what the phase
@@ -4379,11 +4471,38 @@ def check_superseed_readers(pod: dict, seed_stats: dict, seed_host: Host,
               f"phase 15 podscope: {n}'s incoming edges carry "
               f"{edge_in[n]} bytes, its traffic_p2p "
               f"{runs[n]['conductor'].traffic_p2p}")
+    # podscope's seed uplink is the pod's heaviest server, the seed or,
+    # on a relay chain, a leecher that outserved it
     su = task["seed_uplink"] or {}
-    check(su.get("node") == seed_addr
-          and su.get("bytes") == rd["seed_upload_bytes"],
-          f"phase 15 podscope: seed uplink {su}, the seed uploaded "
-          f"{rd['seed_upload_bytes']} bytes")
+    by_src: collections.Counter = collections.Counter()
+    for e in task["edges"]:
+        if e["src"] != podscope.ORIGIN:
+            by_src[e["src"]] += e["bytes"]
+    check(su.get("node") in by_src and su.get("bytes") == by_src[su["node"]]
+          == max(by_src.values()),
+          f"phase 15 podscope: seed uplink {su}, bytes served by node "
+          f"{ {names.get(n, n): b for n, b in by_src.items()} }")
+    edges = [(names.get(e["src"], e["src"]), names.get(e["dst"], e["dst"]),
+              e["bytes"]) for e in task["edges"]]
+    parents = {n: {peer_name.get(p, p): v["bytes"]
+                   for p, v in runs[n]["per_parent"].items()}
+               for n in SUPERSEED}
+    journal_by: collections.Counter = collections.Counter()
+    for peer, _first, _pieces, nbytes in rd["seed_serves"]:
+        journal_by[peer_name.get(peer, peer)] += nbytes
+    landed: collections.Counter = collections.Counter()
+    for n in SUPERSEED:
+        c = runs[n]["conductor"]
+        for row in c.flight.summarize().get("piece_rows") or []:
+            if row["parent"] == seed_stats["peer_id"]:
+                landed[(c.peer_id, row["piece"])] += 1
+    unlanded, cut = check_seed_uplink(
+        by_src[seed_addr], rd["seed_serves"], rd["seed_max_serves"], landed,
+        runs[SUPERSEED[0]]["conductor"].storage.md.piece_size, size,
+        rd["seed_upload_bytes"], rd["seed_relay_cut_bytes"],
+        rd["seed_relay_serves"],
+        detail=f"; the seed's journal by child {dict(journal_by)}; "
+               f"podscope's edges {edges}; the leechers' parents {parents}")
     # dfdiag --pod gives the same report, and exits on its breaches
     rc, text, pod_s = rd["dfdiag_pod"]
     via_cli = json.loads(text)
@@ -4425,7 +4544,11 @@ def check_superseed_readers(pod: dict, seed_stats: dict, seed_host: Host,
             "makespan_ms": task["makespan_ms"], "edges": len(task["edges"]),
             "edge_bandwidth_bps": summary["edge_bandwidth_bps"],
             "edge_wire_ms": summary["edge_wire_ms"],
-            "tree": tree, "seed_uplink": {**su, "node": "seed"},
+            "tree": tree,
+            "seed_uplink": {**su, "node": names.get(su["node"], su["node"])},
+            "seed_edge_bytes": by_src[seed_addr],
+            "seed_unlanded_bytes": unlanded,
+            "seed_relay_cut_bytes": cut,
             "incoming_edge_bytes": edge_in,
             "bottleneck": task["bottleneck"] and {
                 **task["bottleneck"],
@@ -4751,36 +4874,58 @@ async def _poison_sched_child(port: int, seed_host: Host, state_dir: str,
             conn.send(poison_sched_state(sched))
 
 
-def poisoner_child(workdir: str, sched_addr: str, url: str, conn) -> None:
-    """The poisoner P of phase 16, in a child process that never touches
-    CUDA: it pulls the file clean through S1, then arms the corrupt script
-    on its own host key, so every range it serves carries a flipped byte.
-    It sends its host, address and peer id, serves until the parent says
-    "stop", then sends the faults fired."""
+def poisoner_child(cfg: DaemonConfig, url: str, conn, tag: str = "",
+                   arm: bool = True) -> None:
+    """A poisoner P on ``cfg``, alone in a child process that never
+    touches CUDA, since the faultgate is process-wide: it pulls the file
+    clean from its peers (back-source disabled, the task's tag ``tag``),
+    then, with ``arm`` (phase 16), arms the corrupt script on its own host
+    key, so every range it serves carries a flipped byte; without it
+    (phase 25) a client arms it through its ``/debug/faults``. It sends
+    its host, address, peer id and pull, then answers each message with
+    the range serves it completed since (``df_upload_requests_total`` at
+    206), the corrupt serves the faultgate injected
+    (``df_fault_injected_total{site="upload.serve",kind="corrupt"}``) and
+    the faultgate's status, and ends after answering one that is not
+    "report"."""
     os.environ["CUDA_VISIBLE_DEVICES"] = ""
-    asyncio.run(_poisoner_child(workdir, sched_addr, url, conn))
+    asyncio.run(_poisoner_child(cfg, url, conn, tag, arm))
 
 
-async def _poisoner_child(workdir: str, sched_addr: str, url: str,
-                          conn) -> None:
+async def _poisoner_child(cfg: DaemonConfig, url: str, conn, tag: str,
+                          arm: bool) -> None:
     from dragonfly2_tpu_torch.common import faultgate
-    d = Daemon(poison_daemon_cfg(workdir, "p", sched_addr, device="cpu"))
+    d = Daemon(cfg)
     await d.start()
+    served = REGISTRY.counter("df_upload_requests_total", labels=("status",))
+    injected = REGISTRY.counter("df_fault_injected_total",
+                                labels=("site", "kind"))
     try:
         t0 = time.monotonic()
         task_id = None
         async for resp in d.ptm.start_file_task(DownloadRequest(
-                url=url, disable_back_source=True, timeout_s=1200.0)):
+                url=url, url_meta=UrlMeta(tag=tag),
+                disable_back_source=True, timeout_s=1200.0)):
             task_id = resp.task_id or task_id
         c = d.ptm.conductor(task_id)
         host = d.host_info()
-        faultgate.arm_script(f"upload.serve@{host.id}=corrupt:n=-1")
+        if arm:
+            faultgate.arm_script(f"upload.serve@{host.id}=corrupt:n=-1")
+        served0 = served.value("206")
         conn.send({"host": host, "peer_id": c.peer_id, "state": c.state,
                    "traffic_source": c.traffic_source,
+                   "traffic_p2p": c.traffic_p2p, "task_id": task_id,
+                   "upload_port": d.upload_server.port,
                    "addr": f"127.0.0.1:{d.upload_server.port}",
                    "pull_s": time.monotonic() - t0})
-        await asyncio.to_thread(conn.recv)      # the parent is done
-        conn.send({"faults": faultgate.status()})
+        while True:
+            msg = await asyncio.to_thread(conn.recv)
+            conn.send({"served": served.value("206") - served0,
+                       "injected": injected.value("upload.serve",
+                                                  "corrupt"),
+                       "faults": faultgate.status()})
+            if msg != "report":
+                break
     finally:
         await d.stop()
 
@@ -4996,7 +5141,8 @@ def phase_poison(workdir: str, device: torch.device) -> None:
         check(s1_conn.poll(300), "phase 16 S1 did not start")
         s1_conn.recv()
         p = ctx.Process(target=poisoner_child, name="smoke-poison-p",
-                        args=(d, sched_addr, url, p_child))
+                        args=(poison_daemon_cfg(d, "p", sched_addr,
+                                                device="cpu"), url, p_child))
         p.start()
         check(p_conn.poll(600), "phase 16 P did not pull its clean copy")
         poison = p_conn.recv()
@@ -5897,8 +6043,8 @@ def phase_qos(workdir: str, device: torch.device) -> None:
 
 # ---------------------------------------------------------------- phase 19
 
-OBJ_SHARDS = PREFETCH_SHARDS             # the dataset: phase 5's eight
-OBJ_SHARD_BYTES = PREFETCH_SHARD_BYTES   # 256 MiB shards, 2 GiB in all
+OBJ_SHARDS = PREFETCH_SHARDS // 2        # the dataset: phase 5's first four
+OBJ_SHARD_BYTES = PREFETCH_SHARD_BYTES   # 256 MiB shards, 1 GiB in all
 OBJ_BUCKET = "datasets"                  # the gateway's s3-backed bucket
 OBJ_BACKEND_BUCKET = "smoke-datasets"    # its name on the S3 stand-in
 OBJ_GEN_BUCKET = "generated"             # a bucket on the plugin's scheme
@@ -9371,8 +9517,364 @@ def phase_auth(workdir: str, device: torch.device) -> None:
         "phase_s": time.monotonic() - t_phase, "card": smi})
 
 
+# ---------------------------------------------------------------- phase 25
+
+# the load's -d: longer than the slowest proxied GET of the whole file
+# (up to about 20 s on the card's hosts), so every worker completes at
+# least two requests; L's pull ends inside it
+STRESS_DURATION_S = 30.0
+STRESS_WAIT_S = 120.0            # bound on each wait of the phase
+STRESS_ANNOUNCE_S = 1.0          # every daemon's announce, cut from 30 s
+STRESS_PCT = 30                  # --byzantine: P corrupts 30 % of serves
+STRESS_MIX = {"critical": 1, "bulk": 2, "standard": 1}   # workers a class
+STRESS_CONCURRENCY = sum(STRESS_MIX.values())
+STRESS_P, STRESS_X, STRESS_L = "stress-p", "stress-x", "stress-l"
+
+
+def stress_daemon_cfg(workdir: str, name: str, sched_addr: str,
+                      **kw) -> DaemonConfig:
+    """Phase 25's daemons: one scheduler address, the cut announce."""
+    cfg = DaemonConfig(workdir=os.path.join(workdir, name), hostname=name,
+                       listen_ip="127.0.0.1", host_ip="127.0.0.1",
+                       scheduler=SchedulerConfig(addresses=[sched_addr]),
+                       **kw)
+    cfg.announce_interval_s = STRESS_ANNOUNCE_S
+    return cfg
+
+
+def stress_pod_child(workdir: str, conn) -> None:
+    """Phase 25's scheduler, with its debug routes on a port of their own
+    as its launcher mounts them, and its seed, in a child that never
+    touches CUDA. It sends the scheduler's address and debug port once
+    the seed's first announce has landed, answers each "report" with the
+    seed's origin bytes and task states, and ends at "stop"."""
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    asyncio.run(_stress_pod_child(workdir, conn))
+
+
+async def _stress_pod_child(workdir: str, conn) -> None:
+    sched_port = free_port()
+    sched_addr = f"127.0.0.1:{sched_port}"
+    seed = Daemon(stress_daemon_cfg(workdir, "stress-seed", sched_addr,
+                                    is_seed=True, device="cpu"))
+    await seed.start()
+    host = seed.host_info()
+    sched = Scheduler(SchedCfg(
+        listen_ip="127.0.0.1", port=sched_port, seed_peers=[SeedPeerAddr(
+            host_id=host.id, ip=host.ip, rpc_port=host.port,
+            download_port=host.download_port)]))
+    debug = None
+    try:
+        await sched.start()
+        debug = await start_debug_server(
+            "127.0.0.1", 0,
+            extra_routes=lambda router: add_scheduler_routes(router, sched))
+        # the seed's first announce lands before any pull (a late one
+        # adopts a second peer on its host)
+        t0 = time.monotonic()
+        while (host.id not in sched.fleetpulse._series
+               and time.monotonic() - t0 < STRESS_WAIT_S):
+            await asyncio.sleep(0.02)
+        conn.send({"sched_addr": sched_addr, "debug_port": debug.port,
+                   "announced": host.id in sched.fleetpulse._series})
+        while await asyncio.to_thread(conn.recv) == "report":
+            conductors = list(seed.ptm._conductors.values())
+            conn.send({"traffic_source": sum(c.traffic_source
+                                             for c in conductors),
+                       "states": [c.state for c in conductors],
+                       "quarantine": sched.quarantine.snapshot()})
+    finally:
+        if debug is not None:
+            await debug.stop()
+        await sched.stop()
+        await seed.stop()
+
+
+def stress_proxy_child(workdir: str, sched_addr: str, url: str,
+                       conn) -> None:
+    """Daemon X of phase 25, in a child that never touches CUDA: its
+    proxy (``proxy.enabled``) sends the origin's URL over P2P by a
+    ``proxy.rules`` entry. It sends its proxy and upload ports and
+    answers each "report" with its conductors' states and sources."""
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    asyncio.run(_stress_proxy_child(workdir, sched_addr, url, conn))
+
+
+async def _stress_proxy_child(workdir: str, sched_addr: str, url: str,
+                              conn) -> None:
+    cfg = stress_daemon_cfg(workdir, STRESS_X, sched_addr, device="cpu")
+    cfg.proxy.enabled = True
+    cfg.proxy.rules = [re.escape(url)]
+    d = Daemon(cfg)
+    await d.start()
+    try:
+        conn.send({"proxy_port": d.proxy_server.port,
+                   "upload_port": d.upload_server.port})
+        while await asyncio.to_thread(conn.recv) == "report":
+            conn.send({"conductors": [
+                {"task_id": c.task_id, "state": c.state,
+                 "traffic_p2p": c.traffic_p2p,
+                 "traffic_source": c.traffic_source,
+                 "pieces_by_parent": dict(c.pieces_by_parent)}
+                for c in d.ptm._conductors.values()]})
+    finally:
+        await d.stop()
+
+
+async def _stress_run(d: str, url: str, manifest: ShardManifest,
+                      pod: dict, p_info: dict, x_info: dict,
+                      device: torch.device) -> dict:
+    """L starts here; the stress CLI runs as its own process against X's
+    proxy, arming P through its ``/debug/faults``; L pulls the file into
+    the card once P is armed, while the load runs."""
+    l_daemon = Daemon(stress_daemon_cfg(
+        d, STRESS_L, pod["sched_addr"],
+        device="cpu" if device.type == "cpu" else "cuda"))
+    await l_daemon.start()
+    p_port = p_info["upload_port"]
+    x_addr = f"127.0.0.1:{x_info['upload_port']}"
+    p_addr = f"127.0.0.1:{p_port}"
+    l_addr = f"127.0.0.1:{l_daemon.upload_server.port}"
+    debug = f"127.0.0.1:{pod['debug_port']}"
+    argv = ["--url", url,
+            "--proxy", f"http://127.0.0.1:{x_info['proxy_port']}",
+            "-c", str(STRESS_CONCURRENCY),
+            "--priority", f"critical:{STRESS_MIX['critical']}",
+            "--priority", f"bulk:{STRESS_MIX['bulk']}",
+            "-d", str(STRESS_DURATION_S),
+            "--byzantine", str(STRESS_PCT),
+            "--chaos-target", f"http://{p_addr}",
+            "--pod-report", f"{x_addr},{p_addr},{l_addr}",
+            "--ctrl-report", debug, "--fleet-report", debug,
+            "--pex-dump", f"http://{x_addr}"]
+    proc = None
+
+    async def holders(_task_id: str) -> str:
+        return "the seed's holders are in its child"
+
+    try:
+        t0 = time.monotonic()
+        proc = await asyncio.create_subprocess_exec(
+            sys.executable, "-m", "dragonfly2_tpu_torch.tools.stress", *argv,
+            stdout=asyncio.subprocess.PIPE, stderr=asyncio.subprocess.PIPE,
+            cwd=ROOT, env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+        tool = asyncio.ensure_future(proc.communicate())
+        # L starts once the tool has armed P
+        while True:
+            status, faults = await _http_json(p_port, "/debug/faults")
+            if status == 200 and faults["armed"]:
+                break
+            check(not tool.done() and time.monotonic() - t0 < STRESS_WAIT_S,
+                  f"phase 25: the tool did not arm P ({status} {faults})")
+            await asyncio.sleep(0.01)
+        armed_s = time.monotonic() - t0
+        l_run = await _bounded_pull(l_daemon, url, UrlMeta(tag="proxy"),
+                                    manifest, STRESS_WAIT_S, "phase 25 L",
+                                    holders)
+        l_done_s = time.monotonic() - t0
+        out, err = await asyncio.wait_for(
+            tool, STRESS_DURATION_S + STRESS_WAIT_S)
+        tool_s = time.monotonic() - t0
+        _, faults_after = await _http_json(p_port, "/debug/faults")
+        return {"l_run": l_run, "armed_s": armed_s, "l_done_s": l_done_s,
+                "tool_s": tool_s, "rc": proc.returncode,
+                "stdout": out.decode(errors="replace"),
+                "stderr": err.decode(errors="replace"),
+                "faults_after": faults_after, "p_addr": p_addr,
+                "x_addr": x_addr, "l_addr": l_addr}
+    finally:
+        if proc is not None and proc.returncode is None:
+            proc.kill()
+            await proc.wait()
+        await l_daemon.stop()
+
+
+def phase_stress(workdir: str, device: torch.device) -> None:
+    """Phase 25: the stress tool's class mix and ``--byzantine`` load
+    through a daemon's proxy, with every report attachment, while L lands
+    the file on the card; on phase 8's origin over HTTP (250 MB/s per
+    response) from phase 11's server in a child. Every check of ``25.
+    stress`` in the module's docstring."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    t_phase = time.monotonic()
+    path = os.path.join(workdir, "deploy", TREE_WEIGHTS)
+    name = os.path.basename(path)
+    size = os.path.getsize(path)
+    d = os.path.join(workdir, "stress")
+    os.makedirs(d, exist_ok=True)
+    need = 5 * size                 # the seed's, P's, X's and L's copies
+    free = shutil.disk_usage(workdir).free
+    check(free >= need, f"phase 25 needs {need} bytes of free disk, "
+                        f"{free} free")
+    layout = deploy_layout()
+    header, _ = safetensors_header(layout)
+    manifest = manifest_from_file(path)
+    with open(path, "rb") as f:
+        f.seek(len(header))
+        ref = torch.frombuffer(bytearray(f.read()), dtype=torch.uint8).to(
+            device)
+    ctx = child_context()
+    o_conn, o_child = ctx.Pipe()
+    pod_conn, pod_child = ctx.Pipe()
+    p_conn, p_child = ctx.Pipe()
+    x_conn, x_child = ctx.Pipe()
+    origin = ctx.Process(target=http_origin_child, name="smoke-stress-origin",
+                         args=(path, CHAIN_PACE_BPS, o_child))
+    pod_proc = ctx.Process(target=stress_pod_child, name="smoke-stress-pod",
+                           args=(d, pod_child))
+    children = [(o_conn, origin), (pod_conn, pod_proc)]
+    origin.start()
+    pod_proc.start()
+    try:
+        check(o_conn.poll(STRESS_WAIT_S), "phase 25 origin did not start")
+        url = f"http://127.0.0.1:{o_conn.recv()['port']}/{name}"
+        check(pod_conn.poll(STRESS_WAIT_S),
+              "phase 25's scheduler and seed did not start")
+        pod = pod_conn.recv()
+        check(pod["announced"], "phase 25: the seed's first announce did "
+                                "not reach the scheduler")
+        # P pulls the file clean from the seed, which back-sources it;
+        # X starts meanwhile
+        p_cfg = stress_daemon_cfg(d, STRESS_P, pod["sched_addr"],
+                                  device="cpu")
+        p_cfg.upload.debug_endpoints = True
+        p_proc = ctx.Process(target=poisoner_child, name="smoke-stress-p",
+                             args=(p_cfg, url, p_child, "proxy", False))
+        x_proc = ctx.Process(target=stress_proxy_child,
+                             name="smoke-stress-x",
+                             args=(d, pod["sched_addr"], url, x_child))
+        p_proc.start()
+        x_proc.start()
+        children += [(p_conn, p_proc), (x_conn, x_proc)]
+        check(x_conn.poll(STRESS_WAIT_S), "phase 25 X did not start")
+        x_info = x_conn.recv()
+        check(p_conn.poll(STRESS_WAIT_S), "phase 25 P did not pull")
+        p_info = p_conn.recv()
+        check(p_info["state"] == "success" and p_info["traffic_source"] == 0
+              and p_info["traffic_p2p"] == size,
+              f"phase 25 P's clean pull: {p_info}")
+        run = asyncio.run(_stress_run(d, url, manifest, pod, p_info, x_info,
+                                      device))
+        p_report = _ask(p_conn, "report")
+        x_report = _ask(x_conn, "report")
+        seed_report = _ask(pod_conn, "report")
+        o_report = _ask(o_conn, "report")
+    finally:
+        for conn, proc in children:
+            try:
+                conn.send("stop")
+            except OSError:
+                pass
+            proc.join(timeout=60)
+            if proc.is_alive():
+                proc.terminate()
+                proc.join(timeout=30)
+    check(all(proc.exitcode == 0 for _c, proc in children),
+          f"phase 25 children exited "
+          f"{[(proc.name, proc.exitcode) for _c, proc in children]}")
+    # the tool: exit 0 and one JSON report line
+    lines = [ln for ln in run["stdout"].splitlines() if ln.strip()]
+    check(run["rc"] == 0 and len(lines) == 1,
+          f"phase 25: the tool exited {run['rc']} with stdout "
+          f"{run['stdout'][-2000:]!r} stderr {run['stderr'][-2000:]!r}")
+    report = json.loads(lines[0])
+    classes = report.get("classes") or {}
+    check(report["errors"] == 0 and report["shed"] == 0
+          and report["requests"] >= 2 * STRESS_CONCURRENCY
+          and report["bytes"] == report["requests"] * size,
+          f"phase 25: the load's requests {report['requests']}, errors "
+          f"{report['errors']}, shed {report['shed']}, bytes "
+          f"{report['bytes']} (file {size})")
+    # each class: its workers' requests, at least two each, every one a
+    # whole file with no error or shed
+    check(set(classes) == set(STRESS_MIX)
+          and all(c["errors"] == c["shed"] == 0
+                  and c["requests"] >= 2 * STRESS_MIX[k]
+                  and c["bytes"] == c["requests"] * size
+                  for k, c in classes.items()),
+          f"phase 25: the report's classes {classes}, workers {STRESS_MIX}")
+    # L's tensors: the file's, every byte from peers, inside the run
+    l_run = run["l_run"]
+    tensors, base, shapes = l_run["out"], len(header), dict(layout)
+    for info in manifest.shards:
+        t = tensors[info.name]
+        lo = info.range_start - base
+        check(t.device == device and t.dtype == torch.bfloat16
+              and list(t.shape) == shapes[info.name]
+              and torch.equal(t.reshape(-1).view(torch.uint8),
+                              ref[lo:lo + info.range_size]),
+              f"phase 25 L: {info.name} differs from the origin")
+    c = l_run["conductor"]
+    check((c.traffic_p2p, c.traffic_source) == (size, 0)
+          and c.task_id == p_info["task_id"],
+          f"phase 25 L: task {c.task_id}, (p2p, source) "
+          f"{(c.traffic_p2p, c.traffic_source)}, file {size}")
+    check(run["l_done_s"] < run["armed_s"] + report["duration_s"],
+          f"phase 25: L's pull ended {run['l_done_s']:.2f} s after the "
+          f"tool started, the load ran from {run['armed_s']:.2f} s for "
+          f"{report['duration_s']} s")
+    l_pieces_p = sum(k for pid, k in c.pieces_by_parent.items()
+                     if pid == p_info["peer_id"])
+    del tensors, l_run["out"], ref
+    # P: corrupt serves at the stride, and disarmed after the run
+    injected, served = p_report["injected"], p_report["served"]
+    check(0 < injected < served,
+          f"phase 25 P: injected {injected} corrupt of {served} serves")
+    byz = report.get("byzantine") or {}
+    verdicts = byz.get("verdicts") or {}
+    corrupt_of_p = {who: (verdicts.get(addr) or {}).get("corrupt", {})
+                    .get(run["p_addr"], 0)
+                    for who, addr in (("x", run["x_addr"]),
+                                      ("l", run["l_addr"]))}
+    check(byz.get("pct") == STRESS_PCT
+          and any(v > 0 for v in corrupt_of_p.values()),
+          f"phase 25: the report's byzantine block {byz}")
+    for key in ("podscope", "ctrl", "fleet", "pex"):
+        got = report.get(key)
+        check(isinstance(got, dict) and got and list(got) != ["error"],
+              f"phase 25: the report's {key} is {got}")
+    check(run["faults_after"] == {"armed": False, "scripts": []}
+          and p_report["faults"] == {"armed": False, "scripts": []},
+          f"phase 25: P after the run {run['faults_after']}, "
+          f"{p_report['faults']}")
+    # X's proxied pull rode the mesh; the origin sent the file once
+    (x_task,) = [t for t in x_report["conductors"]
+                 if t["task_id"] == p_info["task_id"]]
+    check(x_task["state"] == "success" and x_task["traffic_source"] == 0,
+          f"phase 25 X's pull: {x_task}")
+    check(o_report["body_bytes"] == size
+          and seed_report["traffic_source"] == size,
+          f"phase 25: the origin sent {o_report['body_bytes']} bytes, the "
+          f"seed read {seed_report['traffic_source']}, want {size} once")
+    shutil.rmtree(d, ignore_errors=True)
+    emit("phase 25 stress", {
+        "file_bytes": size, "duration_s": report["duration_s"],
+        "requests": report["requests"], "bytes": report["bytes"],
+        "throughput_gbps": report["throughput_gbps"],
+        "latency_ms": report["latency_ms"],
+        "class_latency_ms": {k: v["latency_ms"] for k, v in classes.items()},
+        "class_requests": {k: v["requests"] for k, v in classes.items()},
+        "injected": int(injected), "served": int(served),
+        "verdicts_of_p": corrupt_of_p,
+        "l_pieces_from_p": l_pieces_p,
+        "x_pieces_per_parent": x_task["pieces_by_parent"],
+        "p_pull_s": p_info["pull_s"], "armed_after_s": run["armed_s"],
+        "l_time_to_ready_s": l_run["wall"],
+        "l_gbps": size / 1e9 / l_run["wall"],
+        "tool_s": run["tool_s"],
+        "ctrl": report["ctrl"],
+        "fleet": {k: report["fleet"].get(k)
+                  for k in ("daemons", "ingested", "incidents")},
+        "quarantine": {h: r.get("state") for h, r in
+                       seed_report["quarantine"].get("hosts", {}).items()},
+        "phase_s": time.monotonic() - t_phase, "card": smi})
+
+
 def run_phases(layers: int, seed: int, device: torch.device) -> None:
-    """Phases 2-24 on ``device``; raises CheckFailed on a failed check."""
+    """Phases 2-25 on ``device``; raises CheckFailed on a failed check."""
     layout = llama_layout(layers)
     header, nbytes = safetensors_header(layout)
     workdir = tempfile.mkdtemp(prefix="chip-smoke-")
@@ -9446,6 +9948,7 @@ def run_phases(layers: int, seed: int, device: torch.device) -> None:
         phase_tree(workdir, device)
         phase_preheat(workdir, device)
         phase_auth(workdir, device)
+        phase_stress(workdir, device)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 

@@ -173,6 +173,9 @@ class UploadServer:
         # process-wide; several daemons may share a process)
         self.relay_serves: Counter = Counter()
         self.relay_bytes: Counter = Counter()
+        # bytes sent by relay serves that ended other than ``ok``, by
+        # result: counted in df_upload_bytes_total, journaled nowhere
+        self.relay_cut_bytes: Counter = Counter()
         self.router = httpd.Router()
         if flight_recorder is not None:
             from .flight_recorder import add_flight_routes
@@ -666,6 +669,8 @@ class UploadServer:
             _relay_wait_secs.observe(wait_s)
             _relay_serves.labels(result).inc()
             self.relay_serves[result] += 1
+            if result != "ok" and pos > rng.start:
+                self.relay_cut_bytes[result] += pos - rng.start
             if result == "ok":
                 _upload_reqs.labels("206").inc()
                 self._journal(task_id, ts, rng, query, writer, slot,

@@ -13,6 +13,8 @@ manager's issuing CA, typically), ``tls_cert``/``tls_key`` present the
 client certificate an mTLS server requires, and the target's host must
 match the server certificate's names unless ``tls_server_name`` overrides
 it, as grpc's ``ssl_target_name_override`` does for the reference.
+Two faultgate sites fire here: ``rpc.unary`` inside each retried unary
+attempt and ``rpc.stream.read`` in the stream calls' read halves.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ import logging
 import ssl
 from typing import Any, AsyncIterator
 
-from ..common import tracing
+from ..common import faultgate, tracing
 from ..common.errors import Code, DFError
 from ..common.retry import Retrier, RetryPolicy
 from ..idl.base import dumps, loads
@@ -374,7 +376,23 @@ class ServiceClient:
 
     async def unary(self, method: str, request: Any, *,
                     timeout: float | None = None) -> Any:
+        gate_key = f"{self.channel.address}/{self.service}/{method}"
+
         async def call():
+            if faultgate.ARMED:
+                # the call's deadline bounds the injected fault too, so a
+                # 'hang' script cannot park the call past its timeout
+                if timeout:
+                    try:
+                        await asyncio.wait_for(
+                            faultgate.fire("rpc.unary", key=gate_key),
+                            timeout)
+                    except asyncio.TimeoutError:
+                        raise DFError(Code.DEADLINE_EXCEEDED,
+                                      f"{gate_key}: deadline during "
+                                      "injected fault") from None
+                else:
+                    await faultgate.fire("rpc.unary", key=gate_key)
             c = _Call(self.channel, self.service, method, wire.UNARY_UNARY,
                       timeout)
             try:
@@ -421,6 +439,17 @@ class ServiceClient:
                                wire.STREAM_STREAM, timeout))
 
 
+async def _fire_stream_read(call: _Call) -> None:
+    """The ``rpc.stream.read`` site, on the read halves of stream calls
+    only (a unary call reads through ``_Call.read`` and never fires it).
+    An injected failure ends the call, as a transport failure would."""
+    try:
+        await faultgate.fire("rpc.stream.read")
+    except DFError:
+        call.cancel()
+        raise
+
+
 class _StreamIter:
     """Server-stream iterator; the request goes out on first read."""
 
@@ -443,6 +472,8 @@ class _StreamIter:
 
     async def read(self):
         """Like __anext__ but returns None at end of stream."""
+        if faultgate.ARMED:
+            await _fire_stream_read(self.call)
         if not self._sent:
             self._sent = True
             await self.call.write_only(self._request)
@@ -462,6 +493,8 @@ class _BidiCall:
         await self.call.done_writing()
 
     async def read(self) -> Any | None:
+        if faultgate.ARMED:
+            await _fire_stream_read(self.call)
         return await self.call.read()
 
     def cancel(self) -> None:

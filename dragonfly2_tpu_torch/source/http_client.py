@@ -19,8 +19,14 @@ a body given whole or streamed from an async iterator (the object
 gateway's backend and ``dfstore`` write through it, where the reference
 uses aiohttp's session; so does the proxy's direct route, which needs a
 response as received: its reason phrase and every header line in order,
-repeats included, in ``Headers.lines``). As with aiohttp, the default
-``User-Agent`` and ``Accept`` go out only when the caller gives none.
+repeats included, in ``Headers.lines``). ``request`` also takes what the
+stress tool's aiohttp session gives the reference: a forward ``proxy``
+(an ``http://`` URL goes to it as an absolute-form target with ``Host``
+naming the origin; an ``https://`` URL opens a ``CONNECT`` tunnel through
+it, then TLS to the origin on that stream) and per-request ``connect_s``
+and ``read_s`` bounds (aiohttp's ``sock_connect`` and ``sock_read``). As
+with aiohttp, the default ``User-Agent`` and ``Accept`` go out only when
+the caller gives none.
 ``list`` is the reference's one-entry listing of the URL itself. The
 ``gs``, ``oras`` and ``hdfs`` clients speak their protocols through this
 client. ``json_body`` parses a JSON answer as aiohttp's ``resp.json()``
@@ -148,10 +154,14 @@ def _status_error(status: int, url: str, headers=None) -> DFError:
 
 class _Deadline:
     """A request's timeouts: ``total_s`` over everything when the request
-    sets one, else per connect and per read."""
+    sets one, else ``connect_s`` per connect and ``read_s`` per read (the
+    reference's aiohttp ``sock_connect`` and ``sock_read``)."""
 
-    def __init__(self, total_s: float):
+    def __init__(self, total_s: float, connect_s: float = _CONNECT_S,
+                 read_s: float = _READ_S):
         self.at = time.monotonic() + total_s if total_s > 0 else 0.0
+        self.connect_s = connect_s
+        self.read_s = read_s
 
     def budget(self, step_s: float) -> float:
         if not self.at:
@@ -160,6 +170,12 @@ class _Deadline:
         if left <= 0:
             raise asyncio.TimeoutError()
         return left
+
+    def connect(self) -> float:
+        return self.budget(self.connect_s)
+
+    def read(self) -> float:
+        return self.budget(self.read_s)
 
 
 class _Conn:
@@ -222,15 +238,15 @@ class _Response:
 
     async def _read(self, n: int) -> bytes:
         return await asyncio.wait_for(self.conn.reader.read(n),
-                                      self.deadline.budget(_READ_S))
+                                      self.deadline.read())
 
     async def _readexactly(self, n: int) -> bytes:
         return await asyncio.wait_for(self.conn.reader.readexactly(n),
-                                      self.deadline.budget(_READ_S))
+                                      self.deadline.read())
 
     async def _readline(self) -> bytes:
         line = await asyncio.wait_for(self.conn.reader.readline(),
-                                      self.deadline.budget(_READ_S))
+                                      self.deadline.read())
         if not line.endswith(b"\n"):
             raise _ProtocolError("body ended inside a chunk header")
         return line
@@ -305,6 +321,13 @@ class _Response:
         self.close()
 
 
+def _authority(host: str, port: int, default: int) -> str:
+    """``host[:port]`` as a Host header or a CONNECT target writes it
+    (an IPv6 literal bracketed, the scheme's default port left out)."""
+    out = host if ":" not in host else f"[{host}]"
+    return out if port == default else f"{out}:{port}"
+
+
 def fleet_client_context(cert: str, key: str, ca: str) -> ssl.SSLContext:
     """The client context of the peer HTTP planes under fleet mTLS (piece
     GETs and PEX gossip): trust the fleet CA ``ca`` alone, present
@@ -364,20 +387,47 @@ class HTTPSourceClient:
                     c.close()
 
     async def _connect(self, key: tuple, deadline: _Deadline) -> _Conn:
-        scheme, host, port = key
+        """A connection for a pool key: ``(scheme, host, port)`` straight
+        to the origin, ``("proxy", host, port)`` to a forward proxy, or
+        ``("https", host, port, proxy_host, proxy_port)``: a ``CONNECT``
+        tunnel through the proxy with TLS to the origin on top."""
+        scheme, host, port = key[:3]
         ctx = None
         if scheme == "https":
             ctx = self._ssl or ssl.create_default_context()
+        if len(key) == 3:
+            reader, writer = await asyncio.wait_for(
+                asyncio.open_connection(host, port, ssl=ctx,
+                                        server_hostname=host if ctx else None,
+                                        limit=_READ_LIMIT),
+                deadline.connect())
+            return _Conn(reader, writer)
         reader, writer = await asyncio.wait_for(
-            asyncio.open_connection(host, port, ssl=ctx,
-                                    server_hostname=host if ctx else None,
-                                    limit=_READ_LIMIT),
-            deadline.budget(_CONNECT_S))
+            asyncio.open_connection(key[3], key[4], limit=_READ_LIMIT),
+            deadline.connect())
+        try:
+            authority = _authority(host, port, 0)
+            writer.write(f"CONNECT {authority} HTTP/1.1\r\n"
+                         f"Host: {authority}\r\n\r\n".encode("latin-1"))
+            head = await asyncio.wait_for(reader.readuntil(b"\r\n\r\n"),
+                                          deadline.read())
+            line = head.split(b"\r\n", 1)[0]
+            status = line.split(b" ", 2)
+            if len(status) < 2 or not status[1].startswith(b"2"):
+                raise _ProtocolError(f"proxy refused CONNECT {authority}: "
+                                     f"{line[:60]!r}")
+            await asyncio.wait_for(
+                writer.start_tls(ctx, server_hostname=host),
+                deadline.connect())
+        except BaseException:
+            writer.close()
+            raise
         return _Conn(reader, writer)
 
     async def _roundtrip(self, method: str, url: str, headers: dict,
                          deadline: _Deadline, pooled: bool,
-                         body=b"", content_length: int = -1) -> _Response:
+                         body=b"", content_length: int = -1,
+                         proxy: str = "") -> _Response:
         parts = urlsplit(url)
         scheme = parts.scheme.lower()
         if scheme not in ("http", "https") or not parts.hostname:
@@ -388,9 +438,22 @@ class HTTPSourceClient:
         key = (scheme, host, port)
         target = (parts.path or "/") + (f"?{parts.query}"
                                          if parts.query else "")
-        host_hdr = host if ":" not in host else f"[{host}]"
-        if port != default:
-            host_hdr += f":{port}"
+        host_hdr = _authority(host, port, default)
+        if proxy:
+            # a forward proxy, as aiohttp's ``proxy=`` speaks to one: plain
+            # HTTP goes to it as an absolute-form target (pooled per
+            # proxy); https tunnels through it (pooled per proxy and
+            # origin)
+            pparts = urlsplit(proxy)
+            if pparts.scheme.lower() != "http" or not pparts.hostname:
+                raise DFError(Code.SOURCE_ERROR,
+                              f"not an http:// proxy: {proxy}")
+            paddr = (pparts.hostname, pparts.port or 80)
+            if scheme == "http":
+                key = ("proxy", *paddr)
+                target = f"http://{host_hdr}{target}"
+            else:
+                key = (scheme, host, port, *paddr)
         # a caller's own Host or Content-Length (a signed request carries
         # both) is sent once, as given
         given = {k.lower() for k in headers}
@@ -434,7 +497,7 @@ class HTTPSourceClient:
             try:
                 conn.writer.write(raw)
                 await asyncio.wait_for(conn.writer.drain(),
-                                       deadline.budget(_READ_S))
+                                       deadline.read())
                 if stream:
                     async for chunk in body:
                         if not chunk:
@@ -446,14 +509,14 @@ class HTTPSourceClient:
                         if chunked:
                             conn.writer.write(b"\r\n")
                         await asyncio.wait_for(conn.writer.drain(),
-                                               deadline.budget(_READ_S))
+                                               deadline.read())
                     if chunked:
                         conn.writer.write(b"0\r\n\r\n")
                         await asyncio.wait_for(conn.writer.drain(),
-                                               deadline.budget(_READ_S))
+                                               deadline.read())
                 head = await asyncio.wait_for(
                     conn.reader.readuntil(b"\r\n\r\n"),
-                    deadline.budget(_READ_S))
+                    deadline.read())
             except (OSError, asyncio.IncompleteReadError) as exc:
                 conn.close()
                 if reused and attempt == 0:
@@ -497,15 +560,18 @@ class HTTPSourceClient:
     async def _request(self, method: str, url: str, headers: dict,
                        timeout_s: float, *, pooled: bool = True,
                        body=b"", content_length: int = -1,
-                       follow_redirects: bool = True) -> _Response:
+                       follow_redirects: bool = True, proxy: str = "",
+                       connect_s: float = _CONNECT_S,
+                       read_s: float = _READ_S) -> _Response:
         """One request, following redirects (a 303 turns into a GET and
         drops the body) unless ``follow_redirects`` is false. A streamed
         body is sent once: its response is returned as it is, redirect or
         not."""
-        deadline = _Deadline(timeout_s)
+        deadline = _Deadline(timeout_s, connect_s, read_s)
         for _hop in range(_MAX_REDIRECTS + 1):
             resp = await self._roundtrip(method, url, headers, deadline,
-                                         pooled, body, content_length)
+                                         pooled, body, content_length,
+                                         proxy)
             location = resp.headers.get("Location")
             if (not follow_redirects or resp.status not in _REDIRECTS
                     or not location
@@ -522,19 +588,26 @@ class HTTPSourceClient:
                       headers: dict | None = None, *, body=b"",
                       content_length: int = -1, timeout_s: float = 0.0,
                       pooled: bool = True,
-                      follow_redirects: bool = True) -> _Response:
+                      follow_redirects: bool = True, proxy: str = "",
+                      connect_s: float = _CONNECT_S,
+                      read_s: float = _READ_S) -> _Response:
         """Any method, for the clients that write as well as read (the
-        object-storage backend, dfstore, the proxy's direct route):
-        ``body`` is bytes or an async iterator of chunks (streamed;
-        ``content_length`` when known). The response's body is read with
-        ``chunks()`` or ``read()``; a transport failure is
+        object-storage backend, dfstore, the proxy's direct route, the
+        stress tool): ``body`` is bytes or an async iterator of chunks
+        (streamed; ``content_length`` when known). The response's body is
+        read with ``chunks()`` or ``read()``; a transport failure is
         ``SOURCE_ERROR``. With ``follow_redirects`` false a 3xx is the
-        response."""
+        response. ``proxy`` (``http://host:port``) sends the request
+        through a forward proxy; without ``timeout_s``, ``connect_s``
+        bounds each connect and ``read_s`` each read, so a body that
+        stalls raises."""
         try:
             return await self._request(method, url, dict(headers or {}),
                                        timeout_s, pooled=pooled, body=body,
                                        content_length=content_length,
-                                       follow_redirects=follow_redirects)
+                                       follow_redirects=follow_redirects,
+                                       proxy=proxy, connect_s=connect_s,
+                                       read_s=read_s)
         except (OSError, asyncio.TimeoutError, _ProtocolError) as exc:
             raise DFError(Code.SOURCE_ERROR,
                           f"{method} {url} failed: {exc!r}") from None

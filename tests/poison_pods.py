@@ -1,10 +1,12 @@
-"""Phases 16-24 of chip_smoke.py alone on the card; 16-18, 20
-(``mirror``), 21 (``fleet``), 22 (``tree``), 23 (``preheat``) and 24
-(``auth``) on a freshly written phase-8 origin (the Llama-3-8B layout's
-last tensors), phase 19 (``objstore``) on its own dataset.
+"""Phases 15-25 of chip_smoke.py alone on the card; 15 (``superseed``),
+16-18, 20 (``mirror``), 21 (``fleet``), 22 (``tree``), 23 (``preheat``),
+24 (``auth``) and 25 (``stress``) on a freshly written phase-8 origin
+(the Llama-3-8B layout's last tensors), phase 19 (``objstore``) on its
+own dataset.
 
-    python3 tests/poison_pods.py [poison] [federation] [qos] [objstore]
-                                 [mirror] [fleet] [tree] [preheat] [auth]
+    python3 tests/poison_pods.py [superseed] [poison] [federation] [qos]
+                                 [objstore] [mirror] [fleet] [tree]
+                                 [preheat] [auth] [stress]
 """
 import os
 import sys
@@ -21,7 +23,8 @@ if __name__ == "__main__":
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
     names = sys.argv[1:] or ["poison", "federation", "qos", "objstore",
-                             "mirror", "fleet", "tree", "preheat", "auth"]
+                             "mirror", "fleet", "tree", "preheat", "auth",
+                             "stress"]
     work = tempfile.mkdtemp(prefix="p1617-")
     if names == ["objstore"]:
         t0 = time.monotonic()

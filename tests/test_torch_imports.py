@@ -88,9 +88,11 @@ def test_every_import_statement_is_stdlib_torch_or_numpy():
 # modules that do, so each is checked by name
 READERS = ("common/podscope.py", "scheduler/fleetpulse.py",
            "daemon/pulse.py", "tools/dfdiag.py", "tools/dfsched.py")
+# the load tools (item 7c): the reference's stress runs on aiohttp
+LOAD_TOOLS = ("tools/stress.py", "tools/benchtrend.py")
 
 
-@pytest.mark.parametrize("rel", READERS)
+@pytest.mark.parametrize("rel", READERS + LOAD_TOOLS)
 def test_the_observability_readers_import_only_the_allowed(rel):
     path = os.path.join(PORT, rel)
     assert path in _sources()

@@ -376,6 +376,7 @@ class TestStreamingRange:
                 assert refunded == []
                 assert srv._active == 0
                 assert srv.relay_serves["evicted"] == 1
+                assert srv.relay_cut_bytes == {"evicted": len(r["body"])}
             finally:
                 lander.cancel()
                 await srv.stop()

@@ -709,8 +709,8 @@ def test_source_fetch_fails_one_back_source_pull_in_both(tmp_path):
 
 def test_source_fetch_is_a_known_site():
     assert "source.fetch" in port_faultgate.SITES
-    assert port_faultgate.SITES <= ref_faultgate.SITES
-    with pytest.raises(ValueError):
-        port_faultgate.arm_script("source.fetch=error:after_ms=400")
+    assert port_faultgate.SITES == ref_faultgate.SITES
+    script = port_faultgate.arm_script("source.fetch=error:after_ms=400")[0]
+    assert (script.site, script.after_ms) == ("source.fetch", 400)
     port_faultgate.reset()
     assert Code.SOURCE_ERROR.name == "SOURCE_ERROR"
