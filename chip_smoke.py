@@ -517,6 +517,19 @@ a chain's first relaying hop is the seed's first child.
               the file once. It prints the load's throughput, latency
               percentiles overall and per class, requests and bytes,
               P's injected and served counts, L's time to ready and GB/s
+26. dflint   — the port's static analyzer (``python -m
+              dragonfly2_tpu_torch.tools.dflint``) over the port package
+              as the tree sits on this machine, each run a child
+              process with a 60 s deadline: a cold ``--stats`` (the
+              port's cache deleted), ``--json``, then a warm ``--stats``.
+              Each must exit 0 with no finding, ``DFLINT_SUPPRESSED``
+              suppressions, each with a reason, and no DF000; the cold
+              run must hit the cache for no file and the warm one for
+              every file but the two it never caches
+              (``common/faultgate.py``, ``idl/messages.py``), with the
+              cold run's counts. No GPU work. It prints the runs' wall
+              times and the cold and warm ``index_s`` and
+              ``analysis_s``
 
 Before phase 3 the native storage library (``dfnative.cc``, built with
 g++ at first use) must load: the pulls land crc32c piece digests, and the
@@ -612,6 +625,7 @@ from dragonfly2_tpu_torch.scheduler.server import Scheduler
 from dragonfly2_tpu_torch.source.file_client import FileSourceClient
 from dragonfly2_tpu_torch.storage import native
 from dragonfly2_tpu_torch.tools import dfbench, dfdiag, dfsched
+from dragonfly2_tpu_torch.tools.dflint_rules import _NEVER_CACHE
 from dragonfly2_tpu_torch.tools.scheduler import add_scheduler_routes
 from dragonfly2_tpu_torch.tpu.data import ShardPrefetcher
 from dragonfly2_tpu_torch.tpu.hbm_sink import DeviceIngest
@@ -9873,8 +9887,76 @@ def phase_stress(workdir: str, device: torch.device) -> None:
         "phase_s": time.monotonic() - t_phase, "card": smi})
 
 
+# phase 26: the port package's reasoned suppressions, pinned here and read
+# by tests/test_torch_dflint.py; a child's deadline for one dflint run
+DFLINT_SUPPRESSED = 43
+DFLINT_TIMEOUT_S = 60.0
+DFLINT_CACHE = os.path.join(ROOT, ".dflint_torch_cache.json")
+
+
+def _dflint(flag: str) -> tuple[dict, float]:
+    """One run of the port's dflint CLI over the port package, in a child;
+    (its JSON output, wall seconds)."""
+    t0 = time.monotonic()
+    proc = subprocess.run(
+        [sys.executable, "-m", "dragonfly2_tpu_torch.tools.dflint", flag],
+        cwd=ROOT, capture_output=True, text=True, timeout=DFLINT_TIMEOUT_S)
+    wall = time.monotonic() - t0
+    check(proc.returncode == 0,
+          f"phase 26: dflint {flag} exited {proc.returncode}: "
+          f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+    return json.loads(proc.stdout), wall
+
+
+def phase_dflint(workdir: str, device: torch.device) -> None:
+    """Phase 26: the port's static analyzer over the shipped tree, cold
+    and then warm. Host work only: no tensor touches ``device``, and
+    ``workdir`` is not read (dflint lints this checkout and keeps its cache
+    at its root). Every check of ``26. dflint`` in the module's
+    docstring."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    t_phase = time.monotonic()
+    if os.path.exists(DFLINT_CACHE):
+        os.unlink(DFLINT_CACHE)
+    cold, cold_s = _dflint("--stats")
+    doc, json_s = _dflint("--json")
+    warm, warm_s = _dflint("--stats")
+    counts = cold["counts"]
+    check(counts["findings"] == 0 and not doc["findings"],
+          f"phase 26: findings {doc['findings']}")
+    check(counts["suppressed"] == DFLINT_SUPPRESSED
+          and len(doc["suppressed"]) == DFLINT_SUPPRESSED,
+          f"phase 26: {counts['suppressed']} suppressed, want "
+          f"{DFLINT_SUPPRESSED}")
+    check(all(f["code"] != "DF000" and f.get("reason", "").strip()
+              for f in doc["suppressed"]),
+          f"phase 26: a suppression without a reason or a DF000: "
+          f"{doc['suppressed']}")
+    # the modules whose rules sweep the whole package are never served
+    # from the cache, so a warm run misses those alone
+    files = cold["files"]
+    check(files > 0 and cold["cache"]["hits"] == 0
+          and warm["cache"]["hits"] == files - len(_NEVER_CACHE),
+          f"phase 26: cache cold {cold['cache']}, warm {warm['cache']} "
+          f"over {files} files")
+    check(warm["counts"] == counts,
+          f"phase 26: the warm run's findings differ from the cold run's: "
+          f"{warm['counts']} vs {counts}")
+    emit("phase 26 dflint", {
+        "files": files, "suppressed": counts["by_code_suppressed"],
+        "cold_s": cold_s, "json_s": json_s, "warm_s": warm_s,
+        "cold_index_s": cold["passes"]["index_s"],
+        "cold_analysis_s": cold["passes"]["analysis_s"],
+        "warm_index_s": warm["passes"]["index_s"],
+        "warm_analysis_s": warm["passes"]["analysis_s"],
+        "phase_s": time.monotonic() - t_phase, "card": smi})
+
+
 def run_phases(layers: int, seed: int, device: torch.device) -> None:
-    """Phases 2-25 on ``device``; raises CheckFailed on a failed check."""
+    """Phases 2-26 on ``device``; raises CheckFailed on a failed check."""
     layout = llama_layout(layers)
     header, nbytes = safetensors_header(layout)
     workdir = tempfile.mkdtemp(prefix="chip-smoke-")
@@ -9949,6 +10031,7 @@ def run_phases(layers: int, seed: int, device: torch.device) -> None:
         phase_preheat(workdir, device)
         phase_auth(workdir, device)
         phase_stress(workdir, device)
+        phase_dflint(workdir, device)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 

@@ -74,8 +74,10 @@ class Dynconfig:
         if persist and self._snapshot_path:
             try:
                 tmp = self._snapshot_path + ".tmp"
+                # dflint: disable=DF001 — KB-scale config snapshot on the minutes-cadence refresh tick
                 with open(tmp, "w") as f:
                     json.dump(data, f)
+                # dflint: disable=DF001 — atomic rename, metadata syscall
                 os.replace(tmp, self._snapshot_path)
             except OSError as exc:  # the snapshot is best-effort
                 log.warning("dynconfig snapshot write failed: %s", exc)
@@ -86,9 +88,11 @@ class Dynconfig:
                 log.exception("dynconfig observer failed")
 
     def _load_snapshot(self) -> dict[str, Any] | None:
+        # dflint: disable=DF001 — one stat on the manager-unreachable fallback path
         if not self._snapshot_path or not os.path.exists(self._snapshot_path):
             return None
         try:
+            # dflint: disable=DF001 — KB-scale config snapshot, read only when the manager is away
             with open(self._snapshot_path) as f:
                 return json.load(f)
         except (OSError, json.JSONDecodeError):

@@ -30,9 +30,12 @@ def task_id(url: str, *, tag: str = "", application: str = "",
             filtered_query_params: list[str] | None = None) -> str:
     """Content-addressed task id (hex sha256)."""
     h = hashlib.sha256()
+    # dflint: disable=DF001 — id hashing covers URL-scale strings (≤KB); an executor hop per task_id would cost more than the digest
     h.update(_filtered_url(url, filtered_query_params).encode())
     for part in (tag, application, digest, piece_range):
+        # dflint: disable=DF001 — see above: URL-scale id strings
         h.update(b"\x00")
+        # dflint: disable=DF001 — see above: URL-scale id strings
         h.update(part.encode())
     return h.hexdigest()
 

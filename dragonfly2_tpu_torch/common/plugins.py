@@ -45,6 +45,7 @@ def load(plugin_dir: str, type_: str, name: str,
     """Load one plugin; returns (impl, meta). Raises PluginError on any
     contract violation (missing file or symbol, metadata mismatch)."""
     path = os.path.join(plugin_dir, FILE_FORMAT.format(type=type_, name=name))
+    # dflint: disable=DF001 — one manifest stat at service start, before traffic
     if not os.path.exists(path):
         raise PluginError(f"plugin not found: {path}")
     spec = importlib.util.spec_from_file_location(
@@ -71,9 +72,11 @@ def load(plugin_dir: str, type_: str, name: str,
 
 def discover(plugin_dir: str, type_: str) -> list[str]:
     """Names of the plugins of one type in the dir."""
+    # dflint: disable=DF001 — plugin-dir scan at service start, before traffic
     if not os.path.isdir(plugin_dir):
         return []
     prefix = f"df_plugin_{type_}_"
+    # dflint: disable=DF001 — plugin-dir scan at service start, before traffic
     return [fn[len(prefix):-3] for fn in sorted(os.listdir(plugin_dir))
             if fn.startswith(prefix) and fn.endswith(".py")]
 

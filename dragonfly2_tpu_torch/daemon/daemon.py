@@ -447,6 +447,7 @@ class Daemon:
         if len(sock) > 100:
             # past the kernel's unix-socket path limit: a short temp path
             sock = os.path.join(tempfile.mkdtemp(prefix="df-"), "d.sock")
+        # dflint: disable=DF001 — socket-dir creation during start(), nothing is served yet
         os.makedirs(os.path.dirname(sock) or ".", exist_ok=True)
         self.local_rpc = RPCServer(f"unix:{sock}")
         for sdef in build_service(svc):

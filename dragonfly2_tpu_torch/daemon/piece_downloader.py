@@ -275,6 +275,7 @@ class PieceDownloader:
                 reused = conn.used
                 conn.used = True
                 try:
+                    # dflint: disable=DF005 — _slots is the connection cap (the reference's connector limit): a slot is one connection in use, so it spans the request; a slow parent holds one slot for at most the per-piece deadline
                     await conn.request(raw, dst, progress)
                 except _Stall:
                     conn.release_dst()
@@ -326,6 +327,7 @@ class PieceDownloader:
         span = relay_open(buf) if relay_open is not None else None
         first = [on_first_byte, faultgate.ARMED]
 
+        # dflint: disable=DF007 — progress is reachable only through _Conn._progress, which release_dst() clears on every exit of _fetch; failed() runs only after _fetch has returned or raised (a timeout cancels it first), so neither closure outlives the release
         def progress(off: int) -> None:
             if first[0] is not None or first[1]:
                 if first[1]:

@@ -491,6 +491,7 @@ class UploadServer:
             poisoned = faultgate.ARMED and faultgate.peek(
                 "upload.serve", fkey, kinds=frozenset({"corrupt"}))
             wait_t0 = time.monotonic()
+            # dflint: disable=DF008 — sendfile serve: after return the bytes move in-kernel with no failure callback; a dropped send is accounted as moved by design (the disk-read branch below is the refundable one)
             await self.limiter.acquire(rng.length)
             wait_ms = (time.monotonic() - wait_t0) * 1000.0
             head = {"Content-Range":
@@ -505,6 +506,7 @@ class UploadServer:
                 # whole-file task: the kernel moves the bytes (sendfile)
                 loop = asyncio.get_running_loop()
                 try:
+                    # dflint: disable=DF001 — one open() of the task's data file, a metadata syscall; the kernel then moves the bytes (sendfile), so a thread hop here would cost more than the open
                     f = open(ts.data_path(), "rb")
                 except OSError as exc:
                     self.limiter.refund(rng.length)

@@ -14,6 +14,7 @@ from typing import Sequence
 
 
 def _hash(key: str) -> int:
+    # dflint: disable=DF001 — ring keys are "addr#vnode" strings, tens of bytes; the md5 is ns-scale
     return int.from_bytes(hashlib.md5(key.encode()).digest()[:8], "big")
 
 

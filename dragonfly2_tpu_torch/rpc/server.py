@@ -189,7 +189,9 @@ class RPCServer:
         scheme, host, lo, hi = _split_listen(self.address)
         ctx = self.tls.server_context() if self.tls is not None else None
         if scheme == "unix":
+            # dflint: disable=DF001 — stale-socket cleanup during start(), nothing is served yet
             if os.path.exists(host):
+                # dflint: disable=DF001 — see above: startup path
                 os.unlink(host)
             self._servers.append(await asyncio.start_unix_server(
                 self._on_conn, path=host, limit=1 << 20, ssl=ctx))

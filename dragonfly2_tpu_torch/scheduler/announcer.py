@@ -194,8 +194,10 @@ class SchedulerAnnouncer:
 
     async def bind_model(self, blob: bytes) -> bool:
         """Bind a ``bandwidth_mlp`` blob into the ml evaluator; True when
-        a new version now serves."""
-        return await self._bind(version_of(blob), blob, None)
+        a new version now serves. The blob is hashed off the loop, as it
+        is deserialized: a bind must not stall rulings."""
+        version = await asyncio.to_thread(version_of, blob)
+        return await self._bind(version, blob, None)
 
     async def _bind(self, version: str, blob: bytes,
                     metrics: dict | None) -> bool:

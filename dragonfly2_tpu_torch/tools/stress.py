@@ -188,6 +188,7 @@ async def run_rollout(url: str, *, proxy: str = "", workers: int = 4,
     ranged GETs through the proxy, recording per-shard ready times. The
     report carries per-shard fetch p50/p99 and the wave's
     time-to-all-shards makespan."""
+    # dflint: disable=DF001 — one KB-scale manifest read on stress's CLI-private loop
     with open(manifest_path, encoding="utf-8") as f:
         raw = json.load(f)
     entries = raw.get("shards", raw) if isinstance(raw, dict) else raw

@@ -90,9 +90,15 @@ READERS = ("common/podscope.py", "scheduler/fleetpulse.py",
            "daemon/pulse.py", "tools/dfdiag.py", "tools/dfsched.py")
 # the load tools (item 7c): the reference's stress runs on aiohttp
 LOAD_TOOLS = ("tools/stress.py", "tools/benchtrend.py")
+# the static analyzer (item 7d): standard library only, and its own copy
+# of the reference's engine, not an import of it
+DFLINT = ("tools/dflint.py", "tools/dflint_rules/__init__.py",
+          "tools/dflint_rules/symbols.py", "tools/dflint_rules/concurrency.py",
+          "tools/dflint_rules/dataflow.py", "tools/dflint_rules/lockgraph.py",
+          "tools/dflint_rules/catalogue.py")
 
 
-@pytest.mark.parametrize("rel", READERS + LOAD_TOOLS)
+@pytest.mark.parametrize("rel", READERS + LOAD_TOOLS + DFLINT)
 def test_the_observability_readers_import_only_the_allowed(rel):
     path = os.path.join(PORT, rel)
     assert path in _sources()
@@ -108,6 +114,25 @@ def test_the_observability_readers_import_only_the_allowed(rel):
     assert not names & {"aiohttp", "jax", "dragonfly2_tpu"}
 
 
+@pytest.mark.parametrize("rel", DFLINT)
+def test_the_analyzer_imports_only_the_standard_library(rel):
+    # ast, tokenize, hashlib, subprocess: the analyzer needs neither torch
+    # nor numpy, and its relative imports stay inside tools/
+    with open(os.path.join(PORT, rel), encoding="utf-8") as f:
+        tree = ast.parse(f.read(), rel)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            tops = {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            tops = {node.module.split(".")[0]}
+        elif isinstance(node, ast.ImportFrom):
+            assert node.level <= rel.count("/"), (rel, node.lineno)
+            continue
+        else:
+            continue
+        assert tops <= sys.stdlib_module_names, (rel, node.lineno, tops)
+
+
 def test_port_imports_without_jax_or_the_reference():
     env = dict(os.environ, PYTHONPATH=ROOT)
     proc = subprocess.run(
@@ -115,4 +140,4 @@ def test_port_imports_without_jax_or_the_reference():
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     # every module of the slice was found and imported
-    assert int(proc.stdout.strip().splitlines()[-1]) >= 112, proc.stdout
+    assert int(proc.stdout.strip().splitlines()[-1]) >= 119, proc.stdout
