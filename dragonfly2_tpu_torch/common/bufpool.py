@@ -20,6 +20,8 @@ _acquires = REGISTRY.counter(
 _discards = REGISTRY.counter(
     "df_bufpool_discards_total",
     "piece buffers dropped at release instead of pooled", ("reason",))
+_pooled = REGISTRY.gauge(
+    "df_bufpool_bytes", "bytes currently parked in the piece-buffer pool")
 
 
 class BufferPool:
@@ -39,6 +41,7 @@ class BufferPool:
             bucket = self._free.get(size)
             if bucket:
                 self._bytes -= size
+                _pooled.set(self._bytes)
                 _acquires.labels("hit").inc()
                 return bucket.pop()
         _acquires.labels("miss").inc()
@@ -64,6 +67,17 @@ class BufferPool:
                 return
             bucket.append(buf)
             self._bytes += size
+            _pooled.set(self._bytes)
+
+    def clear(self) -> None:
+        with self._lock:
+            self._free.clear()
+            self._bytes = 0
+            _pooled.set(0)
+
+    def pooled_bytes(self) -> int:
+        with self._lock:
+            return self._bytes
 
 
 # process-wide pool, shared by every downloader the way REGISTRY is shared

@@ -192,6 +192,11 @@ def _parse_yaml(text: str) -> dict[str, Any]:
     return root
 
 
+# the reference's name for the subset parser (its ``_parse_yaml`` tries
+# PyYAML first; the port has only the subset, known difference 7)
+_mini_yaml = _parse_yaml
+
+
 def _scalar(s: str) -> Any:
     if s.startswith(("'", '"')) and s.endswith(s[0]) and len(s) >= 2:
         return s[1:-1]

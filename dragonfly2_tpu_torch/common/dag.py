@@ -8,7 +8,7 @@ cycles, which keeps the download topology a DAG.
 
 from __future__ import annotations
 
-from typing import Generic, TypeVar
+from typing import Generic, Iterator, TypeVar
 
 V = TypeVar("V")
 
@@ -23,8 +23,20 @@ class DAG(Generic[V]):
         self._children: dict[str, set[str]] = {}
         self._parents: dict[str, set[str]] = {}
 
+    def __len__(self) -> int:
+        return len(self._values)
+
     def __contains__(self, vid: str) -> bool:
         return vid in self._values
+
+    def get(self, vid: str) -> V:
+        try:
+            return self._values[vid]
+        except KeyError:
+            raise DAGError(f"vertex not found: {vid}") from None
+
+    def try_get(self, vid: str) -> V | None:
+        return self._values.get(vid)
 
     def add_vertex(self, vid: str, value: V) -> None:
         if vid in self._values:
@@ -81,6 +93,18 @@ class DAG(Generic[V]):
 
     def parents(self, vid: str) -> set[str]:
         return set(self._parents.get(vid, ()))
+
+    def in_degree(self, vid: str) -> int:
+        return len(self._parents.get(vid, ()))
+
+    def out_degree(self, vid: str) -> int:
+        return len(self._children.get(vid, ()))
+
+    def vertex_ids(self) -> list[str]:
+        return list(self._values)
+
+    def values(self) -> Iterator[V]:
+        return iter(self._values.values())
 
     def descendants(self, vid: str) -> set[str]:
         out: set[str] = set()

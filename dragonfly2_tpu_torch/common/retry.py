@@ -1,8 +1,10 @@
 """One retry/backoff policy for the control-plane ladders.
 
 Counterpart of ``dragonfly2_tpu/common/retry.py``: jittered exponential
-backoff, capped by attempts and by a wall-clock budget, honouring a
-``retry_after_ms`` hint on the raised error.
+backoff, capped by attempts, by a wall-clock budget and by a per-run
+deadline, honouring a ``retry_after_ms`` hint on the raised error or an
+HTTP ``Retry-After`` header. The clock, sleep and rng are injectable so a
+test drives the whole ladder with a fake clock.
 """
 
 from __future__ import annotations
@@ -20,9 +22,21 @@ log = logging.getLogger("df.retry")
 
 
 def retry_after_s(exc: BaseException) -> float:
-    """The error's own backoff hint in seconds (``retry_after_ms``)."""
+    """The error's own backoff hint in seconds: ``retry_after_ms`` (the
+    upload slot's 503 and faultgate errors) or an HTTP ``Retry-After``
+    header (seconds form) on a ``headers`` mapping."""
     ms = getattr(exc, "retry_after_ms", 0)
-    return float(ms) / 1000.0 if ms else 0.0
+    if ms:
+        return float(ms) / 1000.0
+    headers = getattr(exc, "headers", None)
+    if headers:
+        try:
+            value = headers.get("Retry-After", "")
+        except AttributeError:
+            return 0.0
+        if isinstance(value, str) and value.strip().isdigit():
+            return float(value.strip())
+    return 0.0
 
 
 @dataclass(frozen=True)
@@ -65,21 +79,33 @@ def transient(exc: BaseException) -> bool:
 
 
 class Retrier:
-    """Runs an async callable under a RetryPolicy."""
+    """Runs an async callable under a RetryPolicy. ``clock``, ``sleep``
+    and ``rng`` default to the monotonic clock, ``asyncio.sleep`` and
+    ``random.random``."""
 
-    def __init__(self, policy: RetryPolicy):
+    def __init__(self, policy: RetryPolicy, *,
+                 clock: Callable[[], float] = time.monotonic,
+                 sleep: Callable[[float], Awaitable] = asyncio.sleep,
+                 rng: Callable[[], float] = random.random):
         self.policy = policy
+        self.clock = clock
+        self.sleep = sleep
+        self.rng = rng
 
     async def run(self, fn: Callable[[], Awaitable[Any]], *,
                   retryable: Callable[[BaseException], bool] = transient,
+                  deadline_s: float | None = None,
                   on_retry: Callable[[int, BaseException, float], None]
                   | None = None) -> Any:
         """Call ``fn`` until it succeeds, attempts run out, or the next
-        sleep would overshoot the budget. Raises the last exception.
-        ``on_retry(failures, exc, sleep_s)`` fires before each sleep."""
+        sleep would overshoot the budget or ``deadline_s``. Raises the
+        last exception. ``on_retry(failures, exc, sleep_s)`` fires before
+        each sleep."""
         p = self.policy
-        start = time.monotonic()
-        budget = p.budget_s
+        start = self.clock()
+        budget = p.budget_s or 0.0
+        if deadline_s is not None:
+            budget = min(budget, deadline_s) if budget else deadline_s
         failures = 0
         while True:
             try:
@@ -90,11 +116,14 @@ class Retrier:
                 failures += 1
                 if failures >= p.max_attempts or not retryable(exc):
                     raise
-                pause = max(p.backoff_s(failures), retry_after_s(exc))
-                if budget and (time.monotonic() - start) + pause > budget:
+                pause = max(p.backoff_s(failures, self.rng),
+                            retry_after_s(exc))
+                if budget and (self.clock() - start) + pause > budget:
+                    # sleeping would eat the deadline: fail now, so the
+                    # next rung of the ladder gets the time
                     raise
                 if on_retry is not None:
                     on_retry(failures, exc, pause)
                 log.debug("retry %d/%d in %.3fs after %s", failures,
                           p.max_attempts, pause, exc)
-                await asyncio.sleep(pause)
+                await self.sleep(pause)

@@ -723,32 +723,37 @@ class PeerTaskConductor:
                                    for r in reports))
         return placed
 
-    async def on_piece_from_source(self, num: int, offset: int, data: bytes,
-                                   cost_ms: int) -> None:
-        """Land, verify and stage one piece. A duplicate changes nothing."""
+    async def _land_piece(self, num: int, offset: int, data: bytes,
+                          cost_ms: int, source: str,
+                          piece_digest: str = "",
+                          pre_verified: bool = False) -> bool:
+        """Land, verify and stage one piece from ``source`` (a parent's
+        peer id, or "" for the origin). True when this call landed it; a
+        duplicate changes nothing and returns False."""
         if self.storage is None:
             raise DFError(Code.CLIENT_STORAGE_ERROR, "piece before content info")
         if num in self.ready or num in self._landing:
             # _landing claims the piece BEFORE the await below, so two
             # near-simultaneous landings of one piece cannot both count
-            return
+            return False
         # taken before landing (wire_done precedes the hbm_done below),
-        # journaled only once the piece landed; back-source pieces skip the
-        # dispatcher's stages, so the duration back-dates the start
+        # journaled only once the piece landed; a piece that skipped the
+        # dispatcher's stages back-dates its start by the duration
         t_wire = self.flight.now_ms() if self.flight is not None else 0.0
         self._landing.add(num)
         try:
             # hashing + write take ms at 16 MiB: the dedicated storage
             # executor runs them, never the event loop
             await run_io(self.storage.write_piece, num, offset, data,
-                         cost_ms=cost_ms)
+                         piece_digest, cost_ms=cost_ms, source=source,
+                         pre_verified=pre_verified)
         finally:
             self._landing.discard(num)
         if num in self.ready:     # lost a race decided elsewhere
-            return
+            return False
         if self.flight is not None:
-            self.flight.event(fr.WIRE_DONE, num, fr.ORIGIN, len(data),
-                              dur_ms=cost_ms, t_ms=t_wire)
+            self.flight.event(fr.WIRE_DONE, num, source or fr.ORIGIN,
+                              len(data), dur_ms=cost_ms, t_ms=t_wire)
         # write() is a memcpy + enqueue; the copy runs on the sink's own
         # thread and is never awaited here
         self._ingest_to_device(num, offset, data)
@@ -757,13 +762,21 @@ class PeerTaskConductor:
         async with self._piece_cond:
             self.ready.add(num)
             self.completed_length += len(data)
-            self.traffic_source += len(data)
             self._piece_cond.notify_all()
         self._note_shard_progress(num, offset, len(data))
         self._pulse_relay()
         self._publish({"type": "piece", "num": num, "size": len(data),
                        "completed": self.completed_length,
                        "total": self.content_length})
+        return True
+
+    async def on_piece_from_source(self, num: int, offset: int, data: bytes,
+                                   cost_ms: int) -> None:
+        """Land, verify and stage one origin piece. A duplicate changes
+        nothing."""
+        if not await self._land_piece(num, offset, data, cost_ms, source=""):
+            return
+        self.traffic_source += len(data)
         if self._session is not None:
             # a back-source peer announces its pieces so the scheduler can
             # make it a parent
@@ -808,7 +821,7 @@ class PeerTaskConductor:
         try:
             spec = [(p.piece_num, p.range_start, p.range_size, p.digest)
                     for p in claim]
-            metas, corrupt = await run_io(
+            metas, corrupt, _ = await run_io(
                 self.storage.write_span, spec, data, base=base,
                 cost_ms=cost_ms_per_piece, source=parent_id)
         finally:
@@ -893,24 +906,10 @@ class PeerTaskConductor:
             # the digest describes the whole file; a sub-range can't check it
             return
         algo, want = digestlib.parse(self.url_meta.digest)
-        path = self.storage.data_path()
-        length = self.content_length
-
-        def compute() -> str:
-            def chunks():
-                with open(path, "rb") as f:
-                    remaining = length
-                    while remaining > 0:
-                        b = f.read(min(4 << 20, remaining))
-                        if not b:
-                            return
-                        remaining -= len(b)
-                        yield b
-            return digestlib.hash_stream(algo, chunks())
-
         # default executor ON PURPOSE (not run_io): a full-content hash of
         # many GB must not park piece landings on the storage pool
-        got = await asyncio.to_thread(compute)
+        got = await asyncio.to_thread(self.storage.content_hash, algo,
+                                      self.content_length)
         if got != want:
             raise DFError(Code.CLIENT_DIGEST_MISMATCH,
                           f"content digest mismatch: {algo}:{got[:12]}..")

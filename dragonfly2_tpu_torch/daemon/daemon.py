@@ -70,6 +70,7 @@ import logging
 import os
 import socket
 import tempfile
+from typing import Any
 
 import torch
 
@@ -128,7 +129,11 @@ def _local_ip() -> str:
 
 
 class Daemon:
-    def __init__(self, cfg: DaemonConfig):
+    def __init__(self, cfg: DaemonConfig, *, scheduler_factory: Any = None,
+                 p2p_engine_factory: Any = None):
+        """``scheduler_factory(daemon)`` stands in for the scheduler
+        connector and ``p2p_engine_factory()`` for the piece engine, as in
+        the reference (tests script a scheduler's packets with them)."""
         if cfg.device not in ("cuda", "cpu"):
             raise ValueError(f"device must be 'cuda' or 'cpu', "
                              f"got {cfg.device!r}")
@@ -201,7 +206,9 @@ class Daemon:
             verdicts=self.verdicts, qos=self.qos)
         self.health = None
         self._prev_source_tls = None
-        self.scheduler: SchedulerConnector | None = None
+        self._scheduler_factory = scheduler_factory
+        self._p2p_engine_factory = p2p_engine_factory
+        self.scheduler: Any = None
         self.manager: ManagerLink | None = None
         self._sched_refresh: asyncio.Task | None = None
         self.ptm: PeerTaskManager | None = None
@@ -407,7 +414,7 @@ class Daemon:
         self.ptm = PeerTaskManager(
             storage_mgr=self.storage_mgr, piece_mgr=self.piece_mgr,
             hostname=self.hostname, host_ip=self.host_ip,
-            p2p_engine_factory=self._engine,
+            p2p_engine_factory=self._p2p_engine_factory or self._engine,
             device_sink_builder=self.device_sink_builder,
             is_seed=self.cfg.is_seed,
             flight_recorder=self.flight_recorder, relay=self.relay,
@@ -417,7 +424,7 @@ class Daemon:
             # the pex rung builds a fresh engine per pull (the scheduler
             # path may have used the conductor's); gossip presents the
             # fleet client leaf under mTLS
-            self.pex.engine_factory = self._engine
+            self.pex.engine_factory = self._p2p_engine_factory or self._engine
             self.pex.tls = tls_triple
         svc = DaemonService(
             self.ptm, upload_addr=f"{self.host_ip}:{self.upload_server.port}")
@@ -432,7 +439,9 @@ class Daemon:
             # before the manager attach: a seed registers its port
             await self.object_gateway.start()
         # the connector needs the resolved rpc/upload ports for register
-        if self.cfg.scheduler.addresses:
+        if self._scheduler_factory is not None:
+            self.scheduler = self._scheduler_factory(self)
+        elif self.cfg.scheduler.addresses:
             self.scheduler = self._connector(self.cfg.scheduler.addresses)
         elif self.cfg.manager_addresses:
             await self._attach_manager()
@@ -467,7 +476,7 @@ class Daemon:
                  self.hostname, self.host_ip, self.rpc.port,
                  self.upload_server.port, sock, self.cfg.is_seed,
                  self.cfg.device,
-                 self.scheduler.addresses if self.scheduler else [],
+                 getattr(self.scheduler, "addresses", []),
                  self.paths.workdir)
 
     async def _discover_schedulers(self) -> list[str]:
@@ -540,10 +549,13 @@ class Daemon:
             return
         if self.pex is not None:
             self.pex.scheduler = self.scheduler
-        if self.announcer is None:
+        # a scheduler from ``scheduler_factory`` may have neither surface
+        if self.announcer is None and hasattr(self.scheduler,
+                                              "announce_host"):
             self.announcer = Announcer(self)
             await self.announcer.start()
-        if self.prober is None and self.cfg.probe_enabled:
+        if (self.prober is None and self.cfg.probe_enabled
+                and hasattr(self.scheduler, "sync_probes")):
             self.prober = NetworkTopologyProber(self)
             await self.prober.start()
 
@@ -554,7 +566,8 @@ class Daemon:
         """Re-arm the connector's demotions from the previous process, so
         a restarted daemon does not walk every known-dead scheduler
         through the register timeout again."""
-        if self.scheduler is None:
+        if self.scheduler is None or not hasattr(self.scheduler,
+                                                 "restore_demotions"):
             return
         try:
             with open(self._demotions_path(), "rb") as f:
@@ -569,7 +582,8 @@ class Daemon:
     def _persist_scheduler_demotions(self) -> None:
         """Write the demotions at stop (tmp, fsync, rename). Best effort:
         shutdown must not fail on a full disk."""
-        if self.scheduler is None:
+        if self.scheduler is None or not hasattr(self.scheduler,
+                                                 "export_demotions"):
             return
         path = self._demotions_path()
         tmp = path + ".tmp"
@@ -621,10 +635,15 @@ class Daemon:
             await self._downloader.close()
         if self._peer_channels is not None:
             await self._peer_channels.close()
+        # nothing lands or serves a piece any more: release the tasks'
+        # cached data fds, so a removed workdir frees its disk
+        self.storage_mgr.close()
         if self.scheduler is not None:
             await asyncio.to_thread(self._persist_scheduler_demotions)
-            await self.scheduler.leave_host()
-            await self.scheduler.close()
+            if hasattr(self.scheduler, "leave_host"):
+                await self.scheduler.leave_host()
+            if hasattr(self.scheduler, "close"):
+                await self.scheduler.close()
         # this loop's pooled origin connections
         await source.close_clients()
         if self._prev_source_tls is not None:

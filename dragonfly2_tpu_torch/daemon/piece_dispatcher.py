@@ -29,9 +29,16 @@ import logging
 import random
 import time
 
+from ..common.metrics import REGISTRY
 from ..idl.messages import LinkType, PieceInfo
 
 log = logging.getLogger("df.flow.dispatch")
+
+# the locality of each pick, by outcome: "cross_local_known" is a
+# cross-slice parent chosen while a free same-slice holder was known (only
+# the explore ratio should do that)
+_picks = REGISTRY.counter("df_dispatch_pick_total",
+                          "parent pick outcomes", ("outcome",))
 
 # Demand-side locality: the scheduler annotates each offered parent with
 # the link class it computed from pod topology (PeerAddr.link). Link class
@@ -499,6 +506,16 @@ class PieceDispatcher:
             g.dispatched_at = now
         parent.inflight += 1
         parent.attempts += len(group)
+        if parent.is_seed:
+            outcome = "seed"
+        elif LINK_TIER.get(parent.link, 1) == 0:
+            outcome = "local"
+        elif any(not h.is_seed and LINK_TIER.get(h.link, 1) == 0
+                 for h in holders):
+            outcome = "cross_local_known"
+        else:
+            outcome = "cross_no_local"
+        _picks.labels(outcome).inc(len(group))
         return Dispatch([g.info for g in group], parent)
 
     def _pick_endgame(self) -> Dispatch | None:

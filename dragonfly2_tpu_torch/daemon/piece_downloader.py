@@ -295,6 +295,18 @@ class PieceDownloader:
                 return status, got
         raise _Stall("connection closed")
 
+    async def download_piece(self, *, dst_addr: str, task_id: str,
+                             src_peer_id: str, piece: PieceInfo,
+                             on_first_byte=None, relay_open=None,
+                             qos_class: str = "", meta: dict | None = None,
+                             ) -> tuple[bytearray, int]:
+        """Fetch one piece from a parent: ``download_span`` of that piece
+        (the reference's name for the one-piece fetch)."""
+        return await self.download_span(
+            dst_addr=dst_addr, task_id=task_id, src_peer_id=src_peer_id,
+            pieces=[piece], on_first_byte=on_first_byte,
+            relay_open=relay_open, qos_class=qos_class, meta=meta)
+
     async def download_span(self, *, dst_addr: str, task_id: str,
                             src_peer_id: str, pieces: list[PieceInfo],
                             on_first_byte=None, relay_open=None,

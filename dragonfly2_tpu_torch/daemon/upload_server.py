@@ -3,7 +3,8 @@
 Counterpart of ``dragonfly2_tpu/daemon/upload_server.py`` (reference
 ``client/daemon/upload/upload_manager.go``): ``GET /download/{prefix}/
 {task_id}?peerId=`` with a ``Range`` header, served from the piece store,
-rate-limited, plus ``GET /healthy``. The reference serves with
+rate-limited, plus ``GET /healthy`` and the daemon's ``GET /metrics``.
+The reference serves with
 ``aiohttp.web``; the card's machine has no aiohttp, so this module speaks
 HTTP/1.1 on ``asyncio.start_server`` with the same routes, status codes
 and headers: 404 for an unknown task, 400 without ``Range``, 416 for a
@@ -106,6 +107,11 @@ _qos_upload_shed = REGISTRY.counter(
     "df_qos_upload_shed_total",
     "piece requests 503-shed at the class-aware upload gate", ("cls",))
 
+async def _metrics(_params, _query):
+    """The process's Prometheus exposition, as on the debug port."""
+    return 200, REGISTRY.expose()
+
+
 class _Slot:
     """One concurrency-gate slot, held until the response body is fully
     written (or the connection dies)."""
@@ -177,6 +183,7 @@ class UploadServer:
         # result: counted in df_upload_bytes_total, journaled nowhere
         self.relay_cut_bytes: Counter = Counter()
         self.router = httpd.Router()
+        self.router.add_get("/metrics", _metrics)
         if flight_recorder is not None:
             from .flight_recorder import add_flight_routes
             add_flight_routes(self.router, flight_recorder)
@@ -365,10 +372,14 @@ class UploadServer:
 
     @staticmethod
     def _progress_headers(ts) -> dict:
-        """``X-DF-Piece-Progress``: pieces landed / total at this holder."""
-        md = ts.md
-        return {"X-DF-Piece-Progress":
-                f"{len(md.pieces)}/{md.total_piece_count}"}
+        """``X-DF-Piece-Progress``: pieces landed / total at this holder;
+        none for a storage that keeps no piece table."""
+        md = getattr(ts, "md", None)
+        pieces = getattr(md, "pieces", None)
+        if pieces is None:
+            return {}
+        total = getattr(md, "total_piece_count", -1)
+        return {"X-DF-Piece-Progress": f"{len(pieces)}/{total}"}
 
     async def _acquire_slot(self, cls: str = "standard") -> _Slot:
         """A gate slot for a child of class ``cls``, queueing up to

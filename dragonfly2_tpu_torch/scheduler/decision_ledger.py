@@ -48,9 +48,9 @@ class DecisionLedger:
     ``records`` may be None (memory-only scheduler).
     """
 
-    def __init__(self, records=None):
+    def __init__(self, records=None, max_rows: int = DEFAULT_RING_ROWS):
         self.records = records
-        self._ring: deque = deque(maxlen=DEFAULT_RING_ROWS)
+        self._ring: deque = deque(maxlen=max_rows)
         self.decisions_total = 0
         self.by_kind: Counter = Counter()
         self.excluded_by_reason: Counter = Counter()

@@ -334,6 +334,11 @@ class Task:
             if parent is not None:
                 parent.host.release_upload_slot()
 
+    def would_cycle(self, parent_id: str, child_id: str) -> bool:
+        """Whether the edge ``parent_id -> child_id`` would close a cycle
+        (the parent is downstream of the child)."""
+        return self.dag.can_reach(child_id, parent_id)
+
     def has_available_peer(self) -> bool:
         return any(p.has_content() for p in self.peers.values())
 

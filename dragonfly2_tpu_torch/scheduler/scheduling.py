@@ -49,7 +49,7 @@ from ..common import phasetimer
 from ..common.metrics import REGISTRY
 from ..idl.messages import HostType, PeerAddr, PeerPacket
 from ..tpu.topology import link_type
-from .config import CANDIDATE_PARENT_LIMIT, FILTER_PARENT_LIMIT
+from .config import SchedulerConfig
 from .evaluator import Evaluator
 from .resource import Peer
 
@@ -72,21 +72,13 @@ EXCLUSION_REASONS = ("stream-gone", "blocklist", "no-slots", "bad-node",
 
 
 class Scheduling:
-    def __init__(self, evaluator: Evaluator, *,
-                 rng: random.Random | None = None, sharded=None,
-                 quarantine=None, federation=None,
-                 relay_fanout: int = 0,
-                 class_fanout_caps: dict | None = None,
-                 qos_preemption: bool = True,
-                 candidate_parent_limit: int = CANDIDATE_PARENT_LIMIT,
-                 filter_parent_limit: int = FILTER_PARENT_LIMIT):
+    def __init__(self, cfg: SchedulerConfig, evaluator: Evaluator,
+                 quarantine=None, federation=None, sharded=None, *,
+                 rng: random.Random | None = None):
+        # the fan-out limits and QoS switches are read from ``cfg`` at
+        # each ruling, so a later change to the config reaches the next
+        self.cfg = cfg
         self.evaluator = evaluator
-        self.relay_fanout = relay_fanout
-        # QoS: the per-class relay fan-out caps and bulk preemption
-        self.class_fanout_caps = dict(class_fanout_caps or {})
-        self.qos_preemption = qos_preemption
-        self.candidate_parent_limit = candidate_parent_limit
-        self.filter_parent_limit = filter_parent_limit
         self.rng = rng if rng is not None else random
         # quarantine registry (scheduler/quarantine.py); None skips every
         # lookup, the exact filter path without it
@@ -135,7 +127,7 @@ class Scheduling:
         excl_s = 0.0
         out: list[Peer] = []
         for parent in pool:
-            full = len(out) >= self.filter_parent_limit
+            full = len(out) >= self.cfg.filter_parent_limit
             if full and any(p.has_content() for p in out):
                 break
             if full and not parent.has_content():
@@ -244,13 +236,13 @@ class Scheduling:
         child already holds keep their edge (the cap shapes new edges and
         never tears down working ones). Returns the reshaped order and the
         decision row's note (None when nothing was capped)."""
-        fanout = self.relay_fanout
+        fanout = self.cfg.relay_fanout
         # per-class slot cap: bulk children claim fewer of a parent's
         # relay slots, leaving breadth near the seed for the foreground
         # classes; without caps a bulk child gets half the fan-out
         cls = getattr(child, "qos_class", "standard")
-        if self.class_fanout_caps:
-            fanout = int(self.class_fanout_caps.get(cls, fanout))
+        if self.cfg.class_fanout_caps:
+            fanout = int(self.cfg.class_fanout_caps.get(cls, fanout))
         elif cls == "bulk":
             fanout = max(1, fanout // 2)
         dag = child.task.dag
@@ -280,7 +272,7 @@ class Scheduling:
         parents and its pieces, and a later refresh re-offers it whatever
         is legal then. Returns the victim (the caller pushes it its
         shrunk offer, so its engine drops the edge) or None."""
-        if (not self.qos_preemption
+        if (not self.cfg.qos_preemption
                 or getattr(child, "qos_class", "standard") != "critical"):
             return None
         with phasetimer.ruling("preempt"):
@@ -378,10 +370,10 @@ class Scheduling:
                         explained.sort(key=lambda pe: pe[1]["total"],
                                        reverse=True)
                         scored = [p for p, _ in explained]
-                if self.relay_fanout > 0:
+                if self.cfg.relay_fanout > 0:
                     with phasetimer.phase("relay"):
                         scored, relay_note = self._relay_shape(child, scored)
-                limit = self.candidate_parent_limit
+                limit = self.cfg.candidate_parent_limit
                 if decision_kind == "refresh":
                     kept = [p for p in scored if p.id in prev_offer]
                     fresh = [p for p in scored if p.id not in prev_offer]

@@ -91,13 +91,8 @@ class Scheduler:
                                  host_ttl_s=cfg.host_ttl_s)
         self.topo = TopologyStore()
         self.scheduling = Scheduling(
-            make_evaluator(cfg.algorithm, topo_store=self.topo,
-                           plugin_dir=cfg.plugin_dir), rng=rng,
-            relay_fanout=cfg.relay_fanout,
-            class_fanout_caps=cfg.class_fanout_caps,
-            qos_preemption=cfg.qos_preemption,
-            candidate_parent_limit=cfg.candidate_parent_limit,
-            filter_parent_limit=cfg.filter_parent_limit)
+            cfg, make_evaluator(cfg.algorithm, topo_store=self.topo,
+                                plugin_dir=cfg.plugin_dir), rng=rng)
         if records is None and (cfg.records_dir or cfg.trainer_address):
             records = DownloadRecords(cfg.records_dir)
         # decision ledger: every find/refresh ruling explained, with
@@ -180,10 +175,10 @@ class Scheduler:
                 self.statestore.register("fleetpulse",
                                          self.fleetpulse.export_state,
                                          self.fleetpulse.restore)
-        self.service = SchedulerService(self.resource, self.scheduling,
+        self.service = SchedulerService(cfg, self.resource, self.scheduling,
                                         self.seed_client, self.topo,
                                         records=records, ledger=self.ledger,
-                                        cfg=cfg, fleetpulse=self.fleetpulse,
+                                        fleetpulse=self.fleetpulse,
                                         quarantine=self.quarantine,
                                         federation=self.federation)
         if self.statestore is not None:

@@ -125,14 +125,13 @@ SEED_RETRIGGER_BACKOFF_CAP_S = 30.0
 class SchedulerService:
     REFRESH_INTERVAL_S = 0.5
 
-    def __init__(self, resource: Resource, scheduling: Scheduling,
-                 seed_client: SeedPeerClient, topo: TopologyStore, *,
-                 records=None, ledger=None,
-                 cfg: SchedulerConfig | None = None, fleetpulse=None,
-                 quarantine=None, federation=None):
+    def __init__(self, cfg: SchedulerConfig, resource: Resource,
+                 scheduling: Scheduling, seed_client: SeedPeerClient,
+                 topo: TopologyStore, *, records=None, ledger=None,
+                 quarantine=None, federation=None, fleetpulse=None):
         # the back-source and parent limits (the rest of the config is
         # the server's business)
-        self.cfg = cfg if cfg is not None else SchedulerConfig()
+        self.cfg = cfg
         self.resource = resource
         self.scheduling = scheduling
         self.seed_client = seed_client

@@ -315,7 +315,8 @@ class CAStore:
                     os.unlink(tmp)
             except OSError:
                 pass
-        return True                    # each later open sees the shared inode
+        dst.close()                    # next lease opens the shared inode
+        return True
 
     # -- popularity ----------------------------------------------------
 

@@ -198,6 +198,13 @@ class StorageManager:
         with self._lock:
             return list(self._tasks.values())
 
+    def close(self) -> None:
+        """Drop every task's cached data fd (``TaskStorage.close``): the
+        owner stops, and a task's file must not stay held open after it
+        (a later lease reopens the path)."""
+        for ts in self.tasks():
+            ts.close()
+
     def delete_task(self, task_id: str) -> bool:
         with self._lock:
             ts = self._tasks.pop(task_id, None)

@@ -10,15 +10,18 @@ the landed frontier (``daemon/relay.py``). Where a piece's digest is crc32c (or 
 given), the native library writes and checksums it in one traversal
 (``native.span_write``); otherwise one pwrite and a Python hash. Every
 verified piece is indexed in the daemon's content store (``castore``) when
-one is attached. Each call opens the data file for itself, so a task
-destroyed mid-IO fails the call cleanly instead of writing into a reused
-descriptor, and a data file swapped for a hardlink is seen by the next
-call.
+one is attached. Piece IO is pread/pwrite on the task's cached descriptor,
+leased through ``_data_fd``: a ``close`` (GC eviction, ``destroy``, the
+content store's hardlink swap) that arrives while IO holds a lease is
+deferred to the last releaser, and a lease taken while that close is
+pending opens a private descriptor, so a task destroyed mid-IO fails the
+call cleanly instead of writing into a reused or unlinked descriptor.
 """
 
 from __future__ import annotations
 
 import bisect
+import contextlib
 import dataclasses
 import os
 import shutil
@@ -65,6 +68,9 @@ class TaskStorage:
         self.castore = castore
         self._lock = threading.Lock()
         self._save_lock = threading.Lock()     # one metadata save at a time
+        self._fd: int | None = None        # cached O_RDWR fd (lazy)
+        self._fd_users = 0                 # leases out via _data_fd()
+        self._fd_close_deferred = False    # close() arrived mid-lease
         # covered_prefix memo: (piece count, merged [start, end) spans)
         self._cover_cache: tuple[int, list[list[int]]] | None = None
         self._data_path = os.path.join(task_dir, DATA_FILE)
@@ -73,21 +79,81 @@ class TaskStorage:
             with open(self._data_path, "wb"):
                 pass
 
+    @contextlib.contextmanager
+    def _data_fd(self):
+        """A refcounted lease on the task's cached data fd.
+
+        ``close`` during a lease is deferred to the last releaser: closing
+        the fd under a pread/pwrite would at best fail the IO and at worst,
+        once the number is reused by another task's open, land the bytes
+        in that task's file. While a close is deferred the cached fd may
+        point at an unlinked inode (``destroy`` closes, then removes the
+        directory), so a new lease opens a private fd from the path, which
+        fails safe after ``destroy``."""
+        private = False
+        with self._lock:
+            if self._fd_close_deferred:
+                private = True
+            else:
+                if self._fd is None:
+                    self._fd = os.open(self._data_path, os.O_RDWR)
+                fd = self._fd
+                self._fd_users += 1
+        if private:
+            fd = os.open(self._data_path, os.O_RDWR)
+            try:
+                yield fd
+            finally:
+                try:
+                    os.close(fd)
+                except OSError:
+                    pass
+            return
+        try:
+            yield fd
+        finally:
+            with self._lock:
+                self._fd_users -= 1
+                close_now = (self._fd_close_deferred
+                             and self._fd_users == 0
+                             and self._fd is not None)
+                if close_now:
+                    fd, self._fd = self._fd, None
+                    self._fd_close_deferred = False
+            if close_now:
+                try:
+                    os.close(fd)
+                except OSError:
+                    pass
+
+    def close(self) -> None:
+        """Drop the cached fd; the next lease reopens the path. With IO
+        in flight the close waits for the last lease."""
+        with self._lock:
+            if self._fd is None:
+                self._fd_close_deferred = False
+                return
+            if self._fd_users:
+                self._fd_close_deferred = True
+                return
+            fd, self._fd = self._fd, None
+        try:
+            os.close(fd)
+        except OSError:
+            pass
+
     def _write(self, offset: int, data, sizes: list[int],
                fused: bool) -> list[str] | None:
         """pwrite ``data`` at ``offset``; with ``fused``, through the native
         library with each piece's crc32c folded in (the list it returns,
         None when the library is absent and the plain write ran)."""
         try:
-            fd = os.open(self._data_path, os.O_WRONLY)
-            try:
+            with self._data_fd() as fd:
                 crcs = (native.span_write(fd, offset, data, sizes)
                         if fused else None)
                 if crcs is None:
                     _pwrite_all(fd, data, offset)
                 return crcs
-            finally:
-                os.close(fd)
         except OSError as exc:
             raise DFError(Code.CLIENT_STORAGE_ERROR,
                           f"write @{offset}+{sum(sizes)} failed: "
@@ -136,13 +202,15 @@ class TaskStorage:
 
     def write_span(self, pieces: list[tuple[int, int, int, str]], data,
                    *, base: int | None = None, cost_ms: int = 0,
-                   source: str = "") -> tuple[list[PieceMeta], list[int]]:
+                   source: str = "") -> tuple[list[PieceMeta], list[int], str]:
         """Land a contiguous downloaded span in one pass.
 
         ``pieces``: ``(num, offset, size, digest)`` in ascending offset
         order; ``data[i]`` is content offset ``base + i`` (``base``
         defaults to the first piece's offset). Returns ``(landed_metas,
-        corrupt_nums)``. A digest-mismatched piece's bytes hit the file
+        corrupt_nums, path)``, ``path`` naming the traversal: ``native``
+        (pwrite and crc32c fused in the native library) or ``python``
+        (one pwrite and a Python hash). A digest-mismatched piece's bytes hit the file
         but are never recorded, so the region stays absent (never served,
         rewritten by the retry) and its groupmates land normally. Pieces
         already recorded (endgame duplicates) are not rewritten.
@@ -162,6 +230,7 @@ class TaskStorage:
                 runs.append([p])
         metas: list[PieceMeta] = []
         corrupt: list[int] = []
+        used_native = False
         try:
             for run in runs:
                 lo = run[0][1] - base
@@ -176,6 +245,7 @@ class TaskStorage:
                     piece_view = run_view[pos:pos + size]
                     pos += size
                     if crcs is not None:
+                        used_native = True
                         if dg and crcs[i] != digests[i][1]:
                             corrupt.append(num)
                             continue
@@ -201,7 +271,7 @@ class TaskStorage:
             for meta in metas:
                 self.castore.add_piece(self.md.task_id, meta.num,
                                        meta.start, meta.size, meta.digest)
-        return metas, corrupt
+        return metas, corrupt, ("native" if used_native else "python")
 
     def adopt_from(self, src: "TaskStorage") -> None:
         """Adopt ``src``'s geometry and piece table, once this task's data
@@ -262,11 +332,8 @@ class TaskStorage:
             raise DFError(Code.CLIENT_PIECE_NOT_FOUND,
                           f"piece {num} not in task {self.md.task_id[:12]}")
         try:
-            fd = os.open(self._data_path, os.O_RDONLY)
-            try:
+            with self._data_fd() as fd:
                 data = _pread_all(fd, meta.size, meta.start)
-            finally:
-                os.close(fd)
         except OSError as exc:
             raise DFError(Code.CLIENT_STORAGE_ERROR,
                           f"piece {num} read failed: {exc}") from None
@@ -278,11 +345,8 @@ class TaskStorage:
 
     def read_range(self, start: int, length: int) -> bytes:
         try:
-            fd = os.open(self._data_path, os.O_RDONLY)
-            try:
+            with self._data_fd() as fd:
                 return _pread_all(fd, length, start)
-            finally:
-                os.close(fd)
         except OSError as exc:
             raise DFError(Code.CLIENT_STORAGE_ERROR,
                           f"range read @{start}+{length} failed: "
@@ -345,6 +409,30 @@ class TaskStorage:
                 nums = nums[:limit]
             return [self.md.pieces[n] for n in nums]
 
+    def content_hash(self, algo: str, length: int = -1) -> str:
+        """Hash the data file's first ``length`` bytes (all of it with -1)
+        in 4 MiB reads."""
+        def chunks():
+            remaining = length
+            with open(self._data_path, "rb") as f:
+                while remaining:
+                    b = f.read(4 << 20 if remaining < 0
+                               else min(4 << 20, remaining))
+                    if not b:
+                        return
+                    if remaining > 0:
+                        remaining -= len(b)
+                    yield b
+        return digestlib.hash_stream(algo, chunks())
+
+    def verify_content(self) -> bool:
+        """Re-hash the whole file against the recorded content digest
+        (True when none is recorded)."""
+        if not self.md.digest:
+            return True
+        algo, _ = digestlib.parse(self.md.digest)
+        return f"{algo}:{self.content_hash(algo)}" == self.md.digest
+
     def store_to(self, output_path: str, *, range_start: int = 0,
                  range_length: int = -1) -> None:
         """Land the completed content (or its byte range) at
@@ -399,6 +487,7 @@ class TaskStorage:
             return 0
 
     def destroy(self) -> None:
+        self.close()
         shutil.rmtree(self.dir, ignore_errors=True)
 
 

@@ -576,8 +576,8 @@ def test_qos_keys_are_wired(tmp_path, svc, key):
         cfg = from_dict(SchedulerConfig, data)
         assert cfg.unported() == []
         sched = Scheduler(cfg)
-        got = {"class_fanout_caps": sched.scheduling.class_fanout_caps,
-               "qos_preemption": sched.scheduling.qos_preemption}[key]
+        got = {"class_fanout_caps": sched.scheduling.cfg.class_fanout_caps,
+               "qos_preemption": sched.scheduling.cfg.qos_preemption}[key]
         assert got == value
         return
     data.update(workdir=str(tmp_path), device="cpu")
@@ -796,8 +796,8 @@ def test_scheduler_limits_ttls_and_gc_cadence_are_wired():
                           peer_ttl_s=1.0, task_ttl_s=2.0, host_ttl_s=0.01,
                           gc_interval_s=0.05)
     sched = Scheduler(cfg)
-    assert (sched.scheduling.candidate_parent_limit,
-            sched.scheduling.filter_parent_limit) == (3, 6)
+    assert (sched.scheduling.cfg.candidate_parent_limit,
+            sched.scheduling.cfg.filter_parent_limit) == (3, 6)
     assert sched.service.cfg is cfg
     assert (sched.resource.peer_ttl_s, sched.resource.task_ttl_s,
             sched.resource.host_ttl_s) == (1.0, 2.0, 0.01)

@@ -237,8 +237,8 @@ def build_task(pods=2, per_pod=3):
 
 
 def make_sched(federation):
-    return Scheduling(make_evaluator("default"), rng=random.Random(0),
-                      federation=federation)
+    return Scheduling(SchedulerConfig(), make_evaluator("default"),
+                      federation=federation, rng=random.Random(0))
 
 
 def make_fed(peers, seeds_per_pod=1):

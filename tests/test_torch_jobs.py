@@ -260,7 +260,8 @@ def _service(impl: str, stub: _StubSeed):
         from dragonfly2_tpu_torch.scheduler.topology_store import \
             TopologyStore
         res = Resource()
-        svc = SchedulerService(res, Scheduling(Evaluator()), stub,
+        cfg = SchedulerConfig()
+        svc = SchedulerService(cfg, res, Scheduling(cfg, Evaluator()), stub,
                                TopologyStore())
     stub.resource = res
     return svc

@@ -243,11 +243,12 @@ def test_decision_rows_match_reference_and_leave_the_schedule(seed):
                                       RefEvaluator())
             ref_sched.decision_sink = ref_rows.append
             ref_parents = getattr(ref_sched, kind)(ref_task.peers[cid])
-            port_sched = Scheduling(Evaluator(),
+            port_sched = Scheduling(SchedulerConfig(), Evaluator(),
                                     rng=random.Random(seed * 100 + i))
             port_sched.decision_sink = port_rows.append
             port_parents = getattr(port_sched, kind)(port_task.peers[cid])
-            plain = Scheduling(Evaluator(), rng=random.Random(seed * 100 + i))
+            plain = Scheduling(SchedulerConfig(), Evaluator(),
+                               rng=random.Random(seed * 100 + i))
             plain_parents = getattr(plain, kind)(plain_task.peers[cid])
             assert [p.id for p in port_parents] == \
                 [p.id for p in plain_parents] == [p.id for p in ref_parents]
@@ -273,7 +274,8 @@ def test_piece_rows_join_their_decision_as_the_reference_does():
     random.seed(7)
     ref_sched = RefScheduling(ref_config.SchedulerConfig(), RefEvaluator())
     ref_sched.decision_sink = RefDecisionLedger(ref_rec).on_decision
-    port_sched = Scheduling(Evaluator(), rng=random.Random(7))
+    port_sched = Scheduling(SchedulerConfig(), Evaluator(),
+                            rng=random.Random(7))
     port_sched.decision_sink = DecisionLedger(port_rec).on_decision
     rng = np.random.default_rng(3)
     for cid in ids:

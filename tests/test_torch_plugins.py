@@ -402,7 +402,7 @@ def test_plugin_rulings_and_decision_rows_match_reference(tmp_path, seed):
             ref_sched = RefScheduling(ref_config.SchedulerConfig(), ref_ev)
             ref_sched.decision_sink = ref_rows.append
             ref_parents = getattr(ref_sched, kind)(ref_task.peers[cid])
-            port_sched = Scheduling(port_ev,
+            port_sched = Scheduling(SchedulerConfig(), port_ev,
                                     rng=random.Random(seed * 100 + i))
             port_sched.decision_sink = port_rows.append
             port_parents = getattr(port_sched, kind)(port_task.peers[cid])

@@ -250,6 +250,7 @@ def test_nt_rulings_and_decision_rows_match_reference(frozen_clock):
             ref_sched.decision_sink = ref_rows.append
             ref_parents = getattr(ref_sched, kind)(ref_task.peers[cid])
             port_sched = Scheduling(
+                SchedulerConfig(),
                 port_evaluator.make_evaluator("nt", topo_store=port_store),
                 rng=random.Random(300 + i))
             port_sched.decision_sink = port_rows.append

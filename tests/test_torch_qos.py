@@ -737,11 +737,8 @@ def _service(impl: str, **cfg_kw):
     from dragonfly2_tpu_torch.scheduler.topology_store import TopologyStore
     cfg = SchedulerConfig(**cfg_kw)
     res = Resource()
-    sched = Scheduling(Evaluator(), relay_fanout=cfg.relay_fanout,
-                       class_fanout_caps=cfg.class_fanout_caps,
-                       qos_preemption=cfg.qos_preemption)
-    return SchedulerService(res, sched, SeedPeerClient(res, []),
-                            TopologyStore(), cfg=cfg)
+    return SchedulerService(cfg, res, Scheduling(cfg, Evaluator()),
+                            SeedPeerClient(res, []), TopologyStore())
 
 
 def _m(impl: str):
@@ -1016,10 +1013,12 @@ class TestClassFanoutCaps:
                                                                  Resource,
                                                                  Task)
             from dragonfly2_tpu_torch.scheduler.scheduling import Scheduling
-            sched = Scheduling(Evaluator(), relay_fanout=4)
+            from dragonfly2_tpu_torch.scheduler.config import \
+                SchedulerConfig
+            sched = Scheduling(SchedulerConfig(relay_fanout=4), Evaluator())
 
             def set_caps(caps):
-                sched.class_fanout_caps = caps
+                sched.cfg.class_fanout_caps = caps
         m = _m(impl)
         res = Resource()
         task = Task("f" * 64, "http://o/f")

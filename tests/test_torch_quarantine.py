@@ -443,7 +443,8 @@ def test_quarantined_parent_excluded_with_reason():
     child = peer("child")
     reg = port_quarantine.QuarantineRegistry(corrupt_threshold=1.0,
                                              min_reporters=1)
-    sched = Scheduling(Evaluator(), rng=random.Random(0), quarantine=reg)
+    sched = Scheduling(SchedulerConfig(), Evaluator(), quarantine=reg,
+                       rng=random.Random(0))
     rows = []
     sched.decision_sink = rows.append
     assert {p.id for p in sched.find_parents(child)} \
@@ -464,8 +465,8 @@ def _seeded_rulings(port: bool, seed: int, quarantined: int) -> list:
         res, task, peer = _cluster(Resource, Task, PeerState, Host)
         reg = port_quarantine.QuarantineRegistry(corrupt_threshold=1.0,
                                                  min_reporters=1)
-        sched = Scheduling(Evaluator(), rng=random.Random(seed),
-                           quarantine=reg)
+        sched = Scheduling(SchedulerConfig(), Evaluator(), quarantine=reg,
+                           rng=random.Random(seed))
     else:
         res, task, peer = _cluster(RefResource, RefTask, RefPeerState,
                                    ref_msg.Host)
@@ -505,7 +506,8 @@ def test_armed_empty_registry_and_no_federation_change_nothing():
         for i in range(10):
             p = peer(f"h{i}")
             p.finished_pieces = set(rng.sample(range(100), 50))
-        sched = Scheduling(Evaluator(), rng=random.Random(9), **kw)
+        sched = Scheduling(SchedulerConfig(), Evaluator(),
+                           rng=random.Random(9), **kw)
         rows: list = []
         sched.decision_sink = rows.append
         out = [[p.id for p in sched.find_parents(peer(f"c{i}"))]

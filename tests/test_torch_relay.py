@@ -54,6 +54,7 @@ from dragonfly2_tpu_torch.idl.messages import (DownloadRequest, PeerAddr,
                                                PieceTaskRequest,
                                                RegisterResult, SizeScope,
                                                UrlMeta)
+from dragonfly2_tpu_torch.scheduler.config import SchedulerConfig
 from dragonfly2_tpu_torch.scheduler.evaluator import Evaluator
 from dragonfly2_tpu_torch.scheduler.scheduling import Scheduling
 from dragonfly2_tpu_torch.storage.manager import StorageConfig, StorageManager
@@ -766,8 +767,8 @@ def test_relay_fanout_rulings_match_reference(frozen_clock):
                 ref_config.SchedulerConfig(relay_fanout=2), RefEvaluator())
             ref_sched.decision_sink = ref_rows.append
             ref_parents = getattr(ref_sched, kind)(ref_task.peers[cid])
-            port_sched = Scheduling(Evaluator(), rng=random.Random(500 + i),
-                                    relay_fanout=2)
+            port_sched = Scheduling(SchedulerConfig(relay_fanout=2),
+                                    Evaluator(), rng=random.Random(500 + i))
             port_sched.decision_sink = port_rows.append
             port_parents = getattr(port_sched, kind)(port_task.peers[cid])
             assert [p.id for p in port_parents] == \
@@ -855,7 +856,7 @@ def test_an_unruled_peer_offered_as_a_parent_is_cycle_blocked():
              RefScheduling(ref_config.SchedulerConfig(relay_fanout=1),
                            RefEvaluator())),
             ("port", port_resource, port_msg,
-             Scheduling(Evaluator(), relay_fanout=1))):
+             Scheduling(SchedulerConfig(relay_fanout=1), Evaluator()))):
         random.seed(0)
         task, peers = _staged_chain(res_mod, msg_mod)
         offer = sched.refresh_parents(peers["l2"])

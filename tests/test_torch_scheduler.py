@@ -177,7 +177,8 @@ def test_scheduling_matches_reference(seed):
             ref_sched = RefScheduling(ref_config.SchedulerConfig(),
                                       RefEvaluator())
             ref_parents = getattr(ref_sched, kind)(ref_task.peers[cid])
-            port_sched = Scheduling(Evaluator(),
+            port_sched = Scheduling(port_config.SchedulerConfig(),
+                                    Evaluator(),
                                     rng=random.Random(seed * 100 + i))
             port_parents = getattr(port_sched, kind)(port_task.peers[cid])
             assert [p.id for p in port_parents] == \

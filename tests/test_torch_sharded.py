@@ -403,7 +403,7 @@ def test_scheduling_arm(enabled):
     res = Resource()
     task = Task("t" + "1" * 63, "file:///x")
     child = _peer(res, port_msg, task, "c0")
-    sched = Scheduling(make_evaluator("default"),
+    sched = Scheduling(SchedulerConfig(), make_evaluator("default"),
                        sharded=ShardAffinity() if enabled else None)
     ref = RefScheduling(RefSchedulerConfig(), ref_make_evaluator("default"),
                         sharded=RefShardAffinity() if enabled else None)
@@ -580,7 +580,8 @@ def test_swap_partners_pass_the_cycle_filter():
                     topology=p.host.msg.topology, requested=["s0", "s1"])
         return task, a, b, other
 
-    port = Scheduling(make_evaluator("default"), sharded=ShardAffinity())
+    port = Scheduling(SchedulerConfig(), make_evaluator("default"),
+                      sharded=ShardAffinity())
     task, a, b, other = stack(Resource, Task, port_msg, port)
     assert {p.id for p in port.filter_candidates(a)} == {b.id}
     ref = RefScheduling(RefSchedulerConfig(), ref_make_evaluator("default"),
@@ -588,7 +589,7 @@ def test_swap_partners_pass_the_cycle_filter():
     rtask, ra, rb, rother = stack(RefResource, RefTask, ref_msg, ref)
     assert ref.filter_candidates(ra) == []       # b excluded: cycle
     # not partners (another pod), or no shard arm: the cycle rule holds
-    plain = Scheduling(make_evaluator("default"))
+    plain = Scheduling(SchedulerConfig(), make_evaluator("default"))
     task2, a2, _b2, _o2 = stack(Resource, Task, port_msg, plain)
     assert plain.filter_candidates(a2) == []
     task.set_parents(a.id, [b.id, other.id])
@@ -618,7 +619,8 @@ def test_swap_partner_outlasts_a_bad_node_blip():
                 topology=p.host.msg.topology, requested=["s0", "s1"])
         return a, b
 
-    port = Scheduling(make_evaluator("default"), sharded=ShardAffinity())
+    port = Scheduling(SchedulerConfig(), make_evaluator("default"),
+                      sharded=ShardAffinity())
     a, b = stack(Resource, Task, port_msg, port)
     assert port.evaluator.is_bad_node(b)
     assert {p.id for p in port.filter_candidates(a)} == {b.id}
